@@ -9,10 +9,12 @@ Phases, each failing loudly (exit code 1, no result line):
    (nvidia-smi) and turns TF32 off for every fp32 comparison.
 2. build: compiles the port's CUDA kernels from mxnet_tpu_torch/csrc with
    nvcc and prints the build time and ptxas' register/smem report.
-3. kernels: fused_conv_unit's CUDA kernel against its plain PyTorch
-   version at the 20 fused-unit configurations of ResNet-50 v1 at 224x224
-   (N=32, bf16, want_stats on and off, random shift), two fp32
-   configurations and a 3x3 stride-2 one (BasicBlockV1).  One line per
+3. kernels, at the shapes each main path gives them: fused_conv_unit's
+   CUDA kernel against its plain PyTorch version at the 20 fused-unit
+   configurations of ResNet-50 v1 at 224x224 in bf16, at N=32 without
+   statistics (a served batch) and at N=256 with them and a random shift
+   (a training step); then two fp32 configurations and a 3x3 stride-2
+   one (BasicBlockV1) at N=32.  One line per
    configuration: kernel_ms, ref_ms (the plain version), library_ms
    (F.conv2d on the pre-activated input, a yardstick the port never
    calls) and bound_ms (max of FLOPs over peak and bytes over 3.35 TB/s,
@@ -27,21 +29,55 @@ Phases, each failing loudly (exit code 1, no result line):
            printed beside it ("1ulp bare"); s1/s2 within rtol 2e-3 of
            sum|.|
      want_stats=False: s1/s2 exactly 0.
-4. main path: full-width ResNet-50 v1 (random weights from a seed), bf16,
-   NHWC, 224x224, exported with export_model, served through
+   Then fused_conv_unit_bwd's CUDA kernel against its plain version at
+   the 14 stride-1 configurations of ResNet-50 v1 (N=256, bf16,
+   want_stats on), one fp32 and one want_stats-off configuration (N=32),
+   on y from the forward kernel and random cotangents.  library_ms is
+   PyTorch's dgrad
+   + wgrad convolutions (torch.nn.grad.conv2d_input + conv2d_weight) on
+   the same tensors; bound_ms is max(2x the forward FLOPs / peak, bytes
+   of x, y, gy, gx, w, dw / 3.35 TB/s).  Tolerances: gx and dw as y
+   above (bf16: 1 ulp + 4*sqrt(K)*2^-24*sum|terms| on >= 99.9%, <= 2 ulp
+   + slack everywhere; fp32: 2^-23 relative + the slack), K = kh*kw*Co
+   for gx and N*Ho*Wo for dw; gscale and gbias within 1e-4 of
+   sum|terms|; without act_in exactly 0.
+4. main path, serving: full-width ResNet-50 v1 (random weights from a
+   seed), bf16, NHWC, 224x224, exported with export_model, served through
    ModelRepository -> InferenceServer with MXNET_FUSED_CONVBN=1 to
    requests from several threads.  Every request must be answered, the
    kernel launch count must rise by exactly 52 per launched batch, and
    the answers must match a direct forward with MXNET_FUSED_CONVBN=0
    (op-granular, no kernel) to relative L2 error < 2e-2; then the same
    with an fp32 copy of the net, bound 1e-4.
+5. main path, training (bench.py's configuration): make_mesh(dp=1) +
+   SPMDTrainer(SoftmaxCrossEntropyLoss, sgd lr 0.1 momentum 0.9 wd 1e-4)
+   on full-width ResNet-50 v1, bf16, NHWC, 224x224, batch 256, a fixed
+   synthetic batch, with MXNET_FUSED_CONVBN=1 and MXNET_FUSED_CONVBN_BWD=1.
+   Every step must launch the forward kernel exactly 52 times and the
+   backward kernel 46 times, and give a finite loss.  One step from
+   identical weights (running means warm) is held against the
+   op-granular step (both knobs off, cuDNN), and both against a step of
+   a higher-precision copy (fp32 at batch 8 against float64; bf16 at
+   batch 256 against fp32), leaf by leaf (step_agreement): on every
+   leaf where op-granular lands within 25% of the reference, the fused
+   update w1 - w0, and the logits of a training-mode forward, must lie
+   within 2x (fp32) / 1.25x (bf16) the op-granular distance, or the
+   witness's where larger, plus 1e-4 (fp32) / 2e-2 (bf16) of the
+   reference; the loss within 1e-5 (fp32) / 2e-2 (bf16) relative of
+   op-granular's.  The fp32 witness is the float64 step with inputs and
+   weights moved by 2^-24 relative: at random weights it lands ~0.7%
+   away, so no fp32 step can be held to 1e-3 over all weights.  Then
+   each mode trains its own copy of the net, in turns, timed and
+   profiled.
 
-The line before the last is the kernel summary
-{"kernels": [...]}; the last line is
+The line before the last is the kernel summary {"kernels": [...]}, one
+entry per kernel and main path (kernel 1 served and trained, kernel 2
+trained), from the checks at that path's shapes; the last line is
 {"ok": true, "device": {"platform": "gpu", ...}}.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
@@ -61,6 +97,19 @@ REQUESTS, THREADS = 128, 8   # single-image requests, client threads
 KERNEL = {"name": "fused_conv_unit", "route": "cuda",
           "source": "mxnet_tpu_torch/csrc/fused_convbn.cu",
           "replaces": "mxnet_tpu/ops/pallas_convbn.py:156"}
+KERNEL_BWD = {"name": "fused_conv_unit_bwd", "route": "cuda",
+              "source": "mxnet_tpu_torch/csrc/fused_convbn_bwd.cu",
+              "replaces": "mxnet_tpu/ops/pallas_convbn.py:283"}
+TRAIN_BATCH, TRAIN_STEPS = 256, 3     # bench.py's batch; timed steps a mode
+TRAIN_FP32_BATCH = 8
+TRAIN_OPT = {"learning_rate": 0.1, "momentum": 0.9, "wd": 1e-4}
+FWD_PER_STEP, BWD_PER_STEP = 52, 46   # fused units; the stride-1 ones
+# one step, fused against op-granular and a higher-precision reference
+# (see step_agreement): a leaf's update is checked where op-granular lands
+# within LEAF_POWER of the reference
+LEAF_POWER = 0.25
+TRAIN_BOUNDS_FP32 = dict(loss=1e-5, rel=2.0, abs=1e-4)
+TRAIN_BOUNDS_BF16 = dict(loss=2e-2, rel=1.25, abs=2e-2)
 
 FAILURES = []
 
@@ -268,30 +317,38 @@ def check_unit(name, x, w, sc, bi, sh, k, s, p, act_in, want_stats):
 
 
 def make_unit_inputs(gen, n, hw, ci, co, k, dtype, dev):
-    x = torch.randn(n, hw, hw, ci, generator=gen).to(dev, dtype)
-    w = (torch.randn(co, ci, k, k, generator=gen)
-         / math.sqrt(ci * k * k)).to(dev, dtype)
-    sc = (torch.rand(ci, generator=gen) + 0.5).to(dev)
-    bi = (torch.randn(ci, generator=gen) * 0.5).to(dev)
-    sh = (torch.randn(co, generator=gen) * 0.1).to(dev)
+    """Random inputs of one unit, drawn on the card from `gen`."""
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device=dev)
+    x = randn(n, hw, hw, ci).to(dtype)
+    w = (randn(co, ci, k, k) / math.sqrt(ci * k * k)).to(dtype)
+    sc = torch.rand(ci, generator=gen, device=dev) + 0.5
+    bi = randn(ci) * 0.5
+    sh = randn(co) * 0.1
     return x, w, sc, bi, sh
 
 
 def phase_kernels():
+    """Kernel 1 at the shapes each main path gives it: the 20 ResNet-50
+    configurations at N=BATCH without statistics (a served batch) and at
+    N=TRAIN_BATCH with them (a training step); then two fp32
+    configurations and a 3x3 stride-2 one at N=BATCH."""
     dev = torch.device("cuda", 0)
-    gen = torch.Generator().manual_seed(1234)
+    gen = torch.Generator(device=dev).manual_seed(1234)
     recs = []
-    print(f"kernel vs plain version, N={BATCH}:", flush=True)
-    for (name, hw, ci, co, k, s, p, act_in, count) \
-            in resnet50_unit_configs():
-        x, w, sc, bi, sh = make_unit_inputs(gen, BATCH, hw, ci, co, k,
-                                            torch.bfloat16, dev)
-        for want_stats in (False, True):
+    for n, want_stats, path in ((BATCH, False, "serve"),
+                                (TRAIN_BATCH, True, "train")):
+        print(f"kernel vs plain version, N={n}, want_stats={want_stats} "
+              f"({path}):", flush=True)
+        for (name, hw, ci, co, k, s, p, act_in, count) \
+                in resnet50_unit_configs():
+            x, w, sc, bi, sh = make_unit_inputs(gen, n, hw, ci, co, k,
+                                                torch.bfloat16, dev)
             rec = check_unit(name, x, w, sc, bi, sh, k, s, p, act_in,
                              want_stats)
-            rec["count"] = count
-            recs.append(rec)
-        del x, w
+            recs.append(dict(rec, count=count, path=path))
+            del x, w
+        torch.cuda.empty_cache()
     extra = [("fp32.s2.conv2", 28, 128, 128, 3, 1, 1, True, torch.float32),
              ("fp32.s3.conv1.first", 28, 512, 256, 1, 2, 0, False,
               torch.float32),
@@ -300,29 +357,163 @@ def phase_kernels():
         x, w, sc, bi, sh = make_unit_inputs(gen, BATCH, hw, ci, co, k, dt,
                                             dev)
         rec = check_unit(name, x, w, sc, bi, sh, k, s, p, act_in, True)
-        rec["count"] = 0
-        recs.append(rec)
+        recs.append(dict(rec, count=0, path="extra"))
     torch.cuda.empty_cache()
     return recs
 
 
-def kernel_summary(recs, launches):
-    """One record for the kernel: times summed over the 52 launches of one
-    batch-32 ResNet-50 forward (eval: want_stats off), each configuration
-    weighted by how often the forward launches it."""
-    main = [r for r in recs if r["dtype"] == "bfloat16"
-            and not r["want_stats"] and r["count"]]
+def kernel_summary(kernel, recs, path, launches):
+    """One record of the `kernels` line for one kernel on one main path:
+    times and bounds summed over the launches of one forward (served
+    batch of BATCH) or one training step (batch TRAIN_BATCH), from the
+    checks at that path's shapes, each configuration weighted by how
+    often the path launches it.  `launches` is the count of the path's
+    counted run."""
+    main = [r for r in recs if r["path"] == path and r["count"]]
     tot = {k: sum(r[k] * r["count"] for r in main)
            for k in ("kernel_ms", "ref_ms", "library_ms", "bound_ms")}
     by_ops = sum(r["bound_ms"] * r["count"] for r in main
                  if r["bound_by"] == "operations")
-    return dict(KERNEL, launches=launches,
-                max_abs_err=max(r["max_abs_err"] for r in recs),
+    return dict(kernel, path=path, batch=main[0]["shape"][0],
+                launches=launches,
+                max_abs_err=max(r["max_abs_err"] for r in main),
                 ms=tot["kernel_ms"], plain_ms=tot["ref_ms"],
                 bound_ms=tot["bound_ms"],
                 bound_by="operations" if by_ops >= tot["bound_ms"] / 2
                 else "bytes",
                 library_ms=tot["library_ms"])
+
+
+def check_unit_bwd(name, x, w, sc, bi, sh, k, p, act_in, want_stats, gen):
+    """Backward kernel vs its plain version on one stride-1
+    configuration; y comes from the forward kernel, the cotangents from
+    `gen`.  Returns a record."""
+    from mxnet_tpu_torch.ops import fused_convbn as fcb
+
+    kernel, pad = (k, k), (p, p)
+    dev = x.device
+    y, _, _ = fcb.fused_conv_unit(x, w, sc, bi, sh, kernel=kernel, pad=pad,
+                                  act_in=act_in, want_stats=True)
+    co = w.shape[0]
+    gy = (torch.randn(y.shape, generator=gen, device=dev)
+          / math.sqrt(y.numel())).to(x.dtype)
+    gs1 = torch.randn(co, generator=gen, device=dev) * 1e-4
+    gs2 = torch.randn(co, generator=gen, device=dev) * 1e-4
+    args = (x, w, sc, bi, sh, y, gy, gs1, gs2)
+    kw = dict(kernel=kernel, stride=(1, 1), pad=pad, act_in=act_in,
+              want_stats=want_stats)
+    got = fcb.fused_conv_unit_bwd(*args, **kw)
+    torch.cuda.synchronize()
+    ref = fcb.fused_conv_unit_bwd_ref(*args, kernel, (1, 1), pad, act_in,
+                                      want_stats)
+    # Σ|terms| of each sum: the conv gradients of |dy| and |u|, |w| in fp32
+    dy_abs = fcb._fold_dy(y, gy, sh, gs1, gs2, want_stats).float().abs()
+    u_abs = fcb._affine_in(x, sc, bi, act_in).float().abs()
+    du_mag, dw_mag = fcb._conv_grads(u_abs, w.float().abs(), dy_abs, (1, 1),
+                                     pad, torch.float32)
+    n, h, wd, ci = x.shape
+    m_out = y.shape[0] * y.shape[1] * y.shape[2]
+    sc_abs = sc.abs() if act_in else torch.ones_like(sc)
+    ok, notes, max_abs = True, [], 0.0
+    for tag, a, b, mag, klen in (
+            ("gx", got[0], ref[0], du_mag * sc_abs, k * k * co),
+            ("dw", got[1], ref[1], dw_mag, m_out)):
+        a, b = a.float(), b.float()
+        err = (a - b).abs()
+        max_abs = max(max_abs, float(err.max()))
+        slack = 4.0 * math.sqrt(klen) * 2.0 ** -24 * mag
+        if x.dtype == torch.bfloat16:
+            ulp = bf16_ulp(b)
+            frac = float((err <= ulp + slack).float().mean())
+            worst = float(((err - slack) / ulp).max())
+            notes.append(f"{tag} 1ulp+slack {frac * 100:.3f}% worst "
+                         f"{worst:.2f}ulp")
+            if frac < 0.999 or worst > 2.0:
+                ok = False
+                fail(f"bwd {name}: {tag} within 1 ulp on {frac:.5f} (< 0.999)"
+                     f" or worst {worst:.2f} ulp (> 2)")
+        else:
+            bad = err > 2.0 ** -23 * b.abs() + slack
+            notes.append(f"{tag} max_abs {float(err.max()):.3g}")
+            if bool(bad.any()):
+                ok = False
+                fail(f"bwd {name}: fp32 {tag} off on {int(bad.sum())} "
+                     f"elements (max abs {float(err.max()):.3g})")
+    if act_in:
+        scale_x = (du_mag * x.float().abs()).sum(dim=(0, 1, 2))
+        scale_1 = du_mag.sum(dim=(0, 1, 2))
+        for tag, a, b, s in (("gscale", got[2], ref[2], scale_x),
+                             ("gbias", got[3], ref[3], scale_1)):
+            rel = float(((a - b).abs() / s.clamp_min(1e-30)).max())
+            notes.append(f"{tag} rel {rel:.2g}")
+            if rel > 1e-4:
+                ok = False
+                fail(f"bwd {name}: {tag} rel err {rel:.3g} > 1e-4")
+    elif bool(got[2].any()) or bool(got[3].any()):
+        ok = False
+        fail(f"bwd {name}: act_in=False but gscale/gbias are not zero")
+    kernel_ms = time_ms(lambda: fcb.fused_conv_unit_bwd(*args, **kw))
+    ref_ms = time_ms(lambda: fcb.fused_conv_unit_bwd_ref(
+        *args, kernel, (1, 1), pad, act_in, want_stats))
+    # yardstick: PyTorch's dgrad + wgrad convolutions on the same tensors
+    u_nchw = fcb._affine_in(x, sc, bi, act_in).permute(0, 3, 1, 2)
+    dy_nchw = fcb._fold_dy(y, gy, sh, gs1, gs2, want_stats).permute(
+        0, 3, 1, 2)
+
+    def library():
+        torch.nn.grad.conv2d_input(u_nchw.shape, w, dy_nchw, padding=pad)
+        torch.nn.grad.conv2d_weight(u_nchw, w.shape, dy_nchw, padding=pad)
+    library_ms = time_ms(library)
+    flops = 2.0 * (2.0 * m_out * co * k * k * ci)
+    item = x.element_size()
+    nbytes = (x.numel() * 2 + y.numel() * 2 + w.numel() * 2) * item
+    peak = PEAK_BF16 if x.dtype == torch.bfloat16 else PEAK_FP32
+    t_ops, t_bytes = flops / peak * 1e3, nbytes / PEAK_BYTES * 1e3
+    rec = dict(name=name, dtype=str(x.dtype).replace("torch.", ""),
+               shape=[n, h, wd, ci], co=co, k=k, p=p, act_in=act_in,
+               want_stats=want_stats, ok=ok, max_abs_err=max_abs,
+               kernel_ms=kernel_ms, ref_ms=ref_ms, library_ms=library_ms,
+               bound_ms=max(t_ops, t_bytes),
+               bound_by="operations" if t_ops >= t_bytes else "bytes",
+               gflop=flops / 1e9, mbytes=nbytes / 1e6)
+    print(f"  bwd {name:<18} {rec['dtype']:<8} x{rec['shape']} co={co} k{k}"
+          f"p{p} act={int(act_in)} stats={int(want_stats)} | "
+          f"kernel_ms={kernel_ms:.4f} ref_ms={ref_ms:.4f} "
+          f"library_ms={library_ms:.4f} bound_ms={rec['bound_ms']:.4f} "
+          f"({rec['bound_by']}) | {'; '.join(notes)} | "
+          f"{'ok' if ok else 'FAIL'}", flush=True)
+    return rec
+
+
+def phase_kernels_bwd():
+    """The backward kernel at the 14 stride-1 configurations of ResNet-50
+    v1 at the training step's shapes (N=TRAIN_BATCH, bf16, want_stats
+    on), then one fp32 and one want_stats-off configuration at
+    N=BATCH."""
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(4321)
+    recs = []
+    cfgs = [c for c in resnet50_unit_configs() if c[5] == 1]
+    if len(cfgs) != 14 or sum(c[8] for c in cfgs) != BWD_PER_STEP:
+        fail(f"bwd: {len(cfgs)} stride-1 configurations launched "
+             f"{sum(c[8] for c in cfgs)} times (want 14 and {BWD_PER_STEP})")
+    extra = [("fp32.s2.conv2", 28, 128, 128, 3, 1, 1, True, 0,
+              torch.float32, True),
+             ("nostats.s3.conv3", 14, 256, 1024, 1, 1, 0, True, 0,
+              torch.bfloat16, False)]
+    print(f"backward kernel vs plain version, N={TRAIN_BATCH} (train), "
+          f"extras N={BATCH}:", flush=True)
+    for cfg in [c + (torch.bfloat16, True) for c in cfgs] + extra:
+        name, hw, ci, co, k, s, p, act_in, count, dt, stats = cfg
+        path = "train" if count else "extra"
+        n = TRAIN_BATCH if count else BATCH
+        x, w, sc, bi, sh = make_unit_inputs(gen, n, hw, ci, co, k, dt, dev)
+        rec = check_unit_bwd(name, x, w, sc, bi, sh, k, p, act_in, stats,
+                             gen)
+        recs.append(dict(rec, count=count, path=path))
+        del x, w
+        torch.cuda.empty_cache()
+    return recs
 
 
 # ---------------------------------------------------------------------------
@@ -501,18 +692,27 @@ def phase_main(card, n_requests, threads):
 
 
 def profile_forward(net, xb, fused, card, wall_ms, iters=3):
-    """Device time by kernel over `iters` direct forwards (torch.profiler).
+    """Device time by kernel over `iters` direct forwards."""
+    os.environ["MXNET_FUSED_CONVBN"] = "1" if fused else "0"
+
+    def run():
+        with torch.inference_mode():
+            net(xb)
+    return profile_device(run, f"{'fused' if fused else 'unfused'} bf16 "
+                          f"batch {xb.shape[0]}", "forward", card, wall_ms,
+                          iters)
+
+
+def profile_device(run, tag, what, card, wall_ms, iters=3, top=10):
+    """Device time by kernel over `iters` calls of `run` (torch.profiler).
     The profiler slows the host, so the idle share is taken against
-    `wall_ms`, the forward's time measured without it.  A forward that
+    `wall_ms`, the time of one call measured without it.  A call that
     fails fails the run; a profiler that cannot start, stop or show
     device time prints "not measured"."""
     from torch.profiler import ProfilerActivity, profile
 
-    os.environ["MXNET_FUSED_CONVBN"] = "1" if fused else "0"
-    tag = "fused" if fused else "unfused"
-    with torch.inference_mode():
-        net(xb)
-        torch.cuda.synchronize()
+    run()
+    torch.cuda.synchronize()
     prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
     try:
         prof.start()
@@ -522,10 +722,9 @@ def profile_forward(net, xb, fused, card, wall_ms, iters=3):
         return None
     stop_error = None
     try:
-        with torch.inference_mode():
-            for _ in range(iters):
-                net(xb)
-            torch.cuda.synchronize()
+        for _ in range(iters):
+            run()
+        torch.cuda.synchronize()
     finally:
         try:
             prof.stop()
@@ -553,11 +752,10 @@ def profile_forward(net, xb, fused, card, wall_ms, iters=3):
             print(f"profile {tag}: device time not measured (profiler "
                   f"shows none)", flush=True)
             return None
-        print(f"profile {tag} bf16 batch {xb.shape[0]}: device busy "
-              f"{busy:.3f} ms/forward; against the un-profiled "
-              f"{wall_ms:.3f} ms forward the idle share is "
+        print(f"profile {tag}: device busy {busy:.3f} ms/{what}; against "
+              f"the un-profiled {wall_ms:.3f} ms {what} the idle share is "
               f"{1 - busy / wall_ms:.1%} [{card}]", flush=True)
-        for ms, n, key in rows[:8]:
+        for ms, n, key in rows[:top]:
             print(f"    {ms:8.3f} ms  x{n:<4d} {key[:90]}", flush=True)
         return {"wall_ms": wall_ms, "busy_ms": busy,
                 "top": [[ms, n, key[:120]] for ms, n, key in rows[:12]]}
@@ -567,17 +765,380 @@ def profile_forward(net, xb, fused, card, wall_ms, iters=3):
         return None
 
 
+# ---------------------------------------------------------------------------
+# phase 5: the training main path — SPMDTrainer on ResNet-50 v1
+# ---------------------------------------------------------------------------
+
+def set_knobs(fused, bwd):
+    os.environ["MXNET_FUSED_CONVBN"] = "1" if fused else "0"
+    os.environ["MXNET_FUSED_CONVBN_BWD"] = "1" if bwd else "0"
+
+
+def new_trainer(net):
+    from mxnet_tpu_torch import parallel
+    from mxnet_tpu_torch.gluon import loss as gloss
+
+    return parallel.SPMDTrainer(net, gloss.SoftmaxCrossEntropyLoss(), "sgd",
+                                dict(TRAIN_OPT),
+                                mesh=parallel.make_mesh(dp=1))
+
+
+def counted_steps(trainer, xb, yb, steps):
+    """`steps` training steps with the launch counters reset just before
+    and read just after; returns (losses, fwd launches, bwd launches,
+    seconds per step by the host clock around synchronised steps)."""
+    from mxnet_tpu_torch.ops import fused_convbn as fcb
+
+    torch.cuda.synchronize()
+    fcb.reset_launch_count()
+    fcb.reset_bwd_launch_count()
+    t0 = time.perf_counter()
+    losses = [trainer.step(xb, yb) for _ in range(steps)]
+    torch.cuda.synchronize()
+    dt = (time.perf_counter() - t0) / steps
+    return ([float(v) for v in losses], fcb.launch_count(),
+            fcb.bwd_launch_count(), dt)
+
+
+def warm_running_means(net, xb):
+    """Set every BatchNorm running mean to its layer's mean over `xb`
+    (one op-granular train forward from zero means leaves 0.1 x the batch
+    mean in them), as in training past its first steps.  From cold zero
+    means the single-pass shifted variance cancels catastrophically, and
+    the fused and op-granular paths, which sum in different orders, then
+    differ by percents in fp32 already."""
+    from mxnet_tpu_torch.gluon import ActiveTrace
+
+    set_knobs(False, False)
+    with torch.no_grad():
+        for k, v in net.collect_params().items():
+            if k.endswith("running_mean"):
+                v.zero_()
+        with ActiveTrace(train=True):
+            net(xb)
+        for k, v in net.collect_params().items():
+            if k.endswith("running_mean"):
+                v.div_(0.1)
+
+
+def restore(net, w0):
+    with torch.no_grad():
+        for k, v in net.collect_params().items():
+            v.copy_(w0[k])
+
+
+def one_step(net, w0, xb, yb, fused):
+    """One step of a fresh trainer from the weights `w0`; returns (loss,
+    fwd launches, bwd launches, {trainable leaf: update}).  The update is
+    read as the step computes it, before w1 is rounded to the weight's
+    dtype: the new momentum, which SGD's first step sets to w1 - w0 (a
+    bf16 weight would round most of a 0.1·g step away)."""
+    restore(net, w0)
+    set_knobs(fused, fused)
+    trainer = new_trainer(net)
+    losses, fwd, bwd, _ = counted_steps(trainer, xb, yb, 1)
+    return losses[0], fwd, bwd, {k: s[0] for k, s in trainer.opt_state.items()}
+
+
+def train_logits(net, w0, xb, fused):
+    """The logits of a training-mode forward (batch statistics) from the
+    weights `w0`."""
+    from mxnet_tpu_torch.gluon import ActiveTrace
+
+    restore(net, w0)
+    set_knobs(fused, fused)
+    with torch.no_grad(), ActiveTrace(train=True):
+        return net(xb).float()
+
+
+@contextlib.contextmanager
+def exact_var():
+    """MXNET_BN_EXACT_VAR=1 (the two-pass variance) inside the block; the
+    port reads the knob once per process, so the cached read is
+    dropped on the way in and out."""
+    from mxnet_tpu_torch.ops import nn as onn
+
+    os.environ["MXNET_BN_EXACT_VAR"] = "1"
+    onn._BN_EXACT_VAR = None
+    try:
+        yield
+    finally:
+        os.environ["MXNET_BN_EXACT_VAR"] = "0"
+        onn._BN_EXACT_VAR = None
+
+
+def perturb(t, rel, gen):
+    """`t` with each element moved by a relative amount drawn uniformly
+    from [-rel, rel]."""
+    u = torch.rand(t.shape, generator=gen, device=t.device, dtype=t.dtype)
+    return t * (1.0 + rel * (2.0 * u - 1.0))
+
+
+def leaf_rel(a, b):
+    """Relative L2 of a[k] - b[k] for each tensor of b, in float64."""
+    out = {}
+    for k, bk in b.items():
+        bk = bk.double()
+        out[k] = float((a[k].to(bk.device).double() - bk).norm()
+                       / bk.norm().clamp_min(1e-300))
+    return out
+
+
+def rel_l2_all(a, b):
+    """Relative L2 of a - b over all tensors of b together."""
+    num = sum(float((a[k].to(b[k].device).double() - b[k].double()).norm())
+              ** 2 for k in b)
+    den = sum(float(b[k].double().norm()) ** 2 for k in b)
+    return math.sqrt(num / max(den, 1e-300))
+
+
+LEAF_GROUPS = ("stem", "stage1", "stage2", "stage3", "stage4", "output")
+
+
+def leaf_group(name):
+    if name.startswith("output"):
+        return "output"
+    i = int(name.split(".")[1])
+    return "stem" if i < 4 else f"stage{i - 3}"
+
+
+def print_leaf_table(tag, errs, checked):
+    """Per group of leaves: the median and the largest relative L2 of
+    each comparison over the leaves the check holds."""
+    cols = list(errs)
+    print(f"  {tag}: per-leaf update rel L2, median / max over the checked "
+          f"leaves of each group", flush=True)
+    print("    " + f"{'group':<8}{'leaves':>7}  "
+          + "  ".join(f"{c:>22}" for c in cols), flush=True)
+    for g in LEAF_GROUPS:
+        ks = [k for k in checked if leaf_group(k) == g]
+        if not ks:
+            continue
+        cells = []
+        for c in cols:
+            v = sorted(errs[c][k] for k in ks)
+            cells.append(f"{v[len(v) // 2]:.3g} / {v[-1]:.3g}")
+        print("    " + f"{g:<8}{len(ks):>7}  "
+              + "  ".join(f"{s:>22}" for s in cells), flush=True)
+
+
+def step_agreement(net, xb, yb, tag, ref_dtype, bounds, witness):
+    """One step from identical weights (running means warm), fused with
+    the fused backward against op-granular (cuDNN), each held against an
+    op-granular step of a `ref_dtype` copy of the net, leaf by leaf.
+
+    A leaf is checked where the op-granular update lands within
+    LEAF_POWER of the reference: there the comparison can tell a right
+    update from a wrong one (a conv bias that a BatchNorm follows has a
+    gradient of rounding noise only).  On each checked leaf the fused
+    update must lie within bounds["rel"] x max(op-granular's distance,
+    the witness's) + bounds["abs"] of the reference, and so must the
+    logits of a training-mode forward.  With `witness`, the reference
+    step and forward are repeated with the inputs and every weight moved
+    by up to 2^-24 relative (less than one fp32 rounding): how far that
+    moves a float64 step is how far the function itself lets any fp32
+    step land.  The op-granular step is then also repeated with the
+    exact two-pass variance (MXNET_BN_EXACT_VAR=1), against a float64
+    step that uses it too.  The loss is held to bounds["loss"] of the
+    op-granular loss.  Returns the record."""
+    import copy
+
+    dev = xb.device
+    w0 = {k: v.detach().clone() for k, v in net.collect_params().items()}
+    ref_net = copy.deepcopy(net).to(ref_dtype)
+    w_ref = {k: v.to(ref_dtype) for k, v in w0.items()}
+    x_ref = xb.to(ref_dtype)
+    z_ref = train_logits(ref_net, w_ref, x_ref, False)
+    l_ref, _, _, d_ref = one_step(ref_net, w_ref, x_ref, yb, False)
+    errs, z_errs = {}, {}
+    if witness:
+        gen = torch.Generator(device=dev).manual_seed(5)
+        w_p = {k: perturb(v, 2.0 ** -24, gen) for k, v in w_ref.items()}
+        x_p = perturb(x_ref, 2.0 ** -24, gen)
+        z_errs["witness"] = rel_l2(train_logits(ref_net, w_p, x_p, False),
+                                   z_ref)
+        errs["witness"] = leaf_rel(one_step(ref_net, w_p, x_p, yb,
+                                            False)[3], d_ref)
+        with exact_var():
+            d_ref_x = one_step(ref_net, w_ref, x_ref, yb, False)[3]
+            d_u_x = one_step(net, w0, xb, yb, False)[3]
+        errs["exact var"] = leaf_rel(d_u_x, d_ref_x)
+    del ref_net
+    torch.cuda.empty_cache()
+    z_u = train_logits(net, w0, xb, False)
+    z_f = train_logits(net, w0, xb, True)
+    l_u, _, _, d_u = one_step(net, w0, xb, yb, False)
+    l_f, fwd, bwd, d_f = one_step(net, w0, xb, yb, True)
+    restore(net, w0)
+    e_u, e_f = leaf_rel(d_u, d_ref), leaf_rel(d_f, d_ref)
+    errs = {"op-granular": e_u, "fused": e_f,
+            "fused vs op-granular": leaf_rel(d_f, d_u), **errs}
+    z_errs.update({"op-granular": rel_l2(z_u, z_ref),
+                   "fused": rel_l2(z_f, z_ref),
+                   "fused vs op-granular": rel_l2(z_f, z_u)})
+    e_w = errs.get("witness", {})
+
+    def limit(e_op, e_wit):
+        return bounds["rel"] * max(e_op, e_wit) + bounds["abs"]
+    checked = [k for k in d_ref if e_u[k] <= LEAF_POWER]
+    bad = [(e_f[k] / limit(e_u[k], e_w.get(k, 0.0)), k, e_f[k],
+            limit(e_u[k], e_w.get(k, 0.0))) for k in checked]
+    ratio = max(r[0] for r in bad)  # the worst checked leaf, 1 = at bound
+    bad = [r for r in bad if not r[0] <= 1.0]
+    z_lim = limit(z_errs["op-granular"], z_errs.get("witness", 0.0))
+    dl = abs(l_f - l_u) / max(abs(l_u), 1e-30)
+    ref_name = str(ref_dtype).replace("torch.", "")
+    bound_txt = (f"{bounds['rel']} x max(op-granular"
+                 f"{', witness' if witness else ''}) + {bounds['abs']}")
+    print(f"train {tag} batch {xb.shape[0]}: one step, loss fused "
+          f"{l_f:.7f} op-granular {l_u:.7f} (rel {dl:.3g}, bound "
+          f"{bounds['loss']}) {ref_name} {l_ref:.7f}; launches fwd {fwd} "
+          f"bwd {bwd}", flush=True)
+    print(f"  train {tag} logits of a training-mode forward, rel L2 to the "
+          f"{ref_name} forward: "
+          + ", ".join(f"{c} {v:.4g}" for c, v in z_errs.items())
+          + f" (fused bound {bound_txt} = {z_lim:.4g})", flush=True)
+    print(f"  train {tag} update over all leaves, rel L2 to the {ref_name} "
+          f"step: op-granular {rel_l2_all(d_u, d_ref):.4g}, fused "
+          f"{rel_l2_all(d_f, d_ref):.4g}; fused vs op-granular "
+          f"{rel_l2_all(d_f, d_u):.4g}; {len(checked)} of {len(d_ref)} "
+          f"leaves checked (op-granular within {LEAF_POWER}), bound per "
+          f"leaf {bound_txt}, worst leaf at {ratio:.3f} of its bound, "
+          f"{len(bad)} over it", flush=True)
+    print_leaf_table(f"train {tag}", errs, checked)
+    unchecked = sorted(set(d_ref) - set(checked))
+    print(f"  train {tag}: unchecked leaves by group: "
+          + ", ".join(f"{g} {sum(leaf_group(k) == g for k in unchecked)}"
+                      for g in LEAF_GROUPS), flush=True)
+    for r, k, e, lim in sorted(bad, reverse=True)[:5]:
+        print(f"    over: {k} fused {e:.4g} > {lim:.4g}", flush=True)
+    if not all(math.isfinite(v) for v in (l_f, l_u, l_ref)):
+        fail(f"train {tag}: loss not finite ({l_f}, {l_u}, {l_ref})")
+    if dl > bounds["loss"] or not z_errs["fused"] <= z_lim:
+        fail(f"train {tag}: fused forward disagrees (loss rel {dl:.3g} > "
+             f"{bounds['loss']} or logits rel L2 {z_errs['fused']:.4g} > "
+             f"{z_lim:.4g})")
+    if bad or "output.weight" not in checked:
+        fail(f"train {tag}: fused update off on {len(bad)} of "
+             f"{len(checked)} checked leaves (output layer checked: "
+             f"{'output.weight' in checked})")
+    if (fwd, bwd) != (FWD_PER_STEP, BWD_PER_STEP):
+        fail(f"train {tag}: {fwd} forward / {bwd} backward kernel launches "
+             f"in one step (want {FWD_PER_STEP} / {BWD_PER_STEP})")
+    groups = {c: {g: max([v[k] for k in checked if leaf_group(k) == g],
+                         default=None) for g in LEAF_GROUPS}
+              for c, v in errs.items()}
+    return dict(loss_fused=l_f, loss_unfused=l_u, loss_ref=l_ref,
+                loss_rel=dl, logits_rel_l2=z_errs, leaves=len(d_ref),
+                leaves_checked=len(checked), leaves_over=len(bad),
+                worst_leaf_of_bound=ratio,
+                update_err_unfused=rel_l2_all(d_u, d_ref),
+                update_err_fused=rel_l2_all(d_f, d_ref),
+                update_fused_vs_unfused=rel_l2_all(d_f, d_u),
+                group_max=groups)
+
+
+def phase_train(card):
+    """bench.py's configuration through the port's entry points:
+    make_mesh(dp=1) + SPMDTrainer(SoftmaxCrossEntropyLoss, sgd lr 0.1,
+    momentum 0.9, wd 1e-4) on full-width ResNet-50 v1, bf16, NHWC, 224²,
+    batch 256, one fixed synthetic batch."""
+    import copy
+    import gc
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator().manual_seed(11)
+    result = {}
+    # fp32 first, at a smaller batch (TF32 is off since phase 1), against
+    # float64
+    net = build_net("float32", seed=1)
+    xb = torch.rand(TRAIN_FP32_BATCH, 224, 224, 3, generator=gen).to(dev)
+    yb = torch.randint(0, 1000, (TRAIN_FP32_BATCH,), generator=gen).to(dev)
+    warm_running_means(net, xb)
+    result["fp32"] = step_agreement(net, xb, yb, "fp32", torch.float64,
+                                    TRAIN_BOUNDS_FP32, witness=True)
+    del net, xb, yb
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    net = build_net("bfloat16", seed=0)
+    xb = torch.rand(TRAIN_BATCH, 224, 224, 3, generator=gen).to(
+        dev, torch.bfloat16)
+    yb = torch.randint(0, 1000, (TRAIN_BATCH,), generator=gen).to(dev)
+    warm_running_means(net, xb)
+    result["bf16"] = step_agreement(net, xb, yb, "bf16", torch.float32,
+                                    TRAIN_BOUNDS_BF16, witness=False)
+    gc.collect()
+    torch.cuda.empty_cache()
+    # the main path: fused with the fused backward, then op-granular, in
+    # turns (fused, unfused, unfused, fused), each after one warm-up step;
+    # each mode trains its own copy of the net from the same weights
+    nets = {True: net, False: copy.deepcopy(net)}
+    trainers = {}
+    for fused in (True, False):
+        set_knobs(fused, fused)
+        trainers[fused] = new_trainer(nets[fused])
+        counted_steps(trainers[fused], xb, yb, 1)
+    runs = {True: [], False: []}
+    launches = {"fwd": 0, "bwd": 0}
+    for fused in (True, False, False, True):
+        set_knobs(fused, fused)
+        losses, fwd, bwd, dt = counted_steps(trainers[fused], xb, yb,
+                                             TRAIN_STEPS)
+        tag = "fused" if fused else "unfused"
+        if not all(math.isfinite(v) for v in losses):
+            fail(f"train {tag}: loss not finite: {losses}")
+        want = (FWD_PER_STEP * TRAIN_STEPS, BWD_PER_STEP * TRAIN_STEPS) \
+            if fused else (0, 0)
+        if (fwd, bwd) != want:
+            fail(f"train {tag}: {fwd} forward / {bwd} backward kernel "
+                 f"launches in {TRAIN_STEPS} steps (want {want})")
+        if fused:
+            launches["fwd"] += fwd
+            launches["bwd"] += bwd
+        runs[fused].append(dt)
+        print(f"train bf16 batch {TRAIN_BATCH} {tag}: {dt * 1e3:.1f} ms/step"
+              f", {TRAIN_BATCH / dt:.1f} img/s over {TRAIN_STEPS} steps, "
+              f"losses {' '.join(f'{v:.4f}' for v in losses)}, launches "
+              f"fwd {fwd} bwd {bwd} [{card}]", flush=True)
+    result["ms_per_step"] = {"fused": [t * 1e3 for t in runs[True]],
+                             "unfused": [t * 1e3 for t in runs[False]]}
+    result["profile"] = {}
+    for fused in (True, False):
+        set_knobs(fused, fused)
+        tag = "fused" if fused else "unfused"
+        result["profile"][tag] = profile_device(
+            lambda: trainers[fused].step(xb, yb),
+            f"train {tag} bf16 batch {TRAIN_BATCH}", "step", card,
+            sum(runs[fused]) / len(runs[fused]) * 1e3, iters=2, top=24)
+    result["launches"] = launches
+    result["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    print(f"train peak device memory {result['peak_gib']:.1f} GiB", flush=True)
+    return result
+
+
 def main():
     card = phase_device()
     phase_build()
     recs = phase_kernels()
+    recs_bwd = phase_kernels_bwd()
     main_res = phase_main(card, REQUESTS, THREADS)
-    summary = kernel_summary(recs, main_res.get("launches", 0))
+    train_res = phase_train(card)
+    # kernel 1 once for each main path (its shapes and launches), kernel 2
+    # for the training path
+    summaries = [
+        kernel_summary(KERNEL, recs, "serve", main_res.get("launches", 0)),
+        kernel_summary(dict(KERNEL, name="fused_conv_unit/train"), recs,
+                       "train", train_res["launches"]["fwd"]),
+        kernel_summary(KERNEL_BWD, recs_bwd, "train",
+                       train_res["launches"]["bwd"])]
     if FAILURES:
         print(f"chip_smoke: {len(FAILURES)} failure(s)", flush=True)
         return 1
     print(f"card: {card}", flush=True)
-    print(json.dumps({"kernels": [summary]}), flush=True)
+    print(json.dumps({"kernels": summaries}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

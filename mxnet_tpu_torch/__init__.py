@@ -9,7 +9,8 @@ built with nvcc at first use.  The port imports neither jax nor
 anything of ``mxnet_tpu``.
 
 Slice 1 serves ResNet V1 (``gluon.model_zoo.vision``) through
-``contrib.deploy`` and ``serving``.
+``contrib.deploy`` and ``serving``; slice 2 trains it through
+``parallel.SPMDTrainer``.
 """
 from __future__ import annotations
 

@@ -8,7 +8,8 @@ into one shared library with a plain C interface, and bound with
 seconds.
 
 The build happens at first use, from the sources in the checkout only,
-into ``build/torch_kernels/`` beside the package.  The library's file
+into ``build/torch_kernels/`` beside the package: one ``nvcc -c`` per
+source, all started together, then one link.  The library's file
 name carries a hash of the sources and flags, so an edited source never
 loads a stale build.  Serving threads race the first forward, so the
 build and load run once, under ``_BUILD_LOCK`` (the counterpart of
@@ -34,9 +35,9 @@ __all__ = ["load", "build", "BUILD_DIR", "last_build"]
 _PKG = Path(__file__).resolve().parent
 _SRC_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "torch_kernels"
-_SOURCES = ("fused_convbn.cu",)
+_SOURCES = ("fused_convbn.cu", "fused_convbn_bwd.cu")
 _FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-          "-shared", "-Xcompiler", "-fPIC", "-lineinfo", "-Xptxas", "-v")
+          "-Xcompiler", "-fPIC", "-lineinfo", "-Xptxas", "-v")
 
 _BUILD_LOCK = threading.Lock()
 _LIB: Optional[ctypes.CDLL] = None
@@ -84,19 +85,45 @@ def _build_locked(force: bool) -> Path:
     if out.exists() and not force:
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".tmp{os.getpid()}")
-    cmd = [_nvcc(), *_FLAGS, "-o", str(tmp),
-           *[str(_SRC_DIR / s) for s in _SOURCES]]
+    nvcc = _nvcc()
+    tag = f"{out.stem}.tmp{os.getpid()}"
+    objs = [BUILD_DIR / f"{tag}.{Path(s).stem}.o" for s in _SOURCES]
+    cmds = [[nvcc, *_FLAGS, "-c", "-o", str(o), str(_SRC_DIR / s)]
+            for s, o in zip(_SOURCES, objs)]
+    tmp = BUILD_DIR / f"{tag}.so"
+    link = [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-shared",
+            "-o", str(tmp), *[str(o) for o in objs]]
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    log, procs = [], []
+    try:
+        for c in cmds:  # every compile starts before any is waited on
+            procs.append(subprocess.Popen(c, stdout=subprocess.PIPE,
+                                          stderr=subprocess.STDOUT,
+                                          text=True))
+        for c, pr in zip(cmds, procs):
+            text = pr.communicate()[0]
+            log.append(text)
+            if pr.returncode != 0:
+                raise MXNetError(f"nvcc failed (rc {pr.returncode}):\n"
+                                 f"{' '.join(c)}\n{text}")
+        proc = subprocess.run(link, capture_output=True, text=True)
+        log.append(proc.stdout + proc.stderr)
+        if proc.returncode != 0:
+            raise MXNetError(f"nvcc link failed (rc {proc.returncode}):\n"
+                             f"{' '.join(link)}\n{log[-1]}")
+        os.replace(tmp, out)
+    finally:
+        for pr in procs:
+            if pr.poll() is None:
+                pr.kill()
+                pr.wait()
+        for o in objs:
+            if o.exists():
+                o.unlink()
     dt = time.perf_counter() - t0
-    if proc.returncode != 0:
-        raise MXNetError(f"nvcc failed (rc {proc.returncode}):\n"
-                         f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
-    os.replace(tmp, out)
     _LAST_BUILD.update(built=True, seconds=dt, path=str(out),
-                       command=" ".join(cmd),
-                       log=proc.stdout + proc.stderr)
+                       command="\n".join(" ".join(c) for c in cmds + [link]),
+                       log="".join(log))
     return out
 
 
@@ -106,6 +133,13 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         [_I] + [_VP] * 10 + [_I] * 14 + [_VP])
     lib.mx_fused_conv_unit_block_m.restype = _I
     lib.mx_fused_conv_unit_block_m.argtypes = []
+    lib.mx_fused_conv_unit_bwd.restype = _I
+    lib.mx_fused_conv_unit_bwd.argtypes = (
+        [_I] + [_VP] * 15 + [_I] * 14 + [_VP])
+    lib.mx_fused_conv_unit_bwd_block_m.restype = _I
+    lib.mx_fused_conv_unit_bwd_block_m.argtypes = []
+    lib.mx_fused_conv_unit_bwd_splits.restype = _I
+    lib.mx_fused_conv_unit_bwd_splits.argtypes = [_I] * 4 + [ctypes.c_longlong]
     lib.mx_cuda_error_string.restype = ctypes.c_char_p
     lib.mx_cuda_error_string.argtypes = [_I]
     return lib

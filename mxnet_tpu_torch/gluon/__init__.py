@@ -1,7 +1,7 @@
-"""Gluon of the port: blocks and layers as ``torch.nn.Module``s."""
+"""Gluon of the port: blocks, layers and losses as ``torch.nn.Module``s."""
 from .block import (ActiveTrace, Block, HybridBlock, current_trace,
                     load_numpy_params)
-from . import nn, model_zoo
+from . import loss, nn, model_zoo
 
 __all__ = ["Block", "HybridBlock", "ActiveTrace", "current_trace",
-           "load_numpy_params", "nn", "model_zoo"]
+           "load_numpy_params", "loss", "nn", "model_zoo"]

@@ -11,7 +11,10 @@ hybridized in NHWC, through the fused Conv+BN+ReLU unit
 predecessor's RAW output and applies the BatchNorm affine + ReLU while
 reading, and BN statistics come out of the conv epilogue.  The C-sized
 BN algebra — with the conv1/conv3 bias quirk of the gluon zoo
-bottleneck — is the JAX package's.  V2 blocks wait for a later slice.
+bottleneck — is the JAX package's.  In training the unit's backward is
+the fused backward kernel under MXNET_FUSED_CONVBN_BWD=1 (stride-1
+units) and the dgrad/wgrad convolutions otherwise.  V2 blocks wait for a
+later slice.
 """
 from __future__ import annotations
 
@@ -53,9 +56,13 @@ def _fused_unit(F, ts, x, conv, bn, in_scale, in_bias, act_in, train):
     cbf = cb.to(sdt) if cb is not None else None
     want_stats = train and not bn._use_global_stats
     # shift stays exactly the running mean; the conv bias enters through
-    # the C-sized algebra below, never through the kernel's shift
+    # the C-sized algebra below, never through the kernel's shift.  In
+    # training the kernel gets a snapshot: rm is updated in place below,
+    # and the backward must fold dy_tot with the mean the forward used
+    # (the JAX package applies the update after the step, spmd.py:514)
+    shift = rm.clone() if want_stats else rm
     y, s1, s2 = F.fused_conv_unit(
-        x, conv.weight, in_scale, in_bias, rm, kernel=kw["kernel"],
+        x, conv.weight, in_scale, in_bias, shift, kernel=kw["kernel"],
         stride=kw["stride"], pad=kw["pad"], act_in=act_in,
         want_stats=want_stats)
     if want_stats:

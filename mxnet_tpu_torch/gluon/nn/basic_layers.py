@@ -5,7 +5,7 @@ from __future__ import annotations
 
 import torch
 
-from ..block import HybridBlock
+from ..block import HybridBlock, current_trace
 
 __all__ = ["HybridSequential", "Dense", "BatchNorm", "Activation", "Flatten"]
 
@@ -55,10 +55,11 @@ class Activation(HybridBlock):
 
 
 class BatchNorm(HybridBlock):
-    """gamma/beta are parameters, the moving statistics buffers.  In
-    training mode the statistics are updated in place from the batch (the
-    port may update in place where the JAX package rebinds functional aux
-    state)."""
+    """gamma/beta are parameters, the moving statistics buffers.  Inside a
+    trace scope the scope's ``train`` flag picks batch or moving
+    statistics, outside one the module's mode does.  In training the
+    statistics are updated in place from the batch (the port may update
+    in place where the JAX package rebinds functional aux state)."""
 
     def __init__(self, axis=1, momentum=0.9, epsilon=1e-5, center=True,
                  scale=True, use_global_stats=False, in_channels=0,
@@ -82,7 +83,11 @@ class BatchNorm(HybridBlock):
         return super().cast(dtype)
 
     def hybrid_forward(self, F, x):
-        train = self.training and not self._use_global_stats
+        # the trace's flag wins over the module's mode, as in the JAX
+        # package (block.py:187): SPMDTrainer traces with train=True
+        ts = current_trace()
+        train = (ts.train if ts is not None else self.training) \
+            and not self._use_global_stats
         res = F.batch_norm(x, self.gamma, self.beta, self.running_mean,
                            self.running_var, eps=self._epsilon,
                            momentum=self._momentum, fix_gamma=not self._scale,

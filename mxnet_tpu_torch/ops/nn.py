@@ -1,5 +1,6 @@
-"""Neural-net ops of the ResNet serving path: FullyConnected, Convolution,
-Pooling (max, global average), BatchNorm, Activation (ReLU), flatten.
+"""Neural-net ops of the ResNet serving and training paths: FullyConnected,
+Convolution, Pooling (max, global average), BatchNorm, Activation (ReLU),
+flatten, log_softmax.
 
 Counterpart of ``mxnet_tpu/ops/nn.py``, as plain functions on tensors
 with the same attributes, layouts and rounding points.  The JAX package
@@ -19,7 +20,7 @@ from ..base import MXNetError
 from ..util import env
 
 __all__ = ["fully_connected", "convolution", "pooling", "batch_norm",
-           "activation", "flatten"]
+           "activation", "flatten", "log_softmax"]
 
 
 def _channels_last(layout) -> bool:
@@ -144,3 +145,14 @@ def activation(data, act_type="relu"):
 
 def flatten(data):
     return data.reshape(data.shape[0], -1)
+
+
+def log_softmax(data, axis=-1, temperature=None):
+    """log(softmax) over ``axis`` with optional temperature, written as
+    ``jax.nn.log_softmax`` computes it (shift by the max, which gets no
+    gradient; subtract the log of the summed exponentials), so each op
+    rounds where the JAX package's does in a low-precision dtype."""
+    x = data / temperature if temperature else data
+    shifted = x - x.detach().amax(dim=axis, keepdim=True)
+    return shifted - torch.log(torch.exp(shifted).sum(dim=axis,
+                                                       keepdim=True))

@@ -1,0 +1,201 @@
+"""SPMDTrainer on one device (counterpart of ``mxnet_tpu/parallel/spmd.py``).
+
+The JAX package compiles forward, backward and update into one sharded
+XLA program per step.  PyTorch runs eagerly, so here a step is the same
+three phases in order on the mesh's device:
+
+  1. the forward of the block and the loss inside ``ActiveTrace(train=
+     True)`` and the mesh scope, so that code gated on a trace (the
+     fused ResNet path, BatchNorm's train flag) behaves as in the JAX
+     trace, and the loss is the mean over the batch;
+  2. ``torch.autograd.grad`` over the trainable parameters;
+  3. the per-parameter update of the functional optimizer under
+     ``torch.no_grad``, written back in place into the block's
+     parameters and the optimizer state.
+
+BatchNorm running statistics are updated in place during the forward
+(the JAX package folds them back after the step; the values are the
+same).  Not ported in this slice: the step executable cache, ZeRO state
+sharding, flat optimizer groups, remat, checkpoints and the telemetry
+hooks (ROADMAP.md queue A).
+"""
+from __future__ import annotations
+
+from typing import Callable, Dict, Optional, Tuple
+
+import torch
+from torch import nn
+
+from ..base import MXNetError
+from ..gluon.block import ActiveTrace
+from .. import ops
+from .. import optimizer as opt_mod
+from .mesh import DeviceMesh, current_mesh, make_mesh
+
+__all__ = ["SPMDTrainer", "functional_optimizer", "FunctionalOptimizer"]
+
+
+class FunctionalOptimizer:
+    """Pure update ``(w, g, state, lr, t) -> (w', state')``."""
+
+    def __init__(self, n_state: int, update: Callable, wd: float = 0.0,
+                 clip_gradient: float = -1.0):
+        self.n_state = n_state
+        self._update = update
+        self.wd = wd
+        self.clip_gradient = clip_gradient
+        # set from Optimizer.multi_precision by functional_optimizer()
+        self.multi_precision = False
+
+    def needs_master(self, value) -> bool:
+        """Half-precision weights under multi_precision get fp32 state and
+        an fp32 master weight, carried as the last state element."""
+        return (self.multi_precision
+                and value.dtype in (torch.bfloat16, torch.float16))
+
+    def init(self, value) -> Tuple[torch.Tensor, ...]:
+        if self.needs_master(value):
+            return tuple(torch.zeros(value.shape, dtype=torch.float32,
+                                     device=value.device)
+                         for _ in range(self.n_state)) + (
+                value.detach().float().clone(),)
+        return tuple(torch.zeros_like(value) for _ in range(self.n_state))
+
+    def apply(self, value, grad, state, lr, t, lr_mult=1.0, wd_mult=1.0):
+        return self._update(value, grad, state, lr * lr_mult,
+                            self.wd * wd_mult, self.clip_gradient, t)
+
+
+def functional_optimizer(opt) -> FunctionalOptimizer:
+    """The pure update for an Optimizer instance (or name)."""
+    if isinstance(opt, str):
+        opt = opt_mod.create(opt)
+    kind = type(opt).__name__
+    if kind not in ("SGD", "NAG"):
+        raise MXNetError(f"no functional form for optimizer {kind} in this "
+                         "slice of the port; supported: SGD, NAG")
+    wd = float(opt.wd)
+    clip = float(opt.clip_gradient) if opt.clip_gradient is not None \
+        else -1.0
+    momentum = float(getattr(opt, "momentum", 0.0))
+    if momentum == 0.0:
+        def update(w, g, s, lr, wd_, c, t):
+            return ops.sgd_update(w, g, lr=lr, wd=wd_, clip_gradient=c), ()
+        fo = FunctionalOptimizer(0, update, wd, clip)
+    else:
+        upd = ops.nag_mom_update if kind == "NAG" else ops.sgd_mom_update
+
+        def update(w, g, s, lr, wd_, c, t):
+            nw, nm = upd(w, g, s[0], lr=lr, momentum=momentum, wd=wd_,
+                         clip_gradient=c)
+            return nw, (nm,)
+        fo = FunctionalOptimizer(1, update, wd, clip)
+    fo.multi_precision = bool(getattr(opt, "multi_precision", False))
+    return fo
+
+
+class SPMDTrainer:
+    """One training step per call over a one-device DeviceMesh.
+
+    Usage (bench.py's configuration)::
+
+        mesh = parallel.make_mesh(dp=1)
+        trainer = parallel.SPMDTrainer(
+            net, gluon.loss.SoftmaxCrossEntropyLoss(), "sgd",
+            {"learning_rate": 0.1, "momentum": 0.9, "wd": 1e-4}, mesh=mesh)
+        loss = trainer.step(images, labels)   # 0-d tensor on the device
+
+    The last ``n_labels`` arguments of ``step`` are labels, the rest
+    model inputs.  Parameters are updated in place in the block.
+    """
+
+    def __init__(self, block, loss: Callable, optimizer="sgd",
+                 optimizer_params: Optional[dict] = None,
+                 mesh: Optional[DeviceMesh] = None, n_labels: int = 1):
+        self.block = block
+        self.loss = loss
+        self.mesh = mesh or current_mesh() or make_mesh()
+        self.n_labels = n_labels
+        self.device = self.mesh.devices[0]
+        if isinstance(optimizer, str):
+            optimizer = opt_mod.create(optimizer, **(optimizer_params or {}))
+        elif optimizer_params:
+            raise MXNetError("optimizer_params must be None when optimizer "
+                             "is an instance")
+        self._optimizer = optimizer
+        self._fopt = functional_optimizer(optimizer)
+        block.to(self.device)
+        self._plist = sorted(block.collect_params().items())
+        self._trainable = [n for n, p in self._plist
+                           if isinstance(p, nn.Parameter) and p.requires_grad]
+        params = dict(self._plist)
+        self.params: Dict[str, torch.Tensor] = {
+            n: params[n] for n in self._trainable}
+        self._has_master = {n: self._fopt.needs_master(p)
+                            for n, p in self.params.items()}
+        self.opt_state: Dict[str, Tuple[torch.Tensor, ...]] = {
+            n: self._fopt.init(p) for n, p in self.params.items()}
+        self._t = 0
+
+    def _place(self, x, spec=None):
+        if spec is not None:
+            raise MXNetError("batch/label partition specs come with the "
+                             "multi-GPU slice of the port")
+        t = x if isinstance(x, torch.Tensor) else torch.as_tensor(x)
+        return t.to(self.device)
+
+    def step(self, *args) -> torch.Tensor:
+        """One training step on a batch; returns the mean loss as a 0-d
+        tensor on the device (it synchronises only when read)."""
+        n_lab = self.n_labels
+        inputs, labels = (args, ()) if n_lab == 0 \
+            else (args[:-n_lab], args[-n_lab:])
+        ivals = tuple(self._place(x) for x in inputs)
+        lvals = tuple(self._place(x) for x in labels)
+        self._t += 1
+        self._optimizer._update_count(0)
+        lr = float(self._optimizer.learning_rate)
+        with self.mesh, ActiveTrace(train=True):
+            out = self.block(*ivals)
+            outs = out if isinstance(out, (list, tuple)) else (out,)
+            l = self.loss(outs[0], *lvals)
+        lval = (l[0] if isinstance(l, (list, tuple)) else l).mean()
+        weights = [self.params[n] for n in self._trainable]
+        grads = torch.autograd.grad(lval, weights)
+        with torch.no_grad():
+            for n, w, g in zip(self._trainable, weights, grads):
+                self._apply_one(n, w, g, lr)
+        return lval.detach()
+
+    def _apply_one(self, n, w, g, lr):
+        """Update one weight and its state in place; the fp32 master
+        weight, when present, is what the update math runs on."""
+        state = self.opt_state[n]
+        if self._has_master[n]:
+            nw32, ns = self._fopt.apply(state[-1], g, state[:-1], lr,
+                                        self._t)
+            ns = ns + (nw32,)
+            w.copy_(nw32)
+        else:
+            nw, ns = self._fopt.apply(w, g, state, lr, self._t)
+            w.copy_(nw)
+        for s, v in zip(state, ns):
+            s.copy_(v)
+
+    @property
+    def learning_rate(self):
+        return self._optimizer.learning_rate
+
+    def set_learning_rate(self, lr):
+        self._optimizer.set_learning_rate(lr)
+
+    def sync_to_block(self):
+        """Nothing to copy: the step updates the block's parameters in
+        place.  Kept so that code written for the JAX package runs."""
+
+    def forward(self, *inputs):
+        """Inference with the trainer's current parameters (moving BN
+        statistics)."""
+        ivals = tuple(self._place(x) for x in inputs)
+        with torch.no_grad(), self.mesh, ActiveTrace(train=False):
+            return self.block(*ivals)

@@ -61,6 +61,10 @@ declare("MXNET_BN_EXACT_VAR", bool, False,
 declare("MXNET_FUSED_CONVBN", bool, False,
         "Route ResNet V1 residual blocks through the fused Conv+BN+ReLU "
         "CUDA kernel when running hybridized in NHWC layout.")
+declare("MXNET_FUSED_CONVBN_BWD", bool, False,
+        "Run the backward of the fused Conv+BN units through the fused "
+        "backward CUDA kernel (stride-1 units; strided units keep the "
+        "dgrad/wgrad convolution backward).")
 declare("MXNET_DRAIN_TIMEOUT_MS", float, 30000.0,
         "Hard deadline for InferenceServer.shutdown(drain=True): past "
         "it, still-queued requests fail with ServerClosed instead of "

@@ -159,8 +159,16 @@ def test_unit_rejects_what_the_kernel_does_not_take(bad):
 
 
 def test_kernel_backward_names_the_training_slice():
-    with pytest.raises(NotImplementedError, match="training slice"):
-        tfc._FusedConvUnitFn.backward(None, None, None, None)
+    """The unit's backward exists since the training slice: gradients for
+    x, w, in_scale and in_bias, none for shift."""
+    x, w, sc, bi, sh = (torch.from_numpy(a).requires_grad_()
+                        for a in _inputs(9, (1, 4, 4, 8), 8, (3, 3)))
+    y, s1, s2 = tfc.fused_conv_unit(x, w, sc, bi, sh, kernel=(3, 3),
+                                    pad=(1, 1), act_in=True)
+    (y.sum() + s2.sum()).backward()
+    assert all(t.grad is not None and t.grad.abs().sum() > 0
+               for t in (x, w, sc, bi))
+    assert sh.grad is None
 
 
 def test_kernel_library_is_built_inside_the_checkout():
