@@ -41,6 +41,19 @@ Phases, each failing loudly (exit code 1, no result line):
    + slack everywhere; fp32: 2^-23 relative + the slack), K = kh*kw*Co
    for gx and N*Ho*Wo for dw; gscale and gbias within 1e-4 of
    sum|terms|; without act_in exactly 0.
+   Then the attention kernel (dot_product_attention, kernel 5) against its
+   plain version at BERT-base serving shapes: (B*H, S, D) = (384, 128, 64)
+   bf16 through `attend` and the packed (32, 128, 768) projections through
+   the op as the main path calls it, valid lengths from a seed in
+   [1, 128] with one row at 0; then one fp32 case, S = 200 with lengths
+   [200, 77], causal with S = 40 and Sk = 72, and the head-split layout.
+   kernel_ms times launches through the wrapper's launch step (device-
+   bound), op_ms the whole op call, ref_ms the plain version, library_ms
+   F.scaled_dot_product_attention on the same tensors (a yardstick the
+   port never calls), bound_ms max(4*BH*S*Sk*D / peak, bytes of q, k, v,
+   out and mask / 3.35 TB/s).  Tolerances: bf16 |o - o_ref| <= 2 bf16
+   ulps of o_ref + 2^-8 * sum_k p_k |v_k|; fp32 <= 1e-5 * sum_k p_k |v_k|;
+   fully masked rows at the mean of v over the real keys.
 4. main path, serving: full-width ResNet-50 v1 (random weights from a
    seed), bf16, NHWC, 224x224, exported with export_model, served through
    ModelRepository -> InferenceServer with MXNET_FUSED_CONVBN=1 to
@@ -49,6 +62,19 @@ Phases, each failing loudly (exit code 1, no result line):
    the answers must match a direct forward with MXNET_FUSED_CONVBN=0
    (op-granular, no kernel) to relative L2 error < 2e-2; then the same
    with an fp32 copy of the net, bound 1e-4.
+4b. main path, BERT serving: full-width BERT-base (bert_12_768_12,
+   Normal(0.02) weights from a seed), exported with dynamic_batch=True in
+   bf16 and fp32 and served through ModelRepository -> InferenceServer
+   (max_batch_size 32, batch_timeout_ms 2) to single-sequence requests of
+   128 tokens (valid lengths from a seed in [16, 128]) from several
+   threads.  Every request must be answered with its (seq, pooled) pair,
+   the attention kernel must launch exactly 12 times per launched batch,
+   and the answers of 16 requests must match the port's fp32 forward of
+   the same weights on the CPU (plain versions) to relative L2 < 2e-2
+   (bf16) and < 1e-4 (fp32 served on the card).  Scrambling the tokens at
+   and past valid_length must not change a valid position.  Then req/s,
+   p50/p99, a direct batch-32 forward time and its torch.profiler
+   breakdown (the kernel's share, the idle share).
 5. main path, training (bench.py's configuration): make_mesh(dp=1) +
    SPMDTrainer(SoftmaxCrossEntropyLoss, sgd lr 0.1 momentum 0.9 wd 1e-4)
    on full-width ResNet-50 v1, bf16, NHWC, 224x224, batch 256, a fixed
@@ -72,7 +98,8 @@ Phases, each failing loudly (exit code 1, no result line):
 
 The line before the last is the kernel summary {"kernels": [...]}, one
 entry per kernel and main path (kernel 1 served and trained, kernel 2
-trained), from the checks at that path's shapes; the last line is
+trained, kernel 5 on the BERT serving path), from the checks at that
+path's shapes; the last line is
 {"ok": true, "device": {"platform": "gpu", ...}}.
 """
 from __future__ import annotations
@@ -110,6 +137,15 @@ FWD_PER_STEP, BWD_PER_STEP = 52, 46   # fused units; the stride-1 ones
 LEAF_POWER = 0.25
 TRAIN_BOUNDS_FP32 = dict(loss=1e-5, rel=2.0, abs=1e-4)
 TRAIN_BOUNDS_BF16 = dict(loss=2e-2, rel=1.25, abs=2e-2)
+KERNEL_ATT = {"name": "dot_product_attention", "route": "cuda",
+              "source": "mxnet_tpu_torch/csrc/attention.cu",
+              "replaces": "mxnet_tpu/ops/pallas_attention.py:102"}
+# BERT-base serving (bench_all.py's sequence length): one kernel launch
+# per encoder layer and served batch
+BERT_SEQ, BERT_LAYERS, BERT_HEADS, BERT_UNITS = 128, 12, 12, 768
+BERT_VOCAB = 30522
+BERT_CHECKED = 16            # requests held against the CPU fp32 forward
+BERT_BOUNDS = {"bf16": 2e-2, "fp32": 1e-4}
 
 FAILURES = []
 
@@ -517,6 +553,195 @@ def phase_kernels_bwd():
 
 
 # ---------------------------------------------------------------------------
+# phase 3c: the attention kernel against its plain version
+# ---------------------------------------------------------------------------
+
+def key_mask(gen, rows, sk, lengths=None, zero_rows=0):
+    """(rows, sk) 1/0 key mask: valid lengths from `gen` in [1, sk] (or
+    the given ones), the first `zero_rows` rows at length 0."""
+    if lengths is None:
+        lengths = torch.randint(1, sk + 1, (rows,), generator=gen)
+    lengths = torch.as_tensor(lengths).clone()
+    lengths[:zero_rows] = 0
+    return (torch.arange(sk)[None, :] < lengths[:, None]).float()
+
+
+def check_attention(name, q, k, v, mask, causal, card, heads=None):
+    """The attention kernel against its plain version on one case.
+
+    With `heads`, q/k/v are BERT's packed (B, S, heads*D) projections and
+    the op runs as the main path calls it (mask (B, Sk)); else they are
+    (BH, S, D) and `attend` runs (mask (BH, Sk)).  Tolerances: bf16
+    |o - o_ref| <= 2 bf16 ulps of o_ref + 2^-8 * sum_k p_k |v_k| (one bf16
+    rounding of each probability); fp32 <= 1e-5 * sum_k p_k |v_k|; a row
+    whose keys are all masked is the mean of v over the real keys.
+    Returns a record."""
+    from mxnet_tpu_torch.ops import attention as att
+
+    if heads is None:
+        bh, s, d = q.shape
+        qf, kf, vf, maskf = q, k, v, mask
+        scale = 1.0 / math.sqrt(d)
+
+        def run():
+            return att.attend(q, k, v, mask, scale, causal)
+    else:
+        b, s, u = q.shape
+        d = u // heads
+        bh = b * heads
+
+        def flat(x):
+            return x.reshape(b, x.shape[1], heads, d).permute(
+                0, 2, 1, 3).reshape(bh, x.shape[1], d)
+        qf, kf, vf = flat(q), flat(k), flat(v)
+        maskf = mask.repeat_interleave(heads, dim=0)
+        scale = 1.0 / math.sqrt(d)
+
+        def run():
+            return att.dot_product_attention(q, k, v, mask, num_heads=heads,
+                                             causal=causal)
+    sk = kf.shape[1]
+    out = run()
+    torch.cuda.synchronize()
+    if heads is not None:
+        out = flat(out)
+    ref = att.dot_product_attention_ref(qf, kf, vf, maskf.to(q.dtype), scale,
+                                        causal)
+    p = att._softmax(att._scores(qf, kf, maskf, scale, causal))
+    spread = torch.matmul(p, vf.float().abs())
+    o, r = out.float(), ref.float()
+    err = (o - r).abs()
+    if q.dtype == torch.bfloat16:
+        lim = 2.0 * bf16_ulp(r) + 2.0 ** -8 * spread
+    else:
+        lim = 1e-5 * spread
+    ok = bool(torch.isfinite(o).all()) and bool((err <= lim).all())
+    worst = float((err / lim.clamp_min(1e-30)).max())
+    dead = maskf.sum(dim=1) == 0
+    dead_txt = ""
+    if bool(dead.any()):
+        mean_v = vf.float()[dead].mean(dim=1, keepdim=True)
+        dev = float((o[dead] - mean_v).abs().max())
+        dlim = (2.0 * bf16_ulp(mean_v) + 2.0 ** -8 * vf.float()[dead].abs()
+                .mean(dim=1, keepdim=True)) if q.dtype == torch.bfloat16 \
+            else 1e-5 * vf.float()[dead].abs().mean(dim=1, keepdim=True)
+        dead_ok = bool(((o[dead] - mean_v).abs() <= dlim).all())
+        ok = ok and dead_ok
+        dead_txt = (f" | {int(dead.sum())} fully masked rows at the mean of "
+                    f"v: max dev {dev:.3g} {'ok' if dead_ok else 'FAIL'}")
+    if not ok:
+        fail(f"attention {name}: kernel vs plain version off (worst "
+             f"{worst:.3f} of the bound, max abs {float(err.max()):.3g})"
+             f"{dead_txt}")
+    # the kernel: launches through the wrapper's launch step on prepared
+    # (B, H, S, D) views, so the device and not the op's Python sets the
+    # pace; op_ms is the whole op call as the main path makes it
+    if heads is None:
+        q4, k4, v4 = qf[:, None], kf[:, None], vf[:, None]
+        m4 = (maskf > 0)[:, None, None, :]
+    else:
+        q4, k4, v4 = (x.reshape(b, x.shape[1], heads, d).permute(0, 2, 1, 3)
+                      for x in (q, k, v))
+        m4 = (mask > 0)[:, None, None, :]
+    out4 = att._out_buffer(q4, heads is not None)
+    mk = mask.to(q.dtype)
+    kernel_ms = time_ms(lambda: att._launch(q4, k4, v4, mk, scale, causal,
+                                            out4), iters=20)
+    op_ms = time_ms(run)
+    ref_ms = time_ms(lambda: att.dot_product_attention_ref(
+        qf, kf, vf, maskf.to(q.dtype), scale, causal))
+    # yardstick the port never calls: PyTorch's fused attention on the
+    # same (B, H, S, D) views, the key mask as a boolean (B, 1, 1, Sk),
+    # and with `causal` the kernel's causal mask (last query on the last
+    # key) as a boolean (S, Sk) folded into it
+    if causal:
+        qpos = torch.arange(s, device=q.device)[:, None] + (sk - s)
+        m4 = m4 & (qpos >= torch.arange(sk, device=q.device)[None, :])
+    library_ms = time_ms(lambda: F.scaled_dot_product_attention(
+        q4, k4, v4, attn_mask=m4))
+    item = q.element_size()
+    nbytes = (2 * bh * s * d + 2 * bh * sk * d) * item + mask.numel() * item
+    flops = 4.0 * bh * s * sk * d
+    peak = PEAK_BF16 if q.dtype == torch.bfloat16 else PEAK_FP32
+    t_ops, t_bytes = flops / peak * 1e3, nbytes / PEAK_BYTES * 1e3
+    rec = dict(name=name, dtype=str(q.dtype).replace("torch.", ""),
+               bh=bh, s=s, sk=sk, d=d, causal=causal,
+               layout="packed" if heads else "(BH,S,D)", ok=ok,
+               max_abs_err=float(err.max()), worst_of_bound=worst,
+               kernel_ms=kernel_ms, op_ms=op_ms, ref_ms=ref_ms,
+               library_ms=library_ms, bound_ms=max(t_ops, t_bytes),
+               bound_by="operations" if t_ops >= t_bytes else "bytes",
+               gflop=flops / 1e9, mbytes=nbytes / 1e6)
+    print(f"  {name:<18} {rec['dtype']:<8} BH={bh} S={s} Sk={sk} D={d} "
+          f"causal={int(causal)} {rec['layout']} | kernel_ms={kernel_ms:.4f}"
+          f" op_ms={op_ms:.4f} ref_ms={ref_ms:.4f} library_ms="
+          f"{library_ms:.4f} bound_ms={rec['bound_ms']:.4f} "
+          f"({rec['bound_by']}) | max_abs {rec['max_abs_err']:.3g}, worst "
+          f"{worst:.3f} of the bound{dead_txt} | {'ok' if ok else 'FAIL'} "
+          f"[{card}]", flush=True)
+    return rec
+
+
+def phase_kernels_attention(card):
+    """Kernel 5 at the BERT-base serving shapes (B*H = 32*12, S = Sk =
+    128, D = 64, bf16; valid lengths from a seed in [1, 128], one row at
+    0), as `attend` takes it and as the main path calls it (packed
+    (B, S, 768) projections, a (B, Sk) mask); then one fp32 case, S = 200
+    with lengths [200, 77] (several query tiles, Sk not a multiple of 8),
+    causal with S = 40, Sk = 72, and the head-split layout."""
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator().manual_seed(99)
+    recs = {}
+
+    def randn(*shape, dtype=torch.bfloat16):
+        return torch.randn(*shape, generator=gen).to(dev, dtype)
+    print("attention kernel vs plain version:", flush=True)
+    bh = BATCH * BERT_HEADS
+    d = BERT_UNITS // BERT_HEADS
+    s = BERT_SEQ
+    q, k, v = (randn(bh, s, d) for _ in range(3))
+    m = key_mask(gen, bh, s, zero_rows=1).to(dev)
+    recs["bert.(BH,S,D)"] = check_attention("bert.(BH,S,D)", q, k, v, m,
+                                            False, card)
+    q, k, v = (randn(BATCH, s, BERT_UNITS) for _ in range(3))
+    m = key_mask(gen, BATCH, s, zero_rows=1).to(dev)
+    recs["bert.packed"] = check_attention("bert.packed", q, k, v, m, False,
+                                          card, heads=BERT_HEADS)
+    q, k, v = (randn(48, s, d, dtype=torch.float32) for _ in range(3))
+    m = key_mask(gen, 48, s, zero_rows=1).to(dev)
+    recs["fp32"] = check_attention("fp32", q, k, v, m, False, card)
+    q, k, v = (randn(2, 200, d) for _ in range(3))
+    m = key_mask(gen, 2, 200, lengths=[200, 77]).to(dev)
+    recs["s200"] = check_attention("s200.lens200,77", q, k, v, m, False,
+                                   card)
+    q = randn(8, 40, d)
+    k, v = randn(8, 72, d), randn(8, 72, d)
+    m = key_mask(gen, 8, 72).to(dev)
+    recs["causal"] = check_attention("causal.s40.sk72", q, k, v, m, True,
+                                     card)
+    # head-split (B, H, S, D) input through the op
+    from mxnet_tpu_torch.ops import attention as att
+
+    q4, k4, v4 = (randn(4, BERT_HEADS, s, d) for _ in range(3))
+    m = key_mask(gen, 4, s).to(dev)
+    out = att.dot_product_attention(q4, k4, v4, m)
+    torch.cuda.synchronize()
+    ref = att.dot_product_attention_ref(
+        *(x.reshape(-1, s, d) for x in (q4, k4, v4)),
+        m.to(q4.dtype).repeat_interleave(BERT_HEADS, dim=0), 1 / math.sqrt(d))
+    e = float((out.reshape(-1, s, d).float() - ref.float()).abs().max())
+    same = bool(torch.equal(out.reshape(-1, s, d), att.attend(
+        *(x.reshape(-1, s, d) for x in (q4, k4, v4)),
+        m.repeat_interleave(BERT_HEADS, dim=0), 1 / math.sqrt(d))))
+    print(f"  head-split (B,H,S,D) {tuple(q4.shape)}: max abs vs plain "
+          f"{e:.3g}; bit-equal to the (BH,S,D) call: {same}", flush=True)
+    if not same or not e < 0.05:
+        fail(f"attention head-split layout: max abs {e:.3g}, equal to the "
+             f"(BH,S,D) call: {same}")
+    return recs
+
+
+# ---------------------------------------------------------------------------
 # phase 4: the main path — serve ResNet-50 v1
 # ---------------------------------------------------------------------------
 
@@ -547,11 +772,13 @@ def build_net(dtype, seed):
     return net
 
 
-def serve(server, model, images, threads):
-    """Submit one request per image from `threads` client threads; returns
-    (answers in image order, per-request latencies in s, wall s, errors).
-    A latency runs from submit to the future's completion."""
-    n = images.shape[0]
+def serve(server, model, inputs, threads):
+    """Submit one request per row of `inputs` (a tensor, or a list of
+    tensors that share the row count) from `threads` client threads;
+    returns (answers in row order, per-request latencies in s, wall s,
+    errors).  A latency runs from submit to the future's completion."""
+    xs = list(inputs) if isinstance(inputs, (list, tuple)) else [inputs]
+    n = xs[0].shape[0]
     answers, t_sub, t_done = [None] * n, [0.0] * n, [0.0] * n
     errors = []
 
@@ -559,7 +786,7 @@ def serve(server, model, images, threads):
         futs = []
         for i in idx:
             t_sub[i] = time.perf_counter()
-            f = server.submit(model, [images[i:i + 1]])
+            f = server.submit(model, [x[i:i + 1] for x in xs])
             f.add_done_callback(
                 lambda _f, i=i: t_done.__setitem__(i, time.perf_counter()))
             futs.append((i, f))
@@ -763,6 +990,202 @@ def profile_device(run, tag, what, card, wall_ms, iters=3, top=10):
         print(f"profile {tag}: not measured ({type(e).__name__}: {e})",
               flush=True)
         return None
+
+
+# ---------------------------------------------------------------------------
+# phase 4b: the main path — serve BERT-base
+# ---------------------------------------------------------------------------
+
+def bert_requests(n, seed):
+    """n single-sequence requests of BERT_SEQ tokens: ids from a seed,
+    token types 0 then 1 from a random split, valid lengths in [16, 128]."""
+    gen = torch.Generator().manual_seed(seed)
+    tok = torch.randint(0, BERT_VOCAB, (n, BERT_SEQ), generator=gen,
+                        dtype=torch.int32)
+    split = torch.randint(1, BERT_SEQ, (n, 1), generator=gen)
+    types = (torch.arange(BERT_SEQ)[None, :] >= split).to(torch.int32)
+    vlen = torch.randint(16, BERT_SEQ + 1, (n,), generator=gen).float()
+    return [tok, types, vlen]
+
+
+def bert_forward(net, inputs, dev, bs=BATCH):
+    """(seq, pooled) of a direct forward over `inputs`, `bs` rows at a
+    time, on `dev`."""
+    seqs, pooled = [], []
+    with torch.inference_mode():
+        for i in range(0, inputs[0].shape[0], bs):
+            a, b = net(*[x[i:i + bs].to(dev) for x in inputs])
+            seqs.append(a)
+            pooled.append(b)
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    return torch.cat(seqs), torch.cat(pooled)
+
+
+def phase_bert(card, n_requests, threads):
+    """Full-width BERT-base (Normal(0.02) weights from a seed, as
+    bench_all.py initialises it), exported with dynamic_batch=True in
+    bf16 and fp32, served through ModelRepository -> InferenceServer to
+    single-sequence requests from several threads.  Every request must
+    be answered, the attention kernel must launch exactly BERT_LAYERS
+    times per launched batch, and the answers (seq and pooled) of
+    BERT_CHECKED requests must match the port's fp32 forward of the same
+    weights on the CPU (plain versions): relative L2 < 2e-2 (bf16) and
+    < 1e-4 (fp32 served on the card).  Positions at or past valid_length
+    must not move the valid ones."""
+    import gc
+
+    from mxnet_tpu_torch import cpu, gpu, init, serving
+    from mxnet_tpu_torch.contrib import deploy
+    from mxnet_tpu_torch.gluon import load_numpy_params
+    from mxnet_tpu_torch.gluon.model_zoo import bert
+    from mxnet_tpu_torch.ops import attention as att
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    dev = torch.device("cuda", 0)
+    result = {}
+    tmp = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                       "chip_smoke_deploy")
+    t0 = time.perf_counter()
+    net = bert.get_bert_model("bert_12_768_12", vocab_size=BERT_VOCAB,
+                              max_length=512, dropout=0.1)
+    net.initialize(init.Normal(0.02), ctx=gpu(0), seed=3)
+    net.hybridize()
+    net.eval()
+    w32 = {k: v.detach().cpu().clone()
+           for k, v in net.collect_params().items()}
+    reqs = bert_requests(n_requests, seed=21)
+    example = [x[:1].to(dev) for x in reqs]
+    paths = {"fp32": deploy.export_model(net, os.path.join(tmp, "bert_fp32"),
+                                         example, dynamic_batch=True)}
+    net.cast("bfloat16")
+    paths["bf16"] = deploy.export_model(net, os.path.join(tmp, "bert_bf16"),
+                                        example, dynamic_batch=True)
+    print(f"bert: built, initialised and exported BERT-base "
+          f"({sum(v.numel() for v in net.parameters()) / 1e6:.1f} M "
+          f"parameters) in {time.perf_counter() - t0:.1f} s", flush=True)
+    # the reference: the port's fp32 forward of the same weights on the CPU
+    ref_net = bert.get_bert_model("bert_12_768_12", vocab_size=BERT_VOCAB,
+                                  max_length=512, dropout=0.1)
+    ref_net.initialize(ctx=cpu())
+    load_numpy_params(ref_net, w32)
+    ref_net.eval()
+    t0 = time.perf_counter()
+    checked = [x[:BERT_CHECKED] for x in reqs]
+    ref_seq, ref_pooled = bert_forward(ref_net, checked, torch.device("cpu"))
+    print(f"bert: CPU fp32 reference forward of {BERT_CHECKED} sequences in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    del ref_net
+    repo = serving.ModelRepository()
+    for tag, path in paths.items():
+        repo.add(f"bert_{tag}", path)
+    server = serving.InferenceServer(
+        repo, serving.ServingConfig(max_batch_size=BATCH,
+                                    batch_timeout_ms=2))
+    try:
+        for tag, n_req in (("bf16", n_requests), ("fp32", BATCH)):
+            model = f"bert_{tag}"
+            xs = [x[:n_req] for x in reqs]
+            serve(server, model, [x[:4] for x in xs], 2)  # warm
+            m = repo.get(model).metrics
+            b0 = m.value("batches")
+            att.reset_attention_launch_count()
+            answers, lat, wall, errors = serve(server, model, xs, threads)
+            launches = att.attention_launch_count()
+            batches = m.value("batches") - b0
+            for e in errors[:5]:
+                fail(f"bert {tag}: {e}")
+            if any(a is None for a in answers):
+                fail(f"bert {tag}: {sum(a is None for a in answers)} of "
+                     f"{n_req} requests unanswered")
+                continue
+            if launches != BERT_LAYERS * batches:
+                fail(f"bert {tag}: {launches} attention launches for "
+                     f"{batches} batches (want {BERT_LAYERS} per batch)")
+            shapes_ok = all(
+                isinstance(a, tuple) and len(a) == 2
+                and tuple(a[0].shape) == (1, BERT_SEQ, BERT_UNITS)
+                and tuple(a[1].shape) == (1, BERT_UNITS) for a in answers)
+            seq = torch.cat([a[0].float().cpu() for a in answers])
+            pooled = torch.cat([a[1].float().cpu() for a in answers])
+            finite = bool(torch.isfinite(seq).all()
+                          and torch.isfinite(pooled).all())
+            e_seq = rel_l2(seq[:BERT_CHECKED], ref_seq)
+            e_pool = rel_l2(pooled[:BERT_CHECKED], ref_pooled)
+            row = max(rel_l2(seq[i], ref_seq[i]) for i in range(BERT_CHECKED))
+            bound = BERT_BOUNDS[tag]
+            print(f"bert {tag}: {n_req} requests from {threads} threads in "
+                  f"{batches} batches, {launches} attention launches; vs the "
+                  f"CPU fp32 forward ({BERT_CHECKED} requests) rel L2 seq "
+                  f"{e_seq:.3g} (worst row {row:.3g}) pooled {e_pool:.3g} "
+                  f"(bound {bound}); finite={finite} shapes={shapes_ok}",
+                  flush=True)
+            if not (e_seq < bound and e_pool < bound and row < bound
+                    and finite and shapes_ok):
+                fail(f"bert {tag}: served answers disagree with the CPU "
+                     f"fp32 forward (seq {e_seq:.3g}, worst row {row:.3g}, "
+                     f"pooled {e_pool:.3g}, bound {bound}, finite {finite},"
+                     f" shapes {shapes_ok})")
+            p50, p99 = percentile_ms(lat, 0.50), percentile_ms(lat, 0.99)
+            result[tag] = dict(requests=n_req, batches=batches,
+                               launches=launches, wall_s=wall,
+                               req_per_s=n_req / wall, p50_ms=p50,
+                               p99_ms=p99, rel_l2_seq=e_seq,
+                               rel_l2_pooled=e_pool, worst_row=row)
+            if tag == "bf16":
+                result["launches"] = launches
+            print(f"serving bert {tag}: {n_req / wall:.2f} requests/s, p50 "
+                  f"{p50:.3f} ms, p99 {p99:.3f} ms (submit to answer), "
+                  f"{n_req / max(batches, 1):.1f} rows per batch [{card}]",
+                  flush=True)
+    finally:
+        server.shutdown(drain=True)
+    # padding invariance on the card: scramble tokens and token types at
+    # and past valid_length
+    xs = [x[:8].clone() for x in reqs]
+    tok2, typ2 = xs[0].clone(), xs[1].clone()
+    past = torch.arange(BERT_SEQ)[None, :] >= xs[2][:, None]
+    tok2[past] = (tok2[past] + 7919) % BERT_VOCAB
+    typ2[past] = 1 - typ2[past]
+    a, _ = bert_forward(net, xs, dev)
+    b, _ = bert_forward(net, [tok2, typ2, xs[2]], dev)
+    keep = (~past).to(dev)
+    moved = float((a.float() - b.float()).abs()[keep].max())
+    print(f"bert bf16 padding invariance: max change of a valid position "
+          f"{moved:.3g} after scrambling the padding", flush=True)
+    if moved != 0.0:
+        fail(f"bert: valid positions moved by {moved:.3g} when the padding "
+             f"changed")
+    result["padding_max_change"] = moved
+    # direct batch-32 forward and its profile
+    xb = [x[:BATCH].to(dev) for x in reqs]
+    with torch.inference_mode():
+        fwd_ms = [time_ms(lambda: net(*xb), iters=5, warmup=2)
+                  for _ in range(2)]
+    print(f"direct forward bert bf16 batch {BATCH}: "
+          f"{' '.join(f'{t:.3f}' for t in fwd_ms)} ms, "
+          f"{' '.join(f'{BATCH / t * 1e3:.1f}' for t in fwd_ms)} seq/s "
+          f"[{card}]", flush=True)
+    result["forward_ms"] = fwd_ms
+
+    def run():
+        with torch.inference_mode():
+            net(*xb)
+    prof = profile_device(run, f"bert bf16 batch {BATCH}", "forward", card,
+                          sum(fwd_ms) / len(fwd_ms), iters=3, top=12)
+    if prof is not None:
+        kern = sum(ms for ms, _, key in prof["top"]
+                   if "attention_fwd_kernel" in key)
+        print(f"profile bert: attention kernel {kern:.3f} ms of "
+              f"{prof['busy_ms']:.3f} ms busy ({kern / prof['busy_ms']:.1%})"
+              f" [{card}]", flush=True)
+        prof["attention_ms"] = kern
+    result["profile"] = prof
+    del net
+    gc.collect()
+    torch.cuda.empty_cache()
+    return result
 
 
 # ---------------------------------------------------------------------------
@@ -1119,12 +1542,28 @@ def phase_train(card):
     return result
 
 
+def attention_summary(recs, launches):
+    """The `kernels` record of the attention kernel on the BERT serving
+    path: times and bound of the packed check at the path's shapes, summed
+    over the BERT_LAYERS launches of one served batch of BATCH."""
+    r = recs["bert.packed"]
+    return dict(KERNEL_ATT, path="serve_bert", batch=BATCH,
+                launches=launches, max_abs_err=r["max_abs_err"],
+                ms=r["kernel_ms"] * BERT_LAYERS,
+                op_ms=r["op_ms"] * BERT_LAYERS,
+                plain_ms=r["ref_ms"] * BERT_LAYERS,
+                bound_ms=r["bound_ms"] * BERT_LAYERS, bound_by=r["bound_by"],
+                library_ms=r["library_ms"] * BERT_LAYERS)
+
+
 def main():
     card = phase_device()
     phase_build()
     recs = phase_kernels()
     recs_bwd = phase_kernels_bwd()
+    recs_att = phase_kernels_attention(card)
     main_res = phase_main(card, REQUESTS, THREADS)
+    bert_res = phase_bert(card, REQUESTS, THREADS)
     train_res = phase_train(card)
     # kernel 1 once for each main path (its shapes and launches), kernel 2
     # for the training path
@@ -1133,7 +1572,8 @@ def main():
         kernel_summary(dict(KERNEL, name="fused_conv_unit/train"), recs,
                        "train", train_res["launches"]["fwd"]),
         kernel_summary(KERNEL_BWD, recs_bwd, "train",
-                       train_res["launches"]["bwd"])]
+                       train_res["launches"]["bwd"]),
+        attention_summary(recs_att, bert_res.get("launches", 0))]
     if FAILURES:
         print(f"chip_smoke: {len(FAILURES)} failure(s)", flush=True)
         return 1

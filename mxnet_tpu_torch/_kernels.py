@@ -35,7 +35,7 @@ __all__ = ["load", "build", "BUILD_DIR", "last_build"]
 _PKG = Path(__file__).resolve().parent
 _SRC_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "torch_kernels"
-_SOURCES = ("fused_convbn.cu", "fused_convbn_bwd.cu")
+_SOURCES = ("fused_convbn.cu", "fused_convbn_bwd.cu", "attention.cu")
 _FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
           "-Xcompiler", "-fPIC", "-lineinfo", "-Xptxas", "-v")
 
@@ -140,6 +140,10 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.mx_fused_conv_unit_bwd_block_m.argtypes = []
     lib.mx_fused_conv_unit_bwd_splits.restype = _I
     lib.mx_fused_conv_unit_bwd_splits.argtypes = [_I] * 4 + [ctypes.c_longlong]
+    lib.mx_attention_fwd.restype = _I
+    lib.mx_attention_fwd.argtypes = (
+        [_I] + [_VP] * 5 + [_I] * 5 + [ctypes.c_longlong] * 12
+        + [ctypes.c_float, _I, _VP])
     lib.mx_cuda_error_string.restype = ctypes.c_char_p
     lib.mx_cuda_error_string.argtypes = [_I]
     return lib

@@ -1,4 +1,5 @@
-"""Foundations of the port: the framework error type and env parsing.
+"""Foundations of the port: the framework error type, env parsing and
+dtype names.
 
 Counterpart of ``mxnet_tpu/base.py``; the port keeps its own copy so
 that it never imports the JAX package.
@@ -8,7 +9,9 @@ from __future__ import annotations
 import os
 from typing import Any, Optional
 
-__all__ = ["MXNetError", "get_env", "convert_env"]
+import torch
+
+__all__ = ["MXNetError", "get_env", "convert_env", "dtype_of"]
 
 
 class MXNetError(RuntimeError):
@@ -47,3 +50,17 @@ def get_env(name: str, default: Any = None, typ: Optional[type] = None) -> Any:
     if typ is None:
         typ = type(default) if default is not None else str
     return convert_env(name, raw, typ)
+
+
+_DTYPES = {"float32": torch.float32, "float16": torch.float16,
+           "bfloat16": torch.bfloat16}
+
+
+def dtype_of(dtype) -> torch.dtype:
+    """'bfloat16' (a name) or a torch.dtype -> torch.dtype."""
+    if isinstance(dtype, torch.dtype):
+        return dtype
+    try:
+        return _DTYPES[dtype]
+    except KeyError:
+        raise MXNetError(f"unsupported dtype {dtype!r}") from None

@@ -160,7 +160,7 @@ class ServedModel:
 def import_model(path: str, ctx=None) -> ServedModel:
     """Rebuild an artifact directory's network on ``ctx`` (default
     gpu(0); raises without CUDA unless cpu() is passed)."""
-    from ..gluon.model_zoo import vision
+    from ..gluon import model_zoo
     from ..serialization import load_ndarrays
 
     device = _context.resolve(ctx)
@@ -169,7 +169,7 @@ def import_model(path: str, ctx=None) -> ServedModel:
     if meta.get("format") != FORMAT:
         raise MXNetError(f"not a {FORMAT} artifact: {path}")
     arch = meta["arch"]
-    net = vision.build(arch)
+    net = model_zoo.build(arch)
     net.cast(dtype_of(arch["dtype"]))
     values = load_ndarrays(os.path.join(path, "model.params"))
     load_numpy_params(net, values)

@@ -18,6 +18,13 @@ Counterpart of ``mxnet_tpu/gluon/block.py``:
     package keys its ParameterDict on name-scope names).
   * Parameter shapes are known at construction: deferred shape
     inference (``in_channels=0``) is not ported.
+  * A parameter may be registered straight on a block (BERT's
+    ``position_weight``) and may be tied: one ``nn.Parameter`` assigned
+    to two blocks (BERT's ``mlm_decoder.embed_weight`` is
+    ``word_embed.weight``) is listed under both structural names, as in
+    the JAX package; only its owner lists it in ``_inits``, so
+    ``initialize`` and ``cast`` touch it once and the names stay one
+    tensor.
 """
 from __future__ import annotations
 
@@ -32,24 +39,10 @@ from torch import nn
 from .. import context as _context
 from .. import initializer as init_mod
 from .. import ops as _ops
-from ..base import MXNetError
+from ..base import MXNetError, dtype_of
 
 __all__ = ["Block", "HybridBlock", "ActiveTrace", "current_trace",
-           "load_numpy_params", "dtype_of"]
-
-
-_DTYPES = {"float32": torch.float32, "float16": torch.float16,
-           "bfloat16": torch.bfloat16}
-
-
-def dtype_of(dtype) -> torch.dtype:
-    """'bfloat16' (a name) or a torch.dtype -> torch.dtype."""
-    if isinstance(dtype, torch.dtype):
-        return dtype
-    try:
-        return _DTYPES[dtype]
-    except KeyError:
-        raise MXNetError(f"unsupported dtype {dtype!r}") from None
+           "train_mode", "trace_generator", "load_numpy_params", "dtype_of"]
 
 
 # ---------------------------------------------------------------------------
@@ -65,10 +58,13 @@ _TRACE = _TraceState()
 
 
 class ActiveTrace:
-    """The scope a hybridized forward runs in (thread-local)."""
+    """The scope a hybridized forward runs in (thread-local).  Dropout
+    inside it draws from ``generator`` (None: dropout in training
+    raises)."""
 
-    def __init__(self, train: bool):
+    def __init__(self, train: bool, generator=None):
         self.train = train
+        self.generator = generator
 
     def __enter__(self):
         self._old = _TRACE.scope
@@ -82,6 +78,19 @@ class ActiveTrace:
 
 def current_trace() -> Optional[ActiveTrace]:
     return _TRACE.scope
+
+
+def train_mode(block) -> bool:
+    """The trace scope's train flag inside one, else the module's mode
+    (the JAX package reads the trace, block.py:187)."""
+    ts = _TRACE.scope
+    return ts.train if ts is not None else block.training
+
+
+def trace_generator():
+    """The trace scope's dropout generator (None outside a scope)."""
+    ts = _TRACE.scope
+    return ts.generator if ts is not None else None
 
 
 # ---------------------------------------------------------------------------
@@ -188,12 +197,24 @@ def _to_tensor(v) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(a).copy())
 
 
+def _tied_groups(params):
+    """Structural names grouped by the tensor they name: a tied
+    parameter (BERT's MLM decoder weight is the word embedding) has one
+    group of several names."""
+    groups: Dict[int, list] = {}
+    for name, t in params.items():
+        groups.setdefault(id(t), []).append(name)
+    return list(groups.values())
+
+
 def _load_tensors(block, values, what="dict"):
-    """Every name, present and of the right shape, or raise before any
-    parameter changes; each value keeps its dtype and moves to the
-    parameter's device."""
+    """Every parameter, present under at least one of its names and of
+    the right shape, or raise before any parameter changes; the names of
+    a tied parameter must agree where several are given.  Each value
+    keeps its dtype and moves to the parameter's device."""
     params = block.collect_params()
-    missing = [k for k in params if k not in values]
+    groups = _tied_groups(params)
+    missing = [g[0] for g in groups if not any(k in values for k in g)]
     extra = [k for k in values if k not in params]
     if missing:
         raise MXNetError(f"parameters missing in {what}: {missing[:5]}")
@@ -202,19 +223,29 @@ def _load_tensors(block, values, what="dict"):
                          f"block: {extra[:5]}")
     tensors = {k: _to_tensor(v) for k, v in values.items()}
     for name, t in params.items():
-        if tuple(tensors[name].shape) != tuple(t.shape):
+        if name in tensors and tuple(tensors[name].shape) != tuple(t.shape):
             raise MXNetError(f"parameter {name}: shape "
                              f"{tuple(tensors[name].shape)} != "
                              f"{tuple(t.shape)}")
+    chosen = []
+    for g in groups:
+        given = [k for k in g if k in tensors]
+        first = tensors[given[0]]
+        for k in given[1:]:
+            if not torch.equal(tensors[k], first):
+                raise MXNetError(f"tied parameters {given} are given "
+                                 f"different values in {what}")
+        chosen.append((params[g[0]], first))
     with torch.no_grad():
-        for name, t in params.items():
-            t.data = tensors[name].to(device=t.device)
+        for t, value in chosen:
+            t.data = value.to(device=t.device)
 
 
 def load_numpy_params(block: Block, values: Dict[str, np.ndarray]) -> None:
     """Load ``{structural name: array}`` (numpy, ml_dtypes.bfloat16
     included, or tensors) into ``block``, keeping each array's dtype.
-    Raises on a missing, extra or mis-shaped name."""
+    Raises on a missing, extra or mis-shaped name; a tied parameter
+    loads through any one of its names."""
     _load_tensors(block, values)
 
 

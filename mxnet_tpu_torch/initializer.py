@@ -1,5 +1,6 @@
 """Weight initializers (counterpart of ``mxnet_tpu/initializer.py``): the
-ones the zoo's Conv2D, Dense and BatchNorm use by default, and Xavier.
+ones the zoo's Conv2D, Dense and BatchNorm use by default, Normal (BERT)
+and Xavier.
 
 Same dispatch by parameter-name suffix (``*bias``/``*beta``/
 ``*running_mean`` -> 0, ``*gamma``/``*running_var`` -> 1, anything else
@@ -16,7 +17,8 @@ import torch
 
 from .base import MXNetError
 
-__all__ = ["Initializer", "create", "Zero", "One", "Uniform", "Xavier"]
+__all__ = ["Initializer", "create", "Zero", "One", "Uniform", "Normal",
+           "Xavier"]
 
 
 class Initializer:
@@ -66,6 +68,15 @@ class Uniform(Initializer):
         arr.uniform_(-self.scale, self.scale, generator=generator)
 
 
+class Normal(Initializer):
+    def __init__(self, sigma=0.01):
+        super().__init__(sigma=sigma)
+        self.sigma = sigma
+
+    def _init_weight(self, name, arr, generator):
+        arr.normal_(0.0, self.sigma, generator=generator)
+
+
 class Xavier(Initializer):
     """rnd_type uniform|gaussian, factor_type avg|in|out, magnitude."""
 
@@ -95,7 +106,7 @@ class Xavier(Initializer):
 
 
 _REG = {"zeros": Zero, "zero": Zero, "ones": One, "one": One,
-        "uniform": Uniform, "xavier": Xavier}
+        "uniform": Uniform, "normal": Normal, "xavier": Xavier}
 
 
 def create(init) -> Initializer:

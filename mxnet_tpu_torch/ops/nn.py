@@ -1,6 +1,7 @@
-"""Neural-net ops of the ResNet serving and training paths: FullyConnected,
-Convolution, Pooling (max, global average), BatchNorm, Activation (ReLU),
-flatten, log_softmax.
+"""Neural-net ops of the ResNet and BERT paths: FullyConnected,
+Convolution, Pooling (max, global average), BatchNorm, LayerNorm,
+Activation (ReLU, tanh, erf GELU), Dropout, Embedding, flatten,
+log_softmax.
 
 Counterpart of ``mxnet_tpu/ops/nn.py``, as plain functions on tensors
 with the same attributes, layouts and rounding points.  The JAX package
@@ -12,6 +13,8 @@ checkpoints.  NHWC tensors are handed to PyTorch as permuted NCHW views
 """
 from __future__ import annotations
 
+import math
+
 import numpy as np
 import torch
 import torch.nn.functional as F
@@ -20,7 +23,8 @@ from ..base import MXNetError
 from ..util import env
 
 __all__ = ["fully_connected", "convolution", "pooling", "batch_norm",
-           "activation", "flatten", "log_softmax"]
+           "layer_norm", "activation", "dropout", "embedding", "flatten",
+           "log_softmax"]
 
 
 def _channels_last(layout) -> bool:
@@ -136,11 +140,70 @@ def batch_norm(data, gamma, beta, moving_mean, moving_var, eps=1e-5,
     return out, new_mean, new_var
 
 
+def layer_norm(data, gamma, beta, axis=-1, eps=1e-5):
+    """Layer normalization over ``axis``, op by op as the JAX package
+    writes it: the mean and the biased variance accumulate in fp32 and
+    round to x's dtype (``jnp.mean``/``jnp.var`` of a bf16 tensor), then
+    (x - mean) * rsqrt(var + eps) * gamma + beta runs in x's dtype.
+    (``F.layer_norm`` on the card keeps fp32 to the end and rounds once.)"""
+    xf = data.float()
+    mean = xf.mean(dim=axis, keepdim=True)
+    var = (xf - mean).square().mean(dim=axis, keepdim=True)
+    mean, var = mean.to(data.dtype), var.to(data.dtype)
+    out = (data - mean) * torch.rsqrt(var + eps)
+    shape = [1] * data.dim()
+    shape[axis] = data.shape[axis]
+    return out * gamma.reshape(shape) + beta.reshape(shape)
+
+
+# sqrt(1/2) rounded to each dtype, as jax.nn.gelu rounds its constant
+_SQRT_HALF = {dt: float(torch.tensor(math.sqrt(0.5), dtype=dt))
+              for dt in (torch.float32, torch.bfloat16, torch.float16)}
+
+
+def _gelu(x):
+    """erf GELU, 0.5·x·erfc(-x·sqrt(1/2)) op by op in x's dtype, as
+    ``jax.nn.gelu(approximate=False)`` writes it (its constant rounded to
+    x's dtype too)."""
+    return 0.5 * x * torch.erfc(-x * _SQRT_HALF[x.dtype])
+
+
+_ACTIVATIONS = {"relu": torch.relu, "tanh": torch.tanh, "gelu": _gelu}
+
+
 def activation(data, act_type="relu"):
-    """Elementwise activation; ReLU is the one this slice uses."""
-    if act_type != "relu":
-        raise MXNetError(f"activation: act_type {act_type!r} is not ported")
-    return torch.relu(data)
+    """Elementwise activation: relu, tanh, or gelu (erf, not the tanh
+    approximation)."""
+    fn = _ACTIVATIONS.get(act_type)
+    if fn is None:
+        raise MXNetError(f"activation: act_type {act_type!r} is not ported; "
+                         f"ported: {sorted(_ACTIVATIONS)}")
+    return fn(data)
+
+
+def dropout(data, p=0.5, mode="training", train=False, generator=None):
+    """Inverted dropout: zero with probability p and rescale by 1/(1-p)
+    when ``train`` or ``mode="always"``, the mask drawn from
+    ``generator`` on data's device; the identity otherwise or when p is
+    0."""
+    if not (mode == "always" or train) or p == 0.0:
+        return data
+    if generator is None:
+        raise MXNetError("dropout: applying dropout draws from a "
+                         "torch.Generator; pass generator=")
+    keep = 1.0 - p
+    mask = torch.rand(data.shape, generator=generator,
+                      device=data.device) < keep
+    return data * mask.to(data.dtype) / keep
+
+
+def embedding(data, weight):
+    """Row lookup into the (input_dim, output_dim) table ``weight``.  The
+    ids are cast to int32 (a float id truncates) and out-of-range ids are
+    clamped into range, as ``jnp.take(..., mode="clip")``: it never
+    raises."""
+    idx = data.to(torch.int32).long().clamp(0, weight.shape[0] - 1)
+    return weight[idx]
 
 
 def flatten(data):
