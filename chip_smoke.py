@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of mxnet_tpu_torch on one CUDA card.
 
-    python3 chip_smoke.py            # every phase, one card
+    python3 chip_smoke.py            # every phase, one card (or more)
 
 Phases, each failing loudly (exit code 1, no result line):
 
@@ -95,11 +95,29 @@ Phases, each failing loudly (exit code 1, no result line):
    away, so no fp32 step can be held to 1e-3 over all weights.  Then
    each mode trains its own copy of the net, in turns, timed and
    profiled.
+6. main path, data-parallel training: kernels 1 (with statistics) and 2
+   checked as in phase 3 at the per-rank shapes (N = 256 / 2), then
+   bench.py's step over 2 rank processes of this script (spawned, never
+   forked; `--dp-rank r` runs one), each calling dist.init() from the
+   DMLC_* environment -> make_mesh(dp=2) -> SPMDTrainer(...).step on
+   phase 5's weights and global batches: fp32 at batch 8 and bf16 at
+   batch 256, fused with the fused backward and op-granular.  With one
+   card both ranks run on cuda:0 over gloo; with two or more, rank r on
+   cuda:r over NCCL; every time is printed beside that mode.  Every
+   fused step must launch 52 forward and 46 backward kernels on each
+   rank; after every step the ranks must hold bit-identical parameters,
+   running statistics and momenta (hashes); rank 0's update and the
+   loss are held against phase 5's reference of the same step by phase
+   5's per-leaf rule (fp32 against float64 with its witness, bf16
+   against fp32).  Then 3 timed steps a mode and a profile of a fused
+   step on rank 0 (kernel time, the collectives' host and device time).
+   A rank that fails or outlives its time makes the parent kill every
+   rank and fail.
 
 The line before the last is the kernel summary {"kernels": [...]}, one
-entry per kernel and main path (kernel 1 served and trained, kernel 2
-trained, kernel 5 on the BERT serving path), from the checks at that
-path's shapes; the last line is
+entry per kernel and main path (kernel 1 served, trained and per rank
+under dp, kernel 2 trained and per rank under dp, kernel 5 on the BERT
+serving path), from the checks at that path's shapes; the last line is
 {"ok": true, "device": {"platform": "gpu", ...}}.
 """
 from __future__ import annotations
@@ -146,6 +164,19 @@ BERT_SEQ, BERT_LAYERS, BERT_HEADS, BERT_UNITS = 128, 12, 12, 768
 BERT_VOCAB = 30522
 BERT_CHECKED = 16            # requests held against the CPU fp32 forward
 BERT_BOUNDS = {"bf16": 2e-2, "fp32": 1e-4}
+# phase 6: bench.py's step data parallel over DP ranks; rows 3-4 of the
+# TPU kernel table are kernels 1-2 per rank plus the sums over the ranks
+DP = 2
+DP_TIMEOUT = 480.0             # s, the ranks' whole run
+DP_COLLECTIVE_TIMEOUT = 180.0  # s, one collective
+# the device functions of kernels 1 and 2 as torch.profiler names them
+KERNEL1_NAMES = ("::fused_conv_unit_kernel<", "::reduce_stats_kernel(")
+KERNEL2_NAMES = ("::dgrad_kernel<", "::wgrad_kernel<", "::wgrad_reduce_kernel<",
+                 "::channel_reduce_kernel(")
+KERNEL_DP = dict(KERNEL, name="fused_conv_unit/dp",
+                 replaces="mxnet_tpu/ops/pallas_convbn.py:618")
+KERNEL_BWD_DP = dict(KERNEL_BWD, name="fused_conv_unit_bwd/dp",
+                     replaces="mxnet_tpu/ops/pallas_convbn.py:406")
 
 FAILURES = []
 
@@ -760,12 +791,12 @@ def direct_forward(net, xs, fused, bs=BATCH):
     return torch.cat(outs)
 
 
-def build_net(dtype, seed):
+def build_net(dtype, seed, dev=None):
     from mxnet_tpu_torch import gpu, init
     from mxnet_tpu_torch.gluon.model_zoo import vision
 
     net = vision.resnet50_v1(classes=1000, layout="NHWC")
-    net.initialize(init.Xavier(), ctx=gpu(0), seed=seed)
+    net.initialize(init.Xavier(), ctx=dev or gpu(0), seed=seed)
     net.cast(dtype)
     net.hybridize()
     net.eval()
@@ -930,12 +961,14 @@ def profile_forward(net, xb, fused, card, wall_ms, iters=3):
                           iters)
 
 
-def profile_device(run, tag, what, card, wall_ms, iters=3, top=10):
+def profile_device(run, tag, what, card, wall_ms, iters=3, top=10,
+                   host_prefix=None):
     """Device time by kernel over `iters` calls of `run` (torch.profiler).
     The profiler slows the host, so the idle share is taken against
-    `wall_ms`, the time of one call measured without it.  A call that
-    fails fails the run; a profiler that cannot start, stop or show
-    device time prints "not measured"."""
+    `wall_ms`, the time of one call measured without it.  With
+    `host_prefix`, also the host time per call inside the ranges whose
+    name starts with it.  A call that fails fails the run; a profiler
+    that cannot start, stop or show device time prints "not measured"."""
     from torch.profiler import ProfilerActivity, profile
 
     run()
@@ -962,11 +995,18 @@ def profile_device(run, tag, what, card, wall_ms, iters=3, top=10):
               f"{stop_error})", flush=True)
         return None
     try:
-        rows = []
+        rows, host = [], [0.0, 0]
         for e in prof.key_averages():
+            mine = bool(host_prefix) and e.key.startswith(host_prefix)
             # device-side events only (kernels, copies); CPU ops carry the
-            # same time attributed to them and would count it twice
+            # same time attributed to them and would count it twice, and
+            # the device span of a named range repeats its kernels' time
             if not str(getattr(e, "device_type", "")).endswith("CUDA"):
+                if mine:
+                    host[0] += e.cpu_time_total / 1e3 / iters
+                    host[1] += e.count // iters
+                continue
+            if mine:
                 continue
             dev = getattr(e, "self_device_time_total", None)
             if dev is None:
@@ -984,8 +1024,14 @@ def profile_device(run, tag, what, card, wall_ms, iters=3, top=10):
               f"{1 - busy / wall_ms:.1%} [{card}]", flush=True)
         for ms, n, key in rows[:top]:
             print(f"    {ms:8.3f} ms  x{n:<4d} {key[:90]}", flush=True)
-        return {"wall_ms": wall_ms, "busy_ms": busy,
-                "top": [[ms, n, key[:120]] for ms, n, key in rows[:12]]}
+        out = {"wall_ms": wall_ms, "busy_ms": busy,
+               "top": [[ms, n, key[:120]] for ms, n, key in rows[:12]],
+               "rows": rows}
+        if host_prefix:
+            out["host_ms"], out["host_calls"] = host
+            print(f"profile {tag}: host time in {host_prefix}* "
+                  f"{host[0]:.3f} ms/{what} in {host[1]} calls", flush=True)
+        return out
     except Exception as e:  # noqa: BLE001 — auxiliary measurement
         print(f"profile {tag}: not measured ({type(e).__name__}: {e})",
               flush=True)
@@ -1197,13 +1243,13 @@ def set_knobs(fused, bwd):
     os.environ["MXNET_FUSED_CONVBN_BWD"] = "1" if bwd else "0"
 
 
-def new_trainer(net):
+def new_trainer(net, mesh=None):
     from mxnet_tpu_torch import parallel
     from mxnet_tpu_torch.gluon import loss as gloss
 
     return parallel.SPMDTrainer(net, gloss.SoftmaxCrossEntropyLoss(), "sgd",
                                 dict(TRAIN_OPT),
-                                mesh=parallel.make_mesh(dp=1))
+                                mesh=mesh or parallel.make_mesh(dp=1))
 
 
 def counted_steps(trainer, xb, yb, steps):
@@ -1315,6 +1361,19 @@ def rel_l2_all(a, b):
     return math.sqrt(num / max(den, 1e-300))
 
 
+def leaf_check(e, e_op, e_wit, checked, bounds):
+    """The per-leaf bound of step_agreement: e[k] <= bounds["rel"] x
+    max(e_op[k], e_wit[k]) + bounds["abs"] on each checked leaf.
+    Returns (the worst leaf's share of its bound, [(share, leaf, e,
+    bound) over it])."""
+    rows = []
+    for k in checked:
+        lim = bounds["rel"] * max(e_op[k], e_wit.get(k, 0.0)) + bounds["abs"]
+        rows.append((e[k] / lim, k, e[k], lim))
+    worst = max(r[0] for r in rows)
+    return worst, [r for r in rows if not r[0] <= 1.0]
+
+
 LEAF_GROUPS = ("stem", "stage1", "stage2", "stage3", "stage4", "output")
 
 
@@ -1363,7 +1422,8 @@ def step_agreement(net, xb, yb, tag, ref_dtype, bounds, witness):
     step land.  The op-granular step is then also repeated with the
     exact two-pass variance (MXNET_BN_EXACT_VAR=1), against a float64
     step that uses it too.  The loss is held to bounds["loss"] of the
-    op-granular loss.  Returns the record."""
+    op-granular loss.  Returns the record, and what phase 6 needs to hold
+    a step against the same reference (on the host)."""
     import copy
 
     dev = xb.device
@@ -1400,15 +1460,11 @@ def step_agreement(net, xb, yb, tag, ref_dtype, bounds, witness):
                    "fused": rel_l2(z_f, z_ref),
                    "fused vs op-granular": rel_l2(z_f, z_u)})
     e_w = errs.get("witness", {})
-
-    def limit(e_op, e_wit):
-        return bounds["rel"] * max(e_op, e_wit) + bounds["abs"]
     checked = [k for k in d_ref if e_u[k] <= LEAF_POWER]
-    bad = [(e_f[k] / limit(e_u[k], e_w.get(k, 0.0)), k, e_f[k],
-            limit(e_u[k], e_w.get(k, 0.0))) for k in checked]
-    ratio = max(r[0] for r in bad)  # the worst checked leaf, 1 = at bound
-    bad = [r for r in bad if not r[0] <= 1.0]
-    z_lim = limit(z_errs["op-granular"], z_errs.get("witness", 0.0))
+    # the worst checked leaf, 1 = at its bound
+    ratio, bad = leaf_check(e_f, e_u, e_w, checked, bounds)
+    z_lim = bounds["rel"] * max(z_errs["op-granular"],
+                                z_errs.get("witness", 0.0)) + bounds["abs"]
     dl = abs(l_f - l_u) / max(abs(l_u), 1e-30)
     ref_name = str(ref_dtype).replace("torch.", "")
     bound_txt = (f"{bounds['rel']} x max(op-granular"
@@ -1451,14 +1507,20 @@ def step_agreement(net, xb, yb, tag, ref_dtype, bounds, witness):
     groups = {c: {g: max([v[k] for k in checked if leaf_group(k) == g],
                          default=None) for g in LEAF_GROUPS}
               for c, v in errs.items()}
-    return dict(loss_fused=l_f, loss_unfused=l_u, loss_ref=l_ref,
-                loss_rel=dl, logits_rel_l2=z_errs, leaves=len(d_ref),
-                leaves_checked=len(checked), leaves_over=len(bad),
-                worst_leaf_of_bound=ratio,
-                update_err_unfused=rel_l2_all(d_u, d_ref),
-                update_err_fused=rel_l2_all(d_f, d_ref),
-                update_fused_vs_unfused=rel_l2_all(d_f, d_u),
-                group_max=groups)
+    rec = dict(loss_fused=l_f, loss_unfused=l_u, loss_ref=l_ref,
+               loss_rel=dl, logits_rel_l2=z_errs, leaves=len(d_ref),
+               leaves_checked=len(checked), leaves_over=len(bad),
+               worst_leaf_of_bound=ratio,
+               update_err_unfused=rel_l2_all(d_u, d_ref),
+               update_err_fused=rel_l2_all(d_f, d_ref),
+               update_fused_vs_unfused=rel_l2_all(d_f, d_u),
+               group_max=groups)
+    # what phase 6 holds its data-parallel steps against, on the host
+    cpu = lambda d: {k: v.detach().cpu() for k, v in d.items()}
+    ref = dict(w0=cpu(w0), x=xb.cpu(), y=yb.cpu(), d_ref=cpu(d_ref),
+               e_u=e_u, e_w=e_w, checked=checked, l_u=l_u, l_ref=l_ref,
+               bounds=bounds, ref_dtype=ref_name)
+    return rec, ref
 
 
 def phase_train(card):
@@ -1480,8 +1542,9 @@ def phase_train(card):
     xb = torch.rand(TRAIN_FP32_BATCH, 224, 224, 3, generator=gen).to(dev)
     yb = torch.randint(0, 1000, (TRAIN_FP32_BATCH,), generator=gen).to(dev)
     warm_running_means(net, xb)
-    result["fp32"] = step_agreement(net, xb, yb, "fp32", torch.float64,
-                                    TRAIN_BOUNDS_FP32, witness=True)
+    refs = {}
+    result["fp32"], refs["fp32"] = step_agreement(
+        net, xb, yb, "fp32", torch.float64, TRAIN_BOUNDS_FP32, witness=True)
     del net, xb, yb
     gc.collect()
     torch.cuda.empty_cache()
@@ -1491,8 +1554,8 @@ def phase_train(card):
         dev, torch.bfloat16)
     yb = torch.randint(0, 1000, (TRAIN_BATCH,), generator=gen).to(dev)
     warm_running_means(net, xb)
-    result["bf16"] = step_agreement(net, xb, yb, "bf16", torch.float32,
-                                    TRAIN_BOUNDS_BF16, witness=False)
+    result["bf16"], refs["bf16"] = step_agreement(
+        net, xb, yb, "bf16", torch.float32, TRAIN_BOUNDS_BF16, witness=False)
     gc.collect()
     torch.cuda.empty_cache()
     # the main path: fused with the fused backward, then op-granular, in
@@ -1539,6 +1602,309 @@ def phase_train(card):
     result["launches"] = launches
     result["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
     print(f"train peak device memory {result['peak_gib']:.1f} GiB", flush=True)
+    return result, refs
+
+
+# ---------------------------------------------------------------------------
+# phase 6: the data-parallel training main path — dp=2 over two ranks
+# ---------------------------------------------------------------------------
+
+def phase_kernels_dp():
+    """Kernels 1 (with statistics) and 2 at the per-rank shapes of the
+    data-parallel step (N = TRAIN_BATCH / DP), with phase 3's checks."""
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(2468)
+    n = TRAIN_BATCH // DP
+    fwd, bwd = [], []
+    print(f"kernels at the per-rank shapes of dp={DP}, N={n} (train_dp):",
+          flush=True)
+    for (name, hw, ci, co, k, s, p, act_in, count) in resnet50_unit_configs():
+        x, w, sc, bi, sh = make_unit_inputs(gen, n, hw, ci, co, k,
+                                            torch.bfloat16, dev)
+        fwd.append(dict(check_unit(name, x, w, sc, bi, sh, k, s, p, act_in,
+                                   True), count=count, path="train_dp"))
+        if s == 1:
+            bwd.append(dict(check_unit_bwd(name, x, w, sc, bi, sh, k, p,
+                                           act_in, True, gen),
+                            count=count, path="train_dp"))
+        del x, w
+    torch.cuda.empty_cache()
+    return fwd, bwd
+
+
+def state_digest(net, trainer):
+    """{name: sha256 of the bytes} of every parameter, running statistic
+    and momentum tensor: equal digests are bit-identical states."""
+    import hashlib
+
+    def digest(t):
+        b = t.detach().contiguous().reshape(-1).view(torch.uint8).cpu()
+        return hashlib.sha256(b.numpy().tobytes()).hexdigest()[:20]
+    out = {k: digest(v) for k, v in sorted(net.collect_params().items())}
+    out.update({f"momentum:{k}": digest(st[0])
+                for k, st in sorted(trainer.opt_state.items())})
+    return out
+
+
+def dp_rank(rank, out_dir, backend, devices):
+    """One rank of phase 6 (a process of its own): join the group from
+    the DMLC_* environment, run the checked steps and the timed ones,
+    write rank<r>.json (and rank 0 its updates).  Exits non-zero on any
+    failure."""
+    import gc
+
+    from mxnet_tpu_torch import parallel
+
+    dev = torch.device(devices[rank])
+    torch.cuda.set_device(dev)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    parallel.dist.init(backend=backend, timeout=DP_COLLECTIVE_TIMEOUT)
+    mesh = parallel.make_mesh(dp=DP, devices=devices)
+    mode = (f"{DP} ranks, backend {parallel.dist.backend()}, devices "
+            f"{','.join(devices)}")
+    print(f"rank {rank}/{parallel.dist.num_workers()} on "
+          f"{mesh.local_device} ({mode})", flush=True)
+    res = {"rank": rank, "mode": mode, "steps": {}}
+    for tag, dtype, seed in (("fp32", "float32", 1), ("bf16", "bfloat16", 0)):
+        data = torch.load(os.path.join(out_dir, f"{tag}.pt"))
+        net = build_net(dtype, seed, dev)
+        xb, yb = data["x"].to(dev), data["y"].to(dev)
+        if tag == "bf16":
+            torch.cuda.reset_peak_memory_stats(dev)
+        for fused in (True, False):
+            restore(net, data["w0"])
+            set_knobs(fused, fused)
+            trainer = new_trainer(net, mesh)
+            losses, fwd, bwd, _ = counted_steps(trainer, xb, yb, 1)
+            case = f"{tag}.{'fused' if fused else 'unfused'}"
+            res["steps"][case] = dict(loss=losses[0], fwd=fwd, bwd=bwd,
+                                      digest=state_digest(net, trainer))
+            if rank == 0:
+                torch.save({k: st[0].detach().cpu()
+                            for k, st in trainer.opt_state.items()},
+                           os.path.join(out_dir, f"update.{case}.pt"))
+            print(f"step {case} global batch {xb.shape[0]} "
+                  f"({xb.shape[0] // DP} a rank): loss {losses[0]:.7f}, "
+                  f"launches fwd {fwd} bwd {bwd}", flush=True)
+            del trainer
+        if tag == "fp32":
+            del net, data, xb, yb
+            gc.collect()
+            torch.cuda.empty_cache()
+    # timed steps, fused with the fused backward then op-granular, each
+    # after one warm-up step, the ranks started together
+    trainers, res["timed"] = {}, {}
+    for fused in (True, False):
+        restore(net, data["w0"])
+        set_knobs(fused, fused)
+        trainers[fused] = new_trainer(net, mesh)
+        counted_steps(trainers[fused], xb, yb, 1)
+        parallel.dist.barrier()
+        losses, fwd, bwd, dt = counted_steps(trainers[fused], xb, yb,
+                                             TRAIN_STEPS)
+        tag = "fused" if fused else "unfused"
+        res["timed"][tag] = dict(ms=dt * 1e3, losses=losses, fwd=fwd,
+                                 bwd=bwd)
+        print(f"train_dp bf16 {tag}: {dt * 1e3:.1f} ms/step on this rank, "
+              f"{TRAIN_BATCH / dt:.1f} img/s global (batch {TRAIN_BATCH}, "
+              f"{TRAIN_BATCH // DP} a rank) over {TRAIN_STEPS} steps, losses "
+              f"{' '.join(f'{v:.4f}' for v in losses)}, launches fwd {fwd} "
+              f"bwd {bwd} [{mode}]", flush=True)
+    res["peak_gib"] = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    # the profile of a fused step on rank 0; rank 1 takes the same steps
+    set_knobs(True, True)
+    parallel.dist.barrier()
+    iters = 2
+    step = lambda: trainers[True].step(xb, yb)
+    if rank == 0:
+        prof = profile_device(step, f"train_dp fused bf16 rank 0 [{mode}]",
+                              "step", mode, res["timed"]["fused"]["ms"],
+                              iters=iters, top=16,
+                              host_prefix="mxnet_tpu_torch.dist.")
+        if prof is not None:
+            rows = prof.pop("rows")
+            prof["kernel1_ms"] = sum(ms for ms, _, k in rows
+                                     if any(n in k for n in KERNEL1_NAMES))
+            prof["kernel2_ms"] = sum(ms for ms, _, k in rows
+                                     if any(n in k for n in KERNEL2_NAMES))
+            prof["collective_device_ms"] = sum(
+                ms for ms, _, k in rows
+                if "nccl" in k.lower() or k.startswith("Memcpy"))
+            print(f"profile train_dp rank 0: kernel 1 {prof['kernel1_ms']:.3f}"
+                  f" ms, kernel 2 {prof['kernel2_ms']:.3f} ms, collectives "
+                  f"on the device (NCCL kernels, copies) "
+                  f"{prof['collective_device_ms']:.3f} ms, host time in the "
+                  f"collective calls {prof.get('host_ms', 0.0):.3f} ms of "
+                  f"{res['timed']['fused']['ms']:.3f} ms a step [{mode}]",
+                  flush=True)
+        res["profile"] = prof
+    else:
+        for _ in range(iters + 1):
+            step()
+        torch.cuda.synchronize()
+    parallel.dist.barrier()
+    parallel.dist.shutdown()
+    res["jax_imported"] = sorted(m for m in sys.modules
+                                 if m == "jax" or m.startswith("jax.")
+                                 or m.split(".")[0] == "mxnet_tpu")
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(res, f)
+    print(f"peak device memory {res['peak_gib']:.1f} GiB on this rank; "
+          f"JAX modules loaded: {len(res['jax_imported'])}", flush=True)
+    return 1 if FAILURES or res["jax_imported"] else 0
+
+
+def free_port():
+    import socket
+
+    with socket.socket(socket.AF_INET, socket.SOCK_STREAM) as sk:
+        sk.bind(("127.0.0.1", 0))
+        return sk.getsockname()[1]
+
+
+def spawn_ranks(out_dir, backend, devices):
+    """Start DP rank processes of this script (spawned, never forked);
+    wait for all, killing every rank when one fails or DP_TIMEOUT runs
+    out; print their logs.  Returns the list of failures."""
+    port = free_port()
+    env = dict(os.environ, DMLC_PS_ROOT_URI="127.0.0.1",
+               DMLC_PS_ROOT_PORT=str(port), DMLC_NUM_WORKER=str(DP))
+    logs = [open(os.path.join(out_dir, f"rank{r}.log"), "w")
+            for r in range(DP)]
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--dp-rank", str(r),
+         "--dp-dir", out_dir, "--dp-backend", backend, "--dp-devices",
+         ",".join(devices)], env=dict(env, DMLC_WORKER_ID=str(r)),
+        stdout=logs[r], stderr=subprocess.STDOUT) for r in range(DP)]
+    t0 = time.monotonic()
+    errors = []
+    try:
+        while any(p.poll() is None for p in procs):
+            if any(p.poll() not in (None, 0) for p in procs):
+                break
+            if time.monotonic() - t0 > DP_TIMEOUT:
+                errors.append(f"ranks still running after {DP_TIMEOUT} s")
+                break
+            time.sleep(0.5)
+    finally:
+        for r, p in enumerate(procs):
+            if p.poll() is None:
+                p.kill()
+                errors.append(f"rank {r} killed")
+            p.wait()
+            logs[r].close()
+    for r, p in enumerate(procs):
+        if p.returncode != 0:
+            errors.append(f"rank {r} exited with {p.returncode}")
+        with open(os.path.join(out_dir, f"rank{r}.log")) as f:
+            for line in f.read().splitlines()[-400:]:
+                print(f"  [rank {r}] {line}", flush=True)
+    print(f"dp: ranks done in {time.monotonic() - t0:.1f} s", flush=True)
+    return errors
+
+
+def hold_dp_update(case, d, loss, ref):
+    """A data-parallel step's update and loss against phase 5's
+    reference for the same weights and batch, by phase 5's rule."""
+    bounds = ref["bounds"]
+    e = leaf_rel(d, ref["d_ref"])
+    worst, bad = leaf_check(e, ref["e_u"], ref["e_w"], ref["checked"],
+                            bounds)
+    dl = abs(loss - ref["l_u"]) / max(abs(ref["l_u"]), 1e-30)
+    print(f"train_dp {case}: loss {loss:.7f} vs phase 5's op-granular "
+          f"{ref['l_u']:.7f} (rel {dl:.3g}, bound {bounds['loss']}); update "
+          f"over all leaves rel L2 {rel_l2_all(d, ref['d_ref']):.4g} to the "
+          f"{ref['ref_dtype']} step; {len(ref['checked'])} leaves checked, "
+          f"worst at {worst:.3f} of its bound, {len(bad)} over it",
+          flush=True)
+    for r, k, ek, lim in sorted(bad, reverse=True)[:5]:
+        print(f"    over: {k} {ek:.4g} > {lim:.4g}", flush=True)
+    if not math.isfinite(loss) or dl > bounds["loss"] or bad \
+            or "output.weight" not in ref["checked"]:
+        fail(f"train_dp {case}: loss rel {dl:.3g} (bound {bounds['loss']}),"
+             f" {len(bad)} of {len(ref['checked'])} leaves over their bound")
+    return dict(loss=loss, loss_rel=dl, worst_leaf_of_bound=worst,
+                leaves_over=len(bad),
+                update_err=rel_l2_all(d, ref["d_ref"]))
+
+
+def phase_dp(card, refs):
+    """bench.py's step data parallel: DP ranks, each calling
+    dist.init() -> make_mesh(dp=DP) -> SPMDTrainer(...).step on the
+    global batch, from phase 5's weights and batches.  With fewer than
+    DP cards both ranks share cuda:0 over gloo, else rank r runs on
+    cuda:r over NCCL."""
+    import gc
+    import shutil
+
+    out_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "build", "chip_smoke_dp")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    os.makedirs(out_dir)
+    for tag, ref in refs.items():
+        torch.save(dict(w0=ref["w0"], x=ref["x"], y=ref["y"]),
+                   os.path.join(out_dir, f"{tag}.pt"))
+    gc.collect()
+    torch.cuda.empty_cache()
+    if torch.cuda.device_count() >= DP:
+        backend, devices = "nccl", [f"cuda:{r}" for r in range(DP)]
+    else:
+        backend, devices = "gloo", ["cuda:0"] * DP
+    mode = f"{DP} ranks, backend {backend}, devices {','.join(devices)}"
+    print(f"train_dp: {mode} [{card}]", flush=True)
+    errors = spawn_ranks(out_dir, backend, devices)
+    for e in errors:
+        fail(f"train_dp: {e}")
+    if errors:
+        return {"launches": {"fwd": 0, "bwd": 0}, "mode": mode}
+    ranks = []
+    for r in range(DP):
+        with open(os.path.join(out_dir, f"rank{r}.json")) as f:
+            ranks.append(json.load(f))
+    result = {"mode": mode, "backend": backend, "ranks": DP, "steps": {}}
+    for case, step0 in ranks[0]["steps"].items():
+        fused = case.endswith(".fused")
+        want = (FWD_PER_STEP, BWD_PER_STEP) if fused else (0, 0)
+        for r, rk in enumerate(ranks):
+            got = (rk["steps"][case]["fwd"], rk["steps"][case]["bwd"])
+            if got != want:
+                fail(f"train_dp {case}: rank {r} launched {got} kernels "
+                     f"(want {want} per step)")
+        differ = sorted(k for k, v in step0["digest"].items()
+                        if any(rk["steps"][case]["digest"][k] != v
+                               for rk in ranks[1:]))
+        print(f"train_dp {case}: ranks bit-identical after the step on "
+              f"{len(step0['digest']) - len(differ)} of "
+              f"{len(step0['digest'])} tensors (parameters, running "
+              f"statistics, momentum)", flush=True)
+        if differ or any(rk["steps"][case]["loss"] != step0["loss"]
+                         for rk in ranks[1:]):
+            fail(f"train_dp {case}: ranks differ on {len(differ)} tensors "
+                 f"(first: {differ[:3]}) or in the loss")
+        d = torch.load(os.path.join(out_dir, f"update.{case}.pt"))
+        result["steps"][case] = hold_dp_update(case, d, step0["loss"],
+                                               refs[case.split(".")[0]])
+    for rk in ranks:
+        if rk["jax_imported"]:
+            fail(f"train_dp: rank {rk['rank']} loaded {rk['jax_imported']}")
+    timed = ranks[0]["timed"]
+    want = (FWD_PER_STEP * TRAIN_STEPS, BWD_PER_STEP * TRAIN_STEPS)
+    for r, rk in enumerate(ranks):
+        got = (rk["timed"]["fused"]["fwd"], rk["timed"]["fused"]["bwd"])
+        if got != want:
+            fail(f"train_dp timed fused: rank {r} launched {got} (want "
+                 f"{want})")
+    result["ms_per_step"] = {t: [rk["timed"][t]["ms"] for rk in ranks]
+                             for t in ("fused", "unfused")}
+    result["peak_gib"] = [rk["peak_gib"] for rk in ranks]
+    result["profile"] = ranks[0].get("profile")
+    result["launches"] = {"fwd": timed["fused"]["fwd"],
+                          "bwd": timed["fused"]["bwd"]}
+    print(f"train_dp: ms/step per rank fused {result['ms_per_step']['fused']}"
+          f", op-granular {result['ms_per_step']['unfused']}; peak GiB per "
+          f"rank {[round(g, 2) for g in result['peak_gib']]} [{mode}] "
+          f"[{card}]", flush=True)
     return result
 
 
@@ -1557,6 +1923,17 @@ def attention_summary(recs, launches):
 
 
 def main():
+    if "--dp-rank" in sys.argv:
+        import argparse
+
+        ap = argparse.ArgumentParser()
+        ap.add_argument("--dp-rank", type=int, required=True)
+        ap.add_argument("--dp-dir", required=True)
+        ap.add_argument("--dp-backend", required=True)
+        ap.add_argument("--dp-devices", required=True)
+        a = ap.parse_args()
+        return dp_rank(a.dp_rank, a.dp_dir, a.dp_backend,
+                       a.dp_devices.split(","))
     card = phase_device()
     phase_build()
     recs = phase_kernels()
@@ -1564,16 +1941,23 @@ def main():
     recs_att = phase_kernels_attention(card)
     main_res = phase_main(card, REQUESTS, THREADS)
     bert_res = phase_bert(card, REQUESTS, THREADS)
-    train_res = phase_train(card)
+    train_res, train_refs = phase_train(card)
+    recs_dp, recs_bwd_dp = phase_kernels_dp()
+    dp_res = phase_dp(card, train_refs)
+    dp_keys = dict(backend=dp_res.get("backend"), ranks=DP)
     # kernel 1 once for each main path (its shapes and launches), kernel 2
-    # for the training path
+    # for each training path
     summaries = [
         kernel_summary(KERNEL, recs, "serve", main_res.get("launches", 0)),
         kernel_summary(dict(KERNEL, name="fused_conv_unit/train"), recs,
                        "train", train_res["launches"]["fwd"]),
         kernel_summary(KERNEL_BWD, recs_bwd, "train",
                        train_res["launches"]["bwd"]),
-        attention_summary(recs_att, bert_res.get("launches", 0))]
+        attention_summary(recs_att, bert_res.get("launches", 0)),
+        dict(kernel_summary(KERNEL_DP, recs_dp, "train_dp",
+                            dp_res["launches"]["fwd"]), **dp_keys),
+        dict(kernel_summary(KERNEL_BWD_DP, recs_bwd_dp, "train_dp",
+                            dp_res["launches"]["bwd"]), **dp_keys)]
     if FAILURES:
         print(f"chip_smoke: {len(FAILURES)} failure(s)", flush=True)
         return 1

@@ -10,7 +10,8 @@ anything of ``mxnet_tpu``.
 
 Slice 1 serves ResNet V1 (``gluon.model_zoo.vision``) through
 ``contrib.deploy`` and ``serving``; slice 2 trains it through
-``parallel.SPMDTrainer``.
+``parallel.SPMDTrainer``; slice 3 serves BERT-base; slice 4 trains
+ResNet V1 data parallel over a process group (``dist``).
 """
 from __future__ import annotations
 
@@ -19,6 +20,8 @@ from .context import cpu, current_context, gpu, tpu
 from . import initializer
 from . import initializer as init
 from . import ops, serialization
+from . import parallel
+from .parallel import dist
 
 __all__ = ["MXNetError", "cpu", "gpu", "tpu", "current_context",
-           "initializer", "init", "ops", "serialization"]
+           "initializer", "init", "ops", "serialization", "parallel", "dist"]

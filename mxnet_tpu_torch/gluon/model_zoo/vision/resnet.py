@@ -21,6 +21,7 @@ from __future__ import annotations
 import torch
 
 from ....base import MXNetError
+from ....parallel.mesh import batch_shards
 from ....util import env
 from ...block import HybridBlock, current_trace
 from ... import nn
@@ -66,7 +67,9 @@ def _fused_unit(F, ts, x, conv, bn, in_scale, in_bias, act_in, train):
         stride=kw["stride"], pad=kw["pad"], act_in=act_in,
         want_stats=want_stats)
     if want_stats:
-        n = y.numel() // y.shape[-1]
+        # s1/s2 are sums over the global batch (over every rank under a
+        # data-parallel mesh), so n counts every rank's rows
+        n = y.numel() // y.shape[-1] * batch_shards()
         mean = s1 / n + (cbf if cbf is not None else 0.0)  # mean of y_full
         dm = mean - rm
         raw = s2 / n

@@ -25,6 +25,20 @@ stride-1 unit runs :func:`fused_conv_unit_bwd` (the CUDA kernel in
 the dgrad/wgrad convolutions of PyTorch in the input dtype, the
 counterpart of the XLA branch.  ``shift`` (the running mean) gets no
 gradient.  Autograd never differentiates through the plain forward.
+
+One dispatch rule, :func:`_dispatch_plan`, serves forward and backward
+(``_dispatch_plan``, pallas_convbn.py:572).  ``single``: no mesh, or a
+mesh of one device.  ``sharded``: a data-parallel mesh over ranks
+(``_pallas_unit_sharded``/``_pallas_unit_bwd_sharded``), where x is
+this rank's block of the batch.  The unit then runs on the local block
+as above and sums s1/s2 over the ranks with one differentiable
+``dist.all_reduce_sum`` (none without statistics).  Its backward is the
+same per-block backward: it receives the global cotangents of s1/s2
+through that sum's backward and returns this rank's partials of dw,
+gscale and gbias, which the trainer's gradient all-reduce (dw, and γ
+through the BN algebra) and the previous unit's statistics sum (the
+rest) total.  Summing them here as well, as the JAX kernel does, would
+count them once per rank.
 """
 from __future__ import annotations
 
@@ -35,6 +49,8 @@ import torch.nn.functional as F
 
 from .. import _kernels
 from ..base import MXNetError
+from ..parallel import dist
+from ..parallel.mesh import mesh_shard_plan
 from ..util import env
 
 __all__ = ["fused_conv_unit", "fused_conv_unit_ref", "fused_conv_unit_bwd",
@@ -325,6 +341,12 @@ def fused_conv_unit_bwd(x, w, in_scale, in_bias, shift, y, gy, gs1=None,
 # the autograd unit
 # ---------------------------------------------------------------------------
 
+def _dispatch_plan() -> str:
+    """The plan of forward and backward, "single" or "sharded" (see the
+    module docstring)."""
+    return "single" if mesh_shard_plan() is None else "sharded"
+
+
 class _FusedConvUnitFn(torch.autograd.Function):
     """Forward: the CUDA kernel on the card, the plain version on CPU
     tensors, returning (y, s1, s2) with stats and y alone without.
@@ -429,6 +451,10 @@ def fused_conv_unit(data, weight, in_scale=None, in_bias=None, shift=None,
         in_bias.contiguous(), shift.contiguous(), kernel, stride, pad,
         bool(act_in), bool(want_stats))
     if want_stats:
+        if _dispatch_plan() == "sharded":
+            y, s1, s2 = out
+            s1, s2 = dist.all_reduce_sum(torch.stack([s1, s2])).unbind(0)
+            return y, s1, s2
         return out
     zeros = _zero_stats(dev, co)
     return out, zeros, zeros

@@ -20,6 +20,8 @@ import torch
 import torch.nn.functional as F
 
 from ..base import MXNetError
+from ..parallel import dist
+from ..parallel.mesh import batch_shards
 from ..util import env
 
 __all__ = ["fully_connected", "convolution", "pooling", "batch_norm",
@@ -101,7 +103,13 @@ def batch_norm(data, gamma, beta, moving_mean, moving_var, eps=1e-5,
     by the running mean c with the relative floor 1e-6·raw, or the
     exact two-pass variance under ``MXNET_BN_EXACT_VAR`` / ``exact_var``.
     The big tensor is read in its own dtype and normalized with C-sized
-    coefficients in the statistics dtype."""
+    coefficients in the statistics dtype.
+
+    Under a data-parallel mesh of several ranks the batch is the global
+    one: the sums Σx and Σ(x-c)^2 (two-pass: Σx, then Σ(x-mean)^2) are
+    summed over the ranks by a differentiable all-reduce, and n counts
+    every rank's rows, as the JAX package's sums over a batch that GSPMD
+    shards."""
     shape = [1] * data.dim()
     shape[axis] = data.shape[axis]
     sdt = moving_mean.dtype
@@ -121,16 +129,25 @@ def batch_norm(data, gamma, beta, moving_mean, moving_var, eps=1e-5,
         _BN_EXACT_VAR = env.get_bool("MXNET_BN_EXACT_VAR")
     exact = _BN_EXACT_VAR if exact_var is None else bool(exact_var)
     red = tuple(i for i in range(data.dim()) if i != axis)
-    n = int(np.prod([data.shape[i] for i in red]))
+    shards = batch_shards()
+    n = int(np.prod([data.shape[i] for i in red])) * shards
     xs = data.to(sdt)
-    mean = xs.sum(dim=red) / n
+    s1 = xs.sum(dim=red)
     if exact:
+        if shards > 1:
+            s1 = dist.all_reduce_sum(s1)
+        mean = s1 / n
         xc = xs - mean.reshape(shape)
-        var = (xc * xc).sum(dim=red) / n
+        s2 = (xc * xc).sum(dim=red)
+        var = (dist.all_reduce_sum(s2) if shards > 1 else s2) / n
     else:
         c = moving_mean.detach().to(sdt)
         d = xs - c.reshape(shape)
-        raw = (d * d).sum(dim=red) / n
+        s2 = (d * d).sum(dim=red)
+        if shards > 1:
+            s1, s2 = dist.all_reduce_sum(torch.stack([s1, s2])).unbind(0)
+        mean = s1 / n
+        raw = s2 / n
         dm = mean - c
         var = torch.maximum(raw - dm * dm, 1e-6 * raw)
     out = apply_affine(mean, var)

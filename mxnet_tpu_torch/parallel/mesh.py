@@ -3,14 +3,18 @@
 
 A ``DeviceMesh`` arranges devices into a grid with named axes (dp, fsdp,
 tp, pp, sp, ep) and is a scope (``with mesh:``) that
-:func:`current_mesh` reads.  This slice runs on one device: a mesh of
-more than one device raises until the multi-GPU slice ports the
-collectives.  Devices default to ``cuda:0``, … and never to the CPU; a
-CPU run passes ``devices=[cpu()]``.
+:func:`current_mesh` reads.  A mesh of one device runs in this process.
+A mesh of more than one device is data parallel over a process group
+(``parallel.dist.init``), one rank per device: ``dp`` must equal the
+group's size, and the other axes stay 1 until a later slice of the port.
+``devices`` lists every rank's device and ``local_device`` is this
+rank's.  Devices default to CUDA and never to the CPU; a CPU run passes
+``devices=[cpu()]`` (one entry per rank).
 """
 from __future__ import annotations
 
 import math
+import os
 import threading
 from typing import Dict, List, Optional, Sequence, Tuple, Union
 
@@ -18,16 +22,23 @@ import torch
 
 from ..base import MXNetError
 from ..context import current_context, resolve
+from . import dist
 
 __all__ = ["DeviceMesh", "make_mesh", "current_mesh", "get_mesh",
-           "AXIS_NAMES"]
+           "mesh_shard_plan", "batch_shards", "AXIS_NAMES", "BATCH_AXES"]
 
 AXIS_NAMES = ("dp", "fsdp", "tp", "pp", "sp", "ep")
+BATCH_AXES = ("dp", "fsdp")  # the axes that split the batch
 
 
-def _default_devices() -> List[torch.device]:
+def _default_devices(world: int) -> List[torch.device]:
+    """One CUDA device per rank, rank r on cuda:(r mod the local count);
+    for one process every local card (make_mesh takes what it needs)."""
     current_context()  # raises without CUDA: no silent CPU mesh
-    return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+    count = torch.cuda.device_count()
+    if world == 1:
+        return [torch.device("cuda", i) for i in range(count)]
+    return [torch.device("cuda", r % count) for r in range(world)]
 
 
 class DeviceMesh:
@@ -41,18 +52,40 @@ class DeviceMesh:
         if bad:
             raise MXNetError(f"unknown mesh axes {bad}; known: {AXIS_NAMES}")
         self.axis_sizes = {a: int(s) for a, s in axes.items()}
-        devices = [resolve(d) for d in devices] if devices is not None \
-            else _default_devices()
         need = math.prod(self.axis_sizes.values())
+        if need != 1:
+            self._check_process_group(axes, need)
+        listed = devices is not None
+        devices = [resolve(d) for d in devices] if listed \
+            else _default_devices(need)
         if need > len(devices):
             raise MXNetError(f"mesh {axes} needs {need} devices, only "
                              f"{len(devices)} available")
-        if need != 1:
-            raise MXNetError(
-                f"mesh {axes} spans {need} devices: meshes of more than one "
-                "device (NCCL collectives, sharded state) come with the "
-                "multi-GPU slice of the port")
         self._devices = devices[:need]
+        # this rank's device: cuda:LOCAL_RANK when a launcher sets it and
+        # the caller lists no devices, else this rank's entry
+        if need > 1 and not listed and "LOCAL_RANK" in os.environ:
+            self.local_device = torch.device(
+                "cuda", int(os.environ["LOCAL_RANK"]))
+        else:
+            self.local_device = self._devices[dist.rank() if need > 1
+                                              else 0]
+
+    @staticmethod
+    def _check_process_group(axes, need):
+        other = {a: s for a, s in axes.items() if a != "dp" and s != 1}
+        if other:
+            raise MXNetError(
+                f"mesh {axes}: only the 'dp' axis may exceed 1 in this "
+                f"slice of the port; {sorted(other)} (sharded parameters, "
+                "tensor, pipeline, sequence and expert parallelism) come "
+                "with a later slice")
+        world = dist.num_workers()
+        if world != need:
+            raise MXNetError(
+                f"mesh {axes} spans {need} devices, one rank each, but the "
+                f"process group has {world} rank(s): call "
+                f"parallel.dist.init() in each of {need} processes first")
 
     def size(self, axis: Optional[str] = None) -> int:
         if axis is None:
@@ -62,6 +95,9 @@ class DeviceMesh:
     @property
     def devices(self) -> List[torch.device]:
         return list(self._devices)
+
+    def __contains__(self, axis: str) -> bool:
+        return axis in self.axis_sizes
 
     def __enter__(self):
         _STATE.stack.append(self)
@@ -88,13 +124,12 @@ def make_mesh(axes: Union[Dict[str, int], Sequence[Tuple[str, int]],
                           None] = None,
               devices: Optional[Sequence] = None,
               **axis_kw: int) -> DeviceMesh:
-    """make_mesh(dp=1) on cuda:0; with no sizes, every device goes onto a
-    1-D 'dp' axis (which raises above one device in this slice)."""
+    """make_mesh(dp=1) on cuda:0; make_mesh(dp=N) over a process group of
+    N ranks; with no sizes, dp is the group's size (1 without one)."""
     axes = dict(axes or {})
     axes.update(axis_kw)
     if not axes:
-        n = len(devices) if devices is not None else len(_default_devices())
-        axes = {"dp": n}
+        axes = {"dp": dist.num_workers()}
     return DeviceMesh(axes, devices)
 
 
@@ -108,3 +143,21 @@ def get_mesh() -> DeviceMesh:
     if m is None:
         raise MXNetError("no DeviceMesh active; use `with make_mesh(...):`")
     return m
+
+
+def mesh_shard_plan() -> Optional[Tuple[DeviceMesh, Tuple[str, ...]]]:
+    """(mesh, batch axes) for the active mesh of more than one device,
+    else None (counterpart of ``pallas_convbn._mesh_shard_plan``): under
+    it every rank holds its own block of the batch, and sums over the
+    batch (BatchNorm statistics) are summed over the ranks."""
+    m = current_mesh()
+    if m is None or m.size() == 1:
+        return None
+    return m, tuple(a for a in BATCH_AXES if m.size(a) > 1)
+
+
+def batch_shards(mesh: Optional[DeviceMesh] = None) -> int:
+    """How many ranks ``mesh`` (default: the active one) splits the batch
+    over; 1 without a mesh."""
+    mesh = mesh or current_mesh()
+    return 1 if mesh is None else math.prod(mesh.size(a) for a in BATCH_AXES)

@@ -1,0 +1,37 @@
+"""Batch sharding of the port (counterpart of ``shard_batch`` in
+``mxnet_tpu/parallel/sharding.py``).
+
+The JAX package returns a ``NamedSharding`` that GSPMD applies to a
+global array.  Here each rank is a process, so :func:`shard_batch` does
+the placement itself: rank r keeps the contiguous block r of dim 0, the
+block GSPMD gives device r of the ``dp`` axis.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from ..base import MXNetError
+from . import dist
+from .mesh import DeviceMesh, batch_shards, get_mesh
+
+__all__ = ["shard_batch"]
+
+
+def shard_batch(x: torch.Tensor,
+                mesh: Optional[DeviceMesh] = None) -> torch.Tensor:
+    """This rank's rows of the global batch ``x`` (a view).  A batch that
+    the mesh's batch shards do not divide raises: the port has no
+    fallback for it (the JAX package's fused unit takes its XLA plan)."""
+    mesh = mesh or get_mesh()
+    shards = batch_shards(mesh)
+    if shards == 1:
+        return x
+    n = x.shape[0]
+    if n % shards:
+        raise MXNetError(f"shard_batch: a batch of {n} rows does not divide "
+                         f"into {shards} shards of mesh {mesh!r}")
+    rows = n // shards
+    r = dist.rank()
+    return x[r * rows:(r + 1) * rows]

@@ -1,8 +1,8 @@
-"""SPMDTrainer on one device (counterpart of ``mxnet_tpu/parallel/spmd.py``).
+"""SPMDTrainer (counterpart of ``mxnet_tpu/parallel/spmd.py``).
 
 The JAX package compiles forward, backward and update into one sharded
 XLA program per step.  PyTorch runs eagerly, so here a step is the same
-three phases in order on the mesh's device:
+three phases in order on this rank's device:
 
   1. the forward of the block and the loss inside ``ActiveTrace(train=
      True)`` and the mesh scope, so that code gated on a trace (the
@@ -13,11 +13,29 @@ three phases in order on the mesh's device:
      ``torch.no_grad``, written back in place into the block's
      parameters and the optimizer state.
 
+Data parallel (a mesh with dp = N > 1, one rank per device over a
+``parallel.dist`` process group): every rank is handed the global batch
+and keeps its own block of rows (``shard_batch``).  The reductions that
+GSPMD places in the JAX package are placed by hand, in two places only:
+
+  (a) sums over the batch inside the forward (BatchNorm statistics, the
+      fused unit's s1/s2) go through ``dist.all_reduce_sum``, whose
+      backward sums their cotangents;
+  (b) after ``torch.autograd.grad`` the gradients are summed over the
+      ranks, one flat bucket per dtype, before the update, so that
+      weight decay and clipping see the global gradient.
+
+Each rank differentiates its share of the global mean loss, Σ_local ℓ /
+N_global, so (b) yields the gradient of the global mean; ``step``
+returns the summed shares, the global mean loss.  Parameters and buffers
+are broadcast from rank 0 when the trainer is built, so every rank
+starts from, and keeps, the same state.
+
 BatchNorm running statistics are updated in place during the forward
 (the JAX package folds them back after the step; the values are the
 same).  Not ported in this slice: the step executable cache, ZeRO state
-sharding, flat optimizer groups, remat, checkpoints and the telemetry
-hooks (ROADMAP.md queue A).
+sharding, flat optimizer groups, remat, checkpoints, partition specs,
+``forward`` under dp > 1 and the telemetry hooks (ROADMAP.md queue A).
 """
 from __future__ import annotations
 
@@ -30,7 +48,9 @@ from ..base import MXNetError
 from ..gluon.block import ActiveTrace
 from .. import ops
 from .. import optimizer as opt_mod
-from .mesh import DeviceMesh, current_mesh, make_mesh
+from . import dist
+from .mesh import DeviceMesh, batch_shards, current_mesh, make_mesh
+from .sharding import shard_batch
 
 __all__ = ["SPMDTrainer", "functional_optimizer", "FunctionalOptimizer"]
 
@@ -95,18 +115,21 @@ def functional_optimizer(opt) -> FunctionalOptimizer:
 
 
 class SPMDTrainer:
-    """One training step per call over a one-device DeviceMesh.
+    """One training step per call over a DeviceMesh: one device, or data
+    parallel over the ranks of a process group.
 
     Usage (bench.py's configuration)::
 
-        mesh = parallel.make_mesh(dp=1)
+        parallel.dist.init()                  # DMLC_* env; no-op alone
+        mesh = parallel.make_mesh(dp=parallel.dist.num_workers())
         trainer = parallel.SPMDTrainer(
             net, gluon.loss.SoftmaxCrossEntropyLoss(), "sgd",
             {"learning_rate": 0.1, "momentum": 0.9, "wd": 1e-4}, mesh=mesh)
         loss = trainer.step(images, labels)   # 0-d tensor on the device
 
     The last ``n_labels`` arguments of ``step`` are labels, the rest
-    model inputs.  Parameters are updated in place in the block.
+    model inputs, each the global batch.  Parameters are updated in
+    place in the block.
     """
 
     def __init__(self, block, loss: Callable, optimizer="sgd",
@@ -116,7 +139,8 @@ class SPMDTrainer:
         self.loss = loss
         self.mesh = mesh or current_mesh() or make_mesh()
         self.n_labels = n_labels
-        self.device = self.mesh.devices[0]
+        self.device = self.mesh.local_device
+        self._shards = batch_shards(self.mesh)
         if isinstance(optimizer, str):
             optimizer = opt_mod.create(optimizer, **(optimizer_params or {}))
         elif optimizer_params:
@@ -126,6 +150,10 @@ class SPMDTrainer:
         self._fopt = functional_optimizer(optimizer)
         block.to(self.device)
         self._plist = sorted(block.collect_params().items())
+        if self._shards > 1:
+            # replicated from the start: rank 0's parameters and buffers
+            uniq = {id(t): t for _, t in self._plist}
+            dist.flat_buckets(list(uniq.values()), dist.broadcast_)
         self._trainable = [n for n, p in self._plist
                            if isinstance(p, nn.Parameter) and p.requires_grad]
         params = dict(self._plist)
@@ -138,15 +166,19 @@ class SPMDTrainer:
         self._t = 0
 
     def _place(self, x, spec=None):
+        """This rank's rows of the global batch ``x`` on its device."""
         if spec is not None:
-            raise MXNetError("batch/label partition specs come with the "
-                             "multi-GPU slice of the port")
+            raise MXNetError("batch/label partition specs come with a "
+                             "later slice of the port")
         t = x if isinstance(x, torch.Tensor) else torch.as_tensor(x)
+        if self._shards > 1:
+            t = shard_batch(t, self.mesh)
         return t.to(self.device)
 
     def step(self, *args) -> torch.Tensor:
-        """One training step on a batch; returns the mean loss as a 0-d
-        tensor on the device (it synchronises only when read)."""
+        """One training step on a global batch; returns the mean loss over
+        it as a 0-d tensor on the device (it synchronises only when
+        read)."""
         n_lab = self.n_labels
         inputs, labels = (args, ()) if n_lab == 0 \
             else (args[:-n_lab], args[-n_lab:])
@@ -160,12 +192,18 @@ class SPMDTrainer:
             outs = out if isinstance(out, (list, tuple)) else (out,)
             l = self.loss(outs[0], *lvals)
         lval = (l[0] if isinstance(l, (list, tuple)) else l).mean()
+        if self._shards > 1:
+            lval = lval / self._shards  # this rank's share of the mean
         weights = [self.params[n] for n in self._trainable]
         grads = torch.autograd.grad(lval, weights)
+        lval = lval.detach()
+        if self._shards > 1:
+            dist.flat_buckets(grads, dist.all_reduce_)
+            dist.all_reduce_(lval)
         with torch.no_grad():
             for n, w, g in zip(self._trainable, weights, grads):
                 self._apply_one(n, w, g, lr)
-        return lval.detach()
+        return lval
 
     def _apply_one(self, n, w, g, lr):
         """Update one weight and its state in place; the fp32 master
@@ -196,6 +234,10 @@ class SPMDTrainer:
     def forward(self, *inputs):
         """Inference with the trainer's current parameters (moving BN
         statistics)."""
+        if self._shards > 1:
+            raise MXNetError(
+                f"SPMDTrainer.forward over {self.mesh!r}: gathering each "
+                "rank's outputs comes with a later slice of the port")
         ivals = tuple(self._place(x) for x in inputs)
         with torch.no_grad(), self.mesh, ActiveTrace(train=False):
             return self.block(*ivals)
