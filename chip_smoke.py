@@ -113,11 +113,30 @@ Phases, each failing loudly (exit code 1, no result line):
    step on rank 0 (kernel time, the collectives' host and device time).
    A rank that fails or outlives its time makes the parent kill every
    rank and fail.
+7. the probe path (row 6): kernel 6 (candidate_tap, the tap-accumulation
+   unit with an explicit batch tile nb) against its plain version by
+   phase 3's tolerances: (a) at the probe's four cases (N=4, nb=2, bf16,
+   the probe's own inputs), one fp32 case, one want_stats-off and one
+   act_in-off case, a 3x3 stride-2 case at nb 1 and 4, and N=6 at nb=4,
+   which must raise without a launch; (b) at the nine batch-256 layers
+   of the probe's time mode for each nb in {1, 16, 256}.  library_ms is
+   F.conv2d on the pre-activated input, bound_ms phase 3's.  (c) The
+   probe's entry point, mxnet_tpu_torch.tools.convbn_probe.main(argv),
+   in check mode and in time mode on cuda:0, with the launch counters of
+   kernels 1 and 6 set to 0 just before: both must return 0, kernel 6
+   must launch once per call the probe made (4 + 9 x 3 x 12) and kernel
+   1 once per timed call (9 x 12).  Prints the probe's per-layer table
+   (kernel 1, the op-granular unit, kernel 6 by nb, F.conv2d, the bound)
+   and its ratios, then a torch.profiler split of kernels 1 and 6 (at
+   each nb) into the conv kernel and the statistics reduction over one
+   sweep of the nine layers.
 
 The line before the last is the kernel summary {"kernels": [...]}, one
 entry per kernel and main path (kernel 1 served, trained and per rank
 under dp, kernel 2 trained and per rank under dp, kernel 5 on the BERT
-serving path), from the checks at that path's shapes; the last line is
+serving path, kernel 6 on the probe path: summed over the 27
+configurations of one time sweep, with ms_by_nb), from the checks at
+that path's shapes; the last line is
 {"ok": true, "device": {"platform": "gpu", ...}}.
 """
 from __future__ import annotations
@@ -142,6 +161,9 @@ REQUESTS, THREADS = 128, 8   # single-image requests, client threads
 KERNEL = {"name": "fused_conv_unit", "route": "cuda",
           "source": "mxnet_tpu_torch/csrc/fused_convbn.cu",
           "replaces": "mxnet_tpu/ops/pallas_convbn.py:156"}
+KERNEL_TAP = {"name": "candidate_tap", "route": "cuda",
+              "source": "mxnet_tpu_torch/csrc/convbn_tap.cu",
+              "replaces": "tools/scratch_convbn_probe.py:17"}
 KERNEL_BWD = {"name": "fused_conv_unit_bwd", "route": "cuda",
               "source": "mxnet_tpu_torch/csrc/fused_convbn_bwd.cu",
               "replaces": "mxnet_tpu/ops/pallas_convbn.py:283"}
@@ -169,8 +191,10 @@ BERT_BOUNDS = {"bf16": 2e-2, "fp32": 1e-4}
 DP = 2
 DP_TIMEOUT = 480.0             # s, the ranks' whole run
 DP_COLLECTIVE_TIMEOUT = 180.0  # s, one collective
-# the device functions of kernels 1 and 2 as torch.profiler names them
+# the device functions of kernels 1, 6 and 2 as torch.profiler names them
 KERNEL1_NAMES = ("::fused_conv_unit_kernel<", "::reduce_stats_kernel(")
+KERNEL6_NAMES = ("::convbn_tap_kernel<", "::tap_reduce_tiles_kernel(",
+                 "::tap_reduce_total_kernel(")
 KERNEL2_NAMES = ("::dgrad_kernel<", "::wgrad_kernel<", "::wgrad_reduce_kernel<",
                  "::channel_reduce_kernel(")
 KERNEL_DP = dict(KERNEL, name="fused_conv_unit/dp",
@@ -271,13 +295,6 @@ def time_ms(fn, iters=10, warmup=2):
     return a.elapsed_time(b) / iters
 
 
-def tap_footprint(size, k, s, p, out):
-    """How many of `size` input rows (or columns) the taps of a conv with
-    kernel k, stride s and pad p read for `out` output rows."""
-    return len({o * s - p + t for o in range(out) for t in range(k)}
-               & set(range(size)))
-
-
 def bf16_ordered(t):
     """bf16 bit patterns as integers ordered like the values."""
     i = t.contiguous().view(torch.int16).to(torch.int32)
@@ -290,31 +307,20 @@ def bf16_ulp(t):
     return torch.exp2(torch.floor(torch.log2(a)) - 7)
 
 
-def check_unit(name, x, w, sc, bi, sh, k, s, p, act_in, want_stats):
-    """Kernel vs plain version on one configuration; returns a record."""
-    from mxnet_tpu_torch.ops import fused_convbn as fcb
-
-    kernel, stride, pad = (k, k), (s, s), (p, p)
-    args = (x, w, sc, bi, sh)
-    kw = dict(kernel=kernel, stride=stride, pad=pad, act_in=act_in,
-              want_stats=want_stats)
-    y, s1, s2 = fcb.fused_conv_unit(*args, **kw)
-    torch.cuda.synchronize()
-    yr, s1r, s2r = fcb.fused_conv_unit_ref(*args, kernel, stride, pad,
-                                           act_in, want_stats)
-    n, h, wd, ci = x.shape
-    co = w.shape[0]
-    ho, wo = y.shape[1], y.shape[2]
-    m = n * ho * wo
-    kdim = k * k * ci
+def hold_unit(name, x, w, sc, bi, k, s, p, act_in, want_stats, got, ref):
+    """A fused unit's (y, s1, s2) against its plain version's, by the
+    tolerances of the docstring; w is (Co, Ci, k, k).  Returns (ok,
+    max_abs_err, note)."""
+    y, s1, s2 = got
+    yr, s1r, s2r = ref
     ok = True
     err = (y.float() - yr.float()).abs()
     max_abs = float(err.max())
     if x.dtype == torch.bfloat16:
         u = (x.float() * sc + bi).clamp_min(0).to(x.dtype) if act_in else x
         mag = F.conv2d(u.permute(0, 3, 1, 2).float().abs(), w.float().abs(),
-                       stride=stride, padding=pad).permute(0, 2, 3, 1)
-        slack = 4.0 * math.sqrt(kdim) * 2.0 ** -24 * mag
+                       stride=(s, s), padding=(p, p)).permute(0, 2, 3, 1)
+        slack = 4.0 * math.sqrt(k * k * x.shape[-1]) * 2.0 ** -24 * mag
         ulp = bf16_ulp(yr.float())
         frac1 = float((err <= ulp + slack).float().mean())
         # the same share held to 1 ulp without the slack, reported only
@@ -349,6 +355,26 @@ def check_unit(name, x, w, sc, bi, sh, k, s, p, act_in, want_stats):
     elif bool(s1.any()) or bool(s2.any()):
         ok = False
         fail(f"{name}: want_stats=False but s1/s2 are not all zero")
+    return ok, max_abs, ytol
+
+
+def check_unit(name, x, w, sc, bi, sh, k, s, p, act_in, want_stats):
+    """Kernel vs plain version on one configuration; returns a record."""
+    from mxnet_tpu_torch.ops import fused_convbn as fcb
+    from mxnet_tpu_torch.tools.convbn_probe import unit_bound
+
+    kernel, stride, pad = (k, k), (s, s), (p, p)
+    args = (x, w, sc, bi, sh)
+    kw = dict(kernel=kernel, stride=stride, pad=pad, act_in=act_in,
+              want_stats=want_stats)
+    got = fcb.fused_conv_unit(*args, **kw)
+    torch.cuda.synchronize()
+    ref = fcb.fused_conv_unit_ref(*args, kernel, stride, pad, act_in,
+                                  want_stats)
+    ok, max_abs, ytol = hold_unit(name, x, w, sc, bi, k, s, p, act_in,
+                                  want_stats, got, ref)
+    n, h, wd, ci = x.shape
+    co = w.shape[0]
     # timings (the plain version and the library call on the same inputs)
     kernel_ms = time_ms(lambda: fcb.fused_conv_unit(*args, **kw))
     ref_ms = time_ms(lambda: fcb.fused_conv_unit_ref(
@@ -357,23 +383,14 @@ def check_unit(name, x, w, sc, bi, sh, k, s, p, act_in, want_stats):
     u_nchw = u.permute(0, 3, 1, 2)
     library_ms = time_ms(lambda: F.conv2d(u_nchw, w, stride=stride,
                                           padding=pad))
-    flops = 2.0 * m * co * kdim
-    item = x.element_size()
-    # x counts only the pixels some tap reads (a strided 1x1 conv skips
-    # 1 - 1/s^2 of them), each once
-    x_read = n * tap_footprint(h, k, s, p, ho) \
-        * tap_footprint(wd, k, s, p, wo) * ci
-    nbytes = (x_read + w.numel() + y.numel()) * item \
-        + 4 * (2 * ci + co + (2 * co if want_stats else 0))
-    peak = PEAK_BF16 if x.dtype == torch.bfloat16 else PEAK_FP32
-    t_ops, t_bytes = flops / peak * 1e3, nbytes / PEAK_BYTES * 1e3
+    # the bound: x counts only the pixels some tap reads (a strided 1x1
+    # conv skips 1 - 1/s^2 of them), each once
     rec = dict(name=name, dtype=str(x.dtype).replace("torch.", ""),
                shape=[n, h, wd, ci], co=co, k=k, s=s, p=p, act_in=act_in,
                want_stats=want_stats, ok=ok, max_abs_err=max_abs,
                kernel_ms=kernel_ms, ref_ms=ref_ms, library_ms=library_ms,
-               bound_ms=max(t_ops, t_bytes),
-               bound_by="operations" if t_ops >= t_bytes else "bytes",
-               gflop=flops / 1e9, mbytes=nbytes / 1e6)
+               **unit_bound(x.shape, co, kernel, stride, pad, x.dtype,
+                            want_stats))
     print(f"  {name:<22} {rec['dtype']:<8} x{rec['shape']} co={co} k{k}s{s}"
           f"p{p} act={int(act_in)} stats={int(want_stats)} | "
           f"kernel_ms={kernel_ms:.4f} ref_ms={ref_ms:.4f} "
@@ -1908,6 +1925,238 @@ def phase_dp(card, refs):
     return result
 
 
+# ---------------------------------------------------------------------------
+# phase 7: the probe path (row 6) — kernel 6 and the probe's entry point
+# ---------------------------------------------------------------------------
+
+def check_tap(name, x, w_taps, sc, bi, sh, k, s, p, act_in, want_stats, nbs):
+    """Kernel 6 against its plain version on one configuration, once for
+    each batch tile in `nbs`, by phase 3's tolerances; one record each."""
+    from mxnet_tpu_torch.ops import convbn_tap as ct
+    from mxnet_tpu_torch.tools.convbn_probe import unit_bound
+
+    kernel, stride, pad = (k, k), (s, s), (p, p)
+    args = (x, w_taps, sc, bi, sh)
+    kw = dict(kernel=kernel, stride=stride, pad=pad, act_in=act_in,
+              want_stats=want_stats)
+    w = w_taps.permute(3, 2, 0, 1)
+    u = (x.float() * sc + bi).clamp_min(0).to(x.dtype) if act_in else x
+    u_nchw = u.permute(0, 3, 1, 2)
+    library_ms = time_ms(lambda: F.conv2d(u_nchw, w, stride=stride,
+                                          padding=pad))
+    bound = unit_bound(x.shape, w_taps.shape[-1], kernel, stride, pad,
+                       x.dtype, want_stats)
+    recs = []
+    for nb in nbs:
+        got = ct.candidate_tap(*args, nb=nb, **kw)
+        torch.cuda.synchronize()
+        ref = ct.candidate_tap_ref(*args, kernel, stride, pad, act_in,
+                                   want_stats, nb)
+        if got[1].shape != (1, w_taps.shape[-1]):
+            fail(f"{name} nb={nb}: s1 shape {tuple(got[1].shape)}")
+        ok, max_abs, ytol = hold_unit(
+            f"{name} nb={nb}", x, w, sc, bi, k, s, p, act_in, want_stats,
+            (got[0], got[1].reshape(-1), got[2].reshape(-1)),
+            (ref[0], ref[1].reshape(-1), ref[2].reshape(-1)))
+        del got, ref
+        kernel_ms = time_ms(lambda: ct.candidate_tap(*args, nb=nb, **kw))
+        ref_ms = time_ms(lambda: ct.candidate_tap_ref(
+            *args, kernel, stride, pad, act_in, want_stats, nb), iters=3,
+            warmup=1)
+        rec = dict(name=name, nb=nb, dtype=str(x.dtype).replace("torch.", ""),
+                   shape=list(x.shape), co=w_taps.shape[-1], k=k, s=s, p=p,
+                   act_in=act_in, want_stats=want_stats, ok=ok,
+                   max_abs_err=max_abs, kernel_ms=kernel_ms, ref_ms=ref_ms,
+                   library_ms=library_ms, **bound)
+        recs.append(rec)
+        print(f"  tap {name:<16} nb={nb:<3} {rec['dtype']:<8} x{rec['shape']}"
+              f" co={rec['co']} k{k}s{s}p{p} act={int(act_in)} "
+              f"stats={int(want_stats)} | kernel_ms={kernel_ms:.4f} "
+              f"ref_ms={ref_ms:.4f} library_ms={library_ms:.4f} bound_ms="
+              f"{bound['bound_ms']:.4f} ({bound['bound_by']}) | {ytol} | "
+              f"{'ok' if ok else 'FAIL'}", flush=True)
+    return recs
+
+
+def phase_kernels_tap():
+    """Kernel 6 against its plain version: (a) the probe's four cases
+    (N=4, nb=2, bf16, the probe's own inputs), an fp32 case, a
+    want_stats-off and an act_in-off case, a 3x3 stride-2 case at nb 1
+    and 4, and an indivisible batch that must raise; (b) the nine
+    batch-256 layers of the probe's time mode at each nb of its TAP_NB."""
+    import numpy as np
+
+    from mxnet_tpu_torch.base import MXNetError
+    from mxnet_tpu_torch.ops import convbn_tap as ct
+    from mxnet_tpu_torch.tools import convbn_probe as probe
+
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(1357)
+    recs = []
+    print("kernel 6 (candidate_tap) vs plain version, probe cases and "
+          "extras:", flush=True)
+    rng = np.random.RandomState(0)
+    for i, (shape, co, kernel, stride, pad) in enumerate(probe.CASES):
+        inputs = probe.case_inputs(rng, shape, co, kernel, dev)
+        recs += [dict(r, path="extra") for r in check_tap(
+            f"probe.case{i}", *inputs, kernel[0], stride[0], pad[0], True,
+            True, (probe.CHECK_NB,))]
+    extra = [  # name, N, hw, Ci, Co, k, s, p, act_in, stats, dtype, nbs
+        ("fp32.28.3x3", 8, 28, 128, 128, 3, 1, 1, True, True,
+         torch.float32, (2,)),
+        ("nostats.14.1x1", 8, 14, 256, 1024, 1, 1, 0, True, False,
+         torch.bfloat16, (4,)),
+        ("noact.56.1x1s2", 8, 56, 64, 256, 1, 2, 0, False, True,
+         torch.bfloat16, (2,)),
+        ("bf16.56.3x3s2", 8, 56, 64, 128, 3, 2, 1, True, True,
+         torch.bfloat16, (1, 4))]
+    for name, n, hw, ci, co, k, s, p, act_in, stats, dt, nbs in extra:
+        x, w, sc, bi, sh = make_unit_inputs(gen, n, hw, ci, co, k, dt, dev)
+        recs += [dict(r, path="extra") for r in check_tap(
+            name, x, ct.weight_taps(w), sc, bi, sh, k, s, p, act_in, stats,
+            nbs)]
+    x, w, sc, bi, sh = make_unit_inputs(gen, 6, 14, 64, 64, 1,
+                                        torch.bfloat16, dev)
+    before = ct.launch_count()
+    try:
+        ct.candidate_tap(x, ct.weight_taps(w), sc, bi, sh, kernel=(1, 1),
+                         stride=(1, 1), pad=(0, 0), act_in=True,
+                         want_stats=True, nb=4)
+        fail("tap: N=6, nb=4 did not raise")
+    except MXNetError as e:
+        print(f"  tap N=6 nb=4 raises: {e}", flush=True)
+    if ct.launch_count() != before:
+        fail("tap: the refused call launched the kernel")
+    print(f"kernel 6 vs plain version at the probe's batch-{TRAIN_BATCH} "
+          f"layers, nb in {probe.TAP_NB}:", flush=True)
+    for shape, co, kernel, stride, pad in probe.LAYERS:
+        n, hw, _, ci = shape
+        x, w, sc, bi, sh = make_unit_inputs(gen, n, hw, ci, co, kernel[0],
+                                            torch.bfloat16, dev)
+        recs += [dict(r, path="probe", count=1) for r in check_tap(
+            f"{hw}x{hw}.{ci}-{co}", x, ct.weight_taps(w), sc, bi, sh,
+            kernel[0], stride[0], pad[0], True, True, probe.TAP_NB)]
+        del x, w
+        torch.cuda.empty_cache()
+    return recs
+
+
+def profile_probe_layers(card):
+    """Device time of kernel 1 and of kernel 6 at each nb over one sweep
+    of the nine layers, split into the conv kernel and its statistics
+    reduction(s) (torch.profiler)."""
+    from mxnet_tpu_torch.ops import convbn_tap as ct
+    from mxnet_tpu_torch.ops import fused_convbn as fcb
+    from mxnet_tpu_torch.tools import convbn_probe as probe
+
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(97)
+    layers = []
+    for shape, co, kernel, stride, pad in probe.LAYERS:
+        x, w, sc, bi, sh = probe.layer_inputs(gen, shape, co, kernel)
+        layers.append((x, w, ct.weight_taps(w), sc, bi, sh,
+                       dict(kernel=kernel, stride=stride, pad=pad,
+                            act_in=True, want_stats=True)))
+    out = {}
+    runs = [("kernel 1", KERNEL1_NAMES, lambda L: fcb.fused_conv_unit(
+        L[0], L[1], *L[3:6], **L[6]))]
+    runs += [(f"kernel 6 nb={nb}", KERNEL6_NAMES,
+              lambda L, nb=nb: ct.candidate_tap(L[0], *L[2:6], nb=nb, **L[6]))
+             for nb in probe.TAP_NB]
+    for tag, names, call in runs:
+        def sweep():
+            for L in layers:
+                call(L)
+        wall = time_ms(sweep, iters=2, warmup=1)
+        prof = profile_device(sweep, f"probe layers, {tag}", "sweep", card,
+                              wall, iters=2, top=4)
+        if prof is None:
+            continue
+        conv = sum(ms for ms, _, k in prof["rows"] if names[0] in k)
+        stats = sum(ms for ms, _, k in prof["rows"]
+                    if any(n in k for n in names[1:]))
+        out[tag] = dict(wall_ms=wall, conv_ms=conv, stats_ms=stats)
+        print(f"profile probe layers, {tag}: conv kernel {conv:.3f} ms, "
+              f"statistics reduction {stats:.3f} ms a sweep of nine layers "
+              f"[{card}]", flush=True)
+    return out
+
+
+def phase_probe(card):
+    """The probe path: the probe's check mode and time mode through its
+    main(argv) on cuda:0, with the launch counters of kernels 1 and 6 set
+    to 0 just before and read just after."""
+    from mxnet_tpu_torch.ops import convbn_tap as ct
+    from mxnet_tpu_torch.ops import fused_convbn as fcb
+    from mxnet_tpu_torch.tools import convbn_probe as probe
+
+    calls, rcs = {}, {}
+    per_call = probe.WARMUP + probe.ITERS
+    want = {"check": {"candidate_tap": len(probe.CASES)},
+            "time": {"candidate_tap": len(probe.LAYERS) * len(probe.TAP_NB)
+                     * per_call,
+                     "fused_conv_unit": len(probe.LAYERS) * per_call}}
+    print(f"probe: python -m mxnet_tpu_torch.tools.convbn_probe [--time] "
+          f"--device cuda:0 [{card}]", flush=True)
+    t0 = time.perf_counter()
+    ct.reset_launch_count()
+    fcb.reset_launch_count()
+    try:
+        for mode, argv in (("check", ["--device", "cuda:0"]),
+                           ("time", ["--time", "--device", "cuda:0"])):
+            report = {}
+            rcs[mode] = probe.main(argv, report)
+            calls[mode] = report["calls"]
+            if mode == "check":
+                check_launches = ct.launch_count()
+    except Exception as e:  # noqa: BLE001 — the phase fails, the run goes on
+        fail(f"probe: {type(e).__name__}: {e}")
+        return {"launches": {"tap": 0, "fused": 0}}
+    launches = {"tap": ct.launch_count(), "fused": fcb.launch_count()}
+    dt = time.perf_counter() - t0
+    print(f"probe: rc check {rcs['check']} time {rcs['time']}; calls "
+          f"{calls}; launches kernel 6 {launches['tap']} (check "
+          f"{check_launches}), kernel 1 {launches['fused']}; {dt:.1f} s",
+          flush=True)
+    if rcs != {"check": 0, "time": 0}:
+        fail(f"probe: main returned {rcs}")
+    if calls != want:
+        fail(f"probe: calls {calls} != {want}")
+    if check_launches != calls["check"].get("candidate_tap") \
+            or launches["tap"] != sum(c.get("candidate_tap", 0)
+                                      for c in calls.values()) \
+            or launches["fused"] != calls["time"].get("fused_conv_unit"):
+        fail(f"probe: launches {launches} (check {check_launches}) do not "
+             f"match the calls {calls}")
+    records = report["records"]
+    print(f"probe per-layer, batch {TRAIN_BATCH}, bf16 [{card}]:", flush=True)
+    print(f"  {'layer':<20} {'fused/lib':>9} {'fused/bnd':>9} "
+          f"{'tap1/tap256':>11} {'tap16/fused':>11} {'comp/lib':>8}",
+          flush=True)
+    for r in records:
+        print(f"  {r['layer']:<20} {r['fused_ms'] / r['library_ms']:9.2f} "
+              f"{r['fused_ms'] / r['bound_ms']:9.2f} "
+              f"{r['tap_ms'][1] / r['tap_ms'][256]:11.2f} "
+              f"{r['tap_ms'][16] / r['fused_ms']:11.2f} "
+              f"{r['composed_ms'] / r['library_ms']:8.2f}", flush=True)
+    return {"launches": launches, "calls": calls, "records": records,
+            "seconds": dt}
+
+
+def tap_summary(recs, launches):
+    """The `kernels` record of kernel 6 on the probe path: times and
+    bounds summed over the 27 configurations of one time sweep of the
+    probe (nine layers x TAP_NB), from phase 7's checks at those shapes;
+    `ms_by_nb` splits the kernel's time by batch tile."""
+    rec = kernel_summary(KERNEL_TAP, recs, "probe", launches)
+    rec["ms_by_nb"] = {}
+    for r in recs:
+        if r["path"] == "probe":
+            rec["ms_by_nb"][r["nb"]] = rec["ms_by_nb"].get(r["nb"], 0.0) \
+                + r["kernel_ms"]
+    return rec
+
+
 def attention_summary(recs, launches):
     """The `kernels` record of the attention kernel on the BERT serving
     path: times and bound of the packed check at the path's shapes, summed
@@ -1944,6 +2193,9 @@ def main():
     train_res, train_refs = phase_train(card)
     recs_dp, recs_bwd_dp = phase_kernels_dp()
     dp_res = phase_dp(card, train_refs)
+    recs_tap = phase_kernels_tap()
+    probe_res = phase_probe(card)
+    profile_probe_layers(card)
     dp_keys = dict(backend=dp_res.get("backend"), ranks=DP)
     # kernel 1 once for each main path (its shapes and launches), kernel 2
     # for each training path
@@ -1957,7 +2209,8 @@ def main():
         dict(kernel_summary(KERNEL_DP, recs_dp, "train_dp",
                             dp_res["launches"]["fwd"]), **dp_keys),
         dict(kernel_summary(KERNEL_BWD_DP, recs_bwd_dp, "train_dp",
-                            dp_res["launches"]["bwd"]), **dp_keys)]
+                            dp_res["launches"]["bwd"]), **dp_keys),
+        tap_summary(recs_tap, probe_res["launches"]["tap"])]
     if FAILURES:
         print(f"chip_smoke: {len(FAILURES)} failure(s)", flush=True)
         return 1

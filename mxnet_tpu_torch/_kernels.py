@@ -35,7 +35,8 @@ __all__ = ["load", "build", "BUILD_DIR", "last_build"]
 _PKG = Path(__file__).resolve().parent
 _SRC_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "torch_kernels"
-_SOURCES = ("fused_convbn.cu", "fused_convbn_bwd.cu", "attention.cu")
+_SOURCES = ("fused_convbn.cu", "fused_convbn_bwd.cu", "attention.cu",
+            "convbn_tap.cu")
 _FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
           "-Xcompiler", "-fPIC", "-lineinfo", "-Xptxas", "-v")
 
@@ -144,6 +145,10 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.mx_attention_fwd.argtypes = (
         [_I] + [_VP] * 5 + [_I] * 5 + [ctypes.c_longlong] * 12
         + [ctypes.c_float, _I, _VP])
+    lib.mx_convbn_tap.restype = _I
+    lib.mx_convbn_tap.argtypes = [_I] + [_VP] * 12 + [_I] * 16 + [_VP]
+    lib.mx_convbn_tap_block_m.restype = _I
+    lib.mx_convbn_tap_block_m.argtypes = []
     lib.mx_cuda_error_string.restype = ctypes.c_char_p
     lib.mx_cuda_error_string.argtypes = [_I]
     return lib
