@@ -13,12 +13,19 @@ Phases, each failing loudly (exit code 1, no result line):
    CUDA kernel against its plain PyTorch version at the 20 fused-unit
    configurations of ResNet-50 v1 at 224x224 in bf16, at N=32 without
    statistics (a served batch) and at N=256 with them and a random shift
-   (a training step); then two fp32 configurations and a 3x3 stride-2
-   one (BasicBlockV1) at N=32.  One line per
-   configuration: kernel_ms, ref_ms (the plain version), library_ms
-   (F.conv2d on the pre-activated input, a yardstick the port never
-   calls) and bound_ms (max of FLOPs over peak and bytes over 3.35 TB/s,
-   where x counts only the pixels the taps read).
+   (a training step); then two fp32 configurations, a 3x3 stride-2 one
+   (BasicBlockV1) at N=32 and bf16 edge cases: M off every tile (N=3 at
+   7x7), Co=72, Ci=40, 3x3 stride 2 with in_bias -1.5 and +2.0 (padding
+   after the affine), N=1 at 56x56.  Two launches must give bit-identical
+   y, s1 and s2 (a training shape with two reduction passes and three
+   extras), and bf16 Ci=12 must raise without a launch.  One line per
+   configuration: the output tile, kernel_ms (the launch step, conv
+   kernel and statistics reduction, on OHWI weights, replayed from a
+   CUDA graph: device time), op_ms (the whole wrapper call), ref_ms (the
+   plain version), library_ms (F.conv2d on the pre-activated input, a
+   yardstick the port never calls) and bound_ms (max of FLOPs over peak
+   and bytes over 3.35 TB/s, where x counts only the pixels the taps
+   read).
    Tolerances:
      fp32: y within atol/rtol 1e-4; s1/s2 within rtol 1e-4 of sum|.|
      bf16: |y - y_ref| <= 1 bf16 ulp of y_ref on >= 99.9% of elements and
@@ -129,7 +136,7 @@ Phases, each failing loudly (exit code 1, no result line):
    (kernel 1, the op-granular unit, kernel 6 by nb, F.conv2d, the bound)
    and its ratios, then a torch.profiler split of kernels 1 and 6 (at
    each nb) into the conv kernel and the statistics reduction over one
-   sweep of the nine layers.
+   sweep of the nine layers, and of kernel 1 per layer.
 
 The line before the last is the kernel summary {"kernels": [...]}, one
 entry per kernel and main path (kernel 1 served, trained and per rank
@@ -161,6 +168,25 @@ REQUESTS, THREADS = 128, 8   # single-image requests, client threads
 KERNEL = {"name": "fused_conv_unit", "route": "cuda",
           "source": "mxnet_tpu_torch/csrc/fused_convbn.cu",
           "replaces": "mxnet_tpu/ops/pallas_convbn.py:156"}
+# phase 3's extra kernel-1 cases, all with statistics: name, N, hw, Ci,
+# Co, k, s, p, act_in, dtype, in_bias (None: random); the edge cases hold
+# M off every tile (N=3 at 7x7), Co and Ci off 64, padding after a
+# strongly negative and a positive affine, and one image at 56x56
+UNIT_EXTRAS = [
+    ("fp32.s2.conv2", BATCH, 28, 128, 128, 3, 1, 1, True, torch.float32,
+     None),
+    ("fp32.s3.conv1.first", BATCH, 28, 512, 256, 1, 2, 0, False,
+     torch.float32, None),
+    ("basic.3x3s2", BATCH, 56, 64, 128, 3, 2, 1, True, torch.bfloat16, None),
+    ("edge.n3.7x7", 3, 7, 512, 512, 3, 1, 1, True, torch.bfloat16, None),
+    ("edge.co72", 8, 14, 64, 72, 1, 1, 0, True, torch.bfloat16, None),
+    ("edge.ci40", 8, 14, 40, 64, 3, 1, 1, True, torch.bfloat16, None),
+    ("edge.3x3s2.bias-1.5", 8, 28, 64, 128, 3, 2, 1, True, torch.bfloat16,
+     -1.5),
+    ("edge.3x3s2.bias+2.0", 8, 28, 64, 128, 3, 2, 1, True, torch.bfloat16,
+     2.0),
+    ("edge.n1.56x56", 1, 56, 64, 64, 3, 1, 1, True, torch.bfloat16, None)]
+DETERMINISM_CASES = ("basic.3x3s2", "edge.n3.7x7", "edge.ci40")
 KERNEL_TAP = {"name": "candidate_tap", "route": "cuda",
               "source": "mxnet_tpu_torch/csrc/convbn_tap.cu",
               "replaces": "tools/scratch_convbn_probe.py:17"}
@@ -192,7 +218,7 @@ DP = 2
 DP_TIMEOUT = 480.0             # s, the ranks' whole run
 DP_COLLECTIVE_TIMEOUT = 180.0  # s, one collective
 # the device functions of kernels 1, 6 and 2 as torch.profiler names them
-KERNEL1_NAMES = ("::fused_conv_unit_kernel<", "::reduce_stats_kernel(")
+KERNEL1_NAMES = ("::conv_unit_wgmma_kernel<", "::stats_reduce_kernel(")
 KERNEL6_NAMES = ("::convbn_tap_kernel<", "::tap_reduce_tiles_kernel(",
                  "::tap_reduce_total_kernel(")
 KERNEL2_NAMES = ("::dgrad_kernel<", "::wgrad_kernel<", "::wgrad_reduce_kernel<",
@@ -295,6 +321,33 @@ def time_ms(fn, iters=10, warmup=2):
     return a.elapsed_time(b) / iters
 
 
+def graph_ms(fn, launches=10, reps=3):
+    """Device time of one call of `fn`: CUDA events around replays of a
+    CUDA graph that holds `launches` calls, so the host's time to enqueue
+    them drops out."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        for _ in range(launches):
+            fn()
+    g.replay()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(reps):
+        g.replay()
+    b.record()
+    torch.cuda.synchronize()
+    del g
+    return a.elapsed_time(b) / (reps * launches)
+
+
 def bf16_ordered(t):
     """bf16 bit patterns as integers ordered like the values."""
     i = t.contiguous().view(torch.int16).to(torch.int32)
@@ -375,8 +428,17 @@ def check_unit(name, x, w, sc, bi, sh, k, s, p, act_in, want_stats):
                                   want_stats, got, ref)
     n, h, wd, ci = x.shape
     co = w.shape[0]
-    # timings (the plain version and the library call on the same inputs)
-    kernel_ms = time_ms(lambda: fcb.fused_conv_unit(*args, **kw))
+    bm, bn, _ = fcb.launch_plan(x.shape, co, kernel, stride, pad, x.dtype)
+    # timings: kernel_ms the launch step (conv kernel and statistics
+    # reduction) on OHWI weights, replayed from a CUDA graph, so the device
+    # and not the host sets it; op_ms the whole wrapper call as the main
+    # path makes it; the plain version and the library call on the same
+    # inputs
+    w_ohwi = fcb.weight_ohwi(w)
+    kernel_ms = graph_ms(lambda: fcb._launch(x, w_ohwi, sc, bi, sh, kernel,
+                                             stride, pad, act_in,
+                                             want_stats))
+    op_ms = time_ms(lambda: fcb.fused_conv_unit(*args, **kw))
     ref_ms = time_ms(lambda: fcb.fused_conv_unit_ref(
         *args, kernel, stride, pad, act_in, want_stats))
     u = (x.float() * sc + bi).clamp_min(0).to(x.dtype) if act_in else x
@@ -387,13 +449,14 @@ def check_unit(name, x, w, sc, bi, sh, k, s, p, act_in, want_stats):
     # conv skips 1 - 1/s^2 of them), each once
     rec = dict(name=name, dtype=str(x.dtype).replace("torch.", ""),
                shape=[n, h, wd, ci], co=co, k=k, s=s, p=p, act_in=act_in,
-               want_stats=want_stats, ok=ok, max_abs_err=max_abs,
-               kernel_ms=kernel_ms, ref_ms=ref_ms, library_ms=library_ms,
+               want_stats=want_stats, ok=ok, max_abs_err=max_abs, tile=[bm, bn],
+               kernel_ms=kernel_ms, op_ms=op_ms, ref_ms=ref_ms,
+               library_ms=library_ms,
                **unit_bound(x.shape, co, kernel, stride, pad, x.dtype,
                             want_stats))
     print(f"  {name:<22} {rec['dtype']:<8} x{rec['shape']} co={co} k{k}s{s}"
-          f"p{p} act={int(act_in)} stats={int(want_stats)} | "
-          f"kernel_ms={kernel_ms:.4f} ref_ms={ref_ms:.4f} "
+          f"p{p} act={int(act_in)} stats={int(want_stats)} tile {bm}x{bn} | "
+          f"kernel_ms={kernel_ms:.4f} op_ms={op_ms:.4f} ref_ms={ref_ms:.4f} "
           f"library_ms={library_ms:.4f} bound_ms={rec['bound_ms']:.4f} "
           f"({rec['bound_by']}) | {ytol} | {'ok' if ok else 'FAIL'}",
           flush=True)
@@ -431,19 +494,63 @@ def phase_kernels():
             rec = check_unit(name, x, w, sc, bi, sh, k, s, p, act_in,
                              want_stats)
             recs.append(dict(rec, count=count, path=path))
+            if want_stats and name == "s1.conv2":  # two reduction passes
+                check_deterministic(f"{path}.{name}", x, w, sc, bi, sh, k, s,
+                                    p, act_in)
             del x, w
         torch.cuda.empty_cache()
-    extra = [("fp32.s2.conv2", 28, 128, 128, 3, 1, 1, True, torch.float32),
-             ("fp32.s3.conv1.first", 28, 512, 256, 1, 2, 0, False,
-              torch.float32),
-             ("basic.3x3s2", 56, 64, 128, 3, 2, 1, True, torch.bfloat16)]
-    for (name, hw, ci, co, k, s, p, act_in, dt) in extra:
-        x, w, sc, bi, sh = make_unit_inputs(gen, BATCH, hw, ci, co, k, dt,
-                                            dev)
+    print("kernel vs plain version, extras and edge cases:", flush=True)
+    for (name, n, hw, ci, co, k, s, p, act_in, dt, bias) in UNIT_EXTRAS:
+        x, w, sc, bi, sh = make_unit_inputs(gen, n, hw, ci, co, k, dt, dev)
+        if bias is not None:
+            bi = torch.full_like(bi, bias)
         rec = check_unit(name, x, w, sc, bi, sh, k, s, p, act_in, True)
         recs.append(dict(rec, count=0, path="extra"))
+        if name in DETERMINISM_CASES:
+            check_deterministic(name, x, w, sc, bi, sh, k, s, p, act_in)
+    check_refuses_ci()
     torch.cuda.empty_cache()
     return recs
+
+
+def check_deterministic(name, x, w, sc, bi, sh, k, s, p, act_in):
+    """Two launches on the same inputs give bit-identical y, s1 and s2."""
+    from mxnet_tpu_torch.ops import fused_convbn as fcb
+
+    kw = dict(kernel=(k, k), stride=(s, s), pad=(p, p), act_in=act_in,
+              want_stats=True)
+    a = fcb.fused_conv_unit(x, w, sc, bi, sh, **kw)
+    b = fcb.fused_conv_unit(x, w, sc, bi, sh, **kw)
+    torch.cuda.synchronize()
+    bits = [torch.equal(u.view(torch.int16 if u.element_size() == 2
+                               else torch.int32),
+                        v.view(torch.int16 if v.element_size() == 2
+                               else torch.int32))
+            for u, v in zip(a, b)]
+    print(f"  {name}: two launches bit-identical y {bits[0]} s1 {bits[1]} "
+          f"s2 {bits[2]}", flush=True)
+    if not all(bits):
+        fail(f"{name}: two launches differ (y, s1, s2 identical: {bits})")
+
+
+def check_refuses_ci():
+    """bf16 with Ci % 8 != 0 raises MXNetError and launches nothing."""
+    from mxnet_tpu_torch.base import MXNetError
+    from mxnet_tpu_torch.ops import fused_convbn as fcb
+
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(5)
+    x, w, sc, bi, sh = make_unit_inputs(gen, 2, 8, 12, 64, 3, torch.bfloat16,
+                                        dev)
+    before = fcb.launch_count()
+    try:
+        fcb.fused_conv_unit(x, w, sc, bi, sh, kernel=(3, 3), pad=(1, 1),
+                            act_in=True)
+        fail("fused_conv_unit: bf16 Ci=12 did not raise")
+    except MXNetError as e:
+        print(f"  bf16 Ci=12 raises: {e}", flush=True)
+    if fcb.launch_count() != before:
+        fail("fused_conv_unit: the refused call launched the kernel")
 
 
 def kernel_summary(kernel, recs, path, launches):
@@ -458,14 +565,17 @@ def kernel_summary(kernel, recs, path, launches):
            for k in ("kernel_ms", "ref_ms", "library_ms", "bound_ms")}
     by_ops = sum(r["bound_ms"] * r["count"] for r in main
                  if r["bound_by"] == "operations")
-    return dict(kernel, path=path, batch=main[0]["shape"][0],
-                launches=launches,
-                max_abs_err=max(r["max_abs_err"] for r in main),
-                ms=tot["kernel_ms"], plain_ms=tot["ref_ms"],
-                bound_ms=tot["bound_ms"],
-                bound_by="operations" if by_ops >= tot["bound_ms"] / 2
-                else "bytes",
-                library_ms=tot["library_ms"])
+    rec = dict(kernel, path=path, batch=main[0]["shape"][0],
+               launches=launches,
+               max_abs_err=max(r["max_abs_err"] for r in main),
+               ms=tot["kernel_ms"], plain_ms=tot["ref_ms"],
+               bound_ms=tot["bound_ms"],
+               bound_by="operations" if by_ops >= tot["bound_ms"] / 2
+               else "bytes",
+               library_ms=tot["library_ms"])
+    if all("op_ms" in r for r in main):  # kernel 1: the whole wrapper call
+        rec["op_ms"] = sum(r["op_ms"] * r["count"] for r in main)
+    return rec
 
 
 def check_unit_bwd(name, x, w, sc, bi, sh, k, p, act_in, want_stats, gen):
@@ -2079,6 +2189,35 @@ def profile_probe_layers(card):
         print(f"profile probe layers, {tag}: conv kernel {conv:.3f} ms, "
               f"statistics reduction {stats:.3f} ms a sweep of nine layers "
               f"[{card}]", flush=True)
+    # kernel 1's split per layer: its conv kernel against its statistics
+    # reduction (torch.profiler, over 3 calls of each layer), and, by CUDA
+    # events, the launch step with statistics against the same without
+    # (the epilogue's column sums plus the reduction)
+    out["kernel 1 by layer"] = {}
+    for (shape, co, kernel, stride, pad), L in zip(probe.LAYERS, layers):
+        name = f"{shape[1]}x{shape[2]}.{shape[3]}-{co}.k{kernel[0]}"
+        w_ohwi = fcb.weight_ohwi(L[1])
+        ms = {st: graph_ms(lambda st=st: fcb._launch(
+            L[0], w_ohwi, *L[3:6], kernel, stride, pad, True, st))
+            for st in (True, False)}
+        with contextlib.redirect_stdout(None):
+            prof = profile_device(lambda: runs[0][2](L), name, "call", card,
+                                  1.0, iters=3, top=0)
+        conv = stats = None
+        if prof is not None:
+            conv = sum(t for t, _, k in prof["rows"] if KERNEL1_NAMES[0] in k)
+            stats = sum(t for t, _, k in prof["rows"]
+                        if KERNEL1_NAMES[1] in k)
+        out["kernel 1 by layer"][name] = dict(
+            conv_ms=conv, stats_ms=stats, with_stats_ms=ms[True],
+            without_stats_ms=ms[False])
+        split = "not measured" if conv is None else (
+            f"conv {conv:.4f} ms, statistics reduction {stats:.4f} ms "
+            f"({stats / max(conv + stats, 1e-9):.1%})")
+        print(f"probe layer {name}, kernel 1: profiler {split}; CUDA events "
+              f"{ms[True]:.4f} ms with statistics, {ms[False]:.4f} without "
+              f"({(ms[True] - ms[False]) / ms[True]:.1%} for statistics) a "
+              f"call [{card}]", flush=True)
     return out
 
 

@@ -10,10 +10,12 @@ seconds.
 The build happens at first use, from the sources in the checkout only,
 into ``build/torch_kernels/`` beside the package: one ``nvcc -c`` per
 source, all started together, then one link.  The library's file
-name carries a hash of the sources and flags, so an edited source never
-loads a stale build.  Serving threads race the first forward, so the
-build and load run once, under ``_BUILD_LOCK`` (the counterpart of
-``_PROBE_LOCK`` in the JAX package's ``ops/pallas_convbn.py``).
+name carries a hash of every file under ``csrc/`` (sources and the
+headers they include, such as ``conv_mainloop.cuh``) and of the flags,
+so an edited source or header never loads a stale build.  Serving
+threads race the first forward, so the build and load run once, under
+``_BUILD_LOCK`` (the counterpart of ``_PROBE_LOCK`` in the JAX
+package's ``ops/pallas_convbn.py``).
 There is no fallback: a failed build raises.
 """
 from __future__ import annotations
@@ -62,9 +64,12 @@ def _nvcc() -> str:
 
 
 def _tag() -> str:
+    """Hash of every file under ``csrc/`` (the compiled ``.cu`` sources and
+    the headers they include) and of the flags."""
     h = hashlib.sha256()
-    for name in _SOURCES:
-        h.update((_SRC_DIR / name).read_bytes())
+    for path in sorted(p for p in _SRC_DIR.rglob("*") if p.is_file()):
+        h.update(path.relative_to(_SRC_DIR).as_posix().encode() + b"\0")
+        h.update(path.read_bytes())
     h.update(" ".join(_FLAGS).encode())
     return h.hexdigest()[:16]
 
@@ -131,9 +136,7 @@ def _build_locked(force: bool) -> Path:
 def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.mx_fused_conv_unit.restype = _I
     lib.mx_fused_conv_unit.argtypes = (
-        [_I] + [_VP] * 10 + [_I] * 14 + [_VP])
-    lib.mx_fused_conv_unit_block_m.restype = _I
-    lib.mx_fused_conv_unit_block_m.argtypes = []
+        [_I] + [_VP] * 10 + [_I] * 15 + [ctypes.c_longlong, _VP])
     lib.mx_fused_conv_unit_bwd.restype = _I
     lib.mx_fused_conv_unit_bwd.argtypes = (
         [_I] + [_VP] * 15 + [_I] * 14 + [_VP])

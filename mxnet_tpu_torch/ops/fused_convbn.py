@@ -11,6 +11,10 @@ for one conv layer inside a conv->BN->ReLU chain, in NHWC:
 On a CUDA tensor the unit runs the hand-written sm_90a kernel in
 ``csrc/fused_convbn.cu`` (built by ``_kernels``) or raises: there is no
 probe, no cache of failed shapes and no fallback to the plain version.
+The wrapper hands the kernel its weights in OHWI order
+(:func:`weight_ohwi`), picks its output tile from the shape
+(:func:`tile_for`) and sizes its statistics scratch
+(:func:`scratch_rows`); the bf16 kernel takes Ci % 8 == 0 only.
 On CPU tensors it runs :func:`fused_conv_unit_ref`, the plain version
 the tests hold the JAX package against.  A mix of CPU and CUDA tensors
 raises.
@@ -55,7 +59,8 @@ from ..util import env
 
 __all__ = ["fused_conv_unit", "fused_conv_unit_ref", "fused_conv_unit_bwd",
            "fused_conv_unit_bwd_ref", "launch_count", "reset_launch_count",
-           "bwd_launch_count", "reset_bwd_launch_count"]
+           "bwd_launch_count", "reset_bwd_launch_count", "weight_ohwi",
+           "tile_for", "scratch_rows", "launch_plan"]
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -127,29 +132,86 @@ def fused_conv_unit_ref(data, weight, in_scale, in_bias, shift, kernel,
     return y, s1, s2
 
 
-def _launch(x, w, in_scale, in_bias, shift, kernel, stride, pad, act_in,
-            want_stats):
-    """One launch of the CUDA kernel (plus its stats reduction); s1/s2
-    are None without stats."""
+# The kernel's output tiles (rows of M x channels of Co).  bf16 takes
+# 128 x 128 (one 384-thread block an SM) where Co >= 128 and that gives at
+# least two tiles for each of the H100's 132 SMs, else 64 x 64 (two
+# 256-thread blocks an SM); fp32 has one tile.  The statistics reduction
+# sums REDUCE_ROWS partial rows a block.
+TILES_BF16 = ((128, 128), (64, 64))
+TILE_FP32 = (128, 64)
+MIN_BLOCKS = 2 * 132
+REDUCE_ROWS = 128
+
+
+def weight_ohwi(w):
+    """(Co, Ci, kh, kw) checkpoint layout -> (Co, kh, kw, Ci), contiguous:
+    the kernel's weights as K-major rows.  A view for 1x1 convs; one copy
+    for larger ones (the counterpart of ``_weight_taps``, transposed)."""
+    return w.permute(0, 2, 3, 1).contiguous()
+
+
+def tile_for(m, co, dtype):
+    """(bm, bn), the kernel's output tile for an M x Co output."""
+    if dtype == torch.float32:
+        return TILE_FP32
+    big, small = TILES_BF16
+    if co >= 128 and -(-m // big[0]) * -(-co // big[1]) >= MIN_BLOCKS:
+        return big
+    return small
+
+
+def scratch_rows(tiles):
+    """Partial rows per statistics array for `tiles` m-tiles: the tiles'
+    own, then each reduction pass's that leaves more than one row."""
+    rows = r = tiles
+    while r > REDUCE_ROWS:
+        r = -(-r // REDUCE_ROWS)
+        rows += r
+    return rows
+
+
+def launch_plan(x_shape, co, kernel, stride, pad, dtype):
+    """(bm, bn, scratch rows) of one launch, or MXNetError for a shape the
+    kernel does not take."""
+    n, h, wd, ci = x_shape
+    if dtype == torch.bfloat16 and ci % 8:
+        raise MXNetError(f"fused_conv_unit: the bf16 kernel loads x in "
+                         f"16-byte runs of channels and takes Ci % 8 == 0, "
+                         f"got Ci={ci}")
+    ho, wo = _out_hw(h, wd, kernel, stride, pad)
+    m = n * ho * wo
+    bm, bn = tile_for(m, co, dtype)
+    return bm, bn, scratch_rows(-(-m // bm))
+
+
+def _aligned16(t):
+    """t itself if its data is 16-byte aligned, else an aligned copy."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+def _launch(x, w_ohwi, in_scale, in_bias, shift, kernel, stride, pad,
+            act_in, want_stats):
+    """One launch of the CUDA kernel (plus its stats reduction) on
+    contiguous tensors of one CUDA device, w in OHWI order
+    (:func:`weight_ohwi`); s1/s2 are None without stats."""
     lib = _kernels.load()
     n, h, wd, ci = x.shape
-    co = w.shape[0]
+    co = w_ohwi.shape[0]
+    bm, bn, rows = launch_plan(x.shape, co, kernel, stride, pad, x.dtype)
     ho, wo = _out_hw(h, wd, kernel, stride, pad)
     dev = x.device
+    x = _aligned16(x)
+    w = _aligned16(w_ohwi)
     y = torch.empty((n, ho, wo, co), dtype=x.dtype, device=dev)
     if want_stats:
-        m_blocks = -(-(n * ho * wo) // lib.mx_fused_conv_unit_block_m())
-        part1 = torch.empty((m_blocks, co), dtype=torch.float32, device=dev)
-        part2 = torch.empty((m_blocks, co), dtype=torch.float32, device=dev)
+        part = torch.empty((2, rows, co), dtype=torch.float32, device=dev)
         s1 = torch.empty(co, dtype=torch.float32, device=dev)
         s2 = torch.empty(co, dtype=torch.float32, device=dev)
-        ptrs = (part1.data_ptr(), part2.data_ptr(), s1.data_ptr(),
+        ptrs = (part[0].data_ptr(), part[1].data_ptr(), s1.data_ptr(),
                 s2.data_ptr())
     else:
         s1 = s2 = None
         ptrs = (None, None, None, None)
-    # 16-byte vector loads of x need Ci % 8 == 0 and an aligned base
-    vec = int(ci % 8 == 0 and x.data_ptr() % 16 == 0)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.mx_fused_conv_unit(
@@ -157,7 +219,7 @@ def _launch(x, w, in_scale, in_bias, shift, kernel, stride, pad, act_in,
             in_scale.data_ptr(), in_bias.data_ptr(), shift.data_ptr(),
             y.data_ptr(), *ptrs, n, h, wd, ci, co, kernel[0], kernel[1],
             stride[0], stride[1], pad[0], pad[1], int(act_in),
-            int(want_stats), vec, stream)
+            int(want_stats), bm, bn, rows, stream)
     if rc != 0:
         raise MXNetError(f"fused_conv_unit: CUDA launch failed: "
                          f"{_kernels.error_string(rc)} (code {rc})")
@@ -360,8 +422,8 @@ class _FusedConvUnitFn(torch.autograd.Function):
                                             kernel, stride, pad, act_in,
                                             want_stats)
         else:
-            y, s1, s2 = _launch(x, w, in_scale, in_bias, shift, kernel,
-                                stride, pad, act_in, want_stats)
+            y, s1, s2 = _launch(x, weight_ohwi(w), in_scale, in_bias, shift,
+                                kernel, stride, pad, act_in, want_stats)
         ctx.save_for_backward(x, w, in_scale, in_bias, shift, y)
         ctx.conf = (kernel, stride, pad, act_in, want_stats)
         return (y, s1, s2) if want_stats else y
