@@ -36,18 +36,28 @@ Phases, each failing loudly (exit code 1, no result line):
            printed beside it ("1ulp bare"); s1/s2 within rtol 2e-3 of
            sum|.|
      want_stats=False: s1/s2 exactly 0.
-   Then fused_conv_unit_bwd's CUDA kernel against its plain version at
-   the 14 stride-1 configurations of ResNet-50 v1 (N=256, bf16,
-   want_stats on), one fp32 and one want_stats-off configuration (N=32),
-   on y from the forward kernel and random cotangents.  library_ms is
-   PyTorch's dgrad
-   + wgrad convolutions (torch.nn.grad.conv2d_input + conv2d_weight) on
-   the same tensors; bound_ms is max(2x the forward FLOPs / peak, bytes
-   of x, y, gy, gx, w, dw / 3.35 TB/s).  Tolerances: gx and dw as y
-   above (bf16: 1 ulp + 4*sqrt(K)*2^-24*sum|terms| on >= 99.9%, <= 2 ulp
-   + slack everywhere; fp32: 2^-23 relative + the slack), K = kh*kw*Co
-   for gx and N*Ho*Wo for dw; gscale and gbias within 1e-4 of
-   sum|terms|; without act_in exactly 0.
+   Then fused_conv_unit_bwd's CUDA kernel (kernel 2: the dy fold, dgrad,
+   split-K wgrad and their reductions) against its plain version at the
+   14 stride-1 configurations of ResNet-50 v1 (N=256, bf16, want_stats
+   on), then one fp32 and one want_stats-off configuration (N=32) and
+   bf16 edge cases: M off every tile (N=3 at 7x7), Co=72 and Co=20 (dy's
+   padded pitch, with and without statistics), Ci=40, 3x3 with in_bias
+   -1.5 and +2.0 (padding after the affine), N=1 at 56x56, and several
+   wgrad splits with two gscale reduction passes; y from the forward
+   kernel, random cotangents.  Two launches must give bit-identical gx,
+   dw, gscale and gbias (a training shape and four edge cases), and bf16
+   Ci=12 must raise without a launch.  kernel_ms is the launch step
+   replayed from a CUDA graph (device time), op_ms the whole wrapper
+   call; each training configuration prints torch.profiler's split of
+   the launch step into fold, dgrad, wgrad and reductions (shares only).
+   library_ms is PyTorch's dgrad + wgrad convolutions
+   (torch.nn.grad.conv2d_input + conv2d_weight) on the same tensors;
+   bound_ms is max(2x the forward FLOPs / peak, bytes of x, y, gy, gx, w,
+   dw / 3.35 TB/s).  Tolerances: gx and dw as y above (bf16: 1 ulp +
+   4*sqrt(K)*2^-24*sum|terms| on >= 99.9%, <= 2 ulp + slack everywhere;
+   fp32: 2^-23 relative + the slack), K = kh*kw*Co for gx and N*Ho*Wo for
+   dw; gscale and gbias within 1e-4 of sum|terms|; without act_in
+   exactly 0.
    Then the attention kernel (dot_product_attention, kernel 5) against its
    plain version at BERT-base serving shapes: (B*H, S, D) = (384, 128, 64)
    bf16 through `attend` and the packed (32, 128, 768) projections through
@@ -101,7 +111,8 @@ Phases, each failing loudly (exit code 1, no result line):
    weights moved by 2^-24 relative: at random weights it lands ~0.7%
    away, so no fp32 step can be held to 1e-3 over all weights.  Then
    each mode trains its own copy of the net, in turns, timed and
-   profiled.
+   profiled (with the fused step's kernel-2 time split into fold, dgrad,
+   wgrad and reductions, as shares).
 6. main path, data-parallel training: kernels 1 (with statistics) and 2
    checked as in phase 3 at the per-rank shapes (N = 256 / 2), then
    bench.py's step over 2 rank processes of this script (spawned, never
@@ -117,7 +128,8 @@ Phases, each failing loudly (exit code 1, no result line):
    loss are held against phase 5's reference of the same step by phase
    5's per-leaf rule (fp32 against float64 with its witness, bf16
    against fp32).  Then 3 timed steps a mode and a profile of a fused
-   step on rank 0 (kernel time, the collectives' host and device time).
+   step on rank 0 (kernel time, kernel 2's split as in phase 5, the
+   collectives' host and device time).
    A rank that fails or outlives its time makes the parent kill every
    rank and fail.
 7. the probe path (row 6): kernel 6 (candidate_tap, the tap-accumulation
@@ -218,11 +230,42 @@ DP = 2
 DP_TIMEOUT = 480.0             # s, the ranks' whole run
 DP_COLLECTIVE_TIMEOUT = 180.0  # s, one collective
 # the device functions of kernels 1, 6 and 2 as torch.profiler names them
-KERNEL1_NAMES = ("::conv_unit_wgmma_kernel<", "::stats_reduce_kernel(")
+KERNEL1_NAMES = ("::conv_unit_wgmma_kernel<", "::stats_reduce_kernel<0>(")
 KERNEL6_NAMES = ("::convbn_tap_kernel<", "::tap_reduce_tiles_kernel(",
                  "::tap_reduce_total_kernel(")
-KERNEL2_NAMES = ("::dgrad_kernel<", "::wgrad_kernel<", "::wgrad_reduce_kernel<",
-                 "::channel_reduce_kernel(")
+# kernel 2's device functions by part of its launch step (bf16; fp32 runs
+# dgrad_fma_kernel and wgrad_fma_kernel)
+KERNEL2_PARTS = {"fold": ("::fold_dy_kernel(",),
+                 "dgrad": ("::dgrad_wgmma_kernel<", "::dgrad_fma_kernel("),
+                 "wgrad": ("::wgrad_wgmma_kernel<", "::wgrad_fma_kernel("),
+                 "reductions": ("::stats_reduce_kernel<1>(",
+                                "::wgrad_reduce_kernel<")}
+KERNEL2_NAMES = tuple(n for names in KERNEL2_PARTS.values() for n in names)
+# phase 3's extra kernel-2 cases, bf16 unless noted: name, N, hw, Ci, Co,
+# k, p, act_in, want_stats, dtype, in_bias (None: random); the edge cases
+# hold M off every tile, Co off 8 and 64 (dy_tot's padded pitch, folded
+# and copied), Ci off 64, padding after a strongly negative and a positive
+# affine, one image at 56x56, and several wgrad splits with two gscale
+# reduction passes
+BWD_EXTRAS = [
+    ("fp32.s2.conv2", BATCH, 28, 128, 128, 3, 1, True, True, torch.float32,
+     None),
+    ("nostats.s3.conv3", BATCH, 14, 256, 1024, 1, 0, True, False,
+     torch.bfloat16, None),
+    ("edge.n3.7x7", 3, 7, 512, 512, 3, 1, True, True, torch.bfloat16, None),
+    ("edge.co72", 8, 14, 64, 72, 1, 0, True, True, torch.bfloat16, None),
+    ("edge.co20", 8, 14, 64, 20, 3, 1, True, True, torch.bfloat16, None),
+    ("edge.co20.nostats", 8, 14, 64, 20, 3, 1, True, False, torch.bfloat16,
+     None),
+    ("edge.ci40", 8, 14, 40, 64, 3, 1, True, True, torch.bfloat16, None),
+    ("edge.bias-1.5", 8, 28, 64, 128, 3, 1, True, True, torch.bfloat16,
+     -1.5),
+    ("edge.bias+2.0", 8, 28, 64, 128, 3, 1, True, True, torch.bfloat16, 2.0),
+    ("edge.n1.56x56", 1, 56, 64, 64, 3, 1, True, True, torch.bfloat16, None),
+    ("edge.splits.passes", 16, 28, 128, 128, 3, 1, True, True,
+     torch.bfloat16, None)]
+BWD_DETERMINISM_CASES = ("s1.conv2", "edge.n3.7x7", "edge.co20",
+                         "edge.ci40", "edge.splits.passes")
 KERNEL_DP = dict(KERNEL, name="fused_conv_unit/dp",
                  replaces="mxnet_tpu/ops/pallas_convbn.py:618")
 KERNEL_BWD_DP = dict(KERNEL_BWD, name="fused_conv_unit_bwd/dp",
@@ -513,20 +556,24 @@ def phase_kernels():
     return recs
 
 
+def same_bits(outs_a, outs_b):
+    """[bit-identical?] for each pair of output tensors of two launches."""
+    torch.cuda.synchronize()
+    return [torch.equal(u.view(torch.int16 if u.element_size() == 2
+                               else torch.int32),
+                        v.view(torch.int16 if v.element_size() == 2
+                               else torch.int32))
+            for u, v in zip(outs_a, outs_b)]
+
+
 def check_deterministic(name, x, w, sc, bi, sh, k, s, p, act_in):
     """Two launches on the same inputs give bit-identical y, s1 and s2."""
     from mxnet_tpu_torch.ops import fused_convbn as fcb
 
     kw = dict(kernel=(k, k), stride=(s, s), pad=(p, p), act_in=act_in,
               want_stats=True)
-    a = fcb.fused_conv_unit(x, w, sc, bi, sh, **kw)
-    b = fcb.fused_conv_unit(x, w, sc, bi, sh, **kw)
-    torch.cuda.synchronize()
-    bits = [torch.equal(u.view(torch.int16 if u.element_size() == 2
-                               else torch.int32),
-                        v.view(torch.int16 if v.element_size() == 2
-                               else torch.int32))
-            for u, v in zip(a, b)]
+    bits = same_bits(fcb.fused_conv_unit(x, w, sc, bi, sh, **kw),
+                     fcb.fused_conv_unit(x, w, sc, bi, sh, **kw))
     print(f"  {name}: two launches bit-identical y {bits[0]} s1 {bits[1]} "
           f"s2 {bits[2]}", flush=True)
     if not all(bits):
@@ -578,10 +625,31 @@ def kernel_summary(kernel, recs, path, launches):
     return rec
 
 
-def check_unit_bwd(name, x, w, sc, bi, sh, k, p, act_in, want_stats, gen):
+def bwd_split(rows):
+    """Kernel 2's device time in a profile's rows, by part of its launch
+    step: {part: ms} over KERNEL2_PARTS."""
+    return {part: sum(ms for ms, _, k in rows
+                      if any(n in k for n in names))
+            for part, names in KERNEL2_PARTS.items()}
+
+
+def print_bwd_shares(tag, split, card):
+    total = sum(split.values())
+    if total <= 0:
+        print(f"profile {tag}: kernel 2 not measured (no device time)",
+              flush=True)
+        return
+    print(f"profile {tag}: kernel 2 " + ", ".join(
+        f"{part} {ms / total:.1%}" for part, ms in split.items())
+        + f" of its profiled time (shares only) [{card}]", flush=True)
+
+
+def check_unit_bwd(name, x, w, sc, bi, sh, k, p, act_in, want_stats, gen,
+                   card=None):
     """Backward kernel vs its plain version on one stride-1
     configuration; y comes from the forward kernel, the cotangents from
-    `gen`.  Returns a record."""
+    `gen`.  With `card`, also the profiler's split of the launch step into
+    its parts (shares).  Returns a record."""
     from mxnet_tpu_torch.ops import fused_convbn as fcb
 
     kernel, pad = (k, k), (p, p)
@@ -646,7 +714,13 @@ def check_unit_bwd(name, x, w, sc, bi, sh, k, p, act_in, want_stats, gen):
     elif bool(got[2].any()) or bool(got[3].any()):
         ok = False
         fail(f"bwd {name}: act_in=False but gscale/gbias are not zero")
-    kernel_ms = time_ms(lambda: fcb.fused_conv_unit_bwd(*args, **kw))
+    # timings: kernel_ms the launch step (fold, dgrad, wgrad and the
+    # reductions) replayed from a CUDA graph, so the device and not the
+    # host sets it; op_ms the whole wrapper call as the main path makes it
+    cargs = tuple(t.contiguous() for t in args)
+    kernel_ms = graph_ms(lambda: fcb._launch_bwd(*cargs, kernel, pad, act_in,
+                                                 want_stats))
+    op_ms = time_ms(lambda: fcb.fused_conv_unit_bwd(*args, **kw))
     ref_ms = time_ms(lambda: fcb.fused_conv_unit_bwd_ref(
         *args, kernel, (1, 1), pad, act_in, want_stats))
     # yardstick: PyTorch's dgrad + wgrad convolutions on the same tensors
@@ -663,27 +737,83 @@ def check_unit_bwd(name, x, w, sc, bi, sh, k, p, act_in, want_stats, gen):
     nbytes = (x.numel() * 2 + y.numel() * 2 + w.numel() * 2) * item
     peak = PEAK_BF16 if x.dtype == torch.bfloat16 else PEAK_FP32
     t_ops, t_bytes = flops / peak * 1e3, nbytes / PEAK_BYTES * 1e3
+    plan = fcb.bwd_launch_plan(x.shape, co, kernel, pad, x.dtype, want_stats)
+    shares = None
+    if card is not None:
+        with contextlib.redirect_stdout(None):
+            prof = profile_device(lambda: fcb._launch_bwd(
+                *cargs, kernel, pad, act_in, want_stats), name, "call", card,
+                1.0, iters=3, top=0)
+        if prof is not None:
+            split = bwd_split(prof["rows"])
+            total = sum(split.values())
+            if total > 0:
+                shares = {part: ms / total for part, ms in split.items()}
     rec = dict(name=name, dtype=str(x.dtype).replace("torch.", ""),
                shape=[n, h, wd, ci], co=co, k=k, p=p, act_in=act_in,
                want_stats=want_stats, ok=ok, max_abs_err=max_abs,
-               kernel_ms=kernel_ms, ref_ms=ref_ms, library_ms=library_ms,
-               bound_ms=max(t_ops, t_bytes),
+               kernel_ms=kernel_ms, op_ms=op_ms, ref_ms=ref_ms,
+               library_ms=library_ms, bound_ms=max(t_ops, t_bytes),
                bound_by="operations" if t_ops >= t_bytes else "bytes",
-               gflop=flops / 1e9, mbytes=nbytes / 1e6)
+               gflop=flops / 1e9, mbytes=nbytes / 1e6,
+               dgrad_tile=list(plan.dgrad_tile),
+               wgrad_tile=list(plan.wgrad_tile), splits=plan.splits,
+               shares=shares)
+    share_txt = "" if shares is None else " | " + " ".join(
+        f"{part} {v:.0%}" for part, v in shares.items())
     print(f"  bwd {name:<18} {rec['dtype']:<8} x{rec['shape']} co={co} k{k}"
-          f"p{p} act={int(act_in)} stats={int(want_stats)} | "
-          f"kernel_ms={kernel_ms:.4f} ref_ms={ref_ms:.4f} "
+          f"p{p} act={int(act_in)} stats={int(want_stats)} dgrad "
+          f"{plan.dgrad_tile[0]}x{plan.dgrad_tile[1]} wgrad "
+          f"{plan.wgrad_tile[0]}x{plan.wgrad_tile[1]}/{plan.splits} | "
+          f"kernel_ms={kernel_ms:.4f} op_ms={op_ms:.4f} ref_ms={ref_ms:.4f} "
           f"library_ms={library_ms:.4f} bound_ms={rec['bound_ms']:.4f} "
-          f"({rec['bound_by']}) | {'; '.join(notes)} | "
+          f"({rec['bound_by']}){share_txt} | {'; '.join(notes)} | "
           f"{'ok' if ok else 'FAIL'}", flush=True)
+    if name in BWD_DETERMINISM_CASES:
+        check_deterministic_bwd(name, args, kw)
     return rec
 
 
-def phase_kernels_bwd():
+def check_deterministic_bwd(name, args, kw):
+    """Two launches on the same inputs give bit-identical gx, dw, gscale
+    and gbias."""
+    from mxnet_tpu_torch.ops import fused_convbn as fcb
+
+    bits = same_bits(fcb.fused_conv_unit_bwd(*args, **kw),
+                     fcb.fused_conv_unit_bwd(*args, **kw))
+    print(f"  bwd {name}: two launches bit-identical gx {bits[0]} dw "
+          f"{bits[1]} gscale {bits[2]} gbias {bits[3]}", flush=True)
+    if not all(bits):
+        fail(f"bwd {name}: two launches differ (gx, dw, gscale, gbias "
+             f"identical: {bits})")
+
+
+def check_refuses_ci_bwd():
+    """bf16 with Ci % 8 != 0 raises MXNetError and launches nothing."""
+    from mxnet_tpu_torch.base import MXNetError
+    from mxnet_tpu_torch.ops import fused_convbn as fcb
+
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(6)
+    x, w, sc, bi, sh = make_unit_inputs(gen, 2, 8, 12, 64, 3, torch.bfloat16,
+                                        dev)
+    y = torch.randn(2, 8, 8, 64, generator=gen, device=dev).to(x.dtype)
+    before = fcb.bwd_launch_count()
+    try:
+        fcb.fused_conv_unit_bwd(x, w, sc, bi, sh, y, y.clone(),
+                                kernel=(3, 3), pad=(1, 1), act_in=True)
+        fail("fused_conv_unit_bwd: bf16 Ci=12 did not raise")
+    except MXNetError as e:
+        print(f"  bwd bf16 Ci=12 raises: {e}", flush=True)
+    if fcb.bwd_launch_count() != before:
+        fail("fused_conv_unit_bwd: the refused call launched the kernel")
+
+
+def phase_kernels_bwd(card):
     """The backward kernel at the 14 stride-1 configurations of ResNet-50
     v1 at the training step's shapes (N=TRAIN_BATCH, bf16, want_stats
-    on), then one fp32 and one want_stats-off configuration at
-    N=BATCH."""
+    on), each with the profiler's split of its launch step, then the
+    extras and edge cases of BWD_EXTRAS."""
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev).manual_seed(4321)
     recs = []
@@ -691,22 +821,22 @@ def phase_kernels_bwd():
     if len(cfgs) != 14 or sum(c[8] for c in cfgs) != BWD_PER_STEP:
         fail(f"bwd: {len(cfgs)} stride-1 configurations launched "
              f"{sum(c[8] for c in cfgs)} times (want 14 and {BWD_PER_STEP})")
-    extra = [("fp32.s2.conv2", 28, 128, 128, 3, 1, 1, True, 0,
-              torch.float32, True),
-             ("nostats.s3.conv3", 14, 256, 1024, 1, 1, 0, True, 0,
-              torch.bfloat16, False)]
     print(f"backward kernel vs plain version, N={TRAIN_BATCH} (train), "
-          f"extras N={BATCH}:", flush=True)
-    for cfg in [c + (torch.bfloat16, True) for c in cfgs] + extra:
-        name, hw, ci, co, k, s, p, act_in, count, dt, stats = cfg
-        path = "train" if count else "extra"
-        n = TRAIN_BATCH if count else BATCH
+          f"then extras and edge cases:", flush=True)
+    cases = [(name, TRAIN_BATCH, hw, ci, co, k, p, act_in, True,
+              torch.bfloat16, None, count)
+             for (name, hw, ci, co, k, s, p, act_in, count) in cfgs]
+    cases += [c + (0,) for c in BWD_EXTRAS]
+    for (name, n, hw, ci, co, k, p, act_in, stats, dt, bias, count) in cases:
         x, w, sc, bi, sh = make_unit_inputs(gen, n, hw, ci, co, k, dt, dev)
+        if bias is not None:
+            bi = torch.full_like(bi, bias)
         rec = check_unit_bwd(name, x, w, sc, bi, sh, k, p, act_in, stats,
-                             gen)
-        recs.append(dict(rec, count=count, path=path))
+                             gen, card=card if count else None)
+        recs.append(dict(rec, count=count, path="train" if count else "extra"))
         del x, w
         torch.cuda.empty_cache()
+    check_refuses_ci_bwd()
     return recs
 
 
@@ -1726,6 +1856,9 @@ def phase_train(card):
             lambda: trainers[fused].step(xb, yb),
             f"train {tag} bf16 batch {TRAIN_BATCH}", "step", card,
             sum(runs[fused]) / len(runs[fused]) * 1e3, iters=2, top=24)
+        if fused and result["profile"][tag] is not None:
+            print_bwd_shares(f"train fused bf16 batch {TRAIN_BATCH}",
+                             bwd_split(result["profile"][tag]["rows"]), card)
     result["launches"] = launches
     result["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
     print(f"train peak device memory {result['peak_gib']:.1f} GiB", flush=True)
@@ -1855,6 +1988,8 @@ def dp_rank(rank, out_dir, backend, devices):
                                      if any(n in k for n in KERNEL1_NAMES))
             prof["kernel2_ms"] = sum(ms for ms, _, k in rows
                                      if any(n in k for n in KERNEL2_NAMES))
+            print_bwd_shares(f"train_dp fused bf16 rank 0 [{mode}]",
+                             bwd_split(rows), mode)
             prof["collective_device_ms"] = sum(
                 ms for ms, _, k in rows
                 if "nccl" in k.lower() or k.startswith("Memcpy"))
@@ -2325,7 +2460,7 @@ def main():
     card = phase_device()
     phase_build()
     recs = phase_kernels()
-    recs_bwd = phase_kernels_bwd()
+    recs_bwd = phase_kernels_bwd(card)
     recs_att = phase_kernels_attention(card)
     main_res = phase_main(card, REQUESTS, THREADS)
     bert_res = phase_bert(card, REQUESTS, THREADS)

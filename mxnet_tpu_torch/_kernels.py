@@ -139,11 +139,7 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         [_I] + [_VP] * 10 + [_I] * 15 + [ctypes.c_longlong, _VP])
     lib.mx_fused_conv_unit_bwd.restype = _I
     lib.mx_fused_conv_unit_bwd.argtypes = (
-        [_I] + [_VP] * 15 + [_I] * 14 + [_VP])
-    lib.mx_fused_conv_unit_bwd_block_m.restype = _I
-    lib.mx_fused_conv_unit_bwd_block_m.argtypes = []
-    lib.mx_fused_conv_unit_bwd_splits.restype = _I
-    lib.mx_fused_conv_unit_bwd_splits.argtypes = [_I] * 4 + [ctypes.c_longlong]
+        [_I] + [_VP] * 17 + [_I] * 16 + [ctypes.c_longlong, _VP])
     lib.mx_attention_fwd.restype = _I
     lib.mx_attention_fwd.argtypes = (
         [_I] + [_VP] * 5 + [_I] * 5 + [ctypes.c_longlong] * 12

@@ -1,18 +1,21 @@
 // Hopper building blocks of the port's implicit-GEMM convolutions.
 //
-// Included by fused_convbn.cu (the fused Conv+BN forward); written so that
-// a second convolution kernel (the backward's dgrad and wgrad) can take the
-// same pieces:
+// Included by fused_convbn.cu (kernel 1, the fused Conv+BN forward) and
+// fused_convbn_bwd.cu (kernel 2, its backward: dgrad and wgrad):
 //   - PTX wrappers: mbarrier, cp.async with zero fill and mbarrier
-//     completion, TMA 2-D loads, ldmatrix, wgmma (A from registers, B from
-//     128-byte-swizzled shared memory), named barriers;
+//     completion, TMA 2-D loads, ldmatrix (plain and transposed), wgmma
+//     with A from registers or from shared memory and B K-major or
+//     MN-major (the transpose-B form), named barriers;
 //   - the host-side encoding of a 2-D TMA tensor map, looked up at run
 //     time through the CUDA runtime (no -lcuda);
-//   - the tile geometry of a multi-stage ring whose stages hold a BM x 64
-//     bf16 A tile and a BN x 64 bf16 B tile, each as 128-byte rows in the
-//     128-byte swizzle (16-byte chunk c of row r at chunk c ^ (r & 7)), the
-//     layout TMA writes with CU_TENSOR_MAP_SWIZZLE_128B and wgmma reads
-//     through a B128 descriptor.
+//   - the tile geometry of a multi-stage ring whose stages hold bf16
+//     tiles as 128-byte rows in the 128-byte swizzle (16-byte chunk c of
+//     row r at chunk c ^ (r & 7)), the layout TMA writes with
+//     CU_TENSOR_MAP_SWIZZLE_128B and wgmma reads through a B128
+//     descriptor;
+//   - the deterministic reduction of per-tile fp32 partial rows
+//     (stats_reduce_kernel / reduce_stats), shared by kernel 1's s1/s2
+//     and kernel 2's gscale/gbias.
 #pragma once
 
 #include <cuda.h>
@@ -101,8 +104,22 @@ __device__ __forceinline__ void ldmatrix_x4(uint32_t addr, uint32_t (&r)[4]) {
                : "r"(addr)
                : "memory");
 }
+// the transposed load: thread t receives rows 2(t%4), 2(t%4)+1 of column
+// t/4 of each 8x8 matrix, the mma fragment of the matrix's transpose
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t addr, uint32_t (&r)[4]) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr)
+               : "memory");
+}
 __device__ __forceinline__ void named_bar(int id, int threads) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+// makes shared memory written through the generic proxy (cp.async, plain
+// stores) that this thread has observed visible to its next async-proxy
+// reads (wgmma operands from shared memory)
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 __device__ __forceinline__ void wgmma_fence() {
   asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
@@ -110,12 +127,19 @@ __device__ __forceinline__ void wgmma_fence() {
 __device__ __forceinline__ void wgmma_commit() {
   asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
 }
-__device__ __forceinline__ void wgmma_wait0() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+// waits until at most N committed wgmma groups of this warpgroup are
+// still in flight
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
 }
 template <int REGS>
 __device__ __forceinline__ void setmaxnreg_dec() {
   asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(REGS));
+}
+template <int REGS>
+__device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(REGS));
 }
 
 // wgmma descriptor of a K-major operand in the 128-byte swizzle: 8-row
@@ -126,9 +150,21 @@ __device__ __forceinline__ uint64_t b128_desc(uint32_t addr) {
          ((uint64_t)1 << 62);
 }
 
+// wgmma descriptor of an MN-major operand in the 128-byte swizzle: each
+// 128-byte row holds 64 MN elements of one K index, 8 K rows make one
+// 1024-byte swizzle atom (the next 8 K rows at SBO = 1024 bytes), and the
+// next 64 MN elements start `mn_bytes` further on (LBO); `addr`
+// 1024-aligned plus the K offset (2048 bytes per k16 step)
+__device__ __forceinline__ uint64_t b128_mn_desc(uint32_t addr, uint32_t mn_bytes) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)((mn_bytes >> 4) & 0x3FFF) << 16) |
+         ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
+}
+
 // D (64 x N, fp32, in registers) += A (64 x 16 bf16, registers: the
 // mma.m16n8k16 A fragment of each warp's 16 rows) * B (16 x N, bf16, from
-// the descriptor, K-major); scale_d 0 overwrites D
+// the descriptor, K-major, or MN-major with TNSP_B = 1); scale_d 0
+// overwrites D
+template <int TNSP_B = 0>
 __device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4],
                                          uint64_t desc_b, int scale_d) {
   asm volatile(
@@ -136,14 +172,15 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4],
       "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
       "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
       " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31},"
-      " {%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
+      " {%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
         "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d));
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d), "n"(TNSP_B));
 }
 
+template <int TNSP_B = 0>
 __device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t (&a)[4],
                                          uint64_t desc_b, int scale_d) {
   asm volatile(
@@ -153,7 +190,7 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t (&a)[4],
       " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
       " %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
       " %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63},"
-      " {%64, %65, %66, %67}, %68, p, 1, 1, 0;\n}\n"
+      " {%64, %65, %66, %67}, %68, p, 1, 1, %70;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
         "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
@@ -162,8 +199,85 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t (&a)[4],
         "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
         "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d));
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d), "n"(TNSP_B));
 }
+
+template <int TNSP_B = 0>
+__device__ __forceinline__ void wgmma_rs(float (&d)[128], const uint32_t (&a)[4],
+                                         uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      " %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      " %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63,"
+      " %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79,"
+      " %80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95,"
+      " %96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111,"
+      " %112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127},"
+      " {%128, %129, %130, %131}, %132, p, 1, 1, %134;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d), "n"(TNSP_B));
+}
+
+// D (64 x N, fp32) += A (64 x 16 bf16, K-major in shared memory, from
+// desc_a) * B (16 x N, bf16, K-major, from desc_b): the SS form
+#define MXCONV_D32                                                                              \
+  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), \
+      "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),    \
+      "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]),  \
+      "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]),  \
+      "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t desc_a, uint64_t desc_b,
+                                         int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31},"
+      " %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : MXCONV_D32
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t desc_a, uint64_t desc_b,
+                                         int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      " %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      " %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63},"
+      " %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+#undef MXCONV_D32
 
 
 // ---- host -----------------------------------------------------------------
@@ -204,6 +318,89 @@ inline bool encode_rows_b128(CUtensorMap* map, const void* base, long long rows,
   return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base), dims, strides, box,
             estr, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
             CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// ---- deterministic reduction of partial rows --------------------------
+// out[g, c] = sum of in[g*128 .. g*128+127, c] for two arrays at once, 32
+// channels and 128 rows a block: warp w sums rows 16w..16w+15 in order,
+// then warp 0 sums the 8 warps in order.  reduce_stats repeats it on its
+// output until one row is left.  The grid and the order depend on the
+// shape alone, so the sums are bit-identical from run to run.  TAG only
+// names the instance (0: kernel 1's s1/s2, 1: kernel 2's gscale/gbias), so
+// a profile tells the two kernels' reductions apart; each source file
+// instantiates its own TAG, so no instance is compiled twice.
+constexpr int REDUCE_ROWS = 128;  // partial rows one stats_reduce_kernel block sums
+
+template <int TAG>
+__global__ void __launch_bounds__(256) stats_reduce_kernel(const float* in1, const float* in2,
+                                                           long long rows, int co_n, float* out1,
+                                                           float* out2) {
+  __shared__ float r1[8][32];
+  __shared__ float r2[8][32];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int co = blockIdx.x * 32 + lane;
+  const long long first = (long long)blockIdx.y * REDUCE_ROWS + warp * 16;
+  float a1 = 0.0f, a2 = 0.0f;
+  if (co < co_n) {
+    for (int i = 0; i < 16; ++i) {
+      const long long r = first + i;
+      if (r >= rows) break;
+      a1 += in1[r * co_n + co];
+      a2 += in2[r * co_n + co];
+    }
+  }
+  r1[warp][lane] = a1;
+  r2[warp][lane] = a2;
+  __syncthreads();
+  if (warp == 0 && co < co_n) {
+    float b1 = 0.0f, b2 = 0.0f;
+    for (int w = 0; w < 8; ++w) {
+      b1 += r1[w][lane];
+      b2 += r2[w][lane];
+    }
+    out1[(long long)blockIdx.y * co_n + co] = b1;
+    out2[(long long)blockIdx.y * co_n + co] = b2;
+  }
+}
+
+// partial rows per array: the tiles' own, then those of each reduction
+// pass that leaves more than one row, written after the previous pass's
+// (ops/fused_convbn.py::scratch_rows sizes the scratch the same way)
+inline long long scratch_rows_for(long long tiles) {
+  long long rows = tiles, r = tiles;
+  while (r > REDUCE_ROWS) {
+    r = (r + REDUCE_ROWS - 1) / REDUCE_ROWS;
+    rows += r;
+  }
+  return rows;
+}
+
+// part1/part2 hold `tiles` partial rows of `co` channels each, with room
+// for scratch_rows_for(tiles) rows; the sums land in s1/s2
+template <int TAG>
+cudaError_t reduce_stats(float* part1, float* part2, long long tiles, int co, float* s1, float* s2,
+                         cudaStream_t s) {
+  const float* in1 = part1;
+  const float* in2 = part2;
+  float* free1 = part1 + tiles * co;
+  float* free2 = part2 + tiles * co;
+  long long rows = tiles;
+  while (true) {
+    const long long g = (rows + REDUCE_ROWS - 1) / REDUCE_ROWS;
+    if (g > 65535) return cudaErrorInvalidConfiguration;
+    float* o1 = g == 1 ? s1 : free1;
+    float* o2 = g == 1 ? s2 : free2;
+    stats_reduce_kernel<TAG><<<dim3((co + 31) / 32, (unsigned)g), 256, 0, s>>>(in1, in2, rows, co,
+                                                                              o1, o2);
+    cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess || g == 1) return err;
+    in1 = free1;
+    in2 = free2;
+    free1 += g * co;
+    free2 += g * co;
+    rows = g;
+  }
 }
 
 }  // namespace mxconv

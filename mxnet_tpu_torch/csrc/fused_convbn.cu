@@ -56,7 +56,8 @@
 //     (8 warps x 16 rows in order, then the warps in order) and repeats on
 //     its own output until one row is left: the same grid and order every
 //     run, so s1/s2 are bit-identical from run to run.
-// The shared pieces (PTX wrappers, the TMA map) live in conv_mainloop.cuh.
+// The shared pieces (PTX wrappers, the TMA map, the reduction) live in
+// conv_mainloop.cuh.
 //
 // fp32 stays on the FMA units (tensor cores would round it to TF32): a
 // 128 x 64 tile a block, loads into padded shared memory, the same partials
@@ -67,7 +68,6 @@ namespace {
 
 using namespace mxconv;
 
-constexpr int REDUCE_ROWS = 128;  // partial rows one stats_reduce_kernel block sums
 constexpr int MAX_SMEM = 232448;  // dynamic shared memory a block may take
 
 struct Params {
@@ -302,7 +302,7 @@ __global__ void __launch_bounds__(WgmmaTile<BM, BN>::THREADS, BM == 64 ? 2 : 1)
 #pragma unroll
       for (int kk = 0; kk < 4; ++kk) wgmma_rs(acc, a[kk], b128_desc(sb + kk * 32), 1);
       wgmma_commit();
-      wgmma_wait0();
+      wgmma_wait<0>();
       if (lane == 0) mbar_arrive(smem_u32(&bars[STAGES + stage]));
       if (++stage == STAGES) {
         stage = 0;
@@ -526,79 +526,6 @@ __global__ void __launch_bounds__(F_THREADS) conv_unit_fma_kernel(Params p) {
   }
 }
 
-// ---------------------------------------------------------------------------
-// statistics: out[g, co] = sum of in[g*128 .. g*128+127, co], 32 channels
-// and 128 rows a block: warp w sums rows 16w..16w+15 in order, then warp 0
-// sums the 8 warps in order.  The host repeats it on its output until one
-// row is left, written to s1/s2.
-// ---------------------------------------------------------------------------
-__global__ void __launch_bounds__(256) stats_reduce_kernel(const float* in1, const float* in2,
-                                                           long long rows, int co_n, float* out1,
-                                                           float* out2) {
-  __shared__ float r1[8][32];
-  __shared__ float r2[8][32];
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int co = blockIdx.x * 32 + lane;
-  const long long first = (long long)blockIdx.y * REDUCE_ROWS + warp * 16;
-  float a1 = 0.0f, a2 = 0.0f;
-  if (co < co_n) {
-    for (int i = 0; i < 16; ++i) {
-      const long long r = first + i;
-      if (r >= rows) break;
-      a1 += in1[r * co_n + co];
-      a2 += in2[r * co_n + co];
-    }
-  }
-  r1[warp][lane] = a1;
-  r2[warp][lane] = a2;
-  __syncthreads();
-  if (warp == 0 && co < co_n) {
-    float b1 = 0.0f, b2 = 0.0f;
-    for (int w = 0; w < 8; ++w) {
-      b1 += r1[w][lane];
-      b2 += r2[w][lane];
-    }
-    out1[(long long)blockIdx.y * co_n + co] = b1;
-    out2[(long long)blockIdx.y * co_n + co] = b2;
-  }
-}
-
-// partial rows per statistics array: the tiles' own, then those of each
-// reduction pass that leaves more than one row, written after the previous
-// pass's (ops/fused_convbn.py::scratch_rows sizes the scratch the same way)
-long long scratch_rows_for(long long tiles) {
-  long long rows = tiles, r = tiles;
-  while (r > REDUCE_ROWS) {
-    r = (r + REDUCE_ROWS - 1) / REDUCE_ROWS;
-    rows += r;
-  }
-  return rows;
-}
-
-cudaError_t reduce_stats(float* part1, float* part2, long long tiles, int co, float* s1, float* s2,
-                         cudaStream_t s) {
-  const float* in1 = part1;
-  const float* in2 = part2;
-  float* free1 = part1 + tiles * co;
-  float* free2 = part2 + tiles * co;
-  long long rows = tiles;
-  while (true) {
-    const long long g = (rows + REDUCE_ROWS - 1) / REDUCE_ROWS;
-    if (g > 65535) return cudaErrorInvalidConfiguration;
-    float* o1 = g == 1 ? s1 : free1;
-    float* o2 = g == 1 ? s2 : free2;
-    stats_reduce_kernel<<<dim3((co + 31) / 32, (unsigned)g), 256, 0, s>>>(in1, in2, rows, co, o1, o2);
-    cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess || g == 1) return err;
-    in1 = free1;
-    in2 = free2;
-    free1 += g * co;
-    free2 += g * co;
-    rows = g;
-  }
-}
-
 template <int BM, int BN>
 cudaError_t launch_wgmma(const CUtensorMap& map, const Params& p, long long tiles, cudaStream_t s) {
   using T = WgmmaTile<BM, BN>;
@@ -689,8 +616,8 @@ int mx_fused_conv_unit(int dtype, const void* x, const void* w, const void* in_s
     return (int)cudaErrorInvalidValue;
   }
   if (err != cudaSuccess || !want_stats) return (int)err;
-  return (int)reduce_stats(p.part1, p.part2, tiles, Co, static_cast<float*>(s1),
-                           static_cast<float*>(s2), s);
+  return (int)reduce_stats<0>(p.part1, p.part2, tiles, Co, static_cast<float*>(s1),
+                              static_cast<float*>(s2), s);
 }
 
 }  // extern "C"

@@ -24,8 +24,10 @@ package's ``custom_vjp``, ``_unit_fwd``/``_unit_bwd``).  It saves
 ``(x, w, in_scale, in_bias, shift, y)`` and its backward follows
 ``_unit_bwd``'s rule by knob and shape: with MXNET_FUSED_CONVBN_BWD=1 a
 stride-1 unit runs :func:`fused_conv_unit_bwd` (the CUDA kernel in
-``csrc/fused_convbn_bwd.cu`` on the card, its plain version
-:func:`fused_conv_unit_bwd_ref` on CPU tensors); every other unit takes
+``csrc/fused_convbn_bwd.cu`` on the card, planned by
+:func:`bwd_launch_plan` and fed the flipped weights of
+:func:`weight_dgrad`; its plain version :func:`fused_conv_unit_bwd_ref`
+on CPU tensors); every other unit takes
 the dgrad/wgrad convolutions of PyTorch in the input dtype, the
 counterpart of the XLA branch.  ``shift`` (the running mean) gets no
 gradient.  Autograd never differentiates through the plain forward.
@@ -46,7 +48,9 @@ count them once per rank.
 """
 from __future__ import annotations
 
+import functools
 import threading
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -60,7 +64,8 @@ from ..util import env
 __all__ = ["fused_conv_unit", "fused_conv_unit_ref", "fused_conv_unit_bwd",
            "fused_conv_unit_bwd_ref", "launch_count", "reset_launch_count",
            "bwd_launch_count", "reset_bwd_launch_count", "weight_ohwi",
-           "tile_for", "scratch_rows", "launch_plan"]
+           "tile_for", "scratch_rows", "launch_plan", "weight_dgrad",
+           "bwd_launch_plan", "BwdPlan"]
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -294,48 +299,155 @@ def fused_conv_unit_bwd_ref(x, w, in_scale, in_bias, shift, y, gy, gs1, gs2,
                            stride, pad, act_in, want_stats, torch.float32)
 
 
-def _aligned(*ts):
-    return all(t.data_ptr() % 16 == 0 for t in ts)
+# The backward kernel's plan.  bf16: the dgrad tile is the forward's rule
+# with Ci as the output width (tile_for), the wgrad tile wgrad_tile's, and
+# wgrad's K = N*Ho*Wo is cut into `splits` ranges of whole 64-pixel
+# stages (wgrad_splits).  fp32: the FMA kernels' fixed tiles and their
+# 32-pixel K chunks.
+SMS = 132
+PEAK_BF16 = 989e12   # dense bf16 tensor-core FLOP/s, H100 SXM
+PEAK_BYTES = 3.35e12
+WGRAD_STAGE = 64     # pixels of one wgrad K stage (bf16)
+WGRAD_MIN_STAGES = 4
+WGRAD_MAX_SPLITS = 1024
+WGRAD_FILL_S = 2e-6  # pipeline fill and epilogue of one wave of items
+BWD_TILES_FP32 = ((128, 64), (64, 64))  # dgrad, wgrad
+FP32_WGRAD_CHUNK = 32
+FP32_WGRAD_BLOCKS = 4 * SMS
+
+
+class BwdPlan(NamedTuple):
+    """One launch of the backward kernel: tiles, splits and scratch."""
+    dgrad_tile: Tuple[int, int]   # (rows of N*H*W, channels of Ci)
+    m_tiles: int                  # dgrad tiles along N*H*W
+    part_rows: int                # rows of each gscale/gbias partial array
+    wgrad_tile: Tuple[int, int]   # (channels of Ci, channels of Co)
+    splits: int                   # wgrad K ranges
+    co_pad: int                   # dy_tot's row pitch (bf16)
+    wpart_floats: int             # fp32 wgrad partials: splits*KH*KW*Ci*Co
+    dy_elems: int                 # bf16 dy_tot scratch (0: gy itself)
+
+
+def wgrad_tile(ci, co):
+    """bf16 wgrad tile (channels of Ci, channels of Co): 128 x 256 where
+    both are wide, else 128 or 64 along each."""
+    if ci >= 128 and co >= 256:
+        return 128, 256
+    return 128 if ci >= 128 else 64, 128 if co >= 128 else 64
+
+
+def wgrad_splits(khw, ci, co, m_out, tile):
+    """bf16 wgrad K ranges: the count that minimises an estimate of the
+    time, waves of (tile, range) items at the tensor cores' rate plus the
+    partials' bytes written and read, with at least one item an SM where
+    the stages allow it; every range at least WGRAD_MIN_STAGES stages."""
+    bm, bn = tile
+    tiles = khw * -(-ci // bm) * -(-co // bn)
+    resident = SMS * (1 if bm == 128 else 2)
+    stages = -(-m_out // WGRAD_STAGE)
+    most = max(1, min(stages // WGRAD_MIN_STAGES, WGRAD_MAX_SPLITS))
+    least = min(most, -(-SMS // tiles))
+    flops = 2.0 * m_out * co * ci * khw
+    part_s = 2.0 * khw * ci * co * 4 / PEAK_BYTES
+
+    def est(s):
+        waves = -(-tiles * s // resident)
+        return (waves * (flops / (tiles * s) * resident / PEAK_BF16
+                         + WGRAD_FILL_S) + s * part_s)
+    return min(range(least, most + 1), key=lambda s: (est(s), s))
+
+
+def bwd_launch_plan(x_shape, co, kernel, pad, dtype, want_stats=True):
+    """The :class:`BwdPlan` of one stride-1 launch, or MXNetError for a
+    shape the kernel does not take.  Plans are cached by shape: a
+    training step asks for the same few at every step."""
+    return _bwd_plan(tuple(int(d) for d in x_shape), int(co), tuple(kernel),
+                     tuple(pad), dtype, bool(want_stats))
+
+
+@functools.lru_cache(maxsize=256)
+def _bwd_plan(x_shape, co, kernel, pad, dtype, want_stats):
+    n, h, wd, ci = x_shape
+    if dtype == torch.bfloat16 and ci % 8:
+        raise MXNetError(f"fused_conv_unit_bwd: the bf16 kernel moves x "
+                         f"and gx in 16-byte runs of channels and takes "
+                         f"Ci % 8 == 0, got Ci={ci}")
+    ho, wo = _out_hw(h, wd, kernel, (1, 1), pad)
+    khw = kernel[0] * kernel[1]
+    m_in, m_out = n * h * wd, n * ho * wo
+    if dtype == torch.float32:
+        dtile, wtile = BWD_TILES_FP32
+        tiles = khw * -(-ci // wtile[0]) * -(-co // wtile[1])
+        chunks = -(-m_out // FP32_WGRAD_CHUNK)
+        splits = max(1, min(-(-FP32_WGRAD_BLOCKS // tiles),
+                            max(chunks // 4, 1), WGRAD_MAX_SPLITS))
+        co_pad, dy = co, 0
+    else:
+        dtile = tile_for(m_in, ci, dtype)
+        wtile = wgrad_tile(ci, co)
+        splits = wgrad_splits(khw, ci, co, m_out, wtile)
+        co_pad = -(-co // 8) * 8
+        dy = 0 if not want_stats and co == co_pad else m_out * co_pad
+    m_tiles = -(-m_in // dtile[0])
+    return BwdPlan(dtile, m_tiles, scratch_rows(m_tiles), wtile, splits,
+                   co_pad, splits * khw * ci * co, dy)
+
+
+def weight_dgrad(w, co_pad):
+    """(Co, Ci, kh, kw) -> (Ci, kh, kw, co_pad), contiguous, flipped in
+    (kh, kw), zeros past Co: dgrad's weights as K-major rows, so dgrad is
+    the forward convolution of dy with them at pad kh-1-ph."""
+    co, ci, kh, kw = w.shape
+    wf = (w if kh == kw == 1 else w.flip(2, 3)).permute(1, 2, 3, 0)
+    if co_pad == co:
+        return wf.contiguous()
+    out = w.new_zeros((ci, kh, kw, co_pad))
+    out[..., :co] = wf
+    return out
 
 
 def _launch_bwd(x, w, in_scale, in_bias, shift, y, gy, gs1, gs2, kernel,
                 pad, act_in, want_stats):
-    """One launch of the backward kernel (dgrad, wgrad and their
+    """One launch of the backward kernel (fold, dgrad, wgrad and their
     reductions) on contiguous tensors of one CUDA device."""
     lib = _kernels.load()
     n, h, wd, ci = x.shape
     co = w.shape[0]
-    ho, wo = _out_hw(h, wd, kernel, (1, 1), pad)
+    plan = bwd_launch_plan(x.shape, co, kernel, pad, x.dtype, want_stats)
     dev = x.device
     f32 = dict(dtype=torch.float32, device=dev)
+    x = _aligned16(x)
     gx = torch.empty_like(x)
     dw = torch.empty_like(w)
+    part: Optional[torch.Tensor] = None
     if act_in:
-        m_blocks = -(-(n * h * wd) // lib.mx_fused_conv_unit_bwd_block_m())
-        gpart = torch.empty((2, m_blocks, ci), **f32)
+        part = torch.empty((2, plan.part_rows, ci), **f32)
         gscale = torch.empty(ci, **f32)
         gbias = torch.empty(ci, **f32)
     else:
-        gpart = None
         gscale = torch.zeros(ci, **f32)
         gbias = torch.zeros(ci, **f32)
-    splits = lib.mx_fused_conv_unit_bwd_splits(kernel[0], kernel[1], ci, co,
-                                               n * ho * wo)
-    wpart = torch.empty((splits, kernel[0] * kernel[1] * ci, co), **f32)
-    # 16-byte vector loads need whole groups of 8 channels and aligned bases
-    vec_ci = int(ci % 8 == 0 and _aligned(x))
-    vec_co = int(co % 8 == 0 and _aligned(y, gy))
+    wpart = torch.empty(plan.wpart_floats, **f32)
+    w_dgrad = dyt = None
+    if x.dtype == torch.bfloat16:
+        w_dgrad = weight_dgrad(w, plan.co_pad)
+        # gy serves as dy_tot where nothing is folded and its rows already
+        # have the padded pitch, else the kernel writes dy_tot to scratch
+        dyt = gy if plan.dy_elems == 0 and gy.data_ptr() % 16 == 0 else \
+            torch.empty(n * y.shape[1] * y.shape[2] * plan.co_pad,
+                        dtype=x.dtype, device=dev)
+    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.mx_fused_conv_unit_bwd(
-            _DTYPE_CODE[x.dtype], x.data_ptr(), w.data_ptr(),
+            _DTYPE_CODE[x.dtype], x.data_ptr(), w.data_ptr(), ptr(w_dgrad),
             in_scale.data_ptr(), in_bias.data_ptr(), shift.data_ptr(),
             y.data_ptr(), gy.data_ptr(), gs1.data_ptr(), gs2.data_ptr(),
             gx.data_ptr(), dw.data_ptr(), gscale.data_ptr(),
-            gbias.data_ptr(), None if gpart is None else gpart.data_ptr(),
-            wpart.data_ptr(), n, h, wd, ci, co, kernel[0], kernel[1],
-            pad[0], pad[1], int(act_in), int(want_stats), splits, vec_ci,
-            vec_co, stream)
+            gbias.data_ptr(), ptr(dyt), ptr(part), wpart.data_ptr(), n, h,
+            wd, ci, co, kernel[0], kernel[1], pad[0], pad[1], int(act_in),
+            int(want_stats), *plan.dgrad_tile, *plan.wgrad_tile,
+            plan.splits, plan.part_rows, stream)
     if rc != 0:
         raise MXNetError(f"fused_conv_unit_bwd: CUDA launch failed: "
                          f"{_kernels.error_string(rc)} (code {rc})")
