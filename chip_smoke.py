@@ -62,15 +62,19 @@ Phases, each failing loudly (exit code 1, no result line):
    plain version at BERT-base serving shapes: (B*H, S, D) = (384, 128, 64)
    bf16 through `attend` and the packed (32, 128, 768) projections through
    the op as the main path calls it, valid lengths from a seed in
-   [1, 128] with one row at 0; then one fp32 case, S = 200 with lengths
-   [200, 77], causal with S = 40 and Sk = 72, and the head-split layout.
-   kernel_ms times launches through the wrapper's launch step (device-
-   bound), op_ms the whole op call, ref_ms the plain version, library_ms
-   F.scaled_dot_product_attention on the same tensors (a yardstick the
-   port never calls), bound_ms max(4*BH*S*Sk*D / peak, bytes of q, k, v,
-   out and mask / 3.35 TB/s).  Tolerances: bf16 |o - o_ref| <= 2 bf16
-   ulps of o_ref + 2^-8 * sum_k p_k |v_k|; fp32 <= 1e-5 * sum_k p_k |v_k|;
-   fully masked rows at the mean of v over the real keys.
+   [1, 128] with one row at 0, two launches bit-identical; then one fp32
+   case, S = 200 with lengths [200, 77] (two passes), causal with S = 40
+   and Sk = 72, D = 128, D = 72 (S = Sk = 300, causal, two passes), D =
+   8, and the head-split layout.  kernel_ms is the wrapper's launch step
+   replayed from a CUDA graph (device time; "events" beside it times the
+   same launches by CUDA events around the host's calls), op_ms the
+   whole op call, ref_ms the plain version, library_ms
+   F.scaled_dot_product_attention on the same tensors, replayed the same
+   way (a yardstick the port never calls), bound_ms max(4*BH*S*Sk*D /
+   peak, bytes of q, k, v, out and mask / 3.35 TB/s).  Tolerances: bf16
+   |o - o_ref| <= 2 bf16 ulps of o_ref + 2^-8 * sum_k p_k |v_k|; fp32 <=
+   1e-5 * sum_k p_k |v_k|; fully masked rows at the mean of v over the
+   real keys.
 4. main path, serving: full-width ResNet-50 v1 (random weights from a
    seed), bf16, NHWC, 224x224, exported with export_model, served through
    ModelRepository -> InferenceServer with MXNET_FUSED_CONVBN=1 to
@@ -136,10 +140,15 @@ Phases, each failing loudly (exit code 1, no result line):
    unit with an explicit batch tile nb) against its plain version by
    phase 3's tolerances: (a) at the probe's four cases (N=4, nb=2, bf16,
    the probe's own inputs), one fp32 case, one want_stats-off and one
-   act_in-off case, a 3x3 stride-2 case at nb 1 and 4, and N=6 at nb=4,
-   which must raise without a launch; (b) at the nine batch-256 layers
-   of the probe's time mode for each nb in {1, 16, 256}.  library_ms is
-   F.conv2d on the pre-activated input, bound_ms phase 3's.  (c) The
+   act_in-off case, a 3x3 stride-2 case at nb 1 and 4, Co=72 with Ci=40,
+   and N=6 at nb=4 and bf16 Co=20, which must raise without a launch;
+   (b) at the nine batch-256 layers of the probe's time mode for each nb
+   in {1, 16, 256}, with kernel 1's launch step on the same inputs, the
+   sweep of each beside the other, and two launches bit-identical at nb
+   1 and 256 (and equal across them) on the 7x7 3x3 layer.  kernel_ms is
+   the launch step replayed from a CUDA graph, op_ms the whole wrapper
+   call, library_ms F.conv2d on the pre-activated input replayed the same
+   way, bound_ms phase 3's.  (c) The
    probe's entry point, mxnet_tpu_torch.tools.convbn_probe.main(argv),
    in check mode and in time mode on cuda:0, with the launch counters of
    kernels 1 and 6 set to 0 just before: both must return 0, kernel 6
@@ -229,10 +238,11 @@ BERT_BOUNDS = {"bf16": 2e-2, "fp32": 1e-4}
 DP = 2
 DP_TIMEOUT = 480.0             # s, the ranks' whole run
 DP_COLLECTIVE_TIMEOUT = 180.0  # s, one collective
-# the device functions of kernels 1, 6 and 2 as torch.profiler names them
+# the device functions of kernels 1, 6, 5 and 2 as torch.profiler names them
 KERNEL1_NAMES = ("::conv_unit_wgmma_kernel<", "::stats_reduce_kernel<0>(")
-KERNEL6_NAMES = ("::convbn_tap_kernel<", "::tap_reduce_tiles_kernel(",
-                 "::tap_reduce_total_kernel(")
+KERNEL6_NAMES = ("::tap_unit_wgmma_kernel<", "::stats_reduce_kernel<2>(")
+# kernel 5's device functions: bf16, fp32
+KERNEL5_NAMES = ("::attention_wgmma_kernel<", "::attention_fma_kernel(")
 # kernel 2's device functions by part of its launch step (bf16; fp32 runs
 # dgrad_fma_kernel and wgrad_fma_kernel)
 KERNEL2_PARTS = {"fold": ("::fold_dy_kernel(",),
@@ -933,7 +943,13 @@ def check_attention(name, q, k, v, mask, causal, card, heads=None):
         m4 = (mask > 0)[:, None, None, :]
     out4 = att._out_buffer(q4, heads is not None)
     mk = mask.to(q.dtype)
-    kernel_ms = time_ms(lambda: att._launch(q4, k4, v4, mk, scale, causal,
+    plan = att.launch_plan(*q4.shape[:3], sk, d, q.dtype)
+    # kernel_ms: the launch step replayed from a CUDA graph (device time);
+    # events_ms: the same launches timed by CUDA events around host calls,
+    # where the host's pace shows
+    kernel_ms = graph_ms(lambda: att._launch(q4, k4, v4, mk, scale, causal,
+                                             out4))
+    events_ms = time_ms(lambda: att._launch(q4, k4, v4, mk, scale, causal,
                                             out4), iters=20)
     op_ms = time_ms(run)
     ref_ms = time_ms(lambda: att.dot_product_attention_ref(
@@ -945,7 +961,9 @@ def check_attention(name, q, k, v, mask, causal, card, heads=None):
     if causal:
         qpos = torch.arange(s, device=q.device)[:, None] + (sk - s)
         m4 = m4 & (qpos >= torch.arange(sk, device=q.device)[None, :])
-    library_ms = time_ms(lambda: F.scaled_dot_product_attention(
+    library_ms = graph_ms(lambda: F.scaled_dot_product_attention(
+        q4, k4, v4, attn_mask=m4))
+    library_events_ms = time_ms(lambda: F.scaled_dot_product_attention(
         q4, k4, v4, attn_mask=m4))
     item = q.element_size()
     nbytes = (2 * bh * s * d + 2 * bh * sk * d) * item + mask.numel() * item
@@ -956,27 +974,45 @@ def check_attention(name, q, k, v, mask, causal, card, heads=None):
                bh=bh, s=s, sk=sk, d=d, causal=causal,
                layout="packed" if heads else "(BH,S,D)", ok=ok,
                max_abs_err=float(err.max()), worst_of_bound=worst,
-               kernel_ms=kernel_ms, op_ms=op_ms, ref_ms=ref_ms,
-               library_ms=library_ms, bound_ms=max(t_ops, t_bytes),
+               passes=plan.passes, kernel_ms=kernel_ms, events_ms=events_ms,
+               op_ms=op_ms, ref_ms=ref_ms, library_ms=library_ms,
+               library_events_ms=library_events_ms,
+               bound_ms=max(t_ops, t_bytes),
                bound_by="operations" if t_ops >= t_bytes else "bytes",
                gflop=flops / 1e9, mbytes=nbytes / 1e6)
     print(f"  {name:<18} {rec['dtype']:<8} BH={bh} S={s} Sk={sk} D={d} "
-          f"causal={int(causal)} {rec['layout']} | kernel_ms={kernel_ms:.4f}"
-          f" op_ms={op_ms:.4f} ref_ms={ref_ms:.4f} library_ms="
-          f"{library_ms:.4f} bound_ms={rec['bound_ms']:.4f} "
+          f"causal={int(causal)} {rec['layout']} passes={plan.passes} | "
+          f"kernel_ms={kernel_ms:.4f} (events {events_ms:.4f}) op_ms="
+          f"{op_ms:.4f} ref_ms={ref_ms:.4f} library_ms={library_ms:.4f} "
+          f"(events {library_events_ms:.4f}) bound_ms={rec['bound_ms']:.4f} "
           f"({rec['bound_by']}) | max_abs {rec['max_abs_err']:.3g}, worst "
           f"{worst:.3f} of the bound{dead_txt} | {'ok' if ok else 'FAIL'} "
           f"[{card}]", flush=True)
     return rec
 
 
+def check_attention_deterministic(name, q, k, v, mask, heads):
+    """Two launches of the op on the same inputs give bit-identical
+    outputs."""
+    from mxnet_tpu_torch.ops import attention as att
+
+    def run():
+        return att.dot_product_attention(q, k, v, mask, num_heads=heads)
+    same = same_bits([run()], [run()])[0]
+    print(f"  {name}: two launches bit-identical {same}", flush=True)
+    if not same:
+        fail(f"attention {name}: two launches differ")
+
+
 def phase_kernels_attention(card):
     """Kernel 5 at the BERT-base serving shapes (B*H = 32*12, S = Sk =
     128, D = 64, bf16; valid lengths from a seed in [1, 128], one row at
     0), as `attend` takes it and as the main path calls it (packed
-    (B, S, 768) projections, a (B, Sk) mask); then one fp32 case, S = 200
-    with lengths [200, 77] (several query tiles, Sk not a multiple of 8),
-    causal with S = 40, Sk = 72, and the head-split layout."""
+    (B, S, 768) projections, a (B, Sk) mask), with two-launch bit
+    identity; then one fp32 case, S = 200 with lengths [200, 77] (several
+    query tiles, two passes, Sk not a multiple of 8), causal with S = 40,
+    Sk = 72, D = 128, D = 72 (S = Sk = 300, causal) and D = 8, and the
+    head-split layout."""
     dev = torch.device("cuda", 0)
     gen = torch.Generator().manual_seed(99)
     recs = {}
@@ -995,6 +1031,7 @@ def phase_kernels_attention(card):
     m = key_mask(gen, BATCH, s, zero_rows=1).to(dev)
     recs["bert.packed"] = check_attention("bert.packed", q, k, v, m, False,
                                           card, heads=BERT_HEADS)
+    check_attention_deterministic("bert.packed", q, k, v, m, BERT_HEADS)
     q, k, v = (randn(48, s, d, dtype=torch.float32) for _ in range(3))
     m = key_mask(gen, 48, s, zero_rows=1).to(dev)
     recs["fp32"] = check_attention("fp32", q, k, v, m, False, card)
@@ -1007,6 +1044,17 @@ def phase_kernels_attention(card):
     m = key_mask(gen, 8, 72).to(dev)
     recs["causal"] = check_attention("causal.s40.sk72", q, k, v, m, True,
                                      card)
+    # the head widths the op takes besides BERT's 64: 128 and 72 (two
+    # 64-column boxes, the second zero past D; 72 also with two passes
+    # over Sk = 300, causal) and 8 (zero columns 8..15 of the one k16 step)
+    for name, bh_, s_, sk_, d_, causal in (
+            ("d128.s128", 16, 128, 128, 128, False),
+            ("d72.s300.causal", 4, 300, 300, 72, True),
+            ("d8.s128", 16, 128, 128, 8, False)):
+        q = randn(bh_, s_, d_)
+        k, v = randn(bh_, sk_, d_), randn(bh_, sk_, d_)
+        m = key_mask(gen, bh_, sk_, zero_rows=1).to(dev)
+        recs[name] = check_attention(name, q, k, v, m, causal, card)
     # head-split (B, H, S, D) input through the op
     from mxnet_tpu_torch.ops import attention as att
 
@@ -1479,7 +1527,7 @@ def phase_bert(card, n_requests, threads):
                           sum(fwd_ms) / len(fwd_ms), iters=3, top=12)
     if prof is not None:
         kern = sum(ms for ms, _, key in prof["top"]
-                   if "attention_fwd_kernel" in key)
+                   if any(n in key for n in KERNEL5_NAMES))
         print(f"profile bert: attention kernel {kern:.3f} ms of "
               f"{prof['busy_ms']:.3f} ms busy ({kern / prof['busy_ms']:.1%})"
               f" [{card}]", flush=True)
@@ -2174,10 +2222,16 @@ def phase_dp(card, refs):
 # phase 7: the probe path (row 6) — kernel 6 and the probe's entry point
 # ---------------------------------------------------------------------------
 
-def check_tap(name, x, w_taps, sc, bi, sh, k, s, p, act_in, want_stats, nbs):
+def check_tap(name, x, w_taps, sc, bi, sh, k, s, p, act_in, want_stats, nbs,
+              with_kernel1=False):
     """Kernel 6 against its plain version on one configuration, once for
-    each batch tile in `nbs`, by phase 3's tolerances; one record each."""
+    each batch tile in `nbs`, by phase 3's tolerances; one record each.
+    kernel_ms is the launch step (conv kernel and statistics reduction)
+    replayed from a CUDA graph, op_ms the whole wrapper call, library_ms
+    F.conv2d replayed the same way; with `with_kernel1`, k1_ms is kernel
+    1's launch step on the same inputs (OHWI weights), in the same way."""
     from mxnet_tpu_torch.ops import convbn_tap as ct
+    from mxnet_tpu_torch.ops import fused_convbn as fcb
     from mxnet_tpu_torch.tools.convbn_probe import unit_bound
 
     kernel, stride, pad = (k, k), (s, s), (p, p)
@@ -2187,8 +2241,13 @@ def check_tap(name, x, w_taps, sc, bi, sh, k, s, p, act_in, want_stats, nbs):
     w = w_taps.permute(3, 2, 0, 1)
     u = (x.float() * sc + bi).clamp_min(0).to(x.dtype) if act_in else x
     u_nchw = u.permute(0, 3, 1, 2)
-    library_ms = time_ms(lambda: F.conv2d(u_nchw, w, stride=stride,
-                                          padding=pad))
+    library_ms = graph_ms(lambda: F.conv2d(u_nchw, w, stride=stride,
+                                           padding=pad))
+    k1_ms = None
+    if with_kernel1:
+        w_ohwi = fcb.weight_ohwi(w.contiguous())
+        k1_ms = graph_ms(lambda: fcb._launch(x, w_ohwi, sc, bi, sh, kernel,
+                                             stride, pad, act_in, want_stats))
     bound = unit_bound(x.shape, w_taps.shape[-1], kernel, stride, pad,
                        x.dtype, want_stats)
     recs = []
@@ -2204,34 +2263,83 @@ def check_tap(name, x, w_taps, sc, bi, sh, k, s, p, act_in, want_stats, nbs):
             (got[0], got[1].reshape(-1), got[2].reshape(-1)),
             (ref[0], ref[1].reshape(-1), ref[2].reshape(-1)))
         del got, ref
-        kernel_ms = time_ms(lambda: ct.candidate_tap(*args, nb=nb, **kw))
+        bm, bn, _ = ct.launch_plan(x.shape, w_taps.shape[-1], kernel, stride,
+                                   pad, x.dtype, nb)
+        kernel_ms = graph_ms(lambda: ct._launch(
+            x, w_taps, sc, bi, sh, kernel, stride, pad, act_in, want_stats,
+            nb))
+        op_ms = time_ms(lambda: ct.candidate_tap(*args, nb=nb, **kw))
         ref_ms = time_ms(lambda: ct.candidate_tap_ref(
             *args, kernel, stride, pad, act_in, want_stats, nb), iters=3,
             warmup=1)
         rec = dict(name=name, nb=nb, dtype=str(x.dtype).replace("torch.", ""),
                    shape=list(x.shape), co=w_taps.shape[-1], k=k, s=s, p=p,
                    act_in=act_in, want_stats=want_stats, ok=ok,
-                   max_abs_err=max_abs, kernel_ms=kernel_ms, ref_ms=ref_ms,
-                   library_ms=library_ms, **bound)
+                   max_abs_err=max_abs, tile=[bm, bn], kernel_ms=kernel_ms,
+                   op_ms=op_ms, ref_ms=ref_ms, library_ms=library_ms,
+                   k1_ms=k1_ms, **bound)
         recs.append(rec)
+        k1 = "" if k1_ms is None else f" k1_ms={k1_ms:.4f}"
         print(f"  tap {name:<16} nb={nb:<3} {rec['dtype']:<8} x{rec['shape']}"
               f" co={rec['co']} k{k}s{s}p{p} act={int(act_in)} "
-              f"stats={int(want_stats)} | kernel_ms={kernel_ms:.4f} "
-              f"ref_ms={ref_ms:.4f} library_ms={library_ms:.4f} bound_ms="
-              f"{bound['bound_ms']:.4f} ({bound['bound_by']}) | {ytol} | "
-              f"{'ok' if ok else 'FAIL'}", flush=True)
+              f"stats={int(want_stats)} tile {bm}x{bn} | kernel_ms="
+              f"{kernel_ms:.4f} op_ms={op_ms:.4f}{k1} ref_ms={ref_ms:.4f} "
+              f"library_ms={library_ms:.4f} bound_ms={bound['bound_ms']:.4f} "
+              f"({bound['bound_by']}) | {ytol} | {'ok' if ok else 'FAIL'}",
+              flush=True)
     return recs
+
+
+def check_tap_deterministic(name, x, w_taps, sc, bi, sh, k, s, p, nbs):
+    """Two launches at each nb in `nbs` give bit-identical y, s1 and s2,
+    and so do the launches at different nb: the kernel's tiles and its
+    summation order do not depend on nb."""
+    from mxnet_tpu_torch.ops import convbn_tap as ct
+
+    kw = dict(kernel=(k, k), stride=(s, s), pad=(p, p), act_in=True,
+              want_stats=True)
+    first = None
+    for nb in nbs:
+        a = ct.candidate_tap(x, w_taps, sc, bi, sh, nb=nb, **kw)
+        bits = same_bits(a, ct.candidate_tap(x, w_taps, sc, bi, sh, nb=nb,
+                                             **kw))
+        across = same_bits(a, first) if first is not None else [True] * 3
+        first = a if first is None else first
+        print(f"  tap {name} nb={nb}: two launches bit-identical y {bits[0]} "
+              f"s1 {bits[1]} s2 {bits[2]}; equal to nb={nbs[0]}: "
+              f"{all(across)}", flush=True)
+        if not all(bits) or not all(across):
+            fail(f"tap {name} nb={nb}: launches differ (two launches "
+                 f"{bits}, against nb={nbs[0]} {across})")
+
+
+def check_tap_refuses(x, w_taps, sc, bi, sh, kernel, nb, what):
+    """A kernel-6 call that must raise MXNetError and launch nothing."""
+    from mxnet_tpu_torch.base import MXNetError
+    from mxnet_tpu_torch.ops import convbn_tap as ct
+
+    before = ct.launch_count()
+    try:
+        ct.candidate_tap(x, w_taps, sc, bi, sh, kernel=kernel, stride=(1, 1),
+                         pad=(kernel[0] // 2,) * 2, act_in=True,
+                         want_stats=True, nb=nb)
+        fail(f"tap: {what} did not raise")
+    except MXNetError as e:
+        print(f"  tap {what} raises: {e}", flush=True)
+    if ct.launch_count() != before:
+        fail(f"tap: the refused call ({what}) launched the kernel")
 
 
 def phase_kernels_tap():
     """Kernel 6 against its plain version: (a) the probe's four cases
     (N=4, nb=2, bf16, the probe's own inputs), an fp32 case, a
     want_stats-off and an act_in-off case, a 3x3 stride-2 case at nb 1
-    and 4, and an indivisible batch that must raise; (b) the nine
-    batch-256 layers of the probe's time mode at each nb of its TAP_NB."""
+    and 4, Co=72 with Ci=40 (off 64, on 8), and an indivisible batch and
+    a bf16 Co=20 that must raise without a launch; (b) the nine batch-256 layers of the probe's time
+    mode at each nb of its TAP_NB, beside kernel 1 on the same inputs,
+    with two-launch bit identity at nb 1 and 256 on the 7x7 3x3 layer."""
     import numpy as np
 
-    from mxnet_tpu_torch.base import MXNetError
     from mxnet_tpu_torch.ops import convbn_tap as ct
     from mxnet_tpu_torch.tools import convbn_probe as probe
 
@@ -2254,7 +2362,9 @@ def phase_kernels_tap():
         ("noact.56.1x1s2", 8, 56, 64, 256, 1, 2, 0, False, True,
          torch.bfloat16, (2,)),
         ("bf16.56.3x3s2", 8, 56, 64, 128, 3, 2, 1, True, True,
-         torch.bfloat16, (1, 4))]
+         torch.bfloat16, (1, 4)),
+        ("edge.co72.ci40", 4, 14, 40, 72, 3, 1, 1, True, True,
+         torch.bfloat16, (2,))]
     for name, n, hw, ci, co, k, s, p, act_in, stats, dt, nbs in extra:
         x, w, sc, bi, sh = make_unit_inputs(gen, n, hw, ci, co, k, dt, dev)
         recs += [dict(r, path="extra") for r in check_tap(
@@ -2262,27 +2372,38 @@ def phase_kernels_tap():
             nbs)]
     x, w, sc, bi, sh = make_unit_inputs(gen, 6, 14, 64, 64, 1,
                                         torch.bfloat16, dev)
-    before = ct.launch_count()
-    try:
-        ct.candidate_tap(x, ct.weight_taps(w), sc, bi, sh, kernel=(1, 1),
-                         stride=(1, 1), pad=(0, 0), act_in=True,
-                         want_stats=True, nb=4)
-        fail("tap: N=6, nb=4 did not raise")
-    except MXNetError as e:
-        print(f"  tap N=6 nb=4 raises: {e}", flush=True)
-    if ct.launch_count() != before:
-        fail("tap: the refused call launched the kernel")
+    check_tap_refuses(x, ct.weight_taps(w), sc, bi, sh, (1, 1), 4,
+                      "N=6 nb=4")
+    x, w, sc, bi, sh = make_unit_inputs(gen, 4, 14, 64, 20, 3,
+                                        torch.bfloat16, dev)
+    check_tap_refuses(x, ct.weight_taps(w), sc, bi, sh, (3, 3), 2,
+                      "bf16 Co=20")
     print(f"kernel 6 vs plain version at the probe's batch-{TRAIN_BATCH} "
           f"layers, nb in {probe.TAP_NB}:", flush=True)
     for shape, co, kernel, stride, pad in probe.LAYERS:
         n, hw, _, ci = shape
         x, w, sc, bi, sh = make_unit_inputs(gen, n, hw, ci, co, kernel[0],
                                             torch.bfloat16, dev)
+        name = f"{hw}x{hw}.{ci}-{co}"
         recs += [dict(r, path="probe", count=1) for r in check_tap(
-            f"{hw}x{hw}.{ci}-{co}", x, ct.weight_taps(w), sc, bi, sh,
-            kernel[0], stride[0], pad[0], True, True, probe.TAP_NB)]
+            name, x, ct.weight_taps(w), sc, bi, sh, kernel[0], stride[0],
+            pad[0], True, True, probe.TAP_NB, with_kernel1=True)]
+        # the layer whose images fill the fewest rows of a tile at nb=1
+        if (hw, kernel) == (7, (3, 3)):
+            check_tap_deterministic(name, x, ct.weight_taps(w), sc, bi, sh,
+                                    kernel[0], stride[0], pad[0],
+                                    (1, probe.TAP_NB[-1]))
         del x, w
         torch.cuda.empty_cache()
+    probe_recs = [r for r in recs if r["path"] == "probe"]
+    k1 = sum(r["k1_ms"] for r in probe_recs) / len(probe.TAP_NB)
+    for nb in probe.TAP_NB:
+        k6 = sum(r["kernel_ms"] for r in probe_recs if r["nb"] == nb)
+        lib = sum(r["library_ms"] for r in probe_recs if r["nb"] == nb)
+        print(f"kernel 6 sweep of the nine layers at nb={nb}: {k6:.4f} ms, "
+              f"kernel 1's {k1:.4f} ms on the same inputs ({k6 / k1:.3f}x), "
+              f"F.conv2d {lib:.4f} ms ({k6 / lib:.3f}x); launch steps "
+              f"replayed from CUDA graphs", flush=True)
     return recs
 
 
@@ -2428,6 +2549,9 @@ def tap_summary(recs, launches):
         if r["path"] == "probe":
             rec["ms_by_nb"][r["nb"]] = rec["ms_by_nb"].get(r["nb"], 0.0) \
                 + r["kernel_ms"]
+    rec["kernel1_sweep_ms"] = sum(r["k1_ms"] for r in recs
+                                  if r["path"] == "probe") / len(
+        rec["ms_by_nb"])
     return rec
 
 
@@ -2439,6 +2563,7 @@ def attention_summary(recs, launches):
     return dict(KERNEL_ATT, path="serve_bert", batch=BATCH,
                 launches=launches, max_abs_err=r["max_abs_err"],
                 ms=r["kernel_ms"] * BERT_LAYERS,
+                events_ms=r["events_ms"] * BERT_LAYERS,
                 op_ms=r["op_ms"] * BERT_LAYERS,
                 plain_ms=r["ref_ms"] * BERT_LAYERS,
                 bound_ms=r["bound_ms"] * BERT_LAYERS, bound_by=r["bound_by"],

@@ -143,11 +143,10 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.mx_attention_fwd.restype = _I
     lib.mx_attention_fwd.argtypes = (
         [_I] + [_VP] * 5 + [_I] * 5 + [ctypes.c_longlong] * 12
-        + [ctypes.c_float, _I, _VP])
+        + [ctypes.c_float, _I, _I, _VP])
     lib.mx_convbn_tap.restype = _I
-    lib.mx_convbn_tap.argtypes = [_I] + [_VP] * 12 + [_I] * 16 + [_VP]
-    lib.mx_convbn_tap_block_m.restype = _I
-    lib.mx_convbn_tap_block_m.argtypes = []
+    lib.mx_convbn_tap.argtypes = (
+        [_I] + [_VP] * 10 + [_I] * 16 + [ctypes.c_longlong, _VP])
     lib.mx_cuda_error_string.restype = ctypes.c_char_p
     lib.mx_cuda_error_string.argtypes = [_I]
     return lib

@@ -10,7 +10,11 @@ Without dropout it runs :func:`attend`'s math: on CUDA tensors the
 hand-written sm_90a kernel in ``csrc/attention.cu`` (built by
 ``_kernels``), reading the packed or head-split layout through strides,
 or the call raises; on CPU tensors :func:`dot_product_attention_ref`,
-the plain version the tests hold the JAX package against.  There is no
+the plain version the tests hold the JAX package against.  In bf16 the
+kernel is a persistent wgmma kernel over work units of (batch, head, 128
+query rows): q, k and v arrive by TMA, and with Sk <= 128 it computes
+q·kᵀ once and keeps P in registers (one pass); longer keys take two
+passes, max and sum first, then P (:func:`launch_plan`).  There is no
 probe and no fallback to the plain version on the card.  With ``train``
 and ``dropout > 0`` it runs the plain math with dropout on the
 probabilities, drawn from the caller's ``torch.Generator``, as the JAX
@@ -24,6 +28,7 @@ from __future__ import annotations
 
 import math
 import threading
+from typing import NamedTuple
 
 import torch
 
@@ -31,13 +36,37 @@ from .. import _kernels
 from ..base import MXNetError
 
 __all__ = ["dot_product_attention", "dot_product_attention_ref", "attend",
-           "check_kernel_args", "attention_launch_count",
-           "reset_attention_launch_count"]
+           "check_kernel_args", "launch_plan", "AttentionPlan",
+           "attention_launch_count", "reset_attention_launch_count"]
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 MAX_HEAD_DIM = 128
-_BLOCK_Q = 64        # query rows per block (grid.y <= 65535)
 _MASKED = -1e30      # finite: a row with every key masked stays uniform
+# the kernel's tiles: bf16 (wgmma) takes 128 query rows a unit and keys in
+# tiles of 128, fp32 (FMA) 64 and 64
+_TILE = {torch.bfloat16: 128, torch.float32: 64}
+_MAX_UNITS = 2 ** 31 - 1  # work units the kernel's 1-D grid can name
+
+
+class AttentionPlan(NamedTuple):
+    """One launch of the attention kernel."""
+    tile: int       # query rows a unit, and keys a tile
+    passes: int     # 1: one q·kᵀ, P in registers; 2: max and sum, then P
+    head_cols: int  # bf16: the products' width over D (64 or 128); fp32: D
+    units: int      # one per (batch, head, query tile): fp32 runs a block
+                    # each, bf16 one persistent block an SM walking them
+
+
+def launch_plan(b, h, s, sk, d, dtype):
+    """The kernel's plan for (B,H,S,D) queries and Sk keys.  bf16 makes
+    one pass while one key tile holds every key (the score row then sits
+    in registers) and two past that; fp32 always makes two."""
+    tile = _TILE[dtype]
+    if dtype == torch.bfloat16:
+        passes, cols = (1 if sk <= tile else 2), (64 if d <= 64 else 128)
+    else:
+        passes, cols = 2, d
+    return AttentionPlan(tile, passes, cols, b * h * -(-s // tile))
 
 _COUNT_LOCK = threading.Lock()
 _LAUNCHES = [0]
@@ -120,7 +149,7 @@ def check_kernel_args(q, k, v, mask):
     if s < 1 or sk < 1 or b * h < 1:
         raise MXNetError(f"dot_product_attention: empty attention (S={s}, "
                          f"Sk={sk}, B*H={b * h})")
-    if -(-s // _BLOCK_Q) > 65535 or b * h >= 2 ** 31:
+    if launch_plan(b, h, s, sk, d, q.dtype).units > _MAX_UNITS:
         raise MXNetError(f"dot_product_attention: grid too large (S={s}, "
                          f"B*H={b * h})")
     if mask is not None and tuple(mask.shape) != (b, sk):
@@ -130,11 +159,12 @@ def check_kernel_args(q, k, v, mask):
 
 def _aligned(t):
     """Unit stride along D and 16-byte aligned base and (batch, head,
-    row) strides: what the kernel's vector loads need."""
+    row) strides, none 0 where the dimension has more than one element:
+    what the kernel's TMA maps and vector loads need."""
     item = t.element_size()
     return (t.stride(-1) == 1 and t.data_ptr() % 16 == 0
             and all(st >= 0 for st in t.stride())
-            and all(n == 1 or (st * item) % 16 == 0
+            and all(n == 1 or (st > 0 and (st * item) % 16 == 0)
                     for st, n in zip(t.stride()[:3], t.shape[:3])))
 
 
@@ -149,6 +179,7 @@ def _launch(q, k, v, mask, scale, causal, out):
     lib = _kernels.load()
     b, h, s, d = q.shape
     sk = k.shape[2]
+    plan = launch_plan(b, h, s, sk, d, q.dtype)
     strides = [st for t in (q, k, v, out) for st in t.stride()[:3]]
     dev = q.device
     with torch.cuda.device(dev):
@@ -156,7 +187,8 @@ def _launch(q, k, v, mask, scale, causal, out):
         rc = lib.mx_attention_fwd(
             _DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
             None if mask is None else mask.data_ptr(), out.data_ptr(), b, h,
-            s, sk, d, *strides, float(scale), int(causal), stream)
+            s, sk, d, *strides, float(scale), int(causal), plan.passes,
+            stream)
     if rc != 0:
         raise MXNetError(f"dot_product_attention: CUDA launch failed: "
                          f"{_kernels.error_string(rc)} (code {rc})")

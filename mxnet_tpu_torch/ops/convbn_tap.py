@@ -11,16 +11,24 @@ weights already in tap layout ``w_taps`` (kh,kw,Ci,Co):
     y  = sum over taps (ky,kx) of u[window] @ w_taps[ky, kx], in fp32,
          cast to x's dtype
     s1 = sum y, s2 = sum (y - shift)^2 over N*Ho*Wo in fp32 from the cast
-         y, taken over batch tiles of ``nb`` images in tile order (the TPU
-         kernel's sequential grid); exact zeros without ``want_stats``
+         y; exact zeros without ``want_stats``
 
 and returns ``(y, s1, s2)`` with s1/s2 of shape (1, Co).
 
 On a CUDA tensor the call runs the hand-written sm_90a kernel in
 ``csrc/convbn_tap.cu`` (built by ``_kernels``) or raises; CPU tensors take
-:func:`candidate_tap_ref`.  A batch that ``nb`` does not divide raises on
-every device: the TPU kernel's grid of ``N // nb`` tiles leaves the last
-``N % nb`` images of y unwritten and out of s1/s2.
+:func:`candidate_tap_ref`.  The kernel is kernel 1's main loop reading
+the weights straight from the tap layout, with kernel 1's tiles
+(:func:`launch_plan`): its output rows are tiled without regard to
+``nb``, which sized the TPU kernel's VMEM batch tile, and its s1/s2 are
+per-tile partials summed in a fixed order, bit-identical from launch to
+launch.  The plain version sums batch tiles of ``nb`` images in tile
+order, as the TPU kernel's sequential grid does (its order inside a tile
+is XLA's own); the tolerance on s1/s2 holds the difference of summation
+orders.  A batch that ``nb`` does not divide raises on every device: the
+TPU kernel's grid of ``N // nb`` tiles leaves the last ``N % nb`` images
+of y unwritten and out of s1/s2.  The bf16 kernel takes Ci % 8 == 0 and
+Co % 8 == 0 only; other shapes raise on the card and run on CPU tensors.
 """
 from __future__ import annotations
 
@@ -31,10 +39,11 @@ import torch.nn.functional as F
 
 from .. import _kernels
 from ..base import MXNetError
-from .fused_convbn import _DTYPE_CODE, _affine_in, _out_hw
+from .fused_convbn import (_DTYPE_CODE, _affine_in, _aligned16, _out_hw,
+                           scratch_rows, tile_for)
 
 __all__ = ["candidate_tap", "candidate_tap_ref", "weight_taps",
-           "launch_count", "reset_launch_count"]
+           "launch_plan", "launch_count", "reset_launch_count"]
 
 # launches of the CUDA kernel: one per wrapper call that launched it
 _COUNT_LOCK = threading.Lock()
@@ -79,40 +88,60 @@ def candidate_tap_ref(x, w_taps, in_scale, in_bias, shift, kernel, stride,
     return y, s1, s2
 
 
+def _check_nb(n, nb):
+    if nb < 1 or n % nb:
+        raise MXNetError(f"candidate_tap: batch tile nb={nb} must divide "
+                         f"N={n} (the TPU kernel leaves the last N % nb "
+                         f"images unwritten)")
+
+
+def launch_plan(x_shape, co, kernel, stride, pad, dtype, nb):
+    """(bm, bn, scratch rows) of one launch: kernel 1's tile for the same
+    output at every ``nb`` (:func:`~.fused_convbn.tile_for`), or
+    MXNetError for what the kernel does not take."""
+    n, h, wd, ci = x_shape
+    _check_nb(n, nb)
+    if dtype == torch.bfloat16 and (ci % 8 or co % 8):
+        raise MXNetError(f"candidate_tap: the bf16 kernel loads x in 16-byte "
+                         f"runs of channels and the tap-layout weights by "
+                         f"TMA rows of Co, so it takes Ci % 8 == 0 and "
+                         f"Co % 8 == 0, got Ci={ci}, Co={co}")
+    ho, wo = _out_hw(h, wd, kernel, stride, pad)
+    m = n * ho * wo
+    bm, bn = tile_for(m, co, dtype)
+    return bm, bn, scratch_rows(-(-m // bm))
+
+
 def _launch(x, w_taps, in_scale, in_bias, shift, kernel, stride, pad,
             act_in, want_stats, nb):
-    """One launch of the CUDA kernel (plus its two statistics
-    reductions with ``want_stats``)."""
-    lib = _kernels.load()
+    """One launch of the CUDA kernel (plus its statistics reduction with
+    ``want_stats``) on contiguous tensors of one CUDA device."""
     n, h, wd, ci = x.shape
     co = w_taps.shape[-1]
+    bm, bn, rows = launch_plan(x.shape, co, kernel, stride, pad, x.dtype, nb)
+    lib = _kernels.load()
     ho, wo = _out_hw(h, wd, kernel, stride, pad)
     dev = x.device
+    x = _aligned16(x)
+    w = _aligned16(w_taps)
     f32 = dict(dtype=torch.float32, device=dev)
     y = torch.empty((n, ho, wo, co), dtype=x.dtype, device=dev)
     if want_stats:
-        tiles = n // nb
-        m_per_tile = -(-(nb * ho * wo) // lib.mx_convbn_tap_block_m())
-        part = torch.empty((2, tiles * m_per_tile, co), **f32)
-        tile_part = torch.empty((2, tiles, co), **f32)
+        part = torch.empty((2, rows, co), **f32)
         stats = torch.empty((2, 1, co), **f32)
-        ptrs = (part[0].data_ptr(), part[1].data_ptr(),
-                tile_part[0].data_ptr(), tile_part[1].data_ptr(),
-                stats[0].data_ptr(), stats[1].data_ptr())
+        ptrs = (part[0].data_ptr(), part[1].data_ptr(), stats[0].data_ptr(),
+                stats[1].data_ptr())
     else:
         stats = torch.zeros((2, 1, co), **f32)
-        ptrs = (None,) * 6
-    # 16-byte vector loads need whole groups of 8 channels and aligned bases
-    vec_x = int(ci % 8 == 0 and x.data_ptr() % 16 == 0)
-    vec_w = int(co % 8 == 0 and w_taps.data_ptr() % 16 == 0)
+        ptrs = (None,) * 4
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.mx_convbn_tap(
-            _DTYPE_CODE[x.dtype], x.data_ptr(), w_taps.data_ptr(),
+            _DTYPE_CODE[x.dtype], x.data_ptr(), w.data_ptr(),
             in_scale.data_ptr(), in_bias.data_ptr(), shift.data_ptr(),
             y.data_ptr(), *ptrs, n, h, wd, ci, co, kernel[0], kernel[1],
             stride[0], stride[1], pad[0], pad[1], nb, int(act_in),
-            int(want_stats), vec_x, vec_w, stream)
+            int(want_stats), bm, bn, rows, stream)
     if rc != 0:
         raise MXNetError(f"candidate_tap: CUDA launch failed: "
                          f"{_kernels.error_string(rc)} (code {rc})")
@@ -146,10 +175,7 @@ def candidate_tap(x, w_taps, in_scale, in_bias, shift, *, kernel, stride,
     if w_taps.dtype != x.dtype:
         raise MXNetError(f"candidate_tap: w_taps dtype {w_taps.dtype} != x "
                          f"dtype {x.dtype}")
-    if nb < 1 or n % nb:
-        raise MXNetError(f"candidate_tap: batch tile nb={nb} must divide "
-                         f"N={n} (the TPU kernel leaves the last N % nb "
-                         f"images unwritten)")
+    _check_nb(n, nb)
     in_scale, in_bias, shift = (t.to(torch.float32)
                                 for t in (in_scale, in_bias, shift))
     for name, t, n_ in (("in_scale", in_scale, ci), ("in_bias", in_bias, ci),
