@@ -158,12 +158,38 @@ Phases, each failing loudly (exit code 1, no result line):
    and its ratios, then a torch.profiler split of kernels 1 and 6 (at
    each nb) into the conv kernel and the statistics reduction over one
    sweep of the nine layers, and of kernel 1 per layer.
+8. main path, MXNet's imperative training loop (nd, autograd.record(),
+   loss.backward(), gluon.Trainer.step), in this process after phase 7:
+   (a) mxnet_tpu_torch.examples.mnist.run(epochs=1, batch_size=100) on
+   cuda:0 and the synthetic MNIST set: 81 steps, val accuracy > 0.9, and
+   every parameter, gradient and optimizer state on cuda:0; samples/s
+   printed with the card.  (b) fp32 ResNet-50 v1 at batch 8 from phase
+   5's weights and batch: one gluon.Trainer("sgd", lr 0.1, momentum
+   0.9, wd 1e-4).step(8) after backward of the per-sample loss, against
+   the fused SPMDTrainer step from the same start: on each of phase 5's
+   checked leaves the momentum (the update) and w1 within 1e-5 relative
+   L2, the loss within 1e-5 (the summed loss rescaled by 1/8 and the
+   mean loss differ by a power of two; the spread of two SPMDTrainer
+   steps from the same start is printed beside it).  (c) bf16 at batch
+   256, hybridized, MXNET_FUSED_CONVBN=1 and MXNET_FUSED_CONVBN_BWD=1:
+   the same against the fused SPMDTrainer step, within phase 5's
+   per-leaf bounds (1.25 x max(op-granular's distance to the fp32 step)
+   + 2e-2 on phase 5's checked leaves, the loss within 2e-2), and 52
+   forward and 46 backward kernel launches in the step; then 3 timed
+   steps of each trainer in turns (gluon, SPMD, SPMD, gluon) after a
+   warm-up step each, 52/46 launches a step held, their ratio printed
+   beside the prediction, and a torch.profiler idle share of each; the
+   host time of autograd's walk from the loss to its leaves.  (d)
+   The same net not hybridized: one step, 0 kernel launches.  (e)
+   net(x) outside record(): inference, the running statistics
+   bit-identical, finite logits, no graph.
 
 The line before the last is the kernel summary {"kernels": [...]}, one
-entry per kernel and main path (kernel 1 served, trained and per rank
-under dp, kernel 2 trained and per rank under dp, kernel 5 on the BERT
-serving path, kernel 6 on the probe path: summed over the 27
-configurations of one time sweep, with ms_by_nb), from the checks at
+entry per kernel and main path (kernel 1 served, trained, trained
+through gluon.Trainer in phase 8 and per rank under dp, kernel 2
+trained, trained through gluon.Trainer and per rank under dp, kernel 5
+on the BERT serving path, kernel 6 on the probe path: summed over the
+27 configurations of one time sweep, with ms_by_nb), from the checks at
 that path's shapes; the last line is
 {"ok": true, "device": {"platform": "gpu", ...}}.
 """
@@ -224,6 +250,9 @@ FWD_PER_STEP, BWD_PER_STEP = 52, 46   # fused units; the stride-1 ones
 LEAF_POWER = 0.25
 TRAIN_BOUNDS_FP32 = dict(loss=1e-5, rel=2.0, abs=1e-4)
 TRAIN_BOUNDS_BF16 = dict(loss=2e-2, rel=1.25, abs=2e-2)
+# phase 8: an fp32 gluon.Trainer step against the fused SPMDTrainer step
+# from the same start, per checked leaf (relative L2)
+TRAIN_IMPERATIVE_FP32 = 1e-5
 KERNEL_ATT = {"name": "dot_product_attention", "route": "cuda",
               "source": "mxnet_tpu_torch/csrc/attention.cu",
               "replaces": "mxnet_tpu/ops/pallas_attention.py:102"}
@@ -1405,7 +1434,7 @@ def phase_bert(card, n_requests, threads):
     net.hybridize()
     net.eval()
     w32 = {k: v.detach().cpu().clone()
-           for k, v in net.collect_params().items()}
+           for k, v in net.state_dict(keep_vars=True).items()}
     reqs = bert_requests(n_requests, seed=21)
     example = [x[:1].to(dev) for x in reqs]
     paths = {"fp32": deploy.export_model(net, os.path.join(tmp, "bert_fp32"),
@@ -1585,19 +1614,19 @@ def warm_running_means(net, xb):
 
     set_knobs(False, False)
     with torch.no_grad():
-        for k, v in net.collect_params().items():
+        for k, v in net.state_dict(keep_vars=True).items():
             if k.endswith("running_mean"):
                 v.zero_()
         with ActiveTrace(train=True):
             net(xb)
-        for k, v in net.collect_params().items():
+        for k, v in net.state_dict(keep_vars=True).items():
             if k.endswith("running_mean"):
                 v.div_(0.1)
 
 
 def restore(net, w0):
     with torch.no_grad():
-        for k, v in net.collect_params().items():
+        for k, v in net.state_dict(keep_vars=True).items():
             v.copy_(w0[k])
 
 
@@ -1732,7 +1761,8 @@ def step_agreement(net, xb, yb, tag, ref_dtype, bounds, witness):
     import copy
 
     dev = xb.device
-    w0 = {k: v.detach().clone() for k, v in net.collect_params().items()}
+    w0 = {k: v.detach().clone()
+          for k, v in net.state_dict(keep_vars=True).items()}
     ref_net = copy.deepcopy(net).to(ref_dtype)
     w_ref = {k: v.to(ref_dtype) for k, v in w0.items()}
     x_ref = xb.to(ref_dtype)
@@ -1948,7 +1978,8 @@ def state_digest(net, trainer):
     def digest(t):
         b = t.detach().contiguous().reshape(-1).view(torch.uint8).cpu()
         return hashlib.sha256(b.numpy().tobytes()).hexdigest()[:20]
-    out = {k: digest(v) for k, v in sorted(net.collect_params().items())}
+    out = {k: digest(v)
+           for k, v in sorted(net.state_dict(keep_vars=True).items())}
     out.update({f"momentum:{k}": digest(st[0])
                 for k, st in sorted(trainer.opt_state.items())})
     return out
@@ -2538,6 +2569,311 @@ def phase_probe(card):
             "seconds": dt}
 
 
+# ---------------------------------------------------------------------------
+# phase 8: MXNet's imperative training loop (nd, autograd, gluon.Trainer)
+# ---------------------------------------------------------------------------
+
+def gluon_steps(net, trainer, xb, yb, steps):
+    """`steps` steps of MXNet's imperative loop -- net(x) under
+    autograd.record(), the per-sample loss, loss.backward(),
+    trainer.step(batch) -- with the launch counters reset just before
+    and read just after; returns (mean losses, fwd launches, bwd
+    launches, seconds per step by the host clock around synchronised
+    steps)."""
+    from mxnet_tpu_torch import autograd, gluon, nd
+    from mxnet_tpu_torch.ops import fused_convbn as fcb
+
+    loss_fn = gluon.loss.SoftmaxCrossEntropyLoss()
+    x, y = nd.NDArray(xb), nd.NDArray(yb)
+    torch.cuda.synchronize()
+    fcb.reset_launch_count()
+    fcb.reset_bwd_launch_count()
+    t0 = time.perf_counter()
+    losses = []
+    for _ in range(steps):
+        with autograd.record():
+            loss = loss_fn(net(x), y)
+        loss.backward()
+        trainer.step(xb.shape[0])
+        losses.append(loss.mean())
+    torch.cuda.synchronize()
+    dt = (time.perf_counter() - t0) / steps
+    return ([float(v.asscalar()) for v in losses], fcb.launch_count(),
+            fcb.bwd_launch_count(), dt)
+
+
+def gluon_trainer(net):
+    from mxnet_tpu_torch import gluon
+
+    return gluon.Trainer(net.collect_params(), "sgd", dict(TRAIN_OPT))
+
+
+def gluon_one_step(net, w0, xb, yb):
+    """One step of a fresh gluon.Trainer from the weights `w0`; returns
+    (loss, fwd launches, bwd launches, {leaf: momentum}, {leaf: w1})."""
+    restore(net, w0)
+    trainer = gluon_trainer(net)
+    losses, fwd, bwd, _ = gluon_steps(net, trainer, xb, yb, 1)
+    states = trainer._updater.states
+    mom = {p.name: states[i]._data for i, p in enumerate(trainer._params)
+           if states.get(i) is not None}
+    return losses[0], fwd, bwd, mom, snapshot(net)
+
+
+def snapshot(net):
+    return {k: v.detach().clone()
+            for k, v in net.state_dict(keep_vars=True).items()}
+
+
+def spmd_one_step(net, w0, xb, yb):
+    """Phase 5's fused SPMDTrainer step from `w0`: (loss, fwd, bwd,
+    {leaf: momentum}, {leaf: w1})."""
+    loss, fwd, bwd, mom = one_step(net, w0, xb, yb, True)
+    return loss, fwd, bwd, mom, snapshot(net)
+
+
+def hold_against_spmd(tag, g, s, ref, bounds=None):
+    """The gluon.Trainer step `g` against the fused SPMDTrainer step `s`
+    (loss, fwd, bwd, momenta, weights) from the same start, leaf by leaf
+    over phase 5's checked leaves: each leaf's relative L2 distance of
+    the momentum (the update) and of w1 within phase 5's bound for that
+    leaf, rel x max(op-granular, witness) + abs against the reference
+    (or a flat relative `bounds` where given); the loss within phase
+    5's loss bound.  Returns the record."""
+    checked = ref["checked"]
+    e_m, e_w = leaf_rel(g[3], s[3]), leaf_rel(g[4], s[4])
+    if bounds is None:
+        rows = leaf_check(e_m, ref["e_u"], ref["e_w"], checked,
+                          ref["bounds"])
+        rows_w = leaf_check(e_w, ref["e_u"], ref["e_w"], checked,
+                            ref["bounds"])
+        lim_txt = (f"{ref['bounds']['rel']} x max(op-granular, witness) + "
+                   f"{ref['bounds']['abs']}")
+    else:
+        flat = {k: 0.0 for k in checked}
+        rows = leaf_check(e_m, flat, {}, checked, dict(rel=1.0, abs=bounds))
+        rows_w = leaf_check(e_w, flat, {}, checked, dict(rel=1.0,
+                                                         abs=bounds))
+        lim_txt = f"{bounds} relative"
+    (worst, bad), (worst_w, bad_w) = rows, rows_w
+    dl = abs(g[0] - s[0]) / max(abs(s[0]), 1e-30)
+    print(f"imperative {tag}: gluon.Trainer step vs SPMDTrainer fused step "
+          f"from the same start: loss {g[0]:.7f} vs {s[0]:.7f} (rel "
+          f"{dl:.3g}, bound {ref['bounds']['loss']}); momentum over all "
+          f"leaves rel L2 {rel_l2_all(g[3], s[3]):.4g}, w1 "
+          f"{rel_l2_all(g[4], s[4]):.4g}; {len(checked)} leaves checked, "
+          f"bound per leaf {lim_txt}: worst momentum at {worst:.3g}, w1 "
+          f"at {worst_w:.3g} of it, {len(bad) + len(bad_w)} over; "
+          f"launches fwd {g[1]} bwd {g[2]}", flush=True)
+    unchecked = sorted(set(g[3]) - set(checked))
+    if unchecked:
+        print(f"  imperative {tag}: {len(unchecked)} unchecked leaves, "
+              f"momentum rel L2 to SPMD max "
+              f"{max(e_m[k] for k in unchecked):.3g}", flush=True)
+    for r, k, e, lim in sorted(bad + bad_w, reverse=True)[:5]:
+        print(f"    over: {k} {e:.4g} > {lim:.4g}", flush=True)
+    finite = all(bool(torch.isfinite(v.float()).all()) for v in g[4].values())
+    if bad or bad_w or dl > ref["bounds"]["loss"] or not finite \
+            or set(g[3]) != set(s[3]):
+        fail(f"imperative {tag}: gluon.Trainer step off the SPMDTrainer "
+             f"step ({len(bad)} momenta, {len(bad_w)} weights over their "
+             f"bound, loss rel {dl:.3g}, finite {finite})")
+    if (g[1], g[2]) != (FWD_PER_STEP, BWD_PER_STEP):
+        fail(f"imperative {tag}: {g[1]} forward / {g[2]} backward kernel "
+             f"launches in one gluon.Trainer step (want {FWD_PER_STEP} / "
+             f"{BWD_PER_STEP})")
+    return dict(loss=g[0], loss_spmd=s[0], loss_rel=dl,
+                worst_momentum_of_bound=worst, worst_w1_of_bound=worst_w,
+                leaves_over=len(bad) + len(bad_w),
+                momentum_rel_l2=rel_l2_all(g[3], s[3]),
+                w1_rel_l2=rel_l2_all(g[4], s[4]))
+
+
+def graph_walk_ms(net, xb, yb, reps=5):
+    """Host ms of autograd's walk from the loss to the leaves it reaches
+    (what backward() adds to torch.autograd.grad), on one recorded
+    forward; returns (ms, leaves)."""
+    from mxnet_tpu_torch import autograd, gluon, nd
+
+    with autograd.record():
+        loss = gluon.loss.SoftmaxCrossEntropyLoss()(net(nd.NDArray(xb)),
+                                                    nd.NDArray(yb))
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        leaves = autograd._leaves([loss.data])
+    ms = (time.perf_counter() - t0) / reps * 1e3
+    loss.backward()
+    return ms, len(leaves)
+
+
+def phase_imperative(card, refs, dev=torch.device("cuda", 0)):
+    """MXNet's imperative surface on the card: the MNIST MLP example,
+    then full-width ResNet-50 v1 trained through autograd.record() ->
+    loss.backward() -> gluon.Trainer.step, hybridized (kernels 1-2) and
+    not, from phase 5's weights and batches."""
+    import copy
+    import gc
+
+    from mxnet_tpu_torch import nd
+    from mxnet_tpu_torch.examples import mnist
+    from mxnet_tpu_torch.ops import fused_convbn as fcb
+
+    res = {}
+    # (1) the MNIST MLP, as the example runs it, on cuda:0
+    keep = {}
+    t0 = time.perf_counter()
+    acc = mnist.run(epochs=1, ctx=dev, batch_size=100, keep=keep)
+    wall = time.perf_counter() - t0
+    on_card = [p.data().ctx == dev and p.grad().ctx == dev
+               for p in keep["net"].collect_params().values()]
+    states = [s for st in keep["trainer"]._updater.states.values()
+              for s in (st if isinstance(st, tuple) else (st,))]
+    on_card += [s.ctx == dev for s in states]
+    res["mnist"] = dict(val_accuracy=acc, steps=keep["steps"],
+                        samples_per_s=keep["samples_per_s"], wall_s=wall,
+                        states=len(states))
+    print(f"imperative mnist: val accuracy {acc:.4f} after "
+          f"{keep['steps']} steps of 100, {keep['samples_per_s']:.0f} "
+          f"samples/s in the epoch, {wall:.2f} s with the data and val; "
+          f"{len(on_card)} parameters, gradients and states, "
+          f"{sum(on_card)} on {dev} [{card}]", flush=True)
+    if not acc > 0.9 or keep["steps"] != 81 or not all(on_card) \
+            or len(states) != 6:
+        fail(f"imperative mnist: accuracy {acc:.4f} (want > 0.9), "
+             f"{keep['steps']} steps (want 81), {len(states)} states, "
+             f"{len(on_card) - sum(on_card)} tensors off {dev}")
+    del keep
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (2) fp32 at batch 8: one gluon.Trainer step against the fused
+    # SPMDTrainer step from phase 5's weights (TF32 off since phase 1)
+    ref = refs["fp32"]
+    net = build_net("float32", seed=1, dev=dev)
+    set_knobs(True, True)
+    w0 = {k: v.to(dev) for k, v in ref["w0"].items()}
+    xb, yb = ref["x"].to(dev), ref["y"].to(dev)
+    s = spmd_one_step(net, w0, xb, yb)
+    s2 = spmd_one_step(net, w0, xb, yb)
+    spread = max(leaf_rel(s2[3], s[3])[k] for k in ref["checked"])
+    print(f"imperative fp32: two SPMDTrainer fused steps from the same "
+          f"start differ by up to {spread:.3g} (rel L2 of a checked "
+          f"leaf's momentum)", flush=True)
+    g = gluon_one_step(net, w0, xb, yb)
+    res["fp32"] = dict(hold_against_spmd(f"fp32 batch {TRAIN_FP32_BATCH}",
+                                         g, s, ref,
+                                         bounds=TRAIN_IMPERATIVE_FP32),
+                       spmd_spread=spread)
+    del net, s, s2, g
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (3) bf16 at batch 256, hybridized, fused forward and backward
+    ref = refs["bf16"]
+    net = build_net("bfloat16", seed=0, dev=dev)
+    w0 = {k: v.to(dev) for k, v in ref["w0"].items()}
+    xb, yb = ref["x"].to(dev), ref["y"].to(dev)
+    s = spmd_one_step(net, w0, xb, yb)
+    g = gluon_one_step(net, w0, xb, yb)
+    res["bf16"] = hold_against_spmd(f"bf16 batch {TRAIN_BATCH}", g, s, ref)
+    del s, g
+    res["walk_ms"], n_leaves = graph_walk_ms(net, xb, yb)
+    print(f"imperative bf16: the walk from the loss to its {n_leaves} "
+          f"leaves takes {res['walk_ms']:.3f} ms of host time a backward "
+          f"[{card}]", flush=True)
+    # the main path's counted run: one warm-up step each, then TRAIN_STEPS
+    # timed steps a mode in turns (gluon, SPMD, SPMD, gluon), each mode on
+    # its own copy of the net from the same weights
+    restore(net, w0)
+    nets = {"gluon": net, "spmd": copy.deepcopy(net)}
+    trainers = {"gluon": gluon_trainer(nets["gluon"]),
+                "spmd": new_trainer(nets["spmd"])}
+
+    def steps(mode, n):
+        if mode == "gluon":
+            return gluon_steps(nets[mode], trainers[mode], xb, yb, n)
+        return counted_steps(trainers[mode], xb, yb, n)
+    for mode in ("gluon", "spmd"):
+        steps(mode, 1)
+    runs = {"gluon": [], "spmd": []}
+    launches = {"fwd": 0, "bwd": 0}
+    for mode in ("gluon", "spmd", "spmd", "gluon"):
+        losses, fwd, bwd, dt = steps(mode, TRAIN_STEPS)
+        if not all(math.isfinite(v) for v in losses):
+            fail(f"imperative {mode}: loss not finite: {losses}")
+        if (fwd, bwd) != (FWD_PER_STEP * TRAIN_STEPS,
+                          BWD_PER_STEP * TRAIN_STEPS):
+            fail(f"imperative {mode}: {fwd} forward / {bwd} backward "
+                 f"kernel launches in {TRAIN_STEPS} steps")
+        if mode == "gluon":
+            launches["fwd"] += fwd
+            launches["bwd"] += bwd
+        runs[mode].append(dt * 1e3)
+        print(f"imperative bf16 batch {TRAIN_BATCH} {mode}: "
+              f"{dt * 1e3:.1f} ms/step, {TRAIN_BATCH / dt:.1f} img/s over "
+              f"{TRAIN_STEPS} steps, losses "
+              f"{' '.join(f'{v:.4f}' for v in losses)}, launches fwd {fwd} "
+              f"bwd {bwd} [{card}]", flush=True)
+    ratio = [a / b for a, b in zip(runs["gluon"], reversed(runs["spmd"]))]
+    print(f"imperative: gluon.Trainer / SPMDTrainer fused step "
+          f"{' '.join(f'{r:.3f}' for r in ratio)} (predicted 0.9-1.15) "
+          f"[{card}]", flush=True)
+    res["ms_per_step"] = runs
+    res["ratio"] = ratio
+    res["launches"] = launches
+    res["profile"] = {}
+    for mode in ("gluon", "spmd"):
+        prof = profile_device(
+            lambda: steps(mode, 1), f"imperative {mode} bf16 batch "
+            f"{TRAIN_BATCH}", "step", card,
+            sum(runs[mode]) / len(runs[mode]), iters=2, top=12)
+        res["profile"][mode] = None if prof is None else dict(
+            busy_ms=prof["busy_ms"], wall_ms=prof["wall_ms"],
+            idle=1 - prof["busy_ms"] / prof["wall_ms"])
+    del nets, trainers
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (4) not hybridized: op-granular, no kernel launch
+    net.hybridize(False)
+    restore(net, w0)
+    losses, fwd, bwd, dt = gluon_steps(net, gluon_trainer(net), xb, yb, 1)
+    res["not_hybridized"] = dict(loss=losses[0], fwd=fwd, bwd=bwd,
+                                 ms=dt * 1e3)
+    print(f"imperative bf16 not hybridized: loss {losses[0]:.4f}, launches "
+          f"fwd {fwd} bwd {bwd}, {dt * 1e3:.1f} ms (one step)", flush=True)
+    if (fwd, bwd) != (0, 0) or not math.isfinite(losses[0]):
+        fail(f"imperative not hybridized: {fwd} / {bwd} kernel launches "
+             f"(want 0 / 0), loss {losses[0]}")
+
+    # (5) inference outside record(): the running statistics stay
+    net.hybridize()
+    restore(net, w0)
+    before = snapshot(net)
+    fcb.reset_launch_count()
+    out = net(nd.NDArray(xb))
+    torch.cuda.synchronize()
+    after = snapshot(net)
+    same = all(torch.equal(before[k], after[k]) for k in before
+               if "running" in k)
+    finite = bool(torch.isfinite(out.data.float()).all())
+    res["inference"] = dict(stats_unchanged=same, launches=fcb.launch_count(),
+                            finite=finite)
+    print(f"imperative inference: net(x) outside record(): running "
+          f"statistics bit-identical {same}, output {tuple(out.shape)} "
+          f"finite {finite}, forward launches {fcb.launch_count()}, "
+          f"graph {out.data.requires_grad}", flush=True)
+    if not same or not finite or out.shape != (TRAIN_BATCH, 1000) \
+            or out.data.requires_grad:
+        fail("imperative inference: net(x) outside record() changed the "
+             "running statistics or gave no finite logits")
+    del net, out
+    gc.collect()
+    torch.cuda.empty_cache()
+    print("imperative: " + json.dumps(res), flush=True)
+    return res
+
+
 def tap_summary(recs, launches):
     """The `kernels` record of kernel 6 on the probe path: times and
     bounds summed over the 27 configurations of one time sweep of the
@@ -2595,6 +2931,7 @@ def main():
     recs_tap = phase_kernels_tap()
     probe_res = phase_probe(card)
     profile_probe_layers(card)
+    imp_res = phase_imperative(card, train_refs)
     dp_keys = dict(backend=dp_res.get("backend"), ranks=DP)
     # kernel 1 once for each main path (its shapes and launches), kernel 2
     # for each training path
@@ -2604,6 +2941,13 @@ def main():
                        "train", train_res["launches"]["fwd"]),
         kernel_summary(KERNEL_BWD, recs_bwd, "train",
                        train_res["launches"]["bwd"]),
+        dict(kernel_summary(dict(KERNEL, name="fused_conv_unit/gluon"),
+                            recs, "train", imp_res["launches"]["fwd"]),
+             path="train_gluon"),
+        dict(kernel_summary(dict(KERNEL_BWD,
+                                 name="fused_conv_unit_bwd/gluon"),
+                            recs_bwd, "train", imp_res["launches"]["bwd"]),
+             path="train_gluon"),
         attention_summary(recs_att, bert_res.get("launches", 0)),
         dict(kernel_summary(KERNEL_DP, recs_dp, "train_dp",
                             dp_res["launches"]["fwd"]), **dp_keys),

@@ -11,17 +11,27 @@ anything of ``mxnet_tpu``.
 Slice 1 serves ResNet V1 (``gluon.model_zoo.vision``) through
 ``contrib.deploy`` and ``serving``; slice 2 trains it through
 ``parallel.SPMDTrainer``; slice 3 serves BERT-base; slice 4 trains
-ResNet V1 data parallel over a process group (``dist``).
+ResNet V1 data parallel over a process group (``dist``); slice 9 adds
+MXNet's imperative surface: ``nd`` (NDArray and the op registry),
+``autograd`` over ``torch.autograd``, ``gluon.Trainer`` with
+``Parameter``/``ParameterDict``, the local ``kvstore``, ``metric`` and
+``gluon.data`` (see ``examples/mnist.py``).
 """
 from __future__ import annotations
 
 from .base import MXNetError
-from .context import cpu, current_context, gpu, tpu
+from .context import cpu, current_context, gpu, num_gpus, tpu
 from . import initializer
 from . import initializer as init
 from . import ops, serialization
 from . import parallel
 from .parallel import dist
+from . import autograd, kvstore, metric, ndarray, optimizer, random
+from . import ndarray as nd
+from .ndarray import NDArray
+from . import gluon
 
-__all__ = ["MXNetError", "cpu", "gpu", "tpu", "current_context",
-           "initializer", "init", "ops", "serialization", "parallel", "dist"]
+__all__ = ["MXNetError", "cpu", "gpu", "tpu", "num_gpus", "current_context",
+           "initializer", "init", "ops", "serialization", "parallel", "dist",
+           "autograd", "kvstore", "metric", "ndarray", "nd", "NDArray",
+           "optimizer", "random", "gluon"]

@@ -15,7 +15,7 @@ import torch
 
 from .base import MXNetError
 
-__all__ = ["cpu", "gpu", "tpu", "current_context", "resolve"]
+__all__ = ["cpu", "gpu", "tpu", "num_gpus", "current_context", "resolve"]
 
 DeviceLike = Union[None, str, torch.device]
 
@@ -33,6 +33,11 @@ def tpu(device_id: int = 0):
                      "on CUDA devices: use gpu(i), or cpu() for tests")
 
 
+def num_gpus() -> int:
+    """The number of CUDA devices this process sees."""
+    return torch.cuda.device_count()
+
+
 def current_context() -> torch.device:
     """gpu(0) when CUDA is present; raises otherwise."""
     if not torch.cuda.is_available():
@@ -46,6 +51,13 @@ def resolve(ctx: DeviceLike = None) -> torch.device:
     :func:`current_context`."""
     if ctx is None:
         return current_context()
+    if isinstance(ctx, (list, tuple)):
+        if len(ctx) != 1:
+            raise MXNetError(
+                f"{len(ctx)} contexts given: a parameter lives on one "
+                "device in the port; replicas over several contexts are "
+                "ROADMAP queue A item 7")
+        ctx = ctx[0]
     dev = torch.device(ctx)
     if dev.type == "cuda" and dev.index is None:
         dev = gpu(0)

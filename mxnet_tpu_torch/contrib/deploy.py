@@ -66,7 +66,7 @@ def export_model(block, path: str, example_inputs: Sequence,
     if arch is None:
         raise MXNetError("export_model: the port exports model-zoo networks "
                          "only (the block carries no architecture record)")
-    params = block.collect_params()
+    params = block.state_dict(keep_vars=True)
     if not params:
         raise MXNetError("export_model: block has no parameters")
     xs = [_as_tensor(x) for x in example_inputs]

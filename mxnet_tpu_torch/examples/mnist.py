@@ -1,0 +1,93 @@
+"""MNIST MLP — the canonical minimum end-to-end workload, through MXNet's
+imperative surface on the port (counterpart of examples/gluon/mnist.py,
+line for line in the port's names).
+
+Usage:  python -m mxnet_tpu_torch.examples.mnist [--cpu] [--epochs N]
+            [--batch-size B] [--no-hybridize]
+
+It trains on gpu(0) and raises without a CUDA device unless --cpu is
+given.  The port has no deferred shapes, so each Dense names in_units.
+"""
+import argparse
+import time
+
+import mxnet_tpu_torch as mx
+from mxnet_tpu_torch import autograd, gluon
+from mxnet_tpu_torch.gluon import nn
+
+
+def build_net():
+    net = nn.HybridSequential()
+    net.add(nn.Dense(128, activation="relu", in_units=784),
+            nn.Dense(64, activation="relu", in_units=128),
+            nn.Dense(10, in_units=64))
+    return net
+
+
+def transformer(img, label):
+    return img.astype("float32").reshape((-1,)) / 255.0, label
+
+
+def run(epochs=5, ctx=None, hybridize=True, batch_size=100, lr=0.1,
+        keep=None):
+    """Train and validate; returns the val accuracy.  ``keep``, a dict,
+    receives the net, the trainer and the last epoch's samples/s."""
+    ctx = ctx or mx.current_context()
+    train_data = gluon.data.DataLoader(
+        gluon.data.vision.MNIST(train=True).transform(transformer),
+        batch_size=batch_size, shuffle=True, last_batch="discard")
+    val_data = gluon.data.DataLoader(
+        gluon.data.vision.MNIST(train=False).transform(transformer),
+        batch_size=batch_size, shuffle=False)
+
+    net = build_net()
+    net.initialize(mx.initializer.Xavier(magnitude=2.24), ctx=ctx)
+    if hybridize:
+        net.hybridize()
+    trainer = gluon.Trainer(net.collect_params(), "sgd",
+                            {"learning_rate": lr, "momentum": 0.9})
+    loss_fn = gluon.loss.SoftmaxCrossEntropyLoss()
+    metric = mx.metric.Accuracy()
+    rate = n = 0
+
+    for epoch in range(epochs):
+        metric.reset()
+        tic = time.time()
+        n = 0
+        for data, label in train_data:
+            data = data.as_in_context(ctx)
+            label = label.as_in_context(ctx)
+            with autograd.record():
+                output = net(data)
+                loss = loss_fn(output, label)
+            loss.backward()
+            trainer.step(data.shape[0])
+            metric.update([label], [output])
+            n += data.shape[0]
+        name, acc = metric.get()
+        rate = n / (time.time() - tic)
+        print(f"[epoch {epoch}] {name}={acc:.4f} ({rate:.0f} samples/s)")
+
+    metric.reset()
+    for data, label in val_data:
+        output = net(data.as_in_context(ctx))
+        metric.update([label.as_in_context(ctx)], [output])
+    name, acc = metric.get()
+    print(f"[val] {name}={acc:.4f}")
+    if keep is not None:
+        keep.update(net=net, trainer=trainer, samples_per_s=rate, steps=n
+                    // batch_size)
+    return acc
+
+
+if __name__ == "__main__":
+    p = argparse.ArgumentParser()
+    p.add_argument("--epochs", type=int, default=5)
+    p.add_argument("--batch-size", type=int, default=100)
+    p.add_argument("--lr", type=float, default=0.1)
+    p.add_argument("--cpu", action="store_true")
+    p.add_argument("--no-hybridize", action="store_true")
+    args = p.parse_args()
+    acc = run(args.epochs, mx.cpu() if args.cpu else None,
+              not args.no_hybridize, args.batch_size, args.lr)
+    assert acc > 0.9, f"val accuracy too low: {acc}"

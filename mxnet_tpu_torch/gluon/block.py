@@ -13,9 +13,24 @@ Counterpart of ``mxnet_tpu/gluon/block.py``:
     It switches on a trace scope (:class:`ActiveTrace`, read through
     :func:`current_trace`) around the forward, with the same ``train``
     flag, so that code gated on a trace (the fused ResNet path) behaves
-    as in the JAX package.  ``train`` is ``module.training``.
-  * ``collect_params()`` is keyed on the structural names (the JAX
-    package keys its ParameterDict on name-scope names).
+    as in the JAX package.
+  * The train flag: inside a trace scope, the scope's; inside the
+    NDArray entry point, ``autograd.is_training()``; else (tensor
+    callers outside any scope) ``module.training``.  Calling a block on
+    NDArrays (MXNet's imperative surface) runs its forward on their
+    tensors with PyTorch's grad mode on only under
+    ``autograd.record()``, in a scope whose train flag is
+    ``autograd.is_training()`` — a hybridized block in
+    ``ActiveTrace(train=autograd.is_training())``, so kernels 1-2
+    engage, as the JAX ``CachedOp`` reads ``ag.is_training()``; a
+    non-hybridized one op-granular — and returns NDArrays.  So
+    ``net(x)`` outside ``record()`` is inference: BatchNorm uses and
+    keeps its running statistics and Dropout is the identity.  Tensor
+    callers (``SPMDTrainer``, serving) are unchanged.
+  * ``collect_params()`` returns a ``ParameterDict`` of ``Parameter``
+    handles keyed on the structural names (the JAX package keys its
+    ParameterDict on name-scope names); ``state_dict(keep_vars=True)``
+    gives the tensors by the same names.
   * Parameter shapes are known at construction: deferred shape
     inference (``in_channels=0``) is not ported.
   * A parameter may be registered straight on a block (BERT's
@@ -28,6 +43,7 @@ Counterpart of ``mxnet_tpu/gluon/block.py``:
 """
 from __future__ import annotations
 
+import re
 import threading
 from collections import OrderedDict
 from typing import Dict, Optional
@@ -36,10 +52,13 @@ import numpy as np
 import torch
 from torch import nn
 
+from .. import autograd as _autograd
 from .. import context as _context
 from .. import initializer as init_mod
 from .. import ops as _ops
+from .. import random as _random
 from ..base import MXNetError, dtype_of
+from .parameter import Parameter, ParameterDict
 
 __all__ = ["Block", "HybridBlock", "ActiveTrace", "current_trace",
            "train_mode", "trace_generator", "load_numpy_params", "dtype_of"]
@@ -52,6 +71,8 @@ __all__ = ["Block", "HybridBlock", "ActiveTrace", "current_trace",
 class _TraceState(threading.local):
     def __init__(self):
         self.scope: Optional["ActiveTrace"] = None
+        # (train, generator) of the NDArray entry point outside a trace
+        self.imperative: Optional[tuple] = None
 
 
 _TRACE = _TraceState()
@@ -81,16 +102,63 @@ def current_trace() -> Optional[ActiveTrace]:
 
 
 def train_mode(block) -> bool:
-    """The trace scope's train flag inside one, else the module's mode
-    (the JAX package reads the trace, block.py:187)."""
+    """The trace scope's train flag inside one (the JAX package reads
+    the trace, block.py:187), else the NDArray entry point's
+    (``autograd.is_training()``), else the module's mode."""
     ts = _TRACE.scope
-    return ts.train if ts is not None else block.training
+    if ts is not None:
+        return ts.train
+    imp = _TRACE.imperative
+    return imp[0] if imp is not None else block.training
 
 
 def trace_generator():
-    """The trace scope's dropout generator (None outside a scope)."""
+    """The dropout generator of the trace scope, else of the NDArray
+    entry point (the data's device's); None outside both."""
     ts = _TRACE.scope
-    return ts.generator if ts is not None else None
+    if ts is not None:
+        return ts.generator
+    imp = _TRACE.imperative
+    return imp[1] if imp is not None else None
+
+
+class _Imperative:
+    """The NDArray entry point's scope for a block that is not
+    hybridized: the train flag and generator without a trace."""
+
+    def __init__(self, train, generator):
+        self._state = (train, generator)
+
+    def __enter__(self):
+        self._old = _TRACE.imperative
+        _TRACE.imperative = self._state
+        return self
+
+    def __exit__(self, *exc):
+        _TRACE.imperative = self._old
+        return False
+
+
+def _call_on_ndarrays(block, args, kwargs):
+    """MXNet's imperative call: NDArrays in, the forward on their
+    tensors, NDArrays out."""
+    from ..ndarray.ndarray import NDArray, wrap_outputs
+
+    nds = [a for a in args if isinstance(a, NDArray)] + \
+        [v for v in kwargs.values() if isinstance(v, NDArray)]
+    targs = [a._data if isinstance(a, NDArray) else a for a in args]
+    tkw = {k: v._data if isinstance(v, NDArray) else v
+           for k, v in kwargs.items()}
+    train = _autograd.is_training()
+    gen = _random.generator(nds[0].ctx)
+    if getattr(block, "_active", False) and current_trace() is None:
+        scope = ActiveTrace(train=train, generator=gen)
+    else:
+        scope = _Imperative(train, gen)
+    with torch.set_grad_enabled(_autograd.is_recording()), scope:
+        out = nn.Module.__call__(block, *targs, **tkw)
+    return wrap_outputs(out) if isinstance(out, torch.Tensor) \
+        else type(out)(wrap_outputs(out))
 
 
 # ---------------------------------------------------------------------------
@@ -123,13 +191,32 @@ class Block(nn.Module):
         self.register_buffer(name, torch.zeros(tuple(int(s) for s in shape)))
         self._inits[name] = init
 
-    def collect_params(self) -> "OrderedDict[str, torch.Tensor]":
-        """Parameters and buffers by structural name."""
-        return OrderedDict(self.state_dict(keep_vars=True))
+    def __call__(self, *args, **kwargs):
+        from ..ndarray.ndarray import NDArray
+
+        if any(isinstance(a, NDArray) for a in args) or any(
+                isinstance(v, NDArray) for v in kwargs.values()):
+            return _call_on_ndarrays(self, args, kwargs)
+        return super().__call__(*args, **kwargs)
+
+    def collect_params(self, select: Optional[str] = None) -> ParameterDict:
+        """A handle on every parameter and buffer by structural name
+        (``select``: a regular expression the names must match)."""
+        owner = {}
+        for mname, mod in self.named_modules(remove_duplicate=False):
+            for local in list(mod._parameters) + list(mod._buffers):
+                full = f"{mname}.{local}" if mname else local
+                owner.setdefault(full, (mod, local))
+        rx = re.compile(select) if select else None
+        return ParameterDict(OrderedDict(
+            (k, Parameter(k, *owner[k]))
+            for k in self.state_dict(keep_vars=True)
+            if rx is None or rx.match(k)))
 
     def initialize(self, init=None, ctx=None, seed: int = 0):
         """Fill every parameter and buffer, then move the block to ``ctx``
-        (default: gpu(0); raises when there is none — pass cpu()).
+        (default: gpu(0); raises when there is none — pass cpu(); a list
+        of several contexts raises).
 
         A parameter's own initializer (e.g. a bias's "zeros") fills it
         unconditionally; the others take ``init`` (default Uniform(0.07))
@@ -150,6 +237,7 @@ class Block(nn.Module):
                     else:
                         default(full, buf, gen)
                     t.data = buf.to(dtype=t.dtype)
+                mod._mx_initialized = set(inits)
         self.to(dev)
         return self
 
@@ -173,8 +261,8 @@ class Block(nn.Module):
     def save_parameters(self, filename: str) -> None:
         from ..serialization import save_ndarrays
 
-        save_ndarrays(filename, {k: v.detach().cpu()
-                                 for k, v in self.collect_params().items()})
+        save_ndarrays(filename, {k: v.detach().cpu() for k, v in
+                                 self.state_dict(keep_vars=True).items()})
 
     def load_parameters(self, filename: str) -> None:
         """Load a ``.params`` file keyed on structural names (one written
@@ -212,7 +300,7 @@ def _load_tensors(block, values, what="dict"):
     the right shape, or raise before any parameter changes; the names of
     a tied parameter must agree where several are given.  Each value
     keeps its dtype and moves to the parameter's device."""
-    params = block.collect_params()
+    params = block.state_dict(keep_vars=True)
     groups = _tied_groups(params)
     missing = [g[0] for g in groups if not any(k in values for k in g)]
     extra = [k for k in values if k not in params]
@@ -266,7 +354,8 @@ class HybridBlock(Block):
 
     def forward(self, x, *args):
         if self._active and current_trace() is None:
-            with ActiveTrace(train=self.training):
+            with ActiveTrace(train=train_mode(self),
+                             generator=trace_generator()):
                 return self.hybrid_forward(_ops, x, *args)
         return self.hybrid_forward(_ops, x, *args)
 

@@ -1,0 +1,52 @@
+"""mxnet_tpu_torch.ndarray (``nd``): NDArray, the creation functions and
+the op namespace generated from the registry (counterpart of
+``mxnet_tpu/ndarray/__init__.py``)."""
+from __future__ import annotations
+
+import torch as _torch
+
+from .ndarray import (NDArray, arange, array, empty, full, ones,
+                      wrap_outputs, zeros)
+from . import register as _register
+
+__all__ = ["NDArray", "array", "zeros", "ones", "full", "empty", "arange",
+           "waitall", "save", "load"]
+
+
+def waitall():
+    """Block until every card's queued work is done."""
+    if _torch.cuda.is_available():
+        _torch.cuda.synchronize()
+
+
+def save(fname: str, data):
+    """Save an NDArray, a list or a dict of them (the ``.params``
+    format)."""
+    from ..serialization import save_ndarrays
+
+    if isinstance(data, NDArray):
+        data = data._data
+    elif isinstance(data, dict):
+        data = {k: v._data for k, v in data.items()}
+    else:
+        data = [v._data for v in data]
+    save_ndarrays(fname, data)
+
+
+def load(fname: str):
+    """A ``.params`` file as NDArrays on the CPU (a list, or a dict when
+    the file names them)."""
+    from ..serialization import load_ndarrays
+
+    out = load_ndarrays(fname)
+    if isinstance(out, dict):
+        return {k: NDArray(v) for k, v in out.items()}
+    return [NDArray(v) for v in out]
+
+
+def __getattr__(name: str):
+    try:
+        return _register.lookup(name)
+    except AttributeError:
+        raise AttributeError(f"module 'mxnet_tpu_torch.ndarray' has no "
+                             f"attribute {name!r}") from None

@@ -9,7 +9,8 @@ leaves these ops to XLA; the port leaves them to PyTorch
 (``torch.nn.functional.conv2d`` over cuDNN, ``torch.matmul``).  The
 convolution weight is (Co, Ci/g, kh, kw) for every layout, as in the
 checkpoints.  NHWC tensors are handed to PyTorch as permuted NCHW views
-(channels-last memory), so no layout copy is made.
+(channels-last memory), so no layout copy is made.  Each op is
+registered under the JAX package's name (``FullyConnected``, ...).
 """
 from __future__ import annotations
 
@@ -23,6 +24,7 @@ from ..base import MXNetError
 from ..parallel import dist
 from ..parallel.mesh import batch_shards
 from ..util import env
+from .registry import register_op
 
 __all__ = ["fully_connected", "convolution", "pooling", "batch_norm",
            "layer_norm", "activation", "dropout", "embedding", "flatten",
@@ -224,7 +226,8 @@ def embedding(data, weight):
 
 
 def flatten(data):
-    return data.reshape(data.shape[0], -1)
+    """(N, ...) -> (N, prod(...)); a 1-d array stays as it is."""
+    return data.reshape(data.shape[0], -1) if data.dim() > 1 else data
 
 
 def log_softmax(data, axis=-1, temperature=None):
@@ -236,3 +239,12 @@ def log_softmax(data, axis=-1, temperature=None):
     shifted = x - x.detach().amax(dim=axis, keepdim=True)
     return shifted - torch.log(torch.exp(shifted).sum(dim=axis,
                                                        keepdim=True))
+
+
+for _name, _fn in (("FullyConnected", fully_connected),
+                   ("Convolution", convolution), ("Pooling", pooling),
+                   ("BatchNorm", batch_norm), ("LayerNorm", layer_norm),
+                   ("Activation", activation), ("Dropout", dropout),
+                   ("Embedding", embedding)):
+    register_op(_name, aliases=(_fn.__name__,))(_fn)
+register_op("log_softmax")(log_softmax)

@@ -23,6 +23,8 @@ import functools
 
 import torch
 
+from .registry import register_op
+
 __all__ = ["sgd_update", "sgd_mom_update", "nag_mom_update",
            "mp_sgd_update", "mp_sgd_mom_update"]
 
@@ -95,3 +97,8 @@ def mp_sgd_mom_update(weight, grad, mom, weight32, lr=0.01, momentum=0.0,
     new_mom = mom * _weak(momentum, mom) - _lr_times(lr, g)
     new_w32 = weight32 + new_mom
     return new_w32.to(weight.dtype), new_mom, new_w32
+
+
+for _op in (sgd_update, sgd_mom_update, nag_mom_update, mp_sgd_update,
+            mp_sgd_mom_update):
+    register_op(_op.__name__)(_op)

@@ -1,21 +1,30 @@
-"""Tensor ops of the training loss (pick, mean, sum) and of BERT's
+"""Tensor ops: those of the training loss (pick, mean, sum), of BERT's
 forward (arange_like, expand_dims, squeeze, slice_axis, cast,
-broadcast_add, broadcast_lesser).
+broadcast_add, broadcast_lesser), and those NDArray's operators and
+methods call (the broadcast and ``*_scalar`` arithmetic, the
+comparisons, negative, abs, matmul, max/min/norm/argmax, reshape with
+MXNet's special codes, transpose).
 
-Counterpart of the same registered ops in ``mxnet_tpu/ops/tensor.py``
-(``_pick``, the ``_red`` reductions, ``_arange_like``, the shape ops,
-``_cast`` and the broadcast tables), as plain functions on tensors.
-Only what ``gluon.loss.SoftmaxCrossEntropyLoss`` and
-``BERTModel.hybrid_forward`` need is ported.
+Counterpart of the same registered ops in ``mxnet_tpu/ops/tensor.py``,
+as plain functions on tensors, registered under the JAX package's
+names (``ops/registry.py``).  The dtype rules are the JAX package's
+(x32 mode): a ``*_scalar`` op first casts its scalar to x's dtype (an
+int array truncates 2.7 to 2), comparisons return 1/0 in the operands'
+result dtype, integer sums stay int32 and argmax/argmin return float32.
+The other JAX tensor ops wait (ROADMAP queue A item 3).
 """
 from __future__ import annotations
+
+import functools
 
 import torch
 
 from ..base import MXNetError, dtype_of
+from .registry import register_op
 
 __all__ = ["pick", "mean", "sum", "arange_like", "expand_dims", "squeeze",
-           "slice_axis", "cast", "broadcast_add", "broadcast_lesser"]
+           "slice_axis", "cast", "broadcast_add", "broadcast_lesser",
+           "reshape", "transpose", "max", "min", "norm", "argmax"]
 
 
 def pick(x, index, axis=-1, keepdims=False, mode="clip"):
@@ -43,12 +52,50 @@ def _axes(x, axis, exclude):
 
 def mean(x, axis=None, keepdims=False, exclude=False):
     ax = _axes(x, axis, exclude)
-    return x.mean(dim=ax, keepdim=keepdims) if ax else x
+    if not ax:
+        return x
+    if not x.is_floating_point():
+        x = x.float()  # jnp.mean of an integer array is float32
+    return x.mean(dim=ax, keepdim=keepdims)
+
+
+def _int32(out, x):
+    """Integer and bool reductions stay int32, as in x32 JAX (torch
+    gives int64)."""
+    return out.to(torch.int32) if out.dtype == torch.int64 \
+        and x.dtype != torch.int64 else out
 
 
 def sum(x, axis=None, keepdims=False, exclude=False):  # noqa: A001 — op name
     ax = _axes(x, axis, exclude)
-    return x.sum(dim=ax, keepdim=keepdims) if ax else x
+    return _int32(x.sum(dim=ax, keepdim=keepdims), x) if ax else x
+
+
+def max(x, axis=None, keepdims=False, exclude=False):  # noqa: A001 — op name
+    ax = _axes(x, axis, exclude)
+    return x.amax(dim=ax, keepdim=keepdims) if ax else x
+
+
+def min(x, axis=None, keepdims=False, exclude=False):  # noqa: A001 — op name
+    ax = _axes(x, axis, exclude)
+    return x.amin(dim=ax, keepdim=keepdims) if ax else x
+
+
+def norm(x, ord=2, axis=None, keepdims=False):  # noqa: A002 — attr name
+    """L1 or L2 norm over ``axis`` (ord in {1, 2})."""
+    ax = _axes(x, axis, False)
+    if ord == 1:
+        return x.abs().sum(dim=ax, keepdim=keepdims)
+    return x.square().sum(dim=ax, keepdim=keepdims).sqrt()
+
+
+def argmax(x, axis=None, keepdims=False):
+    """Index of the first maximum along ``axis`` (flat when None), as
+    float32."""
+    if axis is None:
+        out = torch.argmax(x.reshape(-1))
+        return (out.reshape([1] * x.dim()) if keepdims else out).float()
+    return torch.argmax(x, dim=axis, keepdim=keepdims).float()
 
 
 def arange_like(x, axis=None, start=0.0, step=1.0, dtype="float32"):
@@ -89,3 +136,148 @@ def broadcast_lesser(a, b):
     numeric one), as the JAX package's comparison table returns it."""
     rt = torch.result_type(a, b)
     return (a < b).to(torch.float32 if rt == torch.bool else rt)
+
+
+# ---------------------------------------------------------------------------
+# shapes
+# ---------------------------------------------------------------------------
+
+def reshape(x, shape=(), reverse=False):
+    """Reshape with MXNet's special codes: 0 keep, -1 infer, -2 copy the
+    rest, -3 merge two, -4 split one into the next two."""
+    if reverse:
+        raise MXNetError("reshape: reverse=True is not ported")
+    shape = list(shape)
+    if not any(s in (0, -2, -3, -4) for s in shape):
+        return x.reshape(tuple(shape))
+    src = list(x.shape)
+    out = []
+    si = k = 0
+    while k < len(shape):
+        s = shape[k]
+        if s == 0:
+            out.append(src[si])
+            si += 1
+        elif s == -2:
+            out.extend(src[si:])
+            si = len(src)
+        elif s == -3:
+            out.append(src[si] * src[si + 1])
+            si += 2
+        elif s == -4:
+            a, b = shape[k + 1], shape[k + 2]
+            if a == -1:
+                a = src[si] // b
+            if b == -1:
+                b = src[si] // a
+            out.extend([a, b])
+            si += 1
+            k += 2
+        else:
+            out.append(s)
+            if s != -1:
+                si += 1
+        k += 1
+    return x.reshape(tuple(out))
+
+
+def transpose(x, axes=None):
+    """Permute axes (reverse them all when ``axes`` is None)."""
+    return x.permute(tuple(axes) if axes else tuple(range(x.dim()))[::-1])
+
+
+# ---------------------------------------------------------------------------
+# elementwise, scalar and broadcast tables
+# ---------------------------------------------------------------------------
+
+@functools.lru_cache(maxsize=1024)
+def _scalar_as(value, dtype: torch.dtype):
+    """A Python scalar cast to ``dtype`` as jnp.asarray(value, dtype)
+    casts it: rounded for a float dtype, truncated for an integer one."""
+    if dtype.is_floating_point:
+        return float(torch.tensor(float(value), dtype=dtype))
+    if dtype == torch.bool:
+        return bool(value)
+    return int(value)
+
+
+def _scalar_op(fn, swap):
+    if swap:
+        return lambda x, scalar=1.0: fn(_scalar_as(scalar, x.dtype), x)
+    return lambda x, scalar=1.0: fn(x, _scalar_as(scalar, x.dtype))
+
+
+def _as_result(out, a, b=None):
+    """1/0 in the operands' result dtype, float32 for bool operands."""
+    rt = a.dtype if b is None else torch.result_type(a, b)
+    return out.to(torch.float32 if rt == torch.bool else rt)
+
+
+_UNARY = {"abs": torch.abs, "negative": torch.negative}
+_BINARY = {
+    "broadcast_sub": torch.sub, "broadcast_mul": torch.mul,
+    "broadcast_div": torch.true_divide, "broadcast_mod": torch.remainder,
+    "broadcast_power": torch.pow,
+}
+_CMP = {
+    "broadcast_equal": torch.eq, "broadcast_not_equal": torch.ne,
+    "broadcast_greater": torch.gt, "broadcast_greater_equal": torch.ge,
+    "broadcast_lesser_equal": torch.le,
+}
+_SCALAR = {
+    "_plus_scalar": (torch.add, False), "_minus_scalar": (torch.sub, False),
+    "_rminus_scalar": (lambda s, x: s - x, True),
+    "_mul_scalar": (torch.mul, False),
+    "_div_scalar": (torch.true_divide, False),
+    "_rdiv_scalar": (lambda s, x: s / x, True),
+    "_mod_scalar": (torch.remainder, False),
+    "_power_scalar": (torch.pow, False),
+    "_rpower_scalar": (lambda s, x: torch.pow(s, x), True),
+}
+_SCALAR_CMP = {
+    "_equal_scalar": torch.eq, "_not_equal_scalar": torch.ne,
+    "_greater_scalar": torch.gt, "_greater_equal_scalar": torch.ge,
+    "_lesser_scalar": torch.lt, "_lesser_equal_scalar": torch.le,
+}
+
+
+def _register():
+    from . import nn as _nn
+
+    for name, fn in _UNARY.items():
+        register_op(name)(functools.partial(lambda x, _f: _f(x), _f=fn))
+    for name, fn in _BINARY.items():
+        register_op(name)(functools.partial(lambda a, b, _f: _f(a, b),
+                                            _f=fn))
+    for name, fn in _CMP.items():
+        register_op(name, differentiable=False)(functools.partial(
+            lambda a, b, _f: _as_result(_f(a, b), a, b), _f=fn))
+    for name, (fn, swap) in _SCALAR.items():
+        register_op(name)(_scalar_op(fn, swap))
+    for name, fn in _SCALAR_CMP.items():
+        register_op(name, differentiable=False)(functools.partial(
+            lambda x, scalar=1.0, _f=None: _as_result(
+                _f(x, _scalar_as(scalar, x.dtype)
+                   if x.is_floating_point() else scalar), x), _f=fn))
+    register_op("broadcast_add")(broadcast_add)
+    register_op("broadcast_lesser", differentiable=False)(broadcast_lesser)
+    register_op("_arange_like", aliases=("arange_like",),
+                differentiable=False)(arange_like)
+    register_op("cast", aliases=("Cast",))(cast)
+    register_op("sum", aliases=("sum_axis",))(sum)
+    register_op("mean")(mean)
+    register_op("max", aliases=("max_axis",))(max)
+    register_op("min", aliases=("min_axis",))(min)
+    register_op("norm")(norm)
+    register_op("argmax", differentiable=False)(argmax)
+    register_op("reshape", aliases=("Reshape",))(reshape)
+    register_op("transpose")(transpose)
+    register_op("flatten", aliases=("Flatten",))(_nn.flatten)
+    register_op("expand_dims")(expand_dims)
+    register_op("squeeze")(squeeze)
+    register_op("slice_axis")(slice_axis)
+    register_op("pick")(pick)
+    register_op("matmul")(torch.matmul)
+
+
+_register()

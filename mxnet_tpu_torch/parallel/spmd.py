@@ -149,7 +149,7 @@ class SPMDTrainer:
         self._optimizer = optimizer
         self._fopt = functional_optimizer(optimizer)
         block.to(self.device)
-        self._plist = sorted(block.collect_params().items())
+        self._plist = sorted(block.state_dict(keep_vars=True).items())
         if self._shards > 1:
             # replicated from the start: rank 0's parameters and buffers
             uniq = {id(t): t for _, t in self._plist}

@@ -1,0 +1,51 @@
+"""Random state: one ``torch.Generator`` per device (counterpart of
+``mxnet_tpu/random.py``, which splits a threefry key per device).
+
+``seed(s)`` reseeds every device's generator (``ctx`` one device's);
+a generator not seeded yet starts from the last global seed (0 before
+any).  Imperative Dropout under ``autograd.record()`` and the NDArray
+entry point of a block draw from the generator of the data's device.
+The streams do not match JAX's draws: parity tests feed explicit
+inputs.
+"""
+from __future__ import annotations
+
+import threading
+from typing import Dict, Tuple
+
+import torch
+
+from .context import resolve
+
+__all__ = ["seed", "generator"]
+
+_LOCK = threading.Lock()
+_GENS: Dict[Tuple[str, int], torch.Generator] = {}
+_SEED = [0]
+
+
+def _key(dev: torch.device):
+    return dev.type, dev.index or 0
+
+
+def seed(seed_state: int, ctx="all") -> None:
+    """Reseed every device's generator, or only ``ctx``'s."""
+    with _LOCK:
+        if ctx is None or ctx == "all":
+            _SEED[0] = int(seed_state)
+            for g in _GENS.values():
+                g.manual_seed(int(seed_state))
+            return
+    generator(ctx).manual_seed(int(seed_state))
+
+
+def generator(ctx=None) -> torch.Generator:
+    """The generator of ``ctx``'s device (default gpu(0))."""
+    dev = resolve(ctx)
+    with _LOCK:
+        g = _GENS.get(_key(dev))
+        if g is None:
+            g = _GENS[_key(dev)] = torch.Generator(
+                device=dev).manual_seed(_SEED[0])
+        return g
+

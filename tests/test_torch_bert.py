@@ -136,7 +136,8 @@ def test_jax_saved_parameters_load_in_the_port(jax_ref, tmp_path):
     net = tbert.get_bert_model("bert_12_768_12", **TINY)
     net.initialize(ctx=mt.cpu())
     net.load_parameters(f)
-    got = {k: v.detach().numpy() for k, v in net.collect_params().items()}
+    got = {k: v.detach().numpy()
+           for k, v in net.state_dict(keep_vars=True).items()}
     assert set(got) == set(values)
     assert "mlm_decoder.embed_weight" in got and "position_weight" in got
     for k in values:
@@ -149,7 +150,7 @@ def test_jax_saved_parameters_load_in_the_port(jax_ref, tmp_path):
 def test_the_tie_survives_initialize_load_and_cast(jax_ref, tmp_path):
     net = tbert.get_bert_model("bert_12_768_12", **TINY)
     net.initialize(mt.init.Normal(0.02), ctx=mt.cpu(), seed=3)
-    params = net.collect_params()
+    params = net.state_dict(keep_vars=True)
     word, tied = "word_embed.weight", "mlm_decoder.embed_weight"
     assert params[tied] is params[word]
     assert torch.equal(params[tied], params[word])
@@ -159,7 +160,7 @@ def test_the_tie_survives_initialize_load_and_cast(jax_ref, tmp_path):
         one = {k: v for k, v in values.items() if k not in (word, tied)}
         one[name] = new
         load_numpy_params(net, one)
-        p = net.collect_params()
+        p = net.state_dict(keep_vars=True)
         assert p[tied] is p[word] is net.word_embed.weight
         np.testing.assert_array_equal(p[word].detach().numpy(), new)
     clash = dict(values, **{tied: values[word] + 1.0})
@@ -169,14 +170,14 @@ def test_the_tie_survives_initialize_load_and_cast(jax_ref, tmp_path):
     with pytest.raises(MXNetError, match="missing"):
         load_numpy_params(net, missing)
     net.cast("bfloat16")
-    p = net.collect_params()
+    p = net.state_dict(keep_vars=True)
     assert p[tied] is p[word] and p[word].dtype == torch.bfloat16
     f = str(tmp_path / "tied.params")
     net.save_parameters(f)
     net2 = tbert.get_bert_model("bert_12_768_12", **TINY)
     net2.initialize(ctx=mt.cpu())
     net2.load_parameters(f)
-    p2 = net2.collect_params()
+    p2 = net2.state_dict(keep_vars=True)
     assert p2[tied] is p2[word] and p2[word].dtype == torch.bfloat16
     assert torch.equal(p2[word], p[word])
 

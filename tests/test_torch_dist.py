@@ -191,7 +191,7 @@ def _port_train(arch, mode, steps, mesh, vals):
     tag = f"train/{arch}/{mode}/dp{mesh.size()}"
     res = {f"{tag}/losses": np.array(losses),
            f"{tag}/kernel_bwd_calls": np.array(len(calls))}
-    for k, v in net.collect_params().items():
+    for k, v in net.state_dict(keep_vars=True).items():
         res[f"{tag}/state/{k}"] = v.detach().numpy()
     for k, s in tr.opt_state.items():
         res[f"{tag}/mom/{k}"] = s[0].numpy()
@@ -294,11 +294,11 @@ def _weights():
         net = make(tres)
         net.initialize(mt.init.Xavier(), ctx=mt.cpu(), seed=0)
         vals = {k: v.detach().numpy().copy()
-                for k, v in net.collect_params().items()}
+                for k, v in net.state_dict(keep_vars=True).items()}
         net.double()
         with torch.no_grad(), ActiveTrace(train=True):
             net(torch.from_numpy(x).double())
-        for k, v in net.collect_params().items():
+        for k, v in net.state_dict(keep_vars=True).items():
             if k.endswith("running_mean"):
                 vals[k] = (v.numpy() / 0.1).astype(np.float32)
         out.update({f"{arch}/{k}": v for k, v in vals.items()})

@@ -62,8 +62,9 @@ def _port_net(values=None, block="BottleneckV1"):
                         classes=10, layout="NHWC")
     net.initialize(mt.init.Xavier(), ctx=mt.cpu(), seed=0)
     if values is None:
-        values = _random_values([(k, tuple(v.shape))
-                                 for k, v in net.collect_params().items()])
+        values = _random_values([
+            (k, tuple(v.shape))
+            for k, v in net.state_dict(keep_vars=True).items()])
     load_numpy_params(net, values)
     net.hybridize()
     net.eval()
@@ -125,7 +126,8 @@ def test_jax_saved_parameters_load_in_the_port(jax_ref, tmp_path):
                         classes=10, layout="NHWC")
     net.initialize(ctx=mt.cpu())
     net.load_parameters(f)
-    got = {k: v.detach().numpy() for k, v in net.collect_params().items()}
+    got = {k: v.detach().numpy()
+           for k, v in net.state_dict(keep_vars=True).items()}
     assert set(got) == set(values)
     for k in values:
         np.testing.assert_array_equal(got[k], values[k], err_msg=k)
@@ -143,7 +145,7 @@ def test_fused_path_needs_nhwc_trace_and_single_pass_stats(monkeypatch):
 
 def test_zoo_names_and_bn_cast():
     net = tvision.get_model("resnet50_v1", classes=1000, layout="NHWC")
-    names = list(net.collect_params())
+    names = list(net.state_dict(keep_vars=True))
     assert names[:2] == ["features.0.weight", "features.1.gamma"]
     assert "features.4.0.body.0.weight" in names
     assert "features.4.0.downsample.1.running_var" in names
@@ -151,7 +153,7 @@ def test_zoo_names_and_bn_cast():
     # torchvision's 25,557,032 plus the gluon bottleneck's conv1/conv3 biases
     assert sum(v.numel() for v in net.parameters()) == 25557032 + 18880
     net.cast("bfloat16")
-    params = net.collect_params()
+    params = net.state_dict(keep_vars=True)
     assert params["features.4.0.body.0.weight"].dtype == torch.bfloat16
     assert params["features.1.gamma"].dtype == torch.float32
     assert params["features.1.running_mean"].dtype == torch.float32
@@ -247,7 +249,7 @@ def test_load_numpy_params_checks_names_shapes_and_takes_bf16():
     net, values = _port_net()
     bf = {k: v.astype(ml_dtypes.bfloat16) for k, v in values.items()}
     load_numpy_params(net, bf)
-    w = net.collect_params()["features.0.weight"]
+    w = net.state_dict(keep_vars=True)["features.0.weight"]
     assert w.dtype == torch.bfloat16
     np.testing.assert_array_equal(
         w.detach().float().numpy(), bf["features.0.weight"].astype(np.float32))

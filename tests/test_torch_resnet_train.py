@@ -107,7 +107,7 @@ def weights():
         warm.double()
         with torch.no_grad(), ActiveTrace(train=True):
             warm(torch.from_numpy(x).double())
-        for k, v in warm.collect_params().items():
+        for k, v in warm.state_dict(keep_vars=True).items():
             if k.endswith("running_mean"):
                 vals[k] = (v.numpy() / 0.1).astype(np.float32)
         out[arch] = vals
@@ -171,7 +171,7 @@ def _port_run(arch, vals, mode, dtype, steps, monkeypatch):
     losses = [float(tr.step(xin, y)) for _ in range(steps)]
     assert tfc.launch_count() == tfc.bwd_launch_count() == 0  # CPU
     state = {k: v.detach().float().numpy()
-             for k, v in net.collect_params().items()}
+             for k, v in net.state_dict(keep_vars=True).items()}
     mom = {k: s[0].float().numpy() for k, s in tr.opt_state.items()}
     return losses, state, mom, len(calls)
 
@@ -433,10 +433,11 @@ def test_trainer_surface(weights, monkeypatch):
                               dict(OPT))
     assert tr.learning_rate == OPT["learning_rate"]
     tr.set_learning_rate(0.0)
-    before = {k: v.detach().clone() for k, v in net.collect_params().items()}
+    before = {k: v.detach().clone()
+              for k, v in net.state_dict(keep_vars=True).items()}
     loss = tr.step(x, y)
     assert loss.dim() == 0 and not loss.requires_grad
-    after = net.collect_params()
+    after = net.state_dict(keep_vars=True)
     for k, v in before.items():
         if "running" in k:
             continue
