@@ -183,13 +183,47 @@ Phases, each failing loudly (exit code 1, no result line):
    The same net not hybridized: one step, 0 kernel launches.  (e)
    net(x) outside record(): inference, the running statistics
    bit-identical, finite logits, no graph.
+9. main path, the transformer models (bench_all.py's configs 3 and 5 on
+   the port's bench_steps blocks, make_mesh(dp=1) + SPMDTrainer with
+   Adam, the kernel counters set to 0 just before each path and read
+   just after).  First kernel 5 against its plain version at the greedy
+   decode's shapes by phase 3c's rule (bf16, 64 sources, 8 heads of 64,
+   packed: the encoder's S = Sk = 64, cross attention at S = 1..31 over
+   Sk = 64, causal self-attention at S = Sk = 1..31).  (a) BERT-base MLM
+   + NSP pretraining exactly at config 3: bert_12_768_12, vocab 30522,
+   max_length 512, batch 32 x 128, Normal(0.02) from seed 0, one warm
+   forward, bf16, Adam lr 1e-4, dropout 0.1, inputs from RandomState(0):
+   one warm-up and 5 timed steps (samples/s, ms a step, finite and
+   falling losses, a torch.profiler idle share) and no kernel launch
+   (dropout takes the plain attention, as in the JAX package).  (b) The
+   same step at dropout 0 from the same weights: 12 kernel-5 launches,
+   held against the same step with the attention by its plain version
+   and both against an fp32 step (plain): both Adam moments leaf by leaf
+   by phase 5's rule with its bf16 bounds, the update w1 - w0 over all
+   leaves by the same rule, and every updated leaf bit for bit the Adam
+   step from w0 and its own moments; the tied word embedding is one trained leaf whose first moment and
+   update match one Adam step on its summed gradient (2e-2 relative L2);
+   the recompute backward's ms beside F.scaled_dot_product_attention's
+   forward + backward at (32, 12, 128, 64), for the record.  (c)
+   Transformer-base at config 5: vocab 32000, batch 64, a (64, 64)
+   bucket, Xavier, bf16, Adam lr 3e-4, dropout 0.1: as (a) in tokens/s,
+   no kernel launch.  (d) Transformer-base's greedy_decode of 64 sources
+   of 64 tokens (src_valid from a seed in [16, 64]), max_len 32, bf16,
+   from (c)'s weights: 6 + 12 x steps kernel-5 launches; teacher-forced
+   decode_logits on the decoded tokens, kernel against plain, within
+   relative L2 2e-2, and the tokens equal to the plain path's argmax
+   wherever its top-2 margin exceeds 4x the row's largest kernel-plain
+   logit distance;
+   an fp32 decode at batch 4 gives identical tokens with the kernel and
+   the plain version.
 
 The line before the last is the kernel summary {"kernels": [...]}, one
 entry per kernel and main path (kernel 1 served, trained, trained
 through gluon.Trainer in phase 8 and per rank under dp, kernel 2
 trained, trained through gluon.Trainer and per rank under dp, kernel 5
-on the BERT serving path, kernel 6 on the probe path: summed over the
-27 configurations of one time sweep, with ms_by_nb), from the checks at
+on the BERT serving path, on phase 9's dropout-0 BERT step and on its
+greedy decode, kernel 6 on the probe path: summed over the 27
+configurations of one time sweep, with ms_by_nb), from the checks at
 that path's shapes; the last line is
 {"ok": true, "device": {"platform": "gpu", ...}}.
 """
@@ -305,6 +339,18 @@ BWD_EXTRAS = [
      torch.bfloat16, None)]
 BWD_DETERMINISM_CASES = ("s1.conv2", "edge.n3.7x7", "edge.co20",
                          "edge.ci40", "edge.splits.passes")
+# phase 9: bench_all.py's configs 3 (BERT-base pretraining) and 5
+# (Transformer-base NMT) trained with Adam through SPMDTrainer, then
+# Transformer-base's greedy decoding (one encoder launch per layer, one
+# causal and one cross launch per decoder layer and step)
+BERT_TRAIN_LR, NMT_TRAIN_LR = 1e-4, 3e-4
+TRAIN_TIMED_STEPS = 5            # after one warm-up step
+NMT_LAYERS, NMT_HEADS, NMT_UNITS = 6, 8, 512
+DECODE_BATCH, DECODE_SRC, DECODE_MAX_LEN = 64, 64, 32
+DECODE_FP32_BATCH = 4
+KERNEL_ATT_BERT = dict(KERNEL_ATT, name="dot_product_attention/bert_train")
+KERNEL_ATT_DECODE = dict(KERNEL_ATT,
+                         name="dot_product_attention/greedy_decode")
 KERNEL_DP = dict(KERNEL, name="fused_conv_unit/dp",
                  replaces="mxnet_tpu/ops/pallas_convbn.py:618")
 KERNEL_BWD_DP = dict(KERNEL_BWD, name="fused_conv_unit_bwd/dp",
@@ -893,7 +939,8 @@ def key_mask(gen, rows, sk, lengths=None, zero_rows=0):
     return (torch.arange(sk)[None, :] < lengths[:, None]).float()
 
 
-def check_attention(name, q, k, v, mask, causal, card, heads=None):
+def check_attention(name, q, k, v, mask, causal, card, heads=None,
+                    quiet=False):
     """The attention kernel against its plain version on one case.
 
     With `heads`, q/k/v are BERT's packed (B, S, heads*D) projections and
@@ -902,7 +949,7 @@ def check_attention(name, q, k, v, mask, causal, card, heads=None):
     |o - o_ref| <= 2 bf16 ulps of o_ref + 2^-8 * sum_k p_k |v_k| (one bf16
     rounding of each probability); fp32 <= 1e-5 * sum_k p_k |v_k|; a row
     whose keys are all masked is the mean of v over the real keys.
-    Returns a record."""
+    Returns a record; `quiet` leaves the printing to the caller."""
     from mxnet_tpu_torch.ops import attention as att
 
     if heads is None:
@@ -1009,6 +1056,8 @@ def check_attention(name, q, k, v, mask, causal, card, heads=None):
                bound_ms=max(t_ops, t_bytes),
                bound_by="operations" if t_ops >= t_bytes else "bytes",
                gflop=flops / 1e9, mbytes=nbytes / 1e6)
+    if quiet:
+        return rec
     print(f"  {name:<18} {rec['dtype']:<8} BH={bh} S={s} Sk={sk} D={d} "
           f"causal={int(causal)} {rec['layout']} passes={plan.passes} | "
           f"kernel_ms={kernel_ms:.4f} (events {events_ms:.4f}) op_ms="
@@ -2874,6 +2923,501 @@ def phase_imperative(card, refs, dev=torch.device("cuda", 0)):
     return res
 
 
+# ---------------------------------------------------------------------------
+# phase 9: the transformer path — BERT-base and Transformer-base trained
+# with Adam through SPMDTrainer, Transformer-base's greedy decoding
+# ---------------------------------------------------------------------------
+
+def kernel_counts():
+    """The launch counters of kernels 1, 2, 5 and 6."""
+    from mxnet_tpu_torch.ops import attention as att
+    from mxnet_tpu_torch.ops import convbn_tap as tap
+    from mxnet_tpu_torch.ops import fused_convbn as fcb
+
+    return {"k1": fcb.launch_count(), "k2": fcb.bwd_launch_count(),
+            "k5": att.attention_launch_count(), "k6": tap.launch_count()}
+
+
+def reset_kernel_counts():
+    from mxnet_tpu_torch.ops import attention as att
+    from mxnet_tpu_torch.ops import convbn_tap as tap
+    from mxnet_tpu_torch.ops import fused_convbn as fcb
+
+    fcb.reset_launch_count()
+    fcb.reset_bwd_launch_count()
+    att.reset_attention_launch_count()
+    tap.reset_launch_count()
+
+
+@contextlib.contextmanager
+def plain_attention():
+    """Kernel 5's launch step replaced by its plain version, for the
+    comparison runs of phase 9 only: the op keeps its surface and its
+    recompute backward, and the launch counter does not move."""
+    from mxnet_tpu_torch.ops import attention as att
+
+    real = att._launch
+
+    def plain(q, k, v, mask, scale, causal, out):
+        out.copy_(att._per_head(att.dot_product_attention_ref, q, k, v, mask,
+                                scale, causal))
+        return out
+    att._launch = plain
+    try:
+        yield
+    finally:
+        att._launch = real
+
+
+def decode_src_valid():
+    """The decode's source lengths, from a seed in [16, DECODE_SRC]."""
+    gen = torch.Generator().manual_seed(61)
+    return torch.randint(16, DECODE_SRC + 1, (DECODE_BATCH,), generator=gen)
+
+
+def phase_kernels_decode(card):
+    """Kernel 5 against its plain version at the shapes greedy decoding
+    gives it (bf16, B = DECODE_BATCH, 8 heads of 64, packed as the model
+    calls it): the encoder's (S = Sk = 64, the sources' key mask), cross
+    attention at S = 1..31 over Sk = 64, and causal self-attention at
+    S = Sk = 1..31; phase 3c's tolerances.  S = 1 and S < 8 put the TMA
+    maps' row bound inside the first 8 rows."""
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator().manual_seed(43)
+    b, h, u = DECODE_BATCH, NMT_HEADS, NMT_UNITS
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen).to(dev, torch.bfloat16)
+    src_mask = key_mask(gen, b, DECODE_SRC,
+                        lengths=decode_src_valid()).to(dev)
+    print("attention kernel vs plain version at the decode's shapes:",
+          flush=True)
+    recs = {"encoder": check_attention(
+        "decode.encoder", *(randn(b, DECODE_SRC, u) for _ in range(3)),
+        src_mask, False, card, heads=h)}
+    for s in range(1, DECODE_MAX_LEN):
+        recs[("cross", s)] = check_attention(
+            f"decode.cross.s{s}", randn(b, s, u), randn(b, DECODE_SRC, u),
+            randn(b, DECODE_SRC, u), src_mask, False, card, heads=h,
+            quiet=True)
+        recs[("causal", s)] = check_attention(
+            f"decode.causal.s{s}", *(randn(b, s, u) for _ in range(3)),
+            torch.ones(b, s, device=dev), True, card, heads=h, quiet=True)
+    for kind, sk in (("cross", "64"), ("causal", "S")):
+        rs = [recs[(kind, s)] for s in range(1, DECODE_MAX_LEN)]
+        print(f"  decode.{kind:<6} S=1..{DECODE_MAX_LEN - 1} Sk={sk}: "
+              f"{sum(r['ok'] for r in rs)}/{len(rs)} ok, worst "
+              f"{max(r['worst_of_bound'] for r in rs):.3f} of the bound, "
+              f"max abs {max(r['max_abs_err'] for r in rs):.3g}; summed "
+              f"over S: kernel_ms={sum(r['kernel_ms'] for r in rs):.4f} "
+              f"ref_ms={sum(r['ref_ms'] for r in rs):.4f} library_ms="
+              f"{sum(r['library_ms'] for r in rs):.4f} bound_ms="
+              f"{sum(r['bound_ms'] for r in rs):.4f} [{card}]", flush=True)
+        print("    kernel_ms by S: " + " ".join(
+            f"{s}:{recs[(kind, s)]['kernel_ms'] * 1e3:.1f}us"
+            for s in range(1, DECODE_MAX_LEN)), flush=True)
+    return recs
+
+
+def timed_steps(trainer, batch, steps):
+    """`steps` training steps with every kernel counter set to 0 just
+    before and read just after; returns (losses, counts, s a step)."""
+    torch.cuda.synchronize()
+    reset_kernel_counts()
+    t0 = time.perf_counter()
+    losses = [trainer.step(*batch) for _ in range(steps)]
+    torch.cuda.synchronize()
+    dt = (time.perf_counter() - t0) / steps
+    return [float(v) for v in losses], kernel_counts(), dt
+
+
+def adam_step_state(step, w0, batch, lr):
+    """One step of a fresh Adam SPMDTrainer from the weights `w0`:
+    (loss, counts, {leaf: updated weight}, {leaf: first moment},
+    {leaf: second moment})."""
+    from mxnet_tpu_torch.examples import bench_steps as bs
+
+    restore(step, w0)
+    tr = bs.spmd_trainer(step, lr)
+    losses, counts, _ = timed_steps(tr, batch, 1)
+    names = tr._trainable
+    return (losses[0], counts,
+            {n: tr.params[n].detach().clone() for n in names},
+            {n: tr.opt_state[n][0].clone() for n in names},
+            {n: tr.opt_state[n][1].clone() for n in names})
+
+
+def adam_from_moments(w0, m1, v1, lr, t=1, beta1=0.9, beta2=0.999,
+                      eps=1e-8):
+    """The weight one functional Adam step writes from `w0` given the
+    step's own new moments: w' = w0 - m/(sqrt(v) + eps) in w0's dtype,
+    then w0 + (w' - w0) * lr * coef in fp32, coef from the int step on
+    the device, cast back (the op order of spmd.py's Adam)."""
+    from mxnet_tpu_torch.ops.optimizer_ops import _adam_step
+
+    tt = torch.tensor(t, dtype=torch.int32, device=w0.device).float()
+    coef = torch.sqrt(1.0 - beta2 ** tt) / (1.0 - beta1 ** tt)
+    nw = _adam_step(w0, m1, v1, 1.0, eps)
+    return (w0.float() + (nw - w0).float() * (coef * lr)).to(w0.dtype)
+
+
+def bert_agreement(step, w0, batch, card):
+    """(b): the dropout-0 step with kernel 5 against the same step with
+    attention by the plain version (both bf16), each against an fp32 step
+    by the plain version from the same weights.  The Adam moments (the
+    gradient) leaf by leaf by phase 5's rule with TRAIN_BOUNDS_BF16: on
+    each leaf where the plain bf16 step lands within LEAF_POWER of the
+    fp32 one, the kernel step's lies within rel x the plain step's
+    distance + abs.  The updated weights: each leaf bit for bit the Adam
+    step from w0 and the step's own moments, and the update w1 - w0 over
+    all leaves together within the same rule (Adam moves every element
+    by about lr whatever its gradient, so a leaf of few elements whose
+    gradients are near 0 has no per-leaf scale to hold it to)."""
+    import copy
+
+    l_k, counts, w_k, m_k, v_k = adam_step_state(step, w0, batch,
+                                                 BERT_TRAIN_LR)
+    names = list(w_k)
+    with plain_attention():
+        l_p, counts_p, w_p, m_p, v_p = adam_step_state(step, w0, batch,
+                                                       BERT_TRAIN_LR)
+        ref = copy.deepcopy(step)
+        ref.cast("float32")
+        w0_32 = {k: v.float() for k, v in w0.items()}
+        l_r, _, w_r, m_r, v_r = adam_step_state(ref, w0_32, batch,
+                                                BERT_TRAIN_LR)
+        del ref, w0_32
+    restore(step, w0)
+    torch.cuda.empty_cache()
+    bounds = TRAIN_BOUNDS_BF16
+    worst_all, checked_all, bad_all = {}, {}, []
+    for what, a, p, r in (("mean", m_k, m_p, m_r), ("var", v_k, v_p, v_r)):
+        e_k, e_p = leaf_rel(a, r), leaf_rel(p, r)
+        checked = [n for n in names if e_p[n] <= LEAF_POWER]
+        worst, bad = leaf_check(e_k, e_p, {}, checked, bounds)
+        worst_all[what], checked_all[what] = worst, len(checked)
+        bad_all += [(what,) + tuple(b_) for b_ in bad]
+        print(f"  bert dropout 0, Adam {what}: kernel vs fp32 rel L2 over "
+              f"all leaves {rel_l2_all(a, r):.4g}, plain "
+              f"{rel_l2_all(p, r):.4g}; {len(checked)} of {len(names)} "
+              f"leaves checked, worst at {worst:.3f} of its bound "
+              f"({bounds['rel']} x plain + {bounds['abs']}), {len(bad)} "
+              f"over it [{card}]", flush=True)
+    from_moments = [n for n in names if not torch.equal(
+        w_k[n], adam_from_moments(w0[n], m_k[n], v_k[n], BERT_TRAIN_LR))]
+
+    def upd(w):
+        return {n: w[n].float() - w0[n].float() for n in names}
+    e_uk = rel_l2_all(upd(w_k), upd(w_r))
+    e_up = rel_l2_all(upd(w_p), upd(w_r))
+    u_lim = bounds["rel"] * e_up + bounds["abs"]
+    print(f"  bert dropout 0, update w1 - w0 over all leaves: kernel vs "
+          f"fp32 rel L2 {e_uk:.4g}, plain {e_up:.4g} (bound {u_lim:.4g}); "
+          f"leaves not bit for bit the Adam step from their own moments: "
+          f"{len(from_moments)} of {len(names)} [{card}]", flush=True)
+    dl = abs(l_k - l_p) / max(abs(l_p), 1e-30)
+    print(f"bert pretrain dropout 0: one step from the same weights, loss "
+          f"kernel {l_k:.6f} plain {l_p:.6f} (rel {dl:.3g}, bound "
+          f"{bounds['loss']}) fp32 {l_r:.6f}; launches {counts} (plain "
+          f"{counts_p}) [{card}]", flush=True)
+    if counts != {"k1": 0, "k2": 0, "k5": BERT_LAYERS, "k6": 0} \
+            or counts_p["k5"] != 0:
+        fail(f"bert dropout 0: launches {counts} in one step (want kernel "
+             f"5 {BERT_LAYERS} only), {counts_p} with the plain version "
+             f"(want none)")
+    if not all(math.isfinite(x) for x in (l_k, l_p, l_r)) \
+            or dl > bounds["loss"]:
+        fail(f"bert dropout 0: losses {l_k}, {l_p}, {l_r} (rel {dl:.3g})")
+    if bad_all or not all(checked_all.values()):
+        fail(f"bert dropout 0: kernel step's moments off on {len(bad_all)} "
+             f"checked leaves ({bad_all[:3]}), checked {checked_all}")
+    if from_moments or not e_uk <= u_lim:
+        fail(f"bert dropout 0: update rel L2 {e_uk:.4g} (bound "
+             f"{u_lim:.4g}); leaves off their moments' Adam step: "
+             f"{from_moments[:3]}")
+    res = dict(loss_kernel=l_k, loss_plain=l_p, loss_fp32=l_r,
+               launches=counts["k5"], worst_of_bound=worst_all,
+               leaves_checked=checked_all, leaves=len(names),
+               update_rel_l2={"kernel": e_uk, "plain": e_up},
+               leaves_off_their_moments=len(from_moments))
+    return res, w_k, m_k
+
+
+def check_tied_once(step, w0, batch, w_k, m_k, card):
+    """The tied word embedding is one trained leaf, updated once a step:
+    its first moment and its update equal one Adam step on its gradient
+    summed over both uses (from a separate forward and backward of the
+    same step; bf16, so the comparison allows the run-to-run spread of
+    the summation orders, 2e-2 relative L2)."""
+    from mxnet_tpu_torch import optimizer, parallel, random
+    from mxnet_tpu_torch.gluon import ActiveTrace
+
+    word, dec = "bert.word_embed.weight", "bert.mlm_decoder.embed_weight"
+    params = step.state_dict(keep_vars=True)
+    restore(step, w0)
+    with ActiveTrace(train=True, generator=random.generator(
+            torch.device("cuda", 0))):
+        g = torch.autograd.grad(step(*batch), params[word])[0]
+    fo = parallel.functional_optimizer(
+        optimizer.create("adam", learning_rate=BERT_TRAIN_LR))
+    with torch.no_grad():
+        w_exp, (m_exp, _) = fo.apply(w0[word], g, fo.init(w0[word]),
+                                     BERT_TRAIN_LR, 1)
+    restore(step, w0)
+    one = word in w_k and dec not in w_k
+    e_m = rel_l2(m_k[word].float(), m_exp.float())
+    d_exp = w_exp.to(w0[word].dtype).float() - w0[word].float()
+    e_w = rel_l2(w_k[word].float() - w0[word].float(), d_exp)
+    twice = rel_l2(m_exp.float() * 1.9, m_exp.float())
+    ok = one and e_m <= 2e-2 and e_w <= 2e-2
+    print(f"  bert tied embedding: one trained leaf ({word} in the "
+          f"trainer, {dec} not: {one}); first moment vs one Adam step on "
+          f"the summed gradient rel L2 {e_m:.3g} (a second update would "
+          f"put it {twice:.3g} off), update {e_w:.3g}; "
+          f"{'ok' if ok else 'FAIL'} [{card}]", flush=True)
+    if not ok:
+        fail(f"bert tied embedding: one leaf {one}, moment rel {e_m:.3g}, "
+             f"update rel {e_w:.3g}")
+    return {"one_leaf": one, "first_moment_rel_l2": e_m,
+            "update_rel_l2": e_w}
+
+
+def recompute_timing(card):
+    """The attention backward (the recompute through the plain version)
+    at BERT-base's training shape, beside PyTorch's fused attention
+    forward + backward on the same q, k and v (for the record only)."""
+    from mxnet_tpu_torch.ops import attention as att
+
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator().manual_seed(47)
+    b, s, h, d = BATCH, BERT_SEQ, BERT_HEADS, BERT_UNITS // BERT_HEADS
+    q, k, v = (torch.randn(b, s, h * d, generator=gen).to(
+        dev, torch.bfloat16).requires_grad_() for _ in range(3))
+    mask = key_mask(gen, b, s).to(dev)
+    ct = torch.randn(b, s, h * d, generator=gen).to(dev, torch.bfloat16)
+    out = att.dot_product_attention(q, k, v, mask, num_heads=h)
+    fwd_ms = time_ms(lambda: att.dot_product_attention(q, k, v, mask,
+                                                       num_heads=h))
+    bwd_ms = time_ms(lambda: torch.autograd.grad(out, (q, k, v), ct,
+                                                 retain_graph=True))
+
+    def ours():
+        o = att.dot_product_attention(q, k, v, mask, num_heads=h)
+        torch.autograd.grad(o, (q, k, v), ct)
+    ours_ms = time_ms(ours)
+
+    def split(x):
+        return x.detach().reshape(b, s, h, d).permute(0, 2, 1, 3)
+    q4, k4, v4 = (split(x).contiguous().requires_grad_() for x in (q, k, v))
+    ct4 = split(ct).contiguous()
+    m4 = (mask > 0)[:, None, None, :]
+
+    def sdpa():
+        o = F.scaled_dot_product_attention(q4, k4, v4, attn_mask=m4)
+        torch.autograd.grad(o, (q4, k4, v4), ct4)
+    sdpa_ms = time_ms(sdpa)
+    print(f"  attention backward at BERT-base's training shape (B={b}, "
+          f"H={h}, S=Sk={s}, D={d}, bf16): recompute {bwd_ms:.4f} ms, "
+          f"kernel forward {fwd_ms:.4f} ms, the two {ours_ms:.4f} ms; "
+          f"F.scaled_dot_product_attention forward + backward {sdpa_ms:.4f}"
+          f" ms (record only) [{card}]", flush=True)
+    return {"recompute_ms": bwd_ms, "forward_ms": fwd_ms,
+            "forward_backward_ms": ours_ms,
+            "sdpa_forward_backward_ms": sdpa_ms}
+
+
+def decode_agreement(net, tokens, src, sv, card):
+    """Teacher-forced decode_logits on the decoded tokens, kernel
+    against plain (relative L2 within BERT_BOUNDS["bf16"]), and the
+    decoded tokens against the plain path's argmax wherever its top-2
+    margin exceeds 4x the largest distance between the kernel's and the
+    plain logits in that row (past 2x no logit can overtake another; the
+    rest allows the decode-time logits, from GEMMs of other shapes, to
+    sit as far again); a row stops counting once it has emitted eos (id
+    2)."""
+    from mxnet_tpu_torch import nd
+
+    b, t_len = tokens.shape
+    tv = nd.full((b,), t_len, ctx=src.ctx)
+    mem, mask = net.encode(src, sv)
+    z_k = net.decode_logits(tokens, tv, mem, mask)._data.float()
+    with plain_attention():
+        mem_p, mask_p = net.encode(src, sv)
+        z_p = net.decode_logits(tokens, tv, mem_p, mask_p)._data.float()
+    e = rel_l2(z_k, z_p)
+    tol = BERT_BOUNDS["bf16"]
+    tok = tokens._data.long()
+    top2 = z_p[:, :-1].topk(2, dim=-1).values
+    margin = top2[..., 0] - top2[..., 1]
+    delta = (z_k - z_p)[:, :-1].abs().amax(dim=-1)
+    held = margin > 4.0 * delta
+    held &= ~(torch.cumsum((tok[:, :-1] == 2).long(), dim=1) > 0)
+    agree = z_p[:, :-1].argmax(dim=-1) == tok[:, 1:]
+    n_held, n_bad = int(held.sum()), int((held & ~agree).sum())
+    print(f"  decode teacher-forced logits, kernel vs plain: rel L2 {e:.4g}"
+          f" (bound {tol}), largest distance in a row "
+          f"{float(delta.max()):.3g}, median top-2 margin "
+          f"{float(margin.median()):.3g}; tokens held where the plain top-2 "
+          f"margin > 4x the row's distance: {n_held} of {held.numel()}, "
+          f"{n_bad} differ; all positions agree {int(agree.sum())} of "
+          f"{agree.numel()} [{card}]", flush=True)
+    if not e <= tol or n_bad:
+        fail(f"decode: teacher-forced logits rel L2 {e:.4g} (bound {tol}) "
+             f"or {n_bad} held tokens differ")
+    return {"logits_rel_l2": e, "tokens_held": n_held, "tokens_differ": n_bad,
+            "tokens_agree_all": int(agree.sum())}
+
+
+def train_phase9(tag, trainer, batch, units, unit_name, card):
+    """One warm-up step, TRAIN_TIMED_STEPS timed steps with every kernel
+    counter read (none may launch: dropout 0.1 takes the plain
+    attention), then a profiled pair for the idle share."""
+    warm = timed_steps(trainer, batch, 1)[0]
+    losses, counts, dt = timed_steps(trainer, batch, TRAIN_TIMED_STEPS)
+    print(f"{tag}: {dt * 1e3:.1f} ms/step, {units / dt:.1f} {unit_name}/s "
+          f"over {TRAIN_TIMED_STEPS} steps; losses {warm[0]:.4f} (warm-up) "
+          + " ".join(f"{v:.4f}" for v in losses)
+          + f"; launches {counts} [{card}]", flush=True)
+    if not all(math.isfinite(v) for v in warm + losses) \
+            or not losses[-1] < warm[0]:
+        fail(f"{tag}: losses not finite or not falling: {warm + losses}")
+    if any(counts.values()):
+        fail(f"{tag}: kernel launches {counts} (want none)")
+    prof = profile_device(lambda: trainer.step(*batch), tag, "step", card,
+                          dt * 1e3, iters=2, top=12)
+    return {"ms_per_step": dt * 1e3, f"{unit_name}_per_s": units / dt,
+            "losses": warm + losses, "launches": counts,
+            "idle": None if prof is None
+            else 1 - prof["busy_ms"] / prof["wall_ms"]}
+
+
+def phase_transformer(card):
+    """bench_all.py's configs 3 and 5 on the card through the port's
+    entry points (bench_steps' step blocks, SPMDTrainer with Adam), then
+    Transformer-base's greedy decoding through kernel 5."""
+    import copy
+    import gc
+
+    from mxnet_tpu_torch import gpu, init, nd
+    from mxnet_tpu_torch.examples import bench_steps as bs
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    res = {}
+    # (a) config 3 exactly: dropout 0.1, no kernel launch (the plain
+    # attention with dropout, as the JAX package takes it in training)
+    t0 = time.perf_counter()
+    batch = bs.bert_batch("full", seed=0, ctx=gpu(0))
+    step = bs.init_step(bs.bert_step("full", dropout=0.1), init.Normal(0.02),
+                        ctx=gpu(0), seed=0, dtype="bfloat16", warm=batch[:3])
+    w0 = snapshot(step)
+    print(f"bert-base pretrain: built, initialised and cast in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    bsz = batch[0].shape[0]
+    res["bert"] = train_phase9(
+        f"bert-base pretrain (config 3) bf16 batch {bsz} x {BERT_SEQ}, Adam "
+        f"lr {BERT_TRAIN_LR}, dropout 0.1", bs.spmd_trainer(
+            step, BERT_TRAIN_LR), batch, bsz, "samples", card)
+    del step
+    gc.collect()
+    torch.cuda.empty_cache()
+    # (b) the same step at dropout 0: 12 kernel-5 launches in the forward,
+    # the recompute in the backward; held against the plain version and an
+    # fp32 step, the tie checked
+    step0 = bs.init_step(bs.bert_step("full", dropout=0.0),
+                         init.Normal(0.02), ctx=gpu(0), seed=0,
+                         dtype="bfloat16")
+    res["bert_dropout0"], w_k, m_k = bert_agreement(step0, w0, batch, card)
+    res["bert_dropout0"]["tie"] = check_tied_once(step0, w0, batch, w_k, m_k,
+                                                  card)
+    del w_k, m_k, step0, w0, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    res["bert_dropout0"]["backward"] = recompute_timing(card)
+    # (c) config 5: Transformer-base, Xavier, bf16, Adam, dropout 0.1
+    tbatch = bs.transformer_batch("full", seed=0, ctx=gpu(0))
+    nmt = bs.init_step(bs.transformer_step("full", dropout=0.1),
+                       init.Xavier(), ctx=gpu(0), seed=0, dtype="bfloat16",
+                       warm=tbatch[:4])
+    res["nmt"] = train_phase9(
+        f"transformer-base NMT (config 5) bf16 batch {tbatch[0].shape[0]}, "
+        f"bucket ({tbatch[0].shape[1]}, {tbatch[1].shape[1]}), Adam lr "
+        f"{NMT_TRAIN_LR}, dropout 0.1", bs.spmd_trainer(nmt, NMT_TRAIN_LR),
+        tbatch, tbatch[1].numel(), "tokens", card)
+    del tbatch
+    gc.collect()
+    torch.cuda.empty_cache()
+    # (d) greedy decoding of DECODE_BATCH sources through kernel 5, from
+    # the weights (c) trained
+    net = nmt.net
+    gen = torch.Generator().manual_seed(67)
+    src = nd.array(torch.randint(4, 32000, (DECODE_BATCH, DECODE_SRC),
+                                 generator=gen).float(), ctx=gpu(0))
+    sv = nd.array(decode_src_valid().float(), ctx=gpu(0))
+    net.greedy_decode(src, sv, max_len=4)  # warm-up
+    torch.cuda.synchronize()
+    reset_kernel_counts()
+    t0 = time.perf_counter()
+    tokens = net.greedy_decode(src, sv, max_len=DECODE_MAX_LEN)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = kernel_counts()
+    steps = tokens.shape[1] - 1
+    want = NMT_LAYERS + 2 * NMT_LAYERS * steps
+    print(f"transformer-base greedy decode bf16: {DECODE_BATCH} sources of "
+          f"{DECODE_SRC} tokens, max_len {DECODE_MAX_LEN}: {steps} steps in "
+          f"{wall * 1e3:.1f} ms ({DECODE_BATCH * steps / wall:.1f} tokens/s)"
+          f"; launches {counts} (want kernel 5 {want} = {NMT_LAYERS} + "
+          f"{2 * NMT_LAYERS} x {steps}) [{card}]", flush=True)
+    if counts != {"k1": 0, "k2": 0, "k5": want, "k6": 0}:
+        fail(f"decode: launches {counts}, want kernel 5 {want} only")
+    if not (tokens.shape[0] == DECODE_BATCH
+            and bool((tokens._data[:, 0] == 1).all())
+            and bool(((tokens._data >= 0) & (tokens._data < 32000)).all())):
+        fail("decode: tokens of the wrong shape, out of the vocabulary or "
+             "not starting with bos")
+    res["decode"] = dict(steps=steps, ms=wall * 1e3, launches=counts["k5"],
+                         **decode_agreement(net, tokens, src, sv, card))
+    # fp32 at batch DECODE_FP32_BATCH: the kernel's tokens are the plain
+    # version's
+    net32 = copy.deepcopy(net)
+    net32.cast("float32")
+    s4, v4 = src[:DECODE_FP32_BATCH], sv[:DECODE_FP32_BATCH]
+    tok_k = net32.greedy_decode(s4, v4, max_len=DECODE_MAX_LEN).asnumpy()
+    with plain_attention():
+        tok_p = net32.greedy_decode(s4, v4, max_len=DECODE_MAX_LEN).asnumpy()
+    same = tok_k.shape == tok_p.shape and bool((tok_k == tok_p).all())
+    print(f"  decode fp32 batch {DECODE_FP32_BATCH}: kernel tokens identical "
+          f"to the plain version's: {same} ({tok_k.shape[1] - 1} steps) "
+          f"[{card}]", flush=True)
+    if not same:
+        fail("decode fp32: the kernel's tokens differ from the plain "
+             "version's")
+    res["decode"]["fp32_identical"] = same
+    del net32, nmt, net
+    gc.collect()
+    torch.cuda.empty_cache()
+    print("transformer: " + json.dumps(res), flush=True)
+    return res
+
+
+def attention_path_summary(kernel, path, rows, launches, batch):
+    """The `kernels` record of kernel 5 on one phase-9 path: each check
+    record in `rows` (record, launches) weighted by its launches in one
+    unit of the path's work."""
+    tot = {k: sum(r[k] * n for r, n in rows)
+           for k in ("kernel_ms", "op_ms", "ref_ms", "library_ms",
+                     "bound_ms")}
+    by_ops = sum(r["bound_ms"] * n for r, n in rows
+                 if r["bound_by"] == "operations")
+    return dict(kernel, path=path, batch=batch, launches=launches,
+                max_abs_err=max(r["max_abs_err"] for r, _ in rows),
+                ms=tot["kernel_ms"], op_ms=tot["op_ms"],
+                plain_ms=tot["ref_ms"], bound_ms=tot["bound_ms"],
+                bound_by="operations" if by_ops >= tot["bound_ms"] / 2
+                else "bytes", library_ms=tot["library_ms"])
+
+
 def tap_summary(recs, launches):
     """The `kernels` record of kernel 6 on the probe path: times and
     bounds summed over the 27 configurations of one time sweep of the
@@ -2896,14 +3440,9 @@ def attention_summary(recs, launches):
     path: times and bound of the packed check at the path's shapes, summed
     over the BERT_LAYERS launches of one served batch of BATCH."""
     r = recs["bert.packed"]
-    return dict(KERNEL_ATT, path="serve_bert", batch=BATCH,
-                launches=launches, max_abs_err=r["max_abs_err"],
-                ms=r["kernel_ms"] * BERT_LAYERS,
-                events_ms=r["events_ms"] * BERT_LAYERS,
-                op_ms=r["op_ms"] * BERT_LAYERS,
-                plain_ms=r["ref_ms"] * BERT_LAYERS,
-                bound_ms=r["bound_ms"] * BERT_LAYERS, bound_by=r["bound_by"],
-                library_ms=r["library_ms"] * BERT_LAYERS)
+    return dict(attention_path_summary(KERNEL_ATT, "serve_bert",
+                                       [(r, BERT_LAYERS)], launches, BATCH),
+                events_ms=r["events_ms"] * BERT_LAYERS)
 
 
 def main():
@@ -2932,6 +3471,9 @@ def main():
     probe_res = phase_probe(card)
     profile_probe_layers(card)
     imp_res = phase_imperative(card, train_refs)
+    recs_dec = phase_kernels_decode(card)
+    tf_res = phase_transformer(card)
+    dec_steps = tf_res["decode"]["steps"]
     dp_keys = dict(backend=dp_res.get("backend"), ranks=DP)
     # kernel 1 once for each main path (its shapes and launches), kernel 2
     # for each training path
@@ -2953,7 +3495,18 @@ def main():
                             dp_res["launches"]["fwd"]), **dp_keys),
         dict(kernel_summary(KERNEL_BWD_DP, recs_bwd_dp, "train_dp",
                             dp_res["launches"]["bwd"]), **dp_keys),
-        tap_summary(recs_tap, probe_res["launches"]["tap"])]
+        tap_summary(recs_tap, probe_res["launches"]["tap"]),
+        attention_path_summary(
+            KERNEL_ATT_BERT, "bert_pretrain_dropout0",
+            [(recs_att["bert.packed"], BERT_LAYERS)],
+            tf_res["bert_dropout0"]["launches"], BATCH),
+        attention_path_summary(
+            KERNEL_ATT_DECODE, "transformer_greedy_decode",
+            [(recs_dec["encoder"], NMT_LAYERS)]
+            + [(recs_dec[(kind, s)], NMT_LAYERS)
+               for s in range(1, dec_steps + 1)
+               for kind in ("causal", "cross")],
+            tf_res["decode"]["launches"], DECODE_BATCH)]
     if FAILURES:
         print(f"chip_smoke: {len(FAILURES)} failure(s)", flush=True)
         return 1

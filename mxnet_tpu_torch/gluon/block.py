@@ -139,9 +139,9 @@ class _Imperative:
         return False
 
 
-def _call_on_ndarrays(block, args, kwargs):
-    """MXNet's imperative call: NDArrays in, the forward on their
-    tensors, NDArrays out."""
+def _call_on_ndarrays(block, args, kwargs, method=None):
+    """MXNet's imperative call: NDArrays in, the forward (or ``method``,
+    one of the block's stages) on their tensors, NDArrays out."""
     from ..ndarray.ndarray import NDArray, wrap_outputs
 
     nds = [a for a in args if isinstance(a, NDArray)] + \
@@ -156,7 +156,8 @@ def _call_on_ndarrays(block, args, kwargs):
     else:
         scope = _Imperative(train, gen)
     with torch.set_grad_enabled(_autograd.is_recording()), scope:
-        out = nn.Module.__call__(block, *targs, **tkw)
+        out = method(*targs, **tkw) if method is not None \
+            else nn.Module.__call__(block, *targs, **tkw)
     return wrap_outputs(out) if isinstance(out, torch.Tensor) \
         else type(out)(wrap_outputs(out))
 
@@ -190,6 +191,15 @@ class Block(nn.Module):
     def _buffer(self, name, shape, init=None):
         self.register_buffer(name, torch.zeros(tuple(int(s) for s in shape)))
         self._inits[name] = init
+
+    def _constant(self, name, value):
+        """A constant (the JAX package's ``params.get_constant``): a
+        buffer holding ``value`` (fp32), never trained, refilled with it
+        by ``initialize``, cast with the block and saved and loaded
+        under its structural name."""
+        value = torch.as_tensor(np.asarray(value, np.float32))
+        self.register_buffer(name, value.clone())
+        self._inits[name] = init_mod.Constant(value)
 
     def __call__(self, *args, **kwargs):
         from ..ndarray.ndarray import NDArray

@@ -1,6 +1,7 @@
 """Weight initializers (counterpart of ``mxnet_tpu/initializer.py``): the
-ones the zoo's Conv2D, Dense and BatchNorm use by default, Normal (BERT)
-and Xavier.
+ones the zoo's Conv2D, Dense and BatchNorm use by default, Normal (BERT),
+Xavier and Constant (a value or a whole array: the Transformer's
+position table).
 
 Same dispatch by parameter-name suffix (``*bias``/``*beta``/
 ``*running_mean`` -> 0, ``*gamma``/``*running_var`` -> 1, anything else
@@ -17,8 +18,8 @@ import torch
 
 from .base import MXNetError
 
-__all__ = ["Initializer", "create", "Zero", "One", "Uniform", "Normal",
-           "Xavier"]
+__all__ = ["Initializer", "create", "Zero", "One", "Constant", "Uniform",
+           "Normal", "Xavier"]
 
 
 class Initializer:
@@ -57,6 +58,18 @@ class Zero(Initializer):
 class One(Initializer):
     def _init_weight(self, name, arr, generator):
         arr.fill_(1.0)
+
+
+class Constant(Initializer):
+    """Fill with ``value``: a scalar, or an array of the parameter's
+    shape."""
+
+    def __init__(self, value=0.0):
+        super().__init__(value=value)
+        self.value = value
+
+    def _init_weight(self, name, arr, generator):
+        arr.copy_(torch.as_tensor(self.value, dtype=arr.dtype))
 
 
 class Uniform(Initializer):
@@ -106,6 +119,7 @@ class Xavier(Initializer):
 
 
 _REG = {"zeros": Zero, "zero": Zero, "ones": One, "one": One,
+        "constant": Constant,
         "uniform": Uniform, "normal": Normal, "xavier": Xavier}
 
 

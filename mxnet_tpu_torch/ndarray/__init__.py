@@ -5,12 +5,12 @@ from __future__ import annotations
 
 import torch as _torch
 
-from .ndarray import (NDArray, arange, array, empty, full, ones,
-                      wrap_outputs, zeros)
+from .ndarray import (NDArray, arange, array, concatenate, empty, full,
+                      ones, wrap_outputs, zeros)
 from . import register as _register
 
 __all__ = ["NDArray", "array", "zeros", "ones", "full", "empty", "arange",
-           "waitall", "save", "load"]
+           "concatenate", "waitall", "save", "load"]
 
 
 def waitall():

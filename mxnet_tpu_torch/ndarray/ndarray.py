@@ -559,6 +559,13 @@ def arange(start, stop=None, step=1.0, repeat=1, ctx=None,
     return NDArray(out)
 
 
+def concatenate(arrays, axis=0) -> NDArray:
+    """The arrays joined along ``axis`` (the registered ``concat``)."""
+    from ..ops.registry import invoke
+
+    return invoke("concat", *arrays, dim=axis)
+
+
 def _cpu_array(a) -> NDArray:
     """A host array as an NDArray on the CPU (the data pipeline's
     arrays, which the caller moves with as_in_context)."""

@@ -20,9 +20,14 @@ and ``dropout > 0`` it runs the plain math with dropout on the
 probabilities, drawn from the caller's ``torch.Generator``, as the JAX
 package runs its XLA path there.
 
-The kernel sits inside a ``torch.autograd.Function`` whose backward
-raises: the JAX backward (``_attend_bwd``) is a recompute through the
-reference, and it is ported with BERT training.
+The kernel sits inside a ``torch.autograd.Function`` that saves q, k,
+v and the mask, never P.  Its backward recomputes the plain version per
+(batch, head) under autograd and returns dq, dk and dv: this is the JAX
+package's own backward (``_attend_bwd``, a ``jax.vjp`` of
+``dot_product_attention_ref`` in XLA), not a fallback of the kernel, and
+the JAX package has no backward kernel.  The dropout path is plain
+PyTorch and autograd differentiates it, as JAX differentiates its XLA
+twin.
 """
 from __future__ import annotations
 
@@ -225,13 +230,25 @@ def _to_layout(out, packed):
     return out.permute(0, 2, 1, 3).reshape(b, s, h * d)
 
 
+def _from_layout(g, packed, shape):
+    """A cotangent in the output's layout as (B,H,S,D)."""
+    if not packed:
+        return g
+    b, h, s, d = shape
+    return g.reshape(b, s, h, d).permute(0, 2, 1, 3)
+
+
 class _AttentionFn(torch.autograd.Function):
     """Forward: the CUDA kernel on the card, the plain version on CPU
     tensors; (B,H,S,D) views in, the output in the packed or head-split
-    layout out.  Backward: not ported (it comes with BERT training)."""
+    layout out.  Backward: the plain version recomputed from q, k, v and
+    the mask (``_attend_bwd``); dq, dk and dv come back in the shapes of
+    the (B,H,S,D) views, the mask and the flags get none."""
 
     @staticmethod
     def forward(ctx, q, k, v, mask, scale, causal, packed):
+        ctx.save_for_backward(q, k, v, mask)
+        ctx.args = (scale, causal, packed)
         if q.device.type == "cpu":
             out = _per_head(dot_product_attention_ref, q, k, v, mask, scale,
                             causal)
@@ -241,11 +258,16 @@ class _AttentionFn(torch.autograd.Function):
         return _to_layout(out, packed)
 
     @staticmethod
-    def backward(ctx, *grads):
-        raise MXNetError(
-            "dot_product_attention: the backward is not ported yet; it comes "
-            "with the BERT training slice (a recompute through "
-            "dot_product_attention_ref, as the JAX package's _attend_bwd)")
+    def backward(ctx, grad):
+        q, k, v, mask = ctx.saved_tensors
+        scale, causal, packed = ctx.args
+        with torch.enable_grad():
+            qkv = [t.detach().requires_grad_() for t in (q, k, v)]
+            out = _per_head(dot_product_attention_ref, *qkv, mask, scale,
+                            causal)
+            dq, dk, dv = torch.autograd.grad(
+                out, qkv, _from_layout(grad, packed, q.shape))
+        return dq, dk, dv, None, None, None, None
 
 
 def _run(q4, k4, v4, mask, scale, causal, packed):

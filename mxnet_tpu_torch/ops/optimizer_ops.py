@@ -1,6 +1,6 @@
-"""SGD update ops (counterpart of ``mxnet_tpu/ops/optimizer_ops.py``:
+"""Update ops (counterpart of ``mxnet_tpu/ops/optimizer_ops.py``:
 sgd_update, sgd_mom_update, nag_mom_update, mp_sgd_update,
-mp_sgd_mom_update).
+mp_sgd_mom_update, adam_update, mp_adam_update).
 
 Each op is a pure function returning the new weight (and new state
 tensors); the caller writes them back.  The dtype rules are the JAX
@@ -16,6 +16,11 @@ package's as its SPMD step runs them, which differ from PyTorch's own:
   times a 0-d fp32 tensor in bf16, so the ops cast ``g`` to fp32
   themselves.  The caller casts the results back to the weight's and
   the state's dtype (``spmd.py:480-481``).
+* The Adam ops take ``lr`` as the JAX package's Adam callers pass it, a
+  Python float (the functional form passes 1.0 and scales the step
+  afterwards, the eager ``Adam`` the bias-corrected rate), so it is weak
+  like the other scalars: a bf16 weight keeps the whole update in bf16,
+  where ``0.999 * v`` rounds back to v.
 """
 from __future__ import annotations
 
@@ -26,7 +31,8 @@ import torch
 from .registry import register_op
 
 __all__ = ["sgd_update", "sgd_mom_update", "nag_mom_update",
-           "mp_sgd_update", "mp_sgd_mom_update"]
+           "mp_sgd_update", "mp_sgd_mom_update", "adam_update",
+           "mp_adam_update"]
 
 
 @functools.lru_cache(maxsize=256)
@@ -99,6 +105,45 @@ def mp_sgd_mom_update(weight, grad, mom, weight32, lr=0.01, momentum=0.0,
     return new_w32.to(weight.dtype), new_mom, new_w32
 
 
+def _adam_moments(g, mean, var, beta1, beta2):
+    """beta1*mean + (1-beta1)*g and beta2*var + (1-beta2)*g², each
+    Python scalar weak against its tensor."""
+    new_mean = mean * _weak(beta1, mean) + g * _weak(1 - beta1, g)
+    gg = torch.square(g)
+    new_var = var * _weak(beta2, var) + gg * _weak(1 - beta2, gg)
+    return new_mean, new_var
+
+
+def _adam_step(weight, new_mean, new_var, lr, epsilon):
+    """weight - lr * mean / (sqrt(var) + epsilon)."""
+    root = torch.sqrt(new_var)
+    step = new_mean * _weak(lr, new_mean) / (root + _weak(epsilon, root))
+    return weight - step
+
+
+def adam_update(weight, grad, mean, var, lr=0.001, beta1=0.9, beta2=0.999,
+                epsilon=1e-8, wd=0.0, rescale_grad=1.0, clip_gradient=-1.0):
+    """Adam without bias correction (MXNet's convention): the moments'
+    EMAs drive w - lr * m / (sqrt(v) + eps).  Returns (w', mean',
+    var')."""
+    g = _rescale_clip(grad, rescale_grad, clip_gradient, wd, weight)
+    new_mean, new_var = _adam_moments(g, mean, var, beta1, beta2)
+    return (_adam_step(weight, new_mean, new_var, lr, epsilon), new_mean,
+            new_var)
+
+
+def mp_adam_update(weight, grad, mean, var, weight32, lr=0.001, beta1=0.9,
+                   beta2=0.999, epsilon=1e-8, wd=0.0, rescale_grad=1.0,
+                   clip_gradient=-1.0):
+    """Adam on the fp32 master copy with fp32 moments.  Returns (w cast
+    to weight's dtype, mean', var', new master)."""
+    g = _rescale_clip(grad.float(), rescale_grad, clip_gradient, wd,
+                      weight32)
+    new_mean, new_var = _adam_moments(g, mean, var, beta1, beta2)
+    new_w32 = _adam_step(weight32, new_mean, new_var, lr, epsilon)
+    return new_w32.to(weight.dtype), new_mean, new_var, new_w32
+
+
 for _op in (sgd_update, sgd_mom_update, nag_mom_update, mp_sgd_update,
-            mp_sgd_mom_update):
+            mp_sgd_mom_update, adam_update, mp_adam_update):
     register_op(_op.__name__)(_op)

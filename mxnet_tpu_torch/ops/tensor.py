@@ -3,7 +3,8 @@ forward (arange_like, expand_dims, squeeze, slice_axis, cast,
 broadcast_add, broadcast_lesser), and those NDArray's operators and
 methods call (the broadcast and ``*_scalar`` arithmetic, the
 comparisons, negative, abs, matmul, max/min/norm/argmax, reshape with
-MXNet's special codes, transpose).
+MXNet's special codes, transpose) and concat (``nd.concatenate``, the
+Transformer's greedy decoding).
 
 Counterpart of the same registered ops in ``mxnet_tpu/ops/tensor.py``,
 as plain functions on tensors, registered under the JAX package's
@@ -24,7 +25,8 @@ from .registry import register_op
 
 __all__ = ["pick", "mean", "sum", "arange_like", "expand_dims", "squeeze",
            "slice_axis", "cast", "broadcast_add", "broadcast_lesser",
-           "reshape", "transpose", "max", "min", "norm", "argmax"]
+           "reshape", "transpose", "concat", "max", "min", "norm",
+           "argmax"]
 
 
 def pick(x, index, axis=-1, keepdims=False, mode="clip"):
@@ -181,6 +183,11 @@ def reshape(x, shape=(), reverse=False):
     return x.reshape(tuple(out))
 
 
+def concat(*xs, dim=1, num_args=None):
+    """Concatenate along ``dim`` (Concat's channel axis by default)."""
+    return torch.cat(xs, dim=dim)
+
+
 def transpose(x, axes=None):
     """Permute axes (reverse them all when ``axes`` is None)."""
     return x.permute(tuple(axes) if axes else tuple(range(x.dim()))[::-1])
@@ -272,6 +279,7 @@ def _register():
     register_op("argmax", differentiable=False)(argmax)
     register_op("reshape", aliases=("Reshape",))(reshape)
     register_op("transpose")(transpose)
+    register_op("concat", aliases=("Concat",))(concat)
     register_op("flatten", aliases=("Flatten",))(_nn.flatten)
     register_op("expand_dims")(expand_dims)
     register_op("squeeze")(squeeze)

@@ -1,6 +1,6 @@
 """Optimizers of the port (counterpart of ``mxnet_tpu/optimizer``)."""
-from .optimizer import (NAG, SGD, Optimizer, Updater, create, get_updater,
-                        register)
+from .optimizer import (NAG, SGD, Adam, Optimizer, Updater, create,
+                        get_updater, register)
 
-__all__ = ["Optimizer", "SGD", "NAG", "Updater", "create", "register",
+__all__ = ["Optimizer", "SGD", "NAG", "Adam", "Updater", "create", "register",
            "get_updater"]

@@ -1,7 +1,7 @@
 """Optimizers of the port (counterpart of
 ``mxnet_tpu/optimizer/optimizer.py``): the registry, ``create``, the
 ``Optimizer`` base with its learning-rate bookkeeping (``lr_mult``/
-``wd_mult`` through ``param_dict``), ``SGD`` and ``NAG``, and the
+``wd_mult`` through ``param_dict``), ``SGD``, ``NAG`` and ``Adam``, and the
 serializable per-parameter ``Updater`` that ``gluon.Trainer`` runs.
 
 Two paths share the update ops of ``ops/optimizer_ops.py``:
@@ -9,9 +9,9 @@ Two paths share the update ops of ``ops/optimizer_ops.py``:
 ``parallel.functional_optimizer``, and the eager per-parameter path
 here (``update``/``update_multi_precision`` on NDArrays, the
 optimizer states as NDArrays) writes their results back into the
-weight and the states in place under ``torch.no_grad``.  The other
-eleven optimizers of the JAX package and its ``FusedUpdater`` are
-ROADMAP queue A item 4.
+weight and the states in place under ``torch.no_grad``.  The other ten
+optimizers of the JAX package and its ``FusedUpdater`` are ROADMAP queue
+A item 4.
 """
 from __future__ import annotations
 
@@ -24,12 +24,12 @@ import torch
 from .. import ops
 from ..base import MXNetError
 
-__all__ = ["Optimizer", "SGD", "NAG", "Updater", "create", "register",
-           "get_updater"]
+__all__ = ["Optimizer", "SGD", "NAG", "Adam", "Updater", "create",
+           "register", "get_updater"]
 
 _REG: Dict[str, type] = {}
 # registered in the JAX package, not ported yet (ROADMAP queue A item 4)
-_QUEUED = ("adam", "adagrad", "adadelta", "adamax", "nadam", "rmsprop",
+_QUEUED = ("adagrad", "adadelta", "adamax", "nadam", "rmsprop",
            "ftrl", "signum", "signsgd", "lamb", "test")
 
 
@@ -219,6 +219,37 @@ class NAG(SGD):
     """SGD with Nesterov momentum (``nag_mom_update``)."""
 
     _MOM_OP = "nag_mom_update"
+
+
+@register("adam")
+class Adam(Optimizer):
+    """Adam through ``adam_update`` (no bias correction in the op): the
+    bias correction sqrt(1 - beta2^t) / (1 - beta1^t) is folded into lr on
+    the host, in Python floats, from the parameter's own update count.
+    Under ``multi_precision`` the moments and the update run on the fp32
+    master copy (the base class's ``_update_mp``)."""
+
+    def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
+                 epsilon=1e-8, lazy_update=True, **kwargs):
+        super().__init__(learning_rate=learning_rate, **kwargs)
+        self.beta1, self.beta2, self.epsilon = beta1, beta2, epsilon
+
+    def create_state(self, index, weight):
+        from ..ndarray.ndarray import NDArray
+
+        return (NDArray(torch.zeros_like(weight._data)),
+                NDArray(torch.zeros_like(weight._data)))
+
+    @torch.no_grad()
+    def update(self, index, weight, grad, state):
+        self._update_count(index)
+        t = self._index_update_count[index]
+        kw = self._common(index)
+        kw["lr"] *= (1.0 - self.beta2 ** t) ** 0.5 / (1.0 - self.beta1 ** t)
+        mean, var = state
+        _write([weight, mean, var], ops.adam_update(
+            weight._data, grad._data, mean._data, var._data,
+            beta1=self.beta1, beta2=self.beta2, epsilon=self.epsilon, **kw))
 
 
 class Updater:

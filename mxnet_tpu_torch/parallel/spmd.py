@@ -7,8 +7,14 @@ three phases in order on this rank's device:
   1. the forward of the block and the loss inside ``ActiveTrace(train=
      True)`` and the mesh scope, so that code gated on a trace (the
      fused ResNet path, BatchNorm's train flag) behaves as in the JAX
-     trace, and the loss is the mean over the batch;
-  2. ``torch.autograd.grad`` over the trainable parameters;
+     trace, and the loss is the mean over the batch; dropout draws from
+     the step's device's generator (``random.generator``), as the JAX
+     step takes a fresh key a step;
+  2. ``torch.autograd.grad`` over the trainable parameters, each tensor
+     once: a tied parameter (one ``nn.Parameter`` under several
+     structural names, BERT's decoder weight, the Transformer's shared
+     embedding) is trained under its first name in the block's order,
+     as the JAX package's ``collect_params`` lists it once;
   3. the per-parameter update of the functional optimizer under
      ``torch.no_grad``, written back in place into the block's
      parameters and the optimizer state.
@@ -48,6 +54,7 @@ from ..base import MXNetError
 from ..gluon.block import ActiveTrace
 from .. import ops
 from .. import optimizer as opt_mod
+from .. import random as _random
 from . import dist
 from .mesh import DeviceMesh, batch_shards, current_mesh, make_mesh
 from .sharding import shard_batch
@@ -91,14 +98,16 @@ def functional_optimizer(opt) -> FunctionalOptimizer:
     if isinstance(opt, str):
         opt = opt_mod.create(opt)
     kind = type(opt).__name__
-    if kind not in ("SGD", "NAG"):
+    if kind not in ("SGD", "NAG", "Adam"):
         raise MXNetError(f"no functional form for optimizer {kind} in this "
-                         "slice of the port; supported: SGD, NAG")
+                         "slice of the port; supported: SGD, NAG, Adam")
     wd = float(opt.wd)
     clip = float(opt.clip_gradient) if opt.clip_gradient is not None \
         else -1.0
     momentum = float(getattr(opt, "momentum", 0.0))
-    if momentum == 0.0:
+    if kind == "Adam":
+        fo = _functional_adam(opt, wd, clip)
+    elif momentum == 0.0:
         def update(w, g, s, lr, wd_, c, t):
             return ops.sgd_update(w, g, lr=lr, wd=wd_, clip_gradient=c), ()
         fo = FunctionalOptimizer(0, update, wd, clip)
@@ -112,6 +121,37 @@ def functional_optimizer(opt) -> FunctionalOptimizer:
         fo = FunctionalOptimizer(1, update, wd, clip)
     fo.multi_precision = bool(getattr(opt, "multi_precision", False))
     return fo
+
+
+def _functional_adam(opt, wd, clip) -> FunctionalOptimizer:
+    """Adam as the JAX package's functional form writes it: ``adam_update``
+    with lr 1.0, then w + (w' - w) * (lr * coef), the bias correction
+    coef = sqrt(1 - beta2^t) / (1 - beta1^t) in fp32 on the device from
+    the int step t.  lr * coef is an fp32 tensor, so a half weight's step
+    w' - w (rounded in its dtype) is scaled and added in fp32, then the
+    caller casts the result to the weight's dtype.  Under
+    ``multi_precision`` the same ``adam_update`` runs on the fp32 master
+    with the half gradient, as the JAX package's ``apply_one`` runs it
+    (``mp_adam_update`` would clip the gradient in fp32, where the JAX
+    step clips it in its own dtype)."""
+    b1, b2, eps = float(opt.beta1), float(opt.beta2), float(opt.epsilon)
+    coefs = {}
+
+    def coef_at(t, dev):
+        if (t, dev) not in coefs:  # once a step and device
+            coefs.clear()
+            tt = torch.tensor(t, dtype=torch.int32, device=dev).float()
+            coefs[(t, dev)] = torch.sqrt(1.0 - b2 ** tt) / (1.0 - b1 ** tt)
+        return coefs[(t, dev)]
+
+    def update(w, g, s, lr, wd_, c, t):
+        nw, nm, nv = ops.adam_update(w, g, s[0], s[1], lr=1.0, beta1=b1,
+                                     beta2=b2, epsilon=eps, wd=wd_,
+                                     clip_gradient=c)
+        acc = torch.promote_types(w.dtype, torch.float32)
+        scale = coef_at(int(t), w.device) * float(lr)
+        return w.to(acc) + (nw - w).to(acc) * scale, (nm, nv)
+    return FunctionalOptimizer(2, update, wd, clip)
 
 
 class SPMDTrainer:
@@ -149,13 +189,18 @@ class SPMDTrainer:
         self._optimizer = optimizer
         self._fopt = functional_optimizer(optimizer)
         block.to(self.device)
-        self._plist = sorted(block.state_dict(keep_vars=True).items())
+        named = block.state_dict(keep_vars=True)
+        self._plist = sorted(named.items())
         if self._shards > 1:
             # replicated from the start: rank 0's parameters and buffers
             uniq = {id(t): t for _, t in self._plist}
             dist.flat_buckets(list(uniq.values()), dist.broadcast_)
+        first = {}  # a tied tensor's first structural name
+        for n, p in named.items():
+            first.setdefault(id(p), n)
         self._trainable = [n for n, p in self._plist
-                           if isinstance(p, nn.Parameter) and p.requires_grad]
+                           if isinstance(p, nn.Parameter) and p.requires_grad
+                           and first[id(p)] == n]
         params = dict(self._plist)
         self.params: Dict[str, torch.Tensor] = {
             n: params[n] for n in self._trainable}
@@ -187,7 +232,8 @@ class SPMDTrainer:
         self._t += 1
         self._optimizer._update_count(0)
         lr = float(self._optimizer.learning_rate)
-        with self.mesh, ActiveTrace(train=True):
+        gen = _random.generator(self.device)
+        with self.mesh, ActiveTrace(train=True, generator=gen):
             out = self.block(*ivals)
             outs = out if isinstance(out, (list, tuple)) else (out,)
             l = self.loss(outs[0], *lvals)

@@ -121,14 +121,19 @@ def _imports(path):
 
 def test_the_port_modules_import_no_jax():
     pkg = SRC.parent
-    for rel in ("ops/attention.py", "ops/convbn_tap.py", "_kernels.py"):
+    for rel in ("ops/attention.py", "ops/convbn_tap.py", "_kernels.py",
+                "ops/optimizer_ops.py", "optimizer/optimizer.py",
+                "parallel/spmd.py", "gluon/model_zoo/transformer.py",
+                "examples/bench_steps.py"):
         for name in _imports(pkg / rel):
             assert not name.startswith(("jax", "mxnet_tpu.")) \
                 and name != "mxnet_tpu", (rel, name)
     for path in SRC.iterdir():
         assert "jax" not in path.read_text().lower(), path.name
     code = ("import sys; import mxnet_tpu_torch.ops.attention, "
-            "mxnet_tpu_torch.ops.convbn_tap; "
+            "mxnet_tpu_torch.ops.convbn_tap, "
+            "mxnet_tpu_torch.gluon.model_zoo.transformer, "
+            "mxnet_tpu_torch.examples.bench_steps; "
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'mxnet_tpu.')) or m == 'mxnet_tpu']; "
             "print(bad); sys.exit(1 if bad else 0)")

@@ -369,7 +369,7 @@ def test_unported_options_raise():
             tr = mt.gluon.Trainer(ps, "sgd", **kw)
             tr.step(1)
     with pytest.raises(MXNetError, match="queue A item 4"):
-        mt.gluon.Trainer(ps, "adam")
+        mt.gluon.Trainer(ps, "rmsprop")
     with pytest.raises(MXNetError, match="queue A item 7"):
         net.initialize(ctx=[CPU, CPU])
 

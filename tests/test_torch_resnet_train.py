@@ -331,7 +331,7 @@ def test_optimizer_registry_and_learning_rate():
     opt._update_count(0)
     assert opt.num_update == 2 and opt.learning_rate == pytest.approx(1 / 3)
     with pytest.raises(MXNetError):
-        topt.create("adam")
+        topt.create("rmsprop")
     with pytest.raises(MXNetError):
         tpar.functional_optimizer(topt.Optimizer())
 
