@@ -177,8 +177,8 @@ Phases, each failing loudly (exit code 1, no result line):
    + 2e-2 on phase 5's checked leaves, the loss within 2e-2), and 52
    forward and 46 backward kernel launches in the step; then 3 timed
    steps of each trainer in turns (gluon, SPMD, SPMD, gluon) after a
-   warm-up step each, 52/46 launches a step held, their ratio printed
-   beside the prediction, and a torch.profiler idle share of each; the
+   warm-up step each, 52/46 launches a step held, their ratio printed,
+   and a torch.profiler idle share of each; the
    host time of autograd's walk from the loss to its leaves.  (d)
    The same net not hybridized: one step, 0 kernel launches.  (e)
    net(x) outside record(): inference, the running statistics
@@ -216,6 +216,32 @@ Phases, each failing loudly (exit code 1, no result line):
    logit distance;
    an fp32 decode at batch 4 gives identical tokens with the kernel and
    the plain version.
+
+The compiled paths (mxnet_tpu_torch._graphs): every SPMDTrainer step on one
+device, every hybridized forward in inference and gluon.Trainer's
+update run from CUDA graphs captured once per signature, so the main
+paths above are the captured ones (their launch counters count each
+replay's launches); single steps of fresh trainers that only feed a
+comparison run eagerly (_graphs.no_capture).  Each compiled path
+is then held against its eager path in the same call:
+  4/4b. the direct batch-32 ResNet-50 and BERT-base forwards: outputs bit
+     for bit, 52 kernel-1 and 12 kernel-5 launches a call on both;
+  5. the fused (52 + 46 launches a step) and the op-granular bf16 batch
+     256 SPMDTrainer steps, 3 replays from one state against 3
+     `_step_eager` steps from it: losses, parameters, running
+     statistics, momenta and the generator state bit for bit, no build
+     after set_learning_rate; then load_parameters moves every
+     parameter's storage: one counted new capture, one eviction, and its
+     steps equal eager steps;
+  8. gluon.Trainer's captured update against fuse_step=False, 4 steps
+     from phase 5's weights: every parameter, buffer, momentum and loss
+     bit for bit, 52/46 launches a step, one build;
+  9. BERT-base at dropout 0.1 and 0 (12 kernel-5 launches a step) and
+     Transformer-base at dropout 0.1, as in 5, and with dropout two
+     replays from two generator states give two losses.
+Each prints the captured and the eager ms, the idle share of each (one
+profiled call), the captures' seconds and the graph pools' GiB, beside
+the card's name and power limit.
 
 The line before the last is the kernel summary {"kernels": [...]}, one
 entry per kernel and main path (kernel 1 served, trained, trained
@@ -1260,9 +1286,12 @@ def phase_main(card, n_requests, threads):
             dt = net.features[0].weight.dtype
             imgs = images_f32[:n_req].to(dt)
             model = f"resnet50_v1_{tag}"
-            # warm the served model (first launches, allocator, cuDNN)
+            # warm the served model (first launches, allocator, cuDNN,
+            # and the capture of the full bucket, which the timed
+            # requests fill)
             os.environ["MXNET_FUSED_CONVBN"] = "1"
             serve(server, model, imgs[:4], 2)
+            repo.get(model).execute(BATCH, [imgs[:BATCH]])
             m = repo.get(model).metrics
             b0 = m.value("batches")
             fcb.reset_launch_count()
@@ -1329,6 +1358,10 @@ def phase_main(card, n_requests, threads):
         tag: profile_forward(net, xb, fused, card,
                              BATCH / (sum(rates[fused]) / 2) * 1e3)
         for tag, fused in (("fused", True), ("unfused", False))}
+    os.environ["MXNET_FUSED_CONVBN"] = "1"
+    result["compiled"] = hold_captured_forward(
+        f"compiled: served forward resnet-50 bf16 batch {BATCH}", net, [xb],
+        card, {"k1": 52})
     return result
 
 
@@ -1517,6 +1550,7 @@ def phase_bert(card, n_requests, threads):
             model = f"bert_{tag}"
             xs = [x[:n_req] for x in reqs]
             serve(server, model, [x[:4] for x in xs], 2)  # warm
+            repo.get(model).execute(BATCH, [x[:BATCH] for x in xs])
             m = repo.get(model).metrics
             b0 = m.value("batches")
             att.reset_attention_launch_count()
@@ -1611,10 +1645,246 @@ def phase_bert(card, n_requests, threads):
               f" [{card}]", flush=True)
         prof["attention_ms"] = kern
     result["profile"] = prof
+    result["compiled"] = hold_captured_forward(
+        f"compiled: served forward bert-base bf16 batch {BATCH}", net, xb,
+        card, {"k5": BERT_LAYERS})
     del net
     gc.collect()
     torch.cuda.empty_cache()
     return result
+
+
+# ---------------------------------------------------------------------------
+# the compiled step: each captured path against its eager path
+# ---------------------------------------------------------------------------
+
+CAPTURE_K = 3  # captured steps held bit for bit against as many eager ones
+
+
+def graph_costs(entries):
+    """(seconds the captures took, GiB their pools reserved) of cache
+    entries (_graphs.Graphed)."""
+    g = [e for e in entries if getattr(e, "graph", None) is not None]
+    return sum(e.capture_s for e in g), sum(e.pool_bytes for e in g) / 2 ** 30
+
+
+def idle_of(prof):
+    return None if prof is None else 1 - prof["busy_ms"] / prof["wall_ms"]
+
+
+def pct(v):
+    return "not measured" if v is None else f"{v:.1%}"
+
+
+def trainer_state(tr):
+    """Copies of what a step writes: every parameter and buffer (the
+    BatchNorm running statistics), the optimizer state, the generator
+    state and the step count."""
+    from mxnet_tpu_torch import random as mrandom
+
+    return ({k: v.detach().clone()
+             for k, v in tr.block.state_dict(keep_vars=True).items()},
+            {k: tuple(s.clone() for s in v) for k, v in tr.opt_state.items()},
+            mrandom.generator(tr.device).get_state(), tr._t)
+
+
+def set_trainer_state(tr, st, gen_state=None):
+    """Write `st` back in place (a captured step keeps its addresses)."""
+    from mxnet_tpu_torch import random as mrandom
+
+    with torch.no_grad():
+        for k, v in tr.block.state_dict(keep_vars=True).items():
+            v.copy_(st[0][k])
+        for k, v in tr.opt_state.items():
+            for a, b in zip(v, st[1][k]):
+                a.copy_(b)
+    mrandom.generator(tr.device).set_state(
+        st[2] if gen_state is None else gen_state)
+    tr._t = st[3]
+
+
+def state_mismatch(a, b):
+    bad = [k for k in a[0] if not torch.equal(a[0][k], b[0][k])]
+    bad += [f"{k} (optimizer state)" for k in a[1]
+            if not all(torch.equal(x, y) for x, y in zip(a[1][k], b[1][k]))]
+    if not torch.equal(a[2], b[2]):
+        bad.append("generator state")
+    return bad
+
+
+def hold_captured_steps(tag, tr, batch, card, want, dropout=False):
+    """CAPTURE_K steps of `tr` replayed from its CUDA graph, from one
+    state, against CAPTURE_K eager steps (`_step_eager`) from the same
+    state: the losses, every parameter and buffer, the optimizer state
+    and the generator state bit for bit, `want` kernel launches a step on
+    both paths.  With dropout, two replays from one weight state and two
+    generator states draw two masks.  A set_learning_rate builds
+    nothing.  Then each path timed (host clock around CAPTURE_K
+    synchronised steps) and profiled; the capture's seconds and its
+    pool's GiB."""
+    from mxnet_tpu_torch import _graphs as graphs
+    from mxnet_tpu_torch.parallel import spmd
+
+    tr.step(*batch)  # the build, if this signature has none yet
+    torch.cuda.synchronize()
+    s0 = trainer_state(tr)
+    runs = {}
+    for mode in ("captured", "eager"):
+        set_trainer_state(tr, s0)
+        step = tr.step if mode == "captured" else tr._step_eager
+        torch.cuda.synchronize()
+        reset_kernel_counts()
+        t0 = time.perf_counter()
+        losses = [step(*batch) for _ in range(CAPTURE_K)]
+        torch.cuda.synchronize()
+        dt = (time.perf_counter() - t0) / CAPTURE_K
+        runs[mode] = (losses, kernel_counts(), dt, trainer_state(tr))
+    lc, cc, dc, sc = runs["captured"]
+    le, ce, de, se = runs["eager"]
+    bad = state_mismatch(sc, se) + [f"loss {i}" for i in range(CAPTURE_K)
+                                    if not torch.equal(lc[i], le[i])]
+    if bad:
+        fail(f"{tag}: {len(bad)} of the captured path's tensors differ "
+             f"from the eager path's after {CAPTURE_K} steps: {bad[:6]}")
+    per = {k: v / CAPTURE_K for k, v in cc.items()}
+    if cc != ce or any(per[k] != want.get(k, 0) for k in per):
+        fail(f"{tag}: launches a step captured {per}, eager "
+             f"{ {k: v / CAPTURE_K for k, v in ce.items()} } (want {want})")
+    masks = None
+    if dropout:
+        set_trainer_state(tr, s0)
+        a = tr.step(*batch)
+        set_trainer_state(tr, s0, gen_state=sc[2])
+        b = tr.step(*batch)
+        masks = not torch.equal(a, b)
+        if not masks:
+            fail(f"{tag}: two replays from two generator states gave one "
+                 f"loss (the dropout mask repeated)")
+    n0 = spmd.step_compile_stats()["count"]
+    lr = tr.learning_rate
+    tr.set_learning_rate(lr * 0.5)
+    tr.step(*batch)
+    tr.set_learning_rate(lr)
+    tr.step(*batch)
+    torch.cuda.synchronize()
+    rebuilt = spmd.step_compile_stats()["count"] - n0
+    if rebuilt:
+        fail(f"{tag}: set_learning_rate built {rebuilt} new step(s)")
+    prof_c = profile_device(lambda: tr.step(*batch), f"{tag} captured",
+                            "step", card, dc * 1e3, iters=1, top=6)
+    with graphs.no_capture():
+        prof_e = profile_device(lambda: tr.step(*batch), f"{tag} eager",
+                                "step", card, de * 1e3, iters=1, top=6)
+    cap_s, gib = graph_costs(tr.graphs())
+    res = dict(captured_ms=dc * 1e3, eager_ms=de * 1e3,
+               idle_captured=idle_of(prof_c), idle_eager=idle_of(prof_e),
+               busy_captured_ms=None if prof_c is None else prof_c["busy_ms"],
+               busy_eager_ms=None if prof_e is None else prof_e["busy_ms"],
+               capture_s=cap_s, pool_gib=gib, identical=not bad,
+               launches_per_step=per, masks_differ=masks,
+               rebuilt_after_set_learning_rate=rebuilt,
+               losses=[float(v) for v in lc])
+    print(f"{tag}: captured {dc * 1e3:.2f} ms/step, eager {de * 1e3:.2f} "
+          f"ms/step ({de / dc:.2f}x), idle captured "
+          f"{pct(res['idle_captured'])} eager {pct(res['idle_eager'])}; "
+          f"capture {cap_s:.2f} s, graph pool {gib:.2f} GiB; {CAPTURE_K} "
+          f"steps bit-identical {not bad} ({len(sc[0])} parameters and "
+          f"buffers, {len(sc[1])} optimizer states, generator); launches a "
+          f"step {per}; masks differ across replays {masks}; rebuilt "
+          f"after set_learning_rate {rebuilt} [{card}]", flush=True)
+    return res
+
+
+def hold_moved_storage(tag, tr, batch, card):
+    """load_parameters between two steps moves every parameter's storage:
+    the next step builds a counted new capture, and that step and a
+    replay of it equal two eager steps from the same state, bit for
+    bit."""
+    from mxnet_tpu_torch.parallel import spmd
+
+    d = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                     "chip_smoke_params")
+    os.makedirs(d, exist_ok=True)
+    f = os.path.join(d, "moved.params")
+    tr.block.save_parameters(f)
+    before = {k: v.data_ptr()
+              for k, v in tr.block.state_dict(keep_vars=True).items()}
+    tr.block.load_parameters(f)
+    moved = sum(v.data_ptr() != before[k]
+                for k, v in tr.block.state_dict(keep_vars=True).items())
+    s1 = trainer_state(tr)
+    n0 = spmd.step_compile_stats()
+    lc = [tr.step(*batch) for _ in range(2)]
+    n1 = spmd.step_compile_stats()
+    sc = trainer_state(tr)
+    set_trainer_state(tr, s1)
+    le = [tr._step_eager(*batch) for _ in range(2)]
+    se = trainer_state(tr)
+    bad = state_mismatch(sc, se) + [f"loss {i}" for i in range(2)
+                                    if not torch.equal(lc[i], le[i])]
+    built = n1["count"] - n0["count"]
+    evicted = n1["evictions"] - n0["evictions"]
+    print(f"{tag}: load_parameters moved {moved} tensors; the next step "
+          f"built {built} capture(s), evicted {evicted}; its 2 steps "
+          f"bit-identical to eager {not bad} [{card}]", flush=True)
+    if built != 1 or evicted != 1 or bad or not moved:
+        fail(f"{tag}: after load_parameters {built} build(s), {evicted} "
+             f"eviction(s), {moved} tensors moved, mismatches {bad[:6]}")
+    return dict(moved=moved, built=built, evicted=evicted,
+                identical=not bad)
+
+
+def hold_captured_forward(tag, net, inputs, card, want):
+    """The hybridized inference forward replayed from its CUDA graph
+    against the same forward run eagerly (no_capture): the outputs bit
+    for bit, `want` kernel launches a call on both; each path timed by
+    CUDA events and profiled; the captures' seconds and pools."""
+    from mxnet_tpu_torch.gluon import block as gblock
+    from mxnet_tpu_torch import _graphs as graphs
+
+    def run():
+        with torch.inference_mode():
+            return net(*inputs)
+
+    def leaves(o):
+        return [o] if isinstance(o, torch.Tensor) else list(o)
+
+    run()  # the build, if this shape has none yet
+    outs, counts, ms, prof = {}, {}, {}, {}
+    for mode in ("captured", "eager"):
+        with contextlib.ExitStack() as stack:
+            if mode == "eager":
+                stack.enter_context(graphs.no_capture())
+            torch.cuda.synchronize()
+            reset_kernel_counts()
+            outs[mode] = leaves(run())
+            torch.cuda.synchronize()
+            counts[mode] = kernel_counts()
+            ms[mode] = time_ms(run, iters=5, warmup=1)
+            prof[mode] = profile_device(run, f"{tag} {mode}", "forward",
+                                        card, ms[mode], iters=3, top=6)
+    same = len(outs["captured"]) == len(outs["eager"]) and all(
+        torch.equal(a, b) for a, b in zip(outs["captured"], outs["eager"]))
+    if not same:
+        fail(f"{tag}: the captured forward's outputs differ from the eager "
+             f"forward's")
+    if counts["captured"] != counts["eager"] or any(
+            counts["captured"][k] != want.get(k, 0)
+            for k in counts["captured"]):
+        fail(f"{tag}: launches captured {counts['captured']}, eager "
+             f"{counts['eager']} (want {want})")
+    cap_s, gib = graph_costs(gblock._FWD_CACHE.entries(net))
+    res = dict(captured_ms=ms["captured"], eager_ms=ms["eager"],
+               idle_captured=idle_of(prof["captured"]),
+               idle_eager=idle_of(prof["eager"]), capture_s=cap_s,
+               pool_gib=gib, identical=same, launches=counts["captured"])
+    print(f"{tag}: captured {ms['captured']:.3f} ms, eager "
+          f"{ms['eager']:.3f} ms ({ms['eager'] / ms['captured']:.2f}x), "
+          f"idle captured {pct(res['idle_captured'])} eager "
+          f"{pct(res['idle_eager'])}; captures of this net {cap_s:.2f} s, "
+          f"graph pools {gib:.2f} GiB; outputs bit-identical {same}; "
+          f"launches a call {counts['captured']} [{card}]", flush=True)
+    return res
 
 
 # ---------------------------------------------------------------------------
@@ -1685,10 +1955,13 @@ def one_step(net, w0, xb, yb, fused):
     read as the step computes it, before w1 is rounded to the weight's
     dtype: the new momentum, which SGD's first step sets to w1 - w0 (a
     bf16 weight would round most of a 0.1·g step away)."""
+    from mxnet_tpu_torch import _graphs as graphs
+
     restore(net, w0)
     set_knobs(fused, fused)
     trainer = new_trainer(net)
-    losses, fwd, bwd, _ = counted_steps(trainer, xb, yb, 1)
+    with graphs.no_capture():  # one step of a fresh trainer: no capture
+        losses, fwd, bwd, _ = counted_steps(trainer, xb, yb, 1)
     return losses[0], fwd, bwd, {k: s[0] for k, s in trainer.opt_state.items()}
 
 
@@ -1989,6 +2262,23 @@ def phase_train(card):
     result["launches"] = launches
     result["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
     print(f"train peak device memory {result['peak_gib']:.1f} GiB", flush=True)
+    # the compiled step against the eager step, fused then op-granular
+    # (one trainer's graphs at a time), and a reload's new capture
+    set_knobs(True, True)
+    result["compiled"] = {"fused": hold_captured_steps(
+        f"compiled: train bf16 batch {TRAIN_BATCH} fused", trainers[True],
+        (xb, yb), card, {"k1": FWD_PER_STEP, "k2": BWD_PER_STEP})}
+    result["moved_storage"] = hold_moved_storage(
+        f"compiled: train bf16 batch {TRAIN_BATCH} fused", trainers[True],
+        (xb, yb), card)
+    del trainers[True]
+    gc.collect()
+    torch.cuda.empty_cache()
+    set_knobs(False, False)
+    result["compiled"]["unfused"] = hold_captured_steps(
+        f"compiled: train bf16 batch {TRAIN_BATCH} op-granular",
+        trainers[False], (xb, yb), card, {})
+    set_knobs(True, True)
     return result, refs
 
 
@@ -2651,10 +2941,70 @@ def gluon_steps(net, trainer, xb, yb, steps):
             fcb.bwd_launch_count(), dt)
 
 
-def gluon_trainer(net):
+def gluon_trainer(net, fuse_step=None):
     from mxnet_tpu_torch import gluon
 
-    return gluon.Trainer(net.collect_params(), "sgd", dict(TRAIN_OPT))
+    return gluon.Trainer(net.collect_params(), "sgd", dict(TRAIN_OPT),
+                         fuse_step=fuse_step)
+
+
+def hold_fused_update(tag, net, w0, xb, yb, card):
+    """gluon.Trainer's captured update (the default, FusedUpdater) against
+    its eager per-parameter loop (fuse_step=False), each from `w0` with
+    fresh optimizer state: 1 + CAPTURE_K steps, then every parameter,
+    buffer and momentum and every loss bit for bit, 52/46 launches a
+    step on both, one build.  Then the two trainers step the same net in
+    turns (captured, eager, eager, captured), CAPTURE_K steps a turn (ms
+    by the host clock around synchronised steps), and one profiled step
+    each gives its idle share; the update's capture seconds and pool."""
+    from mxnet_tpu_torch.optimizer import fused
+
+    runs, trainers = {}, {}
+    for fuse in (True, False):
+        restore(net, w0)
+        tr = trainers[fuse] = gluon_trainer(net, fuse_step=fuse)
+        n0 = fused.compile_stats()["count"]
+        first = gluon_steps(net, tr, xb, yb, 1)
+        losses, fwd, bwd, _ = gluon_steps(net, tr, xb, yb, CAPTURE_K)
+        moms = {i: st._data.clone() for i, st in tr._updater.states.items()}
+        runs[fuse] = dict(
+            losses=first[0] + losses, launches=(fwd, bwd),
+            state=snapshot(net), moms=moms,
+            built=fused.compile_stats()["count"] - n0,
+            cost=graph_costs(fused._FUSED_CACHE.entries(tr._updater)))
+    f, e = runs[True], runs[False]
+    bad = [k for k in f["state"] if not torch.equal(f["state"][k],
+                                                    e["state"][k])]
+    bad += [f"momentum {i}" for i in f["moms"]
+            if not torch.equal(f["moms"][i], e["moms"][i])]
+    bad += [] if f["losses"] == e["losses"] else ["losses"]
+    want = (FWD_PER_STEP * CAPTURE_K, BWD_PER_STEP * CAPTURE_K)
+    if bad or f["built"] != 1 or e["built"] != 0 \
+            or f["launches"] != want or e["launches"] != want:
+        fail(f"{tag}: the captured update differs from the eager loop "
+             f"({bad[:6]}), builds {f['built']}/{e['built']}, launches "
+             f"{f['launches']}/{e['launches']} (want {want})")
+    ms = {True: [], False: []}
+    for fuse in (True, False, False, True):
+        ms[fuse].append(gluon_steps(net, trainers[fuse], xb, yb,
+                                    CAPTURE_K)[3] * 1e3)
+    ms = {k: sum(v) / len(v) for k, v in ms.items()}
+    idle = {fuse: idle_of(profile_device(
+        lambda: gluon_steps(net, trainers[fuse], xb, yb, 1),
+        f"{tag} {'captured update' if fuse else 'eager loop'}", "step",
+        card, ms[fuse], iters=1, top=4)) for fuse in (True, False)}
+    print(f"{tag}: captured update {ms[True]:.1f} ms/step, eager loop "
+          f"{ms[False]:.1f} ms/step ({ms[False] / ms[True]:.3f}x), idle "
+          f"captured {pct(idle[True])} eager {pct(idle[False])}; update "
+          f"built {f['built']} time(s), capture {f['cost'][0]:.3f} s, pool "
+          f"{f['cost'][1]:.3f} GiB; {1 + CAPTURE_K} steps bit-identical "
+          f"{not bad} ({len(f['state'])} parameters and buffers, "
+          f"{len(f['moms'])} momenta); launches {f['launches']} and "
+          f"{e['launches']} in {CAPTURE_K} steps [{card}]", flush=True)
+    return dict(captured_ms=ms[True], eager_ms=ms[False],
+                idle_captured=idle[True], idle_eager=idle[False],
+                built=f["built"], capture_s=f["cost"][0],
+                pool_gib=f["cost"][1], identical=not bad)
 
 
 def gluon_one_step(net, w0, xb, yb):
@@ -2864,9 +3214,9 @@ def phase_imperative(card, refs, dev=torch.device("cuda", 0)):
               f"{' '.join(f'{v:.4f}' for v in losses)}, launches fwd {fwd} "
               f"bwd {bwd} [{card}]", flush=True)
     ratio = [a / b for a, b in zip(runs["gluon"], reversed(runs["spmd"]))]
-    print(f"imperative: gluon.Trainer / SPMDTrainer fused step "
-          f"{' '.join(f'{r:.3f}' for r in ratio)} (predicted 0.9-1.15) "
-          f"[{card}]", flush=True)
+    print(f"imperative: gluon.Trainer (eager forward and backward, captured "
+          f"update) / SPMDTrainer fused step (captured) "
+          f"{' '.join(f'{r:.3f}' for r in ratio)} [{card}]", flush=True)
     res["ms_per_step"] = runs
     res["ratio"] = ratio
     res["launches"] = launches
@@ -2880,6 +3230,11 @@ def phase_imperative(card, refs, dev=torch.device("cuda", 0)):
             busy_ms=prof["busy_ms"], wall_ms=prof["wall_ms"],
             idle=1 - prof["busy_ms"] / prof["wall_ms"])
     del nets, trainers
+    gc.collect()
+    torch.cuda.empty_cache()
+    res["compiled"] = hold_fused_update(
+        f"compiled: imperative bf16 batch {TRAIN_BATCH} gluon.Trainer", net,
+        w0, xb, yb, card)
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -3037,9 +3392,12 @@ def adam_step_state(step, w0, batch, lr):
     {leaf: second moment})."""
     from mxnet_tpu_torch.examples import bench_steps as bs
 
+    from mxnet_tpu_torch import _graphs as graphs
+
     restore(step, w0)
     tr = bs.spmd_trainer(step, lr)
-    losses, counts, _ = timed_steps(tr, batch, 1)
+    with graphs.no_capture():  # one step of a fresh trainer: no capture
+        losses, counts, _ = timed_steps(tr, batch, 1)
     names = tr._trainable
     return (losses[0], counts,
             {n: tr.params[n].detach().clone() for n in names},
@@ -3314,11 +3672,14 @@ def phase_transformer(card):
     print(f"bert-base pretrain: built, initialised and cast in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     bsz = batch[0].shape[0]
+    tr = bs.spmd_trainer(step, BERT_TRAIN_LR)
     res["bert"] = train_phase9(
         f"bert-base pretrain (config 3) bf16 batch {bsz} x {BERT_SEQ}, Adam "
-        f"lr {BERT_TRAIN_LR}, dropout 0.1", bs.spmd_trainer(
-            step, BERT_TRAIN_LR), batch, bsz, "samples", card)
-    del step
+        f"lr {BERT_TRAIN_LR}, dropout 0.1", tr, batch, bsz, "samples", card)
+    res["bert"]["compiled"] = hold_captured_steps(
+        "compiled: bert-base pretrain dropout 0.1", tr, batch, card, {},
+        dropout=True)
+    del step, tr
     gc.collect()
     torch.cuda.empty_cache()
     # (b) the same step at dropout 0: 12 kernel-5 launches in the forward,
@@ -3330,7 +3691,13 @@ def phase_transformer(card):
     res["bert_dropout0"], w_k, m_k = bert_agreement(step0, w0, batch, card)
     res["bert_dropout0"]["tie"] = check_tied_once(step0, w0, batch, w_k, m_k,
                                                   card)
-    del w_k, m_k, step0, w0, batch
+    del w_k, m_k
+    restore(step0, w0)
+    tr = bs.spmd_trainer(step0, BERT_TRAIN_LR)
+    res["bert_dropout0"]["compiled"] = hold_captured_steps(
+        "compiled: bert-base pretrain dropout 0", tr, batch, card,
+        {"k5": BERT_LAYERS})
+    del step0, w0, batch, tr
     gc.collect()
     torch.cuda.empty_cache()
     res["bert_dropout0"]["backward"] = recompute_timing(card)
@@ -3339,12 +3706,16 @@ def phase_transformer(card):
     nmt = bs.init_step(bs.transformer_step("full", dropout=0.1),
                        init.Xavier(), ctx=gpu(0), seed=0, dtype="bfloat16",
                        warm=tbatch[:4])
+    tr = bs.spmd_trainer(nmt, NMT_TRAIN_LR)
     res["nmt"] = train_phase9(
         f"transformer-base NMT (config 5) bf16 batch {tbatch[0].shape[0]}, "
         f"bucket ({tbatch[0].shape[1]}, {tbatch[1].shape[1]}), Adam lr "
-        f"{NMT_TRAIN_LR}, dropout 0.1", bs.spmd_trainer(nmt, NMT_TRAIN_LR),
-        tbatch, tbatch[1].numel(), "tokens", card)
-    del tbatch
+        f"{NMT_TRAIN_LR}, dropout 0.1", tr, tbatch, tbatch[1].numel(),
+        "tokens", card)
+    res["nmt"]["compiled"] = hold_captured_steps(
+        "compiled: transformer-base NMT dropout 0.1", tr, tbatch, card, {},
+        dropout=True)
+    del tbatch, tr
     gc.collect()
     torch.cuda.empty_cache()
     # (d) greedy decoding of DECODE_BATCH sources through kernel 5, from

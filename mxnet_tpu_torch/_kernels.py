@@ -17,6 +17,14 @@ threads race the first forward, so the build and load run once, under
 ``_BUILD_LOCK`` (the counterpart of ``_PROBE_LOCK`` in the JAX
 package's ``ops/pallas_convbn.py``).
 There is no fallback: a failed build raises.
+
+Launch counters live here too, one per kernel by name: a wrapper adds
+one where it launches its kernel (:func:`count_launch`).  While a CUDA
+graph is being captured (``_graphs``), a wrapper called on the
+capturing stream records into nothing: the launch runs only when the
+graph replays, so the capture keeps a tally of its own
+(:func:`capture_tally`) and the graph's owner adds it to the counters on
+every replay (:func:`add_launches`).
 """
 from __future__ import annotations
 
@@ -27,12 +35,15 @@ import shutil
 import subprocess
 import threading
 import time
+from contextlib import contextmanager
 from pathlib import Path
-from typing import Optional
+from typing import Dict, Optional
 
 from .base import MXNetError
 
-__all__ = ["load", "build", "BUILD_DIR", "last_build"]
+__all__ = ["load", "build", "BUILD_DIR", "last_build", "count_launch",
+           "launch_count", "reset_launch_count", "capture_tally",
+           "add_launches"]
 
 _PKG = Path(__file__).resolve().parent
 _SRC_DIR = _PKG / "csrc"
@@ -172,3 +183,56 @@ def last_build() -> dict:
 
 def error_string(code: int) -> str:
     return load().mx_cuda_error_string(int(code)).decode()
+
+
+_COUNT_LOCK = threading.Lock()
+_COUNTS: Dict[str, int] = {}
+# the tally of the capture underway, if any (one capture at a time)
+_TALLY: list = [None]
+
+
+def count_launch(name: str) -> None:
+    """One launch of kernel ``name``.  Called by its wrapper inside the
+    launch's device scope: on a stream under capture the launch goes to
+    the capture's tally, not to the counter."""
+    import torch
+
+    with _COUNT_LOCK:
+        tally = _TALLY[0]
+        if tally is not None and torch.cuda.is_current_stream_capturing():
+            tally[name] = tally.get(name, 0) + 1
+        else:
+            _COUNTS[name] = _COUNTS.get(name, 0) + 1
+
+
+def launch_count(name: str) -> int:
+    with _COUNT_LOCK:
+        return _COUNTS.get(name, 0)
+
+
+def reset_launch_count(name: str) -> None:
+    with _COUNT_LOCK:
+        _COUNTS[name] = 0
+
+
+def add_launches(tally: Dict[str, int]) -> None:
+    """A replay's launches: the tally its capture recorded."""
+    if tally:
+        with _COUNT_LOCK:
+            for k, v in tally.items():
+                _COUNTS[k] = _COUNTS.get(k, 0) + v
+
+
+@contextmanager
+def capture_tally():
+    """The launches recorded while the block captures, by kernel name."""
+    tally: Dict[str, int] = {}
+    with _COUNT_LOCK:
+        if _TALLY[0] is not None:
+            raise MXNetError("a CUDA graph capture is already underway")
+        _TALLY[0] = tally
+    try:
+        yield tally
+    finally:
+        with _COUNT_LOCK:
+            _TALLY[0] = None

@@ -32,6 +32,7 @@ import torch
 from .. import context as _context
 from ..base import MXNetError
 from ..gluon.block import dtype_of, load_numpy_params
+from .. import _graphs
 
 __all__ = ["export_model", "import_model", "ServedModel", "FORMAT"]
 
@@ -76,7 +77,8 @@ def export_model(block, path: str, example_inputs: Sequence,
     was_training = block.training
     block.eval()
     try:
-        with torch.inference_mode():
+        # a one-off forward: no graph is captured for it
+        with torch.inference_mode(), _graphs.no_capture():
             out = block(*[x.to(dev) for x in xs])
     finally:
         block.train(was_training)
@@ -111,7 +113,10 @@ def export_model(block, path: str, example_inputs: Sequence,
 
 class ServedModel:
     """A reloaded artifact: the rebuilt network, hybridized, in eval mode,
-    on one device.  Tensors in, tensors out."""
+    on one device.  Tensors in, tensors out.  ``run`` goes through the
+    network's CachedOp (``gluon.block``): one CUDA graph per padded
+    bucket, captured by its first batch, and fresh output tensors each
+    call, so a batcher may slice them into request futures."""
 
     def __init__(self, net, meta: dict, device: torch.device):
         self.net = net

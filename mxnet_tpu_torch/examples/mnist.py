@@ -7,9 +7,14 @@ Usage:  python -m mxnet_tpu_torch.examples.mnist [--cpu] [--epochs N]
 
 It trains on gpu(0) and raises without a CUDA device unless --cpu is
 given.  The port has no deferred shapes, so each Dense names in_units.
+A run seeds the shuffle (the sampler draws from numpy's global
+generator, as in the JAX package) and the port's generators with 0, so
+it is the same whatever ran before it in its process.
 """
 import argparse
 import time
+
+import numpy as np
 
 import mxnet_tpu_torch as mx
 from mxnet_tpu_torch import autograd, gluon
@@ -32,6 +37,8 @@ def run(epochs=5, ctx=None, hybridize=True, batch_size=100, lr=0.1,
         keep=None):
     """Train and validate; returns the val accuracy.  ``keep``, a dict,
     receives the net, the trainer and the last epoch's samples/s."""
+    np.random.seed(0)
+    mx.random.seed(0)
     ctx = ctx or mx.current_context()
     train_data = gluon.data.DataLoader(
         gluon.data.vision.MNIST(train=True).transform(transformer),

@@ -9,11 +9,23 @@ Counterpart of ``mxnet_tpu/gluon/block.py``:
     ``load_parameters`` key on them, and a file written by the JAX
     package's ``save_parameters`` loads here.  BatchNorm running
     statistics are buffers.
-  * ``hybridize()`` has no program to compile — PyTorch runs eagerly.
-    It switches on a trace scope (:class:`ActiveTrace`, read through
-    :func:`current_trace`) around the forward, with the same ``train``
-    flag, so that code gated on a trace (the fused ResNet path) behaves
-    as in the JAX package.
+  * ``hybridize()`` switches on a trace scope (:class:`ActiveTrace`,
+    read through :func:`current_trace`) around the forward, with the
+    same ``train`` flag, so that code gated on a trace (the fused ResNet
+    path) behaves as in the JAX package.  The outermost hybridized
+    forward is the counterpart of the JAX package's ``CachedOp``: run
+    outside autograd recording (PyTorch's grad mode off: inference, the
+    served forward, ``net(x)`` on NDArrays outside ``record()``), it is
+    captured as a CUDA graph once per signature — the block, the train
+    and inference-mode flags, the fused-unit knobs, the inputs' shapes,
+    dtypes, strides and device, and the address of every parameter and
+    buffer — and replayed per call (``_graphs``; on CPU tensors
+    the same cache runs the forward eagerly).  Its outputs are fresh
+    tensors each call.  Under ``autograd.record()`` the forward runs
+    eagerly in the trace scope, as before (a training-mode CachedOp
+    needs separate forward and backward graphs).  Inputs that are not
+    all tensors of one device run eagerly; so does a thread inside
+    ``_graphs.no_capture()``.
   * The train flag: inside a trace scope, the scope's; inside the
     NDArray entry point, ``autograd.is_training()``; else (tensor
     callers outside any scope) ``module.training``.  Calling a block on
@@ -58,10 +70,13 @@ from .. import initializer as init_mod
 from .. import ops as _ops
 from .. import random as _random
 from ..base import MXNetError, dtype_of
+from .. import _graphs
+from ..util import env as _env
 from .parameter import Parameter, ParameterDict
 
 __all__ = ["Block", "HybridBlock", "ActiveTrace", "current_trace",
-           "train_mode", "trace_generator", "load_numpy_params", "dtype_of"]
+           "train_mode", "trace_generator", "load_numpy_params", "dtype_of",
+           "cached_op_stats"]
 
 
 # ---------------------------------------------------------------------------
@@ -151,9 +166,12 @@ def _call_on_ndarrays(block, args, kwargs, method=None):
            for k, v in kwargs.items()}
     train = _autograd.is_training()
     gen = _random.generator(nds[0].ctx)
-    if getattr(block, "_active", False) and current_trace() is None:
+    if method is not None and getattr(block, "_active", False) \
+            and current_trace() is None:
+        # a stage of the block runs in its trace scope, not captured
         scope = ActiveTrace(train=train, generator=gen)
     else:
+        # a hybridized forward opens its own scope (and its CachedOp)
         scope = _Imperative(train, gen)
     with torch.set_grad_enabled(_autograd.is_recording()), scope:
         out = method(*targs, **tkw) if method is not None \
@@ -364,10 +382,63 @@ class HybridBlock(Block):
 
     def forward(self, x, *args):
         if self._active and current_trace() is None:
-            with ActiveTrace(train=train_mode(self),
-                             generator=trace_generator()):
+            train, gen = train_mode(self), trace_generator()
+            xs = (x,) + args
+            if not torch.is_grad_enabled() and _graphs.capture_enabled() \
+                    and _capturable(xs):
+                return _cached_forward(self, xs, train, gen)
+            with ActiveTrace(train=train, generator=gen):
                 return self.hybrid_forward(_ops, x, *args)
         return self.hybrid_forward(_ops, x, *args)
+
+
+# the CachedOp of the port: a hybridized forward captured per signature
+_FWD_CACHE = _graphs.ExecutableCache("gluon.cached_op", per_owner_max=16)
+
+
+def cached_op_stats():
+    """Hybridized-forward builds in this process (the shape of
+    ``optimizer.fused.compile_stats``)."""
+    return _FWD_CACHE.stats()
+
+
+def _capturable(xs) -> bool:
+    return all(isinstance(a, torch.Tensor) for a in xs) and \
+        len({a.device for a in xs}) == 1
+
+
+def param_keys(block) -> tuple:
+    """``_graphs.tensor_key`` of every parameter and buffer of
+    ``block``, each looked up on its module (a replaced tensor is seen as
+    well as one whose storage moved); the modules are found once."""
+    homes = block.__dict__.get("_graph_homes")
+    if homes is None:
+        homes = []
+        for mod in block.modules():
+            homes.extend((mod._parameters, n) for n in mod._parameters)
+            homes.extend((mod._buffers, n) for n in mod._buffers)
+        block.__dict__["_graph_homes"] = homes
+    key = _graphs.tensor_key
+    return tuple(key(d[n]) for d, n in homes if d[n] is not None)
+
+
+def _cached_forward(block, xs, train, gen):
+    """The block's forward through its CachedOp (see the module
+    docstring)."""
+    dev = xs[0].device
+    slot = (train, torch.is_inference_mode_enabled(), _env.trace_knobs(),
+            tuple((tuple(a.shape), a.dtype, a.stride()) for a in xs),
+            str(dev))
+    sig = (slot, param_keys(block))
+    gens = (gen,) if gen is not None and gen.device.type == "cuda" else ()
+
+    def make_fn():
+        def fn(*inputs):
+            with ActiveTrace(train=train, generator=gen):
+                return block.hybrid_forward(_ops, *inputs)
+        return fn
+    return _FWD_CACHE.run(block, slot, sig, make_fn, xs, dev,
+                          generators=gens)
 
     def hybrid_forward(self, F, x, *args):
         raise NotImplementedError

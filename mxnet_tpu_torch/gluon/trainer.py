@@ -5,21 +5,29 @@ an Optimizer to a ParameterDict, one parameter at a time.
 ``rescale_grad = scale / batch_size``: ``loss.backward()`` on the
 per-sample loss sums the gradient over the batch (a head gradient of
 ones), and the update op rescales it.  Each trainable parameter goes
-through the ``Updater``'s update op (``sgd_mom_update``, ...) — the ops
+through the update op (``sgd_mom_update``, ...) — the ops
 ``parallel.SPMDTrainer`` runs — written back in place under
 ``torch.no_grad``.
+
+The update is fused by default, as in the JAX package
+(``_fuse_resolved``): ``optimizer.FusedUpdater.update_all`` runs every
+parameter's update as one CUDA graph per signature on the card (eagerly,
+through the same cache, on the CPU), with the eager loop's bits; the
+per-parameter ``Updater`` loop runs under ``fuse_step=False``, for an
+optimizer without a fused path, and where ``FusedUnsupported`` says the
+fused step cannot be exact.
 
 Each parameter lives on one device, so the KVStore ('local'/'device')
 has no replicas to sum and ``allreduce_grads`` moves nothing; a
 distributed store raises.  Not ported, and refused rather than ignored:
 several contexts per parameter, gradient compression, the kvstore-side
-update (ROADMAP queue A item 7), the fused update (``fuse_step=True``)
-and the SPMD mesh step (``spmd=True``) (item 4).  The chaos, goodput and
-tracing hooks are item 10.
+update (ROADMAP queue A item 7) and the SPMD mesh step (``spmd=True``)
+(item 4).  The chaos, goodput and tracing hooks are item 10.
 """
 from __future__ import annotations
 
 import pickle
+import warnings
 from typing import Dict, List
 
 from .. import kvstore as kvs_mod
@@ -34,9 +42,6 @@ class Trainer:
     def __init__(self, params, optimizer, optimizer_params=None,
                  kvstore="device", compression_params=None,
                  update_on_kvstore=None, fuse_step=None, spmd=None):
-        if fuse_step:
-            raise MXNetError("Trainer(fuse_step=True): the fused update "
-                             "(FusedUpdater) is ROADMAP queue A item 4")
         if spmd:
             raise MXNetError("Trainer(spmd=True): the SPMD mesh step is "
                              "ROADMAP queue A item 4; data parallel "
@@ -67,6 +72,10 @@ class Trainer:
         self._kvstore = None
         self._kv_initialized = False
         self._states_to_load = None
+        # None = auto: fuse when the optimizer has a fused path
+        self._fuse_step = fuse_step
+        self._fuse_active = None
+        self._fuse_update_ok = True
 
     def _init_optimizer(self, optimizer, optimizer_params):
         param_dict = {i: p for i, p in enumerate(self._params)}
@@ -79,7 +88,24 @@ class Trainer:
         else:
             self._optimizer = opt_mod.create(optimizer, param_dict=param_dict,
                                              **optimizer_params)
-        self._updater = opt_mod.get_updater(self._optimizer)
+        # FusedUpdater extends Updater (the same states, the same saved
+        # payload); its per-parameter __call__ is the eager loop
+        self._updater = opt_mod.FusedUpdater(self._optimizer)
+
+    def _fuse_resolved(self) -> bool:
+        """Whether the fused update is engaged (decided once).  An
+        explicit ``fuse_step=True`` with an optimizer that has no fused
+        path falls back with one warning: the fused update changes
+        nothing but speed."""
+        if self._fuse_active is None:
+            allowed = self._optimizer.fused_static_key() is not None
+            if self._fuse_step and not allowed:
+                warnings.warn(
+                    "Trainer(fuse_step=True) needs an optimizer with a "
+                    "fused path; falling back to the eager per-parameter "
+                    "loop.", UserWarning, stacklevel=3)
+            self._fuse_active = allowed and self._fuse_step is not False
+        return self._fuse_active
 
     def _init_kvstore(self):
         kind = self._kvstore_kind
@@ -133,10 +159,33 @@ class Trainer:
         self._update(ignore_stale_grad)
 
     def _update(self, ignore_stale_grad: bool = False):
+        if self._fuse_resolved() and self._fuse_update_ok \
+                and self._update_fused():
+            return
         for i, p in enumerate(self._params):
             if p.grad_req == "null":
                 continue
             self._updater(i, p.grad(), p.data())
+
+    def _update_fused(self) -> bool:
+        """One captured update over every trainable parameter; False
+        (the caller runs the eager loop) when the parameters live on
+        several devices or the fused step cannot be exact."""
+        idxs = [i for i, p in enumerate(self._params)
+                if p.grad_req != "null"]
+        if not idxs:
+            return True
+        plist = [self._params[i] for i in idxs]
+        if len({p.list_ctx()[0] for p in plist}) != 1:
+            return False
+        try:
+            self._updater.update_all(idxs, [p.grad() for p in plist],
+                                     [p.data() for p in plist])
+        except opt_mod.FusedUnsupported:
+            # fixed for the run (optimizer class, weight dtypes): latch
+            self._fuse_update_ok = False
+            return False
+        return True
 
     def save_states(self, fname: str):
         """The optimizer states, pickled as numpy arrays by parameter

@@ -32,7 +32,6 @@ twin.
 from __future__ import annotations
 
 import math
-import threading
 from typing import NamedTuple
 
 import torch
@@ -73,18 +72,17 @@ def launch_plan(b, h, s, sk, d, dtype):
         passes, cols = 2, d
     return AttentionPlan(tile, passes, cols, b * h * -(-s // tile))
 
-_COUNT_LOCK = threading.Lock()
-_LAUNCHES = [0]
+# launches of the CUDA kernel (``_kernels.count_launch``); a graph's
+# replay adds those its capture recorded
+_NAME = "dot_product_attention"
 
 
 def attention_launch_count() -> int:
-    with _COUNT_LOCK:
-        return _LAUNCHES[0]
+    return _kernels.launch_count(_NAME)
 
 
 def reset_attention_launch_count() -> None:
-    with _COUNT_LOCK:
-        _LAUNCHES[0] = 0
+    _kernels.reset_launch_count(_NAME)
 
 
 def _scores(q, k, mask, scale, causal):
@@ -119,10 +117,14 @@ def dot_product_attention_ref(q, k, v, mask, scale, causal=False):
 def _attention_with_prob_dropout(q, k, v, mask, scale, rate, generator,
                                  causal=False):
     """The plain math with inverted dropout on the probabilities (rate
-    `rate`), the mask drawn from ``generator`` on q's device."""
+    `rate`), the mask drawn from ``generator`` on q's device: this
+    rank's (B*H)-rows of the mask of the global batch under data
+    parallelism (``parallel.sharding.rand_batch``)."""
+    from ..parallel.sharding import rand_batch
+
     p = _softmax(_scores(q, k, mask, scale, causal)).to(v.dtype)
     keep = 1.0 - rate
-    drop = torch.rand(p.shape, generator=generator, device=p.device) < keep
+    drop = rand_batch(p.shape, generator, p.device) < keep
     p = p * drop.to(p.dtype) / keep
     return torch.matmul(p.float(), v.float()).to(q.dtype)
 
@@ -194,11 +196,11 @@ def _launch(q, k, v, mask, scale, causal, out):
             None if mask is None else mask.data_ptr(), out.data_ptr(), b, h,
             s, sk, d, *strides, float(scale), int(causal), plan.passes,
             stream)
+        if rc == 0:
+            _kernels.count_launch(_NAME)
     if rc != 0:
         raise MXNetError(f"dot_product_attention: CUDA launch failed: "
                          f"{_kernels.error_string(rc)} (code {rc})")
-    with _COUNT_LOCK:
-        _LAUNCHES[0] += 1
     return out
 
 

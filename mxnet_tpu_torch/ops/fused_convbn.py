@@ -49,7 +49,6 @@ count them once per rank.
 from __future__ import annotations
 
 import functools
-import threading
 from typing import NamedTuple, Optional, Tuple
 
 import torch
@@ -69,31 +68,26 @@ __all__ = ["fused_conv_unit", "fused_conv_unit_ref", "fused_conv_unit_bwd",
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
-# launches of the CUDA kernels: one per wrapper call that launched one
-# (forward, backward)
-_COUNT_LOCK = threading.Lock()
-_LAUNCHES = [0]
-_BWD_LAUNCHES = [0]
+# launches of the CUDA kernels (``_kernels.count_launch``): one per
+# wrapper call that launched one, and a graph's replay adds those its
+# capture recorded (forward, backward)
+_FWD, _BWD = "fused_conv_unit", "fused_conv_unit_bwd"
 
 
 def launch_count() -> int:
-    with _COUNT_LOCK:
-        return _LAUNCHES[0]
+    return _kernels.launch_count(_FWD)
 
 
 def reset_launch_count() -> None:
-    with _COUNT_LOCK:
-        _LAUNCHES[0] = 0
+    _kernels.reset_launch_count(_FWD)
 
 
 def bwd_launch_count() -> int:
-    with _COUNT_LOCK:
-        return _BWD_LAUNCHES[0]
+    return _kernels.launch_count(_BWD)
 
 
 def reset_bwd_launch_count() -> None:
-    with _COUNT_LOCK:
-        _BWD_LAUNCHES[0] = 0
+    _kernels.reset_launch_count(_BWD)
 
 
 # read-only fp32 zeros per (device, Co): the s1/s2 of a launch without
@@ -225,11 +219,11 @@ def _launch(x, w_ohwi, in_scale, in_bias, shift, kernel, stride, pad,
             y.data_ptr(), *ptrs, n, h, wd, ci, co, kernel[0], kernel[1],
             stride[0], stride[1], pad[0], pad[1], int(act_in),
             int(want_stats), bm, bn, rows, stream)
+        if rc == 0:
+            _kernels.count_launch(_FWD)
     if rc != 0:
         raise MXNetError(f"fused_conv_unit: CUDA launch failed: "
                          f"{_kernels.error_string(rc)} (code {rc})")
-    with _COUNT_LOCK:
-        _LAUNCHES[0] += 1
     return y, s1, s2
 
 
@@ -448,11 +442,11 @@ def _launch_bwd(x, w, in_scale, in_bias, shift, y, gy, gs1, gs2, kernel,
             wd, ci, co, kernel[0], kernel[1], pad[0], pad[1], int(act_in),
             int(want_stats), *plan.dgrad_tile, *plan.wgrad_tile,
             plan.splits, plan.part_rows, stream)
+        if rc == 0:
+            _kernels.count_launch(_BWD)
     if rc != 0:
         raise MXNetError(f"fused_conv_unit_bwd: CUDA launch failed: "
                          f"{_kernels.error_string(rc)} (code {rc})")
-    with _COUNT_LOCK:
-        _BWD_LAUNCHES[0] += 1
     return gx, dw, gscale, gbias
 
 

@@ -23,6 +23,7 @@ import torch.nn.functional as F
 from ..base import MXNetError
 from ..parallel import dist
 from ..parallel.mesh import batch_shards
+from ..parallel.sharding import rand_batch
 from ..util import env
 from .registry import register_op
 
@@ -204,15 +205,15 @@ def dropout(data, p=0.5, mode="training", train=False, generator=None):
     """Inverted dropout: zero with probability p and rescale by 1/(1-p)
     when ``train`` or ``mode="always"``, the mask drawn from
     ``generator`` on data's device; the identity otherwise or when p is
-    0."""
+    0.  Under data parallelism the mask is this rank's rows of the mask
+    of the global batch (``parallel.sharding.rand_batch``)."""
     if not (mode == "always" or train) or p == 0.0:
         return data
     if generator is None:
         raise MXNetError("dropout: applying dropout draws from a "
                          "torch.Generator; pass generator=")
     keep = 1.0 - p
-    mask = torch.rand(data.shape, generator=generator,
-                      device=data.device) < keep
+    mask = rand_batch(data.shape, generator, data.device) < keep
     return data * mask.to(data.dtype) / keep
 
 

@@ -21,6 +21,16 @@ package's as its SPMD step runs them, which differ from PyTorch's own:
   afterwards, the eager ``Adam`` the bias-corrected rate), so it is weak
   like the other scalars: a bf16 weight keeps the whole update in bf16,
   where ``0.999 * v`` rounds back to v.
+
+A captured step (``optimizer.fused``) passes the scalars that change
+from step to step as 0-d fp32 tensors on the device, written before
+each replay: ``lr`` (``SPMDTrainer``), and ``lr``, ``wd`` and
+``rescale_grad`` per parameter (``FusedUpdater``).  They give the bits
+of the Python floats they hold: an fp32 ``lr`` multiplies as the float
+does after its cast to fp32, and a weak scalar is cast to the tensor's
+dtype, as :func:`_weak` rounds the float (through fp32 in both).
+``momentum``, the betas, ``epsilon`` and ``clip_gradient`` stay Python
+floats: they are part of the captured step's signature.
 """
 from __future__ import annotations
 
@@ -40,15 +50,21 @@ def _round_to(value: float, dtype: torch.dtype) -> float:
     return float(torch.tensor(value, dtype=dtype))
 
 
-def _weak(value, t) -> float:
+def _weak(value, t):
     """A Python scalar as JAX's weak typing sees it next to tensor ``t``:
-    rounded to ``t``'s dtype."""
+    rounded to ``t``'s dtype (a 0-d tensor: cast to it)."""
+    if isinstance(value, torch.Tensor):
+        return value.to(t.dtype)
     return _round_to(float(value), t.dtype)
 
 
 def _lr_times(lr, g):
-    """``lr * g`` with lr an fp32 scalar that promotes a half ``g``."""
-    return g.to(torch.promote_types(g.dtype, torch.float32)) * float(lr)
+    """``lr * g`` with lr an fp32 scalar (a float or a 0-d fp32 tensor)
+    that promotes a half ``g``."""
+    acc = torch.promote_types(g.dtype, torch.float32)
+    if isinstance(lr, torch.Tensor):
+        return g.to(acc) * lr.to(acc)
+    return g.to(acc) * float(lr)
 
 
 def _rescale_clip(grad, rescale_grad, clip_gradient, wd, weight):

@@ -4,19 +4,21 @@
 ``wd_mult`` through ``param_dict``), ``SGD``, ``NAG`` and ``Adam``, and the
 serializable per-parameter ``Updater`` that ``gluon.Trainer`` runs.
 
-Two paths share the update ops of ``ops/optimizer_ops.py``:
+Three paths share the update ops of ``ops/optimizer_ops.py``:
 ``parallel.SPMDTrainer`` runs them through
-``parallel.functional_optimizer``, and the eager per-parameter path
-here (``update``/``update_multi_precision`` on NDArrays, the
-optimizer states as NDArrays) writes their results back into the
-weight and the states in place under ``torch.no_grad``.  The other ten
-optimizers of the JAX package and its ``FusedUpdater`` are ROADMAP queue
-A item 4.
+``parallel.functional_optimizer``; the eager per-parameter path here
+(``update``/``update_multi_precision`` on NDArrays, the optimizer states
+as NDArrays) writes their results back into the weight and the states
+in place under ``torch.no_grad``; and ``fused.FusedUpdater`` runs each
+optimizer's ``fused_apply`` — the same ops on tensors, with the per-step
+scalars of ``fused_hyper`` as 0-d fp32 tensors — over every parameter
+in one captured step, giving the eager path's bits.  The other ten
+optimizers of the JAX package are ROADMAP queue A item 4.
 """
 from __future__ import annotations
 
 import pickle
-from typing import Any, Dict
+from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -146,6 +148,46 @@ class Optimizer:
                     clip_gradient=self.clip_gradient
                     if self.clip_gradient is not None else -1.0)
 
+    # ---- the fused step (optimizer/fused.py) -----------------------------
+    #
+    #   _FUSED_STATIC : the attributes the update math reads as Python
+    #       floats; they are part of the captured step's signature.  None
+    #       marks an optimizer without a fused path.
+    #   fused_hyper   : the per-step scalars of one parameter, on the
+    #       host (lr with its mult and any bias correction, wd with its
+    #       mult, rescale_grad); the captured step reads them from a
+    #       buffer written before each replay.
+    #   fused_apply   : the update on tensors, (weight, grad, state,
+    #       hyper) -> (new weight, new state), hyper of 0-d tensors.
+
+    _FUSED_STATIC: Optional[Tuple[str, ...]] = None
+    # True when fused_hyper carries the step count t (none of the three
+    # optimizers of the port): such a step takes the eager loop on half
+    # weights without a master copy (FusedUpdater.supports)
+    _FUSED_T_HYPER = False
+
+    def fused_static_key(self) -> Optional[Tuple]:
+        """The static attributes as a hashable key, or None when this
+        optimizer has no fused path."""
+        if self._FUSED_STATIC is None:
+            return None
+        return tuple((a, getattr(self, a)) for a in self._FUSED_STATIC)
+
+    def fused_hyper(self, index, t) -> Dict[str, float]:
+        return {"lr": float(self._get_lr(index)),
+                "wd": float(self._get_wd(index)),
+                "rescale_grad": float(self.rescale_grad)}
+
+    def _fused_common(self, hyper) -> Dict[str, Any]:
+        return dict(lr=hyper["lr"], wd=hyper["wd"],
+                    rescale_grad=hyper["rescale_grad"],
+                    clip_gradient=self.clip_gradient
+                    if self.clip_gradient is not None else -1.0)
+
+    def fused_apply(self, weight, grad, state, hyper):
+        raise NotImplementedError(
+            f"{type(self).__name__} does not implement the fused step")
+
     # ---- the eager update ------------------------------------------------
     def update(self, index, weight, grad, state):
         raise NotImplementedError
@@ -214,6 +256,16 @@ class SGD(Optimizer):
                 momentum=self.momentum, **kw))
 
 
+    _FUSED_STATIC = ("momentum", "clip_gradient")
+
+    def fused_apply(self, weight, grad, state, hyper):
+        kw = self._fused_common(hyper)
+        if state is None:
+            return ops.sgd_update(weight, grad, **kw), None
+        return getattr(ops, self._MOM_OP)(weight, grad, state,
+                                          momentum=self.momentum, **kw)
+
+
 @register("nag")
 class NAG(SGD):
     """SGD with Nesterov momentum (``nag_mom_update``)."""
@@ -250,6 +302,22 @@ class Adam(Optimizer):
         _write([weight, mean, var], ops.adam_update(
             weight._data, grad._data, mean._data, var._data,
             beta1=self.beta1, beta2=self.beta2, epsilon=self.epsilon, **kw))
+
+    _FUSED_STATIC = ("beta1", "beta2", "epsilon", "clip_gradient")
+
+    def fused_hyper(self, index, t):
+        h = super().fused_hyper(index, t)
+        # the eager path's host-side bias correction, in Python floats
+        h["lr"] *= (1.0 - self.beta2 ** t) ** 0.5 / (1.0 - self.beta1 ** t)
+        return h
+
+    def fused_apply(self, weight, grad, state, hyper):
+        mean, var = state
+        nw, nm, nv = ops.adam_update(weight, grad, mean, var,
+                                     beta1=self.beta1, beta2=self.beta2,
+                                     epsilon=self.epsilon,
+                                     **self._fused_common(hyper))
+        return nw, (nm, nv)
 
 
 class Updater:

@@ -4,7 +4,9 @@
 The JAX package returns a ``NamedSharding`` that GSPMD applies to a
 global array.  Here each rank is a process, so :func:`shard_batch` does
 the placement itself: rank r keeps the contiguous block r of dim 0, the
-block GSPMD gives device r of the ``dp`` axis.
+block GSPMD gives device r of the ``dp`` axis.  Random draws over the
+batch (dropout masks) follow the same rule: :func:`rand_batch` draws
+over the global batch and keeps this rank's block.
 """
 from __future__ import annotations
 
@@ -14,9 +16,9 @@ import torch
 
 from ..base import MXNetError
 from . import dist
-from .mesh import DeviceMesh, batch_shards, get_mesh
+from .mesh import DeviceMesh, batch_shards, current_mesh, get_mesh
 
-__all__ = ["shard_batch"]
+__all__ = ["shard_batch", "rand_batch"]
 
 
 def shard_batch(x: torch.Tensor,
@@ -35,3 +37,22 @@ def shard_batch(x: torch.Tensor,
     rows = n // shards
     r = dist.rank()
     return x[r * rows:(r + 1) * rows]
+
+
+def rand_batch(shape, generator: torch.Generator,
+               device) -> torch.Tensor:
+    """``torch.rand(shape)`` for this rank's rows, dim 0 being its block
+    of the batch (or batch-major rows, as (B*H, ...)).  Under a mesh that
+    splits the batch over N ranks every rank draws the tensor of the
+    global batch, N times as many rows, from the generator state they
+    share, and keeps its block r: the ranks together use the draw that
+    one device makes for the whole batch, as the JAX package draws one
+    mask a step from one key, and their generators stay in step."""
+    shards = batch_shards(current_mesh())
+    if shards == 1:
+        return torch.rand(shape, generator=generator, device=device)
+    rows = shape[0]
+    full = torch.rand((rows * shards,) + tuple(shape[1:]),
+                      generator=generator, device=device)
+    r = dist.rank()
+    return full[r * rows:(r + 1) * rows]

@@ -39,9 +39,31 @@ starts from, and keeps, the same state.
 
 BatchNorm running statistics are updated in place during the forward
 (the JAX package folds them back after the step; the values are the
-same).  Not ported in this slice: the step executable cache, ZeRO state
-sharding, flat optimizer groups, remat, checkpoints, partition specs,
-``forward`` under dp > 1 and the telemetry hooks (ROADMAP.md queue A).
+same).  Each parameter's ``lr_mult`` and ``wd_mult`` (read when the
+trainer is built, as the JAX package reads them) scale its lr and wd.
+
+The compiled step (the JAX package's ``_get_step``): on one device the
+whole step — forward, backward and update — is captured as a CUDA graph
+once per signature and replayed per call (``_graphs``).  The
+signature is the JAX package's (the block, the parameter names and
+mults, the optimizer class and statics, the devices, the inputs' shapes
+and dtypes) plus the fused-unit knobs the forward reads and the address
+of every parameter, buffer and state tensor: a tensor whose storage
+moved (``load_parameters``, ``cast``) forces a counted new capture,
+never a replay onto old storage.  A trainer keeps 16 signatures
+(``_STEP_FNS_MAX``); ``step_compile_stats()`` counts the builds.  The
+per-step scalars lr (fp32) and t (int32) live in device buffers that the
+host writes before each step, as the JAX step takes them as arguments,
+so ``set_learning_rate`` never captures again; dropout draws from the
+device's generator, registered with the graph, so each replay draws a
+fresh mask.  The step returns a fresh loss tensor each call.  Under
+dp > 1 the step stays eager (the process group's collectives are not
+captured; ``step_compile_stats()["eager"]`` counts those steps), and
+``_step_eager`` is the eager step the captured one is held against.
+
+Not ported in this slice: ZeRO state sharding, flat optimizer groups,
+remat, checkpoints, partition specs, ``forward`` under dp > 1 and the
+telemetry hooks (ROADMAP.md queue A).
 """
 from __future__ import annotations
 
@@ -51,28 +73,55 @@ import torch
 from torch import nn
 
 from ..base import MXNetError
-from ..gluon.block import ActiveTrace
+from ..gluon.block import ActiveTrace, param_keys
 from .. import ops
 from .. import optimizer as opt_mod
 from .. import random as _random
+from .. import _graphs
+from ..util import env as _env
 from . import dist
 from .mesh import DeviceMesh, batch_shards, current_mesh, make_mesh
 from .sharding import shard_batch
 
-__all__ = ["SPMDTrainer", "functional_optimizer", "FunctionalOptimizer"]
+__all__ = ["SPMDTrainer", "functional_optimizer", "FunctionalOptimizer",
+           "step_compile_stats"]
+
+# signatures a trainer keeps captured steps for (the JAX package's
+# per-trainer LRU of input shapes)
+_STEP_FNS_MAX = 16
+_STEP_CACHE = _graphs.ExecutableCache("parallel.spmd_step",
+                                     per_owner_max=_STEP_FNS_MAX)
+
+
+def step_compile_stats():
+    """SPMDTrainer step builds in this process (the shape of
+    ``optimizer.fused.compile_stats``)."""
+    return _STEP_CACHE.stats()
 
 
 class FunctionalOptimizer:
-    """Pure update ``(w, g, state, lr, t) -> (w', state')``."""
+    """Pure update ``(w, g, state, lr, t) -> (w', state')``.  lr is a
+    float or a 0-d fp32 tensor, t an int or a 0-d int32 tensor (the
+    step's device buffers); the two give the same bits."""
 
     def __init__(self, n_state: int, update: Callable, wd: float = 0.0,
-                 clip_gradient: float = -1.0):
+                 clip_gradient: float = -1.0,
+                 begin_step: Optional[Callable] = None):
         self.n_state = n_state
         self._update = update
         self.wd = wd
         self.clip_gradient = clip_gradient
         # set from Optimizer.multi_precision by functional_optimizer()
         self.multi_precision = False
+        self._begin_step = begin_step
+
+    def begin_step(self) -> None:
+        """Forget what the previous step computed once for all leaves
+        (Adam's bias correction); called at the start of every step, and
+        of every capture, so a captured step computes it inside the
+        graph."""
+        if self._begin_step is not None:
+            self._begin_step()
 
     def needs_master(self, value) -> bool:
         """Half-precision weights under multi_precision get fp32 state and
@@ -89,8 +138,9 @@ class FunctionalOptimizer:
         return tuple(torch.zeros_like(value) for _ in range(self.n_state))
 
     def apply(self, value, grad, state, lr, t, lr_mult=1.0, wd_mult=1.0):
-        return self._update(value, grad, state, lr * lr_mult,
-                            self.wd * wd_mult, self.clip_gradient, t)
+        lr = lr if lr_mult == 1.0 else lr * lr_mult
+        return self._update(value, grad, state, lr, self.wd * wd_mult,
+                            self.clip_gradient, t)
 
 
 def functional_optimizer(opt) -> FunctionalOptimizer:
@@ -138,20 +188,25 @@ def _functional_adam(opt, wd, clip) -> FunctionalOptimizer:
     coefs = {}
 
     def coef_at(t, dev):
-        if (t, dev) not in coefs:  # once a step and device
-            coefs.clear()
-            tt = torch.tensor(t, dtype=torch.int32, device=dev).float()
-            coefs[(t, dev)] = torch.sqrt(1.0 - b2 ** tt) / (1.0 - b1 ** tt)
-        return coefs[(t, dev)]
+        """The bias correction of step t, once a step and device; t read
+        on the device from the step's buffer (a host copy of an int t
+        would be frozen into a captured step)."""
+        key = (t if isinstance(t, int) else id(t), dev)
+        if key not in coefs:
+            tt = (t if isinstance(t, torch.Tensor) else torch.tensor(
+                t, dtype=torch.int32, device=dev)).to(dev).float()
+            coefs[key] = torch.sqrt(1.0 - b2 ** tt) / (1.0 - b1 ** tt)
+        return coefs[key]
 
     def update(w, g, s, lr, wd_, c, t):
         nw, nm, nv = ops.adam_update(w, g, s[0], s[1], lr=1.0, beta1=b1,
                                      beta2=b2, epsilon=eps, wd=wd_,
                                      clip_gradient=c)
         acc = torch.promote_types(w.dtype, torch.float32)
-        scale = coef_at(int(t), w.device) * float(lr)
+        lr = lr.to(acc) if isinstance(lr, torch.Tensor) else float(lr)
+        scale = coef_at(t, w.device) * lr
         return w.to(acc) + (nw - w).to(acc) * scale, (nm, nv)
-    return FunctionalOptimizer(2, update, wd, clip)
+    return FunctionalOptimizer(2, update, wd, clip, begin_step=coefs.clear)
 
 
 class SPMDTrainer:
@@ -209,6 +264,40 @@ class SPMDTrainer:
         self.opt_state: Dict[str, Tuple[torch.Tensor, ...]] = {
             n: self._fopt.init(p) for n, p in self.params.items()}
         self._t = 0
+        # each trained tensor's (lr_mult, wd_mult), read now, as the JAX
+        # package reads them when its trainer is built
+        self._mults = {n: (float(getattr(p, "_mx_lr_mult", 1.0)),
+                           float(getattr(p, "_mx_wd_mult", 1.0)))
+                       for n, p in self.params.items()}
+        # the per-step scalars, written by the host before each step
+        self._lr_buf = torch.zeros((), dtype=torch.float32,
+                                   device=self.device)
+        self._t_buf = torch.zeros((), dtype=torch.int32, device=self.device)
+        self._static_sig = (
+            "spmd-train-step", _graphs.owner_token(block),
+            f"{type(block).__module__}.{type(block).__qualname__}",
+            tuple(n for n, _ in self._plist),
+            tuple(sorted(self._mults.items())), type(optimizer),
+            self._opt_static_fingerprint(),
+            tuple(str(d) for d in self.mesh.devices), self._shards)
+
+    def _opt_static_fingerprint(self) -> Tuple:
+        """The optimizer attributes the step reads as constants (wd,
+        momentum, betas, ...); lr and rescale_grad are not among them."""
+        skip = {"lr", "rescale_grad", "num_update", "begin_num_update"}
+        return tuple(sorted(
+            (k, v) for k, v in self._optimizer.__dict__.items()
+            if k not in skip and isinstance(v, (int, float, bool, str))))
+
+    def _state_keys(self) -> Tuple:
+        """The address, dtype, shape and strides of every tensor the
+        step reads or writes in place: parameters and buffers, optimizer
+        state, the lr and t buffers."""
+        key = _graphs.tensor_key
+        return (param_keys(self.block),
+                tuple(key(t) for n in self._trainable
+                      for t in self.opt_state[n]),
+                key(self._lr_buf), key(self._t_buf))
 
     def _place(self, x, spec=None):
         """This rank's rows of the global batch ``x`` on its device."""
@@ -220,18 +309,57 @@ class SPMDTrainer:
             t = shard_batch(t, self.mesh)
         return t.to(self.device)
 
-    def step(self, *args) -> torch.Tensor:
-        """One training step on a global batch; returns the mean loss over
-        it as a 0-d tensor on the device (it synchronises only when
-        read)."""
-        n_lab = self.n_labels
-        inputs, labels = (args, ()) if n_lab == 0 \
-            else (args[:-n_lab], args[-n_lab:])
-        ivals = tuple(self._place(x) for x in inputs)
-        lvals = tuple(self._place(x) for x in labels)
+    def _begin(self, args):
+        """This rank's inputs and labels on the device; the step count
+        and the lr and t buffers for this step."""
+        vals = tuple(self._place(x) for x in args)
         self._t += 1
         self._optimizer._update_count(0)
-        lr = float(self._optimizer.learning_rate)
+        self._lr_buf.fill_(float(self._optimizer.learning_rate))
+        self._t_buf.fill_(self._t)
+        return vals
+
+    def step(self, *args) -> torch.Tensor:
+        """One training step on a global batch; returns the mean loss over
+        it as a fresh 0-d tensor on the device (it synchronises only when
+        read).  On one device the step is captured once per signature
+        and replayed (see the module docstring)."""
+        vals = self._begin(args)
+        if self._shards > 1:
+            _STEP_CACHE.note_eager()
+            return self._body(*vals)
+        if not _graphs.capture_enabled():
+            return self._body(*vals)
+        return self._get_step(vals, tuple((tuple(v.shape), v.dtype)
+                                          for v in vals))
+
+    def _step_eager(self, *args) -> torch.Tensor:
+        """The same step run eagerly, outside the cache: the path a
+        captured step is held against."""
+        return self._body(*self._begin(args))
+
+    def _get_step(self, vals, ikey):
+        """Replay the step captured for this signature, or build it (the
+        build runs this step); returns the loss."""
+        slot = (ikey, _env.trace_knobs())
+        sig = (self._static_sig, slot, self._state_keys())
+        gens = (_random.generator(self.device),) \
+            if self.device.type == "cuda" else ()
+        return _STEP_CACHE.run(self, slot, sig, lambda: self._body, vals,
+                               self.device, generators=gens)
+
+    def graphs(self):
+        """This trainer's live captured steps (``_graphs.Graphed``
+        on the card)."""
+        return _STEP_CACHE.entries(self)
+
+    def _body(self, *vals) -> torch.Tensor:
+        """Forward, backward and update on this rank's inputs and labels;
+        reads lr and t from their buffers."""
+        n_lab = self.n_labels
+        ivals, lvals = (vals, ()) if n_lab == 0 \
+            else (vals[:-n_lab], vals[-n_lab:])
+        self._fopt.begin_step()
         gen = _random.generator(self.device)
         with self.mesh, ActiveTrace(train=True, generator=gen):
             out = self.block(*ivals)
@@ -248,20 +376,24 @@ class SPMDTrainer:
             dist.all_reduce_(lval)
         with torch.no_grad():
             for n, w, g in zip(self._trainable, weights, grads):
-                self._apply_one(n, w, g, lr)
+                self._apply_one(n, w, g)
         return lval
 
-    def _apply_one(self, n, w, g, lr):
-        """Update one weight and its state in place; the fp32 master
-        weight, when present, is what the update math runs on."""
+    def _apply_one(self, n, w, g):
+        """Update one weight and its state in place, with its lr_mult and
+        wd_mult; the fp32 master weight, when present, is what the
+        update math runs on."""
         state = self.opt_state[n]
+        lm, wm = self._mults[n]
+        lr, t = self._lr_buf, self._t_buf
         if self._has_master[n]:
-            nw32, ns = self._fopt.apply(state[-1], g, state[:-1], lr,
-                                        self._t)
+            nw32, ns = self._fopt.apply(state[-1], g, state[:-1], lr, t,
+                                        lr_mult=lm, wd_mult=wm)
             ns = ns + (nw32,)
             w.copy_(nw32)
         else:
-            nw, ns = self._fopt.apply(w, g, state, lr, self._t)
+            nw, ns = self._fopt.apply(w, g, state, lr, t, lr_mult=lm,
+                                      wd_mult=wm)
             w.copy_(nw)
         for s, v in zip(state, ns):
             s.copy_(v)

@@ -7,6 +7,14 @@ any).  Imperative Dropout under ``autograd.record()`` and the NDArray
 entry point of a block draw from the generator of the data's device.
 The streams do not match JAX's draws: parity tests feed explicit
 inputs.
+
+A CUDA graph that draws from one of these generators registers it
+(:func:`register_graph`): the capture then records offsets into the
+generator's Philox stream, and each replay reads the generator's seed
+and offset and advances the offset as the eager draws would, so two
+replays draw two masks and K replays from a generator state draw what
+K eager calls draw from it.  ``torch.cuda.graph`` registers only the
+default generator by itself, and these are the port's own.
 """
 from __future__ import annotations
 
@@ -17,7 +25,7 @@ import torch
 
 from .context import resolve
 
-__all__ = ["seed", "generator"]
+__all__ = ["seed", "generator", "register_graph"]
 
 _LOCK = threading.Lock()
 _GENS: Dict[Tuple[str, int], torch.Generator] = {}
@@ -49,3 +57,9 @@ def generator(ctx=None) -> torch.Generator:
                 device=dev).manual_seed(_SEED[0])
         return g
 
+
+
+def register_graph(graph, gen: torch.Generator) -> None:
+    """Register the CUDA generator ``gen`` with ``graph`` (a
+    ``torch.cuda.CUDAGraph`` whose capture has not begun)."""
+    graph.register_generator_state(gen)

@@ -11,7 +11,8 @@ from typing import Any, Dict, NamedTuple
 from ..base import MXNetError
 from ..base import get_env as _raw_get_env
 
-__all__ = ["Knob", "declare", "get_bool", "get_float"]
+__all__ = ["Knob", "declare", "get_bool", "get_float", "get_int",
+           "trace_knobs"]
 
 
 class Knob(NamedTuple):
@@ -54,6 +55,22 @@ def get_float(name: str, default: Any = _UNSET):
     return _get(name, float, default)
 
 
+def get_int(name: str, default: Any = _UNSET):
+    return _get(name, int, default)
+
+
+# the knobs a forward reads while it runs (which path a block takes): a
+# captured forward or step keeps the values it was captured under, as a
+# jitted JAX program keeps those it was traced under, so they are part
+# of its signature
+_TRACE_KNOBS = ("MXNET_FUSED_CONVBN", "MXNET_FUSED_CONVBN_BWD",
+                "MXNET_BN_EXACT_VAR")
+
+
+def trace_knobs() -> tuple:
+    return tuple(get_bool(k) for k in _TRACE_KNOBS)
+
+
 declare("MXNET_BN_EXACT_VAR", bool, False,
         "BatchNorm uses the exact two-pass variance instead of the "
         "single-pass shifted estimator; also disables the fused Conv+BN "
@@ -69,3 +86,7 @@ declare("MXNET_DRAIN_TIMEOUT_MS", float, 30000.0,
         "Hard deadline for InferenceServer.shutdown(drain=True): past "
         "it, still-queued requests fail with ServerClosed instead of "
         "the shutdown hanging forever on a wedged batch.")
+declare("MXNET_FUSED_CACHE_MAX", int, 256,
+        "Entry cap of each in-process cache of captured CUDA graphs "
+        "(_graphs: the fused update, the SPMD step, the "
+        "hybridized forward); LRU eviction past it.")

@@ -124,7 +124,11 @@ def test_the_port_modules_import_no_jax():
     for rel in ("ops/attention.py", "ops/convbn_tap.py", "_kernels.py",
                 "ops/optimizer_ops.py", "optimizer/optimizer.py",
                 "parallel/spmd.py", "gluon/model_zoo/transformer.py",
-                "examples/bench_steps.py"):
+                "examples/bench_steps.py", "optimizer/fused.py",
+                "optimizer/__init__.py", "gluon/block.py",
+                "gluon/trainer.py", "random.py", "util/env.py",
+                "parallel/sharding.py", "ops/nn.py", "ops/fused_convbn.py",
+                "examples/mnist.py", "contrib/deploy.py", "_graphs.py"):
         for name in _imports(pkg / rel):
             assert not name.startswith(("jax", "mxnet_tpu.")) \
                 and name != "mxnet_tpu", (rel, name)
@@ -132,6 +136,7 @@ def test_the_port_modules_import_no_jax():
         assert "jax" not in path.read_text().lower(), path.name
     code = ("import sys; import mxnet_tpu_torch.ops.attention, "
             "mxnet_tpu_torch.ops.convbn_tap, "
+            "mxnet_tpu_torch.optimizer.fused, mxnet_tpu_torch._graphs, "
             "mxnet_tpu_torch.gluon.model_zoo.transformer, "
             "mxnet_tpu_torch.examples.bench_steps; "
             "bad = [m for m in sys.modules if m == 'jax' or "

@@ -31,6 +31,17 @@ the host devices of ``tests/conftest.py``, meanwhile.
   ``make_mesh(dp=2)`` (resnet18 op-granular excepted, see
   JAX_TRAIN_RUNS) and the port's dp=1 run on the whole batch, at
   test_torch_resnet_train's tolerances; both ranks bit-identical.
+* Dropout under dp=2: a tiny BERT (2 layers, 32 units, dropout 0.1 on
+  the embeddings, the attention probabilities and the sublayer
+  outputs) with an NSP-style per-sample cross entropy trains two SGD
+  steps, dp=2 against the port's dp=1 on the whole batch from the same
+  seed: each rank draws the masks of the global batch and keeps its
+  rows, so the two runs drop the same positions.  Losses, parameters
+  and momenta within 1e-5 of max(1, largest magnitude) (fp32: the
+  gradient sum over the ranks adds in another order, and the key biases,
+  whose gradient is zero but for rounding, stay near 1e-10); both ranks
+  bit-identical;
+  the dp=2 steps are counted as eager in ``step_compile_stats``.
 * The surface: ``dist.init`` from the DMLC_* environment, rank and
   num_workers, ``make_mesh()`` defaulting to dp = world size, and what
   raises (dp other than the world size, tp=2, a batch dp does not
@@ -198,6 +209,58 @@ def _port_train(arch, mode, steps, mesh, vals):
     return res
 
 
+BERT_DROPOUT = dict(batch=4, seq=16, vocab=100, steps=2)
+
+
+def _port_bert_dropout(mesh):
+    """Two SGD steps of a tiny BERT at dropout 0.1 with a per-sample
+    loss, from seed 0 (weights and the dropout generator)."""
+    import mxnet_tpu_torch as mt
+    from mxnet_tpu_torch import parallel
+    from mxnet_tpu_torch.gluon import HybridBlock
+    from mxnet_tpu_torch.gluon import loss as tloss
+    from mxnet_tpu_torch.gluon.model_zoo.bert import get_bert_model
+
+    class Cls(HybridBlock):
+        def __init__(self):
+            super().__init__()
+            self.bert = get_bert_model(
+                "bert_12_768_12", vocab_size=BERT_DROPOUT["vocab"],
+                dropout=0.1, num_layers=2, units=32, hidden_size=64,
+                num_heads=4, max_length=BERT_DROPOUT["seq"])
+
+        def hybrid_forward(self, F, tokens, segments, vlen):
+            return self.bert.classify_nsp(
+                self.bert(tokens, segments, vlen)[1])
+
+    b, s = BERT_DROPOUT["batch"], BERT_DROPOUT["seq"]
+    rs = np.random.RandomState(3)
+    tokens = torch.from_numpy(rs.randint(5, BERT_DROPOUT["vocab"], (b, s)))
+    segments = torch.zeros((b, s), dtype=torch.int32)
+    vlen = torch.from_numpy(rs.randint(s // 2, s + 1, b).astype(np.float32))
+    labels = torch.from_numpy(rs.randint(0, 2, b).astype(np.int32))
+    net = Cls()
+    net.initialize(mt.init.Normal(0.02), ctx=mt.cpu(), seed=0)
+    for k, p in net.collect_params().items():
+        if k.startswith("bert.mlm_decoder.") and k != \
+                "bert.mlm_decoder.embed_weight":  # tied: word_embed
+            p.grad_req = "null"  # the MLM head is off this loss's path
+    net.hybridize()
+    mt.random.seed(0)
+    tr = parallel.SPMDTrainer(net, tloss.SoftmaxCrossEntropyLoss(), "sgd",
+                              {"learning_rate": 0.05, "momentum": 0.9},
+                              mesh=mesh)
+    losses = [float(tr.step(tokens, segments, vlen, labels))
+              for _ in range(BERT_DROPOUT["steps"])]
+    tag = f"bert_dropout/dp{mesh.size()}"
+    res = {f"{tag}/losses": np.array(losses)}
+    for k, v in net.state_dict(keep_vars=True).items():
+        res[f"{tag}/state/{k}"] = v.detach().numpy()
+    for k, st in tr.opt_state.items():
+        res[f"{tag}/mom/{k}"] = st[0].numpy()
+    return res
+
+
 def _port_surface(rank, mesh):
     """What must raise, and what the group reports."""
     import mxnet_tpu_torch as mt
@@ -268,6 +331,13 @@ def _rank_main(out_dir, rank):
             for mode in sorted(MODES):
                 res.update(_port_train(arch, mode, STEPS, one, vals))
     res.update(_port_surface(rank, mesh))
+    eager0 = parallel.spmd.step_compile_stats()["eager"]
+    res.update(_port_bert_dropout(mesh))
+    res["surface/dp2_steps_eager"] = np.array(
+        parallel.spmd.step_compile_stats()["eager"] - eager0
+        == BERT_DROPOUT["steps"])
+    if rank == 0:
+        res.update(_port_bert_dropout(one))
     parallel.dist.barrier()
     parallel.dist.shutdown()
     clean = not any(m == "jax" or m.startswith(("jax.", "mxnet_tpu."))
@@ -562,6 +632,21 @@ def test_dp2_trainer_matches_jax_dp2_and_port_dp1(arch, mode, weights, ranks,
     want = STEPS * STRIDE1_UNITS[arch] if mode == "fused_bwd" else 0
     assert int(r0[f"{tag}/kernel_bwd_calls"]) == want
     assert int(owner[f"{one}/kernel_bwd_calls"]) == want
+
+
+def test_dropout_dp2_matches_dp1(ranks):
+    """The dp=2 run drops what the dp=1 run drops (see the module
+    docstring); under the per-rank draw it did not."""
+    r0, r1 = ranks.results()
+    dp2 = {k[len("bert_dropout/dp2/"):]: v for k, v in r0.items()
+           if k.startswith("bert_dropout/dp2/")}
+    assert dp2 and "losses" in dp2
+    for k, v in dp2.items():
+        np.testing.assert_array_equal(r1[f"bert_dropout/dp2/{k}"], v,
+                                      err_msg=f"ranks differ: {k}")
+        ref = r0[f"bert_dropout/dp1/{k}"]
+        err = float(np.abs(v - ref).max())
+        assert err <= 1e-5 * max(1.0, float(np.abs(ref).max())), (k, err)
 
 
 def test_dist_surface(ranks):

@@ -360,8 +360,7 @@ def test_unported_options_raise():
     net = tnn.Dense(2, in_units=3)
     net.initialize(ctx=CPU)
     ps = net.collect_params()
-    for kw, what in [({"fuse_step": True}, "item 4"),
-                     ({"spmd": True}, "item 4"),
+    for kw, what in [({"spmd": True}, "item 4"),
                      ({"compression_params": {"type": "2bit"}}, "item 7"),
                      ({"update_on_kvstore": True}, "item 7"),
                      ({"kvstore": "dist_sync"}, "item 7")]:
@@ -574,8 +573,39 @@ def test_mnist_example_reaches_90_percent_on_the_cpu():
         [sys.executable, "-m", "mxnet_tpu_torch.examples.mnist", "--cpu",
          "--epochs", "1", "--batch-size", "50"], capture_output=True,
         text=True, timeout=300, cwd=REPO, env=env)
-    assert out.returncode == 0, out.stderr[-2000:]
-    last = out.stdout.strip().splitlines()[-1]
-    assert last.startswith("[val] accuracy=")
-    assert float(last.split("=")[1]) > 0.9
-    assert "jax" not in out.stderr
+    lines = out.stdout.strip().splitlines()
+    last = lines[-1] if lines else ""
+    why = (f"rc {out.returncode}; last stdout line {last!r}; stderr "
+           f"tail:\n{out.stderr[-2000:]}")
+    assert out.returncode == 0, why
+    assert last.startswith("[val] accuracy="), why
+    assert float(last.split("=")[1]) > 0.9, why
+    assert "jax" not in out.stderr, why
+
+
+def test_mnist_example_is_the_same_whatever_ran_before():
+    """The example seeds its shuffle and the port's generators, so its
+    result does not hang on numpy's global state: a fresh process draws
+    that from the OS, and at lr 0.1 / momentum 0.9 / batch 50 about one
+    shuffle in ten sends the unseeded run into a loss spike it does not
+    recover from (numpy seed 9 after a fresh process's generator seed 0:
+    val accuracy 0.106).  Runs after two different global states (numpy's
+    and the port's generator's) must give the same accuracy, above the
+    bound of the test above."""
+    from mxnet_tpu_torch.examples import mnist
+
+    np_state = np.random.get_state()
+    gen = mt.random.generator(CPU)
+    gen_state = gen.get_state()
+    try:
+        accs = []
+        for s in (9, 123):
+            np.random.seed(s)
+            gen.manual_seed(0)
+            torch.rand(s, generator=gen)
+            accs.append(mnist.run(epochs=1, ctx=CPU, batch_size=50))
+    finally:
+        np.random.set_state(np_state)
+        gen.set_state(gen_state)
+    assert accs[0] == accs[1], accs
+    assert accs[0] > 0.9, accs
