@@ -217,6 +217,35 @@ Phases, each failing loudly (exit code 1, no result line):
    an fp32 decode at batch 4 gives identical tokens with the kernel and
    the plain version.
 
+10. main path, SSD-300-ResNet50 (bench_all.py's config 4) on the port's
+   entry points, with the fused-unit knobs on (its NCHW backbone never
+   takes kernels 1-2; kernels 1, 2, 5 and 6 must launch 0 times in every
+   part): (a) bench_steps.ssd_step("full") (ssd_300_resnet50_v1(classes
+   =20) with SSDMultiBoxLoss, Xavier from seed 0, 30,391,648 values),
+   cast to bf16, ssd_batch("full") (RandomState(0): batch 32 at 300x300,
+   the images cast to bf16, 2078 anchors' random targets), make_mesh(dp=
+   1) + SPMDTrainer with sgd lr 0.01, momentum 0.9, wd 5e-4: one warm-up
+   and 5 timed captured steps (img/s, ms a step, finite losses, an idle
+   share, the capture's seconds and the pool's GiB); (b) 3 replays
+   against 3 eager steps from one state, bit for bit (as phase 5); (d)
+   the trained net's hybridized inference forward at batch 32 in bf16,
+   captured against eager bit for bit, then softmax (fp32) and
+   MultiBoxDetection at nms_topk 100 and -1 (K = 2078, the row-recompute
+   NMS branch), each against the port's CPU run of the same op on the
+   same inputs: class ids, scores and kept rows identical, boxes within
+   1e-6, the NMS loop's own ms beside the op's and the count of candidate
+   pairs whose IoU lies within 1e-6 of the threshold; (c) the fp32 step
+   at batch 4 on cuda:0 (TF32 off) against the same step on the CPU from
+   the same weights and batch: the loss within 1e-4 relative, each
+   leaf's update (its first momentum) within 1e-3 relative L2 plus twice
+   the step's own sensitivity (the card step from weights moved by
+   2^-24 relative), the number of leaves past 1e-3 and of anchors whose
+   hard-negative keep differs printed; then the bf16 card step against
+   the fp32 one, loss within 2e-2; (e) mxnet_tpu_torch.examples
+   .ssd_train.main(--batch-size 8 --steps 3) on cuda:0 with the
+   ResNet-50 network: finite losses, every parameter, gradient and
+   optimizer state on cuda:0.  The phase's seconds are printed.
+
 The compiled paths (mxnet_tpu_torch._graphs): every SPMDTrainer step on one
 device, every hybridized forward in inference and gluon.Trainer's
 update run from CUDA graphs captured once per signature, so the main
@@ -377,6 +406,14 @@ DECODE_FP32_BATCH = 4
 KERNEL_ATT_BERT = dict(KERNEL_ATT, name="dot_product_attention/bert_train")
 KERNEL_ATT_DECODE = dict(KERNEL_ATT,
                          name="dot_product_attention/greedy_decode")
+# phase 10: bench_all.py's config 4 (SSD-300-ResNet50) through SPMDTrainer
+# (sgd lr 0.01, momentum 0.9, wd 5e-4), its detection and the example
+SSD_TIMED_STEPS = 5              # captured, after one warm-up step
+SSD_CHECK_BATCH = 4              # (c): the fp32 card step against the cpu
+SSD_BOUNDS = dict(loss=1e-4, leaf=1e-3, bf16_loss=2e-2)
+SSD_NMS_TOPK = (100, -1)         # the example's cap; the op's default
+SSD_DET_TOL = 1e-6
+SSD_EXAMPLE_ARGS = ["--batch-size", "8", "--steps", "3"]
 KERNEL_DP = dict(KERNEL, name="fused_conv_unit/dp",
                  replaces="mxnet_tpu/ops/pallas_convbn.py:618")
 KERNEL_BWD_DP = dict(KERNEL_BWD, name="fused_conv_unit_bwd/dp",
@@ -3772,6 +3809,279 @@ def phase_transformer(card):
     return res
 
 
+# ---------------------------------------------------------------------------
+# phase 10: SSD-300-ResNet50 (bench_all.py's config 4) — trained through
+# SPMDTrainer, decoded with MultiBoxDetection, and examples/ssd_train.py
+# ---------------------------------------------------------------------------
+
+def ssd_keep(step, w, batch):
+    """The anchors SSDMultiBoxLoss keeps (positives and hard negatives)
+    in a training-mode forward of `step` from the weights `w` on `batch`;
+    the weights and statistics are restored after."""
+    from mxnet_tpu_torch import ops
+    from mxnet_tpu_torch.gluon import ActiveTrace
+
+    restore(step, w)
+    with torch.no_grad(), ActiveTrace(train=True):
+        cls_p = step.ssd(batch[0])[0]
+        keep = step.loss.mine(ops, cls_p, batch[1])[1] > 0
+    restore(step, w)
+    return keep.cpu()
+
+
+def ssd_one_step(step, w, batch, dev):
+    """One eager step of a fresh SPMDTrainer (config 4's SGD) on `dev`
+    from the weights `w`: (loss, {trained leaf: its new momentum, the
+    update}) on the host."""
+    from mxnet_tpu_torch import _graphs as graphs
+    from mxnet_tpu_torch import parallel
+    from mxnet_tpu_torch.examples import bench_steps as bs
+
+    restore(step, w)
+    tr = bs.spmd_trainer(step, mesh=parallel.make_mesh(dp=1, devices=[dev]),
+                         **bs.SSD_OPT)
+    with graphs.no_capture():
+        loss = float(tr.step(*batch))
+    return loss, {n: tr.opt_state[n][0].detach().float().cpu()
+                  for n in tr._trainable}
+
+
+def ssd_numerics(step32, w32, step16, batch32, card):
+    """(c): the fp32 config-4 step at batch SSD_CHECK_BATCH on cuda:0
+    (TF32 off) against the same step by the port on the CPU, from the
+    same weights and batch; then the bf16 step on the card against the
+    fp32 one."""
+    import copy
+
+    from mxnet_tpu_torch import cpu, gpu
+
+    dev = torch.device("cuda", 0)
+    b = tuple(t[:SSD_CHECK_BATCH].float() for t in batch32)
+    host = copy.deepcopy(step32).to("cpu")
+    w_host = {k: v.cpu() for k, v in w32.items()}
+    b_host = tuple(t.cpu() for t in b)
+    t0 = time.perf_counter()
+    l_card, m_card = ssd_one_step(step32, w32, b, gpu(0))
+    l_host, m_host = ssd_one_step(host, w_host, b_host, cpu())
+    # the step's own sensitivity: the card step from weights moved by
+    # 2^-24 relative
+    gen = torch.Generator().manual_seed(71)
+    w_wit = {k: perturb(v.cpu(), 2.0 ** -24, gen) for k, v in w32.items()}
+    _, m_wit = ssd_one_step(step32, w_wit, b, gpu(0))
+    keep_card = ssd_keep(step32, w32, b)
+    keep_host = ssd_keep(host, w_host, b_host)
+    rel = {n: rel_l2(m_card[n], m_host[n]) for n in m_card}
+    wit = {n: rel_l2(m_wit[n], m_card[n]) for n in m_card}
+    over = sorted((r, n) for n, r in rel.items()
+                  if r > SSD_BOUNDS["leaf"] + 2 * wit[n])
+    loss_rel = abs(l_card - l_host) / abs(l_host)
+    keep_diff = int((keep_card != keep_host).sum())
+    worst = max(rel.items(), key=lambda kv: kv[1])
+    med = sorted(rel.values())[len(rel) // 2]
+    print(f"ssd numerics fp32 batch {SSD_CHECK_BATCH}: card loss "
+          f"{l_card:.7f} cpu {l_host:.7f} (rel {loss_rel:.3g}, bound "
+          f"{SSD_BOUNDS['loss']}); update rel L2 card vs cpu: worst "
+          f"{worst[1]:.3g} ({worst[0]}), median {med:.3g} (the witness's "
+          f"median {sorted(wit.values())[len(wit) // 2]:.3g}), "
+          f"{sum(r > SSD_BOUNDS['leaf'] for r in rel.values())}/{len(rel)} "
+          f"leaves over {SSD_BOUNDS['leaf']}, {len(over)} over it plus 2x "
+          f"the step's own sensitivity (worst witness "
+          f"{max(wit.values()):.3g}); hard-negative keep differs on "
+          f"{keep_diff} of {keep_card.numel()} anchors; "
+          f"{time.perf_counter() - t0:.1f} s [{card}]", flush=True)
+    if loss_rel > SSD_BOUNDS["loss"] or over:
+        fail(f"ssd numerics: fp32 card step vs cpu: loss rel {loss_rel:.3g}"
+             f", leaves over the bound {over[-5:]}")
+    # bf16 on the card against the fp32 card step, from the same weights
+    b16 = (b[0].to(torch.bfloat16),) + b[1:]
+    l16, _ = ssd_one_step(step16, w32, b16, gpu(0))
+    rel16 = abs(l16 - l_card) / abs(l_card)
+    print(f"ssd numerics bf16 batch {SSD_CHECK_BATCH}: loss {l16:.5f} "
+          f"against fp32 {l_card:.5f} (rel {rel16:.3g}, bound "
+          f"{SSD_BOUNDS['bf16_loss']}) [{card}]", flush=True)
+    if not rel16 <= SSD_BOUNDS["bf16_loss"]:
+        fail(f"ssd numerics: bf16 loss {l16} vs fp32 {l_card}")
+    return dict(loss_card=l_card, loss_cpu=l_host, loss_rel=loss_rel,
+                worst_leaf=worst, median_leaf=med, leaves_over_1e3=sum(
+                    r > SSD_BOUNDS["leaf"] for r in rel.values()),
+                leaves_over_bound=len(over),
+                worst_witness=max(wit.values()),
+                keep_differs=keep_diff, bf16_loss=l16, bf16_rel=rel16)
+
+
+def ssd_detection(net, x, card):
+    """(d): the hybridized inference forward captured against eager, then
+    softmax (fp32) and MultiBoxDetection at each of SSD_NMS_TOPK on the
+    card, each held against the port's CPU run of the same op on the same
+    inputs; the NMS loop's share of the detection time."""
+    from mxnet_tpu_torch import ops
+    from mxnet_tpu_torch.ops import contrib
+
+    net.eval()
+    net.hybridize()
+    bsz = x.shape[0]
+    res = {"forward": hold_captured_forward(
+        f"compiled: ssd300-resnet50 inference forward bf16 batch {bsz}",
+        net, (x,), card, {})}
+    reset_kernel_counts()
+    with torch.inference_mode():
+        cls_p, box_p, anchors = net(x)
+    prob = ops.softmax(cls_p.float(), axis=-1)
+    prob_host = ops.softmax(cls_p.float().cpu(), axis=-1)
+    sm_err = float((prob.cpu() - prob_host).abs().max())
+    prob = prob.transpose(1, 2).contiguous()
+    loc = box_p.float().reshape(bsz, -1)
+    args_host = (prob.cpu(), loc.cpu(), anchors.cpu())
+    thr = contrib._f32(0.5)
+    for k in SSD_NMS_TOPK:
+        run = lambda: ops.MultiBoxDetection(prob, loc, anchors, nms_topk=k)
+        out = run().cpu()
+        ms = time_ms(run, iters=3, warmup=1)
+        ref = ops.MultiBoxDetection(*args_host, nms_topk=k)
+        sb, ss, si = contrib.decode_sorted(prob, loc, anchors)
+        n = sb.shape[1]
+        cap = min(k, n) if k > 0 else n
+        nms_ms = time_ms(lambda: contrib.greedy_nms_keep(
+            sb[:, :cap], ss[:, :cap], si[:, :cap], thr, False), iters=3,
+            warmup=1)
+        iou = contrib._corner_iou(sb[:, :cap], sb[:, :cap])
+        pair = (si[:, :cap, None] == si[:, None, :cap]) & torch.ones(
+            cap, cap, dtype=torch.bool, device=iou.device).triu(1)
+        near = int(((iou - thr).abs() < SSD_DET_TOL)[pair].sum())
+        del iou, pair
+        kept = out[..., 0] >= 0
+        same = torch.equal(kept, ref[..., 0] >= 0) and torch.equal(
+            out[..., :2], ref[..., :2])
+        err = float((out - ref).abs().max())
+        counts = kernel_counts()
+        print(f"ssd detection nms_topk={k} (K={cap}): {ms:.2f} ms for "
+              f"batch {bsz}, the NMS loop {nms_ms:.2f} ms of it "
+              f"({nms_ms / ms:.1%}); {int(kept.sum())} rows kept; class "
+              f"ids, scores and kept rows identical to the cpu op {same}, "
+              f"max abs diff {err:.3g}; candidate pairs with IoU within "
+              f"{SSD_DET_TOL} of {thr}: {near}; launches {counts} [{card}]",
+              flush=True)
+        if not same or err > SSD_DET_TOL or any(counts.values()):
+            fail(f"ssd detection nms_topk={k}: identical {same}, max abs "
+                 f"diff {err}, launches {counts}")
+        res[f"nms_topk={k}"] = dict(ms=ms, nms_ms=nms_ms, kept=int(
+            kept.sum()), identical=same, max_abs_diff=err, near=near)
+    print(f"ssd detection softmax fp32: card vs cpu max abs {sm_err:.3g} "
+          f"[{card}]", flush=True)
+    if sm_err > SSD_DET_TOL:
+        fail(f"ssd detection: softmax card vs cpu {sm_err}")
+    res["softmax_max_abs"] = sm_err
+    return res
+
+
+def ssd_example(card, dev=torch.device("cuda", 0)):
+    """(e): examples/ssd_train.py's loop on cuda:0 with the full
+    ResNet-50 network."""
+    from mxnet_tpu_torch.examples import ssd_train
+
+    keep = {}
+    reset_kernel_counts()
+    t0 = time.perf_counter()
+    losses = ssd_train.main(SSD_EXAMPLE_ARGS, keep=keep)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = kernel_counts()
+    params = keep["net"].collect_params().values()
+    on_card = [p.data().ctx == dev for p in params]
+    on_card += [p.grad().ctx == dev for p in params if p.grad_req != "null"]
+    states = [s for st in keep["trainer"]._updater.states.values()
+              for s in (st if isinstance(st, tuple) else (st,))]
+    on_card += [s.ctx == dev for s in states]
+    steps = len(losses)
+    print(f"ssd example {' '.join(SSD_EXAMPLE_ARGS)} on {dev}: losses "
+          + " ".join(f"{v:.4f}" for v in losses)
+          + f"; {wall / steps:.2f} s a step with the build and the decode; "
+          f"{len(on_card)} parameters, gradients and states, "
+          f"{sum(on_card)} on {dev}; detections "
+          f"{tuple(keep['detections'].shape)}; launches {counts} [{card}]",
+          flush=True)
+    if not all(math.isfinite(v) for v in losses) or not all(on_card) \
+            or not states or any(counts.values()):
+        fail(f"ssd example: losses {losses}, {len(on_card) - sum(on_card)} "
+             f"tensors off {dev}, {len(states)} states, launches {counts}")
+    return dict(losses=losses, s_per_step=wall / steps,
+                tensors=len(on_card), states=len(states))
+
+
+def phase_ssd(card):
+    """bench_all.py's config 4 on the card through the port's entry
+    points, with the fused-unit knobs on (SSD's NCHW backbone never takes
+    kernels 1-2), then its detection and the imperative example."""
+    import copy
+    import gc
+
+    from mxnet_tpu_torch import gpu, init
+    from mxnet_tpu_torch.examples import bench_steps as bs
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    set_knobs(True, True)
+    res = {}
+    # (a) config 4 exactly: Xavier from seed 0, bf16, batch 32 at 300x300
+    t0 = time.perf_counter()
+    step = bs.init_step(bs.ssd_step("full"), init.Xavier(), ctx=gpu(0),
+                        seed=0)
+    w32 = snapshot(step)
+    step32 = copy.deepcopy(step)
+    step.cast("bfloat16")
+    batch = bs.ssd_batch("full", seed=0, ctx=gpu(0), dtype="bfloat16")
+    bsz = batch[0].shape[0]
+    n_values = sum(v.numel() for v in step.state_dict().values())
+    print(f"ssd300-resnet50 (config 4): {n_values} parameters and "
+          f"statistics, {batch[1].shape[1]} anchors; built, initialised "
+          f"and cast in {time.perf_counter() - t0:.1f} s", flush=True)
+    tr = bs.spmd_trainer(step, **bs.SSD_OPT)
+    warm = timed_steps(tr, batch, 1)[0]
+    losses, counts, dt = timed_steps(tr, batch, SSD_TIMED_STEPS)
+    prof = profile_device(lambda: tr.step(*batch), "ssd train captured",
+                          "step", card, dt * 1e3, iters=2, top=12)
+    cap_s, gib = graph_costs(tr.graphs())
+    print(f"ssd300-resnet50 train (config 4) bf16 batch {bsz} at 300x300, "
+          f"sgd lr 0.01 momentum 0.9 wd 5e-4, captured: {dt * 1e3:.2f} "
+          f"ms/step, {bsz / dt:.1f} img/s over {SSD_TIMED_STEPS} steps; "
+          f"losses {warm[0]:.4f} (warm-up) "
+          + " ".join(f"{v:.4f}" for v in losses)
+          + f"; idle {pct(idle_of(prof))}; capture {cap_s:.2f} s, graph "
+          f"pool {gib:.2f} GiB; launches {counts} [{card}]", flush=True)
+    if not all(math.isfinite(v) for v in warm + losses):
+        fail(f"ssd train: losses not finite: {warm + losses}")
+    if any(counts.values()):
+        fail(f"ssd train: kernel launches {counts} (want none)")
+    res["train"] = dict(ms_per_step=dt * 1e3, img_per_s=bsz / dt,
+                        losses=warm + losses, launches=counts,
+                        idle=idle_of(prof), capture_s=cap_s, pool_gib=gib)
+    # (b) captured against eager from one state, bit for bit
+    res["train"]["compiled"] = hold_captured_steps(
+        "compiled: ssd300-resnet50 train bf16", tr, batch, card, {})
+    del tr
+    gc.collect()
+    torch.cuda.empty_cache()
+    # (d) the trained net's inference forward and detection
+    res["detection"] = ssd_detection(step.ssd, batch[0], card)
+    step.ssd.hybridize(False)
+    gc.collect()
+    torch.cuda.empty_cache()
+    # (c) fp32 card step against the cpu step, bf16 against fp32
+    res["numerics"] = ssd_numerics(step32, w32, step, batch, card)
+    del step, step32, w32, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    # (e) the example's loop
+    res["example"] = ssd_example(card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    res["seconds"] = time.perf_counter() - t_phase
+    print(f"ssd phase: {res['seconds']:.1f} s [{card}]", flush=True)
+    print("ssd: " + json.dumps(res, default=str), flush=True)
+    return res
+
+
 def attention_path_summary(kernel, path, rows, launches, batch):
     """The `kernels` record of kernel 5 on one phase-9 path: each check
     record in `rows` (record, launches) weighted by its launches in one
@@ -3844,6 +4154,7 @@ def main():
     imp_res = phase_imperative(card, train_refs)
     recs_dec = phase_kernels_decode(card)
     tf_res = phase_transformer(card)
+    phase_ssd(card)
     dec_steps = tf_res["decode"]["steps"]
     dp_keys = dict(backend=dp_res.get("backend"), ranks=DP)
     # kernel 1 once for each main path (its shapes and launches), kernel 2

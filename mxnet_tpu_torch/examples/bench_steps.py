@@ -1,12 +1,13 @@
-"""The training steps of ``bench_all.py``'s transformer configurations on
-the port: config 3 (BERT-base MLM+NSP pretraining) and config 5
-(Transformer-base NMT with the label-smoothed cross entropy), each a
-``HybridBlock`` whose forward returns the scalar loss, trained through
-``parallel.SPMDTrainer`` with an identity loss and ``n_labels=0``, as
-``bench_all.py`` trains them.  Inputs are synthetic and drawn as
-``bench_all.py`` draws them.  No feature of its own: the tests and
-``chip_smoke.py`` use these blocks so that the port has one copy of each
-step.
+"""The training steps of ``bench_all.py``'s configurations 3 to 5 on the
+port: config 3 (BERT-base MLM+NSP pretraining), config 4 (SSD-300 with a
+ResNet-50 v1 backbone and ``SSDMultiBoxLoss`` on precomputed targets)
+and config 5 (Transformer-base NMT with the label-smoothed cross
+entropy), each a ``HybridBlock`` whose forward returns the loss, trained
+through ``parallel.SPMDTrainer`` with an identity loss and
+``n_labels=0``, as ``bench_all.py`` trains them.  Inputs are synthetic
+and drawn as ``bench_all.py`` draws them.  No feature of its own: the
+tests and ``chip_smoke.py`` use these blocks so that the port has one
+copy of each step.
 
 Usage::
 
@@ -14,6 +15,11 @@ Usage::
     init_step(step, init.Normal(0.02), ctx=gpu(0), dtype="bfloat16")
     trainer = spmd_trainer(step, 1e-4)
     loss = trainer.step(*bert_batch("full", ctx=gpu(0)))
+
+    step = init_step(ssd_step("full"), init.Xavier(), ctx=gpu(0),
+                     dtype="bfloat16")
+    trainer = spmd_trainer(step, **SSD_OPT)
+    loss = trainer.step(*ssd_batch("full", ctx=gpu(0), dtype="bfloat16"))
 """
 from __future__ import annotations
 
@@ -21,14 +27,18 @@ import numpy as np
 import torch
 
 from .. import parallel
+from ..base import dtype_of
 from ..context import resolve
 from ..gluon.block import ActiveTrace, HybridBlock
 from ..gluon.model_zoo.bert import get_bert_model
+from ..gluon.model_zoo.detection import SSDMultiBoxLoss, ssd_300_resnet50_v1
 from ..gluon.model_zoo.transformer import get_transformer_model
 
-__all__ = ["Identity", "BertPretrainStep", "TransformerNMTStep", "BERT_SIZES",
-           "TRANSFORMER_SIZES", "bert_step", "transformer_step", "bert_batch",
-           "transformer_batch", "init_step", "spmd_trainer"]
+__all__ = ["Identity", "BertPretrainStep", "SSDTrainStep",
+           "TransformerNMTStep", "BERT_SIZES", "SSD_SIZES", "SSD_OPT",
+           "TRANSFORMER_SIZES", "bert_step", "ssd_step", "transformer_step",
+           "bert_batch", "ssd_batch", "transformer_batch", "init_step",
+           "spmd_trainer"]
 
 # bench_all.py's sizes: "cpu_smoke" (--cpu-smoke) and "full"
 BERT_SIZES = {
@@ -38,6 +48,13 @@ BERT_SIZES = {
     "full": dict(batch=32, seq=128, vocab=30522,
                  model=dict(max_length=512)),
 }
+# config 4 at 300x300, the input its anchor spec is keyed to: 2078
+# anchors (19², 10² maps x 4, then 5², 3², 2², 1² x 6)
+SSD_SIZES = {
+    "cpu_smoke": dict(batch=1, size=300, classes=20, anchors=2078),
+    "full": dict(batch=32, size=300, classes=20, anchors=2078),
+}
+SSD_OPT = dict(optimizer="sgd", lr=0.01, momentum=0.9, wd=5e-4)
 TRANSFORMER_SIZES = {
     "cpu_smoke": dict(batch=2, seq=16, vocab=1000,
                       model=dict(num_layers=2, units=64, hidden_size=128,
@@ -76,6 +93,20 @@ class BertPretrainStep(HybridBlock):
         return mlm_l + nsp_l.mean()
 
 
+class SSDTrainStep(HybridBlock):
+    """Config 4: ``ssd_300_resnet50_v1`` and ``SSDMultiBoxLoss`` on
+    targets given with the batch; returns the loss per image."""
+
+    def __init__(self, classes=20):
+        super().__init__()
+        self.ssd = ssd_300_resnet50_v1(classes=classes)
+        self.loss = SSDMultiBoxLoss()
+
+    def hybrid_forward(self, F, x, cls_t, box_t):
+        cls_p, box_p, _anchors = self.ssd(x)
+        return self.loss(cls_p, box_p, cls_t, box_t)
+
+
 class TransformerNMTStep(HybridBlock):
     """Config 5: the label-smoothed (eps 0.1) cross entropy in fp32,
     masked by ``tgt_valid`` and averaged over the valid tokens."""
@@ -103,6 +134,10 @@ class TransformerNMTStep(HybridBlock):
 def bert_step(size="full", dropout=0.1) -> BertPretrainStep:
     cfg = BERT_SIZES[size]
     return BertPretrainStep(cfg["vocab"], dropout=dropout, **cfg["model"])
+
+
+def ssd_step(size="full") -> SSDTrainStep:
+    return SSDTrainStep(SSD_SIZES[size]["classes"])
 
 
 def transformer_step(size="full", dropout=0.1) -> TransformerNMTStep:
@@ -134,6 +169,26 @@ def bert_batch(size="full", seed=0, ctx=None):
                ctx)
 
 
+def ssd_batch(size="full", seed=0, ctx=None, dtype=None):
+    """(x, cls_t, box_t) from ``RandomState(seed)`` as ``bench_all.py``
+    draws them: images from ``rand``, class targets in [-1, classes]
+    (-1 ignored, 0 background), box targets ``randn * 0.1``; numpy arrays,
+    or tensors on ``ctx``.  ``dtype`` casts the images (the targets stay
+    float32): a bf16 net needs bf16 images, since a convolution takes one
+    dtype (the JAX package's ``lax.conv_general_dilated`` refuses a
+    float32 batch for bf16 weights too)."""
+    cfg = SSD_SIZES[size]
+    bs, s, n = cfg["batch"], cfg["size"], cfg["anchors"]
+    rng = np.random.RandomState(seed)
+    x = rng.rand(bs, 3, s, s).astype(np.float32)
+    cls_t = rng.randint(-1, cfg["classes"] + 1, (bs, n)).astype(np.float32)
+    box_t = (rng.randn(bs, n, 4) * 0.1).astype(np.float32)
+    out = _on((x, cls_t, box_t), ctx)
+    if dtype is not None and ctx is not None:
+        out = (out[0].to(dtype_of(dtype)),) + out[1:]
+    return out
+
+
 def transformer_batch(size="full", seed=0, ctx=None):
     """(src, tgt_in, src_valid, tgt_valid, tgt_out) from
     ``RandomState(seed)`` as ``bench_all.py`` draws them: one (seq, seq)
@@ -163,11 +218,11 @@ def init_step(step, init, ctx=None, seed=0, dtype=None, warm=None):
     return step
 
 
-def spmd_trainer(step, lr, mesh=None, **optimizer_params):
-    """``SPMDTrainer(step, Identity(), "adam", {"learning_rate": lr,
+def spmd_trainer(step, lr, mesh=None, optimizer="adam", **optimizer_params):
+    """``SPMDTrainer(step, Identity(), optimizer, {"learning_rate": lr,
     **optimizer_params}, n_labels=0)`` on ``mesh`` (default: one device,
     gpu(0))."""
-    return parallel.SPMDTrainer(step, Identity(), "adam",
+    return parallel.SPMDTrainer(step, Identity(), optimizer,
                                 dict(optimizer_params, learning_rate=lr),
                                 mesh=mesh or parallel.make_mesh(dp=1),
                                 n_labels=0)

@@ -1,11 +1,13 @@
 """Model zoo of the port (counterpart of ``mxnet_tpu/gluon/model_zoo``):
-the vision models, BERT and the Transformer."""
-from . import bert, transformer, vision
+the vision models, BERT, the Transformer and the SSD detectors."""
+from . import bert, detection, transformer, vision
 from .bert import get_bert_model
+from .detection import get_detection_model
 from .transformer import get_transformer_model
 
-__all__ = ["vision", "bert", "transformer", "get_model", "get_bert_model",
-           "get_transformer_model", "build"]
+__all__ = ["vision", "bert", "transformer", "detection", "get_model",
+           "get_bert_model", "get_transformer_model", "get_detection_model",
+           "build"]
 
 _NLP_MODELS = {"bert_12_768_12": bert.bert_12_768_12,
                "bert_24_1024_16": bert.bert_24_1024_16,

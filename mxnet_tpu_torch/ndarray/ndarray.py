@@ -36,17 +36,20 @@ __all__ = ["NDArray", "wrap_outputs", "array", "zeros", "ones", "full",
 
 
 def to_numpy(t: torch.Tensor) -> np.ndarray:
-    """A tensor's values on the host.  bf16 comes back as ml_dtypes'
-    bfloat16 with the same bits, which is what the JAX package's
-    ``asnumpy`` returns for a bf16 array; without ml_dtypes installed,
-    as float32 (every bf16 value is exact in it)."""
+    """A copy of a tensor's values on the host, never a view of its
+    storage (``.cpu()`` copies a device tensor, a host tensor is cloned),
+    as MXNet's and the JAX package's ``asnumpy`` return one.  bf16 comes
+    back as ml_dtypes' bfloat16 with the same bits, which is what the JAX
+    package's ``asnumpy`` returns for a bf16 array; without ml_dtypes
+    installed, as float32 (every bf16 value is exact in it)."""
     t = t.detach()
+    host = t.cpu() if t.device.type != "cpu" else t.clone()
     if t.dtype == torch.bfloat16:
-        bits = t.cpu().contiguous().view(torch.int16).numpy()
+        bits = host.contiguous().view(torch.int16).numpy()
         dt = np_dtype(torch.bfloat16)
         return bits.view(dt) if not isinstance(dt, str) \
-            else t.float().cpu().numpy()
-    return t.cpu().numpy()
+            else host.float().numpy()
+    return host.numpy()
 
 
 def _key(key):

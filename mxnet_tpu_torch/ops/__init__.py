@@ -1,6 +1,11 @@
 """Ops of the port as plain functions on tensors (the ``F`` that
-``hybrid_forward`` receives).  Counterpart of ``mxnet_tpu/ops``."""
+``hybrid_forward`` receives).  Counterpart of ``mxnet_tpu/ops``: besides
+the functions imported below by their Python names, every registered op
+is an attribute under its registered name (``F.MultiBoxPrior``,
+``F.broadcast_greater``, ``F.argsort``), as in the JAX package."""
 from __future__ import annotations
+
+from . import contrib
 
 from .attention import (attend, attention_launch_count,
                         dot_product_attention, dot_product_attention_ref,
@@ -14,6 +19,7 @@ from .nn import (activation, batch_norm, convolution, dropout, embedding,
 from .optimizer_ops import (adam_update, mp_adam_update, mp_sgd_mom_update,
                             mp_sgd_update, nag_mom_update, sgd_mom_update,
                             sgd_update)
+from .registry import get_op as _get_op
 from .tensor import (arange_like, broadcast_add, broadcast_lesser, cast,
                      expand_dims, mean, pick, slice_axis, squeeze,
                      sum)  # noqa: A004 — op names
@@ -29,4 +35,15 @@ __all__ = ["fused_conv_unit", "fused_conv_unit_ref", "fused_conv_unit_bwd",
            "mp_sgd_update", "mp_sgd_mom_update", "adam_update",
            "mp_adam_update", "pick", "mean", "sum",
            "arange_like", "expand_dims", "squeeze", "slice_axis", "cast",
-           "broadcast_add", "broadcast_lesser"]
+           "broadcast_add", "broadcast_lesser", "contrib"]
+
+
+def __getattr__(name: str):
+    """A registered op by its registered name (``F.MultiBoxTarget``)."""
+    from ..base import MXNetError
+
+    try:
+        return _get_op(name).fn
+    except MXNetError:
+        raise AttributeError(f"module 'mxnet_tpu_torch.ops' has no "
+                             f"attribute {name!r}") from None

@@ -1,7 +1,7 @@
 """Neural-net ops of the ResNet and BERT paths: FullyConnected,
 Convolution, Pooling (max, global average), BatchNorm, LayerNorm,
 Activation (ReLU, tanh, erf GELU), Dropout, Embedding, flatten,
-log_softmax.
+softmax, log_softmax.
 
 Counterpart of ``mxnet_tpu/ops/nn.py``, as plain functions on tensors
 with the same attributes, layouts and rounding points.  The JAX package
@@ -29,7 +29,7 @@ from .registry import register_op
 
 __all__ = ["fully_connected", "convolution", "pooling", "batch_norm",
            "layer_norm", "activation", "dropout", "embedding", "flatten",
-           "log_softmax"]
+           "softmax", "log_softmax"]
 
 
 def _channels_last(layout) -> bool:
@@ -231,15 +231,38 @@ def flatten(data):
     return data.reshape(data.shape[0], -1) if data.dim() > 1 else data
 
 
+def softmax(data, axis=-1, temperature=None, length=None):
+    """softmax over ``axis`` with optional temperature, and with
+    positions at or past a row's ``length`` (one value per leading
+    index) masked to -inf, written as ``jax.nn.softmax`` computes it:
+    exp(x - max(x)), the max getting no gradient, over its sum."""
+    x = data / temperature if temperature else data
+    if length is not None:
+        pos = torch.arange(x.shape[axis], device=x.device)
+        shape = [1] * x.dim()
+        shape[axis] = -1
+        mask = pos.reshape(shape) < length.reshape(
+            (-1,) + (1,) * (x.dim() - 1))
+        x = torch.where(mask, x, float("-inf"))
+    e = torch.exp(x - x.detach().amax(dim=axis, keepdim=True))
+    return e / e.sum(dim=axis, keepdim=True)
+
+
 def log_softmax(data, axis=-1, temperature=None):
     """log(softmax) over ``axis`` with optional temperature, written as
     ``jax.nn.log_softmax`` computes it (shift by the max, which gets no
-    gradient; subtract the log of the summed exponentials), so each op
-    rounds where the JAX package's does in a low-precision dtype."""
+    gradient; subtract the log of the summed exponentials) and rounded
+    where XLA rounds it in a low-precision dtype: the shift in x's dtype,
+    the exponentials summed in fp32 without a rounding of their own (XLA
+    keeps their excess precision up to the fp32 sum), the sum rounded to
+    x's dtype, its log rounded to x's dtype, then the subtraction.  bf16
+    log-probabilities then equal the JAX package's bit for bit, so tied
+    values tie alike (SSD's hard-negative ranking)."""
     x = data / temperature if temperature else data
+    acc = torch.promote_types(x.dtype, torch.float32)
     shifted = x - x.detach().amax(dim=axis, keepdim=True)
-    return shifted - torch.log(torch.exp(shifted).sum(dim=axis,
-                                                       keepdim=True))
+    total = torch.exp(shifted.to(acc)).sum(dim=axis, keepdim=True)
+    return shifted - torch.log(total.to(x.dtype).to(acc)).to(x.dtype)
 
 
 for _name, _fn in (("FullyConnected", fully_connected),
@@ -248,4 +271,5 @@ for _name, _fn in (("FullyConnected", fully_connected),
                    ("Activation", activation), ("Dropout", dropout),
                    ("Embedding", embedding)):
     register_op(_name, aliases=(_fn.__name__,))(_fn)
+register_op("softmax")(softmax)
 register_op("log_softmax")(log_softmax)

@@ -3,8 +3,18 @@ forward (arange_like, expand_dims, squeeze, slice_axis, cast,
 broadcast_add, broadcast_lesser), and those NDArray's operators and
 methods call (the broadcast and ``*_scalar`` arithmetic, the
 comparisons, negative, abs, matmul, max/min/norm/argmax, reshape with
-MXNet's special codes, transpose) and concat (``nd.concatenate``, the
-Transformer's greedy decoding).
+MXNet's special codes, transpose), concat (``nd.concatenate``, the
+Transformer's greedy decoding), and those of SSD's loss and decoder
+(zeros_like, ones_like, clip, broadcast_maximum/minimum, exp, log,
+sqrt, smooth_l1 and the ordering ops sort, argsort and topk).
+
+The ordering ops keep the JAX package's order among equal values, on
+which SSD's hard-negative mining depends: ``argsort`` is a stable
+ascending sort, flipped for ``is_ascend=False`` (so the later index of
+a tie comes first there; ``torch.argsort(descending=True,
+stable=True)`` would put the earlier one first), and ``topk`` follows
+``lax.top_k`` (the lower index of a tie first, +0.0 above -0.0, which
+argsort takes as equal).
 
 Counterpart of the same registered ops in ``mxnet_tpu/ops/tensor.py``,
 as plain functions on tensors, registered under the JAX package's
@@ -26,7 +36,8 @@ from .registry import register_op
 __all__ = ["pick", "mean", "sum", "arange_like", "expand_dims", "squeeze",
            "slice_axis", "cast", "broadcast_add", "broadcast_lesser",
            "reshape", "transpose", "concat", "max", "min", "norm",
-           "argmax"]
+           "argmax", "zeros_like", "ones_like", "clip", "broadcast_maximum",
+           "broadcast_minimum", "smooth_l1", "sort", "argsort", "topk"]
 
 
 def pick(x, index, axis=-1, keepdims=False, mode="clip"):
@@ -140,6 +151,81 @@ def broadcast_lesser(a, b):
     return (a < b).to(torch.float32 if rt == torch.bool else rt)
 
 
+def zeros_like(x):
+    return torch.zeros_like(x)
+
+
+def ones_like(x):
+    return torch.ones_like(x)
+
+
+def clip(x, a_min=None, a_max=None):
+    """Clamp every element to [a_min, a_max] (a bound of None is open)."""
+    return torch.clamp(x, a_min, a_max)
+
+
+def broadcast_maximum(a, b):
+    return torch.maximum(a, b)
+
+
+def broadcast_minimum(a, b):
+    return torch.minimum(a, b)
+
+
+def smooth_l1(x, scalar=1.0):
+    """Smooth L1: 0.5·s²·x² where |x| < 1/s², |x| - 0.5/s² beyond, with
+    the constants formed in Python first, as the JAX package writes it."""
+    s2 = scalar * scalar
+    ax = x.abs()
+    return torch.where(ax < 1.0 / s2, 0.5 * s2 * x.square(),
+                       ax - 0.5 / s2)
+
+
+# ---------------------------------------------------------------------------
+# ordering (the JAX package's order among equal values; module docstring)
+# ---------------------------------------------------------------------------
+
+def sort(x, axis=-1, is_ascend=True):
+    """Values along ``axis``; descending is the ascending sort flipped."""
+    out = torch.sort(x, dim=axis, stable=True).values
+    return out if is_ascend else torch.flip(out, (axis,))
+
+
+def argsort(x, axis=-1, is_ascend=True, dtype="float32"):
+    """The stable ascending sorting permutation along ``axis`` (flipped
+    for ``is_ascend=False``), cast to ``dtype`` (float indices, as in
+    MXNet)."""
+    out = torch.argsort(x, dim=axis, stable=True)
+    if not is_ascend:
+        out = torch.flip(out, (axis,))
+    return out.to(dtype_of(dtype))
+
+
+def _total_order(x):
+    """An integer key that orders floats as ``lax.top_k`` does (-0.0
+    below +0.0); integers are their own key."""
+    if not x.is_floating_point():
+        return x
+    bits = x.float().view(torch.int32)
+    return torch.where(bits < 0, bits ^ 0x7FFFFFFF, bits)
+
+
+def topk(x, axis=-1, k=1, ret_typ="indices", is_ascend=False,
+         dtype="float32"):
+    """The k largest (``is_ascend=False``) or smallest values along
+    ``axis``, in that order, the lower index first among equal values
+    (``lax.top_k`` on x, or on -x when ascending); ``ret_typ`` is
+    "indices", "value" or "both" (values, indices)."""
+    key = _total_order(-x if is_ascend else x)
+    idx = torch.sort(key, dim=axis, descending=True,
+                     stable=True).indices.narrow(axis, 0, k)
+    if ret_typ == "value":
+        return torch.gather(x, axis, idx)
+    if ret_typ == "both":
+        return torch.gather(x, axis, idx), idx.to(dtype_of(dtype))
+    return idx.to(dtype_of(dtype))
+
+
 # ---------------------------------------------------------------------------
 # shapes
 # ---------------------------------------------------------------------------
@@ -220,11 +306,13 @@ def _as_result(out, a, b=None):
     return out.to(torch.float32 if rt == torch.bool else rt)
 
 
-_UNARY = {"abs": torch.abs, "negative": torch.negative}
+_UNARY = {"abs": torch.abs, "negative": torch.negative, "exp": torch.exp,
+          "log": torch.log, "sqrt": torch.sqrt}
 _BINARY = {
     "broadcast_sub": torch.sub, "broadcast_mul": torch.mul,
     "broadcast_div": torch.true_divide, "broadcast_mod": torch.remainder,
-    "broadcast_power": torch.pow,
+    "broadcast_power": torch.pow, "broadcast_maximum": broadcast_maximum,
+    "broadcast_minimum": broadcast_minimum,
 }
 _CMP = {
     "broadcast_equal": torch.eq, "broadcast_not_equal": torch.ne,
@@ -286,6 +374,13 @@ def _register():
     register_op("slice_axis")(slice_axis)
     register_op("pick")(pick)
     register_op("matmul")(torch.matmul)
+    register_op("zeros_like")(zeros_like)
+    register_op("ones_like")(ones_like)
+    register_op("clip")(clip)
+    register_op("smooth_l1")(smooth_l1)
+    register_op("sort", differentiable=False)(sort)
+    register_op("argsort", differentiable=False)(argsort)
+    register_op("topk", differentiable=False)(topk)
 
 
 _register()

@@ -128,7 +128,10 @@ def test_the_port_modules_import_no_jax():
                 "optimizer/__init__.py", "gluon/block.py",
                 "gluon/trainer.py", "random.py", "util/env.py",
                 "parallel/sharding.py", "ops/nn.py", "ops/fused_convbn.py",
-                "examples/mnist.py", "contrib/deploy.py", "_graphs.py"):
+                "examples/mnist.py", "contrib/deploy.py", "_graphs.py",
+                "ops/contrib.py", "gluon/model_zoo/detection.py",
+                "gluon/model_zoo/vision/mobilenet.py",
+                "examples/ssd_train.py"):
         for name in _imports(pkg / rel):
             assert not name.startswith(("jax", "mxnet_tpu.")) \
                 and name != "mxnet_tpu", (rel, name)
@@ -138,7 +141,10 @@ def test_the_port_modules_import_no_jax():
             "mxnet_tpu_torch.ops.convbn_tap, "
             "mxnet_tpu_torch.optimizer.fused, mxnet_tpu_torch._graphs, "
             "mxnet_tpu_torch.gluon.model_zoo.transformer, "
-            "mxnet_tpu_torch.examples.bench_steps; "
+            "mxnet_tpu_torch.examples.bench_steps, "
+            "mxnet_tpu_torch.ops.contrib, "
+            "mxnet_tpu_torch.gluon.model_zoo.detection, "
+            "mxnet_tpu_torch.examples.ssd_train; "
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'mxnet_tpu.')) or m == 'mxnet_tpu']; "
             "print(bad); sys.exit(1 if bad else 0)")

@@ -302,6 +302,34 @@ def test_save_load_round_trip_with_the_jax_package(tmp_path):
             _same(got_j[k], got_t[k])
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_asnumpy_of_a_cpu_parameter_is_a_copy(dtype):
+    """``asnumpy()`` returns a copy, as MXNet and the JAX package do: an
+    in-place update of the parameter afterwards (a ``gluon.Trainer``
+    step, then an in-place operator on the array) leaves the array that
+    was read unchanged."""
+    net = mt.gluon.nn.Dense(3, in_units=4, dtype=dtype)
+    net.initialize(ctx=CPU)
+    p = net.collect_params()["weight"]
+    held = p.data().asnumpy()
+    kept = held.copy()
+    trainer = mt.gluon.Trainer(net.collect_params(), "sgd",
+                               {"learning_rate": 0.5})
+    x = mt.nd.array(A[:, :4], ctx=CPU, dtype=dtype)
+    with mt.autograd.record():
+        loss = (net(x) * net(x)).sum()
+    loss.backward()
+    trainer.step(1)
+    now = p.data().asnumpy()
+    assert not np.array_equal(now.view(np.uint8), kept.view(np.uint8))
+    np.testing.assert_array_equal(held.view(np.uint8), kept.view(np.uint8))
+    arr = mt.nd.array(B, ctx=CPU, dtype=dtype)
+    held = arr.asnumpy()
+    kept = held.copy()
+    arr += 1.0
+    np.testing.assert_array_equal(held.view(np.uint8), kept.view(np.uint8))
+
+
 NEW_MODULES = ["ndarray/__init__.py", "ndarray/ndarray.py",
                "ndarray/register.py", "ops/registry.py", "autograd.py",
                "random.py", "kvstore.py", "metric.py", "gluon/parameter.py",
