@@ -245,6 +245,44 @@ Phases, each failing loudly (exit code 1, no result line):
    .ssd_train.main(--batch-size 8 --steps 3) on cuda:0 with the
    ResNet-50 network: finite losses, every parameter, gradient and
    optimizer state on cuda:0.  The phase's seconds are printed.
+11. main path, MXNet's symbolic API: (a) ResNet-50 v1 written with mx.sym
+   in the layer layout of gluon's resnet50_v1 (resnet50_v1_sym below:
+   NCHW fp32 at 224x224, 1000 classes, a SoftmaxOutput head; 25,557,032
+   parameters), trained through Module(context=gpu(0)).fit over an
+   NDArrayIter of seeded synthetic images (numpy's default_rng(0), batch
+   64, no shuffle) with sgd lr 0.1, momentum 0.9, wd 1e-4 and
+   rescale_grad 1/64 (MXNet's own Module default): one epoch of 4
+   batches, then 5 timed captured steps (forward_backward + update:
+   the executor's train step and FusedUpdater's update, each one CUDA
+   graph) and 5 eager ones (_graphs.no_capture), ms a step, img/s, an
+   idle share of each, the captures' seconds and pools' GiB; cuDNN's
+   default fp32 algorithms are not deterministic (the count of tensors
+   in which two eager steps from one state differ is printed), so a
+   second Module from the trained weights is captured under
+   cudnn.deterministic and its replayed step held against its eager
+   step from one state, bit for bit (outputs, every gradient, moving
+   statistics, updated weights, momenta), with no new build; one
+   batch-8 step on cuda:0 against the same step of the port on the CPU
+   from the same weights and batch: in fp32 (TF32 off) the outputs and
+   all leaves' updates together within 1e-4 / 1e-3 relative L2 plus
+   twice the step's own sensitivity (the larger of two card steps'
+   distance from one state, cuDNN's default fp32 algorithms not being
+   deterministic, and of the card step from weights moved by 2^-24
+   relative), each leaf's fp32 distance printed; in float64 the outputs
+   and each leaf's update within 1e-9 (one fp32 rounding moves a leaf
+   of this step by up to ~2e-3); save_checkpoint -> Module.load ->
+   predict over 128 images equal to the prediction before saving. (b)
+   sym.dot_product_attention at BERT-base's shapes (32 x 12 heads, 128
+   tokens, D 64, bf16, packed, valid lengths from a seed), bound and run
+   forward 3 times: each output equal to
+   ops.attention.dot_product_attention on the same inputs bit for bit,
+   kernel 5 launched once a forward.  (c) a graph of one sym.FusedConvUnit
+   node at ResNet-50's 3x3 64->64 layer (N 32, 56x56, bf16 NHWC, act_in,
+   statistics) bound with gradients, 3 train steps (forward(is_train=
+   True) + backward()): y, s1, s2 and the gradients of data, weight,
+   in_scale and in_bias equal to a direct fused_conv_unit call with ones
+   cotangents bit for bit, kernels 1 and 2 launched once a step each.
+   The phase's seconds are printed.
 
 The compiled paths (mxnet_tpu_torch._graphs): every SPMDTrainer step on one
 device, every hybridized forward in inference and gluon.Trainer's
@@ -278,8 +316,9 @@ through gluon.Trainer in phase 8 and per rank under dp, kernel 2
 trained, trained through gluon.Trainer and per rank under dp, kernel 5
 on the BERT serving path, on phase 9's dropout-0 BERT step and on its
 greedy decode, kernel 6 on the probe path: summed over the 27
-configurations of one time sweep, with ms_by_nb), from the checks at
-that path's shapes; the last line is
+configurations of one time sweep, with ms_by_nb; kernels 1, 2 and 5
+through phase 11's sym nodes, one call each), from the checks at that
+path's shapes; the last line is
 {"ok": true, "device": {"platform": "gpu", ...}}.
 """
 from __future__ import annotations
@@ -414,6 +453,16 @@ SSD_BOUNDS = dict(loss=1e-4, leaf=1e-3, bf16_loss=2e-2)
 SSD_NMS_TOPK = (100, -1)         # the example's cap; the op's default
 SSD_DET_TOL = 1e-6
 SSD_EXAMPLE_ARGS = ["--batch-size", "8", "--steps", "3"]
+# phase 11: MXNet's symbolic API (Module.fit of ResNet-50 v1 over mx.sym;
+# the kernels through sym.dot_product_attention and sym.FusedConvUnit)
+SYM_BATCH, SYM_FIT_BATCHES, SYM_TIMED_STEPS = 64, 4, 5
+SYM_OPT = {"learning_rate": 0.1, "momentum": 0.9, "wd": 1e-4,
+           "rescale_grad": 1.0 / 64}
+SYM_CHECK_BATCH = 8
+SYM_BOUNDS = dict(out=1e-4, all=1e-3, leaf=1e-3, leaf64=1e-9)
+SYM_PREDICT = 128
+SYM_CALLS = 3                    # forwards (b) and train steps (c)
+SYM_UNIT = (32, 56, 64, 64, 3)   # N, hw, Ci, Co, k of (c)
 KERNEL_DP = dict(KERNEL, name="fused_conv_unit/dp",
                  replaces="mxnet_tpu/ops/pallas_convbn.py:618")
 KERNEL_BWD_DP = dict(KERNEL_BWD, name="fused_conv_unit_bwd/dp",
@@ -4082,6 +4131,471 @@ def phase_ssd(card):
     return res
 
 
+# ---------------------------------------------------------------------------
+# phase 11: MXNet's symbolic API
+# ---------------------------------------------------------------------------
+
+def resnet50_v1_sym(sym, classes=1000):
+    """ResNet-50 v1 in mx.sym, the layer layout of gluon's resnet50_v1:
+    a 7x7/2 stem and a 3x3/2 max pool, bottleneck blocks of (3, 4, 6, 3)
+    with the stride on the first 1x1 and a 1x1 projection on each stage's
+    first block, global average pooling and a 1000-way FullyConnected
+    under a SoftmaxOutput; convolutions without bias, BatchNorm eps 1e-5
+    and momentum 0.9 with a learned gamma."""
+    def conv_bn(x, ch, k, stride, pad, name, relu=True):
+        x = sym.Convolution(x, num_filter=ch, kernel=(k, k),
+                            stride=(stride, stride), pad=(pad, pad),
+                            no_bias=True, name=f"{name}_conv")
+        x = sym.BatchNorm(x, fix_gamma=False, eps=1e-5, momentum=0.9,
+                          name=f"{name}_bn")
+        return sym.Activation(x, act_type="relu", name=f"{name}_relu") \
+            if relu else x
+
+    x = conv_bn(sym.var("data"), 64, 7, 2, 3, "stem")
+    x = sym.Pooling(x, kernel=(3, 3), stride=(2, 2), pad=(1, 1),
+                    pool_type="max", name="stem_pool")
+    for si, (blocks, ch) in enumerate(zip((3, 4, 6, 3),
+                                          (256, 512, 1024, 2048))):
+        for b in range(blocks):
+            name = f"stage{si + 1}_unit{b + 1}"
+            stride = 2 if b == 0 and si > 0 else 1
+            h = conv_bn(x, ch // 4, 1, stride, 0, f"{name}_a")
+            h = conv_bn(h, ch // 4, 3, 1, 1, f"{name}_b")
+            h = conv_bn(h, ch, 1, 1, 0, f"{name}_c", relu=False)
+            sc = conv_bn(x, ch, 1, stride, 0, f"{name}_proj", relu=False) \
+                if b == 0 else x
+            x = sym.Activation(h + sc, act_type="relu", name=f"{name}_out")
+    x = sym.Pooling(x, global_pool=True, pool_type="avg", kernel=(1, 1),
+                    name="pool")
+    x = sym.FullyConnected(sym.Flatten(x, name="flat"), num_hidden=classes,
+                           name="fc")
+    return sym.SoftmaxOutput(x, name="softmax")
+
+
+def sym_images(n, seed):
+    """(n, 3, 224, 224) fp32 images and labels in [0, 1000), seeded."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((n, 3, 224, 224), dtype=np.float32)
+    return x, rng.integers(0, 1000, n).astype(np.float32)
+
+
+def module_state(mod):
+    """Copies of what a Module step writes: the executor's arguments and
+    aux states, and the optimizer's states."""
+    ex = mod._exec_group.execs[0]
+    return ([a._data.clone() for a in ex.arg_arrays],
+            [a._data.clone() for a in ex.aux_arrays],
+            {i: st._data.clone() for i, st in mod._updater.states.items()
+             if st is not None})
+
+
+def set_module_state(mod, st):
+    """Write `st` back in place (the captured steps keep their
+    addresses)."""
+    ex = mod._exec_group.execs[0]
+    with torch.no_grad():
+        for a, v in zip(ex.arg_arrays, st[0]):
+            a._data.copy_(v)
+        for a, v in zip(ex.aux_arrays, st[1]):
+            a._data.copy_(v)
+        for i, v in st[2].items():
+            mod._updater.states[i]._data.copy_(v)
+
+
+def module_step(mod, batch):
+    """One forward_backward + update; copies of the output, every
+    gradient, the aux states, the updated arguments and the momenta."""
+    mod.forward_backward(batch)
+    mod.update()
+    ex = mod._exec_group.execs[0]
+    args, aux, mom = module_state(mod)
+    return ([ex.outputs[0]._data.clone()]
+            + [g._data.clone() for g in ex.grad_arrays if g is not None]
+            + aux + args + [mom[i] for i in sorted(mom)])
+
+
+def timed_module_steps(mod, batches, steps):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(steps):
+        mod.forward_backward(batches[i % len(batches)])
+        mod.update()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / steps
+
+
+def sym_module(net, ctx, batch, args, aux):
+    """A Module of `net` on `ctx` bound for training at `batch` from the
+    parameters `args`/`aux` (NDArrays), with SYM_OPT's sgd."""
+    from mxnet_tpu_torch.io import DataDesc
+    from mxnet_tpu_torch.module import Module
+
+    mod = Module(net, context=ctx)
+    mod.bind([DataDesc("data", (batch, 3, 224, 224))],
+             [DataDesc("softmax_label", (batch,))])
+    mod.init_params(arg_params=args, aux_params=aux)
+    mod.init_optimizer(optimizer="sgd", optimizer_params=dict(
+        SYM_OPT, rescale_grad=1.0 / batch))
+    return mod
+
+
+def sym_numerics(net, w_args, w_aux, card):
+    """(a): one batch-8 step on the card against the port's step on the
+    CPU from the same weights and batch.  In fp32 (TF32 off): the outputs
+    within SYM_BOUNDS["out"] and the updates of all leaves together
+    within SYM_BOUNDS["all"], each plus twice the card step's own
+    sensitivity (the larger of two card steps' distance from the same
+    weights, cuDNN's default fp32 algorithms not being deterministic, and
+    of the card step from weights moved by 2^-24 relative); each leaf's
+    fp32 distance is printed.  A leaf at a time the step is held in
+    float64: at batch 8 BatchNorm over stage 4's 7x7 maps amplifies one
+    fp32 rounding up to ~3e4-fold, so one fp32 leaf lands past any bound
+    drawn from a second noisy sample of the same rounding; in float64
+    the outputs and each leaf's update lie within SYM_BOUNDS["leaf64"]."""
+    from mxnet_tpu_torch import _graphs as mxg
+    from mxnet_tpu_torch import cpu, gpu
+    from mxnet_tpu_torch.io import DataBatch
+    from mxnet_tpu_torch.ndarray import NDArray
+
+    x, y = sym_images(SYM_CHECK_BATCH, 3)
+
+    def run(ctx, args, dtype=torch.float32):
+        mod = sym_module(
+            net, ctx, SYM_CHECK_BATCH,
+            {k: NDArray(v.to(ctx, dtype)) for k, v in args.items()},
+            {k: NDArray(v.to(ctx, dtype)) for k, v in w_aux.items()})
+        with mxg.no_capture():
+            mod.forward_backward(DataBatch(
+                [NDArray(torch.from_numpy(x).to(dtype))],
+                [NDArray(torch.from_numpy(y).to(dtype))]))
+            mod.update()
+        ex = mod._exec_group.execs[0]
+        out = ex.outputs[0]._data.detach().cpu().double()
+        upd = {k: (ex.arg_dict[k]._data.detach().cpu().double()
+                   - args[k].cpu().to(dtype).double()) for k in args}
+        return out, upd
+
+    t0 = time.perf_counter()
+    out_c, upd_c = run(cpu(), w_args)
+    cpu_s = time.perf_counter() - t0
+    out_g, upd_g = run(gpu(0), w_args)
+    out_n, upd_n = run(gpu(0), w_args)
+    g = torch.Generator().manual_seed(5)
+    out_w, upd_w = run(gpu(0), {k: perturb(v, 2.0 ** -24, g)
+                                for k, v in w_args.items()})
+    t0 = time.perf_counter()
+    out_c64, upd_c64 = run(cpu(), w_args, torch.float64)
+    cpu64_s = time.perf_counter() - t0
+    out_g64, upd_g64 = run(gpu(0), w_args, torch.float64)
+
+    def rel(a, b):
+        return float((a - b).norm() / b.norm().clamp_min(1e-300))
+    e_out = rel(out_g, out_c)
+    s_out = max(rel(out_w, out_g), rel(out_n, out_g))
+    e_all = rel_l2_all(upd_g, upd_c)
+    s_all = max(rel_l2_all(upd_w, upd_g), rel_l2_all(upd_n, upd_g))
+    e = {k: rel(upd_g[k], upd_c[k]) for k in upd_c}
+    nondet = sum(not torch.equal(upd_n[k], upd_g[k]) for k in upd_c)
+    past = sum(v > SYM_BOUNDS["leaf"] for v in e.values())
+    med = sorted(e.values())[len(e) // 2]
+    e_out64 = rel(out_g64, out_c64)
+    e64 = {k: rel(upd_g64[k], upd_c64[k]) for k in upd_c64}
+    over64 = sorted(k for k, v in e64.items() if v > SYM_BOUNDS["leaf64"])
+    worst64 = max(e64.items(), key=lambda kv: kv[1])
+    print(f"sym numerics: fp32 batch {SYM_CHECK_BATCH} step, card vs cpu "
+          f"(cpu step {cpu_s:.1f} s): outputs rel L2 {e_out:.3g} "
+          f"(sensitivity {s_out:.3g}, bound {SYM_BOUNDS['out']} + 2x), all "
+          f"{len(e)} leaves' updates together {e_all:.3g} (sensitivity "
+          f"{s_all:.3g}, bound {SYM_BOUNDS['all']} + 2x), a leaf at a "
+          f"time: median {med:.3g}, worst {max(e.values()):.3g}, {past} "
+          f"past {SYM_BOUNDS['leaf']} (two card steps from one state "
+          f"differ on {nondet} leaves); float64 (cpu step {cpu64_s:.1f} "
+          f"s): outputs {e_out64:.3g}, worst leaf {worst64[1]:.3g} "
+          f"({worst64[0]}), {len(over64)} past {SYM_BOUNDS['leaf64']} "
+          f"[{card}]", flush=True)
+    if e_out > SYM_BOUNDS["out"] + 2 * s_out \
+            or e_all > SYM_BOUNDS["all"] + 2 * s_all \
+            or e_out64 > SYM_BOUNDS["leaf64"] or over64:
+        fail(f"sym numerics: fp32 outputs {e_out} (sensitivity {s_out}), "
+             f"updates {e_all} (sensitivity {s_all}); float64 outputs "
+             f"{e_out64}, leaves past {SYM_BOUNDS['leaf64']} {over64[:5]}")
+    return dict(out_rel=e_out, out_sensitivity=s_out, all_rel=e_all,
+                all_sensitivity=s_all, leaf_median=med,
+                leaf_worst=max(e.values()), leaves_past=past,
+                nondeterministic_leaves=nondet, cpu_s=cpu_s,
+                out_rel64=e_out64, leaf_worst64=worst64[1],
+                leaves_over64=len(over64), cpu64_s=cpu64_s)
+
+
+def sym_train(card):
+    """(a): ResNet-50 v1 over mx.sym through Module.fit, then the timed
+    captured and eager steps, the bit-for-bit comparison, the checkpoint
+    round trip and the card-vs-cpu step."""
+    import gc
+
+    import numpy as np
+
+    from mxnet_tpu_torch import _graphs as mxg
+    from mxnet_tpu_torch import gpu, init, sym
+    from mxnet_tpu_torch.io import NDArrayIter
+    from mxnet_tpu_torch.module import Module
+    from mxnet_tpu_torch.optimizer import fused
+
+    net = resnet50_v1_sym(sym)
+    arg_shapes = net.infer_shape(data=(SYM_BATCH, 3, 224, 224))[0]
+    n_params = sum(int(np.prod(s)) for n, s in zip(net.list_arguments(),
+                                                    arg_shapes)
+                   if n not in ("data", "softmax_label"))
+    x, y = sym_images(SYM_BATCH * SYM_FIT_BATCHES, 0)
+    it = NDArrayIter(x, y, batch_size=SYM_BATCH, shuffle=False)
+    mod = Module(net, context=gpu(0))
+    t0 = time.perf_counter()
+    mod.fit(it, num_epoch=1, optimizer="sgd", optimizer_params=SYM_OPT,
+            initializer=init.Xavier(rnd_type="gaussian", factor_type="in",
+                                    magnitude=2), eval_metric="acc")
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    it.reset()
+    batches = list(it)
+    builds = sym.executor_stats()["count"]
+    cap_ms = timed_module_steps(mod, batches, SYM_TIMED_STEPS) * 1e3
+    with mxg.no_capture():
+        eager_ms = timed_module_steps(mod, batches, SYM_TIMED_STEPS) * 1e3
+    finite = bool(torch.isfinite(mod.get_outputs()[0]._data).all())
+
+    def step():
+        mod.forward_backward(batches[0])
+        mod.update()
+    prof = profile_device(step, "sym train captured", "step", card, cap_ms,
+                          iters=2, top=8)
+    with mxg.no_capture():
+        prof_e = profile_device(step, "sym train eager", "step", card,
+                                eager_ms, iters=1, top=0)
+    cap_s, gib = graph_costs(mod._exec_group.execs[0].graphs()
+                             + fused._FUSED_CACHE.entries(mod._updater))
+    print(f"sym resnet50_v1 ({n_params} parameters) Module.fit fp32 batch "
+          f"{SYM_BATCH} at 224x224, sgd lr 0.1 momentum 0.9 wd 1e-4: one "
+          f"epoch of {SYM_FIT_BATCHES} batches in {fit_s:.2f} s with the "
+          f"captures; captured {cap_ms:.2f} ms/step, "
+          f"{SYM_BATCH / cap_ms * 1e3:.1f} img/s, idle {pct(idle_of(prof))};"
+          f" eager {eager_ms:.2f} ms/step, idle {pct(idle_of(prof_e))}; "
+          f"capture {cap_s:.2f} s, graph pool {gib:.2f} GiB; outputs "
+          f"finite {finite} [{card}]", flush=True)
+    if not finite:
+        fail("sym train: outputs not finite")
+    res = dict(parameters=n_params, fit_s=fit_s, captured_ms=cap_ms,
+               eager_ms=eager_ms, img_per_s=SYM_BATCH / cap_ms * 1e3,
+               idle=idle_of(prof), idle_eager=idle_of(prof_e),
+               capture_s=cap_s, pool_gib=gib)
+    # a replayed step against an eager step from one state, bit for bit.
+    # cuDNN's default fp32 algorithms are not deterministic (two eager
+    # steps from one state differ), so a second Module from these weights
+    # is built, captured and compared under cudnn.deterministic
+    st = module_state(mod)
+    with mxg.no_capture():
+        first = module_step(mod, batches[1])
+        set_module_state(mod, st)
+        again = module_step(mod, batches[1])
+    set_module_state(mod, st)
+    nondet = len(first) - sum(same_bits(first, again))
+    del first, again, st
+    w_args, w_aux = mod.get_params()
+    torch.backends.cudnn.deterministic = True
+    try:
+        det = sym_module(net, gpu(0), SYM_BATCH, w_args, w_aux)
+        for b in batches[:2]:  # builds the step and the update, replays
+            det.forward_backward(b)
+            det.update()
+        builds = sym.executor_stats()["count"]
+        st = module_state(det)
+        got = module_step(det, batches[1])
+        rebuilt = sym.executor_stats()["count"] - builds
+        set_module_state(det, st)
+        with mxg.no_capture():
+            want = module_step(det, batches[1])
+        same = same_bits(got, want)
+        det_ms = timed_module_steps(det, batches, SYM_TIMED_STEPS) * 1e3
+    finally:
+        torch.backends.cudnn.deterministic = False
+    print(f"compiled: sym resnet50_v1 Module step fp32 batch {SYM_BATCH}: "
+          f"two eager steps from one state with cuDNN's default algorithms "
+          f"differ in {nondet} of {len(same)} tensors; under "
+          f"cudnn.deterministic ({det_ms:.2f} ms/step captured) replayed "
+          f"vs eager from one state, {len(same)} tensors (output, "
+          f"gradients, moving statistics, weights, momenta) bit-identical "
+          f"{sum(same)}/{len(same)}; builds during it {rebuilt} [{card}]",
+          flush=True)
+    if not all(same) or rebuilt:
+        fail(f"sym compiled step: {len(same) - sum(same)} tensors differ, "
+             f"{rebuilt} builds")
+    res["compiled"] = dict(tensors=len(same), identical=sum(same),
+                           builds=rebuilt, eager_vs_eager_differ=nondet,
+                           deterministic_captured_ms=det_ms)
+    del det
+    del got, want, st
+    # save_checkpoint -> Module.load -> predict
+    pit = NDArrayIter(x[:SYM_PREDICT], y[:SYM_PREDICT],
+                      batch_size=SYM_BATCH)
+    before = mod.predict(pit)._data
+    prefix = os.path.join("build", "chip_smoke_sym", "resnet50_v1")
+    os.makedirs(os.path.dirname(prefix), exist_ok=True)
+    mod.save_checkpoint(prefix, 1)
+    loaded = Module.load(prefix, 1, context=gpu(0))
+    loaded.bind(pit.provide_data, pit.provide_label, for_training=False)
+    after = loaded.predict(pit)._data
+    diff = float((after - before).abs().max())
+    print(f"sym checkpoint: save_checkpoint -> Module.load -> predict over "
+          f"{SYM_PREDICT} images: max abs diff {diff:.3g}, bit-identical "
+          f"{torch.equal(after, before)} [{card}]", flush=True)
+    if diff > 0:
+        fail(f"sym checkpoint: predictions differ by {diff}")
+    res["checkpoint_max_abs"] = diff
+    w_args, w_aux = mod.get_params()
+    w_args = {k: v._data.cpu() for k, v in w_args.items()}
+    w_aux = {k: v._data.cpu() for k, v in w_aux.items()}
+    del mod, loaded, batches, before, after
+    gc.collect()
+    torch.cuda.empty_cache()
+    res["numerics"] = sym_numerics(net, w_args, w_aux, card)
+    return res
+
+
+def sym_attention(card, rec_att):
+    """(b): sym.dot_product_attention at BERT-base's shapes against the op
+    it wraps, bit for bit, kernel 5 once a forward."""
+    from mxnet_tpu_torch import gpu, sym
+    from mxnet_tpu_torch.ndarray import NDArray
+    from mxnet_tpu_torch.ops import attention as att
+
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(11)
+    shape = (BATCH, BERT_SEQ, BERT_UNITS)
+    q, k, v = (torch.randn(*shape, generator=gen, device=dev)
+               .to(torch.bfloat16) for _ in range(3))
+    lengths = torch.randint(1, BERT_SEQ + 1, (BATCH,), generator=gen,
+                            device=dev)
+    m = (torch.arange(BERT_SEQ, device=dev)[None] < lengths[:, None]) \
+        .to(torch.bfloat16)
+    node = sym.dot_product_attention(sym.var("q"), sym.var("k"),
+                                     sym.var("v"), valid_mask=sym.var("m"),
+                                     num_heads=BERT_HEADS, name="att")
+    ex = node.bind(gpu(0), {n: NDArray(t) for n, t in
+                            zip("qkvm", (q, k, v, m))}, grad_req="null")
+    ref = att.dot_product_attention(q, k, v, valid_mask=m,
+                                    num_heads=BERT_HEADS)
+    torch.cuda.synchronize()
+    reset_kernel_counts()
+    same = [torch.equal(ex.forward()[0]._data, ref)
+            for _ in range(SYM_CALLS)]
+    torch.cuda.synchronize()
+    counts = kernel_counts()
+    sym_ms = time_ms(lambda: ex.forward())
+    print(f"sym attention ({BATCH} x {BERT_HEADS} heads, {BERT_SEQ} tokens, "
+          f"D {BERT_UNITS // BERT_HEADS}, bf16): {SYM_CALLS} bound forwards "
+          f"bit-identical to the op {sum(same)}/{SYM_CALLS}; launches "
+          f"{counts}; a forward {sym_ms:.4f} ms by CUDA events (the "
+          f"kernel's launch step {rec_att['kernel_ms']:.4f}) [{card}]",
+          flush=True)
+    if not all(same) or counts != {"k1": 0, "k2": 0, "k5": SYM_CALLS,
+                                   "k6": 0}:
+        fail(f"sym attention: identical {same}, launches {counts}")
+    return dict(identical=sum(same), launches=counts["k5"], ms=sym_ms)
+
+
+def sym_fused_unit(card):
+    """(c): a sym.FusedConvUnit node's train steps against a direct
+    fused_conv_unit call with ones cotangents, bit for bit, kernels 1
+    and 2 once a step; then the two kernels' checks at this shape."""
+    from mxnet_tpu_torch import gpu, sym
+    from mxnet_tpu_torch.ndarray import NDArray
+    from mxnet_tpu_torch.ops import fused_convbn as fcb
+
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(12)
+    n, hw, ci, co, k = SYM_UNIT
+    x, w, sc, bi, sh = make_unit_inputs(gen, n, hw, ci, co, k,
+                                        torch.bfloat16, dev)
+    names = ("data", "weight", "in_scale", "in_bias", "shift")
+    kw = dict(kernel=(k, k), stride=(1, 1), pad=(1, 1), act_in=True)
+    node = sym.FusedConvUnit(*[sym.var(nm) for nm in names], name="unit",
+                             **kw)
+    ex = node.bind(gpu(0), {nm: NDArray(t) for nm, t in
+                            zip(names, (x, w, sc, bi, sh))},
+                   grad_req={nm: "write" for nm in names[:4]})
+    leaves = [t.detach().clone().requires_grad_() for t in (x, w, sc, bi)]
+    outs = fcb.fused_conv_unit(*leaves, sh, **kw)
+    grads = torch.autograd.grad(outs, leaves,
+                                [torch.ones_like(o) for o in outs])
+    want = [o.detach() for o in outs] + list(grads)
+    torch.cuda.synchronize()
+    reset_kernel_counts()
+    same = []
+    for _ in range(SYM_CALLS):
+        got = [o._data for o in ex.forward(is_train=True)]
+        ex.backward()
+        got += [ex.grad_dict[nm]._data for nm in names[:4]]
+        same.append(all(same_bits(got, want)))
+    torch.cuda.synchronize()
+    counts = kernel_counts()
+    print(f"sym fused unit (N {n}, {hw}x{hw}, {ci}->{co}, {k}x{k}, bf16 "
+          f"NHWC, statistics): {SYM_CALLS} train steps, y/s1/s2 and 4 "
+          f"gradients bit-identical to a direct fused_conv_unit call with "
+          f"ones cotangents {sum(same)}/{SYM_CALLS}; launches {counts} "
+          f"[{card}]", flush=True)
+    if not all(same) or counts != {"k1": SYM_CALLS, "k2": SYM_CALLS,
+                                   "k5": 0, "k6": 0}:
+        fail(f"sym fused unit: identical {same}, launches {counts}")
+    print("kernels 1 and 2 vs their plain versions at the sym node's shape:",
+          flush=True)
+    rec1 = check_unit("sym.unit", x, w, sc, bi, sh, k, 1, 1, True, True)
+    rec2 = check_unit_bwd("sym.unit", x, w, sc, bi, sh, k, 1, True, True,
+                          gen)
+    return dict(identical=sum(same), launches_k1=counts["k1"],
+                launches_k2=counts["k2"]), rec1, rec2
+
+
+def sym_kernel_record(kernel, rec, launches):
+    """The `kernels` record of kernel 1 or 2 on phase 11's sym node: one
+    call at its shape."""
+    return dict(kernel, path="sym_fused_unit", batch=rec["shape"][0],
+                launches=launches, max_abs_err=rec["max_abs_err"],
+                ms=rec["kernel_ms"], op_ms=rec["op_ms"],
+                plain_ms=rec["ref_ms"], bound_ms=rec["bound_ms"],
+                bound_by=rec["bound_by"], library_ms=rec["library_ms"])
+
+
+def phase_symbolic(card, recs_att):
+    """MXNet's symbolic API on the card: (a) Module.fit of ResNet-50 v1,
+    (b) attention and (c) the fused unit through their sym nodes.
+    Returns (results, the three `kernels` records)."""
+    import gc
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    set_knobs(True, True)
+    res = {"train": sym_train(card)}
+    gc.collect()
+    torch.cuda.empty_cache()
+    res["attention"] = sym_attention(card, recs_att["bert.packed"])
+    res["unit"], rec1, rec2 = sym_fused_unit(card)
+    res["seconds"] = time.perf_counter() - t_phase
+    print(f"symbolic phase: {res['seconds']:.1f} s [{card}]", flush=True)
+    print("symbolic: " + json.dumps(res, default=str), flush=True)
+    kernels = [
+        sym_kernel_record(dict(KERNEL, name="fused_conv_unit/sym"), rec1,
+                          res["unit"]["launches_k1"]),
+        sym_kernel_record(dict(KERNEL_BWD, name="fused_conv_unit_bwd/sym"),
+                          rec2, res["unit"]["launches_k2"]),
+        attention_path_summary(
+            dict(KERNEL_ATT, name="dot_product_attention/sym"),
+            "sym_attention", [(recs_att["bert.packed"], 1)],
+            res["attention"]["launches"], BATCH)]
+    return res, kernels
+
+
 def attention_path_summary(kernel, path, rows, launches, batch):
     """The `kernels` record of kernel 5 on one phase-9 path: each check
     record in `rows` (record, launches) weighted by its launches in one
@@ -4155,6 +4669,7 @@ def main():
     recs_dec = phase_kernels_decode(card)
     tf_res = phase_transformer(card)
     phase_ssd(card)
+    _, sym_kernels = phase_symbolic(card, recs_att)
     dec_steps = tf_res["decode"]["steps"]
     dp_keys = dict(backend=dp_res.get("backend"), ranks=DP)
     # kernel 1 once for each main path (its shapes and launches), kernel 2
@@ -4188,7 +4703,7 @@ def main():
             + [(recs_dec[(kind, s)], NMT_LAYERS)
                for s in range(1, dec_steps + 1)
                for kind in ("causal", "cross")],
-            tf_res["decode"]["launches"], DECODE_BATCH)]
+            tf_res["decode"]["launches"], DECODE_BATCH)] + sym_kernels
     if FAILURES:
         print(f"chip_smoke: {len(FAILURES)} failure(s)", flush=True)
         return 1

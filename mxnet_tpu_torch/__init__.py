@@ -15,7 +15,10 @@ ResNet V1 data parallel over a process group (``dist``); slice 9 adds
 MXNet's imperative surface: ``nd`` (NDArray and the op registry),
 ``autograd`` over ``torch.autograd``, ``gluon.Trainer`` with
 ``Parameter``/``ParameterDict``, the local ``kvstore``, ``metric`` and
-``gluon.data`` (see ``examples/mnist.py``).
+``gluon.data`` (see ``examples/mnist.py``); slice 13 adds MXNet's
+symbolic half: ``sym`` (Symbol and its executor), ``mod`` (Module),
+``io``, ``lr_scheduler``, ``callback``, ``model`` and
+``gluon.SymbolBlock``.
 """
 from __future__ import annotations
 
@@ -30,8 +33,16 @@ from . import autograd, kvstore, metric, ndarray, optimizer, random
 from . import ndarray as nd
 from .ndarray import NDArray
 from . import gluon
+from . import attribute, callback, io, lr_scheduler, model, name
+from . import symbol
+from . import symbol as sym
+from . import module
+from . import module as mod
+from .attribute import AttrScope
 
 __all__ = ["MXNetError", "cpu", "gpu", "tpu", "num_gpus", "current_context",
            "initializer", "init", "ops", "serialization", "parallel", "dist",
            "autograd", "kvstore", "metric", "ndarray", "nd", "NDArray",
-           "optimizer", "random", "gluon"]
+           "optimizer", "random", "gluon", "attribute", "AttrScope",
+           "callback", "io", "lr_scheduler", "model", "name", "symbol",
+           "sym", "module", "mod"]

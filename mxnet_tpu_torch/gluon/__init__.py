@@ -1,11 +1,11 @@
 """Gluon of the port: blocks, layers and losses as ``torch.nn.Module``s,
 Parameter handles, the Trainer, the data API and utilities."""
-from .block import (ActiveTrace, Block, HybridBlock, current_trace,
-                    load_numpy_params)
+from .block import (ActiveTrace, Block, HybridBlock, SymbolBlock,
+                    current_trace, load_numpy_params)
 from .parameter import Parameter, ParameterDict
 from .trainer import Trainer
 from . import data, loss, nn, model_zoo, utils
 
-__all__ = ["Block", "HybridBlock", "ActiveTrace", "current_trace",
+__all__ = ["Block", "HybridBlock", "SymbolBlock", "ActiveTrace", "current_trace",
            "load_numpy_params", "Parameter", "ParameterDict", "Trainer",
            "data", "loss", "nn", "model_zoo", "utils"]

@@ -74,9 +74,9 @@ from .. import _graphs
 from ..util import env as _env
 from .parameter import Parameter, ParameterDict
 
-__all__ = ["Block", "HybridBlock", "ActiveTrace", "current_trace",
-           "train_mode", "trace_generator", "load_numpy_params", "dtype_of",
-           "cached_op_stats"]
+__all__ = ["Block", "HybridBlock", "SymbolBlock", "ActiveTrace",
+           "current_trace", "train_mode", "trace_generator",
+           "load_numpy_params", "dtype_of", "cached_op_stats"]
 
 
 # ---------------------------------------------------------------------------
@@ -442,3 +442,148 @@ def _cached_forward(block, xs, train, gen):
 
     def hybrid_forward(self, F, x, *args):
         raise NotImplementedError
+
+
+# ---------------------------------------------------------------------------
+# SymbolBlock
+# ---------------------------------------------------------------------------
+
+def _eval_symbol(outputs, feed, train, gen):
+    """Walk a Symbol's graph on tensors through the registered ops, under
+    PyTorch's grad mode as it is (so autograd records it), with the
+    train flag and the dropout generator given, and BatchNorm's moving
+    statistics written into their tensors in place in training (the
+    counterpart of ``_eval_symbol_eager``, which runs the ``nd``
+    frontends)."""
+    from ..ops.registry import get_op
+    from ..symbol.symbol import KEYED_OPS, TRAIN_AWARE_OPS, op_attrs
+
+    env = {}
+    for node in outputs._topo():
+        if node.op is None:
+            if node.name not in feed:
+                raise MXNetError(
+                    f"SymbolBlock: free variable {node.name!r} is neither "
+                    f"an input nor a loaded parameter")
+            env[(id(node), 0)] = feed[node.name]
+            continue
+        kw = op_attrs(node)
+        if node.op in TRAIN_AWARE_OPS:
+            kw["train"] = train
+        if node.op in KEYED_OPS:
+            kw["generator"] = gen
+        out = get_op(node.op).fn(*[env[(id(i), ix)] for i, ix in node.inputs],
+                                 **kw)
+        if node.op == "BatchNorm" and isinstance(out, tuple) \
+                and node.num_outputs == 1:
+            out, new_mean, new_var = out
+            with torch.no_grad():
+                feed[node.inputs[3][0].name].copy_(new_mean)
+                feed[node.inputs[4][0].name].copy_(new_var)
+        outs = out if isinstance(out, (tuple, list)) else [out]
+        for i, o in enumerate(outs):
+            env[(id(node), i)] = o
+    res = [env[(id(n), i)] for n, i in outputs._heads]
+    return res[0] if len(res) == 1 else res
+
+
+class SymbolBlock(HybridBlock):
+    """A Block over a symbol's graph (counterpart of the JAX package's
+    ``SymbolBlock``): the arguments that are not inputs are parameters
+    and the aux states buffers, registered under their symbol names, and
+    the forward walks the graph through the registered ops.  Without
+    ``params`` the shapes come from the first call's inputs: the block
+    is made and initialized then, with what ``initialize`` was given.
+    ``hybridize`` warns and changes nothing, as in the JAX package."""
+
+    def __init__(self, outputs, inputs, params=None):
+        super().__init__()
+        from ..symbol import Group
+
+        if isinstance(outputs, (list, tuple)):
+            outputs = Group(list(outputs))
+        if not isinstance(inputs, (list, tuple)):
+            inputs = [inputs]
+        self._sb_outputs = outputs
+        self._sb_inputs = [i if isinstance(i, str) else i.name
+                           for i in inputs]
+        names = set(self._sb_inputs)
+        self._sb_args = [n for n in outputs.list_arguments()
+                         if n not in names]
+        self._sb_aux = list(outputs.list_auxiliary_states())
+        self._sb_pending = None
+        if params is not None:
+            self._sb_register({n: _to_tensor(getattr(v, "_data", v))
+                               for n, v in params.items()})
+
+    def _sb_register(self, values):
+        for n in self._sb_args + self._sb_aux:
+            if n not in values:
+                raise MXNetError(f"SymbolBlock: no value for parameter "
+                                 f"{n!r}")
+            t = values[n].detach().clone()
+            if n in self._sb_aux:
+                self.register_buffer(n, t)
+            else:
+                self.register_parameter(n, nn.Parameter(t))
+            self._inits[n] = None
+
+    @staticmethod
+    def imports(symbol_file, input_names, param_file=None, ctx=None):
+        """A block of ``prefix-symbol.json`` and, when given, its
+        ``.params`` (``arg:``/``aux:`` names or plain ones), on ``ctx``
+        (default gpu(0))."""
+        from .. import symbol as sym_mod
+        from ..serialization import load_ndarrays
+
+        block = SymbolBlock(sym_mod.load(symbol_file), input_names)
+        if param_file:
+            raw = load_ndarrays(param_file)
+            if not isinstance(raw, dict):
+                raise MXNetError("SymbolBlock.imports: params file must "
+                                 "hold a named dict")
+            block._sb_register({k.split(":", 1)[-1]: v
+                                for k, v in raw.items()})
+            block.to(_context.resolve(ctx))
+        return block
+
+    def initialize(self, init=None, ctx=None, seed: int = 0):
+        if self._inits or not (self._sb_args or self._sb_aux):
+            return super().initialize(init, ctx, seed)
+        self._sb_pending = (init, ctx, seed)
+        return self
+
+    def hybridize(self, active: bool = True):
+        if active:
+            import warnings
+
+            warnings.warn("SymbolBlock is already a graph; hybridize() "
+                          "has no effect", stacklevel=2)
+        return self
+
+    def _sb_deferred_init(self, xs):
+        if self._sb_pending is None:
+            raise MXNetError("SymbolBlock: call initialize() first")
+        shapes = {n: tuple(x.shape) for n, x in zip(self._sb_inputs, xs)}
+        arg_shapes, _, aux_shapes = \
+            self._sb_outputs.infer_shape_partial(**shapes)
+        by_name = dict(zip(self._sb_outputs.list_arguments(), arg_shapes))
+        by_name.update(zip(self._sb_aux, aux_shapes))
+        unknown = [n for n in self._sb_args + self._sb_aux
+                   if by_name.get(n) is None]
+        if unknown:
+            raise MXNetError(f"SymbolBlock: cannot infer the shapes of "
+                             f"{unknown} from input shapes {shapes}")
+        self._sb_register({n: torch.zeros(by_name[n])
+                           for n in self._sb_args + self._sb_aux})
+        super().initialize(*self._sb_pending)
+        self._sb_pending = None
+
+    def forward(self, *xs):
+        if not self._inits and (self._sb_args or self._sb_aux):
+            self._sb_deferred_init(xs)
+        feed = dict(zip(self._sb_inputs, xs))
+        feed.update(self._parameters)
+        feed.update(self._buffers)
+        return _eval_symbol(self._sb_outputs, feed, train_mode(self),
+                            trace_generator())

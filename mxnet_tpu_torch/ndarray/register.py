@@ -36,16 +36,14 @@ def _make_wrapper(name: str) -> Callable:
 def Dropout(data, p=0.5, mode="training", axes=()):
     """Inverted dropout in training mode (``autograd.is_training()``),
     its mask drawn from the generator of data's device."""
-    if axes:
-        raise MXNetError("Dropout: axes is not ported")
-    return invoke("Dropout", data, p=p, mode=mode,
+    return invoke("Dropout", data, p=p, mode=mode, axes=tuple(axes),
                   train=autograd.is_training(),
                   generator=_random.generator(data.ctx))
 
 
 def BatchNorm(data, gamma, beta, moving_mean, moving_var, eps=1e-5,
               momentum=0.9, fix_gamma=False, use_global_stats=False,
-              axis=1):
+              output_mean_var=False, axis=1, cudnn_off=False):
     """Batch statistics in training mode, which also update the moving
     statistics in place (outside the graph); the moving ones otherwise."""
     train = autograd.is_training() and not use_global_stats

@@ -38,6 +38,7 @@ import torch
 
 from .. import _kernels
 from ..base import MXNetError
+from .registry import register_op
 
 __all__ = ["dot_product_attention", "dot_product_attention_ref", "attend",
            "check_kernel_args", "launch_plan", "AttentionPlan",
@@ -251,7 +252,7 @@ class _AttentionFn(torch.autograd.Function):
     def forward(ctx, q, k, v, mask, scale, causal, packed):
         ctx.save_for_backward(q, k, v, mask)
         ctx.args = (scale, causal, packed)
-        if q.device.type == "cpu":
+        if q.device.type in ("cpu", "meta"):  # meta: shape inference
             out = _per_head(dot_product_attention_ref, q, k, v, mask, scale,
                             causal)
         else:
@@ -280,7 +281,7 @@ def _run(q4, k4, v4, mask, scale, causal, packed):
         raise MXNetError(f"dot_product_attention: tensors on different "
                          f"devices {sorted(str(d_) for d_ in devs)}")
     dev = q4.device
-    if dev.type not in ("cpu", "cuda"):
+    if dev.type not in ("cpu", "cuda", "meta"):
         raise MXNetError(f"dot_product_attention: unsupported device {dev}")
     if dev.type == "cuda":
         check_kernel_args(q4, k4, v4, mask)
@@ -333,3 +334,20 @@ def dot_product_attention(query, key, value, valid_mask=None, num_heads=1,
     return _to_layout(_per_head(_attention_with_prob_dropout, q4, k4, v4,
                                 mask, float(scale), float(dropout),
                                 generator, causal), packed)
+
+
+@register_op("dot_product_attention",
+             aliases=("FusedAttention", "_contrib_dot_product_attention"))
+def _dot_product_attention_op(query, key, value, valid_mask=None,
+                              rng_key=None, num_heads=1, scale=None,
+                              dropout=0.0, causal=False, _train=False):
+    """The framework op (``nd.dot_product_attention``, ``sym``, ``F``)
+    under the JAX package's names and defaults: ``rng_key`` is the
+    ``torch.Generator`` the probabilities' dropout draws from, and, as
+    in the JAX op, dropout applies only with ``_train``, ``dropout > 0``
+    and a generator; otherwise the call is :func:`dot_product_attention`
+    without dropout (the kernel on the card)."""
+    train = bool(_train) and dropout > 0.0 and rng_key is not None
+    return dot_product_attention(query, key, value, valid_mask, num_heads,
+                                 scale, dropout, causal, train=train,
+                                 generator=rng_key)

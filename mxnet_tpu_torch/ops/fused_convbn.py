@@ -59,6 +59,7 @@ from ..base import MXNetError
 from ..parallel import dist
 from ..parallel.mesh import mesh_shard_plan
 from ..util import env
+from .registry import register_op
 
 __all__ = ["fused_conv_unit", "fused_conv_unit_ref", "fused_conv_unit_bwd",
            "fused_conv_unit_bwd_ref", "launch_count", "reset_launch_count",
@@ -523,7 +524,7 @@ class _FusedConvUnitFn(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, w, in_scale, in_bias, shift, kernel, stride, pad,
                 act_in, want_stats):
-        if x.device.type == "cpu":
+        if x.device.type in ("cpu", "meta"):  # meta: shape inference
             y, s1, s2 = fused_conv_unit_ref(x, w, in_scale, in_bias, shift,
                                             kernel, stride, pad, act_in,
                                             want_stats)
@@ -604,7 +605,7 @@ def fused_conv_unit(data, weight, in_scale=None, in_bias=None, shift=None,
     if len(devs) != 1:
         raise MXNetError(f"fused_conv_unit: tensors on different devices "
                          f"{sorted(str(d) for d in devs)}")
-    if dev.type not in ("cpu", "cuda"):
+    if dev.type not in ("cpu", "cuda", "meta"):
         raise MXNetError(f"fused_conv_unit: unsupported device {dev}")
     if dev.type == "cuda":
         if not data.is_contiguous():
@@ -626,3 +627,8 @@ def fused_conv_unit(data, weight, in_scale=None, in_bias=None, shift=None,
         return out
     zeros = _zero_stats(dev, co)
     return out, zeros, zeros
+
+
+# the framework op (``nd.FusedConvUnit``, ``sym.FusedConvUnit``, ``F``):
+# the JAX package's name and arguments, its three outputs declared
+register_op("FusedConvUnit", num_outputs=3)(fused_conv_unit)

@@ -1,7 +1,9 @@
 """Neural-net ops of the ResNet and BERT paths: FullyConnected,
 Convolution, Pooling (max, global average), BatchNorm, LayerNorm,
 Activation (ReLU, tanh, erf GELU), Dropout, Embedding, flatten,
-softmax, log_softmax.
+softmax, log_softmax; and the legacy loss heads of the symbolic API:
+SoftmaxOutput, the three regression outputs, MakeLoss and
+stop_gradient (BlockGrad).
 
 Counterpart of ``mxnet_tpu/ops/nn.py``, as plain functions on tensors
 with the same attributes, layouts and rounding points.  The JAX package
@@ -10,7 +12,22 @@ leaves these ops to XLA; the port leaves them to PyTorch
 convolution weight is (Co, Ci/g, kh, kw) for every layout, as in the
 checkpoints.  NHWC tensors are handed to PyTorch as permuted NCHW views
 (channels-last memory), so no layout copy is made.  Each op is
-registered under the JAX package's name (``FullyConnected``, ...).
+registered under the JAX package's name (``FullyConnected``, ...) and
+accepts every attribute the JAX op accepts, so a symbol file written by
+the JAX package loads: the hints that only choose an implementation
+(``cudnn_off``, ``cudnn_tune``, ``workspace``) and the ones the JAX op
+ignores too (BatchNorm's and LayerNorm's ``output_mean_var``) change
+nothing.
+
+The loss heads are ``torch.autograd.Function``s with the JAX package's
+backward, which ignores the upstream gradient: SoftmaxOutput's is
+(softmax - one_hot(label)) * grad_scale under its ``normalization``
+and ``use_ignore``; a regression head's is grad_scale / (outputs per
+sample) times the residual.  As in the JAX package, SoftmaxOutput takes
+the softmax over the last axis and ignores ``multi_output``,
+``preserve_shape``, ``out_grad`` and ``smooth_alpha``; MakeLoss is the
+identity and ignores ``grad_scale``, ``valid_thresh`` and
+``normalization``.
 """
 from __future__ import annotations
 
@@ -29,7 +46,8 @@ from .registry import register_op
 
 __all__ = ["fully_connected", "convolution", "pooling", "batch_norm",
            "layer_norm", "activation", "dropout", "embedding", "flatten",
-           "softmax", "log_softmax"]
+           "softmax", "log_softmax", "softmax_output", "make_loss",
+           "stop_gradient"]
 
 
 def _channels_last(layout) -> bool:
@@ -50,7 +68,8 @@ def fully_connected(data, weight, bias=None, num_hidden=0, no_bias=False,
 
 def convolution(data, weight, bias=None, kernel=(), stride=(), dilate=(),
                 pad=(), num_filter=0, num_group=1, no_bias=False,
-                layout=None):
+                layout=None, cudnn_tune=None, cudnn_off=False,
+                workspace=1024):
     """2-D grouped convolution in NCHW or NHWC with optional bias.  The
     bias is added to the conv output in its own dtype, after the conv
     has rounded to it, as the JAX package does."""
@@ -70,7 +89,8 @@ def convolution(data, weight, bias=None, kernel=(), stride=(), dilate=(),
 
 
 def pooling(data, kernel=(), pool_type="max", stride=(), pad=(),
-            global_pool=False, pooling_convention="valid", layout=None):
+            global_pool=False, pooling_convention="valid", layout=None,
+            count_include_pad=True, cudnn_off=False):
     """Max pooling (valid convention, -inf padding) and global average
     pooling: what ResNet uses.  Other pool types and the "full"
     convention are not ported."""
@@ -98,7 +118,8 @@ _BN_EXACT_VAR = None  # read once per process, like the JAX package
 
 def batch_norm(data, gamma, beta, moving_mean, moving_var, eps=1e-5,
                momentum=0.9, fix_gamma=False, use_global_stats=False,
-               axis=1, train=False, exact_var=None):
+               axis=1, train=False, exact_var=None, output_mean_var=False,
+               cudnn_off=False):
     """Batch normalization over ``axis``.  Eval (or use_global_stats)
     returns the normalized tensor from the moving statistics.  Train
     returns (out, new_moving_mean, new_moving_var) from batch
@@ -160,7 +181,7 @@ def batch_norm(data, gamma, beta, moving_mean, moving_var, eps=1e-5,
     return out, new_mean, new_var
 
 
-def layer_norm(data, gamma, beta, axis=-1, eps=1e-5):
+def layer_norm(data, gamma, beta, axis=-1, eps=1e-5, output_mean_var=False):
     """Layer normalization over ``axis``, op by op as the JAX package
     writes it: the mean and the biased variance accumulate in fp32 and
     round to x's dtype (``jnp.mean``/``jnp.var`` of a bf16 tensor), then
@@ -201,23 +222,33 @@ def activation(data, act_type="relu"):
     return fn(data)
 
 
-def dropout(data, p=0.5, mode="training", train=False, generator=None):
+def dropout(data, p=0.5, mode="training", train=False, generator=None,
+            axes=()):
     """Inverted dropout: zero with probability p and rescale by 1/(1-p)
     when ``train`` or ``mode="always"``, the mask drawn from
-    ``generator`` on data's device; the identity otherwise or when p is
-    0.  Under data parallelism the mask is this rank's rows of the mask
-    of the global batch (``parallel.sharding.rand_batch``)."""
+    ``generator`` on data's device (one mask shared along ``axes``); the
+    identity otherwise or when p is 0.  Under data parallelism the mask
+    is this rank's rows of the mask of the global batch
+    (``parallel.sharding.rand_batch``)."""
     if not (mode == "always" or train) or p == 0.0:
         return data
     if generator is None:
         raise MXNetError("dropout: applying dropout draws from a "
                          "torch.Generator; pass generator=")
     keep = 1.0 - p
-    mask = rand_batch(data.shape, generator, data.device) < keep
+    shape = list(data.shape)
+    shared = {a % data.dim() for a in axes}
+    for a in shared:
+        shape[a] = 1
+    # a mask shared along the batch axis is one draw on every rank
+    draw = (lambda *a: torch.rand(a[0], generator=a[1], device=a[2])) \
+        if 0 in shared else rand_batch
+    mask = draw(tuple(shape), generator, data.device) < keep
     return data * mask.to(data.dtype) / keep
 
 
-def embedding(data, weight):
+def embedding(data, weight, input_dim=0, output_dim=0, dtype="float32",
+              sparse_grad=False):
     """Row lookup into the (input_dim, output_dim) table ``weight``.  The
     ids are cast to int32 (a float id truncates) and out-of-range ids are
     clamped into range, as ``jnp.take(..., mode="clip")``: it never
@@ -265,11 +296,116 @@ def log_softmax(data, axis=-1, temperature=None):
     return shifted - torch.log(total.to(x.dtype).to(acc)).to(x.dtype)
 
 
+# ---------------------------------------------------------------------------
+# the legacy loss heads (their backward ignores the upstream gradient)
+# ---------------------------------------------------------------------------
+
+class _SoftmaxOutputFn(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, data, label, grad_scale, ignore_label, use_ignore,
+                normalization):
+        out = softmax(data, axis=-1)
+        ctx.save_for_backward(out, label)
+        ctx.conf = (grad_scale, ignore_label, use_ignore, normalization)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        out, label = ctx.saved_tensors
+        grad_scale, ignore_label, use_ignore, normalization = ctx.conf
+        lab = label.to(torch.int32)
+        classes = torch.arange(out.shape[-1], device=out.device)
+        # one_hot of an out-of-range label is a zero row, as jax.nn.one_hot
+        grad = out - (lab.unsqueeze(-1) == classes).to(out.dtype)
+        valid = None
+        if use_ignore:
+            keep = lab != int(ignore_label)
+            grad = grad * keep.unsqueeze(-1).to(grad.dtype)
+            valid = keep.sum().clamp_min(1)
+        if normalization == "batch":
+            grad = grad / out.shape[0]
+        elif normalization == "valid":
+            grad = grad / (valid if valid is not None else out.shape[0])
+        glabel = torch.zeros_like(label) if ctx.needs_input_grad[1] \
+            else None
+        return grad * grad_scale, glabel, None, None, None, None
+
+
+def softmax_output(data, label, grad_scale=1.0, ignore_label=-1,
+                   use_ignore=False, multi_output=False,
+                   preserve_shape=False, normalization="null",
+                   out_grad=False, smooth_alpha=0.0):
+    """Forward: softmax over the last axis.  Backward: (softmax -
+    one_hot(label)) * grad_scale, divided by the batch (``"batch"``) or
+    the count of labels not ignored (``"valid"``), rows whose label is
+    ``ignore_label`` zeroed under ``use_ignore``."""
+    return _SoftmaxOutputFn.apply(data, label, float(grad_scale),
+                                  ignore_label, bool(use_ignore),
+                                  normalization)
+
+
+class _RegressionFn(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, data, label, grad_scale, kind):
+        out = torch.sigmoid(data) if kind == "logistic" else data
+        ctx.save_for_backward(out, label)
+        ctx.conf = (grad_scale, kind)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        out, label = ctx.saved_tensors
+        grad_scale, kind = ctx.conf
+        res = out - label.reshape(out.shape).to(out.dtype)
+        if kind == "mae":
+            res = torch.sign(res)
+        # grad_scale over the outputs of one sample, not over the batch
+        grad = res * (grad_scale / math.prod(out.shape[1:]))
+        glabel = torch.zeros_like(label) if ctx.needs_input_grad[1] \
+            else None
+        return grad, glabel, None, None
+
+
+def _regression_head(kind):
+    def head(data, label, grad_scale=1.0):
+        """Regression output head: forward the identity (logistic: the
+        sigmoid), backward grad_scale * (out - label) (MAE: its sign)
+        over the outputs of one sample."""
+        return _RegressionFn.apply(data, label, float(grad_scale), kind)
+    return head
+
+
+def make_loss(data, grad_scale=1.0, valid_thresh=0.0, normalization="null"):
+    """A loss head: the identity (a gradient of ones flows back)."""
+    return data
+
+
+def stop_gradient(data):
+    """The identity forward, no gradient back."""
+    return data.detach()
+
+
+def _bn_nout(attrs):
+    return 3 if attrs.get("train", False) else 1
+
+
 for _name, _fn in (("FullyConnected", fully_connected),
                    ("Convolution", convolution), ("Pooling", pooling),
-                   ("BatchNorm", batch_norm), ("LayerNorm", layer_norm),
+                   ("LayerNorm", layer_norm),
                    ("Activation", activation), ("Dropout", dropout),
-                   ("Embedding", embedding)):
+                   ("Embedding", embedding),
+                   ("SoftmaxOutput", softmax_output),
+                   ("MakeLoss", make_loss)):
     register_op(_name, aliases=(_fn.__name__,))(_fn)
+register_op("BatchNorm", aliases=("batch_norm",),
+            num_outputs=_bn_nout)(batch_norm)
+register_op("stop_gradient", aliases=("BlockGrad", "block_grad"))(
+    stop_gradient)
+for _name, _snake, _kind in (
+        ("LinearRegressionOutput", "linear_regression_output", "linear"),
+        ("MAERegressionOutput", "mae_regression_output", "mae"),
+        ("LogisticRegressionOutput", "logistic_regression_output",
+         "logistic")):
+    register_op(_name, aliases=(_snake,))(_regression_head(_kind))
 register_op("softmax")(softmax)
 register_op("log_softmax")(log_softmax)

@@ -28,14 +28,22 @@ class Operator:
     """A registered op: a function on tensors plus its metadata.
     ``differentiable=False`` ops never record (comparisons, argmax).  An
     op with several outputs returns a tuple; the update ops return the
-    new values and the caller writes them back."""
+    new values and the caller writes them back.  ``num_outputs`` is the
+    count a symbol node of the op has: a number, or a function of the
+    node's attributes (BatchNorm's depends on its train flag)."""
 
-    def __init__(self, name: str, fn: Callable, *,
+    def __init__(self, name: str, fn: Callable, *, num_outputs=1,
                  differentiable: bool = True):
         self.name = name
         self.fn = fn
+        self.num_outputs = num_outputs
         self.differentiable = differentiable
         self._build_descriptor()
+
+    def nout(self, attrs: dict) -> int:
+        if callable(self.num_outputs):
+            return self.num_outputs(attrs)
+        return self.num_outputs
 
     def _build_descriptor(self):
         """The typed attribute descriptor from the function's signature:
@@ -110,12 +118,13 @@ class Operator:
 _OPS: Dict[str, Operator] = {}
 
 
-def register_op(name: str, *, differentiable: bool = True,
+def register_op(name: str, *, num_outputs=1, differentiable: bool = True,
                 aliases: Sequence[str] = ()):
     """Decorator: register a function on tensors as a framework op."""
 
     def _wrap(fn: Callable) -> Callable:
-        op = Operator(name, fn, differentiable=differentiable)
+        op = Operator(name, fn, num_outputs=num_outputs,
+                      differentiable=differentiable)
         for n in (name,) + tuple(aliases):
             if n in _OPS:
                 raise MXNetError(f"operator {n!r} already registered")

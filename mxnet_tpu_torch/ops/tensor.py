@@ -307,17 +307,24 @@ def _as_result(out, a, b=None):
 
 
 _UNARY = {"abs": torch.abs, "negative": torch.negative, "exp": torch.exp,
-          "log": torch.log, "sqrt": torch.sqrt}
+          "log": torch.log, "sqrt": torch.sqrt, "relu": torch.relu,
+          "sigmoid": torch.sigmoid, "tanh": torch.tanh}
 _BINARY = {
     "broadcast_sub": torch.sub, "broadcast_mul": torch.mul,
     "broadcast_div": torch.true_divide, "broadcast_mod": torch.remainder,
     "broadcast_power": torch.pow, "broadcast_maximum": broadcast_maximum,
     "broadcast_minimum": broadcast_minimum,
+    # the reference's elemwise (same-shape) names
+    "elemwise_add": torch.add, "elemwise_sub": torch.sub,
+    "elemwise_mul": torch.mul, "elemwise_div": torch.true_divide,
 }
 _CMP = {
     "broadcast_equal": torch.eq, "broadcast_not_equal": torch.ne,
     "broadcast_greater": torch.gt, "broadcast_greater_equal": torch.ge,
     "broadcast_lesser_equal": torch.le,
+    "broadcast_logical_and": torch.logical_and,
+    "broadcast_logical_or": torch.logical_or,
+    "broadcast_logical_xor": torch.logical_xor,
 }
 _SCALAR = {
     "_plus_scalar": (torch.add, False), "_minus_scalar": (torch.sub, False),
@@ -326,13 +333,23 @@ _SCALAR = {
     "_div_scalar": (torch.true_divide, False),
     "_rdiv_scalar": (lambda s, x: s / x, True),
     "_mod_scalar": (torch.remainder, False),
+    "_rmod_scalar": (lambda s, x: torch.remainder(s, x), True),
     "_power_scalar": (torch.pow, False),
     "_rpower_scalar": (lambda s, x: torch.pow(s, x), True),
+    "_maximum_scalar": (lambda x, s: torch.clamp(x, min=s), False),
+    "_minimum_scalar": (lambda x, s: torch.clamp(x, max=s), False),
 }
+def _logical_scalar(fn):
+    return lambda x, s: fn(x, torch.as_tensor(s, device=x.device))
+
+
 _SCALAR_CMP = {
     "_equal_scalar": torch.eq, "_not_equal_scalar": torch.ne,
     "_greater_scalar": torch.gt, "_greater_equal_scalar": torch.ge,
     "_lesser_scalar": torch.lt, "_lesser_equal_scalar": torch.le,
+    "_logical_and_scalar": _logical_scalar(torch.logical_and),
+    "_logical_or_scalar": _logical_scalar(torch.logical_or),
+    "_logical_xor_scalar": _logical_scalar(torch.logical_xor),
 }
 
 

@@ -7,7 +7,9 @@ as the eager per-parameter path runs them — over every parameter in one
 captured step per signature, through the port's graph cache
 (``mxnet_tpu_torch._graphs``).  The per-step scalars (lr with its mult
 and Adam's bias correction folded in, wd with its mult, rescale_grad) are
-one (n, 3) fp32 input written before each replay, so
+one (n, 3) input written before each replay (fp32; float64 when a
+weight is float64, so the scalars keep the eager path's Python floats
+there too), so
 ``set_learning_rate`` and a new batch size never capture again; the
 statics (momentum, betas, epsilon, clip_gradient) are in the signature.
 """
@@ -70,9 +72,9 @@ def _state_keys(s):
 def apply_param(opt: Optimizer, w, g, s, mp: bool, h: Dict[str, Any]):
     """One parameter's update on tensors (the math the captured step
     runs; the JAX package's ``apply_param``).  ``h`` maps hyper keys to
-    0-d fp32 tensors.  Under mp the fp32 master weight, the last state
-    element, is what the math runs on, and the new weight is the new
-    master (the caller's write casts it).  Without it the scalars keep
+    0-d fp32 (float64 over float64 weights) tensors.  Under mp the fp32
+    master weight, the last state element, is what the math runs on, and
+    the new weight is the new master (the caller's write casts it).  Without it the scalars keep
     fp32: the update ops round them as the eager path's floats."""
     if mp:
         inner, w32 = s
@@ -117,12 +119,14 @@ class FusedUpdater(Updater):
         gs = [g._data for g in grads]
         ss = [_state_data(s) for s in states]
         dev = ws[0].device
+        hdt = torch.float64 if any(w.dtype == torch.float64 for w in ws) \
+            else torch.float32
         host = torch.tensor([[h[k] for k in names] for h in hypers],
-                            dtype=torch.float32)
+                            dtype=hdt)
         if dev.type == "cuda":
             host = host.pin_memory()
         slot = (type(opt), opt.fused_static_key(), mp_flags, str(dev),
-                tuple(indices), names)
+                tuple(indices), names, hdt)
         sig = (slot, tuple(tensor_key(t) for t in ws),
                tuple(tensor_key(t) for t in gs),
                tuple(_state_keys(s) for s in ss))

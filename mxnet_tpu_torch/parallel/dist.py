@@ -19,7 +19,7 @@ Every collective is bounded by the group's timeout (``timeout=`` of
 :func:`init`, else the backend's default), so a dead peer fails the step
 instead of hanging it.  Not
 ported here: the watchdog, the retry policy, the schedule ledger and the
-chaos sites (ROADMAP.md queue A item 6).
+chaos sites (ROADMAP.md queue A item 7).
 """
 from __future__ import annotations
 

@@ -25,7 +25,7 @@ import torch
 
 from .context import resolve
 
-__all__ = ["seed", "generator", "register_graph"]
+__all__ = ["seed", "generator", "register_graph", "host_generator"]
 
 _LOCK = threading.Lock()
 _GENS: Dict[Tuple[str, int], torch.Generator] = {}
@@ -58,8 +58,13 @@ def generator(ctx=None) -> torch.Generator:
         return g
 
 
-
 def register_graph(graph, gen: torch.Generator) -> None:
     """Register the CUDA generator ``gen`` with ``graph`` (a
     ``torch.cuda.CUDAGraph`` whose capture has not begun)."""
     graph.register_generator_state(gen)
+
+
+def host_generator() -> torch.Generator:
+    """A new CPU generator seeded with the last global seed (0 before
+    any): the draws of ``Module.init_params``."""
+    return torch.Generator().manual_seed(_SEED[0])
