@@ -179,7 +179,15 @@ Phases, each failing loudly (exit code 1, no result line):
    steps of each trainer in turns (gluon, SPMD, SPMD, gluon) after a
    warm-up step each, 52/46 launches a step held, their ratio printed,
    and a torch.profiler idle share of each; the
-   host time of autograd's walk from the loss to its leaves.  (d)
+   host time of autograd's walk from the loss to its leaves.  Then the
+   captured hybridized loop (the CachedOp's forward and backward graphs
+   and the captured update) against the same loop under no_capture: 4
+   steps from one state bit for bit (every parameter, buffer, momentum
+   and loss), 52/46 launches a step on both, exactly one forward/backward
+   build (the first step is the signature's eager warm-up), none after
+   set_learning_rate, and after load_parameters one build and one
+   eviction; ms a step of each in turns beside SPMDTrainer's, idle
+   shares, capture s and pool GiB.  (d)
    The same net not hybridized: one step, 0 kernel launches.  (e)
    net(x) outside record(): inference, the running statistics
    bit-identical, finite logits, no graph.
@@ -283,10 +291,37 @@ Phases, each failing loudly (exit code 1, no result line):
    in_scale and in_bias equal to a direct fused_conv_unit call with ones
    cotangents bit for bit, kernels 1 and 2 launched once a step each.
    The phase's seconds are printed.
+12. main path, Gluon as MXNet users write it (the hybridized training
+   forward and backward captured per signature): (a) BERT-base (phase
+   9's nets and batch, from its weights) through examples/bert_pretrain.py's
+   loop, net.hybridize(), gluon.Trainer with Adam lr 1e-4, at dropout 0
+   and 0.1: 4 captured steps (the net and its two heads, each its own
+   CachedOp: three builds after the warm-up step) against 4 under
+   no_capture from one state and one generator state, bit for bit (every
+   parameter, buffer, Adam state and loss), 12 kernel-5 launches a step
+   at dropout 0 on both; at 0.1 two generator states give two losses.
+   (b) Mirror: phase 5's ResNet-50 at batch 256, one captured step with
+   hybridize(mirror=True) against the same step without it, from phase
+   5's weights: every gradient, weight, momentum and running statistic
+   bit for bit (again under cudnn.deterministic where cuDNN's default
+   algorithms break that), the running means advanced once; each pair's
+   pool GiB, the peak allocated memory over its warm-up, build and step,
+   the kernel-1 launches a step, the ms a step of 3 more captured steps.
+   (c) The same net at batch 32 called
+   twice under one record() (a siamese loss): gradients and running
+   statistics bit for bit the eager ones, two pairs built, a second
+   backward through the consumed pairs raises.  (d) The reference MNIST
+   network (deferred shapes) through Estimator.fit on cuda:0, one epoch:
+   val accuracy > 0.9, shapes (128, 784), (64, 128), (10, 64), every
+   parameter, gradient and state on the card.  (e) examples/ssd_train.py
+   at batch 8 with hybridize(static_alloc=True), captured and under
+   no_capture (cudnn.deterministic): losses bit for bit, ms a step of
+   each.  The phase's seconds are printed.
 
 The compiled paths (mxnet_tpu_torch._graphs): every SPMDTrainer step on one
-device, every hybridized forward in inference and gluon.Trainer's
-update run from CUDA graphs captured once per signature, so the main
+device, every hybridized forward in inference and under record() (a
+forward and a backward graph) and gluon.Trainer's update run from CUDA
+graphs captured once per signature, so the main
 paths above are the captured ones (their launch counters count each
 replay's launches); single steps of fresh trainers that only feed a
 comparison run eagerly (_graphs.no_capture).  Each compiled path
@@ -302,7 +337,9 @@ is then held against its eager path in the same call:
      steps equal eager steps;
   8. gluon.Trainer's captured update against fuse_step=False, 4 steps
      from phase 5's weights: every parameter, buffer, momentum and loss
-     bit for bit, 52/46 launches a step, one build;
+     bit for bit, 52/46 launches a step, one build; the hybridized
+     forward and backward (the CachedOp's training-mode pair) against
+     no_capture, as above;
   9. BERT-base at dropout 0.1 and 0 (12 kernel-5 launches a step) and
      Transformer-base at dropout 0.1, as in 5, and with dropout two
      replays from two generator states give two losses.
@@ -316,9 +353,11 @@ through gluon.Trainer in phase 8 and per rank under dp, kernel 2
 trained, trained through gluon.Trainer and per rank under dp, kernel 5
 on the BERT serving path, on phase 9's dropout-0 BERT step and on its
 greedy decode, kernel 6 on the probe path: summed over the 27
-configurations of one time sweep, with ms_by_nb; kernels 1, 2 and 5
-through phase 11's sym nodes, one call each), from the checks at that
-path's shapes; the last line is
+configurations of one time sweep, with ms_by_nb; kernels 1 and 2 on
+phase 8's captured hybridized gluon.Trainer loop and kernel 5 on phase
+12's BERT-base gluon loop at dropout 0; kernels 1, 2 and 5 through
+phase 11's sym nodes, one call each), from the checks at that path's
+shapes; the last line is
 {"ok": true, "device": {"platform": "gpu", ...}}.
 """
 from __future__ import annotations
@@ -3093,6 +3132,160 @@ def hold_fused_update(tag, net, w0, xb, yb, card):
                 pool_gib=f["cost"][1], identical=not bad)
 
 
+def gluon_state(net, trainer):
+    """Copies of what a gluon.Trainer step writes: every parameter and
+    buffer and every optimizer state."""
+    st = snapshot(net)
+    for i, s in trainer._updater.states.items():
+        for j, t in enumerate(s if isinstance(s, tuple) else (s,)):
+            if t is not None:
+                st[f"state {i}.{j}"] = t._data.clone()
+    return st
+
+
+def drop_cached_op(net):
+    """Forget `net`'s CachedOp entries (and their graph pools), so the
+    next run of it starts from nothing."""
+    from mxnet_tpu_torch import _graphs as graphs
+    from mxnet_tpu_torch.gluon import block as gblock
+
+    gblock._FWD_CACHE.drop_owner(graphs.owner_token(net))
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+
+def train_pairs(net):
+    """The captured forward/backward pairs of `net`'s CachedOp."""
+    from mxnet_tpu_torch import _graphs as graphs
+    from mxnet_tpu_torch.gluon import block as gblock
+
+    return [p for p in gblock._FWD_CACHE.entries(net)
+            if isinstance(p, graphs.TrainPair)]
+
+
+def captured_loop(tag, net, w0, xb, yb, steps, card, opt=None):
+    """`steps` steps of the hybridized gluon.Trainer loop from `w0` with
+    a fresh trainer, the CachedOp captured (after its warm-up call) and
+    then under no_capture, from one state and one generator state: every
+    parameter, buffer, optimizer state and loss bit for bit.  Returns
+    ({mode: (losses, launches, builds, state)}, trainers, mismatches)."""
+    from mxnet_tpu_torch import _graphs as graphs
+    from mxnet_tpu_torch import random as mrandom
+    from mxnet_tpu_torch.gluon import block as gblock
+
+    gen = mrandom.generator(xb.device)
+    g0 = gen.get_state()
+    runs, trainers = {}, {}
+    for mode in ("captured", "eager"):
+        restore(net, w0)
+        gen.set_state(g0)
+        tr = trainers[mode] = opt() if opt else gluon_trainer(net)
+        n0 = gblock.cached_op_stats()["count"]
+        torch.cuda.synchronize()
+        reset_kernel_counts()
+        with contextlib.ExitStack() as stack:
+            if mode == "eager":
+                stack.enter_context(graphs.no_capture())
+            losses = gluon_steps(net, tr, xb, yb, steps)[0]
+        torch.cuda.synchronize()
+        runs[mode] = (losses, kernel_counts(),
+                      gblock.cached_op_stats()["count"] - n0,
+                      gluon_state(net, tr))
+    c, e = runs["captured"], runs["eager"]
+    bad = [k for k in c[3] if not torch.equal(c[3][k], e[3][k])]
+    bad += [] if c[0] == e[0] else ["losses"]
+    if bad:
+        fail(f"{tag}: the captured loop differs from the eager one after "
+             f"{steps} steps: {bad[:6]}")
+    return runs, trainers, bad
+
+
+def hold_captured_train(tag, net, w0, xb, yb, card, spmd_ms):
+    """The hybridized gluon.Trainer loop with its CachedOp captured
+    (forward and backward graphs) against the same loop under
+    no_capture: 1 + CAPTURE_K steps from one state bit for bit, 52/46
+    launches a step on both, exactly one forward/backward build (the
+    first step is the signature's eager warm-up), none after
+    set_learning_rate; a second trainer after load_parameters moved
+    every parameter: one counted build, one eviction.  Then each path
+    timed in turns and profiled; the capture's seconds and pool."""
+    from mxnet_tpu_torch import _graphs as graphs
+    from mxnet_tpu_torch.gluon import block as gblock
+    from mxnet_tpu_torch.optimizer import fused
+
+    drop_cached_op(net)
+    steps = 1 + CAPTURE_K
+    runs, trainers, bad = captured_loop(tag, net, w0, xb, yb, steps, card)
+    c, e = runs["captured"], runs["eager"]
+    want = {"k1": FWD_PER_STEP * steps, "k2": BWD_PER_STEP * steps,
+            "k5": 0, "k6": 0}
+    pairs = train_pairs(net)
+    if c[1] != want or e[1] != want or c[2] != 1 or e[2] != 0 \
+            or len(pairs) != 1:
+        fail(f"{tag}: launches captured {c[1]} eager {e[1]} (want {want}), "
+             f"builds {c[2]}/{e[2]} (want 1/0), {len(pairs)} pairs")
+    tr = trainers["captured"]
+    n0 = (gblock.cached_op_stats()["count"], fused.compile_stats()["count"])
+    lr = tr.learning_rate
+    tr.set_learning_rate(lr * 0.5)
+    gluon_steps(net, tr, xb, yb, 1)
+    tr.set_learning_rate(lr)
+    gluon_steps(net, tr, xb, yb, 1)
+    rebuilt = (gblock.cached_op_stats()["count"] - n0[0],
+               fused.compile_stats()["count"] - n0[1])
+    if rebuilt != (0, 0):
+        fail(f"{tag}: set_learning_rate built {rebuilt} (forward/backward, "
+             f"update)")
+    # timed in turns (captured, eager, eager, captured), one profile each
+    ms = {"captured": [], "eager": []}
+    for mode in ("captured", "eager", "eager", "captured"):
+        with contextlib.ExitStack() as stack:
+            if mode == "eager":
+                stack.enter_context(graphs.no_capture())
+            ms[mode].append(gluon_steps(net, tr, xb, yb,
+                                        CAPTURE_K)[3] * 1e3)
+    ms = {k: sum(v) / len(v) for k, v in ms.items()}
+    idle = {}
+    for mode in ("captured", "eager"):
+        with contextlib.ExitStack() as stack:
+            if mode == "eager":
+                stack.enter_context(graphs.no_capture())
+            idle[mode] = idle_of(profile_device(
+                lambda: gluon_steps(net, tr, xb, yb, 1), f"{tag} {mode}",
+                "step", card, ms[mode], iters=1, top=6))
+    cap_s, gib = graph_costs(pairs)
+    # load_parameters moves every parameter: one build, one eviction
+    d = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                     "chip_smoke_params")
+    os.makedirs(d, exist_ok=True)
+    f = os.path.join(d, "gluon_moved.params")
+    net.save_parameters(f)
+    s0 = gblock.cached_op_stats()
+    net.load_parameters(f)
+    tr2 = gluon_trainer(net)
+    gluon_steps(net, tr2, xb, yb, 2)
+    s1 = gblock.cached_op_stats()
+    moved = (s1["count"] - s0["count"], s1["evictions"] - s0["evictions"])
+    if moved != (1, 1):
+        fail(f"{tag}: after load_parameters {moved[0]} build(s) and "
+             f"{moved[1]} eviction(s) (want 1 and 1)")
+    per = {k: v / steps for k, v in c[1].items()}
+    print(f"{tag}: captured forward/backward {ms['captured']:.2f} ms/step, "
+          f"eager {ms['eager']:.2f} ms/step ({ms['eager'] / ms['captured']:.3f}"
+          f"x), phase 8's captured SPMDTrainer step {spmd_ms:.2f} ms/step; "
+          f"idle captured {pct(idle['captured'])} eager {pct(idle['eager'])}"
+          f"; capture {cap_s:.2f} s, graph pool {gib:.2f} GiB; {steps} steps "
+          f"bit-identical {not bad} ({len(c[3])} tensors); "
+          f"launches a step {per}; builds {c[2]}; rebuilt after "
+          f"set_learning_rate {rebuilt}; after load_parameters {moved[0]} "
+          f"build, {moved[1]} eviction [{card}]", flush=True)
+    return dict(captured_ms=ms["captured"], eager_ms=ms["eager"],
+                spmd_ms=spmd_ms, idle_captured=idle["captured"],
+                idle_eager=idle["eager"], capture_s=cap_s, pool_gib=gib,
+                launches={"fwd": c[1]["k1"], "bwd": c[1]["k2"]},
+                steps=steps, builds=c[2], moved=moved)
+
+
 def gluon_one_step(net, w0, xb, yb):
     """One step of a fresh gluon.Trainer from the weights `w0`; returns
     (loss, fwd launches, bwd launches, {leaf: momentum}, {leaf: w1})."""
@@ -3300,7 +3493,7 @@ def phase_imperative(card, refs, dev=torch.device("cuda", 0)):
               f"{' '.join(f'{v:.4f}' for v in losses)}, launches fwd {fwd} "
               f"bwd {bwd} [{card}]", flush=True)
     ratio = [a / b for a, b in zip(runs["gluon"], reversed(runs["spmd"]))]
-    print(f"imperative: gluon.Trainer (eager forward and backward, captured "
+    print(f"imperative: gluon.Trainer (captured forward, backward and "
           f"update) / SPMDTrainer fused step (captured) "
           f"{' '.join(f'{r:.3f}' for r in ratio)} [{card}]", flush=True)
     res["ms_per_step"] = runs
@@ -3316,6 +3509,12 @@ def phase_imperative(card, refs, dev=torch.device("cuda", 0)):
             busy_ms=prof["busy_ms"], wall_ms=prof["wall_ms"],
             idle=1 - prof["busy_ms"] / prof["wall_ms"])
     del nets, trainers
+    gc.collect()
+    torch.cuda.empty_cache()
+    res["captured"] = hold_captured_train(
+        f"compiled: imperative bf16 batch {TRAIN_BATCH} gluon.Trainer "
+        f"hybridized", net, w0, xb, yb, card,
+        sum(runs["spmd"]) / len(runs["spmd"]))
     gc.collect()
     torch.cuda.empty_cache()
     res["compiled"] = hold_fused_update(
@@ -3357,7 +3556,10 @@ def phase_imperative(card, refs, dev=torch.device("cuda", 0)):
             or out.data.requires_grad:
         fail("imperative inference: net(x) outside record() changed the "
              "running statistics or gave no finite logits")
-    del net, out
+    del out
+    drop_cached_op(net)
+    KEEP["resnet"] = dict(net=net, w0=w0, x=xb, y=yb)  # phase 12 (b), (c)
+    del net
     gc.collect()
     torch.cuda.empty_cache()
     print("imperative: " + json.dumps(res), flush=True)
@@ -3765,6 +3967,8 @@ def phase_transformer(card):
     res["bert"]["compiled"] = hold_captured_steps(
         "compiled: bert-base pretrain dropout 0.1", tr, batch, card, {},
         dropout=True)
+    # phase 12 (a) trains both nets through gluon.Trainer from w0
+    KEEP["bert"] = dict(dropout=step, w0=w0, batch=batch)
     del step, tr
     gc.collect()
     torch.cuda.empty_cache()
@@ -3783,6 +3987,7 @@ def phase_transformer(card):
     res["bert_dropout0"]["compiled"] = hold_captured_steps(
         "compiled: bert-base pretrain dropout 0", tr, batch, card,
         {"k5": BERT_LAYERS})
+    KEEP["bert"]["dropout0"] = step0
     del step0, w0, batch, tr
     gc.collect()
     torch.cuda.empty_cache()
@@ -4596,6 +4801,357 @@ def phase_symbolic(card, recs_att):
     return res, kernels
 
 
+# ---------------------------------------------------------------------------
+# phase 12: Gluon as MXNet users write it — the captured hybridized
+# training loop on BERT-base, gradient mirroring, two forwards in flight,
+# deferred shapes through Estimator.fit, the SSD example
+# ---------------------------------------------------------------------------
+
+KEEP = {}  # nets and batches of earlier phases that phase 12 reuses
+MIRROR_BATCH = 256
+INFLIGHT_BATCH = 32
+SSD_GLUON_ARGS = ["--batch-size", "8", "--steps", "4"]
+
+
+def bert_gluon_steps(net, trainer, batch, steps):
+    """examples/bert_pretrain.py's loop (its lines 196-209): the
+    hybridized net and its two heads under record(), the masked MLM loss
+    and the NSP loss, backward, trainer.step(batch)."""
+    from mxnet_tpu_torch import autograd, gluon, nd
+
+    tokens, segments, vlen, mlm_y, mlm_w, nsp_y = (nd.NDArray(t)
+                                                   for t in batch)
+    b, s = batch[0].shape
+    loss_fn = gluon.loss.SoftmaxCrossEntropyLoss()
+    losses = []
+    for _ in range(steps):
+        with autograd.record():
+            seq, pooled = net(tokens, segments, vlen)
+            mlm_scores = net.decode_mlm(seq)
+            nsp_scores = net.classify_nsp(pooled)
+            per_sample = loss_fn(mlm_scores, mlm_y, mlm_w.expand_dims(-1))
+            denom = nd.maximum(mlm_w.sum(), nd.ones((1,), ctx=mlm_w.ctx))
+            mlm_l = per_sample.sum() * float(s) / denom
+            loss = mlm_l + loss_fn(nsp_scores, nsp_y).mean()
+        loss.backward()
+        trainer.step(b)
+        losses.append(loss.data.detach().clone())
+    return losses
+
+
+def bert_gluon_case(tag, net, w0, batch, card, want_k5, dropout):
+    """BERT-base through the hybridized gluon.Trainer loop (Adam lr
+    BERT_TRAIN_LR), captured against eager from one state and one
+    generator state (1 + CAPTURE_K steps each, fresh trainers); with
+    dropout, two generator states give two losses."""
+    from mxnet_tpu_torch import _graphs as graphs
+    from mxnet_tpu_torch import gluon
+    from mxnet_tpu_torch import random as mrandom
+    from mxnet_tpu_torch.gluon import block as gblock
+
+    net.hybridize()
+    drop_cached_op(net)
+    gen = mrandom.generator(batch[0].device)
+    g0 = gen.get_state()
+    steps = 1 + CAPTURE_K
+    runs, ms = {}, {}
+    for mode in ("captured", "eager"):
+        restore(net, w0)
+        gen.set_state(g0)
+        tr = gluon.Trainer(net.collect_params(), "adam",
+                           {"learning_rate": BERT_TRAIN_LR})
+        n0 = gblock.cached_op_stats()["count"]
+        torch.cuda.synchronize()
+        reset_kernel_counts()
+        with contextlib.ExitStack() as stack:
+            if mode == "eager":
+                stack.enter_context(graphs.no_capture())
+            losses = bert_gluon_steps(net, tr, batch, steps)
+            torch.cuda.synchronize()
+            counts = kernel_counts()
+            t0 = time.perf_counter()
+            bert_gluon_steps(net, tr, batch, CAPTURE_K)
+            torch.cuda.synchronize()
+            ms[mode] = (time.perf_counter() - t0) / CAPTURE_K * 1e3
+        runs[mode] = (losses, counts, gblock.cached_op_stats()["count"] - n0,
+                      gluon_state(net, tr), tr)
+    c, e = runs["captured"], runs["eager"]
+    bad = [k for k in c[3] if not torch.equal(c[3][k], e[3][k])]
+    bad += [f"loss {i}" for i in range(steps)
+            if not torch.equal(c[0][i], e[0][i])]
+    want = {"k1": 0, "k2": 0, "k5": want_k5 * steps, "k6": 0}
+    # the net and its two hybridized heads: three CachedOps, each one
+    # forward/backward build after its warm-up
+    if bad or c[1] != want or e[1] != want or c[2] != 3 or e[2] != 0:
+        fail(f"{tag}: captured vs eager {bad[:6]}, launches {c[1]} / "
+             f"{e[1]} (want {want}), builds {c[2]}/{e[2]} (want 3/0)")
+    masks = None
+    if dropout:
+        tr = c[4]
+        restore(net, w0)
+        gen.set_state(g0)
+        a = bert_gluon_steps(net, tr, batch, 1)[0]
+        restore(net, w0)
+        b = bert_gluon_steps(net, tr, batch, 1)[0]
+        masks = not torch.equal(a, b)
+        if not masks:
+            fail(f"{tag}: two generator states gave one loss")
+    pairs = [p for blk in (net, net.mlm_decoder, net.classifier)
+             for p in train_pairs(blk)]
+    cap_s, gib = graph_costs(pairs)
+    print(f"{tag}: captured {ms['captured']:.2f} ms/step, eager "
+          f"{ms['eager']:.2f} ms/step ({ms['eager'] / ms['captured']:.3f}x); "
+          f"{steps} steps bit-identical {not bad} ({len(c[3])} tensors); "
+          f"launches in {steps} steps {c[1]}; builds {c[2]}; capture "
+          f"{cap_s:.2f} s, graph pools {gib:.2f} GiB; losses "
+          f"{' '.join(f'{float(v):.4f}' for v in c[0])}; masks differ "
+          f"across generator states {masks} [{card}]", flush=True)
+    return dict(captured_ms=ms["captured"], eager_ms=ms["eager"],
+                identical=not bad, launches=c[1]["k5"], steps=steps,
+                capture_s=cap_s, pool_gib=gib, masks_differ=masks)
+
+
+def mirror_case(net, w0, xb, yb, card):
+    """(b) ResNet-50 at batch MIRROR_BATCH: one captured step of the
+    hybridized gluon.Trainer loop with hybridize(mirror=True) against
+    the same step without mirror, from w0: every gradient, updated
+    weight, momentum and running statistic bit for bit (where cuDNN's
+    algorithm choice breaks that, again under cudnn.deterministic); the
+    pool, the peak memory over the warm-up, the build and the step, and
+    the ms a step of CAPTURE_K more captured steps of each; kernel-1
+    launches a step."""
+    res = {}
+    for det in (False, True):
+        old_det = torch.backends.cudnn.deterministic
+        torch.backends.cudnn.deterministic = det
+        try:
+            for mirror in (False, True):
+                net.hybridize(mirror=mirror)
+                drop_cached_op(net)
+                torch.cuda.reset_peak_memory_stats()
+                tr = gluon_trainer(net)
+                restore(net, w0)
+                gluon_steps(net, tr, xb, yb, 2)  # warm-up, build
+                restore(net, w0)
+                tr = gluon_trainer(net)
+                torch.cuda.synchronize()
+                reset_kernel_counts()
+                loss = gluon_steps(net, tr, xb, yb, 1)[0][0]
+                torch.cuda.synchronize()
+                counts = kernel_counts()
+                st = gluon_state(net, tr)
+                for k, p in net.collect_params().items():
+                    if p.grad_req != "null":
+                        st[f"grad {k}"] = p.grad()._data.clone()
+                peak = torch.cuda.max_memory_allocated() / 2 ** 30
+                dt = gluon_steps(net, tr, xb, yb, CAPTURE_K)[3]
+                res[mirror] = dict(
+                    state=st, loss=loss, counts=counts, peak_gib=peak,
+                    pool_gib=graph_costs(train_pairs(net))[1], ms=dt * 1e3)
+        finally:
+            torch.backends.cudnn.deterministic = old_det
+        a, b = res[False], res[True]
+        bad = [k for k in a["state"]
+               if not torch.equal(a["state"][k], b["state"][k])]
+        if not bad or det:
+            break
+        print(f"mirror: {len(bad)} tensors differ under cuDNN's default "
+              f"algorithms ({bad[:3]}); again under cudnn.deterministic",
+              flush=True)
+    moved = [k for k in a["state"] if k.endswith("running_mean")
+             and not torch.equal(a["state"][k], w0[k])]
+    print(f"mirror ResNet-50 bf16 batch {xb.shape[0]}: one step with "
+          f"mirror bit-identical to the plain captured step {not bad} "
+          f"({len(a['state'])} tensors: gradients, weights, momenta, running "
+          f"statistics{', cudnn.deterministic' if det else ''}); pool "
+          f"{a['pool_gib']:.2f} GiB plain, {b['pool_gib']:.2f} GiB mirror; "
+          f"peak allocated over warm-up, build and step {a['peak_gib']:.2f} "
+          f"/ {b['peak_gib']:.2f} GiB; {CAPTURE_K} more captured steps "
+          f"{a['ms']:.2f} / {b['ms']:.2f} ms a step; "
+          f"launches a step plain {a['counts']} mirror {b['counts']}; "
+          f"{len(moved)} running means advanced [{card}]", flush=True)
+    if bad or not moved or b["counts"]["k1"] < FWD_PER_STEP \
+            or b["counts"]["k2"] != BWD_PER_STEP:
+        fail(f"mirror: {len(bad)} tensors differ ({bad[:6]}), "
+             f"{len(moved)} running means advanced, launches "
+             f"{b['counts']}")
+    net.hybridize(mirror=False)
+    drop_cached_op(net)
+    return dict(identical=not bad, deterministic=det,
+                pool_gib={"plain": a["pool_gib"], "mirror": b["pool_gib"]},
+                peak_gib={"plain": a["peak_gib"], "mirror": b["peak_gib"]},
+                ms={"plain": a["ms"], "mirror": b["ms"]},
+                k1_per_step=b["counts"]["k1"])
+
+
+def inflight_case(net, w0, xb, yb, card):
+    """(c) The net called twice under one record() (a siamese loss) at
+    batch INFLIGHT_BATCH, captured against eager: the gradients and
+    running statistics bit for bit, two pairs built; a second backward
+    through the consumed pairs raises."""
+    from mxnet_tpu_torch import _graphs as graphs
+    from mxnet_tpu_torch import autograd, gluon, nd
+    from mxnet_tpu_torch.base import MXNetError
+    from mxnet_tpu_torch.gluon import block as gblock
+
+    n = INFLIGHT_BATCH
+    x1, x2 = nd.NDArray(xb[:n]), nd.NDArray(xb[n:2 * n])
+    y1, y2 = nd.NDArray(yb[:n]), nd.NDArray(yb[n:2 * n])
+    loss_fn = gluon.loss.SoftmaxCrossEntropyLoss()
+    drop_cached_op(net)
+    restore(net, w0)
+    gluon_steps(net, gluon_trainer(net), xb[:n], yb[:n], 1)  # warm-up
+
+    def pair_loss():
+        with autograd.record():
+            loss = loss_fn(net(x1), y1).sum() + loss_fn(net(x2), y2).sum()
+        return loss
+
+    res = {}
+    for mode in ("captured", "eager"):
+        restore(net, w0)
+        n0 = gblock.cached_op_stats()["count"]
+        reset_kernel_counts()
+        with contextlib.ExitStack() as stack:
+            if mode == "eager":
+                stack.enter_context(graphs.no_capture())
+            loss = pair_loss()
+            loss.backward(retain_graph=True)
+        torch.cuda.synchronize()
+        st = snapshot(net)
+        for k, p in net.collect_params().items():
+            if p.grad_req != "null":
+                st[f"grad {k}"] = p.grad()._data.clone()
+        raised = None
+        if mode == "captured":
+            try:
+                loss.backward()
+                raised = False
+            except MXNetError:
+                raised = True
+        res[mode] = (st, kernel_counts(),
+                     gblock.cached_op_stats()["count"] - n0, raised,
+                     float(loss.asnumpy()))
+    c, e = res["captured"], res["eager"]
+    bad = [k for k in c[0] if not torch.equal(c[0][k], e[0][k])]
+    print(f"in flight: two calls of ResNet-50 bf16 batch {n} under one "
+          f"record(): gradients and running statistics bit-identical to "
+          f"eager {not bad} ({len(c[0])} tensors); pairs built {c[2]}; "
+          f"launches {c[1]} / eager {e[1]}; a second backward through the "
+          f"consumed pairs raised {c[3]}; loss {c[4]:.4f} [{card}]",
+          flush=True)
+    if bad or c[2] != 2 or c[3] is not True or c[1] != e[1]:
+        fail(f"in flight: {bad[:6]} differ, {c[2]} builds (want 2), "
+             f"second backward raised {c[3]}, launches {c[1]} / {e[1]}")
+    drop_cached_op(net)
+    return dict(identical=not bad, builds=c[2], second_backward_raised=c[3],
+                launches=c[1])
+
+
+def estimator_case(card, dev=torch.device("cuda", 0)):
+    """(d) The reference MNIST network (deferred shapes) trained by
+    Estimator.fit on cuda:0 for one epoch, as the example's --estimator
+    path runs it."""
+    from mxnet_tpu_torch.examples import mnist
+
+    keep = {}
+    t0 = time.perf_counter()
+    acc = mnist.run(epochs=1, ctx=dev, batch_size=100, keep=keep,
+                    estimator=True)
+    wall = time.perf_counter() - t0
+    params = keep["net"].collect_params()
+    shapes = [p.shape for k, p in params.items() if k.endswith("weight")]
+    on_card = [p.data().ctx == dev and p.grad().ctx == dev
+               for p in params.values()]
+    states = [s for st in keep["trainer"]._updater.states.values()
+              for s in (st if isinstance(st, tuple) else (st,))]
+    on_card += [s.ctx == dev for s in states]
+    print(f"estimator mnist: val accuracy {acc:.4f} after {keep['steps']} "
+          f"steps of 100 through Estimator.fit, {keep['samples_per_s']:.0f} "
+          f"samples/s, {wall:.2f} s; resolved shapes {shapes}; "
+          f"{sum(on_card)} of {len(on_card)} parameters, gradients and "
+          f"states on {dev} [{card}]", flush=True)
+    if not acc > 0.9 or not all(on_card) \
+            or shapes != [(128, 784), (64, 128), (10, 64)]:
+        fail(f"estimator mnist: accuracy {acc:.4f}, shapes {shapes}, "
+             f"{len(on_card) - sum(on_card)} tensors off {dev}")
+    return dict(val_accuracy=acc, shapes=shapes, wall_s=wall,
+                samples_per_s=keep["samples_per_s"])
+
+
+def ssd_gluon_case(card):
+    """(e) examples/ssd_train.py at batch 8 with
+    hybridize(static_alloc=True), captured and under no_capture, under
+    cudnn.deterministic (its NCHW fp32 backbone's default cuDNN
+    algorithms are not deterministic): the losses bit for bit, the ms a
+    step of each."""
+    from mxnet_tpu_torch import _graphs as graphs
+    from mxnet_tpu_torch import random as mrandom
+    from mxnet_tpu_torch.examples import ssd_train
+
+    old = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    runs = {}
+    try:
+        for mode in ("captured", "eager"):
+            mrandom.seed(0)
+            keep = {}
+            with contextlib.ExitStack() as stack:
+                if mode == "eager":
+                    stack.enter_context(graphs.no_capture())
+                losses = ssd_train.main(SSD_GLUON_ARGS, keep=keep)
+            torch.cuda.synchronize()
+            runs[mode] = (losses, keep["step_s"], train_pairs(keep["net"]))
+            del keep
+    finally:
+        torch.backends.cudnn.deterministic = old
+    (lc, sc, pc), (le, se, _) = runs["captured"], runs["eager"]
+    ms = {m: sum(r[1][2:]) / len(r[1][2:]) * 1e3 for m, r in runs.items()}
+    print(f"ssd example batch 8 hybridize(static_alloc=True): losses "
+          f"captured {lc} eager {le}, identical {lc == le}; after the "
+          f"warm-up and build steps {ms['captured']:.1f} ms/step captured, "
+          f"{ms['eager']:.1f} ms/step eager (cudnn.deterministic); "
+          f"{len(pc)} captured pairs [{card}]", flush=True)
+    if lc != le or not pc:
+        fail(f"ssd example: captured losses {lc} != eager {le} or no "
+             f"captured pair ({len(pc)})")
+    return dict(losses=lc, identical=lc == le, ms=ms)
+
+
+def phase_gluon(card):
+    """Phase 12 (see the module docstring)."""
+    import gc
+
+    t0 = time.perf_counter()
+    res = {}
+    bert = KEEP.pop("bert")
+    for dropout, step in (("0", bert["dropout0"]), ("0.1", bert["dropout"])):
+        res[f"bert_dropout{dropout}"] = bert_gluon_case(
+            f"gluon bert-base dropout {dropout} bf16 batch "
+            f"{bert['batch'][0].shape[0]} x {BERT_SEQ}", step.bert,
+            {k[len("bert."):]: v for k, v in bert["w0"].items()},
+            bert["batch"], card, BERT_LAYERS if dropout == "0" else 0,
+            dropout != "0")
+        drop_cached_op(step.bert)
+    del bert, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    r50 = KEEP.pop("resnet")
+    net, w0, xb, yb = r50["net"], r50["w0"], r50["x"], r50["y"]
+    res["mirror"] = mirror_case(net, w0, xb[:MIRROR_BATCH],
+                                yb[:MIRROR_BATCH], card)
+    res["inflight"] = inflight_case(net, w0, xb, yb, card)
+    del net, r50
+    gc.collect()
+    torch.cuda.empty_cache()
+    res["estimator"] = estimator_case(card)
+    res["ssd"] = ssd_gluon_case(card)
+    res["seconds"] = time.perf_counter() - t0
+    print(f"gluon (phase 12): {res['seconds']:.1f} s; " + json.dumps(res),
+          flush=True)
+    return res
+
+
 def attention_path_summary(kernel, path, rows, launches, batch):
     """The `kernels` record of kernel 5 on one phase-9 path: each check
     record in `rows` (record, launches) weighted by its launches in one
@@ -4670,6 +5226,7 @@ def main():
     tf_res = phase_transformer(card)
     phase_ssd(card)
     _, sym_kernels = phase_symbolic(card, recs_att)
+    gluon_res = phase_gluon(card)
     dec_steps = tf_res["decode"]["steps"]
     dp_keys = dict(backend=dp_res.get("backend"), ranks=DP)
     # kernel 1 once for each main path (its shapes and launches), kernel 2
@@ -4703,7 +5260,21 @@ def main():
             + [(recs_dec[(kind, s)], NMT_LAYERS)
                for s in range(1, dec_steps + 1)
                for kind in ("causal", "cross")],
-            tf_res["decode"]["launches"], DECODE_BATCH)] + sym_kernels
+            tf_res["decode"]["launches"], DECODE_BATCH),
+        # the captured gluon.Trainer path (phase 8) and BERT-base through
+        # the hybridized gluon.Trainer loop at dropout 0 (phase 12 (a))
+        dict(kernel_summary(dict(KERNEL, name="fused_conv_unit/gluon_graph"),
+                            recs, "train", imp_res["captured"]["launches"][
+                                "fwd"]), path="train_gluon_captured"),
+        dict(kernel_summary(dict(KERNEL_BWD,
+                                 name="fused_conv_unit_bwd/gluon_graph"),
+                            recs_bwd, "train",
+                            imp_res["captured"]["launches"]["bwd"]),
+             path="train_gluon_captured"),
+        attention_path_summary(
+            dict(KERNEL_ATT, name="dot_product_attention/bert_gluon"),
+            "bert_gluon_dropout0", [(recs_att["bert.packed"], BERT_LAYERS)],
+            gluon_res["bert_dropout0"]["launches"], BATCH)] + sym_kernels
     if FAILURES:
         print(f"chip_smoke: {len(FAILURES)} failure(s)", flush=True)
         return 1

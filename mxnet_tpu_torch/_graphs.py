@@ -40,6 +40,31 @@ what the three sites share:
 * A build that fails raises: nothing falls back to eager quietly.
   :func:`no_capture` runs the calling thread's sites eagerly, without
   the cache (the comparisons of ``chip_smoke.py`` use it).
+
+The training-mode entry (:meth:`ExecutableCache.run_train`, the
+hybridized forward under ``autograd.record()``) is a forward graph and a
+backward graph behind one ``torch.autograd.Function`` (:class:`TrainPair`
+on the card, :class:`EagerPair` on the CPU, with the same bookkeeping):
+
+* Warm-up: on the card, the calls of a signature run eagerly on the
+  side stream (each its own result, forward and backward) until one of
+  them has finished its backward, so that every first-use cost of both
+  directions lands outside a capture.  Build, at the next call: the
+  forward is captured (the generators registered) and, from its outputs,
+  the backward (``torch.autograd.grad`` into static gradients), both
+  into one private memory pool of the pair: the saved activations live
+  there between the two replays.  The build call replays, and so does
+  every later one.
+* Forward: the inputs are copied into static buffers, the forward graph
+  replays (BatchNorm's running statistics are updated once, in place, in
+  it) and the outputs are returned as fresh copies.  Backward: the
+  cotangents are copied into static buffers (an output the loss does not
+  use gets zeros), the backward graph replays, and the static gradients
+  of the parameters and inputs that require one go back to autograd.
+* A pair is busy from its forward to its backward (or until the
+  outputs' graph is dropped): a second forward of the signature in
+  flight takes another pair (a counted build), never the first one's
+  activations.  A second backward through a consumed pair raises.
 """
 from __future__ import annotations
 
@@ -56,8 +81,10 @@ from . import _kernels
 from . import random as _random
 from .util import env as _env
 
-__all__ = ["ExecutableCache", "Graphed", "capture_enabled", "no_capture",
-           "owner_token", "tensor_key"]
+__all__ = ["ExecutableCache", "Graphed", "TrainPair", "EagerPair",
+           "capture_enabled", "no_capture", "owner_token", "tensor_key",
+           "segment", "segment_value", "in_segment",
+           "segment_recomputing"]
 
 
 _TICKS = itertools.count(1)
@@ -190,6 +217,354 @@ class Graphed:
             return _fresh(self.static_out)
 
 
+# ---------------------------------------------------------------------------
+# the training-mode entry: a forward graph and a backward graph
+# ---------------------------------------------------------------------------
+
+def _flatten(out, acc):
+    """The tensors of ``out`` (a tensor or nested tuples and lists of
+    them) into ``acc``; returns the structure to rebuild it."""
+    if isinstance(out, torch.Tensor):
+        acc.append(out)
+        return None
+    if isinstance(out, (tuple, list)):
+        return (type(out), [_flatten(o, acc) for o in out])
+    raise TypeError(f"a hybridized forward returned {type(out).__name__}; "
+                    "tensors, tuples and lists of them are captured")
+
+
+def _unflatten(tree, it):
+    if tree is None:
+        return next(it)
+    kind, items = tree
+    return kind(_unflatten(t, it) for t in items)
+
+
+class _Lease:
+    """One forward's hold on a pair, kept by the autograd node: released
+    by the backward, or when the node is dropped without one."""
+
+    def __init__(self, pair, token):
+        self.pair = pair
+        self.token = token
+        self.consumed = False
+
+    def __del__(self):
+        self.pair.release(self.token)
+
+
+class _PairBase:
+    """What :class:`TrainPair` and :class:`EagerPair` share: the busy
+    flag and the autograd function."""
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self._token = 0
+        self.busy = False
+
+    def try_acquire(self):
+        with self._lock:
+            if self.busy:
+                return None
+            self.busy = True
+            self._token += 1
+            return self._token
+
+    def release(self, token):
+        with self._lock:
+            if self._token == token:
+                self.busy = False
+
+    def apply(self, token, params, inputs):
+        """The call through the autograd function; returns the outputs in
+        the function's structure."""
+        flat = _TrainFn.apply(self, token, len(params), *params, *inputs)
+        return _unflatten(self.tree, iter(flat))
+
+
+class _TrainFn(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, pair, token, n_params, *tensors):
+        outs = pair.forward(tensors[:n_params], tensors[n_params:])
+        ctx.lease = _Lease(pair, token)
+        ctx.n_in = len(tensors)
+        ctx.set_materialize_grads(False)
+        ctx.mark_non_differentiable(
+            *[o for o, r in zip(outs, pair.out_req) if not r])
+        return tuple(outs)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, *cts):
+        from .base import MXNetError
+
+        lease = ctx.lease
+        if lease.consumed:
+            raise MXNetError(
+                "a second backward through a captured hybridized forward: "
+                "its activations were released by the first; run the "
+                "forward again")
+        lease.consumed = True
+        try:
+            grads = lease.pair.backward(cts)
+        finally:
+            lease.pair.release(lease.token)
+        return (None, None, None) + tuple(grads)
+
+
+def _aliases(params):
+    """A leaf of its own for each parameter, on its storage: the
+    function's graph differentiates these, so it never meets the
+    parameters' accumulators, which the graph around the call owns (on
+    its stream)."""
+    return [p.detach().requires_grad_() for p in params]
+
+
+def _grads_for(params, inputs, in_req, grads):
+    """Static gradients in the order of the function's tensors (a None
+    for an input that requires none)."""
+    it = iter(grads)
+    out = [next(it) for _ in params]
+    out += [next(it) if r else None for r in in_req]
+    return out
+
+
+class EagerPair(_PairBase):
+    """The training-mode entry on the CPU (and a warm-up call on the
+    card): the forward runs eagerly each call and keeps its graph; the
+    backward takes its gradients with ``torch.autograd.grad``.  Its
+    function is ``fn(param_aliases, *inputs)``: it runs the forward with
+    the parameters swapped for the aliases (:func:`_aliases`)."""
+
+    graph = None
+
+    def __init__(self, make_fn, in_req, stream=None, on_backward=None):
+        super().__init__()
+        self.fn = make_fn()
+        self.in_req = in_req
+        self.tree = None
+        self.out_req = None
+        self._saved = None
+        # the warm-up calls of a signature on the card: on the side stream
+        self._stream = stream
+        self._on_backward = on_backward
+
+    @contextmanager
+    def _on_stream(self):
+        if self._stream is None:
+            yield
+            return
+        cur = torch.cuda.current_stream(self._stream.device)
+        self._stream.wait_stream(cur)
+        with torch.cuda.stream(self._stream):
+            yield
+        cur.wait_stream(self._stream)
+
+    def forward(self, params, inputs):
+        inner = [x.detach().requires_grad_(r)
+                 for x, r in zip(inputs, self.in_req)]
+        aliases = _aliases(params)
+        with self._on_stream(), torch.enable_grad():
+            out = self.fn(aliases, *inner)
+        flat = []
+        self.tree = _flatten(out, flat)
+        self.out_req = [o.requires_grad for o in flat]
+        self._saved = (flat, aliases, inner)
+        if self._stream is not None:
+            cur = torch.cuda.current_stream(self._stream.device)
+            for o in flat:
+                o.record_stream(cur)
+        return [o.detach() for o in flat]
+
+    def backward(self, cts):
+        flat, params, inner = self._saved
+        self._saved = None
+        outs = [o for o, r in zip(flat, self.out_req) if r]
+        cts = [torch.zeros_like(o) if c is None else c
+               for o, c, r in zip(flat, cts, self.out_req) if r]
+        wrt = list(params) + [x for x, r in zip(inner, self.in_req) if r]
+        with self._on_stream():
+            grads = torch.autograd.grad(outs, wrt, cts, allow_unused=True) \
+                if outs and wrt else [None] * len(wrt)
+        if self._on_backward is not None:
+            self._on_backward()
+        return _grads_for(params, inner, self.in_req, grads)
+
+    def release(self, token):
+        with self._lock:
+            if self._token == token:
+                self._saved = None
+                self.busy = False
+
+
+class TrainPair(_PairBase):
+    """The training-mode entry on a CUDA device (see the module
+    docstring)."""
+
+    def __init__(self, device, tree, out_req, static_in, static_out,
+                 static_ct, static_grads, fwd, bwd, tallies, pool_bytes,
+                 capture_s):
+        super().__init__()
+        self.device = device
+        self.tree = tree
+        self.out_req = out_req
+        self.static_in = static_in
+        self.static_out = static_out
+        self.static_ct = static_ct
+        self.static_grads = static_grads
+        self.graph, self.bwd_graph = fwd, bwd
+        self.launches, self.bwd_launches = tallies
+        self.pool_bytes = pool_bytes
+        self.capture_s = capture_s
+
+    @classmethod
+    def build(cls, make_fn, params, inputs, in_req, device, generators=()):
+        """Capture the forward and the backward graphs into one private
+        pool (a warm-up call of the signature has run before)."""
+        fn = make_fn()
+        with torch.cuda.device(device):
+            cur = torch.cuda.current_stream(device)
+            static_in = [torch.empty_like(a, device=device).copy_(
+                a.detach(), non_blocking=True).requires_grad_(r)
+                for a, r in zip(inputs, in_req)]
+            aliases = _aliases(params)
+            wrt = aliases + [x for x, r in zip(static_in, in_req) if r]
+            side = _side_stream(device)
+            side.wait_stream(cur)
+            pool = torch.cuda.graph_pool_handle()
+            fwd, bwd = torch.cuda.CUDAGraph(), torch.cuda.CUDAGraph()
+            for g in generators:
+                _random.register_graph(fwd, g)
+            t0 = time.perf_counter()
+            r0 = torch.cuda.memory_reserved(device)
+            with _CAPTURE_LOCK:
+                with _kernels.capture_tally() as t_fwd:
+                    with torch.cuda.graph(fwd, pool=pool, stream=side,
+                                          capture_error_mode="thread_local"):
+                        with torch.enable_grad():
+                            flat = []
+                            tree = _flatten(fn(aliases, *static_in), flat)
+                out_req = [o.requires_grad for o in flat]
+                outs = [o for o, r in zip(flat, out_req) if r]
+                with _kernels.capture_tally() as t_bwd:
+                    with torch.cuda.graph(bwd, pool=pool, stream=side,
+                                          capture_error_mode="thread_local"):
+                        static_ct = [torch.empty_like(o) if r else None
+                                     for o, r in zip(flat, out_req)]
+                        grads = torch.autograd.grad(
+                            outs, wrt, [c for c in static_ct if c is not None],
+                            allow_unused=True) if outs and wrt \
+                            else [None] * len(wrt)
+            pool_bytes = torch.cuda.memory_reserved(device) - r0
+            cur.wait_stream(side)
+            dt = time.perf_counter() - t0
+        static_out = [o.detach() for o in flat]
+        return cls(device, tree, out_req, static_in, static_out, static_ct,
+                   _grads_for(params, static_in, in_req, grads), fwd, bwd,
+                   (dict(t_fwd), dict(t_bwd)), pool_bytes, dt)
+
+    def forward(self, params, inputs):
+        with torch.cuda.device(self.device):
+            for s, a in zip(self.static_in, inputs):
+                s.detach().copy_(a, non_blocking=True)
+            self.graph.replay()
+            _kernels.add_launches(self.launches)
+            return [o.clone() for o in self.static_out]
+
+    def backward(self, cts):
+        with torch.cuda.device(self.device):
+            for s, c in zip(self.static_ct, cts):
+                if s is None:
+                    continue
+                if c is None:
+                    s.zero_()
+                else:
+                    s.copy_(c, non_blocking=True)
+            self.bwd_graph.replay()
+            _kernels.add_launches(self.bwd_launches)
+            return list(self.static_grads)
+
+
+class _TrainEntry:
+    """The pairs of one training-mode signature, and whether a warm-up
+    call has finished its backward (on the card)."""
+
+    def __init__(self):
+        self.pairs: List[_PairBase] = []
+        self.warm = False
+
+    def set_warm(self):
+        self.warm = True
+
+
+# ---------------------------------------------------------------------------
+# gradient mirroring: what a checkpoint segment's recompute must repeat
+# ---------------------------------------------------------------------------
+
+class _SegLocal(threading.local):
+    def __init__(self):
+        self.seg = None
+
+
+_SEG = _SegLocal()
+
+
+class _Segment:
+    """The values a mirror segment's first pass drew or read (dropout
+    masks, BatchNorm's running mean before its update), handed back in
+    order to its recompute, which must give the same bits and must not
+    update the running statistics again."""
+
+    def __init__(self):
+        self.values = []
+        self.passes = 0
+        self.cursor = 0
+
+    @contextmanager
+    def run(self):
+        self.passes += 1
+        self.cursor = 0
+        old, _SEG.seg = _SEG.seg, self
+        try:
+            yield self
+        finally:
+            _SEG.seg = old
+
+    @property
+    def recomputing(self) -> bool:
+        return self.passes > 1
+
+
+def segment() -> _Segment:
+    """A new segment (``with seg.run():`` around each of its passes)."""
+    return _Segment()
+
+
+def segment_value(make):
+    """``make()`` outside a segment and in its first pass (kept), the
+    kept value in its recompute."""
+    seg = _SEG.seg
+    if seg is None:
+        return make()
+    if seg.recomputing:
+        v = seg.values[seg.cursor]
+        seg.cursor += 1
+        return v
+    v = make()
+    seg.values.append(v)
+    return v
+
+
+def in_segment() -> bool:
+    return _SEG.seg is not None
+
+
+def segment_recomputing() -> bool:
+    """True inside the recompute of a mirror segment."""
+    seg = _SEG.seg
+    return seg is not None and seg.recomputing
+
+
 class _Entry:
     __slots__ = ("fn", "sig", "tick", "owner")
 
@@ -263,7 +638,12 @@ class ExecutableCache:
         """The live entries of ``owner`` (Graphed or the CPU marker)."""
         tok = owner_token(owner)
         with self.lock:
-            return [e.fn for k, e in self.data.items() if k[0] == tok]
+            out = []
+            for k, e in self.data.items():
+                if k[0] == tok:
+                    out += e.fn.pairs if isinstance(e.fn, _TrainEntry) \
+                        else [e.fn]
+            return out
 
     def run(self, owner, slot, sig, make_fn, inputs: Sequence, device,
             generators=()):
@@ -304,6 +684,52 @@ class ExecutableCache:
                     owner, self.drop_owner, tok)
             self._trim_locked(tok, key)
         return out
+
+    def run_train(self, owner, slot, sig, make_fn, params, inputs, in_req,
+                  device, generators=()):
+        """The training-mode call of ``(owner, slot)`` (see the module
+        docstring): a free pair of the entry whose signature is ``sig``,
+        else a warm-up call (on the card, until one has finished its
+        backward), else a new pair (a counted build; a stale entry is
+        evicted first).  ``params`` are the tensors gradients flow to,
+        ``in_req`` says which inputs require one."""
+        tok = owner_token(owner)
+        key = (tok, slot)
+        with self.lock:
+            ent = self.data.get(key)
+            if ent is not None and ent.sig != sig:
+                self._evict_locked(key)
+                ent = None
+            if ent is None:
+                ent = self.data[key] = _Entry(_TrainEntry(), sig, tok)
+                if tok not in self._finalizers:
+                    self._finalizers[tok] = weakref.finalize(
+                        owner, self.drop_owner, tok)
+                self._trim_locked(tok, key)
+            ent.tick = next(_TICKS)
+            entry = ent.fn
+            for pair in entry.pairs:
+                token = pair.try_acquire()
+                if token is not None:
+                    return pair.apply(token, params, inputs)
+            warm = entry.warm
+        if device.type == "cuda" and not warm:
+            pair = EagerPair(make_fn, in_req, stream=_side_stream(device),
+                             on_backward=entry.set_warm)
+            return pair.apply(pair.try_acquire(), params, inputs)
+        t0 = time.perf_counter()
+        if device.type == "cuda":
+            pair = TrainPair.build(make_fn, params, inputs, in_req, device,
+                                   generators)
+        else:
+            pair = EagerPair(make_fn, in_req)
+        token = pair.try_acquire()
+        dt = time.perf_counter() - t0
+        with self.lock:
+            self.compiles += 1
+            self.seconds += dt
+            entry.pairs.append(pair)
+        return pair.apply(token, params, inputs)
 
     def _trim_locked(self, tok, keep) -> None:
         caps = [(lambda k: True, _env.get_int("MXNET_FUSED_CACHE_MAX"))]

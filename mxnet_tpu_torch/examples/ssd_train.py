@@ -56,13 +56,13 @@ def main(argv=None, keep=None):
     net = get_detection_model(name, classes=args.classes)
     net.initialize(mx.initializer.Xavier(), ctx=ctx)
     if not args.no_hybridize:
-        net.hybridize()
+        net.hybridize(static_alloc=True)
 
     target_gen = SSDTargetGenerator()
     loss_fn = SSDMultiBoxLoss()
     trainer = Trainer(net.collect_params(), "sgd",
                       {"learning_rate": 1e-3, "momentum": 0.9, "wd": 5e-4})
-    losses = []
+    losses, step_s = [], []
 
     def train_step(x, labels, step):
         tic = time.time()
@@ -74,6 +74,7 @@ def main(argv=None, keep=None):
         trainer.step(args.batch_size)
         lval = float(loss.asnumpy().mean())
         losses.append(lval)
+        step_s.append(time.time() - tic)
         print(f"step {step}: loss={lval:.4f} ({time.time() - tic:.2f}s)")
         return cls_preds, box_preds, anchors
 
@@ -97,7 +98,7 @@ def main(argv=None, keep=None):
     if keep is not None:
         keep.update(net=net, trainer=trainer, outputs=(cls_preds, box_preds,
                                                        anchors),
-                    detections=out)
+                    detections=out, step_s=step_s)
     return losses
 
 

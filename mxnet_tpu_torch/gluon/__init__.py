@@ -2,10 +2,12 @@
 Parameter handles, the Trainer, the data API and utilities."""
 from .block import (ActiveTrace, Block, HybridBlock, SymbolBlock,
                     current_trace, load_numpy_params)
-from .parameter import Parameter, ParameterDict
+from .parameter import (Constant, DeferredInitializationError, Parameter,
+                        ParameterDict)
 from .trainer import Trainer
-from . import data, loss, nn, model_zoo, utils
+from . import contrib, data, loss, nn, model_zoo, parameter, utils
 
 __all__ = ["Block", "HybridBlock", "SymbolBlock", "ActiveTrace", "current_trace",
-           "load_numpy_params", "Parameter", "ParameterDict", "Trainer",
-           "data", "loss", "nn", "model_zoo", "utils"]
+           "load_numpy_params", "Parameter", "ParameterDict", "Constant",
+           "DeferredInitializationError", "Trainer", "contrib", "data",
+           "loss", "nn", "model_zoo", "parameter", "utils"]

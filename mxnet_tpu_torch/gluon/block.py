@@ -9,23 +9,47 @@ Counterpart of ``mxnet_tpu/gluon/block.py``:
     ``load_parameters`` key on them, and a file written by the JAX
     package's ``save_parameters`` loads here.  BatchNorm running
     statistics are buffers.
-  * ``hybridize()`` switches on a trace scope (:class:`ActiveTrace`,
-    read through :func:`current_trace`) around the forward, with the
-    same ``train`` flag, so that code gated on a trace (the fused ResNet
-    path) behaves as in the JAX package.  The outermost hybridized
-    forward is the counterpart of the JAX package's ``CachedOp``: run
-    outside autograd recording (PyTorch's grad mode off: inference, the
-    served forward, ``net(x)`` on NDArrays outside ``record()``), it is
-    captured as a CUDA graph once per signature — the block, the train
-    and inference-mode flags, the fused-unit knobs, the inputs' shapes,
+  * Custom blocks are written as in MXNet: ``with self.name_scope():
+    self.weight = self.params.get("weight", shape=...,
+    allow_deferred_init=True)`` (or ``get_constant``), and
+    ``hybrid_forward(self, F, x, weight, bias=None)``: each registered
+    parameter or buffer of the block that ``hybrid_forward`` names is
+    passed to it by keyword (the tensor itself, which is also what a
+    trace sees).  The port's own layers read ``self.weight`` and name
+    none.  ``name_scope()`` names nothing (names are structural).
+  * Deferred shapes (``gluon/parameter.py``): a block whose parameters
+    are deferred sets their shapes from its first inputs
+    (``_infer_param_shapes``, ``infer_shape``) and fills them before its
+    forward; a hybridized block first resolves its whole tree by one
+    eager inference pass (no running-statistics update, no dropout), so
+    no capture ever holds a placeholder.
+  * ``hybridize(active, static_alloc, static_shape, **kwargs)`` switches
+    on a trace scope (:class:`ActiveTrace`, read through
+    :func:`current_trace`) around the forward, with the same ``train``
+    flag, so that code gated on a trace (the fused ResNet path) behaves
+    as in the JAX package; ``static_alloc``/``static_shape`` change
+    nothing (as in the JAX package) and ``mirror`` (default
+    ``MXNET_BACKWARD_DO_MIRROR``) turns on gradient mirroring.  The
+    outermost hybridized forward is the counterpart of the JAX package's
+    ``CachedOp``, captured per signature — the block, the train and
+    inference-mode flags, the fused-unit knobs, the inputs' shapes,
     dtypes, strides and device, and the address of every parameter and
-    buffer — and replayed per call (``_graphs``; on CPU tensors
-    the same cache runs the forward eagerly).  Its outputs are fresh
-    tensors each call.  Under ``autograd.record()`` the forward runs
-    eagerly in the trace scope, as before (a training-mode CachedOp
-    needs separate forward and backward graphs).  Inputs that are not
-    all tensors of one device run eagerly; so does a thread inside
-    ``_graphs.no_capture()``.
+    buffer — in ``_graphs``: with grad mode off (inference, the served
+    forward, ``net(x)`` on NDArrays outside ``record()``) as one CUDA
+    graph replayed per call; under ``autograd.record()`` (grad mode on)
+    as a forward graph and a backward graph behind one autograd function
+    (``ExecutableCache.run_train``), whose signature adds which inputs
+    require a gradient, each parameter's ``grad_req`` and the mirror
+    flag.  On CPU tensors the same cache runs the function eagerly.
+    Outputs are fresh tensors each call.  Inputs that are not all
+    tensors of one device run eagerly in the trace scope; so does a
+    thread inside ``_graphs.no_capture()``.
+  * Gradient mirroring (``mxnet_tpu/gluon/block.py:614-642``): under a
+    mirror trace with grad mode on, each sub-block that owns parameters
+    and takes tensors only runs as a ``torch.utils.checkpoint`` segment;
+    its recompute reuses the running mean its first pass read and the
+    dropout masks it drew (``_graphs.segment_value``) and updates no
+    running statistics.
   * The train flag: inside a trace scope, the scope's; inside the
     NDArray entry point, ``autograd.is_training()``; else (tensor
     callers outside any scope) ``module.training``.  Calling a block on
@@ -43,8 +67,6 @@ Counterpart of ``mxnet_tpu/gluon/block.py``:
     handles keyed on the structural names (the JAX package keys its
     ParameterDict on name-scope names); ``state_dict(keep_vars=True)``
     gives the tensors by the same names.
-  * Parameter shapes are known at construction: deferred shape
-    inference (``in_channels=0``) is not ported.
   * A parameter may be registered straight on a block (BERT's
     ``position_weight``) and may be tied: one ``nn.Parameter`` assigned
     to two blocks (BERT's ``mlm_decoder.embed_weight`` is
@@ -55,6 +77,8 @@ Counterpart of ``mxnet_tpu/gluon/block.py``:
 """
 from __future__ import annotations
 
+import contextlib
+import inspect
 import re
 import threading
 from collections import OrderedDict
@@ -72,11 +96,14 @@ from .. import random as _random
 from ..base import MXNetError, dtype_of
 from .. import _graphs
 from ..util import env as _env
-from .parameter import Parameter, ParameterDict
+from . import parameter as _param
+from .parameter import (BlockParams, DeferredInitializationError, Parameter,
+                        ParameterDict)
 
 __all__ = ["Block", "HybridBlock", "SymbolBlock", "ActiveTrace",
            "current_trace", "train_mode", "trace_generator",
-           "load_numpy_params", "dtype_of", "cached_op_stats"]
+           "load_numpy_params", "dtype_of", "cached_op_stats",
+           "DeferredInitializationError"]
 
 
 # ---------------------------------------------------------------------------
@@ -96,11 +123,13 @@ _TRACE = _TraceState()
 class ActiveTrace:
     """The scope a hybridized forward runs in (thread-local).  Dropout
     inside it draws from ``generator`` (None: dropout in training
-    raises)."""
+    raises); ``mirror`` makes each sub-block that owns parameters a
+    checkpoint segment."""
 
-    def __init__(self, train: bool, generator=None):
+    def __init__(self, train: bool, generator=None, mirror=False):
         self.train = train
         self.generator = generator
+        self.mirror = mirror
 
     def __enter__(self):
         self._old = _TRACE.scope
@@ -185,39 +214,74 @@ def _call_on_ndarrays(block, args, kwargs, method=None):
 # ---------------------------------------------------------------------------
 
 class Block(nn.Module):
-    """Base container.  ``prefix``/``params`` are accepted so that zoo code
-    reads as in the JAX package; names are structural and ignore them."""
+    """Base container.  ``prefix`` is accepted so that zoo code reads as
+    in the JAX package (names are structural and ignore it); ``params``,
+    another block's ``params``, shares its parameters by name."""
 
     def __init__(self, prefix: Optional[str] = None, params=None):
         super().__init__()
         # local parameter/buffer name -> its initializer (None = default)
         self._inits: Dict[str, object] = {}
+        self._params = BlockParams(
+            self, params if isinstance(params, BlockParams) else None)
 
-    def _param(self, name, shape, init=None, dtype="float32"):
-        """Register a parameter of known shape, filled at initialize()."""
-        if any(int(s) <= 0 for s in shape):
-            raise MXNetError(
-                f"{type(self).__name__}.{name}: unknown shape {tuple(shape)} "
-                "— deferred shape inference is not ported; pass "
-                "in_channels/in_units")
-        p = nn.Parameter(torch.zeros(tuple(int(s) for s in shape),
-                                     dtype=dtype_of(dtype)))
-        self.register_parameter(name, p)
-        self._inits[name] = init
-        return p
+    @property
+    def params(self) -> BlockParams:
+        """This block's own parameters; ``get``/``get_constant`` make one
+        (see ``parameter.BlockParams``)."""
+        return self._params
 
-    def _buffer(self, name, shape, init=None):
-        self.register_buffer(name, torch.zeros(tuple(int(s) for s in shape)))
+    def name_scope(self):
+        """A scope for creating children and parameters (names are
+        structural in the port, so it names nothing)."""
+        return contextlib.nullcontext(self)
+
+    def __setattr__(self, name, value):
+        # a parameter or constant made by params.get under another name
+        # is registered under the attribute's name instead
+        gets = self.__dict__.get("_mx_get_names")
+        if gets and isinstance(value, torch.Tensor):
+            old = _param._local_of(self, value)
+            if old is not None and old != name and gets.get(old) == old:
+                reg = self._parameters if old in self._parameters \
+                    else self._buffers
+                del reg[old]
+                self._inits[name] = self._inits.pop(old, None)
+                deferrable = self.__dict__.get("_mx_allow_deferred", set())
+                if old in deferrable:
+                    deferrable.discard(old)
+                    deferrable.add(name)
+                gets[old] = name
+                if reg is self._buffers:
+                    self.register_buffer(name, value)
+                    return
+        super().__setattr__(name, value)
+
+    def _param(self, name, shape, init=None, dtype="float32",
+               allow_deferred=False):
+        """Register a parameter, filled at initialize() (zeros in
+        ``shape``: unknown, resolved at the first forward when
+        ``allow_deferred``)."""
+        return _param.make_param(self, name, shape, init=init, dtype=dtype,
+                                 allow_deferred=allow_deferred)
+
+    def _buffer(self, name, shape, init=None, allow_deferred=False):
+        self.register_buffer(name, torch.zeros(tuple(max(int(s), 0)
+                                                     for s in shape)))
         self._inits[name] = init
+        if allow_deferred:
+            self.__dict__.setdefault("_mx_allow_deferred", set()).add(name)
 
     def _constant(self, name, value):
         """A constant (the JAX package's ``params.get_constant``): a
         buffer holding ``value`` (fp32), never trained, refilled with it
         by ``initialize``, cast with the block and saved and loaded
         under its structural name."""
-        value = torch.as_tensor(np.asarray(value, np.float32))
-        self.register_buffer(name, value.clone())
-        self._inits[name] = init_mod.Constant(value)
+        _param.make_constant(self, name, value)
+
+    def _set_shape(self, name, shape):
+        """Set the unknown dims of the parameter or buffer ``name``."""
+        _param.set_shape(self, name, shape)
 
     def __call__(self, *args, **kwargs):
         from ..ndarray.ndarray import NDArray
@@ -237,11 +301,12 @@ class Block(nn.Module):
                 owner.setdefault(full, (mod, local))
         rx = re.compile(select) if select else None
         return ParameterDict(OrderedDict(
-            (k, Parameter(k, *owner[k]))
+            (k, Parameter._handle(k, *owner[k]))
             for k in self.state_dict(keep_vars=True)
             if rx is None or rx.match(k)))
 
-    def initialize(self, init=None, ctx=None, seed: int = 0):
+    def initialize(self, init=None, ctx=None, seed: int = 0,
+                   verbose=False, force_reinit=False):
         """Fill every parameter and buffer, then move the block to ``ctx``
         (default: gpu(0); raises when there is none — pass cpu(); a list
         of several contexts raises).
@@ -249,30 +314,26 @@ class Block(nn.Module):
         A parameter's own initializer (e.g. a bias's "zeros") fills it
         unconditionally; the others take ``init`` (default Uniform(0.07))
         by name.  Draws come from a CPU ``torch.Generator`` seeded with
-        ``seed``."""
+        ``seed``; a parameter of unknown shape draws from it at its
+        first forward."""
         dev = _context.resolve(ctx)
         gen = torch.Generator().manual_seed(int(seed))
         default = init_mod.create(init)
+        self.to(dev)
         with torch.no_grad():
             for mname, mod in self.named_modules():
-                inits = getattr(mod, "_inits", {})
-                for local, spec in inits.items():
-                    t = getattr(mod, local)
+                for local in list(getattr(mod, "_inits", {})):
                     full = f"{mname}.{local}" if mname else local
-                    buf = torch.zeros(t.shape, dtype=torch.float32)
-                    if spec is not None:
-                        init_mod.create(spec).init_array(full, buf, gen)
-                    else:
-                        default(full, buf, gen)
-                    t.data = buf.to(dtype=t.dtype)
-                mod._mx_initialized = set(inits)
-        self.to(dev)
+                    _param.initialize_one(mod, local, full, default, gen)
+                mod.__dict__.pop("_mx_resolved", None)
         return self
 
-    def hybridize(self, active: bool = True):
+    def hybridize(self, active: bool = True, static_alloc: bool = False,
+                  static_shape: bool = False, **kwargs):
         for c in self.children():
             if isinstance(c, Block):
-                c.hybridize(active)
+                c.hybridize(active, static_alloc=static_alloc,
+                            static_shape=static_shape, **kwargs)
         return self
 
     def cast(self, dtype):
@@ -292,7 +353,7 @@ class Block(nn.Module):
         save_ndarrays(filename, {k: v.detach().cpu() for k, v in
                                  self.state_dict(keep_vars=True).items()})
 
-    def load_parameters(self, filename: str) -> None:
+    def load_parameters(self, filename: str, ctx=None) -> None:
         """Load a ``.params`` file keyed on structural names (one written
         by the JAX package's ``save_parameters`` included)."""
         from ..serialization import load_ndarrays
@@ -338,11 +399,15 @@ def _load_tensors(block, values, what="dict"):
         raise MXNetError(f"parameters in {what} do not exist in this "
                          f"block: {extra[:5]}")
     tensors = {k: _to_tensor(v) for k, v in values.items()}
+    homes = _homes_by_name(block)
     for name, t in params.items():
-        if name in tensors and tuple(tensors[name].shape) != tuple(t.shape):
-            raise MXNetError(f"parameter {name}: shape "
-                             f"{tuple(tensors[name].shape)} != "
-                             f"{tuple(t.shape)}")
+        if name not in tensors:
+            continue
+        want = _param.declared_shape(*homes[name])
+        got = tuple(tensors[name].shape)
+        if got != want and not (len(got) == len(want) and all(
+                w == 0 or w == g for w, g in zip(want, got))):
+            raise MXNetError(f"parameter {name}: shape {got} != {want}")
     chosen = []
     for g in groups:
         given = [k for k in g if k in tensors]
@@ -353,8 +418,23 @@ def _load_tensors(block, values, what="dict"):
                                  f"different values in {what}")
         chosen.append((params[g[0]], first))
     with torch.no_grad():
-        for t, value in chosen:
+        for (t, value), g in zip(chosen, groups):
             t.data = value.to(device=t.device)
+            mod, local = homes[g[0]]
+            for attr in ("_mx_deferred", "_mx_shape"):
+                mod.__dict__.get(attr, {}).pop(local, None)
+            mod._mx_initialized = getattr(mod, "_mx_initialized", set()) \
+                | {local}
+
+
+def _homes_by_name(block):
+    """Structural name -> (owning module, local name)."""
+    out = {}
+    for mname, mod in block.named_modules(remove_duplicate=False):
+        for local in list(mod._parameters) + list(mod._buffers):
+            out.setdefault(f"{mname}.{local}" if mname else local,
+                           (mod, local))
+    return out
 
 
 def load_numpy_params(block: Block, values: Dict[str, np.ndarray]) -> None:
@@ -370,26 +450,130 @@ def load_numpy_params(block: Block, values: Dict[str, np.ndarray]) -> None:
 # ---------------------------------------------------------------------------
 
 class HybridBlock(Block):
-    """``hybrid_forward(F, x, *args)`` with F the ops namespace."""
+    """``hybrid_forward(F, x, *args, **params)`` with F the ops namespace
+    and ``params`` the registered parameters it names."""
 
     def __init__(self, prefix=None, params=None):
         super().__init__(prefix, params)
         self._active = False
+        self._flags: Dict[str, object] = {}
 
-    def hybridize(self, active: bool = True):
+    def hybridize(self, active: bool = True, static_alloc: bool = False,
+                  static_shape: bool = False, **kwargs):
+        """As in the JAX package: ``static_alloc``/``static_shape`` are
+        accepted and change nothing (a captured graph is statically
+        planned by construction); ``mirror`` turns gradient mirroring on
+        or off (default ``MXNET_BACKWARD_DO_MIRROR``)."""
         self._active = bool(active)
-        return super().hybridize(active)
+        self._flags = dict(static_alloc=static_alloc,
+                           static_shape=static_shape, **kwargs)
+        return super().hybridize(active, static_alloc=static_alloc,
+                                 static_shape=static_shape, **kwargs)
+
+    def _mirror(self) -> bool:
+        m = self._flags.get("mirror")
+        return _env.get_bool("MXNET_BACKWARD_DO_MIRROR") if m is None \
+            else bool(m)
+
+    def _infer_param_shapes(self, *args):
+        """Overridden by the layers whose parameter shapes follow their
+        inputs; called with the forward's inputs while a shape is
+        unknown."""
+        raise MXNetError(
+            f"{type(self).__name__} cannot infer parameter shapes; pass "
+            "explicit input dims (in_units/in_channels) or initialize with "
+            "known shapes")
+
+    def infer_shape(self, *args):
+        """Resolve this block's deferred parameter shapes from example
+        inputs and fill them."""
+        self._infer_param_shapes(*args)
+        deferred = self.__dict__.get("_mx_deferred", {})
+        for local in list(deferred):
+            _param.finish_deferred(self, local)
 
     def forward(self, x, *args):
         if self._active and current_trace() is None:
-            train, gen = train_mode(self), trace_generator()
             xs = (x,) + args
-            if not torch.is_grad_enabled() and _graphs.capture_enabled() \
-                    and _capturable(xs):
+            _resolve_tree(self, xs)
+            train, gen = train_mode(self), trace_generator()
+            grad = torch.is_grad_enabled()
+            mirror = grad and self._mirror()
+            if _graphs.capture_enabled() and _capturable(xs):
+                if grad:
+                    return _cached_train(self, xs, train, gen, mirror)
                 return _cached_forward(self, xs, train, gen)
-            with ActiveTrace(train=train, generator=gen):
-                return self.hybrid_forward(_ops, x, *args)
-        return self.hybrid_forward(_ops, x, *args)
+            with ActiveTrace(train=train, generator=gen, mirror=mirror):
+                return self._call_hybrid(x, *args)
+        if self.__dict__.get("_mx_deferred"):
+            self.infer_shape(x, *args)
+        return self._call_hybrid(x, *args)
+
+    def _call_hybrid(self, x, *args):
+        """``hybrid_forward`` with the parameters it names; a checkpoint
+        segment under a mirror trace (see the module docstring)."""
+        names = _param_kwargs(type(self))
+        skip = 1 + len(args)
+        kw = {n: t for n in names[skip:]
+              for t in (self._parameters.get(n, self._buffers.get(n)),)
+              if t is not None} if len(names) > skip else {}
+        ts = current_trace()
+        if ts is not None and ts.mirror and torch.is_grad_enabled() \
+                and any(p is not None for p in self._parameters.values()) \
+                and all(isinstance(a, torch.Tensor) for a in (x,) + args):
+            return _mirror_segment(self, ts, (x,) + args, kw)
+        return self.hybrid_forward(_ops, x, *args, **kw)
+
+    def hybrid_forward(self, F, x, *args, **params):
+        raise NotImplementedError
+
+
+_KW_NAMES: Dict[type, tuple] = {}
+
+
+def _param_kwargs(cls) -> tuple:
+    """The names of ``cls.hybrid_forward``'s arguments after ``F``, in
+    order: the inputs, then the parameters it takes by name."""
+    names = _KW_NAMES.get(cls)
+    if names is None:
+        sig = inspect.signature(cls.hybrid_forward)
+        names = _KW_NAMES[cls] = tuple(
+            n for n, p in list(sig.parameters.items())[2:]
+            if p.kind in (p.POSITIONAL_OR_KEYWORD, p.KEYWORD_ONLY))
+    return names
+
+
+def _resolve_tree(block, xs) -> None:
+    """Before a hybridized forward: when any parameter of the tree is
+    deferred, one eager inference pass (no gradient, no running-statistics
+    update, no dropout) sets their shapes and fills them, as the JAX
+    package's CachedOp retries after an eager pass."""
+    if block.__dict__.get("_mx_resolved"):
+        return
+    if block.__dict__.get("_mx_deferred"):
+        block.infer_shape(*xs)
+    if any(m.__dict__.get("_mx_deferred") for m in block.modules()):
+        with torch.no_grad(), ActiveTrace(train=False):
+            block._call_hybrid(*xs)
+        block.__dict__.pop("_graph_homes", None)
+    block.__dict__["_mx_resolved"] = True
+
+
+def _mirror_segment(block, ts, xs, kw):
+    """The block's forward as a checkpoint segment: its backward
+    recomputes it from its inputs, in the trace scope of the forward (the
+    recompute may run on autograd's device thread), with the first
+    pass's running means and dropout masks."""
+    from torch.utils.checkpoint import checkpoint
+
+    seg = _graphs.segment()
+
+    def run(*inputs):
+        with seg.run(), ActiveTrace(train=ts.train, generator=ts.generator,
+                                    mirror=True):
+            return block.hybrid_forward(_ops, *inputs, **kw)
+    return checkpoint(run, *xs, use_reentrant=False,
+                      preserve_rng_state=False)
 
 
 # the CachedOp of the port: a hybridized forward captured per signature
@@ -397,8 +581,8 @@ _FWD_CACHE = _graphs.ExecutableCache("gluon.cached_op", per_owner_max=16)
 
 
 def cached_op_stats():
-    """Hybridized-forward builds in this process (the shape of
-    ``optimizer.fused.compile_stats``)."""
+    """Hybridized-forward builds in this process, inference and training
+    (the shape of ``optimizer.fused.compile_stats``)."""
     return _FWD_CACHE.stats()
 
 
@@ -407,19 +591,25 @@ def _capturable(xs) -> bool:
         len({a.device for a in xs}) == 1
 
 
-def param_keys(block) -> tuple:
-    """``_graphs.tensor_key`` of every parameter and buffer of
-    ``block``, each looked up on its module (a replaced tensor is seen as
-    well as one whose storage moved); the modules are found once."""
+def _homes(block):
+    """(dict, name, is parameter) of every parameter and buffer of
+    ``block``, looked up on its module at each use (a replaced tensor is
+    seen as well as one whose storage moved); found once."""
     homes = block.__dict__.get("_graph_homes")
     if homes is None:
         homes = []
         for mod in block.modules():
-            homes.extend((mod._parameters, n) for n in mod._parameters)
-            homes.extend((mod._buffers, n) for n in mod._buffers)
+            homes.extend((mod._parameters, n, True) for n in mod._parameters)
+            homes.extend((mod._buffers, n, False) for n in mod._buffers)
         block.__dict__["_graph_homes"] = homes
+    return homes
+
+
+def param_keys(block) -> tuple:
+    """``_graphs.tensor_key`` of every parameter and buffer of
+    ``block``."""
     key = _graphs.tensor_key
-    return tuple(key(d[n]) for d, n in homes if d[n] is not None)
+    return tuple(key(d[n]) for d, n, _ in _homes(block) if d[n] is not None)
 
 
 def _cached_forward(block, xs, train, gen):
@@ -435,13 +625,52 @@ def _cached_forward(block, xs, train, gen):
     def make_fn():
         def fn(*inputs):
             with ActiveTrace(train=train, generator=gen):
-                return block.hybrid_forward(_ops, *inputs)
+                return block._call_hybrid(*inputs)
         return fn
     return _FWD_CACHE.run(block, slot, sig, make_fn, xs, dev,
                           generators=gens)
 
-    def hybrid_forward(self, F, x, *args):
-        raise NotImplementedError
+
+def _cached_train(block, xs, train, gen, mirror):
+    """The block's forward under ``autograd.record()`` through the
+    training-mode entry of its CachedOp: forward and backward graphs on
+    the card, the same function eagerly on the CPU."""
+    dev = xs[0].device
+    seen, params, reqs = set(), [], []
+    for d, n, is_param in _homes(block):
+        t = d[n]
+        if t is None or not is_param or id(t) in seen:
+            continue
+        seen.add(id(t))
+        reqs.append(_autograd.grad_req_of(t))
+        if t.requires_grad:
+            params.append(t)
+    in_req = tuple(bool(a.requires_grad) for a in xs)
+    slot = (train, False, _env.trace_knobs(),
+            tuple((tuple(a.shape), a.dtype, a.stride()) for a in xs),
+            str(dev), "record", in_req, tuple(reqs), mirror)
+    sig = (slot, param_keys(block))
+    gens = (gen,) if gen is not None and gen.device.type == "cuda" else ()
+
+    def make_fn():
+        homes = [(d, n) for d, n, is_param in _homes(block)
+                 if is_param and d[n] is not None and d[n].requires_grad]
+
+        def fn(aliases, *inputs):
+            # the forward reads each parameter's alias (_graphs._aliases)
+            alias = dict(zip(map(id, params), aliases))
+            swapped = [(d, n, d[n]) for d, n in homes]
+            for d, n, t in swapped:
+                d[n] = alias[id(t)]
+            try:
+                with ActiveTrace(train=train, generator=gen, mirror=mirror):
+                    return block._call_hybrid(*inputs)
+            finally:
+                for d, n, t in swapped:
+                    d[n] = t
+        return fn
+    return _FWD_CACHE.run_train(block, slot, sig, make_fn, params, xs,
+                                in_req, dev, generators=gens)
 
 
 # ---------------------------------------------------------------------------
@@ -553,7 +782,7 @@ class SymbolBlock(HybridBlock):
         self._sb_pending = (init, ctx, seed)
         return self
 
-    def hybridize(self, active: bool = True):
+    def hybridize(self, active: bool = True, **kwargs):
         if active:
             import warnings
 

@@ -1,15 +1,25 @@
 """Gluon losses of the port (counterpart of ``mxnet_tpu/gluon/loss.py``):
-``Loss`` and ``SoftmaxCrossEntropyLoss``.  The other losses wait for a
-later slice.
+L2Loss, L1Loss, SigmoidBinaryCrossEntropyLoss, SoftmaxCrossEntropyLoss,
+KLDivLoss, HuberLoss, HingeLoss, SquaredHingeLoss, LogisticLoss,
+TripletLoss, CosineEmbeddingLoss and PoissonNLLLoss, each the JAX
+package's formula op by op.  CTCLoss waits for the RNN slice (ROADMAP
+queue A item 6).
 
 A loss returns one value per sample: the mean over every axis but
-``batch_axis``.
+``batch_axis`` (TripletLoss and CosineEmbeddingLoss: the value per
+sample as is; PoissonNLLLoss: the mean of all, as in the JAX package).
 """
 from __future__ import annotations
 
+import math
+
 from .block import HybridBlock
 
-__all__ = ["Loss", "SoftmaxCrossEntropyLoss", "SoftmaxCELoss"]
+__all__ = ["Loss", "L2Loss", "L1Loss", "SigmoidBinaryCrossEntropyLoss",
+           "SigmoidBCELoss", "SoftmaxCrossEntropyLoss", "SoftmaxCELoss",
+           "KLDivLoss", "HuberLoss", "HingeLoss", "SquaredHingeLoss",
+           "LogisticLoss", "TripletLoss", "CosineEmbeddingLoss",
+           "PoissonNLLLoss"]
 
 
 def _apply_weighting(F, loss, weight=None, sample_weight=None):
@@ -29,6 +39,67 @@ class Loss(HybridBlock):
     def _mean_nonbatch(self, F, loss):
         axes = tuple(i for i in range(loss.dim()) if i != self._batch_axis)
         return F.mean(loss, axis=axes) if axes else loss
+
+
+def _softrelu_neg_abs(F, pred):
+    return F.activation(-F.abs(pred), act_type="softrelu")
+
+
+class L2Loss(Loss):
+    def __init__(self, weight=1.0, batch_axis=0, prefix=None, params=None):
+        super().__init__(weight, batch_axis, prefix, params)
+
+    def hybrid_forward(self, F, pred, label, sample_weight=None):
+        label = label.reshape(pred.shape)
+        loss = F.square(label - pred)
+        loss = _apply_weighting(F, loss, self._weight / 2, sample_weight)
+        return self._mean_nonbatch(F, loss)
+
+
+class L1Loss(Loss):
+    def __init__(self, weight=None, batch_axis=0, prefix=None, params=None):
+        super().__init__(weight, batch_axis, prefix, params)
+
+    def hybrid_forward(self, F, pred, label, sample_weight=None):
+        label = label.reshape(pred.shape)
+        loss = F.abs(label - pred)
+        loss = _apply_weighting(F, loss, self._weight, sample_weight)
+        return self._mean_nonbatch(F, loss)
+
+
+class SigmoidBinaryCrossEntropyLoss(Loss):
+    """Binary cross-entropy on logits (the stable form max(x, 0) - x*z +
+    log(1 + exp(-|x|))) or, ``from_sigmoid``, on probabilities."""
+
+    def __init__(self, from_sigmoid=False, weight=None, batch_axis=0,
+                 prefix=None, params=None):
+        super().__init__(weight, batch_axis, prefix, params)
+        self._from_sigmoid = from_sigmoid
+
+    def hybrid_forward(self, F, pred, label, sample_weight=None,
+                       pos_weight=None):
+        label = label.reshape(pred.shape)
+        if not self._from_sigmoid:
+            if pos_weight is None:
+                loss = F.relu(pred) - pred * label + \
+                    _softrelu_neg_abs(F, pred)
+            else:
+                log_weight = 1 + (pos_weight - 1) * label
+                loss = pred - pred * label + log_weight * (
+                    _softrelu_neg_abs(F, pred) + F.relu(-pred))
+        else:
+            eps = 1e-12
+            if pos_weight is None:
+                loss = -(F.log(pred + eps) * label
+                         + F.log(1.0 - pred + eps) * (1.0 - label))
+            else:
+                loss = -(F.log(pred + eps) * label * pos_weight
+                         + F.log(1.0 - pred + eps) * (1.0 - label))
+        loss = _apply_weighting(F, loss, self._weight, sample_weight)
+        return self._mean_nonbatch(F, loss)
+
+
+SigmoidBCELoss = SigmoidBinaryCrossEntropyLoss
 
 
 class SoftmaxCrossEntropyLoss(Loss):
@@ -57,3 +128,132 @@ class SoftmaxCrossEntropyLoss(Loss):
 
 
 SoftmaxCELoss = SoftmaxCrossEntropyLoss
+
+
+class KLDivLoss(Loss):
+    def __init__(self, from_logits=True, axis=-1, weight=None, batch_axis=0,
+                 prefix=None, params=None):
+        super().__init__(weight, batch_axis, prefix, params)
+        self._from_logits = from_logits
+        self._axis = axis
+
+    def hybrid_forward(self, F, pred, label, sample_weight=None):
+        if not self._from_logits:
+            pred = F.log_softmax(pred, axis=self._axis)
+        loss = label * (F.log(label + 1e-12) - pred)
+        loss = _apply_weighting(F, loss, self._weight, sample_weight)
+        return self._mean_nonbatch(F, loss)
+
+
+class HuberLoss(Loss):
+    def __init__(self, rho=1.0, weight=None, batch_axis=0, prefix=None,
+                 params=None):
+        super().__init__(weight, batch_axis, prefix, params)
+        self._rho = rho
+
+    def hybrid_forward(self, F, pred, label, sample_weight=None):
+        label = label.reshape(pred.shape)
+        loss = F.abs(label - pred)
+        loss = F.where(loss > self._rho, loss - 0.5 * self._rho,
+                       (0.5 / self._rho) * F.square(loss))
+        loss = _apply_weighting(F, loss, self._weight, sample_weight)
+        return self._mean_nonbatch(F, loss)
+
+
+class HingeLoss(Loss):
+    def __init__(self, margin=1, weight=None, batch_axis=0, prefix=None,
+                 params=None):
+        super().__init__(weight, batch_axis, prefix, params)
+        self._margin = margin
+
+    def hybrid_forward(self, F, pred, label, sample_weight=None):
+        label = label.reshape(pred.shape)
+        loss = F.relu(self._margin - pred * label)
+        loss = _apply_weighting(F, loss, self._weight, sample_weight)
+        return self._mean_nonbatch(F, loss)
+
+
+class SquaredHingeLoss(Loss):
+    def __init__(self, margin=1, weight=None, batch_axis=0, prefix=None,
+                 params=None):
+        super().__init__(weight, batch_axis, prefix, params)
+        self._margin = margin
+
+    def hybrid_forward(self, F, pred, label, sample_weight=None):
+        label = label.reshape(pred.shape)
+        loss = F.square(F.relu(self._margin - pred * label))
+        loss = _apply_weighting(F, loss, self._weight, sample_weight)
+        return self._mean_nonbatch(F, loss)
+
+
+class LogisticLoss(Loss):
+    """Logistic loss on logits; ``label_format`` "signed" (-1/1) or
+    "binary" (0/1)."""
+
+    def __init__(self, weight=None, batch_axis=0, label_format="signed",
+                 prefix=None, params=None):
+        super().__init__(weight, batch_axis, prefix, params)
+        self._label_format = label_format
+
+    def hybrid_forward(self, F, pred, label, sample_weight=None):
+        label = label.reshape(pred.shape)
+        if self._label_format == "signed":
+            label = (label + 1.0) / 2.0
+        loss = F.relu(pred) - pred * label + _softrelu_neg_abs(F, pred)
+        loss = _apply_weighting(F, loss, self._weight, sample_weight)
+        return self._mean_nonbatch(F, loss)
+
+
+class TripletLoss(Loss):
+    def __init__(self, margin=1, weight=None, batch_axis=0, prefix=None,
+                 params=None):
+        super().__init__(weight, batch_axis, prefix, params)
+        self._margin = margin
+
+    def hybrid_forward(self, F, pred, positive, negative,
+                       sample_weight=None):
+        positive = positive.reshape(pred.shape)
+        negative = negative.reshape(pred.shape)
+        loss = F.sum(F.square(positive - pred) - F.square(negative - pred),
+                     axis=self._batch_axis, exclude=True)
+        loss = F.relu(loss + self._margin)
+        return _apply_weighting(F, loss, self._weight, sample_weight)
+
+
+class CosineEmbeddingLoss(Loss):
+    def __init__(self, weight=None, batch_axis=0, margin=0, prefix=None,
+                 params=None):
+        super().__init__(weight, batch_axis, prefix, params)
+        self._margin = margin
+
+    def hybrid_forward(self, F, input1, input2, label, sample_weight=None):
+        input1 = input1.reshape(input1.shape[0], -1)
+        input2 = input2.reshape(input2.shape[0], -1)
+        cos = F.sum(input1 * input2, axis=-1) / (
+            F.norm(input1, axis=-1) * F.norm(input2, axis=-1) + 1e-12)
+        label = label.reshape(-1)
+        loss = F.where(label == 1, 1.0 - cos, F.relu(cos - self._margin))
+        return _apply_weighting(F, loss, self._weight, sample_weight)
+
+
+class PoissonNLLLoss(Loss):
+    def __init__(self, weight=None, from_logits=True, batch_axis=0,
+                 compute_full=False, prefix=None, params=None):
+        super().__init__(weight, batch_axis, prefix, params)
+        self._from_logits = from_logits
+        self._compute_full = compute_full
+
+    def hybrid_forward(self, F, pred, target, sample_weight=None,
+                       epsilon=1e-08):
+        target = target.reshape(pred.shape)
+        if self._from_logits:
+            loss = F.exp(pred) - target * pred
+        else:
+            loss = pred - target * F.log(pred + epsilon)
+        if self._compute_full:
+            stirling = target * F.log(target + epsilon) - target \
+                + 0.5 * F.log(2 * math.pi * (target + epsilon))
+            stirling = F.where(target <= 1, F.zeros_like(target), stirling)
+            loss = loss + stirling
+        loss = _apply_weighting(F, loss, self._weight, sample_weight)
+        return F.mean(loss)

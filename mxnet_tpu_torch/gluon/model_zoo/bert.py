@@ -5,8 +5,8 @@ The same blocks, structural parameter names and forward: word, token
 type and position embeddings, LayerNorm, a post-LN encoder whose
 attention runs ``dot_product_attention`` (the CUDA kernel on the card),
 the pooler, the MLM decoder tied to the word-embedding matrix and the
-NSP classifier.  Shapes are explicit (no deferred shape inference), so
-every layer is built with its ``in_units``/``in_channels``.  Dropout
+NSP classifier.  Every layer is built with its
+``in_units``/``in_channels``, so no parameter is deferred.  Dropout
 and the attention's probability dropout follow the trace's train flag
 inside a trace scope, else the module's mode, and draw from the trace
 scope's generator.  ``BERTModel`` keeps an ``_arch`` record for

@@ -6,9 +6,9 @@ The GluonCV contract: ``SSD.forward(x)`` returns (cls_preds (B, N, C+1),
 box_preds (B, N, 4), anchors (1, N, 4)).  The child names equal the JAX
 package's (the backbone is re-parented under ``stages``: ``stages.0.4.0
 .body.0.weight``), so weights carry across through ``.params`` files in
-both directions.  The port has no deferred shapes: each head and extra
-layer is given its input channels, read from the last convolution of
-the feature block before it.
+both directions.  Each head and extra layer is given its input
+channels, read from the last convolution of the feature block before
+it, so no parameter is deferred.
 
 The backbones run in NCHW, the zoo's default layout, so the fused
 Conv+BN unit (NHWC only) never engages: SSD runs op-granular, through

@@ -3,7 +3,7 @@ ref: python/mxnet/gluon/model_zoo/vision/resnet.py).
 
 The architecture, child names and parameter names equal the JAX
 package's, so weights carry across through ``.params`` files.  Every
-channel count is passed explicitly (the port has no deferred shapes).
+channel count is passed explicitly, so no parameter is deferred.
 
 MXNET_FUSED_CONVBN=1 reroutes the V1 residual blocks, when they run
 hybridized in NHWC, through the fused Conv+BN+ReLU unit

@@ -10,7 +10,24 @@ from .ndarray import (NDArray, arange, array, concatenate, empty, full,
 from . import register as _register
 
 __all__ = ["NDArray", "array", "zeros", "ones", "full", "empty", "arange",
-           "concatenate", "waitall", "save", "load"]
+           "concatenate", "waitall", "save", "load", "maximum", "minimum"]
+
+
+def _elemwise_or_scalar(broadcast_op, scalar_op):
+    """A commutative binary of two NDArrays (broadcast) or of an NDArray
+    and a number (the ``*_scalar`` op), as the JAX package's ``nd``
+    module-level function of that name."""
+    def fn(lhs, rhs):
+        if isinstance(lhs, NDArray) and isinstance(rhs, NDArray):
+            return _register.lookup(broadcast_op)(lhs, rhs)
+        if not isinstance(lhs, NDArray):
+            lhs, rhs = rhs, lhs
+        return _register.lookup(scalar_op)(lhs, scalar=float(rhs))
+    return fn
+
+
+maximum = _elemwise_or_scalar("broadcast_maximum", "_maximum_scalar")
+minimum = _elemwise_or_scalar("broadcast_minimum", "_minimum_scalar")
 
 
 def waitall():

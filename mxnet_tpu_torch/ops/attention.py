@@ -36,7 +36,7 @@ from typing import NamedTuple
 
 import torch
 
-from .. import _kernels
+from .. import _graphs, _kernels
 from ..base import MXNetError
 from .registry import register_op
 
@@ -125,7 +125,8 @@ def _attention_with_prob_dropout(q, k, v, mask, scale, rate, generator,
 
     p = _softmax(_scores(q, k, mask, scale, causal)).to(v.dtype)
     keep = 1.0 - rate
-    drop = rand_batch(p.shape, generator, p.device) < keep
+    drop = _graphs.segment_value(
+        lambda: rand_batch(p.shape, generator, p.device) < keep)
     p = p * drop.to(p.dtype) / keep
     return torch.matmul(p.float(), v.float()).to(q.dtype)
 

@@ -1,9 +1,11 @@
-"""Neural-net ops of the ResNet and BERT paths: FullyConnected,
-Convolution, Pooling (max, global average), BatchNorm, LayerNorm,
-Activation (ReLU, tanh, erf GELU), Dropout, Embedding, flatten,
-softmax, log_softmax; and the legacy loss heads of the symbolic API:
-SoftmaxOutput, the three regression outputs, MakeLoss and
-stop_gradient (BlockGrad).
+"""Neural-net ops: FullyConnected, Convolution and Deconvolution (1-D to
+3-D), Pooling (max, avg, sum, lp, global, the valid and full
+conventions), BatchNorm, LayerNorm, InstanceNorm, GroupNorm, Activation
+(relu, sigmoid, tanh, softrelu, softsign, gelu, gelu_tanh, silu),
+LeakyReLU (leaky, prelu, elu, selu, gelu, rrelu), Dropout, Embedding,
+flatten, softmax, log_softmax, softmin, pad; and the legacy loss heads of
+the symbolic API: SoftmaxOutput, the three regression outputs, MakeLoss
+and stop_gradient (BlockGrad).
 
 Counterpart of ``mxnet_tpu/ops/nn.py``, as plain functions on tensors
 with the same attributes, layouts and rounding points.  The JAX package
@@ -37,6 +39,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from .. import _graphs
 from ..base import MXNetError
 from ..parallel import dist
 from ..parallel.mesh import batch_shards
@@ -44,10 +47,11 @@ from ..parallel.sharding import rand_batch
 from ..util import env
 from .registry import register_op
 
-__all__ = ["fully_connected", "convolution", "pooling", "batch_norm",
-           "layer_norm", "activation", "dropout", "embedding", "flatten",
-           "softmax", "log_softmax", "softmax_output", "make_loss",
-           "stop_gradient"]
+__all__ = ["fully_connected", "convolution", "deconvolution", "pooling",
+           "batch_norm", "layer_norm", "instance_norm", "group_norm",
+           "activation", "leaky_relu", "dropout", "embedding", "flatten",
+           "softmax", "log_softmax", "softmin", "pad", "softmax_output",
+           "make_loss", "stop_gradient"]
 
 
 def _channels_last(layout) -> bool:
@@ -66,51 +70,146 @@ def fully_connected(data, weight, bias=None, num_hidden=0, no_bias=False,
     return out
 
 
+_CONV = {1: F.conv1d, 2: F.conv2d, 3: F.conv3d}
+_DECONV = {1: F.conv_transpose1d, 2: F.conv_transpose2d,
+           3: F.conv_transpose3d}
+_MAXPOOL = {1: F.max_pool1d, 2: F.max_pool2d, 3: F.max_pool3d}
+_AVGPOOL = {1: F.avg_pool1d, 2: F.avg_pool2d, 3: F.avg_pool3d}
+
+
+def _to_channels_first(x, nhwc):
+    """An N-D tensor in a channels-last layout as a channels-first view
+    (channels-last memory: no copy), and back."""
+    if not nhwc:
+        return x
+    return x.permute(0, x.dim() - 1, *range(1, x.dim() - 1))
+
+
+def _to_layout(x, nhwc):
+    if not nhwc:
+        return x
+    return x.permute(0, *range(2, x.dim()), 1)
+
+
+def _add_bias(out, bias, no_bias):
+    if bias is None or no_bias:
+        return out
+    return out + bias.reshape((1, -1) + (1,) * (out.dim() - 2))
+
+
 def convolution(data, weight, bias=None, kernel=(), stride=(), dilate=(),
                 pad=(), num_filter=0, num_group=1, no_bias=False,
                 layout=None, cudnn_tune=None, cudnn_off=False,
                 workspace=1024):
-    """2-D grouped convolution in NCHW or NHWC with optional bias.  The
-    bias is added to the conv output in its own dtype, after the conv
-    has rounded to it, as the JAX package does."""
-    if data.dim() != 4:
-        raise MXNetError(f"convolution: only 2-D convolution is ported, "
-                         f"got a {data.dim()}-d input")
-    stride = tuple(stride) if stride else (1, 1)
-    dilate = tuple(dilate) if dilate else (1, 1)
-    pad = tuple(pad) if pad else (0, 0)
+    """1-, 2- or 3-D grouped convolution in a channels-first (NCW, NCHW,
+    NCDHW) or channels-last layout with optional bias.  The bias is
+    added to the conv output in its own dtype, after the conv has
+    rounded to it, as the JAX package does."""
+    nd = data.dim() - 2
+    if nd not in _CONV:
+        raise MXNetError(f"convolution: a {data.dim()}-d input; 1-D to "
+                         "3-D convolutions are ported")
+    stride = tuple(stride) if stride else (1,) * nd
+    dilate = tuple(dilate) if dilate else (1,) * nd
+    pad = tuple(pad) if pad else (0,) * nd
     nhwc = _channels_last(layout)
-    x = data.permute(0, 3, 1, 2) if nhwc else data
-    out = F.conv2d(x, weight, stride=stride, padding=pad, dilation=dilate,
-                   groups=num_group)
-    if bias is not None and not no_bias:
-        out = out + bias.reshape(1, -1, 1, 1)
-    return out.permute(0, 2, 3, 1) if nhwc else out
+    x = _to_channels_first(data, nhwc)
+    out = _CONV[nd](x, weight, stride=stride, padding=pad, dilation=dilate,
+                    groups=num_group)
+    return _to_layout(_add_bias(out, bias, no_bias), nhwc)
+
+
+def deconvolution(data, weight, bias=None, kernel=(), stride=(), dilate=(),
+                  pad=(), adj=(), num_filter=0, num_group=1, no_bias=False,
+                  target_shape=None, layout=None, workspace=1024,
+                  cudnn_tune=None, cudnn_off=False):
+    """Transposed convolution, the weight (in, out/g, *k) as in the JAX
+    package: out = (in-1)*s - 2p + (k-1)*d + 1 + adj per spatial dim,
+    ``target_shape`` choosing adj."""
+    nd = data.dim() - 2
+    if nd not in _DECONV:
+        raise MXNetError(f"deconvolution: a {data.dim()}-d input; 1-D to "
+                         "3-D are ported")
+    kernel = tuple(kernel) if kernel else tuple(weight.shape[2:])
+    stride = tuple(stride) if stride else (1,) * nd
+    pad = tuple(pad) if pad else (0,) * nd
+    dilate = tuple(dilate) if dilate else (1,) * nd
+    nhwc = _channels_last(layout)
+    x = _to_channels_first(data, nhwc)
+    if target_shape:
+        adj = tuple(t - ((x.shape[2 + i] - 1) * stride[i] - 2 * pad[i]
+                         + (kernel[i] - 1) * dilate[i] + 1)
+                    for i, t in enumerate(target_shape))
+    else:
+        adj = tuple(adj) if adj else (0,) * nd
+    out = _DECONV[nd](x, weight, stride=stride, padding=pad,
+                      output_padding=adj, groups=num_group, dilation=dilate)
+    return _to_layout(_add_bias(out, bias, no_bias), nhwc)
+
+
+def _pool_pads(shape, kernel, stride, pad, convention):
+    """(before, after) padding per spatial dim, the "full" (ceil)
+    convention extending the right side as the JAX package's
+    ``pool_window`` does."""
+    pads = []
+    for i, (k, s, p) in enumerate(zip(kernel, stride, pad)):
+        extra = 0
+        if convention == "full":
+            rem = (shape[i] + 2 * p - k) % s
+            extra = 0 if rem == 0 else s - rem
+        elif convention != "valid":
+            raise MXNetError("pooling_convention must be valid/full "
+                             f"(got {convention!r})")
+        pads.append((p, p + extra))
+    return pads
 
 
 def pooling(data, kernel=(), pool_type="max", stride=(), pad=(),
             global_pool=False, pooling_convention="valid", layout=None,
             count_include_pad=True, cudnn_off=False):
-    """Max pooling (valid convention, -inf padding) and global average
-    pooling: what ResNet uses.  Other pool types and the "full"
-    convention are not ported."""
+    """max, avg, sum and lp (p=2) pooling over 1 to 3 spatial dims, the
+    valid or full (ceil) convention and global pooling, as the JAX
+    package's ``reduce_window`` computes them: max pads with -inf, avg
+    divides by the kernel's size (``count_include_pad``) or by the count
+    of the window's real elements."""
     nhwc = _channels_last(layout)
-    if global_pool and pool_type == "avg":
-        return data.mean(dim=(1, 2) if nhwc else (2, 3), keepdim=True)
-    if global_pool or pool_type != "max" or pooling_convention != "valid":
-        raise MXNetError(f"pooling: pool_type={pool_type!r} global_pool="
-                         f"{global_pool} pooling_convention="
-                         f"{pooling_convention!r} is not ported")
+    nd = data.dim() - 2
+    if global_pool:
+        axes = tuple(range(1, data.dim() - 1)) if nhwc \
+            else tuple(range(2, data.dim()))
+        if pool_type == "max":
+            return data.amax(dim=axes, keepdim=True)
+        return data.mean(dim=axes, keepdim=True)
     kernel = tuple(kernel)
-    stride = tuple(stride) if stride else (1, 1)
-    pad = tuple(pad) if pad else (0, 0)
-    if any(2 * p > k for p, k in zip(pad, kernel)):
-        raise MXNetError(f"pooling: pad {pad} wider than half the kernel "
-                         f"{kernel} is not ported")
-    x = data.permute(0, 3, 1, 2) if nhwc else data
-    # max_pool2d pads with -inf, as the JAX package's reduce_window does
-    out = F.max_pool2d(x, kernel, stride, padding=pad)
-    return out.permute(0, 2, 3, 1) if nhwc else out
+    if len(kernel) != nd:
+        raise MXNetError(f"pooling: kernel must have {nd} dims for a "
+                         f"{data.dim()}-d input (got {kernel!r})")
+    stride = tuple(stride) if stride else (1,) * nd
+    pad = tuple(pad) if pad else (0,) * nd
+    x = _to_channels_first(data, nhwc)
+    pads = _pool_pads(x.shape[2:], kernel, stride, pad, pooling_convention)
+    if pool_type == "max" and pooling_convention == "valid" \
+            and all(2 * p <= k for p, k in zip(pad, kernel)):
+        # max_pool pads with -inf, as the JAX package's reduce_window does
+        return _to_layout(_MAXPOOL[nd](x, kernel, stride, padding=pad), nhwc)
+    flat = [v for pr in reversed(pads) for v in pr]
+    if pool_type == "max":
+        xp = F.pad(x, flat, value=float("-inf"))
+        return _to_layout(_MAXPOOL[nd](xp, kernel, stride), nhwc)
+    if pool_type not in ("avg", "sum", "lp"):
+        raise MXNetError(f"pooling: unknown pool_type {pool_type!r}")
+    src = x.abs().square() if pool_type == "lp" else x
+    size = math.prod(kernel)
+    total = _AVGPOOL[nd](F.pad(src, flat), kernel, stride) * size
+    if pool_type == "lp":
+        return _to_layout(torch.sqrt(total), nhwc)
+    if pool_type == "sum":
+        return _to_layout(total, nhwc)
+    if count_include_pad:
+        return _to_layout(total / float(size), nhwc)
+    ones = F.pad(torch.ones_like(x[:1, :1]), flat)
+    cnt = _AVGPOOL[nd](ones, kernel, stride) * size
+    return _to_layout(total / cnt, nhwc)
 
 
 _BN_EXACT_VAR = None  # read once per process, like the JAX package
@@ -197,6 +296,30 @@ def layer_norm(data, gamma, beta, axis=-1, eps=1e-5, output_mean_var=False):
     return out * gamma.reshape(shape) + beta.reshape(shape)
 
 
+def _norm_over(x, red, eps):
+    mean = x.mean(dim=red, keepdim=True)
+    var = (x - mean).square().mean(dim=red, keepdim=True)
+    return (x - mean) * torch.rsqrt(var + eps)
+
+
+def instance_norm(data, gamma, beta, eps=1e-3):
+    """Normalize each (sample, channel) over its spatial dims (the biased
+    variance), then scale by gamma and shift by beta per channel."""
+    out = _norm_over(data, tuple(range(2, data.dim())), eps)
+    shape = (1, -1) + (1,) * (data.dim() - 2)
+    return out * gamma.reshape(shape) + beta.reshape(shape)
+
+
+def group_norm(data, gamma, beta, num_groups=1, eps=1e-5):
+    """Normalize over each group of channels and the spatial dims, then
+    scale and shift per channel."""
+    b, c = data.shape[:2]
+    x = data.reshape((b, num_groups, c // num_groups) + data.shape[2:])
+    out = _norm_over(x, tuple(range(2, x.dim())), eps).reshape(data.shape)
+    shape = (1, -1) + (1,) * (data.dim() - 2)
+    return out * gamma.reshape(shape) + beta.reshape(shape)
+
+
 # sqrt(1/2) rounded to each dtype, as jax.nn.gelu rounds its constant
 _SQRT_HALF = {dt: float(torch.tensor(math.sqrt(0.5), dtype=dt))
               for dt in (torch.float32, torch.bfloat16, torch.float16)}
@@ -209,17 +332,87 @@ def _gelu(x):
     return 0.5 * x * torch.erfc(-x * _SQRT_HALF[x.dtype])
 
 
-_ACTIVATIONS = {"relu": torch.relu, "tanh": torch.tanh, "gelu": _gelu}
+def _gelu_tanh(x):
+    """The tanh approximation of GELU, as ``jax.nn.gelu(approximate=True)``
+    writes it."""
+    c = math.sqrt(2 / math.pi)
+    return 0.5 * x * (1 + torch.tanh(c * (x + 0.044715 * x ** 3)))
+
+
+_ACTIVATIONS = {
+    "relu": torch.relu, "tanh": torch.tanh, "gelu": _gelu,
+    "sigmoid": torch.sigmoid, "gelu_tanh": _gelu_tanh,
+    "softrelu": lambda x: torch.logaddexp(x, torch.zeros_like(x)),
+    "softsign": lambda x: x / (1 + x.abs()),
+    "silu": lambda x: x * torch.sigmoid(x)}
 
 
 def activation(data, act_type="relu"):
-    """Elementwise activation: relu, tanh, or gelu (erf, not the tanh
-    approximation)."""
+    """Elementwise activation: relu, sigmoid, tanh, softrelu (softplus),
+    softsign, gelu (erf), gelu_tanh, silu."""
     fn = _ACTIVATIONS.get(act_type)
     if fn is None:
         raise MXNetError(f"activation: act_type {act_type!r} is not ported; "
                          f"ported: {sorted(_ACTIVATIONS)}")
     return fn(data)
+
+
+_SELU = (1.6732632423543772, 1.0507009873554805)
+
+
+def leaky_relu(data, gamma=None, act_type="leaky", slope=0.25,
+               lower_bound=0.125, upper_bound=0.334):
+    """The LeakyReLU family: leaky (``slope``), prelu (a learned slope
+    ``gamma`` per channel, or one), elu, selu, gelu, and rrelu at its
+    inference slope (the midpoint of its bounds)."""
+    if act_type == "leaky":
+        return torch.where(data >= 0, data, slope * data)
+    if act_type == "prelu":
+        g = gamma
+        if g.numel() > 1:
+            g = g.reshape((1, -1) + (1,) * (data.dim() - 2)) \
+                if data.dim() > 1 else g.reshape(-1)
+        return torch.where(data >= 0, data, g * data)
+    if act_type == "elu":
+        return torch.where(data >= 0, data, slope * torch.expm1(data))
+    if act_type == "selu":
+        alpha, scale = _SELU
+        return scale * torch.where(data >= 0, data,
+                                   alpha * torch.expm1(data))
+    if act_type == "gelu":
+        return _gelu(data)
+    if act_type == "rrelu":
+        mid = (lower_bound + upper_bound) / 2
+        return torch.where(data >= 0, data, mid * data)
+    raise MXNetError(f"LeakyReLU: unknown act_type {act_type!r}")
+
+
+def softmin(data, axis=-1):
+    """softmax of the negated input."""
+    return softmax(-data, axis=axis)
+
+
+def pad(data, mode="constant", pad_width=(), constant_value=0.0):
+    """Pad in constant, edge or reflect mode; ``pad_width`` is MXNet's
+    flat (before, after) per axis.  Edge and reflect pad the trailing 1
+    to 3 axes only, the leading ones unpadded, as MXNet's Pad."""
+    pw = [int(v) for v in pad_width]
+    pairs = [(pw[2 * i], pw[2 * i + 1]) for i in range(len(pw) // 2)]
+    if mode == "constant":
+        flat = [v for pr in reversed(pairs) for v in pr]
+        return F.pad(data, flat, value=float(constant_value))
+    if mode not in ("edge", "reflect"):
+        raise MXNetError(f"pad: unknown mode {mode!r}")
+    lead = 0
+    while lead < len(pairs) and pairs[lead] == (0, 0):
+        lead += 1
+    if len(pairs) - lead > 3:
+        raise MXNetError("pad: edge/reflect pad at most the last 3 axes")
+    flat = [v for pr in reversed(pairs[lead:]) for v in pr]
+    rest = data.shape[:lead]
+    x = data.reshape((1, -1) + tuple(data.shape[lead:]))
+    out = F.pad(x, flat, mode="replicate" if mode == "edge" else "reflect")
+    return out.reshape(tuple(rest) + tuple(out.shape[2:]))
 
 
 def dropout(data, p=0.5, mode="training", train=False, generator=None,
@@ -243,7 +436,9 @@ def dropout(data, p=0.5, mode="training", train=False, generator=None,
     # a mask shared along the batch axis is one draw on every rank
     draw = (lambda *a: torch.rand(a[0], generator=a[1], device=a[2])) \
         if 0 in shared else rand_batch
-    mask = draw(tuple(shape), generator, data.device) < keep
+    # a mirror segment's recompute reuses the mask its first pass drew
+    mask = _graphs.segment_value(
+        lambda: draw(tuple(shape), generator, data.device) < keep)
     return data * mask.to(data.dtype) / keep
 
 
@@ -391,6 +586,9 @@ def _bn_nout(attrs):
 
 for _name, _fn in (("FullyConnected", fully_connected),
                    ("Convolution", convolution), ("Pooling", pooling),
+                   ("Deconvolution", deconvolution),
+                   ("InstanceNorm", instance_norm),
+                   ("GroupNorm", group_norm), ("LeakyReLU", leaky_relu),
                    ("LayerNorm", layer_norm),
                    ("Activation", activation), ("Dropout", dropout),
                    ("Embedding", embedding),
@@ -409,3 +607,5 @@ for _name, _snake, _kind in (
     register_op(_name, aliases=(_snake,))(_regression_head(_kind))
 register_op("softmax")(softmax)
 register_op("log_softmax")(log_softmax)
+register_op("softmin")(softmin)
+register_op("pad", aliases=("Pad",))(pad)

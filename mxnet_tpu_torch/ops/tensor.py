@@ -37,7 +37,8 @@ __all__ = ["pick", "mean", "sum", "arange_like", "expand_dims", "squeeze",
            "slice_axis", "cast", "broadcast_add", "broadcast_lesser",
            "reshape", "transpose", "concat", "max", "min", "norm",
            "argmax", "zeros_like", "ones_like", "clip", "broadcast_maximum",
-           "broadcast_minimum", "smooth_l1", "sort", "argsort", "topk"]
+           "broadcast_minimum", "smooth_l1", "sort", "argsort", "topk",
+           "reshape_like", "where", "depth_to_space", "space_to_depth"]
 
 
 def pick(x, index, axis=-1, keepdims=False, mode="clip"):
@@ -269,6 +270,32 @@ def reshape(x, shape=(), reverse=False):
     return x.reshape(tuple(out))
 
 
+def reshape_like(x, y):
+    """x reshaped to y's shape."""
+    return x.reshape(y.shape)
+
+
+def where(cond, x, y):
+    """``x`` where ``cond`` is nonzero, else ``y``."""
+    return torch.where(cond.to(torch.bool), x, y)
+
+
+def depth_to_space(x, block_size=1):
+    """NCHW channel blocks into spatial blocks: (N, C/b^2, H*b, W*b)."""
+    n, c, h, w = x.shape
+    b = block_size
+    y = x.reshape(n, b, b, c // (b * b), h, w).permute(0, 3, 4, 1, 5, 2)
+    return y.reshape(n, c // (b * b), h * b, w * b)
+
+
+def space_to_depth(x, block_size=1):
+    """The inverse of :func:`depth_to_space`."""
+    n, c, h, w = x.shape
+    b = block_size
+    y = x.reshape(n, c, h // b, b, w // b, b).permute(0, 3, 5, 1, 2, 4)
+    return y.reshape(n, c * b * b, h // b, w // b)
+
+
 def concat(*xs, dim=1, num_args=None):
     """Concatenate along ``dim`` (Concat's channel axis by default)."""
     return torch.cat(xs, dim=dim)
@@ -308,7 +335,8 @@ def _as_result(out, a, b=None):
 
 _UNARY = {"abs": torch.abs, "negative": torch.negative, "exp": torch.exp,
           "log": torch.log, "sqrt": torch.sqrt, "relu": torch.relu,
-          "sigmoid": torch.sigmoid, "tanh": torch.tanh}
+          "sigmoid": torch.sigmoid, "tanh": torch.tanh,
+          "square": torch.square}
 _BINARY = {
     "broadcast_sub": torch.sub, "broadcast_mul": torch.mul,
     "broadcast_div": torch.true_divide, "broadcast_mod": torch.remainder,
@@ -385,6 +413,10 @@ def _register():
     register_op("reshape", aliases=("Reshape",))(reshape)
     register_op("transpose")(transpose)
     register_op("concat", aliases=("Concat",))(concat)
+    register_op("reshape_like")(reshape_like)
+    register_op("where")(where)
+    register_op("depth_to_space")(depth_to_space)
+    register_op("space_to_depth")(space_to_depth)
     register_op("flatten", aliases=("Flatten",))(_nn.flatten)
     register_op("expand_dims")(expand_dims)
     register_op("squeeze")(squeeze)

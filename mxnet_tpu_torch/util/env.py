@@ -78,6 +78,12 @@ declare("MXNET_BN_EXACT_VAR", bool, False,
 declare("MXNET_FUSED_CONVBN", bool, False,
         "Route ResNet V1 residual blocks through the fused Conv+BN+ReLU "
         "CUDA kernel when running hybridized in NHWC layout.")
+declare("MXNET_BACKWARD_DO_MIRROR", bool, False,
+        "Gradient mirroring: a hybridized block's backward recomputes the "
+        "activations of each sub-block that owns parameters "
+        "(torch.utils.checkpoint segments) instead of keeping them in "
+        "device memory — trades FLOPs for memory.  hybridize(mirror=...) "
+        "overrides it per block.")
 declare("MXNET_FUSED_CONVBN_BWD", bool, False,
         "Run the backward of the fused Conv+BN units through the fused "
         "backward CUDA kernel (stride-1 units; strided units keep the "

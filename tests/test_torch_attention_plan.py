@@ -138,7 +138,10 @@ def test_the_port_modules_import_no_jax():
                 "module/executor_group.py", "module/module.py",
                 "io/__init__.py", "io/io.py", "lr_scheduler.py",
                 "initializer.py", "callback.py", "model.py", "name.py",
-                "attribute.py"):
+                "attribute.py", "gluon/parameter.py", "gluon/loss.py",
+                "gluon/nn/basic_layers.py", "gluon/nn/conv_layers.py",
+                "gluon/contrib/__init__.py", "gluon/contrib/nn.py",
+                "gluon/contrib/estimator.py", "ops/tensor.py"):
         for name in _imports(pkg / rel):
             assert not name.startswith(("jax", "mxnet_tpu.")) \
                 and name != "mxnet_tpu", (rel, name)
@@ -154,7 +157,9 @@ def test_the_port_modules_import_no_jax():
             "mxnet_tpu_torch.examples.ssd_train, "
             "mxnet_tpu_torch.symbol, mxnet_tpu_torch.module, "
             "mxnet_tpu_torch.io, mxnet_tpu_torch.lr_scheduler, "
-            "mxnet_tpu_torch.callback, mxnet_tpu_torch.model; "
+            "mxnet_tpu_torch.callback, mxnet_tpu_torch.model, "
+            "mxnet_tpu_torch.gluon.contrib.estimator, "
+            "mxnet_tpu_torch.gluon.contrib.nn, mxnet_tpu_torch.gluon.loss; "
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'mxnet_tpu.')) or m == 'mxnet_tpu']; "
             "print(bad); sys.exit(1 if bad else 0)")

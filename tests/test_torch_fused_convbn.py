@@ -226,10 +226,10 @@ def test_pooling_matches_jax(kernel, stride, pad, layout):
 
 
 @pytest.mark.parametrize("kw", [
-    dict(pool_type="avg", kernel=(2, 2)),
-    dict(pool_type="max", global_pool=True),
-    dict(pool_type="max", kernel=(3, 3), pooling_convention="full"),
-    dict(pool_type="max", kernel=(2, 2), pad=(2, 2)),
+    dict(pool_type="bogus", kernel=(2, 2)),
+    dict(pool_type="max", kernel=(3,)),
+    dict(pool_type="max", kernel=(3, 3), pooling_convention="same"),
+    dict(pool_type="avg", kernel=(2, 2, 2)),
 ])
 def test_pooling_rejects_what_is_not_ported(kw):
     with pytest.raises(MXNetError):
@@ -267,4 +267,4 @@ def test_fully_connected_and_activation_match_jax():
     t = tnn.activation(torch.from_numpy(x), act_type="relu")
     np.testing.assert_array_equal(t.numpy(), np.asarray(r))
     with pytest.raises(MXNetError):
-        tnn.activation(torch.from_numpy(x), act_type="sigmoid")
+        tnn.activation(torch.from_numpy(x), act_type="bogus")

@@ -295,6 +295,12 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     files = sorted((REPO / "mxnet_tpu_torch").rglob("*.py"))
     files.append(REPO / "chip_smoke.py")
     assert len(files) > 20
+    pkg = REPO / "mxnet_tpu_torch"
+    for rel in ("gluon/parameter.py", "gluon/loss.py",
+                "gluon/nn/basic_layers.py", "gluon/nn/conv_layers.py",
+                "gluon/contrib/__init__.py", "gluon/contrib/nn.py",
+                "gluon/contrib/estimator.py", "_graphs.py"):
+        assert pkg / rel in files, rel
     for f in files:
         for mod in _imports(f):
             top = mod.split(".")[0]
