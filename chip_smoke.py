@@ -317,6 +317,31 @@ Phases, each failing loudly (exit code 1, no result line):
    at batch 8 with hybridize(static_alloc=True), captured and under
    no_capture (cudnn.deterministic): losses bit for bit, ms a step of
    each.  The phase's seconds are printed.
+13. main path, every optimizer of the port (ROADMAP queue A item 4):
+   (a) the 15 cases of the JAX package's tests/test_fused_step.py (sgd
+   with and without momentum, nag, adam, adagrad, adadelta, adamax,
+   nadam, rmsprop plain and centred, ftrl, signum, signsgd, lamb, test)
+   over the trained tensors of phase 8's ResNet-50 v1 (193, 25,575,912
+   values; random from a seed), in bf16 with multi_precision and in
+   fp32: 3 updates of optimizer.FusedUpdater.update_all (the first runs
+   eagerly and captures, the next two replay) against 3 of the eager
+   per-parameter Updater from the same state, bit for bit (weights,
+   masters, states; one build), and the card's eager update against the
+   port's CPU update of the same inputs: every fp32 tensor within 1e-5 of
+   its largest magnitude, every bf16 weight within one bf16 ulp; then 5
+   captured updates timed (ms an update).  (b) BERT-base MLM+NSP (phase 9's
+   dropout-0 net and batch, from its weights) through phase 12 (a)'s
+   hybridized gluon.Trainer loop with LAMB (lr 1e-3, multi_precision):
+   4 captured steps against 4 under no_capture from one state, bit for
+   bit, 12 kernel-5 launches a step on both, three builds; ms a step
+   beside phase 12's Adam step, the idle share of a captured step, the
+   captures' seconds.  (c) phase 8's ResNet-50 v1 (bf16, NHWC, batch
+   256, fused units) through SPMDTrainer with centred RMSProp (lr 1e-3,
+   wd 1e-4, multi_precision: three states and an fp32 master a bf16
+   weight, three states an fp32 BatchNorm parameter):
+   phase 5's hold of 3 captured steps against 3 eager ones, bit for bit,
+   52 + 46 kernel launches a step; ms a step beside phase 5's SGD step.
+   The phase's seconds and the whole script's are printed.
 
 The compiled paths (mxnet_tpu_torch._graphs): every SPMDTrainer step on one
 device, every hybridized forward in inference and under record() (a
@@ -355,9 +380,10 @@ on the BERT serving path, on phase 9's dropout-0 BERT step and on its
 greedy decode, kernel 6 on the probe path: summed over the 27
 configurations of one time sweep, with ms_by_nb; kernels 1 and 2 on
 phase 8's captured hybridized gluon.Trainer loop and kernel 5 on phase
-12's BERT-base gluon loop at dropout 0; kernels 1, 2 and 5 through
-phase 11's sym nodes, one call each), from the checks at that path's
-shapes; the last line is
+12's BERT-base gluon loop at dropout 0; kernel 5 on phase 13's LAMB
+BERT-base step and kernels 1 and 2 on its centred-RMSProp ResNet-50
+step; kernels 1, 2 and 5 through phase 11's sym nodes, one call each),
+from the checks at that path's shapes; the last line is
 {"ok": true, "device": {"platform": "gpu", ...}}.
 """
 from __future__ import annotations
@@ -508,6 +534,7 @@ KERNEL_BWD_DP = dict(KERNEL_BWD, name="fused_conv_unit_bwd/dp",
                      replaces="mxnet_tpu/ops/pallas_convbn.py:406")
 
 FAILURES = []
+T_START = time.perf_counter()
 
 
 def fail(msg):
@@ -1396,7 +1423,8 @@ def phase_main(card, n_requests, threads):
     models = {}
     for dtype, tag in (("bfloat16", "bf16"), ("float32", "fp32")):
         net = build_net(dtype, seed=0)
-        ex = images_f32[:1].to(dev, net.features[0].weight.dtype)
+        wdt = net.features[0].weight.data()._data.dtype
+        ex = images_f32[:1].to(dev, wdt)
         path = os.path.join(tmp, tag)
         deploy.export_model(net, path, [ex], dynamic_batch=True)
         repo.add(f"resnet50_v1_{tag}", path)
@@ -1408,7 +1436,7 @@ def phase_main(card, n_requests, threads):
         for tag, bound, n_req in (("bf16", 2e-2, n_requests),
                                   ("fp32", 1e-4, BATCH)):
             net = models[tag]
-            dt = net.features[0].weight.dtype
+            dt = net.features[0].weight.data()._data.dtype
             imgs = images_f32[:n_req].to(dt)
             model = f"resnet50_v1_{tag}"
             # warm the served model (first launches, allocator, cuDNN,
@@ -3136,10 +3164,8 @@ def gluon_state(net, trainer):
     """Copies of what a gluon.Trainer step writes: every parameter and
     buffer and every optimizer state."""
     st = snapshot(net)
-    for i, s in trainer._updater.states.items():
-        for j, t in enumerate(s if isinstance(s, tuple) else (s,)):
-            if t is not None:
-                st[f"state {i}.{j}"] = t._data.clone()
+    for j, t in enumerate(flat_states(trainer._updater.states)):
+        st[f"state {j}"] = t.clone()
     return st
 
 
@@ -4839,18 +4865,21 @@ def bert_gluon_steps(net, trainer, batch, steps):
     return losses
 
 
-def bert_gluon_case(tag, net, w0, batch, card, want_k5, dropout):
+def bert_gluon_case(tag, net, w0, batch, card, want_k5, dropout,
+                    opt="adam", opt_params=None, profile=False):
     """BERT-base through the hybridized gluon.Trainer loop (Adam lr
-    BERT_TRAIN_LR), captured against eager from one state and one
-    generator state (1 + CAPTURE_K steps each, fresh trainers); with
-    dropout, two generator states give two losses."""
+    BERT_TRAIN_LR unless `opt` and `opt_params` are given), captured
+    against eager from one state and one generator state (1 + CAPTURE_K
+    steps each, fresh trainers); with dropout, two generator states give
+    two losses; with `profile`, the idle share of one captured step."""
     from mxnet_tpu_torch import _graphs as graphs
     from mxnet_tpu_torch import gluon
     from mxnet_tpu_torch import random as mrandom
     from mxnet_tpu_torch.gluon import block as gblock
 
     net.hybridize()
-    drop_cached_op(net)
+    for blk in (net, net.mlm_decoder, net.classifier):
+        drop_cached_op(blk)  # an earlier run's entries of the net and heads
     gen = mrandom.generator(batch[0].device)
     g0 = gen.get_state()
     steps = 1 + CAPTURE_K
@@ -4858,8 +4887,8 @@ def bert_gluon_case(tag, net, w0, batch, card, want_k5, dropout):
     for mode in ("captured", "eager"):
         restore(net, w0)
         gen.set_state(g0)
-        tr = gluon.Trainer(net.collect_params(), "adam",
-                           {"learning_rate": BERT_TRAIN_LR})
+        tr = gluon.Trainer(net.collect_params(), opt, dict(
+            opt_params or {"learning_rate": BERT_TRAIN_LR}))
         n0 = gblock.cached_op_stats()["count"]
         torch.cuda.synchronize()
         reset_kernel_counts()
@@ -4896,10 +4925,16 @@ def bert_gluon_case(tag, net, w0, batch, card, want_k5, dropout):
         masks = not torch.equal(a, b)
         if not masks:
             fail(f"{tag}: two generator states gave one loss")
+    idle = None
+    if profile:
+        idle = idle_of(profile_device(
+            lambda: bert_gluon_steps(net, c[4], batch, 1), f"{tag} captured",
+            "step", card, ms["captured"], iters=1, top=6))
     pairs = [p for blk in (net, net.mlm_decoder, net.classifier)
              for p in train_pairs(blk)]
     cap_s, gib = graph_costs(pairs)
-    print(f"{tag}: captured {ms['captured']:.2f} ms/step, eager "
+    print(f"{tag}: captured {ms['captured']:.2f} ms/step (idle "
+          f"{pct(idle)}), eager "
           f"{ms['eager']:.2f} ms/step ({ms['eager'] / ms['captured']:.3f}x); "
           f"{steps} steps bit-identical {not bad} ({len(c[3])} tensors); "
           f"launches in {steps} steps {c[1]}; builds {c[2]}; capture "
@@ -4908,7 +4943,8 @@ def bert_gluon_case(tag, net, w0, batch, card, want_k5, dropout):
           f"across generator states {masks} [{card}]", flush=True)
     return dict(captured_ms=ms["captured"], eager_ms=ms["eager"],
                 identical=not bad, launches=c[1]["k5"], steps=steps,
-                capture_s=cap_s, pool_gib=gib, masks_differ=masks)
+                capture_s=cap_s, pool_gib=gib, masks_differ=masks,
+                idle_captured=idle)
 
 
 def mirror_case(net, w0, xb, yb, card):
@@ -5124,7 +5160,7 @@ def phase_gluon(card):
 
     t0 = time.perf_counter()
     res = {}
-    bert = KEEP.pop("bert")
+    bert = KEEP["bert"]  # phase 13 (b) trains its dropout-0 net again
     for dropout, step in (("0", bert["dropout0"]), ("0.1", bert["dropout"])):
         res[f"bert_dropout{dropout}"] = bert_gluon_case(
             f"gluon bert-base dropout {dropout} bf16 batch "
@@ -5136,7 +5172,7 @@ def phase_gluon(card):
     del bert, step
     gc.collect()
     torch.cuda.empty_cache()
-    r50 = KEEP.pop("resnet")
+    r50 = KEEP["resnet"]  # and phase 13 (c) this one
     net, w0, xb, yb = r50["net"], r50["w0"], r50["x"], r50["y"]
     res["mirror"] = mirror_case(net, w0, xb[:MIRROR_BATCH],
                                 yb[:MIRROR_BATCH], card)
@@ -5149,6 +5185,199 @@ def phase_gluon(card):
     res["seconds"] = time.perf_counter() - t0
     print(f"gluon (phase 12): {res['seconds']:.1f} s; " + json.dumps(res),
           flush=True)
+    return res
+
+
+# ---------------------------------------------------------------------------
+# phase 13: every optimizer on the card — the captured update of each at
+# ResNet-50's parameter list, BERT-base with LAMB through gluon.Trainer,
+# ResNet-50 with centred RMSProp through SPMDTrainer
+# ---------------------------------------------------------------------------
+
+# the JAX package's tests/test_fused_step.py CASES
+OPT_CASES = [("sgd", {"momentum": 0.9, "wd": 0.01}), ("sgd", {}),
+             ("nag", {"momentum": 0.9}), ("adam", {}), ("adagrad", {}),
+             ("adadelta", {}), ("adamax", {}), ("nadam", {}),
+             ("rmsprop", {}), ("rmsprop", {"centered": True}), ("ftrl", {}),
+             ("signum", {"momentum": 0.9}), ("signsgd", {}), ("lamb", {}),
+             ("test", {})]
+OPT_STEPS, OPT_TIMED = 3, 5   # steps held; captured updates timed after
+OPT_RESCALE = 0.5
+OPT_BOUND = 1e-5   # card vs CPU, of each fp32 tensor's largest magnitude
+LAMB_OPT = {"learning_rate": 1e-3, "multi_precision": True}
+RMSPROP_OPT = {"learning_rate": 1e-3, "centered": True, "wd": 1e-4,
+               "multi_precision": True}
+
+
+def flat_states(states):
+    """An Updater's states as one list of tensors, in index order."""
+    out = []
+
+    def walk(s):
+        if s is None:
+            return
+        if isinstance(s, tuple):
+            for x in s:
+                walk(x)
+        else:
+            out.append(s._data)
+    for i in sorted(states):
+        walk(states[i])
+    return out
+
+
+def optimizer_run(name, kw, mp, ws, gs, dev, captured):
+    """OPT_STEPS updates of every weight from `ws` with the gradients
+    `gs` (one list a step): FusedUpdater.update_all (captured on the
+    card after its first, eager, call) or the eager per-parameter
+    Updater; the gradient buffers keep their addresses, as a Trainer's
+    do.  Returns (weights, flat states, updater, its inputs)."""
+    from mxnet_tpu_torch import nd, optimizer
+
+    upd = optimizer.FusedUpdater(optimizer.create(
+        name, **dict(kw, rescale_grad=OPT_RESCALE, multi_precision=mp)))
+    w = [nd.NDArray(t.to(dev).clone()) for t in ws]
+    g = [nd.NDArray(torch.empty_like(t, device=dev)) for t in gs[0]]
+    idx = list(range(len(w)))
+    for step in gs:
+        with torch.no_grad():
+            for b, t in zip(g, step):
+                b._data.copy_(t)
+        if captured:
+            upd.update_all(idx, g, w)
+        else:
+            for i in idx:
+                upd(i, g[i], w[i])
+    return [t._data for t in w], flat_states(upd.states), upd, (idx, g, w)
+
+
+def optimizer_case(name, kw, mp, shapes, card, dev=None):
+    """(a) one case at ResNet-50's parameter list: captured against eager
+    on the card, bit for bit; the card against the port's CPU update of
+    the same inputs (fp32 tensors within OPT_BOUND of their largest
+    magnitude, bf16 weights within one bf16 ulp); then the captured
+    update timed."""
+    from mxnet_tpu_torch.optimizer import fused as ofused
+
+    dev = dev or torch.device("cuda", 0)
+    gen = torch.Generator().manual_seed(13)
+    dt = torch.bfloat16 if mp else torch.float32
+    ws = [torch.randn(s, generator=gen).to(dt) for s in shapes]
+    gs_cpu = [[(0.1 * torch.randn(s, generator=gen)).to(dt) for s in shapes]
+              for _ in range(OPT_STEPS)]
+    gs = [[t.to(dev) for t in step] for step in gs_cpu]
+    n0 = ofused.compile_stats()["count"]
+    cw, cs, upd, args = optimizer_run(name, kw, mp, ws, gs, dev, True)
+    builds = ofused.compile_stats()["count"] - n0
+    ew, es, _, _ = optimizer_run(name, kw, mp, ws, gs, dev, False)
+    pw, ps, _, _ = optimizer_run(name, kw, mp, ws, gs_cpu,
+                                 torch.device("cpu"), False)
+    bad = [i for i, (a, b) in enumerate(zip(cw + cs, ew + es))
+           if not torch.equal(a, b)]
+    worst, same = 0.0, 0
+    for a, b in zip(ew + es, pw + ps):
+        a = a.cpu()
+        same += int(torch.equal(a, b))
+        if a.dtype == torch.bfloat16:
+            a32, b32 = a.float(), b.float()
+            over = ((a32 - b32).abs() > bf16_ulp(torch.maximum(
+                a32.abs(), b32.abs()))).sum().item()
+            worst = max(worst, float("inf") if over else 0.0)
+        else:
+            mag = b.abs().max().item()
+            d = (a - b).abs().max().item()
+            worst = max(worst, d / mag if mag else d)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(OPT_TIMED):
+        upd.update_all(*args)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) / OPT_TIMED * 1e3
+    tag = f"{name}{'(centered)' if kw.get('centered') else ''}" \
+        f"{' ' + str(kw) if kw and not kw.get('centered') else ''}"
+    prec = "bf16 multi_precision" if mp else "fp32"
+    print(f"optimizer {tag} {prec}: captured update {ms:.3f} ms over "
+          f"{len(shapes)} tensors ({sum(t.numel() for t in ws)} values); "
+          f"{OPT_STEPS} steps captured vs eager bit-identical {not bad} "
+          f"({len(cw + cs)} tensors, {builds} build); card vs cpu worst "
+          f"{worst:.3g} of the largest magnitude, {same}/{len(pw + ps)} "
+          f"tensors bit-identical [{card}]", flush=True)
+    if bad or builds != 1:
+        fail(f"optimizer {tag} {prec}: captured vs eager differ in tensors "
+             f"{bad[:6]}, builds {builds} (want 1)")
+    if worst > OPT_BOUND:
+        fail(f"optimizer {tag} {prec}: the card's update is {worst:.3g} of "
+             f"the largest magnitude from the cpu's (bound {OPT_BOUND}; inf: "
+             f"a bf16 weight more than one ulp off)")
+    return dict(name=name, kwargs=kw, dtype=prec, captured_ms=ms,
+                identical=not bad, card_vs_cpu=worst,
+                bit_identical_tensors=same, tensors=len(pw + ps))
+
+
+def phase_optimizers(card, train_res, gluon_res):
+    """Phase 13 (see the module docstring)."""
+    import gc
+
+    from mxnet_tpu_torch import parallel
+    from mxnet_tpu_torch.gluon import loss as gloss
+
+    t0 = time.perf_counter()
+    res = {"updates": []}
+    r50 = KEEP.pop("resnet")
+    net, w0, xb, yb = r50["net"], r50["w0"], r50["x"], r50["y"]
+    shapes = [tuple(p.shape) for p in net.collect_params().values()
+              if p.grad_req != "null"]
+    # (a) every optimizer's update on the card
+    for name, kw in OPT_CASES:
+        for mp in (True, False):
+            res["updates"].append(optimizer_case(name, kw, mp, shapes, card))
+            gc.collect()
+    torch.cuda.empty_cache()
+    # (b) BERT-base MLM+NSP with LAMB through the hybridized gluon loop
+    bert = KEEP.pop("bert")
+    step0 = bert["dropout0"]
+    res["bert_lamb"] = bert_gluon_case(
+        f"gluon bert-base LAMB dropout 0 bf16 batch "
+        f"{bert['batch'][0].shape[0]} x {BERT_SEQ}", step0.bert,
+        {k[len("bert."):]: v for k, v in bert["w0"].items()}, bert["batch"],
+        card, BERT_LAYERS, False, opt="lamb", opt_params=LAMB_OPT,
+        profile=True)
+    adam_ms = gluon_res["bert_dropout0"]["captured_ms"]
+    print(f"gluon bert-base: LAMB {res['bert_lamb']['captured_ms']:.2f} ms a "
+          f"captured step, Adam (phase 12) {adam_ms:.2f} ms [{card}]",
+          flush=True)
+    drop_cached_op(step0.bert)
+    del bert, step0
+    gc.collect()
+    torch.cuda.empty_cache()
+    # (c) ResNet-50 v1 through SPMDTrainer with centred RMSProp
+    drop_cached_op(net)
+    restore(net, w0)
+    set_knobs(True, True)
+    tr = parallel.SPMDTrainer(net, gloss.SoftmaxCrossEntropyLoss(),
+                              "rmsprop", dict(RMSPROP_OPT),
+                              mesh=parallel.make_mesh(dp=1))
+    # bf16 weights: three states and an fp32 master; the fp32 BatchNorm
+    # parameters: three states
+    n_state = {(str(tr.params[n].dtype), len(s))
+               for n, s in tr.opt_state.items()}
+    if n_state != {("torch.bfloat16", 4), ("torch.float32", 3)}:
+        fail(f"rmsprop centered multi_precision: (dtype, state tensors) a "
+             f"weight {n_state} (want 4 for bf16, 3 for fp32)")
+    res["resnet_rmsprop"] = hold_captured_steps(
+        f"compiled: train bf16 batch {TRAIN_BATCH} fused, centred RMSProp "
+        "multi_precision", tr, (xb, yb), card,
+        {"k1": FWD_PER_STEP, "k2": BWD_PER_STEP})
+    sgd_ms = train_res["compiled"]["fused"]["captured_ms"]
+    print(f"train bf16 batch {TRAIN_BATCH} fused: centred RMSProp "
+          f"{res['resnet_rmsprop']['captured_ms']:.2f} ms a captured step, "
+          f"SGD momentum (phase 5) {sgd_ms:.2f} ms [{card}]", flush=True)
+    del tr, net, r50
+    gc.collect()
+    torch.cuda.empty_cache()
+    res["seconds"] = time.perf_counter() - t0
+    print(f"optimizers (phase 13): {res['seconds']:.1f} s; "
+          + json.dumps(res), flush=True)
     return res
 
 
@@ -5227,6 +5456,7 @@ def main():
     phase_ssd(card)
     _, sym_kernels = phase_symbolic(card, recs_att)
     gluon_res = phase_gluon(card)
+    opt_res = phase_optimizers(card, train_res, gluon_res)
     dec_steps = tf_res["decode"]["steps"]
     dp_keys = dict(backend=dp_res.get("backend"), ranks=DP)
     # kernel 1 once for each main path (its shapes and launches), kernel 2
@@ -5274,7 +5504,23 @@ def main():
         attention_path_summary(
             dict(KERNEL_ATT, name="dot_product_attention/bert_gluon"),
             "bert_gluon_dropout0", [(recs_att["bert.packed"], BERT_LAYERS)],
-            gluon_res["bert_dropout0"]["launches"], BATCH)] + sym_kernels
+            gluon_res["bert_dropout0"]["launches"], BATCH),
+        # phase 13: BERT-base with LAMB through the gluon loop, ResNet-50
+        # with centred RMSProp through SPMDTrainer
+        attention_path_summary(
+            dict(KERNEL_ATT, name="dot_product_attention/bert_lamb"),
+            "bert_gluon_lamb", [(recs_att["bert.packed"], BERT_LAYERS)],
+            opt_res["bert_lamb"]["launches"], BATCH),
+        dict(kernel_summary(dict(KERNEL, name="fused_conv_unit/rmsprop"),
+                            recs, "train", int(opt_res["resnet_rmsprop"][
+                                "launches_per_step"]["k1"] * CAPTURE_K)),
+             path="train_rmsprop_centered"),
+        dict(kernel_summary(dict(KERNEL_BWD,
+                                 name="fused_conv_unit_bwd/rmsprop"),
+                            recs_bwd, "train", int(opt_res["resnet_rmsprop"][
+                                "launches_per_step"]["k2"] * CAPTURE_K)),
+             path="train_rmsprop_centered")] + sym_kernels
+    print(f"chip_smoke: {time.perf_counter() - T_START:.1f} s", flush=True)
     if FAILURES:
         print(f"chip_smoke: {len(FAILURES)} failure(s)", flush=True)
         return 1

@@ -15,8 +15,13 @@ Counterpart of ``mxnet_tpu/gluon/block.py``:
     ``hybrid_forward(self, F, x, weight, bias=None)``: each registered
     parameter or buffer of the block that ``hybrid_forward`` names is
     passed to it by keyword (the tensor itself, which is also what a
-    trace sees).  The port's own layers read ``self.weight`` and name
-    none.  ``name_scope()`` names nothing (names are structural).
+    trace sees).  A block's attribute of a registered parameter or buffer
+    (``net.weight``, ``bn.running_mean``) is its Gluon ``Parameter``, as
+    in MXNet (``net.weight.data()``, ``.grad()``, ``.set_data()``); the
+    port's own layers read the registered tensor through
+    ``self._value("weight")``.  ``name_scope()`` and ``prefix`` give the
+    blocks the JAX package's prefixes and names (``dense0_``), which key
+    nothing: parameter names are structural.
   * Deferred shapes (``gluon/parameter.py``): a block whose parameters
     are deferred sets their shapes from its first inputs
     (``_infer_param_shapes``, ``infer_shape``) and fills them before its
@@ -77,7 +82,6 @@ Counterpart of ``mxnet_tpu/gluon/block.py``:
 """
 from __future__ import annotations
 
-import contextlib
 import inspect
 import re
 import threading
@@ -213,10 +217,49 @@ def _call_on_ndarrays(block, args, kwargs, method=None):
 # Block
 # ---------------------------------------------------------------------------
 
+class _Scope(threading.local):
+    def __init__(self):
+        self.current: Optional["_NameManager"] = None
+        self.counters: Dict[str, int] = {}
+
+
+_SCOPE = _Scope()
+
+
+class _NameManager:
+    """A block's name scope (the JAX package's): a child made inside
+    ``with parent.name_scope():`` takes the parent's prefix plus its own
+    class alias and a count per scope; outside any scope, the count is
+    process-wide."""
+
+    def __init__(self, prefix):
+        self._prefix = prefix
+        self._counters: Dict[str, int] = {}
+
+    @staticmethod
+    def create(prefix: Optional[str], hint: str) -> str:
+        cur = _SCOPE.current
+        counters = _SCOPE.counters if cur is None else cur._counters
+        if prefix is None:
+            i = counters.get(hint, 0)
+            counters[hint] = i + 1
+            prefix = f"{hint}{i}_"
+        return prefix if cur is None else cur._prefix + prefix
+
+    def __enter__(self):
+        self._old = _SCOPE.current
+        _SCOPE.current = self
+        return self
+
+    def __exit__(self, *exc):
+        _SCOPE.current = self._old
+        return False
+
+
 class Block(nn.Module):
-    """Base container.  ``prefix`` is accepted so that zoo code reads as
-    in the JAX package (names are structural and ignore it); ``params``,
-    another block's ``params``, shares its parameters by name."""
+    """Base container.  ``prefix`` names the block as in the JAX package
+    (parameter names stay structural); ``params``, another block's
+    ``params``, shares its parameters by name."""
 
     def __init__(self, prefix: Optional[str] = None, params=None):
         super().__init__()
@@ -224,6 +267,11 @@ class Block(nn.Module):
         self._inits: Dict[str, object] = {}
         self._params = BlockParams(
             self, params if isinstance(params, BlockParams) else None)
+        self._prefix = _NameManager.create(prefix,
+                                           type(self).__name__.lower())
+        self._name = self._prefix[:-1] if self._prefix.endswith("_") \
+            else self._prefix
+        self._scope = _NameManager(self._prefix)
 
     @property
     def params(self) -> BlockParams:
@@ -231,12 +279,44 @@ class Block(nn.Module):
         (see ``parameter.BlockParams``)."""
         return self._params
 
+    @property
+    def prefix(self) -> str:
+        return self._prefix
+
+    @property
+    def name(self) -> str:
+        return self._name
+
     def name_scope(self):
-        """A scope for creating children and parameters (names are
-        structural in the port, so it names nothing)."""
-        return contextlib.nullcontext(self)
+        """The scope children made in it take their prefixes from."""
+        return self._scope
+
+    def _value(self, name) -> Optional[torch.Tensor]:
+        """The tensor registered as parameter or buffer ``name`` (what
+        the forwards read; ``self.name`` is its ``Parameter``)."""
+        return _param.tensor_of(self, name)
+
+    def __getattr__(self, name):
+        # a registered parameter or buffer reads as its Gluon Parameter
+        # (one handle per name); children and the rest as nn.Module has
+        # them
+        d = self.__dict__
+        if name in d.get("_parameters", ()) or name in d.get("_buffers", ()):
+            if _param.tensor_of(self, name) is None:
+                return None
+            return _param.handle(self, name)
+        return super().__getattr__(name)
 
     def __setattr__(self, name, value):
+        if isinstance(value, Parameter) \
+                and not getattr(value._module, "_mx_standalone", False):
+            # a block's Parameter (params.get's, another block's attribute):
+            # its tensor is registered here, a buffer as a buffer
+            t = value._tensor
+            if value._is_buffer and value._module is not self:
+                self.register_buffer(name, t)
+                return
+            value = t
         # a parameter or constant made by params.get under another name
         # is registered under the attribute's name instead
         gets = self.__dict__.get("_mx_get_names")
@@ -246,6 +326,10 @@ class Block(nn.Module):
                 reg = self._parameters if old in self._parameters \
                     else self._buffers
                 del reg[old]
+                handles = self.__dict__.get("_mx_handles", {})
+                if old in handles:
+                    handles[name] = handles.pop(old)
+                    handles[name]._local = name
                 self._inits[name] = self._inits.pop(old, None)
                 deferrable = self.__dict__.get("_mx_allow_deferred", set())
                 if old in deferrable:
@@ -291,6 +375,28 @@ class Block(nn.Module):
             return _call_on_ndarrays(self, args, kwargs)
         return super().__call__(*args, **kwargs)
 
+    def register_child(self, block, name: Optional[str] = None):
+        """Register ``block`` as a child under ``name`` (default: its
+        index among the children)."""
+        self.add_module(name or str(len(self._modules)), block)
+
+    def summary(self, *inputs):
+        """Print one row a block: its class, name and the number of
+        values of its own parameters of known shape (the JAX package's
+        table; ``inputs`` are not run)."""
+        rows = []
+
+        def walk(b, indent):
+            n = sum(int(np.prod(p.shape)) for p in b.params.values()
+                    if p.shape and all(s > 0 for s in p.shape))
+            rows.append(f"{'  ' * indent}{type(b).__name__}"
+                        f"({getattr(b, 'name', '')}): {n} params")
+            for c in b.children():
+                walk(c, indent + 1)
+
+        walk(self, 0)
+        print("\n".join(rows))
+
     def collect_params(self, select: Optional[str] = None) -> ParameterDict:
         """A handle on every parameter and buffer by structural name
         (``select``: a regular expression the names must match)."""
@@ -307,25 +413,34 @@ class Block(nn.Module):
 
     def initialize(self, init=None, ctx=None, seed: int = 0,
                    verbose=False, force_reinit=False):
-        """Fill every parameter and buffer, then move the block to ``ctx``
+        """Fill every parameter and buffer that holds no value yet (every
+        one with ``force_reinit``), then move the block to ``ctx``
         (default: gpu(0); raises when there is none — pass cpu(); a list
-        of several contexts raises).
+        of several contexts raises).  When every one holds a value and
+        ``force_reinit`` is off, nothing changes, as in the JAX package.
 
-        A parameter's own initializer (e.g. a bias's "zeros") fills it
-        unconditionally; the others take ``init`` (default Uniform(0.07))
-        by name.  Draws come from a CPU ``torch.Generator`` seeded with
-        ``seed``; a parameter of unknown shape draws from it at its
-        first forward."""
-        dev = _context.resolve(ctx)
+        A parameter's own initializer (e.g. a bias's "zeros") fills it;
+        the others take ``init`` (default Uniform(0.07)) by name.  Draws
+        come from a CPU ``torch.Generator`` seeded with ``seed``, in the
+        block's order, over the parameters being filled; a parameter of
+        unknown shape draws from it at its first forward."""
+        todo = [(f"{mname}.{local}" if mname else local, mod, local)
+                for mname, mod in self.named_modules()
+                for local in list(getattr(mod, "_inits", {}))
+                if force_reinit
+                or local not in getattr(mod, "_mx_initialized", ())]
+        # several contexts raise even when nothing is left to fill
+        dev = _context.resolve(ctx) if ctx is not None or todo else None
+        if not todo:
+            return self
         gen = torch.Generator().manual_seed(int(seed))
         default = init_mod.create(init)
         self.to(dev)
         with torch.no_grad():
-            for mname, mod in self.named_modules():
-                for local in list(getattr(mod, "_inits", {})):
-                    full = f"{mname}.{local}" if mname else local
-                    _param.initialize_one(mod, local, full, default, gen)
-                mod.__dict__.pop("_mx_resolved", None)
+            for full, mod, local in todo:
+                _param.initialize_one(mod, local, full, default, gen)
+        for mod in self.modules():
+            mod.__dict__.pop("_mx_resolved", None)
         return self
 
     def hybridize(self, active: bool = True, static_alloc: bool = False,
@@ -343,25 +458,44 @@ class Block(nn.Module):
             if isinstance(c, Block):
                 c.cast(dtype)
         for name in self._inits:
-            t = getattr(self, name)
+            t = self._value(name)
             t.data = t.data.to(dt)
         return self
 
-    def save_parameters(self, filename: str) -> None:
+    def save_parameters(self, filename: str, deduplicate: bool = False):
+        """Save every parameter and buffer under its structural name;
+        ``deduplicate`` is accepted and changes nothing, as in the JAX
+        package (a tied parameter is saved under each of its names)."""
         from ..serialization import save_ndarrays
 
         save_ndarrays(filename, {k: v.detach().cpu() for k, v in
                                  self.state_dict(keep_vars=True).items()})
 
-    def load_parameters(self, filename: str, ctx=None) -> None:
+    def load_parameters(self, filename: str, ctx=None,
+                        allow_missing: bool = False,
+                        ignore_extra: bool = False, cast_dtype=False,
+                        dtype_source="current") -> None:
         """Load a ``.params`` file keyed on structural names (one written
-        by the JAX package's ``save_parameters`` included)."""
+        by the JAX package's ``save_parameters`` included).  A parameter
+        the file lacks raises unless ``allow_missing`` (it keeps its
+        value); a name the block lacks raises unless ``ignore_extra``.
+        ``ctx``, ``cast_dtype`` and ``dtype_source`` are accepted and
+        change nothing here: each value keeps its dtype and moves to its
+        parameter's device."""
         from ..serialization import load_ndarrays
 
         loaded = load_ndarrays(filename)
         if not isinstance(loaded, dict):
             raise MXNetError(f"{filename}: parameters must be named")
-        _load_tensors(self, loaded, what=filename)
+        _load_tensors(self, loaded, what=filename,
+                      allow_missing=allow_missing, ignore_extra=ignore_extra)
+
+    # the reference's deprecated names
+    def save_params(self, filename: str, deduplicate: bool = False):
+        return self.save_parameters(filename, deduplicate)
+
+    def load_params(self, *args, **kwargs):
+        return self.load_parameters(*args, **kwargs)
 
 
 def _to_tensor(v) -> torch.Tensor:
@@ -384,21 +518,24 @@ def _tied_groups(params):
     return list(groups.values())
 
 
-def _load_tensors(block, values, what="dict"):
-    """Every parameter, present under at least one of its names and of
-    the right shape, or raise before any parameter changes; the names of
-    a tied parameter must agree where several are given.  Each value
-    keeps its dtype and moves to the parameter's device."""
+def _load_tensors(block, values, what="dict", allow_missing=False,
+                  ignore_extra=False):
+    """Every parameter, present under at least one of its names (or
+    skipped under ``allow_missing``) and of the right shape, or raise
+    before any parameter changes; names the block lacks raise unless
+    ``ignore_extra``; the names of a tied parameter must agree where
+    several are given.  Each value keeps its dtype and moves to the
+    parameter's device."""
     params = block.state_dict(keep_vars=True)
     groups = _tied_groups(params)
     missing = [g[0] for g in groups if not any(k in values for k in g)]
     extra = [k for k in values if k not in params]
-    if missing:
+    if missing and not allow_missing:
         raise MXNetError(f"parameters missing in {what}: {missing[:5]}")
-    if extra:
+    if extra and not ignore_extra:
         raise MXNetError(f"parameters in {what} do not exist in this "
                          f"block: {extra[:5]}")
-    tensors = {k: _to_tensor(v) for k, v in values.items()}
+    tensors = {k: _to_tensor(v) for k, v in values.items() if k in params}
     homes = _homes_by_name(block)
     for name, t in params.items():
         if name not in tensors:
@@ -411,16 +548,18 @@ def _load_tensors(block, values, what="dict"):
     chosen = []
     for g in groups:
         given = [k for k in g if k in tensors]
+        if not given:
+            continue
         first = tensors[given[0]]
         for k in given[1:]:
             if not torch.equal(tensors[k], first):
                 raise MXNetError(f"tied parameters {given} are given "
                                  f"different values in {what}")
-        chosen.append((params[g[0]], first))
+        chosen.append((params[g[0]], first, g[0]))
     with torch.no_grad():
-        for (t, value), g in zip(chosen, groups):
+        for t, value, name in chosen:
             t.data = value.to(device=t.device)
-            mod, local = homes[g[0]]
+            mod, local = homes[name]
             for attr in ("_mx_deferred", "_mx_shape"):
                 mod.__dict__.get(attr, {}).pop(local, None)
             mod._mx_initialized = getattr(mod, "_mx_initialized", set()) \
@@ -526,6 +665,32 @@ class HybridBlock(Block):
 
     def hybrid_forward(self, F, x, *args, **params):
         raise NotImplementedError
+
+    def export(self, path: str, epoch: int = 0):
+        """Write ``path-symbol.json`` and ``path-%04d.params`` as the JAX
+        package's ``export`` writes them: the JSON holds the block's
+        metadata (``framework``, ``block``, each parameter's shape by
+        name), not a symbol graph, and the ``.params`` file every
+        parameter and buffer by its structural name, which both
+        packages' ``load_parameters`` read.  Needs a forward after
+        ``hybridize()``, as there."""
+        import json
+
+        from ..serialization import save_ndarrays
+
+        if not (self._active and self.__dict__.get("_mx_resolved")):
+            raise MXNetError("run at least one forward after hybridize() "
+                             "before export()")
+        plist = sorted(self.collect_params().items())
+        meta = {"framework": "mxnet_tpu_torch", "block": type(self).__name__,
+                "params": {n: list(p.shape) for n, p in plist}}
+        sym_file = f"{path}-symbol.json"
+        params_file = f"{path}-{epoch:04d}.params"
+        with open(sym_file, "w") as f:
+            json.dump(meta, f, indent=2)
+        save_ndarrays(params_file, {n: p._tensor.detach().cpu()
+                                    for n, p in plist})
+        return sym_file, params_file
 
 
 _KW_NAMES: Dict[type, tuple] = {}

@@ -132,7 +132,8 @@ class _MLMDecoder(HybridBlock):
 
     def hybrid_forward(self, F, x):
         h = self.ln(self.transform(x))
-        return F.fully_connected(h, self.embed_weight, self.bias,
+        return F.fully_connected(h, self._value("embed_weight"),
+                                 self._value("bias"),
                                  num_hidden=self._vocab_size, flatten=False)
 
 
@@ -181,7 +182,7 @@ class BERTModel(HybridBlock):
     def hybrid_forward(self, F, inputs, token_types, valid_length):
         x = self.word_embed(inputs) + self.token_type_embed(token_types)
         seq_len = inputs.shape[1]
-        pos = F.slice_axis(self.position_weight, axis=0, begin=0,
+        pos = F.slice_axis(self._value("position_weight"), axis=0, begin=0,
                            end=seq_len)
         x = F.broadcast_add(x, F.expand_dims(pos, axis=0))
         x = self.embed_ln(x)

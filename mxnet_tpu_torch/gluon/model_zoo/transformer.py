@@ -166,7 +166,7 @@ class Transformer(HybridBlock):
     def _embed(self, F, embed, tokens):
         x = embed(tokens)
         x = x * _scalar_as(self._scale, x.dtype)  # a weak scalar, as in JAX
-        pos = F.slice_axis(self.pos_table, axis=0, begin=0,
+        pos = F.slice_axis(self._value("pos_table"), axis=0, begin=0,
                            end=tokens.shape[1])
         x = F.broadcast_add(x, F.expand_dims(pos, axis=0))
         if self.dropout is not None:
@@ -181,7 +181,8 @@ class Transformer(HybridBlock):
             F.expand_dims(valid_length, axis=-1)), dtype="float32")
 
     def _project(self, F, dec):
-        return F.fully_connected(dec, self.tied_weight, self.out_proj_bias,
+        return F.fully_connected(dec, self._value("tied_weight"),
+                                 self._value("out_proj_bias"),
                                  num_hidden=self._tgt_vocab_size,
                                  flatten=False)
 

@@ -50,10 +50,11 @@ def _fused_unit(F, ts, x, conv, bn, in_scale, in_bias, act_in, train):
     in training mode.
     """
     kw = conv._kwargs
-    cb = None if kw.get("no_bias") else conv.bias
-    rm, rv = bn.running_mean, bn.running_var
+    cb = None if kw.get("no_bias") else conv._value("bias")
+    rm, rv = bn._value("running_mean"), bn._value("running_var")
     sdt = rm.dtype
-    g = bn.gamma.to(sdt) if bn._scale else torch.ones_like(bn.gamma, dtype=sdt)
+    gamma = bn._value("gamma")
+    g = gamma.to(sdt) if bn._scale else torch.ones_like(gamma, dtype=sdt)
     cbf = cb.to(sdt) if cb is not None else None
     want_stats = train and not bn._use_global_stats
     # shift stays exactly the running mean; the conv bias enters through
@@ -63,9 +64,9 @@ def _fused_unit(F, ts, x, conv, bn, in_scale, in_bias, act_in, train):
     # (the JAX package applies the update after the step, spmd.py:514)
     shift = rm.clone() if want_stats else rm
     y, s1, s2 = F.fused_conv_unit(
-        x, conv.weight, in_scale, in_bias, shift, kernel=kw["kernel"],
-        stride=kw["stride"], pad=kw["pad"], act_in=act_in,
-        want_stats=want_stats)
+        x, conv._value("weight"), in_scale, in_bias, shift,
+        kernel=kw["kernel"], stride=kw["stride"], pad=kw["pad"],
+        act_in=act_in, want_stats=want_stats)
     if want_stats:
         # s1/s2 are sums over the global batch (over every rank under a
         # data-parallel mesh), so n counts every rank's rows
@@ -86,8 +87,8 @@ def _fused_unit(F, ts, x, conv, bn, in_scale, in_bias, act_in, train):
     else:
         mean, var = rm, rv
     scale = g * torch.rsqrt(var + bn._epsilon)
-    bias = bn.beta.to(sdt) + ((cbf if cbf is not None else 0.0)
-                              - mean) * scale
+    bias = bn._value("beta").to(sdt) + (
+        (cbf if cbf is not None else 0.0) - mean) * scale
     return y, scale, bias
 
 

@@ -7,7 +7,8 @@ GELU, Swish (SiLU), Lambda, HybridLambda.
 A layer whose parameter shapes follow its input (``in_units=0``,
 ``in_channels=0``, the default) defers them to its first forward
 (``_infer_param_shapes``), as in the JAX package.  The layers read their
-parameters as ``self.weight`` (their ``hybrid_forward`` names none).
+parameters as ``self._value("weight")`` (their ``hybrid_forward`` names
+none); ``self.weight`` is the Gluon ``Parameter``.
 """
 from __future__ import annotations
 
@@ -82,9 +83,10 @@ class Dense(HybridBlock):
         self._set_shape("weight", (self._units, int(in_units)))
 
     def hybrid_forward(self, F, x):
-        out = F.fully_connected(x, self.weight, self.bias,
+        bias = self._value("bias")
+        out = F.fully_connected(x, self._value("weight"), bias,
                                 num_hidden=self._units,
-                                no_bias=self.bias is None,
+                                no_bias=bias is None,
                                 flatten=self._flatten)
         return self.act(out) if self.act is not None else out
 
@@ -121,7 +123,7 @@ def _channel_params(block, names_inits, in_channels, requires=None):
     for name, init in names_inits:
         block._param(name, (in_channels,), init, allow_deferred=True)
     for name, req in (requires or {}).items():
-        getattr(block, name).requires_grad_(req)
+        block._value(name).requires_grad_(req)
 
 
 class BatchNorm(HybridBlock):
@@ -167,11 +169,12 @@ class BatchNorm(HybridBlock):
         # the trace's flag wins over the module's mode, as in the JAX
         # package (block.py:187): SPMDTrainer traces with train=True
         train = train_mode(self) and not self._use_global_stats
-        rm = self.running_mean
+        rm = running_mean = self._value("running_mean")
+        running_var = self._value("running_var")
         if train and _graphs.in_segment():
             rm = _graphs.segment_value(lambda: rm.detach().clone())
-        res = F.batch_norm(x, self.gamma, self.beta, rm,
-                           self.running_var, eps=self._epsilon,
+        res = F.batch_norm(x, self._value("gamma"), self._value("beta"), rm,
+                           running_var, eps=self._epsilon,
                            momentum=self._momentum, fix_gamma=not self._scale,
                            use_global_stats=self._use_global_stats,
                            axis=self._axis, train=train)
@@ -180,8 +183,8 @@ class BatchNorm(HybridBlock):
         out, new_mean, new_var = res
         if not _graphs.segment_recomputing():
             with torch.no_grad():
-                self.running_mean.copy_(new_mean)
-                self.running_var.copy_(new_var)
+                running_mean.copy_(new_mean)
+                running_var.copy_(new_var)
         return out
 
 
@@ -199,7 +202,8 @@ class InstanceNorm(HybridBlock):
             self._set_shape(n, (int(x.shape[1]),))
 
     def hybrid_forward(self, F, x):
-        return F.instance_norm(x, self.gamma, self.beta, eps=self._epsilon)
+        return F.instance_norm(x, self._value("gamma"), self._value("beta"),
+                               eps=self._epsilon)
 
 
 class LayerNorm(HybridBlock):
@@ -220,8 +224,8 @@ class LayerNorm(HybridBlock):
             self._set_shape(n, (int(x.shape[self._axis]),))
 
     def hybrid_forward(self, F, x):
-        return F.layer_norm(x, self.gamma, self.beta, axis=self._axis,
-                            eps=self._epsilon)
+        return F.layer_norm(x, self._value("gamma"), self._value("beta"),
+                            axis=self._axis, eps=self._epsilon)
 
 
 class GroupNorm(HybridBlock):
@@ -239,7 +243,7 @@ class GroupNorm(HybridBlock):
             self._set_shape(n, (int(x.shape[1]),))
 
     def hybrid_forward(self, F, x):
-        return F.group_norm(x, self.gamma, self.beta,
+        return F.group_norm(x, self._value("gamma"), self._value("beta"),
                             num_groups=self._num_groups, eps=self._epsilon)
 
 
@@ -257,7 +261,7 @@ class Embedding(HybridBlock):
                                   weight_initializer, dtype)
 
     def hybrid_forward(self, F, x):
-        return F.embedding(x, self.weight)
+        return F.embedding(x, self._value("weight"))
 
 
 class Flatten(HybridBlock):
@@ -288,7 +292,7 @@ class PReLU(HybridBlock):
                                  or init_mod.Constant(0.25))
 
     def hybrid_forward(self, F, x):
-        return F.leaky_relu(x, self.alpha, act_type="prelu")
+        return F.leaky_relu(x, self._value("alpha"), act_type="prelu")
 
 
 class ELU(HybridBlock):

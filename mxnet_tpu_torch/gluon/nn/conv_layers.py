@@ -50,7 +50,7 @@ class _Conv(HybridBlock):
     def _infer_param_shapes(self, x, *args):
         layout = self._kwargs["layout"]
         in_c = int(x.shape[1 if layout[1] == "C" else x.dim() - 1])
-        w = list(self.weight.shape)
+        w = list(self._value("weight").shape)
         groups = self._kwargs["num_group"]
         if self._op_name == "convolution":
             w[1] = in_c // groups
@@ -60,7 +60,8 @@ class _Conv(HybridBlock):
 
     def hybrid_forward(self, F, x):
         op = getattr(F, self._op_name)
-        out = op(x, self.weight, self.bias, **self._kwargs)
+        out = op(x, self._value("weight"), self._value("bias"),
+                 **self._kwargs)
         return self.act(out) if self.act is not None else out
 
 

@@ -66,11 +66,32 @@ def _state(mod, attr):
     return d
 
 
+def tensor_of(mod, local):
+    """The tensor registered on ``mod`` as parameter or buffer ``local``
+    (a block's attribute of that name is its Gluon ``Parameter``)."""
+    if local in mod._parameters:
+        return mod._parameters[local]
+    if local in mod._buffers:
+        return mod._buffers[local]
+    return mod.__dict__.get(local)  # set to None (a layer without bias)
+
+
+def handle(mod, local, name=None) -> "Parameter":
+    """The one ``Parameter`` of ``mod``'s parameter or buffer ``local``
+    that its attribute and ``params.get`` give (made on first use, named
+    ``name`` or ``local``)."""
+    cache = mod.__dict__.setdefault("_mx_handles", {})
+    h = cache.get(local)
+    if h is None:
+        h = cache[local] = Parameter._handle(name or local, mod, local)
+    return h
+
+
 def declared_shape(mod, local) -> tuple:
     """The shape set by ``_infer_param_shapes`` (not materialized yet),
     else the tensor's."""
     s = mod.__dict__.get("_mx_shape", {}).get(local)
-    return s if s is not None else tuple(getattr(mod, local).shape)
+    return s if s is not None else tuple(tensor_of(mod, local).shape)
 
 
 def set_shape(mod, local, new_shape, name=None) -> None:
@@ -117,7 +138,7 @@ def initialize_one(mod, local, name, default, gen, dev=None,
                              f"shape {shape} and allow_deferred_init=False")
         _state(mod, "_mx_deferred")[local] = (spec, default, gen)
         return
-    t = getattr(mod, local)
+    t = tensor_of(mod, local)
     buf = fill(name, shape, spec, default, gen)
     t.data = buf.to(device=t.device if dev is None else dev, dtype=t.dtype)
     mod.__dict__.get("_mx_deferred", {}).pop(local, None)
@@ -178,7 +199,7 @@ class Parameter:
     # ---- the tensor --------------------------------------------------------
     @property
     def _tensor(self) -> torch.Tensor:
-        return getattr(self._module, self._local)
+        return tensor_of(self._module, self._local)
 
     @property
     def _is_buffer(self) -> bool:
@@ -303,6 +324,24 @@ class Parameter:
             self._module._buffers[self._local] = t.to(dt)
         else:
             t.data = t.data.to(dt)
+
+    def reset_ctx(self, ctx):
+        """Move the parameter (and its gradient buffer, at its next use)
+        to ``ctx``; one context, as everywhere in the port."""
+        dev = resolve(ctx)
+        self._check_ctx(None)
+        with torch.no_grad():
+            if self._is_buffer:
+                self._module._buffers[self._local] = self._tensor.to(dev)
+            else:
+                t = self._tensor
+                t.data = t.data.to(dev)
+
+    def var(self):
+        """A symbol variable of this parameter's name, shape and dtype."""
+        from ..symbol import var
+
+        return var(self.name, shape=self.shape, dtype=self.dtype)
 
     def initialize(self, init=None, ctx=None, default_init=None,
                    force_reinit: bool = False, generator=None):
@@ -448,6 +487,10 @@ class ParameterDict:
         for p in _unique(self._params.values()):
             p.zero_grad()
 
+    def reset_ctx(self, ctx):
+        for p in _unique(self._params.values()):
+            p.reset_ctx(ctx)
+
     def setattr(self, name, value):
         for p in self._params.values():
             setattr(p, name, value)
@@ -514,9 +557,9 @@ class BlockParams(ParameterDict):
     """``block.params``: the block's own parameters, and ``get`` /
     ``get_constant`` that make one on the block (or retrieve it, from
     ``shared`` first: a block built with ``params=other.params`` shares
-    its parameters by name).  They return the tensor, so ``self.weight =
-    self.params.get("weight", shape=...)`` registers it under the
-    attribute's name."""
+    its parameters by name).  They return the ``Parameter``, and
+    ``self.weight = self.params.get("weight", shape=...)`` registers its
+    tensor under the attribute's name."""
 
     def __init__(self, block, shared: Optional["BlockParams"] = None):
         super().__init__()
@@ -526,50 +569,50 @@ class BlockParams(ParameterDict):
     def _own(self):
         b = self._block
         return OrderedDict(
-            (n, Parameter._handle(n, b, n))
-            for n in list(b._parameters) + list(b._buffers)
-            if getattr(b, n) is not None)
+            (n, handle(b, n)) for n in list(b._parameters) + list(b._buffers)
+            if tensor_of(b, n) is not None)
 
     def _find(self, name):
+        """(module, local name) of parameter ``name`` of this block, else
+        of the shared one's, else None."""
         b = self._block
         local = b.__dict__.get("_mx_get_names", {}).get(name, name)
-        t = b._parameters.get(local)
-        if t is None:
-            t = b._buffers.get(local)
-        if t is None and self._shared is not None:
-            t = self._shared._find(name)
-        return t
+        if b._parameters.get(local) is not None \
+                or b._buffers.get(local) is not None:
+            return b, local
+        return self._shared._find(name) if self._shared is not None \
+            else None
 
     def get(self, name: str, shape=None, init=None, dtype="float32",
             grad_req="write", lr_mult=1.0, wd_mult=1.0,
             allow_deferred_init=False, differentiable=True, **kwargs):
-        t = self._find(name)
+        found = self._find(name)
         b = self._block
-        if t is None:
-            t = make_param(b, name, shape if shape is not None else (0,),
-                           init=init, dtype=dtype,
-                           grad_req=grad_req if differentiable else "null",
-                           lr_mult=lr_mult, wd_mult=wd_mult,
-                           allow_deferred=allow_deferred_init)
+        if found is None:
+            make_param(b, name, shape if shape is not None else (0,),
+                       init=init, dtype=dtype,
+                       grad_req=grad_req if differentiable else "null",
+                       lr_mult=lr_mult, wd_mult=wd_mult,
+                       allow_deferred=allow_deferred_init)
             _state(b, "_mx_get_names")[name] = name
-        else:
-            local = _local_of(b, t)
-            if local is not None:
-                if shape is not None:
-                    set_shape(b, local, shape, name)
-                if init is not None and b._inits.get(local) is None:
-                    b._inits[local] = init
-        return t
+            found = (b, name)
+        elif found[0] is b:
+            if shape is not None:
+                set_shape(b, found[1], shape, name)
+            if init is not None and b._inits.get(found[1]) is None:
+                b._inits[found[1]] = init
+        return handle(*found, name=name)
 
     def get_constant(self, name: str, value=None):
-        t = self._find(name)
-        if t is None:
+        found = self._find(name)
+        if found is None:
             if value is None:
                 raise MXNetError(f"no constant named {name} and no value "
                                  "given")
-            t = make_constant(self._block, name, value)
+            make_constant(self._block, name, value)
             _state(self._block, "_mx_get_names")[name] = name
-        return t
+            found = (self._block, name)
+        return handle(*found, name=name)
 
     def items(self):
         return self._own().items()

@@ -21,8 +21,9 @@ Each parameter lives on one device, so the KVStore ('local'/'device')
 has no replicas to sum and ``allreduce_grads`` moves nothing; a
 distributed store raises.  Not ported, and refused rather than ignored:
 several contexts per parameter, gradient compression, the kvstore-side
-update (ROADMAP queue A item 7) and the SPMD mesh step (``spmd=True``)
-(item 4).  The chaos, goodput and tracing hooks are item 10.
+update and the SPMD mesh step (``spmd=True``, the JAX package's ZeRO-1
+``SpmdUpdater``) (ROADMAP queue A item 7).  The chaos, goodput and
+tracing hooks are item 10.
 """
 from __future__ import annotations
 
@@ -44,7 +45,7 @@ class Trainer:
                  update_on_kvstore=None, fuse_step=None, spmd=None):
         if spmd:
             raise MXNetError("Trainer(spmd=True): the SPMD mesh step is "
-                             "ROADMAP queue A item 4; data parallel "
+                             "ROADMAP queue A item 7; data parallel "
                              "training is parallel.SPMDTrainer")
         if compression_params:
             raise MXNetError("gradient compression is ROADMAP queue A "
@@ -186,6 +187,19 @@ class Trainer:
             self._fuse_update_ok = False
             return False
         return True
+
+    def optimizer_state_bytes(self):
+        """(state_bytes, shard_factor): the bytes of the optimizer states
+        (fp32 master copies included) one device holds, and 1, as on the
+        JAX package's per-replica paths (one context per parameter)."""
+        def tree_bytes(s):
+            if s is None:
+                return 0
+            if isinstance(s, (tuple, list)):
+                return sum(tree_bytes(x) for x in s)
+            return s._data.numel() * s._data.element_size()
+
+        return sum(tree_bytes(s) for s in self._updater.states.values()), 1
 
     def save_states(self, fname: str):
         """The optimizer states, pickled as numpy arrays by parameter

@@ -160,6 +160,12 @@ class Module(BaseModule):
             self._aux_params[name] = arr.copy()
         self.params_initialized = True
 
+    def init_params_from_loaded(self):
+        """(Re)initialize from the parameters this Module holds (those of
+        ``Module.load``), as the JAX Module does."""
+        self.init_params(arg_params=dict(self._arg_params),
+                         aux_params=dict(self._aux_params), force_init=True)
+
     def get_params(self):
         """Copies of the parameters and aux states."""
         assert self.params_initialized

@@ -131,7 +131,9 @@ class FusedUpdater(Updater):
                tuple(tensor_key(t) for t in gs),
                tuple(_state_keys(s) for s in ss))
         if not capture_enabled():
-            self._make_fn(opt, ws, gs, ss, mp_flags, names)(host)
+            # the scalars on the device, as the captured step reads them
+            # (a CPU scalar divides through its reciprocal on the card)
+            self._make_fn(opt, ws, gs, ss, mp_flags, names)(host.to(dev))
             return
         _FUSED_CACHE.run(self, slot, sig, lambda: self._make_fn(
             opt, ws, gs, ss, mp_flags, names), [host], dev)

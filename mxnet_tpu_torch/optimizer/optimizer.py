@@ -1,8 +1,11 @@
 """Optimizers of the port (counterpart of
 ``mxnet_tpu/optimizer/optimizer.py``): the registry, ``create``, the
 ``Optimizer`` base with its learning-rate bookkeeping (``lr_mult``/
-``wd_mult`` through ``param_dict``), ``SGD``, ``NAG`` and ``Adam``, and the
-serializable per-parameter ``Updater`` that ``gluon.Trainer`` runs.
+``wd_mult`` through ``param_dict``), the thirteen optimizers the JAX
+package registers (``sgd``, ``nag``, ``adam``, ``adagrad``,
+``adadelta``, ``adamax``, ``nadam``, ``rmsprop``, ``ftrl``, ``signum``,
+``signsgd``, ``lamb``, ``test``), and the serializable per-parameter
+``Updater`` that ``gluon.Trainer`` runs.
 
 Three paths share the update ops of ``ops/optimizer_ops.py``:
 ``parallel.SPMDTrainer`` runs them through
@@ -11,9 +14,11 @@ Three paths share the update ops of ``ops/optimizer_ops.py``:
 as NDArrays) writes their results back into the weight and the states
 in place under ``torch.no_grad``; and ``fused.FusedUpdater`` runs each
 optimizer's ``fused_apply`` — the same ops on tensors, with the per-step
-scalars of ``fused_hyper`` as 0-d fp32 tensors — over every parameter
-in one captured step, giving the eager path's bits.  The other ten
-optimizers of the JAX package are ROADMAP queue A item 4.
+scalars of ``fused_hyper`` as 0-d tensors — over every parameter in one
+captured step, giving the eager path's bits.  Where an update depends on
+the step count t (Adamax, Nadam, LAMB), ``fused_hyper`` carries the
+factors the eager op computes on the host from t, in the same Python
+floats, rather than t itself.
 """
 from __future__ import annotations
 
@@ -25,14 +30,13 @@ import torch
 
 from .. import ops
 from ..base import MXNetError
+from ..ops import optimizer_ops as _opt_ops
 
-__all__ = ["Optimizer", "SGD", "NAG", "Adam", "Updater", "create",
-           "register", "get_updater"]
+__all__ = ["Optimizer", "SGD", "NAG", "Adam", "AdaGrad", "AdaDelta",
+           "Adamax", "Nadam", "RMSProp", "Ftrl", "Signum", "SignSGD",
+           "LAMB", "Test", "Updater", "create", "register", "get_updater"]
 
 _REG: Dict[str, type] = {}
-# registered in the JAX package, not ported yet (ROADMAP queue A item 4)
-_QUEUED = ("adagrad", "adadelta", "adamax", "nadam", "rmsprop",
-           "ftrl", "signum", "signsgd", "lamb", "test")
 
 
 def register(name: str):
@@ -52,9 +56,7 @@ def create(name, **kwargs) -> "Optimizer":
         return name
     cls = _REG.get(str(name).lower())
     if cls is None:
-        queued = " (ROADMAP queue A item 4)" \
-            if str(name).lower() in _QUEUED else ""
-        raise MXNetError(f"optimizer {name!r} is not ported{queued}; "
+        raise MXNetError(f"optimizer {name!r} is not registered; "
                          f"registered: {sorted(_REG)}")
     return cls(**kwargs)
 
@@ -161,10 +163,14 @@ class Optimizer:
     #       hyper) -> (new weight, new state), hyper of 0-d tensors.
 
     _FUSED_STATIC: Optional[Tuple[str, ...]] = None
-    # True when fused_hyper carries the step count t (none of the three
-    # optimizers of the port): such a step takes the eager loop on half
-    # weights without a master copy (FusedUpdater.supports)
+    # True when the update depends on the step count t (Adamax, Nadam,
+    # LAMB): such a step takes the eager loop on half weights without a
+    # master copy, the JAX package's rule (FusedUpdater.update_all)
     _FUSED_T_HYPER = False
+    # True when fused_apply is elementwise, so that parameters could be
+    # concatenated into flat buckets; LAMB's per-tensor trust ratio sets
+    # it False (nothing in the port concatenates parameters yet)
+    _FUSED_ELEMENTWISE = True
 
     def fused_static_key(self) -> Optional[Tuple]:
         """The static attributes as a hashable key, or None when this
@@ -178,11 +184,14 @@ class Optimizer:
                 "wd": float(self._get_wd(index)),
                 "rescale_grad": float(self.rescale_grad)}
 
+    def _fused_clip(self) -> float:
+        return self.clip_gradient if self.clip_gradient is not None \
+            else -1.0
+
     def _fused_common(self, hyper) -> Dict[str, Any]:
         return dict(lr=hyper["lr"], wd=hyper["wd"],
                     rescale_grad=hyper["rescale_grad"],
-                    clip_gradient=self.clip_gradient
-                    if self.clip_gradient is not None else -1.0)
+                    clip_gradient=self._fused_clip())
 
     def fused_apply(self, weight, grad, state, hyper):
         raise NotImplementedError(
@@ -318,6 +327,383 @@ class Adam(Optimizer):
                                      epsilon=self.epsilon,
                                      **self._fused_common(hyper))
         return nw, (nm, nv)
+
+
+def _zeros(weight, n=1, dtype=None):
+    """n zero NDArrays shaped as ``weight`` (its dtype unless given); one
+    NDArray when n is 1."""
+    from ..ndarray.ndarray import NDArray
+
+    zs = tuple(NDArray(torch.zeros_like(weight._data, dtype=dtype))
+               for _ in range(n))
+    return zs[0] if n == 1 else zs
+
+
+def _t_hyper(h, names, values):
+    """``h`` with the host floats ``values`` under ``names``."""
+    h.update(zip(names, (float(v) for v in values)))
+    return h
+
+
+@register("adagrad")
+class AdaGrad(Optimizer):
+    """AdaGrad (``adagrad_update``): one accumulator of squared
+    gradients."""
+
+    def __init__(self, eps=1e-7, **kwargs):
+        super().__init__(**kwargs)
+        self.float_stable_eps = eps
+
+    def create_state(self, index, weight):
+        return _zeros(weight)
+
+    @torch.no_grad()
+    def update(self, index, weight, grad, state):
+        self._update_count(index)
+        _write([weight, state], ops.adagrad_update(
+            weight._data, grad._data, state._data,
+            epsilon=self.float_stable_eps, **self._common(index)))
+
+    _FUSED_STATIC = ("float_stable_eps", "clip_gradient")
+
+    def fused_apply(self, weight, grad, state, hyper):
+        return ops.adagrad_update(weight, grad, state,
+                                  epsilon=self.float_stable_eps,
+                                  **self._fused_common(hyper))
+
+
+@register("adadelta")
+class AdaDelta(Optimizer):
+    """AdaDelta (``adadelta_update`` at lr 1, as the JAX class runs it):
+    the accumulated gradients and deltas."""
+
+    def __init__(self, rho=0.90, epsilon=1e-5, **kwargs):
+        super().__init__(**kwargs)
+        self.rho, self.epsilon = rho, epsilon
+
+    def create_state(self, index, weight):
+        return _zeros(weight, 2)
+
+    @torch.no_grad()
+    def update(self, index, weight, grad, state):
+        self._update_count(index)
+        kw = self._common(index)
+        kw["lr"] = 1.0
+        acc_g, acc_d = state
+        _write([weight, acc_g, acc_d], ops.adadelta_update(
+            weight._data, grad._data, acc_g._data, acc_d._data,
+            rho=self.rho, epsilon=self.epsilon, **kw))
+
+    _FUSED_STATIC = ("rho", "epsilon", "clip_gradient")
+
+    def fused_apply(self, weight, grad, state, hyper):
+        acc_g, acc_d = state
+        kw = self._fused_common(hyper)
+        kw["lr"] = 1.0
+        nw, ng, ndel = ops.adadelta_update(weight, grad, acc_g, acc_d,
+                                           rho=self.rho,
+                                           epsilon=self.epsilon, **kw)
+        return nw, (ng, ndel)
+
+
+@register("adamax")
+class Adamax(Optimizer):
+    """Adamax (``adamax_update``): the bias-corrected rate lr / (1 -
+    beta1^t) from the parameter's own update count."""
+
+    def __init__(self, learning_rate=0.002, beta1=0.9, beta2=0.999,
+                 **kwargs):
+        super().__init__(learning_rate=learning_rate, **kwargs)
+        self.beta1, self.beta2 = beta1, beta2
+
+    def create_state(self, index, weight):
+        return _zeros(weight, 2)
+
+    @torch.no_grad()
+    def update(self, index, weight, grad, state):
+        self._update_count(index)
+        t = self._index_update_count[index]
+        mean, var = state
+        _write([weight, mean, var], ops.adamax_update(
+            weight._data, grad._data, mean._data, var._data,
+            beta1=self.beta1, beta2=self.beta2, t=t, **self._common(index)))
+
+    _FUSED_STATIC = ("beta1", "beta2", "clip_gradient")
+    _FUSED_T_HYPER = True
+
+    def fused_hyper(self, index, t):
+        h = super().fused_hyper(index, t)
+        # the op's host-side lr / (1 - beta1^t)
+        h["lr"] /= _opt_ops.adamax_coef(self.beta1, t)
+        return h
+
+    def fused_apply(self, weight, grad, state, hyper):
+        mean, var = state
+        kw = self._fused_common(hyper)
+        lr_t = kw.pop("lr")
+        nw, nm, nv = _opt_ops.adamax_step(weight, grad, mean, var, lr_t,
+                                          beta1=self.beta1,
+                                          beta2=self.beta2, **kw)
+        return nw, (nm, nv)
+
+
+_NADAM_COEFS = ("one_m_t", "m_t1", "one_m_t1", "bc2")
+
+
+@register("nadam")
+class Nadam(Optimizer):
+    """Nadam (``nadam_update``): Adam with Nesterov momentum through the
+    schedule-decay momentum correction at the parameter's update
+    count."""
+
+    def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
+                 epsilon=1e-8, schedule_decay=0.004, **kwargs):
+        super().__init__(learning_rate=learning_rate, **kwargs)
+        self.beta1, self.beta2 = beta1, beta2
+        self.epsilon = epsilon
+        self.schedule_decay = schedule_decay
+
+    def create_state(self, index, weight):
+        return _zeros(weight, 2)
+
+    @torch.no_grad()
+    def update(self, index, weight, grad, state):
+        self._update_count(index)
+        t = self._index_update_count[index]
+        mean, var = state
+        _write([weight, mean, var], ops.nadam_update(
+            weight._data, grad._data, mean._data, var._data,
+            beta1=self.beta1, beta2=self.beta2, epsilon=self.epsilon, t=t,
+            schedule_decay=self.schedule_decay, **self._common(index)))
+
+    _FUSED_STATIC = ("beta1", "beta2", "epsilon", "schedule_decay",
+                     "clip_gradient")
+    _FUSED_T_HYPER = True
+
+    def fused_hyper(self, index, t):
+        return _t_hyper(super().fused_hyper(index, t), _NADAM_COEFS,
+                        _opt_ops.nadam_coefs(self.beta1, t,
+                                             self.schedule_decay)
+                        + (1 - self.beta2 ** t,))
+
+    def fused_apply(self, weight, grad, state, hyper):
+        mean, var = state
+        nw, nm, nv = _opt_ops.nadam_step(
+            weight, grad, mean, var, hyper["lr"],
+            tuple(hyper[k] for k in _NADAM_COEFS), beta1=self.beta1,
+            beta2=self.beta2, epsilon=self.epsilon, wd=hyper["wd"],
+            rescale_grad=hyper["rescale_grad"],
+            clip_gradient=self._fused_clip())
+        return nw, (nm, nv)
+
+
+@register("rmsprop")
+class RMSProp(Optimizer):
+    """RMSProp: ``rmsprop_update`` with one state, or, ``centered``,
+    ``rmspropalex_update`` (Graves) with three (n, g, delta)."""
+
+    def __init__(self, learning_rate=0.001, gamma1=0.9, gamma2=0.9,
+                 epsilon=1e-8, centered=False, clip_weights=None, **kwargs):
+        super().__init__(learning_rate=learning_rate, **kwargs)
+        self.gamma1, self.gamma2 = gamma1, gamma2
+        self.epsilon = epsilon
+        self.centered = centered
+        self.clip_weights = clip_weights
+
+    def create_state(self, index, weight):
+        return _zeros(weight, 3 if self.centered else 1)
+
+    def _apply(self, weight, grad, state, kw):
+        kw["clip_weights"] = self.clip_weights if self.clip_weights \
+            else -1.0
+        if self.centered:
+            n, g, delta = state
+            nw, nn, ng, nd = ops.rmspropalex_update(
+                weight, grad, n, g, delta, gamma1=self.gamma1,
+                gamma2=self.gamma2, epsilon=self.epsilon, **kw)
+            return nw, (nn, ng, nd)
+        return ops.rmsprop_update(weight, grad, state, gamma1=self.gamma1,
+                                  epsilon=self.epsilon, **kw)
+
+    @torch.no_grad()
+    def update(self, index, weight, grad, state):
+        self._update_count(index)
+        states = state if self.centered else (state,)
+        nw, ns = self._apply(weight._data, grad._data,
+                             _state_tensors(state), self._common(index))
+        _write([weight, *states], (nw,) + (ns if self.centered else (ns,)))
+
+    _FUSED_STATIC = ("gamma1", "gamma2", "epsilon", "centered",
+                     "clip_weights", "clip_gradient")
+
+    def fused_apply(self, weight, grad, state, hyper):
+        return self._apply(weight, grad, state, self._fused_common(hyper))
+
+
+@register("ftrl")
+class Ftrl(Optimizer):
+    """FTRL-proximal (``ftrl_update``): the z and n accumulators."""
+
+    def __init__(self, lamda1=0.01, learning_rate=0.1, beta=1, **kwargs):
+        super().__init__(learning_rate=learning_rate, **kwargs)
+        self.lamda1, self.beta = lamda1, beta
+
+    def create_state(self, index, weight):
+        return _zeros(weight, 2)
+
+    @torch.no_grad()
+    def update(self, index, weight, grad, state):
+        self._update_count(index)
+        z, n = state
+        _write([weight, z, n], ops.ftrl_update(
+            weight._data, grad._data, z._data, n._data, lamda1=self.lamda1,
+            beta=self.beta, **self._common(index)))
+
+    _FUSED_STATIC = ("lamda1", "beta", "clip_gradient")
+
+    def fused_apply(self, weight, grad, state, hyper):
+        z, n = state
+        nw, nz, nn = ops.ftrl_update(weight, grad, z, n, lamda1=self.lamda1,
+                                     beta=self.beta,
+                                     **self._fused_common(hyper))
+        return nw, (nz, nn)
+
+
+@register("signum")
+class Signum(Optimizer):
+    """Signum (``signum_update``, one momentum state), or SignSGD
+    (``signsgd_update``, no state) at momentum 0."""
+
+    def __init__(self, learning_rate=0.01, momentum=0.9, wd_lh=0.0,
+                 **kwargs):
+        super().__init__(learning_rate=learning_rate, **kwargs)
+        self.momentum = momentum
+        self.wd_lh = wd_lh
+
+    def create_state(self, index, weight):
+        return None if self.momentum == 0.0 else _zeros(weight)
+
+    def _apply(self, weight, grad, state, kw):
+        if state is None:
+            return ops.signsgd_update(weight, grad, **kw), None
+        return ops.signum_update(weight, grad, state,
+                                 momentum=self.momentum, wd_lh=self.wd_lh,
+                                 **kw)
+
+    @torch.no_grad()
+    def update(self, index, weight, grad, state):
+        self._update_count(index)
+        nw, ns = self._apply(weight._data, grad._data,
+                             _state_tensors(state), self._common(index))
+        _write([weight] + ([] if state is None else [state]), (nw, ns))
+
+    _FUSED_STATIC = ("momentum", "wd_lh", "clip_gradient")
+
+    def fused_apply(self, weight, grad, state, hyper):
+        return self._apply(weight, grad, state, self._fused_common(hyper))
+
+
+@register("signsgd")
+class SignSGD(Signum):
+    """Signum at momentum 0 unless given."""
+
+    def __init__(self, **kwargs):
+        kwargs.setdefault("momentum", 0.0)
+        super().__init__(**kwargs)
+
+
+_LAMB_COEFS = ("bc1", "bc2")
+
+
+@register("lamb")
+class LAMB(Optimizer):
+    """LAMB (``lamb_update_phase1`` then ``lamb_update_phase2``): the Adam
+    direction, then a step scaled by the trust ratio ||w|| / ||direction||
+    of each tensor (so no concatenation of parameters:
+    ``_FUSED_ELEMENTWISE`` is False)."""
+
+    def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
+                 epsilon=1e-6, lower_bound=None, upper_bound=None,
+                 bias_correction=True, **kwargs):
+        super().__init__(learning_rate=learning_rate, **kwargs)
+        self.beta1, self.beta2 = beta1, beta2
+        self.epsilon = epsilon
+        self.lower_bound, self.upper_bound = lower_bound, upper_bound
+        self.bias_correction = bias_correction
+
+    def create_state(self, index, weight):
+        return _zeros(weight, 2)
+
+    def _phase2(self, weight, direction, lr):
+        return ops.lamb_update_phase2(
+            weight, direction, ops.norm(weight), ops.norm(direction), lr=lr,
+            lower_bound=self.lower_bound or -1.0,
+            upper_bound=self.upper_bound or -1.0)
+
+    @torch.no_grad()
+    def update(self, index, weight, grad, state):
+        self._update_count(index)
+        t = self._index_update_count[index]
+        mean, var = state
+        direction, nm, nv = ops.lamb_update_phase1(
+            weight._data, grad._data, mean._data, var._data,
+            beta1=self.beta1, beta2=self.beta2, epsilon=self.epsilon, t=t,
+            bias_correction=self.bias_correction, wd=self._get_wd(index),
+            rescale_grad=self.rescale_grad,
+            clip_gradient=self.clip_gradient or -1.0)
+        _write([mean, var], (nm, nv))
+        _write([weight], [self._phase2(weight._data, direction,
+                                       self._get_lr(index))])
+
+    _FUSED_STATIC = ("beta1", "beta2", "epsilon", "lower_bound",
+                     "upper_bound", "bias_correction", "clip_gradient")
+    _FUSED_T_HYPER = True
+    _FUSED_ELEMENTWISE = False
+
+    def fused_hyper(self, index, t):
+        h = super().fused_hyper(index, t)
+        if not self.bias_correction:
+            return h
+        return _t_hyper(h, _LAMB_COEFS,
+                        _opt_ops.lamb_coefs(self.beta1, self.beta2, t))
+
+    def fused_apply(self, weight, grad, state, hyper):
+        mean, var = state
+        coefs = tuple(hyper[k] for k in _LAMB_COEFS) \
+            if self.bias_correction else None
+        direction, nm, nv = _opt_ops.lamb_phase1_step(
+            weight, grad, mean, var, coefs, beta1=self.beta1,
+            beta2=self.beta2, epsilon=self.epsilon, wd=hyper["wd"],
+            rescale_grad=hyper["rescale_grad"],
+            clip_gradient=self._fused_clip())
+        return self._phase2(weight, direction, hyper["lr"]), (nm, nv)
+
+
+@register("test")
+class Test(Optimizer):
+    """The JAX package's test optimizer: w + rescale_grad * g, one fp32
+    state it never changes."""
+
+    def create_state(self, index, weight):
+        return _zeros(weight, dtype=torch.float32)
+
+    @torch.no_grad()
+    def update(self, index, weight, grad, state):
+        _write([weight], [weight._data + grad._data * self.rescale_grad])
+
+    _FUSED_STATIC = ()
+
+    def fused_apply(self, weight, grad, state, hyper):
+        return weight + grad * hyper["rescale_grad"], state
+
+
+def _state_tensors(state):
+    """An NDArray state (None, one, or a tuple) as tensors."""
+    if state is None:
+        return None
+    if isinstance(state, tuple):
+        return tuple(s._data for s in state)
+    return state._data
 
 
 class Updater:

@@ -144,33 +144,111 @@ class FunctionalOptimizer:
 
 
 def functional_optimizer(opt) -> FunctionalOptimizer:
-    """The pure update for an Optimizer instance (or name)."""
+    """The pure update for an Optimizer instance (or name): the JAX
+    package's functional forms, of SGD, NAG, Adam, RMSProp (plain and
+    centred), AdaGrad, Signum, SignSGD, AdaDelta, Adamax and Ftrl, over
+    the same update ops; any other optimizer raises, with the JAX
+    package's message."""
     if isinstance(opt, str):
         opt = opt_mod.create(opt)
     kind = type(opt).__name__
-    if kind not in ("SGD", "NAG", "Adam"):
-        raise MXNetError(f"no functional form for optimizer {kind} in this "
-                         "slice of the port; supported: SGD, NAG, Adam")
+    make = _FORMS.get(kind)
+    if make is None:
+        raise MXNetError(
+            f"no functional form for optimizer {kind}; supported: SGD, NAG, "
+            "Adam, RMSProp, AdaGrad, Signum, SignSGD, AdaDelta, Adamax, Ftrl")
     wd = float(opt.wd)
     clip = float(opt.clip_gradient) if opt.clip_gradient is not None \
         else -1.0
-    momentum = float(getattr(opt, "momentum", 0.0))
-    if kind == "Adam":
-        fo = _functional_adam(opt, wd, clip)
-    elif momentum == 0.0:
-        def update(w, g, s, lr, wd_, c, t):
-            return ops.sgd_update(w, g, lr=lr, wd=wd_, clip_gradient=c), ()
-        fo = FunctionalOptimizer(0, update, wd, clip)
-    else:
-        upd = ops.nag_mom_update if kind == "NAG" else ops.sgd_mom_update
-
-        def update(w, g, s, lr, wd_, c, t):
-            nw, nm = upd(w, g, s[0], lr=lr, momentum=momentum, wd=wd_,
-                         clip_gradient=c)
-            return nw, (nm,)
-        fo = FunctionalOptimizer(1, update, wd, clip)
+    fo = make(opt, wd, clip)
     fo.multi_precision = bool(getattr(opt, "multi_precision", False))
     return fo
+
+
+def _stateful(n_state, op, wd, clip, **statics) -> FunctionalOptimizer:
+    """The form of an update op over n_state state tensors that returns
+    (w', *state'); ``statics`` are its fixed attributes."""
+    def update(w, g, s, lr, wd_, c, t):
+        nw, *ns = op(w, g, *s, lr=lr, wd=wd_, clip_gradient=c, **statics)
+        return nw, tuple(ns)
+    return FunctionalOptimizer(n_state, update, wd, clip)
+
+
+def _stateless(op, wd, clip) -> FunctionalOptimizer:
+    def update(w, g, s, lr, wd_, c, t):
+        return op(w, g, lr=lr, wd=wd_, clip_gradient=c), ()
+    return FunctionalOptimizer(0, update, wd, clip)
+
+
+def _functional_sgd(opt, wd, clip) -> FunctionalOptimizer:
+    momentum = float(getattr(opt, "momentum", 0.0))
+    if momentum == 0.0:
+        return _stateless(ops.sgd_update, wd, clip)
+    op = ops.nag_mom_update if type(opt).__name__ == "NAG" \
+        else ops.sgd_mom_update
+    return _stateful(1, op, wd, clip, momentum=momentum)
+
+
+def _functional_rmsprop(opt, wd, clip) -> FunctionalOptimizer:
+    """Plain or centred; the JAX form passes no ``clip_weights``."""
+    g1 = float(getattr(opt, "gamma1", 0.9))
+    eps = float(getattr(opt, "epsilon", 1e-8))
+    if getattr(opt, "centered", False):
+        return _stateful(3, ops.rmspropalex_update, wd, clip, gamma1=g1,
+                         gamma2=float(getattr(opt, "gamma2", 0.9)),
+                         epsilon=eps)
+    return _stateful(1, ops.rmsprop_update, wd, clip, gamma1=g1,
+                     epsilon=eps)
+
+
+def _functional_adagrad(opt, wd, clip) -> FunctionalOptimizer:
+    return _stateful(1, ops.adagrad_update, wd, clip,
+                     epsilon=float(opt.float_stable_eps))
+
+
+def _functional_signum(opt, wd, clip) -> FunctionalOptimizer:
+    momentum = float(getattr(opt, "momentum", 0.0))
+    if momentum == 0.0:
+        return _stateless(ops.signsgd_update, wd, clip)
+    return _stateful(1, ops.signum_update, wd, clip, momentum=momentum)
+
+
+def _functional_adadelta(opt, wd, clip) -> FunctionalOptimizer:
+    return _stateful(2, ops.adadelta_update, wd, clip, rho=float(opt.rho),
+                     epsilon=float(opt.epsilon))
+
+
+def _functional_ftrl(opt, wd, clip) -> FunctionalOptimizer:
+    return _stateful(2, ops.ftrl_update, wd, clip,
+                     lamda1=float(opt.lamda1), beta=float(opt.beta))
+
+
+def _on_device_t(t, dev):
+    """The step t as an fp32 0-d tensor on ``dev``, read from the step's
+    int buffer (a host copy would be frozen into a captured step)."""
+    return (t if isinstance(t, torch.Tensor) else torch.tensor(
+        t, dtype=torch.int32, device=dev)).to(dev).float()
+
+
+def _functional_adamax(opt, wd, clip) -> FunctionalOptimizer:
+    """Adamax as the JAX form writes it: lr_t = lr / (1 - beta1^t) in fp32
+    on the device from the int step t, passed to ``adamax_update`` as its
+    lr with the op's own t left at 1, so the op divides lr_t by (1 -
+    beta1) once more, as the JAX step does."""
+    b1, b2 = float(opt.beta1), float(opt.beta2)
+    dens = {}
+
+    def update(w, g, s, lr, wd_, c, t):
+        key = (t if isinstance(t, int) else id(t), w.device)
+        if key not in dens:
+            dens[key] = 1.0 - b1 ** _on_device_t(t, w.device)
+        den = dens[key]
+        lr_t = (lr.float() if isinstance(lr, torch.Tensor) else torch.full(
+            (), float(lr), dtype=torch.float32, device=w.device)) / den
+        nw, nm, nv = ops.adamax_update(w, g, s[0], s[1], lr=lr_t, beta1=b1,
+                                       beta2=b2, wd=wd_, clip_gradient=c)
+        return nw, (nm, nv)
+    return FunctionalOptimizer(2, update, wd, clip, begin_step=dens.clear)
 
 
 def _functional_adam(opt, wd, clip) -> FunctionalOptimizer:
@@ -193,8 +271,7 @@ def _functional_adam(opt, wd, clip) -> FunctionalOptimizer:
         would be frozen into a captured step)."""
         key = (t if isinstance(t, int) else id(t), dev)
         if key not in coefs:
-            tt = (t if isinstance(t, torch.Tensor) else torch.tensor(
-                t, dtype=torch.int32, device=dev)).to(dev).float()
+            tt = _on_device_t(t, dev)
             coefs[key] = torch.sqrt(1.0 - b2 ** tt) / (1.0 - b1 ** tt)
         return coefs[key]
 
@@ -207,6 +284,13 @@ def _functional_adam(opt, wd, clip) -> FunctionalOptimizer:
         scale = coef_at(t, w.device) * lr
         return w.to(acc) + (nw - w).to(acc) * scale, (nm, nv)
     return FunctionalOptimizer(2, update, wd, clip, begin_step=coefs.clear)
+
+
+_FORMS = {"SGD": _functional_sgd, "NAG": _functional_sgd,
+          "Adam": _functional_adam, "RMSProp": _functional_rmsprop,
+          "AdaGrad": _functional_adagrad, "Signum": _functional_signum,
+          "SignSGD": _functional_signum, "AdaDelta": _functional_adadelta,
+          "Adamax": _functional_adamax, "Ftrl": _functional_ftrl}
 
 
 class SPMDTrainer:

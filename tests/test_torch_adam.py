@@ -278,9 +278,18 @@ def test_spmd_trainer_adam_three_steps_match_jax():
 
 
 def test_adam_is_registered_and_others_still_queued():
+    """Nothing is queued any more: every optimizer the JAX package
+    registers is the port's, and each functional form carries the JAX
+    form's number of states."""
     assert isinstance(topt.create("adam"), topt.Adam)
     assert isinstance(tpar.functional_optimizer("adam"),
                       tpar.FunctionalOptimizer)
     assert tpar.functional_optimizer("adam").n_state == 2
-    with pytest.raises(mt.MXNetError, match="queue A item 4"):
-        topt.create("rmsprop")
+    for name in jopt._REG.list():
+        assert type(topt.create(name)).__name__ == \
+            type(jopt.create(name)).__name__
+    for name, kw in (("rmsprop", {}), ("rmsprop", {"centered": True}),
+                     ("adagrad", {}), ("adadelta", {}), ("adamax", {}),
+                     ("ftrl", {}), ("signum", {}), ("signsgd", {})):
+        assert tpar.functional_optimizer(topt.create(name, **kw)).n_state \
+            == jpar.functional_optimizer(jopt.create(name, **kw)).n_state

@@ -141,7 +141,9 @@ def test_the_port_modules_import_no_jax():
                 "attribute.py", "gluon/parameter.py", "gluon/loss.py",
                 "gluon/nn/basic_layers.py", "gluon/nn/conv_layers.py",
                 "gluon/contrib/__init__.py", "gluon/contrib/nn.py",
-                "gluon/contrib/estimator.py", "ops/tensor.py"):
+                "gluon/contrib/estimator.py", "ops/tensor.py",
+                "ops/__init__.py", "gluon/model_zoo/bert.py",
+                "gluon/model_zoo/vision/resnet.py"):
         for name in _imports(pkg / rel):
             assert not name.startswith(("jax", "mxnet_tpu.")) \
                 and name != "mxnet_tpu", (rel, name)

@@ -315,6 +315,6 @@ def test_backward_writes_no_tensor_grad():
     with mt.autograd.record():
         y = net(mt.nd.array(X, ctx=CPU)).sum()
     y.backward()
-    assert net.weight.grad is None
+    assert net.weight._tensor.grad is None
     assert net.collect_params()["weight"].grad().asnumpy().any()
     assert torch.is_grad_enabled()  # the tensor callers' default is kept

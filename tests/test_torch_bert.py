@@ -161,7 +161,7 @@ def test_the_tie_survives_initialize_load_and_cast(jax_ref, tmp_path):
         one[name] = new
         load_numpy_params(net, one)
         p = net.state_dict(keep_vars=True)
-        assert p[tied] is p[word] is net.word_embed.weight
+        assert p[tied] is p[word] is net.word_embed.weight._tensor
         np.testing.assert_array_equal(p[word].detach().numpy(), new)
     clash = dict(values, **{tied: values[word] + 1.0})
     with pytest.raises(MXNetError, match="tied"):

@@ -126,7 +126,7 @@ def test_training_entry_equals_the_eager_forward_and_backward():
         grads[mode] = {k: p.grad().asnumpy() for k, p in
                        net.collect_params().items() if p.grad_req != "null"}
         grads[mode]["x"] = xs.grad.asnumpy()
-        grads[mode]["mean"] = net[1].running_mean.detach().numpy().copy()
+        grads[mode]["mean"] = net[1].running_mean.data().asnumpy()
     for k in grads["eager"]:
         np.testing.assert_array_equal(grads["entry"][k], grads["eager"][k])
 
@@ -417,12 +417,12 @@ def test_gradient_mirroring_with_batchnorm_aux():
                 tnn.Dense(2, in_units=8))
         net.initialize(mt.initializer.Xavier(), ctx=CPU, seed=2)
         net.hybridize(mirror=mirror)
-        before = net[1].running_mean.detach().clone()
+        before = net[1].running_mean.data()._data.detach().clone()
         with mt.autograd.record():
             loss = (net(mt.nd.array(x, ctx=CPU)) ** 2).sum()
         loss.backward()
-        res[mirror] = (net[1].running_mean.detach().clone(),
-                       net[1].running_var.detach().clone(),
+        res[mirror] = (net[1].running_mean.data()._data.detach().clone(),
+                       net[1].running_var.data()._data.detach().clone(),
                        net.collect_params()["0.weight"].grad().asnumpy())
         assert not torch.equal(before, res[mirror][0])
     assert torch.equal(res[False][0], res[True][0])

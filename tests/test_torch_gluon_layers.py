@@ -18,10 +18,19 @@ JAX package, on the CPU.
   with a deferred shape, get_constant, hybrid_forward(F, x, weight, bias,
   scale)), its code shared by both packages, gives the same outputs and
   gradients from one .params file written by the JAX package, eager and
-  hybridized; the port's own layers (which read self.weight) run beside
-  it in one net.
+  hybridized; the port's own layers (which read their tensors through
+  Block._value) run beside it in one net.
 * hybridize(static_alloc=True, static_shape=True) is accepted, as in the
   JAX package.
+* On both packages: a block's parameter attribute is a Gluon Parameter
+  (the attribute-form lines of the JAX tests: data(), grad(),
+  set_data(), list_ctx()); a second initialize() keeps the values
+  (BatchNorm's running statistics included) unless force_reinit;
+  load_parameters/save_parameters take the JAX keywords (a one-layer
+  file into a two-layer net with allow_missing, extra names skipped with
+  ignore_extra, each package reading the other's file); prefixes and
+  names under name scopes, register_child, summary, export, Parameter.var
+  and reset_ctx, Module.init_params_from_loaded.
 """
 import numpy as np
 import pytest
@@ -561,3 +570,236 @@ def test_params_get_registers_under_the_attribute_name():
     blk.initialize(ctx=CPU)
     out = blk(mt.nd.array(np.ones((2, 3), np.float32), ctx=CPU))
     np.testing.assert_array_equal(out.asnumpy(), [[2, 3, 4], [2, 3, 4]])
+
+
+# ---------------------------------------------------------------------------
+# a block's parameter attributes, initialize(force_reinit), the keywords
+# of load_parameters/save_parameters, and the rest of Block's members
+# ---------------------------------------------------------------------------
+
+def _each_pkg(fn):
+    """fn(pkg, mod, nn, ctx) for both packages: {pkg: result}."""
+    return {pkg: fn(pkg, PKG[pkg][0], PKG[pkg][1], PKG[pkg][4])
+            for pkg in ("jax", "port")}
+
+
+def test_parameter_attributes_are_gluon_parameters():
+    """The attribute-form lines of the JAX package's tests
+    (test_gluon.py:140, 414-421, 494, 548; test_parallel.py:452-453) on
+    both packages: data(), grad(), set_data(), list_ctx() and writes
+    through grad()."""
+    def run(pkg, m, nn, ctx):
+        net = nn.Dense(1, in_units=2, use_bias=False)
+        net.initialize(m.initializer.One(), ctx=ctx)
+        tr = m.gluon.Trainer(net.collect_params(), "sgd",
+                             {"learning_rate": 0.1})
+        with m.autograd.record():
+            loss = net(m.nd.ones((1, 2), ctx=ctx)).sum()
+        loss.backward()
+        grad = net.weight.grad().asnumpy().copy()
+        tr.step(1)
+        out = {"data": net.weight.data().asnumpy(), "grad": grad,
+               "ctx": [str(c) for c in net.weight.list_ctx()],
+               "req": net.weight.grad_req}
+        net.weight.grad()[:] = 5.0  # a write through the gradient buffer
+        out["written"] = net.weight.grad().asnumpy()
+        net.weight.set_data(m.nd.array([[2.0, 3.0]], ctx=ctx))
+        out["set"] = net.weight.data().asnumpy()
+        seq = nn.HybridSequential()
+        seq.add(nn.Dense(4, in_units=3), nn.BatchNorm(in_channels=4))
+        seq.initialize(ctx=ctx)
+        out["bn"] = (seq[1].running_mean.data().asnumpy(),
+                     seq[1].running_mean.grad_req, seq[0].bias.shape)
+        return out
+    res = _each_pkg(run)
+    j, t = res["jax"], res["port"]
+    np.testing.assert_allclose(j["data"], [[0.9, 0.9]], rtol=1e-6)
+    for k in ("data", "grad", "written", "set"):
+        np.testing.assert_array_equal(t[k], j[k], err_msg=k)
+    assert t["req"] == j["req"] == "write"
+    assert len(t["ctx"]) == len(j["ctx"]) == 1
+    np.testing.assert_array_equal(t["bn"][0], j["bn"][0])
+    assert t["bn"][1] == j["bn"][1] == "null"
+    assert tuple(t["bn"][2]) == tuple(j["bn"][2]) == (4,)
+    # one handle a name, the one params.get gives; the forward still
+    # reads the tensor
+    net = tnn.Dense(3, in_units=2)
+    assert net.weight is net.weight
+    assert isinstance(net.weight, mt.gluon.Parameter)
+    assert net._value("weight") is net.collect_params()["weight"]._tensor
+
+
+def test_second_initialize_keeps_the_values_unless_force_reinit():
+    def run(pkg, m, nn, ctx):
+        net = nn.HybridSequential()
+        net.add(nn.Dense(3, in_units=2), nn.BatchNorm(in_channels=3))
+        net.initialize(ctx=ctx)
+        net[0].weight.set_data(m.nd.ones((3, 2), ctx=ctx) * 7.0)
+        net[1].running_mean.set_data(m.nd.ones((3,), ctx=ctx) * 3.0)
+        net.initialize(ctx=ctx)
+        kept = (net[0].weight.data().asnumpy(),
+                net[1].running_mean.data().asnumpy())
+        net.initialize(ctx=ctx, force_reinit=True)
+        return kept + (net[0].weight.data().asnumpy(),
+                       net[1].running_mean.data().asnumpy())
+    res = _each_pkg(run)
+    for pkg, (w, rm, w2, rm2) in res.items():
+        assert (w == 7.0).all() and (rm == 3.0).all(), pkg
+        assert not (w2 == 7.0).any() and (rm2 == 0.0).all(), pkg
+
+
+def test_load_parameters_takes_the_jax_keywords(tmp_path):
+    rs = np.random.RandomState(8)
+    w = {"0.weight": rs.randn(4, 3).astype(np.float32),
+         "0.bias": rs.randn(4).astype(np.float32)}
+
+    def net_of(nn, ctx, layers):
+        net = nn.HybridSequential()
+        for _ in range(layers):
+            net.add(nn.Dense(4, in_units=3 if not len(net) else 4))
+        net.initialize(ctx=ctx)
+        return net
+
+    def run(pkg, m, nn, ctx):
+        one = net_of(nn, ctx, 1)
+        for k, p in _params(pkg, one).items():
+            p.set_data(m.nd.array(w[k], ctx=ctx))
+        f = str(tmp_path / f"{pkg}-one.params")
+        one.save_parameters(f, deduplicate=True)
+        two = net_of(nn, ctx, 2)
+        before = two[1].weight.data().asnumpy().copy()
+        with pytest.raises(Exception, match="missing"):
+            two.load_parameters(f)
+        other = str(tmp_path / f"{'port' if pkg == 'jax' else 'jax'}"
+                    "-one.params")
+        two.load_parameters(other if pkg == "port" else f, ctx=ctx,
+                            allow_missing=True, cast_dtype=True,
+                            dtype_source="saved")
+        out = {"loaded": two[0].weight.data().asnumpy(),
+               "kept": np.array_equal(two[1].weight.data().asnumpy(),
+                                      before)}
+        # a two-layer file into the one-layer net: the extra names
+        ftwo = str(tmp_path / f"{pkg}-two.params")
+        two.save_params(ftwo)
+        with pytest.raises(Exception, match="not|exist"):
+            one.load_parameters(ftwo)
+        one.load_params(ftwo, ignore_extra=True)
+        out["extra"] = one[0].bias.data().asnumpy()
+        return out
+    res = _each_pkg(run)
+    for pkg, out in res.items():
+        np.testing.assert_array_equal(out["loaded"], w["0.weight"])
+        assert out["kept"], pkg
+        np.testing.assert_array_equal(out["extra"], w["0.bias"])
+
+
+def test_names_prefixes_and_children():
+    def run(pkg, m, nn, ctx):
+        seq = nn.HybridSequential(prefix="net_")
+        with seq.name_scope():
+            seq.add(nn.Dense(4, in_units=3), nn.Dense(2, in_units=4))
+        fc = nn.Dense(3, prefix="fc_", in_units=2)
+        blk = nn.HybridSequential(prefix="blk_")
+        blk.register_child(nn.Dense(5, in_units=2), "head")
+        names = sorted(_params(pkg, blk))
+        return (seq.prefix, seq.name, [c.prefix for c in seq],
+                [c.name for c in seq], fc.prefix, fc.name, names)
+    res = _each_pkg(run)
+    assert res["port"] == res["jax"]
+    assert res["port"][2] == ["net_dense0_", "net_dense1_"]
+
+
+def test_summary_counts_each_blocks_parameters(capsys):
+    import re
+
+    def run(pkg, m, nn, ctx):
+        net = nn.HybridSequential(prefix="net_")
+        with net.name_scope():
+            net.add(nn.Dense(8, in_units=4), nn.BatchNorm(in_channels=8),
+                    nn.Dense(2, in_units=8))
+        net.initialize(ctx=ctx)
+        net.summary(m.nd.ones((1, 4), ctx=ctx))
+        return capsys.readouterr().out.splitlines()
+    res = _each_pkg(run)
+    # the JAX package counts its registered parameters, running
+    # statistics included (they are Parameters there as here)
+    assert res["port"] == res["jax"]
+    assert re.match(r"  Dense\(net_dense0\): 40 params", res["port"][1])
+
+
+def test_export_writes_what_both_packages_read_back(tmp_path):
+    import json
+
+    x = np.random.RandomState(2).randn(2, 3).astype(np.float32)
+
+    def run(pkg, m, nn, ctx):
+        net = nn.HybridSequential()
+        net.add(nn.Dense(4, in_units=3), nn.Dense(2, in_units=4))
+        net.initialize(m.initializer.Xavier(), ctx=ctx)
+        net.hybridize()
+        with pytest.raises(Exception, match="forward"):
+            net.export(str(tmp_path / f"{pkg}-early"))
+        out = net(m.nd.array(x, ctx=ctx)).asnumpy()
+        files = net.export(str(tmp_path / pkg), epoch=3)
+        return out, files, net
+    res = _each_pkg(run)
+    (tout, tfiles, tnet), (_, jfiles, jnet) = res["port"], res["jax"]
+    assert tfiles == (str(tmp_path / "port-symbol.json"),
+                      str(tmp_path / "port-0003.params"))
+    tmeta, jmeta = (json.load(open(f[0])) for f in (tfiles, jfiles))
+    assert set(tmeta) == set(jmeta) and tmeta["block"] == jmeta["block"]
+    assert sorted(map(tuple, tmeta["params"].values())) == \
+        sorted(map(tuple, jmeta["params"].values()))
+    # the port's file loads into a fresh net of either package and gives
+    # the exported net's outputs
+    for pkg in ("jax", "port"):
+        m, nn, ctx = PKG[pkg][0], PKG[pkg][1], PKG[pkg][4]
+        net = nn.HybridSequential()
+        net.add(nn.Dense(4, in_units=3), nn.Dense(2, in_units=4))
+        net.initialize(ctx=ctx)
+        net.load_parameters(tfiles[1])
+        _close(net(m.nd.array(x, ctx=ctx)).asnumpy(), tout, pkg)
+
+
+def test_parameter_var_and_reset_ctx():
+    def run(pkg, m, nn, ctx):
+        p = m.gluon.Parameter("w", shape=(2, 3))
+        p.initialize(ctx=ctx)
+        before = p.data().asnumpy()
+        p.reset_ctx(ctx)
+        net = nn.Dense(2, in_units=3)
+        net.initialize(ctx=ctx)
+        net.collect_params().reset_ctx(ctx)
+        return (p.var().tojson(), np.array_equal(p.data().asnumpy(), before),
+                [str(c) for c in p.list_ctx()],
+                [str(c) for c in net.weight.list_ctx()])
+    res = _each_pkg(run)
+    assert res["port"][0] == res["jax"][0]
+    assert res["port"][1] and res["jax"][1]
+    assert res["port"][2] == res["port"][3] == ["cpu"]
+
+
+def test_module_init_params_from_loaded(tmp_path):
+    rs = np.random.RandomState(4)
+    x = rs.randn(8, 5).astype(np.float32)
+
+    def sym_of(m):
+        data = m.sym.var("data")
+        fc = m.sym.FullyConnected(data, num_hidden=3, name="fc")
+        return m.sym.SoftmaxOutput(fc, name="softmax")
+
+    jmod = mx.mod.Module(sym_of(mx), context=mx.cpu())
+    jmod.bind(data_shapes=[("data", (8, 5))],
+              label_shapes=[("softmax_label", (8,))])
+    jmod.init_params(mx.initializer.Xavier())
+    jmod.save_checkpoint(str(tmp_path / "m"), 1)
+    args, _ = jmod.get_params()
+    for m, ctx in ((mx, mx.cpu()), (mt, CPU)):
+        mod = m.mod.Module.load(str(tmp_path / "m"), 1, context=ctx)
+        mod.bind(data_shapes=[("data", (8, 5))],
+                 label_shapes=[("softmax_label", (8,))])
+        mod.init_params_from_loaded()
+        got, _ = mod.get_params()
+        for k, v in args.items():
+            np.testing.assert_array_equal(got[k].asnumpy(), v.asnumpy())
+        assert mod.params_initialized

@@ -360,15 +360,31 @@ def test_unported_options_raise():
     net = tnn.Dense(2, in_units=3)
     net.initialize(ctx=CPU)
     ps = net.collect_params()
-    for kw, what in [({"spmd": True}, "item 4"),
+    for kw, what in [({"spmd": True}, "item 7"),
                      ({"compression_params": {"type": "2bit"}}, "item 7"),
                      ({"update_on_kvstore": True}, "item 7"),
                      ({"kvstore": "dist_sync"}, "item 7")]:
         with pytest.raises(MXNetError, match=what):
             tr = mt.gluon.Trainer(ps, "sgd", **kw)
             tr.step(1)
-    with pytest.raises(MXNetError, match="queue A item 4"):
-        mt.gluon.Trainer(ps, "rmsprop")
+    # rmsprop, queued before, takes one step as the JAX Trainer does
+    jnet = jnn.Dense(2, in_units=3)
+    jnet.initialize(ctx=mx.cpu())
+    x = np.random.RandomState(5).randn(4, 3).astype(np.float32)
+    for k, p in jnet._collect_params_with_prefix().items():
+        p.set_data(mx.nd.array(ps[k].data().asnumpy()))
+    for pkg, n, arr in ((mt, net, mt.nd.array(x, ctx=CPU)),
+                        (mx, jnet, mx.nd.array(x))):
+        tr = pkg.gluon.Trainer(n.collect_params(), "rmsprop",
+                               {"learning_rate": 0.01, "centered": True})
+        with pkg.autograd.record():
+            loss = (n(arr) ** 2).sum()
+        loss.backward()
+        tr.step(4)
+    assert isinstance(tr.optimizer, mx.optimizer.optimizer.RMSProp)
+    np.testing.assert_allclose(net.weight.data().asnumpy(),
+                               jnet.weight.data().asnumpy(), rtol=1e-6,
+                               atol=1e-7)
     with pytest.raises(MXNetError, match="queue A item 7"):
         net.initialize(ctx=[CPU, CPU])
 

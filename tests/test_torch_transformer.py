@@ -134,11 +134,12 @@ def test_structure_names_and_the_three_way_tie(jax_ref):
     assert [n for n in TIE if n in tr._trainable] == ["tied_weight"]
     # initialize refills the table; cast carries it, as the JAX Constant
     net.initialize(mt.init.Xavier(), ctx=mt.cpu(), seed=4)
-    np.testing.assert_array_equal(net.pos_table.numpy(), values["pos_table"])
+    np.testing.assert_array_equal(net.pos_table.data().asnumpy(),
+                                  values["pos_table"])
     net.cast("bfloat16")
-    assert net.pos_table.dtype == torch.bfloat16
-    assert net.src_embed.weight is net.tied_weight
-    assert net.tied_weight.dtype == torch.bfloat16
+    assert net.pos_table.data()._data.dtype == torch.bfloat16
+    assert net.src_embed.weight._tensor is net.tied_weight._tensor
+    assert net.tied_weight._tensor.dtype == torch.bfloat16
     with pytest.raises(MXNetError, match="share_embed"):
         ttr.Transformer(100, 200)
 
