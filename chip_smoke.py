@@ -342,6 +342,35 @@ Phases, each failing loudly (exit code 1, no result line):
    phase 5's hold of 3 captured steps against 3 eager ones, bit for bit,
    52 + 46 kernel launches a step; ms a step beside phase 5's SGD step.
    The phase's seconds and the whole script's are printed.
+14. MXNet's imperative op surface (ROADMAP queue A item 3(a)-(e)), with
+   TF32 off: (a) every registered op name (333) on the card against the
+   same call on CPU tensors, on mxnet_tpu_torch.tools.op_sweep's seeded
+   inputs, forward and (differentiable ops) the gradient under a seeded
+   cotangent: index, selection and data-movement ops the same bits; the
+   elementwise ops within 16 ulps of the CPU's (the ulp taken at no less
+   than 2^-10 of the output's largest magnitude); sums, products,
+   normalisations and series (lgamma, digamma) within 2^-24 * n * S plus
+   a rounding (S the terms' magnitudes, or the output's largest); the
+   kernel ops, the update ops, MultiBox* and Dropout named as held by
+   phases 3, 9-13; the draws held by (c).  One line of counts per class
+   and the worst error of each.  (b) take of a 30522x768 table by 32x128
+   ids, one_hot of 32x128 at depth 30522, batch_dot 384x128x64 by
+   384x64x128, dot 4096x768 by 768x3072 (fp32), SequenceMask over
+   128x32x768, split of a 4096x4096 block into 4 (views) and
+   nd.random.normal of ResNet-50 v1's 25,557,032 values: ms by CUDA
+   events beside the larger of bytes / 3.35 TB/s and FLOPs / 67
+   TFLOP/s, each held against its CPU result (the draw by its moments),
+   beside the card's name and power limit.  (c) every _random_* and
+   _sample_* distribution, 2^22 draws on the card from its generator:
+   mean and variance within 6 standard errors of the analytic values
+   (the variance's from the fourth moment); one seed gives the same bits
+   twice; _shuffle is a permutation; _sample_multinomial's get_prob is
+   the log of the chosen probability; a CUDA graph around
+   nd.random.normal with the generator registered replays, K = 3 times,
+   the bits of 3 eager draws from the same state.  (d) a sigmoid written
+   with autograd.Function, recorded on the card: its gradient within 1
+   ulp of the built-in sigmoid's and within 2^-22 |dy| + 4 ulps of the
+   CPU's (the two sigmoids may put y two ulps apart near 1).
 
 The compiled paths (mxnet_tpu_torch._graphs): every SPMDTrainer step on one
 device, every hybridized forward in inference and under record() (a
@@ -532,6 +561,38 @@ KERNEL_DP = dict(KERNEL, name="fused_conv_unit/dp",
                  replaces="mxnet_tpu/ops/pallas_convbn.py:618")
 KERNEL_BWD_DP = dict(KERNEL_BWD, name="fused_conv_unit_bwd/dp",
                      replaces="mxnet_tpu/ops/pallas_convbn.py:406")
+
+# phase 14: the op surface; (c)'s distributions: attrs (the parameter
+# rows of a _sample_* op under "params") and each row's analytic mean and
+# variance
+RESNET50_V1_PARAMS = 25557032
+RANDOM_DRAWS = 1 << 22
+RANDOM_DISTRIBUTIONS = {
+    "_random_uniform": ({"low": -1.0, "high": 3.0}, [(1.0, 16 / 12)]),
+    "_random_normal": ({"loc": 0.5, "scale": 2.0}, [(0.5, 4.0)]),
+    "_random_randint": ({"low": -3, "high": 7}, [(1.5, 8.25)]),
+    "_random_gamma": ({"alpha": 2.5, "beta": 0.7}, [(1.75, 1.225)]),
+    "_random_exponential": ({"lam": 2.0}, [(0.5, 0.25)]),
+    "_random_poisson": ({"lam": 3.5}, [(3.5, 3.5)]),
+    "_random_bernoulli": ({"p": 0.3}, [(0.3, 0.21)]),
+    "_random_gumbel": ({"loc": 0.5, "scale": 2.0},
+                       [(0.5 + 2 * 0.5772156649015329, math.pi ** 2 / 1.5)]),
+    "_random_laplace": ({"loc": -0.5, "scale": 1.5}, [(-0.5, 4.5)]),
+    "_random_negative_binomial": ({"k": 3, "p": 0.4}, [(4.5, 11.25)]),
+    "_sample_uniform": ({"params": [[-1.0, 2.0], [3.0, 2.5]]},
+                        [(1.0, 16 / 12), (2.25, 0.25 / 12)]),
+    "_sample_normal": ({"params": [[0.0, -3.0], [1.0, 0.5]]},
+                       [(0.0, 1.0), (-3.0, 0.25)]),
+    "_sample_gamma": ({"params": [[1.5, 4.0], [2.0, 0.5]]},
+                      [(3.0, 6.0), (2.0, 1.0)]),
+    "_sample_exponential": ({"params": [[0.5, 4.0]]},
+                            [(2.0, 4.0), (0.25, 0.0625)]),
+    "_sample_poisson": ({"params": [[1.5, 9.0]]}, [(1.5, 1.5), (9.0, 9.0)]),
+    "_sample_negative_binomial": ({"params": [[2.0, 5.0], [0.5, 0.25]]},
+                                  [(2.0, 4.0), (15.0, 60.0)]),
+    "_sample_generalized_negative_binomial": (
+        {"params": [[2.0, 4.0], [0.5, 0.25]]}, [(2.0, 4.0), (4.0, 8.0)]),
+}
 
 FAILURES = []
 T_START = time.perf_counter()
@@ -5381,6 +5442,332 @@ def phase_optimizers(card, train_res, gluon_res):
     return res
 
 
+# ---------------------------------------------------------------------------
+# phase 14: MXNet's imperative op surface on the card
+# ---------------------------------------------------------------------------
+
+def ops_sweep(dev):
+    """(a) every registered op name on the card against the CPU
+    (op_sweep.CASES's seeded inputs): forward and gradient, held by
+    class; one line of counts per class and the worst error of each."""
+    from mxnet_tpu_torch.ops.registry import list_ops
+    from mxnet_tpu_torch.tools import op_sweep
+
+    t0 = time.perf_counter()
+    results = op_sweep.sweep(dev)
+    counts, worst = op_sweep.summary(results)
+    for name, r in sorted(results.items()):
+        if not r["ok"]:
+            fail(f"ops sweep: {name} ({r['kind']}) does not hold on the "
+                 f"card: {r}")
+    where = {}
+    for name, check in op_sweep.ELSEWHERE.items():
+        where.setdefault(check, []).append(name)
+    print(f"ops sweep: {len(results)} op names of {len(list_ops())} "
+          f"registered: held {counts['held']}, failed {counts['failed']}; "
+          f"exact {counts['exact']}, bounded "
+          f"{counts['ulp'] + counts['sum']} (elementwise {counts['ulp']}, "
+          f"sums and products {counts['sum']}), named as held elsewhere "
+          f"{counts['elsewhere']}, random draws held by (c) "
+          f"{counts['random']} ({time.perf_counter() - t0:.1f} s)",
+          flush=True)
+    print(f"ops sweep: worst elementwise {worst['ulp'][0]:.1f} ulps "
+          f"({worst['ulp'][1]}; bound {op_sweep.ULP_BOUND}); worst sum "
+          f"{worst['sum'][0]:.3f} of its bound 2^-24*n*S ({worst['sum'][1]})",
+          flush=True)
+    for check, names in where.items():
+        print(f"ops sweep: held by {check}: {len(names)} names "
+              f"({', '.join(sorted(names)[:6])}"
+              f"{', ...' if len(names) > 6 else ''})", flush=True)
+    return {"counts": counts, "worst": worst}
+
+
+def _model_shape(tag, fn, cpu_fn, nbytes, flops, card, hold, iters=20):
+    """One op at a model's shape: CUDA-event time over `iters` calls,
+    beside the larger of bytes / 3.35 TB/s and flops / the fp32 peak,
+    held against the same op on the CPU by `hold(card_out, cpu_out)`."""
+    ms = time_ms(fn, iters=iters, warmup=3)
+    out = fn()
+    torch.cuda.synchronize()
+    ok, what = hold(out, cpu_fn())
+    if not ok:
+        fail(f"ops shape: {tag}: {what}")
+    b_ms, f_ms = nbytes / PEAK_BYTES * 1e3, flops / PEAK_FP32 * 1e3
+    bound = max(b_ms, f_ms)
+    by = "bytes" if b_ms >= f_ms else "operations"
+    print(f"ops shape: {tag}: {ms:.4f} ms, bound {bound:.4f} ms by {by} "
+          f"({nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP); {what} "
+          f"[{card}]", flush=True)
+    return dict(ms=ms, bound_ms=bound, bound_by=by, ok=ok)
+
+
+def _same_bits(a, b):
+    ok = torch.equal(a.cpu(), b)
+    return ok, "same bits as the cpu" if ok else "differs from the cpu"
+
+
+def ops_model_shapes(dev, card):
+    """(b) the ops at BERT-base's and ResNet-50's shapes."""
+    from mxnet_tpu_torch import nd
+    from mxnet_tpu_torch.ops import tensor
+
+    gen = torch.Generator().manual_seed(1401)
+    res = {}
+    table = torch.randn(BERT_VOCAB, BERT_UNITS, generator=gen)
+    ids = torch.randint(0, BERT_VOCAB, (BATCH, BERT_SEQ),
+                        generator=gen).float()
+    t_d, i_d = table.to(dev), ids.to(dev)
+    rows = BATCH * BERT_SEQ
+    res["take"] = _model_shape(
+        f"take {BERT_VOCAB}x{BERT_UNITS} by {BATCH}x{BERT_SEQ}",
+        lambda: tensor.take(t_d, i_d), lambda: tensor.take(table, ids),
+        4 * (rows + 2 * rows * BERT_UNITS), 0, card, _same_bits)
+    res["one_hot"] = _model_shape(
+        f"one_hot {BATCH}x{BERT_SEQ} at depth {BERT_VOCAB}",
+        lambda: tensor.one_hot(i_d, depth=BERT_VOCAB),
+        lambda: tensor.one_hot(ids, depth=BERT_VOCAB),
+        4 * (rows + rows * BERT_VOCAB), 0, card, _same_bits, iters=5)
+    bh, s, d = BATCH * BERT_HEADS, BERT_SEQ, BERT_UNITS // BERT_HEADS
+    a = torch.randn(bh, s, d, generator=gen)
+    b = torch.randn(bh, d, s, generator=gen)
+    a_d, b_d = a.to(dev), b.to(dev)
+
+    def held_sum(fn_abs, n):
+        def hold(out, want):
+            s_terms = fn_abs().double()
+            err = (out.double() - want.double().to(dev)).abs()
+            bound = 2.0 ** -24 * (n * s_terms + want.double().to(dev).abs())
+            r = float((err / bound).max())
+            return r <= 1.0, f"{r:.3f} of the bound 2^-24*{n}*S vs the cpu"
+        return hold
+
+    res["batch_dot"] = _model_shape(
+        f"batch_dot {bh}x{s}x{d} by {bh}x{d}x{s} fp32",
+        lambda: tensor.batch_dot(a_d, b_d), lambda: tensor.batch_dot(a, b),
+        4 * (2 * bh * s * d + bh * s * s), 2 * bh * s * s * d, card,
+        held_sum(lambda: tensor.batch_dot(a_d.abs().double(),
+                                          b_d.abs().double()), d))
+    m, k, n = BATCH * BERT_SEQ, BERT_UNITS, 4 * BERT_UNITS
+    x = torch.randn(m, k, generator=gen)
+    w = torch.randn(k, n, generator=gen)
+    x_d, w_d = x.to(dev), w.to(dev)
+    res["dot"] = _model_shape(
+        f"dot {m}x{k} by {k}x{n} fp32",
+        lambda: tensor.dot(x_d, w_d), lambda: tensor.dot(x, w),
+        4 * (m * k + k * n + m * n), 2 * m * k * n, card,
+        held_sum(lambda: tensor.dot(x_d.abs().double(), w_d.abs().double()),
+                 k), iters=10)
+    seq = torch.randn(BERT_SEQ, BATCH, BERT_UNITS, generator=gen)
+    lens = torch.randint(1, BERT_SEQ + 1, (BATCH,), generator=gen).float()
+    seq_d, lens_d = seq.to(dev), lens.to(dev)
+    res["SequenceMask"] = _model_shape(
+        f"SequenceMask over {BERT_SEQ}x{BATCH}x{BERT_UNITS}",
+        lambda: tensor.sequence_mask(seq_d, lens_d, use_sequence_length=True),
+        lambda: tensor.sequence_mask(seq, lens, use_sequence_length=True),
+        4 * (2 * seq.numel() + BATCH), 0, card, _same_bits)
+    gates = torch.randn(4096, 4096, generator=gen)
+    g_d = gates.to(dev)
+
+    def hold_split(out, want):
+        ok = all(torch.equal(p.cpu(), q) for p, q in zip(out, want))
+        views = all(p.data_ptr() - g_d.data_ptr() == i * 1024 * 4
+                    for i, p in enumerate(out))
+        return ok and views, (f"same bits as the cpu {ok}; four views of "
+                              f"the block, no copy {views}")
+
+    res["split"] = _model_shape(
+        "split of a 4096x4096 gate block into 4 along axis 1",
+        lambda: tensor.split(g_d, num_outputs=4, axis=1),
+        lambda: tensor.split(gates, num_outputs=4, axis=1), 0, 0, card,
+        hold_split)
+    count = RESNET50_V1_PARAMS
+
+    def hold_normal(out, _):
+        v = out._data.double()
+        mean, var = float(v.mean()), float(v.var())
+        se_m, se_v = math.sqrt(1 / count), math.sqrt(2 / count)
+        ok = abs(mean) <= 6 * se_m and abs(var - 1) <= 6 * se_v \
+            and out.ctx == dev and out.shape == (count,)
+        return ok, (f"on {out.ctx}, mean {mean:.2e} var {var:.6f} within "
+                    f"6 standard errors of N(0, 1) {ok}")
+
+    res["random.normal"] = _model_shape(
+        f"nd.random.normal of {count} values (ResNet-50 v1's parameters)",
+        lambda: nd.random.normal(shape=(count,), ctx=dev), lambda: None,
+        4 * count, 0, card, hold_normal)
+    return res
+
+
+def _moments(x):
+    v = x.double().reshape(-1)
+    m = v.mean()
+    c = v - m
+    var = (c * c).mean()
+    m4 = (c ** 4).mean()
+    return float(m), float(var), float(m4), v.numel()
+
+
+def ops_random(dev, card):
+    """(c) every _random_* and _sample_* distribution on the card: 2^22
+    draws, mean and variance within 6 standard errors of the analytic
+    values; one seed, the same bits twice; _shuffle a permutation;
+    _sample_multinomial's get_prob the log of the chosen probability; a
+    CUDA graph around nd.random.normal replayed K times against K eager
+    draws from the same generator state."""
+    from mxnet_tpu_torch import nd
+    from mxnet_tpu_torch import random as mrandom
+    from mxnet_tpu_torch.ops.registry import invoke
+
+    g = mrandom.generator(dev)
+    n = RANDOM_DRAWS
+    worst, checked = 0.0, 0
+    for name, (attrs, rows) in RANDOM_DISTRIBUTIONS.items():
+        params = [nd.array(p, ctx=dev) for p in attrs.get("params", [])]
+        kw = {k: v for k, v in attrs.items() if k != "params"}
+        shape = (n // len(rows),) if params else (n,)
+        g.manual_seed(1402)
+        out = invoke(name, g, *params, shape=shape, **kw)._data
+        g.manual_seed(1402)
+        again = invoke(name, g, *params, shape=shape, **kw)._data
+        if not torch.equal(out, again):
+            fail(f"ops random: {name}: one seed gave two draws")
+        if out.device != dev:
+            fail(f"ops random: {name} drew on {out.device}")
+        for r, (mean, var) in enumerate(rows):
+            m, v, m4, cnt = _moments(out[r] if params else out)
+            zm = abs(m - mean) / math.sqrt(var / cnt)
+            zv = abs(v - var) / math.sqrt(max(m4 - v * v, 1e-300) / cnt)
+            worst = max(worst, zm, zv)
+            checked += 1
+            if zm > 6 or zv > 6:
+                fail(f"ops random: {name} row {r}: mean {m} var {v} against "
+                     f"{mean} {var} ({zm:.1f}, {zv:.1f} standard errors)")
+    perm = invoke("_shuffle", g, nd.arange(1 << 20, ctx=dev))._data
+    is_perm = torch.equal(perm.sort().values,
+                          torch.arange(1 << 20, device=dev,
+                                       dtype=perm.dtype))
+    if not is_perm:
+        fail("ops random: _shuffle is not a permutation")
+    probs = torch.rand(8, 50, device=dev, generator=g) + 0.01
+    draw, logp = invoke("_sample_multinomial", g, nd.NDArray(probs),
+                        shape=(4096,), get_prob=True)
+    want = (probs / probs.sum(-1, keepdim=True)).log().gather(
+        -1, draw._data.long())
+    lp_err = float((logp._data - want).abs().max())
+    if lp_err > 1e-5:
+        fail(f"ops random: get_prob differs from the log probability by "
+             f"{lp_err}")
+    replay = ops_random_graph(dev)
+    print(f"ops random: {len(RANDOM_DISTRIBUTIONS)} distributions, "
+          f"{checked} rows of {n} draws on the card, worst {worst:.2f} "
+          f"standard errors (bound 6); each seed's draws bit-identical twice; "
+          f"_shuffle of 2^20 a permutation {is_perm}; multinomial get_prob "
+          f"within {lp_err:.1e} of log p; graph replay {replay} [{card}]",
+          flush=True)
+    return dict(worst_se=worst, rows=checked, permutation=is_perm,
+                get_prob_err=lp_err, graph=replay)
+
+
+def ops_random_graph(dev, k=CAPTURE_K, count=1 << 20):
+    """nd.random.normal captured in a CUDA graph with the port's
+    generator registered: K replays from one generator state give the
+    bits of K eager draws from it, and no two replays repeat."""
+    from mxnet_tpu_torch import nd
+    from mxnet_tpu_torch import random as mrandom
+
+    g = mrandom.generator(dev)
+    g.manual_seed(1403)
+    graph = torch.cuda.CUDAGraph()
+    mrandom.register_graph(graph, g)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        nd.random.normal(shape=(count,), ctx=dev)
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    with torch.cuda.graph(graph):
+        static = nd.random.normal(shape=(count,), ctx=dev)._data
+    s0 = g.get_state()
+    replays = []
+    for _ in range(k):
+        graph.replay()
+        replays.append(static.clone())
+    g.set_state(s0)
+    eager = [nd.random.normal(shape=(count,), ctx=dev)._data
+             for _ in range(k)]
+    torch.cuda.synchronize()
+    same = all(torch.equal(a, b) for a, b in zip(replays, eager))
+    differ = not any(torch.equal(replays[i], replays[i + 1])
+                     for i in range(k - 1))
+    if not (same and differ):
+        fail(f"ops random: {k} graph replays of nd.random.normal: the eager "
+             f"draws' bits {same}, each replay new {differ}")
+    del graph
+    return f"{k} replays = {k} eager draws {same}, each new {differ}"
+
+
+def ops_function(dev, card):
+    """(d) a custom sigmoid written with autograd.Function, recorded on
+    the card: its gradient against the built-in sigmoid's on the card (1
+    ulp) and against the CPU's, within 2^-22·|dy| + 4 ulps: the card's
+    and the CPU's sigmoid are each within an ulp of the truth, so their
+    y may lie two ulps (2^-23 near 1) apart, which moves dy·(1 - y)·y by
+    up to dy·2^-23; the bound is twice that."""
+    import numpy as np
+
+    from mxnet_tpu_torch import autograd, nd
+    from mxnet_tpu_torch.tools import op_sweep
+
+    class Sigmoid(autograd.Function):
+        def forward(self, x):
+            y = x.sigmoid()
+            self.save_for_backward(y)
+            return y
+
+        def backward(self, dy):
+            (y,) = self.saved_tensors
+            return dy * (1 - y) * y
+
+    gen = torch.Generator().manual_seed(1404)
+    x0 = torch.randn(1 << 16, generator=gen) * 4
+    ct = torch.randn(1 << 16, generator=gen)
+
+    def grad(device, custom):
+        x = nd.NDArray(x0.to(device))
+        x.attach_grad()
+        with autograd.record():
+            y = Sigmoid()(x) if custom else x.sigmoid()
+        y.backward(nd.NDArray(ct.to(device)))
+        return x.grad._data.cpu().numpy()
+
+    card_g, cpu_g, builtin_g = grad(dev, True), grad("cpu", True), \
+        grad(dev, False)
+    bound = 2.0 ** -22 * ct.abs().numpy() + 4 * np.spacing(np.abs(cpu_g))
+    r_cpu = float((np.abs(card_g - cpu_g) / bound).max())
+    u_builtin = op_sweep.ulps(card_g, builtin_g)
+    if r_cpu > 1 or u_builtin > 1:
+        fail(f"ops function: the custom sigmoid's gradient is {r_cpu:.3f} "
+             f"of its bound from the cpu's and {u_builtin} ulps from the "
+             f"built-in's")
+    print(f"ops function: custom sigmoid (autograd.Function) recorded on "
+          f"the card, gradient {r_cpu:.3f} of 2^-22*|dy| + 4 ulps from the "
+          f"cpu's, {u_builtin:.1f} ulps from the built-in sigmoid's (bound "
+          f"1) [{card}]", flush=True)
+    return dict(bound_share_cpu=r_cpu, ulps_builtin=u_builtin)
+
+
+def phase_ops(card):
+    """Phase 14: the op surface on the card ((a) to (d))."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    t0 = time.perf_counter()
+    res = dict(sweep=ops_sweep(dev), shapes=ops_model_shapes(dev, card),
+               random=ops_random(dev, card), function=ops_function(dev, card))
+    print(f"ops: phase 14 took {time.perf_counter() - t0:.1f} s", flush=True)
+    return res
+
+
 def attention_path_summary(kernel, path, rows, launches, batch):
     """The `kernels` record of kernel 5 on one phase-9 path: each check
     record in `rows` (record, launches) weighted by its launches in one
@@ -5457,6 +5844,7 @@ def main():
     _, sym_kernels = phase_symbolic(card, recs_att)
     gluon_res = phase_gluon(card)
     opt_res = phase_optimizers(card, train_res, gluon_res)
+    phase_ops(card)
     dec_steps = tf_res["decode"]["steps"]
     dp_keys = dict(backend=dp_res.get("backend"), ranks=DP)
     # kernel 1 once for each main path (its shapes and launches), kernel 2

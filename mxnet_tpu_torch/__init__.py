@@ -18,7 +18,9 @@ MXNet's imperative surface: ``nd`` (NDArray and the op registry),
 ``gluon.data`` (see ``examples/mnist.py``); slice 13 adds MXNet's
 symbolic half: ``sym`` (Symbol and its executor), ``mod`` (Module),
 ``io``, ``lr_scheduler``, ``callback``, ``model`` and
-``gluon.SymbolBlock``.
+``gluon.SymbolBlock``; slice 17 adds MXNet's imperative op surface: the
+rest of the tensor, unary and nn ops, the NDArray methods, ``nd.random``
+and ``mx.random``'s samplers, and ``autograd.Function``.
 """
 from __future__ import annotations
 
@@ -39,10 +41,11 @@ from . import symbol as sym
 from . import module
 from . import module as mod
 from .attribute import AttrScope
+from .ndarray import waitall
 
 __all__ = ["MXNetError", "cpu", "gpu", "tpu", "num_gpus", "current_context",
            "initializer", "init", "ops", "serialization", "parallel", "dist",
            "autograd", "kvstore", "metric", "ndarray", "nd", "NDArray",
            "optimizer", "random", "gluon", "attribute", "AttrScope",
            "callback", "io", "lr_scheduler", "model", "name", "symbol",
-           "sym", "module", "mod"]
+           "sym", "module", "mod", "waitall"]

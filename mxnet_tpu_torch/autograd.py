@@ -17,6 +17,10 @@ package's rule (``_accumulate_leaf``): ``'write'`` overwrites,
 ``'add'`` accumulates across passes, ``'null'`` is left alone.  Within
 one pass the paths to a leaf are summed, as ``torch.autograd.grad``
 sums them.  Nothing relies on ``tensor.grad``.
+
+:class:`Function` is MXNet's custom differentiable function: its
+``forward`` and ``backward`` on NDArrays become one
+``torch.autograd.Function`` node of the graph.
 """
 from __future__ import annotations
 
@@ -30,7 +34,7 @@ from .base import MXNetError
 
 __all__ = ["record", "pause", "train_mode", "predict_mode", "is_recording",
            "is_training", "mark_variables", "backward", "grad",
-           "grad_req_of", "grad_buffer"]
+           "grad_req_of", "grad_buffer", "get_symbol", "Function"]
 
 _REQS = ("write", "add", "null")
 
@@ -240,3 +244,75 @@ def grad(heads, variables, head_grads=None, retain_graph=None,
         for h in heads:
             h._data = h._data.detach()
     return [NDArray(g) for g in out]
+
+
+def get_symbol(x):
+    raise MXNetError("autograd.get_symbol: use HybridBlock tracing instead "
+                     "(the port records no symbolic tape)")
+
+
+class _FunctionNode(torch.autograd.Function):
+    """A user :class:`Function` as one node of PyTorch's graph."""
+
+    @staticmethod
+    def forward(ctx, fn, *tensors):
+        from .ndarray.ndarray import NDArray
+
+        with pause():
+            outs = fn.forward(*[NDArray(t) for t in tensors])
+        ctx.fn = fn
+        single = not isinstance(outs, (list, tuple))
+        fn._single = single
+        return tuple(o._data for o in ((outs,) if single else outs))
+
+    @staticmethod
+    def backward(ctx, *cts):
+        from .ndarray.ndarray import NDArray
+
+        with pause():
+            gs = ctx.fn.backward(*[NDArray(c) for c in cts])
+        if not isinstance(gs, (list, tuple)):
+            gs = (gs,)
+        return (None,) + tuple(
+            g._data if g is not None and need else None
+            for g, need in zip(gs, ctx.needs_input_grad[1:]))
+
+
+class Function:
+    """A differentiable function with a hand-written backward (MXNet's
+    ``autograd.Function``).  Subclass it, write ``forward(self,
+    *inputs)`` and ``backward(self, *output_grads)`` on NDArrays (the
+    forward may ``save_for_backward``), and call an instance on NDArrays.
+
+    The forward runs outside recording.  Under ``record()`` the call is
+    one node of the graph: ``backward`` and ``grad`` reach the inputs
+    through the user's ``backward``, which runs outside recording too
+    and gets zeros for an output that received no gradient."""
+
+    def __init__(self):
+        self._saved = ()
+        self._single = True
+
+    def save_for_backward(self, *args):
+        self._saved = args
+
+    @property
+    def saved_tensors(self):
+        return self._saved
+
+    def forward(self, *inputs):
+        raise NotImplementedError
+
+    def backward(self, *output_grads):
+        raise NotImplementedError
+
+    def __call__(self, *inputs):
+        from .ndarray.ndarray import NDArray
+
+        if not is_recording():
+            with pause():
+                return self.forward(*inputs)
+        outs = _FunctionNode.apply(self, *[x._data for x in inputs])
+        if self._single:
+            return NDArray(outs[0])
+        return [NDArray(o) for o in outs]

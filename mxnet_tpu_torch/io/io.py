@@ -423,8 +423,8 @@ class ImageRecordIter(DataIter):
 
 class LibSVMIter(DataIter):
     """Not ported: its CSR batches need the sparse NDArray, ROADMAP queue
-    A item 3."""
+    A item 3(f)."""
 
     def __init__(self, *args, **kwargs):
         raise MXNetError("LibSVMIter is not ported: its CSR batches need "
-                         "ndarray/sparse.py, ROADMAP queue A item 3")
+                         "ndarray/sparse.py, ROADMAP queue A item 3(f)")

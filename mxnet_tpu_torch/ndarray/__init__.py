@@ -3,31 +3,59 @@ the op namespace generated from the registry (counterpart of
 ``mxnet_tpu/ndarray/__init__.py``)."""
 from __future__ import annotations
 
+import numpy as _np
 import torch as _torch
 
 from .ndarray import (NDArray, arange, array, concatenate, empty, full,
-                      ones, wrap_outputs, zeros)
+                      ones, stack, wrap_outputs, zeros)
+from . import random
 from . import register as _register
 
 __all__ = ["NDArray", "array", "zeros", "ones", "full", "empty", "arange",
-           "concatenate", "waitall", "save", "load", "maximum", "minimum"]
+           "concatenate", "stack", "random", "waitall", "save", "load",
+           "maximum", "minimum", "power", "modulo", "logical_and",
+           "logical_or", "logical_xor", "linspace"]
 
 
-def _elemwise_or_scalar(broadcast_op, scalar_op):
-    """A commutative binary of two NDArrays (broadcast) or of an NDArray
-    and a number (the ``*_scalar`` op), as the JAX package's ``nd``
-    module-level function of that name."""
+def _scalar_or_elemwise(broadcast_op, scalar_op, rscalar_op=None):
+    """A binary of two NDArrays (the broadcast op), of an NDArray and a
+    number (the ``*_scalar`` op; ``rscalar_op``, the reversed one, for a
+    number on the left of a function that does not commute), or of two
+    numbers (a one-element array on the default device), as the JAX
+    package's ``nd`` functions of that name dispatch."""
     def fn(lhs, rhs):
-        if isinstance(lhs, NDArray) and isinstance(rhs, NDArray):
+        l_nd, r_nd = isinstance(lhs, NDArray), isinstance(rhs, NDArray)
+        if l_nd and r_nd:
             return _register.lookup(broadcast_op)(lhs, rhs)
-        if not isinstance(lhs, NDArray):
-            lhs, rhs = rhs, lhs
-        return _register.lookup(scalar_op)(lhs, scalar=float(rhs))
+        if l_nd:
+            return _register.lookup(scalar_op)(lhs, scalar=float(rhs))
+        if r_nd:
+            return _register.lookup(rscalar_op or scalar_op)(
+                rhs, scalar=float(lhs))
+        return _register.lookup(scalar_op)(
+            array(_np.asarray([lhs], _np.float32)), scalar=float(rhs))
     return fn
 
 
-maximum = _elemwise_or_scalar("broadcast_maximum", "_maximum_scalar")
-minimum = _elemwise_or_scalar("broadcast_minimum", "_minimum_scalar")
+maximum = _scalar_or_elemwise("broadcast_maximum", "_maximum_scalar")
+minimum = _scalar_or_elemwise("broadcast_minimum", "_minimum_scalar")
+power = _scalar_or_elemwise("broadcast_power", "_power_scalar",
+                            "_rpower_scalar")
+modulo = _scalar_or_elemwise("broadcast_mod", "_mod_scalar", "_rmod_scalar")
+logical_and = _scalar_or_elemwise("broadcast_logical_and",
+                                  "_logical_and_scalar")
+logical_or = _scalar_or_elemwise("broadcast_logical_or",
+                                 "_logical_or_scalar")
+logical_xor = _scalar_or_elemwise("broadcast_logical_xor",
+                                  "_logical_xor_scalar")
+
+
+def linspace(start, stop, num, endpoint=True, ctx=None, dtype=None):
+    """``num`` evenly spaced values from start to stop (numpy's, in
+    float64, then cast to ``dtype``, float32 by default), on ``ctx``."""
+    a = _np.linspace(float(start), float(stop), int(num),
+                     endpoint=bool(endpoint)).astype(dtype or "float32")
+    return array(a, ctx=ctx)
 
 
 def waitall():

@@ -32,7 +32,7 @@ from ..base import MXNetError, dtype_of, integer_types, np_dtype, \
 from ..context import cpu, resolve
 
 __all__ = ["NDArray", "wrap_outputs", "array", "zeros", "ones", "full",
-           "empty", "arange", "to_numpy"]
+           "empty", "arange", "concatenate", "stack", "to_numpy"]
 
 
 def to_numpy(t: torch.Tensor) -> np.ndarray:
@@ -116,6 +116,23 @@ class NDArray:
     @property
     def stype(self) -> str:
         return "default"
+
+    def tostype(self, stype: str) -> "NDArray":
+        """The array itself for ``'default'``; the sparse storage types
+        wait for ``ndarray/sparse.py`` (ROADMAP queue A item 3(f))."""
+        if stype == "default":
+            return self
+        raise MXNetError(f"tostype({stype!r}): sparse storage is not "
+                         "ported yet, ROADMAP queue A item 3(f)")
+
+    @property
+    def is_view(self) -> bool:
+        """Whether the array shares the storage of another (basic
+        indexing, ``reshape``, ``at``, a positive-step ``slice``)."""
+        return self._data._base is not None
+
+    def as_nd_ndarray(self):
+        return self
 
     def __len__(self):
         if not self.shape:
@@ -279,8 +296,7 @@ class NDArray:
         return self._op("abs")
 
     def __matmul__(self, o):
-        return self._op("matmul", o if isinstance(o, NDArray)
-                        else NDArray(o, ctx=self.ctx))
+        return self._op("matmul", self._other(o))
 
     def _inplace(self, r: "NDArray") -> "NDArray":
         """Make ``r`` this array's value.  Under recording, when ``r`` is
@@ -438,9 +454,122 @@ class NDArray:
         return self._op("slice_axis", axis=axis, begin=begin, end=end)
 
     def pick(self, index, axis=-1, keepdims=False):
-        return self._op("pick", index if isinstance(index, NDArray)
-                        else NDArray(index, ctx=self.ctx), axis=axis,
+        return self._op("pick", self._other(index), axis=axis,
                         keepdims=keepdims)
+
+    def broadcast_to(self, shape):
+        return self._op("broadcast_to", shape=tuple(shape))
+
+    def broadcast_like(self, other):
+        return self.broadcast_to(other.shape)
+
+    def swapaxes(self, a1, a2):
+        return self._op("swapaxes", dim1=a1, dim2=a2)
+
+    def split(self, num_outputs, axis=0):
+        return self._op("split", num_outputs=num_outputs, axis=axis)
+
+    def tile(self, reps):
+        return self._op("tile", reps=tuple(reps) if isinstance(
+            reps, (list, tuple)) else (reps,))
+
+    def repeat(self, repeats, axis=None):
+        return self._op("repeat", repeats=repeats, axis=axis)
+
+    def pad(self, mode="constant", pad_width=None, constant_value=0):
+        return self._op("pad", mode=mode, pad_width=tuple(pad_width),
+                        constant_value=constant_value)
+
+    def slice(self, begin, end, step=None):
+        return self._op("slice", begin=tuple(begin), end=tuple(end),
+                        step=tuple(step) if step else None)
+
+    def slice_like(self, shape_like, axes=()):
+        return self._op("slice_like", self._other(shape_like),
+                        axes=tuple(axes))
+
+    def at(self, idx: int):
+        """Row ``idx`` as a view of this array's storage."""
+        return self[int(idx)]
+
+    def take(self, indices, axis=0, mode="clip"):
+        return self._op("take", self._other(indices), axis=axis, mode=mode)
+
+    def one_hot(self, depth, on_value=1.0, off_value=0.0):
+        return self._op("one_hot", depth=depth, on_value=on_value,
+                        off_value=off_value)
+
+    def dot(self, other, transpose_a=False, transpose_b=False):
+        return self._op("dot", self._other(other), transpose_a=transpose_a,
+                        transpose_b=transpose_b)
+
+    def _other(self, o):
+        return o if isinstance(o, NDArray) else NDArray(o, ctx=self.ctx)
+
+    # ---- elementwise -----------------------------------------------------
+    def abs(self):
+        return self._op("abs")
+
+    def sign(self):
+        return self._op("sign")
+
+    def round(self):
+        return self._op("round")
+
+    def floor(self):
+        return self._op("floor")
+
+    def ceil(self):
+        return self._op("ceil")
+
+    def exp(self):
+        return self._op("exp")
+
+    def log(self):
+        return self._op("log")
+
+    def sqrt(self):
+        return self._op("sqrt")
+
+    def square(self):
+        return self._op("square")
+
+    def relu(self):
+        return self._op("relu")
+
+    def sigmoid(self):
+        return self._op("sigmoid")
+
+    def tanh(self):
+        return self._op("tanh")
+
+    def softmax(self, axis=-1):
+        return self._op("softmax", axis=axis)
+
+    def log_softmax(self, axis=-1):
+        return self._op("log_softmax", axis=axis)
+
+    def clip(self, a_min, a_max):
+        return self._op("clip", a_min=a_min, a_max=a_max)
+
+    def zeros_like(self):
+        return self._op("zeros_like")
+
+    def ones_like(self):
+        return self._op("ones_like")
+
+    # ---- ordering --------------------------------------------------------
+    def sort(self, axis=-1, is_ascend=True):
+        return self._op("sort", axis=axis, is_ascend=is_ascend)
+
+    def argsort(self, axis=-1, is_ascend=True, dtype="float32"):
+        return self._op("argsort", axis=axis, is_ascend=is_ascend,
+                        dtype=dtype)
+
+    def topk(self, axis=-1, k=1, ret_typ="indices", is_ascend=False,
+             dtype="float32"):
+        return self._op("topk", axis=axis, k=k, ret_typ=ret_typ,
+                        is_ascend=is_ascend, dtype=dtype)
 
     # ---- reductions ------------------------------------------------------
     def sum(self, axis=None, keepdims=False):
@@ -461,6 +590,12 @@ class NDArray:
 
     def argmax(self, axis=None, keepdims=False):
         return self._op("argmax", axis=axis, keepdims=keepdims)
+
+    def argmin(self, axis=None, keepdims=False):
+        return self._op("argmin", axis=axis, keepdims=keepdims)
+
+    def prod(self, axis=None, keepdims=False):
+        return self._op("prod", axis=_norm_axis(axis), keepdims=keepdims)
 
     # ---- indexing --------------------------------------------------------
     def __getitem__(self, key):
@@ -567,6 +702,16 @@ def concatenate(arrays, axis=0) -> NDArray:
     from ..ops.registry import invoke
 
     return invoke("concat", *arrays, dim=axis)
+
+
+def stack(*arrays, axis: int = 0) -> NDArray:
+    """The arrays joined along a new axis ``axis`` (a list of arrays may
+    be passed as the one argument)."""
+    from ..ops.registry import invoke
+
+    if len(arrays) == 1 and isinstance(arrays[0], (list, tuple)):
+        arrays = tuple(arrays[0])
+    return invoke("stack", *arrays, axis=axis)
 
 
 def _cpu_array(a) -> NDArray:

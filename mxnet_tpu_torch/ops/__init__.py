@@ -5,7 +5,7 @@ is an attribute under its registered name (``F.MultiBoxPrior``,
 ``F.broadcast_greater``, ``F.argsort``), as in the JAX package."""
 from __future__ import annotations
 
-from . import contrib
+from . import contrib, random_ops
 
 from .attention import (attend, attention_launch_count,
                         dot_product_attention, dot_product_attention_ref,
@@ -48,7 +48,8 @@ __all__ = ["fused_conv_unit", "fused_conv_unit_ref", "fused_conv_unit_bwd",
            "multi_mp_sgd_mom_update", "preloaded_multi_sgd_update",
            "multi_lars", "lamb_update_phase1", "lamb_update_phase2", "pick", "mean", "sum",
            "arange_like", "expand_dims", "squeeze", "slice_axis", "cast",
-           "broadcast_add", "broadcast_lesser", "contrib"]
+           "broadcast_add", "broadcast_lesser", "contrib",
+           "random_ops"]
 
 
 def __getattr__(name: str):

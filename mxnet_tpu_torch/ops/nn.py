@@ -3,9 +3,12 @@
 conventions), BatchNorm, LayerNorm, InstanceNorm, GroupNorm, Activation
 (relu, sigmoid, tanh, softrelu, softsign, gelu, gelu_tanh, silu),
 LeakyReLU (leaky, prelu, elu, selu, gelu, rrelu), Dropout, Embedding,
-flatten, softmax, log_softmax, softmin, pad; and the legacy loss heads of
-the symbolic API: SoftmaxOutput, the three regression outputs, MakeLoss
-and stop_gradient (BlockGrad).
+flatten, softmax, log_softmax, softmin, pad, RMSNorm, hard_sigmoid,
+hard_swish, mish, SoftmaxActivation, UpSampling, BilinearSampler,
+GridGenerator, SpatialTransformer, im2col/col2im, Correlation and
+DeformableConvolution; and the legacy loss heads of the symbolic API:
+SoftmaxOutput, SVMOutput, the three regression outputs, MakeLoss and
+stop_gradient (BlockGrad).  CTCLoss waits in ROADMAP queue A item 6.
 
 Counterpart of ``mxnet_tpu/ops/nn.py``, as plain functions on tensors
 with the same attributes, layouts and rounding points.  The JAX package
@@ -22,7 +25,8 @@ ignores too (BatchNorm's and LayerNorm's ``output_mean_var``) change
 nothing.
 
 The loss heads are ``torch.autograd.Function``s with the JAX package's
-backward, which ignores the upstream gradient: SoftmaxOutput's is
+backward, which ignores the upstream gradient: SVMOutput's is the hinge
+gradient; SoftmaxOutput's is
 (softmax - one_hot(label)) * grad_scale under its ``normalization``
 and ``use_ignore``; a regression head's is grad_scale / (outputs per
 sample) times the residual.  As in the JAX package, SoftmaxOutput takes
@@ -51,7 +55,11 @@ __all__ = ["fully_connected", "convolution", "deconvolution", "pooling",
            "batch_norm", "layer_norm", "instance_norm", "group_norm",
            "activation", "leaky_relu", "dropout", "embedding", "flatten",
            "softmax", "log_softmax", "softmin", "pad", "softmax_output",
-           "make_loss", "stop_gradient"]
+           "make_loss", "stop_gradient", "rms_norm", "hard_sigmoid",
+           "hard_swish", "mish", "softmax_activation", "svm_output",
+           "upsampling", "bilinear_sampler", "grid_generator",
+           "spatial_transformer", "im2col", "col2im", "correlation",
+           "deformable_convolution"]
 
 
 def _channels_last(layout) -> bool:
@@ -483,8 +491,11 @@ def log_softmax(data, axis=-1, temperature=None):
     keeps their excess precision up to the fp32 sum), the sum rounded to
     x's dtype, its log rounded to x's dtype, then the subtraction.  bf16
     log-probabilities then equal the JAX package's bit for bit, so tied
-    values tie alike (SSD's hard-negative ranking)."""
+    values tie alike (SSD's hard-negative ranking).  An integer or bool
+    input is float32 first, as jax.nn.log_softmax promotes it."""
     x = data / temperature if temperature else data
+    if not x.is_floating_point():
+        x = x.to(torch.float32)
     acc = torch.promote_types(x.dtype, torch.float32)
     shifted = x - x.detach().amax(dim=axis, keepdim=True)
     total = torch.exp(shifted.to(acc)).sum(dim=axis, keepdim=True)
@@ -609,3 +620,320 @@ register_op("softmax")(softmax)
 register_op("log_softmax")(log_softmax)
 register_op("softmin")(softmin)
 register_op("pad", aliases=("Pad",))(pad)
+
+
+# ---------------------------------------------------------------------------
+# RMSNorm, the activations hard_sigmoid/hard_swish/mish, SoftmaxActivation
+# ---------------------------------------------------------------------------
+
+def rms_norm(data, gamma, axis=-1, eps=1e-6):
+    """data over the root mean square along ``axis``, times gamma (no
+    mean subtracted)."""
+    ms = data.square().mean(dim=axis, keepdim=True)
+    return data * torch.rsqrt(ms + eps) * gamma
+
+
+def hard_sigmoid(data, alpha=0.2, beta=0.5):
+    return torch.clamp(alpha * data + beta, 0.0, 1.0)
+
+
+def hard_swish(data):
+    return data * torch.clamp(data / 6.0 + 0.5, 0.0, 1.0)
+
+
+def mish(data):
+    """x·tanh(softplus(x)), softplus as jax.nn.softplus writes it
+    (logaddexp(x, 0))."""
+    return data * torch.tanh(torch.logaddexp(data, torch.zeros_like(data)))
+
+
+def softmax_activation(data, mode="instance"):
+    """softmax over axis 1 (``channel``) or over all but the first axis
+    (``instance``)."""
+    if mode == "channel":
+        return softmax(data, axis=1)
+    flat = data.reshape(data.shape[0], -1)
+    return softmax(flat, axis=-1).reshape(data.shape)
+
+
+# ---------------------------------------------------------------------------
+# SVMOutput: the identity forward, the hinge gradient backward (the
+# upstream gradient is ignored, as for the other loss heads)
+# ---------------------------------------------------------------------------
+
+class _SVMOutputFn(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, data, label, margin, reg_coef, use_linear):
+        ctx.save_for_backward(data, label)
+        ctx.conf = (margin, reg_coef, use_linear)
+        return data.clone()
+
+    @staticmethod
+    def backward(ctx, g):
+        scores, label = ctx.saved_tensors
+        margin, reg_coef, use_linear = ctx.conf
+        classes = torch.arange(scores.shape[-1], device=scores.device)
+        y = (label.to(torch.int32).unsqueeze(-1) == classes).to(
+            scores.dtype)
+        s_y = (scores * y).sum(dim=-1, keepdim=True)
+        viol = torch.clamp_min(margin - (s_y - scores), 0.0) * (1.0 - y)
+        gj = (viol > 0).to(scores.dtype) if use_linear else 2.0 * viol
+        grad = gj - y * gj.sum(dim=-1, keepdim=True)
+        glabel = torch.zeros_like(label) if ctx.needs_input_grad[1] \
+            else None
+        return reg_coef * grad / scores.shape[0], glabel, None, None, None
+
+
+def svm_output(data, label, margin=1.0, regularization_coefficient=1.0,
+               use_linear=False):
+    """Multiclass SVM head: forward the identity; backward the hinge
+    gradient (squared hinge unless ``use_linear``) times the coefficient
+    over the batch."""
+    return _SVMOutputFn.apply(data, label, float(margin),
+                              float(regularization_coefficient),
+                              bool(use_linear))
+
+
+# ---------------------------------------------------------------------------
+# UpSampling and the spatial transformer family (NCHW)
+# ---------------------------------------------------------------------------
+
+def upsampling(*datas, scale=1, sample_type="nearest", num_args=1,
+               num_filter=0, multi_input_mode="concat", workspace=512):
+    """Each input upsampled to the first one's size times ``scale``:
+    ``nearest`` repeats pixels, ``bilinear`` interpolates with half-pixel
+    centres (jax.image.resize's bilinear, which is F.interpolate's with
+    align_corners=False when upsampling); several inputs are then
+    concatenated on channels or summed."""
+    scale = int(scale)
+    th, tw = datas[0].shape[2] * scale, datas[0].shape[3] * scale
+    outs = []
+    for d in datas:
+        if sample_type == "nearest":
+            up = d.repeat_interleave(th // d.shape[2], dim=2) \
+                .repeat_interleave(tw // d.shape[3], dim=3)
+        elif sample_type == "bilinear":
+            up = F.interpolate(d, size=(th, tw), mode="bilinear",
+                               align_corners=False)
+        else:
+            raise MXNetError(f"UpSampling: unknown sample_type "
+                             f"{sample_type!r}")
+        outs.append(up)
+    if len(outs) == 1:
+        return outs[0]
+    if multi_input_mode == "sum":
+        out = outs[0]
+        for o in outs[1:]:
+            out = out + o
+        return out
+    return torch.cat(outs, dim=1)
+
+
+def _bilinear_taps(data, y, x):
+    """data (N, C, H, W) at absolute coordinates y, x (N, Ho, Wo):
+    bilinear over the four neighbours, a neighbour outside the image
+    counting as zero; (N, C, Ho, Wo)."""
+    n, _, h, w = data.shape
+    b = torch.arange(n, device=data.device).reshape(n, 1, 1)
+    y0 = torch.floor(y)
+    x0 = torch.floor(x)
+    wy = (y - y0)[:, None].to(data.dtype)
+    wx = (x - x0)[:, None].to(data.dtype)
+
+    def tap(yi, xi):
+        inb = (yi >= 0) & (yi <= h - 1) & (xi >= 0) & (xi <= w - 1)
+        yc = yi.clamp(0, h - 1).long()
+        xc = xi.clamp(0, w - 1).long()
+        v = data[b, :, yc, xc].permute(0, 3, 1, 2)
+        return v * inb[:, None].to(data.dtype)
+
+    return ((1 - wy) * ((1 - wx) * tap(y0, x0) + wx * tap(y0, x0 + 1))
+            + wy * ((1 - wx) * tap(y0 + 1, x0) + wx * tap(y0 + 1, x0 + 1)))
+
+
+def bilinear_sampler(data, grid, cudnn_off=False):
+    """data sampled at the normalised coordinates of ``grid`` (N, 2, Ho,
+    Wo; x then y, -1 and 1 the centres of the edge pixels), zero
+    outside."""
+    h, w = data.shape[2], data.shape[3]
+    gx = (grid[:, 0] + 1.0) * (w - 1) / 2.0
+    gy = (grid[:, 1] + 1.0) * (h - 1) / 2.0
+    return _bilinear_taps(data, gy, gx)
+
+
+def _linspace(n, device):
+    """jnp.linspace(-1, 1, n) as JAX computes it: -(1 - t) + t at t =
+    i / (n - 1), the end point exact."""
+    div = n - 1
+    if div < 1:
+        return torch.full((n,), -1.0, device=device)
+    t = torch.arange(div, dtype=torch.float32, device=device) / div
+    return torch.cat([-1.0 * (1 - t) + 1.0 * t,
+                      torch.ones(1, device=device)])
+
+
+def grid_generator(data, transform_type="affine", target_shape=(0, 0)):
+    """A sampling grid: ``affine`` maps the target's normalised
+    coordinates by the (N, 6) matrices in data; ``warp`` adds the (N, 2,
+    H, W) pixel offsets in data to the pixel coordinates."""
+    if transform_type == "affine":
+        th, tw = int(target_shape[0]), int(target_shape[1])
+        if th <= 0 or tw <= 0:
+            raise MXNetError("GridGenerator(affine) needs target_shape")
+        theta = data.reshape(-1, 2, 3).to(torch.float32)
+        gy, gx = torch.meshgrid(_linspace(th, data.device),
+                                _linspace(tw, data.device), indexing="ij")
+        base = torch.stack([gx.reshape(-1), gy.reshape(-1),
+                            torch.ones(th * tw, device=data.device)])
+        return (theta @ base).reshape(-1, 2, th, tw)
+    if transform_type == "warp":
+        h, w = data.shape[2], data.shape[3]
+        gy, gx = torch.meshgrid(torch.arange(h, device=data.device),
+                                torch.arange(w, device=data.device),
+                                indexing="ij")
+        fx = (gx[None] + data[:, 0]) * 2.0 / max(w - 1, 1) - 1.0
+        fy = (gy[None] + data[:, 1]) * 2.0 / max(h - 1, 1) - 1.0
+        return torch.stack([fx, fy], dim=1)
+    raise MXNetError(f"GridGenerator: unknown transform_type "
+                     f"{transform_type!r}")
+
+
+def spatial_transformer(data, loc, target_shape=(0, 0),
+                        transform_type="affine", sampler_type="bilinear",
+                        cudnn_off=False):
+    """GridGenerator(affine) of ``loc`` then BilinearSampler."""
+    if transform_type != "affine" or sampler_type != "bilinear":
+        raise MXNetError("SpatialTransformer supports affine+bilinear")
+    return bilinear_sampler(data, grid_generator(
+        loc, transform_type="affine", target_shape=target_shape))
+
+
+# ---------------------------------------------------------------------------
+# im2col / col2im (any number of spatial axes), Correlation, and
+# DeformableConvolution (DCN v1)
+# ---------------------------------------------------------------------------
+
+def _patches(x, kernel, stride, dilate, pad, value=0):
+    """x (N, C, *S) -> (N, C*prod(kernel), L): each output position's
+    window, channel-major then the kernel taps, as
+    lax.conv_general_dilated_patches orders them."""
+    nd = len(kernel)
+    stride = tuple(stride) if stride else (1,) * nd
+    dilate = tuple(dilate) if dilate else (1,) * nd
+    pad = tuple(pad) if pad else (0,) * nd
+    x = F.pad(x, [p for pp in reversed(pad) for p in (pp, pp)],
+              value=value)
+    for i, (k, s, d) in enumerate(zip(kernel, stride, dilate)):
+        x = x.unfold(2 + i, (k - 1) * d + 1, s)[..., ::d]
+    n, c = x.shape[:2]
+    outs = x.shape[2:2 + nd]
+    perm = (0, 1) + tuple(range(2 + nd, 2 + 2 * nd)) \
+        + tuple(range(2, 2 + nd))
+    return x.permute(perm).reshape(n, c * math.prod(kernel),
+                                   math.prod(outs))
+
+
+def im2col(data, kernel=(), stride=(), dilate=(), pad=()):
+    """The sliding windows of data (N, C, *S) as columns (N,
+    C*prod(kernel), L)."""
+    return _patches(data, kernel, stride, dilate, pad)
+
+
+def col2im(data, output_size=(), kernel=(), stride=(), dilate=(), pad=()):
+    """The adjoint of im2col: columns summed back into an image of
+    ``output_size`` (overlapping windows add up, padding taps drop)."""
+    n, ck, _ = data.shape
+    c = ck // math.prod(kernel)
+    spatial = tuple(output_size)
+    size = c * math.prod(spatial)
+    ids = torch.arange(size, device=data.device).reshape((1, c) + spatial)
+    # slot 0 collects the padding taps (id -1)
+    slot = _patches(ids, kernel, stride, dilate, pad, value=-1) \
+        .reshape(-1) + 1
+    out = torch.zeros((n, size + 1), dtype=data.dtype, device=data.device)
+    out = out.index_add(1, slot, data.reshape(n, -1))
+    return out[:, 1:].reshape((n, c) + spatial)
+
+
+def correlation(data1, data2, kernel_size=1, max_displacement=1, stride1=1,
+                stride2=1, pad_size=0, is_multiply=True):
+    """FlowNet's cost volume: for each displacement within
+    ``max_displacement``, the channel mean of data1 times (or minus,
+    absolute) data2 shifted; (N, (2d+1)^2, Ho, Wo)."""
+    if kernel_size != 1 or stride1 != 1 or stride2 != 1:
+        raise MXNetError("Correlation: this build supports "
+                         "kernel_size=1, stride1=1, stride2=1")
+    h, w = data1.shape[2], data1.shape[3]
+    d, p = int(max_displacement), int(pad_size)
+    ho, wo = h + 2 * p - 2 * d, w + 2 * p - 2 * d
+    if ho <= 0 or wo <= 0:
+        raise MXNetError(
+            f"Correlation: non-positive output size {(ho, wo)}; "
+            f"pad_size must satisfy in + 2*pad > 2*max_displacement")
+    f1 = F.pad(data1, (p, p, p, p))
+    f2 = F.pad(data2, (p, p, p, p))
+    base = f1[:, :, d:d + ho, d:d + wo]
+    outs = []
+    for dy in range(-d, d + 1):
+        for dx in range(-d, d + 1):
+            shifted = f2[:, :, d + dy:d + dy + ho, d + dx:d + dx + wo]
+            outs.append((base * shifted).mean(dim=1) if is_multiply
+                        else (base - shifted).abs().mean(dim=1))
+    return torch.stack(outs, dim=1)
+
+
+def deformable_convolution(data, offset, weight, bias=None, kernel=(),
+                           stride=(), dilate=(), pad=(), num_filter=0,
+                           num_group=1, num_deformable_group=1,
+                           no_bias=False, layout=None, workspace=1024):
+    """Deformable convolution v1: each kernel tap reads the input by
+    bilinear interpolation at its position plus the learned ``offset``
+    (N, 2*prod(kernel), Ho, Wo; y then x per tap), then the taps contract
+    with the weight."""
+    if num_group != 1 or num_deformable_group != 1:
+        raise MXNetError("DeformableConvolution: this build supports "
+                         "num_group=num_deformable_group=1")
+    kh, kw = kernel
+    sh, sw = stride if stride else (1, 1)
+    dh, dw = dilate if dilate else (1, 1)
+    ph, pw = pad if pad else (0, 0)
+    n, c, h, w = data.shape
+    ho = (h + 2 * ph - (dh * (kh - 1) + 1)) // sh + 1
+    wo = (w + 2 * pw - (dw * (kw - 1) + 1)) // sw + 1
+    if tuple(offset.shape) != (n, 2 * kh * kw, ho, wo):
+        raise MXNetError(
+            f"DeformableConvolution: offset must be "
+            f"{(n, 2 * kh * kw, ho, wo)} (N, 2*prod(kernel), out_h, "
+            f"out_w); got {tuple(offset.shape)}")
+    oy, ox = torch.meshgrid(
+        torch.arange(ho, device=data.device) * sh - ph,
+        torch.arange(wo, device=data.device) * sw - pw, indexing="ij")
+    cols = []
+    for ki in range(kh):
+        for kj in range(kw):
+            t = ki * kw + kj
+            cols.append(_bilinear_taps(data, oy + ki * dh + offset[:, 2 * t],
+                                       ox + kj * dw + offset[:, 2 * t + 1]))
+    cols = torch.stack(cols, dim=2)                  # (N, C, K, Ho, Wo)
+    out = torch.einsum("ock,nckhw->nohw",
+                       weight.reshape(num_filter, c, kh * kw), cols)
+    if bias is not None and not no_bias:
+        out = out + bias.reshape(1, -1, 1, 1)
+    return out
+
+
+for _name, _alias, _fn in (
+        ("RMSNorm", "rms_norm", rms_norm),
+        ("UpSampling", "upsampling", upsampling),
+        ("BilinearSampler", "bilinear_sampler", bilinear_sampler),
+        ("GridGenerator", "grid_generator", grid_generator),
+        ("SpatialTransformer", "spatial_transformer", spatial_transformer),
+        ("SoftmaxActivation", "softmax_activation", softmax_activation),
+        ("SVMOutput", "svm_output", svm_output),
+        ("Correlation", "correlation", correlation)):
+    register_op(_name, aliases=(_alias,))(_fn)
+for _fn in (hard_sigmoid, hard_swish, mish, im2col, col2im):
+    register_op(_fn.__name__)(_fn)
+register_op("_contrib_DeformableConvolution",
+            aliases=("DeformableConvolution", "deformable_convolution"))(
+    deformable_convolution)

@@ -21,7 +21,8 @@ import torch
 
 from ..base import MXNetError
 
-__all__ = ["Operator", "register_op", "get_op", "list_ops", "invoke"]
+__all__ = ["Operator", "register_op", "get_op", "list_ops", "invoke",
+           "QUEUED"]
 
 
 class Operator:
@@ -117,6 +118,37 @@ class Operator:
 
 _OPS: Dict[str, Operator] = {}
 
+# The JAX package's op names the port does not register yet, under the
+# ROADMAP queue A item that ports them.
+_QUEUED_BY_ITEM = {
+    "3(f)": (
+        "det", "inverse", "khatri_rao", "linalg_det", "linalg_extractdiag",
+        "linalg_extracttrian", "linalg_gelqf", "linalg_gemm",
+        "linalg_gemm2", "linalg_inverse", "linalg_makediag",
+        "linalg_maketrian", "linalg_potrf", "linalg_potri",
+        "linalg_slogdet", "linalg_solve", "linalg_sumlogdiag",
+        "linalg_syevd", "linalg_syrk", "linalg_trmm", "linalg_trsm",
+        "moments", "slogdet", "solve"),
+    "6": ("RNN", "CTCLoss", "ctc_loss", "amp_cast", "amp_multicast"),
+    "8": tuple(p + n for p in ("_image_", "image_") for n in (
+        "crop", "flip_left_right", "flip_up_down", "normalize",
+        "random_brightness", "random_contrast", "random_flip_left_right",
+        "random_flip_up_down", "random_saturation", "resize",
+        "to_tensor")),
+    "9": ("Custom",) + tuple(p + n for p in ("", "_contrib_") for n in (
+        "AdaptiveAvgPooling2D", "BilinearResize2D", "MultiProposal",
+        "PSROIPooling", "Proposal", "ROIAlign", "ROIPooling",
+        "boolean_mask", "fft", "ifft")) + ("roi_pooling",)
+    + tuple(p + n for p in ("", "_contrib_") for n in (
+        "dequantize", "quantize", "quantize_v2", "quantized_conv",
+        "quantized_flatten", "quantized_fully_connected",
+        "quantized_pooling", "requantize"))
+    + ("_contrib_quantized_act", "_contrib_quantized_concat",
+       "_contrib_quantized_elemwise_add"),
+}
+QUEUED: Dict[str, str] = {n: item for item, names in _QUEUED_BY_ITEM.items()
+                          for n in names}
+
 
 def register_op(name: str, *, num_outputs=1, differentiable: bool = True,
                 aliases: Sequence[str] = ()):
@@ -137,9 +169,13 @@ def register_op(name: str, *, num_outputs=1, differentiable: bool = True,
 def get_op(name: str) -> Operator:
     op = _OPS.get(name)
     if op is None:
+        item = QUEUED.get(name)
+        if item is None:
+            raise MXNetError(f"operator {name!r} is not ported: neither "
+                             "package registers an op of that name")
         raise MXNetError(
-            f"operator {name!r} is not ported; the port registers "
-            f"{len(list_ops())} ops, the rest are ROADMAP queue A item 3")
+            f"operator {name!r} is not ported yet: ROADMAP queue A item "
+            f"{item} ports it")
     return op
 
 

@@ -21,12 +21,28 @@ as plain functions on tensors, registered under the JAX package's
 names (``ops/registry.py``).  The dtype rules are the JAX package's
 (x32 mode): a ``*_scalar`` op first casts its scalar to x's dtype (an
 int array truncates 2.7 to 2), comparisons return 1/0 in the operands'
-result dtype, integer sums stay int32 and argmax/argmin return float32.
-The other JAX tensor ops wait (ROADMAP queue A item 3).
+result dtype, integer sums stay int32 and argmax/argmin return float32;
+an inexact function (sin, sqrt, reciprocal, ...) of an integer or bool
+array is float32, and the rounding functions keep its dtype.
+
+Besides those, the rest of the JAX file's ops: the unary table, the
+reductions prod/nansum/nanprod and argmin, broadcasting, slicing,
+joining and splitting, indexing (take, one_hot, gather_nd,
+scatter_nd), the Sequence* ops, dot/batch_dot, L2Normalization, diag,
+cumsum/cumprod, the finiteness checks and the misc batch (trace,
+ravel/unravel_index, digamma, the bitwise ops, all_finite, shape_array).
+Like the JAX ops, an op that reads an index never raises on one out of
+range: ``take`` clamps (``raise`` maps to ``clip``) or wraps,
+``one_hot`` gives a row of ``off_value``, ``gather_nd`` clamps and
+``scatter_nd`` drops the write.  The linalg names (``linalg_gemm2``,
+``linalg_potrf``, ``linalg_syrk``, ``khatri_rao``) wait in ROADMAP
+queue A item 3(f), ``amp_cast``/``amp_multicast`` in item 6.
 """
 from __future__ import annotations
 
+import builtins
 import functools
+import math
 
 import torch
 
@@ -38,7 +54,12 @@ __all__ = ["pick", "mean", "sum", "arange_like", "expand_dims", "squeeze",
            "reshape", "transpose", "concat", "max", "min", "norm",
            "argmax", "zeros_like", "ones_like", "clip", "broadcast_maximum",
            "broadcast_minimum", "smooth_l1", "sort", "argsort", "topk",
-           "reshape_like", "where", "depth_to_space", "space_to_depth"]
+           "reshape_like", "where", "depth_to_space", "space_to_depth",
+           "prod", "argmin", "broadcast_to", "broadcast_like", "stack",
+           "split", "tile", "repeat", "take", "one_hot", "gather_nd",
+           "scatter_nd", "sequence_mask", "sequence_last",
+           "sequence_reverse", "dot", "batch_dot", "l2_normalization",
+           "cumsum", "cumprod"]
 
 
 def pick(x, index, axis=-1, keepdims=False, mode="clip"):
@@ -103,13 +124,17 @@ def norm(x, ord=2, axis=None, keepdims=False):  # noqa: A002 — attr name
     return x.square().sum(dim=ax, keepdim=keepdims).sqrt()
 
 
+def _arg_index(fn, x, axis, keepdims):
+    if axis is None:
+        out = fn(x.reshape(-1))
+        return (out.reshape([1] * x.dim()) if keepdims else out).float()
+    return fn(x, dim=axis, keepdim=keepdims).float()
+
+
 def argmax(x, axis=None, keepdims=False):
     """Index of the first maximum along ``axis`` (flat when None), as
     float32."""
-    if axis is None:
-        out = torch.argmax(x.reshape(-1))
-        return (out.reshape([1] * x.dim()) if keepdims else out).float()
-    return torch.argmax(x, dim=axis, keepdim=keepdims).float()
+    return _arg_index(torch.argmax, x, axis, keepdims)
 
 
 def arange_like(x, axis=None, start=0.0, step=1.0, dtype="float32"):
@@ -161,7 +186,10 @@ def ones_like(x):
 
 
 def clip(x, a_min=None, a_max=None):
-    """Clamp every element to [a_min, a_max] (a bound of None is open)."""
+    """Clamp every element to [a_min, a_max] (a bound of None is open;
+    with neither, a copy of x, as jnp.clip returns x)."""
+    if a_min is None and a_max is None:
+        return x.clone()
     return torch.clamp(x, a_min, a_max)
 
 
@@ -361,7 +389,8 @@ _SCALAR = {
     "_div_scalar": (torch.true_divide, False),
     "_rdiv_scalar": (lambda s, x: s / x, True),
     "_mod_scalar": (torch.remainder, False),
-    "_rmod_scalar": (lambda s, x: torch.remainder(s, x), True),
+    "_rmod_scalar": (lambda s, x: torch.remainder(torch.full_like(x, s), x),
+                     True),
     "_power_scalar": (torch.pow, False),
     "_rpower_scalar": (lambda s, x: torch.pow(s, x), True),
     "_maximum_scalar": (lambda x, s: torch.clamp(x, min=s), False),
@@ -379,6 +408,491 @@ _SCALAR_CMP = {
     "_logical_or_scalar": _logical_scalar(torch.logical_or),
     "_logical_xor_scalar": _logical_scalar(torch.logical_xor),
 }
+
+
+# ---------------------------------------------------------------------------
+# the rest of the unary table and the binaries arctan2/hypot
+# ---------------------------------------------------------------------------
+
+def _inexact(x):
+    """An integer or bool array as float32, as jnp promotes it before an
+    inexact function; a float array as it is."""
+    return x if x.is_floating_point() else x.to(torch.float32)
+
+
+def _inexact_pair(a, b):
+    rt = torch.result_type(a, b)
+    rt = rt if rt.is_floating_point else torch.float32
+    return a.to(rt), b.to(rt)
+
+
+def _rounding(fn):
+    """A rounding function: an integer or bool array is its own value."""
+    return lambda x: fn(x) if x.is_floating_point() else x.clone()
+
+
+def _cbrt(x):
+    """The real cube root sign(x)·|x|^(1/3) (torch has no cbrt), its power
+    taken in float64 for float32 input (within an ulp of jnp.cbrt), in
+    float32 for the half types."""
+    x = _inexact(x)
+    wide = torch.float64 if x.dtype in (torch.float32, torch.float64) \
+        else torch.float32
+    w = x.to(wide)
+    return (torch.sign(w) * w.abs().pow(1.0 / 3.0)).to(x.dtype)
+
+
+def _digamma(x):
+    """digamma, NaN at 0 as jax.scipy.special.digamma (torch gives -inf
+    there)."""
+    x = _inexact(x)
+    return torch.where(x == 0, float("nan"), torch.digamma(x))
+
+
+_UNARY_REST = {
+    "sign": torch.sign,
+    "round": _rounding(torch.round),   # half to even, as jnp.round
+    "rint": lambda x: torch.round(_inexact(x)),
+    "ceil": _rounding(torch.ceil), "floor": _rounding(torch.floor),
+    "trunc": _rounding(torch.trunc), "fix": _rounding(torch.trunc),
+    "rsqrt": lambda x: torch.rsqrt(_inexact(x)),
+    "cbrt": _cbrt, "rcbrt": lambda x: 1.0 / _cbrt(x),
+    "log10": lambda x: torch.log10(_inexact(x)),
+    "log2": lambda x: torch.log2(_inexact(x)),
+    "log1p": lambda x: torch.log1p(_inexact(x)),
+    "expm1": lambda x: torch.expm1(_inexact(x)),
+    "sin": lambda x: torch.sin(_inexact(x)),
+    "cos": lambda x: torch.cos(_inexact(x)),
+    "tan": lambda x: torch.tan(_inexact(x)),
+    "arcsin": lambda x: torch.asin(_inexact(x)),
+    "arccos": lambda x: torch.acos(_inexact(x)),
+    "arctan": lambda x: torch.atan(_inexact(x)),
+    "sinh": lambda x: torch.sinh(_inexact(x)),
+    "cosh": lambda x: torch.cosh(_inexact(x)),
+    "arcsinh": lambda x: torch.asinh(_inexact(x)),
+    "arccosh": lambda x: torch.acosh(_inexact(x)),
+    "arctanh": lambda x: torch.atanh(_inexact(x)),
+    "degrees": lambda x: _inexact(x) * (180.0 / math.pi),
+    "radians": lambda x: _inexact(x) * (math.pi / 180.0),
+    "softsign": lambda x: x / (1 + torch.abs(x)),
+    "reciprocal": lambda x: 1.0 / _inexact(x),
+    "erf": lambda x: torch.erf(_inexact(x)),
+    "erfinv": lambda x: torch.erfinv(_inexact(x)),
+    # exp(gammaln(x)) as the JAX package writes it: |Γ(x)| for x < 0
+    "gamma": lambda x: torch.exp(torch.lgamma(_inexact(x))),
+    "gammaln": lambda x: torch.lgamma(_inexact(x)),
+    "logical_not": lambda x: (x == 0).to(x.dtype),
+    "identity": lambda x: x,
+}
+
+
+def arctan2(a, b):
+    return torch.atan2(*_inexact_pair(a, b))
+
+
+def broadcast_hypot(a, b):
+    return torch.hypot(*_inexact_pair(a, b))
+
+
+def _hypot_scalar(x, scalar=1.0):
+    """hypot(x, scalar), the scalar first cast to x's dtype (an int array
+    truncates it), then both promoted as jnp.hypot promotes them."""
+    s = _scalar_as(scalar, x.dtype)
+    xf = _inexact(x)
+    return torch.hypot(xf, torch.full_like(xf, s))
+
+
+# ---------------------------------------------------------------------------
+# reductions, argmin
+# ---------------------------------------------------------------------------
+
+def prod(x, axis=None, keepdims=False, exclude=False):
+    ax = _axes(x, axis, exclude)
+    if not ax:
+        return x
+    out = x
+    for a in sorted(ax, reverse=True):
+        out = out.prod(dim=a, keepdim=keepdims)
+    return _int32(out, x)
+
+
+def nansum(x, axis=None, keepdims=False, exclude=False):
+    if not x.is_floating_point():
+        return sum(x, axis, keepdims, exclude)
+    ax = _axes(x, axis, exclude)
+    return torch.nansum(x, dim=ax, keepdim=keepdims) if ax else x
+
+
+def nanprod(x, axis=None, keepdims=False, exclude=False):
+    if x.is_floating_point():
+        x = torch.where(torch.isnan(x), torch.ones_like(x), x)
+    return prod(x, axis, keepdims, exclude)
+
+
+def argmin(x, axis=None, keepdims=False):
+    """Index of the first minimum along ``axis`` (flat when None), as
+    float32."""
+    return _arg_index(torch.argmin, x, axis, keepdims)
+
+
+def argmax_channel(x):
+    return torch.argmax(x, dim=-1).float()
+
+
+# ---------------------------------------------------------------------------
+# broadcasting, axes, slicing, joining
+# ---------------------------------------------------------------------------
+
+def broadcast_to(x, shape=()):
+    """x broadcast to ``shape``, where a 0 keeps x's size on that axis;
+    a new array, as in the JAX package."""
+    tgt = tuple(s if s != 0 else x.shape[i] for i, s in enumerate(shape))
+    return x.broadcast_to(tgt).contiguous()
+
+
+def broadcast_like(x, y):
+    return x.broadcast_to(y.shape).contiguous()
+
+
+def broadcast_axis(x, axis=(), size=()):
+    """The named size-1 axes broadcast out to ``size``."""
+    axes = (axis,) if isinstance(axis, int) else tuple(axis)
+    sizes = (size,) if isinstance(size, int) else tuple(size)
+    tgt = list(x.shape)
+    for a, s in zip(axes, sizes):
+        tgt[a] = s
+    return x.broadcast_to(tuple(tgt)).contiguous()
+
+
+def swapaxes(x, dim1=0, dim2=0):
+    """Axes dim1 and dim2 exchanged (a view, as ``transpose`` gives)."""
+    return x.swapaxes(dim1, dim2)
+
+
+def _slice(x, begin=(), end=(), step=None):
+    """A strided slice per axis from begin/end/step tuples (None entries
+    open), a view where every step is positive; a negative step selects
+    the same elements as Python's slice."""
+    out = x
+    for i, (b, e) in enumerate(zip(begin, end)):
+        st = step[i] if step and step[i] is not None else 1
+        if st > 0:
+            idx = [slice(None)] * out.dim()
+            idx[i] = slice(b, e, st)
+            out = out[tuple(idx)]
+        else:
+            keep = range(*slice(b, e, st).indices(out.shape[i]))
+            out = out.index_select(i, torch.arange(
+                keep.start, keep.stop, keep.step, device=out.device)
+                if len(keep) else torch.zeros(0, dtype=torch.long,
+                                              device=out.device))
+    return out
+
+
+def slice_like(x, y, axes=()):
+    """x cropped to y's extent along ``axes`` (every shared axis when
+    empty)."""
+    axes = tuple(axes) if axes else tuple(range(builtins.min(x.dim(),
+                                                             y.dim())))
+    idx = [slice(None)] * x.dim()
+    for a in axes:
+        idx[a] = slice(0, y.shape[a])
+    return x[tuple(idx)]
+
+
+def stack(*xs, axis=0, num_args=None):
+    return torch.stack(xs, dim=axis)
+
+
+def _split_nout(attrs):
+    return int(attrs.get("num_outputs", 1))
+
+
+def split(x, num_outputs=1, axis=1, squeeze_axis=False):
+    """``num_outputs`` equal parts along ``axis`` (views), each squeezed
+    on that axis with ``squeeze_axis``; an axis that ``num_outputs`` does
+    not divide raises, as jnp.split does."""
+    n = x.shape[axis]
+    if n % num_outputs:
+        raise MXNetError(f"split: axis {axis} of size {n} does not divide "
+                         f"into {num_outputs} equal parts")
+    parts = torch.split(x, n // num_outputs, dim=axis)
+    if squeeze_axis:
+        parts = [p.squeeze(axis) for p in parts]
+    return tuple(parts)
+
+
+def tile(x, reps=()):
+    """numpy's tile: ``reps`` shorter than x's rank repeats the trailing
+    axes, longer adds leading axes."""
+    return torch.tile(x, (reps,) if isinstance(reps, int) else tuple(reps))
+
+
+def repeat(x, repeats=1, axis=None):
+    """Each element ``repeats`` times along ``axis`` (x flattened first
+    when None)."""
+    return torch.repeat_interleave(x, repeats, dim=axis)
+
+
+def reverse(x, axis=()):
+    return torch.flip(x, (axis,) if isinstance(axis, int) else tuple(axis))
+
+
+# ---------------------------------------------------------------------------
+# indexing
+# ---------------------------------------------------------------------------
+
+_TAKE_MODES = {"clip": "clip", "wrap": "wrap", "raise": "clip"}
+
+
+def take(x, indices, axis=0, mode="clip"):
+    """Slices of x along ``axis`` at ``indices`` (cast to int32, so a
+    float index truncates): out of range, ``clip`` (and ``raise``, which
+    the JAX op maps to it) clamps and ``wrap`` wraps."""
+    if mode not in _TAKE_MODES:
+        raise MXNetError(f"take: unknown mode {mode!r}")
+    axis = axis % x.dim()
+    n = x.shape[axis]
+    idx = indices.to(torch.int32).long()
+    idx = idx.remainder(n) if _TAKE_MODES[mode] == "wrap" \
+        else idx.clamp(0, n - 1)
+    out = x.index_select(axis, idx.reshape(-1))
+    return out.reshape(x.shape[:axis] + idx.shape + x.shape[axis + 1:])
+
+
+def one_hot(indices, depth=1, on_value=1.0, off_value=0.0, dtype="float32"):
+    """depth-long rows, ``on_value`` at each index and ``off_value``
+    elsewhere (all of a row for an index out of [0, depth)), computed as
+    the JAX op does: one_hot(...) * (on - off) + off in ``dtype``, which
+    the float scalars make float32 for an integer ``dtype``."""
+    dt = dtype_of(dtype)
+    idx = indices.to(torch.int32)
+    hot = idx.unsqueeze(-1) == torch.arange(depth, dtype=torch.int32,
+                                            device=idx.device)
+    out = hot.to(dt if dt.is_floating_point else torch.float32)
+    return out * (on_value - off_value) + off_value
+
+
+def _multi_index(shape, indices):
+    """indices (M, ...) as M long tensors into the leading axes of an
+    array of ``shape``, negatives counted from the end."""
+    idx = indices.to(torch.int32).long()
+    dims = torch.tensor(shape[:idx.shape[0]], dtype=torch.long,
+                        device=idx.device).reshape(
+                            (-1,) + (1,) * (idx.dim() - 1))
+    return torch.where(idx < 0, idx + dims, idx), dims
+
+
+def gather_nd(data, indices):
+    """data at the multi-indices in ``indices``'s leading axis; an index
+    out of range is clamped."""
+    idx, dims = _multi_index(data.shape, indices)
+    idx = torch.minimum(idx.clamp_min(0), dims - 1)
+    return data[tuple(idx)]
+
+
+def scatter_nd(data, indices, shape=()):
+    """zeros of ``shape`` with ``data`` written at the multi-indices in
+    ``indices``'s leading axis; a write out of range is dropped.  Which
+    of several writes to one cell lands is unspecified (as in the JAX
+    op): give unique indices."""
+    idx, dims = _multi_index(tuple(shape), indices)
+    m = idx.shape[0]
+    lead = math.prod(shape[:m])
+    rest = tuple(shape[m:])
+    ok = ((idx >= 0) & (idx < dims)).all(dim=0)
+    strides = [math.prod(shape[i + 1:m]) for i in range(m)]
+    flat = functools.reduce(torch.add, [idx[i] * strides[i]
+                                        for i in range(m)])
+    flat = torch.where(ok, flat, lead)   # a spare row takes dropped writes
+    out = torch.zeros((lead + 1,) + rest, dtype=data.dtype,
+                      device=data.device)
+    out = out.index_put((flat.reshape(-1),),
+                        data.reshape((-1,) + rest))
+    return out[:lead].reshape(tuple(shape))
+
+
+# ---------------------------------------------------------------------------
+# sequences: data is (seq, batch, ...) for axis 0, (batch, seq, ...) for 1
+# ---------------------------------------------------------------------------
+
+def _lengths(sequence_length):
+    return sequence_length.to(torch.int32).long()
+
+
+def sequence_mask(data, sequence_length=None, use_sequence_length=False,
+                  value=0.0, axis=0):
+    """Positions at or past each sequence's length set to ``value``."""
+    if not use_sequence_length or sequence_length is None:
+        return data
+    pos = torch.arange(data.shape[axis], device=data.device)
+    mask = pos[:, None] < _lengths(sequence_length)[None, :]
+    if axis == 1:
+        mask = mask.T
+    mask = mask.reshape(mask.shape + (1,) * (data.dim() - 2))
+    fill = torch.full((), _scalar_as(value, data.dtype), dtype=data.dtype,
+                      device=data.device)
+    return torch.where(mask, data, fill)
+
+
+def _take_steps(moved, src):
+    """moved (seq, batch, ...) gathered along axis 0 at src (k, batch)."""
+    idx = src.reshape(src.shape + (1,) * (moved.dim() - 2))
+    return moved.gather(0, idx.expand((src.shape[0],) + moved.shape[1:]))
+
+
+def sequence_last(data, sequence_length=None, use_sequence_length=False,
+                  axis=0):
+    """Each sequence's last valid step.  As the JAX op's take_along_axis:
+    a length of 0 reads the last step and a float array gets NaN for a
+    length past the end."""
+    if not use_sequence_length or sequence_length is None:
+        return data.select(axis, -1)
+    moved = data.movedim(axis, 0)
+    seq = moved.shape[0]
+    last = _lengths(sequence_length) - 1
+    last = torch.where(last < 0, last + seq, last)
+    out = _take_steps(moved, last.clamp(0, seq - 1)[None])[0]
+    if out.is_floating_point():
+        ok = (last >= 0) & (last < seq)
+        out = torch.where(ok.reshape(ok.shape + (1,) * (out.dim() - 1)),
+                          out, float("nan"))
+    return out
+
+
+def sequence_reverse(data, sequence_length=None, use_sequence_length=False,
+                     axis=0):
+    """Each sequence's first ``length`` steps reversed, the padding after
+    them left in place; the whole axis flipped without lengths."""
+    if not use_sequence_length or sequence_length is None:
+        return torch.flip(data, (axis,))
+    moved = data.movedim(axis, 0)
+    seq = moved.shape[0]
+    lens = _lengths(sequence_length)[None, :]
+    pos = torch.arange(seq, device=data.device)[:, None]
+    src = torch.where(pos < lens, lens - 1 - pos, pos).clamp(0, seq - 1)
+    return _take_steps(moved, src).movedim(0, axis)
+
+
+# ---------------------------------------------------------------------------
+# products (cuBLAS for floats; an integer product has no cuBLAS kernel,
+# so it is summed exactly, broadcast and reduced, as int64)
+# ---------------------------------------------------------------------------
+
+def _matmul(a, b):
+    rt = torch.result_type(a, b)
+    a, b = a.to(rt), b.to(rt)
+    if rt.is_floating_point:
+        return torch.matmul(a, b)
+    out = (a.to(torch.int64).unsqueeze(-1)
+           * b.to(torch.int64).unsqueeze(-3)).sum(-2)
+    return out.to(torch.int32 if rt == torch.bool else rt)
+
+
+def dot(a, b, transpose_a=False, transpose_b=False):
+    """MXNet's dot: a's last axis contracted with b's first (two 1-d
+    operands give a scalar); a transpose swaps an operand's last two
+    axes, as the JAX op does."""
+    if transpose_a and a.dim() > 1:
+        a = a.swapaxes(-1, -2)
+    if transpose_b and b.dim() > 1:
+        b = b.swapaxes(-1, -2)
+    lead, tail = a.shape[:-1], b.shape[1:]
+    out = _matmul(a.reshape(-1, a.shape[-1]), b.reshape(b.shape[0], -1))
+    return out.reshape(lead + tail)
+
+
+def batch_dot(a, b, transpose_a=False, transpose_b=False):
+    if transpose_a:
+        a = a.swapaxes(-1, -2)
+    if transpose_b:
+        b = b.swapaxes(-1, -2)
+    return _matmul(a, b)
+
+
+def l2_normalization(x, eps=1e-10, mode="instance"):
+    """x over the L2 norm of each instance, channel or spatial slice."""
+    if mode == "instance":
+        axes = tuple(range(1, x.dim()))
+    elif mode == "channel":
+        axes = (1,)
+    else:
+        axes = tuple(range(2, x.dim()))
+    return x / torch.sqrt(x.square().sum(dim=axes, keepdim=True) + eps)
+
+
+def diag(x, k=0):
+    """The k-th diagonal of a (batched) matrix, or the matrix of a
+    vector."""
+    if x.dim() == 1:
+        return torch.diag(x, k)
+    return torch.diagonal(x, offset=k, dim1=-2, dim2=-1)
+
+
+def cumsum(x, axis=None, dtype=None):
+    src, dim = (x.reshape(-1), 0) if axis is None else (x, axis)
+    if dtype:
+        return torch.cumsum(src, dim, dtype=dtype_of(dtype))
+    return _int32(torch.cumsum(src, dim), x)
+
+
+def cumprod(x, axis=None):
+    src, dim = (x.reshape(-1), 0) if axis is None else (x, axis)
+    return _int32(torch.cumprod(src, dim), x)
+
+
+# ---------------------------------------------------------------------------
+# the misc batch
+# ---------------------------------------------------------------------------
+
+def trace(data, offset=0, axis1=0, axis2=1):
+    return _int32(torch.diagonal(data, offset, axis1, axis2).sum(-1), data)
+
+
+def ravel_multi_index(data, shape=()):
+    """data (d, n) of multi-indices -> (n,) flat indices, in data's
+    dtype."""
+    strides = [math.prod(shape[i + 1:]) for i in range(len(shape))]
+    out = data[0] * strides[0]
+    for i in range(1, len(shape)):
+        out = out + data[i] * strides[i]
+    return out
+
+
+def unravel_index(data, shape=()):
+    """(n,) flat indices -> (d, n) multi-indices in data's dtype; as
+    jnp.unravel_index, an index is clipped into [-size, size) and a
+    negative one counts from the end."""
+    size = math.prod(shape)
+    idx = data.to(torch.int32).long().clamp(-size, size - 1)
+    idx = torch.where(idx < 0, idx + size, idx)
+    outs = []
+    for s in reversed(shape):
+        outs.append(idx.remainder(s))
+        idx = idx.div(s, rounding_mode="floor")
+    return torch.stack(outs[::-1]).to(data.dtype)
+
+
+def _bitwise(fn):
+    return lambda lhs, rhs: fn(lhs.to(torch.int64),
+                               rhs.to(torch.int64)).to(lhs.dtype)
+
+
+def all_finite(data, init_output=True):
+    return torch.isfinite(data).all().reshape(1).to(torch.float32)
+
+
+def multi_all_finite(*arrays, num_arrays=1, init_output=True):
+    ok = torch.stack([torch.isfinite(a).all() for a in arrays]).all()
+    return ok.reshape(1).to(torch.float32)
+
+
+def shape_array(x):
+    return torch.tensor(x.shape, dtype=torch.int32, device=x.device)
+
+
+def size_array(x):
+    return torch.tensor(x.numel(), dtype=torch.int32, device=x.device)
 
 
 def _register():
@@ -430,6 +944,60 @@ def _register():
     register_op("sort", differentiable=False)(sort)
     register_op("argsort", differentiable=False)(argsort)
     register_op("topk", differentiable=False)(topk)
+    for name, fn in _UNARY_REST.items():
+        register_op(name)(functools.partial(lambda x, _f: _f(x), _f=fn))
+    register_op("digamma")(_digamma)
+    register_op("arctan2")(arctan2)
+    register_op("broadcast_hypot")(broadcast_hypot)
+    register_op("_hypot_scalar")(_hypot_scalar)
+    register_op("prod")(prod)
+    register_op("nansum")(nansum)
+    register_op("nanprod")(nanprod)
+    register_op("argmin", differentiable=False)(argmin)
+    register_op("argmax_channel", differentiable=False)(argmax_channel)
+    register_op("broadcast_to")(broadcast_to)
+    register_op("broadcast_like")(broadcast_like)
+    register_op("broadcast_axis", aliases=("broadcast_axes",))(
+        broadcast_axis)
+    register_op("swapaxes", aliases=("SwapAxis",))(swapaxes)
+    register_op("slice")(_slice)
+    register_op("slice_like")(slice_like)
+    register_op("stack")(stack)
+    register_op("split", aliases=("SliceChannel",),
+                num_outputs=_split_nout)(split)
+    register_op("tile")(tile)
+    register_op("repeat")(repeat)
+    register_op("reverse", aliases=("flip",))(reverse)
+    register_op("take")(take)
+    register_op("one_hot", differentiable=False)(one_hot)
+    register_op("gather_nd")(gather_nd)
+    register_op("scatter_nd")(scatter_nd)
+    register_op("sequence_mask", aliases=("SequenceMask",))(sequence_mask)
+    register_op("sequence_last", aliases=("SequenceLast",))(sequence_last)
+    register_op("sequence_reverse", aliases=("SequenceReverse",))(
+        sequence_reverse)
+    register_op("dot")(dot)
+    register_op("batch_dot")(batch_dot)
+    register_op("L2Normalization")(l2_normalization)
+    register_op("diag")(diag)
+    register_op("cumsum")(cumsum)
+    register_op("cumprod")(cumprod)
+    for name in ("isnan", "isinf", "isfinite"):
+        register_op(name, differentiable=False)(functools.partial(
+            lambda x, _f: _f(x).to(torch.float32), _f=getattr(torch, name)))
+    register_op("trace")(trace)
+    register_op("_ravel_multi_index", aliases=("ravel_multi_index",),
+                differentiable=False)(ravel_multi_index)
+    register_op("_unravel_index", aliases=("unravel_index",),
+                differentiable=False)(unravel_index)
+    for name in ("bitwise_and", "bitwise_or", "bitwise_xor"):
+        register_op(name, differentiable=False)(
+            _bitwise(getattr(torch, name)))
+    register_op("all_finite", differentiable=False)(all_finite)
+    register_op("multi_all_finite", differentiable=False)(multi_all_finite)
+    register_op("shape_array", differentiable=False)(shape_array)
+    register_op("size_array", differentiable=False)(size_array)
+    register_op("copy", aliases=("_copy",))(lambda x: x.clone())
 
 
 _register()

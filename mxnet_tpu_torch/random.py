@@ -2,6 +2,7 @@
 ``mxnet_tpu/random.py``, which splits a threefry key per device).
 
 ``seed(s)`` reseeds every device's generator (``ctx`` one device's);
+``uniform``, ``normal`` and ``randint`` are ``nd.random``'s samplers;
 a generator not seeded yet starts from the last global seed (0 before
 any).  Imperative Dropout under ``autograd.record()`` and the NDArray
 entry point of a block draw from the generator of the data's device.
@@ -25,7 +26,8 @@ import torch
 
 from .context import resolve
 
-__all__ = ["seed", "generator", "register_graph", "host_generator"]
+__all__ = ["seed", "generator", "register_graph", "host_generator",
+           "uniform", "normal", "randint"]
 
 _LOCK = threading.Lock()
 _GENS: Dict[Tuple[str, int], torch.Generator] = {}
@@ -68,3 +70,24 @@ def host_generator() -> torch.Generator:
     """A new CPU generator seeded with the last global seed (0 before
     any): the draws of ``Module.init_params``."""
     return torch.Generator().manual_seed(_SEED[0])
+
+
+def uniform(low=0.0, high=1.0, shape=None, dtype=None, ctx=None, out=None):
+    from .ndarray import random as _nd_random
+
+    return _nd_random.uniform(low=low, high=high, shape=shape, dtype=dtype,
+                              ctx=ctx, out=out)
+
+
+def normal(loc=0.0, scale=1.0, shape=None, dtype=None, ctx=None, out=None):
+    from .ndarray import random as _nd_random
+
+    return _nd_random.normal(loc=loc, scale=scale, shape=shape, dtype=dtype,
+                             ctx=ctx, out=out)
+
+
+def randint(low, high, shape=None, dtype=None, ctx=None, out=None):
+    from .ndarray import random as _nd_random
+
+    return _nd_random.randint(low=low, high=high, shape=shape, dtype=dtype,
+                              ctx=ctx, out=out)

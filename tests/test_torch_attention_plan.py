@@ -143,7 +143,9 @@ def test_the_port_modules_import_no_jax():
                 "gluon/contrib/__init__.py", "gluon/contrib/nn.py",
                 "gluon/contrib/estimator.py", "ops/tensor.py",
                 "ops/__init__.py", "gluon/model_zoo/bert.py",
-                "gluon/model_zoo/vision/resnet.py"):
+                "gluon/model_zoo/vision/resnet.py", "ops/random_ops.py",
+                "ndarray/random.py", "ndarray/__init__.py",
+                "ndarray/ndarray.py", "autograd.py", "tools/op_sweep.py"):
         for name in _imports(pkg / rel):
             assert not name.startswith(("jax", "mxnet_tpu.")) \
                 and name != "mxnet_tpu", (rel, name)
@@ -161,7 +163,9 @@ def test_the_port_modules_import_no_jax():
             "mxnet_tpu_torch.io, mxnet_tpu_torch.lr_scheduler, "
             "mxnet_tpu_torch.callback, mxnet_tpu_torch.model, "
             "mxnet_tpu_torch.gluon.contrib.estimator, "
-            "mxnet_tpu_torch.gluon.contrib.nn, mxnet_tpu_torch.gluon.loss; "
+            "mxnet_tpu_torch.gluon.contrib.nn, mxnet_tpu_torch.gluon.loss, "
+            "mxnet_tpu_torch.ops.random_ops, mxnet_tpu_torch.ndarray.random, "
+            "mxnet_tpu_torch.tools.op_sweep; "
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'mxnet_tpu.')) or m == 'mxnet_tpu']; "
             "print(bad); sys.exit(1 if bad else 0)")

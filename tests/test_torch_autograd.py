@@ -318,3 +318,113 @@ def test_backward_writes_no_tensor_grad():
     assert net.weight._tensor.grad is None
     assert net.collect_params()["weight"].grad().asnumpy().any()
     assert torch.is_grad_enabled()  # the tensor callers' default is kept
+
+
+# ---------------------------------------------------------------------------
+# autograd.Function: a forward and a hand-written backward on NDArrays
+# ---------------------------------------------------------------------------
+
+def _square(pkg):
+    class Square(pkg.autograd.Function):
+        """The JAX package's tests/test_autograd.py Square."""
+
+        def forward(self, x):
+            self.save_for_backward(x)
+            return x * x
+
+        def backward(self, dy):
+            (x,) = self.saved_tensors
+            return 2 * x * dy
+
+    return Square()
+
+
+def _split_scale(pkg):
+    class SplitScale(pkg.autograd.Function):
+        """Two outputs, 3x and x^2; its backward sees zeros for an output
+        that got no gradient."""
+
+        def forward(self, x):
+            self.save_for_backward(x)
+            return x * 3, x * x
+
+        def backward(self, da, db):
+            (x,) = self.saved_tensors
+            self.seen = (da.asnumpy().copy(), db.asnumpy().copy())
+            return da * 3 + db * 2 * x
+
+    return SplitScale()
+
+
+@pytest.mark.parametrize("head", [None, X])
+def test_function_square_matches_jax(head):
+    out = []
+    for pkg, kw in ((mx, {}), (mt, {"ctx": CPU})):
+        x = pkg.nd.array(X, **kw)
+        x.attach_grad()
+        sq = _square(pkg)
+        with pkg.autograd.record():
+            y = sq(x)
+        y.backward(None if head is None else pkg.nd.array(head, **kw))
+        out.append((y, x.grad))
+        assert not pkg.autograd.is_recording()
+    (jy, jg), (ty, tg) = out
+    _close(jy, ty)
+    _close(jg, tg)
+
+
+def test_function_two_outputs_with_one_unused():
+    out = []
+    for pkg, kw in ((mx, {}), (mt, {"ctx": CPU})):
+        x = pkg.nd.array(X, **kw)
+        x.attach_grad()
+        fn = _split_scale(pkg)
+        with pkg.autograd.record():
+            a, b = fn(x)
+            loss = (a * a).sum()          # b gets no gradient
+        loss.backward()
+        out.append((x.grad, fn.seen))
+    (jg, (jda, jdb)), (tg, (tda, tdb)) = out
+    _close(jg, tg)
+    _close(jda, tda)
+    assert not tdb.any() and not jdb.any()
+
+
+def test_function_outside_recording_and_under_grad():
+    x = mt.nd.array(X, ctx=CPU)
+    sq = _square(mt)
+    _close(mx.nd.array(X) * mx.nd.array(X), sq(x))
+    x.attach_grad()
+    with mt.autograd.record():
+        y = _square(mt)(x) * 2
+    (g,) = mt.autograd.grad(y, [x])
+    _close(mx.nd.array(4 * X), g)
+    assert x.grad.asnumpy().sum() == 0   # grad() writes no buffer
+
+
+def test_function_forward_and_backward_do_not_record():
+    seen = []
+
+    class Probe(mt.autograd.Function):
+        def forward(self, x):
+            seen.append(mt.autograd.is_recording())
+            return x + 1
+
+        def backward(self, dy):
+            seen.append(mt.autograd.is_recording())
+            return dy
+
+    x = mt.nd.array(X, ctx=CPU)
+    x.attach_grad()
+    with mt.autograd.record():
+        y = Probe()(x)
+    y.backward()
+    assert seen == [False, False]
+    np.testing.assert_array_equal(x.grad.asnumpy(), np.ones_like(X))
+
+
+def test_get_symbol_raises_as_jax():
+    with pytest.raises(mx.base.MXNetError):
+        mx.autograd.get_symbol(mx.nd.array(X))
+    with pytest.raises(MXNetError, match="HybridBlock"):
+        mt.autograd.get_symbol(mt.nd.array(X, ctx=CPU))

@@ -303,7 +303,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                 "ops/optimizer_ops.py", "optimizer/optimizer.py",
                 "optimizer/fused.py", "parallel/spmd.py", "gluon/block.py",
                 "gluon/trainer.py", "module/module.py",
-                "gluon/model_zoo/bert.py", "gluon/model_zoo/vision/resnet.py"):
+                "gluon/model_zoo/bert.py", "gluon/model_zoo/vision/resnet.py",
+                "ops/random_ops.py", "ndarray/random.py",
+                "tools/op_sweep.py"):
         assert pkg / rel in files, rel
     for f in files:
         for mod in _imports(f):
