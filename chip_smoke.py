@@ -343,7 +343,7 @@ Phases, each failing loudly (exit code 1, no result line):
    52 + 46 kernel launches a step; ms a step beside phase 5's SGD step.
    The phase's seconds and the whole script's are printed.
 14. MXNet's imperative op surface (ROADMAP queue A item 3(a)-(e)), with
-   TF32 off: (a) every registered op name (333) on the card against the
+   TF32 off: (a) every registered op name (338) on the card against the
    same call on CPU tensors, on mxnet_tpu_torch.tools.op_sweep's seeded
    inputs, forward and (differentiable ops) the gradient under a seeded
    cotangent: index, selection and data-movement ops the same bits; the
@@ -371,6 +371,34 @@ Phases, each failing loudly (exit code 1, no result line):
    with autograd.Function, recorded on the card: its gradient within 1
    ulp of the built-in sigmoid's and within 2^-22 |dy| + 4 ulps of the
    CPU's (the two sigmoids may put y two ulps apart near 1).
+15. MXNet's recurrent path (ROADMAP queue A item 6), TF32 off: (a) the
+   RNN op, all four modes, bidirectional, 2 layers, T = 30, batch 32,
+   width 200, given states: outputs and the gradients of data,
+   parameters and states on the card against the CPU, fp32 and bf16,
+   each tensor's distance to the float64 CPU run within twice the CPU
+   run's in the same dtype plus 2^-20 (fp32) / 2^-8 (bf16) of
+   (1 + max|ref|); dropout at p = 0.3 between two layers built to pass
+   it through: the kept share within 6 standard errors of 0.7, the kept
+   values y / 0.7, one generator state the same bits twice, the next new
+   draws.  (b) mxnet_tpu_torch/examples/rnn_bucketing.py at its default
+   widths (batch 32, width 200, 2 LSTM layers, buckets 10-60, 2000
+   synthetic lines, Adam): 2 epochs over the fused op, 1 over the
+   legacy cells; final perplexity < 3.0, one training and one scoring
+   capture per bucket and no eviction, one updater and one captured
+   update for every bucket, each bucket's captured step bit for bit its
+   step under no_capture from the same state; ms a step per bucket,
+   captured and eager, median [min, max] of 10 calls.  (c) the same LM
+   written with gluon.rnn.LSTM(200, num_layers=2) through the hybridized
+   gluon.Trainer loop: 4 steps captured against 4 under no_capture, bit
+   for bit, one training build.  (d) CTCLoss at T = 100, batch 32,
+   alphabet 30, labels of 1-20: loss and gradient against the CPU as in
+   (a) (2^-20); ms beside F.ctc_loss (the record only).  (e)
+   contrib.amp: init("float16"), convert_hybrid_block on (c)'s net, one
+   bf16 step through scale_loss/unscale: every parameter bf16 and
+   changed, the loss finite.  (f) the op (LSTM, 2 layers) beside
+   torch.nn.LSTM (cuDNN) at the example's T = 60 and Zaremba et al.'s
+   medium PTB LSTM (T = 35, width 650), batch 32, fp32 and bf16, forward
+   and forward + backward, ms by graph replay; for PERF.md only.
 
 The compiled paths (mxnet_tpu_torch._graphs): every SPMDTrainer step on one
 device, every hybridized forward in inference and under record() (a
@@ -5768,6 +5796,496 @@ def phase_ops(card):
     return res
 
 
+# ---------------------------------------------------------------------------
+# phase 15: the recurrent path
+# ---------------------------------------------------------------------------
+
+RNN_MODES = ("lstm", "gru", "rnn_tanh", "rnn_relu")
+LM_WIDTH, LM_LAYERS, LM_SEQ = 200, 2, 30   # the example's widths, one bucket
+LM_VOCAB = 11                              # the example's synthetic corpus
+ZAREMBA = (35, 650)                        # medium PTB LSTM: steps, width
+CTC_SHAPE = (100, 32, 30, 20)              # T, batch, alphabet, longest label
+
+
+def witness_share(got, cpu, ref, slack):
+    """The card's largest distance to a float64 reference over twice the
+    CPU run's in the same dtype plus `slack` * (1 + max|ref|): at most 1
+    when the card is no further from the truth than twice the CPU."""
+    ref = ref.double()
+    e_card = float((got.double().cpu() - ref).abs().max())
+    e_cpu = float((cpu.double() - ref).abs().max())
+    return e_card / (2 * e_cpu + slack * (1 + float(ref.abs().max())))
+
+
+def rnn_inputs(mode, gen, t, n, width, layers, bi):
+    from mxnet_tpu_torch.ops.rnn import rnn_param_size
+
+    d = 2 if bi else 1
+    size = rnn_param_size(mode, width, width, layers, bi)
+    x = torch.randn(t, n, width, generator=gen)
+    w = (torch.rand(size, generator=gen) * 2 - 1) / math.sqrt(width)
+    h0 = torch.randn(layers * d, n, width, generator=gen) * 0.5
+    c0 = torch.randn(layers * d, n, width, generator=gen) * 0.5 \
+        if mode == "lstm" else None
+    return [x, w, h0, c0]
+
+
+def rnn_run(inputs, cts, dev, dtype, kw):
+    """The RNN op's outputs and the gradients of its data, parameters and
+    states on `dev` in `dtype`, under the cotangents `cts`."""
+    from mxnet_tpu_torch.ops.rnn import rnn
+
+    leaves = [None if t is None else t.to(dev, dtype).requires_grad_()
+              for t in inputs]
+    outs = rnn(*leaves, **kw)
+    grads = torch.autograd.grad(outs, [t for t in leaves if t is not None],
+                                [c.to(dev, dtype) for c in cts])
+    return [o.detach() for o in outs] + [g.detach() for g in grads]
+
+
+def rnn_dropout_check(dev):
+    """Dropout at p = 0.3 between two rnn_relu layers made so that the
+    second passes its input through (identity i2h, zero h2h and biases)
+    and the first's output is positive: the output is y * mask / 0.7,
+    so its zeros are the dropped share.  One generator state gives the
+    same bits twice; the next state gives other draws."""
+    from mxnet_tpu_torch import random as mrandom
+    from mxnet_tpu_torch.ops.rnn import rnn
+
+    h, t, n, keep = LM_WIDTH, LM_SEQ, BATCH, 0.7
+    gen = torch.Generator().manual_seed(1502)
+    x = torch.rand(t, n, h, generator=gen).to(dev)
+    w = torch.cat([torch.rand(h * h, generator=gen) * 0.01,
+                   torch.zeros(h * h), torch.eye(h).reshape(-1),
+                   torch.zeros(h * h), torch.full((h,), 0.1),
+                   torch.zeros(3 * h)]).to(dev)
+    kw = dict(state_size=h, num_layers=2, mode="rnn_relu",
+              state_outputs=False)
+    y = rnn(x, w, **kw)
+    g = mrandom.generator(dev)
+    g.manual_seed(1503)
+    s0 = g.get_state()
+    a = rnn(x, w, None, None, g, p=1 - keep, train=True, **kw)
+    g.set_state(s0)
+    b = rnn(x, w, None, None, g, p=1 - keep, train=True, **kw)
+    c = rnn(x, w, None, None, g, p=1 - keep, train=True, **kw)
+    kept = a != 0
+    share = float(kept.double().mean())
+    se = abs(share - keep) / math.sqrt(keep * (1 - keep) / a.numel())
+    scale_err = float(((a - y / keep).abs() / (y / keep)).where(
+        kept, torch.zeros_like(a)).max())
+    same, new = torch.equal(a, b), not torch.equal(a, c)
+    if se > 6 or scale_err > 1e-6 or not same or not new \
+            or not bool((y > 0).all()):
+        fail(f"rnn op dropout: kept share {share} ({se:.1f} standard "
+             f"errors), kept values {scale_err} from y/0.7, same state "
+             f"same bits {same}, next state new draws {new}")
+    return dict(kept=share, se=se, scale_err=scale_err, same=same, new=new)
+
+
+def rnn_op_checks(dev, card):
+    """(a) every mode, bidirectional and 2 layers, at the example's width
+    (T = 30, batch 32, width 200): outputs and gradients on the card
+    against the CPU in fp32 and bf16, each held by witness_share against
+    the float64 CPU run (slack 2^-20 in fp32, 2^-8 in bf16); then
+    dropout at p = 0.3."""
+    from mxnet_tpu_torch.ops.rnn import rnn
+
+    gen = torch.Generator().manual_seed(1501)
+    worst = {"float32": 0.0, "bfloat16": 0.0}
+    for mode in RNN_MODES:
+        kw = dict(state_size=LM_WIDTH, num_layers=2, mode=mode,
+                  bidirectional=True)
+        inputs = rnn_inputs(mode, gen, LM_SEQ, BATCH, LM_WIDTH, 2, True)
+        with torch.no_grad():
+            outs = rnn(*[None if t is None else t.double()
+                         for t in inputs], **kw)
+        cts = [torch.randn(o.shape, generator=gen) for o in outs]
+        ref = rnn_run(inputs, cts, "cpu", torch.float64, kw)
+        for dt, slack in ((torch.float32, 2.0 ** -20),
+                          (torch.bfloat16, 2.0 ** -8)):
+            name = str(dt).replace("torch.", "")
+            got = rnn_run(inputs, cts, dev, dt, kw)
+            cpu = rnn_run(inputs, cts, "cpu", dt, kw)
+            for i, (g, c, r) in enumerate(zip(got, cpu, ref)):
+                share = witness_share(g, c, r, slack)
+                worst[name] = max(worst[name], share)
+                if not share <= 1.0:
+                    fail(f"rnn op: {mode} {name} tensor {i} is "
+                         f"{share:.3f} of its bound")
+    drop = rnn_dropout_check(dev)
+    print(f"rnn op: 4 modes x bidirectional x 2 layers at T={LM_SEQ} "
+          f"batch {BATCH} width {LM_WIDTH}, outputs and the gradients of "
+          f"data, parameters and states: worst fp32 {worst['float32']:.3f}, "
+          f"bf16 {worst['bfloat16']:.3f} of the bound (the card's distance "
+          f"to the float64 cpu run <= 2x the cpu's in the same dtype + "
+          f"2^-20 / 2^-8 (1 + max|ref|)); dropout p=0.3: kept "
+          f"{drop['kept']:.5f} ({drop['se']:.2f} standard errors from 0.7), "
+          f"kept values {drop['scale_err']:.1e} from y/0.7, one generator "
+          f"state the same bits {drop['same']}, the next new draws "
+          f"{drop['new']} [{card}]", flush=True)
+    return dict(worst=worst, dropout=drop)
+
+
+def bucket_state(model):
+    """Copies of what a BucketingModule step writes: the shared
+    parameters, the optimizer's states and its update counts."""
+    default = model._buckets[model._default_bucket_key]
+    ex = default._exec_group.execs[0]
+    upd = default._updater
+    opt = default._optimizer
+    return ([ex.arg_dict[n]._data.clone() for n in default._param_names],
+            [t.clone() for t in flat_states(upd.states)],
+            dict(opt._index_update_count), opt.num_update)
+
+
+def set_bucket_state(model, st):
+    default = model._buckets[model._default_bucket_key]
+    ex = default._exec_group.execs[0]
+    with torch.no_grad():
+        for n, v in zip(default._param_names, st[0]):
+            ex.arg_dict[n]._data.copy_(v)
+        for t, v in zip(flat_states(default._updater.states), st[1]):
+            t.copy_(v)
+    default._optimizer._index_update_count = dict(st[2])
+    default._optimizer.num_update = st[3]
+
+
+def bucket_batches(it):
+    """The first batch of each bucket."""
+    it.reset()
+    out = {}
+    for b in it:
+        out.setdefault(b.bucket_key, b)
+    return out
+
+
+def bucket_step(model, batch):
+    model.forward_backward(batch)
+    model.update()
+
+
+def bucket_bits(model, batches):
+    """Each bucket's captured step against its step under no_capture
+    from the same weights and optimizer state: outputs, gradients,
+    weights and optimizer states bit for bit.  The state is put back
+    after each."""
+    from mxnet_tpu_torch import _graphs as graphs
+
+    bad = []
+    for key, batch in sorted(batches.items()):
+        s0 = bucket_state(model)
+        runs = []
+        for eager in (False, True):
+            set_bucket_state(model, s0)
+            with contextlib.ExitStack() as stack:
+                if eager:
+                    stack.enter_context(graphs.no_capture())
+                bucket_step(model, batch)
+            ex = model._buckets[key]._exec_group.execs[0]
+            st = bucket_state(model)
+            runs.append([o._data.clone() for o in ex.outputs]
+                        + [g._data.clone() for g in ex.grad_arrays
+                           if g is not None] + st[0] + st[1])
+        set_bucket_state(model, s0)
+        if not all(torch.equal(a, b) for a, b in zip(*runs)):
+            bad.append(key)
+    return bad
+
+
+def bucket_times(model, batches, calls=5):
+    """ms of one step (forward_backward + update, host clock around a
+    synchronised call) per bucket, captured and under no_capture in
+    turns (captured, eager, eager, captured): median, min and max."""
+    from mxnet_tpu_torch import _graphs as graphs
+
+    s0 = bucket_state(model)
+    out = {}
+    for key, batch in sorted(batches.items()):
+        ms = {False: [], True: []}
+        for eager in (False, True, True, False):
+            with contextlib.ExitStack() as stack:
+                if eager:
+                    stack.enter_context(graphs.no_capture())
+                for _ in range(calls):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    bucket_step(model, batch)
+                    torch.cuda.synchronize()
+                    ms[eager].append((time.perf_counter() - t0) * 1e3)
+        out[key] = {("eager" if e else "captured"): dict(
+            median=sorted(v)[len(v) // 2], min=min(v), max=max(v))
+            for e, v in ms.items()}
+    set_bucket_state(model, s0)
+    return out
+
+
+def lm_example(card):
+    """(b) examples/rnn_bucketing.py at its default widths (batch 32,
+    width 200, 2 layers, buckets 10-60, 2000 synthetic lines, Adam lr
+    0.01): 2 epochs over the fused RNN op, 1 over the legacy cells.
+    final perplexity < 3.0 (the JAX example's bar), one training capture
+    and one scoring capture per bucket and no eviction, one updater and
+    one captured update for every bucket, each bucket's captured step
+    bit for bit its eager step; ms a step per bucket."""
+    from mxnet_tpu_torch import _graphs as graphs
+    from mxnet_tpu_torch.examples import rnn_bucketing
+    from mxnet_tpu_torch.optimizer import fused
+    from mxnet_tpu_torch.symbol import executor as sx
+
+    res = {}
+    for tag, argv in (("fused", ["--epochs", "2"]),
+                      ("cells", ["--epochs", "1", "--cells"])):
+        x0, u0 = sx.executor_stats(), fused.compile_stats()["count"]
+        t0 = time.perf_counter()
+        run = rnn_bucketing.main(argv)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        model = run["model"]
+        x1 = sx.executor_stats()
+        slots = {}
+        for key, mod in model._buckets.items():
+            tok = graphs.owner_token(mod._exec_group.execs[0])
+            with sx._EXEC_CACHE.lock:
+                mine = [k[1] for k in sx._EXEC_CACHE.data if k[0] == tok]
+            slots[key] = (sum(1 for s in mine if s[0] and s[1]),
+                          sum(1 for s in mine if not s[0]))
+        updaters = {id(m._updater) for m in model._buckets.values()}
+        updates = fused.compile_stats()["count"] - u0
+        batches = bucket_batches(run["iter"])
+        bad = bucket_bits(model, batches)
+        times = bucket_times(model, batches)
+        ok = (run["perplexity"] < 3.0 and len(slots) == 5
+              and all(v == (1, 1) for v in slots.values())
+              and x1["evictions"] == x0["evictions"] and len(updaters) == 1
+              and updates == 1 and not bad)
+        if not ok:
+            fail(f"lm example ({tag}): final perplexity "
+                 f"{run['perplexity']:.3f} (bar 3.0), (train, score) "
+                 f"captures per bucket {slots}, evictions "
+                 f"{x1['evictions'] - x0['evictions']}, updaters "
+                 f"{len(updaters)}, captured updates {updates}, buckets "
+                 f"whose captured step differs from eager {bad}")
+        per = "; ".join(
+            f"{k}: captured {v['captured']['median']:.2f} "
+            f"[{v['captured']['min']:.2f}, {v['captured']['max']:.2f}] "
+            f"eager {v['eager']['median']:.2f} [{v['eager']['min']:.2f}, "
+            f"{v['eager']['max']:.2f}]" for k, v in sorted(times.items()))
+        print(f"lm example ({tag}): {argv}: final perplexity "
+              f"{run['perplexity']:.3f} (bar 3.0) in {secs:.1f} s; "
+              f"(train, score) captures per bucket {slots}, "
+              f"{x1['count'] - x0['count']} executor captures "
+              f"({x1['seconds_total'] - x0['seconds_total']:.2f} s), "
+              f"{len(updaters)} updater, {updates} captured update; "
+              f"captured step bit for bit its eager step in "
+              f"{len(batches) - len(bad)}/{len(batches)} buckets", flush=True)
+        print(f"lm example ({tag}): ms a step by bucket length, median "
+              f"[min, max] of 10 calls: {per} [{card}]", flush=True)
+        res[tag] = dict(perplexity=run["perplexity"], seconds=secs,
+                        captures=slots, updates=updates, bits_bad=bad,
+                        ms=times)
+        del run, model
+    return res
+
+
+def lm_net(vocab, dev):
+    from mxnet_tpu_torch import gluon, init
+    from mxnet_tpu_torch.gluon import nn, rnn
+
+    net = nn.HybridSequential()
+    net.add(nn.Embedding(vocab, LM_WIDTH),
+            rnn.LSTM(LM_WIDTH, num_layers=LM_LAYERS, layout="NTC"),
+            nn.Dense(vocab, flatten=False))
+    net.initialize(init.Xavier(), ctx=dev)
+    net.hybridize()
+    return net
+
+
+def lm_gluon(card, dev):
+    """(c) gluon.rnn.LSTM(200, num_layers=2) as the same LM (Embedding,
+    LSTM over NTC, Dense) through the hybridized gluon.Trainer loop,
+    batch 32 x 30 tokens: 1 + CAPTURE_K steps with the CachedOp captured
+    against as many under no_capture from one state, every parameter,
+    optimizer state and loss bit for bit, one training build."""
+    from mxnet_tpu_torch import nd
+
+    gen = torch.Generator().manual_seed(1504)
+    xb = torch.randint(1, LM_VOCAB, (BATCH, LM_SEQ), generator=gen)
+    yb = torch.roll(xb, -1, 1)
+    xb, yb = xb.float().to(dev), yb.float().to(dev)
+    net = lm_net(LM_VOCAB, dev)
+    net(nd.NDArray(xb))  # resolves the LSTM's input width
+    w0 = snapshot(net)
+    runs, _, bad = captured_loop("lm gluon", net, w0, xb, yb,
+                                 1 + CAPTURE_K, card)
+    c = runs["captured"]
+    if c[2] != 1:
+        fail(f"lm gluon: {c[2]} training builds, want 1")
+    print(f"lm gluon: LSTM({LM_WIDTH}, num_layers={LM_LAYERS}) LM through "
+          f"the hybridized gluon.Trainer loop, {1 + CAPTURE_K} steps "
+          f"captured (builds {c[2]}) bit for bit the eager ones {not bad}; "
+          f"losses {[round(v, 4) for v in c[0]]} [{card}]", flush=True)
+    return net, xb, yb, dict(builds=c[2], identical=not bad,
+                             losses=c[0])
+
+
+def ctc_inputs(gen, dev=None):
+    t, n, alphabet, longest = CTC_SHAPE
+    x = torch.randn(t, n, alphabet, generator=gen)
+    lens = torch.randint(1, longest + 1, (n,), generator=gen)
+    lab = torch.randint(1, alphabet, (n, longest), generator=gen)
+    lab = torch.where(torch.arange(longest) < lens[:, None], lab, 0)
+    return x, lab.float(), lens
+
+
+def ctc_checks(card, dev):
+    """(d) CTCLoss (blank first, 0 padding) at T = 100, batch 32,
+    alphabet 30, labels of 1 to 20: the loss and its gradient on the card
+    against the CPU, held by witness_share against float64 (slack
+    2^-20); ms of the op's forward and backward beside F.ctc_loss on the
+    same log-probabilities (the record only: it is not the op)."""
+    from mxnet_tpu_torch.ops.nn import ctc_loss, log_softmax
+
+    gen = torch.Generator().manual_seed(1505)
+    x, lab, lens = ctc_inputs(gen)
+    ct = torch.rand(x.shape[1], generator=gen)
+
+    def run(d, dt):
+        xd = x.to(d, dt).requires_grad_()
+        loss = ctc_loss(xd, lab.to(d))
+        (g,) = torch.autograd.grad(loss, [xd], [ct.to(d, loss.dtype)])
+        return loss.detach(), g
+    ref = run("cpu", torch.float64)
+    got = run(dev, torch.float32)
+    cpu = run("cpu", torch.float32)
+    shares = [witness_share(g, c, r, 2.0 ** -20)
+              for g, c, r in zip(got, cpu, ref)]
+    if not max(shares) <= 1.0 or not bool(torch.isfinite(got[0]).all()):
+        fail(f"ctc: loss/gradient {shares} of the bound")
+    xd = x.to(dev).requires_grad_()
+    lab_d, ct_d = lab.to(dev), ct.to(dev)
+
+    def port():
+        loss = ctc_loss(xd, lab_d)
+        torch.autograd.grad(loss, [xd], [ct_d])
+
+    logp = log_softmax(xd.detach(), axis=-1).requires_grad_()
+    il = torch.full((x.shape[1],), x.shape[0], dtype=torch.long,
+                    device=dev)
+    tl = lens.to(dev)
+    tgt = lab.long().to(dev)
+
+    def library():
+        loss = F.ctc_loss(logp, tgt, il, tl, blank=0, reduction="none")
+        torch.autograd.grad(loss, [logp], [ct_d])
+    port_ms, lib_ms = time_ms(port, iters=5), time_ms(library, iters=5)
+    print(f"ctc: T={CTC_SHAPE[0]} batch {CTC_SHAPE[1]} alphabet "
+          f"{CTC_SHAPE[2]} labels 1-{CTC_SHAPE[3]}: loss "
+          f"{shares[0]:.3f}, gradient {shares[1]:.3f} of the bound; "
+          f"forward + backward {port_ms:.3f} ms, F.ctc_loss "
+          f"{lib_ms:.3f} ms (the record only) [{card}]", flush=True)
+    return dict(shares=shares, ms=port_ms, library_ms=lib_ms)
+
+
+def lm_amp(card, net, xb, yb):
+    """(e) contrib.amp on (c)'s net: init("float16") selects bfloat16,
+    convert_hybrid_block casts every parameter (none is a normalisation
+    one), then one gluon.Trainer step (sgd) through scale_loss/unscale
+    at scale 1: every parameter bf16 and changed, the loss finite."""
+    from mxnet_tpu_torch import autograd, gluon, nd
+    from mxnet_tpu_torch.contrib import amp
+
+    amp.init("float16")
+    amp.convert_hybrid_block(net)
+    dtypes = {str(v.dtype) for v in net.state_dict().values()}
+    w0 = snapshot(net)
+    trainer = gluon.Trainer(net.collect_params(), "sgd",
+                            {"learning_rate": 0.1})
+    amp.init_trainer(trainer)
+    loss_fn = gluon.loss.SoftmaxCrossEntropyLoss()
+    x, y = nd.NDArray(xb), nd.NDArray(yb)
+    with autograd.record():
+        loss = loss_fn(net(x), y)
+        with amp.scale_loss(loss, trainer) as scaled:
+            scaled.backward()
+    amp.unscale(trainer)
+    trainer.step(xb.shape[0])
+    value = float(loss.mean().asscalar())
+    changed = all(not torch.equal(w0[k], v)
+                  for k, v in net.state_dict().items())
+    after = {str(v.dtype) for v in net.state_dict().values()}
+    ok = dtypes == after == {"torch.bfloat16"} and changed \
+        and math.isfinite(value)
+    if not ok:
+        fail(f"lm amp: dtypes {dtypes} -> {after}, every parameter "
+             f"changed {changed}, loss {value}")
+    print(f"lm amp: convert_hybrid_block -> {sorted(after)}, one bf16 step "
+          f"through scale_loss/unscale: loss {value:.4f}, every parameter "
+          f"changed {changed} [{card}]", flush=True)
+    return dict(loss=value, dtypes=sorted(after), changed=changed)
+
+
+def rnn_timings(card, dev):
+    """(f) the port's RNN op (LSTM, 2 layers) against torch.nn.LSTM
+    (cuDNN) at the example's largest bucket (T = 60, batch 32, width
+    200) and Zaremba et al. (2014)'s medium PTB LSTM (T = 35, batch 32,
+    width 650), fp32 and bf16, forward and forward + backward: ms a call
+    by replays of a CUDA graph of 3 calls (graph_ms).  For PERF.md only:
+    a yardstick, no claim."""
+    from mxnet_tpu_torch.ops.rnn import rnn, rnn_param_size
+
+    gen = torch.Generator().manual_seed(1506)
+    rows = []
+    for tag, (t, h) in (("example", (60, LM_WIDTH)),
+                        ("zaremba_medium", ZAREMBA)):
+        for dt in (torch.float32, torch.bfloat16):
+            x = torch.randn(t, BATCH, h, generator=gen).to(dev, dt)
+            w = ((torch.rand(rnn_param_size("lstm", h, h, 2, False),
+                             generator=gen) * 2 - 1) / math.sqrt(h)).to(
+                                 dev, dt)
+            lstm = torch.nn.LSTM(h, h, num_layers=2).to(dev, dt)
+            lstm.flatten_parameters()
+            ct = torch.randn(t, BATCH, h, generator=gen).to(dev, dt)
+            xg, wg = x.clone().requires_grad_(), w.clone().requires_grad_()
+            xc = x.clone().requires_grad_()
+            kw = dict(state_size=h, num_layers=2, mode="lstm",
+                      state_outputs=False)
+            cudnn_params = list(lstm.parameters())
+            rec = dict(shape=tag, T=t, batch=BATCH, width=h,
+                       dtype=str(dt).replace("torch.", ""))
+            rec["port_fwd_ms"] = graph_ms(lambda: rnn(x, w, **kw), 3)
+            rec["port_fwd_bwd_ms"] = graph_ms(lambda: torch.autograd.grad(
+                rnn(xg, wg, **kw), [xg, wg], [ct]), 3)
+            with torch.no_grad():
+                rec["cudnn_fwd_ms"] = graph_ms(lambda: lstm(x), 3)
+            rec["cudnn_fwd_bwd_ms"] = graph_ms(
+                lambda: torch.autograd.grad(lstm(xc)[0],
+                                            [xc] + cudnn_params, [ct]), 3)
+            rows.append(rec)
+            print(f"rnn timing: {tag} T={t} batch {BATCH} width {h} "
+                  f"{rec['dtype']}: port forward {rec['port_fwd_ms']:.3f} "
+                  f"ms, forward+backward {rec['port_fwd_bwd_ms']:.3f} ms; "
+                  f"torch.nn.LSTM (cuDNN) {rec['cudnn_fwd_ms']:.3f} / "
+                  f"{rec['cudnn_fwd_bwd_ms']:.3f} ms [{card}]", flush=True)
+    return rows
+
+
+def phase_rnn(card):
+    """Phase 15: the recurrent path on the card ((a) to (f))."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    t0 = time.perf_counter()
+    res = dict(op=rnn_op_checks(dev, card), example=lm_example(card))
+    net, xb, yb, res["gluon"] = lm_gluon(card, dev)
+    res["ctc"] = ctc_checks(card, dev)
+    res["amp"] = lm_amp(card, net, xb, yb)
+    res["timings"] = rnn_timings(card, dev)
+    res["seconds"] = time.perf_counter() - t0
+    print(f"rnn: phase 15 took {res['seconds']:.1f} s", flush=True)
+    return res
+
+
 def attention_path_summary(kernel, path, rows, launches, batch):
     """The `kernels` record of kernel 5 on one phase-9 path: each check
     record in `rows` (record, launches) weighted by its launches in one
@@ -5845,6 +6363,7 @@ def main():
     gluon_res = phase_gluon(card)
     opt_res = phase_optimizers(card, train_res, gluon_res)
     phase_ops(card)
+    phase_rnn(card)
     dec_steps = tf_res["decode"]["steps"]
     dp_keys = dict(backend=dp_res.get("backend"), ranks=DP)
     # kernel 1 once for each main path (its shapes and launches), kernel 2

@@ -20,7 +20,10 @@ symbolic half: ``sym`` (Symbol and its executor), ``mod`` (Module),
 ``io``, ``lr_scheduler``, ``callback``, ``model`` and
 ``gluon.SymbolBlock``; slice 17 adds MXNet's imperative op surface: the
 rest of the tensor, unary and nn ops, the NDArray methods, ``nd.random``
-and ``mx.random``'s samplers, and ``autograd.Function``.
+and ``mx.random``'s samplers, and ``autograd.Function``; slice 18 adds
+the recurrent path: the ``RNN`` and ``CTCLoss`` ops, ``gluon.rnn``, the
+legacy ``rnn`` cells and ``BucketSentenceIter``, ``mod.BucketingModule``
+and ``contrib.amp`` (see ``examples/rnn_bucketing.py``).
 """
 from __future__ import annotations
 
@@ -40,6 +43,7 @@ from . import symbol
 from . import symbol as sym
 from . import module
 from . import module as mod
+from . import contrib, rnn
 from .attribute import AttrScope
 from .ndarray import waitall
 
@@ -48,4 +52,4 @@ __all__ = ["MXNetError", "cpu", "gpu", "tpu", "num_gpus", "current_context",
            "autograd", "kvstore", "metric", "ndarray", "nd", "NDArray",
            "optimizer", "random", "gluon", "attribute", "AttrScope",
            "callback", "io", "lr_scheduler", "model", "name", "symbol",
-           "sym", "module", "mod", "waitall"]
+           "sym", "module", "mod", "contrib", "rnn", "waitall"]

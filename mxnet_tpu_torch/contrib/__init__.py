@@ -1,4 +1,5 @@
-"""Contrib of the port: ``deploy`` (artifacts for serving)."""
-from . import deploy
+"""Contrib of the port: ``deploy`` (artifacts for serving) and ``amp``
+(mixed precision in bfloat16)."""
+from . import amp, deploy
 
-__all__ = ["deploy"]
+__all__ = ["amp", "deploy"]

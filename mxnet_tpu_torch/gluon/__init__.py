@@ -5,9 +5,9 @@ from .block import (ActiveTrace, Block, HybridBlock, SymbolBlock,
 from .parameter import (Constant, DeferredInitializationError, Parameter,
                         ParameterDict)
 from .trainer import Trainer
-from . import contrib, data, loss, nn, model_zoo, parameter, utils
+from . import contrib, data, loss, nn, model_zoo, parameter, rnn, utils
 
 __all__ = ["Block", "HybridBlock", "SymbolBlock", "ActiveTrace", "current_trace",
            "load_numpy_params", "Parameter", "ParameterDict", "Constant",
            "DeferredInitializationError", "Trainer", "contrib", "data",
-           "loss", "nn", "model_zoo", "parameter", "utils"]
+           "loss", "nn", "model_zoo", "parameter", "rnn", "utils"]

@@ -187,16 +187,45 @@ class _Imperative:
         return False
 
 
-def _call_on_ndarrays(block, args, kwargs, method=None):
-    """MXNet's imperative call: NDArrays in, the forward (or ``method``,
-    one of the block's stages) on their tensors, NDArrays out."""
-    from ..ndarray.ndarray import NDArray, wrap_outputs
+def _ndarrays_in(v):
+    """The NDArrays of an argument: itself, or those of a list or tuple
+    of them (a recurrent cell's states)."""
+    from ..ndarray.ndarray import NDArray
 
-    nds = [a for a in args if isinstance(a, NDArray)] + \
-        [v for v in kwargs.values() if isinstance(v, NDArray)]
-    targs = [a._data if isinstance(a, NDArray) else a for a in args]
-    tkw = {k: v._data if isinstance(v, NDArray) else v
-           for k, v in kwargs.items()}
+    if isinstance(v, NDArray):
+        return [v]
+    if isinstance(v, (list, tuple)):
+        return [a for x in v for a in _ndarrays_in(x)]
+    return []
+
+
+def _unwrap(v):
+    from ..ndarray.ndarray import NDArray
+
+    if isinstance(v, NDArray):
+        return v._data
+    if isinstance(v, (list, tuple)):
+        return type(v)(_unwrap(x) for x in v)
+    return v
+
+
+def _wrap(out):
+    from ..ndarray.ndarray import NDArray
+
+    if isinstance(out, torch.Tensor):
+        return NDArray(out)
+    if isinstance(out, (list, tuple)):
+        return type(out)(_wrap(x) for x in out)
+    return out
+
+
+def _call_on_ndarrays(block, args, kwargs, method=None):
+    """MXNet's imperative call: NDArrays in (lists of them included), the
+    forward (or ``method``, one of the block's stages) on their tensors,
+    NDArrays out in the same nesting."""
+    nds = _ndarrays_in(list(args) + list(kwargs.values()))
+    targs = [_unwrap(a) for a in args]
+    tkw = {k: _unwrap(v) for k, v in kwargs.items()}
     train = _autograd.is_training()
     gen = _random.generator(nds[0].ctx)
     if method is not None and getattr(block, "_active", False) \
@@ -209,8 +238,7 @@ def _call_on_ndarrays(block, args, kwargs, method=None):
     with torch.set_grad_enabled(_autograd.is_recording()), scope:
         out = method(*targs, **tkw) if method is not None \
             else nn.Module.__call__(block, *targs, **tkw)
-    return wrap_outputs(out) if isinstance(out, torch.Tensor) \
-        else type(out)(wrap_outputs(out))
+    return _wrap(out)
 
 
 # ---------------------------------------------------------------------------
@@ -267,11 +295,14 @@ class Block(nn.Module):
         self._inits: Dict[str, object] = {}
         self._params = BlockParams(
             self, params if isinstance(params, BlockParams) else None)
-        self._prefix = _NameManager.create(prefix,
-                                           type(self).__name__.lower())
+        self._prefix = _NameManager.create(prefix, self._alias())
         self._name = self._prefix[:-1] if self._prefix.endswith("_") \
             else self._prefix
         self._scope = _NameManager(self._prefix)
+
+    def _alias(self) -> str:
+        """The name hint of the block's default prefix."""
+        return type(self).__name__.lower()
 
     @property
     def params(self) -> BlockParams:
@@ -368,10 +399,7 @@ class Block(nn.Module):
         _param.set_shape(self, name, shape)
 
     def __call__(self, *args, **kwargs):
-        from ..ndarray.ndarray import NDArray
-
-        if any(isinstance(a, NDArray) for a in args) or any(
-                isinstance(v, NDArray) for v in kwargs.values()):
+        if _ndarrays_in(list(args) + list(kwargs.values())):
             return _call_on_ndarrays(self, args, kwargs)
         return super().__call__(*args, **kwargs)
 

@@ -1,9 +1,10 @@
 """Gluon losses of the port (counterpart of ``mxnet_tpu/gluon/loss.py``):
 L2Loss, L1Loss, SigmoidBinaryCrossEntropyLoss, SoftmaxCrossEntropyLoss,
 KLDivLoss, HuberLoss, HingeLoss, SquaredHingeLoss, LogisticLoss,
-TripletLoss, CosineEmbeddingLoss and PoissonNLLLoss, each the JAX
-package's formula op by op.  CTCLoss waits for the RNN slice (ROADMAP
-queue A item 6).
+TripletLoss, CosineEmbeddingLoss, PoissonNLLLoss and CTCLoss, each the
+JAX package's formula op by op.  CTCLoss takes NTC or TNC activations
+and NT or TN labels, its blank the last class, and returns the CTC loss
+per sequence (the ``CTCLoss`` op, ``ops/nn.py``).
 
 A loss returns one value per sample: the mean over every axis but
 ``batch_axis`` (TripletLoss and CosineEmbeddingLoss: the value per
@@ -19,7 +20,7 @@ __all__ = ["Loss", "L2Loss", "L1Loss", "SigmoidBinaryCrossEntropyLoss",
            "SigmoidBCELoss", "SoftmaxCrossEntropyLoss", "SoftmaxCELoss",
            "KLDivLoss", "HuberLoss", "HingeLoss", "SquaredHingeLoss",
            "LogisticLoss", "TripletLoss", "CosineEmbeddingLoss",
-           "PoissonNLLLoss"]
+           "PoissonNLLLoss", "CTCLoss"]
 
 
 def _apply_weighting(F, loss, weight=None, sample_weight=None):
@@ -257,3 +258,28 @@ class PoissonNLLLoss(Loss):
             loss = loss + stirling
         loss = _apply_weighting(F, loss, self._weight, sample_weight)
         return F.mean(loss)
+
+
+class CTCLoss(Loss):
+    def __init__(self, layout="NTC", label_layout="NT", weight=None,
+                 prefix=None, params=None):
+        super().__init__(weight, 0, prefix, params)
+        self._layout = layout
+        self._label_layout = label_layout
+
+    def forward(self, pred, label, pred_lengths=None, label_lengths=None,
+                sample_weight=None):
+        return super().forward(pred, label, pred_lengths, label_lengths,
+                               sample_weight)
+
+    def hybrid_forward(self, F, pred, label, pred_lengths=None,
+                       label_lengths=None, sample_weight=None):
+        if self._layout == "NTC":
+            pred = F.swapaxes(pred, dim1=0, dim2=1)
+        if self._label_layout == "TN":
+            label = F.swapaxes(label, dim1=0, dim2=1)
+        loss = F.CTCLoss(pred, label, pred_lengths, label_lengths,
+                         use_data_lengths=pred_lengths is not None,
+                         use_label_lengths=label_lengths is not None,
+                         blank_label="last")
+        return _apply_weighting(F, loss, self._weight, sample_weight)

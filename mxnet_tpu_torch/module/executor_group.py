@@ -6,7 +6,10 @@ each.  A parameter lives on one device in the port, so the group binds
 one ``GraphExecutor`` on one context and a list of several raises
 (``context.resolve``; ROADMAP queue A item 7).  It keeps the JAX
 package's grad_req rules: fixed parameters and labels get ``null``, the
-data ``write`` only with ``inputs_need_grad``.
+data ``write`` only with ``inputs_need_grad``.  With ``shared_group``
+(``Module.bind(shared_module=...)``, one bucket of a
+``BucketingModule``) the executor binds that group's parameter, aux and
+gradient arrays themselves, so one update of them is seen by both.
 """
 from __future__ import annotations
 
@@ -22,7 +25,8 @@ __all__ = ["DataParallelExecutorGroup"]
 class DataParallelExecutorGroup:
     def __init__(self, symbol, contexts, data_shapes, label_shapes=None,
                  param_names=None, for_training=True, inputs_need_grad=False,
-                 fixed_param_names=None, grad_req="write", logger=None):
+                 fixed_param_names=None, grad_req="write", logger=None,
+                 shared_group=None):
         ctx = resolve(list(contexts))
         self.symbol = symbol
         self.contexts = [ctx]
@@ -46,10 +50,32 @@ class DataParallelExecutorGroup:
         shapes = {d.name: d.shape for d in data_shapes}
         shapes.update({x.name: x.shape for x in (label_shapes or [])})
         arg_shapes, _, aux_shapes = symbol.infer_shape(**shapes)
-        args = {n: zeros(s, ctx=ctx) for n, s in zip(self.arg_names,
-                                                      arg_shapes)}
-        aux = [zeros(s, ctx=ctx) for s in aux_shapes]
-        self.execs = [symbol.bind(ctx, args, grad_req=req, aux_states=aux)]
+        sh = shared_group.execs[0] if shared_group is not None else None
+        params = set(self.param_names)
+        sh_args, sh_grads = ({}, {}) if sh is None else (
+            {n: a for n, a in sh.arg_dict.items() if n in params},
+            {n: g for n, g in sh.grad_dict.items() if n in params})
+        sh_aux = {} if sh is None else sh.aux_dict
+
+        def bound(table, name, shape):
+            """The shared group's array of ``name``, else new zeros."""
+            arr = table.get(name)
+            if arr is None:
+                return zeros(shape, ctx=ctx)
+            if tuple(arr.shape) != tuple(shape):
+                raise MXNetError(
+                    f"shared array '{name}' has shape {tuple(arr.shape)}, "
+                    f"this symbol needs {tuple(shape)}")
+            return arr
+
+        args = {n: bound(sh_args, n, s)
+                for n, s in zip(self.arg_names, arg_shapes)}
+        grads = {n: bound(sh_grads, n, args[n].shape)
+                 for n in self.arg_names if req[n] != "null"}
+        aux = [bound(sh_aux, n, s)
+               for n, s in zip(self.aux_names, aux_shapes)]
+        self.execs = [symbol.bind(ctx, args, args_grad=grads, grad_req=req,
+                                  aux_states=aux)]
 
     def set_params(self, arg_params, aux_params, allow_extra=False):
         for ex in self.execs:

@@ -119,7 +119,8 @@ class Module(BaseModule):
             param_names=self._param_names, for_training=for_training,
             inputs_need_grad=inputs_need_grad,
             fixed_param_names=self._fixed_param_names, grad_req=grad_req,
-            logger=self.logger)
+            logger=self.logger, shared_group=None if shared_module is None
+            else shared_module._exec_group)
         if self.params_initialized:
             self._exec_group.set_params(self._arg_params, self._aux_params)
 

@@ -8,7 +8,12 @@ hard_swish, mish, SoftmaxActivation, UpSampling, BilinearSampler,
 GridGenerator, SpatialTransformer, im2col/col2im, Correlation and
 DeformableConvolution; and the legacy loss heads of the symbolic API:
 SoftmaxOutput, SVMOutput, the three regression outputs, MakeLoss and
-stop_gradient (BlockGrad).  CTCLoss waits in ROADMAP queue A item 6.
+stop_gradient (BlockGrad); and CTCLoss (ctc_loss), the JAX op's
+log-space recursion over the label with blanks between its symbols, one
+step per frame, with -1e30 standing for log 0 and its gradient taken by
+autograd through a logaddexp with ``jnp.logaddexp``'s derivative
+(``F.ctc_loss`` gives inf where no alignment exists and treats padding
+its own way, so it is not this op).
 
 Counterpart of ``mxnet_tpu/ops/nn.py``, as plain functions on tensors
 with the same attributes, layouts and rounding points.  The JAX package
@@ -59,7 +64,7 @@ __all__ = ["fully_connected", "convolution", "deconvolution", "pooling",
            "hard_swish", "mish", "softmax_activation", "svm_output",
            "upsampling", "bilinear_sampler", "grid_generator",
            "spatial_transformer", "im2col", "col2im", "correlation",
-           "deformable_convolution"]
+           "deformable_convolution", "ctc_loss"]
 
 
 def _channels_last(layout) -> bool:
@@ -591,6 +596,80 @@ def stop_gradient(data):
     return data.detach()
 
 
+class _LogAddExp(torch.autograd.Function):
+    """log(exp(a) + exp(b)) with jnp.logaddexp's derivative,
+    exp(a - out) and exp(b - out): where -1e30 absorbs both terms (a
+    label no alignment can emit) each gets the whole cotangent, where
+    torch.logaddexp's gives each half."""
+
+    @staticmethod
+    def forward(ctx, a, b):
+        out = torch.logaddexp(a, b)
+        ctx.save_for_backward(a, b, out)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        a, b, out = ctx.saved_tensors
+        return g * torch.exp(a - out), g * torch.exp(b - out)
+
+
+def ctc_loss(data, label, data_lengths=None, label_lengths=None,
+             use_data_lengths=False, use_label_lengths=False,
+             blank_label="first"):
+    """The CTC loss per sequence, -log p(label | data), as the JAX op
+    computes it.
+
+    data: (T, N, alphabet) activations before the softmax.  label:
+    (N, L), padded with 0 or -1 when the blank is ``first`` (index 0;
+    real labels > 0), with -1 when it is ``last`` (index alphabet - 1;
+    real labels >= 0).  ``data_lengths`` are clipped into [1, T]; the
+    loss reads the last valid frame's alpha at 2·len and 2·len - 1 of
+    the extended label."""
+    seq_len, batch, alphabet = data.shape
+    logp = log_softmax(data, axis=-1)
+    blank = 0 if blank_label == "first" else alphabet - 1
+    lab = label.to(torch.int32).long()
+    n_lab = lab.shape[1]
+    lab_valid = lab > 0 if blank_label == "first" else lab >= 0
+    lab_len = lab_valid.sum(1) if not use_label_lengths \
+        else label_lengths.to(torch.int32).long()
+    dev = data.device
+    ext = torch.full((batch, 2 * n_lab + 1), blank, dtype=torch.long,
+                     device=dev)
+    ext[:, 1::2] = torch.where(lab_valid, lab, blank)
+    adt = torch.float64 if logp.dtype == torch.float64 else torch.float32
+    neg_inf = -1e30
+    alpha = torch.full((batch, 2 * n_lab + 1), neg_inf, dtype=adt,
+                       device=dev)
+    alpha[:, 0] = logp[0, :, blank]
+    alpha[:, 1] = logp[0].gather(1, ext[:, 1:2])[:, 0]
+    pad1 = torch.full((batch, 1), neg_inf, dtype=adt, device=dev)
+    pad2 = torch.full((batch, 2), neg_inf, dtype=adt, device=dev)
+    ext_shift = torch.cat([torch.full((batch, 2), -2, dtype=torch.long,
+                                      device=dev), ext[:, :-2]], 1)
+    allow_skip = (ext != blank) & (ext != ext_shift)
+    alphas = [alpha]
+    for t in range(1, seq_len):
+        prev1 = torch.cat([pad1, alpha[:, :-1]], 1)
+        prev2 = torch.cat([pad2, alpha[:, :-2]], 1)
+        merged = _LogAddExp.apply(alpha, prev1)
+        merged = torch.where(allow_skip, _LogAddExp.apply(merged, prev2),
+                             merged)
+        alpha = merged + logp[t].gather(1, ext)
+        alphas.append(alpha)
+    alphas = torch.stack(alphas)
+    if use_data_lengths and data_lengths is not None:
+        dl = data_lengths.to(torch.int32).long().clamp(1, seq_len)
+    else:
+        dl = torch.full((batch,), seq_len, dtype=torch.long, device=dev)
+    alpha_t = alphas.gather(0, (dl - 1).reshape(1, batch, 1).expand(
+        1, batch, alphas.shape[2]))[0]
+    a1 = alpha_t.gather(1, (2 * lab_len)[:, None])[:, 0]
+    a2 = alpha_t.gather(1, (2 * lab_len - 1).clamp_min(0)[:, None])[:, 0]
+    return -_LogAddExp.apply(a1, a2)
+
+
 def _bn_nout(attrs):
     return 3 if attrs.get("train", False) else 1
 
@@ -610,6 +689,7 @@ register_op("BatchNorm", aliases=("batch_norm",),
             num_outputs=_bn_nout)(batch_norm)
 register_op("stop_gradient", aliases=("BlockGrad", "block_grad"))(
     stop_gradient)
+register_op("CTCLoss", aliases=("ctc_loss",))(ctc_loss)
 for _name, _snake, _kind in (
         ("LinearRegressionOutput", "linear_regression_output", "linear"),
         ("MAERegressionOutput", "mae_regression_output", "mae"),

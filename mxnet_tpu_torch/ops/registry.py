@@ -129,7 +129,6 @@ _QUEUED_BY_ITEM = {
         "linalg_slogdet", "linalg_solve", "linalg_sumlogdiag",
         "linalg_syevd", "linalg_syrk", "linalg_trmm", "linalg_trsm",
         "moments", "slogdet", "solve"),
-    "6": ("RNN", "CTCLoss", "ctc_loss", "amp_cast", "amp_multicast"),
     "8": tuple(p + n for p in ("_image_", "image_") for n in (
         "crop", "flip_left_right", "flip_up_down", "normalize",
         "random_brightness", "random_contrast", "random_flip_left_right",

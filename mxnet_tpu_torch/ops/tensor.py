@@ -36,7 +36,13 @@ range: ``take`` clamps (``raise`` maps to ``clip``) or wraps,
 ``one_hot`` gives a row of ``off_value``, ``gather_nd`` clamps and
 ``scatter_nd`` drops the write.  The linalg names (``linalg_gemm2``,
 ``linalg_potrf``, ``linalg_syrk``, ``khatri_rao``) wait in ROADMAP
-queue A item 3(f), ``amp_cast``/``amp_multicast`` in item 6.
+queue A item 3(f).
+
+The mixed-precision casts of ``contrib.amp`` are here too:
+``amp_cast`` is ``cast`` with the JAX package's dtype map (float16 is
+bfloat16), and ``amp_multicast`` casts its inputs to the widest of
+their dtypes (bfloat16 < float32 < float64, any other ranking as
+float32), or the narrowest with ``cast_narrow``.
 """
 from __future__ import annotations
 
@@ -59,7 +65,7 @@ __all__ = ["pick", "mean", "sum", "arange_like", "expand_dims", "squeeze",
            "split", "tile", "repeat", "take", "one_hot", "gather_nd",
            "scatter_nd", "sequence_mask", "sequence_last",
            "sequence_reverse", "dot", "batch_dot", "l2_normalization",
-           "cumsum", "cumprod"]
+           "cumsum", "cumprod", "amp_cast", "amp_multicast"]
 
 
 def pick(x, index, axis=-1, keepdims=False, mode="clip"):
@@ -887,6 +893,23 @@ def multi_all_finite(*arrays, num_arrays=1, init_output=True):
     return ok.reshape(1).to(torch.float32)
 
 
+def amp_cast(data, dtype="float32"):
+    """``cast`` with float16 mapped to bfloat16, as in the JAX op."""
+    return data.to(dtype_of({"float16": "bfloat16"}.get(str(dtype), dtype)))
+
+
+_AMP_RANK = {torch.bfloat16: 0, torch.float32: 1, torch.float64: 2}
+
+
+def amp_multicast(*data, num_outputs=1, cast_narrow=False):
+    """Every input cast to the dtype of the widest one (the first of
+    the widest), or of the narrowest with ``cast_narrow``."""
+    ranked = [_AMP_RANK.get(d.dtype, 1) for d in data]
+    pick = (builtins.min if cast_narrow else builtins.max)(
+        range(len(data)), key=lambda i: ranked[i])
+    return tuple(d.to(data[pick].dtype) for d in data)
+
+
 def shape_array(x):
     return torch.tensor(x.shape, dtype=torch.int32, device=x.device)
 
@@ -995,6 +1018,9 @@ def _register():
             _bitwise(getattr(torch, name)))
     register_op("all_finite", differentiable=False)(all_finite)
     register_op("multi_all_finite", differentiable=False)(multi_all_finite)
+    register_op("amp_cast")(amp_cast)
+    register_op("amp_multicast", num_outputs=lambda attrs: int(
+        attrs.get("num_outputs", 1)))(amp_multicast)
     register_op("shape_array", differentiable=False)(shape_array)
     register_op("size_array", differentiable=False)(size_array)
     register_op("copy", aliases=("_copy",))(lambda x: x.clone())

@@ -124,6 +124,19 @@ def _label_shapes(ins, attrs):
     return {"label": tuple(d[:-1])}
 
 
+def _rnn_shapes(ins, attrs):
+    d = ins.get("data")  # (T, N, I)
+    if d is None:
+        return {}
+    from ..ops.rnn import rnn_param_size
+
+    if not attrs.get("state_size"):
+        raise MXNetError("RNN requires a positive state_size attribute")
+    return {"parameters": (rnn_param_size(
+        attrs.get("mode", "lstm"), d[2], attrs["state_size"],
+        attrs.get("num_layers", 1), attrs.get("bidirectional", False)),)}
+
+
 class _Schema:
     def __init__(self, inputs: Sequence[str], aux: Sequence[str] = (),
                  optional: Sequence[str] = (), param_shapes=None):
@@ -133,9 +146,7 @@ class _Schema:
         self.param_shapes = param_shapes
 
 
-# The JAX package's table, but RNN's, whose op comes with ROADMAP queue A
-# item 6; the schemas of ops the port has not registered still give a
-# loaded graph its aux states.
+# The JAX package's table.
 SCHEMAS: Dict[str, _Schema] = {
     "FullyConnected": _Schema(("data", "weight", "bias"), optional=("bias",),
                               param_shapes=_fc_shapes),
@@ -157,6 +168,9 @@ SCHEMAS: Dict[str, _Schema] = {
     "Dropout": _Schema(("data",)),  # the generator comes from the executor
     "SoftmaxOutput": _Schema(("data", "label"), param_shapes=_label_shapes),
     "LeakyReLU": _Schema(("data", "gamma"), optional=("gamma",)),
+    "RNN": _Schema(("data", "parameters", "state", "state_cell"),
+                   optional=("state", "state_cell"),
+                   param_shapes=_rnn_shapes),
 }
 
 # The JAX package's names for the ops that read the train flag and the

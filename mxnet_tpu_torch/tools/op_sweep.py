@@ -311,6 +311,8 @@ add("_unravel_index unravel_index",
 add("all_finite", Case([C([[1.0, np.inf], [0.0, 2.0]])], kind="exact"))
 add("multi_all_finite", Case([X, C([1.0, np.nan])], {"num_arrays": 2},
                              kind="exact"))
+add("amp_cast", Case([X], {"dtype": "float16"}, kind="exact"))
+add("amp_multicast", Case([X, I(3, 4)], {"num_outputs": 2}, kind="exact"))
 
 # ---- loss heads, spatial ops ---------------------------------------------------------
 add("SoftmaxOutput softmax_output", Case([F(4, 5), FI(4, hi=5)],
@@ -381,6 +383,9 @@ ELSEWHERE = {
     "_contrib_MultiBoxDetection": "phase 10 (detection)",
     "Dropout": "phases 9 and 12 (dropout 0.1 on the card)",
     "dropout": "phases 9 and 12 (dropout 0.1 on the card)",
+    "RNN": "phase 15 (a) (every mode, forward and backward)",
+    "CTCLoss": "phase 15 (d) (T = 100, batch 32)",
+    "ctc_loss": "phase 15 (d) (T = 100, batch 32)",
 }
 for _n in ("sgd_update sgd_mom_update nag_mom_update mp_sgd_update "
            "mp_sgd_mom_update adam_update mp_adam_update rmsprop_update "

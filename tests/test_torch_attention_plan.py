@@ -145,7 +145,12 @@ def test_the_port_modules_import_no_jax():
                 "ops/__init__.py", "gluon/model_zoo/bert.py",
                 "gluon/model_zoo/vision/resnet.py", "ops/random_ops.py",
                 "ndarray/random.py", "ndarray/__init__.py",
-                "ndarray/ndarray.py", "autograd.py", "tools/op_sweep.py"):
+                "ndarray/ndarray.py", "autograd.py", "tools/op_sweep.py",
+                "ops/rnn.py", "gluon/rnn/__init__.py",
+                "gluon/rnn/rnn_cell.py", "gluon/rnn/rnn_layer.py",
+                "rnn/__init__.py", "rnn/rnn_cell.py", "rnn/io.py",
+                "module/bucketing_module.py", "contrib/__init__.py",
+                "contrib/amp.py", "examples/rnn_bucketing.py"):
         for name in _imports(pkg / rel):
             assert not name.startswith(("jax", "mxnet_tpu.")) \
                 and name != "mxnet_tpu", (rel, name)
@@ -165,7 +170,11 @@ def test_the_port_modules_import_no_jax():
             "mxnet_tpu_torch.gluon.contrib.estimator, "
             "mxnet_tpu_torch.gluon.contrib.nn, mxnet_tpu_torch.gluon.loss, "
             "mxnet_tpu_torch.ops.random_ops, mxnet_tpu_torch.ndarray.random, "
-            "mxnet_tpu_torch.tools.op_sweep; "
+            "mxnet_tpu_torch.tools.op_sweep, mxnet_tpu_torch.ops.rnn, "
+            "mxnet_tpu_torch.gluon.rnn, mxnet_tpu_torch.rnn, "
+            "mxnet_tpu_torch.module.bucketing_module, "
+            "mxnet_tpu_torch.contrib.amp, "
+            "mxnet_tpu_torch.examples.rnn_bucketing; "
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'mxnet_tpu.')) or m == 'mxnet_tpu']; "
             "print(bad); sys.exit(1 if bad else 0)")

@@ -305,7 +305,11 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                 "gluon/trainer.py", "module/module.py",
                 "gluon/model_zoo/bert.py", "gluon/model_zoo/vision/resnet.py",
                 "ops/random_ops.py", "ndarray/random.py",
-                "tools/op_sweep.py"):
+                "tools/op_sweep.py", "ops/rnn.py", "gluon/rnn/__init__.py",
+                "gluon/rnn/rnn_cell.py", "gluon/rnn/rnn_layer.py",
+                "rnn/__init__.py", "rnn/rnn_cell.py", "rnn/io.py",
+                "module/bucketing_module.py", "contrib/__init__.py",
+                "contrib/amp.py", "examples/rnn_bucketing.py"):
         assert pkg / rel in files, rel
     for f in files:
         for mod in _imports(f):

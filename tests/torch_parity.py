@@ -137,3 +137,39 @@ def hold_case(name, seed=0):
             continue
         hold_array(bkind, t, j.astype(t.dtype), case.n, ulps=BWD_ULPS,
                    what=f"{name} gradient {i}")
+
+
+# ---------------------------------------------------------------------------
+# the recurrent path (RNN, CTCLoss, gluon.rnn, the legacy cells,
+# BucketingModule, contrib.amp)
+# ---------------------------------------------------------------------------
+
+# fp32, elementwise: a forward within RNN_FWD * (1 + |want|) over up to 16
+# steps, a gradient (summed over steps and the batch) within
+# RNN_BWD * (1 + |want|).  bf16: within RNN_BF16_ULPS ulps of bf16 at the
+# tensor's largest magnitude (2^-8 of it an ulp): each package rounds every
+# op's result to bf16 alike, but the recursion carries a difference of one
+# rounding from step to step.
+RNN_FWD = 1e-5
+RNN_BWD = 1e-4
+RNN_BF16_ULPS = 4
+
+
+def hold_close(got, want, tol, what=""):
+    """|got - want| <= tol * (1 + |want|) elementwise, shapes equal."""
+    got = np.asarray(got, np.float64)
+    want = np.asarray(want, np.float64)
+    assert got.shape == want.shape, (what, got.shape, want.shape)
+    err = np.abs(got - want) / (1.0 + np.abs(want))
+    assert err.max(initial=0.0) <= tol, \
+        f"{what}: {err.max():.3g} > {tol:g} of (1 + |want|)"
+
+
+def hold_bf16(got, want, ulps=RNN_BF16_ULPS, what=""):
+    """bf16 results within ``ulps`` bf16 ulps of the largest |want|."""
+    got = np.asarray(got, np.float64)
+    want = np.asarray(want, np.float64)
+    assert got.shape == want.shape, (what, got.shape, want.shape)
+    ulp = 2.0 ** (np.floor(np.log2(max(np.abs(want).max(), 1e-30))) - 7)
+    err = np.abs(got - want).max(initial=0.0)
+    assert err <= ulps * ulp, f"{what}: {err / ulp:.2f} > {ulps} bf16 ulps"
