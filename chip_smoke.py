@@ -399,6 +399,46 @@ Phases, each failing loudly (exit code 1, no result line):
    torch.nn.LSTM (cuDNN) at the example's T = 60 and Zaremba et al.'s
    medium PTB LSTM (T = 35, width 650), batch 32, fp32 and bf16, forward
    and forward + backward, ms by graph replay; for PERF.md only.
+16. the core runtime on the card (phase_core; alone: python -c "import
+   chip_smoke as c; c.phase_core(c.phase_device())"): (a) Context:
+   gpu(0).device_type == "gpu", `with mx.gpu(0):` puts nd.zeros,
+   nd.array and nd.sparse.zeros on cuda:0, `with mx.cpu():` inside it on
+   the CPU, current_context() restored on exit.  (b) a sparse logistic
+   regression at the width of LIBSVM's avazu-app (1,000,000 features):
+   32,768 synthetic rows of 20 Zipf-drawn features from the seed,
+   labels from a planted weight vector, written to a libsvm file and
+   read by io.LibSVMIter at batch 8192; a step is kv.row_sparse_pull of
+   the batch's columns, nd.sparse.dot(csr, w) + b, the logistic gradient
+   dot(csr, r, transpose_a=True).tostype("row_sparse") and kv.push into
+   a local store with lazy SGD (momentum 0.9); 5 epochs.  Held: the
+   loss falls from ln 2 (each epoch's mean below the last, the last
+   below ln 2 - 0.05); moving each CSR batch to the card takes at most
+   1.1x its compact bytes (the allocator's peak, from an emptied
+   cache); the rows no batch touched are their initial bits after step
+   1 and at the end; the card's weights after epoch 1 within
+   2^-20 (of their largest magnitude) of a CPU run of the port.  Prints
+   ms a step and the share of the run spent parsing.  (c) lazy updates
+   on a 1,000,000 x 64 fp32 table: the row-sparse gradient of 8192 x 20
+   Zipf ids through lazy SGD-momentum (untouched rows bit for bit,
+   touched rows within one ulp of the dense sgd_mom_update restricted
+   to them), SGD with lazy_update=False and Adam (both bit for bit the
+   dense update on the dense view); ms by CUDA events against the dense
+   update, beside the bound (the bytes each must move over 3.35 TB/s).
+   (d) every linalg name on the card against float64 on the CPU: 8 x
+   2048^2 fp32 for potrf, potri, trsm, trmm, syrk, gemm, gemm2, 8 x 512^2
+   for syevd, gelqf, inverse, det, slogdet, solve (and the aliases), the
+   copies bit for bit against the CPU's fp32 op, moments over ResNet-50
+   stage-1 activations (256 x 56 x 56 x 256 bf16, axes 0-2); products
+   within 2^-22 k of their terms' magnitudes, decompositions within
+   8 n 2^-24 normwise (inputs built with condition numbers below 2),
+   syevd's eigenvectors by reconstruction and orthogonality; ms by CUDA
+   events against the bound (FLOPs at the 67 TFLOP/s fp32 peak, bytes
+   at 3.35 TB/s).  (e) MXNET_ENGINE_TYPE=NaiveEngine in a child process
+   of this script (--naive-engine, spawned as phase 6 spawns its
+   ranks): after each op outside engine.bulk the stream is idle
+   (torch.cuda.current_stream().query()); inside bulk(15) it is busy
+   after each op and idle at the scope's exit; the default engine's
+   stream is busy after the same op.
 
 The compiled paths (mxnet_tpu_torch._graphs): every SPMDTrainer step on one
 device, every hybridized forward in inference and under record() (a
@@ -3517,11 +3557,11 @@ def phase_imperative(card, refs, dev=torch.device("cuda", 0)):
     t0 = time.perf_counter()
     acc = mnist.run(epochs=1, ctx=dev, batch_size=100, keep=keep)
     wall = time.perf_counter() - t0
-    on_card = [p.data().ctx == dev and p.grad().ctx == dev
+    on_card = [p.data().data.device == dev and p.grad().data.device == dev
                for p in keep["net"].collect_params().values()]
     states = [s for st in keep["trainer"]._updater.states.values()
               for s in (st if isinstance(st, tuple) else (st,))]
-    on_card += [s.ctx == dev for s in states]
+    on_card += [s.data.device == dev for s in states]
     res["mnist"] = dict(val_accuracy=acc, steps=keep["steps"],
                         samples_per_s=keep["samples_per_s"], wall_s=wall,
                         states=len(states))
@@ -4356,11 +4396,12 @@ def ssd_example(card, dev=torch.device("cuda", 0)):
     wall = time.perf_counter() - t0
     counts = kernel_counts()
     params = keep["net"].collect_params().values()
-    on_card = [p.data().ctx == dev for p in params]
-    on_card += [p.grad().ctx == dev for p in params if p.grad_req != "null"]
+    on_card = [p.data().data.device == dev for p in params]
+    on_card += [p.grad().data.device == dev for p in params
+                if p.grad_req != "null"]
     states = [s for st in keep["trainer"]._updater.states.values()
               for s in (st if isinstance(st, tuple) else (st,))]
-    on_card += [s.ctx == dev for s in states]
+    on_card += [s.data.device == dev for s in states]
     steps = len(losses)
     print(f"ssd example {' '.join(SSD_EXAMPLE_ARGS)} on {dev}: losses "
           + " ".join(f"{v:.4f}" for v in losses)
@@ -4576,16 +4617,18 @@ def sym_numerics(net, w_args, w_aux, card):
     the outputs and each leaf's update lie within SYM_BOUNDS["leaf64"]."""
     from mxnet_tpu_torch import _graphs as mxg
     from mxnet_tpu_torch import cpu, gpu
+    from mxnet_tpu_torch.context import resolve
     from mxnet_tpu_torch.io import DataBatch
     from mxnet_tpu_torch.ndarray import NDArray
 
     x, y = sym_images(SYM_CHECK_BATCH, 3)
 
     def run(ctx, args, dtype=torch.float32):
+        dev = resolve(ctx)
         mod = sym_module(
             net, ctx, SYM_CHECK_BATCH,
-            {k: NDArray(v.to(ctx, dtype)) for k, v in args.items()},
-            {k: NDArray(v.to(ctx, dtype)) for k, v in w_aux.items()})
+            {k: NDArray(v.to(dev, dtype)) for k, v in args.items()},
+            {k: NDArray(v.to(dev, dtype)) for k, v in w_aux.items()})
         with mxg.no_capture():
             mod.forward_backward(DataBatch(
                 [NDArray(torch.from_numpy(x).to(dtype))],
@@ -5186,11 +5229,11 @@ def estimator_case(card, dev=torch.device("cuda", 0)):
     wall = time.perf_counter() - t0
     params = keep["net"].collect_params()
     shapes = [p.shape for k, p in params.items() if k.endswith("weight")]
-    on_card = [p.data().ctx == dev and p.grad().ctx == dev
+    on_card = [p.data().data.device == dev and p.grad().data.device == dev
                for p in params.values()]
     states = [s for st in keep["trainer"]._updater.states.values()
               for s in (st if isinstance(st, tuple) else (st,))]
-    on_card += [s.ctx == dev for s in states]
+    on_card += [s.data.device == dev for s in states]
     print(f"estimator mnist: val accuracy {acc:.4f} after {keep['steps']} "
           f"steps of 100 through Estimator.fit, {keep['samples_per_s']:.0f} "
           f"samples/s, {wall:.2f} s; resolved shapes {shapes}; "
@@ -5615,7 +5658,7 @@ def ops_model_shapes(dev, card):
         mean, var = float(v.mean()), float(v.var())
         se_m, se_v = math.sqrt(1 / count), math.sqrt(2 / count)
         ok = abs(mean) <= 6 * se_m and abs(var - 1) <= 6 * se_v \
-            and out.ctx == dev and out.shape == (count,)
+            and out.data.device == dev and out.shape == (count,)
         return ok, (f"on {out.ctx}, mean {mean:.2e} var {var:.6f} within "
                     f"6 standard errors of N(0, 1) {ok}")
 
@@ -6286,6 +6329,607 @@ def phase_rnn(card):
     return res
 
 
+# ---------------------------------------------------------------------------
+# phase 16: the core runtime (Context, sparse arrays, the local kvstore,
+# LibSVMIter, lazy updates, linalg, the engine)
+# ---------------------------------------------------------------------------
+
+AVAZU_FEATURES = 1_000_000   # LIBSVM avazu-app's width
+LINEAR_ROWS, LINEAR_NNZ, LINEAR_BATCH, LINEAR_EPOCHS = 32768, 20, 8192, 5
+LINEAR_OPT = {"learning_rate": 1.0, "momentum": 0.9, "wd": 1e-4}
+ZIPF_S = 1.1
+LAZY_TABLE = (1_000_000, 64)
+LINALG_B, LINALG_BIG, LINALG_SMALL = 8, 2048, 512
+LINALG_CHECKED = (0, LINALG_B - 1)   # batch entries held against float64
+MOMENTS_SHAPE = (256, 56, 56, 256)   # ResNet-50 stage-1 activations, NHWC
+PEAK_FP32 = 67e12                    # H100 SXM fp32 outside the tensor cores
+
+
+def zipf_ids(rng, shape, n, s=ZIPF_S):
+    """Ids in [0, n) drawn with P(rank r) proportional to (r + 1)^-s,
+    the ranks scattered over the ids by a fixed permutation."""
+    import numpy as np
+
+    cdf = np.cumsum(1.0 / np.arange(1, n + 1, dtype=np.float64) ** s)
+    cdf /= cdf[-1]
+    ranks = np.minimum(np.searchsorted(cdf, rng.random_sample(shape)), n - 1)
+    return np.random.RandomState(7).permutation(n)[ranks]
+
+
+def core_context(dev):
+    """(a) Context and its scope on the card."""
+    import numpy as np
+
+    import mxnet_tpu_torch as mt
+
+    ok = (mt.gpu(0).device_type == "gpu" and mt.gpu(0).device_id == 0
+          and repr(mt.gpu(0)) == "gpu(0)")
+    with mt.gpu(0):
+        made = [mt.nd.zeros((2,)), mt.nd.array(np.ones(3)),
+                mt.nd.sparse.zeros("row_sparse", (4, 2))]
+        on_card = all(a._data.device == dev and a.ctx == mt.gpu(0)
+                      for a in made)
+        with mt.cpu():
+            made = [mt.nd.zeros((2,)), mt.nd.array(np.ones(3)),
+                    mt.nd.sparse.zeros("csr", (4, 2))]
+            on_cpu = all(a.ctx == mt.cpu() for a in made) \
+                and mt.current_context() == mt.cpu()
+        restored = mt.current_context() == mt.gpu(0)
+    default = mt.current_context() == mt.gpu(0)
+    print(f"core (a): gpu(0).device_type {mt.gpu(0).device_type!r}, "
+          f"with gpu(0): on cuda:0 {on_card}; nested with cpu(): on the "
+          f"CPU {on_cpu}; restored {restored}, default {default}",
+          flush=True)
+    if not (ok and on_card and on_cpu and restored and default):
+        fail("core (a): Context or its with-scope misplaced an array")
+    return dict(ok=ok and on_card and on_cpu and restored and default)
+
+
+def linear_data(rng, rows, nnz, feats):
+    """Rows of `nnz` distinct Zipf-drawn features (value 1), labels drawn
+    from a planted weight vector; returns (features, labels)."""
+    import numpy as np
+
+    cand = zipf_ids(rng, (rows, 3 * nnz), feats)
+    out = np.empty((rows, nnz), np.int64)
+    for i in range(rows):
+        u, first = np.unique(cand[i], return_index=True)
+        while u.size < nnz:  # rare: draw the row again
+            u, first = np.unique(zipf_ids(rng, (3 * nnz,), feats),
+                                 return_index=True)
+        out[i] = np.sort(u[np.argsort(first)][:nnz])
+    w_star = rng.standard_normal(feats) * 0.8
+    logit = w_star[out].sum(1) - 0.2
+    labels = (rng.random_sample(rows) < 1 / (1 + np.exp(-logit))).astype(
+        np.int64)
+    return out, labels
+
+
+def write_libsvm(path, feats, labels):
+    with open(path, "w") as f:
+        f.write("\n".join(f"{y} " + " ".join(f"{c}:1" for c in row)
+                          for row, y in zip(feats.tolist(), labels.tolist())))
+        f.write("\n")
+
+
+def linear_train(path, dev, epochs, w0, feats=AVAZU_FEATURES,
+                 batch=LINEAR_BATCH):
+    """The sparse logistic regression through the port's entry points on
+    `dev`: LibSVMIter -> kv.row_sparse_pull -> sparse.dot + b -> the
+    logistic gradient as row_sparse -> kv.push (lazy SGD).  Returns the
+    losses, step seconds, parse seconds, each batch's (added device
+    bytes, compact bytes) and the weights after step 1, epoch 1 and the
+    last step (on the host)."""
+    import mxnet_tpu_torch as mt
+    from mxnet_tpu_torch.ndarray import sparse
+
+    ctx = mt.context.as_context(dev)
+    cuda = dev.type == "cuda"
+    t0 = time.perf_counter()
+    it = mt.io.LibSVMIter(data_libsvm=path, data_shape=(feats,),
+                          batch_size=batch)
+    parse_s = time.perf_counter() - t0
+    kv = mt.kv.create("local")
+    kv.set_optimizer(mt.optimizer.SGD(rescale_grad=1.0 / batch,
+                                      lazy_update=True, **LINEAR_OPT))
+    kv.init("w", mt.nd.array(w0, ctx=ctx))
+    kv.init("b", mt.nd.zeros((1,), ctx=ctx))
+    w_rsp = sparse.zeros("row_sparse", (feats, 1), ctx=ctx)
+    b = mt.nd.zeros((1,), ctx=ctx)
+    w_full = mt.nd.zeros((feats, 1), ctx=ctx)
+    losses, step_s, nbytes, snaps = [], [], [], {}
+    for ep in range(epochs):
+        it.reset()
+        ep_losses = []
+        for batch_ in it:
+            if cuda:
+                torch.cuda.synchronize()
+            t = time.perf_counter()
+            csr = batch_.data[0].as_in_context(ctx)
+            y = batch_.label[0].as_in_context(ctx)._data.reshape(-1)
+            kv.row_sparse_pull("w", out=w_rsp, row_ids=csr.indices)
+            kv.pull("b", out=b)
+            z = (sparse.dot(csr, w_rsp) + b)._data.reshape(-1)
+            loss = F.binary_cross_entropy_with_logits(z, y)
+            r = mt.nd.NDArray((torch.sigmoid(z) - y).reshape(-1, 1))
+            kv.push("w", sparse.dot(csr, r, transpose_a=True)
+                    .tostype("row_sparse"))
+            kv.push("b", mt.nd.NDArray(r._data.sum().reshape(1)))
+            ep_losses.append(float(loss))
+            step_s.append(time.perf_counter() - t)
+            if "step1" not in snaps:
+                kv.pull("w", out=w_full)
+                snaps["step1"] = w_full._data.detach().cpu().clone()
+        losses.append(ep_losses)
+        if ep == 0:
+            kv.pull("w", out=w_full)
+            snaps["epoch1"] = w_full._data.detach().cpu().clone()
+    kv.pull("w", out=w_full)
+    snaps["last"] = w_full._data.detach().cpu().clone()
+    if cuda:
+        # each batch's bytes on the card: the peak the allocator holds
+        # for its move there, from an emptied cache (a cached block
+        # larger than the request would count whole)
+        it.reset()
+        for batch_ in it:
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            before = torch.cuda.memory_allocated()
+            csr = batch_.data[0].as_in_context(ctx)
+            nbytes.append((torch.cuda.max_memory_allocated() - before,
+                           csr.nbytes_compact()))
+            del csr
+    return dict(losses=losses, step_s=step_s, parse_s=parse_s,
+                nbytes=nbytes, snaps=snaps)
+
+
+def core_linear(card, dev):
+    """(b) the sparse linear classifier at avazu-app's width."""
+    import tempfile
+
+    import numpy as np
+
+    rng = np.random.RandomState(1600)
+    t0 = time.perf_counter()
+    feats, labels = linear_data(rng, LINEAR_ROWS, LINEAR_NNZ,
+                                AVAZU_FEATURES)
+    w0 = (rng.standard_normal((AVAZU_FEATURES, 1)) * 0.01).astype(
+        np.float32)
+    touched = np.zeros(AVAZU_FEATURES, bool)
+    touched[feats.reshape(-1)] = True
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "avazu_like.libsvm")
+        write_libsvm(path, feats, labels)
+        gen_s = time.perf_counter() - t0
+        card_run = linear_train(path, dev, LINEAR_EPOCHS, w0)
+        cpu_run = linear_train(path, torch.device("cpu"), 1, w0)
+    ep_mean = [float(np.mean(x)) for x in card_run["losses"]]
+    falls = all(b < a for a, b in zip(ep_mean, ep_mean[1:])) \
+        and abs(card_run["losses"][0][0] - math.log(2)) < 5e-3 \
+        and card_run["losses"][-1][-1] < math.log(2) - 0.05
+    ratio = max(a / c for a, c in card_run["nbytes"])
+    w0t = torch.from_numpy(w0)
+    untouched = torch.from_numpy(~touched)
+    kept = all(torch.equal(card_run["snaps"][k][untouched], w0t[untouched])
+               for k in ("step1", "last"))
+    moved = int((card_run["snaps"]["last"] != w0t).sum())
+    w_card, w_cpu = card_run["snaps"]["epoch1"], cpu_run["snaps"]["epoch1"]
+    rel = float((w_card - w_cpu).abs().max() / w_cpu.abs().max())
+    steps = sorted(card_run["step_s"])
+    step_ms = steps[len(steps) // 2] * 1e3
+    train_s = sum(card_run["step_s"])
+    parse_share = card_run["parse_s"] / (card_run["parse_s"] + train_s)
+    print(f"core (b): {LINEAR_ROWS} rows x {LINEAR_NNZ} Zipf features of "
+          f"{AVAZU_FEATURES}, batch {LINEAR_BATCH}, {LINEAR_EPOCHS} epochs "
+          f"(data made and written in {gen_s:.2f} s): epoch mean losses "
+          f"{[round(x, 5) for x in ep_mean]}, first {card_run['losses'][0][0]:.6f}"
+          f" (ln 2 = {math.log(2):.6f}), last {card_run['losses'][-1][-1]:.5f}"
+          f"; falls {falls}", flush=True)
+    print(f"core (b): CSR batch bytes added on the card / compact bytes: "
+          f"max {ratio:.4f} (bound 1.1); rows no batch touched "
+          f"({int(untouched.sum())}) bit for bit their initial values after "
+          f"step 1 and at the end {kept} ({moved} rows moved); card vs "
+          f"CPU weights after epoch 1: {rel:.3e} of their largest "
+          f"magnitude (bound 2^-20 = {2.0 ** -20:.3e})", flush=True)
+    print(f"core (b): {step_ms:.3f} ms a step (median of "
+          f"{len(steps)}, min {steps[0] * 1e3:.3f}, max "
+          f"{steps[-1] * 1e3:.3f}); LibSVMIter parse {card_run['parse_s']:.3f}"
+          f" s = {parse_share:.3f} of parse + training [{card}]",
+          flush=True)
+    if not falls:
+        fail(f"core (b): the loss did not fall from ln 2: {ep_mean}")
+    if ratio > 1.1:
+        fail(f"core (b): a CSR batch took {ratio:.3f}x its compact bytes")
+    if not kept:
+        fail("core (b): a row no batch touched moved")
+    if not rel <= 2.0 ** -20:
+        fail(f"core (b): card and CPU weights after epoch 1 differ by "
+             f"{rel:.3e}")
+    return dict(ep_mean=ep_mean, step_ms=step_ms, parse_s=card_run[
+        "parse_s"], parse_share=parse_share, bytes_ratio=ratio, rel=rel)
+
+
+def ulp_close(got, want):
+    """|got - want| within one fp32 ulp of want, elementwise."""
+    a = want.abs()
+    ulp = torch.nextafter(a, torch.full_like(a, math.inf)) - a
+    return bool(((got - want).abs() <= ulp).all())
+
+
+def core_lazy(card, dev):
+    """(c) lazy SGD-momentum, SGD with lazy_update=False and Adam on a
+    row-sparse gradient of a 1,000,000 x 64 table."""
+    import numpy as np
+
+    import mxnet_tpu_torch as mt
+    from mxnet_tpu_torch import ops
+    from mxnet_tpu_torch.ndarray.sparse import RowSparseNDArray
+
+    n, d = LAZY_TABLE
+    gen = torch.Generator(device=dev).manual_seed(1601)
+    w0 = torch.randn(n, d, generator=gen, device=dev)
+    ids = zipf_ids(np.random.RandomState(1601), (LINEAR_BATCH, LINEAR_NNZ),
+                   n)
+    rows = torch.unique(torch.from_numpy(ids).to(dev))
+    u = rows.numel()
+    g_dense = torch.zeros(n, d, device=dev)
+    g_dense.index_copy_(0, rows, torch.randn(u, d, generator=gen,
+                                             device=dev))
+    grad = RowSparseNDArray(g_dense, rows)
+    hyper = dict(learning_rate=0.1, wd=1e-4)
+    res = {"rows": u}
+    mask = torch.zeros(n, dtype=torch.bool, device=dev)
+    mask[rows] = True
+    # lazy SGD with momentum, two updates
+    opt = mt.optimizer.SGD(momentum=0.9, lazy_update=True, **hyper)
+    w = mt.nd.NDArray(w0.clone())
+    st = opt.create_state(0, w)
+    w_ref, m_ref = w0.clone(), torch.zeros_like(w0)
+    for _ in range(2):
+        opt.update(0, w, grad, st)
+        w_ref, m_ref = ops.sgd_mom_update(w_ref, g_dense, m_ref, lr=0.1,
+                                          momentum=0.9, wd=1e-4)
+    lazy_ok = torch.equal(w._data[~mask], w0[~mask]) \
+        and bool((st._data[~mask] == 0).all()) \
+        and ulp_close(w._data[mask], w_ref[mask]) \
+        and ulp_close(st._data[mask], m_ref[mask])
+    # SGD with lazy_update=False and Adam: the dense update on the view
+    dense_ok = {}
+    for name, o_kw in (("sgd_dense", dict(lazy_update=False)),
+                       ("adam", dict(lazy_update=True))):
+        make = (lambda: mt.optimizer.SGD(**o_kw, **hyper)) \
+            if name == "sgd_dense" else \
+            (lambda: mt.optimizer.Adam(**o_kw, **hyper))
+        o1, o2 = make(), make()
+        a, b_ = mt.nd.NDArray(w0.clone()), mt.nd.NDArray(w0.clone())
+        s1, s2 = o1.create_state(0, a), o2.create_state(0, b_)
+        o1.update(0, a, grad, s1)
+        o2.update(0, b_, mt.nd.NDArray(g_dense), s2)
+        dense_ok[name] = torch.equal(a._data, b_._data) \
+            and not torch.equal(a._data[~mask], w0[~mask])
+    # times: each update as called, against the dense update
+    wt, mt_ = mt.nd.NDArray(w0.clone()), mt.nd.NDArray(torch.zeros_like(w0))
+    opt_t = mt.optimizer.SGD(momentum=0.9, lazy_update=True, **hyper)
+    opt_d = mt.optimizer.SGD(lazy_update=False, **hyper)
+    opt_a = mt.optimizer.Adam(**hyper)
+    sa = opt_a.create_state(0, wt)
+    w_d, m_d = w0.clone(), torch.zeros_like(w0)
+    row_b, full_b = u * d * 4, n * d * 4
+    cases = [
+        ("lazy sgd_mom (rows)", lambda: opt_t.update(0, wt, grad, mt_),
+         5 * row_b + u * 8),
+        ("dense sgd_mom_update", lambda: ops.sgd_mom_update(
+            w_d, g_dense, m_d, lr=0.1, momentum=0.9, wd=1e-4), 5 * full_b),
+        ("sgd lazy_update=False", lambda: opt_d.update(0, wt, grad, None),
+         3 * full_b),
+        ("adam (lazy_update ignored)", lambda: opt_a.update(0, wt, grad, sa),
+         7 * full_b)]
+    res["ms"] = {}
+    for tag, fn, nbytes in cases:
+        ms = time_ms(fn, iters=10, warmup=2)
+        bound = nbytes / PEAK_BYTES * 1e3
+        res["ms"][tag] = dict(ms=ms, bound_ms=bound)
+        print(f"core (c): {tag}: {ms:.4f} ms, bound {bound:.4f} ms "
+              f"(bytes; {nbytes / 1e6:.1f} MB), {nbytes / ms / 1e6:.1f} "
+              f"GB/s [{card}]", flush=True)
+    print(f"core (c): {n} x {d} fp32 table, gradient rows {u} of "
+          f"{LINEAR_BATCH} x {LINEAR_NNZ} Zipf ids: lazy SGD-momentum "
+          f"(2 updates) untouched rows bit for bit, touched within one ulp "
+          f"of the dense update {lazy_ok}; lazy_update=False and Adam bit "
+          f"for bit the dense update, untouched rows moved "
+          f"{dense_ok}", flush=True)
+    if not lazy_ok:
+        fail("core (c): the lazy SGD-momentum update moved an untouched "
+             "row or missed the dense update on a touched one")
+    if not all(dense_ok.values()):
+        fail(f"core (c): a dense update on the sparse gradient differs "
+             f"from the dense one: {dense_ok}")
+    res.update(lazy_ok=lazy_ok, dense_ok=dense_ok)
+    del w0, g_dense, grad, w, st, w_ref, m_ref, wt, mt_, sa, w_d, m_d
+    torch.cuda.empty_cache()
+    return res
+
+
+def _fro(t):
+    return float(torch.linalg.vector_norm(t.double()))
+
+
+def core_linalg(card, dev):
+    """(d) every linalg name on the card against float64 on the CPU."""
+    from mxnet_tpu_torch.ops import registry as reg
+
+    def op(name):
+        return reg.get_op(name).fn
+
+    B, N, n = LINALG_B, LINALG_BIG, LINALG_SMALL
+    gen = torch.Generator(device=dev).manual_seed(1602)
+    u32 = 2.0 ** -24
+    rows = []
+
+    def check(name, args, ref_args, ms_flops, nbytes, cmp, cpu_fn=None,
+              iters=3):
+        """Run `name` on the card, time it, and hold it with `cmp(got,
+        ref)` against the float64 CPU op on the checked batch entries
+        (or against `cpu_fn`, the CPU fp32 op, for the copies)."""
+        fn = op(name)
+        got = fn(*args)
+        ms = time_ms(lambda: fn(*args), iters=iters, warmup=1)
+        if cpu_fn is None:
+            ref = fn(*ref_args)
+        else:
+            ref = cpu_fn()
+        ok, err = cmp(got, ref)
+        bound = max(ms_flops / PEAK_FP32, nbytes / PEAK_BYTES) * 1e3
+        by = "operations" if ms_flops / PEAK_FP32 >= nbytes / PEAK_BYTES \
+            else "bytes"
+        rows.append(dict(name=name, ms=ms, bound_ms=bound, bound_by=by,
+                         err=err, ok=ok))
+        print(f"core (d): {name}: {ms:.3f} ms, bound {bound:.4f} ms ({by})"
+              f", {bound / ms:.3f} of it; error {err:.3e} held {ok} "
+              f"[{card}]", flush=True)
+        if not ok:
+            fail(f"core (d): {name} off its float64 reference ({err:.3e})")
+
+    chk = list(LINALG_CHECKED)
+
+    def sel(t):
+        return t[chk].cpu()
+
+    def normwise(k):
+        def cmp(got, ref):
+            got = got if isinstance(got, (tuple, list)) else (got,)
+            ref = ref if isinstance(ref, (tuple, list)) else (ref,)
+            errs = [_fro(sel(g).double() - r) / max(_fro(r), 1e-300)
+                    for g, r in zip(got, ref)]
+            return max(errs) <= 8 * k * u32, max(errs)
+        return cmp
+
+    def exact(got, ref):
+        got = got if isinstance(got, (tuple, list)) else (got,)
+        ref = ref if isinstance(ref, (tuple, list)) else (ref,)
+        same = all(torch.equal(g.cpu(), r) for g, r in zip(got, ref))
+        return same, 0.0 if same else 1.0
+
+    # ---- 8 x 2048^2 fp32 ---------------------------------------------------
+    m = torch.randn(B, N, N, generator=gen, device=dev)
+    a64 = torch.eye(N, device=dev, dtype=torch.float64) \
+        + (m.double() @ m.double().transpose(-1, -2)) / (4 * N)
+    a = a64.float()
+    l32 = torch.linalg.cholesky(a64).float()   # the factor potri reads
+    rhs = torch.randn(B, N, N, generator=gen, device=dev)
+    c = torch.randn(B, N, N, generator=gen, device=dev)
+    n3, n2 = B * N ** 3, B * N * N * 4
+
+    def prod(k, mags):
+        """Products: ||E||_F <= 2^-22 k sum of ||A||_F ||B||_F terms."""
+        def cmp(got, ref):
+            err = _fro(sel(got).double() - ref)
+            return err <= 2.0 ** -22 * k * mags, err / max(_fro(ref), 1e-300)
+        return cmp
+
+    def f64(*ts):
+        return [sel(t).double() for t in ts]
+
+    check("linalg_potrf", (a,), f64(a), n3 / 3, 2 * n2, normwise(N))
+    check("linalg_potri", (l32,), f64(l32), 2 * n3 / 3, 2 * n2, normwise(N))
+    check("linalg_trsm", (l32, rhs), f64(l32, rhs), n3, 3 * n2,
+          normwise(N))
+    fa, fm, fr, fc = (_fro(sel(t)) for t in (l32, m, rhs, c))
+    check("linalg_trmm", (l32, rhs), f64(l32, rhs), n3, 3 * n2,
+          prod(N, fa * fr))
+    check("linalg_syrk", (m,), f64(m), n3, 2 * n2, prod(N, fm * fm))
+    check("linalg_gemm", (m, rhs, c), f64(m, rhs, c), 2 * n3, 4 * n2,
+          prod(N + 1, fm * fr + fc))
+    check("linalg_gemm2", (m, rhs), f64(m, rhs), 2 * n3, 3 * n2,
+          prod(N, fm * fr))
+    check("linalg_sumlogdiag", (l32,), f64(l32), B * N, n2,
+          normwise(N))
+    check("linalg_extractdiag", (a,), None, 0, n2 + B * N * 4, exact,
+          cpu_fn=lambda: op("linalg_extractdiag")(a.cpu()))
+    del a64, a, l32, rhs, c, m
+    torch.cuda.empty_cache()
+
+    # ---- 8 x 512^2 ---------------------------------------------------------
+    m = torch.randn(B, n, n, generator=gen, device=dev)
+    s64 = torch.eye(n, device=dev, dtype=torch.float64) \
+        + (m.double() @ m.double().transpose(-1, -2)) / (4 * n)
+    sym = s64.float()
+    g32 = (2 * torch.eye(n, device=dev) + m / (2 * math.sqrt(n)))
+    # det: scaled so that |det| is near 1 (fp32 holds it)
+    logdet = torch.linalg.slogdet(g32.double())[1]
+    d32 = g32 * torch.exp(-logdet / n).float()[:, None, None]
+    rhs = torch.randn(B, n, 64, generator=gen, device=dev)
+    s3, s2 = B * n ** 3, B * n * n * 4
+
+    def syevd_cmp(got, ref):
+        u_, w_ = got
+        w64 = ref[1]
+        ew = _fro(sel(w_).double() - w64) / _fro(w64)
+        uc = sel(u_).double()
+        rec = uc.transpose(-1, -2) @ torch.diag_embed(sel(w_).double()) @ uc
+        er = _fro(rec - sel(sym).double()) / _fro(sel(sym).double())
+        eo = _fro(uc @ uc.transpose(-1, -2) - torch.eye(n, dtype=torch.float64))
+        bound = 8 * n * u32
+        print(f"core (d): linalg_syevd: eigenvalues {ew:.3e}, "
+              f"reconstruction {er:.3e}, orthogonality {eo:.3e} "
+              f"(/sqrt(n) {eo / math.sqrt(n):.3e})", flush=True)
+        return ew <= bound and er <= bound and eo <= bound * math.sqrt(n), \
+            max(ew, er, eo / math.sqrt(n))
+
+    def lq_canon(lo, q):
+        sgn = torch.sign(torch.diagonal(lo, dim1=-2, dim2=-1))
+        return lo * sgn[..., None, :], q * sgn[..., :, None]
+
+    def gelqf_cmp(got, ref):
+        lo, q = lq_canon(*(sel(t).double() for t in got))
+        lr, qr = lq_canon(*ref)
+        errs = [_fro(lo - lr) / _fro(lr), _fro(q - qr) / _fro(qr)]
+        return max(errs) <= 8 * n * u32, max(errs)
+
+    def det_cmp(got, ref):
+        err = float(((sel(got).double() - ref).abs() / ref.abs()).max())
+        return err <= 8 * n * u32, err
+
+    def slogdet_cmp(got, ref):
+        sg, lg = got
+        same = torch.equal(sel(sg).double(), ref[0])
+        err = float((sel(lg).double() - ref[1]).abs().max())
+        return same and err <= 8 * n * u32, err
+
+    check("linalg_syevd", (sym,), f64(sym), 9 * s3, 3 * s2 + B * n * 4,
+          syevd_cmp)
+    check("linalg_gelqf", (g32,), f64(g32), 4 * s3 / 3, 3 * s2, gelqf_cmp)
+    for name in ("linalg_inverse", "inverse"):
+        check(name, (g32,), f64(g32), 2 * s3, 2 * s2, normwise(n))
+    for name in ("linalg_det", "det"):
+        check(name, (d32,), f64(d32), 2 * s3 / 3, s2, det_cmp)
+    for name in ("linalg_slogdet", "slogdet"):
+        check(name, (g32,), f64(g32), 2 * s3 / 3, s2, slogdet_cmp)
+    for name in ("linalg_solve", "solve"):
+        check(name, (g32, rhs), f64(g32, rhs),
+              2 * s3 / 3 + 2 * B * n * n * 64, s2 + 2 * B * n * 64 * 4,
+              normwise(n))
+    vec = torch.randn(B, n, generator=gen, device=dev)
+    check("linalg_makediag", (vec,), None, 0, B * n * 4 + s2, exact,
+          cpu_fn=lambda: op("linalg_makediag")(vec.cpu()))
+    tri = op("linalg_extracttrian")(sym)
+    check("linalg_extracttrian", (sym,), None, 0, s2 + tri.numel() * 4,
+          exact, cpu_fn=lambda: op("linalg_extracttrian")(sym.cpu()))
+    check("linalg_maketrian", (tri,), None, 0, s2 + tri.numel() * 4,
+          exact, cpu_fn=lambda: op("linalg_maketrian")(tri.cpu()))
+    ka = torch.randn(256, 512, generator=gen, device=dev)
+    kb = torch.randn(128, 512, generator=gen, device=dev)
+    check("khatri_rao", (ka, kb), None, 256 * 128 * 512,
+          (256 + 128 + 256 * 128) * 512 * 4, exact,
+          cpu_fn=lambda: op("khatri_rao")(ka.cpu(), kb.cpu()))
+    del m, s64, sym, g32, d32, rhs, vec, tri, ka, kb
+    torch.cuda.empty_cache()
+
+    # ---- moments over ResNet-50 stage-1 activations ------------------------
+    x = torch.relu(torch.randn(*MOMENTS_SHAPE, generator=gen,
+                               device=dev)).to(torch.bfloat16)
+
+    def moments_cmp(got, ref):
+        errs = []
+        for g, r in zip(got, ref):
+            gf = g.cpu().double()
+            slack = bf16_ulp(r.float()).double() + 2.0 ** -16 * r.abs()
+            errs.append(float(((gf - r).abs() / slack).max()))
+        return max(errs) <= 1.0, max(errs)
+
+    def moments_ref():
+        xd = x.cpu().double()
+        mean = xd.mean(dim=(0, 1, 2))
+        return mean, ((xd - mean) ** 2).mean(dim=(0, 1, 2))
+
+    check("moments", (x, (0, 1, 2)), None, 3 * x.numel(),
+          x.numel() * 2 + 4 * x.shape[-1], moments_cmp, cpu_fn=moments_ref)
+    del x
+    torch.cuda.empty_cache()
+    return rows
+
+
+def naive_engine_child():
+    """(e)'s child: run under MXNET_ENGINE_TYPE=NaiveEngine, print one
+    JSON line."""
+    import mxnet_tpu_torch as mt
+    from mxnet_tpu_torch import engine
+    from mxnet_tpu_torch.ops import registry as reg
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    x = mt.nd.random.normal(shape=(4096, 4096), ctx=mt.gpu(0))
+    torch.cuda.synchronize()
+    stream = torch.cuda.current_stream()
+    idle_after_op = []
+    for _ in range(3):
+        mt.nd.dot(x, x)
+        idle_after_op.append(stream.query())
+    busy_in_bulk = []
+    with engine.bulk(15):
+        for _ in range(3):
+            mt.nd.dot(x, x)
+            busy_in_bulk.append(not stream.query())
+    idle_at_exit = stream.query()
+    print(json.dumps(dict(engine=engine.current_engine_type(),
+                          naive=reg._NAIVE, idle_after_op=idle_after_op,
+                          busy_in_bulk=busy_in_bulk,
+                          idle_at_exit=idle_at_exit)), flush=True)
+    return 0
+
+
+def core_engine(card, dev):
+    """(e) NaiveEngine in a child process against the default engine in
+    this one."""
+    import mxnet_tpu_torch as mt
+
+    res = subprocess.run(
+        [sys.executable, os.path.abspath(__file__), "--naive-engine"],
+        env=dict(os.environ, MXNET_ENGINE_TYPE="NaiveEngine"),
+        capture_output=True, text=True, timeout=300)
+    child = {}
+    try:
+        child = json.loads(res.stdout.strip().splitlines()[-1])
+    except (ValueError, IndexError):
+        pass
+    x = mt.nd.random.normal(shape=(4096, 4096), ctx=mt.gpu(0))
+    torch.cuda.synchronize()
+    mt.nd.dot(x, x)
+    busy_default = not torch.cuda.current_stream().query()
+    torch.cuda.synchronize()
+    ok = (res.returncode == 0 and child.get("engine") == "NaiveEngine"
+          and child.get("naive") is True
+          and all(child.get("idle_after_op", [False]))
+          and all(child.get("busy_in_bulk", [False]))
+          and child.get("idle_at_exit") is True)
+    print(f"core (e): NaiveEngine child (exit {res.returncode}): {child}; "
+          f"default engine busy after the op {busy_default}; held {ok}",
+          flush=True)
+    if not ok:
+        for line in (res.stdout + res.stderr).splitlines()[-40:]:
+            print(f"  [naive] {line}", flush=True)
+        fail("core (e): NaiveEngine did not synchronise as it should")
+    if not busy_default:
+        fail("core (e): the default engine waited for the op")
+    return dict(child=child, busy_default=busy_default, ok=ok)
+
+
+def phase_core(card):
+    """Phase 16: the core runtime on the card ((a) to (e))."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    t0 = time.perf_counter()
+    res = dict(context=core_context(dev))
+    res["linear"] = core_linear(card, dev)
+    res["lazy"] = core_lazy(card, dev)
+    res["linalg"] = core_linalg(card, dev)
+    res["engine"] = core_engine(card, dev)
+    res["seconds"] = time.perf_counter() - t0
+    print(f"core: phase 16 took {res['seconds']:.1f} s", flush=True)
+    return res
+
+
 def attention_path_summary(kernel, path, rows, launches, batch):
     """The `kernels` record of kernel 5 on one phase-9 path: each check
     record in `rows` (record, launches) weighted by its launches in one
@@ -6331,6 +6975,8 @@ def attention_summary(recs, launches):
 
 
 def main():
+    if "--naive-engine" in sys.argv:
+        return naive_engine_child()
     if "--dp-rank" in sys.argv:
         import argparse
 
@@ -6364,6 +7010,7 @@ def main():
     opt_res = phase_optimizers(card, train_res, gluon_res)
     phase_ops(card)
     phase_rnn(card)
+    phase_core(card)
     dec_steps = tf_res["decode"]["steps"]
     dp_keys = dict(backend=dp_res.get("backend"), ranks=DP)
     # kernel 1 once for each main path (its shapes and launches), kernel 2

@@ -23,18 +23,26 @@ rest of the tensor, unary and nn ops, the NDArray methods, ``nd.random``
 and ``mx.random``'s samplers, and ``autograd.Function``; slice 18 adds
 the recurrent path: the ``RNN`` and ``CTCLoss`` ops, ``gluon.rnn``, the
 legacy ``rnn`` cells and ``BucketSentenceIter``, ``mod.BucketingModule``
-and ``contrib.amp`` (see ``examples/rnn_bucketing.py``).
+and ``contrib.amp`` (see ``examples/rnn_bucketing.py``); slice 19 adds
+MXNet's core runtime: ``Context`` with its ``with ctx:`` scope, the
+linalg ops, sparse NDArrays (``nd.sparse``) with lazy updates,
+``kv.row_sparse_pull``, ``io.LibSVMIter``, ``util.env``, ``engine``
+and ``resource``.
 """
 from __future__ import annotations
 
 from .base import MXNetError
-from .context import cpu, current_context, gpu, num_gpus, tpu
+from . import context, util
+from .context import (Context, cpu, cpu_pinned, cpu_shared, current_context,
+                      gpu, num_gpus, tpu)
 from . import initializer
 from . import initializer as init
 from . import ops, serialization
 from . import parallel
 from .parallel import dist
 from . import autograd, kvstore, metric, ndarray, optimizer, random
+from . import kvstore as kv
+from . import engine, resource
 from . import ndarray as nd
 from .ndarray import NDArray
 from . import gluon
@@ -47,7 +55,9 @@ from . import contrib, rnn
 from .attribute import AttrScope
 from .ndarray import waitall
 
-__all__ = ["MXNetError", "cpu", "gpu", "tpu", "num_gpus", "current_context",
+__all__ = ["MXNetError", "Context", "context", "cpu", "gpu", "tpu",
+           "cpu_pinned", "cpu_shared", "num_gpus", "current_context",
+           "util", "kv", "engine", "resource",
            "initializer", "init", "ops", "serialization", "parallel", "dist",
            "autograd", "kvstore", "metric", "ndarray", "nd", "NDArray",
            "optimizer", "random", "gluon", "attribute", "AttrScope",

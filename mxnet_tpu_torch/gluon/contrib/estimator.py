@@ -18,7 +18,7 @@ import time
 
 from ... import autograd
 from ... import metric as metric_mod
-from ...context import resolve
+from ...context import as_context, resolve
 from ..trainer import Trainer
 from ..utils import split_and_load
 
@@ -110,7 +110,7 @@ class Estimator:
                               (train_metrics or ["accuracy"])]
         self.val_metrics = [metric_mod.create(m) for m in
                             (val_metrics or ["accuracy"])]
-        self.context = [resolve(context)]
+        self.context = [as_context(resolve(context))]
         self.trainer = trainer or Trainer(
             net.collect_params(), "sgd", {"learning_rate": 0.01})
         self.current_epoch = 0

@@ -40,7 +40,7 @@ from torch import nn
 from .. import autograd
 from .. import initializer as init_mod
 from ..base import MXNetError, dtype_of, np_dtype
-from ..context import resolve
+from ..context import as_context, resolve
 
 __all__ = ["Parameter", "Constant", "ParameterDict",
            "DeferredInitializationError"]
@@ -290,8 +290,8 @@ class Parameter:
     def list_grad(self) -> List:
         return [self.grad()]
 
-    def list_ctx(self) -> List[torch.device]:
-        return [self._tensor.device]
+    def list_ctx(self) -> List:
+        return [as_context(self._tensor.device)]
 
     def zero_grad(self):
         if self.grad_req != "null" and not unknown(self.shape):

@@ -422,9 +422,90 @@ class ImageRecordIter(DataIter):
 
 
 class LibSVMIter(DataIter):
-    """Not ported: its CSR batches need the sparse NDArray, ROADMAP queue
-    A item 3(f)."""
+    """libsvm text-format iterator producing CSR batches (the JAX
+    package's ``LibSVMIter``; the reference's ``src/io/iter_libsvm.cc``).
 
-    def __init__(self, *args, **kwargs):
-        raise MXNetError("LibSVMIter is not ported: its CSR batches need "
-                         "ndarray/sparse.py, ROADMAP queue A item 3(f)")
+    Lines are ``label [label...] idx:val idx:val ...`` (0-based feature
+    indices).  Each batch's ``data`` is a compact ``CSRNDArray`` of shape
+    (batch_size, num_features) on the CPU, its label a dense NDArray;
+    with ``round_batch`` the last batch wraps to the first rows (``pad``
+    counts them), without it a short last batch ends the epoch."""
+
+    def __init__(self, data_libsvm, data_shape, label_libsvm=None,
+                 label_shape=(1,), batch_size=1, round_batch=True,
+                 **kwargs):
+        super().__init__(batch_size)
+        self._nfeat = int(data_shape[0] if isinstance(
+            data_shape, (tuple, list)) else data_shape)
+        counts, indices, values, labels = self._parse(data_libsvm)
+        self._indptr = np.zeros(len(counts) + 1, np.int64)
+        np.cumsum(counts, out=self._indptr[1:])
+        self._indices = np.asarray(indices, np.int64)
+        self._values = np.asarray(values, np.float32)
+        if label_libsvm is not None:
+            labels = np.loadtxt(label_libsvm, dtype=np.float32, ndmin=2)
+            labels = labels.reshape((-1,) + tuple(label_shape))
+            if labels.shape[-1] == 1:
+                labels = labels.reshape(labels.shape[:-1] or (-1,))
+        else:
+            labels = np.asarray(labels, np.float32)
+        self._labels = labels
+        self._n = len(self._indptr) - 1
+        self._round = round_batch
+        self.reset()
+
+    @staticmethod
+    def _parse(path):
+        counts, indices, values, labels = [], [], [], []
+        with open(path) as f:
+            for line in f:
+                parts = line.split()
+                if not parts:
+                    continue
+                k = 0
+                while k < len(parts) and ":" not in parts[k]:
+                    k += 1
+                lab = [float(p) for p in parts[:k]]
+                for tok in parts[k:]:
+                    i, v = tok.split(":")
+                    indices.append(int(i))
+                    values.append(float(v))
+                counts.append(len(parts) - k)
+                labels.append(lab[0] if len(lab) == 1 else lab)
+        return counts, indices, values, labels
+
+    @property
+    def provide_data(self):
+        return [DataDesc("data", (self.batch_size, self._nfeat))]
+
+    @property
+    def provide_label(self):
+        shp = np.asarray(self._labels).shape[1:]
+        return [DataDesc("label", (self.batch_size,) + tuple(shp))]
+
+    def reset(self):
+        self._cursor = 0
+
+    def next(self):
+        from ..ndarray import sparse as _sp
+
+        if self._cursor >= self._n:
+            raise StopIteration
+        b0, b1 = self._cursor, min(self._cursor + self.batch_size, self._n)
+        self._cursor += self.batch_size
+        pad = self.batch_size - (b1 - b0)
+        if pad and not self._round:
+            raise StopIteration
+        take = np.concatenate([np.arange(b0, b1), np.arange(pad)])
+        spans = [(b0, b1)] + ([(0, pad)] if pad else [])
+        ip = self._indptr
+        indices = np.concatenate([self._indices[ip[r0]:ip[r1]]
+                                  for r0, r1 in spans])
+        values = np.concatenate([self._values[ip[r0]:ip[r1]]
+                                 for r0, r1 in spans])
+        indptr = np.concatenate([[0], np.cumsum(np.diff(ip)[take])])
+        data = _sp.csr_matrix((values, indices, indptr),
+                              shape=(self.batch_size, self._nfeat),
+                              ctx=cpu())
+        label = array(np.asarray(self._labels)[take], ctx=cpu())
+        return DataBatch(data=[data], label=[label], pad=pad, index=take)

@@ -26,7 +26,7 @@ from .. import kvstore as kvs_mod
 from .. import optimizer as opt_mod
 from .. import random as _random
 from ..base import MXNetError
-from ..context import resolve
+from ..context import as_context, resolve
 from ..io import DataDesc
 from ..ndarray.ndarray import NDArray
 from .base_module import BaseModule, _check_input_names
@@ -41,7 +41,7 @@ class Module(BaseModule):
                  context=None, work_load_list=None, fixed_param_names=None,
                  state_names=None):
         super().__init__(logger=logger)
-        self._context = [resolve(context)]
+        self._context = [as_context(resolve(context))]
         self._symbol = symbol
         self._data_names = list(data_names or [])
         self._label_names = list(label_names or [])

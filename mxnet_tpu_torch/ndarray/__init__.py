@@ -9,10 +9,15 @@ import torch as _torch
 from .ndarray import (NDArray, arange, array, concatenate, empty, full,
                       ones, stack, wrap_outputs, zeros)
 from . import random
+from . import sparse
+from .sparse import (BaseSparseNDArray, CSRNDArray, RowSparseNDArray,
+                     cast_storage)
 from . import register as _register
 
 __all__ = ["NDArray", "array", "zeros", "ones", "full", "empty", "arange",
            "concatenate", "stack", "random", "waitall", "save", "load",
+           "sparse", "BaseSparseNDArray", "CSRNDArray", "RowSparseNDArray",
+           "cast_storage",
            "maximum", "minimum", "power", "modulo", "logical_and",
            "logical_or", "logical_xor", "linspace"]
 
@@ -64,29 +69,53 @@ def waitall():
         _torch.cuda.synchronize()
 
 
+def _to_record(v):
+    from ..serialization import SparseRecord
+
+    if isinstance(v, BaseSparseNDArray):
+        aux = (v._aux["indptr"], v._aux["indices"]) \
+            if isinstance(v, CSRNDArray) else (v._aux["indices"],)
+        return SparseRecord(v.stype, v.shape, v.data._data, aux)
+    return v._data
+
+
+def _from_record(v):
+    from ..context import cpu
+    from ..serialization import SparseRecord
+
+    if not isinstance(v, SparseRecord):
+        return NDArray(v)
+    if v.stype == "row_sparse":
+        return sparse.row_sparse_array((v.values, v.aux[0]), shape=v.shape,
+                                       ctx=cpu(), dtype=v.values.dtype)
+    indptr, indices = v.aux
+    return sparse.csr_matrix((v.values, indices, indptr), shape=v.shape,
+                             ctx=cpu(), dtype=v.values.dtype)
+
+
 def save(fname: str, data):
     """Save an NDArray, a list or a dict of them (the ``.params``
-    format)."""
+    format; sparse arrays as sparse records)."""
     from ..serialization import save_ndarrays
 
     if isinstance(data, NDArray):
-        data = data._data
+        data = _to_record(data)
     elif isinstance(data, dict):
-        data = {k: v._data for k, v in data.items()}
+        data = {k: _to_record(v) for k, v in data.items()}
     else:
-        data = [v._data for v in data]
+        data = [_to_record(v) for v in data]
     save_ndarrays(fname, data)
 
 
 def load(fname: str):
     """A ``.params`` file as NDArrays on the CPU (a list, or a dict when
-    the file names them)."""
+    the file names them; sparse records as sparse NDArrays)."""
     from ..serialization import load_ndarrays
 
     out = load_ndarrays(fname)
     if isinstance(out, dict):
-        return {k: NDArray(v) for k, v in out.items()}
-    return [NDArray(v) for v in out]
+        return {k: _from_record(v) for k, v in out.items()}
+    return [_from_record(v) for v in out]
 
 
 def __getattr__(name: str):

@@ -1,8 +1,9 @@
 """NDArray: MXNet's imperative array over a ``torch.Tensor`` (counterpart
 of ``mxnet_tpu/ndarray/ndarray.py``).
 
-  * The payload is a tensor on one device; ``ctx`` is that
-    ``torch.device``.  PyTorch dispatch on a CUDA device is asynchronous,
+  * The payload is a tensor on one device; ``ctx`` is that device's
+    :class:`~mxnet_tpu_torch.context.Context` (``gpu(i)`` or
+    ``cpu(0)``).  PyTorch dispatch on a CUDA device is asynchronous,
     so ``asnumpy``/``asscalar``/``wait_to_read`` are the sync points, as
     in the JAX package.
   * Operators and methods go through the op registry
@@ -29,7 +30,7 @@ import torch
 
 from ..base import MXNetError, dtype_of, integer_types, np_dtype, \
     numeric_types
-from ..context import cpu, resolve
+from ..context import Context, as_context, cpu, resolve
 
 __all__ = ["NDArray", "wrap_outputs", "array", "zeros", "ones", "full",
            "empty", "arange", "concatenate", "stack", "to_numpy"]
@@ -108,8 +109,8 @@ class NDArray:
         return self._data.numel()
 
     @property
-    def ctx(self) -> torch.device:
-        return self._data.device
+    def ctx(self) -> Context:
+        return as_context(self._data.device)
 
     context = ctx
 
@@ -118,12 +119,13 @@ class NDArray:
         return "default"
 
     def tostype(self, stype: str) -> "NDArray":
-        """The array itself for ``'default'``; the sparse storage types
-        wait for ``ndarray/sparse.py`` (ROADMAP queue A item 3(f))."""
+        """The array in storage ``stype`` (``'default'``, ``'row_sparse'``
+        or ``'csr'``; see ``ndarray/sparse.py``)."""
         if stype == "default":
             return self
-        raise MXNetError(f"tostype({stype!r}): sparse storage is not "
-                         "ported yet, ROADMAP queue A item 3(f)")
+        from .sparse import cast_storage
+
+        return cast_storage(self, stype)
 
     @property
     def is_view(self) -> bool:
@@ -194,7 +196,7 @@ class NDArray:
 
     def as_in_context(self, ctx) -> "NDArray":
         dev = resolve(ctx)
-        if dev == self.ctx:
+        if dev == self._data.device:
             return self
         from .. import autograd
 
@@ -638,7 +640,8 @@ def wrap_outputs(out):
 
 
 # ---- creation functions ----------------------------------------------------
-# ctx defaults to gpu(0) and raises without CUDA: pass ctx=cpu()
+# ctx defaults to the current context (gpu(0) outside a `with ctx:` scope,
+# raising without CUDA): pass ctx=cpu()
 
 def array(source, ctx=None, dtype=None) -> NDArray:
     """An NDArray on ``ctx`` from an NDArray, tensor or array-like.

@@ -5,7 +5,7 @@ is an attribute under its registered name (``F.MultiBoxPrior``,
 ``F.broadcast_greater``, ``F.argsort``), as in the JAX package."""
 from __future__ import annotations
 
-from . import contrib, random_ops, rnn
+from . import contrib, linalg, random_ops, rnn
 
 from .attention import (attend, attention_launch_count,
                         dot_product_attention, dot_product_attention_ref,

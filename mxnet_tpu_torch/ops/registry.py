@@ -20,6 +20,7 @@ from typing import Any, Callable, Dict, List, Sequence
 import torch
 
 from ..base import MXNetError
+from ..util import env
 
 __all__ = ["Operator", "register_op", "get_op", "list_ops", "invoke",
            "QUEUED"]
@@ -118,17 +119,14 @@ class Operator:
 
 _OPS: Dict[str, Operator] = {}
 
+# MXNET_ENGINE_TYPE=NaiveEngine: every imperative op call synchronises
+# its outputs' stream (at bulk-scope exit inside engine.bulk); read once,
+# as the JAX package reads it
+_NAIVE = env.get_str("MXNET_ENGINE_TYPE") == "NaiveEngine"
+
 # The JAX package's op names the port does not register yet, under the
 # ROADMAP queue A item that ports them.
 _QUEUED_BY_ITEM = {
-    "3(f)": (
-        "det", "inverse", "khatri_rao", "linalg_det", "linalg_extractdiag",
-        "linalg_extracttrian", "linalg_gelqf", "linalg_gemm",
-        "linalg_gemm2", "linalg_inverse", "linalg_makediag",
-        "linalg_maketrian", "linalg_potrf", "linalg_potri",
-        "linalg_slogdet", "linalg_solve", "linalg_sumlogdiag",
-        "linalg_syevd", "linalg_syrk", "linalg_trmm", "linalg_trsm",
-        "moments", "slogdet", "solve"),
     "8": tuple(p + n for p in ("_image_", "image_") for n in (
         "crop", "flip_left_right", "flip_up_down", "normalize",
         "random_brightness", "random_contrast", "random_flip_left_right",
@@ -214,4 +212,14 @@ def invoke(op_name: str, *inputs, **attrs):
     with torch.set_grad_enabled(op.differentiable
                                 and autograd.is_recording()):
         out = op.fn(*tensors, **attrs)
+    if _NAIVE:
+        from .. import engine
+
+        outs = out if isinstance(out, (tuple, list)) else (out,)
+        if engine.in_bulk():
+            engine._track(outs)
+        else:
+            engine._synchronize({t.device for t in outs
+                                 if isinstance(t, torch.Tensor)
+                                 and t.is_cuda})
     return wrap_outputs(out)

@@ -34,9 +34,10 @@ ravel/unravel_index, digamma, the bitwise ops, all_finite, shape_array).
 Like the JAX ops, an op that reads an index never raises on one out of
 range: ``take`` clamps (``raise`` maps to ``clip``) or wraps,
 ``one_hot`` gives a row of ``off_value``, ``gather_nd`` clamps and
-``scatter_nd`` drops the write.  The linalg names (``linalg_gemm2``,
-``linalg_potrf``, ``linalg_syrk``, ``khatri_rao``) wait in ROADMAP
-queue A item 3(f).
+``scatter_nd`` drops the write.  The linalg names of the JAX
+``tensor.py`` (``linalg_gemm2``, ``linalg_potrf``, ``linalg_syrk``,
+``khatri_rao``) are registered in ``linalg.py`` with the rest of the
+family.
 
 The mixed-precision casts of ``contrib.amp`` are here too:
 ``amp_cast`` is ``cast`` with the JAX package's dtype map (float16 is

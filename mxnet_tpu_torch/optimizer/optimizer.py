@@ -239,9 +239,36 @@ class SGD(Optimizer):
         return NDArray(torch.zeros_like(weight._data))
 
     @torch.no_grad()
+    def _sparse_update(self, weight, grad, state, kw):
+        """The lazy update: only the rows a row-sparse gradient stores
+        are read and written (the JAX package's ``_sparse_update``)."""
+        rows = grad._aux["indices"]
+        w = weight._data
+        g = grad._data.index_select(0, rows).to(w.dtype)
+        g = g * kw["rescale_grad"]
+        if kw["clip_gradient"] > 0:
+            g = g.clamp(-kw["clip_gradient"], kw["clip_gradient"])
+        g = g + kw["wd"] * w.index_select(0, rows)
+        if state is None:
+            w.index_add_(0, rows, -kw["lr"] * g)
+        else:
+            m_rows = self.momentum * state._data.index_select(0, rows) \
+                - kw["lr"] * g
+            state._data.index_copy_(0, rows, m_rows)
+            w.index_add_(0, rows, m_rows)
+
+    @torch.no_grad()
     def update(self, index, weight, grad, state):
+        from ..ndarray.sparse import RowSparseNDArray
+
         self._update_count(index)
         kw = self._common(index)
+        # a row-sparse gradient: SGD's lazy update, or (lazy_update=False,
+        # and NAG, whose op has no sparse form) the dense update on its
+        # dense view
+        if isinstance(grad, RowSparseNDArray) and self.lazy_update \
+                and self._MOM_OP == SGD._MOM_OP:
+            return self._sparse_update(weight, grad, state, kw)
         if state is None:
             _write([weight], [ops.sgd_update(weight._data, grad._data, **kw)])
         else:
@@ -287,6 +314,8 @@ class Adam(Optimizer):
     """Adam through ``adam_update`` (no bias correction in the op): the
     bias correction sqrt(1 - beta2^t) / (1 - beta1^t) is folded into lr on
     the host, in Python floats, from the parameter's own update count.
+    ``lazy_update`` is taken and ignored, as in the JAX package: a
+    row-sparse gradient runs the dense update on its dense view.
     Under ``multi_precision`` the moments and the update run on the fp32
     master copy (the base class's ``_update_mp``)."""
 

@@ -1,13 +1,15 @@
-"""Random state: one ``torch.Generator`` per device (counterpart of
-``mxnet_tpu/random.py``, which splits a threefry key per device).
+"""Random state: one ``torch.Generator`` per device, kept by the
+resource manager (counterpart of ``mxnet_tpu/random.py``, whose streams
+live in its resource manager as threefry keys).
 
-``seed(s)`` reseeds every device's generator (``ctx`` one device's);
-``uniform``, ``normal`` and ``randint`` are ``nd.random``'s samplers;
-a generator not seeded yet starts from the last global seed (0 before
-any).  Imperative Dropout under ``autograd.record()`` and the NDArray
-entry point of a block draw from the generator of the data's device.
-The streams do not match JAX's draws: parity tests feed explicit
-inputs.
+``seed(s)`` reseeds every device's generator from the root seed ``s``
+(each device's seed folds its type and id into ``s``, see
+``resource.py``); ``seed(s, ctx)`` reseeds only ``ctx``'s.  Generators
+are reseeded in place, so one already handed out follows.
+``uniform``, ``normal`` and ``randint`` are ``nd.random``'s samplers.
+Imperative Dropout under ``autograd.record()`` and the NDArray entry
+point of a block draw from the generator of the data's device.  The
+streams do not match JAX's draws: parity tests feed explicit inputs.
 
 A CUDA graph that draws from one of these generators registers it
 (:func:`register_graph`): the capture then records offsets into the
@@ -19,45 +21,32 @@ default generator by itself, and these are the port's own.
 """
 from __future__ import annotations
 
-import threading
-from typing import Dict, Tuple
-
 import torch
 
-from .context import resolve
+from .context import as_context
 
 __all__ = ["seed", "generator", "register_graph", "host_generator",
            "uniform", "normal", "randint"]
 
-_LOCK = threading.Lock()
-_GENS: Dict[Tuple[str, int], torch.Generator] = {}
-_SEED = [0]
 
+def _manager():
+    from .resource import resource_manager
 
-def _key(dev: torch.device):
-    return dev.type, dev.index or 0
+    return resource_manager()
 
 
 def seed(seed_state: int, ctx="all") -> None:
     """Reseed every device's generator, or only ``ctx``'s."""
-    with _LOCK:
-        if ctx is None or ctx == "all":
-            _SEED[0] = int(seed_state)
-            for g in _GENS.values():
-                g.manual_seed(int(seed_state))
-            return
-    generator(ctx).manual_seed(int(seed_state))
+    if ctx is None or ctx == "all":
+        _manager().seed(int(seed_state))
+    else:
+        _manager().seed(int(seed_state), as_context(ctx))
 
 
 def generator(ctx=None) -> torch.Generator:
-    """The generator of ``ctx``'s device (default gpu(0))."""
-    dev = resolve(ctx)
-    with _LOCK:
-        g = _GENS.get(_key(dev))
-        if g is None:
-            g = _GENS[_key(dev)] = torch.Generator(
-                device=dev).manual_seed(_SEED[0])
-        return g
+    """The generator of ``ctx``'s device (default: the current
+    context's)."""
+    return _manager().random(None if ctx is None else as_context(ctx))
 
 
 def register_graph(graph, gen: torch.Generator) -> None:
@@ -69,7 +58,7 @@ def register_graph(graph, gen: torch.Generator) -> None:
 def host_generator() -> torch.Generator:
     """A new CPU generator seeded with the last global seed (0 before
     any): the draws of ``Module.init_params``."""
-    return torch.Generator().manual_seed(_SEED[0])
+    return torch.Generator().manual_seed(_manager().root_seed)
 
 
 def uniform(low=0.0, high=1.0, shape=None, dtype=None, ctx=None, out=None):

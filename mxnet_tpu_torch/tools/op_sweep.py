@@ -396,6 +396,13 @@ for _n in ("sgd_update sgd_mom_update nag_mom_update mp_sgd_update "
            "multi_mp_sgd_update multi_mp_sgd_mom_update "
            "preloaded_multi_sgd_update multi_lars").split():
     ELSEWHERE[_n] = "phase 13 (every update op, captured and eager)"
+for _n in ("det inverse khatri_rao linalg_det linalg_extractdiag "
+           "linalg_extracttrian linalg_gelqf linalg_gemm linalg_gemm2 "
+           "linalg_inverse linalg_makediag linalg_maketrian linalg_potrf "
+           "linalg_potri linalg_slogdet linalg_solve linalg_sumlogdiag "
+           "linalg_syevd linalg_syrk linalg_trmm linalg_trsm moments "
+           "slogdet solve").split():
+    ELSEWHERE[_n] = "phase 16 (d) (every linalg name against float64)"
 for _n in ELSEWHERE:
     CASES[_n] = Case([], kind="elsewhere")
 

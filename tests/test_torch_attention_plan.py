@@ -150,7 +150,9 @@ def test_the_port_modules_import_no_jax():
                 "gluon/rnn/rnn_cell.py", "gluon/rnn/rnn_layer.py",
                 "rnn/__init__.py", "rnn/rnn_cell.py", "rnn/io.py",
                 "module/bucketing_module.py", "contrib/__init__.py",
-                "contrib/amp.py", "examples/rnn_bucketing.py"):
+                "contrib/amp.py", "examples/rnn_bucketing.py",
+                "context.py", "engine.py", "resource.py", "ops/linalg.py",
+                "ndarray/sparse.py", "kvstore.py", "serialization.py"):
         for name in _imports(pkg / rel):
             assert not name.startswith(("jax", "mxnet_tpu.")) \
                 and name != "mxnet_tpu", (rel, name)
@@ -174,7 +176,11 @@ def test_the_port_modules_import_no_jax():
             "mxnet_tpu_torch.gluon.rnn, mxnet_tpu_torch.rnn, "
             "mxnet_tpu_torch.module.bucketing_module, "
             "mxnet_tpu_torch.contrib.amp, "
-            "mxnet_tpu_torch.examples.rnn_bucketing; "
+            "mxnet_tpu_torch.examples.rnn_bucketing, "
+            "mxnet_tpu_torch.context, mxnet_tpu_torch.engine, "
+            "mxnet_tpu_torch.resource, mxnet_tpu_torch.ops.linalg, "
+            "mxnet_tpu_torch.ndarray.sparse, mxnet_tpu_torch.kvstore, "
+            "mxnet_tpu_torch.serialization, mxnet_tpu_torch.util.env; "
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'mxnet_tpu.')) or m == 'mxnet_tpu']; "
             "print(bad); sys.exit(1 if bad else 0)")

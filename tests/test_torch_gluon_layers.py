@@ -776,7 +776,7 @@ def test_parameter_var_and_reset_ctx():
     res = _each_pkg(run)
     assert res["port"][0] == res["jax"][0]
     assert res["port"][1] and res["jax"][1]
-    assert res["port"][2] == res["port"][3] == ["cpu"]
+    assert res["port"][2] == res["port"][3] == res["jax"][2] == ["cpu(0)"]
 
 
 def test_module_init_params_from_loaded(tmp_path):

@@ -320,3 +320,76 @@ def test_orthogonal(rand_type):
             gram = a.T @ a if a.shape[0] >= a.shape[1] else a @ a.T
             np.testing.assert_allclose(gram, 2.25 * np.eye(len(gram)),
                                        atol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# LibSVMIter: the same CSR batches as the JAX package's from one file
+# ---------------------------------------------------------------------------
+
+def _libsvm_file(tmp_path, rows=11, feats=30, multi_label=False):
+    """A libsvm file with rows of 0-4 nonzeros (an empty row included),
+    unsorted and repeated column ids, and one or two labels a row."""
+    rng = np.random.RandomState(17)
+    lines = []
+    for r in range(rows):
+        k = 0 if r == 3 else rng.randint(1, 5)
+        cols = rng.randint(0, feats, k)
+        if r == 5:
+            cols = np.array([7, 2, 7])
+        labs = [f"{rng.randint(0, 2)}"] + ([f"{rng.rand():.3f}"]
+                                           if multi_label else [])
+        toks = [f"{c}:{rng.standard_normal():.6g}" for c in cols]
+        lines.append(" ".join(labs + toks))
+    path = tmp_path / "data.libsvm"
+    path.write_text("\n".join(lines) + "\n\n")
+    return str(path)
+
+
+def _csr_batches(it):
+    out = []
+    for b in it:
+        d = b.data[0]
+        assert d.stype == "csr"
+        out.append((d.data.asnumpy(), d.indices.asnumpy().astype(np.int64),
+                    d.indptr.asnumpy().astype(np.int64), d.shape,
+                    d.asnumpy(), b.label[0].asnumpy(), b.pad,
+                    np.asarray(b.index)))
+    return out
+
+
+@pytest.mark.parametrize("round_batch", [True, False])
+@pytest.mark.parametrize("multi_label", [False, True])
+def test_libsvm_iter_matches_jax(tmp_path, round_batch, multi_label):
+    """Values, column ids, row pointers, dense views, labels, pads and
+    row indices bit for bit, over two epochs (``reset``); the port's
+    batches are compact CSR on the CPU."""
+    path = _libsvm_file(tmp_path, multi_label=multi_label)
+    kw = dict(data_libsvm=path, data_shape=(30,), batch_size=4,
+              round_batch=round_batch)
+    t, j = tmx.io.LibSVMIter(**kw), jmx.io.LibSVMIter(**kw)
+    assert t.provide_data == j.provide_data
+    assert t.provide_label == j.provide_label
+    for _ in range(2):
+        tb, jb = _csr_batches(t), _csr_batches(j)
+        assert len(tb) == len(jb) == (3 if round_batch else 2)
+        for a, b in zip(tb, jb):
+            for x, y in zip(a, b):
+                np.testing.assert_array_equal(x, y)
+        t.reset()
+        j.reset()
+    first = tmx.io.LibSVMIter(**kw).next().data[0]
+    assert first.ctx == tmx.cpu() and first.nbytes_compact() == \
+        first.data.size * 12 + 5 * 8
+
+
+def test_libsvm_iter_label_file(tmp_path):
+    path = _libsvm_file(tmp_path)
+    lab = tmp_path / "labels.txt"
+    lab.write_text("\n".join(f"{i % 3} {i}" for i in range(11)) + "\n")
+    kw = dict(data_libsvm=path, data_shape=30, label_libsvm=str(lab),
+              label_shape=(2,), batch_size=5)
+    t, j = tmx.io.LibSVMIter(**kw), jmx.io.LibSVMIter(**kw)
+    assert t.provide_label == j.provide_label
+    for a, b in zip(_csr_batches(t), _csr_batches(j)):
+        for x, y in zip(a, b):
+            np.testing.assert_array_equal(x, y)

@@ -288,8 +288,8 @@ def test_several_contexts_and_unported_parts_raise():
         mod.install_monitor(None)
     with pytest.raises(MXNetError, match="queue A item 8"):
         tmx.io.ImageRecordIter(path_imgrec="x.rec", data_shape=(3, 8, 8))
-    with pytest.raises(MXNetError, match="queue A item 3"):
-        tmx.io.LibSVMIter(data_libsvm="x.libsvm", data_shape=(4,))
+    with pytest.raises(MXNetError, match="queue A item 7"):
+        tmx.kv.create("dist_sync")
     import torch
 
     if not torch.cuda.is_available():

@@ -243,7 +243,7 @@ def test_draws_land_on_ctx_and_come_from_its_generator():
     mt.random.seed(4)
     a = mt.nd.random.normal(shape=(6,), ctx=CPU).asnumpy()
     g = mt.random.generator(CPU)
-    g.manual_seed(4)
+    mt.random.seed(4)  # reseeds g in place
     b = treg.invoke("_random_normal", g, shape=(6,)).asnumpy()
     np.testing.assert_array_equal(a, b)
     x = mt.nd.random.randn(2, 3, ctx=CPU)
