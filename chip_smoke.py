@@ -128,7 +128,8 @@ Phases, each failing loudly (exit code 1, no result line):
    cuda:r over NCCL; every time is printed beside that mode.  Every
    fused step must launch 52 forward and 46 backward kernels on each
    rank; after every step the ranks must hold bit-identical parameters,
-   running statistics and momenta (hashes); rank 0's update and the
+   running statistics and momenta (hashes; under ZeRO, the default,
+   each momentum gathered to full size); rank 0's update and the
    loss are held against phase 5's reference of the same step by phase
    5's per-leaf rule (fp32 against float64 with its witness, bf16
    against fp32).  Then 3 timed steps a mode and a profile of a fused
@@ -439,6 +440,46 @@ Phases, each failing loudly (exit code 1, no result line):
    (torch.cuda.current_stream().query()); inside bulk(15) it is busy
    after each op and idle at the scope's exit; the default engine's
    stream is busy after the same op.
+17. the vision training path (phase_vision; it needs phase 2's build):
+   (a) resnet50_v2 (classes 1000, bf16, NHWC, 224², batch 256, no fused
+   path) through SPMDTrainer (SGD lr 0.1, momentum 0.9, wd 1e-4): three
+   captured steps against three eager ones bit for bit (as in phase 5),
+   their ms and idle shares, then 5 steps on the fixed batch with the
+   loss falling.  (b) remat=True against remat=False, 3 steps from the
+   same weights by fresh trainers, on ResNet-50 V1 fused (52 + 46
+   launches a step both ways) and on resnet50_v2: every parameter,
+   buffer and momentum bit for bit (again under cudnn.deterministic if
+   cuDNN's algorithm choice breaks that); the graph pool, peak and ms of
+   each.  (c) under cudnn.deterministic: 3 steps of resnet50_v2, save
+   the checkpoint, 2 more; a fresh trainer loads it and takes 2 steps,
+   bit for bit the uninterrupted run; loaded into the first trainer in
+   place, its captured step builds nothing and gives the same bits;
+   the save and load seconds and the bytes.  (d) ZeRO at dp = 2 on
+   ResNet-50 V1 fused (bf16, batch 256, 128 a rank): 2 rank processes
+   of this script (--zero-rank r, spawned as phase 6 spawns its ranks;
+   gloo on one card, NCCL on two or more) take 2 steps with
+   MXNET_ZERO_STATES on and off from the same weights: a rank's
+   optimizer-state bytes within 0.45-0.55 of the replicated ones, the
+   weights, running statistics and full momenta bit for bit ZeRO-off's
+   and the other rank's, 52 + 46 launches a step a rank; the rank ms a
+   step both ways.  (e) SGD with multi_precision on the bf16 ResNet-50
+   V1, fused and captured: a replayed step's fp32 masters and momenta
+   bit for bit sgd_mom_update on fp32 values (the step's gradient,
+   computed eagerly from the same state under cudnn.deterministic), the
+   bf16 weight the master rounded; its ms against phase 5's captured
+   step.  (f) the 21 zoo constructors besides ResNet V1 and MobileNet:
+   fp32 eval forwards on the card within 2e-4 of max|CPU| of the CPU's
+   at batch 2, then bf16 at batch 32 (inception at 299²) hybridized, the
+   captured forward's ms against eager; resnet50_v2 and vgg16 served through
+   export_model -> ModelRepository -> InferenceServer, 8 requests each,
+   within 2e-2 (relative L2) of the direct forward.  (g)
+   resnet18_v2(thumbnail=True, classes=10) on synthetic CIFAR-10
+   through DataLoader(num_workers=4, worker_pool="process") with
+   RandomFlipLeftRight -> ToTensor -> Normalize and the hybridized
+   gluon.Trainer loop (SGD lr 0.05, momentum 0.9), one epoch at batch
+   128: the batches bit for bit those of num_workers=0 under the same
+   seed, samples/s, the share of the epoch spent waiting for data, and
+   the loss of the last 4 batches under the first 4's.
 
 The compiled paths (mxnet_tpu_torch._graphs): every SPMDTrainer step on one
 device, every hybridized forward in inference and under record() (a
@@ -479,8 +520,10 @@ configurations of one time sweep, with ms_by_nb; kernels 1 and 2 on
 phase 8's captured hybridized gluon.Trainer loop and kernel 5 on phase
 12's BERT-base gluon loop at dropout 0; kernel 5 on phase 13's LAMB
 BERT-base step and kernels 1 and 2 on its centred-RMSProp ResNet-50
-step; kernels 1, 2 and 5 through phase 11's sym nodes, one call each),
-from the checks at that path's shapes; the last line is
+step; kernels 1, 2 and 5 through phase 11's sym nodes, one call each;
+kernels 1 and 2 under phase 17's remat, ZeRO at dp = 2 and
+multi_precision steps), from the checks at that path's shapes; the last
+line is
 {"ok": true, "device": {"platform": "gpu", ...}}.
 """
 from __future__ import annotations
@@ -2591,18 +2634,28 @@ def phase_kernels_dp():
     return fwd, bwd
 
 
-def state_digest(net, trainer):
-    """{name: sha256 of the bytes} of every parameter, running statistic
-    and momentum tensor: equal digests are bit-identical states."""
+def full_momentum(trainer):
+    """{name: momentum at full size}: under ZeRO (dp > 1) each rank holds
+    a block, gathered here (every rank calls it, in the same order)."""
+    return {k: trainer.state_full(k)[0] for k in sorted(trainer.opt_state)}
+
+
+def tensor_digest(t):
     import hashlib
 
-    def digest(t):
-        b = t.detach().contiguous().reshape(-1).view(torch.uint8).cpu()
-        return hashlib.sha256(b.numpy().tobytes()).hexdigest()[:20]
-    out = {k: digest(v)
+    b = t.detach().contiguous().reshape(-1).view(torch.uint8).cpu()
+    return hashlib.sha256(b.numpy().tobytes()).hexdigest()[:20]
+
+
+def state_digest(net, trainer, momentum=None):
+    """{name: sha256 of the bytes} of every parameter, running statistic
+    and momentum tensor (full size): equal digests are bit-identical
+    states."""
+    out = {k: tensor_digest(v)
            for k, v in sorted(net.state_dict(keep_vars=True).items())}
-    out.update({f"momentum:{k}": digest(st[0])
-                for k, st in sorted(trainer.opt_state.items())})
+    momentum = full_momentum(trainer) if momentum is None else momentum
+    out.update({f"momentum:{k}": tensor_digest(v)
+                for k, v in momentum.items()})
     return out
 
 
@@ -2638,11 +2691,12 @@ def dp_rank(rank, out_dir, backend, devices):
             trainer = new_trainer(net, mesh)
             losses, fwd, bwd, _ = counted_steps(trainer, xb, yb, 1)
             case = f"{tag}.{'fused' if fused else 'unfused'}"
+            mom = full_momentum(trainer)
             res["steps"][case] = dict(loss=losses[0], fwd=fwd, bwd=bwd,
-                                      digest=state_digest(net, trainer))
+                                      digest=state_digest(net, trainer,
+                                                          mom))
             if rank == 0:
-                torch.save({k: st[0].detach().cpu()
-                            for k, st in trainer.opt_state.items()},
+                torch.save({k: v.detach().cpu() for k, v in mom.items()},
                            os.path.join(out_dir, f"update.{case}.pt"))
             print(f"step {case} global batch {xb.shape[0]} "
                   f"({xb.shape[0] // DP} a rank): loss {losses[0]:.7f}, "
@@ -2725,17 +2779,18 @@ def free_port():
         return sk.getsockname()[1]
 
 
-def spawn_ranks(out_dir, backend, devices):
-    """Start DP rank processes of this script (spawned, never forked);
-    wait for all, killing every rank when one fails or DP_TIMEOUT runs
-    out; print their logs.  Returns the list of failures."""
+def spawn_ranks(out_dir, backend, devices, flag="--dp-rank"):
+    """Start DP rank processes of this script (spawned, never forked),
+    `flag` naming the rank's part (phase 6's, or phase 17 (d)'s); wait
+    for all, killing every rank when one fails or DP_TIMEOUT runs out;
+    print their logs.  Returns the list of failures."""
     port = free_port()
     env = dict(os.environ, DMLC_PS_ROOT_URI="127.0.0.1",
                DMLC_PS_ROOT_PORT=str(port), DMLC_NUM_WORKER=str(DP))
     logs = [open(os.path.join(out_dir, f"rank{r}.log"), "w")
             for r in range(DP)]
     procs = [subprocess.Popen(
-        [sys.executable, os.path.abspath(__file__), "--dp-rank", str(r),
+        [sys.executable, os.path.abspath(__file__), flag, str(r),
          "--dp-dir", out_dir, "--dp-backend", backend, "--dp-devices",
          ",".join(devices)], env=dict(env, DMLC_WORKER_ID=str(r)),
         stdout=logs[r], stderr=subprocess.STDOUT) for r in range(DP)]
@@ -6930,6 +6985,599 @@ def phase_core(card):
     return res
 
 
+# ---------------------------------------------------------------------------
+# phase 17: the vision training path
+# ---------------------------------------------------------------------------
+
+VISION_STEPS = 5                  # (a): steps the loss must fall over
+REMAT_STEPS = 3                   # (b): steps held bit for bit
+CKPT_AT, CKPT_MORE = 3, 2         # (c): steps before the save, after it
+ZERO_BATCH = TRAIN_BATCH           # (d): phase 6's shapes, 128 a rank
+ZERO_STEPS = 2
+ZOO_BATCH, ZOO_CHECK_BATCH = 32, 2
+ZOO_BOUND = 2e-4                  # (f): fp32 card vs CPU, of max|CPU|
+ZOO_NEW = ("resnet18_v2", "resnet34_v2", "resnet50_v2", "resnet101_v2",
+           "resnet152_v2", "vgg11", "vgg13", "vgg16", "vgg19", "vgg11_bn",
+           "vgg13_bn", "vgg16_bn", "vgg19_bn", "alexnet", "squeezenet1.0",
+           "squeezenet1.1", "densenet121", "densenet161", "densenet169",
+           "densenet201", "inceptionv3")
+ZOO_SERVED = ("resnet50_v2", "vgg16")
+CIFAR_BATCH, CIFAR_WORKERS = 128, 4
+CIFAR_OPT = {"learning_rate": 0.05, "momentum": 0.9, "wd": 1e-4}
+CIFAR_MEAN, CIFAR_STD = (0.4914, 0.4822, 0.4465), (0.2470, 0.2435, 0.2616)
+
+
+def vision_net(name, dtype, seed, dev, **kw):
+    from mxnet_tpu_torch import init
+    from mxnet_tpu_torch.gluon.model_zoo import vision
+
+    net = vision.get_model(name, classes=1000, layout="NHWC", **kw)
+    net.initialize(init.Xavier(), ctx=dev, seed=seed)
+    net.cast(dtype)
+    return net
+
+
+def vision_trainer(net, remat=False, **opt):
+    from mxnet_tpu_torch import parallel
+    from mxnet_tpu_torch.gluon import loss as gloss
+
+    return parallel.SPMDTrainer(net, gloss.SoftmaxCrossEntropyLoss(), "sgd",
+                                dict(TRAIN_OPT, **opt),
+                                mesh=parallel.make_mesh(dp=1), remat=remat)
+
+
+def vision_resnet50_v2(card, dev, gen):
+    """(a) resnet50_v2 (bf16, NHWC, 224², batch 256) through SPMDTrainer:
+    the captured step against eager (bit for bit, ms, idle share), then
+    VISION_STEPS captured steps on the fixed batch, the loss falling."""
+    net = vision_net("resnet50_v2", "bfloat16", 3, dev)
+    xb = torch.rand(TRAIN_BATCH, 224, 224, 3, generator=gen).to(
+        dev, torch.bfloat16)
+    yb = torch.randint(0, 1000, (TRAIN_BATCH,), generator=gen).to(dev)
+    w0 = {k: v.detach().clone() for k, v in net.state_dict().items()}
+    set_knobs(True, True)  # V2 has no fused path: no launch either way
+    tr = vision_trainer(net)
+    res = hold_captured_steps(f"vision (a): resnet50_v2 bf16 batch "
+                              f"{TRAIN_BATCH}", tr, (xb, yb), card, {})
+    restore(net, w0)
+    tr = vision_trainer(net)
+    losses, fwd, bwd, dt = counted_steps(tr, xb, yb, VISION_STEPS)
+    falls = all(math.isfinite(v) for v in losses) and losses[-1] < losses[0]
+    print(f"vision (a): resnet50_v2 {VISION_STEPS} steps on one batch "
+          f"(the first builds the capture): losses "
+          f"{' '.join(f'{v:.4f}' for v in losses)}, falling {falls}; "
+          f"launches {fwd}/{bwd} [{card}]", flush=True)
+    if not falls or fwd or bwd:
+        fail(f"vision (a): losses {losses}, launches {fwd}/{bwd}")
+    res.update(losses_fixed_batch=losses, falls=falls)
+    return res, net, w0, (xb, yb)
+
+
+def remat_runs(tag, net, w0, batch, card, want):
+    """REMAT_STEPS steps with and without remat from `w0` (fresh
+    trainers, captured after the first step), then REMAT_STEPS timed;
+    both states bit for bit (again under cudnn.deterministic where
+    cuDNN's algorithm choice breaks that)."""
+    res = {}
+    for det in (False, True):
+        old_det = torch.backends.cudnn.deterministic
+        torch.backends.cudnn.deterministic = det
+        try:
+            for remat in (False, True):
+                restore(net, w0)
+                torch.cuda.empty_cache()
+                torch.cuda.reset_peak_memory_stats()
+                tr = vision_trainer(net, remat=remat)
+                reset_kernel_counts()
+                losses = counted_steps(tr, *batch, REMAT_STEPS)[0]
+                counts = kernel_counts()
+                st = trainer_state(tr)
+                peak = torch.cuda.max_memory_allocated() / 2 ** 30
+                dt = counted_steps(tr, *batch, REMAT_STEPS)[3]
+                res[remat] = dict(
+                    state=st, losses=losses, peak_gib=peak, ms=dt * 1e3,
+                    pool_gib=graph_costs(tr.graphs())[1],
+                    per_step={k: v / REMAT_STEPS for k, v in counts.items()})
+                del tr
+        finally:
+            torch.backends.cudnn.deterministic = old_det
+        a, b = res[False], res[True]
+        bad = state_mismatch(a["state"], b["state"]) + [
+            "losses" for _ in [0] if a["losses"] != b["losses"]]
+        if not bad or det:
+            break
+        print(f"{tag}: {len(bad)} tensors differ under cuDNN's default "
+              f"algorithms ({bad[:3]}); again under cudnn.deterministic",
+              flush=True)
+    print(f"{tag}: {REMAT_STEPS} steps with remat bit-identical to "
+          f"without {not bad} ({len(a['state'][0])} parameters and buffers, "
+          f"{len(a['state'][1])} optimizer states"
+          f"{', cudnn.deterministic' if det else ''}); graph pool "
+          f"{a['pool_gib']:.2f} / {b['pool_gib']:.2f} GiB, peak allocated "
+          f"{a['peak_gib']:.2f} / {b['peak_gib']:.2f} GiB, "
+          f"{a['ms']:.2f} / {b['ms']:.2f} ms a step (without / with remat); "
+          f"launches a step without {a['per_step']} with {b['per_step']} "
+          f"[{card}]", flush=True)
+    if bad or any(b["per_step"][k] != want.get(k, 0) for k in b["per_step"]) \
+            or a["per_step"] != b["per_step"]:
+        fail(f"{tag}: {len(bad)} tensors differ ({bad[:6]}), launches "
+             f"{a['per_step']} / {b['per_step']} (want {want})")
+    return dict(identical=not bad, deterministic=det,
+                pool_gib=[a["pool_gib"], b["pool_gib"]],
+                peak_gib=[a["peak_gib"], b["peak_gib"]],
+                ms=[a["ms"], b["ms"]], per_step=b["per_step"],
+                launches=int(b["per_step"]["k1"] * REMAT_STEPS),
+                launches_bwd=int(b["per_step"]["k2"] * REMAT_STEPS))
+
+
+def vision_checkpoint(net, w0, batch, card):
+    """(c) CKPT_AT steps, save, CKPT_MORE more: the uninterrupted run.  A
+    fresh trainer loads the checkpoint and takes CKPT_MORE steps: bit
+    for bit the uninterrupted run.  The first trainer loads it too, in
+    place: its captured step replays, nothing is built."""
+    import shutil
+
+    from mxnet_tpu_torch.parallel import spmd
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "build", "chip_smoke_ckpt")
+    shutil.rmtree(path, ignore_errors=True)
+    old_det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        restore(net, w0)
+        tr = vision_trainer(net)
+        counted_steps(tr, *batch, CKPT_AT)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tr.save_checkpoint(path)
+        save_s = time.perf_counter() - t0
+        nbytes = sum(os.path.getsize(os.path.join(path, f))
+                     for f in os.listdir(path))
+        counted_steps(tr, *batch, CKPT_MORE)
+        want = trainer_state(tr)
+        restore(net, w0)
+        fresh = vision_trainer(net)
+        t0 = time.perf_counter()
+        fresh.load_checkpoint(path)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        counted_steps(fresh, *batch, CKPT_MORE)
+        got = trainer_state(fresh)
+        bad = state_mismatch(got, want)
+        n0 = spmd.step_compile_stats()["count"]
+        tr.load_checkpoint(path)
+        counted_steps(tr, *batch, CKPT_MORE)
+        built = spmd.step_compile_stats()["count"] - n0
+        bad_inplace = state_mismatch(trainer_state(tr), want)
+    finally:
+        torch.backends.cudnn.deterministic = old_det
+    print(f"vision (c): checkpoint after step {CKPT_AT} of resnet50_v2, "
+          f"{nbytes / 2 ** 20:.1f} MiB in {save_s:.3f} s, loaded in "
+          f"{load_s:.3f} s; a fresh trainer's {CKPT_MORE} steps from it "
+          f"bit-identical to the uninterrupted run {not bad} (cudnn."
+          f"deterministic); loaded into the capturing trainer: "
+          f"{built} step(s) built, bit-identical {not bad_inplace} [{card}]",
+          flush=True)
+    if bad or bad_inplace or built:
+        fail(f"vision (c): resumed run differs on {bad[:4]}, in place on "
+             f"{bad_inplace[:4]}, {built} builds after an in-place load")
+    shutil.rmtree(path, ignore_errors=True)
+    return dict(save_s=save_s, load_s=load_s, bytes=nbytes,
+                identical=not bad, rebuilt=built)
+
+
+def zero_rank(rank, out_dir, backend, devices):
+    """One rank of phase 17 (d): ResNet-50 V1 fused, bf16, at dp = 2,
+    ZERO_STEPS steps with MXNET_ZERO_STATES on and off from the same
+    weights; the state bytes a rank holds, the digests of the weights
+    and full momenta, the launches and the ms a step."""
+    from mxnet_tpu_torch import parallel
+
+    dev = torch.device(devices[rank])
+    torch.cuda.set_device(dev)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    parallel.dist.init(backend=backend, timeout=DP_COLLECTIVE_TIMEOUT)
+    mesh = parallel.make_mesh(dp=DP, devices=devices)
+    gen = torch.Generator().manual_seed(17)
+    xb = torch.rand(ZERO_BATCH, 224, 224, 3, generator=gen).to(
+        dev, torch.bfloat16)
+    yb = torch.randint(0, 1000, (ZERO_BATCH,), generator=gen).to(dev)
+    net = build_net("bfloat16", 0, dev)
+    w0 = {k: v.detach().clone() for k, v in net.state_dict().items()}
+    set_knobs(True, True)
+    res = {"rank": rank, "runs": {}}
+    for zero in ("1", "0"):
+        os.environ["MXNET_ZERO_STATES"] = zero
+        restore(net, w0)
+        tr = new_trainer(net, mesh)
+        state_bytes = sum(s.numel() * s.element_size()
+                          for st in tr.opt_state.values() for s in st)
+        split = sum(1 for n in tr.opt_state if n in tr._zero_dims)
+        losses, fwd, bwd, _ = counted_steps(tr, xb, yb, ZERO_STEPS)
+        digest = state_digest(net, tr)
+        parallel.dist.barrier()
+        dt = counted_steps(tr, xb, yb, ZERO_STEPS)[3]
+        res["runs"][zero] = dict(losses=losses, fwd=fwd, bwd=bwd,
+                                 digest=digest, state_bytes=state_bytes,
+                                 split=split, tensors=len(tr.opt_state),
+                                 ms=dt * 1e3)
+        print(f"zero rank {rank} MXNET_ZERO_STATES={zero}: optimizer state "
+              f"{state_bytes / 2 ** 20:.2f} MiB on this rank ({split} of "
+              f"{len(tr.opt_state)} tensors split), losses {losses}, "
+              f"launches {fwd}/{bwd}, {dt * 1e3:.1f} ms a step", flush=True)
+        del tr
+    os.environ.pop("MXNET_ZERO_STATES", None)
+    parallel.dist.barrier()
+    parallel.dist.shutdown()
+    res["jax_imported"] = sorted(m for m in sys.modules
+                                 if m == "jax" or m.startswith("jax.")
+                                 or m.split(".")[0] == "mxnet_tpu")
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(res, f)
+    return 1 if FAILURES or res["jax_imported"] else 0
+
+
+def vision_zero(card):
+    """(d) ZeRO at dp = 2 on ResNet-50 V1 fused: the ranks spawned as in
+    phase 6 (gloo on one card, NCCL on two or more)."""
+    import shutil
+
+    out_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "build", "chip_smoke_zero")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    os.makedirs(out_dir)
+    if torch.cuda.device_count() >= DP:
+        backend, devices = "nccl", [f"cuda:{r}" for r in range(DP)]
+    else:
+        backend, devices = "gloo", ["cuda:0"] * DP
+    mode = f"{DP} ranks, backend {backend}, devices {','.join(devices)}"
+    errors = spawn_ranks(out_dir, backend, devices, flag="--zero-rank")
+    for e in errors:
+        fail(f"vision (d): {e}")
+    if errors:
+        return {"launches": {"fwd": 0, "bwd": 0}, "mode": mode}
+    ranks = []
+    for r in range(DP):
+        with open(os.path.join(out_dir, f"rank{r}.json")) as f:
+            ranks.append(json.load(f))
+    on = [rk["runs"]["1"] for rk in ranks]
+    off = [rk["runs"]["0"] for rk in ranks]
+    want = (FWD_PER_STEP * ZERO_STEPS, BWD_PER_STEP * ZERO_STEPS)
+    bad = []
+    for r in range(DP):
+        for tag, run in (("on", on[r]), ("off", off[r])):
+            if (run["fwd"], run["bwd"]) != want:
+                bad.append(f"rank {r} {tag} launches {run['fwd']}/"
+                           f"{run['bwd']} (want {want})")
+        differ = [k for k, v in off[r]["digest"].items()
+                  if on[r]["digest"][k] != v]
+        if differ or on[r]["losses"] != off[r]["losses"]:
+            bad.append(f"rank {r}: ZeRO on differs from off on "
+                       f"{len(differ)} tensors ({differ[:3]}) or the losses")
+        if on[r]["digest"] != on[0]["digest"]:
+            bad.append(f"rank {r} differs from rank 0")
+        if ranks[r]["jax_imported"]:
+            bad.append(f"rank {r} loaded {ranks[r]['jax_imported']}")
+    share = [on[r]["state_bytes"] / off[r]["state_bytes"] for r in range(DP)]
+    print(f"vision (d): ZeRO dp={DP} ResNet-50 V1 fused bf16 batch "
+          f"{ZERO_BATCH}: optimizer state a rank {on[0]['state_bytes']} B "
+          f"against {off[0]['state_bytes']} B replicated, share "
+          f"{' '.join(f'{s:.6f}' for s in share)} ({on[0]['split']} of "
+          f"{on[0]['tensors']} tensors split, the rest replicated); weights "
+          f"and momenta after {ZERO_STEPS} steps bit-identical to ZeRO off "
+          f"{not bad}; rank ms a step ZeRO on "
+          f"{[round(o['ms'], 2) for o in on]} off "
+          f"{[round(o['ms'], 2) for o in off]} [{mode}] [{card}]",
+          flush=True)
+    if bad or not all(0.45 < s < 0.55 for s in share):
+        fail(f"vision (d): {bad[:4]}, state share {share}")
+    return dict(mode=mode, backend=backend, share=share,
+                state_bytes=[on[0]["state_bytes"], off[0]["state_bytes"]],
+                split=on[0]["split"], tensors=on[0]["tensors"],
+                ms_on=[o["ms"] for o in on], ms_off=[o["ms"] for o in off],
+                identical=not bad,
+                launches={"fwd": on[0]["fwd"], "bwd": on[0]["bwd"]})
+
+
+def vision_multi_precision(card, net, w0, batch, train_res):
+    """(e) SGD with multi_precision on the bf16 ResNet-50 V1, fused and
+    captured: one replayed step's fp32 master and momentum against
+    sgd_mom_update on fp32 values (the master before the step, the
+    step's gradient in fp32), bit for bit; its ms against phase 5's
+    captured step and this phase's plain captured step."""
+    from mxnet_tpu_torch import ops
+    from mxnet_tpu_torch.gluon import ActiveTrace
+    from mxnet_tpu_torch.gluon import loss as gloss
+
+    old_det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        set_knobs(True, True)
+        restore(net, w0)
+        tr = vision_trainer(net, multi_precision=True)
+        s0 = trainer_state(tr)
+        tr.step(*batch)  # the build
+        # the step's gradient, eagerly, from the same state
+        set_trainer_state(tr, s0)
+        names = tr._trainable
+        with ActiveTrace(train=True):
+            loss = gloss.SoftmaxCrossEntropyLoss()(net(batch[0]),
+                                                   batch[1]).mean()
+        grads = dict(zip(names, torch.autograd.grad(
+            loss, [tr.params[n] for n in names])))
+        set_trainer_state(tr, s0)
+        reset_kernel_counts()
+        tr.step(*batch)
+        torch.cuda.synchronize()
+        counts = kernel_counts()
+        worst, bad = 0.0, []
+        masters = 0
+        for n in names:
+            # bf16 weights carry (momentum, fp32 master); the fp32 ones
+            # (BatchNorm's) only the momentum and update in place
+            mp = len(s0[1][n]) == 2
+            mom0 = s0[1][n][0]
+            w32 = s0[1][n][1] if mp else s0[0][n]
+            want_w, want_m = ops.sgd_mom_update(
+                w32, grads[n].float(), mom0, lr=TRAIN_OPT["learning_rate"],
+                momentum=TRAIN_OPT["momentum"], wd=TRAIN_OPT["wd"])
+            got_m = tr.opt_state[n][0]
+            got_w = tr.opt_state[n][1] if mp else tr.params[n]
+            masters += mp
+            err = max(float((got_w - want_w).abs().max()),
+                      float((got_m - want_m).abs().max()))
+            worst = max(worst, err)
+            if err or not torch.equal(tr.params[n], got_w.to(
+                    tr.params[n].dtype)):
+                bad.append(n)
+        dt = counted_steps(tr, *batch, CAPTURE_K)[3]
+    finally:
+        torch.backends.cudnn.deterministic = old_det
+    p5 = train_res.get("compiled", {}).get("fused", {}).get("captured_ms")
+    print(f"vision (e): multi_precision SGD on the bf16 ResNet-50 V1, fused "
+          f"and captured: {masters} fp32 masters (and {len(names) - masters}"
+          f" fp32 BatchNorm weights) with their momenta against "
+          f"sgd_mom_update on fp32 values, max abs err {worst:.3g}, "
+          f"{len(bad)} differ; the bf16 weight is the master rounded; "
+          f"launches a step {counts}; {dt * 1e3:.2f} ms a step against "
+          f"phase 5's captured {p5 if p5 is None else round(p5, 2)} ms "
+          f"[{card}]", flush=True)
+    if bad or counts["k1"] != FWD_PER_STEP or counts["k2"] != BWD_PER_STEP:
+        fail(f"vision (e): {len(bad)} masters differ ({bad[:4]}), "
+             f"launches {counts}")
+    return dict(max_abs_err=worst, differ=len(bad), masters=masters,
+                ms=dt * 1e3, phase5_ms=p5, launches={"fwd": counts["k1"],
+                                        "bwd": counts["k2"]})
+
+
+def vision_zoo(card, dev, gen):
+    """(f) the 21 new zoo constructors: fp32 on the card against the CPU
+    at batch ZOO_CHECK_BATCH (eval forward, within ZOO_BOUND of the
+    CPU's largest magnitude), then bf16 at batch ZOO_BATCH hybridized:
+    the captured forward's ms against eager; a V2 net and a VGG served
+    through export_model -> ModelRepository -> InferenceServer."""
+    import copy
+
+    from mxnet_tpu_torch import _graphs as graphs
+    from mxnet_tpu_torch import cpu, init
+    from mxnet_tpu_torch.gluon.model_zoo import vision
+
+    rows, bad, keep = [], [], {}
+    for name in ZOO_NEW:
+        size = 299 if name.startswith("inception") else 224
+        x = torch.rand(ZOO_BATCH, 3, size, size, generator=gen)
+        net = vision.get_model(name, classes=1000)
+        net.initialize(init.Xavier(), ctx=cpu(), seed=5)
+        net.hybridize()
+        net.eval()
+        with torch.no_grad():
+            want = net(x[:ZOO_CHECK_BATCH])
+        card_net = copy.deepcopy(net).to(dev)
+        with torch.no_grad():
+            got = card_net(x[:ZOO_CHECK_BATCH].to(dev)).cpu()
+        err = float((got - want).abs().max() / want.abs().max())
+        card_net.cast("bfloat16")
+        xb = x.to(dev, torch.bfloat16)
+
+        def fwd():
+            with torch.no_grad():
+                return card_net(xb)
+        out = fwd()  # the eager first call, then the capture
+        fwd()
+        cap = time_ms(fwd, iters=3, warmup=1)
+        with graphs.no_capture():
+            eag = time_ms(fwd, iters=3, warmup=1)
+        finite = bool(torch.isfinite(out.float()).all())
+        rows.append(dict(name=name, err=err, captured_ms=cap, eager_ms=eag,
+                         finite=finite))
+        print(f"vision (f): {name} fp32 batch {ZOO_CHECK_BATCH} card vs CPU "
+              f"{err:.3g} of max|CPU| (bound {ZOO_BOUND}); bf16 batch "
+              f"{ZOO_BATCH} at {size}² captured {cap:.2f} ms, eager "
+              f"{eag:.2f} ms ({eag / cap:.2f}x) [{card}]", flush=True)
+        if not err <= ZOO_BOUND or not finite or tuple(out.shape) != (
+                ZOO_BATCH, 1000):
+            bad.append(name)
+        if name in ZOO_SERVED:
+            keep[name] = (card_net, xb)
+        else:
+            del card_net
+        del net
+        torch.cuda.empty_cache()
+    served = {n: zoo_serve(n, *keep[n], card) for n in ZOO_SERVED}
+    if bad or not all(s["ok"] for s in served.values()):
+        fail(f"vision (f): {bad} off their bound or not finite; served "
+             f"{ {n: s['ok'] for n, s in served.items()} }")
+    return dict(rows=rows, served=served)
+
+
+def zoo_serve(name, net, xb, card, n=8):
+    """A zoo net through export_model -> ModelRepository ->
+    InferenceServer: `n` single-image requests, each answer within 2e-2
+    (relative L2) of the direct forward's row."""
+    import shutil
+
+    from mxnet_tpu_torch import gpu, serving
+    from mxnet_tpu_torch.contrib import deploy
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                        f"chip_smoke_zoo_{name}")
+    shutil.rmtree(path, ignore_errors=True)
+    with torch.no_grad():
+        direct = net(xb[:n]).float()
+    deploy.export_model(net, path, [xb[:1]], dynamic_batch=True)
+    repo = serving.ModelRepository(ctx=gpu(0))
+    repo.add(name, path)
+    server = serving.InferenceServer(repo, serving.ServingConfig(
+        max_batch_size=8, batch_timeout_ms=20))
+    try:
+        answers, _, wall, errors = serve(server, name, xb[:n], 4)
+    finally:
+        server.shutdown(drain=True)
+    errs = [rel_l2(a.float().reshape(-1), direct[i]) for i, a in
+            enumerate(answers) if a is not None]
+    ok = not errors and len(errs) == n and max(errs) < 2e-2
+    print(f"vision (f): {name} bf16 served through export_model -> "
+          f"ModelRepository -> InferenceServer: {len(errs)}/{n} answered in "
+          f"{wall * 1e3:.1f} ms, worst rel L2 to the direct forward "
+          f"{max(errs, default=float('nan')):.3g} [{card}]", flush=True)
+    shutil.rmtree(path, ignore_errors=True)
+    return dict(ok=ok, answered=len(errs), worst=max(errs, default=None))
+
+
+def cifar_loader(num_workers, seed, **kw):
+    from mxnet_tpu_torch.gluon.data import DataLoader
+    from mxnet_tpu_torch.gluon.data.vision import CIFAR10
+    from mxnet_tpu_torch.gluon.data.vision import transforms as T
+
+    tf = T.Compose([T.RandomFlipLeftRight(), T.ToTensor(),
+                    T.Normalize(CIFAR_MEAN, CIFAR_STD)])
+    ds = CIFAR10(root=os.path.join("build", "no_cifar"),
+                 train=True).transform_first(tf)
+    import numpy as np
+
+    np.random.seed(seed)
+    return DataLoader(ds, batch_size=CIFAR_BATCH, shuffle=True,
+                      last_batch="discard", num_workers=num_workers, **kw)
+
+
+def vision_cifar(card, dev):
+    """(g) resnet18_v2(thumbnail=True, classes=10) on synthetic CIFAR-10
+    through DataLoader(num_workers=CIFAR_WORKERS, worker_pool="process")
+    with RandomFlipLeftRight -> ToTensor -> Normalize, the hybridized
+    gluon.Trainer loop, one epoch: the batches bit for bit those of
+    num_workers=0 under the same seed; samples/s, the data-wait share,
+    the loss falling."""
+    from mxnet_tpu_torch import autograd, gluon, gpu, init
+    from mxnet_tpu_torch.gluon.model_zoo import vision
+
+    t0 = time.perf_counter()
+    serial = [(x.asnumpy(), y.asnumpy()) for x, y in cifar_loader(0, 21)]
+    serial_s = time.perf_counter() - t0
+    net = vision.resnet18_v2(thumbnail=True, classes=10)
+    net.initialize(init.Xavier(), ctx=gpu(0), seed=4)
+    net.hybridize()
+    trainer = gluon.Trainer(net.collect_params(), "sgd", dict(CIFAR_OPT))
+    loss_fn = gluon.loss.SoftmaxCrossEntropyLoss()
+    loader = cifar_loader(CIFAR_WORKERS, 21, worker_pool="process")
+    losses, same, wait = [], True, 0.0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    it = iter(loader)
+    batch = next(it)  # the pool's start (spawned children) and batch 0
+    start_s = time.perf_counter() - t0
+    t1 = time.perf_counter()
+    for i in range(len(loader)):
+        if i:
+            tw = time.perf_counter()
+            batch = next(it)
+            wait += time.perf_counter() - tw
+        x, y = batch
+        same = same and all(
+            a.shape == b.shape and (a == b).all()
+            for a, b in zip((x.asnumpy(), y.asnumpy()), serial[i]))
+        x, y = x.as_in_context(gpu(0)), y.as_in_context(gpu(0))
+        with autograd.record():
+            loss = loss_fn(net(x), y)
+        loss.backward()
+        trainer.step(CIFAR_BATCH)
+        losses.append(loss.mean())
+    losses = [float(v.asscalar()) for v in losses]
+    steady = time.perf_counter() - t1
+    wall = time.perf_counter() - t0
+    n = len(losses) * CIFAR_BATCH
+    head, tail = sum(losses[:4]) / 4, sum(losses[-4:]) / 4
+    print(f"vision (g): resnet18_v2 thumbnail on synthetic CIFAR-10, one "
+          f"epoch ({len(losses)} batches of {CIFAR_BATCH}) through "
+          f"DataLoader(num_workers={CIFAR_WORKERS}, worker_pool='process'):"
+          f" batches bit-identical to num_workers=0 {same}; the pool's "
+          f"start and batch 0 {start_s:.2f} s, then "
+          f"{(n - CIFAR_BATCH) / steady:.1f} samples/s with the data wait "
+          f"{wait / steady:.1%} of it ({n / wall:.1f} samples/s over the "
+          f"whole epoch); loss of the first 4 batches {head:.4f}, of the "
+          f"last 4 {tail:.4f}; the serial loader alone {n / serial_s:.1f} "
+          f"samples/s [{card}]", flush=True)
+    if not same or not tail < head or len(serial) != len(losses):
+        fail(f"vision (g): batches equal {same}, loss {head} -> {tail}")
+    return dict(same=same, start_s=start_s,
+                samples_per_s=(n - CIFAR_BATCH) / steady,
+                epoch_samples_per_s=n / wall, wait_share=wait / steady,
+                loss_head=head, loss_tail=tail,
+                serial_samples_per_s=n / serial_s)
+
+
+def phase_vision(card, train_res):
+    """Phase 17: the vision training path, (a) to (g)."""
+    import gc
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator().manual_seed(1717)
+    t0 = time.perf_counter()
+    res, marks = {}, [("start", t0)]
+    res["v2"], v2, v2_w0, v2_batch = vision_resnet50_v2(card, dev, gen)
+    marks.append(("a", time.perf_counter()))
+    set_knobs(True, True)
+    v1 = build_net("bfloat16", 0)
+    v1_w0 = {k: v.detach().clone() for k, v in v1.state_dict().items()}
+    v1_batch = v2_batch
+    warm_running_means(v1, v1_batch[0])
+    v1_w0 = {k: v.detach().clone() for k, v in v1.state_dict().items()}
+    set_knobs(True, True)
+    res["remat_v1"] = remat_runs("vision (b): remat on ResNet-50 V1 fused",
+                                 v1, v1_w0, v1_batch, card,
+                                 {"k1": FWD_PER_STEP, "k2": BWD_PER_STEP})
+    res["remat_v2"] = remat_runs("vision (b): remat on resnet50_v2", v2,
+                                 v2_w0, v2_batch, card, {})
+    marks.append(("b", time.perf_counter()))
+    res["checkpoint"] = vision_checkpoint(v2, v2_w0, v2_batch, card)
+    marks.append(("c", time.perf_counter()))
+    del v2
+    gc.collect()
+    torch.cuda.empty_cache()
+    res["mp"] = vision_multi_precision(card, v1, v1_w0, v1_batch, train_res)
+    marks.append(("e", time.perf_counter()))
+    del v1, v1_batch, v2_batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    res["zero"] = vision_zero(card)
+    marks.append(("d", time.perf_counter()))
+    res["zoo"] = vision_zoo(card, dev, gen)
+    marks.append(("f", time.perf_counter()))
+    gc.collect()
+    torch.cuda.empty_cache()
+    res["cifar"] = vision_cifar(card, dev)
+    marks.append(("g", time.perf_counter()))
+    set_knobs(True, True)
+    res["seconds"] = time.perf_counter() - t0
+    print(f"vision: phase 17 took {res['seconds']:.1f} s ("
+          + ", ".join(f"({b[0]}) {b[1] - a[1]:.1f} s"
+                      for a, b in zip(marks, marks[1:])) + ")", flush=True)
+    return res
+
+
 def attention_path_summary(kernel, path, rows, launches, batch):
     """The `kernels` record of kernel 5 on one phase-9 path: each check
     record in `rows` (record, launches) weighted by its launches in one
@@ -6977,17 +7625,18 @@ def attention_summary(recs, launches):
 def main():
     if "--naive-engine" in sys.argv:
         return naive_engine_child()
-    if "--dp-rank" in sys.argv:
-        import argparse
+    for flag, part in (("--dp-rank", dp_rank), ("--zero-rank", zero_rank)):
+        if flag in sys.argv:
+            import argparse
 
-        ap = argparse.ArgumentParser()
-        ap.add_argument("--dp-rank", type=int, required=True)
-        ap.add_argument("--dp-dir", required=True)
-        ap.add_argument("--dp-backend", required=True)
-        ap.add_argument("--dp-devices", required=True)
-        a = ap.parse_args()
-        return dp_rank(a.dp_rank, a.dp_dir, a.dp_backend,
-                       a.dp_devices.split(","))
+            ap = argparse.ArgumentParser()
+            ap.add_argument(flag, type=int, required=True, dest="rank")
+            ap.add_argument("--dp-dir", required=True)
+            ap.add_argument("--dp-backend", required=True)
+            ap.add_argument("--dp-devices", required=True)
+            a = ap.parse_args()
+            return part(a.rank, a.dp_dir, a.dp_backend,
+                        a.dp_devices.split(","))
     card = phase_device()
     phase_build()
     recs = phase_kernels()
@@ -7011,6 +7660,7 @@ def main():
     phase_ops(card)
     phase_rnn(card)
     phase_core(card)
+    vis = phase_vision(card, train_res)
     dec_steps = tf_res["decode"]["steps"]
     dp_keys = dict(backend=dp_res.get("backend"), ranks=DP)
     # kernel 1 once for each main path (its shapes and launches), kernel 2
@@ -7073,7 +7723,36 @@ def main():
                                  name="fused_conv_unit_bwd/rmsprop"),
                             recs_bwd, "train", int(opt_res["resnet_rmsprop"][
                                 "launches_per_step"]["k2"] * CAPTURE_K)),
-             path="train_rmsprop_centered")] + sym_kernels
+             path="train_rmsprop_centered")] + sym_kernels + [
+        # phase 17: under remat (b), under ZeRO at dp = 2 (d, the per-rank
+        # shapes of phase 6), with multi_precision (e)
+        dict(kernel_summary(dict(KERNEL, name="fused_conv_unit/remat"),
+                            recs, "train", vis["remat_v1"]["launches"]),
+             path="train_remat"),
+        dict(kernel_summary(dict(KERNEL_BWD,
+                                 name="fused_conv_unit_bwd/remat"),
+                            recs_bwd, "train",
+                            vis["remat_v1"]["launches_bwd"]),
+             path="train_remat"),
+        dict(kernel_summary(dict(KERNEL_DP, name="fused_conv_unit/zero_dp2"),
+                            recs_dp, "train_dp",
+                            vis["zero"]["launches"]["fwd"]),
+             path="train_zero_dp2", backend=vis["zero"].get("backend"),
+             ranks=DP),
+        dict(kernel_summary(dict(KERNEL_BWD_DP,
+                                 name="fused_conv_unit_bwd/zero_dp2"),
+                            recs_bwd_dp, "train_dp",
+                            vis["zero"]["launches"]["bwd"]),
+             path="train_zero_dp2", backend=vis["zero"].get("backend"),
+             ranks=DP),
+        dict(kernel_summary(dict(KERNEL,
+                                 name="fused_conv_unit/multi_precision"),
+                            recs, "train", vis["mp"]["launches"]["fwd"]),
+             path="train_multi_precision"),
+        dict(kernel_summary(dict(KERNEL_BWD,
+                                 name="fused_conv_unit_bwd/multi_precision"),
+                            recs_bwd, "train", vis["mp"]["launches"]["bwd"]),
+             path="train_multi_precision")]
     print(f"chip_smoke: {time.perf_counter() - T_START:.1f} s", flush=True)
     if FAILURES:
         print(f"chip_smoke: {len(FAILURES)} failure(s)", flush=True)

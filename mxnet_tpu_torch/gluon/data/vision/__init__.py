@@ -1,5 +1,7 @@
-"""Vision datasets of the port (counterpart of
-``mxnet_tpu/gluon/data/vision``): MNIST and FashionMNIST."""
-from .datasets import MNIST, FashionMNIST
+"""Vision datasets and transforms of the port (counterpart of
+``mxnet_tpu/gluon/data/vision``): MNIST, FashionMNIST, CIFAR10/100 and
+``transforms``."""
+from .datasets import CIFAR10, CIFAR100, MNIST, FashionMNIST
+from . import transforms
 
-__all__ = ["MNIST", "FashionMNIST"]
+__all__ = ["MNIST", "FashionMNIST", "CIFAR10", "CIFAR100", "transforms"]

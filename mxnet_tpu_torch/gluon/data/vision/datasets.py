@@ -1,12 +1,14 @@
 """Vision datasets (counterpart of
-``mxnet_tpu/gluon/data/vision/datasets.py``): MNIST and FashionMNIST.
+``mxnet_tpu/gluon/data/vision/datasets.py``): MNIST, FashionMNIST,
+CIFAR10 and CIFAR100.
 
-They read the idx files (optionally gzipped) in ``root`` when present;
-otherwise they generate the JAX package's deterministic synthetic set,
-bit for bit (the port keeps its own copy of ``_synthetic_images``),
-flagged by ``.synthetic``.  Nothing is ever downloaded.  A sample is an
-NDArray on the CPU and its label.  CIFAR and the image-file datasets
-wait (ROADMAP queue A item 8).
+They read the standard files in ``root`` when present (MNIST's idx files,
+optionally gzipped; CIFAR's binary batches); otherwise they generate the
+JAX package's deterministic synthetic set, bit for bit (the port keeps
+its own copy of ``_synthetic_images``), flagged by ``.synthetic``.
+Nothing is ever downloaded.  A sample is an HWC uint8 NDArray on the CPU
+and its int32 label.  ``ImageRecordDataset`` and ``ImageFolderDataset``
+decode images and wait with ROADMAP queue A item 8.
 """
 from __future__ import annotations
 
@@ -19,7 +21,7 @@ import numpy as np
 from ....ndarray.ndarray import _cpu_array
 from ..dataset import Dataset
 
-__all__ = ["MNIST", "FashionMNIST"]
+__all__ = ["MNIST", "FashionMNIST", "CIFAR10", "CIFAR100"]
 
 
 def _synthetic_images(n, shape, num_classes, template_seed, sample_seed):
@@ -107,3 +109,70 @@ class FashionMNIST(MNIST):
                                          "fashion-mnist"),
                  train=True, transform=None):
         super().__init__(root, train, transform)
+
+
+class CIFAR10(_DownloadedDataset):
+    """``data_batch_1..5.bin`` / ``test_batch.bin`` in ``root``, else the
+    synthetic set (4096 train, 1024 test images of 32x32x3)."""
+
+    _shape = (32, 32, 3)
+    _classes = 10
+    _seed = 44
+
+    def __init__(self, root=os.path.join("~", ".mxnet", "datasets",
+                                         "cifar10"),
+                 train=True, transform=None):
+        super().__init__(root, train, transform)
+
+    @staticmethod
+    def _read_batch(filename):
+        with open(filename, "rb") as f:
+            raw = np.frombuffer(f.read(), dtype=np.uint8)
+        rec = raw.reshape(-1, 3072 + 1)
+        return rec[:, 1:].reshape(-1, 3, 32, 32).transpose(0, 2, 3, 1), \
+            rec[:, 0].astype(np.int32)
+
+    def _synthesize(self):
+        self.synthetic = True
+        n = 4096 if self._train else 1024
+        self._data, self._label = _synthetic_images(
+            n, self._shape, self._classes, self._seed,
+            self._seed + 1000 + int(self._train))
+
+    def _get_data(self):
+        names = [f"data_batch_{i}.bin" for i in range(1, 6)] \
+            if self._train else ["test_batch.bin"]
+        paths = [os.path.join(self._root, n) for n in names]
+        if all(os.path.exists(p) for p in paths):
+            data, labels = zip(*[self._read_batch(p) for p in paths])
+            self._data = np.concatenate(data)
+            self._label = np.concatenate(labels)
+            return
+        self._synthesize()
+
+
+class CIFAR100(CIFAR10):
+    """``train.bin`` / ``test.bin`` in ``root`` (coarse labels, or fine
+    with ``fine_label=True``), else the synthetic set of 100 classes."""
+
+    _classes = 100
+    _seed = 45
+
+    def __init__(self, root=os.path.join("~", ".mxnet", "datasets",
+                                         "cifar100"),
+                 fine_label=False, train=True, transform=None):
+        self._fine = fine_label
+        _DownloadedDataset.__init__(self, root, train, transform)
+
+    def _get_data(self):
+        p = os.path.join(self._root, "train.bin" if self._train
+                         else "test.bin")
+        if os.path.exists(p):
+            with open(p, "rb") as f:
+                raw = np.frombuffer(f.read(), dtype=np.uint8)
+            rec = raw.reshape(-1, 3072 + 2)
+            self._data = rec[:, 2:].reshape(-1, 3, 32, 32).transpose(
+                0, 2, 3, 1)
+            self._label = rec[:, 1 if self._fine else 0].astype(np.int32)
+            return
+        self._synthesize()

@@ -3,8 +3,8 @@
 python/mxnet/gluon/model_zoo/vision/mobilenet.py).
 
 The architecture and the child names equal the JAX package's, so
-weights carry across through ``.params`` files.  The port has no
-deferred shapes, so every layer is given its input channels; a
+weights carry across through ``.params`` files.  Every layer is given
+its input channels, so nothing is deferred; a
 depthwise convolution is ``Conv2D(groups=channels)``.  ReLU6 is
 ``F.clip(x, 0, 6)``.
 """
@@ -59,6 +59,8 @@ class LinearBottleneck(HybridBlock):
 class MobileNet(HybridBlock):
     def __init__(self, multiplier=1.0, classes=1000, **kwargs):
         super().__init__(**kwargs)
+        self._arch = {"name": "MobileNet", "kwargs": {
+            "multiplier": multiplier, "classes": classes}}
         self.features = nn.HybridSequential(prefix="")
         first = int(32 * multiplier)
         _add_conv(self.features, 3, first, kernel=3, stride=2, pad=1)
@@ -80,6 +82,8 @@ class MobileNet(HybridBlock):
 class MobileNetV2(HybridBlock):
     def __init__(self, multiplier=1.0, classes=1000, **kwargs):
         super().__init__(**kwargs)
+        self._arch = {"name": "MobileNetV2", "kwargs": {
+            "multiplier": multiplier, "classes": classes}}
         self.features = nn.HybridSequential(prefix="features_")
         first = int(32 * multiplier)
         _add_conv(self.features, 3, first, kernel=3, stride=2, pad=1,

@@ -1,5 +1,6 @@
-"""ResNet V1 (counterpart of ``mxnet_tpu/gluon/model_zoo/vision/resnet.py``,
-ref: python/mxnet/gluon/model_zoo/vision/resnet.py).
+"""ResNet V1 and V2 (counterpart of
+``mxnet_tpu/gluon/model_zoo/vision/resnet.py``, ref:
+python/mxnet/gluon/model_zoo/vision/resnet.py).
 
 The architecture, child names and parameter names equal the JAX
 package's, so weights carry across through ``.params`` files.  Every
@@ -13,8 +14,11 @@ reading, and BN statistics come out of the conv epilogue.  The C-sized
 BN algebra — with the conv1/conv3 bias quirk of the gluon zoo
 bottleneck — is the JAX package's.  In training the unit's backward is
 the fused backward kernel under MXNET_FUSED_CONVBN_BWD=1 (stride-1
-units) and the dgrad/wgrad convolutions otherwise.  V2 blocks wait for a
-later slice.
+units) and the dgrad/wgrad convolutions otherwise.  V2 (pre-activation)
+blocks have no fused path, as in the JAX package: they run op-granular.
+The V2 stem starts with ``BatchNorm(scale=False, center=False)``, whose
+gamma and beta exist but are never trained (``requires_grad`` off, the
+JAX package's ``grad_req="null"``).
 """
 from __future__ import annotations
 
@@ -26,8 +30,10 @@ from ....util import env
 from ...block import HybridBlock, current_trace
 from ... import nn
 
-__all__ = ["ResNetV1", "BasicBlockV1", "BottleneckV1", "resnet18_v1",
-           "resnet34_v1", "resnet50_v1", "resnet101_v1", "resnet152_v1",
+__all__ = ["ResNetV1", "ResNetV2", "BasicBlockV1", "BasicBlockV2",
+           "BottleneckV1", "BottleneckV2", "resnet18_v1", "resnet34_v1",
+           "resnet50_v1", "resnet101_v1", "resnet152_v1", "resnet18_v2",
+           "resnet34_v2", "resnet50_v2", "resnet101_v2", "resnet152_v2",
            "get_resnet"]
 
 
@@ -97,9 +103,9 @@ def _conv3x3(channels, stride, in_channels, layout="NCHW"):
                      use_bias=False, in_channels=in_channels, layout=layout)
 
 
-def _bn(channels, layout):
+def _bn(channels, layout, **kwargs):
     return nn.BatchNorm(axis=3 if layout == "NHWC" else 1,
-                        in_channels=channels)
+                        in_channels=channels, **kwargs)
 
 
 def _residual_out(y, scale, bias, shortcut, dtype):
@@ -211,6 +217,66 @@ class BottleneckV1(HybridBlock):
         return _residual_out(y3, sc3, bi3, shortcut, x.dtype)
 
 
+class BasicBlockV2(HybridBlock):
+    def __init__(self, channels, stride, downsample=False, in_channels=0,
+                 layout="NCHW", **kwargs):
+        super().__init__(**kwargs)
+        self.bn1 = _bn(in_channels, layout)
+        self.conv1 = _conv3x3(channels, stride, in_channels, layout)
+        self.bn2 = _bn(channels, layout)
+        self.conv2 = _conv3x3(channels, 1, channels, layout)
+        if downsample:
+            self.downsample = nn.Conv2D(channels, 1, stride, use_bias=False,
+                                        in_channels=in_channels,
+                                        layout=layout)
+        else:
+            self.downsample = None
+
+    def hybrid_forward(self, F, x):
+        residual = x
+        x = F.activation(self.bn1(x), act_type="relu")
+        if self.downsample is not None:
+            residual = self.downsample(x)
+        x = self.conv1(x)
+        x = F.activation(self.bn2(x), act_type="relu")
+        x = self.conv2(x)
+        return x + residual
+
+
+class BottleneckV2(HybridBlock):
+    def __init__(self, channels, stride, downsample=False, in_channels=0,
+                 layout="NCHW", **kwargs):
+        super().__init__(**kwargs)
+        mid = channels // 4
+        self.bn1 = _bn(in_channels, layout)
+        self.conv1 = nn.Conv2D(mid, kernel_size=1, strides=1, use_bias=False,
+                               in_channels=in_channels, layout=layout)
+        self.bn2 = _bn(mid, layout)
+        self.conv2 = _conv3x3(mid, stride, mid, layout)
+        self.bn3 = _bn(mid, layout)
+        self.conv3 = nn.Conv2D(channels, kernel_size=1, strides=1,
+                               use_bias=False, in_channels=mid,
+                               layout=layout)
+        if downsample:
+            self.downsample = nn.Conv2D(channels, 1, stride, use_bias=False,
+                                        in_channels=in_channels,
+                                        layout=layout)
+        else:
+            self.downsample = None
+
+    def hybrid_forward(self, F, x):
+        residual = x
+        x = F.activation(self.bn1(x), act_type="relu")
+        if self.downsample is not None:
+            residual = self.downsample(x)
+        x = self.conv1(x)
+        x = F.activation(self.bn2(x), act_type="relu")
+        x = self.conv2(x)
+        x = F.activation(self.bn3(x), act_type="relu")
+        x = self.conv3(x)
+        return x + residual
+
+
 class ResNetV1(HybridBlock):
     def __init__(self, block, layers, channels, classes=1000, thumbnail=False,
                  layout="NCHW", **kwargs):
@@ -233,26 +299,61 @@ class ResNetV1(HybridBlock):
             self.features.add(nn.MaxPool2D(3, 2, 1, layout=layout))
         for i, num_layer in enumerate(layers):
             stride = 1 if i == 0 else 2
-            self.features.add(self._make_layer(
-                block, num_layer, channels[i + 1], stride,
-                in_channels=channels[i]))
+            self.features.add(_make_layer(block, num_layer, channels[i + 1],
+                                          stride, channels[i], layout))
         self.features.add(nn.GlobalAvgPool2D(layout=layout))
         self.output = nn.Dense(classes, in_units=channels[-1])
-
-    def _make_layer(self, block, layers, channels, stride, in_channels=0):
-        layer = nn.HybridSequential(prefix="")
-        layer.add(block(channels, stride, channels != in_channels,
-                        in_channels=in_channels, layout=self._layout,
-                        prefix=""))
-        for _ in range(layers - 1):
-            layer.add(block(channels, 1, False, in_channels=channels,
-                            layout=self._layout, prefix=""))
-        return layer
 
     def hybrid_forward(self, F, x):
         x = self.features(x)
         x = self.output(x)
         return x
+
+
+def _make_layer(block, layers, channels, stride, in_channels, layout):
+    layer = nn.HybridSequential(prefix="")
+    layer.add(block(channels, stride, channels != in_channels,
+                    in_channels=in_channels, layout=layout, prefix=""))
+    for _ in range(layers - 1):
+        layer.add(block(channels, 1, False, in_channels=channels,
+                        layout=layout, prefix=""))
+    return layer
+
+
+class ResNetV2(HybridBlock):
+    def __init__(self, block, layers, channels, classes=1000, thumbnail=False,
+                 layout="NCHW", **kwargs):
+        super().__init__(**kwargs)
+        assert len(layers) == len(channels) - 1
+        self._layout = layout
+        self._arch = {"name": "ResNetV2", "kwargs": {
+            "block": block.__name__, "layers": list(layers),
+            "channels": list(channels), "classes": classes,
+            "thumbnail": thumbnail, "layout": layout}}
+        self.features = nn.HybridSequential(prefix="")
+        self.features.add(_bn(3, layout, scale=False, center=False))
+        if thumbnail:
+            self.features.add(_conv3x3(channels[0], 1, 3, layout))
+        else:
+            self.features.add(nn.Conv2D(channels[0], 7, 2, 3, use_bias=False,
+                                        in_channels=3, layout=layout))
+            self.features.add(_bn(channels[0], layout))
+            self.features.add(nn.Activation("relu"))
+            self.features.add(nn.MaxPool2D(3, 2, 1, layout=layout))
+        in_channels = channels[0]
+        for i, num_layer in enumerate(layers):
+            stride = 1 if i == 0 else 2
+            self.features.add(_make_layer(block, num_layer, channels[i + 1],
+                                          stride, in_channels, layout))
+            in_channels = channels[i + 1]
+        self.features.add(_bn(in_channels, layout))
+        self.features.add(nn.Activation("relu"))
+        self.features.add(nn.GlobalAvgPool2D(layout=layout))
+        self.features.add(nn.Flatten())
+        self.output = nn.Dense(classes, in_units=in_channels)
+
+    def hybrid_forward(self, F, x):
+        return self.output(self.features(x))
 
 
 resnet_spec = {
@@ -262,13 +363,18 @@ resnet_spec = {
     101: ("bottle_neck", [3, 4, 23, 3], [64, 256, 512, 1024, 2048]),
     152: ("bottle_neck", [3, 8, 36, 3], [64, 256, 512, 1024, 2048]),
 }
-BLOCKS = {"BasicBlockV1": BasicBlockV1, "BottleneckV1": BottleneckV1}
-_BLOCK_OF = {"basic_block": BasicBlockV1, "bottle_neck": BottleneckV1}
+BLOCKS = {"BasicBlockV1": BasicBlockV1, "BottleneckV1": BottleneckV1,
+          "BasicBlockV2": BasicBlockV2, "BottleneckV2": BottleneckV2}
+_VERSIONS = {1: (ResNetV1, {"basic_block": BasicBlockV1,
+                            "bottle_neck": BottleneckV1}),
+             2: (ResNetV2, {"basic_block": BasicBlockV2,
+                            "bottle_neck": BottleneckV2})}
 
 
-def get_resnet(version, num_layers, pretrained=False, **kwargs):
-    if version != 1:
-        raise MXNetError("ResNet V2 is not ported yet (V1 only)")
+def get_resnet(version, num_layers, pretrained=False, ctx=None, root=None,
+               **kwargs):
+    if version not in _VERSIONS:
+        raise MXNetError(f"invalid resnet version {version}; options: 1, 2")
     if num_layers not in resnet_spec:
         raise MXNetError(f"invalid resnet depth {num_layers}; "
                          f"options: {sorted(resnet_spec)}")
@@ -276,8 +382,10 @@ def get_resnet(version, num_layers, pretrained=False, **kwargs):
         raise MXNetError("pretrained weights are unavailable in this "
                          "offline build; load_parameters() from a local file")
     block_type, layers, channels = resnet_spec[num_layers]
-    net = ResNetV1(_BLOCK_OF[block_type], layers, channels, **kwargs)
-    net._arch = {"name": f"resnet{num_layers}_v1", "kwargs": dict(kwargs)}
+    net_class, blocks = _VERSIONS[version]
+    net = net_class(blocks[block_type], layers, channels, **kwargs)
+    net._arch = {"name": f"resnet{num_layers}_v{version}",
+                 "kwargs": dict(kwargs)}
     return net
 
 
@@ -299,3 +407,23 @@ def resnet101_v1(**kwargs):
 
 def resnet152_v1(**kwargs):
     return get_resnet(1, 152, **kwargs)
+
+
+def resnet18_v2(**kwargs):
+    return get_resnet(2, 18, **kwargs)
+
+
+def resnet34_v2(**kwargs):
+    return get_resnet(2, 34, **kwargs)
+
+
+def resnet50_v2(**kwargs):
+    return get_resnet(2, 50, **kwargs)
+
+
+def resnet101_v2(**kwargs):
+    return get_resnet(2, 101, **kwargs)
+
+
+def resnet152_v2(**kwargs):
+    return get_resnet(2, 152, **kwargs)

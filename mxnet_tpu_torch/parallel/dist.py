@@ -15,6 +15,15 @@ Two collectives serve data-parallel training, both sums over every rank:
 - :func:`all_reduce_`, in place and outside autograd (gradient buckets,
   the reported loss).
 
+Two more serve ZeRO-1 state sharding, outside autograd:
+:func:`reduce_scatter` (rank r's block of the sum over the ranks of a
+flat buffer) and :func:`all_gather_` (every rank's block, in rank
+order).  On NCCL they are ``reduce_scatter_tensor`` and
+``all_gather_into_tensor``.  On gloo, which has no reduce-scatter for
+CUDA tensors, :func:`reduce_scatter` all-reduces the whole buffer and
+keeps block r, and :func:`all_gather_` gathers into a list; each sum is
+then the very one :func:`all_reduce_` gives.
+
 Every collective is bounded by the group's timeout (``timeout=`` of
 :func:`init`, else the backend's default), so a dead peer fails the step
 instead of hanging it.  Not
@@ -34,7 +43,8 @@ from ..base import MXNetError
 
 __all__ = ["BACKENDS", "init", "resolve", "initialized", "rank",
            "num_workers", "backend", "barrier", "shutdown", "all_reduce_sum",
-           "all_reduce_", "broadcast_", "flat_buckets"]
+           "all_reduce_", "broadcast_", "flat_buckets", "reduce_scatter",
+           "all_gather_"]
 
 BACKENDS = ("nccl", "gloo")
 # a name each collective shows under in torch.profiler traces
@@ -185,6 +195,41 @@ def broadcast_(t: torch.Tensor, src: int = 0) -> torch.Tensor:
     with torch.profiler.record_function(_SPAN + "broadcast"):
         tdist.broadcast(t, src)
     return t
+
+
+def reduce_scatter(flat: torch.Tensor) -> torch.Tensor:
+    """Block r (this rank's, ``flat.numel() / N`` elements) of the sum of
+    the 1-D ``flat`` over every rank.  ``flat`` may be overwritten."""
+    _require_group("reduce_scatter")
+    n = num_workers()
+    if flat.numel() % n:
+        raise MXNetError(f"dist.reduce_scatter: {flat.numel()} elements do "
+                         f"not divide into {n} blocks")
+    k = flat.numel() // n
+    r = rank()
+    with torch.profiler.record_function(_SPAN + "reduce_scatter"):
+        if backend() == "nccl":
+            out = torch.empty(k, dtype=flat.dtype, device=flat.device)
+            tdist.reduce_scatter_tensor(out, flat)
+            return out
+        tdist.all_reduce(flat)
+    return flat[r * k:(r + 1) * k]
+
+
+def all_gather_(out: torch.Tensor, local: torch.Tensor) -> torch.Tensor:
+    """Fill the 1-D ``out`` (N times ``local``'s elements) with every
+    rank's 1-D ``local``, rank 0's first; returns ``out``."""
+    _require_group("all_gather_")
+    n = num_workers()
+    if out.numel() != n * local.numel():
+        raise MXNetError(f"dist.all_gather_: {out.numel()} elements for "
+                         f"{n} blocks of {local.numel()}")
+    with torch.profiler.record_function(_SPAN + "all_gather"):
+        if backend() == "nccl":
+            tdist.all_gather_into_tensor(out, local.contiguous())
+        else:
+            tdist.all_gather(list(out.chunk(n)), local.contiguous())
+    return out
 
 
 class _AllReduceSum(torch.autograd.Function):

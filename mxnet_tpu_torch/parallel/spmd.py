@@ -61,13 +61,43 @@ dp > 1 the step stays eager (the process group's collectives are not
 captured; ``step_compile_stats()["eager"]`` counts those steps), and
 ``_step_eager`` is the eager step the captured one is held against.
 
-Not ported in this slice: ZeRO state sharding, flat optimizer groups,
-remat, checkpoints, partition specs, ``forward`` under dp > 1 and the
-telemetry hooks (ROADMAP.md queue A).
+The JAX keywords: ``rules`` (a ``ShardingRules`` table; on the port's
+dp-only meshes every parameter stays replicated, and a rule that would
+split one raises), ``batch_spec``/``label_spec`` (one spec per input;
+``None`` or a spec splitting dim 0 over ``dp`` gives each rank its block
+of rows, a spec that splits nothing gives every rank the whole array;
+when no argument is split, each rank runs the whole batch with no
+collective in its forward and no gradient sum, and the loss is the same
+global mean), ``donate`` (accepted; the update is in place already) and
+``remat`` (the forward runs under ``ActiveTrace(mirror=True)``: each
+sub-block that owns parameters is a checkpoint segment, the JAX
+package's ``jax.checkpoint`` segments; captured at dp = 1 like any
+step).
+
+ZeRO-1 (``MXNET_ZERO_STATES``, default on, as in the JAX package): under
+dp = N > 1 the optimizer state of a trained tensor of at least
+``MXNET_ZERO_MIN_SIZE`` elements is split over the ranks on the largest
+dim that N divides (``sharding.zero_state_spec``); rank r keeps block r
+of each state (and of the fp32 master weight under ``multi_precision``).
+Such a tensor's gradient is reduce-scattered (one flat bucket per dtype,
+laid out rank-major), the rank updates its block of the weight with its
+block of the state, and the blocks are all-gathered into the weight.
+The update is elementwise, so the weights are the bits of the
+replicated update; smaller tensors keep replicated states and the
+all-reduce of (b).
+
+``save_checkpoint``/``load_checkpoint`` (``parallel.checkpoint``) write
+and read the parameters, buffers, every optimizer state at full size and
+the step count; a load lands on any dp size and writes into the
+existing storages, so a captured step stays valid.
+
+Not ported in this slice: flat optimizer groups (``MXNET_FUSED_OPTIMIZER``,
+ROADMAP.md queue A item 2), ``forward`` under dp > 1 and the telemetry
+hooks (item 7).
 """
 from __future__ import annotations
 
-from typing import Callable, Dict, Optional, Tuple
+from typing import Callable, Dict, Optional, Sequence, Tuple
 
 import torch
 from torch import nn
@@ -81,7 +111,8 @@ from .. import _graphs
 from ..util import env as _env
 from . import dist
 from .mesh import DeviceMesh, batch_shards, current_mesh, make_mesh
-from .sharding import shard_batch
+from .sharding import (DEFAULT_RULES, P, ShardingRules, is_batch_spec,
+                       shard_batch, spec_split, zero_state_spec)
 
 __all__ = ["SPMDTrainer", "functional_optimizer", "FunctionalOptimizer",
            "step_compile_stats"]
@@ -97,6 +128,28 @@ def step_compile_stats():
     """SPMDTrainer step builds in this process (the shape of
     ``optimizer.fused.compile_stats``)."""
     return _STEP_CACHE.stats()
+
+
+def _rank_major(t, d, n):
+    """``t`` with dim ``d`` first, as (n, -1): row r is block r of dim d."""
+    return t.movedim(d, 0).reshape(n, -1)
+
+
+def _scatter_rank_major(t, rows, d):
+    """Copy the (n, -1) ``rows`` (block r of dim ``d`` in row r) into
+    ``t``."""
+    moved = (t.shape[d],) + tuple(s for i, s in enumerate(t.shape) if i != d)
+    t.copy_(rows.reshape(moved).movedim(0, d))
+
+
+def _gather_blocks(s, d, n):
+    """Every rank's block ``s`` of dim ``d``, gathered in rank order."""
+    local = s.movedim(d, 0).reshape(-1)
+    full = torch.empty(n * local.numel(), dtype=s.dtype, device=s.device)
+    dist.all_gather_(full, local)
+    moved = (s.shape[d] * n,) + tuple(x for i, x in enumerate(s.shape)
+                                      if i != d)
+    return full.view(moved).movedim(0, d).contiguous()
 
 
 class FunctionalOptimizer:
@@ -313,13 +366,26 @@ class SPMDTrainer:
 
     def __init__(self, block, loss: Callable, optimizer="sgd",
                  optimizer_params: Optional[dict] = None,
-                 mesh: Optional[DeviceMesh] = None, n_labels: int = 1):
+                 mesh: Optional[DeviceMesh] = None,
+                 rules: ShardingRules = DEFAULT_RULES,
+                 batch_spec: Optional[Sequence] = None,
+                 label_spec: Optional[Sequence] = None,
+                 n_labels: int = 1, donate: bool = True,
+                 remat: bool = False):
         self.block = block
         self.loss = loss
         self.mesh = mesh or current_mesh() or make_mesh()
+        self.rules = rules
+        self._batch_spec = batch_spec
+        self._label_spec = label_spec
         self.n_labels = n_labels
+        self._donate = bool(donate)  # no effect: updates are in place
+        self.remat = bool(remat)
         self.device = self.mesh.local_device
         self._shards = batch_shards(self.mesh)
+        # the forward's mesh when no input is split: every rank runs the
+        # whole batch, as one device would
+        self._solo = DeviceMesh({"dp": 1}, [self.device])
         if isinstance(optimizer, str):
             optimizer = opt_mod.create(optimizer, **(optimizer_params or {}))
         elif optimizer_params:
@@ -343,10 +409,29 @@ class SPMDTrainer:
         params = dict(self._plist)
         self.params: Dict[str, torch.Tensor] = {
             n: params[n] for n in self._trainable}
+        for n, p in self._plist:
+            spec = rules.spec_for(n, tuple(p.shape), self.mesh)
+            if spec_split(spec, self.mesh) > 1:
+                raise MXNetError(
+                    f"SPMDTrainer: rule spec {spec!r} splits parameter {n} "
+                    f"over {self.mesh!r}; the port keeps parameters "
+                    "replicated (sharded parameters are ROADMAP queue A "
+                    "item 7)")
+        # ZeRO-1: the dim each sharded state splits over the ranks
+        self._zero_dims: Dict[str, int] = {}
+        if self._shards > 1 and _env.get_bool("MXNET_ZERO_STATES"):
+            min_size = _env.get_int("MXNET_ZERO_MIN_SIZE")
+            for n, p in self.params.items():
+                sspec = zero_state_spec(P(), tuple(p.shape), self.mesh,
+                                        min_size=min_size)
+                dims = [i for i, e in enumerate(sspec) if e is not None]
+                if dims:
+                    self._zero_dims[n] = dims[0]
         self._has_master = {n: self._fopt.needs_master(p)
                             for n, p in self.params.items()}
         self.opt_state: Dict[str, Tuple[torch.Tensor, ...]] = {
-            n: self._fopt.init(p) for n, p in self.params.items()}
+            n: self._fopt.init(self._block_of(n, p).contiguous())
+            for n, p in self.params.items()}
         self._t = 0
         # each trained tensor's (lr_mult, wd_mult), read now, as the JAX
         # package reads them when its trainer is built
@@ -363,7 +448,33 @@ class SPMDTrainer:
             tuple(n for n, _ in self._plist),
             tuple(sorted(self._mults.items())), type(optimizer),
             self._opt_static_fingerprint(),
-            tuple(str(d) for d in self.mesh.devices), self._shards)
+            tuple(str(d) for d in self.mesh.devices), self._shards,
+            self.remat, tuple(sorted(self._zero_dims.items())))
+
+    def _block_of(self, n, t):
+        """This rank's block of the tensor ``t`` of trained parameter
+        ``n`` (a view): the whole tensor unless its state is split."""
+        d = self._zero_dims.get(n)
+        if d is None:
+            return t
+        k = t.shape[d] // self._shards
+        return t.narrow(d, dist.rank() * k, k)
+
+    def state_full(self, n) -> Tuple[torch.Tensor, ...]:
+        """Parameter ``n``'s optimizer state at full size (every rank's
+        blocks gathered under ZeRO; all ranks call it together)."""
+        d = self._zero_dims.get(n)
+        if d is None:
+            return tuple(self.opt_state[n])
+        return tuple(_gather_blocks(s, d, self._shards)
+                     for s in self.opt_state[n])
+
+    def load_state_full(self, n, values) -> None:
+        """Copy full-size state tensors into parameter ``n``'s state (this
+        rank's block of each under ZeRO), in place."""
+        with torch.no_grad():
+            for s, v in zip(self.opt_state[n], values):
+                s.copy_(self._block_of(n, v.to(s.device)))
 
     def _opt_static_fingerprint(self) -> Tuple:
         """The optimizer attributes the step reads as constants (wd,
@@ -383,20 +494,34 @@ class SPMDTrainer:
                       for t in self.opt_state[n]),
                 key(self._lr_buf), key(self._t_buf))
 
-    def _place(self, x, spec=None):
-        """This rank's rows of the global batch ``x`` on its device."""
-        if spec is not None:
-            raise MXNetError("batch/label partition specs come with a "
-                             "later slice of the port")
+    def _splits(self, n_args) -> Tuple[bool, ...]:
+        """Per argument of ``step``: whether its spec gives each rank its
+        block of rows (``None`` does) rather than the whole array."""
+        if self._shards == 1:
+            return (False,) * n_args
+        n_lab = self.n_labels
+        n_in = n_args - n_lab
+        specs = list(self._batch_spec or [None] * n_in) + list(
+            self._label_spec or [None] * n_lab)
+        if len(specs) != n_args:
+            raise MXNetError(f"SPMDTrainer: {len(specs)} batch/label specs "
+                             f"for {n_args} arguments")
+        return tuple(s is None or is_batch_spec(s, self.mesh)
+                     for s in specs)
+
+    def _place(self, x, split=False):
+        """``x`` on this rank's device: its rows of the global batch when
+        ``split``, else the whole array."""
         t = x if isinstance(x, torch.Tensor) else torch.as_tensor(x)
-        if self._shards > 1:
+        if split:
             t = shard_batch(t, self.mesh)
         return t.to(self.device)
 
     def _begin(self, args):
         """This rank's inputs and labels on the device; the step count
         and the lr and t buffers for this step."""
-        vals = tuple(self._place(x) for x in args)
+        self._split = self._splits(len(args))
+        vals = tuple(self._place(x, s) for x, s in zip(args, self._split))
         self._t += 1
         self._optimizer._update_count(0)
         self._lr_buf.fill_(float(self._optimizer.learning_rate))
@@ -445,23 +570,74 @@ class SPMDTrainer:
             else (vals[:-n_lab], vals[-n_lab:])
         self._fopt.begin_step()
         gen = _random.generator(self.device)
-        with self.mesh, ActiveTrace(train=True, generator=gen):
+        # split: each rank holds its rows and sums over the ranks; else
+        # each holds the whole batch and the step is one device's
+        split = self._shards > 1 and any(self._split)
+        mesh = self._solo if self._shards > 1 and not split else self.mesh
+        with mesh, ActiveTrace(
+                train=True, generator=gen, mirror=self.remat):
             out = self.block(*ivals)
             outs = out if isinstance(out, (list, tuple)) else (out,)
             l = self.loss(outs[0], *lvals)
         lval = (l[0] if isinstance(l, (list, tuple)) else l).mean()
-        if self._shards > 1:
+        if split:
             lval = lval / self._shards  # this rank's share of the mean
         weights = [self.params[n] for n in self._trainable]
         grads = torch.autograd.grad(lval, weights)
         lval = lval.detach()
-        if self._shards > 1:
-            dist.flat_buckets(grads, dist.all_reduce_)
+        zero = self._zero_dims
+        if split:
+            dist.flat_buckets([g for n, g in zip(self._trainable, grads)
+                               if n not in zero], dist.all_reduce_)
             dist.all_reduce_(lval)
         with torch.no_grad():
             for n, w, g in zip(self._trainable, weights, grads):
-                self._apply_one(n, w, g)
+                if n not in zero:
+                    self._apply_one(n, w, g)
+            if zero:
+                self._zero_update([(n, g) for n, g in
+                                   zip(self._trainable, grads)
+                                   if n in zero], split)
         return lval
+
+    def _zero_update(self, named_grads, reduce):
+        """ZeRO-1 update of the tensors whose states are split: per
+        dtype, one reduce-scatter of the gradients laid out rank-major
+        (block r of every tensor, then block r+1; without ``reduce`` each
+        rank already holds the whole gradient and takes its blocks), the
+        update of this rank's block of each weight, one all-gather of the
+        new blocks into the weights."""
+        n_sh, r = self._shards, dist.rank()
+        groups: Dict[torch.dtype, list] = {}
+        for n, g in named_grads:
+            groups.setdefault(g.dtype, []).append((n, g))
+        for dtype, group in groups.items():
+            rows = [_rank_major(g, self._zero_dims[n], n_sh)
+                    for n, g in group]
+            if reduce:
+                mine = dist.reduce_scatter(torch.cat(rows, 1).reshape(-1))
+            else:
+                mine = torch.cat([m[r] for m in rows])
+            blocks, off = [], 0
+            for (n, g), m in zip(group, rows):
+                d, w = self._zero_dims[n], self.params[n]
+                wb = self._block_of(n, w)
+                moved = (wb.shape[d],) + tuple(
+                    s for i, s in enumerate(wb.shape) if i != d)
+                gb = mine[off:off + m.shape[1]].view(moved).movedim(0, d)
+                self._apply_one(n, wb, gb)
+                blocks.append(wb.movedim(d, 0).reshape(-1))
+                off += m.shape[1]
+            local = torch.cat(blocks)
+            full = torch.empty(n_sh * local.numel(), dtype=local.dtype,
+                               device=local.device)
+            full = dist.all_gather_(full, local).view(n_sh, -1)
+            off = 0
+            for (n, g), m in zip(group, rows):
+                _scatter_rank_major(self.params[n], full[:, off:off
+                                                         + m.shape[1]],
+                                    self._zero_dims[n])
+                off += m.shape[1]
 
     def _apply_one(self, n, w, g):
         """Update one weight and its state in place, with its lr_mult and
@@ -481,6 +657,19 @@ class SPMDTrainer:
             w.copy_(nw)
         for s, v in zip(state, ns):
             s.copy_(v)
+
+    def save_checkpoint(self, path: str):
+        """Parameters, buffers, optimizer state and step count under the
+        directory ``path`` (``parallel.checkpoint``); every rank calls it
+        and the load may land on another dp size."""
+        from .checkpoint import save_sharded
+
+        save_sharded(path, self)
+
+    def load_checkpoint(self, path: str):
+        from .checkpoint import load_sharded
+
+        load_sharded(path, self)
 
     @property
     def learning_rate(self):

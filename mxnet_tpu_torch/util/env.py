@@ -261,12 +261,10 @@ def trace_knobs() -> tuple:
 # under the ROADMAP queue A item that ports them.
 _QUEUED_KNOBS_BY_ITEM = {
     "2": ("MXNET_FUSED_BUCKET_BYTES", "MXNET_FUSED_OPTIMIZER"),
-    "5": ("MXNET_ZERO_STATES", "MXNET_ZERO_MIN_SIZE"),
     "7": ("MXNET_KVSTORE_TIMEOUT", "MXNET_SPMD", "MXNET_SPMD_BUCKET_BYTES",
           "MXNET_COMM_QUANT", "MXNET_COMM_QUANT_EF",
           "MXNET_COMM_QUANT_MIN_SIZE", "MXNET_COMM_OVERLAP"),
-    "8": ("MXNET_CPU_WORKER_NTHREADS", "MXNET_USE_NATIVE",
-          "MXNET_PREFETCH_DEPTH"),
+    "8": ("MXNET_CPU_WORKER_NTHREADS", "MXNET_USE_NATIVE"),
     "9": ("MXNET_TEST_DEFAULT_CONTEXT", "MXNET_USE_SIGNAL_HANDLER"),
     # production layers: memory pool, the kernel-choice and compile
     # caches, autotune, resilience and observability
@@ -333,6 +331,24 @@ declare("MXNET_BACKWARD_DO_MIRROR", bool, False,
         "(torch.utils.checkpoint segments) instead of keeping them in "
         "device memory — trades FLOPs for memory.  hybridize(mirror=...) "
         "overrides it per block.")
+
+declare("MXNET_ZERO_STATES", bool, True,
+        "SPMDTrainer under dp > 1: split the optimizer state of each "
+        "large trained tensor over the ranks (ZeRO-1 / arXiv:2004.13336): "
+        "reduce-scatter its gradient, update this rank's block, "
+        "all-gather the weight. 0 keeps every state replicated (the "
+        "gradient sum is then a plain all-reduce).")
+declare("MXNET_ZERO_MIN_SIZE", int, 2048,
+        "Smallest trained tensor (elements) whose optimizer state "
+        "MXNET_ZERO_STATES splits over the ranks; smaller ones stay "
+        "replicated.")
+
+# -- data -------------------------------------------------------------------
+declare("MXNET_PREFETCH_DEPTH", int, None,
+        "DataLoader prefetch depth: batches each iterator keeps in "
+        "flight ahead of the consumer, in both the process and thread "
+        "worker pools. Default is computed: 2 * num_workers. The "
+        "DataLoader(prefetch=) argument overrides per loader.")
 
 # -- ops / kernels ----------------------------------------------------------
 declare("MXNET_BN_EXACT_VAR", bool, False,

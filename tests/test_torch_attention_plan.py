@@ -152,7 +152,16 @@ def test_the_port_modules_import_no_jax():
                 "module/bucketing_module.py", "contrib/__init__.py",
                 "contrib/amp.py", "examples/rnn_bucketing.py",
                 "context.py", "engine.py", "resource.py", "ops/linalg.py",
-                "ndarray/sparse.py", "kvstore.py", "serialization.py"):
+                "ndarray/sparse.py", "kvstore.py", "serialization.py",
+                "gluon/model_zoo/vision/__init__.py",
+                "gluon/model_zoo/vision/alexnet.py",
+                "gluon/model_zoo/vision/vgg.py",
+                "gluon/model_zoo/vision/squeezenet.py",
+                "gluon/model_zoo/vision/densenet.py",
+                "gluon/model_zoo/vision/inception.py",
+                "parallel/checkpoint.py", "parallel/dist.py",
+                "gluon/data/dataloader.py", "gluon/data/vision/transforms.py",
+                "gluon/data/vision/datasets.py"):
         for name in _imports(pkg / rel):
             assert not name.startswith(("jax", "mxnet_tpu.")) \
                 and name != "mxnet_tpu", (rel, name)
@@ -180,7 +189,10 @@ def test_the_port_modules_import_no_jax():
             "mxnet_tpu_torch.context, mxnet_tpu_torch.engine, "
             "mxnet_tpu_torch.resource, mxnet_tpu_torch.ops.linalg, "
             "mxnet_tpu_torch.ndarray.sparse, mxnet_tpu_torch.kvstore, "
-            "mxnet_tpu_torch.serialization, mxnet_tpu_torch.util.env; "
+            "mxnet_tpu_torch.serialization, mxnet_tpu_torch.util.env, "
+            "mxnet_tpu_torch.gluon.model_zoo.vision, "
+            "mxnet_tpu_torch.parallel.checkpoint, "
+            "mxnet_tpu_torch.gluon.data.vision.transforms; "
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'mxnet_tpu.')) or m == 'mxnet_tpu']; "
             "print(bad); sys.exit(1 if bad else 0)")

@@ -204,8 +204,8 @@ def _port_train(arch, mode, steps, mesh, vals):
            f"{tag}/kernel_bwd_calls": np.array(len(calls))}
     for k, v in net.state_dict(keep_vars=True).items():
         res[f"{tag}/state/{k}"] = v.detach().numpy()
-    for k, s in tr.opt_state.items():
-        res[f"{tag}/mom/{k}"] = s[0].numpy()
+    for k in tr.opt_state:  # full size (gathered under ZeRO)
+        res[f"{tag}/mom/{k}"] = tr.state_full(k)[0].numpy()
     return res
 
 
@@ -256,8 +256,8 @@ def _port_bert_dropout(mesh):
     res = {f"{tag}/losses": np.array(losses)}
     for k, v in net.state_dict(keep_vars=True).items():
         res[f"{tag}/state/{k}"] = v.detach().numpy()
-    for k, st in tr.opt_state.items():
-        res[f"{tag}/mom/{k}"] = st[0].numpy()
+    for k in tr.opt_state:  # full size (gathered under ZeRO)
+        res[f"{tag}/mom/{k}"] = tr.state_full(k)[0].numpy()
     return res
 
 

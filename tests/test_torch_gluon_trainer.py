@@ -243,8 +243,14 @@ def test_data_loader_batches_equal_the_jax_package():
                                             last_batch="discard"))
     assert len(batches) == 2 and batches[1][1].asnumpy().tolist() == \
         [8.0, 10.0, 12.0, 14.0]
-    with pytest.raises(MXNetError, match="queue A item 8"):
-        mt.gluon.data.DataLoader(ds, batch_size=4, num_workers=2)
+    # the worker pool gives the batches of the calling thread
+    pooled = list(mt.gluon.data.DataLoader(ds, batch_size=4,
+                                           last_batch="discard",
+                                           num_workers=2))
+    assert len(pooled) == 2
+    for a, b in zip(pooled, batches):
+        for u, v in zip(a, b):
+            np.testing.assert_array_equal(u.asnumpy(), v.asnumpy())
 
 
 METRICS = [("Accuracy", "acc", {}), ("TopKAccuracy", "top_k_accuracy",

@@ -312,7 +312,16 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                 "contrib/amp.py", "examples/rnn_bucketing.py",
                 "context.py", "engine.py", "resource.py", "util/env.py",
                 "ops/linalg.py", "ndarray/sparse.py", "kvstore.py",
-                "serialization.py", "io/io.py"):
+                "serialization.py", "io/io.py",
+                "gluon/model_zoo/vision/__init__.py",
+                "gluon/model_zoo/vision/alexnet.py",
+                "gluon/model_zoo/vision/vgg.py",
+                "gluon/model_zoo/vision/squeezenet.py",
+                "gluon/model_zoo/vision/densenet.py",
+                "gluon/model_zoo/vision/inception.py",
+                "parallel/checkpoint.py", "parallel/dist.py",
+                "gluon/data/dataloader.py", "gluon/data/vision/transforms.py",
+                "gluon/data/vision/datasets.py"):
         assert pkg / rel in files, rel
     for f in files:
         for mod in _imports(f):
