@@ -480,6 +480,37 @@ Phases, each failing loudly (exit code 1, no result line):
    128: the batches bit for bit those of num_workers=0 under the same
    seed, samples/s, the share of the epoch spent waiting for data, and
    the loss of the last 4 batches under the first 4's.
+18. the image data path (phase_imagenet; it needs phase 2's build):
+   the card machine's OpenCV headers and libraries, its cores and the
+   native libraries' build (mxnet_tpu_torch/native, g++ into
+   build/torch_native; the route and the build's error are printed
+   either way).  (a) examples/imagenet_train.py's flow at full width:
+   its synthetic tree (1000 classes x 3 JPEGs of 256², quality 90, seed
+   0) packed by the port's im2rec (short edge 240, every core), then
+   the example itself: ResNet-50 v1 (1000 classes, bf16, NHWC, fused,
+   captured) through SPMDTrainer (SGD lr 0.1, momentum 0.9, wd 1e-4)
+   fed by ImageRecordIter (batch 256, 224² random crops of the short
+   edge resized to 232, random mirror, the example's mean and std,
+   shuffled through the .idx, preprocess_threads = the cores), 2 epochs
+   of 12 steps (the last batch pads 72): the route is the native
+   pipeline where the image library built, 52 + 46 launches a step,
+   finite losses with the second epoch's mean under the first's, the
+   second epoch in another order; images/s end to end, ms a step beside
+   phase 5's captured step, the data-wait share (the host clock inside
+   next()) and the host-to-card copy's ms a batch (CUDA events around
+   the copy, permute and cast).  A batch of 16 from ImageRecordIter
+   (centre crops, no resize or mirror) is bit for bit the Python
+   route's host decode of the same records.  (b) bench_pipeline's
+   measurement on 512 of those records: images/s at 1, 2, 4, ...
+   threads up to the cores through the native pipeline and through the
+   Python route.  (c) examples/ssd_train.py --rec (SSD-300 ResNet-50,
+   batch 8) over 64 synthetic JPEGs with 1-3 boxes each packed by
+   im2rec --pack-label: 8 steps with finite losses, each batch's boxes
+   those of its records (or mirrored).  (d) brightness, contrast and
+   saturation at fixed factors on the card against the CPU (one uint8
+   step; float32 within 2^-24 * 4 * S, S the blend's terms), and the
+   random image ops' coins and factors over 512 calls on the card's
+   generator.  It prints its seconds.
 
 The compiled paths (mxnet_tpu_torch._graphs): every SPMDTrainer step on one
 device, every hybridized forward in inference and under record() (a
@@ -522,8 +553,8 @@ phase 8's captured hybridized gluon.Trainer loop and kernel 5 on phase
 BERT-base step and kernels 1 and 2 on its centred-RMSProp ResNet-50
 step; kernels 1, 2 and 5 through phase 11's sym nodes, one call each;
 kernels 1 and 2 under phase 17's remat, ZeRO at dp = 2 and
-multi_precision steps), from the checks at that path's shapes; the last
-line is
+multi_precision steps and on phase 18's ImageNet-format training), from
+the checks at that path's shapes; the last line is
 {"ok": true, "device": {"platform": "gpu", ...}}.
 """
 from __future__ import annotations
@@ -7578,6 +7609,413 @@ def phase_vision(card, train_res):
     return res
 
 
+# ---------------------------------------------------------------------------
+# phase 18: the image data path (im2rec, RecordIO, the native decode
+# pipeline, ImageRecordIter) into ResNet-50 v1 training, the decode rate,
+# SSD on a packed detection .rec, the image ops on the card
+# ---------------------------------------------------------------------------
+
+IMAGE_DIR = os.path.join("build", "chip_smoke_imagenet")
+IMAGENET_CLASSES, IMAGENET_PER_CLASS = 1000, 3   # 3000 images, 256² q90
+IMAGENET_HW, IMAGENET_BATCH, IMAGENET_EPOCHS = 224, 256, 2
+IMAGENET_LR = 0.1
+DECODE_IMAGES, DECODE_BATCH = 512, 64   # the decode-rate shard
+DET_IMAGES, DET_BATCH = 64, 8
+IMAGE_OPS_CALLS = 512    # (d): calls of a random image op on the card
+
+
+def _phase18_part(tag, fn, *args):
+    """Run one part of phase 18; an exception fails the run with its
+    traceback and the phase goes on to its next part."""
+    import traceback
+
+    try:
+        return fn(*args)
+    except Exception as e:  # noqa: BLE001 — reported, the run fails
+        traceback.print_exc()
+        fail(f"imagenet ({tag}): {type(e).__name__}: {e}")
+        return None
+
+
+def image_machine():
+    """The card machine's OpenCV and cores, as the native build sees
+    them, and the image library's build."""
+    import cv2
+
+    from mxnet_tpu_torch import lib
+
+    inc = "/usr/include/opencv4"
+    heads = sorted(os.listdir(inc)) if os.path.isdir(inc) else None
+    try:
+        ldc = subprocess.run(["ldconfig", "-p"], capture_output=True,
+                             text=True, timeout=60).stdout
+    except OSError as e:
+        ldc = f"ldconfig: {e}"
+    libs = sorted({ln.split()[0] for ln in ldc.splitlines()
+                   if any(f"opencv_{m}." in ln
+                          for m in ("core", "imgproc", "imgcodecs"))})
+    t0 = time.perf_counter()
+    ok = lib.available() and lib.image_available()
+    print(f"imagenet: machine: {os.cpu_count()} cores, cv2 "
+          f"{cv2.__version__}, {inc}: "
+          f"{heads if heads is not None else 'absent'}, ldconfig's OpenCV "
+          f"libraries: {libs or 'none'}; native libraries built and "
+          f"loaded in {time.perf_counter() - t0:.2f} s: core "
+          f"{lib.native_error() or 'ok'}, image "
+          f"{(lib.image_error() or 'ok').splitlines()[0]}", flush=True)
+    if not ok:
+        print(f"imagenet: the image library's build:\n{lib.image_error()}",
+              flush=True)
+    return dict(cores=os.cpu_count(), cv2=cv2.__version__,
+                opencv_headers=heads is not None, opencv_libs=libs,
+                image_library=lib.image_available())
+
+
+def imagenet_shards(card):
+    """The example's synthetic tree at full width (1000 classes x 3
+    JPEGs of 256², quality 90, from seed 0) packed by the port's im2rec
+    (a shuffled list, the short edge resized to 240, every core)."""
+    import shutil
+
+    from mxnet_tpu_torch.examples import imagenet_train as ex
+
+    shutil.rmtree(IMAGE_DIR, ignore_errors=True)
+    root = os.path.join(IMAGE_DIR, "train")
+    t0 = time.perf_counter()
+    ex.make_synthetic_imagenet(root, IMAGENET_CLASSES, IMAGENET_PER_CLASS,
+                               IMAGENET_HW + 32)
+    t1 = time.perf_counter()
+    prefix = os.path.join(IMAGE_DIR, "imagenet")
+    ex.pack_with_im2rec(prefix, root, IMAGENET_HW + 16, os.cpu_count() or 1)
+    t2 = time.perf_counter()
+    n = len(open(prefix + ".idx").read().splitlines())
+    print(f"imagenet (a): tree of {IMAGENET_CLASSES} x {IMAGENET_PER_CLASS} "
+          f"JPEGs in {t1 - t0:.2f} s; im2rec packed {n} records "
+          f"({os.path.getsize(prefix + '.rec') / 2 ** 20:.1f} MiB) on "
+          f"{os.cpu_count()} threads in {t2 - t1:.2f} s", flush=True)
+    if n != IMAGENET_CLASSES * IMAGENET_PER_CLASS:
+        fail(f"imagenet (a): im2rec packed {n} records")
+    return prefix
+
+
+def imagenet_training(card, prefix, train_res):
+    """examples/imagenet_train.py at full width: ResNet-50 v1 (1000
+    classes, bf16, NHWC, fused, captured) through SPMDTrainer (SGD lr
+    0.1, momentum 0.9, wd 1e-4) fed by ImageRecordIter (batch 256, 224²
+    crops of the short edge resized to 232, random mirror, shuffled
+    through the .idx), 2 epochs of 12 steps, counters reset just before
+    and read just after."""
+    import numpy as np
+
+    from mxnet_tpu_torch import lib
+    from mxnet_tpu_torch.examples import imagenet_train as ex
+    from mxnet_tpu_torch.ops import fused_convbn as fcb
+
+    set_knobs(True, True)
+    keep = {}
+    torch.cuda.synchronize()
+    fcb.reset_launch_count()
+    fcb.reset_bwd_launch_count()
+    epochs = ex.main(
+        ["--rec-prefix", prefix, "--classes", str(IMAGENET_CLASSES),
+         "--image-size", str(IMAGENET_HW), "--batch-size",
+         str(IMAGENET_BATCH), "--epochs", str(IMAGENET_EPOCHS), "--lr",
+         str(IMAGENET_LR), "--dtype", "bfloat16", "--preprocess-threads",
+         str(os.cpu_count() or 1)], keep=keep)
+    torch.cuda.synchronize()
+    fwd, bwd = fcb.launch_count(), fcb.bwd_launch_count()
+    it = keep["iter"]
+    steps = sum(e["steps"] for e in epochs)
+    print(f"imagenet (a): route {it.route}"
+          + (f" ({it.route_reason})" if it.route_reason else "")
+          + f"; {steps} steps, launches fwd {fwd} bwd {bwd} "
+          f"({FWD_PER_STEP} + {BWD_PER_STEP} a step expected)", flush=True)
+    if lib.image_available() and it.route != "native_pipeline":
+        fail(f"imagenet (a): the image library loads but the route is "
+             f"{it.route}")
+    if (fwd, bwd) != (FWD_PER_STEP * steps, BWD_PER_STEP * steps):
+        fail(f"imagenet (a): {fwd} / {bwd} launches in {steps} steps")
+    n_batches = -(-IMAGENET_CLASSES * IMAGENET_PER_CLASS // IMAGENET_BATCH)
+    if [e["steps"] for e in epochs] != [n_batches] * IMAGENET_EPOCHS:
+        fail(f"imagenet (a): steps an epoch {[e['steps'] for e in epochs]}")
+    means = [float(np.mean(e["losses"])) for e in epochs]
+    if not all(np.isfinite(e["losses"]).all() for e in epochs) \
+            or not means[-1] < means[0]:
+        fail(f"imagenet (a): epoch mean losses {means}")
+    if np.array_equal(epochs[0]["labels"], epochs[1]["labels"]):
+        fail("imagenet (a): the second epoch came in the first's order")
+    step5 = train_res.get("compiled", {}).get("fused", {}).get(
+        "captured_ms")
+    res = dict(route=it.route, route_reason=it.route_reason,
+               launches={"fwd": fwd, "bwd": bwd}, steps=steps,
+               loss_means=means, epochs=[])
+    for i, e in enumerate(epochs):
+        copy = sorted(e["copy_ms"])
+        rec = dict(images_per_s=e["images"] / e["seconds"],
+                   ms_per_step=e["seconds"] / e["steps"] * 1e3,
+                   wait_share=e["wait_s"] / e["seconds"],
+                   copy_ms_median=copy[len(copy) // 2],
+                   copy_ms_max=copy[-1])
+        res["epochs"].append(rec)
+        print(f"imagenet (a): epoch {i}: {e['images']} images in "
+              f"{e['seconds']:.2f} s, {rec['images_per_s']:.1f} images/s end "
+              f"to end, {rec['ms_per_step']:.1f} ms a step (phase 5's "
+              f"captured step on a fixed batch: "
+              f"{'not measured' if step5 is None else f'{step5:.1f} ms'}), "
+              f"data wait {rec['wait_share']:.1%} (host clock inside "
+              f"next()), host-to-card copy with the permute and bf16 cast "
+              f"{rec['copy_ms_median']:.2f} ms a batch median, "
+              f"{rec['copy_ms_max']:.2f} max (CUDA events), mean loss "
+              f"{means[i]:.4f} [{card}]", flush=True)
+    del keep
+    return res
+
+
+def imagenet_decode_check(card, prefix):
+    """One batch from ImageRecordIter (centre crops, no resize, no
+    mirror) against the Python route's decode of the same 16 records on
+    the host: bit for bit."""
+    import numpy as np
+
+    from mxnet_tpu_torch import recordio
+    from mxnet_tpu_torch.examples import imagenet_train as ex
+    from mxnet_tpu_torch.io import ImageRecordIter
+
+    n = 16
+    it = ImageRecordIter(
+        path_imgrec=prefix + ".rec", data_shape=(3, IMAGENET_HW,
+                                                 IMAGENET_HW),
+        batch_size=n, mean_r=ex.MEAN[0], mean_g=ex.MEAN[1],
+        mean_b=ex.MEAN[2], std_r=ex.STD[0], std_g=ex.STD[1],
+        std_b=ex.STD[2], preprocess_threads=os.cpu_count() or 1)
+    batch = it.next()
+    data, labels = batch.data[0].asnumpy(), batch.label[0].asnumpy()
+    r = recordio.MXRecordIO(prefix + ".rec", "r")
+    same = 0
+    for i in range(n):
+        img, lab = it.decode_record(r.read())
+        same += int(np.array_equal(data[i], img) and labels[i] == lab[0])
+    r.close()
+    print(f"imagenet (a): {same} of {n} images from the {it.route} route "
+          f"bit for bit the Python route's host decode of the same "
+          f"records [{card}]", flush=True)
+    if same != n:
+        fail(f"imagenet (a): {n - same} of {n} decoded images differ")
+    return same == n
+
+
+def imagenet_decode_rate(card, prefix):
+    """tools/bench_pipeline.py's measurement on the first 512 records of
+    the shard: images/s of one epoch at batch 64 (224² random crops of
+    the short edge resized to 232, random mirror) through the native
+    pipeline (where it built) and the Python route at 1, 2, 4, ...
+    threads up to the cores."""
+    from mxnet_tpu_torch import lib, recordio
+    from mxnet_tpu_torch.tools import bench_pipeline as bp
+
+    src = recordio.MXIndexedRecordIO(prefix + ".idx", prefix + ".rec", "r")
+    sub = os.path.join(IMAGE_DIR, "decode")
+    dst = recordio.MXIndexedRecordIO(sub + ".idx", sub + ".rec", "w")
+    for k in src.keys[:DECODE_IMAGES]:
+        dst.write_idx(k, src.read_idx(k))
+    src.close()
+    dst.close()
+    cores = os.cpu_count() or 1
+    threads = sorted({min(2 ** i, cores) for i in range(8)} | {cores})
+    native = lib.image_available()
+    rates = bp.measure(sub + ".rec", sub + ".idx", DECODE_BATCH,
+                       IMAGENET_HW, threads, True, native=native,
+                       resize=IMAGENET_HW + 8)
+    print("imagenet (b): decode + augment images/s over "
+          f"{DECODE_IMAGES} records by route and threads: "
+          + ", ".join(f"{k} {v:.1f}" for k, v in rates.items())
+          + ("" if native else "; the native pipeline did not build")
+          + f" ({cores} cores) [{card}]", flush=True)
+    return rates
+
+
+def imagenet_detection(card):
+    """examples/ssd_train.py --rec at its defaults (SSD-300 ResNet-50,
+    batch 8) on a .rec of 64 synthetic JPEGs with 1-3 boxes each, packed
+    by im2rec --pack-label: one epoch (8 steps), finite losses, each
+    batch's boxes those of its records (or mirrored)."""
+    import cv2
+    import numpy as np
+
+    from mxnet_tpu_torch import recordio
+    from mxnet_tpu_torch.examples import ssd_train
+    from mxnet_tpu_torch.tools import im2rec
+
+    root = os.path.join(IMAGE_DIR, "det")
+    os.makedirs(root, exist_ok=True)
+    rs = np.random.RandomState(18)
+    rows = []
+    for i in range(DET_IMAGES):
+        img = rs.randint(0, 255, (288 + 16 * (i % 5), 320, 3), np.uint8)
+        cv2.imwrite(os.path.join(root, f"{i}.jpg"),
+                    cv2.GaussianBlur(img, (5, 5), 2),
+                    [cv2.IMWRITE_JPEG_QUALITY, 90])
+        k = 1 + i % 3
+        xy = rs.uniform(0.05, 0.5, (k, 2))
+        objs = np.concatenate([rs.randint(0, 20, (k, 1)), xy,
+                               xy + rs.uniform(0.1, 0.45, (k, 2))], 1)
+        label = "\t".join(f"{v:.4f}" for v in [2, 5] + list(objs.ravel()))
+        rows.append(f"{i}\t{label}\t{i}.jpg\n")
+    prefix = os.path.join(IMAGE_DIR, "det")
+    with open(prefix + ".lst", "w") as f:
+        f.writelines(rows)
+    if im2rec.main([prefix, root, "--pack-label", "--num-thread",
+                    str(os.cpu_count() or 1)]) != 0:
+        fail("imagenet (c): im2rec --pack-label failed")
+        return None
+    keep = {}
+    t0 = time.perf_counter()
+    losses = ssd_train.main(["--rec", prefix + ".rec", "--batch-size",
+                             str(DET_BATCH)], keep=keep)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    r = recordio.MXIndexedRecordIO(prefix + ".idx", prefix + ".rec", "r")
+    bad = 0
+    for b, got in enumerate(keep["rec_labels"]):
+        for row in range(DET_BATCH):
+            h, _ = recordio.unpack(r.read_idx(b * DET_BATCH + row))
+            objs = np.asarray(h.label[2:], np.float32).reshape(-1, 5)
+            mirror = objs.copy()
+            mirror[:, 1], mirror[:, 3] = 1 - objs[:, 3], 1 - objs[:, 1]
+            k = objs.shape[0]
+            ok = (np.array_equal(got[row, :k], objs)
+                  or np.allclose(got[row, :k], mirror, atol=1e-6)) \
+                and (got[row, k:] == -1).all()
+            bad += int(not ok)
+    r.close()
+    n_steps = DET_IMAGES // DET_BATCH
+    print(f"imagenet (c): ssd_train --rec: {len(losses)} steps in {dt:.2f} "
+          f"s (the first builds the hybridized net), losses "
+          f"{' '.join(f'{v:.4f}' for v in losses)}; images whose boxes are "
+          f"not their records' {bad} of {DET_IMAGES} [{card}]", flush=True)
+    if len(losses) != n_steps or not np.isfinite(losses).all() or bad:
+        fail(f"imagenet (c): {len(losses)} steps, losses {losses}, {bad} "
+             "images with other boxes")
+    return dict(steps=len(losses), losses=losses, seconds=dt, bad=bad)
+
+
+def image_ops_card(card):
+    """(d) the image ops on the card: brightness, contrast and
+    saturation at fixed factors against the CPU on a batch of 64 uint8
+    224² images (one uint8 step) and its float32 copy (2^-24 * 4 * S, S
+    the magnitudes of the blend's terms); contrast at the card's mean
+    luminance, which holds within 1e-5 of float64's; the random flips'
+    coins (share 0.5) and the random factors' mean (1.0) over 512 calls
+    on the card's generator."""
+    import numpy as np
+
+    from mxnet_tpu_torch import gpu, nd
+    from mxnet_tpu_torch.ops import image_ops
+    from mxnet_tpu_torch.tools import op_sweep
+
+    gen = torch.Generator().manual_seed(1818)
+    x8 = torch.randint(0, 256, (64, 224, 224, 3), generator=gen,
+                       dtype=torch.uint8)
+    dev = torch.device("cuda", 0)
+    worst = {"uint8_steps": 0, "float32_of_bound": 0.0, "gray_rel": 0.0}
+    coef = torch.tensor([0.299, 0.587, 0.114])
+    gray64 = float(torch.tensordot(x8.double(), coef.double(),
+                                   dims=([-1], [0])).mean())
+    for kind in ("brightness", "contrast", "saturation"):
+        for f in (0.7, 1.3):
+            ft = torch.tensor(f)
+            for x in (x8, x8.float()):
+                xd = x.to(dev)
+                got = getattr(image_ops, kind)(xd, ft.to(dev)).cpu()
+                if kind == "contrast":
+                    # the mean over 3.2 M pixels sums in another order on
+                    # the card: hold the blend at the card's mean, and
+                    # the mean against float64
+                    gray = torch.tensordot(xd.float(), coef.to(dev),
+                                           dims=([-1], [0])).mean().cpu()
+                    worst["gray_rel"] = max(worst["gray_rel"], abs(
+                        float(gray) - gray64) / gray64)
+                    want = image_ops._cast_to(
+                        gray * (1.0 - ft) + x.float() * ft, x.dtype)
+                else:
+                    want = getattr(image_ops, kind)(x, ft)
+                if x.dtype == torch.uint8:
+                    d = int((got.int() - want.int()).abs().max())
+                    worst["uint8_steps"] = max(worst["uint8_steps"], d)
+                else:
+                    # a blend of gray (a sum of 3 products, or their mean)
+                    # and x: 2^-24 * 4 * S, S the terms' magnitudes
+                    terms = (255.0 * abs(1.0 - f) + x.abs() * f).numpy()
+                    err = (got.double() - want.double()).abs().numpy()
+                    bound = op_sweep.sum_bound(want.numpy(), 4, terms)
+                    worst["float32_of_bound"] = max(
+                        worst["float32_of_bound"], float((err / bound).max()))
+    one = nd.ones((1, 1, 2, 1), ctx=gpu(0))
+    ramp = nd.array(np.arange(2, dtype=np.float32).reshape(1, 1, 2, 1),
+                    ctx=gpu(0))
+    flips = sum(int(nd.image.random_flip_left_right(ramp).asnumpy()[
+        0, 0, 0, 0] == 1.0) for _ in range(IMAGE_OPS_CALLS))
+    factors = np.array([float(nd.image.random_brightness(one).asnumpy()[
+        0, 0, 0, 0]) for _ in range(IMAGE_OPS_CALLS)])
+    n = IMAGE_OPS_CALLS
+    share = flips / n
+    ok_draws = (abs(share - 0.5) < 4 * math.sqrt(0.25 / n)
+                and factors.min() >= 0.5 and factors.max() < 1.5
+                and abs(factors.mean() - 1.0) < 4 / math.sqrt(12 * n))
+    print(f"imagenet (d): image ops on the card against the CPU at fixed "
+          f"factors: uint8 within {worst['uint8_steps']} step(s), float32 "
+          f"within {worst['float32_of_bound']:.3f} of 2^-24*4*S (contrast "
+          f"at the card's mean luminance, {worst['gray_rel']:.2e} relative "
+          f"from float64's); over {n} calls on the card's generator the "
+          f"flip share {share:.3f}, brightness "
+          f"factors in [{factors.min():.3f}, {factors.max():.3f}] with mean "
+          f"{factors.mean():.4f} [{card}]", flush=True)
+    if worst["uint8_steps"] > 1 or worst["float32_of_bound"] > 1.0 \
+            or worst["gray_rel"] > 1e-5 or not ok_draws:
+        fail(f"imagenet (d): image ops {worst}, flip share {share}, "
+             f"factors {factors.min()}..{factors.max()}")
+    return dict(worst, flip_share=share, factor_mean=float(factors.mean()))
+
+
+def phase_imagenet(card, train_res):
+    """Phase 18: the image data path, (a) to (d)."""
+    import gc
+    import shutil
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    marks = [("start", t0)]
+    res = {"launches": {"fwd": 0, "bwd": 0}}
+    res["machine"] = _phase18_part("machine", image_machine)
+    prefix = _phase18_part("a", imagenet_shards, card)
+    marks.append(("shards", time.perf_counter()))
+    if prefix is not None:
+        train = _phase18_part("a", imagenet_training, card, prefix,
+                              train_res)
+        if train is not None:
+            res.update(train)
+        marks.append(("train", time.perf_counter()))
+        res["decode_check"] = _phase18_part("a", imagenet_decode_check,
+                                            card, prefix)
+        res["decode_rate"] = _phase18_part("b", imagenet_decode_rate, card,
+                                           prefix)
+        marks.append(("decode", time.perf_counter()))
+    gc.collect()
+    torch.cuda.empty_cache()
+    res["detection"] = _phase18_part("c", imagenet_detection, card)
+    marks.append(("detection", time.perf_counter()))
+    res["image_ops"] = _phase18_part("d", image_ops_card, card)
+    marks.append(("ops", time.perf_counter()))
+    shutil.rmtree(IMAGE_DIR, ignore_errors=True)
+    set_knobs(True, True)
+    res["seconds"] = time.perf_counter() - t0
+    print(f"imagenet: phase 18 took {res['seconds']:.1f} s ("
+          + ", ".join(f"{b[0]} {b[1] - a[1]:.1f} s"
+                      for a, b in zip(marks, marks[1:])) + ")", flush=True)
+    return res
+
+
 def attention_path_summary(kernel, path, rows, launches, batch):
     """The `kernels` record of kernel 5 on one phase-9 path: each check
     record in `rows` (record, launches) weighted by its launches in one
@@ -7661,6 +8099,7 @@ def main():
     phase_rnn(card)
     phase_core(card)
     vis = phase_vision(card, train_res)
+    img = phase_imagenet(card, train_res)
     dec_steps = tf_res["decode"]["steps"]
     dp_keys = dict(backend=dp_res.get("backend"), ranks=DP)
     # kernel 1 once for each main path (its shapes and launches), kernel 2
@@ -7752,7 +8191,15 @@ def main():
         dict(kernel_summary(dict(KERNEL_BWD,
                                  name="fused_conv_unit_bwd/multi_precision"),
                             recs_bwd, "train", vis["mp"]["launches"]["bwd"]),
-             path="train_multi_precision")]
+             path="train_multi_precision"),
+        # phase 18: ResNet-50 fed from a .rec by ImageRecordIter
+        dict(kernel_summary(dict(KERNEL, name="fused_conv_unit/imagenet_rec"),
+                            recs, "train", img["launches"]["fwd"]),
+             path="train_imagenet_rec"),
+        dict(kernel_summary(dict(KERNEL_BWD,
+                                 name="fused_conv_unit_bwd/imagenet_rec"),
+                            recs_bwd, "train", img["launches"]["bwd"]),
+             path="train_imagenet_rec")]
     print(f"chip_smoke: {time.perf_counter() - T_START:.1f} s", flush=True)
     if FAILURES:
         print(f"chip_smoke: {len(FAILURES)} failure(s)", flush=True)

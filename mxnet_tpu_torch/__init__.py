@@ -27,7 +27,11 @@ and ``contrib.amp`` (see ``examples/rnn_bucketing.py``); slice 19 adds
 MXNet's core runtime: ``Context`` with its ``with ctx:`` scope, the
 linalg ops, sparse NDArrays (``nd.sparse``) with lazy updates,
 ``kv.row_sparse_pull``, ``io.LibSVMIter``, ``util.env``, ``engine``
-and ``resource``.
+and ``resource``; slice 21 adds the image data path: ``recordio``, ``image``
+(``ImageIter``, ``ImageDetIter``), ``nd.image``, ``io.ImageRecordIter``
+over the native decode pipeline (``lib``, built from ``native/`` with
+g++), the record and folder datasets and ``tools/im2rec.py`` (see
+``examples/imagenet_train.py``).
 """
 from __future__ import annotations
 
@@ -52,6 +56,7 @@ from . import symbol as sym
 from . import module
 from . import module as mod
 from . import contrib, rnn
+from . import image, lib, recordio
 from .attribute import AttrScope
 from .ndarray import waitall
 
@@ -62,4 +67,5 @@ __all__ = ["MXNetError", "Context", "context", "cpu", "gpu", "tpu",
            "autograd", "kvstore", "metric", "ndarray", "nd", "NDArray",
            "optimizer", "random", "gluon", "attribute", "AttrScope",
            "callback", "io", "lr_scheduler", "model", "name", "symbol",
-           "sym", "module", "mod", "contrib", "rnn", "waitall"]
+           "sym", "module", "mod", "contrib", "rnn", "image", "lib",
+           "recordio", "waitall"]

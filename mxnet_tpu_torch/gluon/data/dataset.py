@@ -1,14 +1,13 @@
 """Datasets (counterpart of ``mxnet_tpu/gluon/data/dataset.py``):
 Dataset with transform/transform_first/take/shard/filter, ArrayDataset,
-SimpleDataset.  RecordFileDataset waits with RecordIO (ROADMAP queue A
-item 8)."""
+SimpleDataset and RecordFileDataset (the raw records of a ``.rec``)."""
 from __future__ import annotations
 
 from typing import Sequence
 
 from ...base import MXNetError
 
-__all__ = ["Dataset", "ArrayDataset", "SimpleDataset"]
+__all__ = ["Dataset", "ArrayDataset", "SimpleDataset", "RecordFileDataset"]
 
 
 class Dataset:
@@ -121,3 +120,21 @@ class SimpleDataset(Dataset):
 
     def __getitem__(self, idx):
         return self._data[idx]
+
+
+class RecordFileDataset(Dataset):
+    """The records of a RecordIO file, by position in its ``.idx`` (the
+    same path with ``.idx`` for its extension).  Worker threads share one
+    reader; it pickles for spawned workers."""
+
+    def __init__(self, filename: str):
+        from ...recordio import MXIndexedRecordIO
+
+        idx_file = filename[:filename.rfind(".")] + ".idx"
+        self._record = MXIndexedRecordIO(idx_file, filename, "r")
+
+    def __len__(self):
+        return len(self._record.keys)
+
+    def __getitem__(self, idx):
+        return self._record.read_idx(self._record.keys[idx])

@@ -1,14 +1,16 @@
 """Vision datasets (counterpart of
 ``mxnet_tpu/gluon/data/vision/datasets.py``): MNIST, FashionMNIST,
-CIFAR10 and CIFAR100.
+CIFAR10, CIFAR100, ImageRecordDataset and ImageFolderDataset.
 
 They read the standard files in ``root`` when present (MNIST's idx files,
 optionally gzipped; CIFAR's binary batches); otherwise they generate the
 JAX package's deterministic synthetic set, bit for bit (the port keeps
 its own copy of ``_synthetic_images``), flagged by ``.synthetic``.
 Nothing is ever downloaded.  A sample is an HWC uint8 NDArray on the CPU
-and its int32 label.  ``ImageRecordDataset`` and ``ImageFolderDataset``
-decode images and wait with ROADMAP queue A item 8.
+and its int32 label.  ``ImageRecordDataset`` (a ``.rec`` with its
+``.idx``) and ``ImageFolderDataset`` (a folder a class) decode with
+``cv2`` into HWC uint8 NDArrays on the CPU; both pickle for the
+DataLoader's spawned workers.
 """
 from __future__ import annotations
 
@@ -21,7 +23,8 @@ import numpy as np
 from ....ndarray.ndarray import _cpu_array
 from ..dataset import Dataset
 
-__all__ = ["MNIST", "FashionMNIST", "CIFAR10", "CIFAR100"]
+__all__ = ["MNIST", "FashionMNIST", "CIFAR10", "CIFAR100",
+           "ImageRecordDataset", "ImageFolderDataset"]
 
 
 def _synthetic_images(n, shape, num_classes, template_seed, sample_seed):
@@ -176,3 +179,68 @@ class CIFAR100(CIFAR10):
             self._label = rec[:, 1 if self._fine else 0].astype(np.int32)
             return
         self._synthesize()
+
+
+class ImageRecordDataset(Dataset):
+    """The images of a RecordIO file and its ``.idx``: (HWC uint8 image,
+    label), the label a float when the record holds one value."""
+
+    def __init__(self, filename, flag=1, transform=None):
+        from ....recordio import MXIndexedRecordIO
+
+        idx_file = filename[:filename.rfind(".")] + ".idx"
+        self._record = MXIndexedRecordIO(idx_file, filename, "r")
+        self._flag = flag
+        self._transform = transform
+
+    def __len__(self):
+        return len(self._record.keys)
+
+    def __getitem__(self, idx):
+        from ....recordio import unpack_img
+
+        record = self._record.read_idx(self._record.keys[idx])
+        header, img = unpack_img(record, self._flag)
+        label = header.label
+        if hasattr(label, "__len__") and len(label) == 1:
+            label = float(label[0])
+        img = _cpu_array(img)
+        if self._transform is not None:
+            return self._transform(img, label)
+        return img, label
+
+
+class ImageFolderDataset(Dataset):
+    """``root/<class>/<image>``: classes are the sorted sub-folders, their
+    index the label; ``.jpg``, ``.jpeg``, ``.png`` and ``.npy`` files."""
+
+    def __init__(self, root, flag=1, transform=None):
+        self._root = os.path.expanduser(root)
+        self._flag = flag
+        self._transform = transform
+        self.synsets = []
+        self.items = []
+        for folder in sorted(os.listdir(self._root)):
+            path = os.path.join(self._root, folder)
+            if not os.path.isdir(path):
+                continue
+            label = len(self.synsets)
+            self.synsets.append(folder)
+            for fname in sorted(os.listdir(path)):
+                if fname.lower().endswith((".jpg", ".jpeg", ".png", ".npy")):
+                    self.items.append((os.path.join(path, fname), label))
+
+    def __len__(self):
+        return len(self.items)
+
+    def __getitem__(self, idx):
+        from ....image import imread
+
+        path, label = self.items[idx]
+        if path.endswith(".npy"):
+            img = _cpu_array(np.load(path))
+        else:
+            img = imread(path, self._flag)
+        if self._transform is not None:
+            return self._transform(img, label)
+        return img, label

@@ -16,6 +16,7 @@ import queue
 import struct
 import threading
 from collections import namedtuple
+from concurrent.futures import ThreadPoolExecutor
 from typing import List, Optional
 
 import numpy as np
@@ -413,12 +414,246 @@ class PrefetchingIter(DataIter):
 
 
 class ImageRecordIter(DataIter):
-    """Not ported: RecordIO and the image pipeline are ROADMAP queue A
-    item 8."""
+    """RecordIO image iterator (the reference's
+    ``src/io/iter_image_recordio_2.cc``; the JAX package's class).
 
-    def __init__(self, *args, **kwargs):
-        raise MXNetError("ImageRecordIter is not ported: RecordIO and the "
-                         "image pipeline are ROADMAP queue A item 8")
+    Reads ``.rec`` shards of IRHeader + encoded image (``tools/im2rec.py``)
+    and yields float32 NCHW batches, ``(x - mean) / std``, on the CPU.
+    ``route`` says how, and ``route_reason`` why:
+
+    * ``"native_pipeline"``: the C++ pipeline (``lib.NativeImagePipeline``)
+      decodes, resizes the short edge (``INTER_AREA`` shrinking, else
+      bilinear), crops, mirrors and normalizes on ``preprocess_threads``
+      threads; it shuffles through the ``.idx`` (``path_imgidx``) from
+      ``seed``.  Taken when the image library builds and either no
+      shuffle is asked or the ``.idx`` is given;
+    * ``"native_prefetch"``: records from the C++ prefetching reader,
+      decoded in Python; when not shuffled and the core library builds;
+    * ``"python"``: records read into memory, decoded in Python.
+
+    On the two Python-decoding routes the shuffle, crops and mirrors draw
+    from numpy's global generator in the JAX package's order (resize by
+    nearest neighbour), so its batches are the JAX class's bit for bit.
+    ``preprocess_threads`` threads decode and resize a batch's records
+    and normalize its crops (cv2 and numpy release the GIL); the draws
+    stay in the calling thread, in record order.
+
+    The last batch of an epoch repeats its first records (``pad``).
+    """
+
+    def __init__(self, path_imgrec, data_shape, batch_size=1, label_width=1,
+                 shuffle=False, mean_r=0.0, mean_g=0.0, mean_b=0.0,
+                 std_r=1.0, std_g=1.0, std_b=1.0, rand_crop=False,
+                 rand_mirror=False, resize=-1, path_imgidx=None,
+                 round_batch=True, preprocess_threads=4, seed=0, **kwargs):
+        super().__init__(batch_size)
+        from .. import lib
+
+        self.data_shape = tuple(data_shape)
+        self.label_width = label_width
+        self.shuffle = shuffle
+        self.rand_crop = rand_crop
+        self.rand_mirror = rand_mirror
+        self.resize = resize
+        self.mean = np.array([mean_r, mean_g, mean_b], np.float32)
+        self.std = np.array([std_r, std_g, std_b], np.float32)
+        self._pipe = None
+        self._stream = None
+        self._pool = None
+        self._records: List[bytes] = []
+        self._order = None
+        self.cursor = 0
+        self._epoch_count = None  # records an epoch, learnt on the stream
+        if shuffle and not path_imgidx:
+            why = "shuffle without path_imgidx"
+        else:
+            why = lib.image_error()
+        if why is None:
+            c, h, w = self.data_shape
+            self._pipe = lib.NativeImagePipeline(
+                path_imgrec, path_imgidx,
+                batch=batch_size, channels=c, height=h, width=w,
+                label_width=label_width, resize_short=resize,
+                rand_crop=rand_crop, rand_mirror=rand_mirror,
+                shuffle=shuffle, normalize=True,
+                mean_r=mean_r, mean_g=mean_g, mean_b=mean_b,
+                std_r=std_r, std_g=std_g, std_b=std_b,
+                threads=preprocess_threads, seed=seed)
+            self.route, self.route_reason = "native_pipeline", None
+            return
+        self.route_reason = f"no native pipeline: {why.splitlines()[0]}"
+        threads = max(1, int(preprocess_threads))
+        self._pool = ThreadPoolExecutor(threads) if threads > 1 else None
+        if not shuffle and lib.available():
+            self._stream = lib.NativePrefetchReader(path_imgrec)
+            self.route = "native_prefetch"
+        else:
+            from ..recordio import MXRecordIO
+
+            rec = MXRecordIO(path_imgrec, "r")
+            try:
+                while True:
+                    buf = rec.read()
+                    if buf is None:
+                        break
+                    self._records.append(buf)
+            finally:
+                rec.close()
+            self._order = np.arange(len(self._records))
+            self.route = "python"
+        self.reset()
+
+    @property
+    def provide_data(self):
+        return [DataDesc("data", (self.batch_size,) + self.data_shape)]
+
+    @property
+    def provide_label(self):
+        shape = (self.batch_size,) if self.label_width == 1 \
+            else (self.batch_size, self.label_width)
+        return [DataDesc("softmax_label", shape)]
+
+    def reset(self):
+        if self._pipe is not None:
+            self._pipe.reset()
+            self.cursor = 0
+            return
+        if self._stream is not None:
+            self._stream.reset()
+        if self.shuffle:
+            np.random.shuffle(self._order)
+        self.cursor = 0
+
+    def _decoded(self, raw: bytes):
+        """A record's image decoded and its short edge resized (no draw),
+        and its label vector."""
+        from ..image import imdecode_np
+        from ..recordio import unpack
+
+        header, img_bytes = unpack(raw)
+        img = imdecode_np(img_bytes)
+        if self.resize > 0:
+            img = _resize_short(img, self.resize)
+        label = np.atleast_1d(np.asarray(header.label, np.float32))
+        return img, label[:self.label_width]
+
+    def _crop_mirror(self, img):
+        """The crop and the mirror, drawing from numpy's global
+        generator."""
+        _, h, w = self.data_shape
+        img = _center_or_rand_crop(img, (h, w), self.rand_crop)
+        if self.rand_mirror and np.random.rand() < 0.5:
+            img = img[:, ::-1]
+        return img
+
+    def _normalized(self, img):
+        return ((img.astype(np.float32) - self.mean) / self.std).transpose(
+            2, 0, 1)
+
+    def decode_record(self, raw: bytes):
+        """One record through the Python route: (CHW float32 image,
+        label vector)."""
+        img, label = self._decoded(raw)
+        return self._normalized(self._crop_mirror(img)), label
+
+    def _map(self, fn, items):
+        return list(self._pool.map(fn, items) if self._pool is not None
+                    else map(fn, items))
+
+    def _next_raw(self) -> Optional[bytes]:
+        """One record from the native stream or the in-memory list."""
+        if self._stream is not None:
+            raw = self._stream.read()
+            if raw is None:
+                # records an epoch = those consumed + this batch's part
+                self._epoch_count = self.cursor + self._batch_pos
+            return raw
+        if self.cursor + self._batch_pos >= len(self._records):
+            return None
+        return self._records[self._order[self.cursor + self._batch_pos]]
+
+    def _batch(self, data, label, pad):
+        lab = label[:, 0] if self.label_width == 1 else label
+        return DataBatch([array(data, ctx=cpu())], [array(lab, ctx=cpu())],
+                         pad=pad, provide_data=self.provide_data,
+                         provide_label=self.provide_label)
+
+    def next(self) -> DataBatch:
+        if self._pipe is not None:
+            res = self._pipe.next()
+            if res is None:
+                raise StopIteration
+            data, label, pad = res
+            self.cursor += self.batch_size - pad
+            return self._batch(data, label, pad)
+        if self._stream is not None and self._epoch_count is not None \
+                and self.cursor >= self._epoch_count:
+            raise StopIteration
+        raws, firsts = [], []
+        pad = 0
+        self._batch_pos = 0
+        for b in range(self.batch_size):
+            raw = self._next_raw()
+            if raw is None:
+                if b == 0:
+                    raise StopIteration
+                pad += 1
+                raw = firsts[b % len(firsts)]
+            else:
+                firsts.append(raw)
+                self._batch_pos += 1
+            raws.append(raw)
+        self.cursor += self._batch_pos
+        decoded = self._map(self._decoded, raws)
+        crops = [self._crop_mirror(img) for img, _ in decoded]
+        c, h, w = self.data_shape
+        data = np.empty((self.batch_size, c, h, w), np.float32)
+
+        def fill(i):
+            data[i] = self._normalized(crops[i])
+
+        self._map(fill, range(self.batch_size))
+        return self._batch(data, np.stack([lab for _, lab in decoded]), pad)
+
+    def close(self):
+        """Stop the decode threads and the native reader or pipeline."""
+        if getattr(self, "_pool", None) is not None:
+            self._pool.shutdown(wait=True)
+            self._pool = None
+        for attr in ("_stream", "_pipe"):
+            if getattr(self, attr, None) is not None:
+                getattr(self, attr).close()
+                setattr(self, attr, None)
+
+    def __del__(self):
+        try:
+            self.close()
+        except Exception:  # interpreter shutdown
+            pass
+
+
+def _resize_short(img, size):
+    """Nearest-neighbour resize of the shorter edge to ``size``."""
+    h, w = img.shape[:2]
+    scale = size / min(h, w)
+    nh, nw = max(1, int(round(h * scale))), max(1, int(round(w * scale)))
+    ys = (np.arange(nh) * (h / nh)).astype(int).clip(0, h - 1)
+    xs = (np.arange(nw) * (w / nw)).astype(int).clip(0, w - 1)
+    return img[ys][:, xs]
+
+
+def _center_or_rand_crop(img, hw, rand):
+    h, w = img.shape[:2]
+    th, tw = hw
+    if h < th or w < tw:
+        img = _resize_short(img, max(th, tw))
+        h, w = img.shape[:2]
+    if rand:
+        y = np.random.randint(0, h - th + 1)
+        x = np.random.randint(0, w - tw + 1)
+    else:
+        y, x = (h - th) // 2, (w - tw) // 2
+    return img[y:y + th, x:x + tw]
 
 
 class LibSVMIter(DataIter):

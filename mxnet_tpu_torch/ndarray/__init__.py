@@ -8,6 +8,7 @@ import torch as _torch
 
 from .ndarray import (NDArray, arange, array, concatenate, empty, full,
                       ones, stack, wrap_outputs, zeros)
+from . import image
 from . import random
 from . import sparse
 from .sparse import (BaseSparseNDArray, CSRNDArray, RowSparseNDArray,
@@ -15,11 +16,11 @@ from .sparse import (BaseSparseNDArray, CSRNDArray, RowSparseNDArray,
 from . import register as _register
 
 __all__ = ["NDArray", "array", "zeros", "ones", "full", "empty", "arange",
-           "concatenate", "stack", "random", "waitall", "save", "load",
-           "sparse", "BaseSparseNDArray", "CSRNDArray", "RowSparseNDArray",
-           "cast_storage",
-           "maximum", "minimum", "power", "modulo", "logical_and",
-           "logical_or", "logical_xor", "linspace"]
+           "concatenate", "stack", "image", "random", "waitall", "save",
+           "load", "sparse", "BaseSparseNDArray", "CSRNDArray",
+           "RowSparseNDArray", "cast_storage", "maximum", "minimum",
+           "power", "modulo", "logical_and", "logical_or", "logical_xor",
+           "linspace"]
 
 
 def _scalar_or_elemwise(broadcast_op, scalar_op, rscalar_op=None):

@@ -5,7 +5,7 @@ is an attribute under its registered name (``F.MultiBoxPrior``,
 ``F.broadcast_greater``, ``F.argsort``), as in the JAX package."""
 from __future__ import annotations
 
-from . import contrib, linalg, random_ops, rnn
+from . import contrib, image_ops, linalg, random_ops, rnn
 
 from .attention import (attend, attention_launch_count,
                         dot_product_attention, dot_product_attention_ref,
@@ -48,7 +48,7 @@ __all__ = ["fused_conv_unit", "fused_conv_unit_ref", "fused_conv_unit_bwd",
            "multi_mp_sgd_mom_update", "preloaded_multi_sgd_update",
            "multi_lars", "lamb_update_phase1", "lamb_update_phase2", "pick", "mean", "sum",
            "arange_like", "expand_dims", "squeeze", "slice_axis", "cast",
-           "broadcast_add", "broadcast_lesser", "contrib",
+           "broadcast_add", "broadcast_lesser", "contrib", "image_ops",
            "random_ops", "rnn"]
 
 

@@ -127,11 +127,6 @@ _NAIVE = env.get_str("MXNET_ENGINE_TYPE") == "NaiveEngine"
 # The JAX package's op names the port does not register yet, under the
 # ROADMAP queue A item that ports them.
 _QUEUED_BY_ITEM = {
-    "8": tuple(p + n for p in ("_image_", "image_") for n in (
-        "crop", "flip_left_right", "flip_up_down", "normalize",
-        "random_brightness", "random_contrast", "random_flip_left_right",
-        "random_flip_up_down", "random_saturation", "resize",
-        "to_tensor")),
     "9": ("Custom",) + tuple(p + n for p in ("", "_contrib_") for n in (
         "AdaptiveAvgPooling2D", "BilinearResize2D", "MultiProposal",
         "PSROIPooling", "Proposal", "ROIAlign", "ROIPooling",

@@ -356,6 +356,22 @@ add("box_nms _contrib_box_nms",
          _boxes(12, span=0.7, size=0.3)(rng)[None]], -1).astype(
              np.float32)], {"overlap_thresh": 0.5}, kind="sum", n=4))
 
+# ---- image ops (HWC, NHWC batched) ------------------------------------------
+add("_image_to_tensor image_to_tensor",
+    Case([lambda rng: rng.randint(0, 256, (2, 6, 8, 3)).astype(np.uint8)]))
+add("_image_normalize image_normalize",
+    Case([F(2, 3, 6, 8)], {"mean": (0.5, -0.2, 0.1),
+                           "std": (1.5, 0.7, 2.0)}))
+# bilinear: 6 -> 9 rows (2 taps), 8 -> 5 columns (antialiased, <= 4 taps)
+add("_image_resize image_resize",
+    Case([F(2, 6, 8, 3, lo=0.0, hi=255.0)], {"size": (5, 9)}, kind="sum",
+         n=8, terms=True))
+add("_image_crop image_crop",
+    Case([F(6, 8, 3)], {"x0": 1, "y0": 2, "width": 4, "height": 3},
+         kind="exact"))
+add("_image_flip_left_right image_flip_left_right _image_flip_up_down "
+    "image_flip_up_down", Case([F(2, 6, 8, 3)], kind="exact"))
+
 # ---- random draws (held by distribution, not by draw) ----------------------------
 for _n in ("_random_uniform random_uniform _random_normal random_normal "
            "normal_op _random_randint _random_gamma _random_exponential "
@@ -387,6 +403,11 @@ ELSEWHERE = {
     "CTCLoss": "phase 15 (d) (T = 100, batch 32)",
     "ctc_loss": "phase 15 (d) (T = 100, batch 32)",
 }
+for _n in ("random_flip_left_right random_flip_up_down random_brightness "
+           "random_contrast random_saturation").split():
+    for _p in ("_image_", "image_"):
+        ELSEWHERE[_p + _n] = \
+            "phase 18 (d) (fixed factors on the card, the coins' share)"
 for _n in ("sgd_update sgd_mom_update nag_mom_update mp_sgd_update "
            "mp_sgd_mom_update adam_update mp_adam_update rmsprop_update "
            "rmspropalex_update ftrl_update signsgd_update signum_update "

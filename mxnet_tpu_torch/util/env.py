@@ -264,7 +264,6 @@ _QUEUED_KNOBS_BY_ITEM = {
     "7": ("MXNET_KVSTORE_TIMEOUT", "MXNET_SPMD", "MXNET_SPMD_BUCKET_BYTES",
           "MXNET_COMM_QUANT", "MXNET_COMM_QUANT_EF",
           "MXNET_COMM_QUANT_MIN_SIZE", "MXNET_COMM_OVERLAP"),
-    "8": ("MXNET_CPU_WORKER_NTHREADS", "MXNET_USE_NATIVE"),
     "9": ("MXNET_TEST_DEFAULT_CONTEXT", "MXNET_USE_SIGNAL_HANDLER"),
     # production layers: memory pool, the kernel-choice and compile
     # caches, autotune, resilience and observability
@@ -317,6 +316,14 @@ declare("MXNET_ENGINE_TYPE", str, "ThreadedEnginePerDevice",
         "imperative invoke path synchronise the op's stream after each "
         "op (at bulk-scope exit inside engine.bulk), for debugging. Read "
         "once, at import.")
+declare("MXNET_CPU_WORKER_NTHREADS", int, None,
+        "Worker threads of the native dependency engine "
+        "(lib.NativeEngine). Default is computed: max(2, os.cpu_count()).")
+declare("MXNET_USE_NATIVE", bool, True,
+        "Build and load the native C++ modules (engine, RecordIO, image "
+        "pipeline) from mxnet_tpu_torch/native. 0 makes every caller take "
+        "its Python path (ImageRecordIter decodes in Python). Read at "
+        "each use.")
 
 # -- contexts / memory ------------------------------------------------------
 declare("MXNET_DEFAULT_CONTEXT", str, None,

@@ -161,7 +161,10 @@ def test_the_port_modules_import_no_jax():
                 "gluon/model_zoo/vision/inception.py",
                 "parallel/checkpoint.py", "parallel/dist.py",
                 "gluon/data/dataloader.py", "gluon/data/vision/transforms.py",
-                "gluon/data/vision/datasets.py"):
+                "gluon/data/vision/datasets.py", "gluon/data/dataset.py",
+                "lib.py", "recordio.py", "image/__init__.py",
+                "ops/image_ops.py", "ndarray/image.py", "tools/im2rec.py",
+                "tools/bench_pipeline.py", "examples/imagenet_train.py"):
         for name in _imports(pkg / rel):
             assert not name.startswith(("jax", "mxnet_tpu.")) \
                 and name != "mxnet_tpu", (rel, name)
@@ -192,7 +195,12 @@ def test_the_port_modules_import_no_jax():
             "mxnet_tpu_torch.serialization, mxnet_tpu_torch.util.env, "
             "mxnet_tpu_torch.gluon.model_zoo.vision, "
             "mxnet_tpu_torch.parallel.checkpoint, "
-            "mxnet_tpu_torch.gluon.data.vision.transforms; "
+            "mxnet_tpu_torch.gluon.data.vision.transforms, "
+            "mxnet_tpu_torch.lib, mxnet_tpu_torch.recordio, "
+            "mxnet_tpu_torch.image, mxnet_tpu_torch.ops.image_ops, "
+            "mxnet_tpu_torch.ndarray.image, mxnet_tpu_torch.tools.im2rec, "
+            "mxnet_tpu_torch.tools.bench_pipeline, "
+            "mxnet_tpu_torch.examples.imagenet_train; "
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'mxnet_tpu.')) or m == 'mxnet_tpu']; "
             "print(bad); sys.exit(1 if bad else 0)")

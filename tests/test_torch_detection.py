@@ -39,7 +39,9 @@ ways).
   kept anchors (positives and hard negatives, read as the anchors whose
   class scores get a gradient) as the JAX package's loss.
 * The port's ``examples/ssd_train.py --cpu --small --steps 2`` in a
-  subprocess: rc 0, finite losses, no JAX module loaded.
+  subprocess: rc 0, finite losses, no JAX module loaded; and with
+  ``--rec`` on a ``.rec`` packed by ``im2rec --pack-label``: it trains,
+  and its batches hold the records' boxes.
 """
 import os
 import subprocess
@@ -497,9 +499,49 @@ def test_ssd_example_runs_on_the_cpu_without_jax():
     assert "decoded (2, 170, 6) detections" in res.stdout
 
 
-def test_ssd_example_refuses_rec():
-    from mxnet_tpu_torch.base import MXNetError
-    from mxnet_tpu_torch.examples import ssd_train
+def test_ssd_example_trains_on_a_packed_detection_rec(tmp_path):
+    """``--rec`` over a .rec packed by ``im2rec --pack-label`` from a
+    .lst of object labels: two steps with finite losses, and the boxes of
+    the first batch are the records' (or their mirror images)."""
+    import cv2
 
-    with pytest.raises(MXNetError, match="queue A item 8"):
-        ssd_train.main(["--cpu", "--small", "--rec", "voc.rec"])
+    from mxnet_tpu_torch import recordio as trio
+    from mxnet_tpu_torch.examples import ssd_train
+    from mxnet_tpu_torch.tools import im2rec
+
+    def _photo(h, w, seed):
+        img = np.random.RandomState(seed).randint(0, 255, (h, w, 3),
+                                                  np.uint8)
+        return cv2.GaussianBlur(img, (5, 5), 2)
+
+    rs = np.random.RandomState(5)
+    rows = []
+    for i in range(6):
+        cv2.imwrite(str(tmp_path / f"{i}.jpg"), _photo(48, 40, 60 + i))
+        k = 1 + i % 2
+        xy = rs.uniform(0.05, 0.5, (k, 2))
+        objs = np.concatenate([rs.randint(0, 3, (k, 1)), xy,
+                               xy + rs.uniform(0.1, 0.4, (k, 2))], 1)
+        label = "\t".join(f"{v:.4f}" for v in [2, 5] + list(objs.ravel()))
+        rows.append(f"{i}\t{label}\t{i}.jpg\n")
+    (tmp_path / "det.lst").write_text("".join(rows))
+    prefix = str(tmp_path / "det")
+    assert im2rec.main([prefix, str(tmp_path), "--pack-label",
+                        "--num-thread", "2"]) == 0
+    keep = {}
+    losses = ssd_train.main(["--cpu", "--small", "--rec", prefix + ".rec",
+                             "--batch-size", "3", "--classes", "3"],
+                            keep=keep)
+    assert len(losses) == 2 and np.isfinite(losses).all()
+    got = keep["rec_labels"][0]
+    assert got.shape == (3, 2, 5)
+    r = trio.MXIndexedRecordIO(prefix + ".idx", prefix + ".rec", "r")
+    for row in range(3):
+        h, _ = trio.unpack(r.read_idx(row))
+        objs = np.asarray(h.label[2:], np.float32).reshape(-1, 5)
+        mirrored = objs.copy()
+        mirrored[:, 1], mirrored[:, 3] = 1 - objs[:, 3], 1 - objs[:, 1]
+        k = objs.shape[0]
+        assert (np.array_equal(got[row, :k], objs)
+                or np.allclose(got[row, :k], mirrored, atol=1e-6))
+        assert (got[row, k:] == -1).all()

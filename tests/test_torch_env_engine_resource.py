@@ -53,10 +53,11 @@ def test_every_jax_knob_is_declared_or_queued():
     assert not port_names & queued, sorted(port_names & queued)
     assert port_names | queued == jax_names, \
         sorted(jax_names - port_names - queued)
-    assert set(env.QUEUED_KNOBS.values()) <= {"2", "7", "8", "9", "10"}
+    assert set(env.QUEUED_KNOBS.values()) <= {"2", "7", "9", "10"}
     assert {"MXNET_ZERO_STATES", "MXNET_ZERO_MIN_SIZE",
             "MXNET_PREFETCH_DEPTH"} <= port_names
-    assert {"MXNET_DEFAULT_CONTEXT", "MXNET_ENGINE_TYPE"} <= port_names
+    assert {"MXNET_DEFAULT_CONTEXT", "MXNET_ENGINE_TYPE",
+            "MXNET_CPU_WORKER_NTHREADS", "MXNET_USE_NATIVE"} <= port_names
 
 
 @pytest.mark.parametrize("name", sorted(k.name for k in env.knobs()))

@@ -286,8 +286,6 @@ def test_several_contexts_and_unported_parts_raise():
     mod = TModule(mlp(tmx.sym), context=CPU_T)
     with pytest.raises(MXNetError, match="queue A item 9"):
         mod.install_monitor(None)
-    with pytest.raises(MXNetError, match="queue A item 8"):
-        tmx.io.ImageRecordIter(path_imgrec="x.rec", data_shape=(3, 8, 8))
     with pytest.raises(MXNetError, match="queue A item 7"):
         tmx.kv.create("dist_sync")
     import torch
