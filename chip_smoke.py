@@ -511,6 +511,53 @@ Phases, each failing loudly (exit code 1, no result line):
    step; float32 within 2^-24 * 4 * S, S the blend's terms), and the
    random image ops' coins and factors over 512 calls on the card's
    generator.  It prints its seconds.
+19. int8 quantization and the contrib vision ops (phase_quant; it needs
+   phase 2's build, phase 10's detection inputs and phase 11's trained
+   weights): (a) the int8 kernel (csrc/int8_conv.cu) against its plain
+   version (the convolution in float64 on the card, cast to int32) bit for
+   bit at each of the 20 distinct convolutions of resnet50_v1_sym (53
+   layers) at batch 64 and 224², NCHW, and at its FC (64 x 2048 -> 1000,
+   a 1x1 convolution over a 1x1 image; torch._int_mm beside it, equal),
+   two launches bit-identical, then Ci = 3 7x7/2, num_group 32, depthwise,
+   dilation 2, NHWC and a ragged shape; kernel_ms from CUDA-graph replays
+   of the launch alone, op_ms the whole wrapper call, bound_ms max(2·M·Co·K
+   / 1979 TOP/s, bytes of x, w and the int32 y / 3.35 TB/s), no library
+   call for a convolution (PyTorch has no int8 convolution on CUDA).
+   (b) the NMS kernel (csrc/nms.cu): MultiBoxDetection on phase 10's
+   batch-32 inputs at nms_topk 100 and -1 through the op (one kernel
+   launch and no run of the Python loop on CUDA tensors a detection; its
+   ms beside the Python loop's), and the keep masks of the kernel, the plain
+   loop on the card and the plain loop on the CPU identical there, at
+   Proposal's 6000 candidates (force_suppress, the +1 IoU), and in
+   float16, bfloat16 and float64 (K 300 and 1100; SSD's detection in
+   float16 beside its float32 class ids).  (c) the
+   ResNet-50 phase 11 trained, quantized by contrib.quantization
+   (53 convolutions and the FC; entropy calibration over 2 batches of 64,
+   naive if that takes over 60 s) and bound with sym.bind: 53
+   convolution and 1 FC kernel launches a captured forward to the logits,
+   each counted on its own, captured against eager bit for bit, its ms
+   against the fp32 forward's.  On 8 of the eval images the quantized
+   graph runs node by node on the CPU from the card's inputs of each node
+   (integer outputs within one step, float outputs within 1e-5 of their
+   scale), and whole on the CPU (logits within 5% of their largest
+   magnitude; the int8 activations' steps apart counted); top-1 agreement
+   and the logits' relative L2 error against fp32 printed, with no bound
+   (naive's beside it).  The same quantize_model calls on the CPU give
+   the same graph node for node and the same int8 weights bit for bit;
+   naive's ranges and entropy's calibration samples within 1e-5 of each
+   tensor's largest magnitude (entropy's ranges printed: a flat KL
+   minimum moves with the last bits of the activations).  (d)
+   examples/quantize_model.py
+   at its full size in each calibration mode, each within its own 5%
+   accuracy limit.  (e) MultiProposal at batch 2 on a 38 x 63 map (a 600
+   x 1000 image at stride 16), 12 anchors, 6000 -> 300, card against CPU
+   (scores and kept rows equal, boxes within 1e-5 relative); its rois
+   (16 of each image) into ROIAlign (14x14, 1024 channels, 1/16, sample
+   ratio 2), ROIPooling (7x7) and PSROIPooling (21 classes, group 7),
+   AdaptiveAvgPooling2D to 1, 2, 3, 6 over 2048 x 60 x 60,
+   BilinearResize2D, fft and ifft: forward and gradient card against CPU
+   within 1e-5 of the CPU's largest magnitude; boolean_mask equal; ROIAlign
+   over all 600 rois timed.  It prints its seconds.
 
 The compiled paths (mxnet_tpu_torch._graphs): every SPMDTrainer step on one
 device, every hybridized forward in inference and under record() (a
@@ -553,8 +600,10 @@ phase 8's captured hybridized gluon.Trainer loop and kernel 5 on phase
 BERT-base step and kernels 1 and 2 on its centred-RMSProp ResNet-50
 step; kernels 1, 2 and 5 through phase 11's sym nodes, one call each;
 kernels 1 and 2 under phase 17's remat, ZeRO at dp = 2 and
-multi_precision steps and on phase 18's ImageNet-format training), from
-the checks at that path's shapes; the last line is
+multi_precision steps and on phase 18's ImageNet-format training; the
+int8 kernel on phase 19's quantized ResNet-50 (its convolutions and its
+FC) and the NMS kernel on SSD's detection at both caps and on
+MultiProposal), from the checks at that path's shapes; the last line is
 {"ok": true, "device": {"platform": "gpu", ...}}.
 """
 from __future__ import annotations
@@ -4450,7 +4499,7 @@ def ssd_detection(net, x, card):
         err = float((out - ref).abs().max())
         counts = kernel_counts()
         print(f"ssd detection nms_topk={k} (K={cap}): {ms:.2f} ms for "
-              f"batch {bsz}, the NMS loop {nms_ms:.2f} ms of it "
+              f"batch {bsz}, greedy NMS {nms_ms:.2f} ms of it "
               f"({nms_ms / ms:.1%}); {int(kept.sum())} rows kept; class "
               f"ids, scores and kept rows identical to the cpu op {same}, "
               f"max abs diff {err:.3g}; candidate pairs with IoU within "
@@ -4461,6 +4510,7 @@ def ssd_detection(net, x, card):
                  f"diff {err}, launches {counts}")
         res[f"nms_topk={k}"] = dict(ms=ms, nms_ms=nms_ms, kept=int(
             kept.sum()), identical=same, max_abs_diff=err, near=near)
+    KEEP["ssd_detection"] = args_host  # phase 19 (b)'s NMS inputs
     print(f"ssd detection softmax fp32: card vs cpu max abs {sm_err:.3g} "
           f"[{card}]", flush=True)
     if sm_err > SSD_DET_TOL:
@@ -4904,6 +4954,7 @@ def sym_train(card):
     w_args, w_aux = mod.get_params()
     w_args = {k: v._data.cpu() for k, v in w_args.items()}
     w_aux = {k: v._data.cpu() for k, v in w_aux.items()}
+    KEEP["sym_resnet50"] = (w_args, w_aux)  # phase 19 (c) quantizes it
     del mod, loaded, batches, before, after
     gc.collect()
     torch.cuda.empty_cache()
@@ -8016,6 +8067,902 @@ def phase_imagenet(card, train_res):
     return res
 
 
+# ---------------------------------------------------------------------------
+# phase 19: int8 quantization and the contrib vision ops
+# ---------------------------------------------------------------------------
+
+PEAK_INT8 = 1979e12    # dense int8 tensor-core op/s, H100 SXM
+KERNEL_INT8 = {"name": "int8_conv", "route": "cuda",
+               "source": "mxnet_tpu_torch/csrc/int8_conv.cu",
+               "replaces": "mxnet_tpu/ops/quantization.py:136 and :165 "
+                           "(lax at int32; no TPU kernel)"}
+KERNEL_NMS = {"name": "greedy_nms", "route": "cuda",
+              "source": "mxnet_tpu_torch/csrc/nms.cu",
+              "replaces": "mxnet_tpu/ops/contrib.py:215 (lax.fori_loop; "
+                          "no TPU kernel)"}
+Q_BATCH = 64
+Q_CALIB_BATCHES = 2
+Q_FORWARDS = 3           # (c): captured int8 forwards of the counted run
+Q_CPU_ROWS = 8           # (c): eval images the CPU's quantized graph runs
+# (c): the card's int8 forward against the same graph and parameters on
+# the CPU, node by node: each op of the quantized graph run on the CPU from
+# the card's values of its inputs; integer outputs at most Q_NODE_STEPS
+# apart (a product at a rounding half may round the other way), float
+# outputs within Q_NODE_TOL of the CPU output's largest magnitude
+Q_NODE_STEPS = 1
+Q_NODE_TOL = 1e-5
+# and end to end: the card's logits within this share of the CPU logits'
+# largest magnitude.  Flips at rounding halves grow through the layers
+# (high-gain BatchNorm channels of a net trained on random labels):
+# measured 0 on a ResNet-50 trained 2 epochs of 4 batches, 0.0119 on
+# phase 11's (1699419 of 81100800 int8 activations apart, up to 28 steps)
+Q_CPU_TOL = 0.05
+Q_ENTROPY_LIMIT_S = 60.0
+# (c): calibration, card against cpu, relative to each tensor's largest
+# magnitude: naive's ranges (min/max) and entropy's samples (the
+# histogram's input) differ in the last bits of the activations.
+# Entropy's ranges are not bounded: its KL curve can be flat over many
+# histogram bins, so last-bit changes move the minimum (0.0792 relative
+# apart on one run of phase 11's net, 1.33e-6 on another)
+Q_RANGE_REL = 1e-5
+NMS_FLOPS_PER_PAIR = 14  # the IoU and its comparison, fp32
+PEAK_FP64 = 34e12        # fp64 FLOP/s outside the tensor cores, H100 SXM
+# the detection's ms on this card when greedy NMS was the Python loop
+# (PERF.md section 5), printed beside the kernel's
+LOOP_DETECTION_MS = {100: "9.37-10.82", -1: "1156.6-1670.8"}
+RCNN_MAP = (2, 38, 63)   # batch, feature map of a 600 x 1000 image at /16
+RCNN_CHECKED = 16        # rois a image held against the CPU in (e)
+RCNN_TOL = 1e-5          # (e): of the CPU's largest magnitude
+INT8_RAGGED = [
+    # name, x (NCHW unless nhwc), w, stride, pad, dilate, groups, nhwc
+    ("ci3.7x7s2.n8", (8, 3, 224, 224), (64, 3, 7, 7), (2, 2), (3, 3),
+     (1, 1), 1, False),
+    ("groups32", (8, 256, 28, 28), (256, 8, 3, 3), (1, 1), (1, 1), (1, 1),
+     32, False),
+    ("depthwise", (8, 64, 56, 56), (64, 1, 3, 3), (1, 1), (1, 1), (1, 1),
+     64, False),
+    ("dilate2", (8, 256, 28, 28), (256, 256, 3, 3), (1, 1), (2, 2),
+     (2, 2), 1, False),
+    ("nhwc.3x3", (8, 28, 28, 128), (128, 128, 3, 3), (1, 1), (1, 1),
+     (1, 1), 1, True),
+    ("ragged.co70.s2x1", (3, 40, 9, 11), (70, 40, 3, 3), (2, 1), (1, 0),
+     (1, 1), 1, False)]
+
+
+def resnet50_conv_layers(batch):
+    """The distinct convolution layers of `resnet50_v1_sym` at `batch` and
+    224x224 (53 layers in all): (input shape, weight shape, stride, pad,
+    count)."""
+    from mxnet_tpu_torch import sym
+
+    net = resnet50_v1_sym(sym)
+    inner = net.get_internals()
+    shapes = dict(zip(inner.list_outputs(), inner.infer_shape_partial(
+        data=(batch, 3, 224, 224))[1]))
+    layers = {}
+    for node in net._topo():
+        if node.op != "Convolution":
+            continue
+        src, idx = node.inputs[0]
+        xs = (batch, 3, 224, 224) if src.op is None else shapes[
+            f"{src.name}_output" if src.num_outputs == 1
+            else f"{src.name}_output{idx}"]
+        a = node.attrs
+        key = (tuple(xs), (a["num_filter"], xs[1]) + tuple(a["kernel"]),
+               tuple(a.get("stride", (1, 1))), tuple(a.get("pad", (0, 0))))
+        layers[key] = layers.get(key, 0) + 1
+    return [k + (n,) for k, n in layers.items()]
+
+
+def _rand_i8(gen, shape, dev):
+    return torch.randint(-127, 128, shape, device=dev, generator=gen,
+                         dtype=torch.int32).to(torch.int8)
+
+
+def int8_case(name, xs, ws, stride, pad, dilate, groups, nhwc, gen, dev,
+              count=0, timed=True):
+    """The int8 kernel against its plain version (float64 on the card,
+    cast to int32) bit for bit, and two launches against each other;
+    timed: kernel_ms (the launch alone, CUDA-graph replays), op_ms (the
+    whole wrapper call), ref_ms, bound_ms."""
+    from mxnet_tpu_torch.ops import quantized_conv as qc
+
+    x, w = _rand_i8(gen, xs, dev), _rand_i8(gen, ws, dev)
+    args = (stride, pad, dilate, groups, nhwc)
+    y = qc.int8_conv(x, w, *args)
+    y2 = qc.int8_conv(x, w, *args)
+    ref = qc.int8_conv_ref(x, w, *args)
+    torch.cuda.synchronize()
+    same, det = torch.equal(y, ref), torch.equal(y, y2)
+    rec = dict(name=name, path="quantized_resnet50" if count else "check",
+               shape=list(xs), weight=list(ws), count=count, identical=same,
+               deterministic=det,
+               max_abs_err=float((y.double() - ref.double()).abs().max()))
+    if not (same and det):
+        fail(f"int8 {name}: identical to the plain version {same}, two "
+             f"launches identical {det}")
+    if timed:
+        xh = x.contiguous() if nhwc else x.permute(0, 2, 3, 1).contiguous()
+        wl, kpad = qc.weight_layout(w, groups)
+        yk = torch.empty_like(y)
+        kern = tuple(ws[2:])
+        rec["kernel_ms"] = graph_ms(lambda: qc.launch(
+            xh, wl, kpad, yk, nhwc, kern, stride, pad, dilate, groups))
+        rec["op_ms"] = time_ms(lambda: qc.int8_conv(x, w, *args), iters=5)
+        rec["ref_ms"] = time_ms(lambda: qc.int8_conv_ref(x, w, *args),
+                                iters=2, warmup=1)
+        k = math.prod(ws[1:])
+        ops = 2.0 * y.numel() * k
+        nbytes = x.numel() + w.numel() + 4 * y.numel()
+        t_ops, t_bytes = ops / PEAK_INT8, nbytes / PEAK_BYTES
+        rec.update(bound_ms=max(t_ops, t_bytes) * 1e3,
+                   bound_by="operations" if t_ops >= t_bytes else "bytes",
+                   library_ms=None)
+    return rec
+
+
+def quant_kernel_checks(card, dev):
+    """(a): every distinct convolution of the symbolic ResNet-50 at batch
+    64 and its FC, then the ragged cases."""
+    from mxnet_tpu_torch.ops import quantized_conv as qc
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(19)
+    recs = []
+    for xs, ws, st, pd, n in resnet50_conv_layers(Q_BATCH):
+        name = f"{ws[2]}x{ws[3]}/{st[0]} {xs[1]}->{ws[0]} at {xs[2]}"
+        recs.append(int8_case(name, xs, ws, st, pd, (1, 1), 1, False, gen,
+                              dev, count=n))
+    # the FC: a 1x1 convolution over a 1x1 image, as quantized_fully_
+    # connected runs it; its library call is torch._int_mm
+    fc = int8_case("fc 2048->1000", (Q_BATCH, 1, 1, 2048),
+                   (1000, 2048, 1, 1), (1, 1), (0, 0), (1, 1), 1, True, gen,
+                   dev, count=1)
+    x = _rand_i8(gen, (Q_BATCH, 2048), dev)
+    w = _rand_i8(gen, (1000, 2048), dev)
+    mine = qc.int8_conv(x.reshape(Q_BATCH, 1, 1, 2048),
+                        w.reshape(1000, 2048, 1, 1), channels_last=True)
+    lib = torch._int_mm(x, w.t())
+    fc["library_ms"] = graph_ms(lambda: torch._int_mm(x, w.t()))
+    fc["library_identical"] = torch.equal(mine.reshape(Q_BATCH, 1000), lib)
+    if not fc["library_identical"]:
+        fail("int8 fc: the kernel and torch._int_mm differ")
+    fc["path"] = "quantized_resnet50_fc"
+    recs.append(fc)
+    for case in INT8_RAGGED:
+        recs.append(int8_case(*case, gen, dev, timed=False))
+    for r in recs:
+        t = (f"kernel {r['kernel_ms']:.4f} ms, op {r['op_ms']:.4f}, plain "
+             f"{r['ref_ms']:.3f}, bound {r['bound_ms']:.4f} "
+             f"({r['bound_by']})"
+             + (f", library {r['library_ms']:.4f} (torch._int_mm)"
+                if r.get("library_ms") else "")
+             if "kernel_ms" in r else "checked")
+        print(f"int8 {r['name']} x{r['count']} {r['shape']}: identical "
+              f"{r['identical']}, deterministic {r['deterministic']}; {t} "
+              f"[{card}]", flush=True)
+    main = [r for r in recs if r["count"]]
+    n_layers = sum(r["count"] for r in main if r["path"] ==
+                   "quantized_resnet50")
+    if n_layers != 53:
+        fail(f"int8: {n_layers} convolution layers (want 53)")
+    return recs
+
+
+def nms_hold(tag, boxes, scores, ids, thr, force, off, card):
+    """The kernel's keep mask against the plain loop on the card and on
+    the CPU, identical; its launch step's ms (graph replays), the plain
+    loop's ms on the card, the bound."""
+    from mxnet_tpu_torch.ops import contrib
+
+    got = contrib.greedy_nms_keep(boxes, scores, ids, thr, force, off)
+    t0 = time.perf_counter()
+    plain = contrib.greedy_nms_keep_ref(boxes, scores, ids, thr, force,
+                                        off)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    cpu = contrib.greedy_nms_keep_ref(
+        boxes.cpu(), scores.cpu(), None if ids is None else ids.cpu(), thr,
+        force, off)
+    same = torch.equal(got, plain) and torch.equal(got.cpu(), cpu)
+    kernel_ms = graph_ms(lambda: contrib._nms_launch(
+        boxes, scores, ids, thr, force, off), launches=5)
+    b, k = scores.shape
+    valid = (scores > 0).to(torch.float64)
+    pairs = float((valid * (k - 1 - torch.arange(
+        k, device=scores.device, dtype=torch.float64))).sum())
+    nbytes = b * k * (5 * boxes.element_size() + 1 + (
+        0 if force else ids.element_size()))
+    t_ops = pairs * NMS_FLOPS_PER_PAIR / (
+        PEAK_FP64 if boxes.dtype == torch.float64 else PEAK_FP32)
+    t_bytes = nbytes / PEAK_BYTES
+    rec = dict(name=tag, batch=b, K=k, kept=int(got.sum()), identical=same,
+               kernel_ms=kernel_ms, ref_ms=plain_ms,
+               bound_ms=max(t_ops, t_bytes) * 1e3,
+               bound_by="operations" if t_ops >= t_bytes else "bytes",
+               library_ms=None, max_abs_err=0.0 if same else 1.0)
+    print(f"nms {tag} (batch {b}, K {k}, force {force}, off {off}): keep "
+          f"masks of the kernel, the plain loop on the card and on the cpu "
+          f"identical {same}, {rec['kept']} kept; kernel {kernel_ms:.4f} ms "
+          f"(bound {rec['bound_ms']:.4f}, {rec['bound_by']}), the plain "
+          f"loop on the card {plain_ms:.1f} ms [{card}]", flush=True)
+    if not same:
+        fail(f"nms {tag}: the keep masks differ")
+    return rec
+
+
+def quant_nms(card, dev):
+    """(b): SSD's detection (phase 10's inputs) at nms_topk 100 and -1,
+    then Proposal's 6000 candidates with force_suppress and off = 1."""
+    from mxnet_tpu_torch import ops
+    from mxnet_tpu_torch.ops import contrib
+
+    prob, loc, anchors = (t.to(dev) for t in KEEP["ssd_detection"])
+    thr = contrib._f32(0.5)
+    recs = {}
+    for k in SSD_NMS_TOPK:
+        run = lambda: ops.MultiBoxDetection(prob, loc, anchors, nms_topk=k)
+        run()
+        torch.cuda.synchronize()
+        contrib.reset_nms_loop_runs()
+        contrib.reset_nms_launch_count()
+        out = run()
+        torch.cuda.synchronize()
+        loops, launches = contrib.nms_loop_runs(), contrib.nms_launch_count()
+        ms = time_ms(run, iters=5, warmup=1)
+        sb, ss, si = contrib.decode_sorted(prob, loc, anchors)
+        n = sb.shape[1]
+        cap = min(k, n) if k > 0 else n
+        rec = nms_hold(f"ssd_topk{k}", *(t[:, :cap].contiguous()
+                                          for t in (sb, ss, si)), thr,
+                       False, 0.0, card)
+        rec.update(detection_ms=ms, share=rec["kernel_ms"] / ms,
+                   launches=launches, loop_runs_cuda=loops.get("cuda", 0))
+        print(f"nms ssd detection nms_topk={k}: {ms:.3f} ms for batch "
+              f"{prob.shape[0]} (with the Python loop: "
+              f"{LOOP_DETECTION_MS[k]} ms), the kernel {rec['share']:.1%} "
+              f"of it; {launches} kernel launch(es) and "
+              f"{loops.get('cuda', 0)} runs of the Python loop on CUDA "
+              f"tensors in one detection (phase 10 (d) holds the "
+              f"detection against the cpu op) [{card}]", flush=True)
+        if loops.get("cuda", 0) or launches != 1 or not bool(
+                torch.isfinite(out).all()):
+            fail(f"nms ssd nms_topk={k}: loop runs {loops}, launches "
+                 f"{launches}")
+        recs[k] = rec
+    return recs
+
+
+# (b): the kernel in its other element types, each against the plain loop
+# on the card and on the cpu: (dtype, K, force, off); K 300 takes the
+# loop's matrix branch, 1100 its row branch
+NMS_DTYPE_CASES = [(dt, k, force, off)
+                   for dt in (torch.float16, torch.bfloat16, torch.float64)
+                   for k, force, off in ((300, False, 0.0),
+                                         (1100, True, 1.0))]
+
+
+def quant_nms_dtypes(card, dev):
+    """(b): float16, bfloat16 and float64 candidates (pixel boxes whose
+    coarse types give many equal IoUs, tied scores, zeros, 3 classes), and
+    SSD's detection in float16 (its float32 class ids beside float16
+    boxes)."""
+    from mxnet_tpu_torch import ops
+    from mxnet_tpu_torch.ops import contrib
+
+    gen = torch.Generator().manual_seed(22)
+    recs = {}
+    for dt, k, force, off in NMS_DTYPE_CASES:
+        xy = torch.rand(2, k, 2, generator=gen) * 30
+        boxes = torch.cat(
+            [xy, xy + 5 + torch.rand(2, k, 2, generator=gen) * 20], -1)
+        scores = (torch.rand(2, k, generator=gen) * 6).round() / 6
+        scores = scores.sort(dim=1, descending=True, stable=True)[0]
+        ids = torch.randint(0, 3, (2, k), generator=gen).float()
+        tag = f"{str(dt).split('.')[-1]}_K{k}"
+        recs[tag] = nms_hold(tag, boxes.to(dev, dt), scores.to(dev, dt),
+                             None if force else ids.to(dev, dt),
+                             contrib._f32(0.4), force, off, card)
+    prob, loc, anchors = (t.to(dev, torch.float16)
+                          for t in KEEP.pop("ssd_detection"))
+    contrib.reset_nms_loop_runs()
+    contrib.reset_nms_launch_count()
+    out = ops.MultiBoxDetection(prob, loc, anchors, nms_topk=100)
+    torch.cuda.synchronize()
+    launches, loops = contrib.nms_launch_count(), contrib.nms_loop_runs()
+    sb, ss, si = contrib.decode_sorted(prob, loc, anchors)
+    recs["ssd_float16"] = nms_hold(
+        "ssd_topk100_float16", *(t[:, :100].contiguous() for t in (sb, ss, si)),
+        contrib._f32(0.5), False, 0.0, card)
+    print(f"nms ssd detection in float16 (ids {si.dtype}): {launches} kernel "
+          f"launch(es), {loops.get('cuda', 0)} runs of the Python loop on "
+          f"CUDA tensors, output {out.dtype} finite "
+          f"{bool(torch.isfinite(out).all())} [{card}]", flush=True)
+    if launches != 1 or loops.get("cuda", 0) or not bool(
+            torch.isfinite(out).all()):
+        fail(f"nms ssd float16: launches {launches}, loops {loops}")
+    return recs
+
+
+def rcnn_inputs(dev, seed=19):
+    """MultiProposal's inputs at R-CNN's shapes: batch 2, a 38 x 63 map
+    (600 x 1000 at stride 16), 12 anchors (scales 4-32, ratios 0.5-2)."""
+    b, h, w = RCNN_MAP
+    gen = torch.Generator(device="cpu")
+    gen.manual_seed(seed)
+    cls = torch.rand(b, 24, h, w, generator=gen)
+    bbox = torch.randn(b, 48, h, w, generator=gen) * 0.2
+    info = torch.tensor([[600.0, 1000.0, 1.0]] * b)
+    return cls.to(dev), bbox.to(dev), info.to(dev)
+
+
+def quant_proposal_nms(card, dev):
+    from mxnet_tpu_torch.ops import contrib
+
+    cls, bbox, info = rcnn_inputs(dev)
+    boxes, scores = contrib.proposal_candidates(cls, bbox, info, 6000)
+    return nms_hold("proposal_6000", boxes.contiguous(),
+                    scores.contiguous(), None, contrib._f32(0.7), True, 1.0,
+                    card)
+
+
+def _same_qgraph(a, b):
+    """(structure identical, worst relative distance of the calibrated
+    ranges): nodes, inputs and every attribute but the ranges equal."""
+    ja, jb = json.loads(a.tojson()), json.loads(b.tojson())
+    if ja["heads"] != jb["heads"] or len(ja["nodes"]) != len(jb["nodes"]):
+        return False, math.inf
+    worst = 0.0
+    for x, y in zip(ja["nodes"], jb["nodes"]):
+        if (x["op"], x["name"], x["inputs"]) != (y["op"], y["name"],
+                                                 y["inputs"]):
+            return False, math.inf
+        ax, ay = x.get("attrs", {}), y.get("attrs", {})
+        if set(ax) != set(ay):
+            return False, math.inf
+        for k in ax:
+            if k.endswith("_calib_range"):
+                u, v = float(ax[k]), float(ay[k])
+                worst = max(worst, abs(u - v) / max(abs(u), 1e-30))
+            elif ax[k] != ay[k]:
+                return False, math.inf
+    return True, worst
+
+
+def quant_resnet(card, dev):
+    """(c): the symbolic ResNet-50 phase 11 trained, quantized (53
+    convolutions and the FC) with entropy calibration over 2 batches of 64
+    (naive beside it), its int8 logits captured against eager and against
+    fp32; the same quantize_model calls on the CPU."""
+    import numpy as np
+
+    from mxnet_tpu_torch import _graphs as mxg
+    from mxnet_tpu_torch import cpu, nd, sym
+    from mxnet_tpu_torch.contrib.quantization import quantize_model
+    from mxnet_tpu_torch.ops import quantized_conv as qc
+
+    w_args, w_aux = KEEP.pop("sym_resnet50")
+    net = resnet50_v1_sym(sym)
+    xs, _ = sym_images(Q_BATCH * (Q_CALIB_BATCHES + 1), 19)
+    calib = [xs[i * Q_BATCH:(i + 1) * Q_BATCH]
+             for i in range(Q_CALIB_BATCHES)]
+
+    def quantize(mode, ctx):
+        args = {k: nd.array(v, ctx=ctx) for k, v in w_args.items()}
+        aux = {k: nd.array(v, ctx=ctx) for k, v in w_aux.items()}
+        t0 = time.perf_counter()
+        out = quantize_model(net, args, aux, calib_mode=mode, calib_data=[
+            nd.array(c, ctx=ctx) for c in calib])
+        torch.cuda.synchronize()
+        return out, args, aux, time.perf_counter() - t0
+
+    modes = ["entropy", "naive"]
+    (qsym, qargs, qaux), args, aux, calib_s = quantize("entropy", dev)
+    print(f"quant resnet50: quantize_model with entropy calibration over "
+          f"{Q_CALIB_BATCHES} batches of {Q_BATCH} took {calib_s:.1f} s "
+          f"[{card}]", flush=True)
+    if calib_s > Q_ENTROPY_LIMIT_S:
+        print(f"quant resnet50: entropy calibration took over "
+              f"{Q_ENTROPY_LIMIT_S:.0f} s, so the main run is naive",
+              flush=True)
+        modes = ["naive"]
+        (qsym, qargs, qaux), args, aux, calib_s = quantize("naive", dev)
+    mode = modes[0]
+    xeval = nd.array(xs[-Q_BATCH:], ctx=dev)
+    n_q = sum(1 for n in qsym._topo() if n.op in (
+        "_contrib_quantized_conv", "_contrib_quantized_fully_connected"))
+    qexe = qsym.get_internals()["fc_output"].bind(
+        dev, dict(qargs, data=xeval), grad_req="null", aux_states=qaux)
+    fexe = net.get_internals()["fc_output"].bind(
+        dev, dict(args, data=xeval), grad_req="null", aux_states=aux)
+    qc.reset_int8_conv_launch_count()
+    for _ in range(Q_FORWARDS):
+        q = qexe.forward()[0]._data
+    torch.cuda.synchronize()
+    launches = {s: qc.int8_conv_launch_count(s) for s in ("conv", "fc")}
+    q = q.clone()
+    with mxg.no_capture():
+        q_eager = qexe.forward()[0]._data.clone()
+    f = fexe.forward()[0]._data.clone()
+
+    def timed(exe, n=5):
+        exe.forward()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(n):
+            exe.forward()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t) / n * 1e3
+
+    q_ms, f_ms = timed(qexe), timed(fexe)
+    same = torch.equal(q, q_eager)
+
+    def agreement(logits):
+        return (float((logits.argmax(1) == f.argmax(1)).float().mean()),
+                float((logits - f).norm() / f.norm()))
+
+    # informational only: the net was trained for a few steps on random
+    # labels, so its fp32 argmax may fall on a few classes
+    top1, rel = agreement(q)
+    n_cls = int(f.argmax(1).unique().numel())
+    res = dict(mode=mode, calib_s=calib_s, int8_ms=q_ms, fp32_ms=f_ms,
+               launches=launches, forwards=Q_FORWARDS, identical=same,
+               top1=top1, fp32_classes=n_cls, rel_l2=rel, layers=n_q)
+    print(f"quant resnet50 int8 ({mode}, {n_q} quantized layers) fp32 NCHW "
+          f"batch {Q_BATCH}: {q_ms:.2f} ms a captured forward to the "
+          f"logits against fp32's {f_ms:.2f} ms; int8 kernel launches in "
+          f"{Q_FORWARDS} forwards: {launches['conv']} by the convolutions "
+          f"({launches['conv'] / Q_FORWARDS:.0f} a forward), "
+          f"{launches['fc']} by the FC ({launches['fc'] / Q_FORWARDS:.0f} a "
+          f"forward); captured against eager bit-identical {same}; against "
+          f"fp32 (no bound: weights from a few steps on random labels): "
+          f"top-1 agreement {top1:.4f} over {n_cls} distinct fp32 classes, "
+          f"logits relative L2 error {rel:.4f} [{card}]", flush=True)
+    ok = same and n_q == 54 and launches == {
+        "conv": 53 * Q_FORWARDS, "fc": Q_FORWARDS} and bool(
+        torch.isfinite(q).all())
+    del qexe
+    # each mode's call on the card against the same call on the CPU: the
+    # graph node for node, the int8 weights bit for bit, naive's ranges
+    # and entropy's samples within Q_RANGE_REL (their activations differ
+    # in the last bits between the card's and the CPU's convolutions)
+    for m in modes:
+        if m != mode:
+            (qsym, qargs, qaux), _, _, _ = quantize(m, dev)
+            qexe = qsym.get_internals()["fc_output"].bind(
+                dev, dict(qargs, data=xeval), grad_req="null",
+                aux_states=qaux)
+            res[f"{m}_top1"], res[f"{m}_rel_l2"] = agreement(
+                qexe.forward()[0]._data)
+            del qexe
+            print(f"quant resnet50 int8 ({m}): top-1 agreement with fp32 "
+                  f"{res[f'{m}_top1']:.4f}, logits relative L2 error "
+                  f"{res[f'{m}_rel_l2']:.4f} [{card}]", flush=True)
+        (csym, cargs, caux), _, _, cpu_s = quantize(m, cpu())
+        structure, worst = _same_qgraph(qsym, csym)
+        if m == mode:
+            res["cpu_forward"] = quant_cpu_forward(
+                qsym, qargs, qaux, csym, cargs, caux, q, xs[-Q_BATCH:], dev,
+                card)
+            ok = ok and res["cpu_forward"]["ok"]
+        same_args = set(qargs) == set(cargs) and all(
+            torch.equal(qargs[k]._data.cpu(), cargs[k]._data)
+            for k in qargs)
+        n8 = sum(1 for k in qargs if qargs[k].dtype == np.int8)
+        bound = f"bound {Q_RANGE_REL}" if m == "naive" else "no bound"
+        print(f"quant resnet50 ({m}): the same quantize_model call on the "
+              f"cpu ({cpu_s:.1f} s): graph node for node {structure}, "
+              f"calibrated ranges at most {worst:.3g} relative apart "
+              f"({bound}), {len(qargs)} parameters ({n8} int8) bit for bit "
+              f"{same_args} [{card}]", flush=True)
+        ok = ok and structure and same_args
+        if m == "naive":
+            ok = ok and worst <= Q_RANGE_REL
+        else:
+            res["entropy_samples_rel"] = quant_entropy_samples(
+                net, w_args, w_aux, calib, dev, card)
+            ok = ok and res["entropy_samples_rel"] <= Q_RANGE_REL
+        res[f"{m}_cpu"] = dict(seconds=cpu_s, graph_same=structure,
+                               range_rel=worst, args_same=same_args)
+    if not ok:
+        fail(f"quant resnet50: {json.dumps(res, default=str)}")
+    return res
+
+
+def quant_entropy_samples(net, w_args, w_aux, calib, dev, card):
+    """(c): entropy calibration's samples of every calibrated tensor (the
+    inputs and outputs of the 53 convolutions and the FC, the strided
+    subsample the histogram is built from), card against CPU; returns the
+    worst distance relative to each tensor's largest magnitude."""
+    from mxnet_tpu_torch import cpu, nd
+    from mxnet_tpu_torch.contrib.quantization import calib_thresholds
+
+    def out_name(node, idx):
+        return f"{node.name}_output" if node.num_outputs == 1 \
+            else f"{node.name}_output{idx}"
+
+    names = set()
+    for node in net._topo():
+        if node.op in ("Convolution", "FullyConnected"):
+            src, idx = node.inputs[0]
+            if src.op is not None:
+                names.add(out_name(src, idx))
+            names.add(out_name(node, 0))
+    card_s, cpu_s = {}, {}
+    for ctx, smp in ((dev, card_s), (cpu(), cpu_s)):
+        calib_thresholds(
+            net, {k: nd.array(v, ctx=ctx) for k, v in w_args.items()},
+            {k: nd.array(v, ctx=ctx) for k, v in w_aux.items()},
+            sorted(names), [nd.array(c, ctx=ctx) for c in calib],
+            calib_mode="entropy", samples_out=smp)
+    worst = 0.0
+    for k, want in cpu_s.items():
+        have = card_s[k]
+        if have.shape != want.shape:
+            worst = math.inf
+            break
+        sc = float(abs(want).max()) or 1.0
+        worst = max(worst, float(abs(have - want).max()) / sc)
+    n = sum(a.size for a in cpu_s.values())
+    print(f"quant resnet50 (entropy): calibration samples of {len(cpu_s)} "
+          f"tensors ({n} values), card against cpu, at most {worst:.3g} of "
+          f"each tensor's largest magnitude apart (bound {Q_RANGE_REL}) "
+          f"[{card}]", flush=True)
+    return worst
+
+
+def quant_cpu_forward(qsym, qargs, qaux, csym, cargs, caux, q, xeval, dev,
+                      card):
+    """(c): the card's int8 forward held against the CPU's on the first
+    Q_CPU_ROWS eval images.  Node by node: every op of the quantized graph
+    run on the CPU from the card's values of its inputs, against the
+    card's output.  End to end: the card's quantized graph and parameters
+    run on the CPU (int8_conv_ref and the fp32 ops there), its logits and
+    the int8 activations of every quantize node against the card's; the
+    CPU's own quantize_model result, whose entropy ranges may sit some
+    histogram bins from the card's, beside them."""
+    from mxnet_tpu_torch import cpu, nd, sym
+    from mxnet_tpu_torch.ops.registry import get_op
+    from mxnet_tpu_torch.symbol.symbol import (TRAIN_AWARE_OPS, Symbol,
+                                                op_attrs)
+
+    x = xeval[:Q_CPU_ROWS]
+
+    def bind(s, args, aux, ctx):
+        args = {k: v.as_in_context(ctx) for k, v in args.items()}
+        aux = {k: v.as_in_context(ctx) for k, v in aux.items()}
+        return s.bind(ctx, dict(args, data=nd.array(x, ctx=ctx)),
+                      grad_req="null", aux_states=aux)
+
+    # node by node
+    t0 = time.perf_counter()
+    graph = qsym.get_internals()["fc_output"]
+    topo = graph._topo()
+    heads = [(n, i) for n in topo if n.op is not None
+             for i in range(n.num_outputs)]
+    vals = dict(zip([(id(n), i) for n, i in heads],
+                    (o._data.cpu() for o in bind(
+                        Symbol(heads), qargs, qaux, dev).forward())))
+    given = dict(qargs, **qaux)
+    for n in topo:
+        if n.op is None:
+            vals[(id(n), 0)] = torch.from_numpy(x) if n.name == "data" \
+                else given[n.name]._data.cpu()
+    worst = {"int": 0, "float": 0.0}
+    moved, checked = 0, 0
+    for n in topo:
+        if n.op is None:
+            continue
+        kw = op_attrs(n)
+        if n.op in TRAIN_AWARE_OPS:
+            kw["train"] = False
+        out = get_op(n.op).fn(*(vals[(id(i), ix)] for i, ix in n.inputs),
+                              **kw)
+        outs = out if isinstance(out, (tuple, list)) else [out]
+        for i, o in enumerate(outs[:n.num_outputs]):
+            card_o = vals[(id(n), i)]
+            checked += 1
+            if o.dtype.is_floating_point:
+                sc = float(o.abs().max()) if o.numel() else 0.0
+                d = float((card_o - o).abs().max()) if o.numel() else 0.0
+                worst["float"] = max(worst["float"], d / (sc or 1.0))
+            else:
+                d = (card_o.long() - o.long()).abs()
+                moved += int((d > 0).sum())
+                worst["int"] = max(worst["int"], int(d.max()))
+    node_s = time.perf_counter() - t0
+    node_ok = worst["int"] <= Q_NODE_STEPS and worst["float"] <= Q_NODE_TOL
+    print(f"quant resnet50: the card's int8 graph node by node ({checked} "
+          f"outputs of {len(topo)} nodes, {Q_CPU_ROWS} images), each op on "
+          f"the cpu from the card's inputs: integer outputs at most "
+          f"{worst['int']} steps apart (bound {Q_NODE_STEPS}, {moved} "
+          f"elements moved), float outputs {worst['float']:.3g} of their "
+          f"scale (bound {Q_NODE_TOL}); {node_s:.1f} s [{card}]", flush=True)
+
+    # end to end
+    names = [n for n in qsym.get_internals().list_outputs()
+             if n.endswith("_quantize_output0")]
+
+    def run(s, args, aux, ctx, heads):
+        inner = s.get_internals()
+        g = sym.Group([inner[n] for n in heads])
+        return [o._data.cpu() for o in bind(g, args, aux, ctx).forward()]
+
+    t0 = time.perf_counter()
+    want = run(qsym, qargs, qaux, cpu(), ["fc_output"] + names)
+    cpu_s = time.perf_counter() - t0
+    got = run(qsym, qargs, qaux, dev, names)
+    own = run(csym, cargs, caux, cpu(), ["fc_output"])[0]
+    mine = q[:Q_CPU_ROWS].cpu()
+    logits = want[0]
+    scale = float(logits.abs().max())
+    err = float((mine - logits).abs().max())
+    err_own = float((mine - own).abs().max())
+    steps = [(a.int() - b.int()).abs() for a, b in zip(got, want[1:])]
+    flips = sum(int((d == 1).sum()) for d in steps)
+    apart = sum(int((d > 0).sum()) for d in steps)
+    total = sum(d.numel() for d in steps)
+    far = max(int(d.max()) for d in steps)
+    ok = node_ok and bool(torch.isfinite(logits).all()) and \
+        err <= Q_CPU_TOL * scale
+    print(f"quant resnet50: the card's int8 forward against the same graph "
+          f"and parameters on the cpu ({Q_CPU_ROWS} images, {cpu_s:.1f} s "
+          f"there): logits max abs diff {err:.4g} of scale {scale:.4g} "
+          f"({err / scale:.4g}; bound {Q_CPU_TOL}); of {total} int8 "
+          f"activations of the {len(names)} quantize nodes {flips} one "
+          f"step apart, {apart - flips} more, at most {far} steps; against "
+          f"the cpu's own quantize_model result (no bound) {err_own:.4g} "
+          f"({err_own / scale:.4g} of scale) [{card}]", flush=True)
+    return dict(ok=ok, rows=Q_CPU_ROWS, node_outputs=checked,
+                node_max_step=worst["int"], node_moved=moved,
+                node_float_rel=worst["float"], node_s=node_s, max_abs=err,
+                scale=scale, flips=flips, apart=apart, activations=total,
+                max_step=far, cpu_s=cpu_s, own_max_abs=err_own)
+
+
+def quant_example(card):
+    """(d): examples/quantize_model.py's flow at its full size in each
+    calibration mode, within its own 5% limit."""
+    from mxnet_tpu_torch.examples import quantize_model as ex
+    from mxnet_tpu_torch.ops import quantized_conv as qc
+
+    res = {}
+    for mode in ("none", "naive", "entropy"):
+        qc.reset_int8_conv_launch_count()
+        t0 = time.perf_counter()
+        try:
+            r = ex.main(["--calib-mode", mode])
+        except SystemExit as e:
+            fail(f"quant example {mode}: {e}")
+            continue
+        r.update(seconds=time.perf_counter() - t0,
+                 launches=qc.int8_conv_launch_count())
+        print(f"quant example --calib-mode {mode}: fp32 accuracy "
+              f"{r['fp32_acc']:.4f}, int8 {r['int8_acc']:.4f} (drop "
+              f"{r['drop']:.4f}, limit 0.05); scoring fp32 "
+              f"{r['fp32_s']:.3f} s, int8 {r['int8_s']:.3f} s; "
+              f"{r['launches']} int8 kernel launches; {r['seconds']:.1f} s "
+              f"[{card}]", flush=True)
+        if r["drop"] > 0.05 or not r["launches"]:
+            fail(f"quant example {mode}: drop {r['drop']}, launches "
+                 f"{r['launches']}")
+        res[mode] = r
+    return res
+
+
+def _rcnn_hold(tag, fn, inputs, grad_of, card, dev):
+    """fn on the card and on the CPU: outputs and the gradients of
+    `grad_of` (input indices) under a seeded cotangent within RCNN_TOL of
+    the CPU's largest magnitude; the card's forward + backward ms."""
+    def run(dev):
+        ins = [t.to(dev).detach().requires_grad_(i in grad_of)
+               for i, t in enumerate(inputs)]
+        out = fn(*ins)
+        gen = torch.Generator(device="cpu")
+        gen.manual_seed(1)
+        ct = torch.randn(out.shape, generator=gen).to(dev)
+        grads = torch.autograd.grad(out, [ins[i] for i in grad_of], ct) \
+            if grad_of else []
+        return [out.detach()] + [g.detach() for g in grads]
+
+    got = run(dev)
+    want = run(torch.device("cpu"))
+    worst = 0.0
+    for g, w in zip(got, want):
+        scale = float(w.abs().max()) or 1.0
+        worst = max(worst, float((g.cpu() - w).abs().max()) / scale)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run(dev)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    print(f"rcnn {tag}: card against cpu, forward and gradient, at most "
+          f"{worst:.3g} of the cpu's largest magnitude (tolerance "
+          f"{RCNN_TOL}); card forward + backward {ms:.2f} ms [{card}]",
+          flush=True)
+    if not worst <= RCNN_TOL:
+        fail(f"rcnn {tag}: {worst} of scale")
+    return dict(rel=worst, ms=ms)
+
+
+def quant_rcnn(card, dev):
+    """(e): MultiProposal at R-CNN's shapes, its rois into ROIAlign and
+    ROIPooling over 1024 channels, PSROIPooling at R-FCN's 21 classes and
+    group 7, AdaptiveAvgPooling2D, BilinearResize2D, fft/ifft and
+    boolean_mask, each card against CPU."""
+    from mxnet_tpu_torch.ops import contrib
+
+    res = {}
+    cls, bbox, info = rcnn_inputs(dev)
+    kw = dict(rpn_pre_nms_top_n=6000, rpn_post_nms_top_n=300,
+              output_score=True)
+    contrib.reset_nms_loop_runs()
+    contrib.reset_nms_launch_count()
+    rois, sc = contrib.proposal(cls, bbox, info, **kw)
+    torch.cuda.synchronize()
+    launches, loops = contrib.nms_launch_count(), contrib.nms_loop_runs()
+    t0 = time.perf_counter()
+    contrib.proposal(cls, bbox, info, **kw)
+    torch.cuda.synchronize()
+    prop_ms = (time.perf_counter() - t0) * 1e3
+    c_rois, c_sc = contrib.proposal(cls.cpu(), bbox.cpu(), info.cpu(), **kw)
+    kept = rois[:, 1:].abs().sum(1) > 0
+    same = torch.equal(sc.cpu(), c_sc) and torch.equal(
+        kept.cpu(), c_rois[:, 1:].abs().sum(1) > 0)
+    box_err = float(((rois.cpu() - c_rois).abs()
+                     / c_rois.abs().clamp_min(1.0)).max())
+    print(f"rcnn MultiProposal batch {RCNN_MAP[0]}, map {RCNN_MAP[1]}x"
+          f"{RCNN_MAP[2]}, 12 anchors, 6000 -> 300: {prop_ms:.2f} ms on the "
+          f"card, {int(kept.sum())} rois kept; scores and kept rows "
+          f"identical to the cpu {same}, boxes within {box_err:.3g} "
+          f"relative (tolerance {RCNN_TOL}); NMS kernel launches "
+          f"{launches}, Python loop runs on CUDA "
+          f"{loops.get('cuda', 0)} [{card}]", flush=True)
+    if not same or box_err > RCNN_TOL or launches != 1 \
+            or loops.get("cuda", 0):
+        fail(f"rcnn MultiProposal: identical {same}, boxes {box_err}, "
+             f"launches {launches}, loops {loops}")
+    res["proposal"] = dict(ms=prop_ms, kept=int(kept.sum()),
+                           identical=same, box_rel=box_err,
+                           launches=launches)
+    gen = torch.Generator(device="cpu")
+    gen.manual_seed(20)
+    b, h, w = RCNN_MAP
+    feat = torch.randn(b, 1024, h, w, generator=gen)
+    post = 300
+    sel = torch.cat([torch.arange(RCNN_CHECKED) + i * post
+                     for i in range(b)])
+    r_sub = rois[sel].cpu()
+    scale = 1.0 / 16
+    res["roi_align"] = _rcnn_hold(
+        "ROIAlign 14x14 1024 ch scale 1/16 sample 2 "
+        f"({len(sel)} rois)", lambda d, r: contrib.roi_align(
+            d, r, (14, 14), scale, 2), [feat, r_sub], (0,), card, dev)
+    res["roi_pooling"] = _rcnn_hold(
+        f"ROIPooling 7x7 1024 ch ({len(sel)} rois)",
+        lambda d, r: contrib.roi_pooling(d, r, (7, 7), scale),
+        [feat, r_sub], (0,), card, dev)
+    ps = torch.randn(b, 21 * 49, h, w, generator=gen)
+    res["psroi"] = _rcnn_hold(
+        f"PSROIPooling 21 classes group 7 ({len(sel)} rois)",
+        lambda d, r: contrib.psroi_pooling(d, r, scale, 21, 7),
+        [ps, r_sub], (0,), card, dev)
+    # every roi of both images through the card, timed
+    feat_d = feat.to(dev).requires_grad_()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = contrib.roi_align(feat_d, rois, (14, 14), scale, 2)
+    out.backward(torch.ones_like(out))
+    torch.cuda.synchronize()
+    res["roi_align_all_ms"] = (time.perf_counter() - t0) * 1e3
+    del out, feat_d
+    print(f"rcnn ROIAlign over all {rois.shape[0]} rois: forward + "
+          f"backward {res['roi_align_all_ms']:.1f} ms [{card}]", flush=True)
+    big = torch.randn(2, 2048, 60, 60, generator=gen)
+    for s in (1, 2, 3, 6):
+        res[f"adaptive{s}"] = _rcnn_hold(
+            f"AdaptiveAvgPooling2D 2048x60x60 -> {s}",
+            lambda d, s=s: contrib.adaptive_avg_pooling2d(d, (s, s)),
+            [big], (0,), card, dev)
+    res["resize"] = _rcnn_hold(
+        "BilinearResize2D 256x38x63 -> 76x126",
+        lambda d: contrib.bilinear_resize2d(d, height=76, width=126),
+        [torch.randn(2, 256, h, w, generator=gen)], (0,), card, dev)
+    sig = torch.randn(64, 1024, generator=gen)
+    res["fft"] = _rcnn_hold("fft 64 x 1024", contrib.fft, [sig], (0,), card, dev)
+    res["ifft"] = _rcnn_hold(
+        "ifft 64 x 2048", contrib.ifft,
+        [torch.randn(64, 2048, generator=gen)], (0,), card, dev)
+    data = torch.randn(6000, 4, generator=gen)
+    mask = (torch.rand(6000, generator=gen) > 0.5).float()
+    got = contrib.boolean_mask(data.to(dev), mask.to(dev)).cpu()
+    want = contrib.boolean_mask(data, mask)
+    res["boolean_mask"] = torch.equal(got, want)
+    print(f"rcnn boolean_mask 6000 x 4: card identical to cpu "
+          f"{res['boolean_mask']} ({got.shape[0]} rows) [{card}]",
+          flush=True)
+    if not res["boolean_mask"]:
+        fail("rcnn boolean_mask: card and cpu differ")
+    return res
+
+
+def int8_summary(recs, path, launches):
+    main = [r for r in recs if r["path"] == path]
+    tot = {k: sum(r[k] * r["count"] for r in main)
+           for k in ("kernel_ms", "op_ms", "ref_ms", "bound_ms")}
+    lib = [r["library_ms"] for r in main]
+    by_ops = sum(r["bound_ms"] * r["count"] for r in main
+                 if r["bound_by"] == "operations")
+    return dict(KERNEL_INT8, name="int8_conv/" + path, path=path,
+                batch=Q_BATCH, launches=launches,
+                max_abs_err=max(r["max_abs_err"] for r in main),
+                ms=tot["kernel_ms"], op_ms=tot["op_ms"],
+                plain_ms=tot["ref_ms"], bound_ms=tot["bound_ms"],
+                bound_by="operations" if by_ops >= tot["bound_ms"] / 2
+                else "bytes",
+                library_ms=None if None in lib else sum(
+                    x * r["count"] for x, r in zip(lib, main)))
+
+
+def nms_summary(rec, path, launches):
+    return dict(KERNEL_NMS, name="greedy_nms/" + path, path=path,
+                batch=rec["batch"], K=rec["K"], launches=launches,
+                max_abs_err=rec["max_abs_err"], ms=rec["kernel_ms"],
+                plain_ms=rec["ref_ms"], bound_ms=rec["bound_ms"],
+                bound_by=rec["bound_by"], library_ms=None)
+
+
+def phase_quant(card):
+    """Phase 19: (a) the int8 kernel, (b) the NMS kernel, (c) the
+    quantized symbolic ResNet-50, (d) the example, (e) the R-CNN ops.
+    Returns (results, the `kernels` records)."""
+    import gc
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    dev = torch.device("cuda", 0)
+    if "ssd_detection" not in KEEP or "sym_resnet50" not in KEEP:
+        fail("quant: phase 19 needs phase 10's detection inputs and phase "
+             "11's trained ResNet-50")
+        return {}, []
+    t0 = time.perf_counter()
+    marks = [("start", t0)]
+    res = {}
+    recs = quant_kernel_checks(card, dev)
+    marks.append(("a", time.perf_counter()))
+    res["nms"] = quant_nms(card, dev)
+    res["nms"]["proposal"] = quant_proposal_nms(card, dev)
+    res["nms"]["dtypes"] = quant_nms_dtypes(card, dev)
+    marks.append(("b", time.perf_counter()))
+    gc.collect()
+    torch.cuda.empty_cache()
+    res["resnet"] = quant_resnet(card, dev)
+    marks.append(("c", time.perf_counter()))
+    gc.collect()
+    torch.cuda.empty_cache()
+    res["example"] = quant_example(card)
+    marks.append(("d", time.perf_counter()))
+    res["rcnn"] = quant_rcnn(card, dev)
+    marks.append(("e", time.perf_counter()))
+    gc.collect()
+    torch.cuda.empty_cache()
+    res["seconds"] = time.perf_counter() - t0
+    print(f"quant: phase 19 took {res['seconds']:.1f} s ("
+          + ", ".join(f"{b[0]} {b[1] - a[1]:.1f} s"
+                      for a, b in zip(marks, marks[1:])) + ")", flush=True)
+    fwd = res["resnet"]["launches"]
+    kernels = [
+        int8_summary(recs, "quantized_resnet50", fwd["conv"]),
+        int8_summary(recs, "quantized_resnet50_fc", fwd["fc"]),
+        nms_summary(res["nms"][100], "ssd_detection_topk100",
+                    res["nms"][100]["launches"]),
+        nms_summary(res["nms"][-1], "ssd_detection_all",
+                    res["nms"][-1]["launches"]),
+        nms_summary(res["nms"]["proposal"], "multiproposal",
+                    res["rcnn"]["proposal"]["launches"])]
+    return res, kernels
+
+
 def attention_path_summary(kernel, path, rows, launches, batch):
     """The `kernels` record of kernel 5 on one phase-9 path: each check
     record in `rows` (record, launches) weighted by its launches in one
@@ -8100,6 +9047,7 @@ def main():
     phase_core(card)
     vis = phase_vision(card, train_res)
     img = phase_imagenet(card, train_res)
+    _, quant_kernels = phase_quant(card)
     dec_steps = tf_res["decode"]["steps"]
     dp_keys = dict(backend=dp_res.get("backend"), ranks=DP)
     # kernel 1 once for each main path (its shapes and launches), kernel 2
@@ -8199,7 +9147,7 @@ def main():
         dict(kernel_summary(dict(KERNEL_BWD,
                                  name="fused_conv_unit_bwd/imagenet_rec"),
                             recs_bwd, "train", img["launches"]["bwd"]),
-             path="train_imagenet_rec")]
+             path="train_imagenet_rec")] + quant_kernels
     print(f"chip_smoke: {time.perf_counter() - T_START:.1f} s", flush=True)
     if FAILURES:
         print(f"chip_smoke: {len(FAILURES)} failure(s)", flush=True)

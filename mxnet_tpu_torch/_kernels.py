@@ -49,7 +49,7 @@ _PKG = Path(__file__).resolve().parent
 _SRC_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "torch_kernels"
 _SOURCES = ("fused_convbn.cu", "fused_convbn_bwd.cu", "attention.cu",
-            "convbn_tap.cu")
+            "convbn_tap.cu", "int8_conv.cu", "nms.cu")
 _FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
           "-Xcompiler", "-fPIC", "-lineinfo", "-Xptxas", "-v")
 
@@ -158,6 +158,12 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.mx_convbn_tap.restype = _I
     lib.mx_convbn_tap.argtypes = (
         [_I] + [_VP] * 10 + [_I] * 16 + [ctypes.c_longlong, _VP])
+    lib.mx_int8_conv.restype = _I
+    lib.mx_int8_conv.argtypes = (
+        [_VP] * 3 + [_I] * 17 + [ctypes.c_longlong] * 4 + [_VP])
+    lib.mx_nms_keep.restype = _I
+    lib.mx_nms_keep.argtypes = (
+        [_VP] * 5 + [_I] * 4 + [ctypes.c_double] * 2 + [_I, _VP])
     lib.mx_cuda_error_string.restype = ctypes.c_char_p
     lib.mx_cuda_error_string.argtypes = [_I]
     return lib

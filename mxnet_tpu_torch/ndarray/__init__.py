@@ -120,6 +120,12 @@ def load(fname: str):
 
 
 def __getattr__(name: str):
+    if name == "contrib":  # nd.contrib is mx.contrib.ndarray
+        import importlib
+
+        mod = importlib.import_module("..contrib.ndarray", __name__)
+        globals()["contrib"] = mod
+        return mod
     try:
         return _register.lookup(name)
     except AttributeError:

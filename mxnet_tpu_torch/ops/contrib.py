@@ -1,41 +1,59 @@
-"""Detection ops: the MultiBox family, box IoU, greedy NMS, bipartite
-matching and the box codecs (SSD's half of ``mxnet_tpu/ops/contrib.py``;
-ref: src/operator/contrib/ multibox_prior.cc, multibox_target.cc,
-multibox_detection.cc, bounding_box.cc).
+"""Contrib ops: detection (the MultiBox family, box IoU, greedy NMS,
+bipartite matching, the box codecs), the R-CNN family (Proposal and
+MultiProposal, ROIPooling, ROIAlign, PSROIPooling) and the vision ops
+(BilinearResize2D, AdaptiveAvgPooling2D, boolean_mask, fft/ifft):
+``mxnet_tpu/ops/contrib.py``'s ops (ref: src/operator/contrib/).
 
 Plain functions on tensors, registered under the JAX package's names
 and their ``_contrib_`` aliases, each the JAX op's arithmetic so that the
 same inputs give the same rows, class ids and anchor order:
 
-  * every shape is static: NMS returns all N rows, suppressed ones -1;
-  * the serial cores (the force match of ``MultiBoxTarget``, greedy NMS,
-    bipartite matching) are Python loops over a static count of device
-    ops vectorised over the batch, as ``lax.fori_loop`` is under
-    ``vmap``: no ``.item()``, ``.cpu()`` or host copy, so they run on the
-    card and inside a captured CUDA graph;
+  * every shape is static (``boolean_mask`` aside): NMS returns all N
+    rows, suppressed ones -1;
+  * the serial cores (the force match of ``MultiBoxTarget``, bipartite
+    matching) are Python loops over a static count of device ops
+    vectorised over the batch, as ``lax.fori_loop`` is under ``vmap``:
+    no ``.item()``, ``.cpu()`` or host copy, so they run on the card and
+    inside a captured CUDA graph;
+  * greedy NMS (``MultiBoxDetection``, ``box_nms``, ``Proposal``) runs
+    the CUDA kernel of ``csrc/nms.cu`` on CUDA tensors and the JAX op's
+    loop (:func:`greedy_nms_keep_ref`) on CPU tensors;
   * ties break as in the JAX package: first-index ``argmax``/``argmin``,
-    stable ascending ``argsort`` where it calls ``jnp.argsort``;
+    stable sorts where it calls ``jnp.argsort`` or ``lax.top_k``;
   * Python constants enter as float32 scalars (a weak-typed scalar in
-    JAX), never as tensors built on the host.
-
-Not ported here: ROI pooling and align, ``Proposal``, ``PSROIPooling``,
-``boolean_mask``, FFT, ``BilinearResize2D`` and ``AdaptiveAvgPooling2D``
-(ROADMAP queue A item 9).
+    JAX), never as tensors built on the host, and a division by one is
+    by a 0-d tensor (``_divc``);
+  * the ROI ops gather each bin's positions (the widest bin read to the
+    host: they run eagerly) and reduce them as the JAX op's masks do, in
+    chunks of rois; they and the resize and pooling ops carry their
+    gradients through autograd.
 """
 from __future__ import annotations
+
+import math
 
 import numpy as np
 import torch
 
+from .. import _kernels
+from ..base import MXNetError
 from .registry import register_op
 
 __all__ = ["box_iou", "multibox_prior", "multibox_target",
-           "greedy_nms_keep", "multibox_detection", "decode_sorted",
-           "box_nms",
-           "bipartite_matching", "box_encode", "box_decode"]
+           "greedy_nms_keep", "greedy_nms_keep_ref", "nms_launch_count",
+           "reset_nms_launch_count", "nms_loop_runs", "reset_nms_loop_runs",
+           "multibox_detection", "decode_sorted", "box_nms",
+           "bipartite_matching", "box_encode", "box_decode", "roi_pooling",
+           "psroi_pooling", "roi_align", "boolean_mask", "fft", "ifft",
+           "proposal_candidates", "proposal", "bilinear_resize2d",
+           "adaptive_avg_pooling2d"]
 
 # the row-recompute NMS branch past this many candidates, as in JAX
 _NMS_MATRIX_MAX = 1024
+_NMS_NAME = "greedy_nms"
+# the kernel's element types (csrc/nms.cu's `dtype` codes)
+_NMS_DTYPES = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2,
+               torch.float64: 3}
 
 
 def _f32(v) -> float:
@@ -44,16 +62,22 @@ def _f32(v) -> float:
     return float(np.float32(v))
 
 
-def _corner_iou(a, b):
+def _corner_iou(a, b, off=0.0):
     """Pairwise IoU of corner boxes a (..., N, 4) and b (..., M, 4) ->
-    (..., N, M)."""
+    (..., N, M).  ``off`` = 1.0 is the legacy +1 pixel convention
+    (Proposal's NMS): every extent is ``hi - lo + off`` before its clamp
+    at 0."""
+    def extent(hi, lo):
+        d = hi - lo
+        return (d + off if off else d).clamp_min(0.0)
+
     ax1, ay1, ax2, ay2 = (a[..., :, i:i + 1] for i in range(4))
     bx1, by1, bx2, by2 = (b[..., None, :, i] for i in range(4))
-    iw = (torch.minimum(ax2, bx2) - torch.maximum(ax1, bx1)).clamp_min(0.0)
-    ih = (torch.minimum(ay2, by2) - torch.maximum(ay1, by1)).clamp_min(0.0)
+    iw = extent(torch.minimum(ax2, bx2), torch.maximum(ax1, bx1))
+    ih = extent(torch.minimum(ay2, by2), torch.maximum(ay1, by1))
     inter = iw * ih
-    area_a = (ax2 - ax1).clamp_min(0.0) * (ay2 - ay1).clamp_min(0.0)
-    area_b = (bx2 - bx1).clamp_min(0.0) * (by2 - by1).clamp_min(0.0)
+    area_a = extent(ax2, ax1) * extent(ay2, ay1)
+    area_b = extent(bx2, bx1) * extent(by2, by1)
     union = area_a + area_b - inter
     return torch.where(union > 0, inter / union, 0.0)
 
@@ -189,20 +213,55 @@ def multibox_target(anchor, label, cls_pred, overlap_threshold=0.5,
     return box_t.reshape(b, -1), box_m.reshape(b, -1), cls_t
 
 
-def greedy_nms_keep(boxes, scores, ids, thresh, force_suppress):
+def greedy_nms_keep(boxes, scores, ids, thresh, force_suppress, off=0.0):
     """Greedy NMS over candidates sorted by score, descending: boxes (B,
     K, 4), scores (B, K), ids (B, K) -> keep mask (B, K).  Candidate i, if
     still kept, suppresses every later candidate of its class (of any
-    class under force_suppress) whose IoU with it exceeds thresh; a score
-    of 0 is never kept.  Up to 1024 candidates the K x K IoU matrix is
-    formed once; past that each step forms its row, so memory stays
-    O(B·K) (the JAX op's two branches)."""
-    k = boxes.shape[1]
+    class under force_suppress) whose IoU (with the extent offset
+    ``off``) exceeds thresh; a score <= 0 is never kept.  On CUDA tensors
+    the kernel of ``csrc/nms.cu`` (boxes of float32, float16, bfloat16 or
+    float64, or it raises), on CPU tensors :func:`greedy_nms_keep_ref`."""
+    if boxes.device.type == "cuda":
+        return _nms_launch(boxes, scores, ids, thresh, force_suppress, off)
+    return greedy_nms_keep_ref(boxes, scores, ids, thresh, force_suppress,
+                               off)
+
+
+# runs of the plain Python loop by device type: the card's detection paths
+# go through the kernel, so the loop's "cuda" count stays at 0 there
+_LOOP_RUNS = {}
+
+
+def nms_loop_runs() -> dict:
+    """Runs of :func:`greedy_nms_keep_ref` by device type."""
+    return dict(_LOOP_RUNS)
+
+
+def reset_nms_loop_runs() -> None:
+    _LOOP_RUNS.clear()
+
+
+def nms_launch_count() -> int:
+    return _kernels.launch_count(_NMS_NAME)
+
+
+def reset_nms_launch_count() -> None:
+    _kernels.reset_launch_count(_NMS_NAME)
+
+
+def greedy_nms_keep_ref(boxes, scores, ids, thresh, force_suppress,
+                        off=0.0):
+    """The plain version: the JAX op's loop, one step a candidate.  Up to
+    1024 candidates the K x K IoU matrix is formed once; past that each
+    step forms its row, so memory stays O(B·K) (the JAX op's two
+    branches)."""
     dev = boxes.device
+    _LOOP_RUNS[dev.type] = _LOOP_RUNS.get(dev.type, 0) + 1
+    k = boxes.shape[1]
     later = torch.arange(k, device=dev)
     keep = scores > 0
     if k <= _NMS_MATRIX_MAX:
-        sup = _corner_iou(boxes, boxes) > thresh
+        sup = _corner_iou(boxes, boxes, off) > thresh
         if not force_suppress:
             sup = sup & (ids[:, :, None] == ids[:, None, :])
         for i in range(k):
@@ -210,11 +269,53 @@ def greedy_nms_keep(boxes, scores, ids, thresh, force_suppress):
             keep = torch.where(keep[:, i:i + 1], keep & ~row, keep)
         return keep
     for i in range(k):
-        row = (_corner_iou(boxes[:, i:i + 1], boxes)[:, 0] > thresh) & \
+        row = (_corner_iou(boxes[:, i:i + 1], boxes, off)[:, 0] > thresh) & \
             (later > i)
         if not force_suppress:
             row = row & (ids == ids[:, i:i + 1])
         keep = torch.where(keep[:, i:i + 1], keep & ~row, keep)
+    return keep
+
+
+def _nms_launch(boxes, scores, ids, thresh, force_suppress, off):
+    """The keep mask by the CUDA kernel (two launches: the suppression
+    bitmask, then the scan), on the caller's stream."""
+    b, k = scores.shape
+    if b == 0 or k == 0:
+        return torch.zeros((b, k), dtype=torch.bool, device=scores.device)
+    code = _NMS_DTYPES.get(boxes.dtype)
+    if code is None:
+        raise MXNetError(f"greedy NMS on CUDA takes float32, float16, "
+                         f"bfloat16 or float64 boxes (got {boxes.dtype})")
+    boxes = boxes.contiguous()
+    if scores.dtype != boxes.dtype:  # read only as score > 0
+        scores = (scores > 0).to(boxes.dtype)
+    scores = scores.contiguous()
+    # ids are only compared for equality: float32 holds every float16,
+    # bfloat16 and float32 id exactly, float64 the rest
+    ids_f64 = False
+    if force_suppress:
+        ids = None
+    else:
+        ids_f64 = ids.dtype not in (torch.float32, torch.float16,
+                                    torch.bfloat16)
+        ids = ids.to(torch.float64 if ids_f64 else torch.float32).contiguous()
+    words = -(-k // 64)
+    mask = torch.empty((b, k, words), dtype=torch.int64, device=boxes.device)
+    keep = torch.empty((b, k), dtype=torch.bool, device=boxes.device)
+    lib = _kernels.load()
+    with torch.cuda.device(boxes.device):
+        stream = torch.cuda.current_stream(boxes.device).cuda_stream
+        rc = lib.mx_nms_keep(boxes.data_ptr(), scores.data_ptr(),
+                             None if ids is None else ids.data_ptr(),
+                             mask.data_ptr(), keep.data_ptr(), b, k, code,
+                             int(ids_f64), float(thresh), float(off),
+                             int(force_suppress), stream)
+        if rc == 0:
+            _kernels.count_launch(_NMS_NAME)
+    if rc != 0:
+        raise MXNetError(f"greedy NMS: CUDA launch failed: "
+                         f"{_kernels.error_string(rc)} (code {rc})")
     return keep
 
 
@@ -377,6 +478,411 @@ def box_decode(data, anchors, std0=1.0, std1=1.0, std2=1.0, std3=1.0,
     return out
 
 
+# ---------------------------------------------------------------------------
+# the R-CNN family and the vision ops (the rest of the JAX op file)
+# ---------------------------------------------------------------------------
+
+# elements of one chunk's widest intermediate in the ROI ops: rois are
+# taken in chunks so that memory stays bounded at R-CNN's shapes
+_ROI_CHUNK_ELEMS = 1 << 27
+
+
+def _divc(a, v):
+    """a / v, v a Python number, by a 0-d tensor of a's type and device
+    (the card divides by a Python scalar as a product with its
+    reciprocal, by a tensor exactly)."""
+    return a / torch.full((), float(v), dtype=a.dtype, device=a.device)
+
+
+def _roi_chunks(r, per_roi):
+    step = max(1, _ROI_CHUNK_ELEMS // max(1, per_roi))
+    return [(i, min(r, i + step)) for i in range(0, r, step)]
+
+
+def _bins(lo, extent, n):
+    """Integer bin bounds (R, n): floor(lo + p·extent / n) and
+    ceil(lo + (p + 1)·extent / n) for p < n, the JAX op's order."""
+    p = torch.arange(n, dtype=lo.dtype, device=lo.device)
+    start = torch.floor(lo[:, None] + _divc(p * extent[:, None], n))
+    end = torch.ceil(lo[:, None] + _divc((p + 1) * extent[:, None], n))
+    return start, end
+
+
+def _bin_windows(start, end, size):
+    """The bins clipped to [0, size) as gather indices (R, n, L) and a
+    mask of the positions inside each bin; L is the widest bin (read to
+    the host: these ops run eagerly)."""
+    s = start.clamp(0, size).long()
+    e = end.clamp(0, size).long()
+    width = int((e - s).max().clamp_min(1)) if s.numel() else 1
+    off = torch.arange(width, device=s.device)
+    idx = s[..., None] + off
+    return idx.clamp_max(size - 1), idx < e[..., None]
+
+
+def _roi_pool_bins(data, rois, pooled_size, spatial_scale, reduce,
+                   psroi=None):
+    """Shared core of ROIPooling and PSROIPooling: per roi (R, 5), bins
+    from ``_bins``, each reduced over its positions of data (B, C, H, W)
+    by ``reduce(values (R, ph, pw, C, Lh, Lw), inside mask)``.  ``psroi``
+    is (od, k): bin (py, px) of output channel c reads map (c, py, px)."""
+    ph, pw = pooled_size
+    b, c, h, w = data.shape
+    r = rois.shape[0]
+    c_out = psroi[0] if psroi else c
+    if data.device.type == "meta":
+        return torch.empty((r, c_out, ph, pw), dtype=data.dtype,
+                           device="meta")
+    bi = rois[:, 0].to(torch.int32).long()
+    if psroi is None:
+        x1, y1, x2, y2 = (torch.round(rois[:, i] * spatial_scale)
+                          for i in range(1, 5))
+        rh = (y2 - y1 + 1.0).clamp_min(1.0)
+        rw = (x2 - x1 + 1.0).clamp_min(1.0)
+    else:
+        x1 = torch.round(rois[:, 1]) * spatial_scale
+        y1 = torch.round(rois[:, 2]) * spatial_scale
+        x2 = torch.round(rois[:, 3] + 1.0) * spatial_scale
+        y2 = torch.round(rois[:, 4] + 1.0) * spatial_scale
+        rh = (y2 - y1).clamp_min(0.1)
+        rw = (x2 - x1).clamp_min(0.1)
+    hs, he = _bins(y1, rh, ph)
+    ws, we = _bins(x1, rw, pw)
+    hidx, hin = _bin_windows(hs, he, h)      # (R, ph, Lh)
+    widx, win = _bin_windows(ws, we, w)      # (R, pw, Lw)
+    lh, lw = hidx.shape[-1], widx.shape[-1]
+    if psroi is None:
+        ch = torch.arange(c, device=data.device)[None, None, None, :]
+    else:
+        od, k = psroi
+        ch = (torch.arange(od, device=data.device)[None, None, :] * (k * k)
+              + torch.arange(k, device=data.device)[:, None, None] * k
+              + torch.arange(k, device=data.device)[None, :, None])[None]
+    outs = []
+    for lo, hi in _roi_chunks(r, ph * pw * c_out * lh * lw):
+        sel = (bi[lo:hi, None, None, None, None, None], ch[..., None, None],
+               hidx[lo:hi, :, None, None, :, None],
+               widx[lo:hi, None, :, None, None, :])
+        vals = data[sel]                       # (r, ph, pw, C, Lh, Lw)
+        inside = (hin[lo:hi, :, None, None, :, None]
+                  & win[lo:hi, None, :, None, None, :])
+        outs.append(reduce(vals, inside))
+    return torch.cat(outs).permute(0, 3, 1, 2)
+
+
+def _max_reduce(vals, inside):
+    val = torch.where(inside, vals, float("-inf")).amax(dim=(-2, -1))
+    empty = ~inside.any(dim=-1).any(dim=-1)
+    return torch.where(empty, 0.0, val)
+
+
+def _mean_reduce(vals, inside):
+    s = torch.where(inside, vals, 0.0).sum(dim=(-2, -1))
+    cnt = inside.sum(dim=(-2, -1)).clamp_min(1).to(vals.dtype)
+    return s / cnt
+
+
+def roi_pooling(data, rois, pooled_size=(7, 7), spatial_scale=1.0):
+    """Max-pool each roi (R, 5) [batch_idx, x1, y1, x2, y2] of data (B,
+    C, H, W) into pooled_size bins -> (R, C, ph, pw).  Corners are
+    rounded half to even, as ``jnp.round`` (the reference rounds half
+    away from zero); an empty bin gives 0; the gradient of a bin goes to
+    its maximum, split evenly between tied maxima, as the JAX op's."""
+    return _roi_pool_bins(data, rois, tuple(pooled_size),
+                          _f32(spatial_scale), _max_reduce)
+
+
+def psroi_pooling(data, rois, spatial_scale=1.0, output_dim=0,
+                  pooled_size=7, group_size=0):
+    """Position-sensitive ROI pooling (R-FCN): data (B, od·k², H, W);
+    bin (py, px) of output channel c averages map (c, py, px) over the
+    bin -> (R, od, k, k)."""
+    k = int(pooled_size)
+    g = int(group_size) if group_size else k
+    if g != k:
+        raise MXNetError("PSROIPooling: group_size != pooled_size is not "
+                         "supported (the standard R-FCN configuration)")
+    od = int(output_dim)
+    if od * k * k != data.shape[1]:
+        raise MXNetError(
+            f"PSROIPooling: data needs output_dim*pooled_size^2 = "
+            f"{od}*{k}*{k} = {od * k * k} channels (got {data.shape[1]})")
+    return _roi_pool_bins(data, rois, (k, k), _f32(spatial_scale),
+                          _mean_reduce, psroi=(od, k))
+
+
+def roi_align(data, rois, pooled_size=(7, 7), spatial_scale=1.0,
+              sample_ratio=2, position_sensitive=False, aligned=False):
+    """Bilinear ROI align: each bin the mean of sample_ratio² bilinear
+    samples, coordinates clipped into the map (the JAX op's convention).
+    ``position_sensitive``: data has C_out·ph·pw channels and bin (py,
+    px) of output channel c reads channel c·ph·pw + py·pw + px;
+    ``aligned`` shifts by half a pixel."""
+    ph, pw = tuple(pooled_size)
+    sr = max(int(sample_ratio), 1)
+    b, c, h, w = data.shape
+    if position_sensitive and c % (ph * pw) != 0:
+        raise MXNetError(
+            f"position_sensitive ROIAlign needs channels divisible by "
+            f"pooled_h*pooled_w; got C={c}, pooled={ph}x{pw}")
+    c_out = c // (ph * pw) if position_sensitive else c
+    r = rois.shape[0]
+    if data.device.type == "meta":
+        return torch.empty((r, c_out, ph, pw), dtype=data.dtype,
+                           device="meta")
+    dev = data.device
+    off = 0.5 if aligned else 0.0
+    scale = _f32(spatial_scale)
+    bi = rois[:, 0].to(torch.int32).long()
+    x1, y1, x2, y2 = (rois[:, i] * scale - off for i in range(1, 5))
+    floor = 1e-6 if aligned else 1.0
+    bh = _divc((y2 - y1).clamp_min(floor), ph)
+    bw = _divc((x2 - x1).clamp_min(floor), pw)
+    samp = torch.arange(sr, dtype=rois.dtype, device=dev) + 0.5
+
+    def coords(lo, step, n, size):
+        p = torch.arange(n, dtype=rois.dtype, device=dev)
+        v = (lo[:, None, None] + (p * step[:, None])[:, :, None]
+             + _divc(samp * step[:, None, None], sr))   # (R, n, sr)
+        v = v.clamp(0.0, size - 1.0)
+        v0 = torch.floor(v)
+        i0 = v0.long()
+        return i0, (i0 + 1).clamp_max(size - 1), v - v0
+
+    y0i, y1i, ly = coords(y1, bh, ph, h)
+    x0i, x1i, lx = coords(x1, bw, pw, w)
+    if position_sensitive:
+        ch = (torch.arange(c_out, device=dev) * (ph * pw))[None, None, :] \
+            + (torch.arange(ph, device=dev)[:, None, None] * pw
+               + torch.arange(pw, device=dev)[None, :, None])
+        ch = ch[None, :, None, :, None, :]     # (1, ph, 1, pw, 1, C)
+    else:
+        ch = torch.arange(c, device=dev)[None, None, None, None, None, :]
+    outs = []
+    for lo, hi in _roi_chunks(r, 4 * ph * pw * sr * sr * c_out):
+        bsel = bi[lo:hi, None, None, None, None, None]
+        ya, yb = (t[lo:hi, :, :, None, None, None] for t in (y0i, y1i))
+        xa, xb = (t[lo:hi, None, None, :, :, None] for t in (x0i, x1i))
+        wy = ly[lo:hi, :, :, None, None, None]
+        wx = lx[lo:hi, None, None, :, :, None]
+        v = (data[bsel, ch, ya, xa] * (1 - wy) * (1 - wx)
+             + data[bsel, ch, ya, xb] * (1 - wy) * wx
+             + data[bsel, ch, yb, xa] * wy * (1 - wx)
+             + data[bsel, ch, yb, xb] * wy * wx)   # (r, ph, sr, pw, sr, C)
+        outs.append(v.mean(dim=(2, 4)))
+    return torch.cat(outs).permute(0, 3, 1, 2)
+
+
+def boolean_mask(data, index, axis=0):
+    """The entries of data along ``axis`` where index != 0.  The output's
+    shape depends on the data, so this op reads the mask to the host: it
+    runs eagerly only, and raises inside a CUDA graph capture (the JAX
+    op is ``no_jit`` for the same reason)."""
+    if data.device.type == "cuda" and torch.cuda.is_current_stream_capturing():
+        raise MXNetError("boolean_mask: the output's shape depends on the "
+                         "mask, so it cannot run inside a captured graph; "
+                         "use where/multiplication masking there")
+    keep = torch.nonzero(index != 0)[:, 0].to(data.device)
+    return torch.index_select(data, int(axis), keep)
+
+
+def fft(data, compute_size=128):
+    """1-d FFT over the last axis: real (..., d) -> interleaved re/im
+    (..., 2d), float32 (the reference's cuFFT convention)."""
+    spec = torch.fft.fft(data.to(torch.complex64), dim=-1)
+    out = torch.stack([spec.real, spec.imag], dim=-1)
+    return out.reshape(*data.shape[:-1], 2 * data.shape[-1]).to(
+        torch.float32)
+
+
+def ifft(data, compute_size=128):
+    """Inverse of :func:`fft`: interleaved (..., 2d) -> real (..., d),
+    unnormalised (scaled by d; callers divide, as with cuFFT)."""
+    d = data.shape[-1] // 2
+    pairs = data.reshape(*data.shape[:-1], d, 2)
+    spec = torch.complex(pairs[..., 0].float(), pairs[..., 1].float())
+    return (torch.fft.ifft(spec, dim=-1).real * d).to(torch.float32)
+
+
+def _proposal_anchors(h, w, scales, ratios, feature_stride, dev):
+    """(H·W·A, 4) anchors: the reference's GenerateAnchors base boxes
+    (integer-rounded ratio sides, the (bs - 1) / 2 centre) in Python
+    floats, shifted by the stride over the map."""
+    bs = float(feature_stride)
+    ctr = (bs - 1.0) / 2.0
+    base = []
+    for r in ratios:
+        ws0 = round(math.sqrt(bs * bs / r))
+        hs0 = round(ws0 * r)
+        for s in scales:
+            bw, bh = ws0 * s, hs0 * s
+            base.append((ctr - (bw - 1) / 2.0, ctr - (bh - 1) / 2.0,
+                         ctr + (bw - 1) / 2.0, ctr + (bh - 1) / 2.0))
+    base = torch.from_numpy(np.asarray(base, np.float32)).to(dev)
+    xs = torch.arange(w, dtype=torch.float32, device=dev) * _f32(bs)
+    ys = torch.arange(h, dtype=torch.float32, device=dev) * _f32(bs)
+    gy, gx = torch.meshgrid(ys, xs, indexing="ij")
+    shifts = torch.stack([gx, gy, gx, gy], -1)
+    return (shifts[:, :, None, :] + base[None, None]).reshape(-1, 4)
+
+
+def proposal_candidates(cls_prob, bbox_pred, im_info, rpn_pre_nms_top_n=6000,
+                        rpn_min_size=16, scales=(4, 8, 16, 32),
+                        ratios=(0.5, 1, 2), feature_stride=16):
+    """Proposal's NMS candidates: the decoded, clipped boxes (B, k, 4)
+    and scores (B, k) of the pre-NMS top k, in score order (-inf where
+    a box is under the minimum size)."""
+    cls_prob, bbox_pred = cls_prob.detach(), bbox_pred.detach()
+    b, a2, h, w = cls_prob.shape
+    a = a2 // 2
+    scales, ratios = tuple(scales), tuple(ratios)
+    if a != len(scales) * len(ratios):
+        raise MXNetError(
+            f"Proposal: cls_prob has {a} anchors per cell but "
+            f"scales x ratios = {len(scales)} x {len(ratios)} = "
+            f"{len(scales) * len(ratios)}")
+    dev = cls_prob.device
+    anchors = _proposal_anchors(h, w, scales, ratios, feature_stride, dev)
+    scores = cls_prob[:, a:].reshape(b, a, h, w).permute(0, 2, 3, 1) \
+        .reshape(b, -1)
+    dl = bbox_pred.reshape(b, a, 4, h, w).permute(0, 3, 4, 1, 2) \
+        .reshape(b, -1, 4)
+    aw = anchors[:, 2] - anchors[:, 0] + 1.0
+    ah = anchors[:, 3] - anchors[:, 1] + 1.0
+    ax = anchors[:, 0] + 0.5 * (aw - 1.0)
+    ay = anchors[:, 1] + 0.5 * (ah - 1.0)
+    cx = dl[..., 0] * aw + ax
+    cy = dl[..., 1] * ah + ay
+    bw = torch.exp(dl[..., 2]) * aw
+    bh = torch.exp(dl[..., 3]) * ah
+    boxes = torch.stack([cx - 0.5 * (bw - 1.0), cy - 0.5 * (bh - 1.0),
+                         cx + 0.5 * (bw - 1.0), cy + 0.5 * (bh - 1.0)], -1)
+    info = im_info.detach().to(torch.float32)
+    lim = torch.stack([info[:, 1], info[:, 0], info[:, 1], info[:, 0]],
+                      -1) - 1.0
+    boxes = torch.minimum(boxes.clamp_min(0.0), lim[:, None, :])
+    ws = boxes[..., 2] - boxes[..., 0] + 1.0
+    hs = boxes[..., 3] - boxes[..., 1] + 1.0
+    min_size = info[:, 2:3] * _f32(rpn_min_size)
+    ok = (ws >= min_size) & (hs >= min_size)
+    scores = torch.where(ok, scores, float("-inf"))
+    k = min(int(rpn_pre_nms_top_n), scores.shape[1])
+    top_sc, top_i = torch.sort(scores, dim=1, descending=True, stable=True)
+    return _gather_rows(boxes, top_i[:, :k]), top_sc[:, :k]
+
+
+def proposal(cls_prob, bbox_pred, im_info, rpn_pre_nms_top_n=6000,
+             rpn_post_nms_top_n=300, threshold=0.7, rpn_min_size=16,
+             scales=(4, 8, 16, 32), ratios=(0.5, 1, 2), feature_stride=16,
+             output_score=False, iou_loss=False):
+    """RPN proposals (Proposal and MultiProposal): anchors and predicted
+    deltas decoded with the legacy +1 width, clipped to the image,
+    filtered at rpn_min_size · im_info[2], the pre-NMS top
+    rpn_pre_nms_top_n by score (a stable sort: among ties the lower
+    index first, as ``lax.top_k``), NMS at ``threshold`` with the +1
+    IoU, kept rows first (a stable sort), cut or zero-padded to
+    rpn_post_nms_top_n.  rois (B·post, 5) [batch_idx, x1, y1, x2, y2],
+    suppressed rows zero; with output_score also the scores (B·post,
+    1)."""
+    if iou_loss:
+        raise MXNetError("Proposal: iou_loss=True (direct corner-offset "
+                         "decoding) is not implemented in this build")
+    top_boxes, top_sc = proposal_candidates(
+        cls_prob, bbox_pred, im_info, rpn_pre_nms_top_n, rpn_min_size,
+        scales, ratios, feature_stride)
+    b, dev = cls_prob.shape[0], cls_prob.device
+    keep = greedy_nms_keep(top_boxes, top_sc, None, _f32(threshold), True,
+                           off=1.0)
+    order = torch.argsort((~keep).to(torch.int32), dim=1, stable=True)
+    post = int(rpn_post_nms_top_n)
+    kept_boxes = _gather_rows(top_boxes, order)[:, :post]
+    kept_sc = torch.gather(torch.where(keep, top_sc, 0.0), 1, order)[:, :post]
+    pad = post - kept_boxes.shape[1]
+    if pad > 0:
+        kept_boxes = torch.nn.functional.pad(kept_boxes, (0, 0, 0, pad))
+        kept_sc = torch.nn.functional.pad(kept_sc, (0, pad))
+    valid = (kept_sc > 0).to(torch.float32)[..., None]
+    kept_boxes = kept_boxes * valid
+    batch_idx = torch.arange(b, dtype=kept_boxes.dtype, device=dev) \
+        .repeat_interleave(post)[:, None]
+    rois = torch.cat([batch_idx, kept_boxes.reshape(-1, 4)], 1)
+    if output_score:
+        return rois, kept_sc.reshape(-1, 1)
+    return rois
+
+
+def _resize_axis_align_corners(x, axis, out_size):
+    """Align-corners bilinear along one axis: output i samples input
+    i·(in - 1)/(out - 1) (the reference's bilinear_resize.cc mapping)."""
+    in_size = x.shape[axis]
+    if out_size == in_size:
+        return x
+    dev = x.device
+    if in_size == 1 or out_size == 1:
+        coords = torch.zeros(out_size, dtype=torch.float32, device=dev)
+    else:
+        coords = torch.arange(out_size, dtype=torch.float32, device=dev) \
+            * _f32((in_size - 1) / (out_size - 1))
+    i0 = torch.floor(coords).to(torch.int32).clamp(0, in_size - 1)
+    i1 = (i0 + 1).clamp(0, in_size - 1)
+    frac = (coords - i0).to(x.dtype)
+    shape = [1] * x.dim()
+    shape[axis] = out_size
+    frac = frac.reshape(shape)
+    lo = torch.index_select(x, axis, i0.long())
+    hi = torch.index_select(x, axis, i1.long())
+    return lo * (1 - frac) + hi * frac
+
+
+def bilinear_resize2d(data, like=None, height=0, width=0, scale_height=None,
+                      scale_width=None, mode="size"):
+    """Bilinear resize of NCHW with align-corners sampling; the target
+    size from ``like`` (mode "like"), the scales, or height/width."""
+    if mode not in ("size", "like"):
+        raise MXNetError(
+            f"BilinearResize2D: mode {mode!r} is not implemented "
+            "(supported: 'size', 'like'; the odd_scale/to_even_* "
+            "size policies of the reference are not)")
+    n, c, h, w = data.shape
+    if like is not None and mode == "like":
+        th, tw = like.shape[2], like.shape[3]
+    elif scale_height is not None and scale_width is not None:
+        th, tw = int(h * scale_height), int(w * scale_width)
+    else:
+        th, tw = int(height), int(width)
+    if th <= 0 or tw <= 0:
+        raise MXNetError("BilinearResize2D: target size must be positive "
+                         f"(got {(th, tw)})")
+    out = _resize_axis_align_corners(data, 2, th)
+    return _resize_axis_align_corners(out, 3, tw)
+
+
+def adaptive_avg_pooling2d(data, output_size=()):
+    """Adaptive average pooling of NCHW to output_size: the mean of equal
+    windows where the size divides, else an integral image's exact
+    windows floor(i·H/th) .. ceil((i + 1)·H/th)."""
+    n, c, h, w = data.shape
+    if not output_size:
+        th = tw = 1
+    elif isinstance(output_size, int):
+        th = tw = int(output_size)
+    elif len(output_size) == 1:
+        th = tw = int(output_size[0])
+    else:
+        th, tw = int(output_size[0]), int(output_size[1])
+    if h % th == 0 and w % tw == 0:
+        return data.reshape(n, c, th, h // th, tw, w // tw).mean((3, 5))
+    csum = torch.nn.functional.pad(data.cumsum(2).cumsum(3), (1, 0, 1, 0))
+    dev = data.device
+    ar_h, ar_w = torch.arange(th, device=dev), torch.arange(tw, device=dev)
+    y0, y1 = (ar_h * h) // th, -(-((ar_h + 1) * h) // th)
+    x0, x1 = (ar_w * w) // tw, -(-((ar_w + 1) * w) // tw)
+    area = ((y1 - y0)[:, None] * (x1 - x0)[None, :]).to(data.dtype)
+    s = (csum[:, :, y1][:, :, :, x1] - csum[:, :, y0][:, :, :, x1]
+         - csum[:, :, y1][:, :, :, x0] + csum[:, :, y0][:, :, :, x0])
+    return s / area
+
+
 for _name, _fn, _alias in (
         ("box_iou", box_iou, "_contrib_box_iou"),
         ("MultiBoxPrior", multibox_prior, "_contrib_MultiBoxPrior"),
@@ -389,3 +895,21 @@ for _name, _fn, _alias in (
         ("_contrib_box_encode", box_encode, "box_encode"),
         ("_contrib_box_decode", box_decode, "box_decode")):
     register_op(_name, aliases=(_alias,), differentiable=False)(_fn)
+register_op("ROIPooling", aliases=("roi_pooling", "_contrib_ROIPooling"))(
+    roi_pooling)
+register_op("ROIAlign", aliases=("_contrib_ROIAlign",))(roi_align)
+register_op("boolean_mask", aliases=("_contrib_boolean_mask",),
+            differentiable=False)(boolean_mask)
+register_op("_contrib_fft", aliases=("fft",))(fft)
+register_op("_contrib_ifft", aliases=("ifft",))(ifft)
+register_op("_contrib_Proposal", aliases=(
+    "Proposal", "_contrib_MultiProposal", "MultiProposal"),
+    differentiable=False,
+    num_outputs=lambda attrs: 2 if attrs.get("output_score") else 1)(
+    proposal)
+register_op("_contrib_BilinearResize2D", aliases=("BilinearResize2D",))(
+    bilinear_resize2d)
+register_op("_contrib_AdaptiveAvgPooling2D",
+            aliases=("AdaptiveAvgPooling2D",))(adaptive_avg_pooling2d)
+register_op("_contrib_PSROIPooling", aliases=("PSROIPooling",))(
+    psroi_pooling)

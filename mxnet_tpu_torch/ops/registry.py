@@ -127,16 +127,7 @@ _NAIVE = env.get_str("MXNET_ENGINE_TYPE") == "NaiveEngine"
 # The JAX package's op names the port does not register yet, under the
 # ROADMAP queue A item that ports them.
 _QUEUED_BY_ITEM = {
-    "9": ("Custom",) + tuple(p + n for p in ("", "_contrib_") for n in (
-        "AdaptiveAvgPooling2D", "BilinearResize2D", "MultiProposal",
-        "PSROIPooling", "Proposal", "ROIAlign", "ROIPooling",
-        "boolean_mask", "fft", "ifft")) + ("roi_pooling",)
-    + tuple(p + n for p in ("", "_contrib_") for n in (
-        "dequantize", "quantize", "quantize_v2", "quantized_conv",
-        "quantized_flatten", "quantized_fully_connected",
-        "quantized_pooling", "requantize"))
-    + ("_contrib_quantized_act", "_contrib_quantized_concat",
-       "_contrib_quantized_elemwise_add"),
+    "9": ("Custom",),
 }
 QUEUED: Dict[str, str] = {n: item for item, names in _QUEUED_BY_ITEM.items()
                           for n in names}

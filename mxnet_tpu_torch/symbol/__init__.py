@@ -67,6 +67,12 @@ def __getattr__(name):
     from ..ops.registry import get_op
     from .symbol import make_symbol_function
 
+    if name == "contrib":  # sym.contrib is mx.contrib.symbol
+        import importlib
+
+        mod = importlib.import_module("..contrib.symbol", __name__)
+        globals()["contrib"] = mod
+        return mod
     fn = _CACHE.get(name)
     if fn is not None:
         return fn

@@ -424,6 +424,22 @@ for _n in ("det inverse khatri_rao linalg_det linalg_extractdiag "
            "linalg_syevd linalg_syrk linalg_trmm linalg_trsm moments "
            "slogdet solve").split():
     ELSEWHERE[_n] = "phase 16 (d) (every linalg name against float64)"
+for _n in ("quantize quantize_v2 dequantize requantize quantized_conv "
+           "quantized_fully_connected quantized_pooling quantized_flatten"
+           ).split():
+    for _p in ("", "_contrib_"):
+        ELSEWHERE[_p + _n] = "phase 19 (a)-(d) (int8 kernel, quantized " \
+            "ResNet-50, the example)"
+for _n in ("_contrib_quantized_act", "_contrib_quantized_concat",
+           "_contrib_quantized_elemwise_add"):
+    ELSEWHERE[_n] = "raises by design (as the JAX op does)"
+for _n in ("ROIPooling roi_pooling _contrib_ROIPooling ROIAlign "
+           "_contrib_ROIAlign PSROIPooling _contrib_PSROIPooling "
+           "Proposal _contrib_Proposal MultiProposal _contrib_MultiProposal "
+           "BilinearResize2D _contrib_BilinearResize2D AdaptiveAvgPooling2D "
+           "_contrib_AdaptiveAvgPooling2D boolean_mask _contrib_boolean_mask "
+           "fft _contrib_fft ifft _contrib_ifft").split():
+    ELSEWHERE[_n] = "phase 19 (b), (e) (R-CNN shapes, card against cpu)"
 for _n in ELSEWHERE:
     CASES[_n] = Case([], kind="elsewhere")
 

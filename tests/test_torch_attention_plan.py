@@ -164,7 +164,10 @@ def test_the_port_modules_import_no_jax():
                 "gluon/data/vision/datasets.py", "gluon/data/dataset.py",
                 "lib.py", "recordio.py", "image/__init__.py",
                 "ops/image_ops.py", "ndarray/image.py", "tools/im2rec.py",
-                "tools/bench_pipeline.py", "examples/imagenet_train.py"):
+                "tools/bench_pipeline.py", "examples/imagenet_train.py",
+                "ops/quantization.py", "ops/quantized_conv.py",
+                "contrib/quantization.py", "contrib/ndarray.py",
+                "contrib/symbol.py", "examples/quantize_model.py"):
         for name in _imports(pkg / rel):
             assert not name.startswith(("jax", "mxnet_tpu.")) \
                 and name != "mxnet_tpu", (rel, name)
@@ -200,7 +203,12 @@ def test_the_port_modules_import_no_jax():
             "mxnet_tpu_torch.image, mxnet_tpu_torch.ops.image_ops, "
             "mxnet_tpu_torch.ndarray.image, mxnet_tpu_torch.tools.im2rec, "
             "mxnet_tpu_torch.tools.bench_pipeline, "
-            "mxnet_tpu_torch.examples.imagenet_train; "
+            "mxnet_tpu_torch.examples.imagenet_train, "
+            "mxnet_tpu_torch.ops.quantization, "
+            "mxnet_tpu_torch.ops.quantized_conv, "
+            "mxnet_tpu_torch.contrib.quantization, "
+            "mxnet_tpu_torch.contrib.ndarray, mxnet_tpu_torch.contrib.symbol, "
+            "mxnet_tpu_torch.examples.quantize_model; "
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'mxnet_tpu.')) or m == 'mxnet_tpu']; "
             "print(bad); sys.exit(1 if bad else 0)")

@@ -324,7 +324,10 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                 "gluon/data/vision/datasets.py", "gluon/data/dataset.py",
                 "lib.py", "recordio.py", "image/__init__.py",
                 "ops/image_ops.py", "ndarray/image.py", "tools/im2rec.py",
-                "tools/bench_pipeline.py", "examples/imagenet_train.py"):
+                "tools/bench_pipeline.py", "examples/imagenet_train.py",
+                "ops/quantization.py", "ops/quantized_conv.py",
+                "contrib/quantization.py", "contrib/ndarray.py",
+                "contrib/symbol.py", "examples/quantize_model.py"):
         assert pkg / rel in files, rel
     for f in files:
         for mod in _imports(f):
