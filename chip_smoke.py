@@ -474,7 +474,7 @@ Phases, each failing loudly (exit code 1, no result line):
    export_model -> ModelRepository -> InferenceServer, 8 requests each,
    within 2e-2 (relative L2) of the direct forward.  (g)
    resnet18_v2(thumbnail=True, classes=10) on synthetic CIFAR-10
-   through DataLoader(num_workers=4, worker_pool="process") with
+   through DataLoader(num_workers=2, worker_pool="process") with
    RandomFlipLeftRight -> ToTensor -> Normalize and the hybridized
    gluon.Trainer loop (SGD lr 0.05, momentum 0.9), one epoch at batch
    128: the batches bit for bit those of num_workers=0 under the same
@@ -558,6 +558,34 @@ Phases, each failing loudly (exit code 1, no result line):
    BilinearResize2D, fft and ifft: forward and gradient card against CPU
    within 1e-5 of the CPU's largest magnitude; boolean_mask equal; ROIAlign
    over all 600 rois timed.  It prints its seconds.
+20. custom_onnx (user-defined operators, control flow and ONNX; no kernel
+   of its own, and no kernel of an earlier path on it): (a) phase 11's
+   ResNet-50 v1 symbol (its trained weights, or seeded ones when phase
+   11 did not run) exported to ONNX (bytes and seconds printed), checked
+   by torch._C._check_onnx_proto, read by get_model_metadata, imported
+   (parameters on cpu()) and bound by Module(for_training=False) on the
+   card: its captured batch-64 forward within 1e-6 relative L2 of the
+   original symbol's and the same argmax, both timed.  (b) The same
+   network with sym.Custom(fc, softmax_label, op_type="softmax") as its
+   head (reference MXNet's custom softmax, nd ops on the card,
+   need_top_grad=False) through Module.fit, 3 batches of 64; then 3
+   eager steps from one state against the SoftmaxOutput net, all
+   leaves' updates within twice the step's own sensitivity (the larger
+   of two SoftmaxOutput runs' distance and of a run from weights moved
+   by 2^-24 relative); every Custom step an eager entry (custom_eager)
+   with one user forward; its ms beside the SoftmaxOutput step's
+   captured and eager ms; the host-style sigmoid in a hybridized block,
+   forward and backward, and three SPMDTrainer steps over it (each an
+   eager entry), card against CPU within 1e-5.  (c) The
+   PTB-medium LM (2 x 650 LSTM, 35 steps, vocabulary 10,000, batch 20)
+   as two LSTMCells unrolled by contrib.foreach, against
+   gluon.rnn.LSTM (the fused RNN op) on the same weights: loss within
+   1e-5 and every gradient within 1e-4 relative L2; its hybridized
+   gluon.Trainer loop captured bit for bit its eager loop; both steps'
+   ms.  (d) while_loop (false on entry too) and cond on array
+   predicates, eagerly, under record() and in a hybridized block (an
+   eager entry, counted), card against CPU within 1e-5.  It prints its
+   seconds and one `custom_onnx: {...}` line.
 
 The compiled paths (mxnet_tpu_torch._graphs): every SPMDTrainer step on one
 device, every hybridized forward in inference and under record() (a
@@ -4954,7 +4982,7 @@ def sym_train(card):
     w_args, w_aux = mod.get_params()
     w_args = {k: v._data.cpu() for k, v in w_args.items()}
     w_aux = {k: v._data.cpu() for k, v in w_aux.items()}
-    KEEP["sym_resnet50"] = (w_args, w_aux)  # phase 19 (c) quantizes it
+    KEEP["sym_resnet50"] = (w_args, w_aux)  # phases 19 (c) and 20 use it
     del mod, loaded, batches, before, after
     gc.collect()
     torch.cuda.empty_cache()
@@ -7084,7 +7112,7 @@ ZOO_NEW = ("resnet18_v2", "resnet34_v2", "resnet50_v2", "resnet101_v2",
            "squeezenet1.1", "densenet121", "densenet161", "densenet169",
            "densenet201", "inceptionv3")
 ZOO_SERVED = ("resnet50_v2", "vgg16")
-CIFAR_BATCH, CIFAR_WORKERS = 128, 4
+CIFAR_BATCH, CIFAR_WORKERS = 128, 2
 CIFAR_OPT = {"learning_rate": 0.05, "momentum": 0.9, "wd": 1e-4}
 CIFAR_MEAN, CIFAR_STD = (0.4914, 0.4822, 0.4465), (0.2470, 0.2435, 0.2616)
 
@@ -8441,18 +8469,22 @@ def quant_resnet(card, dev):
     from mxnet_tpu_torch.contrib.quantization import quantize_model
     from mxnet_tpu_torch.ops import quantized_conv as qc
 
-    w_args, w_aux = KEEP.pop("sym_resnet50")
+    w_args, w_aux = KEEP["sym_resnet50"]  # phase 20 pops it
     net = resnet50_v1_sym(sym)
     xs, _ = sym_images(Q_BATCH * (Q_CALIB_BATCHES + 1), 19)
     calib = [xs[i * Q_BATCH:(i + 1) * Q_BATCH]
              for i in range(Q_CALIB_BATCHES)]
 
+    samples = {"card": {}, "cpu": {}}  # entropy calibration's, by device
+
     def quantize(mode, ctx):
         args = {k: nd.array(v, ctx=ctx) for k, v in w_args.items()}
         aux = {k: nd.array(v, ctx=ctx) for k, v in w_aux.items()}
         t0 = time.perf_counter()
-        out = quantize_model(net, args, aux, calib_mode=mode, calib_data=[
-            nd.array(c, ctx=ctx) for c in calib])
+        with keep_calib_samples(samples["card" if ctx is dev else "cpu"]):
+            out = quantize_model(net, args, aux, calib_mode=mode,
+                                 calib_data=[nd.array(c, ctx=ctx)
+                                             for c in calib])
         torch.cuda.synchronize()
         return out, args, aux, time.perf_counter() - t0
 
@@ -8560,7 +8592,7 @@ def quant_resnet(card, dev):
             ok = ok and worst <= Q_RANGE_REL
         else:
             res["entropy_samples_rel"] = quant_entropy_samples(
-                net, w_args, w_aux, calib, dev, card)
+                samples["card"], samples["cpu"], card)
             ok = ok and res["entropy_samples_rel"] <= Q_RANGE_REL
         res[f"{m}_cpu"] = dict(seconds=cpu_s, graph_same=structure,
                                range_rel=worst, args_same=same_args)
@@ -8569,32 +8601,34 @@ def quant_resnet(card, dev):
     return res
 
 
-def quant_entropy_samples(net, w_args, w_aux, calib, dev, card):
+@contextlib.contextmanager
+def keep_calib_samples(store):
+    """quantize_model's entropy calibration with each calibrated tensor's
+    samples (the strided subsample its histogram is built from) kept in
+    `store`."""
+    from mxnet_tpu_torch.contrib import quantization as cq
+
+    real = cq.calib_thresholds
+
+    def keeping(*args, **kw):
+        if kw.get("calib_mode") == "entropy":
+            kw["samples_out"] = store
+        return real(*args, **kw)
+    cq.calib_thresholds = keeping
+    try:
+        yield store
+    finally:
+        cq.calib_thresholds = real
+
+
+def quant_entropy_samples(card_s, cpu_s, card):
     """(c): entropy calibration's samples of every calibrated tensor (the
     inputs and outputs of the 53 convolutions and the FC, the strided
-    subsample the histogram is built from), card against CPU; returns the
-    worst distance relative to each tensor's largest magnitude."""
-    from mxnet_tpu_torch import cpu, nd
-    from mxnet_tpu_torch.contrib.quantization import calib_thresholds
-
-    def out_name(node, idx):
-        return f"{node.name}_output" if node.num_outputs == 1 \
-            else f"{node.name}_output{idx}"
-
-    names = set()
-    for node in net._topo():
-        if node.op in ("Convolution", "FullyConnected"):
-            src, idx = node.inputs[0]
-            if src.op is not None:
-                names.add(out_name(src, idx))
-            names.add(out_name(node, 0))
-    card_s, cpu_s = {}, {}
-    for ctx, smp in ((dev, card_s), (cpu(), cpu_s)):
-        calib_thresholds(
-            net, {k: nd.array(v, ctx=ctx) for k, v in w_args.items()},
-            {k: nd.array(v, ctx=ctx) for k, v in w_aux.items()},
-            sorted(names), [nd.array(c, ctx=ctx) for c in calib],
-            calib_mode="entropy", samples_out=smp)
+    subsample the histogram is built from), kept from the quantize_model
+    calls on the card and on the CPU; returns the worst distance
+    relative to each tensor's largest magnitude."""
+    if not cpu_s or set(card_s) != set(cpu_s):
+        return math.inf
     worst = 0.0
     for k, want in cpu_s.items():
         have = card_s[k]
@@ -8963,6 +8997,666 @@ def phase_quant(card):
     return res, kernels
 
 
+# ---------------------------------------------------------------------------
+# phase 20: user-defined operators, control flow and ONNX
+# ---------------------------------------------------------------------------
+
+CO = dict(batch=64, hw=224, classes=1000, fit_batches=3, steps=3, timed=5,
+          windows=4, sig_rows=64, sig_width=1024,
+          # PTB "medium" (Zaremba et al. 2014): 2 x 650 LSTM, 35 steps,
+          # vocabulary 10,000, batch 20; no dropout (the bit-for-bit check)
+          lm_steps=35, lm_vocab=10000, lm_batch=20, lm_hidden=650,
+          lm_train=1 + CAPTURE_K, loop_width=512)
+CO_ONNX_REL = 1e-6        # (a): imported forward against the original
+CO_LM_BOUNDS = dict(loss=1e-5, grad=1e-4)  # (c): foreach against RNN
+CO_CARD_CPU = 1e-5        # (b), (d): card against the CPU, relative L2
+CUSTOM_OPS = {}
+
+
+def register_custom_ops():
+    """(b)'s user ops, registered once: reference MXNet's custom softmax
+    (example/numpy-ops/custom_softmax.py, need_top_grad=False) with nd
+    ops on the op's device, and the JAX package's tests' host-style
+    sigmoid (.asnumpy(), numpy, assign); each class counts its
+    forwards."""
+    if CUSTOM_OPS:
+        return CUSTOM_OPS
+    import numpy as np
+
+    from mxnet_tpu_torch import nd, operator
+
+    class Softmax(operator.CustomOp):
+        forwards = 0
+
+        def forward(self, is_train, req, in_data, out_data, aux):
+            type(self).forwards += 1
+            x = in_data[0]
+            e = nd.exp(x - x.max(axis=1, keepdims=True))
+            self.assign(out_data[0], req[0], e / e.sum(axis=1, keepdims=True))
+
+        def backward(self, req, out_grad, in_data, out_data, in_grad, aux):
+            y = out_data[0]
+            self.assign(in_grad[0], req[0],
+                        y - nd.one_hot(in_data[1], depth=y.shape[1]))
+
+    @operator.register("softmax")
+    class SoftmaxProp(operator.CustomOpProp):
+        def __init__(self):
+            super().__init__(need_top_grad=False)
+
+        def list_arguments(self):
+            return ["data", "label"]
+
+        def infer_shape(self, in_shape):
+            return [in_shape[0], (in_shape[0][0],)], [in_shape[0]], []
+
+        def create_operator(self, ctx, shapes, dtypes):
+            return Softmax()
+
+    class Sigmoid(operator.CustomOp):
+        forwards = 0
+
+        def forward(self, is_train, req, in_data, out_data, aux):
+            type(self).forwards += 1
+            x = in_data[0].asnumpy()
+            self.assign(out_data[0], req[0], 1.0 / (1.0 + np.exp(-x)))
+
+        def backward(self, req, out_grad, in_data, out_data, in_grad, aux):
+            y = out_data[0].asnumpy()
+            self.assign(in_grad[0], req[0],
+                        out_grad[0].asnumpy() * y * (1 - y))
+
+    @operator.register("host_sigmoid")
+    class SigmoidProp(operator.CustomOpProp):
+        def create_operator(self, ctx, shapes, dtypes):
+            return Sigmoid()
+
+    CUSTOM_OPS.update(softmax=Softmax, sigmoid=Sigmoid)
+    return CUSTOM_OPS
+
+
+def co_weights(net):
+    """Phase 11's trained ResNet-50 (CPU tensors) when it is alive, else
+    weights from a seed (He-normal convolutions and FC, BatchNorm at
+    gamma 1, beta 0, mean 0, variance 1)."""
+    if "sym_resnet50" in KEEP:
+        return KEEP.pop("sym_resnet50") + ("phase 11's",)
+    import numpy as np
+
+    shapes = dict(data=(CO["batch"], 3, CO["hw"], CO["hw"]))
+    arg_shapes, _, aux_shapes = net.infer_shape(**shapes)
+    gen = torch.Generator().manual_seed(2023)
+    w_args = {}
+    for n, s in zip(net.list_arguments(), arg_shapes):
+        if n in ("data", "softmax_label"):
+            continue
+        if n.endswith("gamma"):
+            w_args[n] = torch.ones(s)
+        elif n.endswith(("beta", "bias")):
+            w_args[n] = torch.zeros(s)
+        else:
+            fan_in = int(np.prod(s[1:]))
+            w_args[n] = torch.randn(s, generator=gen) * (2.0 / fan_in) ** 0.5
+    w_aux = {n: torch.ones(s) if n.endswith("var") else torch.zeros(s)
+             for n, s in zip(net.list_auxiliary_states(), aux_shapes)}
+    return w_args, w_aux, "seeded"
+
+
+def co_images(n, seed):
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((n, 3, CO["hw"], CO["hw"]), dtype=np.float32)
+    return x, rng.integers(0, CO["classes"], n).astype(np.float32)
+
+
+def co_module(net, args, aux, for_training=True, labels=True):
+    """A Module of `net` on gpu(0) bound at CO's batch from `args`/`aux`
+    (CPU tensors), with SYM_OPT's sgd when it trains."""
+    from mxnet_tpu_torch import gpu
+    from mxnet_tpu_torch.io import DataDesc
+    from mxnet_tpu_torch.module import Module
+    from mxnet_tpu_torch.ndarray import NDArray
+
+    b = CO["batch"]
+    mod = Module(net, context=gpu(0),
+                 label_names=("softmax_label",) if labels else None)
+    mod.bind([DataDesc("data", (b, 3, CO["hw"], CO["hw"]))],
+             [DataDesc("softmax_label", (b,))] if labels else None,
+             for_training=for_training)
+    mod.init_params(arg_params={k: NDArray(v) for k, v in args.items()},
+                    aux_params={k: NDArray(v) for k, v in aux.items()})
+    if for_training:
+        mod.init_optimizer(optimizer="sgd", optimizer_params=dict(
+            SYM_OPT, rescale_grad=1.0 / b))
+    return mod
+
+
+def co_onnx(card, net, w_args, w_aux):
+    """(a): the symbolic ResNet-50 to ONNX and back: export (bytes,
+    seconds), torch._C._check_onnx_proto, get_model_metadata,
+    import_model (parameters on cpu()), a Module(for_training=False) of
+    the import on the card, its captured forward against the original's
+    from the same weights (relative L2 within CO_ONNX_REL, the same
+    argmax in every row), both forwards timed."""
+    from mxnet_tpu_torch import cpu
+    from mxnet_tpu_torch.contrib import onnx as onnx_mx
+    from mxnet_tpu_torch.io import DataBatch
+    from mxnet_tpu_torch.ndarray import NDArray
+
+    b = CO["batch"]
+    path = os.path.join("build", "chip_smoke_onnx", "resnet50_v1.onnx")
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    t0 = time.perf_counter()
+    onnx_mx.export_model(net, {**w_args, **w_aux},
+                         [(b, 3, CO["hw"], CO["hw"]), (b,)], path)
+    export_s = time.perf_counter() - t0
+    nbytes = os.path.getsize(path)
+    with open(path, "rb") as f:
+        torch._C._check_onnx_proto(f.read())
+    meta = onnx_mx.get_model_metadata(path)
+    t0 = time.perf_counter()
+    s2, a2, x2 = onnx_mx.import_model(path)
+    import_s = time.perf_counter() - t0
+    os.remove(path)
+    on_cpu = all(v.ctx == cpu() for v in list(a2.values())
+                 + list(x2.values()))
+    x, y = co_images(b, 20)
+    batch = DataBatch([NDArray(torch.from_numpy(x))],
+                      [NDArray(torch.from_numpy(y))])
+    outs, ms = {}, {}
+    for tag, sym, args, aux, labels in (
+            ("original", net, w_args, w_aux, True),
+            ("imported", s2, {k: v._data for k, v in a2.items()},
+             {k: v._data for k, v in x2.items()}, False)):
+        mod = co_module(sym, args, aux, for_training=False, labels=labels)
+        # the warm-up call builds the captured forward
+        ms[tag] = time_ms(lambda: mod.forward(batch, is_train=False),
+                          iters=CO["timed"], warmup=1)
+        outs[tag] = mod.get_outputs()[0]._data.detach().cpu()
+        del mod
+    o, i = outs["original"], outs["imported"]
+    rel = rel_l2(i, o)
+    same_argmax = bool(torch.equal(i.argmax(1), o.argmax(1)))
+    print(f"custom_onnx (a): resnet50_v1 ({len(w_args)} arguments) exported "
+          f"to ONNX opset 13: {nbytes} bytes in {export_s:.2f} s, passes "
+          f"torch._C._check_onnx_proto, metadata inputs "
+          f"{meta['input_tensor_data']} outputs "
+          f"{meta['output_tensor_data']}; imported in {import_s:.2f} s "
+          f"(parameters on cpu() {on_cpu}); batch-{b} captured forward "
+          f"{ms['imported']:.2f} ms imported against {ms['original']:.2f} "
+          f"ms original, relative L2 {rel:.3g} (bound {CO_ONNX_REL}), argmax "
+          f"equal {same_argmax} [{card}]", flush=True)
+    if not (rel <= CO_ONNX_REL and same_argmax and on_cpu
+            and i.shape == (b, CO["classes"])):
+        fail(f"custom_onnx (a): relative L2 {rel}, argmax equal "
+             f"{same_argmax}, parameters on cpu {on_cpu}")
+    return dict(bytes=nbytes, export_s=export_s, import_s=import_s,
+                rel_l2=rel, argmax_equal=same_argmax,
+                imported_ms=ms["imported"], original_ms=ms["original"])
+
+
+def co_steps(mod, batches, steps):
+    """`steps` eager Module steps; the outputs and the weights after."""
+    from mxnet_tpu_torch import _graphs as mxg
+
+    with mxg.no_capture():
+        timed_module_steps(mod, batches, steps)
+    ex = mod._exec_group.execs[0]
+    return (ex.outputs[0]._data.detach().double().cpu(),
+            {n: ex.arg_dict[n]._data.detach().double().cpu()
+             for n in mod._param_names})
+
+
+def co_windows(run):
+    """ms a step of CO["windows"] windows of CO["timed"] steps each:
+    `run(steps)` returns seconds a step."""
+    return [run(CO["timed"]) * 1e3 for _ in range(CO["windows"])]
+
+
+def co_span(ms):
+    return f"{min(ms):.2f}-{max(ms):.2f}"
+
+
+def co_custom(card, net, w_args, w_aux):
+    """(b): ResNet-50 with a Custom softmax head through Module.fit, then
+    CO["steps"] eager steps from one state against the SoftmaxOutput net
+    (the updates of all leaves together within twice the step's own
+    sensitivity: the larger of two SoftmaxOutput runs' distance and of a
+    run from weights moved by 2^-24 relative), the Custom step never
+    captured (custom_eager counts every step) and the user forward once
+    a step; its step's ms beside the SoftmaxOutput net's captured and
+    eager ones, each over CO["windows"] windows of CO["timed"] steps.
+    Then the host-style sigmoid in a hybridized block, forward and
+    backward, card against CPU."""
+    import gc
+
+    from mxnet_tpu_torch import _graphs as mxg
+    from mxnet_tpu_torch import gpu, sym
+    from mxnet_tpu_torch.io import NDArrayIter
+    from mxnet_tpu_torch.module import Module
+    from mxnet_tpu_torch.ndarray import NDArray
+
+    ops = register_custom_ops()
+    b = CO["batch"]
+    fc = net.get_internals()["fc_output"]
+    head = sym.Custom(fc, sym.var("softmax_label"), op_type="softmax",
+                      name="softmax")
+    x, y = co_images(b * CO["fit_batches"], 21)
+    it = NDArrayIter(x, y, batch_size=b, shuffle=False)
+    stats = sym.executor_stats
+    c0, f0 = stats()["custom_eager"], ops["softmax"].forwards
+    mod = Module(head, context=gpu(0))
+    t0 = time.perf_counter()
+    mod.fit(it, num_epoch=1, optimizer="sgd", arg_params={
+        k: NDArray(v) for k, v in w_args.items()}, aux_params={
+        k: NDArray(v) for k, v in w_aux.items()},
+        optimizer_params=dict(SYM_OPT, rescale_grad=1.0 / b),
+        eval_metric="acc")
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    fit_calls = (stats()["custom_eager"] - c0,
+                 ops["softmax"].forwards - f0)
+    it.reset()
+    batches = list(it)
+    c0, f0 = stats()["custom_eager"], ops["softmax"].forwards
+
+    def windows(m):
+        return co_windows(lambda n: timed_module_steps(m, batches[:1], n))
+    custom_ms = windows(mod)
+    timed = CO["timed"] * CO["windows"]
+    timed_calls = (stats()["custom_eager"] - c0,
+                   ops["softmax"].forwards - f0)
+    finite = bool(torch.isfinite(mod.get_outputs()[0]._data).all())
+    wa, wx = mod.get_params()
+    wa = {k: v._data.detach().cpu() for k, v in wa.items()}
+    wx = {k: v._data.detach().cpu() for k, v in wx.items()}
+    del mod
+    gc.collect()
+    steps = CO["steps"]
+    runs, starts = {}, {}
+    g = torch.Generator().manual_seed(20)
+    for tag, s, args in (
+            ("custom", head, wa), ("softmax", net, wa),
+            ("again", net, wa),
+            ("witness", net, {k: perturb(v, 2.0 ** -24, g)
+                              for k, v in wa.items()})):
+        m = co_module(s, args, wx)
+        starts[tag] = args
+        runs[tag] = co_steps(m, batches, steps)
+        if tag == "softmax":
+            timed_module_steps(m, batches[:1], 1)  # builds the captured step
+            so_ms = windows(m)
+            with mxg.no_capture():
+                timed_module_steps(m, batches[:1], 1)  # first eager calls
+                so_eager_ms = windows(m)
+        del m
+        gc.collect()
+    upd = {t: {k: v - starts[t][k].double() for k, v in r[1].items()}
+           for t, r in runs.items()}
+    e = rel_l2_all(upd["custom"], upd["softmax"])
+    s = max(rel_l2_all(upd["again"], upd["softmax"]),
+            rel_l2_all(upd["witness"], upd["softmax"]))
+    e_out = rel_l2(runs["custom"][0], runs["softmax"][0])
+    ok = e <= 2 * s and finite \
+        and fit_calls == (CO["fit_batches"], CO["fit_batches"]) \
+        and timed_calls == (timed, timed)
+    print(f"custom_onnx (b): resnet50_v1 with sym.Custom(op_type='softmax') "
+          f"(nd ops on the card, need_top_grad=False) through Module.fit, "
+          f"{CO['fit_batches']} batches of {b} in {fit_s:.2f} s; Custom "
+          f"step {co_span(custom_ms)} ms over {CO['windows']} windows of "
+          f"{CO['timed']} steps (eager by the rule: custom_eager "
+          f"{fit_calls[0]} + {timed_calls[0]}, user forwards {fit_calls[1]} "
+          f"+ {timed_calls[1]} for {CO['fit_batches']} + {timed} steps); "
+          f"SoftmaxOutput step captured {co_span(so_ms)} ms, eager "
+          f"{co_span(so_eager_ms)} ms; {steps} steps from one state, all "
+          f"{len(wa)} leaves' updates Custom against SoftmaxOutput "
+          f"{e:.3g} (bound 2 x sensitivity {s:.3g}), outputs {e_out:.3g}; "
+          f"finite {finite} [{card}]", flush=True)
+    if not ok:
+        fail(f"custom_onnx (b): updates {e} (sensitivity {s}), calls "
+             f"{fit_calls} {timed_calls}, finite {finite}")
+    res = dict(fit_s=fit_s, custom_ms=custom_ms, softmax_captured_ms=so_ms,
+               softmax_eager_ms=so_eager_ms, updates_rel=e, sensitivity=s,
+               outputs_rel=e_out, custom_eager=fit_calls[0] + timed_calls[0],
+               user_forwards=fit_calls[1] + timed_calls[1])
+    res["sigmoid_block"] = co_sigmoid_block(card, ops)
+    return res
+
+
+def co_sigmoid_block(card, ops):
+    """(b): the host-style sigmoid between two Dense layers of a
+    hybridized block, forward and backward on the card against the same
+    block on the CPU (relative L2 within CO_CARD_CPU), then three
+    SPMDTrainer steps over it (losses against the CPU's); the user
+    forward once a call or step, and each counted in custom_eager."""
+    from mxnet_tpu_torch import autograd, cpu, gluon, gpu, init, nd, parallel
+    from mxnet_tpu_torch.gluon import block as gblock
+    from mxnet_tpu_torch.gluon import load_numpy_params
+
+    w = CO["sig_width"]
+
+    class Net(gluon.HybridBlock):
+        def __init__(self):
+            super().__init__()
+            self.fc = gluon.nn.Dense(w, in_units=w)
+            self.out = gluon.nn.Dense(10, in_units=w)
+
+        def hybrid_forward(self, F, x):
+            return self.out(F.Custom(self.fc(x), op_type="host_sigmoid"))
+
+    gen = torch.Generator().manual_seed(22)
+    x = torch.randn(CO["sig_rows"], w, generator=gen)
+    vals = None
+    got = {}
+    for tag, ctx in (("cpu", cpu()), ("card", gpu(0))):
+        net = Net()
+        net.initialize(init.Xavier(), ctx=ctx, seed=5)
+        if vals is None:
+            vals = {k: t.detach().clone() for k, t in
+                    net.state_dict().items()}
+        # copies: the trainer below updates the block's tensors in place
+        load_numpy_params(net, {k: v.to(ctx.torch_device, copy=True)
+                                for k, v in vals.items()})
+        net.hybridize()
+        xn = nd.NDArray(x.to(ctx.torch_device))
+        c0, f0 = gblock.cached_op_stats()["custom_eager"], \
+            ops["sigmoid"].forwards
+        y = net(xn)
+        with autograd.record():
+            loss = (net(xn) ** 2).sum()
+        loss.backward()
+        got[tag] = (
+            y._data.cpu(), net.fc.weight.grad()._data.cpu(),
+            gblock.cached_op_stats()["custom_eager"] - c0,
+            ops["sigmoid"].forwards - f0)
+        # SPMDTrainer's step over the same block: every step eager
+        tr = parallel.SPMDTrainer(
+            net, gluon.loss.SoftmaxCrossEntropyLoss(), "sgd",
+            {"learning_rate": 0.1},
+            mesh=parallel.make_mesh(dp=1, devices=[ctx.torch_device]))
+        labels = (torch.arange(CO["sig_rows"]) % 10).float()
+        c0, f0 = parallel.spmd.step_compile_stats()["custom_eager"], \
+            ops["sigmoid"].forwards
+        losses = [float(tr.step(x.to(ctx.torch_device),
+                                labels.to(ctx.torch_device)))
+                  for _ in range(3)]
+        got[tag] += (losses,
+                     parallel.spmd.step_compile_stats()["custom_eager"] - c0,
+                     ops["sigmoid"].forwards - f0)
+    (yc, gc_, nc, fc_, lc, sc, sfc), (yh, gh, nh, fh, lh, sh, sfh) = \
+        got["card"], got["cpu"]
+    ey = rel_l2(yc, yh)
+    eg = rel_l2(gc_, gh)
+    el = max(abs(a - b) / abs(b) for a, b in zip(lc, lh))
+    print(f"custom_onnx (b): host-style sigmoid (.asnumpy(), numpy, assign) "
+          f"in a hybridized block ({CO['sig_rows']} x {w}): card against "
+          f"cpu forward {ey:.3g}, weight gradient {eg:.3g} (bound "
+          f"{CO_CARD_CPU}); custom_eager {nc}, user forwards {fc_} for 2 "
+          f"calls; SPMDTrainer 3 steps, losses {[round(v, 5) for v in lc]} "
+          f"{el:.3g} from the cpu's, custom_eager {sc}, user forwards {sfc} "
+          f"[{card}]", flush=True)
+    if not (ey <= CO_CARD_CPU and eg <= CO_CARD_CPU and el <= CO_CARD_CPU
+            and (nc, fc_, nh, fh) == (2, 2, 2, 2)
+            and (sc, sfc, sh, sfh) == (3, 3, 3, 3)):
+        fail(f"custom_onnx (b) sigmoid block: {ey} {eg} {el} counts "
+             f"{(nc, fc_, nh, fh, sc, sfc, sh, sfh)}")
+    return dict(forward_rel=ey, grad_rel=eg, custom_eager=nc,
+                spmd_loss_rel=el, spmd_custom_eager=sc)
+
+
+def co_lm_nets():
+    """(c): the PTB-medium LM twice on one set of seeded weights on
+    gpu(0): Embedding -> two gluon.rnn.LSTMCell unrolled by
+    contrib.foreach -> Dense, and Embedding -> gluon.rnn.LSTM(num_layers=2)
+    (the fused RNN op) -> Dense; both hybridized."""
+    from mxnet_tpu_torch import gluon, gpu, init
+    from mxnet_tpu_torch.gluon import load_numpy_params, nn, rnn
+
+    v, h = CO["lm_vocab"], CO["lm_hidden"]
+
+    class ForeachLM(gluon.HybridBlock):
+        def __init__(self):
+            super().__init__()
+            self.embed = nn.Embedding(v, h)
+            self.cell0 = rnn.LSTMCell(h, input_size=h)
+            self.cell1 = rnn.LSTMCell(h, input_size=h)
+            self.out = nn.Dense(v, in_units=h, flatten=False)
+
+        def hybrid_forward(self, F, tokens):
+            x = self.embed(tokens)  # (T, N, h)
+            z = x.new_zeros((x.shape[1], h))
+
+            def step(xt, states):
+                o0, s0 = self.cell0(xt, states[:2])
+                o1, s1 = self.cell1(o0, states[2:])
+                return o1, list(s0) + list(s1)
+
+            outs, _ = F.contrib.foreach(step, x, [z, z, z, z])
+            return self.out(outs)
+
+    class FusedLM(gluon.HybridBlock):
+        def __init__(self):
+            super().__init__()
+            self.embed = nn.Embedding(v, h)
+            self.rnn = rnn.LSTM(h, num_layers=2, input_size=h)
+            self.out = nn.Dense(v, in_units=h, flatten=False)
+
+        def hybrid_forward(self, F, tokens):
+            return self.out(self.rnn(self.embed(tokens)))
+
+    fe = ForeachLM()
+    fe.initialize(init.Xavier(), ctx=gpu(0), seed=23)
+    fu = FusedLM()
+    fu.initialize(ctx=gpu(0))
+    w = {k: t.detach() for k, t in fe.state_dict().items()}
+    fused_w = {}
+    for k, t in w.items():
+        if k.startswith("cell"):
+            layer, name = k[4], k.split(".", 1)[1]
+            fused_w[f"rnn.l{layer}_{name}"] = t
+        else:
+            fused_w[k] = t
+    load_numpy_params(fu, fused_w)
+    fe.hybridize()
+    fu.hybridize()
+    return fe, fu
+
+
+def co_grads(net, x, y):
+    """One eager forward and backward: (mean loss, {leaf: gradient})."""
+    from mxnet_tpu_torch import _graphs as mxg
+    from mxnet_tpu_torch import autograd, gluon, nd
+
+    loss_fn = gluon.loss.SoftmaxCrossEntropyLoss()
+    with mxg.no_capture():
+        with autograd.record():
+            loss = loss_fn(net(nd.NDArray(x)), nd.NDArray(y))
+        loss.backward()
+    return (float(loss.mean().asscalar()),
+            {k: p.grad()._data.detach().cpu()
+             for k, p in net.collect_params().items()})
+
+
+def co_lm(card):
+    """(c): the foreach LM against the fused RNN LM from one set of
+    weights (the loss within CO_LM_BOUNDS["loss"] and every gradient's
+    relative L2 within CO_LM_BOUNDS["grad"]); then the foreach LM through
+    the hybridized gluon.Trainer loop (SGD), its captured steps bit for
+    bit its eager steps from one state (captured_loop), and the captured
+    step's ms beside the fused LM's, each over CO["windows"] windows of
+    CO["timed"] steps."""
+    t, n, v = CO["lm_steps"], CO["lm_batch"], CO["lm_vocab"]
+    gen = torch.Generator().manual_seed(2014)
+    xb = torch.randint(0, v, (t + 1, n), generator=gen)
+    dev = torch.device("cuda", 0)
+    xb, yb = xb[:-1].float().to(dev), xb[1:].float().to(dev)
+    fe, fu = co_lm_nets()
+    loss_e, g_e = co_grads(fe, xb, yb)
+    loss_f, g_f = co_grads(fu, xb, yb)
+    e_loss = abs(loss_e - loss_f) / abs(loss_f)
+    e_grad = {}
+    for k, g in g_e.items():
+        fk = k if not k.startswith("cell") else \
+            f"rnn.l{k[4]}_{k.split('.', 1)[1]}"
+        e_grad[k] = rel_l2(g, g_f[fk])
+    worst = max(e_grad.items(), key=lambda kv: kv[1])
+    w0 = snapshot(fe)
+    runs, trainers, bad = captured_loop("custom_onnx (c) foreach lm", fe, w0,
+                                        xb, yb, CO["lm_train"], card)
+    tr = trainers["captured"]
+    restore(fe, w0)
+    ms_foreach = co_windows(lambda k: gluon_steps(fe, tr, xb, yb, k)[3])
+    ftr = gluon_trainer(fu)
+    gluon_steps(fu, ftr, xb, yb, 2)  # warm-up and build
+    ms_fused = co_windows(lambda k: gluon_steps(fu, ftr, xb, yb, k)[3])
+    builds = runs["captured"][2]
+    losses = runs["captured"][0]
+    print(f"custom_onnx (c): PTB-medium LM (2 x {CO['lm_hidden']} LSTM, "
+          f"{t} steps, vocabulary {v}, batch {n}; synthetic tokens) with "
+          f"two LSTMCells unrolled by contrib.foreach against "
+          f"gluon.rnn.LSTM (the fused RNN op) on the same weights: loss "
+          f"{loss_e:.6f} vs {loss_f:.6f} ({e_loss:.3g}, bound "
+          f"{CO_LM_BOUNDS['loss']}), worst of {len(e_grad)} gradients "
+          f"{worst[1]:.3g} ({worst[0]}; bound {CO_LM_BOUNDS['grad']}); "
+          f"the hybridized gluon.Trainer loop, {CO['lm_train']} steps "
+          f"captured (builds {builds}) bit for bit the eager ones "
+          f"{not bad}, losses {[round(x, 4) for x in losses]}; step "
+          f"captured {co_span(ms_foreach)} ms foreach against "
+          f"{co_span(ms_fused)} ms fused over {CO['windows']} windows of "
+          f"{CO['timed']} steps [{card}]", flush=True)
+    if e_loss > CO_LM_BOUNDS["loss"] or worst[1] > CO_LM_BOUNDS["grad"] \
+            or bad or builds != 1:
+        fail(f"custom_onnx (c): loss {e_loss}, gradient {worst}, "
+             f"mismatches {bad[:4]}, builds {builds}")
+    del fe, fu, trainers, tr, ftr
+    return dict(loss_rel=e_loss, grad_worst=worst[1], grad_worst_leaf=worst[0],
+                identical=not bad, builds=builds, losses=losses,
+                foreach_ms=ms_foreach, fused_ms=ms_fused)
+
+
+def co_loops(card):
+    """(d): while_loop and cond with array predicates on the card against
+    the CPU: eagerly on NDArrays (and false on entry), under record() with
+    the gradient, and in a hybridized block, where each call is an eager
+    entry counted in custom_eager; relative L2 within CO_CARD_CPU."""
+    from mxnet_tpu_torch import autograd, cpu, gluon, gpu, nd
+    from mxnet_tpu_torch.contrib import ndarray as C
+    from mxnet_tpu_torch.gluon import block as gblock
+
+    w = CO["loop_width"]
+
+    class Loops(gluon.HybridBlock):
+        def __init__(self):
+            super().__init__()
+            self.fc = gluon.nn.Dense(w, in_units=w)
+
+        def hybrid_forward(self, F, x):
+            outs, fin = F.contrib.while_loop(
+                lambda h, i: i < 3,
+                lambda h, i: (self.fc(h), (F.tanh(self.fc(h)), i + 1)),
+                [x, x.new_zeros((1,))], max_iterations=5)
+            return F.contrib.cond(fin[0].sum() > 0,
+                                  lambda: outs.sum(0) + fin[0],
+                                  lambda: outs.sum(0) - fin[0])
+
+    gen = torch.Generator().manual_seed(24)
+    x = torch.randn(8, w, generator=gen)
+    ref = Loops()
+    ref.initialize(ctx=cpu(), seed=6)
+    vals = {k: t.detach().clone() for k, t in ref.state_dict().items()}
+    got = {}
+    for tag, ctx in (("card", gpu(0)), ("cpu", cpu())):
+        xs = nd.NDArray(x.to(ctx.torch_device))
+        i0 = nd.NDArray(torch.zeros(1, device=ctx.torch_device))
+        outs, fin = C.while_loop(lambda i: i < 4, lambda i: (i * 2, i + 1),
+                                 [i0], max_iterations=6)
+        e_outs, e_fin = C.while_loop(lambda i: i < 0,
+                                     lambda i: (xs * i, i + 1), [i0],
+                                     max_iterations=3)
+        picked = C.cond(xs.sum() > 0, lambda: xs * 2, lambda: xs * 3)
+        net = Loops()
+        net.initialize(ctx=ctx)
+        gluon.load_numpy_params(net, {k: v.to(ctx.torch_device, copy=True)
+                                      for k, v in vals.items()})
+        with autograd.record():
+            eager = net(xs)
+            (eager ** 2).sum().backward()
+        g_eager = net.fc.weight.grad()._data.detach().double().cpu()
+        net.hybridize()
+        c0 = gblock.cached_op_stats()["custom_eager"]
+        hy = net(xs)
+        with autograd.record():
+            hy2 = net(xs)
+            (hy2 ** 2).sum().backward()
+        counted = gblock.cached_op_stats()["custom_eager"] - c0
+        got[tag] = {k: v._data.detach().double().cpu() for k, v in dict(
+            outs=outs, fin=fin[0], empty=e_outs, empty_fin=e_fin[0],
+            picked=picked, eager=eager, hybrid=hy, hybrid_rec=hy2,
+            grad_hybrid=net.fc.weight.grad()).items()}
+        got[tag].update(grad=g_eager, counted=counted)
+    c, h = got["card"], got["cpu"]
+    worst = 0.0
+    for k in ("outs", "fin", "empty", "empty_fin", "picked", "eager",
+              "hybrid", "hybrid_rec", "grad", "grad_hybrid"):
+        # all-zero references (the false-on-entry buffers) by the norm
+        worst = max(worst, rel_l2(c[k], h[k]) if h[k].any()
+                    else float(c[k].norm()))
+    exact = c["outs"].flatten().tolist() == [0, 2, 4, 6, 0, 0] \
+        and c["fin"].tolist() == [4.0] and not c["empty"].any() \
+        and c["empty"].shape == (3, 8, w) and c["empty_fin"].tolist() == [0.0]
+    print(f"custom_onnx (d): while_loop (4 of max 6 iterations, and false on "
+          f"entry: zero rows, the loop variable unchanged) and cond on "
+          f"array predicates, eagerly, under record() and in a hybridized "
+          f"block ({w} wide): card against cpu worst relative L2 "
+          f"{worst:.3g} (bound {CO_CARD_CPU}); the padded rows and the "
+          f"false-on-entry case exact {exact}; custom_eager {c['counted']} "
+          f"for 2 hybridized calls [{card}]", flush=True)
+    if worst > CO_CARD_CPU or not exact or c["counted"] != 2 \
+            or h["counted"] != 2:
+        fail(f"custom_onnx (d): worst {worst}, exact {exact}, counted "
+             f"{c['counted']} / {h['counted']}")
+    return dict(worst_rel=worst, exact=exact, custom_eager=c["counted"])
+
+
+def phase_custom_onnx(card):
+    """Phase 20: (a) the symbolic ResNet-50 through ONNX and back, (b) a
+    Custom softmax head at full width and a host-style Custom op in a
+    hybridized block, (c) the PTB-medium foreach LSTM against the fused
+    RNN op, (d) while_loop and cond on the card."""
+    import gc
+
+    from mxnet_tpu_torch import sym
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    marks = [("start", t0)]
+    net = resnet50_v1_sym(sym, classes=CO["classes"])
+    w_args, w_aux, origin = co_weights(net)
+    res = {"weights": origin}
+    res["onnx"] = co_onnx(card, net, w_args, w_aux)
+    marks.append(("a", time.perf_counter()))
+    res["custom"] = co_custom(card, net, w_args, w_aux)
+    marks.append(("b", time.perf_counter()))
+    del w_args, w_aux
+    gc.collect()
+    torch.cuda.empty_cache()
+    res["lm"] = co_lm(card)
+    marks.append(("c", time.perf_counter()))
+    gc.collect()
+    res["loops"] = co_loops(card)
+    marks.append(("d", time.perf_counter()))
+    gc.collect()
+    torch.cuda.empty_cache()
+    res["seconds"] = time.perf_counter() - t0
+    print(f"custom_onnx: phase 20 took {res['seconds']:.1f} s ("
+          + ", ".join(f"{b[0]} {b[1] - a[1]:.1f} s"
+                      for a, b in zip(marks, marks[1:])) + ")", flush=True)
+    print(f"custom_onnx: {json.dumps(res, default=str)}", flush=True)
+    return res
+
+
 def attention_path_summary(kernel, path, rows, launches, batch):
     """The `kernels` record of kernel 5 on one phase-9 path: each check
     record in `rows` (record, launches) weighted by its launches in one
@@ -9048,6 +9742,7 @@ def main():
     vis = phase_vision(card, train_res)
     img = phase_imagenet(card, train_res)
     _, quant_kernels = phase_quant(card)
+    phase_custom_onnx(card)
     dec_steps = tf_res["decode"]["steps"]
     dp_keys = dict(backend=dp_res.get("backend"), ranks=DP)
     # kernel 1 once for each main path (its shapes and launches), kernel 2

@@ -31,7 +31,9 @@ and ``resource``; slice 21 adds the image data path: ``recordio``, ``image``
 (``ImageIter``, ``ImageDetIter``), ``nd.image``, ``io.ImageRecordIter``
 over the native decode pipeline (``lib``, built from ``native/`` with
 g++), the record and folder datasets and ``tools/im2rec.py`` (see
-``examples/imagenet_train.py``).
+``examples/imagenet_train.py``); slice 23 adds user-defined operators
+(``operator``, the ``Custom`` op), ``contrib.foreach``/``while_loop``/
+``cond`` and ``contrib.onnx``.
 """
 from __future__ import annotations
 
@@ -57,6 +59,7 @@ from . import module
 from . import module as mod
 from . import contrib, rnn
 from . import image, lib, recordio
+from . import operator
 from .attribute import AttrScope
 from .ndarray import waitall
 
@@ -68,4 +71,4 @@ __all__ = ["MXNetError", "Context", "context", "cpu", "gpu", "tpu",
            "optimizer", "random", "gluon", "attribute", "AttrScope",
            "callback", "io", "lr_scheduler", "model", "name", "symbol",
            "sym", "module", "mod", "contrib", "rnn", "image", "lib",
-           "recordio", "waitall"]
+           "recordio", "operator", "waitall"]

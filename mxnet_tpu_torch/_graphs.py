@@ -40,6 +40,16 @@ what the three sites share:
 * A build that fails raises: nothing falls back to eager quietly.
   :func:`no_capture` runs the calling thread's sites eagerly, without
   the cache (the comparisons of ``chip_smoke.py`` use it).
+* The eager-entry rule: a function that runs Python a replay cannot
+  repeat — a ``Custom`` op's forward and backward, a ``while_loop`` or
+  ``cond`` that reads its predicate from the device — says so through
+  :func:`note_host_python`.  When the warm-up call of a signature (the
+  eager call before any capture, in :meth:`ExecutableCache.run` and in
+  :meth:`ExecutableCache.run_train`) did, the signature is built as an
+  eager entry: the function runs on every call, as it does on the CPU,
+  and is never captured.  Each call that ran such Python is counted in
+  ``stats()["custom_eager"]``, on the card and on the CPU alike.  A
+  signature whose function never calls it is captured as before.
 
 The training-mode entry (:meth:`ExecutableCache.run_train`, the
 hybridized forward under ``autograd.record()``) is a forward graph and a
@@ -82,7 +92,8 @@ from . import random as _random
 from .util import env as _env
 
 __all__ = ["ExecutableCache", "Graphed", "TrainPair", "EagerPair",
-           "capture_enabled", "no_capture", "owner_token", "tensor_key",
+           "capture_enabled", "no_capture", "note_host_python",
+           "owner_token", "tensor_key",
            "segment", "segment_value", "in_segment",
            "segment_recomputing"]
 
@@ -93,9 +104,20 @@ _TICKS = itertools.count(1)
 class _Local(threading.local):
     def __init__(self):
         self.eager = 0
+        self.host = 0
 
 
 _LOCAL = _Local()
+
+
+def note_host_python() -> None:
+    """Say that the running function executes Python that a CUDA graph's
+    replay cannot repeat (see the module docstring's eager-entry rule)."""
+    _LOCAL.host += 1
+
+
+def _host_calls() -> int:
+    return _LOCAL.host
 
 
 def capture_enabled() -> bool:
@@ -179,8 +201,9 @@ class Graphed:
 
     @classmethod
     def build(cls, make_fn, inputs, device, pool=None, generators=()):
-        """Warm up (the call's own result), then capture.  Returns
-        (entry, warm-up outputs)."""
+        """Warm up (the call's own result), then capture — unless the
+        warm-up ran Python a replay cannot repeat, when the entry is an
+        eager one.  Returns (entry, warm-up outputs)."""
         fn = make_fn()
         with torch.cuda.device(device):
             cur = torch.cuda.current_stream(device)
@@ -188,11 +211,14 @@ class Graphed:
                 a, non_blocking=True) for a in inputs]
             side = _side_stream(device)
             side.wait_stream(cur)
+            h0 = _host_calls()
             with torch.cuda.stream(side):
                 first = fn(*static_in)
             cur.wait_stream(side)
             for t in _tensors(first):
                 t.record_stream(cur)
+            if _host_calls() != h0:
+                return _Eager(), first
             graph = torch.cuda.CUDAGraph()
             for g in generators:
                 _random.register_graph(graph, g)
@@ -492,6 +518,7 @@ class _TrainEntry:
     def __init__(self):
         self.pairs: List[_PairBase] = []
         self.warm = False
+        self.host = False  # the eager-entry rule applies
 
     def set_warm(self):
         self.warm = True
@@ -603,24 +630,39 @@ class ExecutableCache:
         self.seconds = 0.0
         self.evictions = 0
         self.eager = 0
+        self.custom_eager = 0
         self._pools: Dict[int, Any] = {}
         self._finalizers: Dict[int, Any] = {}
 
     def stats(self) -> Dict[str, float]:
         """The JAX package's keys (``count`` builds, ``seconds_total``
         spent building them, ``cache_loads`` always 0: there is no
-        persistent tier, ``evictions``, ``size``) and ``eager``: calls
+        persistent tier, ``evictions``, ``size``), ``eager``: calls
         this site ran eagerly because capture does not apply (a step over
-        a process group).  Each entry's capture seconds and pool bytes
-        are on its ``Graphed`` (:meth:`entries`)."""
+        a process group), and ``custom_eager``: calls whose function ran
+        Python a replay cannot repeat, each run eagerly (the eager-entry
+        rule of the module docstring).  Each entry's capture seconds and
+        pool bytes are on its ``Graphed`` (:meth:`entries`)."""
         with self.lock:
             return {"count": self.compiles, "seconds_total": self.seconds,
                     "cache_loads": 0, "evictions": self.evictions,
-                    "size": len(self.data), "eager": self.eager}
+                    "size": len(self.data), "eager": self.eager,
+                    "custom_eager": self.custom_eager}
 
     def note_eager(self) -> None:
         with self.lock:
             self.eager += 1
+
+    def _counted(self, call):
+        """``(call(), host)``: ``host`` says whether the call ran Python a
+        replay cannot repeat, when it is counted in ``custom_eager``."""
+        h0 = _host_calls()
+        out = call()
+        host = _host_calls() != h0
+        if host:
+            with self.lock:
+                self.custom_eager += 1
+        return out, host
 
     def _evict_locked(self, key) -> None:
         if self.data.pop(key, None) is not None:
@@ -663,17 +705,17 @@ class ExecutableCache:
                 if ent is not None:
                     self._evict_locked(key)
         if fn is not None:
-            return fn(make_fn, inputs)
+            return self._counted(lambda: fn(make_fn, inputs))[0]
         t0 = time.perf_counter()
         if device.type == "cuda":
             with self.lock:
                 pool = self._pools.get(tok)
                 if pool is None:
                     pool = self._pools[tok] = torch.cuda.graph_pool_handle()
-            fn, out = Graphed.build(make_fn, inputs, device, pool,
-                                    generators)
+            (fn, out), _ = self._counted(lambda: Graphed.build(
+                make_fn, inputs, device, pool, generators))
         else:
-            fn, out = _Eager(), make_fn()(*inputs)
+            fn, out = _Eager(), self._counted(lambda: make_fn()(*inputs))[0]
         dt = time.perf_counter() - t0
         with self.lock:
             self.compiles += 1
@@ -711,14 +753,25 @@ class ExecutableCache:
             for pair in entry.pairs:
                 token = pair.try_acquire()
                 if token is not None:
-                    return pair.apply(token, params, inputs)
-            warm = entry.warm
-        if device.type == "cuda" and not warm:
+                    return self._counted(
+                        lambda: pair.apply(token, params, inputs))[0]
+            warm, host = entry.warm, entry.host
+        if device.type == "cuda" and not warm and not host:
             pair = EagerPair(make_fn, in_req, stream=_side_stream(device),
                              on_backward=entry.set_warm)
-            return pair.apply(pair.try_acquire(), params, inputs)
+            token = pair.try_acquire()
+            out, host = self._counted(
+                lambda: pair.apply(token, params, inputs))
+            if host:
+                # the eager-entry rule: this pair is the signature's
+                # entry, and no capture is ever built for it
+                with self.lock:
+                    self.compiles += 1
+                    entry.host = True
+                    entry.pairs.append(pair)
+            return out
         t0 = time.perf_counter()
-        if device.type == "cuda":
+        if device.type == "cuda" and not host:
             pair = TrainPair.build(make_fn, params, inputs, in_req, device,
                                    generators)
         else:
@@ -729,7 +782,7 @@ class ExecutableCache:
             self.compiles += 1
             self.seconds += dt
             entry.pairs.append(pair)
-        return pair.apply(token, params, inputs)
+        return self._counted(lambda: pair.apply(token, params, inputs))[0]
 
     def _trim_locked(self, tok, keep) -> None:
         caps = [(lambda k: True, _env.get_int("MXNET_FUSED_CACHE_MAX"))]

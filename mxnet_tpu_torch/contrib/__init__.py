@@ -1,13 +1,16 @@
 """Contrib of the port: ``ndarray``/``nd`` and ``symbol``/``sym`` (the
-contrib op namespaces), ``quantization`` (int8 post-training
-quantization), ``deploy`` (artifacts for serving) and ``amp`` (mixed
-precision in bfloat16)."""
+contrib op namespaces and the control flow, ``foreach``, ``while_loop``
+and ``cond``), ``quantization`` (int8 post-training quantization),
+``deploy`` (artifacts for serving), ``amp`` (mixed precision in
+bfloat16) and ``onnx`` (ONNX export and import)."""
 from . import ndarray
 from . import ndarray as nd
 from . import symbol
 from . import symbol as sym
 from . import quantization
-from . import amp, deploy
+from . import amp, control_flow, deploy, onnx
+from .control_flow import cond, foreach, while_loop
 
 __all__ = ["ndarray", "nd", "symbol", "sym", "quantization", "amp",
-           "deploy"]
+           "deploy", "onnx", "control_flow", "foreach", "while_loop",
+           "cond"]

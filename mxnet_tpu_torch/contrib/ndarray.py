@@ -1,31 +1,14 @@
 """``mx.contrib.ndarray`` and ``mx.nd.contrib`` (counterpart of
 ``mxnet_tpu/contrib/ndarray.py``): the registry's ops under their contrib
-names, ``nd.contrib.X`` trying ``_contrib_X`` first and then ``X``.
-
-``cond``, ``foreach`` and ``while_loop`` (``contrib/control_flow.py`` in
-the JAX package) are not ported yet: they raise, naming their ROADMAP
-item."""
+names, ``nd.contrib.X`` trying ``_contrib_X`` first and then ``X``, and
+the control flow of ``contrib/control_flow.py`` (``cond``, ``foreach``,
+``while_loop``)."""
 from __future__ import annotations
 
-from ..base import MXNetError
 from ..ndarray import register as _register
+from .control_flow import cond, foreach, while_loop
 
 __all__ = ["cond", "foreach", "while_loop"]
-
-
-def _queued(name):
-    def fn(*args, **kwargs):
-        raise MXNetError(
-            f"contrib.{name} is not ported yet: ROADMAP queue A item 9 "
-            "(cut (c), contrib/control_flow.py) ports it")
-
-    fn.__name__ = fn.__qualname__ = name
-    return fn
-
-
-cond = _queued("cond")
-foreach = _queued("foreach")
-while_loop = _queued("while_loop")
 
 
 def __getattr__(name):

@@ -892,6 +892,8 @@ def _eval_symbol(outputs, feed, train, gen):
         kw = op_attrs(node)
         if node.op in TRAIN_AWARE_OPS:
             kw["train"] = train
+        elif node.op == "Custom":
+            kw["_train"] = train
         if node.op in KEYED_OPS:
             kw["generator"] = gen
         out = get_op(node.op).fn(*[env[(id(i), ix)] for i, ix in node.inputs],

@@ -2,7 +2,8 @@
 ``mxnet_tpu/ndarray/register.py``): one wrapper per registered op,
 made on first access, plus the frontends whose ops read the autograd
 state (Dropout's train flag and generator, BatchNorm's train flag and
-its in-place update of the moving statistics)."""
+its in-place update of the moving statistics) and ``Custom``, whose
+inputs may come by keyword."""
 from __future__ import annotations
 
 from typing import Callable, Dict
@@ -59,9 +60,27 @@ def BatchNorm(data, gamma, beta, moving_mean, moving_var, eps=1e-5,
     return out
 
 
+def Custom(*args, op_type=None, **kwargs):
+    """A registered CustomOpProp on NDArrays: positional inputs, then
+    NDArrays by keyword in the order of the prop's ``list_arguments``;
+    the other keyword arguments go to the prop."""
+    from ..ndarray.ndarray import NDArray
+    from ..operator import make_prop
+
+    named = {k: kwargs.pop(k) for k in list(kwargs)
+             if isinstance(kwargs[k], NDArray)}
+    prop = make_prop(dict(kwargs, op_type=op_type))
+    inputs = list(args) + [named.pop(n) for n in
+                           prop.list_arguments()[len(args):] if n in named]
+    if named:
+        raise MXNetError(f"Custom {op_type!r}: no argument "
+                         f"{sorted(named)} in {prop.list_arguments()}")
+    return invoke("Custom", *inputs, op_type=op_type, **kwargs)
+
+
 _SPECIAL: Dict[str, Callable] = {"Dropout": Dropout, "dropout": Dropout,
                                  "BatchNorm": BatchNorm,
-                                 "batch_norm": BatchNorm}
+                                 "batch_norm": BatchNorm, "Custom": Custom}
 
 
 def lookup(name: str):

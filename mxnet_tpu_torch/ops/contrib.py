@@ -913,3 +913,14 @@ register_op("_contrib_AdaptiveAvgPooling2D",
             aliases=("AdaptiveAvgPooling2D",))(adaptive_avg_pooling2d)
 register_op("_contrib_PSROIPooling", aliases=("PSROIPooling",))(
     psroi_pooling)
+
+
+def __getattr__(name: str):
+    """``F.contrib.foreach``/``while_loop``/``cond`` in a
+    ``hybrid_forward``: the control flow of ``contrib/control_flow.py``
+    on tensors (imported on first use)."""
+    if name in ("foreach", "while_loop", "cond"):
+        from ..contrib import control_flow
+
+        return getattr(control_flow, name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -124,13 +124,9 @@ _OPS: Dict[str, Operator] = {}
 # as the JAX package reads it
 _NAIVE = env.get_str("MXNET_ENGINE_TYPE") == "NaiveEngine"
 
-# The JAX package's op names the port does not register yet, under the
-# ROADMAP queue A item that ports them.
-_QUEUED_BY_ITEM = {
-    "9": ("Custom",),
-}
-QUEUED: Dict[str, str] = {n: item for item, names in _QUEUED_BY_ITEM.items()
-                          for n in names}
+# The JAX package's op names the port does not register yet, each under
+# the ROADMAP queue A item that ports it: none is left.
+QUEUED: Dict[str, str] = {}
 
 
 def register_op(name: str, *, num_outputs=1, differentiable: bool = True,

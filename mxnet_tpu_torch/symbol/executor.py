@@ -186,6 +186,8 @@ class GraphExecutor:
             kw = dict(attrs)
             if node.op in TRAIN_AWARE_OPS:
                 kw["train"] = train
+            elif node.op == "Custom":
+                kw["_train"] = train
             if node.op in KEYED_OPS:
                 kw["generator"] = gen
             out = op.fn(*ins, **kw)

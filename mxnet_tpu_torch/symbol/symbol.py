@@ -378,7 +378,14 @@ class Symbol:
                         var_shapes[inp.name] = tuple(rules[nm])
                         shapes[(id(inp), ix)] = var_shapes[inp.name]
             in_shapes = [shapes.get((id(i), ix)) for i, ix in node.inputs]
-            if any(s is None for s in in_shapes):
+            if node.op == "Custom":
+                in_shapes, outs = _custom_node_shapes(node, in_shapes)
+                for (inp, ix), shp in zip(node.inputs, in_shapes):
+                    if inp.op is None and shp is not None \
+                            and shapes.get((id(inp), ix)) is None:
+                        var_shapes[inp.name] = tuple(shp)
+                        shapes[(id(inp), ix)] = var_shapes[inp.name]
+            elif any(s is None for s in in_shapes):
                 outs = [None] * node.num_outputs
             else:
                 outs = _eval_node_shape(node, in_shapes)
@@ -397,9 +404,22 @@ class Symbol:
 
     def infer_type(self, *args, **kwargs):
         """float32 for every argument, output and aux state, as in the
-        JAX package."""
+        JAX package; a ``Custom`` node's outputs take the types its
+        prop's ``infer_type`` gives."""
+        from ..operator import make_prop
+
         f32 = np.float32
-        return ([f32] * len(self.list_arguments()), [f32] * len(self._heads),
+        types: Dict[Tuple[int, int], Any] = {}
+        for node in self._topo():
+            if node.op == "Custom":
+                _, outs, _ = make_prop(op_attrs(node)).infer_type(
+                    [types[(id(i), ix)] for i, ix in node.inputs])
+            else:
+                outs = [f32] * node.num_outputs
+            for i, t in enumerate(outs):
+                types[(id(node), i)] = t
+        return ([f32] * len(self.list_arguments()),
+                [types[(id(n), i)] for n, i in self._heads],
                 [f32] * len(self.list_auxiliary_states()))
 
     # ---- serialization ---------------------------------------------------
@@ -455,6 +475,29 @@ class Symbol:
         return self.bind(resolve(ctx), kwargs).forward()
 
 
+def _custom_node_shapes(node: _Node, in_shapes):
+    """A ``Custom`` node's (input shapes, output shapes) from its prop's
+    ``infer_shape``, which may also give the shapes of inputs not known
+    yet (a label's from the data's); the user's code never runs on
+    ``meta`` tensors.  Unknown stays None."""
+    from ..operator import make_prop
+
+    prop = make_prop(op_attrs(node))
+    unknown = [None] * node.num_outputs
+    if in_shapes and in_shapes[0] is None:
+        return in_shapes, unknown
+    arg = [None if s is None else list(s) for s in in_shapes]
+    if any(s is None for s in in_shapes):
+        try:
+            ins, outs, _ = prop.infer_shape(arg)
+        except (TypeError, IndexError):
+            return in_shapes, unknown
+    else:
+        ins, outs, _ = prop.infer_shape(arg)
+    ins = [tuple(s) if s is not None else None for s in ins]
+    return ins, [tuple(s) for s in outs]
+
+
 def _eval_node_shape(node: _Node, in_shapes):
     """The node's output shapes: its op run on fp32 ``meta`` tensors."""
     op = get_op(node.op)
@@ -497,6 +540,30 @@ def _apply(op_name: str, input_syms: List[Symbol], attrs: Dict[str, Any],
                            num_outputs=op.nout(attrs)))
 
 
+def _custom_inputs(node_name, args, kwargs):
+    """A ``Custom`` node's inputs and attributes: positional Symbols, then
+    Symbols by keyword in the order of the prop's ``list_arguments``; an
+    argument not given is made as the variable ``<node>_<argument>``
+    (the reference's ``softmax_label``)."""
+    from ..operator import make_prop
+
+    for a in args:
+        if not _is_sym(a):
+            raise TypeError(f"Custom: attributes must be passed by keyword "
+                            f"(got positional {a!r})")
+    named = {k: kwargs.pop(k) for k in list(kwargs) if _is_sym(kwargs[k])}
+    attrs = dict(kwargs)
+    arg_names = make_prop(attrs).list_arguments()
+    inputs = list(args)
+    for nm in arg_names[len(inputs):]:
+        inputs.append(named.pop(nm) if nm in named else Symbol(
+            [(_Node(None, f"{node_name}_{nm}", {}, []), 0)]))
+    if named:
+        raise MXNetError(f"Custom {attrs.get('op_type')!r}: no argument "
+                         f"{sorted(named)} in {arg_names}")
+    return inputs, attrs
+
+
 def make_symbol_function(op_name: str):
     """The ``sym.<op>`` function of a registered op: Symbols are graph
     inputs (a schema's missing parameters are made as variables named
@@ -510,7 +577,9 @@ def make_symbol_function(op_name: str):
 
     def fn(*args, name: Optional[str] = None, attr=None, **kwargs):
         node_name = name or _next_name(op.name.lower().lstrip("_"))
-        if schema is not None:
+        if op.name == "Custom":
+            sym_inputs, attrs = _custom_inputs(node_name, args, kwargs)
+        elif schema is not None:
             pos = []
             for a in args:
                 if not _is_sym(a):

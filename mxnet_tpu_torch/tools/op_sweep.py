@@ -440,6 +440,8 @@ for _n in ("ROIPooling roi_pooling _contrib_ROIPooling ROIAlign "
            "_contrib_AdaptiveAvgPooling2D boolean_mask _contrib_boolean_mask "
            "fft _contrib_fft ifft _contrib_ifft").split():
     ELSEWHERE[_n] = "phase 19 (b), (e) (R-CNN shapes, card against cpu)"
+ELSEWHERE["Custom"] = "phase 20 (b) (a user's op at ResNet-50's head, " \
+    "a hybridized block against the cpu)"
 for _n in ELSEWHERE:
     CASES[_n] = Case([], kind="elsewhere")
 

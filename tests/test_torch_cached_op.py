@@ -101,7 +101,7 @@ def test_builds_and_hits_per_signature(monkeypatch):
     assert _builds() - n0 == 6
     stats = tblock.cached_op_stats()
     assert set(stats) == {"count", "seconds_total", "cache_loads",
-                          "evictions", "size", "eager"}
+                          "evictions", "size", "eager", "custom_eager"}
     assert len(tblock._FWD_CACHE.entries(net)) >= 5
     with _graphs.no_capture():  # the eager path builds nothing
         _step(net, x)

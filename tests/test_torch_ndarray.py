@@ -282,10 +282,12 @@ def test_registry_refuses_unknown_ops_and_attributes():
     assert "broadcast_add" in registry.list_ops()
     with pytest.raises(MXNetError, match="no attribute 'bogus'"):
         mt.nd.negative(mt.nd.ones(2, ctx=CPU), bogus=1)
+    # Custom was the last JAX op name queued; an unknown name still raises
+    assert registry.get_op("Custom").name == "Custom" and mt.nd.Custom
     with pytest.raises(MXNetError, match="not ported"):
-        registry.get_op("Custom")
+        registry.get_op("no_such_op")
     with pytest.raises(AttributeError):
-        mt.nd.Custom
+        mt.nd.no_such_op
     # reference-style string attributes are coerced, as in the JAX package
     t = mt.nd.expand_dims(mt.nd.array(A, ctx=CPU), axis="1")
     _same(mx.nd.expand_dims(mx.nd.array(A), axis="1"), t)

@@ -472,9 +472,13 @@ def test_the_contrib_namespaces():
         mt.nd.contrib.no_such_op
     with pytest.raises(AttributeError, match="no contrib symbol op"):
         mt.sym.contrib.no_such_op
+    # the control flow is ported (contrib/control_flow.py)
     for name in ("foreach", "while_loop", "cond"):
-        with pytest.raises(MXNetError, match="queue A item 9"):
-            getattr(mt.nd.contrib, name)(None, None)
+        assert getattr(mt.nd.contrib, name) is getattr(
+            mt.contrib.control_flow, name)
+    assert mt.nd.contrib.cond(True, lambda: 1, lambda: 2) == 1
+    with pytest.raises(MXNetError, match="max_iterations"):
+        mt.nd.contrib.while_loop(lambda i: i, lambda i: (i, i), [None])
     x = mt.nd.array(np.arange(6, dtype=np.float32).reshape(3, 2),
                     ctx=tp.CPU)
     out = mt.nd.contrib.boolean_mask(

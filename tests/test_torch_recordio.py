@@ -217,6 +217,9 @@ def test_engine_orders_writes_and_shares_reads():
     eng.push(note("r"), read=[v], write=[w])
     eng.wait_for_var(w)
     assert log[:20] == [("w", i) for i in range(20)] and log[20] == "r"
+    # WaitForVar returns once the signal op's function has run, before the
+    # worker decrements the pending count: settle the engine first.
+    eng.wait_for_all()
     assert eng.var_version(v) == 20 and eng.num_pending() == 0
     with pytest.raises(MXNetError):
         eng.push(note("x"), read=[v], write=[v])

@@ -210,13 +210,31 @@ def test_every_jax_op_is_ported_or_queued():
     left = jax_names - port_names
     assert not left - set(treg.QUEUED), sorted(left - set(treg.QUEUED))
     assert set(treg.QUEUED) == left
-    assert treg.QUEUED == {"Custom": "9"}
-    assert len(port_names) == 424 and len(jax_names & port_names) == 423
+    assert treg.QUEUED == {}
+    assert len(port_names) == 425 and len(jax_names & port_names) == 424
     assert port_names - jax_names == {"reshape_like"}
 
 
-# the first four were queued under item 9 and are ported now: they resolve
-# and run; Custom stays queued
+def _register_halve():
+    """The same custom op in both packages: y = x / 2, dy = dx / 2."""
+    for pkg in (mx, mt):
+        class Halve(pkg.operator.CustomOp):
+            def forward(self, is_train, req, in_data, out_data, aux):
+                self.assign(out_data[0], req[0], in_data[0].asnumpy() / 2)
+
+            def backward(self, req, out_grad, in_data, out_data, in_grad,
+                         aux):
+                self.assign(in_grad[0], req[0], out_grad[0].asnumpy() / 2)
+
+        class HalveProp(pkg.operator.CustomOpProp):
+            def create_operator(self, ctx, shapes, dtypes, _op=Halve):
+                return _op()
+
+        pkg.operator.register("registry_halve")(HalveProp)
+
+
+# the five were queued under item 9 and are ported now: they resolve and
+# run through both registries on the same inputs
 _QUEUED_CASE_INPUTS = {
     "_contrib_quantize": ([np.array([0.5, -1.0], np.float32),
                            np.array([-1.0], np.float32),
@@ -231,6 +249,8 @@ _QUEUED_CASE_INPUTS = {
     "ROIAlign": ([np.ones((1, 1, 4, 4), np.float32),
                   np.array([[0, 0, 0, 2, 2]], np.float32)],
                  {"pooled_size": (2, 2)}),
+    "Custom": ([np.array([[1.0, -3.0, 0.5]], np.float32)],
+               {"op_type": "registry_halve"}),
 }
 
 
@@ -239,6 +259,8 @@ _QUEUED_CASE_INPUTS = {
                                        ("Proposal", "9"),
                                        ("Custom", "9"), ("ROIAlign", "9")])
 def test_a_queued_op_names_its_item(name, item):
+    if name == "Custom":
+        _register_halve()
     if name in _QUEUED_CASE_INPUTS:
         arrays, attrs = _QUEUED_CASE_INPUTS[name]
         assert treg.get_op(name).name == jreg.get_op(name).name
