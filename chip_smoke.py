@@ -324,8 +324,8 @@ Phases, each failing loudly (exit code 1, no result line):
    nadam, rmsprop plain and centred, ftrl, signum, signsgd, lamb, test)
    over the trained tensors of phase 8's ResNet-50 v1 (193, 25,575,912
    values; random from a seed), in bf16 with multi_precision and in
-   fp32: 3 updates of optimizer.FusedUpdater.update_all (the first runs
-   eagerly and captures, the next two replay) against 3 of the eager
+   fp32: 2 updates of optimizer.FusedUpdater.update_all (the first runs
+   eagerly and captures, the second replays) against 2 of the eager
    per-parameter Updater from the same state, bit for bit (weights,
    masters, states; one build), and the card's eager update against the
    port's CPU update of the same inputs: every fp32 tensor within 1e-5 of
@@ -469,7 +469,7 @@ Phases, each failing loudly (exit code 1, no result line):
    bf16 weight the master rounded; its ms against phase 5's captured
    step.  (f) the 21 zoo constructors besides ResNet V1 and MobileNet:
    fp32 eval forwards on the card within 2e-4 of max|CPU| of the CPU's
-   at batch 2, then bf16 at batch 32 (inception at 299²) hybridized, the
+   at batch 1, then bf16 at batch 32 (inception at 299²) hybridized, the
    captured forward's ms against eager; resnet50_v2 and vgg16 served through
    export_model -> ModelRepository -> InferenceServer, 8 requests each,
    within 2e-2 (relative L2) of the direct forward.  (g)
@@ -532,7 +532,7 @@ Phases, each failing loudly (exit code 1, no result line):
    float16, bfloat16 and float64 (K 300 and 1100; SSD's detection in
    float16 beside its float32 class ids).  (c) the
    ResNet-50 phase 11 trained, quantized by contrib.quantization
-   (53 convolutions and the FC; entropy calibration over 2 batches of 64,
+   (53 convolutions and the FC; entropy calibration over 1 batch of 64,
    naive if that takes over 60 s) and bound with sym.bind: 53
    convolution and 1 FC kernel launches a captured forward to the logits,
    each counted on its own, captured against eager bit for bit, its ms
@@ -586,6 +586,59 @@ Phases, each failing loudly (exit code 1, no result line):
    predicates, eagerly, under record() and in a hybridized block (an
    eager entry, counted), card against CPU within 1e-5.  It prints its
    seconds and one `custom_onnx: {...}` line.
+21. item9 (runtime, storage, initialize, rtc, the profiler, Monitor,
+   visualization, test_utils and the two NLP example scripts; no kernel
+   of its own; alone: `python -c "import chip_smoke as c; card =
+   c.phase_device(); c.phase_build(); c.phase_item9(card)"`, which
+   quantizes its own int8 forward when phase 19 did not run): (a)
+   runtime.Features()
+   (CUDA, CUDNN and NCCL on, DIST_KVSTORE off, the whole table printed),
+   storage.memory_info(gpu(0)) against torch.cuda.mem_get_info,
+   live_array_bytes up and down by a 256 MiB NDArray, storage.configure
+   refused after CUDA's initialisation, signal_handlers_enabled() against
+   MXNET_USE_SIGNAL_HANDLER, mx.rtc.CudaModule refused; a child process
+   with MXNET_GPU_MEM_POOL_RESERVE=25 and storage.configure(preallocate=
+   True) holds at its first CUDA use between half and 75% of the card
+   reserved, serves a half-card tensor without growing it, and is
+   refused 80% of the card.  (b) The
+   profiler: 5 rounds of 7 nd calls give dumps() rows of exactly 5 each
+   and a dump() of 35 events; start_xla_trace around 2 replays of phase
+   4's served batch-32 ResNet-50 forward (rebuilt from its seed and
+   captured) with the op records on: the trace names kernel 1 104 times
+   (also counted by replay) and holds none of start_xla_trace's warm-up
+   kernels, nothing is built again and the outputs
+   equal the untraced replay's bit for bit; then phase 19 (c)'s
+   captured int8 forward: its ms by CUDA events over 5 replays, the
+   device time of one traced replay by kernel name (shares only), and one
+   eager forward traced with each graph op in a profiler range, its
+   device time split into kernel 7, the rest of the int8 convolution's
+   wrapper (the activations' NCHW->NHWC permute, the weight layout),
+   quantize, requantize, dequantize and the rest.  (c) Module.fit of
+   phase 11's ResNet-50 symbol (seeded weights, 4 batches of 64, SGD as
+   phase 11) under cudnn.deterministic with Monitor(interval=2) and
+   without: the final weights bit for bit, the same builds, every stat
+   finite and equal to stat_func on the array read after its step;
+   print_summary's total against the inferred shapes and plot_network's
+   DOT holding every non-parameter node.  (d) test_utils.check_consistency
+   over [gpu(0), cpu(0)] (rtol 1e-4, atol 1e-4 of the case's largest
+   CPU magnitude; besides, one run on each context made the same way
+   gives each compared array's largest error, held to 2e-4 of that
+   array's largest magnitude): sym.FusedConvUnit's outputs (kernel 1)
+   and its nd form with the fused backward (kernels 1 and 2) at the 3x3
+   64->64 layer (N 4, 56x56, act_in, statistics), Convolution,
+   BatchNorm in training, LayerNorm and
+   softmax at ResNet-50's and BERT-base's shapes (BatchNorm's and
+   softmax's outputs projected on a fixed random tensor, since the
+   gradients of their plain sums are zero), dot_product_attention
+   at BERT-base's head shape in fp32 (kernel 5), each case's largest
+   error printed; check_numeric_gradient of FullyConnected -> tanh on
+   gpu(0).  (e) examples.bert_pretrain.main([]) (BERT-base, vocabulary
+   30,522, batch 8 x 128, 8 steps, fp32, fixed batch: the last loss below
+   the first) and examples.transformer_nmt.main(["--epochs", "1"])
+   (Transformer-base, batch 32, buckets 16-128, 6 steps) in process:
+   finite losses, every parameter and optimizer state on cuda:0, each
+   step's ms and tokens/s printed.  It prints its seconds and one
+   `item9: {...}` line.
 
 The compiled paths (mxnet_tpu_torch._graphs): every SPMDTrainer step on one
 device, every hybridized forward in inference and under record() (a
@@ -612,6 +665,9 @@ is then held against its eager path in the same call:
   9. BERT-base at dropout 0.1 and 0 (12 kernel-5 launches a step) and
      Transformer-base at dropout 0.1, as in 5, and with dropout two
      replays from two generator states give two losses.
+The fused ResNet-50 step of 5 and the dropout-0 BERT step of 9 then
+each replay once more with mx.profiler running: the same launches (52 +
+46, 12), no new build and no new graph.
 Each prints the captured and the eager ms, the idle share of each (one
 profiled call), the captures' seconds and the graph pools' GiB, beside
 the card's name and power limit.
@@ -2228,6 +2284,42 @@ def hold_captured_steps(tag, tr, batch, card, want, dropout=False):
     return res
 
 
+def profiled_step(tag, tr, batch, card, want):
+    """One more replay of `tr`'s captured step (hold_captured_steps
+    captured it) with the port's profiler (mx.profiler.start) running:
+    `want` kernel launches, no new build or capture, and the host op
+    records it took (a replay runs no op's Python)."""
+    from mxnet_tpu_torch import profiler
+    from mxnet_tpu_torch.parallel import spmd
+
+    torch.cuda.synchronize()
+    n0, g0 = spmd.step_compile_stats()["count"], len(tr.graphs())
+    reset_kernel_counts()
+    profiler.start()
+    try:
+        loss = tr.step(*batch)
+        torch.cuda.synchronize()
+    finally:
+        profiler.stop()
+    records = profiler.num_events()
+    d = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
+    os.makedirs(d, exist_ok=True)
+    profiler.dump(finished=True,
+                  filename=os.path.join(d, "chip_smoke_profiled_step.json"))
+    counts = {k: v for k, v in kernel_counts().items() if v}
+    built = spmd.step_compile_stats()["count"] - n0
+    graphs = len(tr.graphs()) - g0
+    finite = bool(torch.isfinite(loss.float()).all())
+    print(f"{tag} with mx.profiler on: launches {counts} (want {want}), new "
+          f"builds {built}, new graphs {graphs}, host op records {records}, "
+          f"loss finite {finite} [{card}]", flush=True)
+    if counts != want or built or graphs or not finite:
+        fail(f"{tag} with mx.profiler on: launches {counts} (want {want}), "
+             f"builds {built}, graphs {graphs}, finite {finite}")
+    return dict(launches=counts, builds=built, graphs=graphs,
+                host_records=records)
+
+
 def hold_moved_storage(tag, tr, batch, card):
     """load_parameters between two steps moves every parameter's storage:
     the next step builds a counted new capture, and that step and a
@@ -2701,6 +2793,9 @@ def phase_train(card):
     result["compiled"] = {"fused": hold_captured_steps(
         f"compiled: train bf16 batch {TRAIN_BATCH} fused", trainers[True],
         (xb, yb), card, {"k1": FWD_PER_STEP, "k2": BWD_PER_STEP})}
+    result["profiled"] = profiled_step(
+        f"compiled: train bf16 batch {TRAIN_BATCH} fused", trainers[True],
+        (xb, yb), card, {"k1": FWD_PER_STEP, "k2": BWD_PER_STEP})
     result["moved_storage"] = hold_moved_storage(
         f"compiled: train bf16 batch {TRAIN_BATCH} fused", trainers[True],
         (xb, yb), card)
@@ -4305,6 +4400,9 @@ def phase_transformer(card):
     res["bert_dropout0"]["compiled"] = hold_captured_steps(
         "compiled: bert-base pretrain dropout 0", tr, batch, card,
         {"k5": BERT_LAYERS})
+    res["bert_dropout0"]["profiled"] = profiled_step(
+        "compiled: bert-base pretrain dropout 0", tr, batch, card,
+        {"k5": BERT_LAYERS})
     KEEP["bert"]["dropout0"] = step0
     del step0, w0, batch, tr
     gc.collect()
@@ -5130,7 +5228,7 @@ def phase_symbolic(card, recs_att):
 # deferred shapes through Estimator.fit, the SSD example
 # ---------------------------------------------------------------------------
 
-KEEP = {}  # nets and batches of earlier phases that phase 12 reuses
+KEEP = {}  # nets and batches of earlier phases that later phases reuse
 MIRROR_BATCH = 256
 INFLIGHT_BATCH = 32
 SSD_GLUON_ARGS = ["--batch-size", "8", "--steps", "4"]
@@ -5498,7 +5596,8 @@ OPT_CASES = [("sgd", {"momentum": 0.9, "wd": 0.01}), ("sgd", {}),
              ("rmsprop", {}), ("rmsprop", {"centered": True}), ("ftrl", {}),
              ("signum", {"momentum": 0.9}), ("signsgd", {}), ("lamb", {}),
              ("test", {})]
-OPT_STEPS, OPT_TIMED = 3, 5   # steps held; captured updates timed after
+OPT_STEPS, OPT_TIMED = 2, 5   # steps held (3 before phase 21, the
+# script's time); captured updates timed after
 OPT_RESCALE = 0.5
 OPT_BOUND = 1e-5   # card vs CPU, of each fp32 tensor's largest magnitude
 LAMB_OPT = {"learning_rate": 1e-3, "multi_precision": True}
@@ -7104,7 +7203,7 @@ REMAT_STEPS = 3                   # (b): steps held bit for bit
 CKPT_AT, CKPT_MORE = 3, 2         # (c): steps before the save, after it
 ZERO_BATCH = TRAIN_BATCH           # (d): phase 6's shapes, 128 a rank
 ZERO_STEPS = 2
-ZOO_BATCH, ZOO_CHECK_BATCH = 32, 2
+ZOO_BATCH, ZOO_CHECK_BATCH = 32, 1  # 2 before phase 21 (the script's time)
 ZOO_BOUND = 2e-4                  # (f): fp32 card vs CPU, of max|CPU|
 ZOO_NEW = ("resnet18_v2", "resnet34_v2", "resnet50_v2", "resnet101_v2",
            "resnet152_v2", "vgg11", "vgg13", "vgg16", "vgg19", "vgg11_bn",
@@ -8109,7 +8208,7 @@ KERNEL_NMS = {"name": "greedy_nms", "route": "cuda",
               "replaces": "mxnet_tpu/ops/contrib.py:215 (lax.fori_loop; "
                           "no TPU kernel)"}
 Q_BATCH = 64
-Q_CALIB_BATCHES = 2
+Q_CALIB_BATCHES = 1      # 2 before phase 21 (the script's time)
 Q_FORWARDS = 3           # (c): captured int8 forwards of the counted run
 Q_CPU_ROWS = 8           # (c): eval images the CPU's quantized graph runs
 # (c): the card's int8 forward against the same graph and parameters on
@@ -8459,7 +8558,7 @@ def _same_qgraph(a, b):
 
 def quant_resnet(card, dev):
     """(c): the symbolic ResNet-50 phase 11 trained, quantized (53
-    convolutions and the FC) with entropy calibration over 2 batches of 64
+    convolutions and the FC) with entropy calibration over 1 batch of 64
     (naive beside it), its int8 logits captured against eager and against
     fp32; the same quantize_model calls on the CPU."""
     import numpy as np
@@ -8491,7 +8590,7 @@ def quant_resnet(card, dev):
     modes = ["entropy", "naive"]
     (qsym, qargs, qaux), args, aux, calib_s = quantize("entropy", dev)
     print(f"quant resnet50: quantize_model with entropy calibration over "
-          f"{Q_CALIB_BATCHES} batches of {Q_BATCH} took {calib_s:.1f} s "
+          f"{Q_CALIB_BATCHES} batch(es) of {Q_BATCH} took {calib_s:.1f} s "
           f"[{card}]", flush=True)
     if calib_s > Q_ENTROPY_LIMIT_S:
         print(f"quant resnet50: entropy calibration took over "
@@ -8553,6 +8652,7 @@ def quant_resnet(card, dev):
     ok = same and n_q == 54 and launches == {
         "conv": 53 * Q_FORWARDS, "fc": Q_FORWARDS} and bool(
         torch.isfinite(q).all())
+    KEEP["int8_forward"] = qexe  # phase 21 profiles its replay
     del qexe
     # each mode's call on the card against the same call on the CPU: the
     # graph node for node, the int8 weights bit for bit, naive's ranges
@@ -9657,6 +9757,727 @@ def phase_custom_onnx(card):
     return res
 
 
+# ---------------------------------------------------------------------------
+# phase 21: runtime, storage, initialize, rtc, the profiler and its device
+# trace, Monitor, visualization, test_utils, and the BERT and
+# Transformer-NMT example scripts
+# ---------------------------------------------------------------------------
+
+I9 = dict(live_mib=256, op_reps=5, trace_replays=2, fit_batch=64,
+          fit_batches=4, monitor_interval=2, int8_timed=5)
+I9_RTOL = 1e-4       # (d): check_consistency's rtol (the JAX default) ...
+I9_REL_ATOL = 1e-4   # ... and atol, of the case's largest |CPU|:
+# fp32 sums over 12,544 positions (a weight gradient at 56x56, N 4) move
+# by about 1e-5 of that magnitude between two summation orders
+I9_OPS = ("broadcast_add", "broadcast_mul", "relu", "dot", "softmax", "exp",
+          "sum")
+I9_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                      "chip_smoke_item9")
+I9_POOL_RESERVE = 25  # (a): the child's MXNET_GPU_MEM_POOL_RESERVE
+# (a): a process that keeps I9_POOL_RESERVE percent of the card out of the
+# caching allocator through the knob and preallocates the rest through
+# storage.configure, then makes one NDArray on the card
+I9_POOL_CHILD = """
+import json, torch
+from mxnet_tpu_torch import gpu, nd, storage
+storage.configure(preallocate=True)
+x = nd.ones((4,), ctx=gpu(0))
+total = torch.cuda.mem_get_info(0)[1]
+reserved = torch.cuda.memory_reserved(0)
+y = torch.empty(total // 2, dtype=torch.uint8, device="cuda:0")
+grown = torch.cuda.memory_reserved(0) - reserved
+del y
+try:
+    torch.empty(total * 4 // 5, dtype=torch.uint8, device="cuda:0")
+    refused = False
+except torch.OutOfMemoryError:
+    refused = True
+print(json.dumps(dict(total=total, reserved=reserved, grown=grown,
+                      refused=refused, x=float(x.sum().asscalar()))))
+"""
+
+
+def i9_runtime(card):
+    """(a): Features, memory_info against torch.cuda.mem_get_info,
+    live_array_bytes around a 256 MiB NDArray, configure after CUDA's
+    initialisation, the signal-handler knob, mx.rtc."""
+    from mxnet_tpu_torch import MXNetError, gpu, initialize, nd, rtc, runtime
+    from mxnet_tpu_torch import storage
+    from mxnet_tpu_torch.util import env
+
+    feats = {k: f.enabled for k, f in runtime.Features().items()}
+    mib = 1 << 20
+    free, total = storage.memory_info(gpu(0))
+    tfree, ttotal = torch.cuda.mem_get_info(0)
+    _, b0 = storage.live_array_bytes(gpu(0))
+    x = nd.zeros((I9["live_mib"] * mib // 4,), ctx=gpu(0))
+    _, b1 = storage.live_array_bytes(gpu(0))
+    del x
+    _, b2 = storage.live_array_bytes(gpu(0))
+    raised = {}
+    for what, call in (
+            ("configure", lambda: storage.configure(pool_reserve_pct=10)),
+            ("rtc", lambda: rtc.CudaModule(
+                'extern "C" __global__ void k() {}'))):
+        try:
+            call()
+            raised[what] = False
+        except MXNetError:
+            raised[what] = True
+    sig = initialize.signal_handlers_enabled()
+    knob = env.get_bool("MXNET_USE_SIGNAL_HANDLER")
+    t0 = time.perf_counter()
+    child = subprocess.run(
+        [sys.executable, "-c", I9_POOL_CHILD], capture_output=True,
+        text=True, timeout=300, cwd=os.path.dirname(os.path.abspath(__file__)),
+        env=dict(os.environ, MXNET_GPU_MEM_POOL_RESERVE=str(I9_POOL_RESERVE)))
+    pool = json.loads(child.stdout.strip().splitlines()[-1]) \
+        if child.returncode == 0 else {"rc": child.returncode,
+                                       "stderr": child.stderr[-2000:]}
+    pool["seconds"] = time.perf_counter() - t0
+    limit = (100 - I9_POOL_RESERVE) * ttotal // 100
+    pool_ok = (child.returncode == 0 and pool["total"] == ttotal
+               and ttotal // 2 <= pool["reserved"] <= limit
+               and pool["grown"] == 0 and pool["refused"] and pool["x"] == 4)
+    res = dict(features=feats, memory_info=(free, total),
+               mem_get_info=(tfree, ttotal), live_rise=b1 - b0,
+               live_fall=b1 - b2, raised=raised, signal_handlers=sig,
+               knob=knob, pool=pool)
+    print(f"item9 (a): Features {json.dumps(feats)}", flush=True)
+    print(f"item9 (a): memory_info(gpu(0)) free {free} / total {total} "
+          f"bytes, torch.cuda.mem_get_info {tfree} / {ttotal}; "
+          f"live_array_bytes +{(b1 - b0) / mib:.1f} MiB for a "
+          f"{I9['live_mib']} MiB NDArray, -{(b1 - b2) / mib:.1f} MiB after "
+          f"del; configure after CUDA init raised {raised['configure']}; "
+          f"rtc.CudaModule raised {raised['rtc']}; signal handlers {sig} "
+          f"(MXNET_USE_SIGNAL_HANDLER {knob}) [{card}]", flush=True)
+    print(f"item9 (a): a child with MXNET_GPU_MEM_POOL_RESERVE="
+          f"{I9_POOL_RESERVE} and storage.configure(preallocate=True) "
+          f"({pool['seconds']:.1f} s): {json.dumps(pool)}; reserved at its "
+          f"first CUDA use within [total / 2, {100 - I9_POOL_RESERVE}% of "
+          f"total = {limit}], a half-card tensor served from it, "
+          f"{4 / 5:.0%} of the card refused: {pool_ok} [{card}]", flush=True)
+    ok = (pool_ok and feats["CUDA"] and feats["CUDNN"] and feats["NCCL"]
+          and not feats["DIST_KVSTORE"] and total == ttotal
+          and abs(free - tfree) <= 2 * mib
+          and b1 - b0 >= I9["live_mib"] * mib
+          and b1 - b2 >= I9["live_mib"] * mib
+          and all(raised.values()) and sig == knob)
+    if not ok:
+        fail(f"item9 (a): {json.dumps(res, default=str)}")
+    return res
+
+
+def i9_trace_kernels(path):
+    """The events and the kernel events of a chrome trace written by
+    stop_xla_trace."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    return events, [e for e in events if e.get("cat") == "kernel"]
+
+
+@contextlib.contextmanager
+def i9_trace(name, out):
+    """profiler.start_xla_trace into I9_DIR/name around the work it
+    holds; out["path"] is the file stop_xla_trace wrote."""
+    from mxnet_tpu_torch import profiler
+
+    profiler.start_xla_trace(os.path.join(I9_DIR, name))
+    try:
+        yield
+    finally:
+        out["path"] = profiler.stop_xla_trace()
+
+
+def i9_by_range(events, kernels, prefix):
+    """{range name: its kernels} for the profiler ranges named prefix +
+    name: each kernel goes to the range its launch (the CUDA runtime or
+    driver call of the same correlation id) was issued in; "" holds the
+    kernels of no such range."""
+    import bisect
+
+    launch = {e["args"]["correlation"]: e["ts"] for e in events
+              if e.get("cat") in ("cuda_runtime", "cuda_driver")
+              and "correlation" in e.get("args", {})}
+    spans = sorted((e["ts"], e["ts"] + e["dur"], e["name"][len(prefix):])
+                   for e in events if e.get("cat") == "user_annotation"
+                   and e.get("name", "").startswith(prefix))
+    starts = [sp[0] for sp in spans]
+    out = {}
+    for k in kernels:
+        t = launch.get(k.get("args", {}).get("correlation"))
+        i = bisect.bisect_right(starts, t) - 1 if t is not None else -1
+        name = spans[i][2] if i >= 0 and t <= spans[i][1] else ""
+        out.setdefault(name, []).append(k)
+    return out
+
+
+@contextlib.contextmanager
+def i9_op_ranges(exe):
+    """Each op of a bound executor's graph runs inside a profiler range
+    named after it ("op::<name>"), for the device-time split of (b)."""
+    ops = {id(op): op for _, op, _ in exe._plan if op is not None}
+    saved = {k: op.fn for k, op in ops.items()}
+    for op in ops.values():
+        def ranged(*a, _fn=op.fn, _name=op.name, **kw):
+            with torch.profiler.record_function(f"op::{_name}"):
+                return _fn(*a, **kw)
+        op.fn = ranged
+    try:
+        yield
+    finally:
+        for k, op in ops.items():
+            op.fn = saved[k]
+
+
+def i9_split_by_op(events, kernels):
+    """Device ms of the int8 forward's kernels by the op they ran for:
+    kernel 7 apart from the rest of quantized_conv (the activations'
+    NCHW->NHWC permute and the weight layout), then quantize, requantize,
+    dequantize and the rest."""
+    split = {}
+    for op, ks in i9_by_range(events, kernels, "op::").items():
+        for k in ks:
+            if "int8_conv" in k["name"]:
+                cat = "kernel 7"
+            elif "requantize" in op:
+                cat = "requantize"
+            elif "dequantize" in op:
+                cat = "dequantize"
+            elif "quantized_conv" in op or "quantized_fully" in op:
+                cat = "int8 conv wrapper (permute, weight layout)"
+            elif "quantize" in op:
+                cat = "quantize"
+            else:
+                cat = "rest"
+            split[cat] = split.get(cat, 0.0) + k["dur"] / 1e3
+    return split
+
+
+def i9_int8_forward(dev):
+    """Phase 19 (c)'s captured int8 forward, or (phase 21 alone) phase
+    11's ResNet-50 from seeded weights quantized with naive calibration
+    over one batch of 64."""
+    exe = KEEP.pop("int8_forward", None)
+    if exe is not None:
+        return exe, "phase 19's"
+    from mxnet_tpu_torch import nd, sym
+    from mxnet_tpu_torch.contrib.quantization import quantize_model
+
+    net = resnet50_v1_sym(sym)
+    w_args, w_aux, _ = co_weights(net)
+    xs, _ = sym_images(Q_BATCH, 19)
+    args = {k: nd.array(v.numpy(), ctx=dev) for k, v in w_args.items()}
+    aux = {k: nd.array(v.numpy(), ctx=dev) for k, v in w_aux.items()}
+    qsym, qargs, qaux = quantize_model(net, args, aux, calib_mode="naive",
+                                       calib_data=[nd.array(xs, ctx=dev)])
+    exe = qsym.get_internals()["fc_output"].bind(
+        dev, dict(qargs, data=nd.array(xs, ctx=dev)), grad_req="null",
+        aux_states=qaux)
+    return exe, "seeded, naive"
+
+
+def i9_profiler(card, dev):
+    """(b): the op records of a fixed list of nd calls; the device trace
+    around phase 4's captured ResNet-50 forward (kernel 1 named 104
+    times) with the host records on; the int8 ResNet-50's device time by
+    kernel (one captured replay) and by op (one eager forward)."""
+    from mxnet_tpu_torch import _graphs as mxg
+    from mxnet_tpu_torch import nd, profiler
+    from mxnet_tpu_torch.gluon import block as gblock
+
+    os.makedirs(I9_DIR, exist_ok=True)
+    res = {}
+    profiler.set_config(filename=os.path.join(I9_DIR, "ops.json"))
+    gen = torch.Generator(device=dev).manual_seed(21)
+    a = nd.NDArray(torch.randn(1024, 1024, device=dev, generator=gen))
+    profiler.start()
+    for _ in range(I9["op_reps"]):
+        nd.exp(nd.softmax(nd.dot(nd.relu((a + a) * a), a))).sum()
+    profiler.stop()
+    torch.cuda.synchronize()
+    rows = {ln.split()[0]: int(ln.split()[1])
+            for ln in profiler.dumps(reset=True).splitlines()[1:]}
+    with open(profiler.dump(finished=True)) as f:
+        n_events = len(json.load(f)["traceEvents"])
+    ok = rows == {n: I9["op_reps"] for n in I9_OPS} \
+        and n_events == len(I9_OPS) * I9["op_reps"] \
+        and profiler.num_events() == 0
+    res["ops"] = dict(rows=rows, events=n_events)
+    print(f"item9 (b): {I9['op_reps']} x {len(I9_OPS)} nd calls on the "
+          f"card: dumps() rows {rows}; dump() JSON {n_events} events",
+          flush=True)
+
+    # phase 4's served net from its seed (a net kept on the card since
+    # phase 4 would change the allocator's layout under later phases'
+    # byte counts), captured anew
+    net = build_net("bfloat16", seed=0)
+    xb = torch.rand(BATCH, 224, 224, 3, generator=torch.Generator(
+        ).manual_seed(7)).to(dev, torch.bfloat16)
+    os.environ["MXNET_FUSED_CONVBN"] = "1"
+
+    def fwd():
+        with torch.inference_mode():
+            return net(xb)
+    ref = fwd()
+    fwd()
+    torch.cuda.synchronize()
+    builds0 = gblock.cached_op_stats()["count"]
+    reset_kernel_counts()
+    profiler.start()
+    trace, outs = {}, []
+    with i9_trace("served", trace):
+        for i in range(I9["trace_replays"]):
+            with torch.profiler.record_function(f"replay::{i}"):
+                outs.append(fwd())
+    path = trace["path"]
+    profiler.stop()
+    host_records = profiler.num_events()
+    profiler.dump(finished=True)
+    launches = kernel_counts()["k1"]
+    builds = gblock.cached_op_stats()["count"] - builds0
+    events, kern = i9_trace_kernels(path)
+    named = sum(1 for e in kern if "conv_unit_" in e["name"])
+    warm = sum(1 for e in kern if "spin_kernel" in e["name"])
+    per = {k: (len(v), sum(1 for e in v if "conv_unit_" in e["name"]))
+           for k, v in sorted(i9_by_range(events, kern,
+                                          "replay::").items())}
+    same = all(torch.equal(o, ref) for o in outs)
+    want = 52 * I9["trace_replays"]
+    res["served"] = dict(trace=path, k1_named=named, k1_launches=launches,
+                         builds=builds, host_records=host_records,
+                         identical=same, kernels=len(kern),
+                         by_replay=per, warm_up_kernels=warm)
+    print(f"item9 (b): start_xla_trace around {I9['trace_replays']} "
+          f"replays of phase 4's served resnet-50 bf16 batch {BATCH} "
+          f"forward (rebuilt from its seed, captured; host records on): "
+          f"{len(kern)} kernel events, kernel 1 named {named} times "
+          f"(counter {launches}, want {want}); (kernels, kernel 1) by "
+          f"replay {per} (\"\" = outside them); warm-up kernels left "
+          f"in the file {warm}; new builds {builds}; host op records "
+          f"during replays {host_records}; "
+          f"outputs bit for bit the untraced replay's {same} -> {path}",
+          flush=True)
+    ok = ok and named == want and launches == want and builds == 0 \
+        and same and warm == 0
+    del net, xb, outs, ref
+
+    qexe, qorigin = i9_int8_forward(dev)
+    qexe.forward()
+    torch.cuda.synchronize()
+    q_ms = time_ms(lambda: qexe.forward(), iters=I9["int8_timed"],
+                   warmup=1)
+    trace = {}
+    with i9_trace("int8", trace):
+        qexe.forward()
+    _, kern = i9_trace_kernels(trace["path"])
+    busy = sum(e["dur"] for e in kern) / 1e3
+    by_name = {}
+    for e in kern:
+        by_name[e["name"]] = by_name.get(e["name"], 0.0) + e["dur"] / 1e3
+    k7 = sum(v for k, v in by_name.items() if "int8_conv" in k)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    busy = busy or math.nan  # a trace without device time prints nan
+    print(f"item9 (b): {qorigin} int8 resnet-50 batch {Q_BATCH}: "
+          f"{q_ms:.2f} ms a captured forward (CUDA events over "
+          f"{I9['int8_timed']} replays); one traced replay: {len(kern)} "
+          f"kernels, {busy:.2f} ms device time (names and shares only, "
+          f"ROADMAP B item 6), kernel 7 {k7 / busy:.1%} [{card}]",
+          flush=True)
+    for k, v in top:
+        print(f"    {v / busy:6.1%} {v:8.3f} ms  {k[:100]}", flush=True)
+    with i9_op_ranges(qexe), mxg.no_capture():
+        qexe.forward()
+        torch.cuda.synchronize()
+        with i9_trace("int8_eager", trace):
+            qexe.forward()
+    events, kern = i9_trace_kernels(trace["path"])
+    split = i9_split_by_op(events, kern)
+    ebusy = sum(split.values()) or math.nan
+    print(f"item9 (b): the same forward eagerly, device time by op "
+          f"({ebusy:.2f} ms in {len(kern)} kernels): " + ", ".join(
+              f"{k} {v:.3f} ms ({v / ebusy:.1%})" for k, v in sorted(
+                  split.items(), key=lambda kv: -kv[1])) + f" [{card}]",
+          flush=True)
+    res["int8"] = dict(origin=qorigin, captured_ms=q_ms, replay_busy_ms=busy,
+                       kernel7_share=k7 / busy, top=top, eager_split=split,
+                       eager_busy_ms=ebusy)
+    ok = ok and k7 > 0 and all(k in split for k in (
+        "kernel 7", "quantize", "requantize", "dequantize"))
+    del qexe
+    if not ok:
+        fail(f"item9 (b): {json.dumps(res, default=str)}")
+    return res
+
+
+def i9_monitor(card, dev):
+    """(c): Module.fit of phase 11's ResNet-50 symbol (SGD as phase 11,
+    batch 64, 4 batches) under cudnn.deterministic with and without
+    Monitor(interval=2): final weights bit for bit, no more builds, every
+    stat finite and equal to stat_func on the array read right after its
+    step; print_summary's total and plot_network's nodes."""
+    import gc
+    import io as _io
+    import re
+
+    import numpy as np
+
+    from mxnet_tpu_torch import gpu, monitor, sym, visualization
+    from mxnet_tpu_torch.io import NDArrayIter
+    from mxnet_tpu_torch.module import Module
+    from mxnet_tpu_torch.ndarray import NDArray
+    from mxnet_tpu_torch.optimizer import fused
+
+    class Held(monitor.Monitor):
+        """Keeps toc's rows; after each tapped step, every stat against
+        stat_func applied to the executor's own array."""
+
+        def __init__(self, interval):
+            super().__init__(interval)
+            self.rows, self.held = [], []
+
+        def toc_print(self):
+            rows = self.toc()
+            if rows:
+                mod = self._modules[0]
+                ex = mod._exec_group.execs[0]
+                direct = dict(ex.arg_dict)
+                direct.update((n + "_grad", g) for n, g in
+                              zip(ex.arg_names, ex.grad_arrays)
+                              if g is not None)
+                direct.update(zip(mod.output_names, ex.outputs))
+                self.held.append(all(
+                    str(self.stat_func(direct[k]).asnumpy()) == v
+                    for _, k, v in rows))
+            self.rows.extend(rows)
+
+    net = resnet50_v1_sym(sym)
+    w_args, w_aux, origin = co_weights(net)
+    b = I9["fit_batch"]
+    x, y = co_images(b * I9["fit_batches"], 24)
+    runs = {}
+    det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        for tag in ("plain", "monitored"):
+            mon = Held(I9["monitor_interval"]) if tag == "monitored" \
+                else None
+            mod = Module(net, context=gpu(0))
+            e0 = sym.executor_stats()["count"]
+            f0 = fused.compile_stats()["count"]
+            t0 = time.perf_counter()
+            mod.fit(NDArrayIter(x, y, batch_size=b, shuffle=False),
+                    num_epoch=1, optimizer="sgd",
+                    optimizer_params=dict(SYM_OPT, rescale_grad=1.0 / b),
+                    arg_params={k: NDArray(v) for k, v in w_args.items()},
+                    aux_params={k: NDArray(v) for k, v in w_aux.items()},
+                    monitor=mon)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            wa, wx = mod.get_params()
+            runs[tag] = dict(
+                seconds=secs, mon=mon,
+                builds=(sym.executor_stats()["count"] - e0,
+                        fused.compile_stats()["count"] - f0),
+                weights={k: v._data.clone() for k, v in
+                         list(wa.items()) + list(wx.items())})
+            del mod, wa, wx
+            gc.collect()
+    finally:
+        torch.backends.cudnn.deterministic = det
+    mon = runs["monitored"]["mon"]
+    wp, wm = runs["plain"]["weights"], runs["monitored"]["weights"]
+    same = sorted(wp) == sorted(wm) and all(torch.equal(wp[k], wm[k])
+                                            for k in wp)
+    finite = bool(mon.rows) and all(np.isfinite(float(v))
+                                    for _, _, v in mon.rows)
+    steps = sorted({n for n, _, _ in mon.rows})
+    n_params = sum(1 for n in net.list_arguments()
+                   if n not in ("data", "softmax_label"))
+    rows_ok = len(mon.rows) == len(steps) * (2 * n_params + 1) \
+        and steps == [1, 3]
+    builds = {t: r["builds"] for t, r in runs.items()}
+    res = dict(weights=origin, seconds={t: r["seconds"]
+                                        for t, r in runs.items()},
+               builds=builds, identical=same, finite=finite,
+               rows=len(mon.rows), steps=steps, held=mon.held)
+    print(f"item9 (c): resnet50_v1 symbol ({origin} weights) Module.fit, "
+          f"{I9['fit_batches']} batches of {b}, cudnn.deterministic: "
+          f"{runs['plain']['seconds']:.2f} s plain, "
+          f"{runs['monitored']['seconds']:.2f} s with "
+          f"Monitor(interval={I9['monitor_interval']}) ({len(mon.rows)} "
+          f"stats at steps {steps}, all finite {finite}, equal to stat_func "
+          f"on the array read after the step {mon.held}); final weights "
+          f"bit for bit {same}; builds (executor, update) {builds} "
+          f"[{card}]", flush=True)
+    ok = same and finite and rows_ok and mon.held == [True, True] \
+        and builds["monitored"] == builds["plain"]
+
+    shape = {"data": (b, 3, 224, 224)}
+    buf = _io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        visualization.print_summary(net, shape=shape)
+    m = re.search(r"Total params: (\d+)", buf.getvalue())
+    total = int(m.group(1)) if m else None
+    arg_shapes, _, aux_shapes = net.infer_shape(**shape)
+    sizes = {n: int(np.prod(s)) for n, s in
+             zip(net.list_arguments() + net.list_auxiliary_states(),
+                 arg_shapes + aux_shapes)}
+    trained = sum(sizes[n] for n in net.list_arguments()
+                  if n not in ("data", "softmax_label"))
+    want = sum(v for n, v in sizes.items() if n != "data")
+    dot = visualization.plot_network(net, title="resnet50_v1")
+    dot = dot if isinstance(dot, str) else dot.source
+    nodes = json.loads(net.tojson())["nodes"]
+    shown = [n["name"] for n in nodes if n["op"] != "null" or not
+             n["name"].endswith(("_weight", "_bias", "_gamma", "_beta",
+                                 "_moving_mean", "_moving_var", "_label"))]
+    missing = [n for n in shown if f'"{n}" [label=' not in dot]
+    res["summary"] = dict(total=total, want=want, trained=trained,
+                          dot_nodes=len(shown), missing=missing)
+    print(f"item9 (c): print_summary total {total} (the inferred shapes' "
+          f"parameters, moving statistics and label: {want}; trained "
+          f"parameters {trained:,}); plot_network DOT ({len(dot)} chars) "
+          f"has all {len(shown)} non-parameter nodes: {not missing}",
+          flush=True)
+    ok = ok and total == want and trained == 25_557_032 and not missing
+    if not ok:
+        fail(f"item9 (c): {json.dumps(res, default=str)}")
+    return res
+
+
+def i9_card_cpu(f, loc, grad):
+    """The arrays check_consistency compares, from one run on gpu(0) and
+    one on cpu(0) made the same way (the outputs and, with `grad`, the
+    inputs' gradients of outs[0].sum() in training mode): each array's
+    largest |card - CPU| over its largest |CPU|, and the largest |CPU| of
+    them all."""
+    import numpy as np
+
+    from mxnet_tpu_torch import autograd, cpu, gpu, nd
+    from mxnet_tpu_torch import test_utils as tu
+
+    runs = []
+    for ctx in (gpu(0), cpu(0)):
+        args = [nd.array(a, ctx=ctx) for a in loc]
+        if grad:
+            for a in args:
+                a.attach_grad()
+            with autograd.record():
+                outs, _ = tu._run_forward(f, args, train=True)
+                loss = outs[0].sum()
+            loss.backward()
+            arrays = outs + [a.grad for a in args if a.grad is not None]
+        else:
+            arrays = tu._run_forward(f, args)[0]
+        runs.append([tu._as_numpy(a).astype(np.float64) for a in arrays])
+    errs, scale = [], 0.0
+    for a, b in zip(*runs):
+        mag = float(np.abs(b).max()) if b.size else 0.0
+        d = float(np.abs(a - b).max()) if b.size else 0.0
+        errs.append(d / mag if mag else d)
+        scale = max(scale, mag)
+    return errs, scale
+
+
+def i9_consistency(card):
+    """(d): check_consistency over [gpu(0), cpu(0)] at ResNet-50 and
+    BERT-base shapes (kernels 1, 2 and 5 against their plain versions on
+    the CPU), check_numeric_gradient on gpu(0)."""
+    import numpy as np
+
+    from mxnet_tpu_torch import cpu, gpu, nd, sym
+    from mxnet_tpu_torch import test_utils as tu
+
+    rng = np.random.default_rng(25)
+
+    def r(*shape, loc=0.0, scale=1.0):
+        return (loc + scale * rng.standard_normal(shape)).astype(np.float32)
+
+    n, hw, c = 4, 56, 64
+    he = (2.0 / (9 * c)) ** 0.5
+    unit = dict(kernel=(3, 3), pad=(1, 1), act_in=True, want_stats=True)
+
+    def unit_loc():
+        return [r(n, hw, hw, c), r(c, c, 3, 3, scale=he),
+                r(c, loc=1.0, scale=0.1), r(c, scale=0.1)]
+
+    # BatchNorm's and softmax's outputs sum to constants of gamma, beta
+    # and the input, so their gradients under check_consistency's head,
+    # outs[0].sum(), are zero up to rounding: these cases project their
+    # output on a fixed random tensor first
+    proj_bn, proj_sm = r(n, 256, hw, hw), r(8, 12, 128, 128)
+
+    def bn(x, g, bb):
+        ch = x.shape[1]
+        y = nd.BatchNorm(x, g, bb, nd.zeros(ch, ctx=x.ctx),
+                         nd.ones(ch, ctx=x.ctx))
+        return y * nd.array(proj_bn, ctx=x.ctx)
+
+    def softmax(x):
+        return nd.softmax(x) * nd.array(proj_sm, ctx=x.ctx)
+    cases = [
+        # a symbol's executor takes its gradients inside the training
+        # forward, which check_consistency does not compare: its outputs
+        # only, from the inference forward (kernel 1)
+        ("FusedConvUnit (sym)", sym.FusedConvUnit(
+            sym.var("data"), sym.var("weight"), sym.var("in_scale"),
+            sym.var("in_bias"), sym.var("shift"), **unit),
+         unit_loc() + [r(c, scale=0.1)], False, {"k1"}),
+        ("FusedConvUnit (nd, backward)",
+         lambda x, w, s, bb: nd.FusedConvUnit(x, w, s, bb, **unit),
+         unit_loc(), True, {"k1", "k2"}),
+        ("Convolution", lambda x, w: nd.Convolution(
+            x, w, kernel=(3, 3), pad=(1, 1), num_filter=c, no_bias=True),
+         [r(n, c, hw, hw), r(c, c, 3, 3, scale=he)], True, set()),
+        ("BatchNorm (train)", bn, [r(n, 256, hw, hw), r(256, loc=1.0,
+                                                          scale=0.1),
+                                   r(256, scale=0.1)], True, set()),
+        ("LayerNorm", lambda x, g, bb: nd.LayerNorm(x, g, bb),
+         [r(8, 128, 768), r(768, loc=1.0, scale=0.1), r(768, scale=0.1)],
+         True, set()),
+        ("softmax", softmax, [r(8, 12, 128, 128)], True, set()),
+        ("dot_product_attention", lambda q, k, v: nd.dot_product_attention(
+            q, k, v, num_heads=12), [r(4, 128, 768) for _ in range(3)],
+         True, {"k5"}),
+    ]
+    res, ok = {}, True
+    bwd = os.environ.get("MXNET_FUSED_CONVBN_BWD")
+    os.environ["MXNET_FUSED_CONVBN_BWD"] = "1"
+    try:
+        for tag, f, loc, grad, want in cases:
+            errs, scale = i9_card_cpu(f, loc, grad)
+            atol = I9_REL_ATOL * scale
+            reset_kernel_counts()
+            try:
+                tu.check_consistency(f, [gpu(0), cpu(0)], loc, rtol=I9_RTOL,
+                                     atol=atol, grad=grad)
+                passed = True
+            except AssertionError as e:
+                passed = False
+                print(f"item9 (d): {tag}: {e}", flush=True)
+            counts = {k: v for k, v in kernel_counts().items() if v}
+            worst = max(errs)
+            res[tag] = dict(passed=passed, worst=worst, compared=len(errs),
+                            atol=atol, launches=counts)
+            print(f"item9 (d): check_consistency {tag} [gpu(0), cpu(0)] at "
+                  f"{[a.shape for a in loc]} (rtol {I9_RTOL}, atol {atol:.3g}"
+                  f" = {I9_REL_ATOL} of the CPU's largest magnitude): passed "
+                  f"{passed}; of {len(errs)} arrays the largest error "
+                  f"{worst:.3g} of that array's largest |CPU| (bound "
+                  f"{I9_RTOL + I9_REL_ATOL}); card launches {counts} "
+                  f"[{card}]", flush=True)
+            ok = ok and passed and worst <= I9_RTOL + I9_REL_ATOL \
+                and set(counts) == want
+    finally:
+        if bwd is None:
+            del os.environ["MXNET_FUSED_CONVBN_BWD"]
+        else:
+            os.environ["MXNET_FUSED_CONVBN_BWD"] = bwd
+    np.random.seed(26)
+    try:
+        tu.check_numeric_gradient(
+            lambda x, w, bb: nd.tanh(nd.FullyConnected(x, w, bb,
+                                                       num_hidden=6)),
+            [r(4, 8), r(6, 8, scale=0.3), r(6, scale=0.1)], ctx=gpu(0))
+        passed = True
+    except AssertionError as e:
+        passed = False
+        print(f"item9 (d): check_numeric_gradient: {e}", flush=True)
+    res["numeric_gradient"] = dict(passed=passed)
+    print(f"item9 (d): check_numeric_gradient FullyConnected -> tanh on "
+          f"gpu(0) (its rtol 1e-2): passed {passed} [{card}]", flush=True)
+    ok = ok and passed
+    if not ok:
+        fail(f"item9 (d): {json.dumps(res, default=str)}")
+    return res
+
+
+def i9_state_tensors(tree):
+    from mxnet_tpu_torch.ndarray import NDArray
+
+    if isinstance(tree, NDArray):
+        return [tree._data]
+    if isinstance(tree, torch.Tensor):
+        return [tree]
+    if isinstance(tree, (list, tuple)):
+        return [t for s in tree for t in i9_state_tensors(s)]
+    if isinstance(tree, dict):
+        return [t for s in tree.values() for t in i9_state_tensors(s)]
+    return []
+
+
+def i9_examples(card, dev):
+    """(e): examples/bert_pretrain.py at its defaults (BERT-base, batch 8
+    x 128, 8 steps, fp32) and examples/transformer_nmt.py for one epoch
+    (Transformer-base, batch 32, buckets 16-128, 6 steps), in process."""
+    import gc
+
+    from mxnet_tpu_torch.examples import bert_pretrain, transformer_nmt
+
+    res, ok = {}, True
+    for tag, script, argv, steps in (
+            ("bert_pretrain", bert_pretrain, [], 8),
+            ("transformer_nmt", transformer_nmt, ["--epochs", "1"], 6)):
+        t0 = time.perf_counter()
+        out = script.main(argv)
+        secs = time.perf_counter() - t0
+        params = [p.data()._data for p in out["net"].collect_params(
+            ).values()]
+        states = i9_state_tensors(out["trainer"]._updater.states)
+        on_card = all(t.device == dev for t in params + states)
+        losses = out["losses"]
+        finite = len(losses) == steps and all(math.isfinite(v)
+                                              for v in losses)
+        tok = out["tokens_per_s"]
+        res[tag] = dict(seconds=secs, losses=losses, step_ms=out["step_ms"],
+                        tokens_per_s=tok, params=len(params),
+                        states=len(states), on_card=on_card, finite=finite)
+        print(f"item9 (e): {tag} {' '.join(argv)}: {len(losses)} steps in "
+              f"{secs:.1f} s, losses {['%.4f' % v for v in losses]}, ms a "
+              f"step {['%.1f' % v for v in out['step_ms']]}, tokens/s {tok}; "
+              f"{len(params)} parameters and {len(states)} optimizer state "
+              f"tensors all on {dev}: {on_card} [{card}]", flush=True)
+        ok = ok and on_card and finite and bool(states)
+        if tag == "bert_pretrain":
+            ok = ok and losses[-1] < losses[0]
+        del out, params, states
+        gc.collect()
+        torch.cuda.empty_cache()
+    if not ok:
+        fail(f"item9 (e): {json.dumps(res, default=str)}")
+    return res
+
+
+def phase_item9(card):
+    """Phase 21: (a) runtime, storage, initialize, rtc; (b) the profiler
+    and its device trace; (c) Monitor and visualization at ResNet-50's
+    width; (d) test_utils on the card; (e) the example scripts."""
+    import gc
+
+    dev = torch.device("cuda", 0)
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    marks = [("start", t0)]
+    res = {}
+    for part, fn in (("a", lambda: i9_runtime(card)),
+                     ("b", lambda: i9_profiler(card, dev)),
+                     ("c", lambda: i9_monitor(card, dev)),
+                     ("d", lambda: i9_consistency(card)),
+                     ("e", lambda: i9_examples(card, dev))):
+        res[part] = fn()
+        marks.append((part, time.perf_counter()))
+        gc.collect()
+        torch.cuda.empty_cache()
+    res["seconds"] = time.perf_counter() - t0
+    print(f"item9: phase 21 took {res['seconds']:.1f} s ("
+          + ", ".join(f"{b[0]} {b[1] - a[1]:.1f} s"
+                      for a, b in zip(marks, marks[1:])) + ")", flush=True)
+    print(f"item9: {json.dumps(res, default=str)}", flush=True)
+    return res
+
+
 def attention_path_summary(kernel, path, rows, launches, batch):
     """The `kernels` record of kernel 5 on one phase-9 path: each check
     record in `rows` (record, launches) weighted by its launches in one
@@ -9743,6 +10564,7 @@ def main():
     img = phase_imagenet(card, train_res)
     _, quant_kernels = phase_quant(card)
     phase_custom_onnx(card)
+    phase_item9(card)
     dec_steps = tf_res["decode"]["steps"]
     dp_keys = dict(backend=dp_res.get("backend"), ranks=DP)
     # kernel 1 once for each main path (its shapes and launches), kernel 2

@@ -33,7 +33,11 @@ over the native decode pipeline (``lib``, built from ``native/`` with
 g++), the record and folder datasets and ``tools/im2rec.py`` (see
 ``examples/imagenet_train.py``); slice 23 adds user-defined operators
 (``operator``, the ``Custom`` op), ``contrib.foreach``/``while_loop``/
-``cond`` and ``contrib.onnx``.
+``cond`` and ``contrib.onnx``; slice 24 adds ``profiler`` (op records
+and a CUDA device trace), ``monitor`` (``Module.install_monitor``),
+``visualization``, ``test_utils``, ``runtime``, ``storage``,
+``initialize`` and ``rtc`` (see ``examples/bert_pretrain.py`` and
+``examples/transformer_nmt.py``).
 """
 from __future__ import annotations
 
@@ -60,8 +64,15 @@ from . import module as mod
 from . import contrib, rnn
 from . import image, lib, recordio
 from . import operator
+from . import profiler, storage
+from . import monitor, rtc, runtime, test_utils, visualization
+from . import monitor as mon
+from . import visualization as viz
+from . import initialize as _initialize
 from .attribute import AttrScope
 from .ndarray import waitall
+
+_initialize.initialize()
 
 __all__ = ["MXNetError", "Context", "context", "cpu", "gpu", "tpu",
            "cpu_pinned", "cpu_shared", "num_gpus", "current_context",
@@ -71,4 +82,6 @@ __all__ = ["MXNetError", "Context", "context", "cpu", "gpu", "tpu",
            "optimizer", "random", "gluon", "attribute", "AttrScope",
            "callback", "io", "lr_scheduler", "model", "name", "symbol",
            "sym", "module", "mod", "contrib", "rnn", "image", "lib",
-           "recordio", "operator", "waitall"]
+           "recordio", "operator", "profiler", "storage", "monitor", "mon",
+           "rtc", "runtime", "test_utils", "visualization", "viz",
+           "waitall"]

@@ -12,7 +12,6 @@ from typing import List
 
 from .. import metric as metric_mod
 from .. import ndarray as nd
-from ..base import MXNetError
 from ..callback import BatchEndParam
 from ..ndarray.ndarray import NDArray
 
@@ -145,18 +144,19 @@ class BaseModule:
             monitor=None):
         """The train loop: bind, init_params (Uniform(0.01) by default),
         init_optimizer, then per batch forward_backward, update and the
-        metric, per epoch the callbacks and the validation score."""
+        metric (between ``monitor.tic()`` and ``monitor.toc_print()``
+        when a monitor is given), per epoch the callbacks and the
+        validation score."""
         assert num_epoch is not None, "please specify number of epochs"
         from .. import initializer as init_mod
 
-        if monitor is not None:
-            raise MXNetError("monitor.py and Module.install_monitor are "
-                             "not ported (ROADMAP queue A item 9)")
         if initializer is None:
             initializer = init_mod.Uniform(0.01)
         self.bind(data_shapes=train_data.provide_data,
                   label_shapes=train_data.provide_label, for_training=True,
                   force_rebind=force_rebind)
+        if monitor is not None:
+            self.install_monitor(monitor)
         self.init_params(initializer=initializer, arg_params=arg_params,
                          aux_params=aux_params, allow_missing=allow_missing,
                          force_init=force_init)
@@ -170,9 +170,13 @@ class BaseModule:
             eval_metric.reset()
             train_data.reset()
             for nbatch, data_batch in enumerate(train_data):
+                if monitor is not None:
+                    monitor.tic()
                 self.forward_backward(data_batch)
                 self.update()
                 self.update_metric(eval_metric, data_batch.label)
+                if monitor is not None:
+                    monitor.toc_print()
                 param = BatchEndParam(epoch=epoch, nbatch=nbatch,
                                       eval_metric=eval_metric,
                                       locals=locals())
@@ -195,6 +199,9 @@ class BaseModule:
                 for name, val in res:
                     self.logger.info("Epoch[%d] Validation-%s=%f", epoch,
                                      name, val)
+
+    def install_monitor(self, mon):
+        raise NotImplementedError
 
     def save_params(self, fname: str):
         """The parameters as ``arg:``/``aux:`` entries of a ``.params``

@@ -241,8 +241,9 @@ class Module(BaseModule):
         self._exec_group.update_metric(eval_metric, labels)
 
     def install_monitor(self, mon):
-        raise MXNetError("monitor.py and Module.install_monitor are not "
-                         "ported (ROADMAP queue A item 9)")
+        """Tap this module's parameters, gradients and head outputs with
+        ``mon`` (a ``monitor.Monitor``) after each step."""
+        mon.install(self)
 
     def reshape(self, data_shapes, label_shapes=None):
         """Bind again for new shapes, keeping the parameters."""

@@ -9,7 +9,8 @@ the generated ``nd`` namespace and NDArray's operators reach it.
 with PyTorch's grad mode on exactly when ``autograd.is_recording()`` (and
 the op is differentiable), and wraps the results.  There is no per-op
 executable cache and no ``grad_fn``: PyTorch runs eagerly and
-``torch.autograd`` records the ops.
+``torch.autograd`` records the ops.  While ``profiler`` runs, each call
+is one host-dispatch record (``profiler.profile_op``).
 """
 from __future__ import annotations
 
@@ -19,6 +20,7 @@ from typing import Any, Callable, Dict, List, Sequence
 
 import torch
 
+from .. import profiler as _profiler
 from ..base import MXNetError
 from ..util import env
 
@@ -193,7 +195,12 @@ def invoke(op_name: str, *inputs, **attrs):
     attrs = op.validate_attrs(attrs)
     with torch.set_grad_enabled(op.differentiable
                                 and autograd.is_recording()):
-        out = op.fn(*tensors, **attrs)
+        # the profiler's hook: one predicate check while it is off
+        if _profiler._running:
+            with _profiler.profile_op(op.name):
+                out = op.fn(*tensors, **attrs)
+        else:
+            out = op.fn(*tensors, **attrs)
     if _NAIVE:
         from .. import engine
 

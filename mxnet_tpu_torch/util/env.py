@@ -264,12 +264,11 @@ _QUEUED_KNOBS_BY_ITEM = {
     "7": ("MXNET_KVSTORE_TIMEOUT", "MXNET_SPMD", "MXNET_SPMD_BUCKET_BYTES",
           "MXNET_COMM_QUANT", "MXNET_COMM_QUANT_EF",
           "MXNET_COMM_QUANT_MIN_SIZE", "MXNET_COMM_OVERLAP"),
-    "9": ("MXNET_TEST_DEFAULT_CONTEXT", "MXNET_USE_SIGNAL_HANDLER"),
-    # production layers: memory pool, the kernel-choice and compile
-    # caches, autotune, resilience and observability
-    "10": ("MXNET_GPU_MEM_POOL_RESERVE", "MXNET_PALLAS_INTERPRET",
-           "MXNET_PALLAS_PROBE_BUDGET", "MXNET_USE_PALLAS",
-           "MXNET_COMPILE_CACHE_BYTES", "MXNET_COMPILE_CACHE_DIR",
+    # production layers: the kernel-choice and compile caches, autotune,
+    # resilience and observability
+    "10": ("MXNET_PALLAS_INTERPRET", "MXNET_PALLAS_PROBE_BUDGET",
+           "MXNET_USE_PALLAS", "MXNET_COMPILE_CACHE_BYTES",
+           "MXNET_COMPILE_CACHE_DIR",
            "MXNET_COMPILE_CACHE_DISABLE", "MXNET_COMPILE_CACHE_OPS",
            "MXNET_OP_CACHE_MAX", "MXNET_AUTOTUNE", "MXNET_AUTOTUNE_DIR",
            "MXNET_AUTOTUNE_SCENARIO", "MXNET_AUTOTUNE_TRIAL_TIMEOUT_S",
@@ -293,8 +292,8 @@ _QUEUED_KNOBS_BY_ITEM = {
            "MXNET_HEALTH_RING", "MXNET_HEALTH_SPIKE_K",
            "MXNET_HEALTH_WINDOW", "MXNET_IR_AUDIT", "MXNET_IR_OUT",
            "MXNET_IR_REPL_BYTES", "MXNET_IR_WIRE_TOL",
-           "MXNET_PROFILER_AUTOSTART", "MXNET_SAN", "MXNET_SAN_OUT",
-           "MXNET_SAN_SUPPRESS", "MXNET_TELEMETRY", "MXNET_MXPROF",
+           "MXNET_SAN", "MXNET_SAN_OUT", "MXNET_SAN_SUPPRESS",
+           "MXNET_TELEMETRY", "MXNET_MXPROF",
            "MXNET_MXPROF_RING", "MXNET_MXPROF_HBM_EVERY",
            "MXNET_MXPROF_DUMP", "MXNET_TRIAGE_DIR", "MXNET_TRIAGE_SECONDS",
            "MXNET_TRIAGE_ALERT_INTERVAL_S", "MXNET_TRIAGE_STEP_TIMEOUT_S",
@@ -330,6 +329,22 @@ declare("MXNET_DEFAULT_CONTEXT", str, None,
         "Force the default device context ('cpu' or 'gpu'). Default is "
         "computed: gpu(0) when CUDA is present; without CUDA there is no "
         "default and current_context() raises.")
+declare("MXNET_GPU_MEM_POOL_RESERVE", int, None,
+        "Percent of each card's memory kept out of the caching "
+        "allocator (reference spelling): storage sets "
+        "torch.cuda.set_per_process_memory_fraction((100 - r) / 100) at "
+        "the process's first CUDA use. Unset = no limit.")
+
+# -- library init, profiling, tests -----------------------------------------
+declare("MXNET_USE_SIGNAL_HANDLER", bool, True,
+        "Install faulthandler crash signal handlers at import (ref: "
+        "src/initialize.cc).")
+declare("MXNET_PROFILER_AUTOSTART", bool, False,
+        "Start the chrome-trace profiler at import (ref: "
+        "MXNET_PROFILER_AUTOSTART).")
+declare("MXNET_TEST_DEFAULT_CONTEXT", str, "",
+        "Test-suite context override: 'gpu' or 'cpu' "
+        "(ref: test_utils.default_context).")
 
 # -- training ---------------------------------------------------------------
 declare("MXNET_BACKWARD_DO_MIRROR", bool, False,

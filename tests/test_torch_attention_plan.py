@@ -169,7 +169,11 @@ def test_the_port_modules_import_no_jax():
                 "contrib/quantization.py", "contrib/ndarray.py",
                 "contrib/symbol.py", "examples/quantize_model.py",
                 "operator.py", "ops/custom.py", "contrib/control_flow.py",
-                "contrib/onnx/__init__.py", "contrib/onnx/proto.py"):
+                "contrib/onnx/__init__.py", "contrib/onnx/proto.py",
+                "initialize.py", "runtime.py", "storage.py", "rtc.py",
+                "profiler.py", "monitor.py", "visualization.py",
+                "test_utils.py", "examples/bert_pretrain.py",
+                "examples/transformer_nmt.py"):
         for name in _imports(pkg / rel):
             assert not name.startswith(("jax", "mxnet_tpu.")) \
                 and name != "mxnet_tpu", (rel, name)
@@ -210,7 +214,13 @@ def test_the_port_modules_import_no_jax():
             "mxnet_tpu_torch.ops.quantized_conv, "
             "mxnet_tpu_torch.contrib.quantization, "
             "mxnet_tpu_torch.contrib.ndarray, mxnet_tpu_torch.contrib.symbol, "
-            "mxnet_tpu_torch.examples.quantize_model; "
+            "mxnet_tpu_torch.examples.quantize_model, "
+            "mxnet_tpu_torch.initialize, mxnet_tpu_torch.runtime, "
+            "mxnet_tpu_torch.storage, mxnet_tpu_torch.rtc, "
+            "mxnet_tpu_torch.profiler, mxnet_tpu_torch.monitor, "
+            "mxnet_tpu_torch.visualization, mxnet_tpu_torch.test_utils, "
+            "mxnet_tpu_torch.examples.bert_pretrain, "
+            "mxnet_tpu_torch.examples.transformer_nmt; "
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'mxnet_tpu.')) or m == 'mxnet_tpu']; "
             "print(bad); sys.exit(1 if bad else 0)")

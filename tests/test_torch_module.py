@@ -284,8 +284,9 @@ def test_several_contexts_and_unported_parts_raise():
     with pytest.raises(MXNetError, match="queue A item 7"):
         TModule(mlp(tmx.sym), context=[tmx.cpu(0), tmx.cpu(1)])
     mod = TModule(mlp(tmx.sym), context=CPU_T)
-    with pytest.raises(MXNetError, match="queue A item 9"):
-        mod.install_monitor(None)
+    mon = tmx.monitor.Monitor(1)
+    mod.install_monitor(mon)
+    assert mon._modules == [mod]
     with pytest.raises(MXNetError, match="queue A item 7"):
         tmx.kv.create("dist_sync")
     import torch

@@ -329,7 +329,11 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                 "contrib/quantization.py", "contrib/ndarray.py",
                 "contrib/symbol.py", "examples/quantize_model.py",
                 "operator.py", "ops/custom.py", "contrib/control_flow.py",
-                "contrib/onnx/__init__.py", "contrib/onnx/proto.py"):
+                "contrib/onnx/__init__.py", "contrib/onnx/proto.py",
+                "initialize.py", "runtime.py", "storage.py", "rtc.py",
+                "profiler.py", "monitor.py", "visualization.py",
+                "test_utils.py", "examples/bert_pretrain.py",
+                "examples/transformer_nmt.py"):
         assert pkg / rel in files, rel
     for f in files:
         for mod in _imports(f):
