@@ -592,7 +592,7 @@ Phases, each failing loudly (exit code 1, no result line):
    c.phase_device(); c.phase_build(); c.phase_item9(card)"`, which
    quantizes its own int8 forward when phase 19 did not run): (a)
    runtime.Features()
-   (CUDA, CUDNN and NCCL on, DIST_KVSTORE off, the whole table printed),
+   (CUDA, CUDNN, NCCL and DIST_KVSTORE on, the whole table printed),
    storage.memory_info(gpu(0)) against torch.cuda.mem_get_info,
    live_array_bytes up and down by a 256 MiB NDArray, storage.configure
    refused after CUDA's initialisation, signal_handlers_enabled() against
@@ -639,6 +639,35 @@ Phases, each failing loudly (exit code 1, no result line):
    finite losses, every parameter and optimizer state on cuda:0, each
    step's ms and tokens/s printed.  It prints its seconds and one
    `item9: {...}` line.
+22. MXNet's data-parallel API (ROADMAP queue A item 7, cut (a); no
+   kernel of its own; alone: `python -c "import chip_smoke as c; card =
+   c.phase_device(); c.phase_build(); c.phase_kvstore(card)"`).  (a) Two
+   ranks started by the port's launcher (`mxnet_tpu_torch/tools/launch.py
+   -n 2 --launcher local`; gloo with both on
+   cuda:0 on one card, NCCL on cuda:0..1 on two or more) train
+   full-width ResNet-50 v1 (fused, bf16, NHWC, a rank's batch 32, SGD lr
+   0.1, momentum 0.9, wd 1e-4, build_net's seeded weights) through
+   gluon.Trainer(kvstore='dist_sync') in five cases, one warm-up and 2
+   counted steps each, in the same two processes: the update on the
+   store (the default), update_on_kvstore=False (pushpull_fused),
+   spmd=True (ZeRO-1, each rank half of every large state), 2-bit
+   compression (threshold 0.5), spmd=True with MXNET_COMM_QUANT=int8 and
+   error feedback.  Per case a rank's ms a step (and their spread), its
+   launches of kernels 1 and 2 (52 + 46 a step), its optimizer-state and
+   residual bytes.  This process then computes each case's reference on
+   the card from the same weights and half-batches: each half's forward
+   and backward apart, the two gradients summed (each through the plain
+   2-bit or int8 round trip, with its residual, where the case has one),
+   one eager SGD update (and the int8 weight leg); every weight bit for
+   bit the reference's, each rank's running statistics bit for bit its
+   half's, the ranks' weights bit-identical, and cases 1-3 bit for bit
+   each other.  (b) Replicas in one process: with two or more cards,
+   ResNet-50 on [gpu(0), gpu(1)] through split_and_load and
+   Trainer(kvstore='device') bit for bit (a)'s pushpull_fused weights;
+   with one card, examples/mnist.py's MLP on [gpu(0), cpu(0)] within
+   1e-5 relative L2 of the same steps on [cpu(0), cpu(1)].  It prints
+   its seconds (limit 90 s) and one `kvstore: {...}` line; kernels 1 and
+   2 are then checked at the per-rank shapes (N = 32, with statistics).
 
 The compiled paths (mxnet_tpu_torch._graphs): every SPMDTrainer step on one
 device, every hybridized forward in inference and under record() (a
@@ -687,7 +716,9 @@ kernels 1 and 2 under phase 17's remat, ZeRO at dp = 2 and
 multi_precision steps and on phase 18's ImageNet-format training; the
 int8 kernel on phase 19's quantized ResNet-50 (its convolutions and its
 FC) and the NMS kernel on SSD's detection at both caps and on
-MultiProposal), from the checks at that path's shapes; the last line is
+MultiProposal; kernels 1 and 2 on a rank of phase 22's
+gluon.Trainer(kvstore='dist_sync') step), from the checks at that path's
+shapes; the last line is
 {"ok": true, "device": {"platform": "gpu", ...}}.
 """
 from __future__ import annotations
@@ -9858,7 +9889,7 @@ def i9_runtime(card):
           f"total = {limit}], a half-card tensor served from it, "
           f"{4 / 5:.0%} of the card refused: {pool_ok} [{card}]", flush=True)
     ok = (pool_ok and feats["CUDA"] and feats["CUDNN"] and feats["NCCL"]
-          and not feats["DIST_KVSTORE"] and total == ttotal
+          and feats["DIST_KVSTORE"] and total == ttotal
           and abs(free - tfree) <= 2 * mib
           and b1 - b0 >= I9["live_mib"] * mib
           and b1 - b2 >= I9["live_mib"] * mib
@@ -10478,6 +10509,593 @@ def phase_item9(card):
     return res
 
 
+# ---------------------------------------------------------------------------
+# phase 22: MXNet's data-parallel API — gluon.Trainer(kvstore='dist_sync')
+# ---------------------------------------------------------------------------
+
+KV_BATCH = 32          # a rank's images
+KV_STEPS = 2           # timed steps a case, after one warm-up
+KV_TIMEOUT = 240.0     # s, the ranks' whole run, their start included
+KV_SECONDS = 90.0      # the phase's limit (ranks, reference, (b))
+KV_2BIT = 0.5
+# case -> (Trainer keywords besides kvstore='dist_sync', environment)
+KV_CASES = {
+    "update_on_kvstore": ({}, {}),
+    "pushpull_fused": ({"update_on_kvstore": False}, {}),
+    "spmd": ({"spmd": True, "update_on_kvstore": False}, {}),
+    "2bit": ({"compression_params": {"type": "2bit",
+                                     "threshold": KV_2BIT}}, {}),
+    "spmd_int8": ({"spmd": True, "update_on_kvstore": False},
+                  {"MXNET_COMM_QUANT": "int8", "MXNET_COMM_QUANT_EF": "1"}),
+}
+KV_EXACT = ("update_on_kvstore", "pushpull_fused", "spmd")
+KV_MNIST_STEPS = 5
+KV_MNIST_BOUND = 1e-5  # (b) one card: rel L2 of the weights, card vs CPU
+
+
+def kv_batch(dev):
+    """Phase 22's global batch: DP ranks x KV_BATCH images, seeded."""
+    gen = torch.Generator().manual_seed(22)
+    x = torch.rand(DP * KV_BATCH, 224, 224, 3, generator=gen)
+    y = torch.randint(0, 1000, (DP * KV_BATCH,), generator=gen)
+    return x.to(dev, torch.bfloat16), y.to(dev)
+
+
+def kv_snapshot(net):
+    return {k: v.detach().clone() for k, v in net.state_dict().items()}
+
+
+def kv_restore(net, snap):
+    with torch.no_grad():
+        for k, v in net.state_dict().items():
+            v.copy_(snap[k])
+
+
+def kv_is_stat(k):
+    return k.endswith(("running_mean", "running_var"))
+
+
+def kv_gluon_step(net, trainer, x, y):
+    """One step of MXNet's loop on a rank's half-batch; the gradients
+    are rescaled by the global batch, as the sum runs over the ranks."""
+    from mxnet_tpu_torch import autograd, gluon
+
+    loss_fn = gluon.loss.SoftmaxCrossEntropyLoss()
+    with autograd.record():
+        loss = loss_fn(net(x), y)
+    loss.backward()
+    trainer.step(DP * KV_BATCH)
+
+
+def kv_tree_bytes(s):
+    if s is None:
+        return 0
+    if isinstance(s, (tuple, list)):
+        return sum(kv_tree_bytes(x) for x in s)
+    t = getattr(s, "_data", s)
+    return t.numel() * t.element_size()
+
+
+def kv_state_bytes(tr):
+    """The optimizer-state bytes this rank holds (fp32 masters included)
+    and, apart, the bytes of the residuals of compression or of
+    MXNET_COMM_QUANT's error feedback."""
+    u = tr._spmd_updater
+    if u is not None:
+        res = sum(x.numel() * x.element_size() for pairs in
+                  u._qstate.values() for pr in pairs for x in pr)
+        return dict(state_bytes=u.state_bytes(local=True),
+                    residual_bytes=res, shard_factor=u.shard_factor())
+    upd = tr._kvstore._updater if tr._update_on_kvstore else tr._updater
+    comp = tr._kvstore._compression
+    res = sum(r.numel() * r.element_size()
+              for r in comp._residual.values()) if comp else 0
+    return dict(state_bytes=sum(kv_tree_bytes(s) for k, s in
+                                upd.states.items() if not isinstance(k, str)),
+                residual_bytes=res, shard_factor=1)
+
+
+def kv_plan(tr):
+    u = tr._spmd_updater
+    return dict(indices=list(u._plan_indices), nshard=u.nshard,
+                buckets=[dict(pos=list(b.pos), offsets=list(b.offsets),
+                              sizes=list(b.sizes), total=b.total)
+                         for b in u._plan.buckets])
+
+
+def kv_rank(out_dir, backend, devices):
+    """One rank of phase 22, started by the port's tools/launch.py (its
+    rank from DMLC_WORKER_ID): full-width ResNet-50 v1 fused, bf16, from
+    build_net's seeded weights, trained on its half of the global batch
+    through gluon.Trainer(kvstore='dist_sync') in each case of KV_CASES:
+    one warm-up, then KV_STEPS steps with the launch counters reset just
+    before and read just after; ms a step, launches, state bytes; rank 0
+    saves its weights and statistics, rank 1 its statistics and the
+    digests of its weights."""
+    from mxnet_tpu_torch import gluon, nd, parallel
+
+    rank = int(os.environ["DMLC_WORKER_ID"])
+    dev = torch.device(devices[rank])
+    torch.cuda.set_device(dev)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    parallel.dist.init(backend=backend, timeout=DP_COLLECTIVE_TIMEOUT)
+    set_knobs(True, True)
+    net = build_net("bfloat16", 0, dev)
+    snap = kv_snapshot(net)
+    xg, yg = kv_batch(dev)
+    half = slice(rank * KV_BATCH, (rank + 1) * KV_BATCH)
+    x, y = nd.NDArray(xg[half].contiguous()), nd.NDArray(yg[half].contiguous())
+    res = {"rank": rank, "cases": {}}
+    for name, (kw, env) in KV_CASES.items():
+        os.environ.update(env)
+        kv_restore(net, snap)
+        tr = gluon.Trainer(net.collect_params(), "sgd", dict(TRAIN_OPT),
+                           kvstore="dist_sync", **kw)
+        kv_gluon_step(net, tr, x, y)
+        torch.cuda.synchronize()
+        reset_kernel_counts()
+        ms = []
+        for _ in range(KV_STEPS):
+            t0 = time.perf_counter()
+            kv_gluon_step(net, tr, x, y)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+        counts = kernel_counts()
+        rec = dict(ms=ms, fwd=counts["k1"], bwd=counts["k2"],
+                   spmd=tr._spmd_updater is not None,
+                   on_kvstore=bool(tr._update_on_kvstore),
+                   kvstore=tr._kvstore.type,
+                   workers=tr._kvstore.num_workers, **kv_state_bytes(tr))
+        if tr._spmd_updater is not None:
+            rec["plan"] = kv_plan(tr)
+        state = {k: v.detach().cpu() for k, v in net.state_dict().items()}
+        rec["digest"] = {k: tensor_digest(v) for k, v in state.items()
+                         if not kv_is_stat(k)}
+        keep = state if rank == 0 else {k: v for k, v in state.items()
+                                        if kv_is_stat(k)}
+        torch.save(keep, os.path.join(out_dir, f"{name}.rank{rank}.pt"))
+        res["cases"][name] = rec
+        print(f"kvstore rank {rank} {name}: ms a step "
+              f"{[round(m, 2) for m in ms]}, launches {rec['fwd']}/"
+              f"{rec['bwd']}, state {rec['state_bytes']} B (residuals "
+              f"{rec['residual_bytes']} B, split {rec['shard_factor']} "
+              f"ways)", flush=True)
+        for k in env:
+            os.environ.pop(k, None)
+        del tr
+        parallel.dist.barrier()
+    parallel.dist.shutdown()
+    res["jax_imported"] = sorted(m for m in sys.modules
+                                 if m == "jax" or m.startswith("jax.")
+                                 or m.split(".")[0] == "mxnet_tpu")
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(res, f)
+    return 1 if FAILURES or res["jax_imported"] else 0
+
+
+def kv_launch(out_dir, backend, devices):
+    """The ranks, started as an MXNet user starts a dist job: the port's
+    tools/launch.py -n DP --launcher local (which ends every rank when one
+    fails; run by its path, so the launcher itself imports no torch);
+    killed, with every process of its session, at KV_TIMEOUT.  Returns
+    the launcher's exit code (None: timed out)."""
+    import signal
+
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith("DMLC_")}
+    here = os.path.dirname(os.path.abspath(__file__))
+    cmd = [sys.executable, os.path.join(here, "mxnet_tpu_torch", "tools",
+                                        "launch.py"), "-n",
+           str(DP), "--launcher", "local", sys.executable,
+           os.path.abspath(__file__), "--kv-rank", "--dp-dir", out_dir,
+           "--dp-backend", backend, "--dp-devices", ",".join(devices)]
+    log_path = os.path.join(out_dir, "launch.log")
+    with open(log_path, "w") as log:
+        p = subprocess.Popen(cmd, env=env, cwd=here, stdout=log,
+                             stderr=subprocess.STDOUT,
+                             start_new_session=True)
+        try:
+            rc = p.wait(timeout=KV_TIMEOUT)
+        except subprocess.TimeoutExpired:
+            rc = None
+        finally:
+            try:
+                os.killpg(p.pid, signal.SIGKILL)
+            except ProcessLookupError:
+                pass
+            p.wait()
+    with open(log_path) as f:
+        for line in f.read().splitlines()[-200:]:
+            print(f"  [launch] {line}", flush=True)
+    return rc
+
+
+def kv_plain_int8(x):
+    """The plain int8 round trip of MXNET_COMM_QUANT: per row of ``x``
+    (fp32), per block of 512, scale max|.| / 127, round to nearest even,
+    clip to +-127, times the scale.  The scale divides by a tensor: on
+    the card a Python scalar divides through its reciprocal, which is
+    not the JAX package's division."""
+    rows, n = x.shape
+    nb = -(-n // 512)
+    xb = F.pad(x, (0, nb * 512 - n)).reshape(rows, nb, 512)
+    scale = torch.clamp_min(xb.abs().amax(dim=-1, keepdim=True), 1e-30) \
+        / torch.tensor(127.0, dtype=torch.float32, device=x.device)
+    q = torch.clamp(torch.round(xb / scale), -127.0, 127.0)
+    return (q * scale).reshape(rows, nb * 512)[:, :n]
+
+
+def kv_padded_cat(tensors, sizes):
+    return torch.cat([F.pad(t.reshape(-1), (0, s - t.numel()))
+                      for t, s in zip(tensors, sizes)]).float()
+
+
+def kv_reference_sum(case, grads, train, state, plan):
+    """The gradient sum of one step, plainly: the two halves added, or
+    each rank's plain 2-bit codes (its residual per key) summed in rank
+    order, or each rank's bucket rows through the plain int8 round trip
+    (its residual per bucket) summed in rank order."""
+    out = {i: grads[0][i] + grads[1][i] for i, _ in train}
+    if case == "2bit":
+        for i, _ in train:
+            total = None
+            for r in range(DP):
+                acc = grads[r][i].float().reshape(-1) \
+                    + state.get(("2bit", r, i), 0.0)
+                sent = torch.where(acc >= KV_2BIT, KV_2BIT,
+                                   torch.where(acc <= -KV_2BIT, -KV_2BIT,
+                                               0.0))
+                state[("2bit", r, i)] = acc - sent
+                total = sent if total is None else total + sent
+            out[i] = total.view(grads[0][i].shape).to(grads[0][i].dtype)
+    elif case == "spmd_int8":
+        idx = plan["indices"]
+        for bi, b in enumerate(plan["buckets"]):
+            keys = [idx[p] for p in b["pos"]]
+            total = None
+            for r in range(DP):
+                row = kv_padded_cat([grads[r][i] for i in keys], b["sizes"])
+                acc = row + state.get(("g", bi, r), 0.0)
+                dec = kv_plain_int8(acc[None])[0]
+                state[("g", bi, r)] = acc - dec
+                total = dec if total is None else total + dec
+            for i, off in zip(keys, b["offsets"]):
+                g = grads[0][i]
+                out[i] = total[off:off + g.numel()].view(g.shape).to(g.dtype)
+    return out
+
+
+def kv_reference_weights(plan, weights, old, state):
+    """The int8 weight leg, plainly: each shard's block of a bucket's
+    delta to the old weights (plus its residual) through the plain int8
+    round trip, added to the old weights."""
+    idx = plan["indices"]
+    for bi, b in enumerate(plan["buckets"]):
+        keys = [idx[p] for p in b["pos"]]
+        old_flat = kv_padded_cat([old[i] for i in keys], b["sizes"])
+        new_flat = kv_padded_cat([weights[i] for i in keys], b["sizes"])
+        acc = (new_flat - old_flat).view(plan["nshard"], -1) \
+            + state.get(("w", bi), 0.0)
+        dec = kv_plain_int8(acc)
+        state[("w", bi)] = acc - dec
+        full = old_flat + dec.reshape(-1)
+        with torch.no_grad():
+            for i, off in zip(keys, b["offsets"]):
+                w = weights[i]
+                w.copy_(full[off:off + w.numel()].view(w.shape))
+
+
+def kv_reference(net, snap, xg, yg, case, plan):
+    """What the two ranks compute, in this process on the same weights
+    and half-batches: each half's forward and backward apart (each with
+    its rank's running statistics), the plain sum of the two gradients
+    (kv_reference_sum), one eager SGD update, for the warm-up and the
+    KV_STEPS steps.  Returns (weights, [statistics of each half])."""
+    from mxnet_tpu_torch import autograd, gluon, nd
+    from mxnet_tpu_torch import optimizer as opt_mod
+    from mxnet_tpu_torch.gluon.parameter import _unique
+
+    kv_restore(net, snap)
+    params = _unique(list(net.collect_params().values()))
+    train = [(i, p) for i, p in enumerate(params) if p.grad_req != "null"]
+    sd = net.state_dict()
+    stat_keys = [k for k in sd if kv_is_stat(k)]
+    stats = [{k: sd[k].clone() for k in stat_keys} for _ in range(DP)]
+    opt = opt_mod.create("sgd", param_dict=dict(enumerate(params)),
+                         **TRAIN_OPT)
+    opt.rescale_grad = 1.0 / (DP * KV_BATCH)
+    upd = opt_mod.Updater(opt)
+    loss_fn = gluon.loss.SoftmaxCrossEntropyLoss()
+    state = {}
+    for _ in range(1 + KV_STEPS):
+        grads = []
+        for r in range(DP):
+            with torch.no_grad():
+                for k in stat_keys:
+                    sd[k].copy_(stats[r][k])
+            half = slice(r * KV_BATCH, (r + 1) * KV_BATCH)
+            x = nd.NDArray(xg[half].contiguous())
+            y = nd.NDArray(yg[half].contiguous())
+            with autograd.record():
+                loss = loss_fn(net(x), y)
+            loss.backward()
+            grads.append({i: p.grad()._data.clone() for i, p in train})
+            stats[r] = {k: sd[k].clone() for k in stat_keys}
+        g = kv_reference_sum(case, grads, train, state, plan)
+        old = {i: p.data()._data.clone() for i, p in train}
+        for i, p in train:
+            upd(i, nd.NDArray(g[i]), p.data())
+        if case == "spmd_int8":
+            kv_reference_weights(plan, {i: p.data()._data for i, p in train},
+                                 old, state)
+    weights = {k: v.detach().clone() for k, v in net.state_dict().items()
+               if not kv_is_stat(k)}
+    return weights, stats
+
+
+def kv_compare(got, want, base):
+    """(bit-identical tensors, tensors, max |got - want|, rel L2 of the
+    difference to the update want - base)."""
+    same = sum(torch.equal(got[k], want[k].cpu()) for k in want)
+    diff = max(float((got[k].float() - want[k].cpu().float()).abs().max())
+               for k in want)
+    num = sum(float((got[k].float() - want[k].cpu().float()).square().sum())
+              for k in want)
+    den = sum(float((want[k].cpu().float() - base[k].cpu().float())
+                    .square().sum()) for k in want)
+    return same, len(want), diff, math.sqrt(num / max(den, 1e-30))
+
+
+def kv_replicas_card(card, ranks_w):
+    """(b) with DP cards: ResNet-50 on [gpu(0), gpu(1)] in this process,
+    split_and_load and Trainer(kvstore='device') on the same weights and
+    batches, held against the ranks' pushpull_fused weights."""
+    from mxnet_tpu_torch import autograd, gluon, gpu, init, nd
+    from mxnet_tpu_torch.gluon.model_zoo import vision
+
+    ctx = [gpu(r) for r in range(DP)]
+    net = vision.resnet50_v1(classes=1000, layout="NHWC")
+    net.initialize(init.Xavier(), ctx=ctx, seed=0)
+    net.cast("bfloat16")
+    net.hybridize()
+    tr = gluon.Trainer(net.collect_params(), "sgd", dict(TRAIN_OPT))
+    xg, yg = kv_batch(torch.device("cuda", 0))
+    loss_fn = gluon.loss.SoftmaxCrossEntropyLoss()
+    reset_kernel_counts()
+    for _ in range(1 + KV_STEPS):
+        xs = gluon.utils.split_and_load(nd.NDArray(xg), ctx)
+        ys = gluon.utils.split_and_load(nd.NDArray(yg), ctx)
+        with autograd.record():
+            losses = [loss_fn(net(a), b) for a, b in zip(xs, ys)]
+        for loss in losses:
+            loss.backward()
+        tr.step(DP * KV_BATCH)
+    torch.cuda.synchronize()
+    counts = kernel_counts()
+    got = [{k: d._data.detach().cpu() for k, p in net.collect_params().items()
+            for d in [p.list_data()[r]] if not kv_is_stat(k)}
+           for r in range(DP)]
+    rows = [kv_compare(g, ranks_w, ranks_w) for g in got]
+    ok = all(r[0] == r[1] for r in rows)
+    print(f"kvstore (b): ResNet-50 on {ctx} through Trainer(kvstore="
+          f"'device'), {1 + KV_STEPS} steps: each replica's weights bit for "
+          f"bit the dist ranks' pushpull_fused weights on "
+          f"{[r[0] for r in rows]} of {rows[0][1]} tensors (max |diff| "
+          f"{max(r[2] for r in rows):.3g}); launches {counts['k1']}/"
+          f"{counts['k2']} [{card}]", flush=True)
+    if not ok:
+        fail(f"kvstore (b): replicas differ from the dist ranks: {rows}")
+    return dict(ran="resnet50_two_cards", identical=ok,
+                launches=[counts["k1"], counts["k2"]])
+
+
+def kv_replicas_mnist(card):
+    """(b) with one card: the MNIST example's MLP on [gpu(0), cpu(0)]
+    (split_and_load, Trainer(kvstore='device'): the sum on the card, each
+    replica's update on its device) against the same steps on [cpu(0),
+    cpu(1)], from the same seeded weights and batches."""
+    import numpy as np
+
+    import mxnet_tpu_torch as mt
+    from mxnet_tpu_torch import autograd, gluon
+    from mxnet_tpu_torch.examples import mnist
+
+    rs = np.random.RandomState(22)
+    xs_np = rs.rand(KV_MNIST_STEPS, 100, 784).astype(np.float32)
+    ys_np = rs.randint(0, 10, (KV_MNIST_STEPS, 100)).astype(np.float32)
+    loss_fn = gluon.loss.SoftmaxCrossEntropyLoss()
+    out = {}
+    for tag, ctx in (("card", [mt.gpu(0), mt.cpu(0)]),
+                     ("cpu", [mt.cpu(0), mt.cpu(1)])):
+        net = mnist.build_net()
+        net.initialize(mt.initializer.Xavier(magnitude=2.24), ctx=ctx,
+                       seed=0)
+        net.hybridize()
+        tr = gluon.Trainer(net.collect_params(), "sgd",
+                           {"learning_rate": 0.1, "momentum": 0.9})
+        for step in range(KV_MNIST_STEPS):
+            xs = gluon.utils.split_and_load(
+                mt.nd.array(xs_np[step], ctx=ctx[0]), ctx)
+            ys = gluon.utils.split_and_load(
+                mt.nd.array(ys_np[step], ctx=ctx[0]), ctx)
+            with autograd.record():
+                losses = [loss_fn(net(a), b) for a, b in zip(xs, ys)]
+            for loss in losses:
+                loss.backward()
+            tr.step(100)
+        out[tag] = {k: [d.asnumpy() for d in p.list_data()]
+                    for k, p in net.collect_params().items()}
+        if tag == "card":
+            placed = [[str(d._data.device) for d in p.list_data()]
+                      for p in net.collect_params().values()]
+    c, h = out["card"], out["cpu"]
+    num = sum(float(((c[k][r] - h[k][r]) ** 2).sum()) for k in h
+              for r in range(2))
+    den = sum(float((h[k][r] ** 2).sum()) for k in h for r in range(2))
+    rel = math.sqrt(num / den)
+    between = max(float(np.abs(c[k][0] - c[k][1]).max()) for k in c)
+    on = all(p == ["cuda:0", "cpu"] for p in placed)
+    print(f"kvstore (b): one card, so examples/mnist.py's MLP on [gpu(0), "
+          f"cpu(0)], {KV_MNIST_STEPS} steps of 2 x 50 through "
+          f"Trainer(kvstore='device'): weights against the same steps on "
+          f"[cpu(0), cpu(1)] rel L2 {rel:.3g} (bound {KV_MNIST_BOUND}); "
+          f"the card's and the CPU's replica differ by at most "
+          f"{between:.3g}; replicas placed on cuda:0 and the CPU {on} "
+          f"[{card}]", flush=True)
+    if not (rel <= KV_MNIST_BOUND and on):
+        fail(f"kvstore (b): mnist replicas rel {rel} placed {placed}")
+    return dict(ran="mnist_card_and_cpu", rel_l2=rel, between=between)
+
+
+def phase_kvstore(card):
+    """Phase 22: MXNet's data-parallel API on the card (ROADMAP queue A
+    item 7, cut (a)).  (a) DP ranks started by the port's tools/launch.py
+    train full-width ResNet-50 v1 (fused, bf16, a rank's batch KV_BATCH)
+    through gluon.Trainer(kvstore='dist_sync') in the five cases of
+    KV_CASES; each case's weights and each rank's running statistics
+    against this process's plain reference.  (b) replicas in one
+    process."""
+    import gc
+    import shutil
+
+    t0 = time.perf_counter()
+    out_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "build", "chip_smoke_kv")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    os.makedirs(out_dir)
+    gc.collect()
+    torch.cuda.empty_cache()
+    if torch.cuda.device_count() >= DP:
+        backend, devices = "nccl", [f"cuda:{r}" for r in range(DP)]
+    else:
+        backend, devices = "gloo", ["cuda:0"] * DP
+    mode = f"{DP} ranks, backend {backend}, devices {','.join(devices)}"
+    print(f"kvstore: {mode}, ResNet-50 v1 fused bf16, a rank's batch "
+          f"{KV_BATCH}, SGD {TRAIN_OPT} [{card}]", flush=True)
+    rc = kv_launch(out_dir, backend, devices)
+    t_ranks = time.perf_counter() - t0
+    res = {"mode": mode, "backend": backend, "ranks": DP, "cases": {},
+           "launches": {"fwd": 0, "bwd": 0}}
+    if rc != 0:
+        fail(f"kvstore: the launcher exited {rc}")
+        return res
+    ranks = []
+    for r in range(DP):
+        with open(os.path.join(out_dir, f"rank{r}.json")) as f:
+            ranks.append(json.load(f))
+    dev = torch.device("cuda", 0)
+    net = build_net("bfloat16", 0, dev)
+    snap = kv_snapshot(net)
+    w0 = {k: v for k, v in snap.items() if not kv_is_stat(k)}
+    xg, yg = kv_batch(dev)
+    set_knobs(True, True)
+    want_launch = (FWD_PER_STEP * KV_STEPS, BWD_PER_STEP * KV_STEPS)
+    weights = {}
+    for name, (kw, env) in KV_CASES.items():
+        recs = [rk["cases"][name] for rk in ranks]
+        plan = recs[0].get("plan")
+        ref_w, ref_stats = kv_reference(net, snap, xg, yg, name, plan)
+        got = torch.load(os.path.join(out_dir, f"{name}.rank0.pt"))
+        weights[name] = {k: v for k, v in got.items() if not kv_is_stat(k)}
+        same, n, diff, rel = kv_compare(weights[name], ref_w, w0)
+        st = []
+        for r in range(DP):
+            s = torch.load(os.path.join(out_dir, f"{name}.rank{r}.pt"))
+            st.append(kv_compare({k: s[k] for k in ref_stats[r]},
+                                 ref_stats[r], {k: torch.zeros_like(v)
+                                                for k, v in
+                                                ref_stats[r].items()}))
+        ranks_same = recs[1]["digest"] == recs[0]["digest"]
+        ms = [m for rec in recs for m in rec["ms"]]
+        bad = [f"rank {r} launched {rec['fwd']}/{rec['bwd']}"
+               for r, rec in enumerate(recs)
+               if (rec["fwd"], rec["bwd"]) != want_launch]
+        bad += [f"rank {r} ran spmd={rec['spmd']} on_kvstore="
+                f"{rec['on_kvstore']} on a {rec['kvstore']} store of "
+                f"{rec['workers']}" for r, rec in enumerate(recs)
+                if rec["spmd"] != bool(kw.get("spmd"))
+                or rec["kvstore"] != "dist_sync" or rec["workers"] != DP]
+        if not ranks_same:
+            bad.append("the ranks' weights differ")
+        if same != n or any(s[0] != s[1] for s in st):
+            bad.append("not bit for bit the reference")
+        res["cases"][name] = dict(
+            ms=[rec["ms"] for rec in recs], identical=same == n,
+            max_abs=diff, rel_l2=rel, stats_identical=[s[0] == s[1]
+                                                       for s in st],
+            stats_max_abs=[s[2] for s in st],
+            state_bytes=[rec["state_bytes"] for rec in recs],
+            residual_bytes=[rec["residual_bytes"] for rec in recs],
+            shard_factor=recs[0]["shard_factor"],
+            launches=[[rec["fwd"], rec["bwd"]] for rec in recs])
+        print(f"kvstore {name}: ms a step per rank "
+              f"{[[round(m, 2) for m in rec['ms']] for rec in recs]} "
+              f"(spread {max(ms) - min(ms):.2f}); launches per rank "
+              f"{[[rec['fwd'], rec['bwd']] for rec in recs]} (want "
+              f"{list(want_launch)}); optimizer state per rank "
+              f"{[rec['state_bytes'] for rec in recs]} B, residuals "
+              f"{[rec['residual_bytes'] for rec in recs]} B, split "
+              f"{recs[0]['shard_factor']} ways; weights vs the plain "
+              f"reference: {same} of {n} tensors bit for bit, max |diff| "
+              f"{diff:.3g}, rel L2 to the update {rel:.3g}; running "
+              f"statistics rank r vs half r: "
+              f"{[f'{s[0]}/{s[1]}' for s in st]} bit for bit, max |diff| "
+              f"{[round(s[2], 8) for s in st]}; ranks bit-identical "
+              f"{ranks_same} [{mode}] [{card}]", flush=True)
+        for b in bad:
+            fail(f"kvstore {name}: {b}")
+    for a in KV_EXACT[1:]:
+        same = sum(torch.equal(weights[a][k], weights[KV_EXACT[0]][k])
+                   for k in weights[a])
+        print(f"kvstore: {a} against {KV_EXACT[0]}: {same} of "
+              f"{len(weights[a])} tensors bit for bit", flush=True)
+        if same != len(weights[a]):
+            fail(f"kvstore: {a} differs from {KV_EXACT[0]}")
+    for rk in ranks:
+        if rk["jax_imported"]:
+            fail(f"kvstore: rank {rk['rank']} loaded {rk['jax_imported']}")
+    first = ranks[0]["cases"]["update_on_kvstore"]
+    res["launches"] = {"fwd": first["fwd"], "bwd": first["bwd"]}
+    del net, snap
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_b = time.perf_counter()
+    res["b"] = kv_replicas_card(card, weights["pushpull_fused"]) \
+        if torch.cuda.device_count() >= DP else kv_replicas_mnist(card)
+    res["seconds"] = time.perf_counter() - t0
+    print(f"kvstore: phase 22 took {res['seconds']:.1f} s (ranks "
+          f"{t_ranks:.1f} s, reference {t_b - t0 - t_ranks:.1f} s, (b) "
+          f"{time.perf_counter() - t_b:.1f} s; limit {KV_SECONDS:.0f} s) "
+          f"[{card}]", flush=True)
+    if res["seconds"] > KV_SECONDS:
+        fail(f"kvstore: phase 22 took {res['seconds']:.1f} s")
+    print(f"kvstore: {json.dumps(res, default=str)}", flush=True)
+    return res
+
+
+def phase_kernels_kv():
+    """Kernels 1 (with statistics) and 2 at phase 22's per-rank shapes
+    (N = KV_BATCH), with phase 3's checks."""
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(2222)
+    fwd, bwd = [], []
+    print(f"kernels at phase 22's per-rank shapes, N={KV_BATCH} "
+          "(train_kv):", flush=True)
+    for (name, hw, ci, co, k, s, p, act_in, count) in resnet50_unit_configs():
+        x, w, sc, bi, sh = make_unit_inputs(gen, KV_BATCH, hw, ci, co, k,
+                                            torch.bfloat16, dev)
+        fwd.append(dict(check_unit(name, x, w, sc, bi, sh, k, s, p, act_in,
+                                   True), count=count, path="train_kv"))
+        if s == 1:
+            bwd.append(dict(check_unit_bwd(name, x, w, sc, bi, sh, k, p,
+                                           act_in, True, gen),
+                            count=count, path="train_kv"))
+        del x, w
+    torch.cuda.empty_cache()
+    return fwd, bwd
+
+
 def attention_path_summary(kernel, path, rows, launches, batch):
     """The `kernels` record of kernel 5 on one phase-9 path: each check
     record in `rows` (record, launches) weighted by its launches in one
@@ -10525,6 +11143,16 @@ def attention_summary(recs, launches):
 def main():
     if "--naive-engine" in sys.argv:
         return naive_engine_child()
+    if "--kv-rank" in sys.argv:
+        import argparse
+
+        ap = argparse.ArgumentParser()
+        ap.add_argument("--kv-rank", action="store_true")
+        ap.add_argument("--dp-dir", required=True)
+        ap.add_argument("--dp-backend", required=True)
+        ap.add_argument("--dp-devices", required=True)
+        a = ap.parse_args()
+        return kv_rank(a.dp_dir, a.dp_backend, a.dp_devices.split(","))
     for flag, part in (("--dp-rank", dp_rank), ("--zero-rank", zero_rank)):
         if flag in sys.argv:
             import argparse
@@ -10565,6 +11193,8 @@ def main():
     _, quant_kernels = phase_quant(card)
     phase_custom_onnx(card)
     phase_item9(card)
+    kv_res = phase_kvstore(card)
+    recs_kv, recs_bwd_kv = phase_kernels_kv()
     dec_steps = tf_res["decode"]["steps"]
     dp_keys = dict(backend=dp_res.get("backend"), ranks=DP)
     # kernel 1 once for each main path (its shapes and launches), kernel 2
@@ -10664,7 +11294,18 @@ def main():
         dict(kernel_summary(dict(KERNEL_BWD,
                                  name="fused_conv_unit_bwd/imagenet_rec"),
                             recs_bwd, "train", img["launches"]["bwd"]),
-             path="train_imagenet_rec")] + quant_kernels
+             path="train_imagenet_rec")] + quant_kernels + [
+        # phase 22: a rank of gluon.Trainer(kvstore='dist_sync')
+        dict(kernel_summary(dict(KERNEL, name="fused_conv_unit/kvstore"),
+                            recs_kv, "train_kv", kv_res["launches"]["fwd"]),
+             path="train_kvstore_dist_sync", backend=kv_res.get("backend"),
+             ranks=DP),
+        dict(kernel_summary(dict(KERNEL_BWD,
+                                 name="fused_conv_unit_bwd/kvstore"),
+                            recs_bwd_kv, "train_kv",
+                            kv_res["launches"]["bwd"]),
+             path="train_kvstore_dist_sync", backend=kv_res.get("backend"),
+             ranks=DP)]
     print(f"chip_smoke: {time.perf_counter() - T_START:.1f} s", flush=True)
     if FAILURES:
         print(f"chip_smoke: {len(FAILURES)} failure(s)", flush=True)

@@ -37,9 +37,15 @@ g++), the record and folder datasets and ``tools/im2rec.py`` (see
 and a CUDA device trace), ``monitor`` (``Module.install_monitor``),
 ``visualization``, ``test_utils``, ``runtime``, ``storage``,
 ``initialize`` and ``rtc`` (see ``examples/bert_pretrain.py`` and
-``examples/transformer_nmt.py``).
+``examples/transformer_nmt.py``); slice 25 adds MXNet's data-parallel
+API: parameters replicated over several contexts, the ``device`` and
+dist ``kvstore``s (``kvstore_compression``, ``kvstore_server``), the
+``spmd=True`` step's ``optimizer.SpmdUpdater`` and ``optimizer.comm``,
+``Module`` over several contexts and ``tools/launch.py``.
 """
 from __future__ import annotations
+
+import os as _os
 
 from .base import MXNetError
 from . import context, util
@@ -73,6 +79,13 @@ from .attribute import AttrScope
 from .ndarray import waitall
 
 _initialize.initialize()
+
+if _os.environ.get("DMLC_ROLE") == "server":
+    # a server-role process parks here until its launcher ends the job
+    # (kvstore_server): it must not run the training script as a worker
+    from . import kvstore_server as _kvstore_server
+
+    _kvstore_server._init_kvstore_server_module()
 
 __all__ = ["MXNetError", "Context", "context", "cpu", "gpu", "tpu",
            "cpu_pinned", "cpu_shared", "num_gpus", "current_context",

@@ -6,10 +6,15 @@ Counterpart of ``mxnet_tpu/context.py``: the same ``device_type`` /
 and ``repr`` (``gpu(0)``).  A Context maps onto a ``torch.device``
 (:attr:`Context.torch_device`, the counterpart of ``jax_device``):
 ``gpu(i)`` is ``cuda:i``; ``cpu()``, ``cpu_pinned()`` and
-``cpu_shared()`` are the host (the port has one host device, so a CPU
-device id names no other device).  ``torch.device`` cannot be
+``cpu_shared()`` are the host.  The port has one host device, so two
+CPU contexts share it; an NDArray keeps the Context it was placed on
+beside its tensor, so a replica on ``cpu(1)`` still says ``cpu(1)``, as
+on the JAX package's virtual CPU devices.  ``torch.device`` cannot be
 subclassed, so code that hands a context to PyTorch goes through
 :func:`resolve`, which takes a Context, a ``torch.device`` or a string.
+Where a caller asks for replicas (``Parameter.initialize(ctx=[...])``,
+``split_and_load``, ``Module(context=[...])``), :func:`context_list`
+takes a list of contexts.
 
 Devices are explicit: the default context is the innermost ``with
 ctx:`` scope, else ``MXNET_DEFAULT_CONTEXT`` (``cpu`` or ``gpu``), else
@@ -27,7 +32,8 @@ import torch
 from .base import MXNetError
 
 __all__ = ["Context", "cpu", "gpu", "tpu", "cpu_pinned", "cpu_shared",
-           "num_gpus", "current_context", "resolve", "as_context"]
+           "num_gpus", "current_context", "resolve", "as_context",
+           "context_list"]
 
 _HOST_TYPES = ("cpu", "cpu_pinned", "cpu_shared")
 _TPU_MSG = ("tpu() has no meaning in mxnet_tpu_torch, which runs on CUDA "
@@ -178,9 +184,10 @@ def resolve(ctx: Union[None, str, torch.device, Context] = None
     if isinstance(ctx, (list, tuple)):
         if len(ctx) != 1:
             raise MXNetError(
-                f"{len(ctx)} contexts given: a parameter lives on one "
-                "device in the port; replicas over several contexts are "
-                "ROADMAP queue A item 7")
+                f"{len(ctx)} contexts given where one device is asked "
+                "for; replicas over several contexts are made by "
+                "Parameter.initialize(ctx=[...]), split_and_load and "
+                "Module(context=[...])")
         ctx = ctx[0]
     if isinstance(ctx, Context):
         return ctx.torch_device
@@ -188,3 +195,16 @@ def resolve(ctx: Union[None, str, torch.device, Context] = None
     if dev.type == "cuda" and dev.index is None:
         dev = torch.device("cuda", 0)
     return dev
+
+
+def context_list(ctx=None) -> List[Context]:
+    """The contexts a caller asks for replicas on, in order: ``ctx`` (a
+    Context, ``torch.device``, string, or a list of them) as Contexts,
+    else ``[current_context()]``."""
+    if ctx is None:
+        return [current_context()]
+    if not isinstance(ctx, (list, tuple)):
+        ctx = [ctx]
+    if not ctx:
+        raise MXNetError("an empty list of contexts")
+    return [as_context(c) for c in ctx]

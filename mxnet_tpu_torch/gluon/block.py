@@ -82,6 +82,7 @@ Counterpart of ``mxnet_tpu/gluon/block.py``:
 """
 from __future__ import annotations
 
+import contextlib
 import inspect
 import re
 import threading
@@ -119,6 +120,8 @@ class _TraceState(threading.local):
         self.scope: Optional["ActiveTrace"] = None
         # (train, generator) of the NDArray entry point outside a trace
         self.imperative: Optional[tuple] = None
+        # the replica's Context while a forward runs on a replica
+        self.replica = None
 
 
 _TRACE = _TraceState()
@@ -209,25 +212,73 @@ def _unwrap(v):
     return v
 
 
-def _wrap(out):
+def _wrap(out, ctx=None):
     from ..ndarray.ndarray import NDArray
 
     if isinstance(out, torch.Tensor):
-        return NDArray(out)
+        return NDArray(out, ctx=ctx)
     if isinstance(out, (list, tuple)):
-        return type(out)(_wrap(x) for x in out)
+        return type(out)(_wrap(x, ctx) for x in out)
     return out
+
+
+class _OnReplica:
+    """Run ``block``'s tree on the replica of ``ctx``: each parameter and
+    buffer that has one is swapped for it in its module for the call
+    (the JAX package's ``param.data(x.ctx)``), so the forward reads, and
+    BatchNorm updates, that replica's tensors and the backward writes its
+    gradient buffers.  Swapping the modules' own tensors keeps one block
+    for every replica; replicas of one block run one at a time in a
+    thread, as MXNet's loop over ``split_and_load`` runs them."""
+
+    def __init__(self, block, ctx):
+        self._swapped = []
+        self._ctx = ctx
+        for d, n, _ in _homes(block):
+            t = d[n]
+            reps = getattr(t, "_mx_replicas", None) if t is not None \
+                else None
+            if not reps:
+                continue
+            r = reps.get(ctx)
+            if r is not None:
+                self._swapped.append((d, n, t))
+                d[n] = r
+            elif ctx != _param.ctx_of(t):
+                self.restore()
+                raise MXNetError(
+                    f"{type(block).__name__}: a parameter of the block was "
+                    f"not initialized on context {ctx}; it lives on "
+                    f"{list(_param.replicas_of(t))}")
+
+    def restore(self):
+        for d, n, t in reversed(self._swapped):
+            d[n] = t
+        self._swapped = []
+
+    def __enter__(self):
+        self._old = _TRACE.replica
+        _TRACE.replica = self._ctx if self._swapped else None
+        return self
+
+    def __exit__(self, *exc):
+        _TRACE.replica = self._old
+        self.restore()
+        return False
 
 
 def _call_on_ndarrays(block, args, kwargs, method=None):
     """MXNet's imperative call: NDArrays in (lists of them included), the
     forward (or ``method``, one of the block's stages) on their tensors,
-    NDArrays out in the same nesting."""
+    NDArrays out in the same nesting, on the first input's context (its
+    card the current device, and that context's replica of the
+    parameters, see :class:`_OnReplica`)."""
     nds = _ndarrays_in(list(args) + list(kwargs.values()))
     targs = [_unwrap(a) for a in args]
     tkw = {k: _unwrap(v) for k, v in kwargs.items()}
     train = _autograd.is_training()
-    gen = _random.generator(nds[0].ctx)
+    ctx = nds[0].ctx
+    gen = _random.generator(ctx)
     if method is not None and getattr(block, "_active", False) \
             and current_trace() is None:
         # a stage of the block runs in its trace scope, not captured
@@ -235,10 +286,21 @@ def _call_on_ndarrays(block, args, kwargs, method=None):
     else:
         # a hybridized forward opens its own scope (and its CachedOp)
         scope = _Imperative(train, gen)
-    with torch.set_grad_enabled(_autograd.is_recording()), scope:
+    replica = contextlib.nullcontext()
+    card = torch.cuda.device(ctx.device_id) if ctx.device_type == "gpu" \
+        else contextlib.nullcontext()
+    if _param._ANY_PLACED and _TRACE.replica is None:
+        if any(m.__dict__.get("_mx_deferred") for m in block.modules()):
+            # fill deferred parameters (and their replicas) first, by one
+            # inference pass on the first replica
+            with torch.no_grad(), ActiveTrace(train=False):
+                nn.Module.__call__(block, *targs, **tkw)
+        replica = _OnReplica(block, ctx)
+    with torch.set_grad_enabled(_autograd.is_recording()), scope, card, \
+            replica:
         out = method(*targs, **tkw) if method is not None \
             else nn.Module.__call__(block, *targs, **tkw)
-    return _wrap(out)
+    return _wrap(out, nds[0]._ctx)
 
 
 # ---------------------------------------------------------------------------
@@ -444,7 +506,8 @@ class Block(nn.Module):
         """Fill every parameter and buffer that holds no value yet (every
         one with ``force_reinit``), then move the block to ``ctx``
         (default: gpu(0); raises when there is none — pass cpu(); a list
-        of several contexts raises).  When every one holds a value and
+        of contexts makes a replica of each on every one, the block's
+        tensors holding the first).  When every one holds a value and
         ``force_reinit`` is off, nothing changes, as in the JAX package.
 
         A parameter's own initializer (e.g. a bias's "zeros") fills it;
@@ -457,15 +520,15 @@ class Block(nn.Module):
                 for local in list(getattr(mod, "_inits", {}))
                 if force_reinit
                 or local not in getattr(mod, "_mx_initialized", ())]
-        # several contexts raise even when nothing is left to fill
-        dev = _context.resolve(ctx) if ctx is not None or todo else None
         if not todo:
             return self
+        ctxs = _param._unique_ctx(ctx)
         gen = torch.Generator().manual_seed(int(seed))
         default = init_mod.create(init)
-        self.to(dev)
+        self.to(ctxs[0].torch_device)
         with torch.no_grad():
             for full, mod, local in todo:
+                _param._state(mod, "_mx_ctx_list")[local] = ctxs
                 _param.initialize_one(mod, local, full, default, gen)
         for mod in self.modules():
             mod.__dict__.pop("_mx_resolved", None)
@@ -486,8 +549,8 @@ class Block(nn.Module):
             if isinstance(c, Block):
                 c.cast(dtype)
         for name in self._inits:
-            t = self._value(name)
-            t.data = t.data.to(dt)
+            for t in _param.replicas_of(self._value(name)).values():
+                t.data = t.data.to(dt)
         return self
 
     def save_parameters(self, filename: str, deduplicate: bool = False):
@@ -508,8 +571,8 @@ class Block(nn.Module):
         the file lacks raises unless ``allow_missing`` (it keeps its
         value); a name the block lacks raises unless ``ignore_extra``.
         ``ctx``, ``cast_dtype`` and ``dtype_source`` are accepted and
-        change nothing here: each value keeps its dtype and moves to its
-        parameter's device."""
+        change nothing here: each value keeps its dtype and moves to the
+        device of each of its parameter's replicas."""
         from ..serialization import load_ndarrays
 
         loaded = load_ndarrays(filename)
@@ -553,7 +616,7 @@ def _load_tensors(block, values, what="dict", allow_missing=False,
     before any parameter changes; names the block lacks raise unless
     ``ignore_extra``; the names of a tied parameter must agree where
     several are given.  Each value keeps its dtype and moves to the
-    parameter's device."""
+    device of each of the parameter's replicas."""
     params = block.state_dict(keep_vars=True)
     groups = _tied_groups(params)
     missing = [g[0] for g in groups if not any(k in values for k in g)]
@@ -586,7 +649,9 @@ def _load_tensors(block, values, what="dict", allow_missing=False,
         chosen.append((params[g[0]], first, g[0]))
     with torch.no_grad():
         for t, value, name in chosen:
-            t.data = value.to(device=t.device)
+            # each replica its own storage, also where devices coincide
+            for j, r in enumerate(_param.replicas_of(t).values()):
+                r.data = value.to(device=r.device, copy=j > 0)
             mod, local = homes[name]
             for attr in ("_mx_deferred", "_mx_shape"):
                 mod.__dict__.get(attr, {}).pop(local, None)
@@ -811,7 +876,7 @@ def _cached_forward(block, xs, train, gen):
     dev = xs[0].device
     slot = (train, torch.is_inference_mode_enabled(), _env.trace_knobs(),
             tuple((tuple(a.shape), a.dtype, a.stride()) for a in xs),
-            str(dev))
+            str(dev), str(_TRACE.replica))
     sig = (slot, param_keys(block))
     gens = (gen,) if gen is not None and gen.device.type == "cuda" else ()
 
@@ -841,7 +906,8 @@ def _cached_train(block, xs, train, gen, mirror):
     in_req = tuple(bool(a.requires_grad) for a in xs)
     slot = (train, False, _env.trace_knobs(),
             tuple((tuple(a.shape), a.dtype, a.stride()) for a in xs),
-            str(dev), "record", in_req, tuple(reqs), mirror)
+            str(dev), str(_TRACE.replica), "record", in_req, tuple(reqs),
+            mirror)
     sig = (slot, param_keys(block))
     gens = (gen,) if gen is not None and gen.device.type == "cuda" else ()
 

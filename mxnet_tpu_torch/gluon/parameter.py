@@ -7,11 +7,20 @@ A :class:`Parameter` is a handle on one tensor of a block: a registered
 is looked up on its module at each access (``Block.to`` replaces
 buffers), and ``grad_req``, ``lr_mult``, ``wd_mult`` and the gradient
 buffer live on the parameter tensor, so two ``collect_params()`` calls,
-or a parent's and a child's, see the same values.  A parameter lives on
-one device: ``list_ctx()`` has one entry, and several contexts raise
-(replicas are ROADMAP queue A item 7).  ``Parameter(name, shape=...)``
-made on its own (as in the JAX package) is a handle on a tensor of a
-holder module of its own.
+or a parent's and a child's, see the same values.  ``Parameter(name,
+shape=...)`` made on its own (as in the JAX package) is a handle on a
+tensor of a holder module of its own.
+
+Replicas (the counterpart of ``mxnet_tpu/gluon/parameter.py:89-213``):
+``initialize(ctx=[c0, c1, ...])`` keeps the registered tensor as the
+replica on ``c0`` and one copy per further context, keyed by
+:class:`Context`, so a repeated context is one replica, as in the JAX
+dict.  The copies hang off the registered tensor (``_mx_replicas``,
+with ``_mx_ctx`` its own context): trainable ones are leaves with a
+gradient buffer of their own.  ``data(ctx)``, ``grad(ctx)``,
+``list_data``, ``list_grad``, ``list_ctx``, ``zero_grad``, ``set_data``,
+``cast`` and ``reset_ctx`` act on every replica; a forward whose input
+is on ``c`` runs on ``c``'s tensors (``gluon/block.py``).
 
 Deferred shapes, as in the JAX package: a zero in a shape means
 "unknown".  The tensor is then a zero-element placeholder of that shape
@@ -40,7 +49,7 @@ from torch import nn
 from .. import autograd
 from .. import initializer as init_mod
 from ..base import MXNetError, dtype_of, np_dtype
-from ..context import as_context, resolve
+from ..context import Context, as_context, context_list, resolve
 
 __all__ = ["Parameter", "Constant", "ParameterDict",
            "DeferredInitializationError"]
@@ -110,6 +119,68 @@ def set_shape(mod, local, new_shape, name=None) -> None:
     _state(mod, "_mx_shape")[local] = new_shape
 
 
+# set once any tensor is placed on a context of its own or replicated:
+# until then a forward needs no replica lookup
+_ANY_PLACED = False
+
+
+def ctx_of(t) -> Context:
+    """The Context the tensor of a parameter was placed on."""
+    c = getattr(t, "_mx_ctx", None)
+    if c is not None and c.torch_device == t.device:
+        return c
+    return as_context(t.device)
+
+
+def replicas_of(t) -> "OrderedDict":
+    """Context -> tensor of every replica of a parameter's tensor ``t``
+    (``t`` first)."""
+    out = OrderedDict([(ctx_of(t), t)])
+    out.update(getattr(t, "_mx_replicas", None) or {})
+    return out
+
+
+def _replica(t, ctx: Context, is_param: bool) -> torch.Tensor:
+    """A copy of ``t`` on ``ctx``: a leaf that keeps ``t``'s grad_req
+    for a parameter, a plain tensor for a buffer."""
+    v = t.detach().to(ctx.torch_device, copy=True)
+    if is_param:
+        v = nn.Parameter(v, requires_grad=t.requires_grad)
+        req = getattr(t, "_mx_grad_req", None)
+        if req is not None:
+            v._mx_grad_req = req
+    v._mx_ctx = ctx
+    return v
+
+
+def place(t, ctxs, is_param: bool) -> None:
+    """Mark ``t`` as the replica on ``ctxs[0]`` and copy it to each
+    further context (the replicas of another call are dropped)."""
+    global _ANY_PLACED
+    if len(ctxs) == 1 and ctxs[0] == as_context(t.device):
+        t.__dict__.pop("_mx_ctx", None)
+        t.__dict__.pop("_mx_replicas", None)
+        return
+    _ANY_PLACED = True
+    t._mx_ctx = ctxs[0]
+    t._mx_replicas = OrderedDict(
+        (c, _replica(t, c, is_param)) for c in ctxs[1:])
+
+
+def _unique_ctx(ctx):
+    """The contexts of ``ctx`` in order, each once (the JAX package keys
+    its replicas by context)."""
+    return list(OrderedDict.fromkeys(context_list(ctx)))
+
+
+def _spread(mod, local) -> None:
+    """Copy a just-filled tensor to the contexts ``initialize`` was
+    given."""
+    ctxs = mod.__dict__.get("_mx_ctx_list", {}).get(local)
+    if ctxs:
+        place(tensor_of(mod, local), ctxs, local in mod._parameters)
+
+
 def is_deferred(mod, local) -> bool:
     return local in mod.__dict__.get("_mx_deferred", {})
 
@@ -144,6 +215,7 @@ def initialize_one(mod, local, name, default, gen, dev=None,
     mod.__dict__.get("_mx_deferred", {}).pop(local, None)
     mod.__dict__.get("_mx_shape", {}).pop(local, None)
     mod._mx_initialized = getattr(mod, "_mx_initialized", set()) | {local}
+    _spread(mod, local)
 
 
 def finish_deferred(mod, local, name=None) -> None:
@@ -230,7 +302,8 @@ class Parameter:
                 raise MXNetError(f"{self.name} is a buffer (running "
                                  "statistics): its grad_req stays 'null'")
             return
-        autograd.set_grad_req(self._tensor, req)
+        for t in replicas_of(self._tensor).values():
+            autograd.set_grad_req(t, req)
 
     def _attr(self, name):
         return 1.0 if self._is_buffer else getattr(self._tensor, name, 1.0)
@@ -256,46 +329,66 @@ class Parameter:
             raise MXNetError(f"Parameter {self.name} has not been "
                              "initialized. Call .initialize() first")
         t = self._tensor
-        if ctx is not None and resolve(ctx) != t.device:
+        if ctx is None:
+            return t
+        reps = replicas_of(t)
+        if isinstance(ctx, Context):
+            r = reps.get(ctx)
+        else:  # a device: its one replica
+            dev = resolve(ctx)
+            on = [v for v in reps.values() if v.device == dev]
+            r = on[0] if len(on) == 1 else None
+        if r is None:
             raise MXNetError(f"Parameter {self.name} was not initialized on "
-                             f"context {ctx}; it lives on {t.device}")
-        return t
+                             f"context {ctx}; it lives on {list(reps)}")
+        return r
 
     def _finish_deferred_init(self):
         finish_deferred(self._module, self._local, self.name)
 
-    def data(self, ctx=None):
-        """The value as an NDArray sharing the tensor: a write into it
-        writes the parameter, and under ``autograd.record()`` the
-        parameter's gradient flows to :meth:`grad`."""
+    @staticmethod
+    def _nd_of(t, leaf: bool):
         from ..ndarray.ndarray import NDArray
 
-        t = self._check_ctx(ctx)
-        nd = NDArray(t)
-        if self.grad_req != "null":
+        nd = NDArray(t, ctx=ctx_of(t))
+        if leaf:
             nd._ag_leaf = t
         return nd
 
-    def grad(self, ctx=None):
+    def _grad_nd(self, t):
         from ..ndarray.ndarray import NDArray
 
-        t = self._check_ctx(ctx)
         if self.grad_req == "null":
             raise MXNetError(f"Parameter {self.name} has grad_req='null'")
-        return NDArray(autograd.grad_buffer(t))
+        return NDArray(autograd.grad_buffer(t), ctx=ctx_of(t))
+
+    def data(self, ctx=None):
+        """The value on ``ctx`` (default: the first context's) as an
+        NDArray sharing the tensor: a write into it writes that replica,
+        and under ``autograd.record()`` its gradient flows to
+        :meth:`grad` of the same context."""
+        return self._nd_of(self._check_ctx(ctx), self.grad_req != "null")
+
+    def grad(self, ctx=None):
+        return self._grad_nd(self._check_ctx(ctx))
+
+    def _replicas(self):
+        return replicas_of(self._check_ctx(None))
 
     def list_data(self) -> List:
-        return [self.data()]
+        leaf = self.grad_req != "null"
+        return [self._nd_of(t, leaf) for t in self._replicas().values()]
 
     def list_grad(self) -> List:
-        return [self.grad()]
+        return [self._grad_nd(t) for t in self._replicas().values()]
 
     def list_ctx(self) -> List:
-        return [as_context(self._tensor.device)]
+        return list(replicas_of(self._tensor))
 
     def zero_grad(self):
         if self.grad_req != "null" and not unknown(self.shape):
-            autograd.grad_buffer(self._tensor).zero_()
+            for t in replicas_of(self._tensor).values():
+                autograd.grad_buffer(t).zero_()
 
     def set_data(self, data):
         """Write ``data`` (an NDArray, tensor or array) into the
@@ -315,27 +408,25 @@ class Parameter:
                              f"{self.name} from {tuple(t.shape)} to "
                              f"{tuple(v.shape)}")
         with torch.no_grad():
-            t.copy_(v.to(device=t.device, dtype=t.dtype))
+            for r in replicas_of(t).values():
+                r.copy_(v.to(device=r.device, dtype=r.dtype))
 
     def cast(self, dtype):
+        """Cast every replica to ``dtype`` (each keeps its identity, so
+        what holds it sees the cast)."""
         dt = dtype_of(dtype)
-        t = self._tensor
-        if self._is_buffer:
-            self._module._buffers[self._local] = t.to(dt)
-        else:
+        for t in replicas_of(self._tensor).values():
             t.data = t.data.to(dt)
 
     def reset_ctx(self, ctx):
-        """Move the parameter (and its gradient buffer, at its next use)
-        to ``ctx``; one context, as everywhere in the port."""
-        dev = resolve(ctx)
-        self._check_ctx(None)
+        """Place the parameter on ``ctx`` (a context, or a list of them
+        for replicas) with the value of its first replica; gradient
+        buffers follow at their next use."""
+        ctxs = _unique_ctx(ctx)
+        t = self._check_ctx(None)
         with torch.no_grad():
-            if self._is_buffer:
-                self._module._buffers[self._local] = self._tensor.to(dev)
-            else:
-                t = self._tensor
-                t.data = t.data.to(dev)
+            t.data = t.data.to(ctxs[0].torch_device)
+        place(t, ctxs, not self._is_buffer)
 
     def var(self):
         """A symbol variable of this parameter's name, shape and dtype."""
@@ -348,15 +439,18 @@ class Parameter:
         """Fill the tensor by its block's own initializer (a bias's
         "zeros"), else ``init``, else ``default_init`` (Uniform(0.07))
         by the name rule, then move it to ``ctx`` (default gpu(0); raises
-        without CUDA unless cpu() is given).  A parameter that its block
-        or an earlier call initialized keeps its value unless
-        ``force_reinit``.  An unknown shape defers the fill to the first
-        forward (or raises without ``allow_deferred_init``)."""
-        dev = resolve(ctx)
+        without CUDA unless cpu() is given); a list of contexts makes a
+        replica on each.  A parameter that its block or an earlier call
+        initialized keeps its value unless ``force_reinit``.  An unknown
+        shape defers the fill to the first forward (or raises without
+        ``allow_deferred_init``)."""
+        ctxs = _unique_ctx(ctx)
+        dev = ctxs[0].torch_device
         mod = self._module
         if self._local in getattr(mod, "_mx_initialized", set()) \
                 and not force_reinit:
             return
+        _state(mod, "_mx_ctx_list")[self._local] = ctxs
         t = self._tensor
         with torch.no_grad():
             if self._is_buffer:

@@ -1,35 +1,60 @@
-"""KVStore in local mode (counterpart of ``mxnet_tpu/kvstore.py``'s
-``'local'`` and ``'device'`` stores): ``init``, ``push``, ``pull``,
-``pushpull`` and ``row_sparse_pull`` over a list of values per key
-(NDArrays or tensors), the values summed on the first one's device.
+"""KVStore: the data-parallel gradient sum (counterpart of
+``mxnet_tpu/kvstore.py:46-664``; ref: src/kvstore/**).
 
-Row-sparse values reduce to a row-sparse sum with the merged indices of
-all of them; with an optimizer set (``set_optimizer``/``set_updater``)
-a push runs the update on the stored value (a lazy SGD update touches
-only the gradient's rows), and the optimizer's states go to a file with
-``save_optimizer_states``.  ``pull`` refuses a sparse ``out``
-(``row_sparse_pull`` fills one).
+One API over three kinds of store:
 
-The distributed stores (``dist_sync``, ``dist_device_sync``,
-``dist_async``) and the collective ones (``nccl``, ``xla``) raise: the
-port's data parallelism is ``parallel.SPMDTrainer`` over a process group,
-and the KVStore over it is ROADMAP queue A item 7, as is gradient
-compression.
+* ``'local'`` and ``'device'``: a sum over the values (replicas) the
+  caller hands in, on the first one's device, pairwise in the JAX
+  package's order (``_balanced_sum``); a row-sparse sum keeps the merged
+  rows (ref: comm.h).
+* ``'nccl'`` (``'xla'`` is taken as its alias): the same eager sum — the
+  port's collective library is NCCL, as XLA's collectives are the JAX
+  package's, and the one program over the replicas is
+  ``gluon.Trainer(spmd=True)``'s ``SpmdUpdater``.
+* ``'dist_sync'``, ``'dist_device_sync'``, ``'dist'`` and ``'dist_async'``
+  over processes: the local sum, then one collective of the process
+  group (``parallel.dist``), which ``create`` joins from the ``DMLC_*``
+  contract when it has not been joined (NCCL by default; a gloo group,
+  for the CPU or ranks sharing a card, is joined by calling
+  ``parallel.dist.init(backend='gloo')`` first).  ``dist_async`` warns
+  once and runs synchronously: the sum is a collective.
+
+``push`` stores the sum (or, with an optimizer set, runs the update on
+the stored value: ``set_optimizer``, MXNet's update on the kvstore);
+``pull`` writes the stored value into each output (in place, so a
+gradient or weight keeps its buffer); ``pushpull`` does both.
+``pushpull_fused`` sums many keys through order-preserving buckets of
+``MXNET_FUSED_BUCKET_BYTES``, homogeneous in dtype and replica count: one
+sum, and on a dist store one collective, per bucket.  It takes one key at
+a time under an updater, compression or sparse values.
+
+2-bit compression (``set_gradient_compression``) works on ``device`` and
+dist stores and is refused on ``local`` and on sparse values.  On a
+``device`` store it is the quantize/dequantize round trip of the sum, and
+is skipped for one replica (nothing crosses a wire); on a dist store each
+rank's packed codes are gathered and every rank sums what each decodes
+(``_dcn_allreduce``) — not an all-reduce of codes.  The JAX package's
+route of one mesh program per bucket (``_bucket_allreduce_spmd``) has no
+counterpart here: the port's one program over the replicas is
+``SpmdUpdater``.  The chaos sites, retry policy and schedule ledger wait
+for ROADMAP queue A item 10.
 """
 from __future__ import annotations
 
-from typing import Callable, Dict, Optional, Union
+import warnings
+from typing import Callable, Dict, List, Optional, Union
 
 import torch
 
 from .base import MXNetError
 from .ndarray.ndarray import NDArray
+from .util import env
 
 __all__ = ["KVStore", "create"]
 
-_LOCAL = ("local", "device")
-_QUEUED = ("dist_sync", "dist_device_sync", "dist_async", "dist", "nccl",
-           "xla")
+_LOCAL = ("local", "device", "nccl")
+_DIST = ("dist_sync", "dist_device_sync", "dist_async", "dist")
+_ALIASES = {"xla": "nccl"}
 
 
 def _as_list(x):
@@ -47,24 +72,46 @@ def _key_int(k) -> int:
         return abs(hash(k)) % (2 ** 31)
 
 
+def _balanced_sum(xs: List[torch.Tensor]) -> torch.Tensor:
+    """Pairwise sum of same-shaped tensors (the JAX package's order)."""
+    xs = list(xs)
+    while len(xs) > 1:
+        nxt = [xs[i] + xs[i + 1] for i in range(0, len(xs) - 1, 2)]
+        if len(xs) % 2:
+            nxt.append(xs[-1])
+        xs = nxt
+    return xs[0]
+
+
 class KVStore:
     def __init__(self, kind: str):
         self._kind = kind
         self._store: Dict[Union[int, str], NDArray] = {}
         self._updater: Optional[Callable] = None
+        self._compression = None
 
+    # ---- identity --------------------------------------------------------
     @property
     def type(self) -> str:
         return self._kind
 
     @property
+    def _dist(self) -> bool:
+        return self._kind.startswith("dist")
+
+    @property
     def rank(self) -> int:
-        return 0
+        from .parallel import dist
+
+        return dist.rank() if self._dist else 0
 
     @property
     def num_workers(self) -> int:
-        return 1
+        from .parallel import dist
 
+        return dist.num_workers() if self._dist else 1
+
+    # ---- core API --------------------------------------------------------
     def _normalize(self, key, value):
         keys = _as_list(key)
         if value is None:
@@ -82,27 +129,20 @@ class KVStore:
 
     def init(self, key, value):
         for k, v in zip(*self._normalize(key, value)):
-            v = _nd(_as_list(v)[0])
-            self._store[k] = v.copy()
+            self._store[k] = _nd(_as_list(v)[0]).copy()
 
-    def _reduce(self, vals) -> NDArray:
-        """The sum of one key's values on the first one's device: a
-        row-sparse sum with the merged indices when every value is
-        row-sparse."""
-        from .ndarray.sparse import RowSparseNDArray
-
-        vals = [_nd(v) for v in vals]
-        if len(vals) == 1:
-            return vals[0].copy()
-        dev = vals[0]._data.device
-        acc = vals[0]._data.detach().clone()
-        for v in vals[1:]:
-            acc += v._data.detach().to(dev)
-        if all(isinstance(v, RowSparseNDArray) for v in vals):
-            merged = torch.unique(torch.cat(
-                [v._aux["indices"].to(dev) for v in vals]))
-            return RowSparseNDArray(acc, merged)
-        return NDArray(acc)
+    def _sum(self, k, vlist) -> NDArray:
+        """The sum of one key's values: local, then over the ranks of a
+        dist store, or through the compression round trip of a device
+        store with several replicas."""
+        agg = self._reduce(vlist)
+        if self._dist:
+            return self._dcn_allreduce(agg, key=k)
+        if self._check_compressible(agg) and len(vlist) > 1:
+            # the sparse refusal above fires for one replica too; the
+            # lossy round trip runs only when something crosses a wire
+            return self._compress_roundtrip(k, agg)
+        return agg
 
     def _publish(self, k, agg: NDArray):
         """Run the updater on the stored value, or store ``agg``."""
@@ -116,15 +156,16 @@ class KVStore:
         """Store the sum of each key's values (or apply it through the
         updater)."""
         for k, v in zip(*self._normalize(key, value)):
-            self._publish(k, self._reduce(_as_list(v)))
+            self._publish(k, self._sum(k, _as_list(v)))
 
     @staticmethod
-    def _write(dst, src: NDArray):
+    def _write(dst, src: NDArray, what="pull"):
         from .ndarray.sparse import BaseSparseNDArray
 
         if isinstance(dst, BaseSparseNDArray):
-            raise MXNetError("pull with a sparse out is not supported; use "
-                             "row_sparse_pull (ref: KVStoreLocal::PullImpl)")
+            raise MXNetError(f"{what} with a sparse out is not supported; "
+                             "use row_sparse_pull (ref: "
+                             "KVStoreLocal::PullImpl)")
         with torch.no_grad():
             (dst._data if isinstance(dst, NDArray) else dst).copy_(
                 src._data)
@@ -142,12 +183,86 @@ class KVStore:
         keys, values = self._normalize(key, value)
         _, outs = self._normalize(key, out if out is not None else value)
         for k, v, o in zip(keys, values, outs):
-            agg = self._reduce(_as_list(v))
+            agg = self._sum(k, _as_list(v))
             if self._updater is not None:
                 self._publish(k, agg)
                 agg = self._store[k]
             for dst in _as_list(o):
-                self._write(dst, agg)
+                self._write(dst, agg, "pushpull")
+
+    def pushpull_fused(self, keys, values, out=None, priority: int = 0,
+                       bucket_bytes: Optional[int] = None):
+        """``pushpull(k, v, out=o)`` for many keys, through buckets: the
+        dense values, in order, packed into buckets of one dtype and one
+        replica count of at most ``bucket_bytes`` (default
+        ``MXNET_FUSED_BUCKET_BYTES``; at least one key each); each bucket
+        is one flat sum (and, on a dist store, one collective), split
+        back.  Each sum is published to the store, as a push would.
+        Under an updater, compression or sparse values, one key at a
+        time."""
+        from .ndarray.sparse import BaseSparseNDArray
+
+        keys = list(keys)
+        vals = [_as_list(v) for v in values]
+        outs = vals if out is None else [_as_list(o) for o in out]
+        if len(vals) != len(keys) or len(outs) != len(keys):
+            raise MXNetError("pushpull_fused: key/value/out length mismatch")
+        if (self._updater is not None or self._compression is not None
+                or any(isinstance(x, BaseSparseNDArray)
+                       for v in vals for x in v)):
+            for k, v, o in zip(keys, vals, outs):
+                self.pushpull(k, v, out=o, priority=priority)
+            return
+        if bucket_bytes is None:
+            bucket_bytes = (env.get_int("MXNET_SPMD_BUCKET_BYTES")
+                            if env.get_bool("MXNET_SPMD") else 0) \
+                or env.get_int("MXNET_FUSED_BUCKET_BYTES")
+        buckets: List[List[int]] = []
+        cur: List[int] = []
+        cur_sig, cur_bytes = None, 0
+        for pos, v in enumerate(vals):
+            d = _nd(v[0])._data
+            sig = (d.dtype, len(v))
+            nbytes = d.numel() * d.element_size()
+            if cur and (sig != cur_sig or cur_bytes + nbytes > bucket_bytes):
+                buckets.append(cur)
+                cur, cur_bytes = [], 0
+            cur.append(pos)
+            cur_sig, cur_bytes = sig, cur_bytes + nbytes
+        if cur:
+            buckets.append(cur)
+        for bucket in buckets:
+            self._bucket_allreduce(bucket, keys, vals, outs)
+
+    def _bucket_allreduce(self, poss: List[int], keys, vals, outs):
+        """One bucket: each replica's values flattened and concatenated
+        on the first replica's device, the replica flats summed pairwise
+        (then one collective on a dist store), split back."""
+        from .parallel import dist
+
+        first = _nd(vals[poss[0]][0])
+        dev = first._data.device
+        nrep = len(vals[poss[0]])
+        flats = []
+        with torch.no_grad():
+            for r in range(nrep):
+                parts = [_nd(vals[p][r])._data.detach().reshape(-1).to(dev)
+                         for p in poss]
+                flats.append(parts[0].clone() if len(parts) == 1
+                             else torch.cat(parts))
+            flat = _balanced_sum(flats)
+            if self._dist and dist.num_workers() > 1:
+                flat = dist.all_reduce_(dist._on_group_device(flat)).to(dev)
+        off = 0
+        for p in poss:
+            v0 = _nd(vals[p][0])
+            n = v0._data.numel()
+            agg = NDArray(flat[off:off + n].view(v0._data.shape),
+                          ctx=first.ctx)
+            off += n
+            self._store[keys[p]] = agg
+            for dst in _as_list(outs[p]):
+                self._write(dst, agg, "pushpull")
 
     def row_sparse_pull(self, key, out=None, priority=0, row_ids=None):
         """Pull only the rows ``row_ids`` asks for: a row-sparse ``out``
@@ -205,28 +320,107 @@ class KVStore:
             self._updater.set_states(f.read(), ctx=ctx)
 
     def set_gradient_compression(self, compression_params: dict):
+        """2-bit compression of what the store sums (see the module
+        docstring); refused on 'local' (ref:
+        KVStoreLocal::SetGradientCompression) and for unknown types."""
+        from . import kvstore_compression
+
         if self._kind == "local":
             raise MXNetError(
                 "gradient compression is not supported on 'local' "
                 "kvstore (ref: KVStoreLocal::SetGradientCompression)")
-        raise MXNetError("gradient compression is not ported (ROADMAP "
-                         "queue A item 7)")
+        self._compression = kvstore_compression.create(compression_params)
 
     def barrier(self):
-        pass
+        if self._dist:
+            from .parallel import dist
+
+            dist.barrier()
+
+    # ---- internals -------------------------------------------------------
+    def _reduce(self, vals) -> NDArray:
+        """The sum of one key's values on the first one's device: a
+        row-sparse sum with the merged indices when every value is
+        row-sparse."""
+        from .ndarray.sparse import RowSparseNDArray
+
+        vals = [_nd(v) for v in vals]
+        if len(vals) == 1:
+            return vals[0].copy()
+        dev = vals[0]._data.device
+        with torch.no_grad():
+            acc = _balanced_sum([v._data.detach().to(dev) for v in vals])
+        if all(isinstance(v, RowSparseNDArray) for v in vals):
+            merged = torch.unique(torch.cat(
+                [v._aux["indices"].to(dev) for v in vals]))
+            return RowSparseNDArray(acc, merged)
+        if acc is vals[0]._data:
+            acc = acc.clone()
+        return NDArray(acc, ctx=vals[0].ctx)
+
+    def _check_compressible(self, val) -> bool:
+        from .ndarray.sparse import BaseSparseNDArray
+
+        if self._compression is None:
+            return False
+        if isinstance(val, BaseSparseNDArray):
+            raise MXNetError(
+                "gradient compression does not support sparse gradients "
+                "(ref: GradientCompression row_sparse check)")
+        return True
+
+    def _compress_roundtrip(self, key, val: NDArray) -> NDArray:
+        """Quantize and dequantize the sum: what 2-bit compression does
+        to a value that crosses a wire between the replicas."""
+        packed, shape = self._compression.compress(key, val._data)
+        out = self._compression.decompress(packed, shape)
+        return NDArray(out.to(val._data.dtype), ctx=val.ctx)
+
+    def _dcn_allreduce(self, val: NDArray, key=None) -> NDArray:
+        """The sum over the ranks: with compression, every rank's packed
+        codes gathered and what each decodes summed in rank order."""
+        from .parallel import dist
+
+        if key is not None and self._check_compressible(val):
+            packed, shape = self._compression.compress(key, val._data)
+            if dist.num_workers() == 1:
+                gathered = [packed]
+            else:
+                gathered = dist.all_gather_list(
+                    dist._on_group_device(packed))
+            total = 0
+            for g in gathered:
+                total = total + self._compression.decompress(
+                    g.to(val._data.device), shape)
+            return NDArray(total.to(val._data.dtype), ctx=val.ctx)
+        return dist.allreduce_nd(val)
 
     def __repr__(self):
         return f"KVStore(type={self._kind}, keys={len(self._store)})"
 
 
+_ASYNC_WARNED = [False]
+
+
 def create(name: str = "local") -> KVStore:
-    """A local store ('local' or 'device'); the others raise."""
-    if name in _QUEUED:
-        raise MXNetError(f"kvstore {name!r} is not ported: the port's "
-                         "local stores are 'local' and 'device'; the "
-                         "distributed KVStore is ROADMAP queue A item 7 "
-                         "(data parallel training: parallel.SPMDTrainer)")
-    if name not in _LOCAL:
+    """A store of kind ``name`` (ref: kvstore.create); a dist kind joins
+    the process group of the ``DMLC_*`` environment when this process
+    has not joined one."""
+    name = _ALIASES.get(name, name)
+    if name not in _LOCAL + _DIST:
         raise MXNetError(f"unknown kvstore type {name!r}; valid: "
-                         f"{sorted(_LOCAL + _QUEUED)}")
+                         f"{sorted(_LOCAL + _DIST + tuple(_ALIASES))}")
+    if name.startswith("dist"):
+        from .parallel import dist
+
+        if not dist.initialized() and dist.resolve()[0] is not None:
+            dist.init()
+    if name == "dist_async" and not _ASYNC_WARNED[0]:
+        warnings.warn(
+            "kvstore 'dist_async' runs as 'dist_sync' in mxnet_tpu_torch: "
+            "each push is a synchronous collective of the process group "
+            "(NCCL or gloo), so there is no gradient staleness. "
+            "Convergence tuned for asynchronous parameter-server training "
+            "may differ.", UserWarning, stacklevel=2)
+        _ASYNC_WARNED[0] = True
     return KVStore(name)

@@ -66,7 +66,8 @@ def load_checkpoint(prefix: str, epoch: int):
 
 class FeedForward:
     """The deprecated trainer, a thin adapter over ``Module`` (use
-    ``Module`` or Gluon).  ``ctx`` defaults to gpu(0)."""
+    ``Module`` or Gluon).  ``ctx`` defaults to gpu(0); a list of
+    contexts slices each batch over them (``Module(context=[...])``)."""
 
     def __init__(self, symbol, ctx=None, num_epoch=None, epoch_size=None,
                  optimizer="sgd", initializer=None, numpy_batch_size=128,

@@ -1,25 +1,35 @@
-"""DataParallelExecutorGroup over one context (counterpart of
-``mxnet_tpu/module/executor_group.py``).
+"""DataParallelExecutorGroup: the batch sliced over contexts, one
+executor each (counterpart of ``mxnet_tpu/module/executor_group.py:27-159``).
 
-The JAX package slices the batch over several contexts, one executor
-each.  A parameter lives on one device in the port, so the group binds
-one ``GraphExecutor`` on one context and a list of several raises
-(``context.resolve``; ROADMAP queue A item 7).  It keeps the JAX
-package's grad_req rules: fixed parameters and labels get ``null``, the
-data ``write`` only with ``inputs_need_grad``.  With ``shared_group``
-(``Module.bind(shared_module=...)``, one bucket of a
-``BucketingModule``) the executor binds that group's parameter, aux and
-gradient arrays themselves, so one update of them is seen by both.
+Each context binds one ``GraphExecutor`` on its slice of the batch
+(``_split_slice``: even slices, the last one shorter); ``forward`` and
+``backward`` run them in turn, the outputs and input gradients merge by
+concatenation on the first context, and ``update_metric`` reads the
+merged outputs.  The caller (``Module.update``) sums the gradients of the
+executors through its KVStore.  The JAX package's grad_req rules hold:
+fixed parameters and labels get ``null``, the data ``write`` only with
+``inputs_need_grad``.  With ``shared_group`` (``Module.bind(
+shared_module=...)``, one bucket of a ``BucketingModule``) each executor
+binds the parameter, aux and gradient arrays of the shared group's
+executor of the same context, so one update of them is seen by both.
 """
 from __future__ import annotations
 
 from typing import Dict, List, Optional
 
 from ..base import MXNetError
-from ..context import resolve
-from ..ndarray.ndarray import NDArray, zeros
+from ..context import context_list
+from ..ndarray.ndarray import NDArray, concatenate, zeros
 
 __all__ = ["DataParallelExecutorGroup"]
+
+
+def _split_slice(batch_size: int, n: int):
+    """Even slices of the batch axis (ref: executor_group.
+    _split_input_slice)."""
+    step = (batch_size + n - 1) // n
+    return [slice(min(i * step, batch_size), min((i + 1) * step, batch_size))
+            for i in range(n)]
 
 
 class DataParallelExecutorGroup:
@@ -27,9 +37,8 @@ class DataParallelExecutorGroup:
                  param_names=None, for_training=True, inputs_need_grad=False,
                  fixed_param_names=None, grad_req="write", logger=None,
                  shared_group=None):
-        ctx = resolve(list(contexts))
         self.symbol = symbol
-        self.contexts = [ctx]
+        self.contexts = context_list(list(contexts))
         self.for_training = for_training
         self.inputs_need_grad = inputs_need_grad
         self.param_names = list(param_names or [])
@@ -37,6 +46,7 @@ class DataParallelExecutorGroup:
         self.data_names = [d.name for d in data_shapes]
         self.label_names = [x.name for x in (label_shapes or [])]
         self.batch_size = data_shapes[0].shape[0]
+        self.slices = _split_slice(self.batch_size, len(self.contexts))
         self.arg_names = symbol.list_arguments()
         self.aux_names = symbol.list_auxiliary_states()
         req: Dict[str, str] = {}
@@ -50,32 +60,44 @@ class DataParallelExecutorGroup:
         shapes = {d.name: d.shape for d in data_shapes}
         shapes.update({x.name: x.shape for x in (label_shapes or [])})
         arg_shapes, _, aux_shapes = symbol.infer_shape(**shapes)
-        sh = shared_group.execs[0] if shared_group is not None else None
+        if shared_group is not None \
+                and len(shared_group.execs) != len(self.contexts):
+            raise MXNetError("shared_module binds another number of "
+                             "contexts")
+        inputs = set(self.data_names) | set(self.label_names)
         params = set(self.param_names)
-        sh_args, sh_grads = ({}, {}) if sh is None else (
-            {n: a for n, a in sh.arg_dict.items() if n in params},
-            {n: g for n, g in sh.grad_dict.items() if n in params})
-        sh_aux = {} if sh is None else sh.aux_dict
+        self.execs = []
+        for k, (ctx, sl) in enumerate(zip(self.contexts, self.slices)):
+            sh = shared_group.execs[k] if shared_group is not None else None
+            sh_args, sh_grads = ({}, {}) if sh is None else (
+                {n: a for n, a in sh.arg_dict.items() if n in params},
+                {n: g for n, g in sh.grad_dict.items() if n in params})
+            sh_aux = {} if sh is None else sh.aux_dict
 
-        def bound(table, name, shape):
-            """The shared group's array of ``name``, else new zeros."""
-            arr = table.get(name)
-            if arr is None:
-                return zeros(shape, ctx=ctx)
-            if tuple(arr.shape) != tuple(shape):
-                raise MXNetError(
-                    f"shared array '{name}' has shape {tuple(arr.shape)}, "
-                    f"this symbol needs {tuple(shape)}")
-            return arr
+            def bound(table, name, shape, ctx=ctx):
+                """The shared group's array of ``name``, else zeros."""
+                arr = table.get(name)
+                if arr is None:
+                    return zeros(shape, ctx=ctx)
+                if tuple(arr.shape) != tuple(shape):
+                    raise MXNetError(
+                        f"shared array '{name}' has shape "
+                        f"{tuple(arr.shape)}, this symbol needs "
+                        f"{tuple(shape)}")
+                return arr
 
-        args = {n: bound(sh_args, n, s)
-                for n, s in zip(self.arg_names, arg_shapes)}
-        grads = {n: bound(sh_grads, n, args[n].shape)
-                 for n in self.arg_names if req[n] != "null"}
-        aux = [bound(sh_aux, n, s)
-               for n, s in zip(self.aux_names, aux_shapes)]
-        self.execs = [symbol.bind(ctx, args, args_grad=grads, grad_req=req,
-                                  aux_states=aux)]
+            nslice = sl.stop - sl.start
+            args = {}
+            for n, s in zip(self.arg_names, arg_shapes):
+                if n in inputs:
+                    s = (nslice,) + tuple(s[1:])
+                args[n] = bound(sh_args, n, s)
+            grads = {n: bound(sh_grads, n, args[n].shape)
+                     for n in self.arg_names if req[n] != "null"}
+            aux = [bound(sh_aux, n, s)
+                   for n, s in zip(self.aux_names, aux_shapes)]
+            self.execs.append(symbol.bind(ctx, args, args_grad=grads,
+                                          grad_req=req, aux_states=aux))
 
     def set_params(self, arg_params, aux_params, allow_extra=False):
         for ex in self.execs:
@@ -84,7 +106,8 @@ class DataParallelExecutorGroup:
 
     def get_params(self, arg_params: Dict[str, NDArray],
                    aux_params: Dict[str, NDArray]):
-        """Copies of the executor's parameters and aux states."""
+        """Copies of the first executor's parameters and aux states (the
+        update keeps the executors' parameters equal)."""
         ex = self.execs[0]
         for name in self.param_names:
             if name in ex.arg_dict:
@@ -95,27 +118,50 @@ class DataParallelExecutorGroup:
     def forward(self, data_batch, is_train: Optional[bool] = None):
         if is_train is None:
             is_train = self.for_training
-        feed = dict(zip(self.data_names, data_batch.data))
-        if is_train and data_batch.label:
-            feed.update(zip(self.label_names, data_batch.label))
-        self.execs[0].forward(is_train=is_train, **feed)
+        one = len(self.execs) == 1
+        for ex, sl in zip(self.execs, self.slices):
+            feed = {n: a if one else a[sl]
+                    for n, a in zip(self.data_names, data_batch.data)}
+            if is_train and data_batch.label:
+                feed.update((n, a if one else a[sl]) for n, a in
+                            zip(self.label_names, data_batch.label))
+            ex.forward(is_train=is_train, **feed)
 
     def backward(self, out_grads=None):
-        self.execs[0].backward(out_grads=out_grads)
+        one = len(self.execs) == 1
+        for ex, sl in zip(self.execs, self.slices):
+            og = None
+            if out_grads is not None:
+                og = [g if one else g[sl] for g in (
+                    out_grads if isinstance(out_grads, (list, tuple))
+                    else [out_grads])]
+            ex.backward(out_grads=og)
+
+    def _merge(self, per_exec):
+        if len(per_exec) == 1:
+            return per_exec[0]
+        c0 = self.contexts[0]
+        return concatenate([a.as_in_context(c0) for a in per_exec], axis=0)
 
     def get_outputs(self, merge_multi_context=True):
-        outs = self.execs[0].outputs
-        return list(outs) if merge_multi_context else [[o] for o in outs]
+        n_out = len(self.execs[0].outputs)
+        per = [[ex.outputs[i] for ex in self.execs] for i in range(n_out)]
+        if merge_multi_context:
+            return [self._merge(p) for p in per]
+        return per
 
     def get_input_grads(self, merge_multi_context=True):
         if not self.inputs_need_grad:
             raise MXNetError("bind with inputs_need_grad=True first")
-        grads = [self.execs[0].grad_dict[n] for n in self.data_names]
-        return grads if merge_multi_context else [[g] for g in grads]
+        per = [[ex.grad_dict[n] for ex in self.execs]
+               for n in self.data_names]
+        if merge_multi_context:
+            return [self._merge(p) for p in per]
+        return per
 
     def grad_arrays_of(self, name: str) -> List[NDArray]:
-        g = self.execs[0].grad_dict.get(name)
-        return [] if g is None else [g]
+        return [ex.grad_dict[name] for ex in self.execs
+                if ex.grad_dict.get(name) is not None]
 
     def update_metric(self, eval_metric, labels):
         eval_metric.update(labels, self.get_outputs())

@@ -3,16 +3,21 @@ bind, init_params, init_optimizer, forward, backward, update,
 get_outputs, get_input_grads, update_metric, reshape, checkpoints and
 optimizer states.
 
-On one context the executor's step is captured once per signature
+Each executor's step is captured once per signature
 (``symbol/executor.py``), and ``update()`` keeps it valid: the optimizer
-writes each new weight into the executor's argument tensor in place
-(``FusedUpdater.update_all``, itself one captured update per signature,
-for an optimizer with a fused path; the per-parameter ``Updater``
-otherwise), where the JAX package rebinds the arrays.  As in the JAX
-package the gradients are the batch's sum (``rescale_grad`` stays 1
-unless given) and ``Module()`` without a context runs on gpu(0) in the
-port (the JAX package's default is cpu()): a CPU run passes
-``context=cpu()``.
+writes each new weight into the first executor's argument tensor in
+place (``FusedUpdater.update_all``, itself one captured update per
+signature, for an optimizer with a fused path; the per-parameter
+``Updater`` otherwise), where the JAX package rebinds the arrays.  With
+several contexts (``Module(context=[...])``) the batch is sliced over
+one executor per context (``executor_group.py``); ``update()`` sums each
+parameter's gradients through the KVStore of ``init_optimizer`` (push,
+then pull), updates the first executor's weights and copies them into
+the others.  A dist store sums over the ranks too, also with one
+context.  As in the JAX package the gradients are the batch's sum
+(``rescale_grad`` stays 1 unless given) and ``Module()`` without a
+context runs on gpu(0) in the port (the JAX package's default is cpu()):
+a CPU run passes ``context=cpu()``.
 """
 from __future__ import annotations
 
@@ -26,7 +31,7 @@ from .. import kvstore as kvs_mod
 from .. import optimizer as opt_mod
 from .. import random as _random
 from ..base import MXNetError
-from ..context import as_context, resolve
+from ..context import context_list
 from ..io import DataDesc
 from ..ndarray.ndarray import NDArray
 from .base_module import BaseModule, _check_input_names
@@ -41,7 +46,7 @@ class Module(BaseModule):
                  context=None, work_load_list=None, fixed_param_names=None,
                  state_names=None):
         super().__init__(logger=logger)
-        self._context = [as_context(resolve(context))]
+        self._context = context_list(context)
         self._symbol = symbol
         self._data_names = list(data_names or [])
         self._label_names = list(label_names or [])
@@ -159,6 +164,8 @@ class Module(BaseModule):
                     arr._data.fill_(1.0 if name.endswith(
                         ("moving_var", "running_var")) else 0.0)
             self._aux_params[name] = arr.copy()
+        for other in self._exec_group.execs[1:]:
+            other.copy_params_from(self._arg_params, self._aux_params)
         self.params_initialized = True
 
     def init_params_from_loaded(self):
@@ -210,17 +217,39 @@ class Module(BaseModule):
         self._exec_group.backward(out_grads=out_grads)
 
     def update(self):
-        """One optimizer step over every parameter with a gradient, each
-        new weight written into the executor's tensor in place."""
+        """One optimizer step over every parameter with a gradient: the
+        executors' gradients summed through the store (with several
+        contexts, or a dist store), each new weight written into the
+        first executor's tensor in place and copied into the others'."""
         assert self.optimizer_initialized
+        group = self._exec_group
         ex = self._executor()
+        kv = self._kvstore
+        dist = kv is not None and kv.type.startswith("dist")
         idxs, grads, weights = [], [], []
         for i, name in enumerate(self._param_names):
-            g = ex.grad_dict.get(name)
-            if g is not None:
-                idxs.append(i)
-                grads.append(g)
-                weights.append(ex.arg_dict[name])
+            gs = group.grad_arrays_of(name)
+            if not gs:
+                continue
+            if len(gs) == 1 and not dist:
+                agg = gs[0]
+            elif kv is not None:
+                kv.push(i, gs)
+                agg = gs[0].copy()
+                kv.pull(i, out=agg)
+            else:
+                agg = gs[0].copy()
+                for g in gs[1:]:
+                    agg += g.as_in_context(agg.ctx)
+            idxs.append(i)
+            grads.append(agg)
+            weights.append(ex.arg_dict[name])
+        self._apply_update(idxs, grads, weights)
+        for other in group.execs[1:]:
+            for i, w in zip(idxs, weights):
+                other._assign(other.arg_dict[self._param_names[i]], w)
+
+    def _apply_update(self, idxs, grads, weights):
         if isinstance(self._updater, opt_mod.FusedUpdater):
             try:
                 self._updater.update_all(idxs, grads, weights)

@@ -1,9 +1,11 @@
 """NDArray: MXNet's imperative array over a ``torch.Tensor`` (counterpart
 of ``mxnet_tpu/ndarray/ndarray.py``).
 
-  * The payload is a tensor on one device; ``ctx`` is that device's
-    :class:`~mxnet_tpu_torch.context.Context` (``gpu(i)`` or
-    ``cpu(0)``).  PyTorch dispatch on a CUDA device is asynchronous,
+  * The payload is a tensor on one device; ``ctx`` is the
+    :class:`~mxnet_tpu_torch.context.Context` it was placed on (kept
+    beside the tensor, so an array on ``cpu(1)`` says so although every
+    CPU context shares the host device; an op's result takes its first
+    input's), else the tensor's device's (``gpu(i)`` or ``cpu(0)``).  PyTorch dispatch on a CUDA device is asynchronous,
     so ``asnumpy``/``asscalar``/``wait_to_read`` are the sync points, as
     in the JAX package.
   * Operators and methods go through the op registry
@@ -67,7 +69,7 @@ _NARROW = {torch.float64: torch.float32, torch.int64: torch.int32}
 class NDArray:
     """An imperative n-dimensional array on one device."""
 
-    __slots__ = ("_data", "_ag_leaf", "__weakref__")
+    __slots__ = ("_data", "_ag_leaf", "_ctx", "__weakref__")
 
     # make NDArray win over numpy in mixed operators
     __array_priority__ = 1000.0
@@ -85,6 +87,7 @@ class NDArray:
             data = data.to(resolve(ctx))
         self._data = data
         self._ag_leaf = None
+        self._ctx = ctx if isinstance(ctx, Context) else None
 
     # ---- core properties -------------------------------------------------
     @property
@@ -110,6 +113,9 @@ class NDArray:
 
     @property
     def ctx(self) -> Context:
+        c = self._ctx
+        if c is not None and c.torch_device == self._data.device:
+            return c
         return as_context(self._data.device)
 
     context = ctx
@@ -185,7 +191,7 @@ class NDArray:
     def copy(self) -> "NDArray":
         """A copy off the autograd graph (the JAX package's copy is not
         recorded either)."""
-        return NDArray(self._data.detach().clone())
+        return _placed(NDArray(self._data.detach().clone()), self._ctx)
 
     def copyto(self, other):
         if not isinstance(other, NDArray):
@@ -195,13 +201,21 @@ class NDArray:
         return other
 
     def as_in_context(self, ctx) -> "NDArray":
+        """The array on ``ctx``: itself when it is there, else a copy (a
+        Context that shares this array's device but is another one,
+        ``cpu(1)`` for ``cpu(0)``, gets a copy too, as another device
+        would in the JAX package)."""
         dev = resolve(ctx)
-        if dev == self._data.device:
+        if dev == self._data.device and (
+                not isinstance(ctx, Context) or ctx == self.ctx):
             return self
         from .. import autograd
 
         with torch.set_grad_enabled(autograd.is_recording()):
-            return NDArray(self._data.to(dev))
+            out = self._data.to(dev)
+            if out is self._data:
+                out = out.clone()
+            return _placed(NDArray(out), ctx)
 
     as_in_ctx = as_in_context
 
@@ -217,7 +231,7 @@ class NDArray:
     def grad(self) -> Optional["NDArray"]:
         leaf = self._ag_leaf
         g = getattr(leaf, "_mx_grad", None) if leaf is not None else None
-        return NDArray(g) if g is not None else None
+        return _placed(NDArray(g), self._ctx) if g is not None else None
 
     @property
     def grad_req(self) -> str:
@@ -239,7 +253,7 @@ class NDArray:
                           train_mode=train_mode)
 
     def detach(self) -> "NDArray":
-        return NDArray(self._data.detach())
+        return _placed(NDArray(self._data.detach()), self._ctx)
 
     # ---- op plumbing -----------------------------------------------------
     def _op(self, name, *others, **attrs):
@@ -606,7 +620,7 @@ class NDArray:
         from .. import autograd
 
         with torch.set_grad_enabled(autograd.is_recording()):
-            return NDArray(self._data[_key(key)])
+            return _placed(NDArray(self._data[_key(key)]), self._ctx)
 
     def __setitem__(self, key, value):
         """Sliced assignment into the array's own storage, under
@@ -631,12 +645,22 @@ def _norm_axis(axis):
     return int(axis)
 
 
-def wrap_outputs(out):
+def _placed(nd: "NDArray", ctx) -> "NDArray":
+    """``nd`` marked as placed on the Context ``ctx`` (nothing for
+    None); ``ctx`` names the device ``nd``'s tensor is on, or is
+    ignored by :attr:`NDArray.ctx`."""
+    if isinstance(ctx, Context):
+        nd._ctx = ctx
+    return nd
+
+
+def wrap_outputs(out, ctx=None):
     """A function's result (a tensor or a tuple/list of them) as
-    NDArray(s); several outputs come back as a list."""
+    NDArray(s) placed on ``ctx``; several outputs come back as a
+    list."""
     if isinstance(out, (tuple, list)):
-        return [NDArray(o) for o in out]
-    return NDArray(out)
+        return [_placed(NDArray(o), ctx) for o in out]
+    return _placed(NDArray(out), ctx)
 
 
 # ---- creation functions ----------------------------------------------------
@@ -650,7 +674,7 @@ def array(source, ctx=None, dtype=None) -> NDArray:
     dev = resolve(ctx)
     if isinstance(source, NDArray):
         out = source.astype(dtype) if dtype is not None else source.copy()
-        return out.as_in_context(dev)
+        return out.as_in_context(ctx if isinstance(ctx, Context) else dev)
     if isinstance(source, torch.Tensor):
         t = source.detach()
     else:
@@ -663,7 +687,8 @@ def array(source, ctx=None, dtype=None) -> NDArray:
             t = torch.from_numpy(np.ascontiguousarray(src))
     if dtype is None:
         dtype = _NARROW.get(t.dtype, t.dtype)
-    return NDArray(t.to(device=dev, dtype=dtype_of(dtype), copy=True))
+    return _placed(NDArray(t.to(device=dev, dtype=dtype_of(dtype),
+                                copy=True)), ctx)
 
 
 def _shape(shape):
@@ -671,18 +696,19 @@ def _shape(shape):
 
 
 def zeros(shape, ctx=None, dtype=None) -> NDArray:
-    return NDArray(torch.zeros(_shape(shape), dtype=dtype_of(dtype),
-                               device=resolve(ctx)))
+    return _placed(NDArray(torch.zeros(_shape(shape), dtype=dtype_of(dtype),
+                                       device=resolve(ctx))), ctx)
 
 
 def ones(shape, ctx=None, dtype=None) -> NDArray:
-    return NDArray(torch.ones(_shape(shape), dtype=dtype_of(dtype),
-                              device=resolve(ctx)))
+    return _placed(NDArray(torch.ones(_shape(shape), dtype=dtype_of(dtype),
+                                      device=resolve(ctx))), ctx)
 
 
 def full(shape, val, ctx=None, dtype=None) -> NDArray:
-    return NDArray(torch.full(_shape(shape), val, dtype=dtype_of(dtype),
-                              device=resolve(ctx)))
+    return _placed(NDArray(torch.full(_shape(shape), val,
+                                      dtype=dtype_of(dtype),
+                                      device=resolve(ctx))), ctx)
 
 
 def empty(shape, ctx=None, dtype=None) -> NDArray:
@@ -697,7 +723,7 @@ def arange(start, stop=None, step=1.0, repeat=1, ctx=None,
                        device=resolve(ctx))
     if repeat > 1:
         out = out.repeat_interleave(repeat)
-    return NDArray(out)
+    return _placed(NDArray(out), ctx)
 
 
 def concatenate(arrays, axis=0) -> NDArray:

@@ -188,6 +188,7 @@ class CSRNDArray(BaseSparseNDArray):
         self._live = None if live is None else live.to(dev)
         self._shape = tuple(int(s) for s in shape)
         self._ag_leaf = None
+        self._ctx = None
 
     # ---- what NDArray reads from the dense payload -------------------------
     @property

@@ -211,4 +211,6 @@ def invoke(op_name: str, *inputs, **attrs):
             engine._synchronize({t.device for t in outs
                                  if isinstance(t, torch.Tensor)
                                  and t.is_cuda})
-    return wrap_outputs(out)
+    ctx = next((x._ctx for x in inputs if isinstance(x, NDArray)
+                and x._ctx is not None), None)
+    return wrap_outputs(out, ctx)

@@ -167,9 +167,9 @@ class Optimizer:
     # LAMB): such a step takes the eager loop on half weights without a
     # master copy, the JAX package's rule (FusedUpdater.update_all)
     _FUSED_T_HYPER = False
-    # True when fused_apply is elementwise, so that parameters could be
-    # concatenated into flat buckets; LAMB's per-tensor trust ratio sets
-    # it False (nothing in the port concatenates parameters yet)
+    # True when fused_apply is elementwise, so that parameters can be
+    # concatenated into flat buckets (SpmdUpdater's ZeRO buckets); LAMB's
+    # per-tensor trust ratio sets it False
     _FUSED_ELEMENTWISE = True
 
     def fused_static_key(self) -> Optional[Tuple]:
@@ -697,6 +697,14 @@ class LAMB(Optimizer):
                         _opt_ops.lamb_coefs(self.beta1, self.beta2, t))
 
     def fused_apply(self, weight, grad, state, hyper):
+        direction, new_state = self.fused_phase1(weight, grad, state, hyper)
+        return self._phase2(weight, direction, hyper["lr"]), new_state
+
+    # the update in two elementwise phases around the two norms, for a
+    # tensor split into shards (optimizer/spmd.py): phase 1 on each
+    # shard, the norms from the shards' sums of squares, phase 2
+    def fused_phase1(self, weight, grad, state, hyper):
+        """-> (direction, new state)."""
         mean, var = state
         coefs = tuple(hyper[k] for k in _LAMB_COEFS) \
             if self.bias_correction else None
@@ -705,7 +713,13 @@ class LAMB(Optimizer):
             beta2=self.beta2, epsilon=self.epsilon, wd=hyper["wd"],
             rescale_grad=hyper["rescale_grad"],
             clip_gradient=self._fused_clip())
-        return self._phase2(weight, direction, hyper["lr"]), (nm, nv)
+        return direction, (nm, nv)
+
+    def fused_phase2(self, weight, direction, w_norm, d_norm, hyper):
+        return ops.lamb_update_phase2(
+            weight, direction, w_norm, d_norm, lr=hyper["lr"],
+            lower_bound=self.lower_bound or -1.0,
+            upper_bound=self.upper_bound or -1.0)
 
 
 @register("test")

@@ -24,11 +24,18 @@ CUDA tensors, :func:`reduce_scatter` all-reduces the whole buffer and
 keeps block r, and :func:`all_gather_` gathers into a list; each sum is
 then the very one :func:`all_reduce_` gives.
 
+The KVStore's dist stores call three more (``kvstore.py``):
+:func:`allreduce_nd` (an NDArray summed over the ranks; a row-sparse one
+keeps the union of the ranks' rows), :func:`allgather_np` (a host array
+from every rank, stacked) and :func:`abort` (leave at once after a
+collective failed on a dead peer).
+
 Every collective is bounded by the group's timeout (``timeout=`` of
-:func:`init`, else the backend's default), so a dead peer fails the step
-instead of hanging it.  Not
-ported here: the watchdog, the retry policy, the schedule ledger and the
-chaos sites (ROADMAP.md queue A item 7).
+:func:`init`, else ``MXNET_KVSTORE_TIMEOUT`` seconds, else the backend's
+default), so a dead peer fails the step instead of hanging it.  The
+watchdog, the retry policy, the schedule ledger and the chaos sites are
+built on the JAX package's resilience layer and wait for it (ROADMAP.md
+queue A item 10).
 """
 from __future__ import annotations
 
@@ -44,7 +51,8 @@ from ..base import MXNetError
 __all__ = ["BACKENDS", "init", "resolve", "initialized", "rank",
            "num_workers", "backend", "barrier", "shutdown", "all_reduce_sum",
            "all_reduce_", "broadcast_", "flat_buckets", "reduce_scatter",
-           "all_gather_"]
+           "reduce_scatter_start", "all_gather_", "all_gather_list",
+           "all_gather_list_start", "allreduce_nd", "allgather_np", "abort"]
 
 BACKENDS = ("nccl", "gloo")
 # a name each collective shows under in torch.profiler traces
@@ -100,7 +108,9 @@ def init(coordinator_address: Optional[str] = None,
     the same script runs unchanged as one process.  ``DMLC_ROLE`` of
     ``scheduler`` or ``server`` joins nothing: collectives subsume the
     parameter server, and reference launchers that start those roles
-    run unchanged.  ``timeout`` (seconds) bounds every collective."""
+    run unchanged.  ``timeout`` (seconds; default
+    ``MXNET_KVSTORE_TIMEOUT``, unset or 0 for the backend's own) bounds
+    every collective."""
     global _INITIALIZED
     if backend not in BACKENDS:
         raise MXNetError(f"dist.init: backend {backend!r} is not one of "
@@ -128,6 +138,11 @@ def init(coordinator_address: Optional[str] = None,
     if not 0 <= rank_ < world:
         raise MXNetError(f"dist.init: rank {rank_} outside a world of "
                          f"{world}")
+    if timeout is None:
+        from ..util import env
+
+        t = env.get_float("MXNET_KVSTORE_TIMEOUT")
+        timeout = t if t else None
     kw = {} if timeout is None else {
         "timeout": datetime.timedelta(seconds=float(timeout))}
     tdist.init_process_group(backend, init_method=url, world_size=world,
@@ -200,6 +215,12 @@ def broadcast_(t: torch.Tensor, src: int = 0) -> torch.Tensor:
 def reduce_scatter(flat: torch.Tensor) -> torch.Tensor:
     """Block r (this rank's, ``flat.numel() / N`` elements) of the sum of
     the 1-D ``flat`` over every rank.  ``flat`` may be overwritten."""
+    return reduce_scatter_start(flat)()
+
+
+def reduce_scatter_start(flat: torch.Tensor):
+    """:func:`reduce_scatter` issued without waiting (``async_op``):
+    returns the function that waits and gives the block."""
     _require_group("reduce_scatter")
     n = num_workers()
     if flat.numel() % n:
@@ -210,10 +231,15 @@ def reduce_scatter(flat: torch.Tensor) -> torch.Tensor:
     with torch.profiler.record_function(_SPAN + "reduce_scatter"):
         if backend() == "nccl":
             out = torch.empty(k, dtype=flat.dtype, device=flat.device)
-            tdist.reduce_scatter_tensor(out, flat)
-            return out
-        tdist.all_reduce(flat)
-    return flat[r * k:(r + 1) * k]
+            work = tdist.reduce_scatter_tensor(out, flat, async_op=True)
+        else:
+            out = flat[r * k:(r + 1) * k]
+            work = tdist.all_reduce(flat, async_op=True)
+
+    def wait():
+        work.wait()
+        return out
+    return wait
 
 
 def all_gather_(out: torch.Tensor, local: torch.Tensor) -> torch.Tensor:
@@ -266,3 +292,78 @@ def flat_buckets(tensors: Sequence[torch.Tensor], fn) -> None:
                 n = t.numel()
                 t.copy_(flat[off:off + n].view(t.shape))
                 off += n
+
+
+def all_gather_list(t: torch.Tensor):
+    """Every rank's ``t`` (same shape and dtype on each), rank 0's first,
+    as a list of tensors on ``t``'s device."""
+    return all_gather_list_start(t)()
+
+
+def all_gather_list_start(t: torch.Tensor):
+    """:func:`all_gather_list` issued without waiting: returns the
+    function that waits and gives the list."""
+    _require_group("all_gather_list")
+    out = [torch.empty_like(t) for _ in range(num_workers())]
+    with torch.profiler.record_function(_SPAN + "all_gather"):
+        work = tdist.all_gather(out, t.contiguous(), async_op=True)
+
+    def wait():
+        work.wait()
+        return out
+    return wait
+
+
+def _on_group_device(t: torch.Tensor) -> torch.Tensor:
+    """``t`` on a device the group's backend takes (NCCL: this rank's
+    card)."""
+    if backend() == "nccl" and not t.is_cuda:
+        return t.to(torch.device("cuda", torch.cuda.current_device()))
+    return t
+
+
+def allgather_np(value) -> "np.ndarray":
+    """A host array from every rank, stacked on a new first axis in rank
+    order (one process: ``value[None]``)."""
+    import numpy as np
+
+    v = np.ascontiguousarray(np.asarray(value))
+    if num_workers() == 1:
+        return v[None]
+    t = _on_group_device(torch.from_numpy(v.reshape(-1).copy()))
+    parts = all_gather_list(t)
+    return np.stack([p.cpu().numpy().reshape(v.shape) for p in parts])
+
+
+def allreduce_nd(val):
+    """An NDArray summed over every rank (a new array; one process: the
+    array itself).  A row-sparse array stays row-sparse, its rows the
+    union of the ranks' (each rank may hold another number)."""
+    from ..ndarray.ndarray import NDArray
+    from ..ndarray.sparse import RowSparseNDArray
+
+    if num_workers() == 1:
+        return val
+    src = val._data
+    out = all_reduce_(_on_group_device(src.detach().clone()))
+    out = out.to(src.device)
+    if isinstance(val, RowSparseNDArray):
+        mask = torch.zeros(val.shape[0], dtype=torch.int32,
+                           device=src.device)
+        mask[val._aux["indices"]] = 1
+        union = all_reduce_(_on_group_device(mask)).to(src.device)
+        return RowSparseNDArray(out, torch.nonzero(union).reshape(-1))
+    return NDArray(out, ctx=val.ctx)
+
+
+def abort(reason: str = "", code: int = 1) -> None:
+    """Leave this rank at once (after a collective failed on a dead
+    peer, an orderly exit would wait on that peer)."""
+    import sys
+
+    if reason:
+        print(f"[mxnet_tpu_torch.dist] rank {rank()} aborting: {reason}",
+              file=sys.stderr, flush=True)
+    sys.stdout.flush()
+    sys.stderr.flush()
+    os._exit(code)

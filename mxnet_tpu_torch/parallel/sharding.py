@@ -87,7 +87,7 @@ def is_batch_spec(spec, mesh: DeviceMesh) -> bool:
         raise MXNetError(f"partition spec {spec!r}: the port splits only "
                          "dim 0 of an input over the batch axes (sequence "
                          "and tensor parallelism are ROADMAP queue A item "
-                         "7)")
+                         "7, cut (b))")
     return bool(spec) and spec_split(P(spec[0]), mesh) > 1
 
 

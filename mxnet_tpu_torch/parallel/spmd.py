@@ -92,8 +92,12 @@ the step count; a load lands on any dp size and writes into the
 existing storages, so a captured step stays valid.
 
 Not ported in this slice: flat optimizer groups (``MXNET_FUSED_OPTIMIZER``,
-ROADMAP.md queue A item 2), ``forward`` under dp > 1 and the telemetry
-hooks (item 7).
+ROADMAP.md queue A item 2), ``forward`` under dp > 1 (item 7, cut (b))
+and the telemetry hooks (item 10).  MXNet's own data-parallel API
+(``gluon.Trainer`` over replicas and dist KVStores, its ``spmd=True``
+step) is ``gluon/trainer.py``, ``kvstore.py`` and ``optimizer/spmd.py``;
+its ZeRO layout is the flat padded bucket, this trainer's the split of
+each state along one dim.
 """
 from __future__ import annotations
 
@@ -416,7 +420,7 @@ class SPMDTrainer:
                     f"SPMDTrainer: rule spec {spec!r} splits parameter {n} "
                     f"over {self.mesh!r}; the port keeps parameters "
                     "replicated (sharded parameters are ROADMAP queue A "
-                    "item 7)")
+                    "item 7, cut (b))")
         # ZeRO-1: the dim each sharded state splits over the ranks
         self._zero_dims: Dict[str, int] = {}
         if self._shards > 1 and _env.get_bool("MXNET_ZERO_STATES"):

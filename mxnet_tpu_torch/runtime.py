@@ -5,8 +5,8 @@ feature_list()``, ``Features``).
 The key set is the JAX package's; each key is answered for the port:
 CUDA, CUDNN and NCCL from PyTorch, JAX, TPU and XLA_COLLECTIVES False,
 NATIVE_ENGINE from whether ``lib``'s C++ engine builds and loads (the
-first call may run g++), and DIST_KVSTORE False: ``kv.create("dist_*")``
-raises until ROADMAP queue A item 7 ports the distributed stores.
+first call may run g++), and DIST_KVSTORE True: ``kv.create("dist_*")``
+makes a store over the ranks of a ``torch.distributed`` process group.
 """
 from __future__ import annotations
 
@@ -37,7 +37,7 @@ def _probe() -> Dict[str, bool]:
         "INT8": True,
         "NATIVE_ENGINE": lib.available(),
         "OPENCV": importlib.util.find_spec("cv2") is not None,
-        "DIST_KVSTORE": False,
+        "DIST_KVSTORE": True,
         "F16C": True,
     }
 

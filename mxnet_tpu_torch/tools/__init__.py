@@ -1,2 +1,3 @@
-"""Tools of the port that run on the card: ``convbn_probe``, the probe of
-the fused-conv unit's tap-accumulation form."""
+"""Tools of the port: ``convbn_probe`` (the probe of the fused-conv
+unit's tap-accumulation form, on the card), ``launch`` (starts the
+workers of a dist job), ``im2rec``, ``op_sweep`` and ``bench_pipeline``."""

@@ -260,10 +260,7 @@ def trace_knobs() -> tuple:
 # The JAX package's knobs whose readers the port does not have yet,
 # under the ROADMAP queue A item that ports them.
 _QUEUED_KNOBS_BY_ITEM = {
-    "2": ("MXNET_FUSED_BUCKET_BYTES", "MXNET_FUSED_OPTIMIZER"),
-    "7": ("MXNET_KVSTORE_TIMEOUT", "MXNET_SPMD", "MXNET_SPMD_BUCKET_BYTES",
-          "MXNET_COMM_QUANT", "MXNET_COMM_QUANT_EF",
-          "MXNET_COMM_QUANT_MIN_SIZE", "MXNET_COMM_OVERLAP"),
+    "2": ("MXNET_FUSED_OPTIMIZER",),
     # production layers: the kernel-choice and compile caches, autotune,
     # resilience and observability
     "10": ("MXNET_PALLAS_INTERPRET", "MXNET_PALLAS_PROBE_BUDGET",
@@ -355,15 +352,51 @@ declare("MXNET_BACKWARD_DO_MIRROR", bool, False,
         "overrides it per block.")
 
 declare("MXNET_ZERO_STATES", bool, True,
-        "SPMDTrainer under dp > 1: split the optimizer state of each "
-        "large trained tensor over the ranks (ZeRO-1 / arXiv:2004.13336): "
-        "reduce-scatter its gradient, update this rank's block, "
-        "all-gather the weight. 0 keeps every state replicated (the "
-        "gradient sum is then a plain all-reduce).")
+        "SPMDTrainer under dp > 1, and gluon.Trainer(spmd=True)'s "
+        "SpmdUpdater over several replicas or ranks: split the optimizer "
+        "state of each large trained tensor over them (ZeRO-1 / "
+        "arXiv:2004.13336): reduce-scatter its gradient, update this "
+        "shard's block, all-gather the weight. 0 keeps every state "
+        "replicated (the gradient sum is then a plain all-reduce).")
 declare("MXNET_ZERO_MIN_SIZE", int, 2048,
         "Smallest trained tensor (elements) whose optimizer state "
-        "MXNET_ZERO_STATES splits over the ranks; smaller ones stay "
-        "replicated.")
+        "MXNET_ZERO_STATES splits; smaller ones stay replicated.")
+declare("MXNET_FUSED_BUCKET_BYTES", int, 4 << 20,
+        "Bucket size of KVStore.pushpull_fused (gluon.Trainer's gradient "
+        "sum over replicas or ranks): one sum, and one collective on a "
+        "dist store, per this many bytes of dtype-homogeneous dense "
+        "gradients.")
+declare("MXNET_KVSTORE_TIMEOUT", float, None,
+        "Seconds a distributed collective may block before it fails, "
+        "instead of hanging on a dead peer: the process group's timeout "
+        "(parallel.dist.init). Unset/0 = the backend's default.")
+declare("MXNET_SPMD", bool, False,
+        "Route gluon.Trainer.step through SpmdUpdater: one update over "
+        "every replica or rank (gradient reduce-scatter, shard-local "
+        "update, weight all-gather) instead of one update per replica. "
+        "Trainer(spmd=...) overrides per trainer. Falls back to the "
+        "per-replica path, states handed off, for sparse gradients, "
+        "ragged layouts or optimizers without a fused form.")
+declare("MXNET_SPMD_BUCKET_BYTES", int, 0,
+        "Bucket size of SpmdUpdater's ZeRO buckets. 0 = inherit "
+        "MXNET_FUSED_BUCKET_BYTES.")
+declare("MXNET_COMM_QUANT", str, "none",
+        "Wire encoding of SpmdUpdater's bucket collectives (the gradient "
+        "reduce and the weight gather): 'int8' (symmetric linear) or "
+        "'fp8' (e4m3), 1 byte/elem with one fp32 scale per 512-element "
+        "block and error-feedback residuals; 'none' keeps full-precision "
+        "collectives.")
+declare("MXNET_COMM_QUANT_EF", bool, True,
+        "Carry error-feedback residuals for MXNET_COMM_QUANT (the "
+        "quantization remainder re-enters the next step's payload "
+        "before encoding). Disable only for A/B experiments.")
+declare("MXNET_COMM_QUANT_MIN_SIZE", int, 2048,
+        "Smallest bucket (padded elements) MXNET_COMM_QUANT encodes; "
+        "smaller buckets stay full precision.")
+declare("MXNET_COMM_OVERLAP", bool, False,
+        "SpmdUpdater issues each bucket's gradient collective on its own "
+        "(async_op), in reverse bucket order, and waits for them all "
+        "before the updates: the same bits as the one-pass step.")
 
 # -- data -------------------------------------------------------------------
 declare("MXNET_PREFETCH_DEPTH", int, None,

@@ -52,8 +52,12 @@ def test_torch_device_mapping_and_resolve():
     assert tctx.resolve("cuda") == torch.device("cuda", 0)
     assert tctx.resolve("cpu") == torch.device("cpu")
     assert tctx.resolve([mt.cpu()]) == torch.device("cpu")
-    with pytest.raises(MXNetError, match="queue A item 7"):
+    # several contexts name replicas: one device is refused, the list of
+    # contexts is what the replica paths take
+    with pytest.raises(MXNetError, match="replicas over several contexts"):
         tctx.resolve([mt.cpu(), mt.cpu(1)])
+    assert tctx.context_list([mt.cpu(), mt.cpu(1)]) == [mt.cpu(0), mt.cpu(1)]
+    assert tctx.context_list(mt.gpu(1)) == [mt.gpu(1)]
     assert tctx.as_context(torch.device("cuda", 1)) == mt.gpu(1)
     assert tctx.as_context("cpu") == mt.cpu(0)
     with pytest.raises(MXNetError, match="unknown device type"):

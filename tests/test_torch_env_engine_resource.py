@@ -53,7 +53,11 @@ def test_every_jax_knob_is_declared_or_queued():
     assert not port_names & queued, sorted(port_names & queued)
     assert port_names | queued == jax_names, \
         sorted(jax_names - port_names - queued)
-    assert set(env.QUEUED_KNOBS.values()) <= {"2", "7", "10"}
+    assert set(env.QUEUED_KNOBS.values()) <= {"2", "10"}
+    assert {"MXNET_KVSTORE_TIMEOUT", "MXNET_SPMD", "MXNET_SPMD_BUCKET_BYTES",
+            "MXNET_COMM_QUANT", "MXNET_COMM_QUANT_EF",
+            "MXNET_COMM_QUANT_MIN_SIZE", "MXNET_COMM_OVERLAP",
+            "MXNET_FUSED_BUCKET_BYTES"} <= port_names
     assert {"MXNET_ZERO_STATES", "MXNET_ZERO_MIN_SIZE",
             "MXNET_PREFETCH_DEPTH"} <= port_names
     assert {"MXNET_DEFAULT_CONTEXT", "MXNET_ENGINE_TYPE",
@@ -80,7 +84,7 @@ def test_declare_and_read_rules(monkeypatch):
     with pytest.raises(MXNetError, match="declared as str"):
         env.get_int("MXNET_ENGINE_TYPE")
     assert env.is_declared("MXNET_FUSED_CACHE_MAX")
-    assert not env.is_declared("MXNET_SPMD")
+    assert not env.is_declared("MXNET_FUSED_OPTIMIZER")
     monkeypatch.setenv("MXNET_FUSED_CACHE_MAX", "7")
     assert env.get_int("MXNET_FUSED_CACHE_MAX") == 7
     monkeypatch.setenv("MXNET_FUSED_CONVBN", "true")
@@ -128,7 +132,7 @@ def test_generate_docs_lists_every_knob():
 def test_unknown_variable_warns_once(monkeypatch):
     monkeypatch.setattr(env, "_warned_unknown_env", False)
     monkeypatch.setenv("MXNET_ENGINE_TYP", "NaiveEngine")
-    monkeypatch.setenv("MXNET_SPMD", "1")
+    monkeypatch.setenv("MXNET_FUSED_OPTIMIZER", "1")
     monkeypatch.setenv("MXNET_TEST_SEED", "3")
     with warnings.catch_warnings(record=True) as got:
         warnings.simplefilter("always")
@@ -137,7 +141,7 @@ def test_unknown_variable_warns_once(monkeypatch):
     msgs = [str(w.message) for w in got]
     assert sum("MXNET_ENGINE_TYP " in m and "MXNET_ENGINE_TYPE" in m
                for m in msgs) == 1
-    assert sum("MXNET_SPMD" in m and "queue A item 7" in m
+    assert sum("MXNET_FUSED_OPTIMIZER" in m and "queue A item 2" in m
                for m in msgs) == 1
     assert not any("MXNET_TEST_SEED" in m for m in msgs)
 

@@ -289,9 +289,16 @@ def test_local_kvstore_and_gluon_utils():
     outs = [mt.nd.zeros((2, 3), ctx=CPU) for _ in range(2)]
     kv.pushpull(3, [a, a], out=outs)
     assert all((o.asnumpy() == 2.0).all() for o in outs)
-    for name in ("dist_sync", "nccl"):
-        with pytest.raises(MXNetError, match="queue A item 7"):
-            mt.kvstore.create(name)
+    # the collective store ('xla' its alias) and, in one process, a dist
+    # store: one worker, the same sums
+    assert mt.kvstore.create("nccl").type == "nccl"
+    assert mt.kvstore.create("xla").type == "nccl"
+    kd = mt.kvstore.create("dist_sync")
+    assert (kd.type, kd.rank, kd.num_workers) == ("dist_sync", 0, 1)
+    kd.init(3, a)
+    kd.push(3, [a, b])
+    kd.pull(3, out=out)
+    assert (out.asnumpy() == 3.5).all()
     # split_and_load / clip_global_norm against the JAX package
     x = np.arange(24, dtype=np.float32).reshape(6, 4)
     js = mx.gluon.utils.split_and_load(mx.nd.array(x), [mx.cpu()] * 3)
@@ -363,16 +370,36 @@ def test_nag_multi_precision_runs_nag_on_the_master_copy():
 
 
 def test_unported_options_raise():
+    """The options item 7 refused now take a step each as the JAX
+    Trainer's do, on one replica: the SPMD step, 2-bit compression (no
+    round trip for one replica), the update on the store, a dist store in
+    one process (which updates on the store); fp32, 1e-6."""
     net = tnn.Dense(2, in_units=3)
     net.initialize(ctx=CPU)
     ps = net.collect_params()
-    for kw, what in [({"spmd": True}, "item 7"),
-                     ({"compression_params": {"type": "2bit"}}, "item 7"),
-                     ({"update_on_kvstore": True}, "item 7"),
-                     ({"kvstore": "dist_sync"}, "item 7")]:
-        with pytest.raises(MXNetError, match=what):
-            tr = mt.gluon.Trainer(ps, "sgd", **kw)
-            tr.step(1)
+    jd = jnn.Dense(2, in_units=3)
+    jd.initialize(ctx=mx.cpu())
+    w0 = {k: p.data().asnumpy() for k, p in ps.items()}
+    xo = np.random.RandomState(4).randn(4, 3).astype(np.float32)
+    for kw in ({"spmd": True}, {"compression_params": {"type": "2bit"}},
+               {"update_on_kvstore": True}, {"kvstore": "dist_sync"}):
+        got = {}
+        for pkg, n, arr in ((mt, net, mt.nd.array(xo, ctx=CPU)),
+                            (mx, jd, mx.nd.array(xo))):
+            for k, p in n._collect_params_with_prefix().items() \
+                    if pkg is mx else n.collect_params().items():
+                p.set_data(pkg.nd.array(
+                    w0[k], ctx=CPU if pkg is mt else mx.cpu()))
+            tr = pkg.gluon.Trainer(n.collect_params(), "sgd",
+                                   {"learning_rate": 0.1, "momentum": 0.9},
+                                   **kw)
+            for _ in range(2):
+                with pkg.autograd.record():
+                    loss = (n(arr) ** 2).sum()
+                loss.backward()
+                tr.step(4)
+            got[pkg] = n.weight.data().asnumpy()
+        np.testing.assert_allclose(got[mt], got[mx], rtol=1e-6, atol=1e-7)
     # rmsprop, queued before, takes one step as the JAX Trainer does
     jnet = jnn.Dense(2, in_units=3)
     jnet.initialize(ctx=mx.cpu())
@@ -391,8 +418,10 @@ def test_unported_options_raise():
     np.testing.assert_allclose(net.weight.data().asnumpy(),
                                jnet.weight.data().asnumpy(), rtol=1e-6,
                                atol=1e-7)
-    with pytest.raises(MXNetError, match="queue A item 7"):
-        net.initialize(ctx=[CPU, CPU])
+    # a repeated context is one replica, as in the JAX dict
+    twice = tnn.Dense(2, in_units=3)
+    twice.initialize(ctx=[CPU, CPU])
+    assert twice.weight.list_ctx() == [CPU]
 
 
 @pytest.mark.skipif(torch.cuda.is_available(),

@@ -281,14 +281,19 @@ def test_symbol_block_trains_and_matches_the_jax_block():
 
 
 def test_several_contexts_and_unported_parts_raise():
-    with pytest.raises(MXNetError, match="queue A item 7"):
-        TModule(mlp(tmx.sym), context=[tmx.cpu(0), tmx.cpu(1)])
+    # several contexts: one executor each (tests/test_torch_module_replicas
+    # holds them against the JAX Module); a dist store in one process
+    two = TModule(mlp(tmx.sym), context=[tmx.cpu(0), tmx.cpu(1)])
+    two.bind(data_shapes=[("data", (8, 10))],
+             label_shapes=[("softmax_label", (8,))])
+    assert [ex._ctx for ex in two._exec_group.execs] == [
+        tmx.cpu(0).torch_device] * 2
+    assert two._exec_group.slices == [slice(0, 4), slice(4, 8)]
     mod = TModule(mlp(tmx.sym), context=CPU_T)
     mon = tmx.monitor.Monitor(1)
     mod.install_monitor(mon)
     assert mon._modules == [mod]
-    with pytest.raises(MXNetError, match="queue A item 7"):
-        tmx.kv.create("dist_sync")
+    assert tmx.kv.create("dist_sync").num_workers == 1
     import torch
 
     if not torch.cuda.is_available():

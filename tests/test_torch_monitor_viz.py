@@ -156,13 +156,21 @@ NETS = {"lenet": (lenet, {"data": (2, 1, 28, 28)}),
         "resnet": (_resnet_unit, {"data": (2, 3, 16, 16)})}
 
 
+def _built(make, mx_):
+    """``make``'s symbol in ``mx_``, its automatic node names counted in
+    a NameManager of its own: the two packages' process-wide counters
+    differ by whatever other test files built before in this process."""
+    with mx_.name.NameManager():
+        return make(mx_.sym)
+
+
 @pytest.mark.parametrize("net", sorted(NETS))
 @pytest.mark.parametrize("with_shape", [True, False])
 def test_print_summary_text_is_identical(net, with_shape, capsys):
     make, shape = NETS[net]
     out = []
     for mx_ in (jmx, tmx):
-        mx_.visualization.print_summary(make(mx_.sym),
+        mx_.visualization.print_summary(_built(make, mx_),
                                         shape=shape if with_shape else None)
         out.append(capsys.readouterr().out)
     assert out[0] == out[1]
@@ -178,9 +186,9 @@ def test_plot_network_dot_is_identical(net, hide):
 
     def dot(g):
         return g if isinstance(g, str) else g.source
-    j = dot(jmx.visualization.plot_network(make(jmx.sym), title=net,
+    j = dot(jmx.visualization.plot_network(_built(make, jmx), title=net,
                                            hide_weights=hide))
-    t = dot(tmx.viz.plot_network(make(tmx.sym), title=net,
+    t = dot(tmx.viz.plot_network(_built(make, tmx), title=net,
                                  hide_weights=hide))
     assert t == j
     assert t.startswith(f'digraph "{net}"') and ('_weight"' in t) != hide

@@ -40,7 +40,7 @@ def test_features_have_the_jax_key_set():
     jf, tf = mx.runtime.Features(), mt.runtime.Features()
     assert set(tf) == set(jf)
     want = {"JAX": False, "TPU": False, "XLA_COLLECTIVES": False,
-            "DIST_KVSTORE": False, "CPU": True,
+            "DIST_KVSTORE": True, "CPU": True,
             "CUDA": torch.cuda.is_available(),
             "CUDNN": torch.backends.cudnn.is_available(),
             "NATIVE_ENGINE": lib.available()}
