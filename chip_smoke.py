@@ -132,7 +132,7 @@ Phases, each failing loudly (exit code 1, no result line):
    each momentum gathered to full size); rank 0's update and the
    loss are held against phase 5's reference of the same step by phase
    5's per-leaf rule (fp32 against float64 with its witness, bf16
-   against fp32).  Then 3 timed steps a mode and a profile of a fused
+   against fp32).  Then 2 timed steps a mode and a profile of a fused
    step on rank 0 (kernel time, kernel 2's split as in phase 5, the
    collectives' host and device time).
    A rank that fails or outlives its time makes the parent kill every
@@ -176,7 +176,7 @@ Phases, each failing loudly (exit code 1, no result line):
    the same against the fused SPMDTrainer step, within phase 5's
    per-leaf bounds (1.25 x max(op-granular's distance to the fp32 step)
    + 2e-2 on phase 5's checked leaves, the loss within 2e-2), and 52
-   forward and 46 backward kernel launches in the step; then 3 timed
+   forward and 46 backward kernel launches in the step; then 2 timed
    steps of each trainer in turns (gluon, SPMD, SPMD, gluon) after a
    warm-up step each, 52/46 launches a step held, their ratio printed,
    and a torch.profiler idle share of each; the
@@ -234,7 +234,7 @@ Phases, each failing loudly (exit code 1, no result line):
    cast to bf16, ssd_batch("full") (RandomState(0): batch 32 at 300x300,
    the images cast to bf16, 2078 anchors' random targets), make_mesh(dp=
    1) + SPMDTrainer with sgd lr 0.01, momentum 0.9, wd 5e-4: one warm-up
-   and 5 timed captured steps (img/s, ms a step, finite losses, an idle
+   and 3 timed captured steps (img/s, ms a step, finite losses, an idle
    share, the capture's seconds and the pool's GiB); (b) 3 replays
    against 3 eager steps from one state, bit for bit (as phase 5); (d)
    the trained net's hybridized inference forward at batch 32 in bf16,
@@ -261,9 +261,9 @@ Phases, each failing loudly (exit code 1, no result line):
    NDArrayIter of seeded synthetic images (numpy's default_rng(0), batch
    64, no shuffle) with sgd lr 0.1, momentum 0.9, wd 1e-4 and
    rescale_grad 1/64 (MXNet's own Module default): one epoch of 4
-   batches, then 5 timed captured steps (forward_backward + update:
+   batches, then 3 timed captured steps (forward_backward + update:
    the executor's train step and FusedUpdater's update, each one CUDA
-   graph) and 5 eager ones (_graphs.no_capture), ms a step, img/s, an
+   graph) and 3 eager ones (_graphs.no_capture), ms a step, img/s, an
    idle share of each, the captures' seconds and pools' GiB; cuDNN's
    default fp32 algorithms are not deterministic (the count of tensors
    in which two eager steps from one state differ is printed), so a
@@ -329,7 +329,7 @@ Phases, each failing loudly (exit code 1, no result line):
    per-parameter Updater from the same state, bit for bit (weights,
    masters, states; one build), and the card's eager update against the
    port's CPU update of the same inputs: every fp32 tensor within 1e-5 of
-   its largest magnitude, every bf16 weight within one bf16 ulp; then 5
+   its largest magnitude, every bf16 weight within one bf16 ulp; then 3
    captured updates timed (ms an update).  (b) BERT-base MLM+NSP (phase 9's
    dropout-0 net and batch, from its weights) through phase 12 (a)'s
    hybridized gluon.Trainer loop with LAMB (lr 1e-3, multi_precision):
@@ -414,8 +414,8 @@ Phases, each failing loudly (exit code 1, no result line):
    a local store with lazy SGD (momentum 0.9); 5 epochs.  Held: the
    loss falls from ln 2 (each epoch's mean below the last, the last
    below ln 2 - 0.05); moving each CSR batch to the card takes at most
-   1.1x its compact bytes (the allocator's peak, from an emptied
-   cache); the rows no batch touched are their initial bits after step
+   1.1x its compact bytes (the allocator's peak, in a memory pool of
+   its own); the rows no batch touched are their initial bits after step
    1 and at the end; the card's weights after epoch 1 within
    2^-20 (of their largest magnitude) of a CPU run of the port.  Prints
    ms a step and the share of the run spent parsing.  (c) lazy updates
@@ -668,6 +668,33 @@ Phases, each failing loudly (exit code 1, no result line):
    1e-5 relative L2 of the same steps on [cpu(0), cpu(1)].  It prints
    its seconds (limit 90 s) and one `kvstore: {...}` line; kernels 1 and
    2 are then checked at the per-rank shapes (N = 32, with statistics).
+23. Sharded meshes (ROADMAP queue A item 7, cut (b); no kernel of its
+   own; alone: `python -c "import chip_smoke as c; card =
+   c.phase_device(); c.phase_build(); c.phase_sharded(card,
+   c.phase_kernels_attention(card))"`).  Two ranks started once by the
+   port's launcher (gloo on cuda:0 with one card, NCCL on cuda:0..1 with
+   two or more) run, in order: (c) SPMDTrainer.forward of BERT-base
+   (bf16, Normal(0.02) weights from a seed) at dp = 2, each rank its 16
+   rows, which must come back as the global batch of 32 and lie within
+   2e-2 relative L2 of this process's dp = 1 forward; (a) config 3's
+   BERT-base step (bf16, batch 32 x 128, Adam lr 1e-4, dropout 0)
+   through SPMDTrainer with DEFAULT_RULES under make_mesh(fsdp=2) and
+   under make_mesh(tp=2): step 1's loss (relative) and the updated
+   word_embed, layer 0's query and ffn_2 weights and their Adam means
+   (relative L2; the mean catches an n-fold gradient) within 2e-2 of a
+   dp = 1 step of the same weights and batch in this process; then 2
+   counted steps with the kernel counters at 0, 12 kernel-5 launches a
+   step on each rank; ms a step, each rank's trained-parameter bytes
+   (fsdp: 0.45-0.55 of dp = 1's; every split tensor exactly halved),
+   optimizer-state bytes and peak memory; (b) the long-context LM of
+   mxnet_tpu_torch/examples/long_context_lm.py at its width (64 units, 4
+   heads, 2 layers, vocabulary 512, batch 4) at L = 8192 on dp = 1 x
+   sp = 2 (4096 tokens a rank), by ring and by Ulysses, 10 Adam steps:
+   step 0's loss within 1e-4 of an sp = 1 step of the same weights in
+   this process, the loss falling, the ranks' losses equal; ms a step and
+   peak memory.  Kernel 5 is checked at the fsdp ranks' shape (batch
+   16).  It prints its seconds (limit 90 s) and one `sharded: {...}`
+   line, and adds kernel 5's launches on both paths to the kernels line.
 
 The compiled paths (mxnet_tpu_torch._graphs): every SPMDTrainer step on one
 device, every hybridized forward in inference and under record() (a
@@ -768,7 +795,7 @@ KERNEL_TAP = {"name": "candidate_tap", "route": "cuda",
 KERNEL_BWD = {"name": "fused_conv_unit_bwd", "route": "cuda",
               "source": "mxnet_tpu_torch/csrc/fused_convbn_bwd.cu",
               "replaces": "mxnet_tpu/ops/pallas_convbn.py:283"}
-TRAIN_BATCH, TRAIN_STEPS = 256, 3     # bench.py's batch; timed steps a mode
+TRAIN_BATCH, TRAIN_STEPS = 256, 2     # bench.py's batch; timed steps a mode
 TRAIN_FP32_BATCH = 8
 TRAIN_OPT = {"learning_rate": 0.1, "momentum": 0.9, "wd": 1e-4}
 FWD_PER_STEP, BWD_PER_STEP = 52, 46   # fused units; the stride-1 ones
@@ -847,7 +874,7 @@ KERNEL_ATT_DECODE = dict(KERNEL_ATT,
                          name="dot_product_attention/greedy_decode")
 # phase 10: bench_all.py's config 4 (SSD-300-ResNet50) through SPMDTrainer
 # (sgd lr 0.01, momentum 0.9, wd 5e-4), its detection and the example
-SSD_TIMED_STEPS = 5              # captured, after one warm-up step
+SSD_TIMED_STEPS = 3              # captured, after one warm-up step
 SSD_CHECK_BATCH = 4              # (c): the fp32 card step against the cpu
 SSD_BOUNDS = dict(loss=1e-4, leaf=1e-3, bf16_loss=2e-2)
 SSD_NMS_TOPK = (100, -1)         # the example's cap; the op's default
@@ -855,7 +882,7 @@ SSD_DET_TOL = 1e-6
 SSD_EXAMPLE_ARGS = ["--batch-size", "8", "--steps", "3"]
 # phase 11: MXNet's symbolic API (Module.fit of ResNet-50 v1 over mx.sym;
 # the kernels through sym.dot_product_attention and sym.FusedConvUnit)
-SYM_BATCH, SYM_FIT_BATCHES, SYM_TIMED_STEPS = 64, 4, 5
+SYM_BATCH, SYM_FIT_BATCHES, SYM_TIMED_STEPS = 64, 4, 3
 SYM_OPT = {"learning_rate": 0.1, "momentum": 0.9, "wd": 1e-4,
            "rescale_grad": 1.0 / 64}
 SYM_CHECK_BATCH = 8
@@ -1005,9 +1032,17 @@ def graph_ms(fn, launches=10, reps=3):
     torch.cuda.current_stream().wait_stream(side)
     torch.cuda.synchronize()
     g = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(g):
-        for _ in range(launches):
-            fn()
+    # torch.cuda.graph's capture, without the empty_cache it makes
+    # before each one (about 23 ms, a few hundred times a run)
+    cap = torch.cuda.Stream()
+    with torch.cuda.stream(cap):
+        g.capture_begin()
+        try:
+            for _ in range(launches):
+                fn()
+        finally:
+            g.capture_end()
+    torch.cuda.current_stream().wait_stream(cap)
     g.replay()
     torch.cuda.synchronize()
     a = torch.cuda.Event(enable_timing=True)
@@ -5627,7 +5662,7 @@ OPT_CASES = [("sgd", {"momentum": 0.9, "wd": 0.01}), ("sgd", {}),
              ("rmsprop", {}), ("rmsprop", {"centered": True}), ("ftrl", {}),
              ("signum", {"momentum": 0.9}), ("signsgd", {}), ("lamb", {}),
              ("test", {})]
-OPT_STEPS, OPT_TIMED = 2, 5   # steps held (3 before phase 21, the
+OPT_STEPS, OPT_TIMED = 2, 3   # steps held (3 before phase 21, the
 # script's time); captured updates timed after
 OPT_RESCALE = 0.5
 OPT_BOUND = 1e-5   # card vs CPU, of each fp32 tensor's largest magnitude
@@ -5687,12 +5722,14 @@ def optimizer_case(name, kw, mp, shapes, card, dev=None):
     from mxnet_tpu_torch.optimizer import fused as ofused
 
     dev = dev or torch.device("cuda", 0)
-    gen = torch.Generator().manual_seed(13)
+    # drawn on the card (the CPU's generator took seconds a case), the
+    # CPU run gets copies of the same values
+    gen = torch.Generator(device=dev).manual_seed(13)
     dt = torch.bfloat16 if mp else torch.float32
-    ws = [torch.randn(s, generator=gen).to(dt) for s in shapes]
-    gs_cpu = [[(0.1 * torch.randn(s, generator=gen)).to(dt) for s in shapes]
-              for _ in range(OPT_STEPS)]
-    gs = [[t.to(dev) for t in step] for step in gs_cpu]
+    ws = [torch.randn(s, generator=gen, device=dev).to(dt) for s in shapes]
+    gs = [[(0.1 * torch.randn(s, generator=gen, device=dev)).to(dt)
+           for s in shapes] for _ in range(OPT_STEPS)]
+    gs_cpu = [[t.cpu() for t in step] for step in gs]
     n0 = ofused.compile_stats()["count"]
     cw, cs, upd, args = optimizer_run(name, kw, mp, ws, gs, dev, True)
     builds = ofused.compile_stats()["count"] - n0
@@ -6763,18 +6800,22 @@ def linear_train(path, dev, epochs, w0, feats=AVAZU_FEATURES,
     snaps["last"] = w_full._data.detach().cpu().clone()
     if cuda:
         # each batch's bytes on the card: the peak the allocator holds
-        # for its move there, from an emptied cache (a cached block
-        # larger than the request would count whole)
+        # for its move there, in a memory pool of its own (a cached block
+        # larger than the request would count whole, and an emptied
+        # cache still keeps the free blocks of segments that other live
+        # tensors hold, so the figure moved with the earlier phases)
         it.reset()
         for batch_ in it:
             torch.cuda.synchronize()
             torch.cuda.empty_cache()
+            pool = torch.cuda.MemPool()
             torch.cuda.reset_peak_memory_stats()
             before = torch.cuda.memory_allocated()
-            csr = batch_.data[0].as_in_context(ctx)
+            with torch.cuda.use_mem_pool(pool):
+                csr = batch_.data[0].as_in_context(ctx)
             nbytes.append((torch.cuda.max_memory_allocated() - before,
                            csr.nbytes_compact()))
-            del csr
+            del csr, pool
     return dict(losses=losses, step_s=step_s, parse_s=parse_s,
                 nbytes=nbytes, snaps=snaps)
 
@@ -9132,7 +9173,7 @@ def phase_quant(card):
 # phase 20: user-defined operators, control flow and ONNX
 # ---------------------------------------------------------------------------
 
-CO = dict(batch=64, hw=224, classes=1000, fit_batches=3, steps=3, timed=5,
+CO = dict(batch=64, hw=224, classes=1000, fit_batches=3, steps=3, timed=3,
           windows=4, sig_rows=64, sig_width=1024,
           # PTB "medium" (Zaremba et al. 2014): 2 x 650 LSTM, 35 steps,
           # vocabulary 10,000, batch 20; no dropout (the bit-for-bit check)
@@ -10674,12 +10715,13 @@ def kv_rank(out_dir, backend, devices):
     return 1 if FAILURES or res["jax_imported"] else 0
 
 
-def kv_launch(out_dir, backend, devices):
+def launch_ranks(flag, out_dir, backend, devices, timeout):
     """The ranks, started as an MXNet user starts a dist job: the port's
-    tools/launch.py -n DP --launcher local (which ends every rank when one
-    fails; run by its path, so the launcher itself imports no torch);
-    killed, with every process of its session, at KV_TIMEOUT.  Returns
-    the launcher's exit code (None: timed out)."""
+    tools/launch.py -n len(devices) --launcher local (which ends every
+    rank when one fails; run by its path, so the launcher itself imports
+    no torch), each rank this script with ``flag``; killed, with every
+    process of its session, at ``timeout``.  Returns the launcher's exit
+    code (None: timed out)."""
     import signal
 
     env = {k: v for k, v in os.environ.items()
@@ -10687,8 +10729,8 @@ def kv_launch(out_dir, backend, devices):
     here = os.path.dirname(os.path.abspath(__file__))
     cmd = [sys.executable, os.path.join(here, "mxnet_tpu_torch", "tools",
                                         "launch.py"), "-n",
-           str(DP), "--launcher", "local", sys.executable,
-           os.path.abspath(__file__), "--kv-rank", "--dp-dir", out_dir,
+           str(len(devices)), "--launcher", "local", sys.executable,
+           os.path.abspath(__file__), flag, "--dp-dir", out_dir,
            "--dp-backend", backend, "--dp-devices", ",".join(devices)]
     log_path = os.path.join(out_dir, "launch.log")
     with open(log_path, "w") as log:
@@ -10696,7 +10738,7 @@ def kv_launch(out_dir, backend, devices):
                              stderr=subprocess.STDOUT,
                              start_new_session=True)
         try:
-            rc = p.wait(timeout=KV_TIMEOUT)
+            rc = p.wait(timeout=timeout)
         except subprocess.TimeoutExpired:
             rc = None
         finally:
@@ -10973,7 +11015,7 @@ def phase_kvstore(card):
     mode = f"{DP} ranks, backend {backend}, devices {','.join(devices)}"
     print(f"kvstore: {mode}, ResNet-50 v1 fused bf16, a rank's batch "
           f"{KV_BATCH}, SGD {TRAIN_OPT} [{card}]", flush=True)
-    rc = kv_launch(out_dir, backend, devices)
+    rc = launch_ranks("--kv-rank", out_dir, backend, devices, KV_TIMEOUT)
     t_ranks = time.perf_counter() - t0
     res = {"mode": mode, "backend": backend, "ranks": DP, "cases": {},
            "launches": {"fwd": 0, "bwd": 0}}
@@ -11140,19 +11182,392 @@ def attention_summary(recs, launches):
                 events_ms=r["events_ms"] * BERT_LAYERS)
 
 
+# ---------------------------------------------------------------------------
+# phase 23: sharded meshes (ROADMAP queue A item 7, cut (b))
+# ---------------------------------------------------------------------------
+
+SHARD_RANKS = 2
+SHARD_SEED = 26
+SHARD_STEPS = 2        # counted BERT steps a case, after one (step 1)
+SHARD_CASES = ("fsdp", "tp")
+# the tensors held against the dp = 1 step: weights after step 1 and
+# their Adam means (the mean catches an n-fold gradient, which Adam's
+# first step, about lr * sign(g), would not show in the weights)
+SHARD_TRACKED = ("bert.word_embed.weight",
+                 "bert.encoder.layers.0.attention.query.weight",
+                 "bert.encoder.layers.0.ffn.ffn_2.weight")
+SHARD_BOUND = 2e-2     # bf16: rel of step 1's loss, rel L2 of each tensor
+SHARD_LM = dict(units=64, heads=4, layers=2, vocab=512, batch=4, seq=8192)
+SHARD_LM_STEPS = 10
+SHARD_LM_BOUND = 1e-4  # fp32: step 0's loss, ring / Ulysses vs sp = 1
+SHARD_TIMEOUT = 300.0  # s, the ranks' whole run, their start included
+SHARD_SECONDS = 90.0   # the phase's limit
+
+
+def shard_bert(dev, batch):
+    """Config 3's BERT-base step at dropout 0, Normal(0.02) weights from
+    SHARD_SEED, warmed on the batch's model inputs, bf16, on ``dev``;
+    with a snapshot of its state to restore between cases."""
+    from mxnet_tpu_torch import init
+    from mxnet_tpu_torch.examples import bench_steps as bs
+
+    step = bs.init_step(bs.bert_step("full", dropout=0.0), init.Normal(0.02),
+                        ctx=dev, seed=SHARD_SEED, dtype="bfloat16",
+                        warm=batch[:3])
+    return step, snapshot(step)
+
+
+def shard_restore(step, w0):
+    """The snapshot back in ``step``, whole tensors where a sharded
+    trainer left blocks."""
+    with torch.no_grad():
+        for k, v in step.state_dict(keep_vars=True).items():
+            if tuple(v.shape) != tuple(w0[k].shape):
+                v.data = w0[k].clone()
+            else:
+                v.copy_(w0[k])
+
+
+def shard_tracked(tr):
+    """{name: (weight, Adam mean)} of SHARD_TRACKED as global tensors (a
+    collective over the trainer's mesh)."""
+    return {n: (tr.value_full(tr.params[n]).cpu().clone(),
+                tr.state_full(n)[0].cpu().clone()) for n in SHARD_TRACKED}
+
+
+def shard_rank(out_dir, backend, devices):
+    """One rank of phase 23, started by the port's tools/launch.py: (c)
+    SPMDTrainer.forward of BERT-base at dp = 2; (a) BERT-base trained at
+    fsdp = 2 and at tp = 2 (step 1, then SHARD_STEPS counted steps with
+    the kernel counters set to 0 just before and read just after); (b)
+    the long-context LM at dp = 1 x sp = 2, ring and Ulysses.  Rank 0
+    saves its tensors; both write their records."""
+    from mxnet_tpu_torch import parallel
+    from mxnet_tpu_torch.examples import bench_steps as bs
+    from mxnet_tpu_torch.examples import long_context_lm as lm
+
+    rank = int(os.environ["DMLC_WORKER_ID"])
+    dev = torch.device(devices[rank])
+    torch.cuda.set_device(dev)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    parallel.dist.init(backend=backend, timeout=DP_COLLECTIVE_TIMEOUT)
+    res = {"rank": rank, "cases": {}, "lm": {}}
+    saved = {}
+    batch = bs.bert_batch("full", seed=0, ctx=dev)
+    step, w0 = shard_bert(dev, batch)
+    dense = sum(p.numel() * p.element_size()
+                for n, p in step.named_parameters())
+    # (c) the forward at dp = 2: each rank its 16 rows, gathered
+    mesh = parallel.make_mesh(dp=SHARD_RANKS, devices=devices)
+    tr = parallel.SPMDTrainer(step.bert, bs.Identity(), "adam",
+                              {"learning_rate": BERT_TRAIN_LR}, mesh=mesh,
+                              n_labels=0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    seq, pooled = tr.forward(*batch[:3])
+    torch.cuda.synchronize()
+    res["forward"] = dict(ms=(time.perf_counter() - t0) * 1e3,
+                          shapes=[list(seq.shape), list(pooled.shape)])
+    saved["forward"] = (seq.cpu(), pooled.cpu())
+    del tr, seq, pooled
+    # (a) BERT-base at fsdp = 2 and at tp = 2 with DEFAULT_RULES
+    for case in SHARD_CASES:
+        shard_restore(step, w0)
+        gc_cuda()
+        torch.cuda.reset_peak_memory_stats(dev)
+        mesh = parallel.make_mesh({case: SHARD_RANKS}, devices=devices)
+        tr = bs.spmd_trainer(step, BERT_TRAIN_LR, mesh=mesh)
+        loss1 = float(tr.step(*batch))
+        saved[case] = shard_tracked(tr)
+        torch.cuda.synchronize()
+        reset_kernel_counts()
+        ms = []
+        for _ in range(SHARD_STEPS):
+            t0 = time.perf_counter()
+            float(tr.step(*batch))
+            ms.append((time.perf_counter() - t0) * 1e3)
+        counts = kernel_counts()
+        split = list(tr._specs)
+        res["cases"][case] = dict(
+            loss1=loss1, ms=ms, launches=counts,
+            param_bytes=sum(p.numel() * p.element_size()
+                            for p in tr.params.values()),
+            dense_bytes=dense,
+            split=len(split),
+            split_bytes=sum(tr.params[n].numel() * tr.params[n].element_size()
+                            for n in split),
+            split_full_bytes=sum(math.prod(tr._shapes[n])
+                                 * tr.params[n].element_size()
+                                 for n in split),
+            state_bytes=sum(s.numel() * s.element_size()
+                            for st in tr.opt_state.values() for s in st),
+            peak_bytes=torch.cuda.max_memory_allocated(dev),
+            specs={n: repr(tr._specs[n]) for n in SHARD_TRACKED
+                   if n in tr._specs})
+        del tr
+    del step, w0
+    gc_cuda()
+    # (b) the long-context LM at dp = 1 x sp = 2
+    c = SHARD_LM
+    tokens, labels = lm.lm_data(c["batch"], c["seq"], c["vocab"])
+    mesh = parallel.make_mesh(dp=1, sp=SHARD_RANKS, devices=devices)
+    for method in ("ring", "ulysses"):
+        gc_cuda()
+        torch.cuda.reset_peak_memory_stats(dev)
+        net = lm.build_lm(method, c["units"], c["heads"], c["vocab"],
+                          c["layers"], ctx=dev, seed=0)
+        tr = lm.trainer_for(net, mesh)
+        losses, ms = [], []
+        for _ in range(SHARD_LM_STEPS):
+            t0 = time.perf_counter()
+            losses.append(float(tr.step(tokens, labels)))
+            ms.append((time.perf_counter() - t0) * 1e3)
+        res["lm"][method] = dict(losses=losses, ms=ms,
+                                 peak_bytes=torch.cuda.max_memory_allocated(
+                                     dev))
+        del net, tr
+    res["jax_imported"] = sorted(
+        m for m in sys.modules if m == "jax" or m.startswith("jax.")
+        or m == "mxnet_tpu" or m.startswith("mxnet_tpu."))
+    if rank == 0:
+        torch.save(saved, os.path.join(out_dir, "rank0.pt"))
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(res, f)
+    parallel.dist.barrier()
+    return 0
+
+
+def gc_cuda():
+    import gc
+
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def phase_sharded(card, recs_att):
+    """Phase 23: sharded meshes on the card (ROADMAP queue A item 7, cut
+    (b)).  Two ranks started once by the port's tools/launch.py (gloo on
+    one card; NCCL when there are two) run shard_rank; this process holds
+    their results against dp = 1 and sp = 1 runs of the same weights, and
+    kernel 5 at the fsdp ranks' shape (batch 16) against its plain
+    version."""
+    from mxnet_tpu_torch import _graphs as graphs
+    from mxnet_tpu_torch import parallel
+    from mxnet_tpu_torch.examples import bench_steps as bs
+    from mxnet_tpu_torch.examples import long_context_lm as lm
+    import shutil
+
+    t0 = time.perf_counter()
+    out_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "build", "chip_smoke_shard")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    os.makedirs(out_dir)
+    gc_cuda()
+    if torch.cuda.device_count() >= SHARD_RANKS:
+        backend = "nccl"
+        devices = [f"cuda:{r}" for r in range(SHARD_RANKS)]
+    else:
+        backend, devices = "gloo", ["cuda:0"] * SHARD_RANKS
+    mode = (f"{SHARD_RANKS} ranks, backend {backend}, devices "
+            f"{','.join(devices)}")
+    print(f"sharded: {mode}; BERT-base bf16 batch {BATCH} at fsdp=2 and "
+          f"tp=2, the LM at dp=1 x sp=2, L={SHARD_LM['seq']} [{card}]",
+          flush=True)
+    rc = launch_ranks("--shard-rank", out_dir, backend, devices,
+                      SHARD_TIMEOUT)
+    t_ranks = time.perf_counter() - t0
+    res = {"mode": mode, "backend": backend, "ranks": SHARD_RANKS,
+           "launches": {c: 0 for c in SHARD_CASES}}
+    if rc != 0:
+        fail(f"sharded: the launcher exited {rc}")
+        return res, []
+    ranks = []
+    for r in range(SHARD_RANKS):
+        with open(os.path.join(out_dir, f"rank{r}.json")) as f:
+            ranks.append(json.load(f))
+    saved = torch.load(os.path.join(out_dir, "rank0.pt"))
+    for rk in ranks:
+        if rk["jax_imported"]:
+            fail(f"sharded: rank {rk['rank']} loaded {rk['jax_imported']}")
+    dev = torch.device("cuda", 0)
+    batch = bs.bert_batch("full", seed=0, ctx=dev)
+    step, w0 = shard_bert(dev, batch)
+    # (c) the dp = 1 forward of the same weights
+    tr = parallel.SPMDTrainer(step.bert, bs.Identity(), "adam",
+                              {"learning_rate": BERT_TRAIN_LR},
+                              mesh=parallel.make_mesh(dp=1), n_labels=0)
+    seq, pooled = (t.cpu() for t in tr.forward(*batch[:3]))
+    del tr
+    got = saved["forward"]
+    fwd_err = [rel_l2(got[0], seq), rel_l2(got[1], pooled)]
+    shapes = ranks[0]["forward"]["shapes"]
+    res["forward"] = dict(rel_l2=fwd_err, shapes=shapes,
+                          ms=[rk["forward"]["ms"] for rk in ranks])
+    print(f"sharded (c): SPMDTrainer.forward at dp=2 gives {shapes} "
+          f"(global batch {BATCH}); rel L2 to the dp=1 forward: seq "
+          f"{fwd_err[0]:.3g}, pooled {fwd_err[1]:.3g} (bound "
+          f"{BERT_BOUNDS['bf16']}); ms {[round(rk['forward']['ms'], 2) for rk in ranks]} "
+          f"[{card}]", flush=True)
+    if shapes != [[BATCH, BERT_SEQ, BERT_UNITS], [BATCH, BERT_UNITS]] \
+            or max(fwd_err) > BERT_BOUNDS["bf16"]:
+        fail("sharded (c): the dp=2 forward is not the dp=1 forward")
+    # (a) the dp = 1 step of the same weights and batch
+    tr = bs.spmd_trainer(step, BERT_TRAIN_LR)
+    with graphs.no_capture():
+        loss_ref = float(tr.step(*batch))
+    ref = shard_tracked(tr)
+    dense_trained = sum(p.numel() * p.element_size()
+                        for p in tr.params.values())
+    del tr, step, w0
+    gc_cuda()
+    for case in SHARD_CASES:
+        recs = [rk["cases"][case] for rk in ranks]
+        rec = recs[0]
+        dl = abs(rec["loss1"] - loss_ref) / abs(loss_ref)
+        errs, same = {}, 0
+        for n in SHARD_TRACKED:
+            w, m = saved[case][n]
+            errs[n] = (rel_l2(w, ref[n][0]), rel_l2(m, ref[n][1]))
+            same += int(torch.equal(w, ref[n][0]))
+        want = BERT_LAYERS * SHARD_STEPS
+        ratio = [r_["param_bytes"] / dense_trained for r_ in recs]
+        split_ratio = [r_["split_bytes"] / max(r_["split_full_bytes"], 1)
+                       for r_ in recs]
+        res[case] = dict(
+            loss1=rec["loss1"], loss_ref=loss_ref, loss_rel=dl,
+            rel_l2={n: list(e) for n, e in errs.items()},
+            bit_identical=same, ms=[r_["ms"] for r_ in recs],
+            launches=[r_["launches"] for r_ in recs],
+            param_bytes=[r_["param_bytes"] for r_ in recs],
+            dense_param_bytes=dense_trained, param_ratio=ratio,
+            split_tensors=rec["split"], split_ratio=split_ratio,
+            state_bytes=[r_["state_bytes"] for r_ in recs],
+            peak_gib=[r_["peak_bytes"] / 2 ** 30 for r_ in recs],
+            specs=rec["specs"])
+        res["launches"][case] = rec["launches"]["k5"]
+        print(f"sharded (a) {case}=2: step 1 loss {rec['loss1']:.6f} vs "
+              f"dp=1 {loss_ref:.6f} (rel {dl:.3g}); weight / Adam mean rel "
+              f"L2 to dp=1 "
+              f"{ {n.split('.')[-2]: [round(x, 6) for x in e] for n, e in errs.items()} } "
+              f"(bound {SHARD_BOUND}), {same} of {len(SHARD_TRACKED)} "
+              f"weights bit for bit; specs {rec['specs']}; {rec['split']} "
+              f"tensors split; ms a step per rank "
+              f"{[[round(x, 2) for x in r_['ms']] for r_ in recs]}; kernel 5 "
+              f"launches per rank {[r_['launches']['k5'] for r_ in recs]} "
+              f"(want {want}); trained-parameter bytes per rank "
+              f"{[r_['param_bytes'] for r_ in recs]} = "
+              f"{[round(x, 4) for x in ratio]} of dp=1's {dense_trained}; "
+              f"split tensors at {[round(x, 4) for x in split_ratio]} of "
+              f"their size; optimizer state "
+              f"{[r_['state_bytes'] for r_ in recs]} B; peak "
+              f"{[round(r_['peak_bytes'] / 2 ** 30, 2) for r_ in recs]} GiB "
+              f"[{mode}] [{card}]", flush=True)
+        if dl > SHARD_BOUND or any(max(e) > SHARD_BOUND
+                                   for e in errs.values()):
+            fail(f"sharded (a) {case}: step 1 differs from dp=1")
+        for r_ in recs:
+            if r_["launches"] != {"k1": 0, "k2": 0, "k5": want, "k6": 0}:
+                fail(f"sharded (a) {case}: launches {r_['launches']}")
+            if abs(r_["split_bytes"] * SHARD_RANKS
+                   - r_["split_full_bytes"]) or not r_["split"]:
+                fail(f"sharded (a) {case}: split tensors not halved")
+        if case == "fsdp" and not all(0.45 < x < 0.55 for x in ratio):
+            fail(f"sharded (a) fsdp: parameter bytes {ratio} of dp=1's")
+    # (b) the LM: step 0 of the same weights at sp = 1
+    c = SHARD_LM
+    tokens, labels = lm.lm_data(c["batch"], c["seq"], c["vocab"])
+    net = lm.build_lm("ring", c["units"], c["heads"], c["vocab"],
+                      c["layers"], ctx=dev, seed=0)
+    tr = lm.trainer_for(net, parallel.make_mesh(dp=1))
+    torch.cuda.reset_peak_memory_stats(dev)
+    with graphs.no_capture():
+        t1 = time.perf_counter()
+        l0 = float(tr.step(tokens, labels))
+        ms1 = (time.perf_counter() - t1) * 1e3
+    peak1 = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    del net, tr
+    gc_cuda()
+    res["lm"] = {"sp1": dict(loss0=l0, ms=ms1, peak_gib=peak1)}
+    for method in ("ring", "ulysses"):
+        recs = [rk["lm"][method] for rk in ranks]
+        losses = recs[0]["losses"]
+        d0 = abs(losses[0] - l0) / abs(l0)
+        res["lm"][method] = dict(
+            losses=losses, loss0_rel=d0, ms=[r_["ms"] for r_ in recs],
+            peak_gib=[r_["peak_bytes"] / 2 ** 30 for r_ in recs])
+        print(f"sharded (b) LM {method} dp=1 x sp=2, L={c['seq']} "
+              f"({c['seq'] // SHARD_RANKS} tokens a rank), batch "
+              f"{c['batch']}: loss {losses[0]:.6f} -> {losses[-1]:.6f} over "
+              f"{len(losses)} steps; step 0 vs sp=1 {l0:.6f} (rel {d0:.3g}, "
+              f"bound {SHARD_LM_BOUND}); ms a step per rank "
+              f"{[[round(x, 1) for x in r_['ms']] for r_ in recs]}; peak "
+              f"{[round(r_['peak_bytes'] / 2 ** 30, 2) for r_ in recs]} GiB "
+              f"(sp=1: {ms1:.1f} ms, {peak1:.2f} GiB) [{mode}] [{card}]",
+              flush=True)
+        if d0 > SHARD_LM_BOUND or not losses[-1] < losses[0] \
+                or recs[1]["losses"] != losses:
+            fail(f"sharded (b) {method}: loss {losses} (sp=1 step 0 {l0}; "
+                 f"rank 1 {recs[1]['losses']})")
+    # kernel 5 at the fsdp ranks' shape: 16 sequences a rank
+    gen = torch.Generator().manual_seed(2323)
+    half = BATCH // SHARD_RANKS
+    q, k, v = (torch.randn(half, BERT_SEQ, BERT_UNITS, generator=gen).to(
+        dev, torch.bfloat16) for _ in range(3))
+    m = key_mask(gen, half, BERT_SEQ, zero_rows=1).to(dev)
+    rec16 = check_attention(f"bert.packed.b{half}", q, k, v, m, False, card,
+                            heads=BERT_HEADS)
+    summaries = [
+        dict(attention_path_summary(
+            dict(KERNEL_ATT, name="dot_product_attention/bert_fsdp2"),
+            "bert_fsdp2", [(rec16, BERT_LAYERS)], res["launches"]["fsdp"],
+            half), backend=backend, ranks=SHARD_RANKS),
+        dict(attention_path_summary(
+            dict(KERNEL_ATT, name="dot_product_attention/bert_tp2"),
+            "bert_tp2", [(recs_att["bert.packed"], BERT_LAYERS)],
+            res["launches"]["tp"], BATCH), backend=backend,
+            ranks=SHARD_RANKS)]
+    res["seconds"] = time.perf_counter() - t0
+    print(f"sharded: phase 23 took {res['seconds']:.1f} s (ranks "
+          f"{t_ranks:.1f} s; limit {SHARD_SECONDS:.0f} s) [{card}]",
+          flush=True)
+    print("sharded: " + json.dumps(res), flush=True)
+    if res["seconds"] > SHARD_SECONDS:
+        fail(f"sharded: phase 23 took {res['seconds']:.1f} s, over "
+             f"{SHARD_SECONDS:.0f} s")
+    return res, summaries
+
+
+
+PHASE_SECONDS = {}
+
+
+def timed(label, fn, *args):
+    """``fn(*args)``, its seconds printed as ``phase <label>: <s> s`` and
+    kept in PHASE_SECONDS (printed together at the end)."""
+    t0 = time.perf_counter()
+    try:
+        return fn(*args)
+    finally:
+        PHASE_SECONDS[label] = time.perf_counter() - t0
+        print(f"phase {label}: {PHASE_SECONDS[label]:.1f} s", flush=True)
+
+
 def main():
     if "--naive-engine" in sys.argv:
         return naive_engine_child()
-    if "--kv-rank" in sys.argv:
+    for flag, part in (("--kv-rank", kv_rank), ("--shard-rank", shard_rank)):
+        if flag not in sys.argv:
+            continue
         import argparse
 
         ap = argparse.ArgumentParser()
-        ap.add_argument("--kv-rank", action="store_true")
+        ap.add_argument(flag, action="store_true")
         ap.add_argument("--dp-dir", required=True)
         ap.add_argument("--dp-backend", required=True)
         ap.add_argument("--dp-devices", required=True)
         a = ap.parse_args()
-        return kv_rank(a.dp_dir, a.dp_backend, a.dp_devices.split(","))
+        return part(a.dp_dir, a.dp_backend, a.dp_devices.split(","))
     for flag, part in (("--dp-rank", dp_rank), ("--zero-rank", zero_rank)):
         if flag in sys.argv:
             import argparse
@@ -11165,36 +11580,39 @@ def main():
             a = ap.parse_args()
             return part(a.rank, a.dp_dir, a.dp_backend,
                         a.dp_devices.split(","))
-    card = phase_device()
-    phase_build()
-    recs = phase_kernels()
-    recs_bwd = phase_kernels_bwd(card)
-    recs_att = phase_kernels_attention(card)
-    main_res = phase_main(card, REQUESTS, THREADS)
-    bert_res = phase_bert(card, REQUESTS, THREADS)
-    train_res, train_refs = phase_train(card)
-    recs_dp, recs_bwd_dp = phase_kernels_dp()
-    dp_res = phase_dp(card, train_refs)
-    recs_tap = phase_kernels_tap()
-    probe_res = phase_probe(card)
-    profile_probe_layers(card)
-    imp_res = phase_imperative(card, train_refs)
-    recs_dec = phase_kernels_decode(card)
-    tf_res = phase_transformer(card)
-    phase_ssd(card)
-    _, sym_kernels = phase_symbolic(card, recs_att)
-    gluon_res = phase_gluon(card)
-    opt_res = phase_optimizers(card, train_res, gluon_res)
-    phase_ops(card)
-    phase_rnn(card)
-    phase_core(card)
-    vis = phase_vision(card, train_res)
-    img = phase_imagenet(card, train_res)
-    _, quant_kernels = phase_quant(card)
-    phase_custom_onnx(card)
-    phase_item9(card)
-    kv_res = phase_kvstore(card)
-    recs_kv, recs_bwd_kv = phase_kernels_kv()
+    card = timed("1 device", phase_device)
+    timed("2 build", phase_build)
+    recs = timed("3 kernels", phase_kernels)
+    recs_bwd = timed("3 kernels_bwd", phase_kernels_bwd, card)
+    recs_att = timed("3 kernels_attention", phase_kernels_attention, card)
+    main_res = timed("4 serve", phase_main, card, REQUESTS, THREADS)
+    bert_res = timed("4b bert", phase_bert, card, REQUESTS, THREADS)
+    train_res, train_refs = timed("5 train", phase_train, card)
+    recs_dp, recs_bwd_dp = timed("6 kernels_dp", phase_kernels_dp)
+    dp_res = timed("6 dp", phase_dp, card, train_refs)
+    recs_tap = timed("7 kernels_tap", phase_kernels_tap)
+    probe_res = timed("7 probe", phase_probe, card)
+    timed("7 profile", profile_probe_layers, card)
+    imp_res = timed("8 imperative", phase_imperative, card, train_refs)
+    recs_dec = timed("9 kernels_decode", phase_kernels_decode, card)
+    tf_res = timed("9 transformer", phase_transformer, card)
+    timed("10 ssd", phase_ssd, card)
+    _, sym_kernels = timed("11 symbolic", phase_symbolic, card, recs_att)
+    gluon_res = timed("12 gluon", phase_gluon, card)
+    opt_res = timed("13 optimizers", phase_optimizers, card, train_res,
+                    gluon_res)
+    timed("14 ops", phase_ops, card)
+    timed("15 rnn", phase_rnn, card)
+    timed("16 core", phase_core, card)
+    vis = timed("17 vision", phase_vision, card, train_res)
+    img = timed("18 imagenet", phase_imagenet, card, train_res)
+    _, quant_kernels = timed("19 quant", phase_quant, card)
+    timed("20 custom_onnx", phase_custom_onnx, card)
+    timed("21 item9", phase_item9, card)
+    kv_res = timed("22 kvstore", phase_kvstore, card)
+    recs_kv, recs_bwd_kv = timed("22 kernels_kv", phase_kernels_kv)
+    shard_res, shard_kernels = timed("23 sharded", phase_sharded, card,
+                                     recs_att)
     dec_steps = tf_res["decode"]["steps"]
     dp_keys = dict(backend=dp_res.get("backend"), ranks=DP)
     # kernel 1 once for each main path (its shapes and launches), kernel 2
@@ -11305,8 +11723,10 @@ def main():
                             recs_bwd_kv, "train_kv",
                             kv_res["launches"]["bwd"]),
              path="train_kvstore_dist_sync", backend=kv_res.get("backend"),
-             ranks=DP)]
+             ranks=DP)] + shard_kernels
     print(f"chip_smoke: {time.perf_counter() - T_START:.1f} s", flush=True)
+    print("phase_seconds: " + json.dumps(
+        {k: round(v, 1) for k, v in PHASE_SECONDS.items()}), flush=True)
     if FAILURES:
         print(f"chip_smoke: {len(FAILURES)} failure(s)", flush=True)
         return 1

@@ -73,7 +73,10 @@ class Identity:
 class BertPretrainStep(HybridBlock):
     """Config 3: the MLM loss weighted by ``mlm_weight`` over
     max(sum(mlm_weight), 1), plus the mean NSP loss; both log-softmaxes
-    in fp32."""
+    in fp32.  Under a mesh that splits the batch, sum(mlm_weight) is the
+    global batch's (summed over the batch axes) and the MLM term is
+    scaled so that the trainer's mean of the ranks' shares is the global
+    loss, as the JAX package's step computes it on the global batch."""
 
     def __init__(self, vocab, dropout=0.1, **model):
         super().__init__()
@@ -87,7 +90,11 @@ class BertPretrainStep(HybridBlock):
         nsp_scores = self.bert.classify_nsp(pooled)
         lsm = F.log_softmax(mlm_scores.float(), axis=-1)
         nll = -F.pick(lsm, mlm_labels, axis=-1)
-        mlm_l = (nll * mlm_weight).sum() / mlm_weight.sum().clamp_min(1.0)
+        den, shards = mlm_weight.sum(), parallel.batch_shards()
+        if shards > 1:
+            den = parallel.dist.all_reduce_sum(
+                den, parallel.mesh.batch_group())
+        mlm_l = (nll * mlm_weight).sum() * shards / den.clamp_min(1.0)
         nsp_lsm = F.log_softmax(nsp_scores.float(), axis=-1)
         nsp_l = -F.pick(nsp_lsm, nsp_labels, axis=-1)
         return mlm_l + nsp_l.mean()

@@ -106,7 +106,7 @@ from .parameter import (BlockParams, DeferredInitializationError, Parameter,
                         ParameterDict)
 
 __all__ = ["Block", "HybridBlock", "SymbolBlock", "ActiveTrace",
-           "current_trace", "train_mode", "trace_generator",
+           "mx_param_names", "current_trace", "train_mode", "trace_generator",
            "load_numpy_params", "dtype_of", "cached_op_stats",
            "DeferredInitializationError"]
 
@@ -435,12 +435,17 @@ class Block(nn.Module):
         super().__setattr__(name, value)
 
     def _param(self, name, shape, init=None, dtype="float32",
-               allow_deferred=False):
+               allow_deferred=False, mx_name=None):
         """Register a parameter, filled at initialize() (zeros in
         ``shape``: unknown, resolved at the first forward when
-        ``allow_deferred``)."""
-        return _param.make_param(self, name, shape, init=init, dtype=dtype,
-                                 allow_deferred=allow_deferred)
+        ``allow_deferred``).  ``mx_name``: the name the JAX package's
+        block registers it under, when that differs from ``name`` (the
+        attribute), for :func:`mx_param_names`."""
+        p = _param.make_param(self, name, shape, init=init, dtype=dtype,
+                              allow_deferred=allow_deferred)
+        if mx_name is not None:
+            p._mx_name = mx_name
+        return p
 
     def _buffer(self, name, shape, init=None, allow_deferred=False):
         self.register_buffer(name, torch.zeros(tuple(max(int(s), 0)
@@ -666,6 +671,26 @@ def _homes_by_name(block):
         for local in list(mod._parameters) + list(mod._buffers):
             out.setdefault(f"{mname}.{local}" if mname else local,
                            (mod, local))
+    return out
+
+
+def mx_param_names(block) -> Dict[str, str]:
+    """Structural name -> MXNet name of every parameter and buffer of
+    ``block``: its block's prefix (the JAX package's name scopes, e.g.
+    ``bertmodel0_encoder_layer0_attn_query_``) plus the name it is
+    registered under there (``mx_name`` of ``_param``, else its own).
+    A module that is no ``Block`` adds no prefix; a tied tensor has its
+    first home's name under every one, as the JAX package's one
+    ``Parameter`` has one name."""
+    out, first = {}, {}
+    for mname, mod in block.named_modules(remove_duplicate=False):
+        pre = getattr(mod, "_prefix", "")
+        for local, t in list(mod._parameters.items()) + list(
+                mod._buffers.items()):
+            mx = pre + getattr(t, "_mx_name", local)
+            if t is not None:  # a tied tensor: its first home's name
+                mx = first.setdefault(id(t), mx)
+            out.setdefault(f"{mname}.{local}" if mname else local, mx)
     return out
 
 

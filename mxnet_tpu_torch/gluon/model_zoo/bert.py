@@ -1,7 +1,9 @@
 """BERT models of the port (counterpart of
 ``mxnet_tpu/gluon/model_zoo/bert.py``).
 
-The same blocks, structural parameter names and forward: word, token
+The same blocks, structural parameter names, name scopes (so each
+parameter's MXNet name, ``gluon.block.mx_param_names``, is the JAX
+package's, as the sharding rules read it) and forward: word, token
 type and position embeddings, LayerNorm, a post-LN encoder whose
 attention runs ``dot_product_attention`` (the CUDA kernel on the card),
 the pooler, the MLM decoder tied to the word-embedding matrix and the
@@ -36,11 +38,16 @@ class MultiHeadAttention(HybridBlock):
         self._num_heads = num_heads
         self._dropout = dropout
         self._causal = causal
-        self.query = nn.Dense(units, flatten=False, in_units=units)
-        self.key = nn.Dense(units, flatten=False, in_units=units)
-        self.value = nn.Dense(units, flatten=False, in_units=units)
-        self.proj = nn.Dense(units, flatten=False, in_units=units)
-        self.dropout = nn.Dropout(out_dropout) if out_dropout else None
+        with self.name_scope():
+            self.query = nn.Dense(units, flatten=False, in_units=units,
+                                  prefix="query_")
+            self.key = nn.Dense(units, flatten=False, in_units=units,
+                                prefix="key_")
+            self.value = nn.Dense(units, flatten=False, in_units=units,
+                                  prefix="value_")
+            self.proj = nn.Dense(units, flatten=False, in_units=units,
+                                 prefix="proj_")
+            self.dropout = nn.Dropout(out_dropout) if out_dropout else None
 
     def hybrid_forward(self, F, x, mem, mem_mask):
         out = F.dot_product_attention(
@@ -70,10 +77,13 @@ class BERTPositionwiseFFN(HybridBlock):
     def __init__(self, units, hidden_size, dropout=0.0, activation="gelu",
                  prefix=None, params=None):
         super().__init__(prefix, params)
-        self.ffn_1 = nn.Dense(hidden_size, flatten=False,
-                              activation=activation, in_units=units)
-        self.ffn_2 = nn.Dense(units, flatten=False, in_units=hidden_size)
-        self.dropout = nn.Dropout(dropout) if dropout else None
+        with self.name_scope():
+            self.ffn_1 = nn.Dense(hidden_size, flatten=False,
+                                  activation=activation, in_units=units,
+                                  prefix="ffn1_")
+            self.ffn_2 = nn.Dense(units, flatten=False, in_units=hidden_size,
+                                  prefix="ffn2_")
+            self.dropout = nn.Dropout(dropout) if dropout else None
 
     def hybrid_forward(self, F, x):
         out = self.ffn_2(self.ffn_1(x))
@@ -88,10 +98,15 @@ class BERTEncoderCell(HybridBlock):
     def __init__(self, units, hidden_size, num_heads, dropout=0.0,
                  prefix=None, params=None):
         super().__init__(prefix, params)
-        self.attention = BERTSelfAttention(units, num_heads, dropout)
-        self.ln1 = nn.LayerNorm(epsilon=1e-12, in_channels=units)
-        self.ffn = BERTPositionwiseFFN(units, hidden_size, dropout)
-        self.ln2 = nn.LayerNorm(epsilon=1e-12, in_channels=units)
+        with self.name_scope():
+            self.attention = BERTSelfAttention(units, num_heads, dropout,
+                                               prefix="attn_")
+            self.ln1 = nn.LayerNorm(epsilon=1e-12, in_channels=units,
+                                    prefix="ln1_")
+            self.ffn = BERTPositionwiseFFN(units, hidden_size, dropout,
+                                           prefix="ffn_")
+            self.ln2 = nn.LayerNorm(epsilon=1e-12, in_channels=units,
+                                    prefix="ln2_")
 
     def hybrid_forward(self, F, x, mask):
         x = self.ln1(x + self.attention(x, mask))
@@ -104,10 +119,12 @@ class BERTEncoder(HybridBlock):
     def __init__(self, num_layers=12, units=768, hidden_size=3072,
                  num_heads=12, dropout=0.1, prefix=None, params=None):
         super().__init__(prefix, params)
-        self.layers = nn.HybridSequential()
-        for _ in range(num_layers):
-            self.layers.add(BERTEncoderCell(units, hidden_size, num_heads,
-                                            dropout))
+        with self.name_scope():
+            self.layers = nn.HybridSequential(prefix="layers_")
+            for i in range(num_layers):
+                self.layers.add(BERTEncoderCell(units, hidden_size,
+                                                num_heads, dropout,
+                                                prefix=f"layer{i}_"))
 
     def hybrid_forward(self, F, x, mask):
         for cell in self.layers._modules.values():
@@ -123,9 +140,12 @@ class _MLMDecoder(HybridBlock):
                  params=None):
         super().__init__(prefix, params)
         self._vocab_size = vocab_size
-        self.transform = nn.Dense(units, flatten=False, activation="gelu",
-                                  in_units=units)
-        self.ln = nn.LayerNorm(epsilon=1e-12, in_channels=units)
+        with self.name_scope():
+            self.transform = nn.Dense(units, flatten=False,
+                                      activation="gelu", in_units=units,
+                                      prefix="transform_")
+            self.ln = nn.LayerNorm(epsilon=1e-12, in_channels=units,
+                                   prefix="ln_")
         self.bias = self._param("bias", (vocab_size,), "zeros")
         # tied: registered here, initialised and cast by its owner only
         self.embed_weight = embed_weight
@@ -163,21 +183,29 @@ class BERTModel(HybridBlock):
         self._use_decoder = use_decoder
         self._use_classifier = use_classifier
         self.position_weight = self._param("position_weight",
-                                           (max_length, units), "normal")
-        self.word_embed = nn.Embedding(vocab_size, units)
-        self.token_type_embed = nn.Embedding(token_type_vocab_size, units)
-        self.embed_ln = nn.LayerNorm(epsilon=1e-12, in_channels=units)
-        self.embed_dropout = nn.Dropout(dropout) if dropout else None
-        self.encoder = BERTEncoder(num_layers, units, hidden_size,
-                                   num_heads, dropout)
-        if use_pooler:
-            self.pooler = nn.Dense(units, flatten=False, activation="tanh",
-                                   in_units=units)
-        if use_decoder:
-            self.mlm_decoder = _MLMDecoder(units, vocab_size,
-                                           self.word_embed.weight)
-        if use_classifier:
-            self.classifier = nn.Dense(2, flatten=False, in_units=units)
+                                           (max_length, units), "normal",
+                                           mx_name="position_embed_weight")
+        with self.name_scope():
+            self.word_embed = nn.Embedding(vocab_size, units,
+                                           prefix="word_embed_")
+            self.token_type_embed = nn.Embedding(
+                token_type_vocab_size, units, prefix="token_type_embed_")
+            self.embed_ln = nn.LayerNorm(epsilon=1e-12, in_channels=units,
+                                         prefix="embed_ln_")
+            self.embed_dropout = nn.Dropout(dropout) if dropout else None
+            self.encoder = BERTEncoder(num_layers, units, hidden_size,
+                                       num_heads, dropout, prefix="encoder_")
+            if use_pooler:
+                self.pooler = nn.Dense(units, flatten=False,
+                                       activation="tanh", in_units=units,
+                                       prefix="pooler_")
+            if use_decoder:
+                self.mlm_decoder = _MLMDecoder(units, vocab_size,
+                                               self.word_embed.weight,
+                                               prefix="mlm_")
+            if use_classifier:
+                self.classifier = nn.Dense(2, flatten=False, in_units=units,
+                                           prefix="nsp_classifier_")
 
     def hybrid_forward(self, F, inputs, token_types, valid_length):
         x = self.word_embed(inputs) + self.token_type_embed(token_types)

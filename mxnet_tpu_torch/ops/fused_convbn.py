@@ -57,7 +57,7 @@ import torch.nn.functional as F
 from .. import _kernels
 from ..base import MXNetError
 from ..parallel import dist
-from ..parallel.mesh import mesh_shard_plan
+from ..parallel.mesh import batch_group, mesh_shard_plan
 from ..util import env
 from .registry import register_op
 
@@ -622,7 +622,8 @@ def fused_conv_unit(data, weight, in_scale=None, in_bias=None, shift=None,
     if want_stats:
         if _dispatch_plan() == "sharded":
             y, s1, s2 = out
-            s1, s2 = dist.all_reduce_sum(torch.stack([s1, s2])).unbind(0)
+            s1, s2 = dist.all_reduce_sum(torch.stack([s1, s2]),
+                                         batch_group()).unbind(0)
             return y, s1, s2
         return out
     zeros = _zero_stats(dev, co)

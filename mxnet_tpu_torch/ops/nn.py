@@ -51,7 +51,7 @@ import torch.nn.functional as F
 from .. import _graphs
 from ..base import MXNetError
 from ..parallel import dist
-from ..parallel.mesh import batch_shards
+from ..parallel.mesh import batch_group, batch_shards
 from ..parallel.sharding import rand_batch
 from ..util import env
 from .registry import register_op
@@ -271,17 +271,19 @@ def batch_norm(data, gamma, beta, moving_mean, moving_var, eps=1e-5,
     s1 = xs.sum(dim=red)
     if exact:
         if shards > 1:
-            s1 = dist.all_reduce_sum(s1)
+            s1 = dist.all_reduce_sum(s1, batch_group())
         mean = s1 / n
         xc = xs - mean.reshape(shape)
         s2 = (xc * xc).sum(dim=red)
-        var = (dist.all_reduce_sum(s2) if shards > 1 else s2) / n
+        var = (dist.all_reduce_sum(s2, batch_group()) if shards > 1
+               else s2) / n
     else:
         c = moving_mean.detach().to(sdt)
         d = xs - c.reshape(shape)
         s2 = (d * d).sum(dim=red)
         if shards > 1:
-            s1, s2 = dist.all_reduce_sum(torch.stack([s1, s2])).unbind(0)
+            s1, s2 = dist.all_reduce_sum(torch.stack([s1, s2]),
+                                         batch_group()).unbind(0)
         mean = s1 / n
         raw = s2 / n
         dm = mean - c

@@ -5,30 +5,31 @@ The JAX package writes each host's shards through orbax/tensorstore,
 which the port does not have.  The port's format is its own directory:
 
   ``params.params``     every parameter and buffer of the block by
-                        structural name (the reference ``.params``
-                        format, ``serialization.py``);
-  ``opt_state.params``  every optimizer state tensor at full size, as
+                        structural name, as a global tensor (the
+                        reference ``.params`` format,
+                        ``serialization.py``);
+  ``opt_state.params``  every optimizer state tensor as a global tensor,
+                        as
                         ``<name>:<i>`` (state i of parameter <name>; the
                         fp32 master weight under ``multi_precision`` is
                         the last);
   ``manifest.json``     the format, the step count, the names, shapes
-                        and dtypes, and the dp size it was written at.
+                        and dtypes, the batch shards (``dp``) and the
+                        mesh it was written at.
 
 The semantics are the JAX package's: parameters, optimizer state and
 the step count are saved; a load restores them into a trainer on any
-mesh (another dp size included), and a checkpoint whose parameter set
-differs from the model's raises before anything is written.  Every rank
-calls both functions: under ZeRO the state blocks are gathered to full
-size, rank 0 writes, and every rank reads the files and keeps its own
-block.  A load copies into the trainer's existing tensors, so a
+mesh (another dp size, or fsdp = 2 to dp = 2 or dp = 1, included), and
+a checkpoint whose parameter set differs from the model's raises before
+anything is written.  Every rank calls both functions: split parameters
+and ZeRO state blocks are gathered to global tensors, rank 0 writes,
+and every rank reads the files and keeps its own blocks.  A load copies into the trainer's existing tensors, so a
 captured step stays valid and replays on the loaded values.
 """
 from __future__ import annotations
 
 import json
 import os
-
-import torch
 
 from ..base import MXNetError
 from ..serialization import load_ndarrays, save_ndarrays
@@ -47,7 +48,8 @@ def save_sharded(path: str, trainer) -> None:
     """Write the trainer's parameters, buffers, optimizer state and step
     count into the directory ``path`` (created; files overwritten)."""
     path = os.path.abspath(path)
-    params = {n: t.detach().cpu() for n, t in trainer._plist}
+    trainer._ensure_blocks()
+    params = {n: trainer.value_full(t).cpu() for n, t in trainer._plist}
     states = {}
     for n in trainer._trainable:  # collective under ZeRO: every rank
         for i, s in enumerate(trainer.state_full(n)):
@@ -59,13 +61,14 @@ def save_sharded(path: str, trainer) -> None:
         manifest = {
             "format": FORMAT, "step": int(trainer._t),
             "dp": int(trainer._shards),
+            "mesh": dict(trainer.mesh.axis_sizes),
             "params": {n: [list(t.shape), _dtype_name(t)]
                        for n, t in params.items()},
             "opt_state": {n: len(trainer.opt_state[n])
                           for n in trainer._trainable}}
         with open(os.path.join(path, "manifest.json"), "w") as f:
             json.dump(manifest, f, indent=1)
-    if trainer._shards > 1:
+    if trainer._world > 1:
         dist.barrier()
 
 
@@ -73,6 +76,7 @@ def load_sharded(path: str, trainer) -> None:
     """Restore parameters, buffers, optimizer state and the step count
     into ``trainer``, in place, whatever dp size wrote them."""
     path = os.path.abspath(path)
+    trainer._ensure_blocks()
     with open(os.path.join(path, "manifest.json")) as f:
         manifest = json.load(f)
     if manifest.get("format") != FORMAT:
@@ -88,19 +92,18 @@ def load_sharded(path: str, trainer) -> None:
     states = load_ndarrays(os.path.join(path, "opt_state.params"))
     for n, t in trainer._plist:
         v = params[n]
-        if tuple(v.shape) != tuple(t.shape) or v.dtype != t.dtype:
+        shape = trainer.global_shape(t)
+        if tuple(v.shape) != shape or v.dtype != t.dtype:
             raise MXNetError(f"checkpoint {n}: {tuple(v.shape)} {v.dtype} "
-                             f"where the model has {tuple(t.shape)} "
-                             f"{t.dtype}")
+                             f"where the model has {shape} {t.dtype}")
     for n in trainer._trainable:
         if manifest["opt_state"].get(n) != len(trainer.opt_state[n]):
             raise MXNetError(f"checkpoint {n}: "
                              f"{manifest['opt_state'].get(n)} optimizer "
                              f"states where the optimizer keeps "
                              f"{len(trainer.opt_state[n])}")
-    with torch.no_grad():
-        for n, t in trainer._plist:
-            t.copy_(params[n])
+    for n, t in trainer._plist:
+        trainer.load_value_full(t, params[n].to(t.device))
     for n in trainer._trainable:
         trainer.load_state_full(n, [states[f"{n}:{i}"] for i in
                                     range(len(trainer.opt_state[n]))])

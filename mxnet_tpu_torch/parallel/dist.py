@@ -24,6 +24,14 @@ CUDA tensors, :func:`reduce_scatter` all-reduces the whole buffer and
 keeps block r, and :func:`all_gather_` gathers into a list; each sum is
 then the very one :func:`all_reduce_` gives.
 
+Every collective takes ``group=``, a sub-group of the ranks (a mesh
+axis's, ``DeviceMesh.group``; None is every rank).  Sequence parallelism
+adds :func:`ring_shift` (each rank's tensors to the next rank of a group
+and the previous rank's back, ``batch_isend_irecv``) and
+:func:`all_to_all_` (``all_to_all_single``); gloo takes neither for a
+CUDA tensor, so on gloo both stage through the host and stay direct on
+NCCL.
+
 The KVStore's dist stores call three more (``kvstore.py``):
 :func:`allreduce_nd` (an NDArray summed over the ranks; a row-sparse one
 keeps the union of the ranks' rows), :func:`allgather_np` (a host array
@@ -52,7 +60,8 @@ __all__ = ["BACKENDS", "init", "resolve", "initialized", "rank",
            "num_workers", "backend", "barrier", "shutdown", "all_reduce_sum",
            "all_reduce_", "broadcast_", "flat_buckets", "reduce_scatter",
            "reduce_scatter_start", "all_gather_", "all_gather_list",
-           "all_gather_list_start", "allreduce_nd", "allgather_np", "abort"]
+           "all_gather_list_start", "allreduce_nd", "allgather_np", "abort",
+           "group_size", "group_rank", "ring_shift", "all_to_all_"]
 
 BACKENDS = ("nccl", "gloo")
 # a name each collective shows under in torch.profiler traces
@@ -183,10 +192,14 @@ def barrier() -> None:
 
 
 def shutdown() -> None:
-    """Leave the process group (a no-op without one)."""
+    """Leave the process group (a no-op without one); the meshes' cached
+    sub-groups go with it."""
     global _INITIALIZED
+    from .mesh import _GROUPS
+
     if _group_active():
         tdist.destroy_process_group()
+    _GROUPS.clear()
     _INITIALIZED = False
 
 
@@ -196,45 +209,59 @@ def _require_group(what):
                          "parallel.dist.init() in every rank first")
 
 
-def all_reduce_(t: torch.Tensor) -> torch.Tensor:
-    """Sum ``t`` over every rank, in place; returns ``t``."""
+def group_size(group=None) -> int:
+    """How many ranks ``group`` holds (None: every rank)."""
+    return num_workers() if group is None else tdist.get_world_size(group)
+
+
+def group_rank(group=None) -> int:
+    """This rank's place in ``group`` (None: its global rank).  A group's
+    ranks are in the order of their global ranks."""
+    return rank() if group is None else tdist.get_rank(group)
+
+
+def all_reduce_(t: torch.Tensor, group=None) -> torch.Tensor:
+    """Sum ``t`` over the ranks of ``group``, in place; returns ``t``."""
     _require_group("all_reduce_")
     with torch.profiler.record_function(_SPAN + "all_reduce"):
-        tdist.all_reduce(t)
+        tdist.all_reduce(t, group=group)
     return t
 
 
-def broadcast_(t: torch.Tensor, src: int = 0) -> torch.Tensor:
-    """Overwrite ``t`` with rank ``src``'s, in place; returns ``t``."""
+def broadcast_(t: torch.Tensor, src: int = 0, group=None) -> torch.Tensor:
+    """Overwrite ``t`` with global rank ``src``'s, in place; returns
+    ``t``."""
     _require_group("broadcast_")
     with torch.profiler.record_function(_SPAN + "broadcast"):
-        tdist.broadcast(t, src)
+        tdist.broadcast(t, src, group=group)
     return t
 
 
-def reduce_scatter(flat: torch.Tensor) -> torch.Tensor:
-    """Block r (this rank's, ``flat.numel() / N`` elements) of the sum of
-    the 1-D ``flat`` over every rank.  ``flat`` may be overwritten."""
-    return reduce_scatter_start(flat)()
+def reduce_scatter(flat: torch.Tensor, group=None) -> torch.Tensor:
+    """Block r (this rank's in ``group``, ``flat.numel() / N`` elements)
+    of the sum of the 1-D ``flat`` over the group's ranks.  ``flat`` may
+    be overwritten."""
+    return reduce_scatter_start(flat, group)()
 
 
-def reduce_scatter_start(flat: torch.Tensor):
+def reduce_scatter_start(flat: torch.Tensor, group=None):
     """:func:`reduce_scatter` issued without waiting (``async_op``):
     returns the function that waits and gives the block."""
     _require_group("reduce_scatter")
-    n = num_workers()
+    n = group_size(group)
     if flat.numel() % n:
         raise MXNetError(f"dist.reduce_scatter: {flat.numel()} elements do "
                          f"not divide into {n} blocks")
     k = flat.numel() // n
-    r = rank()
+    r = group_rank(group)
     with torch.profiler.record_function(_SPAN + "reduce_scatter"):
         if backend() == "nccl":
             out = torch.empty(k, dtype=flat.dtype, device=flat.device)
-            work = tdist.reduce_scatter_tensor(out, flat, async_op=True)
+            work = tdist.reduce_scatter_tensor(out, flat, group=group,
+                                               async_op=True)
         else:
             out = flat[r * k:(r + 1) * k]
-            work = tdist.all_reduce(flat, async_op=True)
+            work = tdist.all_reduce(flat, group=group, async_op=True)
 
     def wait():
         work.wait()
@@ -242,19 +269,23 @@ def reduce_scatter_start(flat: torch.Tensor):
     return wait
 
 
-def all_gather_(out: torch.Tensor, local: torch.Tensor) -> torch.Tensor:
-    """Fill the 1-D ``out`` (N times ``local``'s elements) with every
-    rank's 1-D ``local``, rank 0's first; returns ``out``."""
+def all_gather_(out: torch.Tensor, local: torch.Tensor,
+                group=None) -> torch.Tensor:
+    """Fill the 1-D ``out`` (N times ``local``'s elements) with the 1-D
+    ``local`` of every rank of ``group``, in group order; returns
+    ``out``."""
     _require_group("all_gather_")
-    n = num_workers()
+    n = group_size(group)
     if out.numel() != n * local.numel():
         raise MXNetError(f"dist.all_gather_: {out.numel()} elements for "
                          f"{n} blocks of {local.numel()}")
     with torch.profiler.record_function(_SPAN + "all_gather"):
         if backend() == "nccl":
-            tdist.all_gather_into_tensor(out, local.contiguous())
+            tdist.all_gather_into_tensor(out, local.contiguous(),
+                                         group=group)
         else:
-            tdist.all_gather(list(out.chunk(n)), local.contiguous())
+            tdist.all_gather(list(out.chunk(n)), local.contiguous(),
+                             group=group)
     return out
 
 
@@ -263,18 +294,21 @@ class _AllReduceSum(torch.autograd.Function):
     holds its own partial of the cotangent of the (replicated) sum."""
 
     @staticmethod
-    def forward(ctx, x):
+    def forward(ctx, x, group):
+        ctx.group = group
         return all_reduce_(x.detach().clone(memory_format=torch.
-                                            contiguous_format))
+                                            contiguous_format), group)
 
     @staticmethod
     def backward(ctx, g):
-        return all_reduce_(g.clone(memory_format=torch.contiguous_format))
+        return all_reduce_(g.clone(memory_format=torch.contiguous_format),
+                           ctx.group), None
 
 
-def all_reduce_sum(x: torch.Tensor) -> torch.Tensor:
-    """Differentiable sum of ``x`` over every rank (a new tensor)."""
-    return _AllReduceSum.apply(x)
+def all_reduce_sum(x: torch.Tensor, group=None) -> torch.Tensor:
+    """Differentiable sum of ``x`` over the ranks of ``group`` (a new
+    tensor)."""
+    return _AllReduceSum.apply(x, group)
 
 
 def flat_buckets(tensors: Sequence[torch.Tensor], fn) -> None:
@@ -294,19 +328,20 @@ def flat_buckets(tensors: Sequence[torch.Tensor], fn) -> None:
                 off += n
 
 
-def all_gather_list(t: torch.Tensor):
-    """Every rank's ``t`` (same shape and dtype on each), rank 0's first,
-    as a list of tensors on ``t``'s device."""
-    return all_gather_list_start(t)()
+def all_gather_list(t: torch.Tensor, group=None):
+    """The ``t`` of every rank of ``group`` (same shape and dtype on
+    each), in group order, as a list of tensors on ``t``'s device."""
+    return all_gather_list_start(t, group)()
 
 
-def all_gather_list_start(t: torch.Tensor):
+def all_gather_list_start(t: torch.Tensor, group=None):
     """:func:`all_gather_list` issued without waiting: returns the
     function that waits and gives the list."""
     _require_group("all_gather_list")
-    out = [torch.empty_like(t) for _ in range(num_workers())]
+    out = [torch.empty_like(t) for _ in range(group_size(group))]
     with torch.profiler.record_function(_SPAN + "all_gather"):
-        work = tdist.all_gather(out, t.contiguous(), async_op=True)
+        work = tdist.all_gather(out, t.contiguous(), group=group,
+                                async_op=True)
 
     def wait():
         work.wait()
@@ -320,6 +355,46 @@ def _on_group_device(t: torch.Tensor) -> torch.Tensor:
     if backend() == "nccl" and not t.is_cuda:
         return t.to(torch.device("cuda", torch.cuda.current_device()))
     return t
+
+
+def _staged(t: torch.Tensor) -> torch.Tensor:
+    """``t`` where point-to-point and all-to-all take it: the host on
+    gloo (which refuses CUDA tensors for both), else ``t``."""
+    if backend() != "nccl" and t.is_cuda:
+        return t.cpu()
+    return t.contiguous()
+
+
+def ring_shift(tensors: Sequence[torch.Tensor], send_to: int,
+               recv_from: int, group=None):
+    """Send each of ``tensors`` to global rank ``send_to`` and receive
+    the same shapes from global rank ``recv_from`` (one
+    ``batch_isend_irecv`` of every rank of ``group``); returns the
+    received tensors on the inputs' devices."""
+    _require_group("ring_shift")
+    ops, outs = [], []
+    with torch.profiler.record_function(_SPAN + "ring_shift"):
+        for t in tensors:
+            src = _staged(t)
+            buf = torch.empty_like(src)
+            ops.append(tdist.P2POp(tdist.isend, src, send_to, group))
+            ops.append(tdist.P2POp(tdist.irecv, buf, recv_from, group))
+            outs.append(buf)
+        for w in tdist.batch_isend_irecv(ops):
+            w.wait()
+    return [o.to(t.device) for o, t in zip(outs, tensors)]
+
+
+def all_to_all_(x: torch.Tensor, group=None) -> torch.Tensor:
+    """``all_to_all_single`` over ``group``: block j of dim 0 of ``x`` (N
+    equal blocks) goes to the group's rank j, and block j of the result
+    comes from it."""
+    _require_group("all_to_all_")
+    src = _staged(x)
+    out = torch.empty_like(src)
+    with torch.profiler.record_function(_SPAN + "all_to_all"):
+        tdist.all_to_all_single(out, src, group=group)
+    return out.to(x.device)
 
 
 def allgather_np(value) -> "np.ndarray":

@@ -2,20 +2,25 @@
 ``mxnet_tpu/parallel/sharding.py``).
 
 The JAX package returns a ``NamedSharding`` that GSPMD applies to a
-global array.  Here each rank is a process, so :func:`shard_batch` does
-the placement itself: rank r keeps the contiguous block r of dim 0, the
-block GSPMD gives device r of the ``dp`` axis.  Random draws over the
-batch (dropout masks) follow the same rule: :func:`rand_batch` draws
-over the global batch and keeps this rank's block.
+global array.  Here each rank is a process, so the placement is done by
+hand.  :func:`shard_batch` gives a rank its rows of the global batch:
+the block of dim 0 that GSPMD gives its ``dp`` x ``fsdp`` position
+(``DeviceMesh.batch_index``); the ranks along the other axes hold the
+same rows.  Random draws over the batch (dropout masks) follow the same
+rule: :func:`rand_batch` draws over the global batch and keeps this
+rank's block.
 
 The JAX package's placement rules are kept as data: :class:`PartitionSpec`
 (``P``, a tuple of one entry per dim: an axis name, a tuple of them, or
 None), :class:`ShardingRules` (regex on a parameter name -> spec, the
-same ``DEFAULT_RULES``), :func:`filter_spec` (an axis the mesh lacks is
-dropped) and :func:`zero_state_spec` (the ZeRO-1 layout of an optimizer
-state).  ``SPMDTrainer`` reads them: parameters stay replicated on the
-port's dp-only meshes (a rule that would split one raises), and a state
-whose spec splits a dim over ``dp`` keeps only this rank's block of it.
+same ``DEFAULT_RULES`` and the same fsdp fallback), :func:`filter_spec`
+(an axis the mesh lacks is dropped) and :func:`zero_state_spec` (the
+ZeRO-1 layout of an optimizer state, a split parameter's included).
+:func:`named_sharding` and :func:`replicated` give a
+:class:`NamedSharding`, here the descriptor of this rank's block of a
+global tensor (``block``/``gather``, ``parallel._compat``), and
+:func:`constraint` returns its value unchanged: a rank's tensors already
+are its blocks.  ``SPMDTrainer`` reads all of them.
 """
 from __future__ import annotations
 
@@ -25,12 +30,13 @@ from typing import Optional, Sequence, Tuple
 import torch
 
 from ..base import MXNetError
-from . import dist
-from .mesh import DeviceMesh, batch_shards, current_mesh, get_mesh
+from .mesh import (BATCH_AXES, DeviceMesh, batch_shards, current_mesh,
+                   get_mesh)
 
 __all__ = ["shard_batch", "rand_batch", "PartitionSpec", "P",
            "ShardingRules", "DEFAULT_RULES", "filter_spec",
-           "zero_state_spec", "spec_split", "is_batch_spec"]
+           "zero_state_spec", "spec_split", "input_split", "NamedSharding",
+           "named_sharding", "replicated", "constraint"]
 
 
 class PartitionSpec(tuple):
@@ -76,19 +82,28 @@ def spec_split(spec, mesh: DeviceMesh) -> int:
     return k
 
 
-def is_batch_spec(spec, mesh: DeviceMesh) -> bool:
-    """Whether an input spec splits dim 0 over the batch axes (and no
-    other dim), as the default ``None`` does; a spec that splits no dim
-    is replicated; any other split raises (the port's meshes split the
-    batch only)."""
+def input_split(spec, mesh: DeviceMesh) -> bool:
+    """Whether an input of spec ``spec`` gives each rank its block of the
+    batch's rows (the default ``None`` does: dim 0 over the batch axes)
+    or the whole array (a spec that splits no batch axis).  Dim 1 may be
+    split over ``sp`` (``shard_batch(seq_axis=1)``'s layout): outside
+    attention the ranks of ``sp`` hold the same activations, as in the
+    JAX package's long-context LM, so such an input is placed whole on
+    each of them and ring/Ulysses attention takes its block of q, k and v.
+    Any other layout raises."""
     spec = filter_spec(spec, mesh)
-    rest = P(*spec[1:])
-    if spec_split(rest, mesh) != 1:
-        raise MXNetError(f"partition spec {spec!r}: the port splits only "
-                         "dim 0 of an input over the batch axes (sequence "
-                         "and tensor parallelism are ROADMAP queue A item "
-                         "7, cut (b))")
-    return bool(spec) and spec_split(P(spec[0]), mesh) > 1
+    batch = [a for a in BATCH_AXES if mesh.size(a) > 1]
+    first = [a for a in _axes_of(spec[0]) if mesh.size(a) > 1] \
+        if spec else []
+    rest = [(d, a) for d, e in enumerate(spec[1:], 1) for a in _axes_of(e)
+            if mesh.size(a) > 1 and not (d == 1 and a == "sp")]
+    if rest or first not in ([], batch):
+        raise MXNetError(
+            f"partition spec {spec!r}: the port splits an input's dim 0 "
+            f"over all of the batch axes {tuple(batch)} or none, and its "
+            "dim 1 over 'sp'; other layouts are ROADMAP queue A item 7, "
+            "cut (c)")
+    return bool(first)
 
 
 def zero_state_spec(param_spec, shape: Sequence[int], mesh: DeviceMesh,
@@ -123,9 +138,13 @@ def zero_state_spec(param_spec, shape: Sequence[int], mesh: DeviceMesh,
 class ShardingRules:
     """Ordered (regex, spec) table resolved per parameter name, the JAX
     package's: the first rule that matches, splits the parameter on this
-    mesh and divides its shape wins; no match is replicated (``P()``).
-    On the port's meshes every axis but ``dp`` has size 1, so the
-    Megatron rules of ``DEFAULT_RULES`` fall through to replicated."""
+    mesh and divides its shape wins (a rule whose axes are all absent or
+    of size 1 is vacuous and falls through; an explicit ``P()`` pins);
+    with ``fsdp`` > 1 an unmatched parameter of at least
+    ``fsdp_min_size`` elements splits its largest dim that fsdp divides
+    (the ZeRO-3 layout); else it is replicated (``P()``).  The names are
+    the JAX package's: ``SPMDTrainer`` matches each parameter's MXNet
+    name (``gluon.block.mx_param_names``)."""
 
     def __init__(self, rules: Sequence[Tuple[str, PartitionSpec]] = (),
                  fsdp_min_size: int = 2 ** 14):
@@ -143,6 +162,17 @@ class ShardingRules:
             if all(d % spec_split(P(e), mesh) == 0
                    for d, e in zip(shape, s)):
                 return s
+        n_fsdp = mesh.size("fsdp")
+        if "fsdp" in mesh and n_fsdp > 1 and shape:
+            n = 1
+            for d in shape:
+                n *= int(d)
+            if n >= self.fsdp_min_size:
+                for i in sorted(range(len(shape)), key=lambda i: -shape[i]):
+                    if shape[i] % n_fsdp == 0:
+                        dims = [None] * len(shape)
+                        dims[i] = "fsdp"
+                        return P(*dims)
         return P()
 
 
@@ -156,6 +186,53 @@ DEFAULT_RULES = ShardingRules([
     (r".*embed.*weight$", P("tp", None)),
     (r".*expert.*", P("ep", None, None)),
 ])
+
+
+class NamedSharding:
+    """A spec on a mesh: the descriptor of this rank's block of a global
+    tensor (the JAX class's ``mesh``, ``spec`` and
+    ``is_fully_replicated``); ``block(x)`` cuts this rank's block of the
+    global ``x`` and ``gather(b)`` puts the ranks' blocks back together
+    (``parallel._compat``)."""
+
+    def __init__(self, mesh: DeviceMesh, spec):
+        self.mesh = mesh
+        self.spec = filter_spec(spec, mesh)
+
+    @property
+    def is_fully_replicated(self) -> bool:
+        return spec_split(self.spec, self.mesh) == 1
+
+    def block(self, x: torch.Tensor) -> torch.Tensor:
+        from ._compat import block_of
+
+        return block_of(x, self.spec, self.mesh)
+
+    def gather(self, b: torch.Tensor) -> torch.Tensor:
+        from ._compat import gather_blocks
+
+        return gather_blocks(b, self.spec, self.mesh)
+
+    def __repr__(self):
+        return f"NamedSharding({self.mesh!r}, {self.spec!r})"
+
+
+def named_sharding(spec, mesh: Optional[DeviceMesh] = None) -> NamedSharding:
+    mesh = mesh or current_mesh()
+    if mesh is None:
+        raise MXNetError("named_sharding requires an active DeviceMesh")
+    return NamedSharding(mesh, spec)
+
+
+def replicated(mesh: Optional[DeviceMesh] = None) -> NamedSharding:
+    return NamedSharding(mesh or get_mesh(), P())
+
+
+def constraint(value, spec, mesh: Optional[DeviceMesh] = None):
+    """The JAX package's ``with_sharding_constraint`` inside a traced
+    forward: a placement hint that does not change the value.  A rank's
+    tensors are already its blocks, so the value comes back as it is."""
+    return value
 
 
 def shard_batch(x: torch.Tensor,
@@ -172,7 +249,7 @@ def shard_batch(x: torch.Tensor,
         raise MXNetError(f"shard_batch: a batch of {n} rows does not divide "
                          f"into {shards} shards of mesh {mesh!r}")
     rows = n // shards
-    r = dist.rank()
+    r = mesh.batch_index()
     return x[r * rows:(r + 1) * rows]
 
 
@@ -185,11 +262,12 @@ def rand_batch(shape, generator: torch.Generator,
     share, and keeps its block r: the ranks together use the draw that
     one device makes for the whole batch, as the JAX package draws one
     mask a step from one key, and their generators stay in step."""
-    shards = batch_shards(current_mesh())
+    mesh = current_mesh()
+    shards = batch_shards(mesh)
     if shards == 1:
         return torch.rand(shape, generator=generator, device=device)
     rows = shape[0]
     full = torch.rand((rows * shards,) + tuple(shape[1:]),
                       generator=generator, device=device)
-    r = dist.rank()
+    r = mesh.batch_index()
     return full[r * rows:(r + 1) * rows]

@@ -19,23 +19,46 @@ three phases in order on this rank's device:
      ``torch.no_grad``, written back in place into the block's
      parameters and the optimizer state.
 
-Data parallel (a mesh with dp = N > 1, one rank per device over a
-``parallel.dist`` process group): every rank is handed the global batch
-and keeps its own block of rows (``shard_batch``).  The reductions that
-GSPMD places in the JAX package are placed by hand, in two places only:
+Over a mesh of N > 1 positions (one rank per position over a
+``parallel.dist`` process group; ``make_mesh(dp=2)``, ``make_mesh(fsdp=2)``,
+``make_mesh(tp=2)``, ``make_mesh(dp=2, sp=2)``): every rank is handed the
+global batch and keeps its own block of rows (``shard_batch``: the block
+of its ``dp`` x ``fsdp`` position; the ranks along ``tp``, ``sp`` and the
+other axes hold the same rows).  The reductions that GSPMD places in the
+JAX package are placed by hand:
 
   (a) sums over the batch inside the forward (BatchNorm statistics, the
-      fused unit's s1/s2) go through ``dist.all_reduce_sum``, whose
-      backward sums their cotangents;
-  (b) after ``torch.autograd.grad`` the gradients are summed over the
-      ranks, one flat bucket per dtype, before the update, so that
-      weight decay and clipping see the global gradient.
+      fused unit's s1/s2) go through ``dist.all_reduce_sum`` over the
+      batch axes' group, whose backward sums their cotangents;
+  (b) after ``torch.autograd.grad`` each gradient is summed over the
+      batch axes it still lacks, one flat bucket per group and dtype,
+      before the update, so that weight decay and clipping see the
+      global gradient.  Never over ``tp`` or ``sp``: their ranks hold the
+      same rows and compute the same gradient.
 
 Each rank differentiates its share of the global mean loss, Σ_local ℓ /
 N_global, so (b) yields the gradient of the global mean; ``step``
 returns the summed shares, the global mean loss.  Parameters and buffers
 are broadcast from rank 0 when the trainer is built, so every rank
-starts from, and keeps, the same state.
+starts from the same state.
+
+Sharded parameters: ``rules`` (a ``ShardingRules`` table, matched against
+each parameter's MXNet name, ``gluon.block.mx_param_names``, as the JAX
+trainer matches ``collect_params``' names) give each trained tensor its
+spec.  Rank r keeps only its block of a tensor whose spec splits it
+(``parallel._compat.block_of``; the module's ``nn.Parameter`` holds the
+block, so 1/k of its bytes rest on the rank) and only that block's
+optimizer state.  The forward gathers the blocks on use
+(``_compat.gather``, swapped into the modules for the step, as
+``_OnReplica`` swaps replicas); the backward of the gather brings the
+gradient back onto the block: over a batch axis (``fsdp``) the ranks
+hold different rows, so it is a reduce-scatter (sum); over ``tp``,
+``sp`` or ``ep`` they hold the same rows, so it keeps this rank's slice
+and sums nothing.  The gathered forward computes what the JAX package
+computes (Megatron's column/row-parallel layout, with activations split
+over ``tp``, is a performance change this port does not make).  After
+training, ``sync_to_block()`` puts the gathered tensors back into the
+block (the next step cuts them again).
 
 BatchNorm running statistics are updated in place during the forward
 (the JAX package folds them back after the step; the values are the
@@ -56,48 +79,52 @@ per-step scalars lr (fp32) and t (int32) live in device buffers that the
 host writes before each step, as the JAX step takes them as arguments,
 so ``set_learning_rate`` never captures again; dropout draws from the
 device's generator, registered with the graph, so each replay draws a
-fresh mask.  The step returns a fresh loss tensor each call.  Under
-dp > 1 the step stays eager (the process group's collectives are not
-captured; ``step_compile_stats()["eager"]`` counts those steps), and
+fresh mask.  The step returns a fresh loss tensor each call.  Over
+several ranks the step stays eager (the process group's collectives are
+not captured; ``step_compile_stats()["eager"]`` counts those steps), and
 ``_step_eager`` is the eager step the captured one is held against.
 
-The JAX keywords: ``rules`` (a ``ShardingRules`` table; on the port's
-dp-only meshes every parameter stays replicated, and a rule that would
-split one raises), ``batch_spec``/``label_spec`` (one spec per input;
-``None`` or a spec splitting dim 0 over ``dp`` gives each rank its block
-of rows, a spec that splits nothing gives every rank the whole array;
-when no argument is split, each rank runs the whole batch with no
-collective in its forward and no gradient sum, and the loss is the same
-global mean), ``donate`` (accepted; the update is in place already) and
+The JAX keywords: ``rules`` (above), ``batch_spec``/``label_spec`` (one
+spec per input; ``None`` or a spec splitting dim 0 over the batch axes
+gives each rank its block of rows, and dim 1 may be split over ``sp``,
+``sharding.input_split``; a spec that splits no batch axis gives every
+rank the whole array; when no argument is split, each rank runs the
+whole batch as one device would, with no batch sum in its forward and
+no gradient sum, and the loss is the same global mean), ``donate``
+(accepted; the update is in place already) and
 ``remat`` (the forward runs under ``ActiveTrace(mirror=True)``: each
 sub-block that owns parameters is a checkpoint segment, the JAX
 package's ``jax.checkpoint`` segments; captured at dp = 1 like any
 step).
 
-ZeRO-1 (``MXNET_ZERO_STATES``, default on, as in the JAX package): under
-dp = N > 1 the optimizer state of a trained tensor of at least
-``MXNET_ZERO_MIN_SIZE`` elements is split over the ranks on the largest
-dim that N divides (``sharding.zero_state_spec``); rank r keeps block r
-of each state (and of the fp32 master weight under ``multi_precision``).
-Such a tensor's gradient is reduce-scattered (one flat bucket per dtype,
-laid out rank-major), the rank updates its block of the weight with its
-block of the state, and the blocks are all-gathered into the weight.
-The update is elementwise, so the weights are the bits of the
-replicated update; smaller tensors keep replicated states and the
+ZeRO-1 (``MXNET_ZERO_STATES``, default on, as in the JAX package): when
+the batch is split, the optimizer state of a trained tensor of at least
+``MXNET_ZERO_MIN_SIZE`` elements is split over the batch axes its spec
+does not use, on the largest dim of its block that they divide
+(``sharding.zero_state_spec``); each rank keeps its block of each state
+(and of the fp32 master weight under ``multi_precision``).  Such a
+tensor's gradient is reduce-scattered over those axes (one flat bucket
+per group and dtype, laid out rank-major), the rank updates its block of
+the weight with its block of the state, and the blocks are all-gathered
+into the weight.  The update is elementwise, so the weights are the bits
+of the replicated update; smaller tensors keep whole states and the
 all-reduce of (b).
 
 ``save_checkpoint``/``load_checkpoint`` (``parallel.checkpoint``) write
-and read the parameters, buffers, every optimizer state at full size and
-the step count; a load lands on any dp size and writes into the
-existing storages, so a captured step stays valid.
+and read the parameters, buffers, every optimizer state as global
+tensors and the step count; a load lands on any mesh (fsdp = 2 resumes at
+dp = 2 or dp = 1) and writes into the existing storages, so a captured
+step stays valid.  ``forward`` runs each rank's rows and gathers the
+outputs over the batch axes into the global batch, as the JAX trainer
+returns it.
 
-Not ported in this slice: flat optimizer groups (``MXNET_FUSED_OPTIMIZER``,
-ROADMAP.md queue A item 2), ``forward`` under dp > 1 (item 7, cut (b))
-and the telemetry hooks (item 10).  MXNet's own data-parallel API
-(``gluon.Trainer`` over replicas and dist KVStores, its ``spmd=True``
-step) is ``gluon/trainer.py``, ``kvstore.py`` and ``optimizer/spmd.py``;
-its ZeRO layout is the flat padded bucket, this trainer's the split of
-each state along one dim.
+Not ported in this slice: flat optimizer groups
+(``MXNET_FUSED_OPTIMIZER``, ROADMAP.md queue A item 2) and the telemetry
+hooks (item 10). MXNet's own data-parallel API (``gluon.Trainer`` over
+replicas and dist KVStores, its ``spmd=True`` step) is
+``gluon/trainer.py``, ``kvstore.py`` and ``optimizer/spmd.py``; its ZeRO
+layout is the flat padded bucket, this trainer's the split of each state
+along one dim.
 """
 from __future__ import annotations
 
@@ -107,16 +134,19 @@ import torch
 from torch import nn
 
 from ..base import MXNetError
-from ..gluon.block import ActiveTrace, param_keys
+from ..gluon.block import ActiveTrace, _homes, mx_param_names, param_keys
 from .. import ops
 from .. import optimizer as opt_mod
 from .. import random as _random
 from .. import _graphs
 from ..util import env as _env
 from . import dist
-from .mesh import DeviceMesh, batch_shards, current_mesh, make_mesh
-from .sharding import (DEFAULT_RULES, P, ShardingRules, is_batch_spec,
-                       shard_batch, spec_split, zero_state_spec)
+from ._compat import block_of, gather, gather_blocks, gather_dim
+from .mesh import BATCH_AXES, DeviceMesh, batch_shards, current_mesh, \
+    make_mesh
+from .sharding import (DEFAULT_RULES, P, ShardingRules, _axes_of,
+                       input_split, shard_batch, spec_split,
+                       zero_state_spec)
 
 __all__ = ["SPMDTrainer", "functional_optimizer", "FunctionalOptimizer",
            "step_compile_stats"]
@@ -146,14 +176,26 @@ def _scatter_rank_major(t, rows, d):
     t.copy_(rows.reshape(moved).movedim(0, d))
 
 
-def _gather_blocks(s, d, n):
-    """Every rank's block ``s`` of dim ``d``, gathered in rank order."""
-    local = s.movedim(d, 0).reshape(-1)
-    full = torch.empty(n * local.numel(), dtype=s.dtype, device=s.device)
-    dist.all_gather_(full, local)
-    moved = (s.shape[d] * n,) + tuple(x for i, x in enumerate(s.shape)
-                                      if i != d)
-    return full.view(moved).movedim(0, d).contiguous()
+class _Swapped:
+    """The gathered tensor of every split parameter in its modules for
+    the step (each home of a tied one), the blocks put back after."""
+
+    def __init__(self, block, full: Dict[int, torch.Tensor]):
+        self._block, self._full, self._undo = block, full, []
+
+    def __enter__(self):
+        for d, n, _ in _homes(self._block):
+            t = d[n]
+            if t is not None and id(t) in self._full:
+                self._undo.append((d, n, t))
+                d[n] = self._full[id(t)]
+        return self
+
+    def __exit__(self, *exc):
+        for d, n, t in reversed(self._undo):
+            d[n] = t
+        self._undo = []
+        return False
 
 
 class FunctionalOptimizer:
@@ -386,7 +428,13 @@ class SPMDTrainer:
         self._donate = bool(donate)  # no effect: updates are in place
         self.remat = bool(remat)
         self.device = self.mesh.local_device
+        self._world = self.mesh.size()
         self._shards = batch_shards(self.mesh)
+        # the batch axes of size > 1, in the mesh's order (the order of
+        # their groups' ranks)
+        self._batch_axes = tuple(a for a in self.mesh.axis_sizes
+                                 if a in BATCH_AXES
+                                 and self.mesh.size(a) > 1)
         # the forward's mesh when no input is split: every rank runs the
         # whole batch, as one device would
         self._solo = DeviceMesh({"dp": 1}, [self.device])
@@ -400,8 +448,8 @@ class SPMDTrainer:
         block.to(self.device)
         named = block.state_dict(keep_vars=True)
         self._plist = sorted(named.items())
-        if self._shards > 1:
-            # replicated from the start: rank 0's parameters and buffers
+        if self._world > 1:
+            # one start on every rank: rank 0's parameters and buffers
             uniq = {id(t): t for _, t in self._plist}
             dist.flat_buckets(list(uniq.values()), dist.broadcast_)
         first = {}  # a tied tensor's first structural name
@@ -413,22 +461,35 @@ class SPMDTrainer:
         params = dict(self._plist)
         self.params: Dict[str, torch.Tensor] = {
             n: params[n] for n in self._trainable}
-        for n, p in self._plist:
-            spec = rules.spec_for(n, tuple(p.shape), self.mesh)
+        # each trained tensor's spec, by its MXNet name (the names the
+        # JAX trainer matches); a split one keeps this rank's block only
+        mx_names = mx_param_names(block)
+        self._shapes = {n: tuple(p.shape) for n, p in self.params.items()}
+        self._specs: Dict[str, P] = {}
+        for n, p in self.params.items():
+            spec = rules.spec_for(mx_names.get(n, n), self._shapes[n],
+                                  self.mesh)
             if spec_split(spec, self.mesh) > 1:
-                raise MXNetError(
-                    f"SPMDTrainer: rule spec {spec!r} splits parameter {n} "
-                    f"over {self.mesh!r}; the port keeps parameters "
-                    "replicated (sharded parameters are ROADMAP queue A "
-                    "item 7, cut (b))")
-        # ZeRO-1: the dim each sharded state splits over the ranks
+                self._specs[n] = P(*spec)
+        self._split_ids = {id(self.params[n]): n for n in self._specs}
+        self._ensure_blocks()
+        # the batch axes each gradient is still summed over after its
+        # gather's backward: those its spec does not split
+        self._free = {n: tuple(a for a in self._batch_axes if a not in
+                               {x for e in self._specs.get(n, ())
+                                for x in _axes_of(e)})
+                      for n in self._trainable}
+        # ZeRO-1: the dim of its block each sharded state splits over
+        # the free batch axes
         self._zero_dims: Dict[str, int] = {}
         if self._shards > 1 and _env.get_bool("MXNET_ZERO_STATES"):
             min_size = _env.get_int("MXNET_ZERO_MIN_SIZE")
-            for n, p in self.params.items():
-                sspec = zero_state_spec(P(), tuple(p.shape), self.mesh,
+            for n in self._trainable:
+                spec = self._specs.get(n, P())
+                sspec = zero_state_spec(spec, self._shapes[n], self.mesh,
                                         min_size=min_size)
-                dims = [i for i, e in enumerate(sspec) if e is not None]
+                dims = [i for i, e in enumerate(sspec) if e is not None
+                        and (i >= len(spec) or spec[i] is None)]
                 if dims:
                     self._zero_dims[n] = dims[0]
         self._has_master = {n: self._fopt.needs_master(p)
@@ -455,30 +516,70 @@ class SPMDTrainer:
             tuple(str(d) for d in self.mesh.devices), self._shards,
             self.remat, tuple(sorted(self._zero_dims.items())))
 
+    def _ensure_blocks(self):
+        """Cut every split parameter to this rank's block, where it holds
+        the whole tensor (when the trainer is built, after
+        ``sync_to_block``)."""
+        with torch.no_grad():
+            for n, spec in self._specs.items():
+                p = self.params[n]
+                if tuple(p.shape) == self._shapes[n]:
+                    p.data = block_of(p.data, spec, self.mesh).clone()
+
     def _block_of(self, n, t):
-        """This rank's block of the tensor ``t`` of trained parameter
-        ``n`` (a view): the whole tensor unless its state is split."""
+        """This rank's ZeRO block of ``t``, the rank's block of trained
+        parameter ``n`` or a state of it (a view): the whole of ``t``
+        unless its state is split."""
         d = self._zero_dims.get(n)
         if d is None:
             return t
-        k = t.shape[d] // self._shards
-        return t.narrow(d, dist.rank() * k, k)
+        free = self._free[n]
+        k = t.shape[d] // self.mesh.size(free)
+        return t.narrow(d, self.mesh.index(free) * k, k)
 
     def state_full(self, n) -> Tuple[torch.Tensor, ...]:
-        """Parameter ``n``'s optimizer state at full size (every rank's
-        blocks gathered under ZeRO; all ranks call it together)."""
+        """Parameter ``n``'s optimizer state as global tensors (the ranks'
+        blocks gathered under ZeRO and for a split parameter; all ranks
+        call it together)."""
         d = self._zero_dims.get(n)
-        if d is None:
-            return tuple(self.opt_state[n])
-        return tuple(_gather_blocks(s, d, self._shards)
-                     for s in self.opt_state[n])
+        out = []
+        for s in self.opt_state[n]:
+            if d is not None:
+                s = gather_dim(s, d, self._free[n], self.mesh)
+            if n in self._specs:
+                s = gather_blocks(s, self._specs[n], self.mesh)
+            out.append(s)
+        return tuple(out)
 
     def load_state_full(self, n, values) -> None:
-        """Copy full-size state tensors into parameter ``n``'s state (this
-        rank's block of each under ZeRO), in place."""
+        """Copy global state tensors into parameter ``n``'s state (this
+        rank's block of each), in place."""
+        spec = self._specs.get(n, P())
         with torch.no_grad():
             for s, v in zip(self.opt_state[n], values):
-                s.copy_(self._block_of(n, v.to(s.device)))
+                s.copy_(self._block_of(n, block_of(v.to(s.device), spec,
+                                                   self.mesh)))
+
+    def value_full(self, t: torch.Tensor) -> torch.Tensor:
+        """The global value of the block's parameter or buffer ``t``
+        (gathered when it is split: a collective, every rank calls it)."""
+        n = self._split_ids.get(id(t))
+        if n is None:
+            return t.detach()
+        return gather_blocks(t.detach(), self._specs[n], self.mesh)
+
+    def load_value_full(self, t: torch.Tensor, v: torch.Tensor) -> None:
+        """Copy the global value ``v`` into ``t`` (its block when it is
+        split), in place."""
+        n = self._split_ids.get(id(t))
+        if n is not None:
+            v = block_of(v, self._specs[n], self.mesh)
+        with torch.no_grad():
+            t.copy_(v)
+
+    def global_shape(self, t: torch.Tensor) -> Tuple[int, ...]:
+        n = self._split_ids.get(id(t))
+        return tuple(t.shape) if n is None else self._shapes[n]
 
     def _opt_static_fingerprint(self) -> Tuple:
         """The optimizer attributes the step reads as constants (wd,
@@ -498,20 +599,21 @@ class SPMDTrainer:
                       for t in self.opt_state[n]),
                 key(self._lr_buf), key(self._t_buf))
 
-    def _splits(self, n_args) -> Tuple[bool, ...]:
-        """Per argument of ``step``: whether its spec gives each rank its
-        block of rows (``None`` does) rather than the whole array."""
-        if self._shards == 1:
+    def _splits(self, n_args, n_lab=None) -> Tuple[bool, ...]:
+        """Per argument of ``step`` (of ``forward`` with ``n_lab`` 0):
+        whether its spec gives each rank its block of rows (``None``
+        does) rather than the whole array."""
+        if self._world == 1:
             return (False,) * n_args
-        n_lab = self.n_labels
+        n_lab = self.n_labels if n_lab is None else n_lab
         n_in = n_args - n_lab
-        specs = list(self._batch_spec or [None] * n_in) + list(
-            self._label_spec or [None] * n_lab)
+        specs = list(self._batch_spec or [None] * n_in) + (
+            list(self._label_spec or [None] * n_lab) if n_lab else [])
         if len(specs) != n_args:
             raise MXNetError(f"SPMDTrainer: {len(specs)} batch/label specs "
                              f"for {n_args} arguments")
-        return tuple(s is None or is_batch_spec(s, self.mesh)
-                     for s in specs)
+        split = [s is None or input_split(s, self.mesh) for s in specs]
+        return tuple(self._shards > 1 and x for x in split)
 
     def _place(self, x, split=False):
         """``x`` on this rank's device: its rows of the global batch when
@@ -525,6 +627,7 @@ class SPMDTrainer:
         """This rank's inputs and labels on the device; the step count
         and the lr and t buffers for this step."""
         self._split = self._splits(len(args))
+        self._ensure_blocks()
         vals = tuple(self._place(x, s) for x, s in zip(args, self._split))
         self._t += 1
         self._optimizer._update_count(0)
@@ -538,7 +641,7 @@ class SPMDTrainer:
         read).  On one device the step is captured once per signature
         and replayed (see the module docstring)."""
         vals = self._begin(args)
-        if self._shards > 1:
+        if self._world > 1:
             _STEP_CACHE.note_eager()
             return self._body(*vals)
         if not _graphs.capture_enabled():
@@ -566,6 +669,18 @@ class SPMDTrainer:
         on the card)."""
         return _STEP_CACHE.entries(self)
 
+    def _gathered(self, split):
+        """The scope in which the modules hold every split parameter
+        gathered (differentiably: see the module docstring)."""
+        full = {}
+        for n, spec in self._specs.items():
+            p = self.params[n]
+            used = {x for e in spec for x in _axes_of(e)}
+            partial = tuple(a for a in self._batch_axes if a in used) \
+                if split else ()
+            full[id(p)] = gather(p, spec, self.mesh, partial)
+        return _Swapped(self.block, full)
+
     def _body(self, *vals) -> torch.Tensor:
         """Forward, backward and update on this rank's inputs and labels;
         reads lr and t from their buffers."""
@@ -574,26 +689,35 @@ class SPMDTrainer:
             else (vals[:-n_lab], vals[-n_lab:])
         self._fopt.begin_step()
         gen = _random.generator(self.device)
-        # split: each rank holds its rows and sums over the ranks; else
-        # each holds the whole batch and the step is one device's
+        # split: each rank holds its rows and sums over the batch ranks;
+        # else each holds the whole batch and the step is one device's
         split = self._shards > 1 and any(self._split)
         mesh = self._solo if self._shards > 1 and not split else self.mesh
-        with mesh, ActiveTrace(
-                train=True, generator=gen, mirror=self.remat):
-            out = self.block(*ivals)
-            outs = out if isinstance(out, (list, tuple)) else (out,)
-            l = self.loss(outs[0], *lvals)
-        lval = (l[0] if isinstance(l, (list, tuple)) else l).mean()
-        if split:
-            lval = lval / self._shards  # this rank's share of the mean
         weights = [self.params[n] for n in self._trainable]
-        grads = torch.autograd.grad(lval, weights)
+        # the gathered tensors stay in the modules through the backward,
+        # where remat's segments run their forwards again
+        with self._gathered(split):
+            with mesh, ActiveTrace(
+                    train=True, generator=gen, mirror=self.remat):
+                out = self.block(*ivals)
+                outs = out if isinstance(out, (list, tuple)) else (out,)
+                l = self.loss(outs[0], *lvals)
+            lval = (l[0] if isinstance(l, (list, tuple)) else l).mean()
+            if split:
+                lval = lval / self._shards  # this rank's share of the mean
+            grads = torch.autograd.grad(lval, weights)
         lval = lval.detach()
         zero = self._zero_dims
         if split:
-            dist.flat_buckets([g for n, g in zip(self._trainable, grads)
-                               if n not in zero], dist.all_reduce_)
-            dist.all_reduce_(lval)
+            by_free: Dict[Tuple[str, ...], list] = {}
+            for n, g in zip(self._trainable, grads):
+                if n not in zero and self._free[n]:
+                    by_free.setdefault(self._free[n], []).append(g)
+            for free, gs in by_free.items():
+                group = self.mesh.group(free)
+                dist.flat_buckets(gs, lambda t, g=group: dist.all_reduce_(
+                    t, g))
+            dist.all_reduce_(lval, self.mesh.batch_group())
         with torch.no_grad():
             for n, w, g in zip(self._trainable, weights, grads):
                 if n not in zero:
@@ -605,21 +729,23 @@ class SPMDTrainer:
         return lval
 
     def _zero_update(self, named_grads, reduce):
-        """ZeRO-1 update of the tensors whose states are split: per
-        dtype, one reduce-scatter of the gradients laid out rank-major
-        (block r of every tensor, then block r+1; without ``reduce`` each
-        rank already holds the whole gradient and takes its blocks), the
-        update of this rank's block of each weight, one all-gather of the
-        new blocks into the weights."""
-        n_sh, r = self._shards, dist.rank()
-        groups: Dict[torch.dtype, list] = {}
+        """ZeRO-1 update of the tensors whose states are split: per group
+        of free batch axes and dtype, one reduce-scatter of the gradients
+        laid out rank-major (block r of every tensor, then block r+1;
+        without ``reduce`` each rank already holds the whole gradient and
+        takes its blocks), the update of this rank's block of each
+        weight, one all-gather of the new blocks into the weights."""
+        groups: Dict[Tuple, list] = {}
         for n, g in named_grads:
-            groups.setdefault(g.dtype, []).append((n, g))
-        for dtype, group in groups.items():
+            groups.setdefault((self._free[n], g.dtype), []).append((n, g))
+        for (free, _), group in groups.items():
+            n_sh, r = self.mesh.size(free), self.mesh.index(free)
+            pg = self.mesh.group(free)
             rows = [_rank_major(g, self._zero_dims[n], n_sh)
                     for n, g in group]
             if reduce:
-                mine = dist.reduce_scatter(torch.cat(rows, 1).reshape(-1))
+                mine = dist.reduce_scatter(torch.cat(rows, 1).reshape(-1),
+                                           pg)
             else:
                 mine = torch.cat([m[r] for m in rows])
             blocks, off = [], 0
@@ -635,7 +761,7 @@ class SPMDTrainer:
             local = torch.cat(blocks)
             full = torch.empty(n_sh * local.numel(), dtype=local.dtype,
                                device=local.device)
-            full = dist.all_gather_(full, local).view(n_sh, -1)
+            full = dist.all_gather_(full, local, pg).view(n_sh, -1)
             off = 0
             for (n, g), m in zip(group, rows):
                 _scatter_rank_major(self.params[n], full[:, off:off
@@ -683,16 +809,38 @@ class SPMDTrainer:
         self._optimizer.set_learning_rate(lr)
 
     def sync_to_block(self):
-        """Nothing to copy: the step updates the block's parameters in
-        place.  Kept so that code written for the JAX package runs."""
+        """Put the global value of every split parameter back into the
+        block (a collective: every rank calls it), so that the block runs,
+        and saves, on its own; the next step or forward cuts each back to
+        this rank's block.  Without split parameters there is nothing to
+        copy: the step updates the block's parameters in place."""
+        with torch.no_grad():
+            for n, spec in self._specs.items():
+                p = self.params[n]
+                if tuple(p.shape) != self._shapes[n]:
+                    p.data = gather_blocks(p.data, spec, self.mesh)
 
     def forward(self, *inputs):
         """Inference with the trainer's current parameters (moving BN
-        statistics)."""
-        if self._shards > 1:
-            raise MXNetError(
-                f"SPMDTrainer.forward over {self.mesh!r}: gathering each "
-                "rank's outputs comes with a later slice of the port")
-        ivals = tuple(self._place(x) for x in inputs)
-        with torch.no_grad(), self.mesh, ActiveTrace(train=False):
-            return self.block(*ivals)
+        statistics): each rank runs its rows and the outputs come back
+        gathered over the batch axes, in rank order, into the global
+        batch (the JAX trainer's output), the same on every rank."""
+        splits = self._splits(len(inputs), 0)
+        split = any(splits)
+        self._ensure_blocks()
+        ivals = tuple(self._place(x, s) for x, s in zip(inputs, splits))
+        mesh = self._solo if self._shards > 1 and not split else self.mesh
+        with torch.no_grad(), self._gathered(False), mesh, \
+                ActiveTrace(train=False):
+            out = self.block(*ivals)
+        if not split:
+            return out
+        spec = P(self._batch_axes)
+
+        def whole(o):
+            if isinstance(o, torch.Tensor):
+                return gather_blocks(o, spec, self.mesh)
+            if isinstance(o, (list, tuple)):
+                return type(o)(whole(x) for x in o)
+            return o
+        return whole(out)

@@ -175,7 +175,10 @@ def test_the_port_modules_import_no_jax():
                 "test_utils.py", "examples/bert_pretrain.py",
                 "examples/transformer_nmt.py", "kvstore_compression.py",
                 "kvstore_server.py", "optimizer/comm.py",
-                "optimizer/spmd.py", "tools/launch.py"):
+                "optimizer/spmd.py", "tools/launch.py", "parallel/mesh.py",
+                "parallel/_compat.py", "parallel/ring.py",
+                "parallel/ulysses.py", "parallel/__init__.py",
+                "examples/long_context_lm.py"):
         for name in _imports(pkg / rel):
             assert not name.startswith(("jax", "mxnet_tpu.")) \
                 and name != "mxnet_tpu", (rel, name)
@@ -206,6 +209,9 @@ def test_the_port_modules_import_no_jax():
             "mxnet_tpu_torch.serialization, mxnet_tpu_torch.util.env, "
             "mxnet_tpu_torch.gluon.model_zoo.vision, "
             "mxnet_tpu_torch.parallel.checkpoint, "
+            "mxnet_tpu_torch.parallel.ring, mxnet_tpu_torch.parallel.ulysses, "
+            "mxnet_tpu_torch.parallel._compat, "
+            "mxnet_tpu_torch.examples.long_context_lm, "
             "mxnet_tpu_torch.gluon.data.vision.transforms, "
             "mxnet_tpu_torch.lib, mxnet_tpu_torch.recordio, "
             "mxnet_tpu_torch.image, mxnet_tpu_torch.ops.image_ops, "

@@ -43,10 +43,11 @@ the host devices of ``tests/conftest.py``, meanwhile.
   bit-identical;
   the dp=2 steps are counted as eager in ``step_compile_stats``.
 * The surface: ``dist.init`` from the DMLC_* environment, rank and
-  num_workers, ``make_mesh()`` defaulting to dp = world size, and what
-  raises (dp other than the world size, tp=2, a batch dp does not
-  divide, ``forward`` under dp=2); ``dist.resolve`` of the DMLC_*
-  variables in the pytest process.
+  num_workers, ``make_mesh()`` defaulting to dp = world size, a tp=2
+  mesh (rank r at tp coordinate r), ``forward`` under dp=2 giving the
+  global batch, and what raises (dp other than the world size, a batch
+  dp does not divide); ``dist.resolve`` of the DMLC_* variables in the
+  pytest process.
 """
 import os
 import subprocess
@@ -294,12 +295,11 @@ def _port_surface(rank, mesh):
         "dp_not_world_raises": raises(
             lambda: parallel.make_mesh(dp=4, devices=[cpu] * 4),
             "process group has 2 rank"),
-        "tp_raises": raises(
-            lambda: parallel.make_mesh(dp=1, tp=2, devices=[cpu] * 2),
-            "only the 'dp' axis"),
+        "tp_mesh": parallel.make_mesh(dp=1, tp=2, devices=[cpu] * 2
+                                      ).coord("tp") == rank,
         "indivisible_batch_raises": raises(
             lambda: tr.step(x[:BATCH - 1], y[:BATCH - 1]), "does not divide"),
-        "forward_raises": raises(lambda: tr.forward(x), "later slice"),
+        "forward_gathers": tuple(tr.forward(x).shape) == (BATCH, 10),
         "shard_batch_rows": bool(np.array_equal(
             parallel.shard_batch(torch.from_numpy(x), mesh).numpy(),
             _rows(x, rank))),

@@ -335,7 +335,10 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                 "test_utils.py", "examples/bert_pretrain.py",
                 "examples/transformer_nmt.py", "kvstore_compression.py",
                 "kvstore_server.py", "optimizer/comm.py",
-                "optimizer/spmd.py", "tools/launch.py"):
+                "optimizer/spmd.py", "tools/launch.py", "parallel/mesh.py",
+                "parallel/sharding.py", "parallel/_compat.py",
+                "parallel/ring.py", "parallel/ulysses.py",
+                "parallel/__init__.py", "examples/long_context_lm.py"):
         assert pkg / rel in files, rel
     for f in files:
         for mod in _imports(f):

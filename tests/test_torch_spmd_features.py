@@ -184,13 +184,15 @@ def _rank_main(out_dir, rank):
     tr = _trainer(vals, mesh)
     res["min_size_split"] = np.array(sorted(tr._zero_dims), dtype=object)
     del os.environ["MXNET_ZERO_MIN_SIZE"]
-    res["surface/rule_splitting_a_parameter_raises"] = np.array(_raises(
-        lambda: _trainer(vals, mesh, rules=ShardingRules(
-            [(r".*weight$", P("dp", None, None, None))])),
-        "keeps parameters replicated"))
+    tr = _trainer(vals, mesh, rules=ShardingRules(
+        [(r".*weight$", P("dp", None, None, None))]))
+    res["surface/rule_splitting_a_parameter_keeps_a_block"] = np.array(
+        bool(tr._specs) and all(
+            tr.params[n].shape[0] * WORLD == tr._shapes[n][0]
+            for n in tr._specs))
     res["surface/spec_splitting_dim1_raises"] = np.array(_raises(
         lambda: _steps(_trainer(vals, mesh, batch_spec=[P(None, "dp")]),
-                       1), "splits only dim 0"))
+                       1), "ROADMAP queue A item 7, cut (c)"))
     tr = _trainer(vals, mesh, batch_spec=[P()], label_spec=[P()])
     put("replicated", _record(tr, _steps(tr, 2)))
     # the dp = 1 step it must equal, on a rank's single thread (the

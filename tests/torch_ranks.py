@@ -1,7 +1,8 @@
 """Rank processes of a test file, started by the port's launcher.
 
-``Launched(script, out_dir)`` runs ``python mxnet_tpu_torch/tools/launch.py
--n 2 --launcher local python <script> <out_dir>`` (the launcher by its
+``Launched(script, out_dir, world=2)`` runs ``python
+mxnet_tpu_torch/tools/launch.py -n <world> --launcher local python
+<script> <out_dir> [args]`` (the launcher by its
 path, so it imports no torch) in a session of its own: each rank reads
 its rank from ``DMLC_WORKER_ID``, joins a gloo group
 (``parallel.dist.init(backend="gloo")``) through the ``DMLC_*`` contract
@@ -24,9 +25,11 @@ WORLD = 2
 
 
 class Launched:
-    def __init__(self, script, out_dir, timeout=240.0):
+    def __init__(self, script, out_dir, timeout=240.0, world=WORLD,
+                 args=()):
         self.dir = str(out_dir)
         self.timeout = timeout
+        self.world = world
         env = dict(os.environ, OMP_NUM_THREADS="1",
                    PYTHONPATH=os.pathsep.join(
                        [REPO] + [p for p in [os.environ.get("PYTHONPATH")]
@@ -36,8 +39,8 @@ class Launched:
         self.proc = subprocess.Popen(
             [sys.executable, os.path.join(REPO, "mxnet_tpu_torch", "tools",
                                           "launch.py"), "-n",
-             str(WORLD), "--launcher", "local", sys.executable,
-             os.path.abspath(script), self.dir],
+             str(world), "--launcher", "local", sys.executable,
+             os.path.abspath(script), self.dir, *args],
             env=env, cwd=REPO, stdout=subprocess.PIPE,
             stderr=subprocess.STDOUT, text=True, start_new_session=True)
         self._res = None
@@ -59,7 +62,7 @@ class Launched:
             pytest.fail(f"ranks exit {self.proc.returncode}:\n{out[-4000:]}")
         self._res = [dict(np.load(os.path.join(self.dir, f"rank{r}.npz"),
                                   allow_pickle=False))
-                     for r in range(WORLD)]
+                     for r in range(self.world)]
         return self._res
 
 
