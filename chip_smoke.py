@@ -693,8 +693,49 @@ Phases, each failing loudly (exit code 1, no result line):
    step 0's loss within 1e-4 of an sp = 1 step of the same weights in
    this process, the loss falling, the ranks' losses equal; ms a step and
    peak memory.  Kernel 5 is checked at the fsdp ranks' shape (batch
-   16).  It prints its seconds (limit 90 s) and one `sharded: {...}`
-   line, and adds kernel 5's launches on both paths to the kernels line.
+   16).  It prints its seconds (limit 90 s, phase 24's work in its ranks
+   left out) and one `sharded: {...}` line, and adds kernel 5's
+   launches on both paths to the kernels line.
+24. Expert and pipeline parallelism (ROADMAP queue A item 7, cut (c); no
+   kernel of its own; it needs phase 23, whose two ranks run its cases
+   (a)-(c) after their own work, and whose parent leaves it BERT-base).
+   (a) parallel.pipeline_apply at pp = 2: BERT-base's 12 encoder layers
+   (bf16, the phase-23 weights) as two stages of six, config 3's batch
+   of 32 x 128 (seeded hidden states, every key valid) as 4
+   microbatches of 8, dropout 0; the forward and the gradients of the
+   stacked parameters and of the input for a seeded cotangent within
+   2e-2 relative L2 of this process's run of the two stages one after
+   the other, both ranks bit for bit alike, 30 kernel-5 launches a call
+   on each rank (6 layers x the 5 GPipe ticks, the bubble ticks
+   included); ms a call and peak memory a rank.  (b) parallel.moe_apply
+   with eight BERT-base FFN experts (768 -> 3072, GELU, -> 768, bf16,
+   Normal(0.02)) on 4096 seeded hidden states, gate logits from a seeded
+   768 -> 8 router whose Normal(1) bias overfills some experts, capacity
+   factor 1.25 (capacity 640): at ep = 2 (four experts a rank) and at
+   dp = 2 (2048 rows a rank), y and the gradients of x, the logits and
+   the stacked weights within 2e-2 relative L2 of an ep = 1 call here
+   (under dp = 2 each rank's rows, the weights' gradients summed over the
+   ranks), dropped_frac in (0, 1) and equal; ms a call.  (c)
+   config 5's Transformer-base step (bf16, Xavier, Adam, dropout 0) at
+   dp = 2 on batch 64 x 64 with the target lengths drawn per row: step
+   1's loss and the updated tied embedding, layer 0's query and ffn_1
+   weights and their Adam means within 2e-2 of a dp = 1 step here;
+   kernel 5's launches a step on each rank those of dp = 1; ms a step.
+   (d) parallel.HeteroPipeline in this process: ResNet-50 v1 (bf16,
+   NHWC, fused units with the fused backward) cut into three stages at
+   its features children (stem and stage 1; stages 2-3; stage 4 and the
+   head), each a pure torch.func.functional_call of its blocks in
+   training mode (running statistics read, never written), on cuda:0 or
+   round-robin over the cards; batch 256 as 4 microbatches of 64:
+   pipe(x) against the unsplit net on the same microbatches,
+   value_and_grad of softmax cross-entropy against a plain loop over
+   them (whether bit for bit is printed), 208 kernel-1 launches in the
+   forward, 416 kernel-1 (the recompute's included) and 184 kernel-2
+   launches in value_and_grad, the running statistics unchanged.
+   Kernel 5 is checked at (a)'s and (c)'s shapes and kernels 1 and 2 at
+   N = 64.  It prints its seconds (its rank work included; limit 60 s)
+   and one `parallel_c: {...}` line, and adds its launches of kernels 5,
+   1 and 2 to the kernels line.
 
 The compiled paths (mxnet_tpu_torch._graphs): every SPMDTrainer step on one
 device, every hybridized forward in inference and under record() (a
@@ -2880,27 +2921,34 @@ def phase_train(card):
 # phase 6: the data-parallel training main path — dp=2 over two ranks
 # ---------------------------------------------------------------------------
 
-def phase_kernels_dp():
-    """Kernels 1 (with statistics) and 2 at the per-rank shapes of the
-    data-parallel step (N = TRAIN_BATCH / DP), with phase 3's checks."""
+def kernels_at(n, seed, path, what):
+    """Kernels 1 (with statistics) and 2 at ResNet-50's configurations at
+    batch ``n``, with phase 3's checks: (forward records, backward
+    records), each of path ``path``."""
     dev = torch.device("cuda", 0)
-    gen = torch.Generator(device=dev).manual_seed(2468)
-    n = TRAIN_BATCH // DP
+    gen = torch.Generator(device=dev).manual_seed(seed)
     fwd, bwd = [], []
-    print(f"kernels at the per-rank shapes of dp={DP}, N={n} (train_dp):",
-          flush=True)
+    print(f"kernels at {what} ({path}):", flush=True)
     for (name, hw, ci, co, k, s, p, act_in, count) in resnet50_unit_configs():
         x, w, sc, bi, sh = make_unit_inputs(gen, n, hw, ci, co, k,
                                             torch.bfloat16, dev)
         fwd.append(dict(check_unit(name, x, w, sc, bi, sh, k, s, p, act_in,
-                                   True), count=count, path="train_dp"))
+                                   True), count=count, path=path))
         if s == 1:
             bwd.append(dict(check_unit_bwd(name, x, w, sc, bi, sh, k, p,
                                            act_in, True, gen),
-                            count=count, path="train_dp"))
+                            count=count, path=path))
         del x, w
     torch.cuda.empty_cache()
     return fwd, bwd
+
+
+def phase_kernels_dp():
+    """Kernels 1 (with statistics) and 2 at the per-rank shapes of the
+    data-parallel step (N = TRAIN_BATCH / DP), with phase 3's checks."""
+    n = TRAIN_BATCH // DP
+    return kernels_at(n, 2468, "train_dp",
+                      f"the per-rank shapes of dp={DP}, N={n}")
 
 
 def full_momentum(trainer):
@@ -11119,23 +11167,8 @@ def phase_kvstore(card):
 def phase_kernels_kv():
     """Kernels 1 (with statistics) and 2 at phase 22's per-rank shapes
     (N = KV_BATCH), with phase 3's checks."""
-    dev = torch.device("cuda", 0)
-    gen = torch.Generator(device=dev).manual_seed(2222)
-    fwd, bwd = [], []
-    print(f"kernels at phase 22's per-rank shapes, N={KV_BATCH} "
-          "(train_kv):", flush=True)
-    for (name, hw, ci, co, k, s, p, act_in, count) in resnet50_unit_configs():
-        x, w, sc, bi, sh = make_unit_inputs(gen, KV_BATCH, hw, ci, co, k,
-                                            torch.bfloat16, dev)
-        fwd.append(dict(check_unit(name, x, w, sc, bi, sh, k, s, p, act_in,
-                                   True), count=count, path="train_kv"))
-        if s == 1:
-            bwd.append(dict(check_unit_bwd(name, x, w, sc, bi, sh, k, p,
-                                           act_in, True, gen),
-                            count=count, path="train_kv"))
-        del x, w
-    torch.cuda.empty_cache()
-    return fwd, bwd
+    return kernels_at(KV_BATCH, 2222, "train_kv",
+                      f"phase 22's per-rank shapes, N={KV_BATCH}")
 
 
 def attention_path_summary(kernel, path, rows, launches, batch):
@@ -11200,8 +11233,8 @@ SHARD_BOUND = 2e-2     # bf16: rel of step 1's loss, rel L2 of each tensor
 SHARD_LM = dict(units=64, heads=4, layers=2, vocab=512, batch=4, seq=8192)
 SHARD_LM_STEPS = 10
 SHARD_LM_BOUND = 1e-4  # fp32: step 0's loss, ring / Ulysses vs sp = 1
-SHARD_TIMEOUT = 300.0  # s, the ranks' whole run, their start included
-SHARD_SECONDS = 90.0   # the phase's limit
+SHARD_TIMEOUT = 420.0  # s, the ranks' whole run (phase 24's work too)
+SHARD_SECONDS = 90.0   # the phase's limit, phase 24's rank work left out
 
 
 def shard_bert(dev, batch):
@@ -11228,11 +11261,11 @@ def shard_restore(step, w0):
                 v.copy_(w0[k])
 
 
-def shard_tracked(tr):
-    """{name: (weight, Adam mean)} of SHARD_TRACKED as global tensors (a
+def shard_tracked(tr, names=SHARD_TRACKED):
+    """{name: (weight, Adam mean)} of ``names`` as global tensors (a
     collective over the trainer's mesh)."""
     return {n: (tr.value_full(tr.params[n]).cpu().clone(),
-                tr.state_full(n)[0].cpu().clone()) for n in SHARD_TRACKED}
+                tr.state_full(n)[0].cpu().clone()) for n in names}
 
 
 def shard_rank(out_dir, backend, devices):
@@ -11240,8 +11273,10 @@ def shard_rank(out_dir, backend, devices):
     SPMDTrainer.forward of BERT-base at dp = 2; (a) BERT-base trained at
     fsdp = 2 and at tp = 2 (step 1, then SHARD_STEPS counted steps with
     the kernel counters set to 0 just before and read just after); (b)
-    the long-context LM at dp = 1 x sp = 2, ring and Ulysses.  Rank 0
-    saves its tensors; both write their records."""
+    the long-context LM at dp = 1 x sp = 2, ring and Ulysses; then phase
+    24's cases (a)-(c) (pc_rank_pipeline, pc_rank_moe, pc_rank_nmt).
+    Rank 0 saves its tensors of phase 23, each rank its tensors of phase
+    24; both write their records."""
     from mxnet_tpu_torch import parallel
     from mxnet_tpu_torch.examples import bench_steps as bs
     from mxnet_tpu_torch.examples import long_context_lm as lm
@@ -11252,8 +11287,8 @@ def shard_rank(out_dir, backend, devices):
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     parallel.dist.init(backend=backend, timeout=DP_COLLECTIVE_TIMEOUT)
-    res = {"rank": rank, "cases": {}, "lm": {}}
-    saved = {}
+    res = {"rank": rank, "cases": {}, "lm": {}, "pc": {}}
+    saved, pc_saved = {}, {}
     batch = bs.bert_batch("full", seed=0, ctx=dev)
     step, w0 = shard_bert(dev, batch)
     dense = sum(p.numel() * p.element_size()
@@ -11306,6 +11341,9 @@ def shard_rank(out_dir, backend, devices):
             specs={n: repr(tr._specs[n]) for n in SHARD_TRACKED
                    if n in tr._specs})
         del tr
+    shard_restore(step, w0)
+    gc_cuda()
+    pc_rank_pipeline(step, dev, devices, res["pc"], pc_saved)
     del step, w0
     gc_cuda()
     # (b) the long-context LM at dp = 1 x sp = 2
@@ -11327,11 +11365,16 @@ def shard_rank(out_dir, backend, devices):
                                  peak_bytes=torch.cuda.max_memory_allocated(
                                      dev))
         del net, tr
+    gc_cuda()
+    pc_rank_moe(dev, devices, res["pc"], pc_saved)
+    gc_cuda()
+    pc_rank_nmt(dev, devices, res["pc"], pc_saved)
     res["jax_imported"] = sorted(
         m for m in sys.modules if m == "jax" or m.startswith("jax.")
         or m == "mxnet_tpu" or m.startswith("mxnet_tpu."))
     if rank == 0:
         torch.save(saved, os.path.join(out_dir, "rank0.pt"))
+    torch.save(pc_saved, os.path.join(out_dir, f"rank{rank}_pc.pt"))
     with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
         json.dump(res, f)
     parallel.dist.barrier()
@@ -11419,6 +11462,7 @@ def phase_sharded(card, recs_att):
     ref = shard_tracked(tr)
     dense_trained = sum(p.numel() * p.element_size()
                         for p in tr.params.values())
+    KEEP["shard_bert"] = (step, w0)  # phase 24 (a)'s stages
     del tr, step, w0
     gc_cuda()
     for case in SHARD_CASES:
@@ -11527,9 +11571,15 @@ def phase_sharded(card, recs_att):
             "bert_tp2", [(recs_att["bert.packed"], BERT_LAYERS)],
             res["launches"]["tp"], BATCH), backend=backend,
             ranks=SHARD_RANKS)]
-    res["seconds"] = time.perf_counter() - t0
+    # phase 24's work in the same ranks is counted in phase 24
+    pc_s = max(sum(rk["pc"][c]["seconds"] for c in ("pipeline", "moe",
+                                                     "nmt"))
+               for rk in ranks)
+    res["seconds"] = time.perf_counter() - t0 - pc_s
+    res["out_dir"] = out_dir
     print(f"sharded: phase 23 took {res['seconds']:.1f} s (ranks "
-          f"{t_ranks:.1f} s; limit {SHARD_SECONDS:.0f} s) [{card}]",
+          f"{t_ranks:.1f} s, of which phase 24's work {pc_s:.1f} s, not "
+          f"counted here; limit {SHARD_SECONDS:.0f} s) [{card}]",
           flush=True)
     print("sharded: " + json.dumps(res), flush=True)
     if res["seconds"] > SHARD_SECONDS:
@@ -11537,6 +11587,574 @@ def phase_sharded(card, recs_att):
              f"{SHARD_SECONDS:.0f} s")
     return res, summaries
 
+
+
+# ---------------------------------------------------------------------------
+# phase 24: expert and pipeline parallelism (ROADMAP queue A item 7, cut (c))
+# ---------------------------------------------------------------------------
+
+PC_SEED = 27
+PC_STAGES, PC_MICRO = 2, 4     # (a): pp ranks of six layers; microbatches
+PC_EXPERTS, PC_TOKENS, PC_CF, PC_FFN = 8, 4096, 1.25, 3072   # (b)
+PC_CAPACITY = math.ceil(PC_TOKENS / PC_EXPERTS * PC_CF)
+PC_NMT_SIZE, PC_NMT_BATCH = "full", 64   # (c): config 5's 64 x 64 tokens
+# (c): the tensors held against the dp = 1 step, weights and Adam means
+# (the tied source/target/output embedding trains as net.tied_weight)
+PC_NMT_TRACKED = ("net.tied_weight",
+                  "net.encoder.layers.0.attention.query.weight",
+                  "net.encoder.layers.0.ffn.ffn_1.weight")
+PC_HETERO_BATCH, PC_HETERO_MICRO = 256, 4   # (d)
+PC_HETERO_CUTS = (5, 7)        # (d): ResNet-50's features children a stage
+PC_BOUND = 2e-2                # bf16: rel L2 (relative for a loss)
+PC_SECONDS = 60.0              # the phase's limit, its rank work included
+
+
+def pc_bert_stage(layers):
+    """pipeline_apply's stage over BERT-base encoder layers: each layer
+    with p's '<slot>.<name>' tensors swapped in (functional_call), every
+    key valid (config 3's lengths are all 128)."""
+    from mxnet_tpu_torch.gluon.block import ActiveTrace
+
+    def stage(p, x):
+        mask = torch.ones(x.shape[0], x.shape[1], device=x.device)
+        with ActiveTrace(train=True):
+            for s, layer in enumerate(layers):
+                pre = f"{s}."
+                x = torch.func.functional_call(
+                    layer, {k[len(pre):]: v for k, v in p.items()
+                            if k.startswith(pre)}, (x, mask))
+        return x
+    return stage
+
+
+def pc_bert_stacked(layers):
+    """The encoder's layers as PC_STAGES stages' stacked parameters,
+    leaves that require grad."""
+    from mxnet_tpu_torch.parallel import stack_stage_params
+
+    per = len(layers) // PC_STAGES
+    stacked = stack_stage_params([
+        {f"{s}.{k}": v.detach() for s in range(per)
+         for k, v in layers[i * per + s].state_dict().items()}
+        for i in range(PC_STAGES)])
+    return {k: v.requires_grad_() for k, v in stacked.items()}
+
+
+def pc_seeded(dev, seed, *shapes, scale=1.0):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return [(torch.randn(*s, generator=gen, device=dev) * scale).to(
+        torch.bfloat16) for s in shapes]
+
+
+def pc_pipe_call(stage, stacked, x, c, mesh):
+    """(y, {key: grad of the stacked parameter}, grad of x) of one
+    pipeline_apply call (mesh None: the two stages one after the other)
+    for the cotangent c."""
+    from mxnet_tpu_torch import parallel
+
+    x = x.detach().requires_grad_()
+    if mesh is None:
+        y = x
+        for i in range(PC_STAGES):
+            y = stage({k: v[i] for k, v in stacked.items()}, y)
+    else:
+        y = parallel.pipeline_apply(stage, stacked, x, PC_MICRO, mesh=mesh)
+    keys = list(stacked)
+    g = torch.autograd.grad((y.float() * c.float()).sum(),
+                            [stacked[k] for k in keys] + [x])
+    return y.detach(), dict(zip(keys, g[:-1])), g[-1]
+
+
+def pc_moe_data(dev):
+    """(x [T, 768], the gate logits [T, E] of a 768 -> E router, the
+    experts' stacked FFN weights, the cotangents of y and of the gate
+    probabilities), the weights Normal(0.02) as BERT-base's.  The
+    router's bias is Normal(1), so that some experts get more tokens
+    than their capacity and drop some (with balanced experts none
+    would, and the capacity would go unchecked)."""
+    x, cy, cp, bias = pc_seeded(
+        dev, PC_SEED + 1, (PC_TOKENS, BERT_UNITS), (PC_TOKENS, BERT_UNITS),
+        (PC_TOKENS, PC_EXPERTS), (PC_EXPERTS,))
+    router, w1, b1, w2, b2 = pc_seeded(
+        dev, PC_SEED + 2, (BERT_UNITS, PC_EXPERTS),
+        (PC_EXPERTS, BERT_UNITS, PC_FFN), (PC_EXPERTS, PC_FFN),
+        (PC_EXPERTS, PC_FFN, BERT_UNITS), (PC_EXPERTS, BERT_UNITS),
+        scale=0.02)
+    return x, x @ router + bias, {"w1": w1, "b1": b1, "w2": w2,
+                                  "b2": b2}, cy, cp.float()
+
+
+def pc_expert(p, tok):
+    """One expert: BERT-base's FFN, 768 -> 3072, GELU, -> 768."""
+    return F.gelu(tok @ p["w1"] + p["b1"]) @ p["w2"] + p["b2"]
+
+
+def pc_moe_call(x, gl, params, cy, cp, mesh):
+    """(y, dropped_frac, {x, gl, w1, b1, w2, b2: grad}) of one moe_apply
+    call for sum(y * cy) + sum(gate_probs * cp)."""
+    from mxnet_tpu_torch import parallel
+
+    x, gl = x.detach().requires_grad_(), gl.detach().requires_grad_()
+    ps = {k: v.detach().requires_grad_() for k, v in params.items()}
+    y, aux = parallel.moe_apply(pc_expert, ps, x, gl,
+                                capacity_factor=PC_CF, mesh=mesh)
+    loss = (y.float() * cy.float()).sum() + (aux["gate_probs"] * cp).sum()
+    keys = ["x", "gl"] + list(ps)
+    g = torch.autograd.grad(loss, [x, gl] + list(ps.values()))
+    return y.detach(), float(aux["dropped_frac"]), dict(zip(keys, g))
+
+
+def pc_nmt_batch(dev):
+    """Config 5's batch (bench_steps.transformer_batch, 64 x 64) with the
+    target lengths drawn per row in [1, 64] from PC_SEED."""
+    from mxnet_tpu_torch.examples import bench_steps as bs
+
+    src, tgt_in, sv, _tv, tgt_out = bs.transformer_batch(PC_NMT_SIZE, seed=0,
+                                                         ctx=dev)
+    gen = torch.Generator().manual_seed(PC_SEED + 3)
+    tv = torch.randint(1, src.shape[1] + 1, (src.shape[0],), generator=gen)
+    return src, tgt_in, sv, tv.float().to(dev), tgt_out
+
+
+def pc_nmt_step(dev, batch):
+    """Config 5's Transformer-base step at dropout 0, Xavier weights from
+    PC_SEED, warmed on the batch's model inputs, bf16, on ``dev``."""
+    from mxnet_tpu_torch import init
+    from mxnet_tpu_torch.examples import bench_steps as bs
+
+    return bs.init_step(bs.transformer_step(PC_NMT_SIZE, dropout=0.0),
+                        init.Xavier(), ctx=dev, seed=PC_SEED,
+                        dtype="bfloat16", warm=batch[:4])
+
+
+def pc_timed(fn):
+    """fn() between synchronisations, with the kernel counters set to 0
+    just before and read just after: (result, ms, counts)."""
+    torch.cuda.synchronize()
+    reset_kernel_counts()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3, kernel_counts()
+
+
+def pc_rank_pipeline(step, dev, devices, res, saved):
+    """Phase 24 (a) in a rank of phase 23: BERT-base's 12 encoder layers
+    as two stages of six at pp = 2, config 3's batch as PC_MICRO
+    microbatches; one warm call, then one counted and timed call."""
+    from mxnet_tpu_torch import parallel
+
+    t0 = time.perf_counter()
+    layers = list(step.bert.encoder.layers._modules.values())
+    stage = pc_bert_stage(layers[:len(layers) // PC_STAGES])
+    stacked = pc_bert_stacked(layers)
+    x, c = pc_seeded(dev, PC_SEED, (BATCH, BERT_SEQ, BERT_UNITS),
+                     (BATCH, BERT_SEQ, BERT_UNITS))
+    mesh = parallel.make_mesh(pp=PC_STAGES, devices=devices)
+    pc_pipe_call(stage, stacked, x, c, mesh)
+    gc_cuda()
+    torch.cuda.reset_peak_memory_stats(dev)
+    (y, g, gx), ms, counts = pc_timed(
+        lambda: pc_pipe_call(stage, stacked, x, c, mesh))
+    res["pipeline"] = dict(
+        ms=ms, launches=counts, peak_bytes=torch.cuda.max_memory_allocated(
+            dev), digest=[tensor_digest(y), tensor_digest(gx)] + [
+                tensor_digest(g[k]) for k in sorted(g)])
+    saved["pipeline"] = (y.cpu(), gx.cpu(), {k: v.cpu() for k, v in
+                                             g.items()})
+    res["pipeline"]["seconds"] = time.perf_counter() - t0
+
+
+def pc_rank_moe(dev, devices, res, saved):
+    """Phase 24 (b) in a rank: moe_apply at ep = 2 (four experts a rank)
+    and at dp = 2 (2048 rows a rank); one warm and one timed call each."""
+    from mxnet_tpu_torch import parallel
+
+    t0 = time.perf_counter()
+    x, gl, params, cy, cp = pc_moe_data(dev)
+    res["moe"] = {}
+    for case, axes in (("ep2", {"ep": SHARD_RANKS}),
+                       ("dp2", {"dp": SHARD_RANKS})):
+        mesh = parallel.make_mesh(axes, devices=devices)
+        xs, gls, cys, cps = (parallel.shard_batch(t, mesh)
+                             for t in (x, gl, cy, cp))
+        pc_moe_call(xs, gls, params, cys, cps, mesh)
+        (y, dropped, g), ms, counts = pc_timed(
+            lambda: pc_moe_call(xs, gls, params, cys, cps, mesh))
+        res["moe"][case] = dict(ms=ms, launches=counts, dropped=dropped,
+                                rows=int(y.shape[0]))
+        saved[f"moe/{case}"] = (y.cpu(), {k: v.cpu() for k, v in g.items()})
+    res["moe"]["seconds"] = time.perf_counter() - t0
+
+
+def pc_rank_nmt(dev, devices, res, saved):
+    """Phase 24 (c) in a rank: config 5's Transformer-base step at dp = 2,
+    dropout 0, target lengths per row from a seed: step 1 kept, then
+    SHARD_STEPS counted and timed steps."""
+    from mxnet_tpu_torch import parallel
+    from mxnet_tpu_torch.examples import bench_steps as bs
+
+    t0 = time.perf_counter()
+    batch = pc_nmt_batch(dev)
+    step = pc_nmt_step(dev, batch)
+    mesh = parallel.make_mesh(dp=SHARD_RANKS, devices=devices)
+    tr = bs.spmd_trainer(step, NMT_TRAIN_LR, mesh=mesh)
+    loss1 = float(tr.step(*batch))
+    saved["nmt"] = shard_tracked(tr, PC_NMT_TRACKED)
+    torch.cuda.synchronize()
+    reset_kernel_counts()
+    ms = []
+    for _ in range(SHARD_STEPS):
+        t1 = time.perf_counter()
+        float(tr.step(*batch))
+        ms.append((time.perf_counter() - t1) * 1e3)
+    res["nmt"] = dict(loss1=loss1, ms=ms, launches=kernel_counts(),
+                      seconds=time.perf_counter() - t0)
+    del tr, step
+    gc_cuda()
+
+
+def pc_pure_stage(blocks):
+    """A pure stage of Gluon blocks run in order: (fn, parameters), fn(p,
+    x) the blocks in training mode (batch statistics, the fused units)
+    with p swapped in by torch.func.functional_call and each running
+    statistic given as a copy, so a call reads the running statistics
+    and writes none."""
+    from mxnet_tpu_torch.gluon.block import ActiveTrace
+
+    seq = torch.nn.Sequential(*blocks)
+    bufs = dict(seq.named_buffers())
+
+    def fn(p, x):
+        with ActiveTrace(train=True):
+            return torch.func.functional_call(
+                seq, {**p, **{k: b.clone() for k, b in bufs.items()}}, (x,))
+    return fn, {k: v.detach() for k, v in seq.named_parameters()}
+
+
+def pc_hetero(card, dev):
+    """Phase 24 (d): HeteroPipeline over ResNet-50 v1 (bf16, NHWC, fused
+    units with the fused backward) cut at its features children into
+    three stages, batch PC_HETERO_BATCH as PC_HETERO_MICRO microbatches,
+    against the unsplit net on the same microbatches."""
+    from mxnet_tpu_torch import init, parallel
+    from mxnet_tpu_torch.gluon.model_zoo import vision
+
+    set_knobs(True, True)
+    net = vision.resnet50_v1(classes=1000, layout="NHWC")
+    net.initialize(init.Xavier(), ctx=dev, seed=PC_SEED)
+    net.cast("bfloat16")
+    kids = list(net.features._modules.values())
+    cuts = (0,) + PC_HETERO_CUTS + (len(kids),)
+    groups = [kids[a:b] for a, b in zip(cuts, cuts[1:])]
+    groups[-1] = groups[-1] + [net.output]
+    stages = [pc_pure_stage(g) for g in groups]
+    count = torch.cuda.device_count() if dev.type == "cuda" else 1
+    devs = [torch.device(dev.type, i % count) for i in range(len(stages))]
+    pipe = parallel.HeteroPipeline([f for f, _ in stages],
+                                   [p for _, p in stages], devices=devs)
+    whole, wp = pc_pure_stage(kids + [net.output])
+    buffers0 = snapshot(net)
+    gen = torch.Generator(device=dev).manual_seed(PC_SEED + 4)
+    x = torch.rand(PC_HETERO_BATCH, 224, 224, 3, generator=gen,
+                   device=dev).to(torch.bfloat16)
+    labels = torch.randint(0, 1000, (PC_HETERO_BATCH,), generator=gen,
+                           device=dev)
+    m = PC_HETERO_BATCH // PC_HETERO_MICRO
+    micro = [slice(j * m, (j + 1) * m) for j in range(PC_HETERO_MICRO)]
+
+    def loss_fn(y, t):
+        return F.cross_entropy(y.float(), t)
+
+    # forward: the pipe against the unsplit net, microbatch by microbatch
+    y, fwd_ms, fwd_counts = pc_timed(
+        lambda: pipe(x, n_microbatch=PC_HETERO_MICRO))
+    with torch.no_grad():
+        ref = torch.cat([whole(wp, x[s]) for s in micro])
+    out = dict(forward=dict(ms=fwd_ms, launches=fwd_counts,
+                            rel_l2=rel_l2(y.float(), ref.float()),
+                            bit_identical=torch.equal(y, ref)))
+    # value_and_grad: GPipe with recompute against a plain loop
+    pipe.value_and_grad(loss_fn, x, labels, n_microbatch=PC_HETERO_MICRO)
+    (loss, grads), ms, counts = pc_timed(lambda: pipe.value_and_grad(
+        loss_fn, x, labels, n_microbatch=PC_HETERO_MICRO))
+    leaves = {k: v.detach().requires_grad_() for k, v in wp.items()}
+    ref_g = {k: torch.zeros_like(v) for k, v in wp.items()}
+    ref_loss = 0.0
+    for s in micro:
+        lv = loss_fn(whole(leaves, x[s]), labels[s])
+        for k, gk in zip(leaves, torch.autograd.grad(lv, list(
+                leaves.values()))):
+            ref_g[k] = ref_g[k] + gk
+        ref_loss += float(lv.detach())
+    ref_loss /= PC_HETERO_MICRO
+    got_g = {}
+    for i, g in enumerate(grads):
+        for k, v in g.items():
+            j, rest = k.split(".", 1)
+            got_g[f"{cuts[i] + int(j)}.{rest}"] = v.to(dev)
+    ref_g = {k: v * (1.0 / PC_HETERO_MICRO) for k, v in ref_g.items()}
+    same = sum(int(torch.equal(got_g[k], ref_g[k])) for k in ref_g)
+    flat = lambda d: torch.cat([d[k].float().reshape(-1) for k in sorted(d)])
+    out["grad"] = dict(
+        ms=ms, launches=counts, loss=loss, loss_ref=ref_loss,
+        loss_rel=abs(loss - ref_loss) / abs(ref_loss),
+        rel_l2=rel_l2(flat(got_g), flat(ref_g)),
+        bit_identical=same, tensors=len(ref_g),
+        keys_match=sorted(got_g) == sorted(ref_g))
+    out["running_stats_unchanged"] = all(
+        torch.equal(v, buffers0[k]) for k, v in snapshot(net).items())
+    out["devices"] = [str(d) for d in devs]
+    out["stages"] = [len(g) for g in groups]
+    del net, pipe, stages, whole, wp, leaves, grads, ref_g, got_g, x
+    gc_cuda()
+    return out
+
+
+def pc_attention_checks(card):
+    """Kernel 5 at phase 24's shapes: (a) a microbatch of 8 x 128 of
+    BERT-base (12 heads of 64, every key valid); (c) a dp = 2 rank's 32
+    rows of Transformer-base at 64 tokens (8 heads of 64): the encoder's
+    self-attention, the decoder's causal self-attention and its cross
+    attention, key masks from the rank's lengths."""
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator().manual_seed(PC_SEED + 5)
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen).to(dev, torch.bfloat16)
+    mb = BATCH // PC_MICRO
+    recs = {"pipe": check_attention(
+        f"pipe.bert.b{mb}", *(randn(mb, BERT_SEQ, BERT_UNITS)
+                              for _ in range(3)),
+        torch.ones(mb, BERT_SEQ, device=dev), False, card,
+        heads=BERT_HEADS)}
+    rows, s = PC_NMT_BATCH // SHARD_RANKS, 64
+    tv = pc_nmt_batch(torch.device("cpu"))[3][:rows]
+    tmask = key_mask(gen, rows, s, lengths=tv.long()).to(dev)
+    smask = torch.ones(rows, s, device=dev)
+    for name, mask, causal in (("enc", smask, False),
+                               ("causal", tmask, True),
+                               ("cross", smask, False)):
+        recs[name] = check_attention(
+            f"nmt.dp2.{name}", *(randn(rows, s, NMT_UNITS) for _ in range(3)),
+            mask, causal, card, heads=NMT_HEADS)
+    return recs
+
+
+def phase_parallel_c(card, out_dir, backend, recs_pc):
+    """Phase 24: expert and pipeline parallelism (ROADMAP queue A item 7,
+    cut (c)).  Cases (a)-(c) ran in phase 23's two ranks (pc_rank_*);
+    this process holds them against one-process runs of the same seeded
+    weights, and runs (d) itself."""
+    from mxnet_tpu_torch import _graphs as graphs
+    from mxnet_tpu_torch import parallel
+    from mxnet_tpu_torch.examples import bench_steps as bs
+
+    t0 = time.perf_counter()
+    step, w0 = KEEP.pop("shard_bert")
+    dev = next(step.parameters()).device
+    ranks = []
+    for r in range(SHARD_RANKS):
+        with open(os.path.join(out_dir, f"rank{r}.json")) as f:
+            ranks.append(json.load(f)["pc"])
+    saved = [torch.load(os.path.join(out_dir, f"rank{r}_pc.pt"))
+             for r in range(SHARD_RANKS)]
+    rank_s = max(sum(rk[c]["seconds"] for c in ("pipeline", "moe", "nmt"))
+                 for rk in ranks)
+    res = {"rank_seconds": rank_s}
+    # (a) pipeline_apply at pp = 2 against the stages one after the other
+    shard_restore(step, w0)
+    layers = list(step.bert.encoder.layers._modules.values())
+    stage = pc_bert_stage(layers[:len(layers) // PC_STAGES])
+    stacked = pc_bert_stacked(layers)
+    x, c = pc_seeded(dev, PC_SEED, (BATCH, BERT_SEQ, BERT_UNITS),
+                     (BATCH, BERT_SEQ, BERT_UNITS))
+    (y, g, gx), ms1, counts1 = pc_timed(
+        lambda: pc_pipe_call(stage, stacked, x, c, None))
+    del step, w0, layers, stage, stacked
+    gc_cuda()
+    gy, ggx, gg = saved[0]["pipeline"]
+    flat = lambda d: torch.cat([d[k].float().reshape(-1) for k in sorted(d)])
+    errs = {"y": rel_l2(gy.float(), y.float().cpu()),
+            "x_grad": rel_l2(ggx.float(), gx.float().cpu()),
+            "param_grads": rel_l2(flat(gg), flat(g).cpu())}
+    worst = max(((rel_l2(gg[k].float(), g[k].float().cpu()), k)
+                 for k in g if float(g[k].float().norm()) > 0),
+                key=lambda t: t[0])
+    want_k5 = BERT_LAYERS // PC_STAGES * (PC_MICRO + PC_STAGES - 1)
+    recs = [rk["pipeline"] for rk in ranks]
+    res["pipeline"] = dict(
+        rel_l2=errs, worst_tensor=list(worst),
+        ranks_agree=recs[0]["digest"] == recs[1]["digest"],
+        ms=[r_["ms"] for r_ in recs], pp1_ms=ms1,
+        launches=[r_["launches"] for r_ in recs], pp1_launches=counts1,
+        peak_gib=[r_["peak_bytes"] / 2 ** 30 for r_ in recs])
+    print(f"parallel_c (a) pipeline_apply, BERT-base's 12 layers as "
+          f"{PC_STAGES} stages at pp={PC_STAGES}, batch {BATCH} x {BERT_SEQ} "
+          f"as {PC_MICRO} microbatches: rel L2 to the stages in one process "
+          f"{ {k: round(v, 6) for k, v in errs.items()} } (bound {PC_BOUND}; "
+          f"worst tensor {worst[1]} {worst[0]:.4g}); ranks agree "
+          f"{res['pipeline']['ranks_agree']}; ms a call per rank "
+          f"{[round(r_['ms'], 1) for r_ in recs]} (pp=1 {ms1:.1f}); kernel "
+          f"5 launches per rank {[r_['launches']['k5'] for r_ in recs]} "
+          f"(want {want_k5}); peak "
+          f"{[round(r_['peak_bytes'] / 2 ** 30, 2) for r_ in recs]} GiB "
+          f"[{card}]", flush=True)
+    if max(errs.values()) > PC_BOUND or not res["pipeline"]["ranks_agree"]:
+        fail("parallel_c (a): pipeline_apply differs from the stages")
+    for r_ in recs:
+        if r_["launches"] != {"k1": 0, "k2": 0, "k5": want_k5, "k6": 0}:
+            fail(f"parallel_c (a): launches {r_['launches']}")
+    del y, g, gx, gy, ggx, gg
+    # (b) moe_apply at ep = 2 and dp = 2 against one call at ep = 1
+    xm, gl, params, cy, cp = pc_moe_data(dev)
+    (y1, drop1, g1), ms1, _ = pc_timed(
+        lambda: pc_moe_call(xm, gl, params, cy, cp, None))
+    res["moe"] = {"ep1": dict(ms=ms1, dropped=drop1)}
+    half = PC_TOKENS // SHARD_RANKS
+    for case in ("ep2", "dp2"):
+        recs = [rk["moe"][case] for rk in ranks]
+        got = [s_[f"moe/{case}"] for s_ in saved]
+        if case == "ep2":
+            y2, g2 = got[0]
+        else:
+            y2 = torch.cat([got_[0] for got_ in got])
+            g2 = {k: (torch.cat([got_[1][k] for got_ in got])
+                      if k in ("x", "gl") else
+                      sum(got_[1][k].float() for got_ in got))
+                  for k in g1}
+        errs = {"y": rel_l2(y2.float(), y1.float().cpu())}
+        errs.update({f"grad_{k}": rel_l2(g2[k].float(), g1[k].float().cpu())
+                     for k in g1})
+        res["moe"][case] = dict(
+            rel_l2=errs, y_bit_identical=torch.equal(y2, y1.cpu()),
+            dropped=[r_["dropped"] for r_ in recs],
+            ms=[r_["ms"] for r_ in recs], rows=[r_["rows"] for r_ in recs])
+        print(f"parallel_c (b) moe_apply {case}: {PC_EXPERTS} BERT-base FFN "
+              f"experts, T={PC_TOKENS}, capacity {PC_CAPACITY}: dropped_frac "
+              f"{[r_['dropped'] for r_ in recs]} (ep=1 {drop1:.6f}); rel L2 "
+              f"to ep=1 { {k: round(v, 6) for k, v in errs.items()} } "
+              f"(bound {PC_BOUND}), y bit for bit "
+              f"{res['moe'][case]['y_bit_identical']}; rows a rank "
+              f"{[r_['rows'] for r_ in recs]}; ms a call per rank "
+              f"{[round(r_['ms'], 2) for r_ in recs]} (ep=1 {ms1:.2f}) "
+              f"[{card}]", flush=True)
+        if max(errs.values()) > PC_BOUND or not 0 < drop1 < 1 or any(
+                r_["dropped"] != drop1 for r_ in recs) or \
+                [r_["rows"] for r_ in recs] != (
+                    [PC_TOKENS] * 2 if case == "ep2" else [half] * 2):
+            fail(f"parallel_c (b) {case}: moe_apply differs from ep=1")
+    got = saved[0]["nmt"]
+    del xm, gl, params, cy, cp, y1, g1, saved
+    gc_cuda()
+    # (c) Transformer-base at dp = 2 against a dp = 1 step
+    batch = pc_nmt_batch(dev)
+    step = pc_nmt_step(dev, batch)
+    tr = bs.spmd_trainer(step, NMT_TRAIN_LR,
+                         mesh=parallel.make_mesh(dp=1, devices=[dev]))
+    with graphs.no_capture():
+        loss_ref, ms1, counts1 = pc_timed(lambda: float(tr.step(*batch)))
+    ref = shard_tracked(tr, PC_NMT_TRACKED)
+    del tr, step
+    gc_cuda()
+    rec = ranks[0]["nmt"]
+    dl = abs(rec["loss1"] - loss_ref) / abs(loss_ref)
+    errs = {n: (rel_l2(got[n][0], ref[n][0]), rel_l2(got[n][1], ref[n][1]))
+            for n in PC_NMT_TRACKED}
+    res["nmt"] = dict(loss1=rec["loss1"], loss_ref=loss_ref, loss_rel=dl,
+                      rel_l2={n: list(e) for n, e in errs.items()},
+                      ms=[rk["nmt"]["ms"] for rk in ranks],
+                      launches=[rk["nmt"]["launches"] for rk in ranks],
+                      dp1_ms=ms1, dp1_launches=counts1)
+    want = {"k1": 0, "k2": 0, "k5": counts1["k5"] * SHARD_STEPS, "k6": 0}
+    print(f"parallel_c (c) transformer-base (config 5) dp=2, batch "
+          f"{PC_NMT_BATCH} x 64, target lengths "
+          f"{int(batch[3][:PC_NMT_BATCH // 2].sum())} + "
+          f"{int(batch[3][PC_NMT_BATCH // 2:].sum())} tokens on the ranks: "
+          f"step 1 loss {rec['loss1']:.6f} vs dp=1 {loss_ref:.6f} (rel "
+          f"{dl:.3g}); weight / Adam mean rel L2 to dp=1 "
+          f"{ {n.split('.')[-2]: [round(v, 6) for v in e] for n, e in errs.items()} } "
+          f"(bound {PC_BOUND}); ms a step per rank "
+          f"{[[round(v, 1) for v in rk['nmt']['ms']] for rk in ranks]} "
+          f"(dp=1 eager {ms1:.1f}); launches per rank "
+          f"{[rk['nmt']['launches'] for rk in ranks]} (want {want}: dp=1's "
+          f"{counts1['k5']} a step) [{card}]", flush=True)
+    if dl > PC_BOUND or any(max(e) > PC_BOUND for e in errs.values()):
+        fail("parallel_c (c): the dp=2 step differs from dp=1")
+    if not counts1["k5"] or any(rk["nmt"]["launches"] != want
+                                for rk in ranks):
+        fail(f"parallel_c (c): launches {res['nmt']['launches']}, want "
+             f"{want}")
+    # (d) HeteroPipeline in this process
+    res["hetero"] = h = pc_hetero(card, dev)
+    want_fwd = FWD_PER_STEP * PC_HETERO_MICRO
+    want = {"k1": 2 * want_fwd, "k2": BWD_PER_STEP * PC_HETERO_MICRO,
+            "k5": 0, "k6": 0}
+    print(f"parallel_c (d) HeteroPipeline, ResNet-50 v1 bf16 NHWC fused in "
+          f"{len(h['stages'])} stages of {h['stages']} features children on "
+          f"{h['devices']}, batch {PC_HETERO_BATCH} as {PC_HETERO_MICRO} "
+          f"microbatches: pipe(x) vs the unsplit net rel L2 "
+          f"{h['forward']['rel_l2']:.3g} (bit for bit "
+          f"{h['forward']['bit_identical']}), {h['forward']['ms']:.1f} ms, "
+          f"launches {h['forward']['launches']}; value_and_grad loss "
+          f"{h['grad']['loss']:.6f} vs the plain loop {h['grad']['loss_ref']:.6f}"
+          f", gradients rel L2 {h['grad']['rel_l2']:.3g}, "
+          f"{h['grad']['bit_identical']} of {h['grad']['tensors']} tensors bit "
+          f"for bit; {h['grad']['ms']:.1f} ms, launches "
+          f"{h['grad']['launches']} (want {want}, the recompute's included); "
+          f"running statistics unchanged {h['running_stats_unchanged']} "
+          f"[{card}]", flush=True)
+    if h["forward"]["rel_l2"] > PC_BOUND or h["grad"]["rel_l2"] > PC_BOUND \
+            or h["grad"]["loss_rel"] > PC_BOUND \
+            or not h["grad"]["keys_match"] \
+            or not h["running_stats_unchanged"]:
+        fail("parallel_c (d): HeteroPipeline differs from the unsplit net")
+    if h["forward"]["launches"] != dict(want, k1=want_fwd, k2=0) \
+            or h["grad"]["launches"] != want:
+        fail(f"parallel_c (d): launches {h['forward']['launches']}, "
+             f"{h['grad']['launches']}")
+    rows = BATCH // PC_MICRO
+    summaries = [
+        dict(attention_path_summary(
+            dict(KERNEL_ATT, name="dot_product_attention/pipeline_pp2"),
+            "bert_pipeline_pp2", [(recs_pc["att"]["pipe"], 6 * (
+                PC_MICRO + PC_STAGES - 1))],
+            res["pipeline"]["launches"][0]["k5"], rows),
+            backend=backend, ranks=SHARD_RANKS),
+        dict(attention_path_summary(
+            dict(KERNEL_ATT, name="dot_product_attention/nmt_dp2"),
+            "transformer_dp2", [(recs_pc["att"][k], NMT_LAYERS)
+                                for k in ("enc", "causal", "cross")],
+            res["nmt"]["launches"][0]["k5"], PC_NMT_BATCH // SHARD_RANKS),
+            backend=backend, ranks=SHARD_RANKS),
+        dict(kernel_summary(dict(KERNEL, name="fused_conv_unit/hetero"),
+                            recs_pc["k1"], "train_pipe",
+                            h["grad"]["launches"]["k1"]),
+             path="train_hetero_pipeline"),
+        dict(kernel_summary(dict(KERNEL_BWD,
+                                 name="fused_conv_unit_bwd/hetero"),
+                            recs_pc["k2"], "train_pipe",
+                            h["grad"]["launches"]["k2"]),
+             path="train_hetero_pipeline")]
+    res["seconds"] = time.perf_counter() - t0 + rank_s
+    print(f"parallel_c: phase 24 took {res['seconds']:.1f} s (its rank work "
+          f"{rank_s:.1f} s in phase 23's ranks; limit {PC_SECONDS:.0f} s) "
+          f"[{card}]", flush=True)
+    print("parallel_c: " + json.dumps(res), flush=True)
+    if res["seconds"] > PC_SECONDS:
+        fail(f"parallel_c: phase 24 took {res['seconds']:.1f} s, over "
+             f"{PC_SECONDS:.0f} s")
+    return res, summaries
+
+
+def phase_kernels_pc(card):
+    """Phase 24's kernel checks at its paths' shapes: kernel 5 (see
+    pc_attention_checks), kernels 1 (with statistics) and 2 at (d)'s
+    microbatch of N = PC_HETERO_BATCH / PC_HETERO_MICRO."""
+    n = PC_HETERO_BATCH // PC_HETERO_MICRO
+    k1, k2 = kernels_at(n, 2424, "train_pipe",
+                        f"phase 24 (d)'s microbatch, N={n}")
+    return {"att": pc_attention_checks(card), "k1": k1, "k2": k2}
 
 
 PHASE_SECONDS = {}
@@ -11613,6 +12231,12 @@ def main():
     recs_kv, recs_bwd_kv = timed("22 kernels_kv", phase_kernels_kv)
     shard_res, shard_kernels = timed("23 sharded", phase_sharded, card,
                                      recs_att)
+    recs_pc = timed("24 kernels_pc", phase_kernels_pc, card)
+    pc_kernels = []
+    if "out_dir" in shard_res:  # phase 23's ranks ran phase 24's (a)-(c)
+        _, pc_kernels = timed("24 parallel_c", phase_parallel_c, card,
+                              shard_res["out_dir"], shard_res["backend"],
+                              recs_pc)
     dec_steps = tf_res["decode"]["steps"]
     dp_keys = dict(backend=dp_res.get("backend"), ranks=DP)
     # kernel 1 once for each main path (its shapes and launches), kernel 2
@@ -11723,7 +12347,7 @@ def main():
                             recs_bwd_kv, "train_kv",
                             kv_res["launches"]["bwd"]),
              path="train_kvstore_dist_sync", backend=kv_res.get("backend"),
-             ranks=DP)] + shard_kernels
+             ranks=DP)] + shard_kernels + pc_kernels
     print(f"chip_smoke: {time.perf_counter() - T_START:.1f} s", flush=True)
     print("phase_seconds: " + json.dumps(
         {k: round(v, 1) for k, v in PHASE_SECONDS.items()}), flush=True)

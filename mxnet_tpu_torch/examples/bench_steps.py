@@ -116,7 +116,11 @@ class SSDTrainStep(HybridBlock):
 
 class TransformerNMTStep(HybridBlock):
     """Config 5: the label-smoothed (eps 0.1) cross entropy in fp32,
-    masked by ``tgt_valid`` and averaged over the valid tokens."""
+    masked by ``tgt_valid`` and averaged over the valid tokens.  Under a
+    mesh that splits the batch the valid-token count is the global
+    batch's (summed over the batch axes) and the sum is scaled as
+    BERT's MLM term is, so that the step's loss is the JAX package's
+    global token mean."""
 
     EPS = 0.1
 
@@ -135,7 +139,11 @@ class TransformerNMTStep(HybridBlock):
                              dtype=torch.float32)
         mask = steps[None, :] < tgt_valid[:, None].float()
         per_tok = ((1 - self.EPS) * nll + self.EPS * smooth) * mask
-        return per_tok.sum() / mask.sum().float().clamp_min(1.0)
+        den, shards = mask.sum().float(), parallel.batch_shards()
+        if shards > 1:
+            den = parallel.dist.all_reduce_sum(
+                den, parallel.mesh.batch_group())
+        return per_tok.sum() * shards / den.clamp_min(1.0)
 
 
 def bert_step(size="full", dropout=0.1) -> BertPretrainStep:

@@ -1,11 +1,15 @@
 """Parallel training of the port (counterpart of ``mxnet_tpu/parallel``):
 the process group (``dist``), device meshes over every axis (dp, fsdp,
 tp, pp, sp, ep), partition specs and sharding rules, ``SPMDTrainer``
-with sharded parameters, and ring and Ulysses sequence-parallel
-attention.  MoE (``moe_apply``) and the pipeline (``pipeline_apply``,
-``HeteroPipeline``) are ROADMAP queue A item 7, cut (c)."""
-from . import dist, ring, ulysses
+with sharded parameters and every input layout, ring and Ulysses
+sequence-parallel attention, expert-parallel top-1 MoE over ``ep``
+(``moe``: ``moe_apply``) and pipeline parallelism over ``pp``
+(``pipeline``: ``pipeline_apply``, ``stack_stage_params``, and
+``HeteroPipeline`` over stages on their own devices)."""
+from . import dist, moe, pipeline, ring, ulysses
 from .checkpoint import load_sharded, save_sharded
+from .moe import moe_apply
+from .pipeline import HeteroPipeline, pipeline_apply, stack_stage_params
 from .mesh import (AXIS_NAMES, DeviceMesh, batch_shards, current_mesh,
                    get_mesh, make_mesh, mesh_shard_plan)
 from .ring import local_attention, ring_attention, ring_attention_sharded
@@ -15,7 +19,9 @@ from .sharding import (DEFAULT_RULES, NamedSharding, P, PartitionSpec,
 from .spmd import FunctionalOptimizer, SPMDTrainer, functional_optimizer
 from .ulysses import ulysses_attention, ulysses_attention_sharded
 
-__all__ = ["dist", "ring", "ulysses", "DeviceMesh", "make_mesh",
+__all__ = ["dist", "ring", "ulysses", "moe", "pipeline", "moe_apply",
+           "pipeline_apply", "stack_stage_params", "HeteroPipeline",
+           "DeviceMesh", "make_mesh",
            "current_mesh", "get_mesh", "mesh_shard_plan", "batch_shards",
            "shard_batch", "AXIS_NAMES", "SPMDTrainer", "FunctionalOptimizer",
            "functional_optimizer", "ShardingRules", "DEFAULT_RULES",
@@ -25,17 +31,3 @@ __all__ = ["dist", "ring", "ulysses", "DeviceMesh", "make_mesh",
            "ulysses_attention", "ulysses_attention_sharded",
            "save_sharded", "load_sharded"]
 
-# the JAX package's expert and pipeline parallelism, not ported yet
-_QUEUED = ("moe", "pipeline", "moe_apply", "pipeline_apply",
-           "HeteroPipeline")
-
-
-def __getattr__(name):
-    if name in _QUEUED:
-        from ..base import MXNetError
-
-        raise MXNetError(
-            f"parallel.{name}: expert (ep) and pipeline (pp) parallelism "
-            "are not ported yet (ROADMAP queue A item 7, cut (c)); the "
-            "meshes make their groups already")
-    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -30,7 +30,13 @@ adds :func:`ring_shift` (each rank's tensors to the next rank of a group
 and the previous rank's back, ``batch_isend_irecv``) and
 :func:`all_to_all_` (``all_to_all_single``); gloo takes neither for a
 CUDA tensor, so on gloo both stage through the host and stay direct on
-NCCL.
+NCCL.  The pipeline (``parallel/pipeline.py``) adds two with autograd:
+:func:`ppermute`, one tensor's :func:`ring_shift` whose backward shifts
+the cotangent the other way (``lax.ppermute``'s transpose), and
+:func:`take_from`, the value of one rank on every rank of a group (the
+JAX pipeline's masked psum), whose backward hands this rank's cotangent
+to the source rank alone: every rank holds the same replicated
+cotangent, so a sum over the ranks would multiply it by their number.
 
 The KVStore's dist stores call three more (``kvstore.py``):
 :func:`allreduce_nd` (an NDArray summed over the ranks; a row-sparse one
@@ -61,7 +67,8 @@ __all__ = ["BACKENDS", "init", "resolve", "initialized", "rank",
            "all_reduce_", "broadcast_", "flat_buckets", "reduce_scatter",
            "reduce_scatter_start", "all_gather_", "all_gather_list",
            "all_gather_list_start", "allreduce_nd", "allgather_np", "abort",
-           "group_size", "group_rank", "ring_shift", "all_to_all_"]
+           "group_size", "group_rank", "ring_shift", "all_to_all_",
+           "ppermute", "take_from"]
 
 BACKENDS = ("nccl", "gloo")
 # a name each collective shows under in torch.profiler traces
@@ -383,6 +390,50 @@ def ring_shift(tensors: Sequence[torch.Tensor], send_to: int,
         for w in tdist.batch_isend_irecv(ops):
             w.wait()
     return [o.to(t.device) for o, t in zip(outs, tensors)]
+
+
+class _PPermute(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, send_to, recv_from, group):
+        ctx.cfg = (send_to, recv_from, group)
+        return ring_shift([x.detach()], send_to, recv_from, group)[0]
+
+    @staticmethod
+    def backward(ctx, g):
+        send_to, recv_from, group = ctx.cfg
+        return (ring_shift([g], recv_from, send_to, group)[0], None, None,
+                None)
+
+
+def ppermute(x: torch.Tensor, send_to: int, recv_from: int,
+             group=None) -> torch.Tensor:
+    """Differentiable :func:`ring_shift` of one tensor: ``x`` to global
+    rank ``send_to``, the result from global rank ``recv_from``; the
+    backward sends the cotangent back to ``recv_from`` and receives
+    ``send_to``'s.  Every rank of ``group`` must call it, forward and
+    backward, in the same order."""
+    return _PPermute.apply(x, send_to, recv_from, group)
+
+
+class _TakeFrom(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, src, group):
+        ctx.mine = rank() == src
+        out = _on_group_device(x.detach().clone(
+            memory_format=torch.contiguous_format))
+        return broadcast_(out, src, group).to(x.device)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (g if ctx.mine else torch.zeros_like(g)), None, None
+
+
+def take_from(x: torch.Tensor, src: int, group=None) -> torch.Tensor:
+    """Global rank ``src``'s ``x`` on every rank of ``group`` (the same
+    shape on each), differentiable for a result whose cotangent every
+    rank holds alike: the source rank keeps its cotangent and the others
+    pass zeros back."""
+    return _TakeFrom.apply(x, src, group)
 
 
 def all_to_all_(x: torch.Tensor, group=None) -> torch.Tensor:

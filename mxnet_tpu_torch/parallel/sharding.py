@@ -82,28 +82,42 @@ def spec_split(spec, mesh: DeviceMesh) -> int:
     return k
 
 
-def input_split(spec, mesh: DeviceMesh) -> bool:
-    """Whether an input of spec ``spec`` gives each rank its block of the
-    batch's rows (the default ``None`` does: dim 0 over the batch axes)
-    or the whole array (a spec that splits no batch axis).  Dim 1 may be
-    split over ``sp`` (``shard_batch(seq_axis=1)``'s layout): outside
-    attention the ranks of ``sp`` hold the same activations, as in the
-    JAX package's long-context LM, so such an input is placed whole on
-    each of them and ring/Ulysses attention takes its block of q, k and v.
-    Any other layout raises."""
-    spec = filter_spec(spec, mesh)
-    batch = [a for a in BATCH_AXES if mesh.size(a) > 1]
-    first = [a for a in _axes_of(spec[0]) if mesh.size(a) > 1] \
-        if spec else []
-    rest = [(d, a) for d, e in enumerate(spec[1:], 1) for a in _axes_of(e)
-            if mesh.size(a) > 1 and not (d == 1 and a == "sp")]
-    if rest or first not in ([], batch):
-        raise MXNetError(
-            f"partition spec {spec!r}: the port splits an input's dim 0 "
-            f"over all of the batch axes {tuple(batch)} or none, and its "
-            "dim 1 over 'sp'; other layouts are ROADMAP queue A item 7, "
-            "cut (c)")
-    return bool(first)
+def input_split(spec, mesh: DeviceMesh, shape=None) -> bool:
+    """Whether an input of spec ``spec`` splits the batch's rows: its
+    dim 0 over a batch axis of size > 1 (``P("dp")``, ``P(("dp",),
+    "sp")``, ``P("fsdp")`` on a dp x fsdp mesh), which gives each rank its
+    block of rows over all of the batch axes, as the default ``None``
+    does (``shard_batch``).  Any other spec splits no rows: GSPMD would
+    place such an array in blocks, but the step it computes is the
+    global one, so the input is placed whole on each rank; splits of
+    other dims (over ``tp``, ``pp``, ``ep``, ``sp``, or a batch axis on
+    dim 1) change placement only.  Under ``sp`` the ranks hold the same
+    activations outside attention, as in the JAX package's long-context
+    LM, and ring/Ulysses attention takes its block of q, k and v.  As
+    JAX's ``device_put`` does, an axis the mesh lacks raises, and with
+    the input's ``shape`` so do a spec longer than its rank and a dim
+    that its axes do not divide."""
+    names = tuple(mesh.axis_sizes)
+    for entry in spec:
+        for a in _axes_of(entry):
+            if a not in mesh:
+                raise MXNetError(f"Resource axis: {a} of {P(*spec)!r} is "
+                                 f"not found in mesh: {names}.")
+    if shape is not None:
+        shape = tuple(shape)
+        if len(spec) > len(shape):
+            raise MXNetError(
+                f"partition spec {P(*spec)!r} is only valid for values of "
+                f"rank at least {len(spec)}, but was applied to a value of "
+                f"rank {len(shape)}.")
+        for d, entry in enumerate(spec):
+            k = mesh.size(_axes_of(entry))
+            if shape[d] % k:
+                raise MXNetError(
+                    f"partition spec {P(*spec)!r}: dim {d} of an input of "
+                    f"shape {shape} does not divide into {k} blocks")
+    return bool(spec) and any(a in BATCH_AXES and mesh.size(a) > 1
+                              for a in _axes_of(spec[0]))
 
 
 def zero_state_spec(param_spec, shape: Sequence[int], mesh: DeviceMesh,

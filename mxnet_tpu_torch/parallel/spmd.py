@@ -85,12 +85,14 @@ not captured; ``step_compile_stats()["eager"]`` counts those steps), and
 ``_step_eager`` is the eager step the captured one is held against.
 
 The JAX keywords: ``rules`` (above), ``batch_spec``/``label_spec`` (one
-spec per input; ``None`` or a spec splitting dim 0 over the batch axes
-gives each rank its block of rows, and dim 1 may be split over ``sp``,
-``sharding.input_split``; a spec that splits no batch axis gives every
-rank the whole array; when no argument is split, each rank runs the
-whole batch as one device would, with no batch sum in its forward and
-no gradient sum, and the loss is the same global mean), ``donate``
+spec per input, any layout the JAX trainer takes, checked as its
+``device_put`` checks it; ``None`` or a spec splitting dim 0 over a batch
+axis gives each rank its block of rows over all the batch axes, and
+splits of other dims change placement only, ``sharding.input_split``;
+when not every argument is split, each rank is given every argument
+whole and runs the whole batch as one device would, with no batch sum in
+its forward and no gradient sum, and the loss is the same global mean),
+``donate``
 (accepted; the update is in place already) and
 ``remat`` (the forward runs under ``ActiveTrace(mirror=True)``: each
 sub-block that owns parameters is a checkpoint segment, the JAX
@@ -599,21 +601,29 @@ class SPMDTrainer:
                       for t in self.opt_state[n]),
                 key(self._lr_buf), key(self._t_buf))
 
-    def _splits(self, n_args, n_lab=None) -> Tuple[bool, ...]:
-        """Per argument of ``step`` (of ``forward`` with ``n_lab`` 0):
-        whether its spec gives each rank its block of rows (``None``
-        does) rather than the whole array."""
-        if self._world == 1:
-            return (False,) * n_args
+    def _rows_split(self, args, n_lab=None) -> bool:
+        """Whether each rank takes its block of every argument's rows (of
+        ``step``'s; of ``forward``'s with ``n_lab`` 0) rather than the
+        whole arrays: only when the batch is split and every argument's
+        spec splits its rows (``None`` does; ``sharding.input_split``).
+        A whole argument's batch rows could not be told from its other
+        dims, so a step that mixes the two places every argument whole
+        and each rank runs the global batch as one device.  Every given
+        spec is checked against the mesh and its argument's shape, as
+        the JAX package's ``device_put`` checks it."""
         n_lab = self.n_labels if n_lab is None else n_lab
-        n_in = n_args - n_lab
+        n_in = len(args) - n_lab
         specs = list(self._batch_spec or [None] * n_in) + (
             list(self._label_spec or [None] * n_lab) if n_lab else [])
-        if len(specs) != n_args:
+        if len(specs) != len(args):
+            if self._world == 1:
+                return False
             raise MXNetError(f"SPMDTrainer: {len(specs)} batch/label specs "
-                             f"for {n_args} arguments")
-        split = [s is None or input_split(s, self.mesh) for s in specs]
-        return tuple(self._shards > 1 and x for x in split)
+                             f"for {len(args)} arguments")
+        rows = [s is None or input_split(s, self.mesh,
+                                         getattr(x, "shape", None))
+                for s, x in zip(specs, args)]
+        return self._shards > 1 and all(rows)
 
     def _place(self, x, split=False):
         """``x`` on this rank's device: its rows of the global batch when
@@ -626,9 +636,9 @@ class SPMDTrainer:
     def _begin(self, args):
         """This rank's inputs and labels on the device; the step count
         and the lr and t buffers for this step."""
-        self._split = self._splits(len(args))
+        self._split = self._rows_split(args)
         self._ensure_blocks()
-        vals = tuple(self._place(x, s) for x, s in zip(args, self._split))
+        vals = tuple(self._place(x, self._split) for x in args)
         self._t += 1
         self._optimizer._update_count(0)
         self._lr_buf.fill_(float(self._optimizer.learning_rate))
@@ -691,7 +701,7 @@ class SPMDTrainer:
         gen = _random.generator(self.device)
         # split: each rank holds its rows and sums over the batch ranks;
         # else each holds the whole batch and the step is one device's
-        split = self._shards > 1 and any(self._split)
+        split = self._split
         mesh = self._solo if self._shards > 1 and not split else self.mesh
         weights = [self.params[n] for n in self._trainable]
         # the gathered tensors stay in the modules through the backward,
@@ -825,10 +835,9 @@ class SPMDTrainer:
         statistics): each rank runs its rows and the outputs come back
         gathered over the batch axes, in rank order, into the global
         batch (the JAX trainer's output), the same on every rank."""
-        splits = self._splits(len(inputs), 0)
-        split = any(splits)
+        split = self._rows_split(inputs, 0)
         self._ensure_blocks()
-        ivals = tuple(self._place(x, s) for x, s in zip(inputs, splits))
+        ivals = tuple(self._place(x, split) for x in inputs)
         mesh = self._solo if self._shards > 1 and not split else self.mesh
         with torch.no_grad(), self._gathered(False), mesh, \
                 ActiveTrace(train=False):

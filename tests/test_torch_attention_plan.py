@@ -178,7 +178,8 @@ def test_the_port_modules_import_no_jax():
                 "optimizer/spmd.py", "tools/launch.py", "parallel/mesh.py",
                 "parallel/_compat.py", "parallel/ring.py",
                 "parallel/ulysses.py", "parallel/__init__.py",
-                "examples/long_context_lm.py"):
+                "examples/long_context_lm.py", "parallel/moe.py",
+                "parallel/pipeline.py"):
         for name in _imports(pkg / rel):
             assert not name.startswith(("jax", "mxnet_tpu.")) \
                 and name != "mxnet_tpu", (rel, name)
@@ -211,6 +212,7 @@ def test_the_port_modules_import_no_jax():
             "mxnet_tpu_torch.parallel.checkpoint, "
             "mxnet_tpu_torch.parallel.ring, mxnet_tpu_torch.parallel.ulysses, "
             "mxnet_tpu_torch.parallel._compat, "
+            "mxnet_tpu_torch.parallel.moe, mxnet_tpu_torch.parallel.pipeline, "
             "mxnet_tpu_torch.examples.long_context_lm, "
             "mxnet_tpu_torch.gluon.data.vision.transforms, "
             "mxnet_tpu_torch.lib, mxnet_tpu_torch.recordio, "

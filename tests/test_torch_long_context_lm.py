@@ -22,9 +22,11 @@ heads, 2 layers, vocabulary 64, batch 4 x 32 tokens.
   would double every step.  Inputs given ``shard_batch(seq_axis=1)``'s
   layout, ``P(("dp",), "sp")``, take the same step bit for bit (outside
   attention the sp ranks hold the whole sequence); a spec that splits
-  dim 2 raises, naming ROADMAP queue A item 7, cut (c).
+  dim 2 of the 2-D tokens raises as the JAX trainer does on the same
+  mesh and specs (a spec longer than the value's rank).
 """
 import os
+import re
 import sys
 
 import numpy as np
@@ -39,6 +41,10 @@ BATCH, SEQ = 4, 32
 ADAM_STEPS, SGD_STEPS = 10, 3
 SGD = {"learning_rate": 0.1}
 LOSS_RTOL, W_TOL = 1e-5, 1e-4
+# what both packages say of P(None, None, "sp") on the [B, L] tokens
+DIM2_REFUSAL = (r"PartitionSpec\(None, None, 'sp'\).* is only valid for "
+                r"values of rank at least 3, but was applied to a value of "
+                r"rank 2")
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -166,7 +172,7 @@ def four(weights):
     group.stop()
 
 
-def _jax_run(w0, method, axes, opt, opt_params, steps):
+def _jax_run(w0, method, axes, opt, opt_params, steps, batch_spec=None):
     """(losses, {structural name: parameter}) of the JAX script's LM
     through its SPMDTrainer on make_mesh(**axes)."""
     import mxnet_tpu as mx
@@ -181,7 +187,7 @@ def _jax_run(w0, method, axes, opt, opt_params, steps):
     tokens, labels = _data()
     with jpar.make_mesh(**axes):
         tr = jpar.SPMDTrainer(net, Identity(), opt, dict(opt_params),
-                              n_labels=0)
+                              n_labels=0, batch_spec=batch_spec)
         losses = [float(tr.step(tokens, labels).asnumpy())
                   for _ in range(steps)]
     return losses, {k: np.asarray(tr.params[p.name])
@@ -208,9 +214,13 @@ def test_the_example_runs_under_the_launcher(two):
 def test_dp2_sp2_ring_sums_over_dp_only(weights, four):
     import jax
     from mxnet_tpu import parallel as jpar
+    from mxnet_tpu.parallel.sharding import P as JP
     from mxnet_tpu_torch import cpu, parallel
 
     w0 = weights[1]
+    with pytest.raises(ValueError, match=DIM2_REFUSAL):
+        _jax_run(w0, "ring", dict(dp=2, sp=2), "sgd", SGD, 1,
+                 [JP(None, None, "sp")] * 2)
     grid = jpar.make_mesh(dp=2, sp=2).mesh.devices
     devs = jax.devices()
     jl, jw = _jax_run(w0, "ring", dict(dp=2, sp=2), "sgd", SGD, SGD_STEPS)
@@ -226,7 +236,7 @@ def test_dp2_sp2_ring_sums_over_dp_only(weights, four):
                if k.startswith("sgd/")}
         for k, v in got.items():
             np.testing.assert_array_equal(res[f"seq_spec/{k}"], v)
-        assert "ROADMAP queue A item 7, cut (c)" in str(res["dim2_refused"])
+        assert re.search(DIM2_REFUSAL, str(res["dim2_refused"]))
         for what, wl, ww in (("JAX dp=2 x sp=2", jl, jw),
                              ("port dp=1", one["losses"],
                               {k[2:]: v for k, v in one.items()

@@ -338,7 +338,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                 "optimizer/spmd.py", "tools/launch.py", "parallel/mesh.py",
                 "parallel/sharding.py", "parallel/_compat.py",
                 "parallel/ring.py", "parallel/ulysses.py",
-                "parallel/__init__.py", "examples/long_context_lm.py"):
+                "parallel/__init__.py", "examples/long_context_lm.py",
+                "parallel/moe.py", "parallel/pipeline.py"):
         assert pkg / rel in files, rel
     for f in files:
         for mod in _imports(f):

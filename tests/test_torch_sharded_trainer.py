@@ -36,9 +36,10 @@ structural name.
 * ``sync_to_block`` puts the global tensors back in the block and the
   next step cuts them again; ``named_sharding(...).block``/``gather``
   cut and rebuild a rank's block, ``replicated`` splits nothing and
-  ``constraint`` returns its value; ``parallel.moe``, ``pipeline``,
-  ``moe_apply``, ``pipeline_apply`` and ``HeteroPipeline`` raise, naming
-  ROADMAP queue A item 7, cut (c).
+  ``constraint`` returns its value; ``parallel.moe`` and ``pipeline``
+  export the JAX modules' names (``moe_apply``, ``pipeline_apply``,
+  ``stack_stage_params``, ``HeteroPipeline`` among them, also on
+  ``parallel``), and ``stack_stage_params`` stacks as the JAX one does.
 """
 import os
 import sys
@@ -392,16 +393,32 @@ def test_forward_dp2_is_the_global_batch_of_dp1(setup):
 
 def test_sync_to_block_shardings_and_queued_names(setup):
     from mxnet_tpu_torch import parallel
-    from mxnet_tpu_torch.base import MXNetError
 
     for res in setup[3].results():
         assert bool(res["synced_whole"]) and bool(res["cut_again"])
         assert bool(np.all(res["sharding"]))
-    for name in ("moe", "pipeline", "moe_apply", "pipeline_apply",
-                 "HeteroPipeline"):
-        with pytest.raises(MXNetError,
-                           match=r"ROADMAP queue A item 7, cut \(c\)"):
-            getattr(parallel, name)
+    import jax.numpy as jnp
+    from mxnet_tpu import parallel as jpar
+
+    # the formerly queued names are the JAX package's modules and
+    # functions, and stack_stage_params stacks as the JAX one does
+    for mod in ("moe", "pipeline"):
+        assert getattr(parallel, mod).__all__ == getattr(jpar, mod).__all__
+    for mod, name in (("moe", "moe_apply"), ("pipeline", "pipeline_apply"),
+                      ("pipeline", "stack_stage_params"),
+                      ("pipeline", "HeteroPipeline")):
+        assert getattr(parallel, name) is getattr(getattr(parallel, mod),
+                                                  name)
+    rng = np.random.RandomState(3)
+    stages = [{"w": rng.randn(2, 3).astype(np.float32),
+               "b": rng.randn(3).astype(np.float32)} for _ in range(4)]
+    want = jpar.pipeline.stack_stage_params(
+        [{k: jnp.asarray(v) for k, v in s_.items()} for s_ in stages])
+    got = parallel.stack_stage_params(
+        [{k: torch.from_numpy(v) for k, v in s_.items()} for s_ in stages])
+    assert sorted(got) == sorted(want)
+    for k in want:
+        np.testing.assert_array_equal(got[k].numpy(), np.asarray(want[k]))
 
 
 def test_checkpoint_fsdp2_resumes_at_dp2_and_dp1(setup, port_dp1):

@@ -18,8 +18,10 @@ warm running means, carried to the JAX package by structural name.
   replicated; the ZeRO run is held against the JAX ``SPMDTrainer`` on
   ``make_mesh(dp=2)`` at test_torch_resnet_train's tolerances.
 * batch/label specs: ``P()`` for both at dp = 2 gives every rank the
-  whole batch, and the step is the dp = 1 step on it, bit for bit; at
-  dp = 1 a spec changes nothing.
+  whole batch, and the step is the dp = 1 step on it, bit for bit; so
+  does ``P(None, "dp")`` for the input (its dim 1 split, the label's
+  rows not alone split), which is also the JAX trainer's dp = 2 step
+  with the same spec; at dp = 1 a spec changes nothing.
 * Checkpoints: five steps uninterrupted at dp = 1 and at dp = 2, each
   saved after step 3.  Resuming a checkpoint on the same dp size gives
   the uninterrupted run's bits; dp 1 -> 2 and 2 -> 1 land within the
@@ -190,9 +192,10 @@ def _rank_main(out_dir, rank):
         bool(tr._specs) and all(
             tr.params[n].shape[0] * WORLD == tr._shapes[n][0]
             for n in tr._specs))
-    res["surface/spec_splitting_dim1_raises"] = np.array(_raises(
-        lambda: _steps(_trainer(vals, mesh, batch_spec=[P(None, "dp")]),
-                       1), "ROADMAP queue A item 7, cut (c)"))
+    # a spec splitting dim 1 over dp: the input placed whole, and with
+    # the label's rows not alone split, the step runs whole on each rank
+    tr = _trainer(vals, mesh, batch_spec=[P(None, "dp")])
+    put("spec_dim1", _record(tr, _steps(tr, 2)))
     tr = _trainer(vals, mesh, batch_spec=[P()], label_spec=[P()])
     put("replicated", _record(tr, _steps(tr, 2)))
     # the dp = 1 step it must equal, on a rank's single thread (the
@@ -394,7 +397,7 @@ def test_checkpoint_of_another_parameter_set_raises(setup, tmp_path):
 # dp = 2 (the ranks)
 # ---------------------------------------------------------------------------
 
-def _jax_dp2(vals, monkeypatch):
+def _jax_dp2(vals, monkeypatch, batch_spec=None):
     import mxnet_tpu as mx
     from mxnet_tpu import parallel as jpar
     from mxnet_tpu.gluon import loss as jloss
@@ -411,7 +414,7 @@ def _jax_dp2(vals, monkeypatch):
         p.set_data(mx.nd.array(vals[k]))
     with jpar.make_mesh(dp=WORLD):
         tr = jpar.SPMDTrainer(net, jloss.SoftmaxCrossEntropyLoss(), "sgd",
-                              dict(OPT))
+                              dict(OPT), batch_spec=batch_spec)
         losses = [float(tr.step(x, y).asnumpy()) for _ in range(2)]
     rec = {"losses": np.array(losses)}
     dims = {}
@@ -458,6 +461,16 @@ def test_replicated_specs_dp2_are_the_dp1_step(setup):
     res = setup[4].results()
     _same(_ranks_agree(res, "replicated"), _ranks_agree(res, "dp1"),
           "P() specs at dp=2 vs dp=1")
+
+
+def test_spec_splitting_dim1_is_the_global_step(setup, monkeypatch):
+    from mxnet_tpu.parallel.sharding import P as JP
+
+    res = setup[4].results()
+    got = _ranks_agree(res, "spec_dim1")
+    _same(got, _ranks_agree(res, "dp1"), "P(None, 'dp') at dp=2 vs dp=1")
+    jrec, _ = _jax_dp2(setup[1], monkeypatch, batch_spec=[JP(None, "dp")])
+    _close_run(got, jrec, "P(None, 'dp') at dp=2 vs JAX dp=2, same spec")
 
 
 def test_what_raises_at_dp2(setup):

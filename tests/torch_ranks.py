@@ -9,8 +9,10 @@ its rank from ``DMLC_WORKER_ID``, joins a gloo group
 the launcher sets, and writes ``rank<r>.npz`` into ``out_dir``.
 ``results()`` waits for the launcher (which ends every rank when one
 fails), fails the test with the ranks' output when it does not exit 0 in
-``timeout`` seconds, and returns each rank's arrays.  The ranks import
-neither jax nor mxnet_tpu; :func:`jax_free` gives them the check.
+``timeout`` seconds, and returns each rank's arrays.  ``Groups`` starts
+a file's groups of several world sizes, each on first use.  The ranks
+import neither jax nor mxnet_tpu; :func:`jax_free` gives them the
+check.
 """
 import os
 import signal
@@ -64,6 +66,27 @@ class Launched:
                                   allow_pickle=False))
                      for r in range(self.world)]
         return self._res
+
+
+class Groups(dict):
+    """``Launched`` groups of ``script`` by world size, each started on
+    first use (``groups[world]``) into ``base/w<world>``; a test that
+    reads one group's results before asking for the next keeps the
+    groups from running at once."""
+
+    def __init__(self, script, base):
+        super().__init__()
+        self.script, self.base = script, base
+
+    def __missing__(self, world):
+        d = os.path.join(str(self.base), f"w{world}")
+        os.makedirs(d)
+        self[world] = Launched(self.script, d, world=world)
+        return self[world]
+
+    def stop(self):
+        for g in self.values():
+            g.stop()
 
 
 def jax_free() -> bool:
