@@ -95,7 +95,29 @@ Phases, each failing loudly (exit code 1, no result line):
    (bf16) and < 1e-4 (fp32 served on the card).  Scrambling the tokens at
    and past valid_length must not change a valid position.  Then req/s,
    p50/p99, a direct batch-32 forward time and its torch.profiler
-   breakdown (the kernel's share, the idle share).
+   breakdown (the kernel's share, the idle share).  The HTTP part
+   (bert_http; before the server shuts down), over the same repository
+   and server behind serving.serve_http(server, port=0): (a) 64 predicts
+   as JSON from 8 client threads over urllib, every answer 200 with its
+   (seq, pooled), 12 kernel-5 launches a launched batch, the first 16
+   within 2e-2 relative L2 of the CPU fp32 forward, kernel 5 against its
+   plain version at each bucket the batches ran at (with those batches'
+   valid lengths; the kernel line's bert_http entry sums these checks
+   over (a)'s launches), req/s and p50/p99 at the client beside the
+   in-process figures; (b) /metrics parses as
+   Prometheus text and counts every request sent to the model,
+   /v1/models, /v1/metrics, /healthz 200, /statusz renders; (c) chaos
+   faults at serving.execute (every attempt of the retry policy) open
+   the bf16 model's circuit breaker: it answers 503 ModelUnavailable,
+   the fp32 model 200 and /healthz 200, no kernel launches while
+   faulted, and after the cooldown one probe closes the breaker; (d)
+   version 2 of the bf16 artifact, pinned out of traffic, then rollover
+   with v1's requests in flight: none fails, later version-less requests
+   land on v2, and v1's release frees at least its parameter bytes of
+   device memory; (e) shutdown(drain=True) with requests queued behind a
+   hung batch: /healthz, /statusz and a predict answer 503 while every
+   accepted request is answered, and a predict after it 503.  One
+   `serving_http: {...}` line.
 5. main path, training (bench.py's configuration): make_mesh(dp=1) +
    SPMDTrainer(SoftmaxCrossEntropyLoss, sgd lr 0.1 momentum 0.9 wd 1e-4)
    on full-width ResNet-50 v1, bf16, NHWC, 224x224, batch 256, a fixed
@@ -644,7 +666,11 @@ Phases, each failing loudly (exit code 1, no result line):
    c.phase_device(); c.phase_build(); c.phase_kvstore(card)"`).  (a) Two
    ranks started by the port's launcher (`mxnet_tpu_torch/tools/launch.py
    -n 2 --launcher local`; gloo with both on
-   cuda:0 on one card, NCCL on cuda:0..1 on two or more) train
+   cuda:0 on one card, NCCL on cuda:0..1 on two or more), started once
+   for phases 22-24 (kv_shard_rank: kv_rank's work, then shard_rank's,
+   each part's exit code in its record; the launch is timed as its own
+   step, "22-24 ranks", and each phase adds its part's seconds to its
+   own for its limit), train
    full-width ResNet-50 v1 (fused, bf16, NHWC, a rank's batch 32, SGD lr
    0.1, momentum 0.9, wd 1e-4, build_net's seeded weights) through
    gluon.Trainer(kvstore='dist_sync') in five cases, one warm-up and 2
@@ -671,10 +697,11 @@ Phases, each failing loudly (exit code 1, no result line):
 23. Sharded meshes (ROADMAP queue A item 7, cut (b); no kernel of its
    own; alone: `python -c "import chip_smoke as c; card =
    c.phase_device(); c.phase_build(); c.phase_sharded(card,
-   c.phase_kernels_attention(card))"`).  Two ranks started once by the
-   port's launcher (gloo on cuda:0 with one card, NCCL on cuda:0..1 with
-   two or more) run, in order: (c) SPMDTrainer.forward of BERT-base
-   (bf16, Normal(0.02) weights from a seed) at dp = 2, each rank its 16
+   c.phase_kernels_attention(card))"`, which also runs phase 22's rank
+   work).  The two ranks phase 22 started (gloo on cuda:0 with one card,
+   NCCL on cuda:0..1 with two or more) run, after phase 22's work: (c)
+   SPMDTrainer.forward of BERT-base (bf16, Normal(0.02) weights from a
+   seed) at dp = 2, each rank its 16
    rows, which must come back as the global batch of 32 and lie within
    2e-2 relative L2 of this process's dp = 1 forward; (a) config 3's
    BERT-base step (bf16, batch 32 x 128, Adam lr 1e-4, dropout 0)
@@ -857,6 +884,10 @@ KERNEL_ATT = {"name": "dot_product_attention", "route": "cuda",
 BERT_SEQ, BERT_LAYERS, BERT_HEADS, BERT_UNITS = 128, 12, 12, 768
 BERT_VOCAB = 30522
 BERT_CHECKED = 16            # requests held against the CPU fp32 forward
+BERT_HTTP_REQUESTS = 64      # 4b (a): predict requests over HTTP
+BERT_HTTP_ROLLOVER = 48      # 4b (d): requests in flight across the swap
+BERT_HTTP_DRAIN = 24         # 4b (e): requests queued when the drain starts
+BERT_HTTP_HANG_S = 1.5       # 4b (e): the first batch's hang (chaos)
 BERT_BOUNDS = {"bf16": 2e-2, "fp32": 1e-4}
 # phase 6: bench.py's step data parallel over DP ranks; rows 3-4 of the
 # TPU kernel table are kernels 1-2 per rank plus the sums over the ranks
@@ -2080,6 +2111,400 @@ def bert_forward(net, inputs, dev, bs=BATCH):
     return torch.cat(seqs), torch.cat(pooled)
 
 
+def http_call(base, path, body=None):
+    """(status, body) of one request to a front end on localhost (no
+    proxy from the environment); JSON bodies parsed."""
+    import urllib.error
+    import urllib.request
+
+    opener = urllib.request.build_opener(urllib.request.ProxyHandler({}))
+    data = None if body is None else json.dumps(body).encode()
+    try:
+        with opener.open(urllib.request.Request(base + path, data=data),
+                         timeout=300) as r:
+            code, raw, ctype = r.status, r.read(), r.headers["Content-Type"]
+    except urllib.error.HTTPError as e:
+        code, raw, ctype = e.code, e.read(), e.headers["Content-Type"]
+    if ctype.startswith("application/json"):
+        return code, json.loads(raw)
+    return code, raw.decode()
+
+
+def bert_body(reqs, i):
+    """The predict body of request i: one row of each input, as JSON."""
+    return {"inputs": [x[i:i + 1].tolist() for x in reqs]}
+
+
+def parse_prometheus(text):
+    """{(name, ((label, value), ...)): value} of a text exposition
+    (format 0.0.4); raises ValueError on a line that is neither a
+    comment nor a sample."""
+    import re
+
+    sample = re.compile(r'^([a-zA-Z_:][a-zA-Z0-9_:]*)(?:\{(.*)\})? (\S+)$')
+    label = re.compile(r'([a-zA-Z_][a-zA-Z0-9_]*)="((?:[^"\\]|\\.)*)"')
+    out = {}
+    for line in text.splitlines():
+        if not line or line.startswith("# HELP ") \
+                or line.startswith("# TYPE "):
+            continue
+        m = sample.match(line)
+        if m is None:
+            raise ValueError(f"not a Prometheus sample: {line!r}")
+        labels = tuple(label.findall(m.group(2) or ""))
+        out[(m.group(1), labels)] = float(m.group(3))
+    return out
+
+
+def http_predicts(base, path, reqs, idx, threads, on_answer):
+    """POST one predict body per request index in `idx` from `threads`
+    client threads, `on_answer(i, status, body)` in the client thread;
+    returns the sorted client latencies in s and the wall s."""
+    lat = {}
+
+    def client(chunk):
+        for i in chunk:
+            t0 = time.perf_counter()
+            code, body = http_call(base, path, bert_body(reqs, i))
+            lat[i] = time.perf_counter() - t0
+            on_answer(i, code, body)
+
+    t0 = time.perf_counter()
+    ts = [threading.Thread(target=client, args=(idx[t::threads],))
+          for t in range(threads)]
+    for t in ts:
+        t.start()
+    for t in ts:
+        t.join()
+    return sorted(lat.values()), time.perf_counter() - t0
+
+
+def bert_http(card, repo, server, paths, reqs, ref, inproc, threads):
+    """Phase 4b's HTTP part: BERT-base behind serving.serve_http, over
+    the phase's repository and server.  (a) BERT_HTTP_REQUESTS predicts
+    as JSON from `threads` client threads: every answer 200 with (seq,
+    pooled), 12 kernel-5 launches a launched batch, the first
+    BERT_CHECKED answers within 2e-2 rel L2 of the CPU fp32 forward,
+    kernel 5 against its plain version at each bucket the batches ran
+    at (returned under "attention", weighted by launches);
+    (b) /metrics parses and counts every request sent, /v1/models,
+    /v1/metrics, /healthz, /statusz; (c) chaos faults at serving.execute
+    open the bf16 model's breaker: it answers 503 ModelUnavailable, the
+    fp32 model 200, /healthz 200, and after the cooldown one probe
+    closes it; (d) version 2 of the bf16 artifact, rollover with
+    requests in flight: none fails, new requests land on v2, and v1's
+    release frees at least its parameter bytes; (e) shutdown(drain=True)
+    with requests queued: /healthz and /statusz 503 while every accepted
+    request is answered, a predict after it 503."""
+    import gc
+
+    import numpy as np
+
+    from mxnet_tpu_torch import serving
+    from mxnet_tpu_torch.ops import attention as att
+    from mxnet_tpu_torch.resilience import chaos
+
+    ref_seq, ref_pooled = ref
+    dev = torch.device("cuda", 0)
+    t_http = time.perf_counter()
+    httpd = serving.serve_http(server, port=0)
+    base = f"http://127.0.0.1:{httpd.server_address[1]}"
+    bf16 = "/v1/models/bert_bf16:predict"
+    rec = {"card": card}
+    try:
+        # (a) predicts over HTTP
+        m1 = repo.get("bert_bf16").metrics
+        b0, r0, c0 = (m1.value(k) for k in ("batches", "requests",
+                                             "completed"))
+        seqs, pools = [None] * BERT_CHECKED, [None] * BERT_CHECKED
+        bad = []
+
+        def keep(i, code, body):
+            if code != 200:
+                bad.append(f"request {i}: {code} {body}")
+                return
+            outs = body["outputs"]
+            seq = torch.tensor(np.asarray(outs[0], np.float32))
+            pooled = torch.tensor(np.asarray(outs[1], np.float32))
+            if tuple(seq.shape) != (1, BERT_SEQ, BERT_UNITS) \
+                    or tuple(pooled.shape) != (1, BERT_UNITS) \
+                    or not (torch.isfinite(seq).all()
+                            and torch.isfinite(pooled).all()):
+                bad.append(f"request {i}: shapes {tuple(seq.shape)} "
+                           f"{tuple(pooled.shape)} or not finite")
+            if i < BERT_CHECKED:
+                seqs[i], pools[i] = seq[0], pooled[0]
+
+        # the buckets (a)'s batches ran at: each bucket's count and the
+        # valid lengths of its first batch (pad rows at 0), seen at the
+        # entry's execute, which the batcher calls once a batch
+        entry = repo.get("bert_bf16")
+        execute, served = entry.execute, {}
+
+        def tally(bucket, xs, seed=0):
+            n, lengths = served.get(bucket, (0, xs[2].clone()))
+            served[bucket] = (n + 1, lengths)
+            return execute(bucket, xs, seed)
+
+        entry.execute = tally
+        att.reset_attention_launch_count()
+        try:
+            lat, wall = http_predicts(base, bf16, reqs,
+                                      list(range(BERT_HTTP_REQUESTS)),
+                                      threads, keep)
+        finally:
+            launches = att.attention_launch_count()
+            del entry.execute
+        batches = m1.value("batches") - b0
+        for b in bad[:5]:
+            fail(f"bert http (a): {b}")
+        if launches != BERT_LAYERS * batches or not batches \
+                or sum(n for n, _ in served.values()) != batches:
+            fail(f"bert http (a): {launches} attention launches for "
+                 f"{batches} batches (want {BERT_LAYERS} per batch; "
+                 f"buckets {({b: n for b, (n, _) in served.items()})})")
+        # kernel 5 against its plain version at each bucket (a) served,
+        # with that bucket's valid lengths; weighted by its launches
+        gen = torch.Generator().manual_seed(2177)
+        checks = []
+        print("bert http (a): kernel 5 at the buckets served:", flush=True)
+        for b in sorted(served):
+            n, lengths = served[b]
+            q, k, v = (torch.randn(b, BERT_SEQ, BERT_UNITS, generator=gen)
+                       .to(dev, torch.bfloat16) for _ in range(3))
+            m = key_mask(gen, b, BERT_SEQ, lengths=lengths).to(dev)
+            checks.append((check_attention(f"bert.packed.b{b}", q, k, v, m,
+                                           False, card, heads=BERT_HEADS),
+                           BERT_LAYERS * n))
+        e_seq = e_pool = row = float("inf")
+        if all(s is not None for s in seqs):
+            seq, pooled = torch.stack(seqs), torch.stack(pools)
+            e_seq, e_pool = rel_l2(seq, ref_seq), rel_l2(pooled, ref_pooled)
+            row = max(rel_l2(seq[i], ref_seq[i]) for i in range(BERT_CHECKED))
+        bound = BERT_BOUNDS["bf16"]
+        if not (e_seq < bound and e_pool < bound and row < bound):
+            fail(f"bert http (a): answers vs the CPU fp32 forward: seq "
+                 f"{e_seq:.3g}, worst row {row:.3g}, pooled {e_pool:.3g} "
+                 f"(bound {bound})")
+        p50, p99 = percentile_ms(lat, 0.50), percentile_ms(lat, 0.99)
+        ip = inproc.get("bf16", {})
+        rec.update(requests=BERT_HTTP_REQUESTS, threads=threads,
+                   batches=batches, launches=launches,
+                   buckets={str(b): served[b][0] for b in sorted(served)},
+                   req_per_s=BERT_HTTP_REQUESTS / wall, p50_ms=p50,
+                   p99_ms=p99, rel_l2_seq=e_seq, rel_l2_pooled=e_pool,
+                   worst_row=row, errors=len(bad),
+                   in_process=dict(req_per_s=ip.get("req_per_s"),
+                                   p50_ms=ip.get("p50_ms"),
+                                   p99_ms=ip.get("p99_ms")))
+        print(f"bert http (a): {BERT_HTTP_REQUESTS} predicts as JSON from "
+              f"{threads} threads in {batches} batches, {launches} "
+              f"attention launches (want {BERT_LAYERS * batches}); {len(bad)} "
+              f"bad answers; vs the CPU fp32 forward ({BERT_CHECKED} "
+              f"requests) rel L2 seq {e_seq:.3g} (worst row {row:.3g}) "
+              f"pooled {e_pool:.3g} (bound {bound}) [{card}]", flush=True)
+        print(f"serving bert bf16 over HTTP: "
+              f"{BERT_HTTP_REQUESTS / wall:.2f} requests/s, p50 {p50:.3f} "
+              f"ms, p99 {p99:.3f} ms at the client (in process, 4b: "
+              f"{ip.get('req_per_s', 0):.2f} requests/s, p50 "
+              f"{ip.get('p50_ms') or 0:.3f} ms, p99 "
+              f"{ip.get('p99_ms') or 0:.3f} ms) [{card}]", flush=True)
+
+        # (b) the other routes
+        key = (("model", "bert_bf16"), ("version", "1"))
+        code, text = http_call(base, "/metrics")
+        try:
+            prom = parse_prometheus(text) if code == 200 else {}
+        except ValueError as e:
+            prom = {}
+            fail(f"bert http (b): /metrics: {e}")
+        sent = r0 + BERT_HTTP_REQUESTS
+        got = (prom.get(("mx_serving_requests_total", key)),
+               prom.get(("mx_serving_completed_total", key)))
+        if got != (sent, c0 + BERT_HTTP_REQUESTS) or r0 != c0 \
+                or m1.value("requests") != sent:
+            fail(f"bert http (b): /metrics counts {got} requests/"
+                 f"completed, want {sent} ({r0} in process + "
+                 f"{BERT_HTTP_REQUESTS} over HTTP)")
+        models = http_call(base, "/v1/models")
+        snap = http_call(base, "/v1/metrics")
+        health = http_call(base, "/healthz")
+        status = http_call(base, "/statusz")
+        by_model = {m["model"]: m for m in snap[1].get("models", [])}
+        routes_ok = (
+            models == (200, {"models": {"bert_bf16": [1],
+                                        "bert_fp32": [1]}})
+            and snap[0] == 200 and snap[1]["pending"] == 0
+            and by_model["bert_bf16"]["requests"] == sent
+            and health == (200, {"status": "serving"})
+            and status[0] == 200 and "bert_bf16 v1: req" in status[1])
+        print(f"bert http (b): /metrics {code}, {len(prom)} samples, "
+              f"mx_serving_requests_total{{bert_bf16 v1}} {got[0]} = "
+              f"{r0} in process + {BERT_HTTP_REQUESTS} over HTTP; "
+              f"/v1/models {models}; /v1/metrics {snap[0]}; /healthz "
+              f"{health}; /statusz {status[0]}:", flush=True)
+        for line in str(status[1]).splitlines():
+            print(f"  | {line}", flush=True)
+        if not routes_ok:
+            fail("bert http (b): a route answered wrong")
+        rec["metrics_samples"] = len(prom)
+
+        # (c) the circuit breaker of one model
+        one = [x[:1] for x in reqs]
+        brk = repo.get("bert_bf16").breaker
+        codes = []
+        n0 = att.attention_launch_count()
+        with chaos.inject("serving.execute", times=10 ** 6) as plan:
+            while len(codes) < 8 and (not codes or codes[-1] != 503):
+                c, body = http_call(base, bf16, bert_body(reqs, 0))
+                codes.append(c)
+            opened = brk.state()
+            faults = plan.fired
+        unavailable = http_call(base, bf16, bert_body(reqs, 1))
+        fp32 = http_call(base, "/v1/models/bert_fp32:predict",
+                         bert_body(reqs, 2))[0]
+        healthz = http_call(base, "/healthz")[0]
+        during = att.attention_launch_count() - n0
+        time.sleep(brk.snapshot()["cooldown_s"] + 0.05)
+        probe = http_call(base, bf16, bert_body(reqs, 3))[0]
+        closed = brk.state()
+        probe_launches = att.attention_launch_count() - n0 - during
+        rec["breaker"] = dict(codes=codes, faults=faults, state=opened,
+                              unavailable=unavailable[0], fp32=fp32,
+                              healthz=healthz, probe=probe,
+                              state_after=closed, launches_during=during,
+                              probe_launches=probe_launches)
+        print(f"bert http (c): serving.execute faults ({faults} fired, "
+              f"each attempt of the retry policy) gave {codes}, the "
+              f"breaker {opened}; bf16 then {unavailable[0]} "
+              f"({str(unavailable[1].get('error', ''))[:60]}...), fp32 "
+              f"{fp32}, /healthz {healthz}; {during} attention launches "
+              f"while faulted (the fp32 answer's); after the cooldown the "
+              f"probe {probe} ({probe_launches} launches), the breaker "
+              f"{closed} [{card}]", flush=True)
+        if not (codes[-1] == 503 and all(c == 400 for c in codes[:-1])
+                and opened == "open" and unavailable[0] == 503
+                and "circuit breaker" in unavailable[1].get("error", "")
+                and fp32 == 200 and healthz == 200 and probe == 200
+                and closed == "closed" and during == BERT_LAYERS
+                and probe_launches == BERT_LAYERS):
+            fail(f"bert http (c): breaker {rec['breaker']}")
+
+        # (d) rollover with requests in flight
+        repo.rollover("bert_bf16", 1)  # pin v1: the add must not move
+        repo.add("bert_bf16", paths["bf16"], version=2)  # traffic yet
+        e1, e2 = repo.get("bert_bf16", 1), repo.get("bert_bf16", 2)
+        for b in server.config.ladder():  # v2's graphs, before the baseline
+            e2.execute(b, [x[:b] for x in reqs])
+        server.infer("bert_bf16", one, version=2)  # and its batcher
+        v1_bytes = sum(p.numel() * p.element_size()
+                       for p in e1.served.net.parameters())
+        gc.collect()
+        torch.cuda.synchronize()
+        mem0 = torch.cuda.memory_allocated()
+        q1, q2 = e1.metrics.value("requests"), e2.metrics.value("requests")
+        futs, errors = [], []
+        # v1's first batch hangs (chaos), so the swap lands with v1's
+        # requests in flight
+        with chaos.inject("serving.execute", at=1, action="hang",
+                          duration=0.5):
+            for i in range(BERT_HTTP_ROLLOVER):
+                futs.append(server.submit("bert_bf16",
+                                          [x[i:i + 1] for x in reqs]))
+                if i == BERT_HTTP_ROLLOVER // 2:
+                    inflight = e1.inflight()
+                    repo.rollover("bert_bf16", 2)
+                    retired_inflight = (e1.retired,
+                                        e1._served is not None)
+            for i, f in enumerate(futs):
+                try:
+                    shape = tuple(f.result(timeout=300)[0].shape)
+                    if shape != (1, BERT_SEQ, BERT_UNITS):
+                        errors.append(f"request {i}: shape {shape}")
+                except Exception as e:  # noqa: BLE001 — reported below
+                    errors.append(f"request {i}: {type(e).__name__}: {e}")
+        del futs
+        on1 = e1.metrics.value("requests") - q1
+        on2 = e2.metrics.value("requests") - q2
+        after = [http_call(base, bf16, bert_body(reqs, i))[0]
+                 for i in range(4)]
+        landed = e2.metrics.value("requests") - q2 - on2
+        released = (e1.retired, e1.inflight(), e1._served is None)
+        gc.collect()
+        torch.cuda.synchronize()
+        freed = mem0 - torch.cuda.memory_allocated()
+        rec["rollover"] = dict(requests=BERT_HTTP_ROLLOVER, errors=len(errors),
+                               on_v1=on1, on_v2=on2,
+                               v1_inflight_at_swap=inflight,
+                               after=after, after_on_v2=landed,
+                               v1_param_bytes=v1_bytes, freed_bytes=freed,
+                               default=repo.default_version("bert_bf16"))
+        print(f"bert http (d): rollover v1 -> v2 with {inflight} requests "
+              f"in flight on v1 (retired {retired_inflight[0]}, kept its "
+              f"model {retired_inflight[1]}); {BERT_HTTP_ROLLOVER} requests, "
+              f"{len(errors)} failed, {on1} on v1 and {on2} on v2; "
+              f"version-less requests after it {after}, {landed} on v2; v1 "
+              f"retired/in flight/released {released}; device memory freed "
+              f"{freed / 2 ** 20:.1f} MiB (v1's parameters "
+              f"{v1_bytes / 2 ** 20:.1f} MiB) [{card}]", flush=True)
+        for e in errors[:5]:
+            fail(f"bert http (d): {e}")
+        if not (after == [200] * 4 and landed == 4 and on2 > 0
+                and released == (True, 0, True) and freed >= v1_bytes
+                and retired_inflight == (True, True)):
+            fail(f"bert http (d): rollover {rec['rollover']}")
+
+        # (e) the drain
+        m2 = e2.metrics
+        bd0 = m2.value("batches")
+        n0 = att.attention_launch_count()
+        with chaos.inject("serving.execute", at=1, action="hang",
+                          duration=BERT_HTTP_HANG_S):
+            futs = [server.submit("bert_bf16", [x[i:i + 1] for x in reqs])
+                    for i in range(BERT_HTTP_DRAIN)]
+            time.sleep(0.3)  # the first batch is inside its hang
+            closer = threading.Thread(
+                target=lambda: server.shutdown(drain=True))
+            closer.start()
+            time.sleep(0.1)
+            during = [http_call(base, "/healthz")[0],
+                      http_call(base, "/statusz")[0],
+                      http_call(base, bf16, bert_body(reqs, 0))[0]]
+            pending = server.pending()
+            closer.join(timeout=300)
+        answered = 0
+        for f in futs:
+            try:
+                answered += tuple(f.result(timeout=1)[0].shape) \
+                    == (1, BERT_SEQ, BERT_UNITS)
+            except Exception as e:  # noqa: BLE001 — reported below
+                fail(f"bert http (e): a queued request failed: {e}")
+        del futs
+        after = http_call(base, bf16, bert_body(reqs, 0))[0]
+        dl = att.attention_launch_count() - n0
+        db = m2.value("batches") - bd0
+        rec["drain"] = dict(queued=BERT_HTTP_DRAIN, pending_at_probe=pending,
+                            during=during, answered=answered, after=after,
+                            batches=db, launches=dl)
+        print(f"bert http (e): shutdown(drain=True) with {pending} of "
+              f"{BERT_HTTP_DRAIN} requests still pending: /healthz, "
+              f"/statusz, predict answered {during}; {answered} of "
+              f"{BERT_HTTP_DRAIN} queued requests answered in {db} batches "
+              f"({dl} attention launches); a predict after it {after} "
+              f"[{card}]", flush=True)
+        if not (during == [503, 503, 503] and pending > 0
+                and answered == BERT_HTTP_DRAIN and after == 503
+                and dl == BERT_LAYERS * db and not closer.is_alive()):
+            fail(f"bert http (e): drain {rec['drain']}")
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+    rec["seconds"] = time.perf_counter() - t_http
+    print("serving_http: " + json.dumps(rec), flush=True)
+    rec["attention"] = checks
+    return rec
+
+
 def phase_bert(card, n_requests, threads):
     """Full-width BERT-base (Normal(0.02) weights from a seed, as
     bench_all.py initialises it), exported with dynamic_batch=True in
@@ -2198,6 +2623,8 @@ def phase_bert(card, n_requests, threads):
                   f"{p50:.3f} ms, p99 {p99:.3f} ms (submit to answer), "
                   f"{n_req / max(batches, 1):.1f} rows per batch [{card}]",
                   flush=True)
+        result["http"] = bert_http(card, repo, server, paths, reqs,
+                                   (ref_seq, ref_pooled), result, threads)
     finally:
         server.shutdown(drain=True)
     # padding invariance on the card: scramble tokens and token types at
@@ -10604,7 +11031,7 @@ def phase_item9(card):
 
 KV_BATCH = 32          # a rank's images
 KV_STEPS = 2           # timed steps a case, after one warm-up
-KV_TIMEOUT = 240.0     # s, the ranks' whole run, their start included
+KV_TIMEOUT = 240.0     # s, the ranks' phase-22 work, their start included
 KV_SECONDS = 90.0      # the phase's limit (ranks, reference, (b))
 KV_2BIT = 0.5
 # case -> (Trainer keywords besides kvstore='dist_sync', environment)
@@ -10692,9 +11119,10 @@ def kv_plan(tr):
                          for b in u._plan.buckets])
 
 
-def kv_rank(out_dir, backend, devices):
-    """One rank of phase 22, started by the port's tools/launch.py (its
-    rank from DMLC_WORKER_ID): full-width ResNet-50 v1 fused, bf16, from
+def kv_rank(out_dir, devices):
+    """Phase 22's work in one rank of kv_shard_rank (its rank from
+    DMLC_WORKER_ID, its process group joined): full-width ResNet-50 v1
+    fused, bf16, from
     build_net's seeded weights, trained on its half of the global batch
     through gluon.Trainer(kvstore='dist_sync') in each case of KV_CASES:
     one warm-up, then KV_STEPS steps with the launch counters reset just
@@ -10705,10 +11133,7 @@ def kv_rank(out_dir, backend, devices):
 
     rank = int(os.environ["DMLC_WORKER_ID"])
     dev = torch.device(devices[rank])
-    torch.cuda.set_device(dev)
-    torch.backends.cudnn.allow_tf32 = False
     torch.backends.cudnn.deterministic = True
-    parallel.dist.init(backend=backend, timeout=DP_COLLECTIVE_TIMEOUT)
     set_knobs(True, True)
     net = build_net("bfloat16", 0, dev)
     snap = kv_snapshot(net)
@@ -10754,13 +11179,36 @@ def kv_rank(out_dir, backend, devices):
             os.environ.pop(k, None)
         del tr
         parallel.dist.barrier()
-    parallel.dist.shutdown()
     res["jax_imported"] = sorted(m for m in sys.modules
                                  if m == "jax" or m.startswith("jax.")
                                  or m.split(".")[0] == "mxnet_tpu")
+    res["rc"] = 1 if FAILURES or res["jax_imported"] else 0
     with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
         json.dump(res, f)
-    return 1 if FAILURES or res["jax_imported"] else 0
+    return res["rc"]
+
+
+def kv_shard_rank(out_dir, backend, devices):
+    """One rank of phases 22 and 23 (and 24's (a)-(c)), started once by
+    the port's tools/launch.py: one torch import, one CUDA context and
+    one process group a rank serve kv_rank's work (files in
+    ``out_dir/kv``) and then shard_rank's (``out_dir/shard``).  The
+    seconds of shard_rank's part go into its record, so that each phase
+    is charged its own."""
+    from mxnet_tpu_torch import parallel
+
+    rank = int(os.environ["DMLC_WORKER_ID"])
+    torch.cuda.set_device(torch.device(devices[rank]))
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    parallel.dist.init(backend=backend, timeout=DP_COLLECTIVE_TIMEOUT)
+    rc = kv_rank(os.path.join(out_dir, "kv"), devices)
+    gc_cuda()
+    parallel.dist.barrier()
+    t0 = time.perf_counter()
+    rc = shard_rank(os.path.join(out_dir, "shard"), devices, t0) or rc
+    parallel.dist.shutdown()
+    return rc
 
 
 def launch_ranks(flag, out_dir, backend, devices, timeout):
@@ -10796,7 +11244,7 @@ def launch_ranks(flag, out_dir, backend, devices, timeout):
                 pass
             p.wait()
     with open(log_path) as f:
-        for line in f.read().splitlines()[-200:]:
+        for line in f.read().splitlines()[-400:]:
             print(f"  [launch] {line}", flush=True)
     return rc
 
@@ -11038,42 +11486,81 @@ def kv_replicas_mnist(card):
     return dict(ran="mnist_card_and_cpu", rel_l2=rel, between=between)
 
 
-def phase_kvstore(card):
-    """Phase 22: MXNet's data-parallel API on the card (ROADMAP queue A
-    item 7, cut (a)).  (a) DP ranks started by the port's tools/launch.py
-    train full-width ResNet-50 v1 (fused, bf16, a rank's batch KV_BATCH)
-    through gluon.Trainer(kvstore='dist_sync') in the five cases of
-    KV_CASES; each case's weights and each rank's running statistics
-    against this process's plain reference.  (b) replicas in one
-    process."""
-    import gc
+def launch_kv_shard(card):
+    """Start the ranks of phases 22-24 once (kv_shard_rank, through
+    launch_ranks; main times it as its own step) and keep the record in
+    KEEP["ranks"]; a later call returns it.  The ranks' seconds split
+    three ways, each phase adding its share to its own: ``kv_s`` (the
+    start and phase 22's part), ``shard_s`` (phase 23's part) and
+    ``pc_s`` (phase 24's cases, run in phase 23's part)."""
     import shutil
 
-    t0 = time.perf_counter()
-    out_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
-                           "build", "chip_smoke_kv")
-    shutil.rmtree(out_dir, ignore_errors=True)
-    os.makedirs(out_dir)
-    gc.collect()
-    torch.cuda.empty_cache()
+    if "ranks" in KEEP:
+        return KEEP["ranks"]
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "build", "chip_smoke_ranks")
+    shutil.rmtree(root, ignore_errors=True)
+    for sub in ("kv", "shard"):
+        os.makedirs(os.path.join(root, sub))
+    gc_cuda()
     if torch.cuda.device_count() >= DP:
         backend, devices = "nccl", [f"cuda:{r}" for r in range(DP)]
     else:
         backend, devices = "gloo", ["cuda:0"] * DP
     mode = f"{DP} ranks, backend {backend}, devices {','.join(devices)}"
-    print(f"kvstore: {mode}, ResNet-50 v1 fused bf16, a rank's batch "
-          f"{KV_BATCH}, SGD {TRAIN_OPT} [{card}]", flush=True)
-    rc = launch_ranks("--kv-rank", out_dir, backend, devices, KV_TIMEOUT)
+    print(f"ranks of phases 22-24: {mode}; phase 22 ResNet-50 v1 fused "
+          f"bf16, a rank's batch {KV_BATCH}, SGD {TRAIN_OPT}; phase 23 "
+          f"BERT-base bf16 batch {BATCH} at fsdp=2 and tp=2, the LM at "
+          f"dp=1 x sp=2, L={SHARD_LM['seq']} [{card}]", flush=True)
+    t0 = time.perf_counter()
+    rc = launch_ranks("--kv-shard-rank", root, backend, devices,
+                      KV_TIMEOUT + SHARD_TIMEOUT)
     t_ranks = time.perf_counter() - t0
+    part_s, pc_s = 0.0, 0.0
+    for r in range(DP):
+        path = os.path.join(root, "shard", f"rank{r}.json")
+        if os.path.exists(path):
+            with open(path) as f:
+                rk = json.load(f)
+            part_s = max(part_s, rk["seconds"])
+            pc_s = max(pc_s, sum(rk["pc"][c]["seconds"]
+                                 for c in ("pipeline", "moe", "nmt")))
+    KEEP["ranks"] = dict(rc=rc, kv=os.path.join(root, "kv"),
+                         shard=os.path.join(root, "shard"), backend=backend,
+                         devices=devices, mode=mode, t_ranks=t_ranks,
+                         kv_s=t_ranks - part_s, shard_s=part_s - pc_s,
+                         pc_s=pc_s)
+    return KEEP["ranks"]
+
+
+def phase_kvstore(card):
+    """Phase 22: MXNet's data-parallel API on the card (ROADMAP queue A
+    item 7, cut (a)).  (a) The DP ranks of launch_kv_shard (the port's
+    tools/launch.py) train full-width ResNet-50 v1 (fused, bf16, a rank's
+    batch KV_BATCH) through gluon.Trainer(kvstore='dist_sync') in the
+    five cases of KV_CASES; each case's weights and each rank's running
+    statistics against this process's plain reference.  (b) replicas in
+    one process."""
+    import gc
+
+    launch = launch_kv_shard(card)
+    t0 = time.perf_counter()
+    out_dir, backend, mode = launch["kv"], launch["backend"], launch["mode"]
+    t_ranks = launch["kv_s"]  # the ranks' start and phase-22 part
     res = {"mode": mode, "backend": backend, "ranks": DP, "cases": {},
            "launches": {"fwd": 0, "bwd": 0}}
-    if rc != 0:
-        fail(f"kvstore: the launcher exited {rc}")
+    if not all(os.path.exists(os.path.join(out_dir, f"rank{r}.json"))
+               for r in range(DP)):
+        fail(f"kvstore: the launcher exited {launch['rc']} before the "
+             f"ranks recorded phase 22")
         return res
     ranks = []
     for r in range(DP):
         with open(os.path.join(out_dir, f"rank{r}.json")) as f:
             ranks.append(json.load(f))
+        if ranks[-1]["rc"]:
+            fail(f"kvstore: rank {r}'s phase-22 part exited "
+                 f"{ranks[-1]['rc']}")
     dev = torch.device("cuda", 0)
     net = build_net("bfloat16", 0, dev)
     snap = kv_snapshot(net)
@@ -11153,11 +11640,12 @@ def phase_kvstore(card):
     t_b = time.perf_counter()
     res["b"] = kv_replicas_card(card, weights["pushpull_fused"]) \
         if torch.cuda.device_count() >= DP else kv_replicas_mnist(card)
-    res["seconds"] = time.perf_counter() - t0
+    res["seconds"] = time.perf_counter() - t0 + t_ranks
     print(f"kvstore: phase 22 took {res['seconds']:.1f} s (ranks "
-          f"{t_ranks:.1f} s, reference {t_b - t0 - t_ranks:.1f} s, (b) "
-          f"{time.perf_counter() - t_b:.1f} s; limit {KV_SECONDS:.0f} s) "
-          f"[{card}]", flush=True)
+          f"{t_ranks:.1f} s, reference {t_b - t0:.1f} s, (b) "
+          f"{time.perf_counter() - t_b:.1f} s; limit {KV_SECONDS:.0f} s; "
+          f"the ranks' phase 23 and 24 parts not counted here) [{card}]",
+          flush=True)
     if res["seconds"] > KV_SECONDS:
         fail(f"kvstore: phase 22 took {res['seconds']:.1f} s")
     print(f"kvstore: {json.dumps(res, default=str)}", flush=True)
@@ -11186,6 +11674,23 @@ def attention_path_summary(kernel, path, rows, launches, batch):
                 plain_ms=tot["ref_ms"], bound_ms=tot["bound_ms"],
                 bound_by="operations" if by_ops >= tot["bound_ms"] / 2
                 else "bytes", library_ms=tot["library_ms"])
+
+
+def http_summary(http):
+    """The `kernels` record of kernel 5 on phase 4b's HTTP path: the
+    checks at each bucket that (a)'s batches ran at, each weighted by its
+    launches there, so ms and the bounds are those of all of (a)'s
+    launches; `batch` lists the buckets, `batches_by_bucket` their
+    counts."""
+    rows = http.get("attention") or []
+    if not rows:
+        return dict(KERNEL_ATT, name="dot_product_attention/bert_http",
+                    path="serve_bert_http", launches=0)
+    return dict(attention_path_summary(
+        dict(KERNEL_ATT, name="dot_product_attention/bert_http"),
+        "serve_bert_http", rows, http["launches"],
+        [r["bh"] // BERT_HEADS for r, _ in rows]),
+        batches_by_bucket=http["buckets"], unit="all of (a)'s launches")
 
 
 def tap_summary(recs, launches):
@@ -11233,7 +11738,7 @@ SHARD_BOUND = 2e-2     # bf16: rel of step 1's loss, rel L2 of each tensor
 SHARD_LM = dict(units=64, heads=4, layers=2, vocab=512, batch=4, seq=8192)
 SHARD_LM_STEPS = 10
 SHARD_LM_BOUND = 1e-4  # fp32: step 0's loss, ring / Ulysses vs sp = 1
-SHARD_TIMEOUT = 420.0  # s, the ranks' whole run (phase 24's work too)
+SHARD_TIMEOUT = 420.0  # s, the ranks' phase-23 work (phase 24's too)
 SHARD_SECONDS = 90.0   # the phase's limit, phase 24's rank work left out
 
 
@@ -11268,25 +11773,23 @@ def shard_tracked(tr, names=SHARD_TRACKED):
                 tr.state_full(n)[0].cpu().clone()) for n in names}
 
 
-def shard_rank(out_dir, backend, devices):
-    """One rank of phase 23, started by the port's tools/launch.py: (c)
-    SPMDTrainer.forward of BERT-base at dp = 2; (a) BERT-base trained at
+def shard_rank(out_dir, devices, t_start):
+    """Phase 23's work in one rank of kv_shard_rank, begun at ``t_start``:
+    (c) SPMDTrainer.forward of BERT-base at dp = 2; (a) BERT-base trained at
     fsdp = 2 and at tp = 2 (step 1, then SHARD_STEPS counted steps with
     the kernel counters set to 0 just before and read just after); (b)
     the long-context LM at dp = 1 x sp = 2, ring and Ulysses; then phase
     24's cases (a)-(c) (pc_rank_pipeline, pc_rank_moe, pc_rank_nmt).
     Rank 0 saves its tensors of phase 23, each rank its tensors of phase
-    24; both write their records."""
+    24; both write their records, each with the part's exit code (1 on a
+    failure recorded in this part or a JAX module loaded)."""
     from mxnet_tpu_torch import parallel
     from mxnet_tpu_torch.examples import bench_steps as bs
     from mxnet_tpu_torch.examples import long_context_lm as lm
 
     rank = int(os.environ["DMLC_WORKER_ID"])
     dev = torch.device(devices[rank])
-    torch.cuda.set_device(dev)
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
-    parallel.dist.init(backend=backend, timeout=DP_COLLECTIVE_TIMEOUT)
+    n_failed = len(FAILURES)  # phase 22's part's failures are its own
     res = {"rank": rank, "cases": {}, "lm": {}, "pc": {}}
     saved, pc_saved = {}, {}
     batch = bs.bert_batch("full", seed=0, ctx=dev)
@@ -11375,10 +11878,12 @@ def shard_rank(out_dir, backend, devices):
     if rank == 0:
         torch.save(saved, os.path.join(out_dir, "rank0.pt"))
     torch.save(pc_saved, os.path.join(out_dir, f"rank{rank}_pc.pt"))
+    parallel.dist.barrier()
+    res["seconds"] = time.perf_counter() - t_start
+    res["rc"] = 1 if FAILURES[n_failed:] or res["jax_imported"] else 0
     with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
         json.dump(res, f)
-    parallel.dist.barrier()
-    return 0
+    return res["rc"]
 
 
 def gc_cuda():
@@ -11390,45 +11895,39 @@ def gc_cuda():
 
 def phase_sharded(card, recs_att):
     """Phase 23: sharded meshes on the card (ROADMAP queue A item 7, cut
-    (b)).  Two ranks started once by the port's tools/launch.py (gloo on
-    one card; NCCL when there are two) run shard_rank; this process holds
-    their results against dp = 1 and sp = 1 runs of the same weights, and
+    (b)).  The two ranks of launch_kv_shard (gloo on one card; NCCL when
+    there are two) run shard_rank after phase 22's work; this process
+    holds their results against dp = 1 and sp = 1 runs of the same weights, and
     kernel 5 at the fsdp ranks' shape (batch 16) against its plain
     version."""
     from mxnet_tpu_torch import _graphs as graphs
     from mxnet_tpu_torch import parallel
     from mxnet_tpu_torch.examples import bench_steps as bs
     from mxnet_tpu_torch.examples import long_context_lm as lm
-    import shutil
 
+    launch = launch_kv_shard(card)  # started once for phases 22-24
     t0 = time.perf_counter()
-    out_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
-                           "build", "chip_smoke_shard")
-    shutil.rmtree(out_dir, ignore_errors=True)
-    os.makedirs(out_dir)
-    gc_cuda()
-    if torch.cuda.device_count() >= SHARD_RANKS:
-        backend = "nccl"
-        devices = [f"cuda:{r}" for r in range(SHARD_RANKS)]
-    else:
-        backend, devices = "gloo", ["cuda:0"] * SHARD_RANKS
-    mode = (f"{SHARD_RANKS} ranks, backend {backend}, devices "
-            f"{','.join(devices)}")
-    print(f"sharded: {mode}; BERT-base bf16 batch {BATCH} at fsdp=2 and "
-          f"tp=2, the LM at dp=1 x sp=2, L={SHARD_LM['seq']} [{card}]",
-          flush=True)
-    rc = launch_ranks("--shard-rank", out_dir, backend, devices,
-                      SHARD_TIMEOUT)
-    t_ranks = time.perf_counter() - t0
+    out_dir, backend, mode = (launch["shard"], launch["backend"],
+                              launch["mode"])
+    t_ranks = launch["shard_s"]
     res = {"mode": mode, "backend": backend, "ranks": SHARD_RANKS,
            "launches": {c: 0 for c in SHARD_CASES}}
-    if rc != 0:
-        fail(f"sharded: the launcher exited {rc}")
+    if not all(os.path.exists(os.path.join(out_dir, f"rank{r}.json"))
+               for r in range(SHARD_RANKS)):
+        fail(f"sharded: the launcher exited {launch['rc']} before the "
+             f"ranks recorded phase 23")
         return res, []
     ranks = []
     for r in range(SHARD_RANKS):
         with open(os.path.join(out_dir, f"rank{r}.json")) as f:
             ranks.append(json.load(f))
+        if ranks[-1]["rc"]:
+            fail(f"sharded: rank {r}'s phase-23 part exited "
+                 f"{ranks[-1]['rc']}")
+    if launch["rc"] and not any(rk["rc"] for rk in ranks):
+        # both parts recorded success: the ranks failed after them
+        fail(f"sharded: the launcher exited {launch['rc']} after the ranks "
+             f"recorded phases 22 and 23")
     saved = torch.load(os.path.join(out_dir, "rank0.pt"))
     for rk in ranks:
         if rk["jax_imported"]:
@@ -11571,16 +12070,12 @@ def phase_sharded(card, recs_att):
             "bert_tp2", [(recs_att["bert.packed"], BERT_LAYERS)],
             res["launches"]["tp"], BATCH), backend=backend,
             ranks=SHARD_RANKS)]
-    # phase 24's work in the same ranks is counted in phase 24
-    pc_s = max(sum(rk["pc"][c]["seconds"] for c in ("pipeline", "moe",
-                                                     "nmt"))
-               for rk in ranks)
-    res["seconds"] = time.perf_counter() - t0 - pc_s
+    res["seconds"] = time.perf_counter() - t0 + t_ranks
     res["out_dir"] = out_dir
-    print(f"sharded: phase 23 took {res['seconds']:.1f} s (ranks "
-          f"{t_ranks:.1f} s, of which phase 24's work {pc_s:.1f} s, not "
-          f"counted here; limit {SHARD_SECONDS:.0f} s) [{card}]",
-          flush=True)
+    print(f"sharded: phase 23 took {res['seconds']:.1f} s (its part in the "
+          f"ranks {t_ranks:.1f} s; phase 24's cases there, "
+          f"{launch['pc_s']:.1f} s, not counted here; limit "
+          f"{SHARD_SECONDS:.0f} s) [{card}]", flush=True)
     print("sharded: " + json.dumps(res), flush=True)
     if res["seconds"] > SHARD_SECONDS:
         fail(f"sharded: phase 23 took {res['seconds']:.1f} s, over "
@@ -11959,8 +12454,7 @@ def phase_parallel_c(card, out_dir, backend, recs_pc):
             ranks.append(json.load(f)["pc"])
     saved = [torch.load(os.path.join(out_dir, f"rank{r}_pc.pt"))
              for r in range(SHARD_RANKS)]
-    rank_s = max(sum(rk[c]["seconds"] for c in ("pipeline", "moe", "nmt"))
-                 for rk in ranks)
+    rank_s = KEEP["ranks"]["pc_s"]
     res = {"rank_seconds": rank_s}
     # (a) pipeline_apply at pp = 2 against the stages one after the other
     shard_restore(step, w0)
@@ -12174,7 +12668,7 @@ def timed(label, fn, *args):
 def main():
     if "--naive-engine" in sys.argv:
         return naive_engine_child()
-    for flag, part in (("--kv-rank", kv_rank), ("--shard-rank", shard_rank)):
+    for flag, part in (("--kv-shard-rank", kv_shard_rank),):
         if flag not in sys.argv:
             continue
         import argparse
@@ -12227,6 +12721,7 @@ def main():
     _, quant_kernels = timed("19 quant", phase_quant, card)
     timed("20 custom_onnx", phase_custom_onnx, card)
     timed("21 item9", phase_item9, card)
+    timed("22-24 ranks", launch_kv_shard, card)
     kv_res = timed("22 kvstore", phase_kvstore, card)
     recs_kv, recs_bwd_kv = timed("22 kernels_kv", phase_kernels_kv)
     shard_res, shard_kernels = timed("23 sharded", phase_sharded, card,
@@ -12255,6 +12750,9 @@ def main():
                             recs_bwd, "train", imp_res["launches"]["bwd"]),
              path="train_gluon"),
         attention_summary(recs_att, bert_res.get("launches", 0)),
+        # phase 4b's HTTP part: the same served forward behind serve_http,
+        # at the buckets its batches ran at, summed over all of (a)
+        http_summary(bert_res.get("http", {})),
         dict(kernel_summary(KERNEL_DP, recs_dp, "train_dp",
                             dp_res["launches"]["fwd"]), **dp_keys),
         dict(kernel_summary(KERNEL_BWD_DP, recs_bwd_dp, "train_dp",

@@ -41,13 +41,18 @@ and a CUDA device trace), ``monitor`` (``Module.install_monitor``),
 API: parameters replicated over several contexts, the ``device`` and
 dist ``kvstore``s (``kvstore_compression``, ``kvstore_server``), the
 ``spmd=True`` step's ``optimizer.SpmdUpdater`` and ``optimizer.comm``,
-``Module`` over several contexts and ``tools/launch.py``.
+``Module`` over several contexts and ``tools/launch.py``; slice 28 adds
+serving's production front end: ``serving.serve_http``, the circuit
+breaker, retry and chaos (``resilience``), rollover and drain, over the
+metrics, tracing and alert core of ``telemetry``.
 """
 from __future__ import annotations
 
 import os as _os
 
 from .base import MXNetError
+
+__version__ = "0.1.0"
 from . import context, util
 from .context import (Context, cpu, cpu_pinned, cpu_shared, current_context,
                       gpu, num_gpus, tpu)
@@ -71,6 +76,7 @@ from . import contrib, rnn
 from . import image, lib, recordio
 from . import operator
 from . import profiler, storage
+from . import resilience, telemetry
 from . import monitor, rtc, runtime, test_utils, visualization
 from . import monitor as mon
 from . import visualization as viz
@@ -97,4 +103,4 @@ __all__ = ["MXNetError", "Context", "context", "cpu", "gpu", "tpu",
            "sym", "module", "mod", "contrib", "rnn", "image", "lib",
            "recordio", "operator", "profiler", "storage", "monitor", "mon",
            "rtc", "runtime", "test_utils", "visualization", "viz",
-           "waitall"]
+           "waitall", "resilience", "telemetry", "__version__"]

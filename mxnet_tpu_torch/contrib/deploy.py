@@ -151,12 +151,26 @@ class ServedModel:
             xs.append(v)
         return xs
 
-    def run(self, xs) -> list:
-        """Flat output leaves for already-checked inputs."""
-        with torch.inference_mode():
+    def run(self, xs, generator=None) -> list:
+        """Flat output leaves for already-checked inputs.  ``generator``
+        (a ``torch.Generator`` on the model's device) is what a random
+        layer of the forward draws from; in eval mode no zoo layer
+        draws."""
+        from ..gluon.block import _Imperative
+
+        with torch.inference_mode(), _Imperative(False, generator):
             out = self.net(*[x.to(self.device, non_blocking=True)
                              for x in xs])
         return _leaves(out)
+
+    def release(self) -> None:
+        """Drop the network's captured CUDA graphs (and their memory
+        pool) and the reference to its weights: once no caller holds the
+        network, its device memory is free."""
+        from ..gluon import block as _block
+
+        _block._FWD_CACHE.drop_owner(_graphs.owner_token(self.net))
+        self.net = None
 
     def __call__(self, *inputs):
         return self.decode_outputs(self.run(self.check_inputs(inputs)))

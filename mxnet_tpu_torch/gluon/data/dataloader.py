@@ -35,7 +35,8 @@ process builds it.  So a loader gives the same batches with any number
 of workers and either pool under the same ``np.random.seed``.  Outside
 a loader a transform draws from numpy's global generator, as in the
 JAX package.  The JAX package's chaos, telemetry and sanitizer hooks
-are ROADMAP queue A item 10.
+are ROADMAP queue A item 10 (``resilience.chaos`` has the harness, not
+this site).
 """
 from __future__ import annotations
 

@@ -34,7 +34,9 @@ ones), and the update op rescales it.
   replica count.  Either package's file loads in the other.
 
 The chaos, goodput and tracing hooks of the JAX Trainer are ROADMAP
-queue A item 10.
+queue A item 10 (the chaos harness and span tracing they call are
+``resilience.chaos`` and ``telemetry.tracing``; these sites are not
+wired yet).
 """
 from __future__ import annotations
 

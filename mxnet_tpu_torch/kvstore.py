@@ -36,8 +36,9 @@ rank's packed codes are gathered and every rank sums what each decodes
 (``_dcn_allreduce``) — not an all-reduce of codes.  The JAX package's
 route of one mesh program per bucket (``_bucket_allreduce_spmd``) has no
 counterpart here: the port's one program over the replicas is
-``SpmdUpdater``.  The chaos sites, retry policy and schedule ledger wait
-for ROADMAP queue A item 10.
+``SpmdUpdater``.  The chaos sites and retries (on ``resilience.chaos``
+and ``resilience.retry``) and the schedule ledger wait for ROADMAP
+queue A item 10.
 """
 from __future__ import annotations
 

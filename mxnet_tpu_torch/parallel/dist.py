@@ -47,9 +47,9 @@ collective failed on a dead peer).
 Every collective is bounded by the group's timeout (``timeout=`` of
 :func:`init`, else ``MXNET_KVSTORE_TIMEOUT`` seconds, else the backend's
 default), so a dead peer fails the step instead of hanging it.  The
-watchdog, the retry policy, the schedule ledger and the chaos sites are
-built on the JAX package's resilience layer and wait for it (ROADMAP.md
-queue A item 10).
+watchdog, the retries, the schedule ledger and the chaos sites wait for
+the collectives' resilience (ROADMAP.md queue A item 10), on the retry
+policy and chaos harness of ``resilience``.
 """
 from __future__ import annotations
 

@@ -2,12 +2,22 @@
 batches (counterpart of ``mxnet_tpu/serving/batcher.py``).
 
 One batcher per (model, version), one background thread each.  Requests
-of the same group — identical non-batch input shapes and dtypes — are
-concatenated along dim 0, padded with zero rows up to the next bucket,
-moved to the model's device and run in one launch; the outputs are
-sliced back per request.  A batch launches when it is full or when its
-oldest request has waited `batch_timeout_ms`; expired deadlines fail
-with DeadlineExceeded before launch, never silently dropped.
+of the same *group* — identical seed, identical non-batch input shapes
+and dtypes — are concatenated along dim 0, padded with zero rows up to
+the next bucket, moved to the model's device and run in one launch; the
+outputs are sliced back per request.  A batch launches when it is full
+or when its oldest request has waited `batch_timeout_ms`; expired
+deadlines fail with DeadlineExceeded before launch, never silently
+dropped.
+
+The launch runs under the resilience stack: every attempt feeds the
+entry's circuit breaker, and a TRANSIENT failure retries under the
+retry policy while the batch's earliest deadline allows.
+
+Stochastic caveat (as in the JAX package): the per-launch seed is shared
+by every row of a coalesced batch, so a forward that draws from it sees
+draws that depend on the row's offset and bucket; requests with
+different seeds never share a launch.
 """
 from __future__ import annotations
 
@@ -19,6 +29,10 @@ from typing import List, Optional
 
 import torch
 
+from .. import profiler as _prof
+from ..resilience import retry as _retry
+from ..telemetry import instruments as _ins
+from ..telemetry import tracing as _tracing
 from . import DeadlineExceeded, ServerClosed, ServingConfig, ServingError
 
 __all__ = ["DynamicBatcher"]
@@ -29,13 +43,18 @@ def _dtype_name(dt) -> str:
 
 
 class _Request:
-    __slots__ = ("xs", "rows", "future", "deadline", "enq")
+    __slots__ = ("xs", "rows", "seed", "future", "deadline", "enq",
+                 "enq_pc", "trace")
 
-    def __init__(self, xs, rows, deadline):
-        self.xs, self.rows = xs, rows
+    def __init__(self, xs, rows, seed, deadline, trace=None):
+        self.xs, self.rows, self.seed = xs, rows, seed
         self.deadline = deadline
         self.future: Future = Future()
         self.enq = time.monotonic()
+        # perf_counter twin of enq: span timestamps share the profiler's
+        # clock, monotonic stays the deadline clock
+        self.enq_pc = time.perf_counter()
+        self.trace = trace  # (trace_id, admission_span_id) or None
 
 
 class DynamicBatcher:
@@ -48,7 +67,14 @@ class DynamicBatcher:
         self._max_rows = min(self._config.max_batch_size, self._buckets[-1])
         self._timeout_s = self._config.batch_timeout_ms / 1e3
         self._specs = entry.input_specs()
+        # transient executor failures retry (deadline-aware) under this
+        # policy; ServingConfig.execute_retries overrides the env knob
+        self._retry_policy = _retry.RetryPolicy(
+            max_attempts=self._config.execute_retries) \
+            if self._config.execute_retries is not None \
+            else _retry.default_policy()
         self._cv = threading.Condition()
+        # group key -> FIFO of requests (OrderedDict: oldest group first)
         self._groups: "OrderedDict[tuple, deque]" = OrderedDict()
         self._closing = False
         self._thread = threading.Thread(
@@ -58,19 +84,26 @@ class DynamicBatcher:
 
     # ---- submission ---------------------------------------------------
 
-    def submit(self, inputs, deadline: Optional[float] = None) -> Future:
+    def submit(self, inputs, seed: int = 0,
+               deadline: Optional[float] = None, trace=None) -> Future:
         """Enqueue one request (inputs carry their own leading batch dim);
         returns a Future of the model's outputs (tensors on the model's
-        device)."""
+        device).  `trace` is the request's (trace_id, admission_span_id)
+        pair — queue-wait/execute spans on the batcher thread link back
+        to it."""
         xs, rows = self._validate(inputs)
-        req = _Request(xs, rows, deadline)
-        key = tuple((str(v.dtype), tuple(v.shape[1:])) for v in xs)
+        req = _Request(xs, rows, int(seed), deadline, trace=trace)
+        key = self._group_key(xs, req.seed)
         with self._cv:
             if self._closing:
                 raise ServerClosed(
                     f"model {self._entry.name!r}: server is shutting "
                     f"down, not accepting new requests")
             self._groups.setdefault(key, deque()).append(req)
+            if trace is not None:
+                # flow arrow emitted BEFORE the batcher thread can wake
+                # and emit the matching flow_end
+                _tracing.flow_start(trace[0])
             self._cv.notify()
         return req.future
 
@@ -101,10 +134,21 @@ class DynamicBatcher:
                                f"{self._max_rows}; split the request")
         return xs, rows
 
+    @staticmethod
+    def _group_key(xs, seed):
+        """Requests share a launch only with the same seed (one per
+        launch) and the same non-batch shapes and dtypes."""
+        return (("seed", seed),) + tuple(
+            ("b", str(v.dtype), tuple(v.shape[1:])) for v in xs)
+
     # ---- batching loop ------------------------------------------------
 
     def _loop(self):
         while True:
+            # dropped before the wait: the last batch's requests (their
+            # futures hold the outputs, on the card) must not outlive it
+            expired: List[_Request] = []
+            batch = None
             with self._cv:
                 while not self._groups and not self._closing:
                     self._cv.wait()
@@ -165,6 +209,8 @@ class DynamicBatcher:
         return None
 
     def _next_event_locked(self) -> Optional[float]:
+        """Earliest future instant the loop must act on: a group's
+        flush-due time or a request deadline."""
         t = None
         for q in self._groups.values():
             cand = q[0].enq + self._timeout_s
@@ -174,9 +220,43 @@ class DynamicBatcher:
                     t = min(t, r.deadline)
         return t
 
+    def _trace_batch_start(self, reqs: List[_Request], rows: int):
+        """Emit per-request queue-wait spans + flow ends, and open the
+        batch-assembly span (on the first traced request's trace id; its
+        `traces` arg lists every member).  Spans exist only during a
+        profiler capture."""
+        if not _prof._running:
+            return None
+        now = time.perf_counter()
+        primary = None
+        member_traces = []
+        for r in reqs:
+            if r.trace is None:
+                continue
+            member_traces.append(r.trace[0])
+            if primary is None:
+                primary = r.trace
+            _tracing.record_complete(
+                "queue-wait", "serving", r.enq_pc, now - r.enq_pc,
+                trace_id=r.trace[0], parent_id=r.trace[1])
+            _tracing.flow_end(r.trace[0])
+        return _tracing.Span(
+            "batch-assembly", "serving",
+            trace_id=primary[0] if primary else None,
+            parent_id=primary[1] if primary else None,
+            args={"rows": rows, "traces": member_traces})
+
+    @staticmethod
+    def _next_span(phase, name, args=None):
+        tr, par = phase.trace_id, phase.parent_id
+        phase.finish()
+        return _tracing.Span(name, "serving", trace_id=tr, parent_id=par,
+                             args=args)
+
     def _run_batch(self, reqs: List[_Request], rows: int):
         entry = self._entry
         m = entry.metrics
+        phase = self._trace_batch_start(reqs, rows)
         try:
             bucket = next(b for b in self._buckets if b >= rows)
             xs = []
@@ -186,20 +266,54 @@ class DynamicBatcher:
                     pad = v.new_zeros((bucket - rows,) + tuple(v.shape[1:]))
                     v = torch.cat([v, pad], dim=0)
                 xs.append(v)
-            leaves = entry.execute(bucket, xs)
+            if phase is not None:
+                phase = self._next_span(phase, "execute", {"bucket": bucket})
+            leaves = self._execute_resilient(bucket, xs, reqs)
             m.bump("batches")
             m.bump("batched_rows", rows)
             m.bump("padded_rows", bucket)
+            _ins.serving_occupancy(entry.name, entry.version).set(
+                rows / bucket)
+            if phase is not None:
+                phase = self._next_span(phase, "respond")
+            served = entry.served
             off = 0
             for r in reqs:
                 cut = [o[off:off + r.rows] for o in leaves]
                 off += r.rows
-                r.future.set_result(entry.served.decode_outputs(cut))
+                r.future.set_result(served.decode_outputs(cut))
         except Exception as e:  # noqa: BLE001 — delivered to every request
             for r in reqs:
                 if not r.future.done():
                     m.bump("failed")
                     r.future.set_exception(e)
+        finally:
+            if phase is not None:
+                phase.finish()
+
+    def _execute_resilient(self, bucket: int, xs, reqs: List[_Request]):
+        """The executor launch under the resilience stack: every
+        attempt's outcome feeds the entry's circuit breaker (that's how
+        consecutive failures trip it), and a TRANSIENT failure retries
+        with backoff while the batch's earliest request deadline allows.
+        Non-transient errors fail immediately; the breaker counts them
+        all the same."""
+        entry = self._entry
+
+        def attempt():
+            leaves = entry.execute(bucket, xs, seed=reqs[0].seed)
+            entry.breaker.record_success()
+            return leaves
+
+        deadline = min((r.deadline for r in reqs
+                        if r.deadline is not None), default=None)
+        try:
+            return self._retry_policy.call(
+                attempt, site="serving.execute", deadline=deadline,
+                on_failure=lambda e: entry.breaker.record_failure())
+        except _retry.RetryExhausted:
+            entry.metrics.bump("retries_exhausted")
+            raise
 
     # ---- lifecycle ----------------------------------------------------
 

@@ -4,12 +4,19 @@ Counterpart of ``mxnet_tpu/serving/repository.py``.  Artifacts are
 imported lazily (``contrib.deploy.import_model`` on first use, once, on
 the entry's own import lock), and several versions of one model may be
 loaded.  PyTorch runs eagerly, so a bucket's executor is the served
-model's forward and there is nothing to compile; the per-bucket cache
-and its hit/miss counters stay, so the serving layer keeps its shape.
+model's forward (on the card, the hybridized forward's CUDA graph of
+that bucket, captured by its first batch); the per-bucket cache and its
+hit/miss counters stay, so the serving layer keeps its shape.
+
+Each entry carries its circuit breaker, the use-count and retire
+protocol of zero-downtime rollover (a retired entry drops its graphs
+and weights when its last in-flight request ends), and the chaos sites
+``serving.artifact`` and ``serving.execute``.
 
 Directory conventions:
     repo.add("resnet", "/path/to/artifact")          # version 1
     repo.add("resnet", "/path/to/v2", version=2)
+    repo.scan("/models")   # /models/<name>/<int-version>/meta.json
 """
 from __future__ import annotations
 
@@ -17,11 +24,15 @@ import os
 import threading
 from typing import Dict, List, Optional
 
+import torch
+
 from .. import context as _context
+from ..resilience import chaos as _chaos
+from ..resilience.breaker import CircuitBreaker
 from . import ModelNotFound, ServingError
 from .metrics import ModelMetrics
 
-__all__ = ["ModelRepository"]
+__all__ = ["ModelRepository", "_ModelEntry"]
 
 
 class _ModelEntry:
@@ -32,23 +43,91 @@ class _ModelEntry:
         self.device = device
         self.metrics = ModelMetrics(name, version)
         self._lock = threading.Lock()
-        # a slow import must not block cache lookups on the entry lock
+        # a slow import must not block begin_use/end_use or cache
+        # lookups, which share the hot entry lock
         self._import_lock = threading.Lock()
+        # seeding the generator and running the batch are one step
+        self._run_lock = threading.Lock()
         self._served = None
+        self._generator = None
         self._executables: Dict[int, object] = {}
+        # degrade-don't-die: consecutive executor failures open this
+        # and the server 503s THIS model while the process serves on
+        self.breaker = CircuitBreaker(name, version)
+        # rollover bookkeeping: requests hold a use-count from admission
+        # to completion; a retired entry releases its artifact when the
+        # LAST in-flight request finishes — never under one
+        self._inflight = 0
+        self._retired = False
+
+    # ---- rollover lifecycle -------------------------------------------
+
+    def begin_use(self) -> "_ModelEntry":
+        """One in-flight request starts on this entry (the server holds
+        a use across the request; execute() holds one per launch)."""
+        with self._lock:
+            self._inflight += 1
+        return self
+
+    def end_use(self) -> None:
+        with self._lock:
+            self._inflight -= 1
+            if self._retired and self._inflight == 0:
+                self._release_locked()
+
+    def retire(self) -> None:
+        """This entry lost the default slot: release its executors as
+        soon as the in-flight requests drain (now, if none).  The entry
+        stays in the repository — an explicit-version request later
+        simply re-imports lazily."""
+        with self._lock:
+            self._retired = True
+            if self._inflight == 0:
+                self._release_locked()
+
+    def unretire(self) -> None:
+        with self._lock:
+            self._retired = False
+
+    @property
+    def retired(self) -> bool:
+        with self._lock:
+            return self._retired
+
+    def inflight(self) -> int:
+        with self._lock:
+            return self._inflight
+
+    def _release_locked(self) -> None:
+        """Drop the imported artifact, its captured graphs and its
+        weights (caller holds self._lock)."""
+        served, self._served = self._served, None
+        self._executables.clear()
+        self._generator = None
+        if served is not None:
+            served.release()
+
+    # ---- lazy artifact ------------------------------------------------
 
     @property
     def served(self):
         """The imported artifact (contrib.deploy.ServedModel), on first
         touch; racing requests pay one import."""
-        if self._served is None:
+        served = self._served
+        if served is None:
+            if _chaos._ACTIVE:
+                # artifact storage flaking: the error must surface to
+                # THIS request and leave the entry importable for the
+                # next one
+                _chaos.check("serving.artifact")
             with self._import_lock:
-                if self._served is None:
+                served = self._served
+                if served is None:
                     from ..contrib import deploy
 
-                    self._served = deploy.import_model(self.path,
-                                                       ctx=self.device)
-        return self._served
+                    served = deploy.import_model(self.path, ctx=self.device)
+                    self._served = served
+        return served
 
     @property
     def meta(self) -> dict:
@@ -76,6 +155,8 @@ class _ModelEntry:
         fixed = self.fixed_batch()
         return list(ladder) if fixed is None else [fixed]
 
+    # ---- executor cache ----------------------------------------------
+
     def executable(self, bucket: int):
         """The executor for `bucket` padded rows (cached per bucket)."""
         with self._lock:
@@ -94,13 +175,45 @@ class _ModelEntry:
             self.metrics.bump("cache_misses")
         return fn
 
-    def execute(self, bucket: int, xs) -> list:
-        """Run one padded batch; returns the flat output leaves."""
-        return list(self.executable(bucket)(xs))
+    def execute(self, bucket: int, xs, seed: int = 0) -> list:
+        """Run one padded batch; returns the flat output leaves.  The
+        forward draws from the entry's generator, seeded with ``seed``
+        for the batch.  Holds a use-count for the launch so a concurrent
+        rollover never releases this entry mid-flight."""
+        self.begin_use()
+        try:
+            if _chaos._ACTIVE:
+                _chaos.check("serving.execute")
+            fn = self.executable(bucket)
+            with self._run_lock:
+                gen = self._generator
+                if gen is None:
+                    gen = self._generator = torch.Generator(
+                        device=self.device)
+                gen.manual_seed(int(seed))
+                return list(fn(xs, gen))
+        finally:
+            self.end_use()
+
+    def warmup(self, ladder: Optional[List[int]] = None) -> None:
+        """Build the smallest allowed bucket's executor ahead of traffic
+        (on the card, its graph is captured by this zero batch).  Holds a
+        use-count like a request, so a warmup racing a rollover that
+        retires this entry still ends with the entry released."""
+        self.begin_use()
+        try:
+            bucket = self.allowed_buckets(ladder or [1])[0]
+            xs = [torch.zeros([bucket] + list(w["shape"][1:]),
+                              dtype=getattr(torch, w["dtype"]))
+                  for w in self.input_specs()]
+            self.execute(bucket, xs)
+        finally:
+            self.end_use()
 
 
 class ModelRepository:
-    """Name -> version -> entry; lookups default to the latest version.
+    """Name -> version -> entry.  Lookups default to the latest version
+    unless :meth:`rollover` pinned one.
 
     ``ctx`` is the device every model is served on (default gpu(0);
     raises without CUDA unless cpu() is passed)."""
@@ -109,6 +222,12 @@ class ModelRepository:
         self.device = _context.resolve(ctx)
         self._lock = threading.Lock()
         self._models: Dict[str, Dict[int, _ModelEntry]] = {}
+        # name -> pinned default version (rollover); absent = latest
+        self._default: Dict[str, int] = {}
+        # serializes whole rollovers (pin + entry transitions): two
+        # racing rollovers must not interleave their retire/unretire
+        # calls, which would leave the winning default retired
+        self._rollover_lock = threading.Lock()
 
     def add(self, name: str, path: str,
             version: Optional[int] = None) -> int:
@@ -126,6 +245,24 @@ class ModelRepository:
                                             self.device)
         return version
 
+    def scan(self, root: str) -> List[str]:
+        """Load `root/<name>/<int-version>/` artifact dirs; returns the
+        names added.  Non-integer or artifact-less subdirs are skipped
+        (a models dir often holds stray files)."""
+        added = []
+        for name in sorted(os.listdir(root)):
+            mdir = os.path.join(root, name)
+            if not os.path.isdir(mdir):
+                continue
+            for v in sorted(os.listdir(mdir)):
+                vdir = os.path.join(mdir, v)
+                if not v.isdigit() or \
+                        not os.path.exists(os.path.join(vdir, "meta.json")):
+                    continue
+                self.add(name, vdir, version=int(v))
+                added.append(f"{name}/{v}")
+        return added
+
     def get(self, name: str, version: Optional[int] = None) -> _ModelEntry:
         with self._lock:
             versions = self._models.get(name)
@@ -133,7 +270,7 @@ class ModelRepository:
                 raise ModelNotFound(f"unknown model {name!r}; loaded: "
                                     f"{sorted(self._models)}")
             if version is None:
-                version = max(versions)
+                version = self._default_version_locked(name, versions)
             entry = versions.get(version)
             if entry is None:
                 raise ModelNotFound(
@@ -141,7 +278,57 @@ class ModelRepository:
                     f"not {version}")
         return entry
 
+    def _default_version_locked(self, name: str, versions) -> int:
+        v = self._default.get(name)
+        # a pinned default that was since removed falls back to latest
+        return v if v is not None and v in versions else max(versions)
+
+    def default_version(self, name: str) -> int:
+        """The version a version-less request serves right now."""
+        with self._lock:
+            versions = self._models.get(name)
+            if not versions:
+                raise ModelNotFound(f"unknown model {name!r}")
+            return self._default_version_locked(name, versions)
+
+    def rollover(self, name: str, version: Optional[int] = None) -> int:
+        """Zero-downtime version swap.  Atomically pins ``version``
+        (latest when None) as the default, so every new version-less
+        request lands on it — and because it is PINNED, a later
+        :meth:`add` of a newer version no longer shifts traffic until
+        the next rollover.  Every OTHER version keeps serving its
+        in-flight requests and releases its artifact, graphs and weights
+        once the last one finishes; explicit-version requests for a
+        retired version still work, re-importing lazily.  Rolling back
+        is the same call with the old version number.  Returns the new
+        default version."""
+        with self._rollover_lock:
+            with self._lock:
+                versions = self._models.get(name)
+                if not versions:
+                    raise ModelNotFound(f"unknown model {name!r}; loaded: "
+                                        f"{sorted(self._models)}")
+                if version is None:
+                    version = max(versions)
+                new = versions.get(version)
+                if new is None:
+                    raise ModelNotFound(
+                        f"model {name!r} has versions {sorted(versions)}, "
+                        f"not {version}")
+                others = [e for v, e in versions.items() if v != version]
+                self._default[name] = version
+            # entry transitions OUTSIDE the repository lock (each entry
+            # has its own lock; retire may release executors)
+            new.unretire()
+            for e in others:
+                e.retire()
+            return version
+
     def entries(self) -> List[_ModelEntry]:
         with self._lock:
             return [e for vs in self._models.values()
                     for _, e in sorted(vs.items())]
+
+    def models(self) -> Dict[str, List[int]]:
+        with self._lock:
+            return {n: sorted(vs) for n, vs in self._models.items()}

@@ -1,0 +1,782 @@
+"""The framework's own metric families, in one place.
+
+Counterpart of ``mxnet_tpu/telemetry/instruments.py``: the same
+catalogue (names, kinds, labels, help), so ``/metrics`` shows the same
+families.  The port writes the serving, breaker, retry, chaos, alert
+and process families; the writers of the training, collective,
+compile-cache, HBM, health, goodput, blackbox and triage families come
+with their modules (ROADMAP queue A item 10).
+
+Instrument sites (op dispatch, trainer, dataloader, collectives, the
+serving stack, mxprof) get their families/children through these cached
+accessors so (a) every family is registered exactly once with one
+naming scheme, and (b) the per-event cost is a plain method call on a
+cached child object.  Naming scheme (docs/observability.md):
+
+    mx_<layer>_<what>_<unit-or-total>{label=...}
+
+Counters end in ``_total``; durations are histograms in seconds on the
+shared exponential ladder; point-in-time values are gauges.
+
+Every family is DECLARED up front in ``_SPECS`` (name, kind, labels,
+help) and the accessors resolve through it — the declaration table is
+the single source of truth the metric catalogue in
+``docs/observability.md`` is generated from (``telemetry.catalog``,
+``tools/gen_metric_docs.py``), the same registry-then-docs contract
+``util/env.py`` keeps for ``env_vars.md``.  An accessor cannot create
+an undeclared family, so the docs can never trail the code.
+"""
+from __future__ import annotations
+
+import os
+import sys
+import threading
+import time
+from typing import Dict, NamedTuple, Tuple
+
+from .metrics import MetricFamily, get_registry
+
+__all__ = [
+    "op_dispatch_total",
+    "training_phase_seconds", "training_steps_total",
+    "fused_step_total", "fused_compile_seconds",
+    "spmd_step_total", "spmd_compile_seconds",
+    "data_wait_seconds", "data_wait_last_seconds",
+    "collective_seconds", "collective_bytes_total",
+    "collective_wire_bytes_total",
+    "step_layout_axis_size", "step_state_shard_factor",
+    "step_mfu", "step_last_seconds", "step_flops_total",
+    "step_roofline_total",
+    "hbm_used_bytes", "hbm_peak_bytes", "hbm_optimizer_state_bytes",
+    "grad_norm", "param_norm", "update_ratio", "nonfinite_total",
+    "health_events_total", "health_steps_skipped_total",
+    "alerts_firing", "alerts_total",
+    "goodput_ratio", "job_wall_seconds", "badput_seconds_total",
+    "retry_backoff_seconds_total", "ckpt_seconds",
+    "blackbox_events_total", "incident_total",
+    "build_info", "process_uptime_seconds", "process_rss_bytes",
+    "retry_total", "fault_injected_total",
+    "compile_cache_hit_total", "compile_cache_miss_total",
+    "compile_cache_evict_total", "compile_cache_load_seconds",
+    "compile_cache_bytes", "compile_reason_total",
+    "triage_captures_total", "triage_suppressed_total",
+    "triage_capture_active",
+    "breaker_state", "breaker_open_total",
+    "serving_counter", "serving_queue_depth", "serving_occupancy",
+    "serving_request_latency", "serving_compile_total",
+    "serving_compile_seconds",
+    "san_violations_total", "ir_violations_total",
+    "specs", "refresh_process_gauges",
+]
+
+_lock = threading.RLock()  # _child -> _family nests the acquisition
+_families: Dict[str, MetricFamily] = {}
+_children: Dict[tuple, object] = {}
+_generation = -1  # registry generation the caches were built against
+
+
+class Spec(NamedTuple):
+    """One declared metric family — what the docs generator renders."""
+    name: str
+    kind: str
+    labels: Tuple[str, ...]
+    help: str
+
+
+_SPECS: Dict[str, Spec] = {}
+
+
+def _spec(name: str, kind: str, help: str, labels=()) -> str:
+    # only called from this module's top level: the import lock is the
+    # mutual exclusion, and the table is read-only afterwards
+    _SPECS[name] = Spec(name, kind, tuple(labels), help)  # mxlint: disable=MX004
+    return name
+
+
+def specs() -> Dict[str, Spec]:
+    """The declared catalogue (name -> Spec), the source of truth for
+    docs/observability.md's metric table and the scrape-coverage test."""
+    return dict(_SPECS)
+
+
+def _revalidate_locked() -> None:
+    """Drop the caches when the registry was clear()ed — otherwise
+    instrument sites would keep recording into orphaned children that
+    exposition never sees.  Caller holds _lock."""
+    global _generation
+    gen = get_registry().generation
+    if gen != _generation:
+        _families.clear()  # mxlint: disable=MX004 — caller holds _lock
+        _children.clear()  # mxlint: disable=MX004 — caller holds _lock
+        _generation = gen
+
+
+def _family(name: str) -> MetricFamily:
+    spec = _SPECS[name]
+    with _lock:
+        _revalidate_locked()
+        fam = _families.get(name)
+        if fam is None:
+            reg = get_registry()
+            fam = getattr(reg, spec.kind)(name, spec.help,
+                                          labels=spec.labels)
+            _families[name] = fam
+    return fam
+
+
+def _child(name: str, values=()):
+    key = (name,) + tuple(values)
+    with _lock:
+        _revalidate_locked()
+        child = _children.get(key)
+        if child is None:
+            child = _family(name).labels(*values)
+            _children[key] = child
+    return child
+
+
+# ---- op layer ---------------------------------------------------------
+
+_spec("mx_op_dispatch_total", "counter",
+      "Imperative op dispatches through ops.registry.invoke.", ("op",))
+
+
+def op_dispatch_total(op_name: str):
+    return _child("mx_op_dispatch_total", (op_name,))
+
+
+# ---- training ---------------------------------------------------------
+
+_spec("mx_training_phase_seconds", "histogram",
+      "Wall seconds per training-step phase: forward / backward / "
+      "grad-allreduce / optimizer-update / fused-update (nested in "
+      "optimizer-update on the fused path); under MXNET_SPMD=1 the "
+      "step tail is spmd-step, attributed as reduce-scatter / "
+      "shard-update / all-gather while tracing.", ("phase",))
+_spec("mx_training_steps_total", "counter", "Optimizer steps taken.")
+_spec("mx_fused_step_total", "counter",
+      "Trainer steps taken through the fused (single-dispatch) "
+      "optimizer-update path.")
+_spec("mx_fused_compile_seconds", "histogram",
+      "Seconds building one fused-step executable — the count is the "
+      "no-recompile guarantee (an lr change must not grow it).")
+_spec("mx_spmd_step_total", "counter",
+      "Trainer steps taken through the unified SPMD "
+      "(one-program-over-the-mesh) path.")
+_spec("mx_spmd_compile_seconds", "histogram",
+      "Seconds building one SPMD-step executable; the count is the "
+      "one-executable-per-(mesh, layout) guarantee.")
+_spec("mx_data_wait_seconds", "histogram",
+      "Seconds the training loop waited for the next batch.")
+_spec("mx_data_wait_last_seconds", "gauge",
+      "Most recent data-wait (seconds) — the live stall signal a "
+      "dashboard watches.")
+_spec("mx_collective_seconds", "histogram",
+      "Host-blocking collective wall seconds (allreduce / allgather / "
+      "barrier).", ("op",))
+_spec("mx_collective_bytes_total", "counter",
+      "Logical payload bytes moved by collectives, by operation "
+      "(reduce-scatter/all-gather/all-reduce) and mesh axis — the "
+      "model-sized half of scaling-efficiency attribution (what the "
+      "step REDUCES, independent of encoding).",
+      ("op", "axis"))
+_spec("mx_collective_wire_bytes_total", "counter",
+      "Bytes collectives actually put on the interconnect, by "
+      "operation, mesh axis, and wire encoding ('raw' = the payload "
+      "dtype as-is; 'int8'/'fp8' = MXNET_COMM_QUANT codes plus their "
+      "scale rows). The bytes-halving gate of a quantized-collective "
+      "change measures THIS series; mx_collective_bytes_total stays "
+      "flat by design.",
+      ("op", "axis", "encoding"))
+_spec("mx_step_layout_axis_size", "gauge",
+      "Size of each mesh axis the active training-step layout runs "
+      "over (1 = axis unused).", ("axis",))
+_spec("mx_step_state_shard_factor", "gauge",
+      "Ways the optimizer states of the active step layout are sharded "
+      "across the data axis (1 = fully replicated, N = ZeRO-1 over N "
+      "shards).")
+
+
+def training_phase_seconds(phase: str):
+    return _child("mx_training_phase_seconds", (phase,))
+
+
+def training_steps_total():
+    return _child("mx_training_steps_total")
+
+
+def fused_step_total():
+    return _child("mx_fused_step_total")
+
+
+def fused_compile_seconds():
+    return _child("mx_fused_compile_seconds")
+
+
+def spmd_step_total():
+    return _child("mx_spmd_step_total")
+
+
+def spmd_compile_seconds():
+    return _child("mx_spmd_compile_seconds")
+
+
+def data_wait_seconds():
+    return _child("mx_data_wait_seconds")
+
+
+def data_wait_last_seconds():
+    return _child("mx_data_wait_last_seconds")
+
+
+def collective_seconds(op: str):
+    return _child("mx_collective_seconds", (op,))
+
+
+def collective_bytes_total(op: str, axis: str):
+    return _child("mx_collective_bytes_total", (op, axis))
+
+
+def collective_wire_bytes_total(op: str, axis: str, encoding: str):
+    return _child("mx_collective_wire_bytes_total",
+                  (op, axis, encoding))
+
+
+def step_layout_axis_size(axis: str):
+    return _child("mx_step_layout_axis_size", (axis,))
+
+
+def step_state_shard_factor():
+    return _child("mx_step_state_shard_factor")
+
+
+# ---- mxprof: step attribution / MFU / HBM -----------------------------
+
+_spec("mx_step_mfu", "gauge",
+      "Model FLOP/s utilization of the last closed step: counted "
+      "program FLOPs / step wall seconds / per-device peak "
+      "(MXNET_PEAK_FLOPS or the device-kind table). Whole-step FLOPs "
+      "on the gspmd path; the AOT update tail on eager fwd/bwd paths. "
+      "Unknowable peak reports nothing rather than a made-up ratio.")
+_spec("mx_step_last_seconds", "gauge",
+      "Wall seconds of the last closed training step (the mxprof "
+      "flight recorder's live step-time signal).")
+_spec("mx_step_flops_total", "counter",
+      "Cumulative FLOPs of AOT-compiled programs dispatched on the "
+      "step path, from compiled.cost_analysis() captured at the "
+      "compile-cache sites (cached loads keep their cost metadata).")
+_spec("mx_step_roofline_total", "counter",
+      "Closed step records by roofline verdict: compute-bound / "
+      "comm-bound / input-bound / unattributed. The distribution is "
+      "the one-line answer to 'where did the step time go'.",
+      ("verdict",))
+_spec("mx_hbm_used_bytes", "gauge",
+      "Device memory in use per device, from the PjRt allocator stats "
+      "(bytes_in_use), sampled at step boundaries "
+      "(MXNET_MXPROF_HBM_EVERY) and on mxprof dumps.", ("device",))
+_spec("mx_hbm_peak_bytes", "gauge",
+      "Peak device memory per device: the allocator's high watermark "
+      "(peak_bytes_in_use) when reported, else the max sampled "
+      "used-bytes.", ("device",))
+_spec("mx_hbm_optimizer_state_bytes", "gauge",
+      "Per-device bytes held by optimizer states (total state bytes / "
+      "shard factor) — the share that proves the ZeRO-1 ~1/N state "
+      "claim on a real run.")
+
+
+def step_mfu():
+    return _child("mx_step_mfu")
+
+
+def step_last_seconds():
+    return _child("mx_step_last_seconds")
+
+
+def step_flops_total():
+    return _child("mx_step_flops_total")
+
+
+def step_roofline_total(verdict: str):
+    return _child("mx_step_roofline_total", (verdict,))
+
+
+def hbm_used_bytes(device: str):
+    return _child("mx_hbm_used_bytes", (device,))
+
+
+def hbm_peak_bytes(device: str):
+    return _child("mx_hbm_peak_bytes", (device,))
+
+
+def hbm_optimizer_state_bytes():
+    return _child("mx_hbm_optimizer_state_bytes")
+
+
+# ---- mxhealth: numerics telemetry + alert engine ----------------------
+
+_spec("mx_grad_norm", "gauge",
+      "Global gradient L2 norm of the last mxhealth sample, computed "
+      "in-graph inside the fused/SPMD step program (no extra "
+      "dispatch) and fetched every MXNET_HEALTH_EVERY steps.")
+_spec("mx_param_norm", "gauge",
+      "Global parameter L2 norm of the last mxhealth sample "
+      "(pre-update weights), computed in-graph beside mx_grad_norm.")
+_spec("mx_update_ratio", "gauge",
+      "Update-norm / param-norm of the last mxhealth sample — how far "
+      "one optimizer step moved the parameters relative to their "
+      "magnitude; drift past MXNET_HEALTH_RATIO_MAX records an "
+      "update-ratio health event.")
+_spec("mx_nonfinite_total", "counter",
+      "Cumulative nonfinite (NaN/Inf) gradient values observed by "
+      "mxhealth's in-graph counter. Any growth is a numerics "
+      "emergency — alert on it.")
+_spec("mx_health_events_total", "counter",
+      "mxhealth detector firings by kind: nonfinite / grad-spike / "
+      "loss-spike / update-ratio / straggler.", ("kind",))
+_spec("mx_health_steps_skipped_total", "counter",
+      "Steps the skip_step policy rejected in-graph (params and "
+      "optimizer states left bit-identical to their pre-step values "
+      "because the gradients carried nonfinite values).")
+_spec("mx_alerts_firing", "gauge",
+      "1 while the named alert rule is firing, 0 otherwise "
+      "(telemetry.alerts.AlertEngine).", ("rule", "severity"))
+_spec("mx_alerts_total", "counter",
+      "Alert-rule firings (pending -> firing transitions) since "
+      "process start.", ("rule", "severity"))
+
+
+def grad_norm():
+    return _child("mx_grad_norm")
+
+
+def param_norm():
+    return _child("mx_param_norm")
+
+
+def update_ratio():
+    return _child("mx_update_ratio")
+
+
+def nonfinite_total():
+    return _child("mx_nonfinite_total")
+
+
+def health_events_total(kind: str):
+    return _child("mx_health_events_total", (kind,))
+
+
+def health_steps_skipped_total():
+    return _child("mx_health_steps_skipped_total")
+
+
+def alerts_firing(rule: str, severity: str):
+    return _child("mx_alerts_firing", (rule, severity))
+
+
+def alerts_total(rule: str, severity: str):
+    return _child("mx_alerts_total", (rule, severity))
+
+
+# ---- mxgoodput: job-level goodput/badput accounting --------------------
+
+_spec("mx_goodput_ratio", "gauge",
+      "Productive training seconds / job wall-clock seconds of the "
+      "mxgoodput ledger (0..1). The one number a fleet operator "
+      "watches; MXNET_GOODPUT_MIN is the alert floor "
+      "(telemetry.alerts.goodput_rules).")
+_spec("mx_job_wall_seconds", "gauge",
+      "Wall-clock seconds the mxgoodput ledger has been accounting "
+      "for (since enable(); extended back to the preemption trigger "
+      "on a fresh-process resume). The denominator of "
+      "mx_goodput_ratio — the ledger's closure invariant guarantees "
+      "productive + badput + unattributed == this value.")
+_spec("mx_badput_seconds_total", "counter",
+      "Non-productive wall seconds attributed by the mxgoodput "
+      "ledger, by category: compile / data_wait / checkpoint_save "
+      "(step-path-blocking only) / checkpoint_restore / "
+      "preemption_recovery / retry_backoff / comm_stall. Categories "
+      "are disjoint — a data-wait second is never also counted as "
+      "comm_stall.", ("category",))
+_spec("mx_retry_backoff_seconds_total", "counter",
+      "Backoff sleep seconds of the retry policy, by call site — "
+      "previously invisible wall-clock. Bumped around the actual "
+      "time.sleep independent of whether mxgoodput is enabled.",
+      ("site",))
+_spec("mx_ckpt_seconds", "histogram",
+      "Checkpoint save/restore wall seconds. mode='sync' is the "
+      "step-path-BLOCKING portion (sync saves, the snapshot half of "
+      "async saves, and every restore); mode='async' is the daemon "
+      "writer's disk time, which overlaps training and is therefore "
+      "recorded but never counted as badput.", ("op", "mode"))
+
+
+def goodput_ratio():
+    return _child("mx_goodput_ratio")
+
+
+def job_wall_seconds():
+    return _child("mx_job_wall_seconds")
+
+
+def badput_seconds_total(category: str):
+    return _child("mx_badput_seconds_total", (category,))
+
+
+def retry_backoff_seconds_total(site: str):
+    return _child("mx_retry_backoff_seconds_total", (site,))
+
+
+def ckpt_seconds(op: str, mode: str):
+    return _child("mx_ckpt_seconds", (op, mode))
+
+
+# ---- mxblackbox: crash forensics --------------------------------------
+
+_spec("mx_blackbox_events_total", "counter",
+      "mxblackbox event-journal entries emitted, by category: alert "
+      "/ health / chaos / retry / checkpoint / preemption / compile "
+      "/ elastic / crash. 'crash' additionally counts every crash "
+      "bundle written by this process.", ("category",))
+_spec("mx_incident_total", "counter",
+      "Incident reports reconstructed by postmortem (supervisor "
+      "side), by first-failure category — 'unknown' when no bundle "
+      "evidence attributed the failure.", ("category",))
+
+
+def blackbox_events_total(category: str):
+    return _child("mx_blackbox_events_total", (category,))
+
+
+def incident_total(category: str):
+    return _child("mx_incident_total", (category,))
+
+
+# ---- process identity (what is being scraped) -------------------------
+
+_spec("mx_build_info", "gauge",
+      "Info gauge (value always 1): framework version, jax version, "
+      "backend platform, and device kind as labels — /metrics "
+      "identifies what is being scraped.",
+      ("version", "jax", "platform", "device_kind"))
+_spec("mx_process_uptime_seconds", "gauge",
+      "Seconds since this process imported the framework, refreshed "
+      "at scrape time.")
+_spec("mx_process_rss_bytes", "gauge",
+      "Resident set size of this process, refreshed at scrape time "
+      "(/proc/self/statm; ru_maxrss fallback reports the peak).")
+
+
+_IMPORT_T0 = time.monotonic()
+_PAGESIZE = os.sysconf("SC_PAGE_SIZE") if hasattr(os, "sysconf") else 4096
+
+
+def _read_rss_bytes() -> float:
+    try:
+        with open("/proc/self/statm") as f:
+            return float(f.read().split()[1]) * _PAGESIZE
+    except (OSError, IndexError, ValueError):
+        import resource
+
+        ru = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss
+        # ru_maxrss units are platform-defined: bytes on macOS, KiB on
+        # linux (where /proc normally answers first anyway)
+        return float(ru) * (1 if sys.platform == "darwin" else 1024)
+
+
+def build_info():
+    """The mx_build_info child for THIS process.  The label names are
+    the JAX package's: ``jax`` carries the torch version, ``platform``
+    ``cuda <toolkit version>`` (or ``cpu``), ``device_kind`` the card's
+    name.  A scrape must not create a CUDA context, so before one exists
+    platform and device kind read 'uninitialized'."""
+    version = platform = kind = torchver = "unknown"
+    try:
+        from .. import __version__ as version  # type: ignore
+    except Exception:
+        version = "unknown"
+    try:
+        import torch
+
+        torchver = torch.__version__
+        if torch.version.cuda is None or not torch.cuda.is_available():
+            platform = kind = "cpu"
+        elif torch.cuda.is_initialized():
+            platform = f"cuda {torch.version.cuda}"
+            kind = torch.cuda.get_device_name()
+        else:
+            platform = kind = "uninitialized"
+    except Exception:
+        pass
+    return _child("mx_build_info", (str(version), str(torchver),
+                                    str(platform), str(kind)))
+
+
+# the build-info labels last published; when the backend comes up the
+# labels flip (uninitialized -> real platform) and the stale identity
+# series must drop to 0, not linger at 1 beside the real one
+_build_info_last = None
+
+
+def refresh_process_gauges() -> None:
+    """The pre-scrape collector: build info (value 1), uptime, RSS."""
+    global _build_info_last
+    child = build_info()
+    prev = _build_info_last
+    if prev is not None and prev is not child:
+        prev.set(0)
+    # racing scrapes at worst re-run the 0/1 writes; both settle on the
+    # same newest child at 1
+    _build_info_last = child
+    child.set(1)
+    _child("mx_process_uptime_seconds").set(
+        time.monotonic() - _IMPORT_T0)
+    _child("mx_process_rss_bytes").set(_read_rss_bytes())
+
+
+get_registry().add_collector("process", refresh_process_gauges)
+
+
+# ---- resilience -------------------------------------------------------
+
+_spec("mx_retry_total", "counter",
+      "Transient-error retries by call site (collective, kvstore, "
+      "checkpoint I/O, serving execute, compile-cache IO). Sustained "
+      "growth means an infra fault is being papered over.", ("site",))
+_spec("mx_fault_injected_total", "counter",
+      "Faults injected by the chaos harness, by kind. Nonzero outside "
+      "a chaos experiment means MXNET_CHAOS leaked into production.",
+      ("kind",))
+_spec("mx_breaker_state", "gauge",
+      "Serving circuit-breaker state per model "
+      "(0 closed / 1 half-open / 2 open).", ("model", "version"))
+_spec("mx_breaker_open_total", "counter",
+      "Circuit-breaker trips (CLOSED/HALF-OPEN -> OPEN).",
+      ("model", "version"))
+_spec("mx_rank_heartbeat_age_seconds", "gauge",
+      "Age of each rank's elastic heartbeat stamp at the supervisor's "
+      "last poll (resilience.heartbeat shared-dir stamp files). An age "
+      "past MXNET_ELASTIC_HEARTBEAT_TIMEOUT_S with the process alive "
+      "means the rank is hung, not dead.", ("rank",))
+_spec("mx_elastic_restarts_total", "counter",
+      "Elastic-supervisor job restarts after a rank failure, by "
+      "recovery mode ('replace' = same world size, 'shrink' = resume "
+      "onto the survivors, 'aborted' = a job-fatal outcome — restart "
+      "budget exhausted or a schedule divergence — that consumed NO "
+      "restart). Growth of the recovery modes is measured recovery, "
+      "not mystery badput — see mx_badput_seconds_total{category="
+      "'rank_failure_recovery'}.", ("mode",))
+_spec("mx_collective_schedule_seq", "gauge",
+      "Next sequence index of the mxrank collective-schedule ledger "
+      "(parallel/schedule.py): how many collectives this process has "
+      "issued since start. Ranks drifting apart here while the job is "
+      "'healthy' is the early smoke of a divergent schedule.")
+_spec("mx_schedule_divergence_total", "counter",
+      "Watchdog timeouts the cross-rank schedule compare reclassified "
+      "as ScheduleDivergence, by collective site. Any nonzero value "
+      "is a deterministic program bug (rank-/data-divergent control "
+      "flow, the MX019/MX020 class) — the job aborts without "
+      "restarts; fix the program.", ("site",))
+
+
+def retry_total(site: str):
+    return _child("mx_retry_total", (site,))
+
+
+def fault_injected_total(kind: str):
+    return _child("mx_fault_injected_total", (kind,))
+
+
+def breaker_state(model: str, version):
+    return _child("mx_breaker_state", (model, str(version)))
+
+
+def breaker_open_total(model: str, version):
+    return _child("mx_breaker_open_total", (model, str(version)))
+
+
+def rank_heartbeat_age_seconds(rank: str):
+    return _child("mx_rank_heartbeat_age_seconds", (str(rank),))
+
+
+def elastic_restarts_total(mode: str):
+    return _child("mx_elastic_restarts_total", (mode,))
+
+
+def collective_schedule_seq():
+    return _child("mx_collective_schedule_seq")
+
+
+def schedule_divergence_total(site: str):
+    return _child("mx_schedule_divergence_total", (site,))
+
+
+# ---- compile cache ----------------------------------------------------
+
+_spec("mx_compile_cache_hit_total", "counter",
+      "Persistent compile-cache hits by site and tier (memory / exec / "
+      "stablehlo). An exec hit skipped an XLA compilation entirely.",
+      ("site", "tier"))
+_spec("mx_compile_cache_miss_total", "counter",
+      "Persistent compile-cache misses (a fresh XLA compile ran). "
+      "Sustained misses on a warmed fleet mean the key drifted — check "
+      "jax/artifact versions.", ("site",))
+_spec("mx_compile_cache_evict_total", "counter",
+      "Compile-cache evictions by store (disk = the "
+      "MXNET_COMPILE_CACHE_BYTES cap; memory = the in-process digest "
+      "tier; fused / spmd / ops_jit / ops_grad / ops_aot = the bounded "
+      "per-site executable caches).", ("store",))
+_spec("mx_compile_cache_load_seconds", "histogram",
+      "Seconds to load+deserialize one exec-tier entry from disk — "
+      "the warm-start cost that replaces a compile.")
+_spec("mx_compile_cache_bytes", "gauge",
+      "Bytes of live entries in the on-disk compile cache.")
+
+
+def compile_cache_hit_total(site: str, tier: str):
+    return _child("mx_compile_cache_hit_total", (site, tier))
+
+
+def compile_cache_miss_total(site: str):
+    return _child("mx_compile_cache_miss_total", (site,))
+
+
+def compile_cache_evict_total(store: str):
+    return _child("mx_compile_cache_evict_total", (store,))
+
+
+def compile_cache_load_seconds():
+    return _child("mx_compile_cache_load_seconds")
+
+
+def compile_cache_bytes():
+    return _child("mx_compile_cache_bytes")
+
+
+# ---- mxtriage: compile provenance + on-demand deep capture ------------
+
+_spec("mx_compile_reason_total", "counter",
+      "Compile-cache misses by site and the signature component that "
+      "changed vs the nearest prior compile at that site (avals / "
+      "statics / donation / device / program / env / first / ...). A "
+      "recompile storm names its cause here instead of just its count "
+      "(mxtriage compile provenance).", ("site", "component"))
+_spec("mx_triage_captures_total", "counter",
+      "mxtriage deep captures completed, by trigger (manual / http / "
+      "sigusr1 / alert / step).", ("trigger",))
+_spec("mx_triage_suppressed_total", "counter",
+      "mxtriage deep-capture triggers suppressed by the admission "
+      "gate, by reason (busy = a capture was already in flight; "
+      "rate-limited = inside MXNET_TRIAGE_ALERT_INTERVAL_S; error = "
+      "the profiler backend refused to start).", ("reason",))
+_spec("mx_triage_capture_active", "gauge",
+      "1 while an mxtriage deep capture holds the admission slot "
+      "(armed or recording), 0 otherwise — at most one capture can be "
+      "in flight per process.")
+
+
+def compile_reason_total(site: str, component: str):
+    return _child("mx_compile_reason_total", (site, component))
+
+
+def triage_captures_total(trigger: str):
+    return _child("mx_triage_captures_total", (trigger,))
+
+
+def triage_suppressed_total(reason: str):
+    return _child("mx_triage_suppressed_total", (reason,))
+
+
+def triage_capture_active():
+    return _child("mx_triage_capture_active")
+
+
+# ---- analysis ---------------------------------------------------------
+
+_spec("mx_san_violations_total", "counter",
+      "mxsan sanitizer violations by detector kind (lock-order, "
+      "lockset-race, recompile-storm). Any non-zero value is a "
+      "finding — alert on it.", ("kind",))
+
+
+def san_violations_total(kind: str):
+    return _child("mx_san_violations_total", (kind,))
+
+
+_spec("mx_ir_violations_total", "counter",
+      "mxir StableHLO program-audit violations by rule (MX014 "
+      "donation-dropped, MX015 oversized-replicated, MX016 "
+      "precision-leak, MX017 collective-audit, MX018 host-transfer), "
+      "counted at executable-cache compile time under "
+      "MXNET_IR_AUDIT=1. Any non-zero value is a finding — alert on "
+      "it.", ("rule",))
+
+
+def ir_violations_total(rule: str):
+    return _child("mx_ir_violations_total", (rule,))
+
+
+# ---- serving ----------------------------------------------------------
+# each serving counter is declared explicitly (not via an f-string
+# family) so the docs catalogue and the drift check see every name
+
+for _n, _h in (
+        ("requests", "Requests admitted."),
+        ("completed", "Requests completed successfully."),
+        ("failed", "Requests failed in execution."),
+        ("rejected", "Requests shed at admission (backpressure 503)."),
+        ("deadline_expired", "Requests dropped past their deadline."),
+        ("batches", "Batches launched."),
+        ("batched_rows", "Real rows launched across batches."),
+        ("padded_rows", "Padding rows launched (bucket waste)."),
+        ("cache_hits", "Bucket-executor cache hits."),
+        ("cache_misses", "Bucket-executor cache misses (a compile or "
+                         "cache load followed)."),
+        ("retries_exhausted", "Transient-executor retries that "
+                              "exhausted their budget."),
+        ("breaker_rejected", "503s shed by an open circuit breaker."),
+        ("drain_timeouts", "Drain deadlines that abandoned queued work "
+                           "at shutdown."),
+):
+    _spec(f"mx_serving_{_n}_total", "counter",
+          f"Serving: {_h}", ("model", "version"))
+
+_spec("mx_serving_queue_depth", "gauge",
+      "Admitted-but-incomplete requests per model version.",
+      ("model", "version"))
+_spec("mx_serving_batch_occupancy", "gauge",
+      "Real rows / launched rows of the last batch "
+      "(1.0 = no padding waste).", ("model", "version"))
+_spec("mx_serving_request_latency_seconds", "histogram",
+      "End-to-end served request latency.", ("model", "version"))
+_spec("mx_serving_compile_total", "counter",
+      "AOT bucket compiles (TPU recompiles are the silent serving "
+      "killer — watch this). Counts real XLA builds only: persistent-"
+      "compile-cache loads land in mx_compile_cache_hit_total instead.",
+      ("model", "version"))
+_spec("mx_serving_compile_seconds", "histogram",
+      "Seconds spent in AOT bucket compilation.", ("model", "version"))
+
+
+def serving_counter(name: str, model: str, version) -> object:
+    return _child(f"mx_serving_{name}_total", (model, str(version)))
+
+
+def serving_queue_depth(model: str, version):
+    return _child("mx_serving_queue_depth", (model, str(version)))
+
+
+def serving_occupancy(model: str, version):
+    return _child("mx_serving_batch_occupancy", (model, str(version)))
+
+
+def serving_request_latency(model: str, version):
+    return _child("mx_serving_request_latency_seconds",
+                  (model, str(version)))
+
+
+def serving_compile_total(model: str, version):
+    return _child("mx_serving_compile_total", (model, str(version)))
+
+
+def serving_compile_seconds(model: str, version):
+    return _child("mx_serving_compile_seconds", (model, str(version)))

@@ -265,34 +265,29 @@ _QUEUED_KNOBS_BY_ITEM = {
     # resilience and observability
     "10": ("MXNET_PALLAS_INTERPRET", "MXNET_PALLAS_PROBE_BUDGET",
            "MXNET_USE_PALLAS", "MXNET_COMPILE_CACHE_BYTES",
-           "MXNET_COMPILE_CACHE_DIR",
-           "MXNET_COMPILE_CACHE_DISABLE", "MXNET_COMPILE_CACHE_OPS",
-           "MXNET_OP_CACHE_MAX", "MXNET_AUTOTUNE", "MXNET_AUTOTUNE_DIR",
-           "MXNET_AUTOTUNE_SCENARIO", "MXNET_AUTOTUNE_TRIAL_TIMEOUT_S",
-           "MXNET_BREAKER_COOLDOWN_MS", "MXNET_BREAKER_THRESHOLD",
-           "MXNET_CHAOS", "MXNET_CHAOS_SEED", "MXNET_CHAOS_SPEC",
-           "MXNET_CKPT_EVERY", "MXNET_CKPT_KEEP", "MXNET_ELASTIC",
-           "MXNET_ELASTIC_DIR", "MXNET_ELASTIC_RANK", "MXNET_ELASTIC_WORLD",
+           "MXNET_COMPILE_CACHE_DIR", "MXNET_COMPILE_CACHE_DISABLE",
+           "MXNET_COMPILE_CACHE_OPS", "MXNET_OP_CACHE_MAX", "MXNET_AUTOTUNE",
+           "MXNET_AUTOTUNE_DIR", "MXNET_AUTOTUNE_SCENARIO",
+           "MXNET_AUTOTUNE_TRIAL_TIMEOUT_S", "MXNET_CKPT_EVERY",
+           "MXNET_CKPT_KEEP", "MXNET_ELASTIC", "MXNET_ELASTIC_DIR",
+           "MXNET_ELASTIC_RANK", "MXNET_ELASTIC_WORLD",
            "MXNET_ELASTIC_HEARTBEAT_S", "MXNET_ELASTIC_HEARTBEAT_TIMEOUT_S",
            "MXNET_ELASTIC_MAX_RESTARTS", "MXNET_ELASTIC_GRACE_S",
            "MXNET_RANKCHECK", "MXNET_RANKCHECK_WINDOW",
-           "MXNET_RANKCHECK_WAIT_S", "MXNET_RETRY_BASE_MS",
-           "MXNET_RETRY_BUDGET_MS", "MXNET_RETRY_MAX_ATTEMPTS",
-           "MXNET_RETRY_MAX_MS", "MXNET_BLACKBOX", "MXNET_BLACKBOX_DIR",
+           "MXNET_RANKCHECK_WAIT_S", "MXNET_BLACKBOX", "MXNET_BLACKBOX_DIR",
            "MXNET_BLACKBOX_GEN", "MXNET_BLACKBOX_HISTORY",
            "MXNET_BLACKBOX_RING", "MXNET_BLACKBOX_SPILL_MB",
            "MXNET_BLACKBOX_STDERR_TAIL_KB", "MXNET_BLACKBOX_TAIL",
            "MXNET_GOODPUT", "MXNET_GOODPUT_MIN",
            "MXNET_GOODPUT_UNATTRIBUTED_MAX", "MXNET_HEALTH",
            "MXNET_HEALTH_ALERT_TICK_MS", "MXNET_HEALTH_EVERY",
-           "MXNET_HEALTH_POLICY", "MXNET_HEALTH_RATIO_MAX",
-           "MXNET_HEALTH_RING", "MXNET_HEALTH_SPIKE_K",
-           "MXNET_HEALTH_WINDOW", "MXNET_IR_AUDIT", "MXNET_IR_OUT",
-           "MXNET_IR_REPL_BYTES", "MXNET_IR_WIRE_TOL",
-           "MXNET_SAN", "MXNET_SAN_OUT", "MXNET_SAN_SUPPRESS",
-           "MXNET_TELEMETRY", "MXNET_MXPROF",
-           "MXNET_MXPROF_RING", "MXNET_MXPROF_HBM_EVERY",
-           "MXNET_MXPROF_DUMP", "MXNET_TRIAGE_DIR", "MXNET_TRIAGE_SECONDS",
+           "MXNET_HEALTH_POLICY",
+           "MXNET_HEALTH_RATIO_MAX", "MXNET_HEALTH_RING",
+           "MXNET_HEALTH_SPIKE_K", "MXNET_HEALTH_WINDOW", "MXNET_IR_AUDIT",
+           "MXNET_IR_OUT", "MXNET_IR_REPL_BYTES", "MXNET_IR_WIRE_TOL",
+           "MXNET_SAN", "MXNET_SAN_OUT", "MXNET_SAN_SUPPRESS", "MXNET_MXPROF",
+           "MXNET_MXPROF_RING", "MXNET_MXPROF_HBM_EVERY", "MXNET_MXPROF_DUMP",
+           "MXNET_TRIAGE_DIR", "MXNET_TRIAGE_SECONDS",
            "MXNET_TRIAGE_ALERT_INTERVAL_S", "MXNET_TRIAGE_STEP_TIMEOUT_S",
            "MXNET_TRIAGE_HISTORY", "MXNET_PEAK_FLOPS"),
 }
@@ -429,3 +424,42 @@ declare("MXNET_DRAIN_TIMEOUT_MS", float, 30000.0,
         "Hard deadline for InferenceServer.shutdown(drain=True): past "
         "it, still-queued requests fail with ServerClosed instead of "
         "the shutdown hanging forever on a wedged batch.")
+
+# -- telemetry, resilience (serving's production layer) ----------------------
+declare("MXNET_TELEMETRY", bool, False,
+        "Enable telemetry span tracing at import (metrics are always "
+        "on; this turns on trace-event emission — see "
+        "docs/observability.md).")
+declare("MXNET_BREAKER_THRESHOLD", int, 5,
+        "Serving circuit breaker: consecutive executor failures that "
+        "open the breaker (that model answers 503 until a probe "
+        "succeeds; the process never dies).")
+declare("MXNET_BREAKER_COOLDOWN_MS", float, 1000.0,
+        "Serving circuit breaker: milliseconds an OPEN breaker waits "
+        "before letting one half-open probe request through.",
+        tunable=Tunable(lo=100.0, hi=5000.0, scale="log"))
+declare("MXNET_CHAOS", bool, False,
+        "Master switch for the fault-injection harness "
+        "(resilience.chaos). Off = every injection site is a single "
+        "falsy flag check with zero behavior change.")
+declare("MXNET_CHAOS_SEED", int, 0,
+        "Seed for probabilistic chaos plans (kind@pF in "
+        "MXNET_CHAOS_SPEC) — schedules replay deterministically.")
+declare("MXNET_CHAOS_SPEC", str, "",
+        "Comma-separated chaos plans installed at import when "
+        "MXNET_CHAOS=1: 'kind@N' (fail Nth call), 'kind@xN' (next N), "
+        "'kind@pF' (probability F), optional ':action' "
+        "(error/die/hang/preempt). See docs/resilience.md.")
+declare("MXNET_RETRY_BASE_MS", float, 50.0,
+        "Retry policy: first backoff delay in milliseconds (doubles "
+        "per attempt, jittered ±50%, capped at MXNET_RETRY_MAX_MS).",
+        tunable=Tunable(lo=10.0, hi=500.0, scale="log"))
+declare("MXNET_RETRY_BUDGET_MS", float, 10000.0,
+        "Retry policy: hard wall-clock budget across all attempts of "
+        "one call, including backoff sleeps.")
+declare("MXNET_RETRY_MAX_ATTEMPTS", int, 3,
+        "Retry policy: total attempts per retryable call site "
+        "(1 = no retry). Only transient errors retry.")
+declare("MXNET_RETRY_MAX_MS", float, 2000.0,
+        "Retry policy: backoff delay ceiling in milliseconds.",
+        tunable=Tunable(lo=500.0, hi=10000.0, scale="log"))

@@ -179,7 +179,14 @@ def test_the_port_modules_import_no_jax():
                 "parallel/_compat.py", "parallel/ring.py",
                 "parallel/ulysses.py", "parallel/__init__.py",
                 "examples/long_context_lm.py", "parallel/moe.py",
-                "parallel/pipeline.py"):
+                "parallel/pipeline.py", "telemetry/__init__.py", "telemetry/metrics.py",
+                "telemetry/tracing.py", "telemetry/instruments.py",
+                "telemetry/catalog.py", "telemetry/alerts.py",
+                "resilience/__init__.py", "resilience/breaker.py",
+                "resilience/retry.py", "resilience/chaos.py",
+                "serving/__init__.py", "serving/metrics.py",
+                "serving/repository.py", "serving/batcher.py",
+                "serving/server.py", "serving/http.py"):
         for name in _imports(pkg / rel):
             assert not name.startswith(("jax", "mxnet_tpu.")) \
                 and name != "mxnet_tpu", (rel, name)
@@ -230,7 +237,9 @@ def test_the_port_modules_import_no_jax():
             "mxnet_tpu_torch.profiler, mxnet_tpu_torch.monitor, "
             "mxnet_tpu_torch.visualization, mxnet_tpu_torch.test_utils, "
             "mxnet_tpu_torch.examples.bert_pretrain, "
-            "mxnet_tpu_torch.examples.transformer_nmt; "
+            "mxnet_tpu_torch.examples.transformer_nmt, "
+            "mxnet_tpu_torch.telemetry, mxnet_tpu_torch.resilience, "
+            "mxnet_tpu_torch.serving.http; "
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'mxnet_tpu.')) or m == 'mxnet_tpu']; "
             "print(bad); sys.exit(1 if bad else 0)")

@@ -65,6 +65,12 @@ def test_every_jax_knob_is_declared_or_queued():
     assert {"MXNET_TEST_DEFAULT_CONTEXT", "MXNET_USE_SIGNAL_HANDLER",
             "MXNET_PROFILER_AUTOSTART",
             "MXNET_GPU_MEM_POOL_RESERVE"} <= port_names
+    # read by telemetry/, resilience/ and serving/ (no longer queued)
+    assert {"MXNET_BREAKER_THRESHOLD", "MXNET_BREAKER_COOLDOWN_MS",
+            "MXNET_CHAOS", "MXNET_CHAOS_SEED", "MXNET_CHAOS_SPEC",
+            "MXNET_RETRY_BASE_MS", "MXNET_RETRY_BUDGET_MS",
+            "MXNET_RETRY_MAX_ATTEMPTS", "MXNET_RETRY_MAX_MS",
+            "MXNET_TELEMETRY", "MXNET_DRAIN_TIMEOUT_MS"} <= port_names
 
 
 @pytest.mark.parametrize("name", sorted(k.name for k in env.knobs()))
@@ -120,7 +126,12 @@ def test_overlay_precedence_resolved_and_fingerprint(monkeypatch):
         env.clear_overlay()
     assert env.overlay_info() is None
     assert env.fingerprint() == before
-    assert env.tunables() == []
+    # the serving production layer's knobs carry the JAX search spaces
+    tuned = {k.name: k.tunable for k in env.tunables()}
+    assert tuned == {k.name: k.tunable for k in jenv.tunables()
+                     if k.name in tuned}
+    assert sorted(tuned) == ["MXNET_BREAKER_COOLDOWN_MS",
+                             "MXNET_RETRY_BASE_MS", "MXNET_RETRY_MAX_MS"]
 
 
 def test_generate_docs_lists_every_knob():

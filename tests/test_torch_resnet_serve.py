@@ -339,7 +339,14 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                 "parallel/sharding.py", "parallel/_compat.py",
                 "parallel/ring.py", "parallel/ulysses.py",
                 "parallel/__init__.py", "examples/long_context_lm.py",
-                "parallel/moe.py", "parallel/pipeline.py"):
+                "parallel/moe.py", "parallel/pipeline.py", "telemetry/__init__.py", "telemetry/metrics.py",
+                "telemetry/tracing.py", "telemetry/instruments.py",
+                "telemetry/catalog.py", "telemetry/alerts.py",
+                "resilience/__init__.py", "resilience/breaker.py",
+                "resilience/retry.py", "resilience/chaos.py",
+                "serving/__init__.py", "serving/metrics.py",
+                "serving/repository.py", "serving/batcher.py",
+                "serving/server.py", "serving/http.py"):
         assert pkg / rel in files, rel
     for f in files:
         for mod in _imports(f):
